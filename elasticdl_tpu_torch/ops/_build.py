@@ -1,0 +1,145 @@
+"""Build and load the port's CUDA kernels (``ops/csrc/*.cu``).
+
+The sources are compiled at first use with a direct ``nvcc`` call for
+``sm_90a`` into one shared library with a plain C interface, which is
+loaded with ``ctypes``.  Keeping PyTorch's headers out of the sources
+keeps the build to seconds (a source that includes them takes minutes),
+and ninja is not needed.
+
+The library lands in ``ops/_build/`` (listed in ``.gitignore``) under a
+name keyed by a hash of the sources, the flags, the nvcc version and the
+torch version, so an edited source or another toolkit rebuilds, and an
+unchanged one loads the file already there.  A file lock serialises
+concurrent first use across processes.  A failed build raises: nothing
+falls back to the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_HERE = Path(__file__).resolve().parent
+CSRC_DIR = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-lineinfo",
+    "-Xptxas=-v",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+#: argtypes of every C entry point (pointers and the stream as c_void_p,
+#: so ctypes never cuts a 64-bit address to a 32-bit int).
+SIGNATURES = {
+    "edl_fused_lookup": (_P, _P, _P, _LL, _I, _I, _I, _I, _P),
+    "edl_fused_lookup_fm": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    ),
+}
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def nvcc_path() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        candidate = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(candidate):
+            return candidate
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (neither under CUDA_HOME nor on PATH): the "
+            "port's CUDA kernels are built from ops/csrc/ at first use"
+        )
+    return found
+
+
+def build_key(nvcc: str) -> str:
+    import torch
+
+    version = subprocess.run(
+        [nvcc, "--version"], check=True, capture_output=True, text=True,
+        timeout=60,
+    ).stdout
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(version.encode())
+    digest.update(torch.__version__.encode())
+    return digest.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources if no library for their key exists yet;
+    returns the library's path.  The compiler's output (``-Xptxas=-v``:
+    registers, shared memory and spills per kernel) is kept beside it as
+    ``<name>.log``."""
+    nvcc = nvcc_path()
+    lib = BUILD_DIR / f"libedl_kernels_{build_key(nvcc)}.so"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if lib.exists():
+                return lib
+            tmp = lib.with_suffix(f".tmp{os.getpid()}")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+            t0 = time.monotonic()
+            proc = subprocess.run(
+                cmd, capture_output=True, text=True, timeout=900
+            )
+            log = (
+                f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+                f"[{time.monotonic() - t0:.1f} s, exit {proc.returncode}]\n"
+            )
+            lib.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed to build the kernels:\n{log}")
+            os.replace(tmp, lib)
+            return lib
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call in the process)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.edl_error_string.argtypes = [ctypes.c_int]
+    lib.edl_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, kernel: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if code != 0:
+        message = library().edl_error_string(code).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({message})")

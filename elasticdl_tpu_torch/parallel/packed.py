@@ -1,0 +1,125 @@
+"""Table geometry shared with the JAX package's packed storage.
+
+The JAX package stores a ``[vocab, dim]`` table as ``[num_blocks, 128]``
+f32 (``elasticdl_tpu/parallel/packed.py``): ``dim`` is padded to a power
+of two that divides 128 (``dim_padded``) and ``rows_per_block`` logical
+rows share one 128-lane storage row.  The packing exists for the TPU's
+(8, 128) tiling.  A CUDA card has no such tiling, so the port keeps a
+table as LOGICAL rows ``[vocab_padded, dim_padded]``: because
+``block_width == rows_per_block * dim_padded``, that is the same bytes
+as the packed buffer, and a JAX artifact's table ``.npy`` is used as it
+is through a reshape (a view, even of a memmap).  The port never needs
+the 128-lane packing on the card.
+
+``row_index`` is the kernels' id -> row rule, copied from
+``_block_and_lane`` (``elasticdl_tpu/ops/sparse_embedding.py``): the
+storage block is CLAMPED into ``[0, num_blocks)`` and the slot is the
+floor-mod of the id, so every id, negative or past the table, reads a
+real row.  Ids outside ``[0, vocab)`` are the Embedding layer's business
+(safe ids + validity mask); the clamp only keeps every read in bounds.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+LANES = 128
+
+
+def _pad_dim(dim: int) -> int:
+    """Smallest power of two >= dim that divides 128, or a multiple of 128
+    for wide rows (which need no packing)."""
+    if dim >= LANES:
+        return -(-dim // LANES) * LANES
+    p = 1
+    while p < dim:
+        p *= 2
+    return p
+
+
+@dataclass(frozen=True)
+class PackedSpec:
+    """Static description of one table (the JAX package's field names)."""
+
+    vocab_size: int
+    dim: int
+
+    @property
+    def dim_padded(self) -> int:
+        return _pad_dim(self.dim)
+
+    @property
+    def rows_per_block(self) -> int:
+        return max(1, LANES // self.dim_padded)
+
+    @property
+    def vocab_padded(self) -> int:
+        r = self.rows_per_block
+        return -(-self.vocab_size // r) * r
+
+    @property
+    def num_blocks(self) -> int:
+        return self.vocab_padded // self.rows_per_block
+
+    @property
+    def block_width(self) -> int:
+        return self.rows_per_block * self.dim_padded  # == LANES for dim<128
+
+    @property
+    def packed_shape(self) -> tuple:
+        return (self.num_blocks, self.block_width)
+
+    @property
+    def rows_shape(self) -> tuple:
+        """The port's on-device table shape: logical rows."""
+        return (self.vocab_padded, self.dim_padded)
+
+
+def pack(spec: PackedSpec, table: np.ndarray) -> np.ndarray:
+    """[vocab, dim] -> packed [num_blocks, block_width] (pad cells zero)."""
+    table = np.asarray(table)
+    v_pad = spec.vocab_padded - table.shape[0]
+    d_pad = spec.dim_padded - table.shape[1]
+    if v_pad or d_pad:
+        table = np.pad(table, ((0, v_pad), (0, d_pad)))
+    return table.reshape(spec.packed_shape)
+
+
+def unpack(spec: PackedSpec, packed: np.ndarray) -> np.ndarray:
+    """packed [num_blocks, block_width] -> logical [vocab, dim]."""
+    logical = np.asarray(packed).reshape(spec.rows_shape)
+    return logical[: spec.vocab_size, : spec.dim]
+
+
+def as_rows(spec: PackedSpec, table: np.ndarray) -> np.ndarray:
+    """Any stored form of a table -> ``[vocab_padded, dim_padded]`` rows.
+
+    Packed ``[num_blocks, block_width]`` and row form are the same bytes
+    and come back as a view (no copy of a memmapped table); a logical
+    ``[vocab, dim]`` array (the trainers' ``get_variables_numpy`` export
+    view) is zero-padded, which copies."""
+    shape = tuple(table.shape)
+    if shape in (spec.packed_shape, spec.rows_shape):
+        return table.reshape(spec.rows_shape)
+    if shape == (spec.vocab_size, spec.dim):
+        return pack(spec, table).reshape(spec.rows_shape)
+    raise ValueError(
+        f"table of shape {shape} fits neither the packed {spec.packed_shape}, "
+        f"the row {spec.rows_shape} nor the logical "
+        f"{(spec.vocab_size, spec.dim)} form of {spec}"
+    )
+
+
+def row_index(spec: PackedSpec, ids: torch.Tensor) -> torch.Tensor:
+    """ids (any int dtype) -> int64 row of the ``[vocab_padded,
+    dim_padded]`` table: ``clamp(id // r, 0, nb-1) * r + floor_mod(id, r)``
+    — ``_block_and_lane``'s rule, reproduced for every id."""
+    r = spec.rows_per_block
+    ids = ids.to(torch.int64)
+    blocks = torch.clamp(
+        torch.div(ids, r, rounding_mode="floor"), 0, spec.num_blocks - 1
+    )
+    return blocks * r + torch.remainder(ids, r)

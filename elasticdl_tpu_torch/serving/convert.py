@@ -1,0 +1,154 @@
+"""Carry JAX (flax) variables across to the port's modules.
+
+The JAX package names a variable by its flax path, ``params/<module
+path>/<leaf>``: the nested ``variables.pkl`` tree of a serving artifact,
+or the flat ``/``-joined keys of a trainer's ``get_variables_numpy()``
+(``elasticdl_tpu/worker/trainer.py``).  The port's modules carry the
+flax module names as attribute names, so each flax path has exactly one
+port tensor:
+
+- flax ``Dense`` ``kernel [in, out]`` / ``bias`` -> ``nn.Linear``
+  ``weight [out, in]`` (transposed) / ``bias``;
+- ``DenseGeneral`` ``kernel`` / ``bias`` -> the same names, as stored;
+- an Embedding's ``embedding`` table, packed ``[num_blocks, 128]``,
+  logical ``[vocab, dim]`` or already ``[vocab_padded, dim_padded]`` ->
+  the layer's ``[vocab_padded, dim_padded]`` buffer
+  (``parallel/packed.as_rows``; a packed memmap stays a view).
+
+A leftover or missing key, or a shape that does not fit, raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from elasticdl_tpu_torch.layers.embedding import Embedding
+from elasticdl_tpu_torch.parallel.packed import as_rows
+from elasticdl_tpu_torch.zoo.deepfm import DenseGeneral
+
+#: Rows copied to the device per step when loading a table, so loading
+#: never holds more than this many rows of it on the host at once.
+CHUNK_ROWS = 1 << 20
+
+
+def flatten_variables(variables: Mapping) -> Dict[str, np.ndarray]:
+    """Nested variables tree -> flat ``{"a/b/c": leaf}``; a flat dict
+    passes through."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for key, child in node.items():
+                walk(child, path + (str(key),))
+        else:
+            flat["/".join(path)] = node
+
+    walk(variables, ())
+    return flat
+
+
+def _targets(model: nn.Module) -> Iterator[Tuple[str, str, str, object]]:
+    """(jax key, port state_dict key, kind, module) for every variable."""
+    for name, module in model.named_modules():
+        prefix = "/".join(("params", name.replace(".", "/")) if name else ("params",))
+        port = name + "." if name else ""
+        if isinstance(module, nn.Linear):
+            yield prefix + "/kernel", port + "weight", "dense_kernel", module
+            yield prefix + "/bias", port + "bias", "as_is", module
+        elif isinstance(module, DenseGeneral):
+            yield prefix + "/kernel", port + "kernel", "as_is", module
+            yield prefix + "/bias", port + "bias", "as_is", module
+        elif isinstance(module, Embedding):
+            yield prefix + "/embedding", port + "embedding", "table", module
+
+
+def state_dict_from_jax(variables: Mapping, model: nn.Module) -> Dict[str, np.ndarray]:
+    """JAX variables (nested tree or flat ``/``-joined keys, numpy
+    leaves) -> the port's ``state_dict`` as numpy arrays.  Tables stay
+    views of their source where the stored form allows it."""
+    flat = flatten_variables(variables)
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    out: Dict[str, np.ndarray] = {}
+    for jax_key, port_key, kind, module in _targets(model):
+        if jax_key not in flat:
+            raise KeyError(f"JAX variables lack {jax_key!r} (for {port_key})")
+        value = flat.pop(jax_key)
+        if kind == "dense_kernel":
+            value = np.asarray(value).T
+        elif kind == "table":
+            value = as_rows(module.spec, value)
+        else:
+            value = np.asarray(value)
+        if tuple(value.shape) != shapes[port_key]:
+            raise ValueError(
+                f"{jax_key} has shape {tuple(value.shape)}, the port's "
+                f"{port_key} {shapes[port_key]}"
+            )
+        out[port_key] = value
+    if flat:
+        raise KeyError(f"JAX variables without a port counterpart: {sorted(flat)}")
+    return out
+
+
+def random_jax_variables(model: nn.Module, seed: int, scale: float = 0.05):
+    """Seeded random weights for ``model`` in the JAX layout, the inverse
+    of ``state_dict_from_jax``: ``(variables, tables)`` as
+    ``serving/export.write_artifact`` takes them — the nested
+    ``{"params": ...}`` tree without the tables, and ``{key: (spec,
+    [vocab_padded, dim_padded] rows)}`` with zero pad cells.  Only
+    shapes are read from ``model``, so a model built on the ``meta``
+    device serves.  Values are uniform in ``[-scale, scale)``, drawn
+    from numpy, table rows a chunk at a time."""
+    rng = np.random.default_rng(seed)
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    variables: Dict = {}
+    tables = {}
+    for jax_key, port_key, kind, module in _targets(model):
+        path = jax_key.split("/")
+        if kind == "table":
+            spec = module.spec
+            rows = np.zeros(spec.rows_shape, np.float32)
+            for lo in range(0, spec.vocab_size, CHUNK_ROWS):
+                hi = min(spec.vocab_size, lo + CHUNK_ROWS)
+                draw = rng.random((hi - lo, spec.dim), dtype=np.float32)
+                rows[lo:hi, : spec.dim] = (2.0 * draw - 1.0) * scale
+            tables["/".join(path[1:])] = (spec, rows)
+            continue
+        shape = shapes[port_key]
+        if kind == "dense_kernel":
+            shape = shape[::-1]  # flax Dense kernels are [in, out]
+        draw = rng.random(shape, dtype=np.float32)
+        node = variables
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = (2.0 * draw - 1.0) * np.float32(scale)
+    return variables, tables
+
+
+@torch.no_grad()
+def load_state(
+    model: nn.Module, state: Mapping[str, np.ndarray], chunk_rows: int = CHUNK_ROWS
+) -> None:
+    """Copy ``state`` into the model's own (preallocated) tensors, in
+    chunks of ``chunk_rows`` rows: a multi-gigabyte memmapped table is
+    never copied whole on the host, and a read-only memmap is never
+    handed to ``torch.from_numpy``."""
+    targets = model.state_dict(keep_vars=True)
+    missing = set(targets) - set(state)
+    if missing:
+        raise KeyError(f"state lacks {sorted(missing)}")
+    for key, value in state.items():
+        target = targets[key]
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(f"{key}: shape {tuple(value.shape)} != {tuple(target.shape)}")
+        rows = value.shape[0] if value.ndim else 1
+        value = value.reshape(rows, -1)
+        flat_target = target.data.view(rows, -1)
+        for lo in range(0, rows, chunk_rows):
+            hi = min(rows, lo + chunk_rows)
+            chunk = np.array(value[lo:hi], dtype=np.float32)  # writable copy
+            flat_target[lo:hi].copy_(torch.from_numpy(chunk))

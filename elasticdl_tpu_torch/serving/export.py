@@ -1,0 +1,187 @@
+"""Serving artifacts: load one onto the card, or write one.
+
+Reads the JAX package's artifact format (``elasticdl_tpu/serving/
+export.py``) as it is:
+
+    <model_dir>/
+      signature.json   - model identity (zoo/def/params), table inventory
+      variables.pkl    - nested variables tree; embedding-table leaves
+                         are {"__table__": "tables/<i>.npy"} references
+      tables/<i>.npy   - one packed [num_blocks, 128] f32 table per file
+
+``variables.pkl`` is read with a restricted unpickler that resolves only
+the numpy globals an artifact needs.  An artifact exported by the JAX
+package (a PS-mode ``ShardedEmbeddingTrainer`` and a single-device
+``Trainer``, both checked by exporting one in the tests) names exactly
+three: ``numpy.ndarray``, ``numpy.dtype`` and
+``numpy._core.multiarray._reconstruct`` (``numpy.core.multiarray`` under
+numpy 1.x); containers, strings and numbers are pickle opcodes, not
+globals.  A numpy scalar (``multiarray.scalar``) is allowed as well.
+Anything else — a JAX array, a flax ``FrozenDict``, any other class —
+fails loudly with ``pickle.UnpicklingError``, and reading an artifact
+never imports JAX.
+
+Tables are opened as memmaps and copied to the device in bounded row
+chunks into preallocated buffers (``serving/convert.load_state``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from elasticdl_tpu_torch.common.device import DeviceLike, resolve_device
+from elasticdl_tpu_torch.parallel.packed import PackedSpec, as_rows
+from elasticdl_tpu_torch.serving import convert
+from elasticdl_tpu_torch.zoo import build_model
+
+FORMAT = "elasticdl_tpu_serving/1"
+_SIGNATURE = "signature.json"
+_VARIABLES = "variables.pkl"
+_TABLES_DIR = "tables"
+_TABLE_REF = "__table__"
+
+_ALLOWED_GLOBALS = frozenset(
+    {
+        ("numpy", "ndarray"),
+        ("numpy", "dtype"),
+        ("numpy._core.multiarray", "_reconstruct"),
+        ("numpy._core.multiarray", "scalar"),
+        ("numpy.core.multiarray", "_reconstruct"),
+        ("numpy.core.multiarray", "scalar"),
+    }
+)
+
+
+class _ArtifactUnpickler(pickle.Unpickler):
+    def find_class(self, module: str, name: str):
+        if (module, name) not in _ALLOWED_GLOBALS:
+            raise pickle.UnpicklingError(
+                f"artifact variables name {module}.{name}; only numpy arrays "
+                f"and containers of them may appear in {_VARIABLES}"
+            )
+        return super().find_class(module, name)
+
+
+def read_variables(path: str):
+    """Unpickle an artifact's ``variables.pkl`` with numpy-only globals."""
+    with open(path, "rb") as f:
+        return _ArtifactUnpickler(f).load()
+
+
+def _resolve_refs(tree, model_dir: str):
+    if isinstance(tree, Mapping):
+        if _TABLE_REF in tree:
+            return np.load(
+                os.path.join(model_dir, tree[_TABLE_REF]), mmap_mode="r"
+            )
+        return {k: _resolve_refs(v, model_dir) for k, v in tree.items()}
+    return tree
+
+
+class ServingModel:
+    """A loaded artifact: the port's module with its weights on
+    ``device``, in eval mode."""
+
+    def __init__(self, model: torch.nn.Module, signature: dict, device: torch.device):
+        self.model = model
+        self.signature = signature
+        self.device = device
+
+    def forward(self, features: Mapping[str, np.ndarray]) -> torch.Tensor:
+        """Host features -> device outputs (no sync)."""
+        tensors = {
+            key: torch.from_numpy(np.ascontiguousarray(value)).to(self.device)
+            for key, value in features.items()
+        }
+        return self.model(tensors)
+
+    def predict(self, features: Mapping[str, np.ndarray]) -> np.ndarray:
+        """Host features -> host outputs; ``.cpu()`` is the device sync."""
+        with torch.inference_mode():
+            return self.forward(features).cpu().numpy()
+
+
+def load_for_serving(model_dir: str, device: DeviceLike = None) -> ServingModel:
+    """Load an artifact onto ``device`` (``None``: the CUDA card)."""
+    device = resolve_device(device)
+    with open(os.path.join(model_dir, _SIGNATURE)) as f:
+        signature = json.load(f)
+    variables = _resolve_refs(
+        read_variables(os.path.join(model_dir, _VARIABLES)), model_dir
+    )
+    model = build_model(signature["model_def"], signature["model_params"], device)
+    convert.load_state(model, convert.state_dict_from_jax(variables, model))
+    model.eval()
+    return ServingModel(model, signature, device)
+
+
+def _set_in_tree(tree: Dict, path, value):
+    node = tree
+    for part in path[:-1]:
+        node = node.setdefault(part, {})
+    node[path[-1]] = value
+
+
+def write_artifact(
+    out_dir: str,
+    variables: Mapping,
+    tables: Mapping[str, Tuple[PackedSpec, np.ndarray]],
+    signature: Mapping,
+    chunk_rows: int = convert.CHUNK_ROWS,
+) -> str:
+    """Write an artifact in the JAX package's format (the file-writing
+    half of its ``export_model``).
+
+    variables: the nested ``{"params": ...}`` tree of numpy arrays,
+    without the tables.  tables: ``{key: (spec, array)}`` with ``key``
+    the table's path under ``params`` (``"fm_embedding/embedding"``) and
+    the array in packed, row or logical form (``packed.as_rows``); each
+    is written to ``tables/<i>.npy`` in packed form, ``chunk_rows`` rows
+    at a time.  signature: at least ``model_def`` and ``model_params``;
+    ``format`` and ``tables`` are filled in.
+    """
+    os.makedirs(os.path.join(out_dir, _TABLES_DIR), exist_ok=True)
+    tree = _copy_tree(variables)
+    tables_meta = []
+    for i, (key, (spec, array)) in enumerate(sorted(tables.items())):
+        rel = f"{_TABLES_DIR}/{i}.npy"
+        rows = as_rows(spec, array)
+        out = np.lib.format.open_memmap(
+            os.path.join(out_dir, rel), mode="w+", dtype=np.float32,
+            shape=spec.packed_shape,
+        )
+        flat_out = out.reshape(spec.rows_shape)
+        for lo in range(0, spec.vocab_padded, chunk_rows):
+            hi = min(spec.vocab_padded, lo + chunk_rows)
+            flat_out[lo:hi] = rows[lo:hi]
+        out.flush()
+        del flat_out, out
+        tables_meta.append(
+            {
+                "key": key,
+                "file": rel,
+                "vocab_size": spec.vocab_size,
+                "dim": spec.dim,
+                "packed_shape": list(spec.packed_shape),
+            }
+        )
+        _set_in_tree(tree, ("params",) + tuple(key.split("/")), {_TABLE_REF: rel})
+    with open(os.path.join(out_dir, _VARIABLES), "wb") as f:
+        pickle.dump(tree, f)
+    meta = {"format": FORMAT, "step": 0, **signature, "tables": tables_meta}
+    meta.setdefault("model_zoo", "")
+    with open(os.path.join(out_dir, _SIGNATURE), "w") as f:
+        json.dump(meta, f, indent=2)
+    return out_dir
+
+
+def _copy_tree(node):
+    if isinstance(node, Mapping):
+        return {k: _copy_tree(v) for k, v in node.items()}
+    return np.asarray(node)

@@ -1,0 +1,57 @@
+"""The port's model zoo: a registry from an artifact's recorded
+``model_def`` to the port's module.
+
+Counterpart of ``elasticdl_tpu/common/model_utils.py`` ``load_module`` +
+``load_model_spec``.  The JAX loader imports
+``<basename(model_zoo)>.<model_def>``; the port never imports the
+recorded zoo path (it would load the JAX zoo), it looks the name up
+here.  This directory is deliberately not named ``model_zoo``.
+"""
+
+from __future__ import annotations
+
+import inspect
+from types import ModuleType
+from typing import Union
+
+from elasticdl_tpu_torch.common.params import parse_dict_params
+from elasticdl_tpu_torch.zoo import deepfm
+
+REGISTRY = {
+    "deepfm.deepfm_functional_api": deepfm,
+}
+
+#: Job flags the JAX loader forwards into ``model_params`` when the
+#: model's ``custom_model`` declares them and the params do not set them
+#: (``model_utils._forward_flag``), at the values a serving load gets.
+SERVING_FLAG_DEFAULTS = {
+    "use_bf16": True,
+    "sparse_apply_every": 1,
+    "sparse_kernel": "auto",
+}
+
+
+def resolve(model_def: str) -> ModuleType:
+    try:
+        return REGISTRY[model_def]
+    except KeyError:
+        raise ValueError(
+            f"model_def {model_def!r} is not ported; the port serves "
+            f"{sorted(REGISTRY)}"
+        ) from None
+
+
+def build_model(model_def: str, model_params: Union[str, dict], device=None):
+    """Build the port's module for an artifact's ``model_def`` and
+    ``model_params`` on ``device`` (weights uninitialised)."""
+    module = resolve(model_def)
+    params = (
+        parse_dict_params(model_params)
+        if isinstance(model_params, str)
+        else dict(model_params)
+    )
+    accepted = inspect.signature(module.custom_model).parameters
+    for name, value in SERVING_FLAG_DEFAULTS.items():
+        if name in accepted and name not in params:
+            params[name] = value
+    return module.custom_model(**params, device=device)

@@ -1,0 +1,186 @@
+"""DeepFM (Criteo/DAC click-through) — the port of
+``model_zoo/deepfm/deepfm_functional_api.py``, inference side.
+
+Same structure and parameter names as the flax module, so the JAX
+variables map one to one (``serving/convert.py``):
+
+- 26 categorical fields share one offset id space over the Embedding
+  layer: ONE merged table of dim ``1+d`` by default (lane 0 the
+  first-order weight, lanes 1..d the FM/deep field vector, looked up by
+  ``fused_lookup_fm`` together with the FM partial sums), or under
+  ``split_tables`` two tables, ``linear_embedding`` (dim 1) and
+  ``fm_embedding`` (dim d), each through ``fused_lookup``.
+- ``linear_dense``: Dense(1) over the 13 numeric features.
+- ``dense_projection``: flax ``DenseGeneral((13, d), axis=-1)`` on
+  ``[B, 1, 13]`` (kernel ``[13, 13, d]``, bias ``[13, d]``), kept as an
+  einsum.
+- FM second order by the sum-square trick over all 39 fields; the deep
+  tower ``Dense_0 [(26+13)*d -> hidden]``, ``Dense_1 [-> hidden//2]``,
+  ``Dense_2 [-> 1]`` over the flattened fields.
+
+Training-only parameters (``sparse_apply_every``, ``sparse_kernel``,
+``mesh``) are accepted so an artifact's recorded params build the model;
+they decide nothing on the card beyond the JAX package's table-layout
+rule (``_split``), which they must reproduce for the variables to match.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from elasticdl_tpu_torch.layers.embedding import Embedding
+
+NUM_DENSE = 13
+NUM_CAT = 26
+VOCAB = 1000
+
+#: The JAX model's auto table-layout crossover (rows of the merged
+#: table), and the PS trainer's auto apply rule it is paired with.
+SPLIT_TABLE_ROWS = 10_000_000
+AUTO_APPLY_TABLE_ROWS = 10_000_000
+AUTO_APPLY_W = 32
+
+_SPARSE_KERNELS = ("xla", "fused", "auto")
+
+
+def use_split_tables(
+    split_tables, sparse_apply_every: int, sparse_kernel, total_vocab: int
+) -> bool:
+    """The JAX ``DeepFM._split`` rule: an explicit ``split_tables`` wins;
+    otherwise split only under strict per-step apply above
+    ``SPLIT_TABLE_ROWS`` rows on the xla sparse engine.  ``None`` and
+    ``'auto'`` resolve to ``'xla'`` as they do in the JAX package."""
+    if sparse_kernel is not None and sparse_kernel not in _SPARSE_KERNELS:
+        raise ValueError(
+            f"sparse_kernel must be one of {_SPARSE_KERNELS}, got {sparse_kernel!r}"
+        )
+    if split_tables is not None:
+        return bool(split_tables)
+    return (
+        sparse_apply_every <= 1
+        and total_vocab > SPLIT_TABLE_ROWS
+        and sparse_kernel != "fused"
+    )
+
+
+class DenseGeneral(nn.Module):
+    """flax ``DenseGeneral(features=(13, d), axis=-1)`` applied to a
+    ``[B, 1, 13]`` input: ``out[b, i, j] = sum_k x[b, k] kernel[k, i, j]
+    + bias[i, j]``."""
+
+    def __init__(self, in_features: int, features: tuple, device=None):
+        super().__init__()
+        self.kernel = nn.Parameter(
+            torch.empty((in_features, *features), device=device)
+        )
+        self.bias = nn.Parameter(torch.empty(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("bk,kij->bij", x, self.kernel) + self.bias
+
+
+class DeepFM(nn.Module):
+    def __init__(
+        self,
+        vocab_size: int = VOCAB,
+        embedding_dim: int = 8,
+        hidden: int = 128,
+        split_tables=None,
+        sparse_apply_every: int = 1,
+        sparse_kernel=None,
+        device=None,
+    ):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.embedding_dim = embedding_dim
+        total_vocab = vocab_size * NUM_CAT
+        self.split = use_split_tables(
+            split_tables, sparse_apply_every, sparse_kernel, total_vocab
+        )
+        d = embedding_dim
+        self.linear_dense = nn.Linear(NUM_DENSE, 1, device=device)
+        self.dense_projection = DenseGeneral(
+            NUM_DENSE, (NUM_DENSE, d), device=device
+        )
+        if self.split:
+            self.linear_embedding = Embedding(total_vocab, 1, device=device)
+            self.fm_embedding = Embedding(total_vocab, d, device=device)
+        else:
+            self.fm_embedding = Embedding(
+                total_vocab, 1 + d, fm_interaction=True, device=device
+            )
+        self.Dense_0 = nn.Linear((NUM_CAT + NUM_DENSE) * d, hidden, device=device)
+        self.Dense_1 = nn.Linear(hidden, hidden // 2, device=device)
+        self.Dense_2 = nn.Linear(hidden // 2, 1, device=device)
+
+    def forward(self, features: Dict[str, torch.Tensor]) -> torch.Tensor:
+        dense = features["dense"].to(torch.float32)          # [B, 13]
+        cats = features["cat"].to(torch.int32)               # [B, 26]
+        batch = cats.shape[0]
+        offsets = (
+            torch.arange(cats.shape[-1], dtype=torch.int32, device=cats.device)
+            * self.vocab_size
+        )
+        flat_ids = cats + offsets[None, :]
+
+        first_dense = self.linear_dense(dense)[..., 0]
+        dense_emb = self.dense_projection(dense)             # [B, 13, d]
+        if self.split:
+            linear = self.linear_embedding(flat_ids)         # [B, 26, 1]
+            first_cat = torch.sum(linear[..., 0], dim=-1)
+            cat_emb = self.fm_embedding(flat_ids)            # [B, 26, d]
+            fields = torch.cat([cat_emb, dense_emb], dim=1)
+            sum_fields = torch.sum(fields, dim=1)
+            second = 0.5 * torch.sum(
+                sum_fields * sum_fields - torch.sum(fields * fields, dim=1),
+                dim=-1,
+            )
+        else:
+            cat_acts, first_cat, sum_v, sum_sq = self.fm_embedding(flat_ids)
+            cat_emb = cat_acts[..., 1:]                      # [B, 26, d]
+            fields = torch.cat([cat_emb, dense_emb], dim=1)
+            sum_dense = torch.sum(dense_emb, dim=1)
+            sumsq_dense = torch.sum(dense_emb * dense_emb, dim=1)
+            total_sum = sum_v + sum_dense
+            second = 0.5 * torch.sum(
+                total_sum * total_sum - (sum_sq + sumsq_dense), dim=-1
+            )
+
+        x = fields.reshape(batch, -1)
+        x = torch.relu(self.Dense_0(x))
+        x = torch.relu(self.Dense_1(x))
+        deep = self.Dense_2(x)[..., 0]
+        return first_cat + first_dense + second + deep      # logit
+
+
+def custom_model(
+    vocab_size: int = VOCAB,
+    embedding_dim: int = 8,
+    hidden: int = 128,
+    split_tables=None,
+    sparse_apply_every: "int | str" = 1,
+    sparse_kernel=None,
+    mesh: Any = None,
+    device=None,
+) -> DeepFM:
+    """The JAX ``custom_model`` contract.  ``sparse_apply_every='auto'``
+    resolves from the table rows exactly as the JAX package does, since
+    it decides the table layout.  ``mesh`` is accepted and ignored: the
+    port serves from one card."""
+    if sparse_apply_every == "auto":
+        total_rows = vocab_size * NUM_CAT * (2 if split_tables else 1)
+        sparse_apply_every = (
+            1 if total_rows <= AUTO_APPLY_TABLE_ROWS else AUTO_APPLY_W
+        )
+    return DeepFM(
+        vocab_size=vocab_size,
+        embedding_dim=embedding_dim,
+        hidden=hidden,
+        split_tables=split_tables,
+        sparse_apply_every=int(sparse_apply_every),
+        sparse_kernel=sparse_kernel,
+        device=device,
+    )

@@ -1,0 +1,110 @@
+"""The port (elasticdl_tpu_torch) stands alone: it imports no JAX, no
+flax/optax, no gRPC and nothing of the JAX package or its model zoo,
+and its entry points never drop to the CPU on their own."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from elasticdl_tpu_torch.common import device as port_device
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "elasticdl_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "grpc", "model_zoo", "elasticdl_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    """Whole dotted names: elasticdl_tpu_torch is not elasticdl_tpu."""
+    return any(module == name or module.startswith(name + ".") for name in FORBIDDEN)
+
+
+def _port_modules():
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield path, ".".join(parts)
+
+
+def test_forbidden_name_rule():
+    assert _forbidden("elasticdl_tpu") and _forbidden("elasticdl_tpu.ops")
+    assert _forbidden("jax.numpy") and _forbidden("grpc")
+    assert not _forbidden("elasticdl_tpu_torch") and not _forbidden("jaxtyping_free")
+
+
+def test_port_sources_import_nothing_forbidden():
+    offenders = []
+    for path, _ in _port_modules():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                if node.level:  # relative: stays inside the port
+                    continue
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.relative_to(REPO)}:{node.lineno} {n}"
+                          for n in names if _forbidden(n)]
+    assert not offenders, offenders
+    assert len(list(_port_modules())) >= 15
+
+
+_SUBPROCESS = r"""
+import importlib, sys, tempfile
+import numpy as np
+modules = sys.argv[1].split(",")
+for name in modules:
+    importlib.import_module(name)
+from elasticdl_tpu_torch.serving import convert
+from elasticdl_tpu_torch.serving.export import load_for_serving, write_artifact
+from elasticdl_tpu_torch.serving.runtime import ServingReplica
+from elasticdl_tpu_torch.zoo import build_model
+params = "vocab_size=20,embedding_dim=4,hidden=8"
+variables, tables = convert.random_jax_variables(
+    build_model("deepfm.deepfm_functional_api", params, device="meta"), seed=0)
+with tempfile.TemporaryDirectory() as d:
+    write_artifact(d, variables, tables,
+                   {"model_def": "deepfm.deepfm_functional_api", "model_params": params})
+    replica = ServingReplica(d, device="cpu")
+    out = replica.execute({"dense": np.ones((2, 13), np.float32),
+                           "cat": np.ones((2, 26), np.int32)}, 2)
+    assert out.shape == (2,) and np.isfinite(out).all()
+forbidden = sys.argv[2].split(",")
+loaded = [m for m in sys.modules
+          if any(m == f or m.startswith(f + ".") for f in forbidden)]
+print("LOADED", loaded)
+sys.exit(1 if loaded else 0)
+"""
+
+
+def test_port_runs_without_loading_forbidden_modules():
+    modules = [name for _, name in _port_modules()]
+    proc = subprocess.run(
+        [sys.executable, "-c", _SUBPROCESS, ",".join(modules), ",".join(FORBIDDEN)],
+        cwd=str(REPO), capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_resolve_device_never_falls_back_to_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_device.resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_device.resolve_device("cuda")
+    assert port_device.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from elasticdl_tpu_torch.serving.export import load_for_serving
+    from elasticdl_tpu_torch.serving.runtime import ServingReplica
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for entry in (load_for_serving, ServingReplica):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry(str(tmp_path))
