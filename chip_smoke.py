@@ -4,7 +4,8 @@ CUDA card: the quickest proof that the port still starts on the GPU.
 
     python3 chip_smoke.py [--seed N]
 
-Run from the root of a checkout.  Phases, each fatal on failure:
+Run from the root of a checkout.  Phases, each fatal on failure (the
+training phases 5-9 follow the serving phases 3-4):
 
 1. The card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    and the build of the hand-written kernels from ``ops/csrc``.
@@ -23,8 +24,29 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 4. Hot swap to a ``split_tables`` artifact (the layout ``fused_lookup``
    serves), checked the same way; ``stats()`` must show generation 2.
 
-Launch counts are zeroed just before each serving phase and read just
-after it; a kernel of the path that did not launch there fails the run.
+5. ``fused_dedup_apply`` (K3) against its plain version on the same
+   26M-row table and its slots, for sgd, momentum, Nesterov, adagrad,
+   adam (per-row ``t``) and adam_global: 212,992 ids (8192 x 26) drawn
+   with heavy duplicates, ``-1`` padding, ids past the table and rows
+   whose grads cancel exactly; bit-exact against the plain version run
+   with PyTorch's deterministic algorithms (same summation order), then
+   timed like phase 2.
+6. Training at full width: DeepFM merged (vocab 1M per field, 26M rows;
+   table + m + v + t = 6.7 GB), ``embedding_dim`` 8, ``hidden`` 128,
+   batch 8192 of the synthetic Criteo-layout data, dense Adam 1e-3 and
+   sparse per-row Adam 1e-3, strict apply: warm-up, 50 timed steps
+   (samples/s, median step time), one CUDA-event breakdown of a step
+   (forward, backward, dense update, K3); the loss must fall.
+7. Kernels against plain versions on the path: from one cloned state, 3
+   steps through the kernels and 3 with the plain versions patched in.
+8. Train -> serve: ``export_model``, then ``ServingReplica`` on the card
+   must predict the trainer's ``eval_step``.
+9. 64 steps at ``sparse_apply_every=32`` through ``train_window``.
+
+Launch counts are zeroed just before each serving and training phase and
+read just after it; a kernel of the path that did not launch there (K1
+and K3 once per strict training step, K3 twice in the window) fails the
+run.
 The line before the last holds the card's name and power limit, the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, with no
 result, when no CUDA device is available or the port is not beside it.
@@ -33,6 +55,7 @@ result, when no CUDA device is available or the port is not beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -51,6 +74,7 @@ SOURCE = "elasticdl_tpu_torch/ops/csrc/sparse_embedding.cu"
 REPLACES = {
     "fused_lookup_fm": "elasticdl_tpu/ops/sparse_embedding.py:755",
     "fused_lookup": "elasticdl_tpu/ops/sparse_embedding.py:249",
+    "fused_dedup_apply": "elasticdl_tpu/ops/sparse_embedding.py:491",
 }
 #: Tolerance of the FM sums against the plain version: both add the
 #: same F f32 terms, in another order (the kernel field by field,
@@ -60,6 +84,31 @@ REPLACES = {
 SUM_ORDER_ULPS = 2.0 * 2.0 ** -24
 #: Served logits against the plain forward: the hot-swap bar.
 LOGIT_RTOL, LOGIT_ATOL = 1e-5, 1e-6
+#: The training slice: the north-star table, bench.py's batch.
+TRAIN_PARAMS = "vocab_size=1000000,embedding_dim=8,hidden=128,split_tables=false"
+TRAIN_BATCH = 8192
+LR = 1e-3
+#: Kernel path against plain path over 3 training steps.  The losses
+#: differ only through the FM sums' order (kernel field by field,
+#: torch.sum pairwise) and K3's gradient sums (plain index_add_ adds with
+#: atomics on the card): rtol 1e-5.  The tables: Adam's step
+#: lr*m/(sqrt(v)+eps) is sign-like near g = 0, so an element whose summed
+#: gradient is within rounding of zero may move by up to 2*lr per step on
+#: one path only.  A row drawn twice in a batch whose grads partly cancel
+#: has such a sum, and the two paths add its grads in other orders; the
+#: first run on the card put 0.106% of the moved elements past 1e-6 (max
+#: 8.1e-4).  Every element is held to 2*lr*3 and all but 1% of the moved
+#: ones to 1e-6.
+PATH_LOSS_RTOL, PATH_TABLE_ATOL, PATH_LOOSE_SHARE = 1e-5, 1e-6, 1e-2
+K3_HYPER = {
+    "sgd": ("sgd", {"learning_rate": 0.01}),
+    "momentum": ("momentum", {"learning_rate": 0.01, "momentum": 0.9, "nesterov": False}),
+    "nesterov": ("momentum", {"learning_rate": 0.01, "momentum": 0.9, "nesterov": True}),
+    "adagrad": ("adagrad", {"learning_rate": 0.01, "epsilon": 1e-7}),
+    "adam": ("adam", {"learning_rate": LR, "beta_1": 0.9, "beta_2": 0.999, "epsilon": 1e-8}),
+    "adam_global": ("adam_global", {"learning_rate": LR, "beta_1": 0.9, "beta_2": 0.999,
+                                    "epsilon": 1e-8}),
+}
 
 
 def log(msg: str) -> None:
@@ -246,6 +295,12 @@ def kernel_phase(card: str, seed: int):
         "main_path_shape_ms": median_ms(
             lambda: ske.fused_lookup_fm(spec, table, None, main_cat, main_valid), flush),
         "main_path_shape_bound_ms": bound_ms(lookup_fm_bytes(64, NUM_CAT, spec.dim, False)),
+        # the training step's shape: B=8192 with the perturbation input
+        "train_shape_ms": median_ms(
+            lambda: ske.fused_lookup_fm(spec, table, bet, cat, valid), flush),
+        "train_shape_plain_ms": median_ms(
+            lambda: ske.fused_lookup_fm_plain(spec, table, bet, cat, valid), flush),
+        "train_shape_bound_ms": bound_ms(lookup_fm_bytes(batch, NUM_CAT, spec.dim, True)),
     }
     for name, r in results.items():
         log(
@@ -424,6 +479,325 @@ def serving_phases(card: str, seed: int, workdir: str,
             "fused_lookup": counts2["fused_lookup"]}
 
 
+# ----------------------------------------------------------------------
+# phase 5: fused_dedup_apply against its plain version
+# ----------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms: on the card ``index_add_`` then
+    sums each row's duplicates in index order instead of with atomics."""
+    import torch
+
+    previous = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(previous)
+
+
+def k3_inputs(spec, gen, dev, n: int, cancel_pairs: int = 256):
+    """n ids: 30% from 1000 hot rows (heavy duplicates), the rest uniform
+    over the table, 1% ``-1``, 0.5% past the table, and ``cancel_pairs``
+    rows that occur exactly twice with opposite grads."""
+    import torch
+
+    ids = torch.randint(0, spec.vocab_size, (n,), generator=gen, device=dev, dtype=torch.int32)
+    hot = torch.randint(0, 1000, (n,), generator=gen, device=dev, dtype=torch.int32)
+    hot = (hot.to(torch.int64) * 7919 % spec.vocab_size).to(torch.int32)
+    pick = torch.rand(n, generator=gen, device=dev)
+    ids = torch.where(pick < 0.3, hot, ids)
+    u = torch.rand(n, generator=gen, device=dev)
+    ids[u < 0.01] = -1
+    ids[(u >= 0.01) & (u < 0.015)] = spec.vocab_padded + 3
+    grads = torch.randn((n, spec.dim), generator=gen, device=dev) * 0.01
+    rows = torch.arange(spec.vocab_size - cancel_pairs, spec.vocab_size, device=dev,
+                        dtype=torch.int32)
+    ids[torch.isin(ids, rows)] = -1
+    where = torch.randperm(n, generator=gen, device=dev)[: 2 * cancel_pairs]
+    ids[where[:cancel_pairs]] = rows
+    ids[where[cancel_pairs:]] = rows
+    grads[where[cancel_pairs:]] = -grads[where[:cancel_pairs]]
+    return ids, grads, rows
+
+
+def k3_slots(kind: str, table):
+    import torch
+
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+
+    slots = {name: torch.zeros_like(table) for name in ske.KIND_SLOTS[kind]}
+    if kind == "adam_global":
+        slots["t_global"] = torch.zeros((), dtype=torch.float32, device=table.device)
+    return slots
+
+
+def k3_bytes(n: int, dim: int, touched: int, operands: int) -> int:
+    # ids and grads read once; per touched row the table and slot rows'
+    # dim lanes read and written.
+    return n * 4 + n * dim * 4 + touched * operands * dim * 4 * 2
+
+
+def dedup_apply_phase(card: str, seed: int):
+    import torch
+
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+    from elasticdl_tpu_torch.parallel import packed as pk
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 5)
+    spec = pk.PackedSpec(1_000_000 * NUM_CAT, 1 + 8)
+    table = torch.empty(spec.rows_shape, dtype=torch.float32, device=dev)
+    table.uniform_(-0.05, 0.05, generator=gen)
+    table[:, spec.dim:] = 0.0
+    table[spec.vocab_size:] = 0.0
+    n = TRAIN_BATCH * NUM_CAT
+    ids, grads, cancel_rows = k3_inputs(spec, gen, dev, n)
+    touched = int(pk.dedup_representatives(spec, ids, grads)[2].sum())
+    keep = pk.in_table(spec, ids)
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32, device=dev)
+    acc = torch.zeros((spec.vocab_padded, spec.dim), dtype=torch.float32, device=dev)
+    rows64, kept = ids[keep].to(torch.int64), grads[keep]
+    index_add = median_ms(lambda: acc.index_add_(0, rows64, kept), flush)
+    del acc
+    log(f"K3 inputs: {n} ids, {int(keep.sum())} inside the table, {touched} touched rows, "
+        f"{cancel_rows.numel()} rows cancelling to zero [{card}]")
+    results = {}
+    for name, (kind, hyper) in K3_HYPER.items():
+        t_kernel, s_kernel = table.clone(), k3_slots(kind, table)
+        t_plain, s_plain = table.clone(), k3_slots(kind, table)
+        for _ in range(2):  # the second apply reads non-zero slots
+            ske.fused_dedup_apply(spec, kind, hyper, t_kernel, s_kernel, ids, grads)
+            with deterministic():
+                ske.fused_dedup_apply_plain(spec, kind, hyper, t_plain, s_plain, ids, grads)
+        torch.cuda.synchronize()
+        err = float((t_kernel - t_plain).abs().max())
+        if not bit_equal(t_kernel, t_plain):
+            fail(f"fused_dedup_apply[{name}] table differs from the plain version "
+                 f"(max abs {err!r})")
+        for slot, value in s_kernel.items():
+            err = max(err, float((value - s_plain[slot]).abs().max()))
+            if not bit_equal(value.reshape(-1), s_plain[slot].reshape(-1)):
+                fail(f"fused_dedup_apply[{name}] slot {slot} differs from the plain version")
+        if not torch.equal(t_kernel[cancel_rows.to(torch.int64)],
+                           table[cancel_rows.to(torch.int64)]):
+            fail(f"fused_dedup_apply[{name}] moved a row whose grads cancel to zero")
+        if not bit_equal(t_kernel[:, spec.dim:].contiguous(), table[:, spec.dim:].contiguous()):
+            fail(f"fused_dedup_apply[{name}] wrote a pad lane")
+        operands = 1 + len(ske.KIND_SLOTS[kind])
+        results[name] = {
+            "kind": kind, "max_abs_err": err, "touched_rows": touched,
+            "ms": median_ms(lambda: ske.fused_dedup_apply(
+                spec, kind, hyper, t_kernel, s_kernel, ids, grads), flush),
+            "plain_ms": median_ms(lambda: ske.fused_dedup_apply_plain(
+                spec, kind, hyper, t_plain, s_plain, ids, grads), flush),
+            "bound_ms": bound_ms(k3_bytes(n, spec.dim, touched, operands)),
+        }
+        r = results[name]
+        log(f"kernel fused_dedup_apply[{name}]: ids [{n}], table {list(spec.rows_shape)} + "
+            f"{operands - 1} slot(s): bit-exact with the plain version, {r['ms']!r} ms "
+            f"(plain {r['plain_ms']!r} ms, bound {r['bound_ms']!r} ms; index_add_ of the "
+            f"grads {index_add!r} ms) [{card}]")
+        del t_kernel, s_kernel, t_plain, s_plain
+        torch.cuda.empty_cache()
+    del table, flush
+    torch.cuda.empty_cache()
+    return {"by_kind": results, "index_add_ms": index_add,
+            "shape": f"ids [{n}] (skewed), table {list(spec.rows_shape)}, dim {spec.dim}"}
+
+
+# ----------------------------------------------------------------------
+# phases 6-9: the training path
+# ----------------------------------------------------------------------
+
+
+def time_parts(trainer, staged):
+    """One training step through its four parts, each between CUDA
+    events; returns ms per part."""
+    import torch
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    marks[0].record()
+    loss, cap = trainer.forward(*staged)
+    marks[1].record()
+    dense, sparse, _ = trainer.backward(loss, cap)
+    marks[2].record()
+    trainer.dense_update(dense)
+    marks[3].record()
+    trainer.sparse_apply(sparse)
+    marks[4].record()
+    torch.cuda.synchronize()
+    names = ("forward", "backward", "dense_update", "fused_dedup_apply")
+    return {name: marks[i].elapsed_time(marks[i + 1]) for i, name in enumerate(names)}
+
+
+def path_steps(trainer, staged, steps: int = 3):
+    import torch
+
+    losses = [float(trainer.train_step_staged(staged[i])) for i in range(steps)]
+    tables = {key: t.detach().clone() for key, t in trainer.state.tables.items()}
+    torch.cuda.synchronize()
+    return losses, tables
+
+
+def compare_paths(trainer, staged, card):
+    """Phase 7: from one cloned state, 3 steps with the kernels and 3 with
+    the plain versions patched in."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+    from elasticdl_tpu_torch.parallel.ps_trainer import clone_state
+
+    start = clone_state(trainer.state)
+    tables0 = {key: t.clone() for key, t in start.tables.items()}
+    kernel_losses, kernel_tables = path_steps(trainer, staged)
+    trainer.state = start
+    del start
+    with mock.patch.object(ske, "fused_lookup_fm", ske.fused_lookup_fm_plain), \
+            mock.patch.object(ske, "fused_dedup_apply", ske.fused_dedup_apply_plain):
+        plain_losses, plain_tables = path_steps(trainer, staged)
+    np.testing.assert_allclose(kernel_losses, plain_losses, rtol=PATH_LOSS_RTOL)
+    worst, loose, moved = 0.0, 0, 0
+    for key, got in kernel_tables.items():
+        diff = (got - plain_tables[key]).abs()
+        worst = max(worst, float(diff.max()))
+        changed = (got != tables0[key]) | (plain_tables[key] != tables0[key])
+        moved += int(changed.sum())
+        loose += int((diff > PATH_TABLE_ATOL).sum())
+    del kernel_tables, plain_tables, tables0
+    torch.cuda.empty_cache()
+    if worst > 2 * LR * 3 + PATH_TABLE_ATOL or loose > PATH_LOOSE_SHARE * max(moved, 1):
+        fail(f"kernel and plain paths diverge: max table diff {worst!r}, {loose} of {moved} "
+             f"moved elements past {PATH_TABLE_ATOL}")
+    log(f"kernel path vs plain path, 3 steps: losses {kernel_losses} vs {plain_losses}; "
+        f"tables max diff {worst!r}, {loose} of {moved} moved elements past "
+        f"{PATH_TABLE_ATOL} [{card}]")
+    return {"losses_kernel": kernel_losses, "losses_plain": plain_losses,
+            "max_table_diff": worst, "loose_elements": loose, "moved_elements": moved}
+
+
+def training_phases(card: str, seed: int, workdir: str, params: str = TRAIN_PARAMS,
+                    warmup: int = 5, steps: int = 50, n_batches: int = 64):
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.data.synthetic import synthetic_ctr_arrays
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+    from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer
+    from elasticdl_tpu_torch.serving.export import export_model
+    from elasticdl_tpu_torch.serving.runtime import ServingReplica
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    zoo = resolve(MODEL_DEF)
+    vocab = int(dict(p.split("=") for p in params.split(","))["vocab_size"])
+    batch = TRAIN_BATCH
+    t0 = time.perf_counter()
+    feats, labels = synthetic_ctr_arrays(batch * n_batches + 256, vocab_size=vocab, seed=seed)
+    batches = [({k: v[i * batch:(i + 1) * batch] for k, v in feats.items()},
+                labels[i * batch:(i + 1) * batch], np.ones((batch,), np.float32))
+               for i in range(n_batches)]
+    held_out = {k: v[n_batches * batch:] for k, v in feats.items()}
+    log(f"synthetic data: {len(labels)} rows, vocab {vocab}/field, in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    model = build_model(MODEL_DEF, params)  # the default device: the card
+    trainer = ShardedEmbeddingTrainer(model, zoo.loss, zoo.optimizer(),
+                                      embedding_optimizer=zoo.embedding_optimizer(), seed=seed)
+    if trainer.device.type != "cuda":
+        fail(f"ShardedEmbeddingTrainer's default device is {trainer.device}, not cuda")
+    trainer.ensure_initialized()
+    staged = [trainer.stage_batch(*b) for b in batches]
+    torch.cuda.synchronize()
+    log(f"trainer initialised on {trainer.device} in {time.perf_counter() - t0:.1f} s: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"sparse_apply_every {trainer.sparse_apply_every}")
+
+    # phase 6: strict training, timed
+    losses = [trainer.train_step_staged(staged[i % n_batches]) for i in range(warmup)]
+    torch.cuda.synchronize()
+    ske.reset_launch_counts()
+    events = []
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(trainer.train_step_staged(staged[i % n_batches]))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    strict_counts = ske.launch_counts()
+    for name in ("fused_lookup_fm", "fused_dedup_apply"):
+        if strict_counts[name] != steps:
+            fail(f"{name} launched {strict_counts[name]} times in {steps} strict steps")
+    step_ms = sorted(s.elapsed_time(e) for s, e in events)
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.all(np.isfinite(losses)):
+        fail(f"non-finite training loss: {losses}")
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    if not last < first:
+        fail(f"the loss did not fall: first 5 steps {first!r}, last 5 {last!r}")
+    parts = time_parts(trainer, staged[0])
+    train = {
+        "samples_per_s": steps * batch / wall,
+        "step_ms_median": step_ms[len(step_ms) // 2],
+        "loss_first5": first, "loss_last5": last,
+        "breakdown_ms": parts,
+        "launches_strict": strict_counts,
+    }
+    log(f"train strict: {steps} steps of {batch}: {train['samples_per_s']!r} samples/s, "
+        f"step median {train['step_ms_median']!r} ms (device, CUDA events); loss "
+        f"{first!r} -> {last!r}; launches {strict_counts}; one step's parts {parts} [{card}]")
+
+    # phase 7: kernels against plain versions on the path
+    train["path"] = compare_paths(trainer, staged, card)
+
+    # phase 8: train -> serve
+    out = export_model(trainer, os.path.join(workdir, "trained"), model_zoo="model_zoo",
+                       model_def=MODEL_DEF, model_params=params)
+    want = trainer.eval_step(held_out)
+    replica = ServingReplica(out)
+    if replica.device.type != "cuda":
+        fail(f"ServingReplica's default device is {replica.device}, not cuda")
+    got = replica.execute(held_out, len(want))[: len(want)]
+    np.testing.assert_allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    log(f"train -> serve: exported at step {trainer.step}, served {len(want)} rows on "
+        f"{replica.device} within rtol {LOGIT_RTOL} of eval_step [{card}]")
+    del replica, trainer, staged
+    torch.cuda.empty_cache()
+
+    # phase 9: the windowed apply
+    windowed = ShardedEmbeddingTrainer(model, zoo.loss, zoo.optimizer(),
+                                       embedding_optimizer=zoo.embedding_optimizer(),
+                                       seed=seed, sparse_apply_every=32)
+    windowed.ensure_initialized()
+    window = windowed.stage_window(batches)
+    torch.cuda.synchronize()
+    ske.reset_launch_counts()
+    t0 = time.perf_counter()
+    window_losses = windowed.train_window(window)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    window_counts = ske.launch_counts()
+    if window_counts["fused_dedup_apply"] != 2 or window_counts["fused_lookup_fm"] != n_batches:
+        fail(f"{n_batches} steps at sparse_apply_every=32 launched {window_counts}")
+    if not bool(torch.isfinite(window_losses).all()):
+        fail("non-finite loss in the windowed run")
+    train["window_samples_per_s"] = n_batches * batch / wall
+    train["launches_window"] = window_counts
+    log(f"train window: {n_batches} steps at sparse_apply_every=32: "
+        f"{train['window_samples_per_s']!r} samples/s (host wall incl. first-use), launches "
+        f"{window_counts} [{card}]")
+    del windowed, window, model
+    torch.cuda.empty_cache()
+    return train
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -452,21 +826,35 @@ def main() -> None:
                 log(f"  ptxas: {line.strip()}")
 
     kernels = kernel_phase(card, args.seed)
+    k3 = dedup_apply_phase(card, args.seed)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches = serving_phases(card, args.seed, workdir)
+        train = training_phases(card, args.seed, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for name, count in launches.items():
         if count < 1:
             fail(f"kernel {name} was never launched on the serving path")
+    log(json.dumps({"training": train, "card": card}))
 
+    by_path = {
+        "fused_lookup_fm": {"serve_merged": launches["fused_lookup_fm"],
+                            "train_strict": train["launches_strict"]["fused_lookup_fm"],
+                            "train_window": train["launches_window"]["fused_lookup_fm"]},
+        "fused_lookup": {"serve_split": launches["fused_lookup"]},
+        "fused_dedup_apply": {"train_strict": train["launches_strict"]["fused_dedup_apply"],
+                              "train_window": train["launches_window"]["fused_dedup_apply"]},
+    }
     line = []
     for name in ("fused_lookup_fm", "fused_lookup"):
         r = kernels[name]
-        line.append({
+        entry = {
             "name": name, "ok": True, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": (train["launches_strict"][name] if name == "fused_lookup_fm"
+                         else launches[name]),
+            "launches_by_path": by_path[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "gather_ms": r["gather_ms"],
@@ -474,7 +862,24 @@ def main() -> None:
             "main_path_shape_ms": r["main_path_shape_ms"],
             "main_path_shape_bound_ms": r["main_path_shape_bound_ms"],
             "card": card,
-        })
+        }
+        if name == "fused_lookup_fm":
+            entry.update({k: r[k] for k in ("train_shape_ms", "train_shape_plain_ms",
+                                             "train_shape_bound_ms")})
+        line.append(entry)
+    adam = k3["by_kind"]["adam"]
+    line.append({
+        "name": "fused_dedup_apply", "ok": True, "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["fused_dedup_apply"],
+        "launches": train["launches_strict"]["fused_dedup_apply"],
+        "launches_by_path": by_path["fused_dedup_apply"],
+        "max_abs_err": max(r["max_abs_err"] for r in k3["by_kind"].values()),
+        "ms": adam["ms"], "plain_ms": adam["plain_ms"], "bound_ms": adam["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "index_add_ms": k3["index_add_ms"],
+        "shape": k3["shape"] + ", adam per-row", "by_kind": k3["by_kind"],
+        "train_step_ms": train["breakdown_ms"]["fused_dedup_apply"],
+        "card": card,
+    })
     log(json.dumps({"kernels": line}))
     log(card)
     print(json.dumps({"ok": True, "device": {

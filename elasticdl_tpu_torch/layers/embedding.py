@@ -1,4 +1,4 @@
-"""Inference-only Embedding layer over the port's lookup kernels.
+"""Embedding layer over the port's lookup kernels.
 
 Counterpart of ``elasticdl_tpu/layers/embedding.py`` ``Embedding``, with
 its fixed-vocabulary contract: ids outside ``[0, vocab)`` contribute
@@ -9,19 +9,94 @@ so the kernels' clamp rule never decides a result.
 The table is the buffer ``embedding`` of shape ``[vocab_padded,
 dim_padded]`` (``parallel/packed.py``).  There is no engine switch: on a
 CUDA tensor the lookup IS the kernel, on a CPU tensor its plain version.
-The training-only parts of the JAX layer (perturbation capture, id
-``sow``s, OOV counters) wait for the training slice.
+
+Training (the PS trainer's sparse-gradient capture): while a ``capture()``
+context is open, each call makes a zeros tensor ``bet`` that requires
+grad — the perturbation point of the JAX layer (the reference's
+``tape.watch``) — and records it with the safe ids and the step's OOV
+count (ids ``>= vocab_size``).  ``bet`` is added to the looked-up rows
+BEFORE the validity mask (inside ``fused_lookup_fm`` on the merged path),
+so padding positions get zero gradient, and its gradient IS the sparse
+gradient: the table itself is a buffer, never differentiated.  One call
+per layer per capture, as in the JAX layer.  Without a capture the layer
+is the inference layer, and ``bet`` is None.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import threading
+from dataclasses import dataclass
+from typing import Dict, Iterator, Optional
 
 import torch
 from torch import nn
 
 from elasticdl_tpu_torch.ops import sparse_embedding as ske
 from elasticdl_tpu_torch.parallel.packed import PackedSpec
+
+#: The JAX ``default_embedding_init`` range (the reference's Keras
+#: 'uniform' initializer).
+INIT_SCALE = 0.05
+
+
+@dataclass
+class CaptureRecord:
+    """One Embedding call under a capture: the ids its sparse gradient
+    belongs to (safe ids, as the JAX layer sows them), the perturbation
+    tensor whose ``.grad`` is that gradient, and its OOV count (a device
+    scalar)."""
+
+    ids: torch.Tensor
+    bet: torch.Tensor
+    oov: torch.Tensor
+
+
+class SparseCapture:
+    """The records of one training step, by Embedding layer."""
+
+    def __init__(self):
+        self.records: Dict[nn.Module, CaptureRecord] = {}
+
+    def record(self, layer: nn.Module, rec: CaptureRecord) -> None:
+        if layer in self.records:
+            raise RuntimeError(
+                f"{layer!r} was called twice in one capture; the sparse "
+                "capture allows one call per Embedding layer per step"
+            )
+        self.records[layer] = rec
+
+
+_local = threading.local()
+
+
+def active_capture() -> Optional[SparseCapture]:
+    return getattr(_local, "capture", None)
+
+
+@contextlib.contextmanager
+def capture() -> Iterator[SparseCapture]:
+    """Record every Embedding call of one step (not nestable)."""
+    if active_capture() is not None:
+        raise RuntimeError("a sparse capture is already open on this thread")
+    cap = SparseCapture()
+    _local.capture = cap
+    try:
+        yield cap
+    finally:
+        _local.capture = None
+
+
+def default_embedding_init(
+    spec: PackedSpec, table: torch.Tensor, generator: torch.Generator
+) -> torch.Tensor:
+    """In place: uniform in ``[-0.05, 0.05)`` on real rows and lanes, from
+    ``generator`` (on the table's device), zero on pad rows and lanes."""
+    with torch.no_grad():
+        table.uniform_(-INIT_SCALE, INIT_SCALE, generator=generator)
+        table[:, spec.dim:] = 0.0
+        table[spec.vocab_size:] = 0.0
+    return table
 
 
 class Embedding(nn.Module):
@@ -50,8 +125,9 @@ class Embedding(nn.Module):
         self.spec = PackedSpec(vocab_size, embedding_dim)
         self.combiner = combiner
         self.fm_interaction = fm_interaction
-        # Uninitialised: a loader fills it (serving/convert.load_state);
-        # at full width it is gigabytes, so it is never zero-filled first.
+        # Uninitialised: a loader fills it (serving/convert.load_state) or
+        # init_parameters draws it; at full width it is gigabytes, so it
+        # is never zero-filled first.
         self.register_buffer(
             "embedding",
             torch.empty(self.spec.rows_shape, dtype=torch.float32, device=device),
@@ -63,17 +139,31 @@ class Embedding(nn.Module):
             f"combiner={self.combiner}, fm_interaction={self.fm_interaction}"
         )
 
+    def init_parameters(self, generator: torch.Generator) -> None:
+        default_embedding_init(self.spec, self.embedding, generator)
+
     def forward(self, ids: torch.Tensor):
         spec = self.spec
         ids = ids.to(torch.int32)
         valid = (ids >= 0) & (ids < spec.vocab_size)
         safe_ids = torch.where(valid, ids, torch.zeros_like(ids))
+        bet = None
+        cap = active_capture()
+        if cap is not None:
+            bet = torch.zeros(
+                safe_ids.shape + (spec.dim,), dtype=torch.float32,
+                device=ids.device, requires_grad=True,
+            )
+            oov = torch.sum(ids >= spec.vocab_size, dtype=torch.int32)
+            cap.record(self, CaptureRecord(safe_ids, bet, oov))
         if self.fm_interaction:
             if ids.dim() != 2:
                 raise ValueError("fm_interaction requires ids of shape [batch, fields]")
-            return ske.fused_lookup_fm(spec, self.embedding, None, safe_ids, valid)
+            return ske.fused_lookup_fm(spec, self.embedding, bet, safe_ids, valid)
         acts = ske.fused_lookup(spec, self.embedding, safe_ids.reshape(-1))
         acts = acts.reshape(safe_ids.shape + (spec.dim,))
+        if bet is not None:
+            acts = acts + bet
         acts = acts * valid[..., None].to(acts.dtype)
         if self.combiner is None:
             return acts

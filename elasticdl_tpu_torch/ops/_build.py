@@ -44,13 +44,21 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 
 #: argtypes of every C entry point (pointers and the stream as c_void_p,
-#: so ctypes never cuts a 64-bit address to a 32-bit int).
+#: so ctypes never cuts a 64-bit address to a 32-bit int; hyperparameters
+#: as c_float, already rounded to f32 by the caller).
 SIGNATURES = {
     "edl_fused_lookup": (_P, _P, _P, _LL, _I, _I, _I, _I, _P),
     "edl_fused_lookup_fm": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "edl_fused_dedup_apply": (
+        _P, _P, _P, _LL, _I, _I, _I, _I,   # sorted ids, perm, grads, n, shape, kind
+        _P, _P, _P, _P, _P,                # table, 3 slots, t_global
+        _F, _F, _I, _F, _F, _F, _F, _F,    # lr_neg, mu, nesterov, eps, b1, b2, omb1, omb2
+        _P,                                # stream
     ),
 }
 

@@ -1,43 +1,52 @@
-"""Sparse-embedding forward ops: the port of the Pallas lookup kernels.
+"""Sparse-embedding ops: the port of the Pallas kernels of
+``elasticdl_tpu/ops/sparse_embedding.py``.  Three kernels, each a
+hand-written CUDA kernel in ``csrc/sparse_embedding.cu``:
 
-Counterpart of ``elasticdl_tpu/ops/sparse_embedding.py``.  Two kernels
-sit on the serving path, each a hand-written CUDA kernel in
-``csrc/sparse_embedding.cu``:
-
-``fused_lookup``     ids ``[n]`` -> rows ``[n, dim]`` (replaces
-                     ``_lookup_kernel``; the ``split_tables`` DeepFM
-                     layout and the generic Embedding layer).
-``fused_lookup_fm``  the DeepFM merged ``1+d`` lookup plus the FM partial
-                     sums in one pass (replaces ``_fm_kernel``).
+``fused_lookup``       ids ``[n]`` -> rows ``[n, dim]`` (replaces
+                       ``_lookup_kernel``; the ``split_tables`` DeepFM
+                       layout and the generic Embedding layer).
+``fused_lookup_fm``    the DeepFM merged ``1+d`` lookup plus the FM partial
+                       sums in one pass (replaces ``_fm_kernel``).
+``fused_dedup_apply``  the one-pass sparse optimizer update: dedup the
+                       ids, sum their grads, apply the slot math to each
+                       touched row in place (replaces
+                       ``_dedup_apply_kernel``).
 
 Each public function checks its operands, then dispatches on the device
 of the tensors it is given: on ``cuda`` it launches its kernel (or
-raises), on ``cpu`` it runs its ``*_plain`` version, the index
-arithmetic + ``index_select`` + masks + ``torch.sum`` form the tests hold
-against the JAX package and ``chip_smoke.py`` holds the kernels against
-on the card.  Nothing falls back from the kernel to the plain version.
+raises), on ``cpu`` it runs its ``*_plain`` version, the PyTorch form the
+tests hold against the JAX package and ``chip_smoke.py`` holds the
+kernels against on the card.  Nothing falls back from the kernel to the
+plain version.
+
+The two lookups are differentiable (``torch.autograd.Function``), with
+the JAX package's custom VJPs as their backward: ``_fm_bwd_math`` folds
+every cotangent into one per-field activation cotangent (returned for
+``bet``, the perturbation capture) and ``_lookup_bwd`` is a segment sum.
+Both are XLA ops in the JAX package, not Pallas kernels, so the backward
+is plain PyTorch here too.  The backward saves ``acts``, ids and
+``valid``, never the table: ``fused_dedup_apply`` updates tables in place.
 
 Tables are ``[vocab_padded, dim_padded]`` f32 logical rows
-(``parallel/packed.py``).  Forward only: the FM custom VJP, the lookup's
-segment-sum backward and ``fused_dedup_apply`` belong to the training
-slice.
-
-Contracts (those of ``docs/design.md`` for the TPU kernels): the lookup
-and ``acts`` are exact copies, bit for bit; ``first``/``sum_v``/
-``sum_sq`` agree with the plain version to reduction order (the kernel
-adds the fields in order f = 0..F-1, ``torch.sum`` in its own order).
+(``parallel/packed.py``).  Contracts (those of ``docs/design.md`` for the
+TPU kernels): the lookup and ``acts`` are exact copies, bit for bit;
+``first``/``sum_v``/``sum_sq`` agree with the plain version to reduction
+order; ``fused_dedup_apply`` replays the JAX scatter path's arithmetic
+operation for operation (``<= 1 ulp`` between engines).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
+from elasticdl_tpu_torch.parallel import packed as pk
 from elasticdl_tpu_torch.parallel.packed import PackedSpec, row_index
 
-KERNELS = ("fused_lookup", "fused_lookup_fm")
+KERNELS = ("fused_lookup", "fused_lookup_fm", "fused_dedup_apply")
 
 _launch_lock = threading.Lock()
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -62,16 +71,16 @@ def _count_launch(name: str) -> None:
         _launches[name] += 1
 
 
-def _check_table(spec: PackedSpec, table: torch.Tensor) -> None:
+def _check_table(spec: PackedSpec, table: torch.Tensor, what: str = "table") -> None:
     if table.dtype != torch.float32:
-        raise TypeError(f"table must be float32, got {table.dtype}")
+        raise TypeError(f"{what} must be float32, got {table.dtype}")
     if tuple(table.shape) != spec.rows_shape:
         raise ValueError(
-            f"table shape {tuple(table.shape)} != {spec.rows_shape} "
+            f"{what} shape {tuple(table.shape)} != {spec.rows_shape} "
             f"([vocab_padded, dim_padded] of {spec})"
         )
     if not table.is_contiguous():
-        raise ValueError("table must be contiguous")
+        raise ValueError(f"{what} must be contiguous")
 
 
 def _check_ids(ids: torch.Tensor, table: torch.Tensor, ndim: int) -> None:
@@ -91,6 +100,10 @@ def _route(table: torch.Tensor) -> str:
     raise ValueError(f"no kernel for device {table.device}")
 
 
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
 # ----------------------------------------------------------------------
 # fused_lookup
 # ----------------------------------------------------------------------
@@ -105,16 +118,7 @@ def fused_lookup_plain(
     return rows[:, : spec.dim]
 
 
-def fused_lookup(
-    spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor
-) -> torch.Tensor:
-    """ids int32 [n] -> rows [n, dim] (the JAX ``fused_lookup``).
-
-    Every id reads a real row by the clamp rule (``packed.row_index``);
-    bit-exact with the JAX kernel for every id and with ``pk.lookup`` for
-    ids in ``[0, vocab_padded)``."""
-    _check_table(spec, table)
-    _check_ids(ids, table, 1)
+def _lookup_forward(spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if _route(table) == "plain":
         return fused_lookup_plain(spec, table, ids)
     from elasticdl_tpu_torch.ops import _build
@@ -126,11 +130,46 @@ def fused_lookup(
         code = _build.library().edl_fused_lookup(
             table.data_ptr(), ids.data_ptr(), out.data_ptr(), n,
             spec.rows_per_block, spec.num_blocks, spec.dim_padded, spec.dim,
-            torch.cuda.current_stream().cuda_stream,
+            _stream(),
         )
     _build.check(code, "fused_lookup")
     _count_launch("fused_lookup")
     return out
+
+
+class _FusedLookup(torch.autograd.Function):
+    """The lookup with ``_lookup_bwd`` as its backward: the table's
+    cotangent is the segment sum of the output cotangent by row
+    (duplicates sum, ids outside the table drop)."""
+
+    @staticmethod
+    def forward(ctx, spec, table, ids):
+        ctx.spec = spec
+        ctx.save_for_backward(ids)
+        return _lookup_forward(spec, table, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        d_table = None
+        if ctx.needs_input_grad[1]:
+            spec = ctx.spec
+            zeros = torch.zeros(spec.rows_shape, dtype=g.dtype, device=g.device)
+            d_table = pk.scatter_add(spec, zeros, ids, g)
+        return None, d_table, None
+
+
+def fused_lookup(
+    spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor
+) -> torch.Tensor:
+    """ids int32 [n] -> rows [n, dim] (the JAX ``fused_lookup``).
+
+    Every id reads a real row by the clamp rule (``packed.row_index``);
+    bit-exact with the JAX kernel for every id and with ``pk.lookup`` for
+    ids in ``[0, vocab_padded)``.  Differentiable in the table."""
+    _check_table(spec, table)
+    _check_ids(ids, table, 1)
+    return _FusedLookup.apply(spec, table, ids)
 
 
 # ----------------------------------------------------------------------
@@ -155,13 +194,84 @@ def fused_lookup_fm_plain(
     ids: torch.Tensor,
     valid: torch.Tensor,
 ) -> FmOut:
-    """Plain PyTorch version of the merged lookup + FM partial sums."""
+    """Plain PyTorch version of the merged lookup + FM partial sums
+    (differentiable through plain autograd)."""
     batch, fields = ids.shape
     rows = table.index_select(0, row_index(spec, ids.reshape(-1)))
     rows = rows[:, : spec.dim].reshape(batch, fields, spec.dim)
     rows = rows + (bet.to(table.dtype) if bet is not None else 0.0)
     acts = rows * valid.to(table.dtype)[..., None]
     return (acts, *fm_stats(acts))
+
+
+def _lookup_fm_forward(spec, table, bet, ids, valid) -> FmOut:
+    if _route(table) == "plain":
+        return fused_lookup_fm_plain(spec, table, bet, ids, valid)
+    from elasticdl_tpu_torch.ops import _build
+
+    batch, fields = ids.shape
+    ids = ids.contiguous()
+    # bool is passed as one byte per flag, never as a reinterpreted bool*.
+    valid_u8 = valid.to(torch.uint8).contiguous()
+    if bet is not None:
+        bet = bet.to(table.dtype).contiguous()
+    device, dtype = table.device, table.dtype
+    acts = torch.empty((batch, fields, spec.dim), dtype=dtype, device=device)
+    first = torch.empty((batch,), dtype=dtype, device=device)
+    sum_v = torch.empty((batch, spec.dim - 1), dtype=dtype, device=device)
+    sum_sq = torch.empty((batch, spec.dim - 1), dtype=dtype, device=device)
+    with torch.cuda.device(device):
+        code = _build.library().edl_fused_lookup_fm(
+            table.data_ptr(), bet.data_ptr() if bet is not None else None,
+            ids.data_ptr(), valid_u8.data_ptr(), acts.data_ptr(),
+            first.data_ptr(), sum_v.data_ptr(), sum_sq.data_ptr(), batch,
+            fields, spec.rows_per_block, spec.num_blocks, spec.dim_padded,
+            spec.dim, _stream(),
+        )
+    _build.check(code, "fused_lookup_fm")
+    _count_launch("fused_lookup_fm")
+    return acts, first, sum_v, sum_sq
+
+
+def fm_backward(acts, valid, d_acts, d_first, d_sumv, d_sumsq) -> torch.Tensor:
+    """``_fm_bwd_math``'s per-field activation cotangent: first/sum_v/
+    sum_sq are plain sums of ``acts`` components, so every cotangent
+    folds into ``d_field`` (``2·v`` is the sum-of-squares jacobian), then
+    the validity mask.  Same operations in the same order."""
+    dtype = acts.dtype
+    d_field = d_acts.to(dtype).clone()
+    d_field[..., 0] += d_first.to(dtype)[:, None]
+    d_field[..., 1:] += (
+        d_sumv.to(dtype)[:, None, :]
+        + 2.0 * acts[..., 1:] * d_sumsq.to(dtype)[:, None, :]
+    )
+    return d_field * valid.to(dtype)[..., None]
+
+
+class _FusedLookupFm(torch.autograd.Function):
+    """K1 forward with ``_fm_bwd_math`` as its backward: ``bet`` gets
+    ``d_field``; the table, only when asked for, its segment sum."""
+
+    @staticmethod
+    def forward(ctx, spec, table, bet, ids, valid):
+        out = _lookup_fm_forward(spec, table, bet, ids, valid)
+        ctx.spec = spec
+        ctx.save_for_backward(out[0], ids, valid)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_acts, d_first, d_sumv, d_sumsq):
+        acts, ids, valid = ctx.saved_tensors
+        d_field = fm_backward(acts, valid, d_acts, d_first, d_sumv, d_sumsq)
+        d_table = None
+        if ctx.needs_input_grad[1]:
+            spec = ctx.spec
+            zeros = torch.zeros(spec.rows_shape, dtype=acts.dtype, device=acts.device)
+            d_table = pk.scatter_add(
+                spec, zeros, ids.reshape(-1), d_field.reshape(-1, spec.dim)
+            )
+        d_bet = d_field if ctx.needs_input_grad[2] else None
+        return None, d_table, d_bet, None, None
 
 
 def fused_lookup_fm(
@@ -172,14 +282,15 @@ def fused_lookup_fm(
     valid: torch.Tensor,
 ) -> FmOut:
     """Combined ``1+dim`` lookup + FM partial sums in one pass (the JAX
-    ``fused_lookup_fm`` forward).
+    ``fused_lookup_fm``).
 
     ids int32 [batch, fields] (already offset), valid bool [batch,
     fields], bet [batch, fields, dim] or None (zeros; serving passes
-    None, the training slice will pass its perturbation input).  Returns
-    ``(acts [batch, fields, dim], first [batch], sum_v [batch, dim-1],
-    sum_sq [batch, dim-1])`` with ``acts = (row + bet) * valid``; lane 0
-    is the first-order weight and lanes 1..dim the FM field vector:
+    None, training its perturbation capture, whose gradient is the
+    sparse gradient).  Returns ``(acts [batch, fields, dim], first
+    [batch], sum_v [batch, dim-1], sum_sq [batch, dim-1])`` with ``acts =
+    (row + bet) * valid``; lane 0 is the first-order weight and lanes
+    1..dim the FM field vector:
 
         second_order = 0.5 * sum_d(sum_v^2 - sum_sq)
     """
@@ -204,29 +315,192 @@ def fused_lookup_fm(
             )
         if bet.device != table.device:
             raise ValueError(f"bet on {bet.device} but table on {table.device}")
+    return _FusedLookupFm.apply(spec, table, bet, ids, valid)
+
+
+# ----------------------------------------------------------------------
+# fused_dedup_apply
+# ----------------------------------------------------------------------
+
+#: Table-shaped operands per optimizer kind, in kernel-operand order.
+#: The table itself is always first; the rest are the slot names.
+KIND_SLOTS: Dict[str, Tuple[str, ...]] = {
+    "sgd": (),
+    "momentum": ("momentum",),
+    "adagrad": ("accumulator",),
+    "adam": ("m", "v", "t"),
+    "adam_global": ("m", "v"),
+}
+_KIND_CODE = {"sgd": 0, "momentum": 1, "adagrad": 2, "adam": 3, "adam_global": 4}
+
+
+def apply_constants(kind: str, hyper: Mapping) -> Dict[str, float]:
+    """The f32 constants of the slot math, rounded as JAX rounds its
+    weakly typed Python-float hyperparameters: ``-lr`` and ``1 - b`` are
+    formed in double and rounded once to f32; the kernel receives them
+    already rounded and never forms ``1.0f - b1`` itself."""
+    f32 = lambda x: float(np.float32(x))  # noqa: E731
+    c = {"lr_neg": f32(-hyper["learning_rate"])}
+    if kind == "momentum":
+        c["mu"] = f32(hyper["momentum"])
+        c["nesterov"] = bool(hyper["nesterov"])
+    elif kind == "adagrad":
+        c["eps"] = f32(hyper["epsilon"])
+    elif kind in ("adam", "adam_global"):
+        b1, b2 = hyper["beta_1"], hyper["beta_2"]
+        c.update(b1=f32(b1), b2=f32(b2), omb1=f32(1 - b1), omb2=f32(1 - b2),
+                 eps=f32(hyper["epsilon"]))
+    return c
+
+
+def apply_math(kind: str, c: Mapping, g, subs, tr):
+    """Plain per-row optimizer math (the JAX ``_apply_math``) on real
+    lanes: the DELTAS to add to each operand (table first, then the slots
+    in ``KIND_SLOTS`` order).  ``g`` is the summed gradient, ``subs`` the
+    current rows, ``tr`` Adam's bias-correction step count, ``c`` from
+    ``apply_constants``."""
+    if kind == "sgd":
+        return (c["lr_neg"] * g,)
+    if kind == "momentum":
+        v = subs[1]
+        v_new = c["mu"] * v + g
+        step = (c["mu"] * v_new + g) if c["nesterov"] else v_new
+        return (c["lr_neg"] * step, v_new - v)
+    if kind == "adagrad":
+        gg = g * g
+        new_acc = subs[1] + gg
+        return (c["lr_neg"] * g / (torch.sqrt(new_acc) + c["eps"]), gg)
+    m, v = subs[1], subs[2]
+    m_new = c["b1"] * m + c["omb1"] * g
+    v_new = c["b2"] * v + c["omb2"] * g * g
+    b1 = torch.full((), c["b1"], dtype=torch.float32, device=g.device)
+    b2 = torch.full((), c["b2"], dtype=torch.float32, device=g.device)
+    m_hat = m_new / (1.0 - torch.pow(b1, tr))
+    v_hat = v_new / (1.0 - torch.pow(b2, tr))
+    update = c["lr_neg"] * m_hat / (torch.sqrt(v_hat) + c["eps"])
+    if kind == "adam":
+        # Per-row t gains 1 on real lanes only (pad lanes stay zero).
+        return (update, m_new - m, v_new - v, torch.ones_like(g))
+    return (update, m_new - m, v_new - v)
+
+
+def _resolve_kind(kind: str, slots: Mapping) -> str:
+    if kind == "adam" and "t" not in slots:
+        kind = "adam_global"
+    if kind not in KIND_SLOTS:
+        raise ValueError(f"unknown sparse optimizer kind {kind!r}")
+    return kind
+
+
+def _check_apply(spec, kind, table, slots, ids, grads):
+    _check_table(spec, table)
+    for name in KIND_SLOTS[kind]:
+        if name not in slots:
+            raise KeyError(f"{kind} needs the slot {name!r}")
+        _check_table(spec, slots[name], f"slot {name!r}")
+        if slots[name].device != table.device:
+            raise ValueError(f"slot {name!r} on {slots[name].device}, table on {table.device}")
+    if kind == "adam_global":
+        t_global = slots.get("t_global")
+        if t_global is None or t_global.shape != () or t_global.dtype != torch.float32:
+            raise ValueError("adam_global needs a float32 scalar slot 't_global'")
+        if t_global.device != table.device:
+            raise ValueError(f"slot 't_global' on {t_global.device}, table on {table.device}")
+    _check_ids(ids, table, 1)
+    if grads.dtype != torch.float32:
+        raise TypeError(f"grads must be float32, got {grads.dtype}")
+    if tuple(grads.shape) != (ids.shape[0], spec.dim):
+        raise ValueError(f"grads shape {tuple(grads.shape)} != {(ids.shape[0], spec.dim)}")
+    if grads.device != table.device:
+        raise ValueError(f"grads on {grads.device} but table on {table.device}")
+
+
+def fused_dedup_apply_plain(
+    spec: PackedSpec, kind: str, hyper: Mapping, table: torch.Tensor,
+    slots: Dict[str, torch.Tensor], ids: torch.Tensor, grads: torch.Tensor,
+):
+    """Plain PyTorch version: the JAX scatter path, step for step —
+    ``dedup_representatives``, row gathers, the slot math, then the
+    delta-form ``scatter_add`` of each operand (``parallel/
+    sparse_optim.py`` ``scatter_apply``).  Updates in place and returns
+    ``(table, slots)``."""
+    kind = _resolve_kind(kind, slots)
+    c = apply_constants(kind, hyper)
+    dim = spec.dim
+    uids, gsum, touched = pk.dedup_representatives(spec, ids, grads)
+    tch = touched.to(table.dtype)[:, None]
+    gsum = gsum * tch
+    rows64 = uids.to(torch.int64)
+    names = KIND_SLOTS[kind]
+    operands = (table,) + tuple(slots[name] for name in names)
+    subs = tuple(op.index_select(0, rows64)[:, :dim] for op in operands)
+    if kind == "adam":
+        tr = torch.clamp(subs[3][:, :1] + tch, min=1.0)
+    elif kind == "adam_global":
+        slots["t_global"].add_(1.0)
+        tr = slots["t_global"]
+    else:
+        tr = None
+    deltas = apply_math(kind, c, gsum, subs, tr)
+    for op, delta in zip(operands, deltas):
+        pk.scatter_add(spec, op, uids, delta * tch)
+    return table, slots
+
+
+def fused_dedup_apply(
+    spec: PackedSpec, kind: str, hyper: Mapping, table: torch.Tensor,
+    slots: Dict[str, torch.Tensor], ids: torch.Tensor, grads: torch.Tensor,
+):
+    """One-pass sparse optimizer step, IN PLACE: ``(ids [n] int32, grads
+    [n, dim] f32)`` in; ``table`` and the slots of ``kind``
+    (``KIND_SLOTS``) updated and returned as ``(table, slots)``.
+
+    ``kind`` is sgd, momentum (``hyper["nesterov"]``), adagrad, adam
+    (per-row step count in slot ``t``) or adam_global (``adam`` without a
+    ``t`` slot: the scalar ``t_global`` gains 1 per apply, outside the
+    kernel, and is the bias-correction count of every row).  Semantics of
+    the JAX ``fused_dedup_apply``: every distinct id in ``[0,
+    vocab_padded)`` gets one update from the sum of its grads; rows whose
+    sum is exactly zero are untouched; written values are ``old +
+    fl(new - old)`` for every operand; pad lanes stay zero.
+
+    On CUDA the ids are sorted (stable, so each row's grads keep their
+    position order) and the kernel sums each row's segment from 0.0f in
+    that order, then applies the update to its row; each touched row
+    belongs to one segment, so the in-place update needs no atomics."""
+    kind = _resolve_kind(kind, slots)
+    _check_apply(spec, kind, table, slots, ids, grads)
     if _route(table) == "plain":
-        return fused_lookup_fm_plain(spec, table, bet, ids, valid)
+        return fused_dedup_apply_plain(spec, kind, hyper, table, slots, ids, grads)
     from elasticdl_tpu_torch.ops import _build
 
-    batch, fields = ids.shape
-    ids = ids.contiguous()
-    # bool is passed as one byte per flag, never as a reinterpreted bool*.
-    valid_u8 = valid.to(torch.uint8).contiguous()
-    if bet is not None:
-        bet = bet.to(table.dtype).contiguous()
-    device, dtype = table.device, table.dtype
-    acts = torch.empty((batch, fields, spec.dim), dtype=dtype, device=device)
-    first = torch.empty((batch,), dtype=dtype, device=device)
-    sum_v = torch.empty((batch, spec.dim - 1), dtype=dtype, device=device)
-    sum_sq = torch.empty((batch, spec.dim - 1), dtype=dtype, device=device)
-    with torch.cuda.device(device):
-        code = _build.library().edl_fused_lookup_fm(
-            table.data_ptr(), bet.data_ptr() if bet is not None else None,
-            ids.data_ptr(), valid_u8.data_ptr(), acts.data_ptr(),
-            first.data_ptr(), sum_v.data_ptr(), sum_sq.data_ptr(), batch,
-            fields, spec.rows_per_block, spec.num_blocks, spec.dim_padded,
-            spec.dim, torch.cuda.current_stream().cuda_stream,
+    c = apply_constants(kind, hyper)
+    operands = [table] + [slots[name] for name in KIND_SLOTS[kind]]
+    operands += [None] * (4 - len(operands))
+    tr_global = None
+    if kind == "adam_global":
+        slots["t_global"].add_(1.0)
+        tr_global = slots["t_global"].data_ptr()
+    n = ids.shape[0]
+    if n == 0:
+        return table, slots
+    keys = torch.where(
+        pk.in_table(spec, ids), ids,
+        torch.full_like(ids, spec.vocab_padded),
+    )
+    sorted_ids, perm = torch.sort(keys, stable=True)
+    grads = grads.contiguous()
+    with torch.cuda.device(table.device):
+        code = _build.library().edl_fused_dedup_apply(
+            sorted_ids.data_ptr(), perm.data_ptr(), grads.data_ptr(), n,
+            spec.vocab_padded, spec.dim_padded, spec.dim, _KIND_CODE[kind],
+            *(op.data_ptr() if op is not None else None for op in operands),
+            tr_global,
+            c["lr_neg"], c.get("mu", 0.0), int(c.get("nesterov", False)),
+            c.get("eps", 0.0), c.get("b1", 0.0), c.get("b2", 0.0),
+            c.get("omb1", 0.0), c.get("omb2", 0.0),
+            _stream(),
         )
-    _build.check(code, "fused_lookup_fm")
-    _count_launch("fused_lookup_fm")
-    return acts, first, sum_v, sum_sq
+    _build.check(code, "fused_dedup_apply")
+    _count_launch("fused_dedup_apply")
+    return table, slots

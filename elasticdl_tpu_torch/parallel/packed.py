@@ -123,3 +123,88 @@ def row_index(spec: PackedSpec, ids: torch.Tensor) -> torch.Tensor:
         torch.div(ids, r, rounding_mode="floor"), 0, spec.num_blocks - 1
     )
     return blocks * r + torch.remainder(ids, r)
+
+
+# ----------------------------------------------------------------------
+# Row-form scatter side (the JAX package's expand_updates / scatter_add /
+# grad_accumulate / dedup_representatives).  The JAX versions scatter
+# 128-lane storage rows with one-hot slot masks; on logical rows a
+# scatter is an ``index_add_`` of [n, dim_padded] updates.  Ids outside
+# [0, vocab_padded) are DROPPED, as the JAX scatters drop them (negative
+# ids routed out of bounds high, ids >= vocab_padded out of bounds).
+# ----------------------------------------------------------------------
+
+
+def in_table(spec: PackedSpec, ids: torch.Tensor) -> torch.Tensor:
+    """bool mask of ids that address a row of the table."""
+    return (ids >= 0) & (ids < spec.vocab_padded)
+
+
+def pad_lanes(spec: PackedSpec, updates: torch.Tensor) -> torch.Tensor:
+    """[n, dim] -> [n, dim_padded] with zero pad lanes."""
+    if spec.dim == spec.dim_padded:
+        return updates
+    return torch.nn.functional.pad(updates, (0, spec.dim_padded - spec.dim))
+
+
+def expand_updates(spec: PackedSpec, ids: torch.Tensor, updates: torch.Tensor):
+    """(ids [n], updates [n, dim]) -> (rows int64 [m], updates [m,
+    dim_padded]) for the m ids inside the table, in position order: the
+    row-form ``expand_updates``, whose dropped ids are left out here."""
+    keep = in_table(spec, ids)
+    return ids[keep].to(torch.int64), pad_lanes(spec, updates[keep])
+
+
+def scatter_add(
+    spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor, updates: torch.Tensor
+) -> torch.Tensor:
+    """table[ids] += updates, in place; duplicates sum, out-of-table ids
+    drop.  On the CPU ``index_add_`` adds in position order, as the JAX
+    scatter does; on CUDA it adds with atomics, in no fixed order."""
+    rows, expanded = expand_updates(spec, ids, updates)
+    return table.index_add_(0, rows, expanded.to(table.dtype))
+
+
+def grad_accumulate(
+    spec: PackedSpec, table_like: torch.Tensor, ids: torch.Tensor, grads: torch.Tensor
+) -> torch.Tensor:
+    """Segment sum of grads by row: a new zeros table with acc[row] = the
+    sum of grads over every occurrence of row in ids."""
+    return scatter_add(spec, torch.zeros_like(table_like), ids, grads)
+
+
+def real_lane_mask(spec: PackedSpec, dtype=torch.float32, device=None) -> torch.Tensor:
+    """[dim_padded] mask: 1 on lanes holding real dims, 0 on pad lanes."""
+    return (torch.arange(spec.dim_padded, device=device) < spec.dim).to(dtype)
+
+
+def dedup_representatives(spec: PackedSpec, ids: torch.Tensor, grads: torch.Tensor):
+    """Row-form twin of the JAX ``dedup_representatives``: returns
+    ``(safe_ids int32 [n], gsum [n, dim], touched bool [n])``.
+
+    Exactly one position per distinct in-table id — its LAST occurrence,
+    the representative — is touched; ``gsum`` there holds the sum of the
+    grads of every occurrence (added in position order onto zeros, as
+    the JAX scatter-add does on the CPU); rows whose sum is exactly zero
+    are untouched; ids outside ``[0, vocab_padded)`` are dropped and
+    their safe id is 0.  Non-representative positions keep ``gsum``
+    zero, like the JAX version's."""
+    n = ids.shape[0]
+    ids = ids.to(torch.int32)
+    valid = in_table(spec, ids)
+    safe = torch.where(valid, ids, torch.zeros_like(ids))
+    pos = torch.arange(n, dtype=torch.int64, device=ids.device)
+    # last occurrence per row: scatter-max of positions (-1 = never).
+    last_by_row = torch.full((spec.vocab_padded,), -1, dtype=torch.int64, device=ids.device)
+    last_by_row.scatter_reduce_(
+        0, safe[valid].to(torch.int64), pos[valid], reduce="amax", include_self=True
+    )
+    last = torch.where(valid, last_by_row[safe.to(torch.int64)], torch.full_like(pos, -1))
+    # every occurrence's grad onto its representative; invalid -> row n,
+    # cut off below (the JAX version drops them out of bounds).
+    target = torch.where(valid, last, torch.full_like(pos, n))
+    gsum = torch.zeros((n + 1,) + tuple(grads.shape[1:]), dtype=grads.dtype, device=grads.device)
+    gsum.index_add_(0, target, grads)
+    gsum = gsum[:n]
+    touched = valid & (pos == last) & torch.any(gsum != 0, dim=-1)
+    return safe, gsum, touched

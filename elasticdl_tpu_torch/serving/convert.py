@@ -16,6 +16,12 @@ port tensor:
   (``parallel/packed.as_rows``; a packed memmap stays a view).
 
 A leftover or missing key, or a shape that does not fit, raises.
+
+The other direction (``jax_variables_from_port``) writes the port's
+weights in the JAX layout for export, and ``trainer_state_from_jax``
+carries a whole JAX PS trainer state across (dense params, tables,
+sparse slots, optax Adam moments), so both trainers can start from the
+same bits.
 """
 
 from __future__ import annotations
@@ -94,6 +100,14 @@ def state_dict_from_jax(variables: Mapping, model: nn.Module) -> Dict[str, np.nd
     return out
 
 
+def set_in_tree(tree: Dict, path, value) -> None:
+    """tree[path[0]][path[1]]... = value, making the inner dicts."""
+    node = tree
+    for part in path[:-1]:
+        node = node.setdefault(part, {})
+    node[path[-1]] = value
+
+
 def random_jax_variables(model: nn.Module, seed: int, scale: float = 0.05):
     """Seeded random weights for ``model`` in the JAX layout, the inverse
     of ``state_dict_from_jax``: ``(variables, tables)`` as
@@ -122,11 +136,108 @@ def random_jax_variables(model: nn.Module, seed: int, scale: float = 0.05):
         if kind == "dense_kernel":
             shape = shape[::-1]  # flax Dense kernels are [in, out]
         draw = rng.random(shape, dtype=np.float32)
-        node = variables
-        for part in path[:-1]:
-            node = node.setdefault(part, {})
-        node[path[-1]] = (2.0 * draw - 1.0) * np.float32(scale)
+        set_in_tree(variables, path, (2.0 * draw - 1.0) * np.float32(scale))
     return variables, tables
+
+
+def jax_variables_from_port(model: nn.Module):
+    """The port's weights in the JAX layout, the inverse of
+    ``state_dict_from_jax``: ``(variables, tables)`` as
+    ``serving/export.write_artifact`` takes them — the nested ``{"params":
+    ...}`` tree of numpy arrays without the tables (Dense kernels back to
+    ``[in, out]``), and ``{key: (spec, [vocab_padded, dim_padded] rows)}``
+    with ``key`` the table's path under ``params``."""
+    state = model.state_dict()
+    variables: Dict = {}
+    tables = {}
+    for jax_key, port_key, kind, module in _targets(model):
+        path = jax_key.split("/")
+        value = state[port_key].detach()
+        if kind == "table":
+            tables["/".join(path[1:])] = (module.spec, value.cpu().numpy())
+            continue
+        if kind == "dense_kernel":
+            value = value.T
+        set_in_tree(variables, path, value.cpu().numpy().copy())
+    return variables, tables
+
+
+def flat_jax_variables(model: nn.Module) -> Dict[str, np.ndarray]:
+    """Flat ``{"params/<path>/<leaf>": array}`` with LOGICAL ``[vocab,
+    dim]`` tables: the JAX trainers' ``get_variables_numpy`` view."""
+    variables, tables = jax_variables_from_port(model)
+    flat = flatten_variables(variables)
+    for key, (spec, rows) in tables.items():
+        flat["params/" + key] = np.ascontiguousarray(rows[: spec.vocab_size, : spec.dim])
+    return flat
+
+
+def _dense_from_jax(tree: Mapping, model: nn.Module) -> Dict[str, np.ndarray]:
+    """A params-shaped JAX tree (params, or an optimizer moment of them)
+    -> ``{port parameter name: array}``; table leaves are skipped (the PS
+    trainer keeps 0-d placeholders there)."""
+    flat = flatten_variables({"params": tree})
+    out = {}
+    for jax_key, port_key, kind, _ in _targets(model):
+        if kind == "table":
+            continue
+        value = np.asarray(flat[jax_key])
+        out[port_key] = value.T if kind == "dense_kernel" else value
+    return out
+
+
+def _optax_adam_state(opt_state):
+    """The ``ScaleByAdamState`` inside an optax chain's state, or None."""
+    if all(hasattr(opt_state, name) for name in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _optax_adam_state(part)
+            if found is not None:
+                return found
+    return None
+
+
+def trainer_state_from_jax(state, model: nn.Module):
+    """A JAX ``PSTrainState`` with numpy leaves (``jax.device_get`` of
+    ``ShardedEmbeddingTrainer.state``) -> the port's ``PSTrainState`` with
+    numpy leaves, for ``parallel.ps_trainer.ShardedEmbeddingTrainer.state``:
+    dense params (Dense kernels transposed), packed tables and their
+    sparse slots (``m``/``v``/``t``/``momentum``/``accumulator`` as rows,
+    ``t_global`` as a scalar) through a reshape, and optax Adam's
+    ``mu``/``nu``/``count`` (an optax state without Adam carries nothing:
+    sgd has none)."""
+    from elasticdl_tpu_torch.parallel.ps_trainer import PSTrainState
+
+    specs = {
+        jax_key[len("params/"):]: module.spec
+        for jax_key, _, kind, module in _targets(model) if kind == "table"
+    }
+    adam = _optax_adam_state(state.opt_state)
+    opt_state = {}
+    if adam is not None:
+        opt_state = {
+            "count": np.asarray(adam.count, np.int32),
+            "mu": _dense_from_jax(adam.mu, model),
+            "nu": _dense_from_jax(adam.nu, model),
+        }
+    if set(state.tables) != set(specs):
+        raise KeyError(f"JAX tables {sorted(state.tables)} != the port's {sorted(specs)}")
+    tables = {key: as_rows(specs[key], np.asarray(arr)) for key, arr in state.tables.items()}
+    slots = {
+        key: {
+            name: as_rows(specs[key], np.asarray(arr)) if np.ndim(arr) else np.asarray(arr, np.float32)
+            for name, arr in group.items()
+        }
+        for key, group in state.slots.items()
+    }
+    return PSTrainState(
+        step=int(np.asarray(state.step)),
+        params=_dense_from_jax(state.params, model),
+        opt_state=opt_state,
+        tables=tables,
+        slots=slots,
+    )
 
 
 @torch.no_grad()

@@ -30,7 +30,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
-from typing import Dict, Mapping, Tuple
+from typing import Mapping, Tuple
 
 import numpy as np
 import torch
@@ -121,13 +121,6 @@ def load_for_serving(model_dir: str, device: DeviceLike = None) -> ServingModel:
     return ServingModel(model, signature, device)
 
 
-def _set_in_tree(tree: Dict, path, value):
-    node = tree
-    for part in path[:-1]:
-        node = node.setdefault(part, {})
-    node[path[-1]] = value
-
-
 def write_artifact(
     out_dir: str,
     variables: Mapping,
@@ -171,7 +164,7 @@ def write_artifact(
                 "packed_shape": list(spec.packed_shape),
             }
         )
-        _set_in_tree(tree, ("params",) + tuple(key.split("/")), {_TABLE_REF: rel})
+        convert.set_in_tree(tree, ("params",) + tuple(key.split("/")), {_TABLE_REF: rel})
     with open(os.path.join(out_dir, _VARIABLES), "wb") as f:
         pickle.dump(tree, f)
     meta = {"format": FORMAT, "step": 0, **signature, "tables": tables_meta}
@@ -179,6 +172,32 @@ def write_artifact(
     with open(os.path.join(out_dir, _SIGNATURE), "w") as f:
         json.dump(meta, f, indent=2)
     return out_dir
+
+
+def export_model(
+    trainer,
+    out_dir: str,
+    model_zoo: str = "",
+    model_def: str = "",
+    model_params: str = "",
+    chunk_rows: int = convert.CHUNK_ROWS,
+) -> str:
+    """Write the servable artifact of a trained
+    ``parallel.ps_trainer.ShardedEmbeddingTrainer`` in the JAX package's
+    format (its ``export_model``): the dense params in the flax layout,
+    each table packed in ``tables/<i>.npy``, and the signature with the
+    trainer's ``step``.  Both this package's ``load_for_serving`` and the
+    JAX one read it."""
+    if trainer.state is None:
+        raise ValueError("Cannot export: model was never initialized")
+    variables, tables = convert.jax_variables_from_port(trainer.model)
+    signature = {
+        "model_zoo": model_zoo,
+        "model_def": model_def,
+        "model_params": model_params,
+        "step": int(trainer.step),
+    }
+    return write_artifact(out_dir, variables, tables, signature, chunk_rows)
 
 
 def _copy_tree(node):

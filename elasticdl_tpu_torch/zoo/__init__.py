@@ -14,6 +14,7 @@ import inspect
 from types import ModuleType
 from typing import Union
 
+from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.common.params import parse_dict_params
 from elasticdl_tpu_torch.zoo import deepfm
 
@@ -43,7 +44,8 @@ def resolve(model_def: str) -> ModuleType:
 
 def build_model(model_def: str, model_params: Union[str, dict], device=None):
     """Build the port's module for an artifact's ``model_def`` and
-    ``model_params`` on ``device`` (weights uninitialised)."""
+    ``model_params`` on ``device`` (None: the CUDA card, raising without
+    one; weights uninitialised)."""
     module = resolve(model_def)
     params = (
         parse_dict_params(model_params)
@@ -54,4 +56,4 @@ def build_model(model_def: str, model_params: Union[str, dict], device=None):
     for name, value in SERVING_FLAG_DEFAULTS.items():
         if name in accepted and name not in params:
             params[name] = value
-    return module.custom_model(**params, device=device)
+    return module.custom_model(**params, device=resolve_device(device))

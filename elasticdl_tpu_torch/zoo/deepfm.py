@@ -1,5 +1,5 @@
 """DeepFM (Criteo/DAC click-through) — the port of
-``model_zoo/deepfm/deepfm_functional_api.py``, inference side.
+``model_zoo/deepfm/deepfm_functional_api.py``.
 
 Same structure and parameter names as the flax module, so the JAX
 variables map one to one (``serving/convert.py``):
@@ -22,16 +22,27 @@ Training-only parameters (``sparse_apply_every``, ``sparse_kernel``,
 ``mesh``) are accepted so an artifact's recorded params build the model;
 they decide nothing on the card beyond the JAX package's table-layout
 rule (``_split``), which they must reproduce for the variables to match.
+
+The model-zoo contract of the JAX module: ``loss`` (sigmoid binary cross
+entropy, batch mean), ``optimizer`` (dense Adam 1e-3) and
+``embedding_optimizer`` (sparse per-row Adam 1e-3).  ``init_parameters``
+draws flax's default initialisation from a ``torch.Generator``:
+lecun-normal kernels, zero biases, the Embedding layer's uniform tables.
+In training the Embedding layers pass their perturbation capture through
+(``layers/embedding.py``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
 from torch import nn
 
+from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.layers.embedding import Embedding
+from elasticdl_tpu_torch.parallel import optim, sparse_optim
 
 NUM_DENSE = 13
 NUM_CAT = 26
@@ -66,6 +77,18 @@ def use_split_tables(
     )
 
 
+#: flax's truncated-normal correction: the std of a unit normal cut at
+#: +-2, so the truncated draw has the requested variance.
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax ``lecun_normal``: truncated normal (+-2 std) of variance
+    ``1 / fan_in``."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+
+
 class DenseGeneral(nn.Module):
     """flax ``DenseGeneral(features=(13, d), axis=-1)`` applied to a
     ``[B, 1, 13]`` input: ``out[b, i, j] = sum_k x[b, k] kernel[k, i, j]
@@ -80,6 +103,16 @@ class DenseGeneral(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.einsum("bk,kij->bij", x, self.kernel) + self.bias
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        # flax folds the input axes into fan_in: kernel [in, *features].
+        lecun_normal_(self.kernel, self.kernel.shape[0], generator)
+        nn.init.zeros_(self.bias)
+
+
+def _init_linear(layer: nn.Linear, generator: torch.Generator) -> None:
+    lecun_normal_(layer.weight, layer.in_features, generator)
+    nn.init.zeros_(layer.bias)
 
 
 class DeepFM(nn.Module):
@@ -115,6 +148,17 @@ class DeepFM(nn.Module):
         self.Dense_0 = nn.Linear((NUM_CAT + NUM_DENSE) * d, hidden, device=device)
         self.Dense_1 = nn.Linear(hidden, hidden // 2, device=device)
         self.Dense_2 = nn.Linear(hidden // 2, 1, device=device)
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """Seeded initialisation, flax's defaults (draws in module order)."""
+        _init_linear(self.linear_dense, generator)
+        self.dense_projection.init_parameters(generator)
+        if self.split:
+            self.linear_embedding.init_parameters(generator)
+        self.fm_embedding.init_parameters(generator)
+        for layer in (self.Dense_0, self.Dense_1, self.Dense_2):
+            _init_linear(layer, generator)
 
     def forward(self, features: Dict[str, torch.Tensor]) -> torch.Tensor:
         dense = features["dense"].to(torch.float32)          # [B, 13]
@@ -166,10 +210,11 @@ def custom_model(
     mesh: Any = None,
     device=None,
 ) -> DeepFM:
-    """The JAX ``custom_model`` contract.  ``sparse_apply_every='auto'``
+    """The JAX ``custom_model`` contract, built on ``device`` (None: the
+    CUDA card; weights uninitialised).  ``sparse_apply_every='auto'``
     resolves from the table rows exactly as the JAX package does, since
     it decides the table layout.  ``mesh`` is accepted and ignored: the
-    port serves from one card."""
+    port runs on one card."""
     if sparse_apply_every == "auto":
         total_rows = vocab_size * NUM_CAT * (2 if split_tables else 1)
         sparse_apply_every = (
@@ -182,5 +227,21 @@ def custom_model(
         split_tables=split_tables,
         sparse_apply_every=int(sparse_apply_every),
         sparse_kernel=sparse_kernel,
-        device=device,
+        device=resolve_device(device),
     )
+
+
+def loss(labels: torch.Tensor, predictions: torch.Tensor) -> torch.Tensor:
+    """``optax.sigmoid_binary_cross_entropy(predictions, labels).mean()``."""
+    labels = labels.to(predictions.dtype)
+    log_p = torch.nn.functional.logsigmoid(predictions)
+    log_not_p = torch.nn.functional.logsigmoid(-predictions)
+    return (-labels * log_p - (1.0 - labels) * log_not_p).mean()
+
+
+def optimizer(lr: float = 0.001) -> optim.DenseOptimizer:
+    return optim.adam(lr)
+
+
+def embedding_optimizer(lr: float = 0.001) -> sparse_optim.SparseOptimizer:
+    return sparse_optim.adam(lr)

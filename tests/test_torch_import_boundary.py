@@ -104,7 +104,15 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from elasticdl_tpu_torch.serving.export import load_for_serving
     from elasticdl_tpu_torch.serving.runtime import ServingReplica
 
+    from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer
+    from elasticdl_tpu_torch.zoo import build_model, deepfm
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for entry in (load_for_serving, ServingReplica):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry(str(tmp_path))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model("deepfm.deepfm_functional_api", "vocab_size=10")
+    model = build_model("deepfm.deepfm_functional_api", "vocab_size=10", device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedEmbeddingTrainer(model, deepfm.loss, deepfm.optimizer())

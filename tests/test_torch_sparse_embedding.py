@@ -139,7 +139,8 @@ def test_wrappers_use_plain_versions_on_cpu_and_count_no_launch():
         assert torch.equal(a, b)
     assert torch.equal(ske.fused_lookup(spec, rows, ids[0]),
                        ske.fused_lookup_plain(spec, rows, ids[0]))
-    assert ske.launch_counts() == {"fused_lookup": 0, "fused_lookup_fm": 0}
+    assert ske.launch_counts() == {"fused_lookup": 0, "fused_lookup_fm": 0,
+                                   "fused_dedup_apply": 0}
 
 
 def test_wrappers_check_operands():
