@@ -43,13 +43,35 @@ training phases 5-9 follow the serving phases 3-4):
    must predict the trainer's ``eval_step``.
 9. 64 steps at ``sparse_apply_every=32`` through ``train_window``.
 
+The long-context slice (the transformer LM and its flash-attention
+kernels K4-K6):
+
+10. K4 (forward), K5 (dQ) and K6 (dK/dV) against their plain versions on
+    the card, on seeded bf16 inputs at the bench attention shape (B=16,
+    H=8, T=2048, D=64; causal and not) and at T=8192, B=2 (causal):
+    out, lse, dq, dk, dv within the stated tolerances, then timed like
+    phase 2 beside the plain versions, the bound (operations over the
+    bf16 peak, or bytes) and PyTorch's ``scaled_dot_product_attention``.
+11. Training at full width: ``TransformerLM`` at ``bench.py``'s
+    ``TRANSFORMER_BENCH`` (vocab 32768, d_model 512, 8 heads, 4 layers,
+    T=2048, bf16, f32 head), batch 16 of the synthetic LM data, AdamW
+    3e-3, by ``DataParallelTrainer`` on the default device: warm-up, 20
+    timed steps (tokens/s, median step, a CUDA-event breakdown with the
+    attention kernels' in-step time, peak memory), the loss must fall;
+    then one ``train_window`` of 4 staged steps.
+12. From one cloned state, 3 steps through the kernels and 3 with the
+    plain versions patched in: losses and parameters within the stated
+    tolerances.
+
 Launch counts are zeroed just before each serving and training phase and
 read just after it; a kernel of the path that did not launch there (K1
-and K3 once per strict training step, K3 twice in the window) fails the
-run.
+and K3 once per strict training step, K3 twice in the window; K4, K5 and
+K6 once per layer per LM step) fails the run.
 The line before the last holds the card's name and power limit, the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, with no
 result, when no CUDA device is available or the port is not beside it.
+``--phases 1,10`` runs only the named phases (for a short check of one
+kernel; such a run prints no result line).
 """
 
 from __future__ import annotations
@@ -100,6 +122,61 @@ LR = 1e-3
 #: 8.1e-4).  Every element is held to 2*lr*3 and all but 1% of the moved
 #: ones to 1e-6.
 PATH_LOSS_RTOL, PATH_TABLE_ATOL, PATH_LOOSE_SHARE = 1e-5, 1e-6, 1e-2
+#: Published H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet).
+BF16_FLOPS_PER_S = 989e12
+LM_DEF = "transformer.transformer_lm"
+#: bench.py's TRANSFORMER_BENCH and bench_transformer's batch.
+LM_BENCH = dict(vocab=32768, d_model=512, num_heads=8, num_layers=4, seq_len=2048,
+                mlp_ratio=4)
+LM_BATCH = 16
+LM_LR = 3e-3
+FLASH_SOURCE = "elasticdl_tpu_torch/ops/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "flash_attention_fwd": "elasticdl_tpu/ops/flash_attention.py:54",
+    "flash_attention_dq": "elasticdl_tpu/ops/flash_attention.py:129",
+    "flash_attention_dkv": "elasticdl_tpu/ops/flash_attention.py:179",
+}
+#: Attention shapes of phase 10: (B, T, H, D, causal).  The first is the
+#: LM's (bench shape), timed first.
+ATTN_SHAPES = ((16, 2048, 8, 64, True), (16, 2048, 8, 64, False), (2, 8192, 8, 64, True))
+#: Kernel against plain version, bf16 outputs.  Both compute the same f32
+#: values in another summation order (FMA loops against cuBLAS f32
+#: GEMMs), so an f32 value may land on the other side of a bf16 rounding:
+#: out, dq, dk, dv within 2 bf16 ulps of the plain value (rtol 2**-7)
+#: plus ATTN_ATOL_SHARE of the tensor's largest magnitude (the backward
+#: sums terms of both signs, whose f32 rounding is relative to the terms,
+#: not to the sum).  lse is f32: the scores' f32 sums over D=64 in
+#: another order, a few ulps of |s| <= ~10.
+ATTN_RTOL, ATTN_ATOL_SHARE, LSE_ATOL = 2.0 ** -7, 2.0 ** -10, 1e-4
+#: Checked for correctness only, not timed: the kernels' other builds and
+#: edges.  (B, T, H, D, dtype, causal): f32 inputs, head_dim 8/16/32/128
+#: (the D=128 build), T not a multiple of the 64-row tile, T=1.  Each is
+#: also run on the q/k/v slices of one fused [B, T, 3, H, D] projection.
+ATTN_EDGE_SHAPES = (
+    (2, 1000, 4, 128, "bfloat16", True), (2, 333, 2, 32, "float32", False),
+    (3, 200, 2, 64, "float32", True), (1, 1, 1, 8, "bfloat16", True),
+    (2, 65, 3, 16, "bfloat16", False), (1, 130, 2, 128, "float32", True),
+)
+#: f32 kernel against f32 plain version: the same f32 values in another
+#: summation order, so a few f32 ulps of the sums' terms: rtol 1e-5 plus
+#: 1e-5 of the tensor's largest magnitude.
+ATTN_F32_RTOL, ATTN_F32_ATOL_SHARE = 1e-5, 1e-5
+#: LM kernel path against plain path (bf16 model).  The paths differ
+#: where phase 10's do (an f32 value on the other side of a bf16
+#: rounding), and the bf16 network carries that on.  From one state and
+#: over 3 AdamW steps: losses within rtol 1e-4; each parameter's
+#: gradient within a relative L2 error of 1e-2.  After the 3 steps, Adam
+#: has divided each element's gradient by its own magnitude, so an
+#: element whose gradient is mostly rounding noise moves by ~lr in either
+#: direction on either path (on an H100 8.5% of the elements end more
+#: than 1e-5 apart, none more than 2.4*lr): every element is held
+#: to 2*lr*3*1.5 (a sign flip in every step, Adam's ratio above 1), and
+#: the two paths' updates (final minus start) to a relative L2
+#: difference of 2e-2.  Measured on an H100: 2.4e-5, 3.2e-3, 4.4e-3.
+LM_PATH_LOSS_RTOL = 1e-4
+LM_PATH_GRAD_RTOL = 1e-2
+LM_PATH_PARAM_MAX = 2 * LM_LR * 3 * 1.5
+LM_PATH_UPDATE_RTOL = 2e-2
 K3_HYPER = {
     "sgd": ("sgd", {"learning_rate": 0.01}),
     "momentum": ("momentum", {"learning_rate": 0.01, "momentum": 0.9, "nesterov": False}),
@@ -798,10 +875,440 @@ def training_phases(card: str, seed: int, workdir: str, params: str = TRAIN_PARA
     return train
 
 
+# ----------------------------------------------------------------------
+# phase 10: flash attention (K4-K6) against the plain versions
+# ----------------------------------------------------------------------
+
+
+def attention_bound_ms(b, t, h, d, causal):
+    """Least time of the forward, K5 and K6 at one shape: the larger of
+    the operations the algorithm needs over the bf16 peak and the bytes
+    over the memory rate (each input read once, each output written
+    once; bf16 tensors, f32 lse/delta).  Operations: forward 4*B*H*T^2*D,
+    backward 10*B*H*T^2*D (x 1/2 causal); of the backward, K5 is given
+    dQ (2) and K6 S, dP, dV and dK (8)."""
+    half = 0.5 if causal else 1.0
+    unit = b * h * t * t * d * half
+    tensor, rows = b * t * h * d * 2, b * h * t * 4
+
+    def bound(ops, nbytes):
+        op_ms, byte_ms = ops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
+
+    return {
+        "flash_attention_fwd": bound(4 * unit, 4 * tensor + rows),
+        "flash_attention_dq": bound(2 * unit, 5 * tensor + 2 * rows),
+        "flash_attention_dkv": bound(8 * unit, 6 * tensor + 2 * rows),
+    }
+
+
+def attention_close(name, got, want):
+    """Fail unless |got - want| <= rtol |want| + atol_share max|want|
+    elementwise (ATTN_* for bf16, ATTN_F32_* for f32); returns the max
+    abs difference."""
+    import torch
+
+    rtol, share = ((ATTN_F32_RTOL, ATTN_F32_ATOL_SHARE) if want.dtype == torch.float32
+                   else (ATTN_RTOL, ATTN_ATOL_SHARE))
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    limit = rtol * want.abs() + share * float(want.abs().max())
+    excess = float((diff - limit).max())
+    if not excess <= 0.0:
+        fail(f"{name}: kernel differs from its plain version past the tolerance "
+             f"(max abs {float(diff.max())!r}, excess {excess!r})")
+    return float(diff.max())
+
+
+def sdpa_ms(q, k, v, do, causal, flush):
+    """PyTorch's scaled_dot_product_attention on the same inputs ([B, H,
+    T, D] views made outside the timing): forward, and forward+backward
+    less forward.  A yardstick only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    fwd = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal), flush)
+    leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        torch.autograd.grad(out, leaves, dot)
+
+    return fwd, median_ms(fwd_bwd, flush) - fwd
+
+
+def check_attention(fa, q, k, v, do, causal, shape):
+    """K4, then K5 and K6 on the plain forward's out/lse, against the
+    plain versions; fails past the tolerances.  Returns (max abs error
+    per kernel, the plain forward's (out, lse), delta)."""
+    import torch
+
+    scale = fa.default_scale(q.shape[-1])
+    out, lse = fa.flash_attention_fwd(q, k, v, scale, causal)
+    out_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, scale, causal)
+    # The backward kernels take the plain forward's out/lse, so each is
+    # held against its plain version on the same inputs.
+    delta = fa.attention_delta(out_p, do)
+    dq = fa.flash_attention_dq(q, k, v, do, lse_p, delta, scale, causal)
+    dq_p = fa.flash_attention_dq_plain(q, k, v, do, lse_p, delta, scale, causal)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse_p, delta, scale, causal)
+    dk_p, dv_p = fa.flash_attention_dkv_plain(q, k, v, do, lse_p, delta, scale, causal)
+    torch.cuda.synchronize()
+    lse_err = float((lse - lse_p).abs().max())
+    if not lse_err <= LSE_ATOL:
+        fail(f"flash_attention_fwd lse differs from its plain version by {lse_err!r} "
+             f"at {shape}")
+    errs = {
+        "flash_attention_fwd": max(attention_close(f"out {shape}", out, out_p), lse_err),
+        "flash_attention_dq": attention_close(f"dq {shape}", dq, dq_p),
+        "flash_attention_dkv": max(attention_close(f"dk {shape}", dk, dk_p),
+                                   attention_close(f"dv {shape}", dv, dv_p)),
+    }
+    return errs, (out_p, lse_p), delta
+
+
+def attention_edges(fa, gen, dev, card):
+    """ATTN_EDGE_SHAPES, on separate tensors and on the strided slices of
+    one fused projection (the transformer's layout)."""
+    import torch
+
+    worst = {name: 0.0 for name in fa.KERNELS}
+    for b, t, h, d, dtype, causal in ATTN_EDGE_SHAPES:
+        shape = f"B={b} T={t} H={h} D={d} {dtype} {'causal' if causal else 'full'}"
+        fused = torch.randn((b, t, 3, h, d), generator=gen, device=dev).to(getattr(torch, dtype))
+        do = torch.randn((b, t, h, d), generator=gen, device=dev).to(fused.dtype)
+        for layout, qkv in (("separate", [x.contiguous() for x in fused.unbind(2)]),
+                            ("fused slices", list(fused.unbind(2)))):
+            errs, _, _ = check_attention(fa, *qkv, do, causal, f"{shape} {layout}")
+            worst = {name: max(worst[name], errs[name]) for name in worst}
+    log(f"kernels K4-K6 at the edge shapes ({len(ATTN_EDGE_SHAPES)} shapes x 2 layouts): "
+        f"within tolerance, max abs errors {worst} [{card}]")
+    return worst
+
+
+def attention_phase(card: str, seed: int):
+    import torch
+
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 10)
+    edges = attention_edges(fa, gen, dev, card)
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32, device=dev)
+    results = []
+    for b, t, h, d, causal in ATTN_SHAPES:
+        shape = f"B={b} T={t} H={h} D={d} bf16 {'causal' if causal else 'full'}"
+        q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        scale = fa.default_scale(d)
+        errs, (out_p, lse_p), delta = check_attention(fa, q, k, v, do, causal, shape)
+        times = {
+            "flash_attention_fwd": (
+                median_ms(lambda: fa.flash_attention_fwd(q, k, v, scale, causal), flush),
+                median_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, scale, causal), flush)),
+            "flash_attention_dq": (
+                median_ms(lambda: fa.flash_attention_dq(
+                    q, k, v, do, lse_p, delta, scale, causal), flush),
+                median_ms(lambda: fa.flash_attention_dq_plain(
+                    q, k, v, do, lse_p, delta, scale, causal), flush)),
+            "flash_attention_dkv": (
+                median_ms(lambda: fa.flash_attention_dkv(
+                    q, k, v, do, lse_p, delta, scale, causal), flush),
+                median_ms(lambda: fa.flash_attention_dkv_plain(
+                    q, k, v, do, lse_p, delta, scale, causal), flush)),
+        }
+        lib_fwd, lib_bwd = sdpa_ms(q, k, v, do, causal, flush)
+        bounds = attention_bound_ms(b, t, h, d, causal)
+        entry = {"shape": shape, "kernels": {}}
+        for name in fa.KERNELS:
+            ms, plain = times[name]
+            entry["kernels"][name] = {
+                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "library_ms": lib_fwd if name == "flash_attention_fwd" else lib_bwd,
+            }
+            log(f"kernel {name}: {shape}: max_abs_err {errs[name]!r}, {ms!r} ms (plain "
+                f"{plain!r} ms, bound {bounds[name][0]!r} ms by {bounds[name][1]}) [{card}]")
+        log(f"  sdpa yardstick {shape}: forward {lib_fwd!r} ms, backward (dq, dk, dv) "
+            f"{lib_bwd!r} ms [{card}]")
+        results.append(entry)
+        del q, k, v, do, out_p, lse_p, delta
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return results, edges
+
+
+# ----------------------------------------------------------------------
+# phases 11-12: the transformer LM trained by DataParallelTrainer
+# ----------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def timed_attention(records):
+    """Wrap the three kernel functions so each call records CUDA events
+    around itself: the kernels' device time inside a step."""
+    import torch
+
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = fn(*args, **kwargs)
+            end.record()
+            records.append((start, end))
+            return result
+        return timed
+
+    with mock.patch.object(fa, "flash_attention_fwd", wrap(fa.flash_attention_fwd)), \
+            mock.patch.object(fa, "flash_attention_dq", wrap(fa.flash_attention_dq)), \
+            mock.patch.object(fa, "flash_attention_dkv", wrap(fa.flash_attention_dkv)):
+        yield
+
+
+def lm_time_parts(trainer, staged):
+    """One LM step through its three parts between CUDA events, and the
+    attention kernels' summed device time inside it; ms."""
+    import torch
+
+    records = []
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with timed_attention(records):
+        marks[0].record()
+        loss = trainer.forward(*staged)
+        marks[1].record()
+        grads = trainer.backward(loss)
+        marks[2].record()
+        trainer.dense_update(grads)
+        marks[3].record()
+    torch.cuda.synchronize()
+    parts = {name: marks[i].elapsed_time(marks[i + 1])
+             for i, name in enumerate(("forward", "backward", "adamw"))}
+    parts["attention_kernels"] = sum(s.elapsed_time(e) for s, e in records)
+    parts["step"] = marks[0].elapsed_time(marks[3])
+    parts["attention_share"] = parts["attention_kernels"] / parts["step"]
+    return parts
+
+
+def lm_path_steps(trainer, staged, steps: int = 3):
+    import torch
+
+    losses = [float(trainer.train_step_staged(staged[i])) for i in range(steps)]
+    params = {k: p.detach().clone() for k, p in trainer.state.params.items()}
+    torch.cuda.synchronize()
+    return losses, params
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The plain versions in place of K4 and of K5 + K6; fails if a
+    kernel launches inside."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    with mock.patch.object(fa, "flash_attention_fwd", fa.flash_attention_fwd_plain), \
+            mock.patch.object(fa, "flash_attention_bwd", fa.flash_attention_bwd_plain):
+        fa.reset_launch_counts()
+        yield
+        if any(fa.launch_counts().values()):
+            fail(f"the plain path launched kernels: {fa.launch_counts()}")
+
+
+def rel_l2(got, want) -> float:
+    return float(torch_norm(got - want) / torch_norm(want).clamp_min(1e-30))
+
+
+def torch_norm(x):
+    return x.float().pow(2).sum().sqrt()
+
+
+def lm_compare_paths(trainer, staged, card):
+    """Phase 12: from one cloned state, one forward/backward and then 3
+    steps with the kernels, the same with the plain versions patched
+    in."""
+    import torch
+
+    from elasticdl_tpu_torch.parallel.dp_trainer import DPTrainState, clone_tree
+
+    live = trainer.state
+    start = DPTrainState(live.step, clone_tree(live.params), clone_tree(live.opt_state), {})
+    k_loss = trainer.forward(*staged[0])
+    k_grads = trainer.backward(k_loss)
+    with plain_attention():
+        p_loss = trainer.forward(*staged[0])
+        p_grads = trainer.backward(p_loss)
+    grad_rel = {name: rel_l2(k_grads[name], g) for name, g in p_grads.items()}
+    k_loss, p_loss = float(k_loss.detach()), float(p_loss.detach())
+    loss0_rel = abs(k_loss - p_loss) / abs(p_loss)
+    del k_grads, p_grads, k_loss, p_loss
+    kernel_losses, kernel_params = lm_path_steps(trainer, staged)
+    trainer.state = start
+    with plain_attention():
+        plain_losses, plain_params = lm_path_steps(trainer, staged)
+    loss_rel = max([loss0_rel] + [abs(a - b) / abs(b) for a, b in zip(kernel_losses, plain_losses)])
+    worst, diff_sq, moved_sq = 0.0, 0.0, 0.0
+    for name, got in kernel_params.items():
+        worst = max(worst, float((got - plain_params[name]).abs().max()))
+        diff_sq += float(torch_norm(got - plain_params[name])) ** 2
+        moved_sq += float(torch_norm(plain_params[name] - start.params[name])) ** 2
+    update_rel = (diff_sq / max(moved_sq, 1e-30)) ** 0.5
+    del kernel_params, plain_params, start
+    torch.cuda.empty_cache()
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    summary = (f"losses {kernel_losses} vs {plain_losses} (max rel {loss_rel!r}); gradients "
+               f"from one state: max rel L2 {grad_rel[worst_grad]!r} ({worst_grad}); after 3 "
+               f"steps: params max diff {worst!r}, updates rel L2 {update_rel!r}")
+    if not loss_rel <= LM_PATH_LOSS_RTOL:
+        fail(f"LM kernel and plain paths: {summary}")
+    if not grad_rel[worst_grad] <= LM_PATH_GRAD_RTOL:
+        fail(f"LM kernel and plain path gradients differ: {summary}")
+    if not (worst <= LM_PATH_PARAM_MAX and update_rel <= LM_PATH_UPDATE_RTOL):
+        fail(f"LM kernel and plain paths diverge: {summary}")
+    log(f"LM kernel path vs plain path: {summary} [{card}]")
+    return {"losses_kernel": kernel_losses, "losses_plain": plain_losses,
+            "max_loss_rel": loss_rel, "grad_rel_l2": grad_rel, "max_param_diff": worst,
+            "update_rel_l2": update_rel}
+
+
+def lm_training_phases(card: str, seed: int, warmup: int = 2, steps: int = 20,
+                       n_batches: int = 8):
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.data.synthetic import synthetic_lm_arrays
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    cfg, batch = LM_BENCH, LM_BATCH
+    zoo = resolve(LM_DEF)
+    t0 = time.perf_counter()
+    tokens, nxt = synthetic_lm_arrays(batch * n_batches, cfg["seq_len"], cfg["vocab"], seed)
+    ones = np.ones((batch,), np.float32)
+    batches = [(tokens[i * batch:(i + 1) * batch], nxt[i * batch:(i + 1) * batch], ones)
+               for i in range(n_batches)]
+    log(f"synthetic LM data: {tokens.shape} tokens, vocab {cfg['vocab']}, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    params = dict(vocab=cfg["vocab"], d_model=cfg["d_model"], num_heads=cfg["num_heads"],
+                  num_layers=cfg["num_layers"], max_len=cfg["seq_len"])
+    model = build_model(LM_DEF, params)  # the default device: the card
+    trainer = DataParallelTrainer(model, zoo.loss, zoo.optimizer(LM_LR), seed=seed)
+    if trainer.device.type != "cuda":
+        fail(f"DataParallelTrainer's default device is {trainer.device}, not cuda")
+    trainer.ensure_initialized()
+    staged = [trainer.stage_batch(*b) for b in batches]
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in trainer.state.params.values())
+    log(f"LM trainer initialised on {trainer.device}: {n_params} parameters, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+
+    # phase 11: timed training
+    losses = [trainer.train_step_staged(staged[i % n_batches]) for i in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    events = []
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(trainer.train_step_staged(staged[i % n_batches]))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg["num_layers"] * steps
+    for name in fa.KERNELS:
+        if counts[name] != want:
+            fail(f"{name} launched {counts[name]} times in {steps} LM steps (want {want})")
+    step_ms = sorted(s.elapsed_time(e) for s, e in events)
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.all(np.isfinite(losses)):
+        fail(f"non-finite LM loss: {losses}")
+    first, last = float(losses[:3].mean()), float(losses[-3:].mean())
+    if not last < first:
+        fail(f"the LM loss did not fall: first 3 steps {first!r}, last 3 {last!r}")
+    parts = lm_time_parts(trainer, staged[0])
+    train = {
+        "tokens_per_s": steps * batch * cfg["seq_len"] / wall,
+        "step_ms_median": step_ms[len(step_ms) // 2],
+        "loss_first3": first, "loss_last3": last,
+        "breakdown_ms": parts, "peak_memory_gb": peak / 1e9,
+        "launches_step": counts,
+    }
+    log(f"LM train: {steps} steps of {batch}x{cfg['seq_len']}: {train['tokens_per_s']!r} "
+        f"tokens/s, step median {train['step_ms_median']!r} ms (device, CUDA events); loss "
+        f"{first!r} -> {last!r}; launches {counts}; peak {peak / 1e9!r} GB; one step's "
+        f"parts {parts} [{card}]")
+
+    # the staged window
+    window = trainer.stage_window(batches[:4])
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    window_losses = trainer.train_window(window)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    window_counts = fa.launch_counts()
+    if any(window_counts[name] != 4 * cfg["num_layers"] for name in fa.KERNELS):
+        fail(f"a train_window of 4 steps launched {window_counts}")
+    if not bool(torch.isfinite(window_losses).all()):
+        fail("non-finite loss in the LM window")
+    train["window_tokens_per_s"] = 4 * batch * cfg["seq_len"] / wall
+    train["launches_window"] = window_counts
+    log(f"LM train window: 4 staged steps: {train['window_tokens_per_s']!r} tokens/s (host "
+        f"wall), launches {window_counts} [{card}]")
+    del window
+
+    # phase 12: kernels against plain versions on the path
+    train["path"] = lm_compare_paths(trainer, staged, card)
+    del trainer, staged, model
+    torch.cuda.empty_cache()
+    return train
+
+
+def flash_entries(attention, edges, train, card):
+    """The K4-K6 entries of the kernels line: numbers at the LM's shape
+    (the first of ATTN_SHAPES), the other shapes beside them."""
+    line = []
+    for name in FLASH_REPLACES:
+        main_shape = attention[0]["kernels"][name]
+        line.append({
+            "name": name, "ok": True, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES[name],
+            "launches": train["launches_step"][name],
+            "launches_by_path": {"lm_train_20_steps": train["launches_step"][name],
+                                 "lm_train_window_4_steps": train["launches_window"][name]},
+            "max_abs_err": max(e["kernels"][name]["max_abs_err"] for e in attention),
+            "edge_shapes_max_abs_err": edges[name],
+            "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+            "library_ms": main_shape["library_ms"],
+            "library": ("F.scaled_dot_product_attention forward" if name == "flash_attention_fwd"
+                        else "F.scaled_dot_product_attention backward (dq, dk, dv together)"),
+            "shape": attention[0]["shape"],
+            "other_shapes": {e["shape"]: e["kernels"][name] for e in attention[1:]},
+            "train_step_attention_ms": train["breakdown_ms"]["attention_kernels"],
+            "card": card,
+        })
+    return line
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--phases", default="",
+                        help="comma-separated phase numbers to run (default: all)")
     args = parser.parse_args()
+    wanted = {int(x) for x in args.phases.split(",") if x.strip()}
+
+    def run(*numbers):
+        return not wanted or bool(wanted.intersection(numbers))
 
     import_port()
     import torch
@@ -822,21 +1329,31 @@ def main() -> None:
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
     for path in sorted(_build.BUILD_DIR.glob("*.log")):
         for line in path.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    kernels = kernel_phase(card, args.seed)
-    k3 = dedup_apply_phase(card, args.seed)
+    kernels = kernel_phase(card, args.seed) if run(2) else None
+    k3 = dedup_apply_phase(card, args.seed) if run(5) else None
+    launches = train = None
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        launches = serving_phases(card, args.seed, workdir)
-        train = training_phases(card, args.seed, workdir)
+        if run(3, 4):
+            launches = serving_phases(card, args.seed, workdir)
+        if run(6, 7, 8, 9):
+            train = training_phases(card, args.seed, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    attention, edges = attention_phase(card, args.seed) if run(10) else (None, None)
+    lm = lm_training_phases(card, args.seed) if run(11, 12) else None
+    if wanted:
+        log(json.dumps({"phases": sorted(wanted), "attention": attention,
+                        "attention_edges": edges, "lm_training": lm, "card": card}))
+        log("partial run: no result line")
+        return
     for name, count in launches.items():
         if count < 1:
             fail(f"kernel {name} was never launched on the serving path")
-    log(json.dumps({"training": train, "card": card}))
+    log(json.dumps({"training": train, "lm_training": lm, "card": card}))
 
     by_path = {
         "fused_lookup_fm": {"serve_merged": launches["fused_lookup_fm"],
@@ -880,6 +1397,7 @@ def main() -> None:
         "train_step_ms": train["breakdown_ms"]["fused_dedup_apply"],
         "card": card,
     })
+    line += flash_entries(attention, edges, lm, card)
     log(json.dumps({"kernels": line}))
     log(card)
     print(json.dumps({"ok": True, "device": {

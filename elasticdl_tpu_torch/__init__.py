@@ -7,11 +7,13 @@ runs its hot path through CUDA kernels written for Hopper
 ``device="cpu"`` (where every kernel wrapper uses its plain PyTorch
 version).
 
-What is ported so far is the serving path of the DeepFM flagship model:
-artifact loading (``serving.export``), the micro-batcher
-(``serving.batcher``), the hot-swap replica (``serving.runtime``), the
-DeepFM forward (``zoo.deepfm``) and its embedding lookups
-(``layers.embedding`` over ``ops.sparse_embedding``).
+What is ported so far: serving DeepFM (artifact loading in
+``serving.export``, the micro-batcher ``serving.batcher``, the hot-swap
+replica ``serving.runtime``); training DeepFM in PS mode
+(``parallel.ps_trainer`` over ``layers.embedding`` and
+``ops.sparse_embedding``); and training the causal transformer LM on one
+card (``parallel.dp_trainer`` and ``zoo.transformer_lm`` over
+``ops.flash_attention``).
 """
 
 __version__ = "0.1.0"

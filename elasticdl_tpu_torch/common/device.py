@@ -10,9 +10,13 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
+
+#: Where what needs more than one card is queued.
+MULTI_CARD_ITEM = "ROADMAP.md Queue 1, multi-card routing"
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -30,3 +34,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         )
     return resolved
 
+
+def require_one_device(mesh, what: str) -> None:
+    """Raise ``NotImplementedError`` unless ``mesh`` is None, a device, or
+    a mesh (or list) of one device: ``what`` runs on one card."""
+    if mesh is None or isinstance(mesh, (str, torch.device)):
+        return
+    devices = getattr(mesh, "devices", mesh)
+    if int(np.size(np.asarray(devices, dtype=object))) != 1:
+        raise NotImplementedError(
+            f"{what} runs on one card: a mesh of more than one device waits "
+            f"for {MULTI_CARD_ITEM}"
+        )

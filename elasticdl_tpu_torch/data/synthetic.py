@@ -1,8 +1,10 @@
-"""Synthetic Criteo-layout click data: the port's own copy of the JAX
-zoo's ``synthetic_ctr_reader`` arrays (``model_zoo/datasets.py``).
+"""Synthetic training data: the port's own copies of the JAX zoo's
+``synthetic_ctr_reader`` and ``synthetic_lm_reader`` arrays
+(``model_zoo/datasets.py``), and of its ``synthetic://`` path parser.
 
-The same ``numpy.random.default_rng(seed)`` draws in the same order give
-the same dense features, categories and labels, bit for bit: a record's
+For the click data (Criteo layout), the same
+``numpy.random.default_rng(seed)`` draws in the same order give the same
+dense features, categories and labels, bit for bit: a record's
 label depends on a sparse set of (field, id) weights plus a linear term
 on the dense features, so both the embedding path and the dense path must
 learn for the loss to fall.  Built whole-array at once (the reader builds
@@ -11,7 +13,8 @@ a list of per-record tuples).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import urllib.parse
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -40,3 +43,34 @@ def synthetic_ctr_arrays(
     labels = (logits > np.median(logits)).astype(np.int32)
     return {"dense": dense, "cat": cats}, labels
 
+
+def synthetic_lm_arrays(
+    n: int = 2048, seq_len: int = 128, vocab: int = 256, seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Next-token data, ``(tokens i32 [n, seq_len], next_tokens i32 [n,
+    seq_len])``: an affine bigram chain (``next = 3 * tok + 7 mod vocab``)
+    with 10% uniform noise, the same draws in the same order as the JAX
+    zoo's reader, so the same seed gives the same arrays."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, vocab, size=n)
+    noise = rng.random(size=(n, seq_len)) < 0.1
+    noise_tok = rng.integers(0, vocab, size=(n, seq_len))
+    seqs = np.empty((n, seq_len + 1), np.int32)
+    seqs[:, 0] = starts
+    for t in range(seq_len):
+        nxt = (3 * seqs[:, t] + 7) % vocab
+        seqs[:, t + 1] = np.where(noise[:, t], noise_tok[:, t], nxt)
+    return seqs[:, :-1].copy(), seqs[:, 1:].copy()
+
+
+def parse_synthetic_path(data_path: str) -> Tuple[Optional[str], Dict[str, int]]:
+    """``'synthetic://lm?n=4096&seed=3'`` -> ``('lm', {'n': 4096, 'seed':
+    3})``; any other scheme -> ``(None, {})``."""
+    parsed = urllib.parse.urlparse(data_path)
+    if parsed.scheme != "synthetic":
+        return None, {}
+    params = {
+        key: int(values[0])
+        for key, values in urllib.parse.parse_qs(parsed.query).items()
+    }
+    return parsed.netloc, params

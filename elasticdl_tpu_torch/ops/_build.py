@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``ops/csrc/*.cu``).
 
-The sources are compiled at first use with a direct ``nvcc`` call for
-``sm_90a`` into one shared library with a plain C interface, which is
-loaded with ``ctypes``.  Keeping PyTorch's headers out of the sources
-keeps the build to seconds (a source that includes them takes minutes),
-and ninja is not needed.
+The sources are compiled at first use for ``sm_90a``, one ``nvcc -c``
+per source, all started together, then linked by one more ``nvcc`` call
+into one shared library with a plain C interface, which is loaded with
+``ctypes``.  Keeping PyTorch's headers out of the sources keeps the
+build to seconds (a source that includes them takes minutes), and ninja
+is not needed.
 
 The library lands in ``ops/_build/`` (listed in ``.gitignore``) under a
 name keyed by a hash of the sources, the flags, the nvcc version and the
@@ -36,7 +37,6 @@ NVCC_FLAGS = (
     "-O3",
     "-lineinfo",
     "-Xptxas=-v",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
 )
@@ -45,6 +45,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+
+_FLASH_TAIL = (_I, _I, _I, _I, _LL, _LL, _LL, _F, _I, _I, _P)
 
 #: argtypes of every C entry point (pointers and the stream as c_void_p,
 #: so ctypes never cuts a 64-bit address to a 32-bit int; hyperparameters
@@ -60,6 +62,11 @@ SIGNATURES = {
         _F, _F, _I, _F, _F, _F, _F, _F,    # lr_neg, mu, nesterov, eps, b1, b2, omb1, omb2
         _P,                                # stream
     ),
+    # flash attention: tensors, then (batch, heads, t, d), q/k/v strides
+    # (batch, time, head), scale, causal, dtype code, stream.
+    "edl_flash_fwd": (_P, _P, _P, _P, _P) + _FLASH_TAIL,        # q k v out lse
+    "edl_flash_dq": (_P, _P, _P, _P, _P, _P, _P) + _FLASH_TAIL,  # q k v do lse delta dq
+    "edl_flash_dkv": (_P,) * 8 + _FLASH_TAIL,                   # ... dk dv
 }
 
 
@@ -100,6 +107,24 @@ def build_key(nvcc: str) -> str:
     return digest.hexdigest()[:16]
 
 
+def _run_all(commands):
+    """Run the commands at once; [(stdout, stderr, exit code)] in order.
+    A command still running after 900 s is killed."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cmd in commands
+    ]
+    results = []
+    for proc in procs:
+        try:
+            out, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        results.append((out, err, proc.returncode))
+    return results
+
+
 def build() -> Path:
     """Compile the sources if no library for their key exists yet;
     returns the library's path.  The compiler's output (``-Xptxas=-v``:
@@ -114,17 +139,28 @@ def build() -> Path:
             if lib.exists():
                 return lib
             tmp = lib.with_suffix(f".tmp{os.getpid()}")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+            cu_sources = [src for src in _sources() if src.suffix == ".cu"]
+            objects = [lib.with_name(f"{lib.stem}.{src.stem}.o") for src in cu_sources]
+            compiles = [
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for obj, src in zip(objects, cu_sources)
+            ]
+            link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
             t0 = time.monotonic()
-            proc = subprocess.run(
-                cmd, capture_output=True, text=True, timeout=900
-            )
-            log = (
-                f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-                f"[{time.monotonic() - t0:.1f} s, exit {proc.returncode}]\n"
-            )
+            log = ""
+            failed = False
+            for cmd, (out, err, code) in zip(compiles, _run_all(compiles)):
+                log += f"$ {' '.join(cmd)}\n{out}{err}[exit {code}]\n"
+                failed = failed or code != 0
+            if not failed:
+                proc = subprocess.run(link, capture_output=True, text=True, timeout=900)
+                log += f"$ {' '.join(link)}\n{proc.stdout}{proc.stderr}[exit {proc.returncode}]\n"
+                failed = proc.returncode != 0
+            log += f"[{time.monotonic() - t0:.1f} s]\n"
             lib.with_suffix(".log").write_text(log)
-            if proc.returncode != 0:
+            for obj in objects:
+                obj.unlink(missing_ok=True)
+            if failed:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(f"nvcc failed to build the kernels:\n{log}")
             os.replace(tmp, lib)

@@ -1,0 +1,629 @@
+// Flash-attention kernels for Hopper (sm_90a), behind a plain C interface
+// that ops/_build.py compiles with nvcc and binds with ctypes.
+//
+// Three kernels, each replacing one Pallas TPU kernel of
+// elasticdl_tpu/ops/flash_attention.py:
+//
+//   edl_flash_fwd  <- _fwd_kernel (K4): online-softmax attention over the
+//                     K/V blocks; writes out (q's dtype) and the row
+//                     logsumexp lse = m + log(l) (f32).
+//   edl_flash_dq   <- _dq_kernel (K5): dQ = scale * sum_k dS K, with
+//                     P = exp(S - lse) and dS = P * (dP - delta).
+//   edl_flash_dkv  <- _dkv_kernel (K6): dV = sum_q P^T dO and
+//                     dK = scale * sum_q dS^T Q of one K block.
+//
+// Layout.  q, k, v are read in the public [B, T, H, D] layout through
+// their strides (batch, time, head; the last dimension contiguous), so
+// the transposes to [B, H, T, D] that the JAX function makes around its
+// kernels are skipped.  out, dO, dq, dk and dv are contiguous
+// [B, T, H, D]; lse and delta are contiguous [B, H, T] f32.
+//
+// Roundings, those of the TPU kernels: q is upcast to f32 and multiplied
+// by `scale` (already an f32) before Q K^T; every product and sum is f32;
+// masked scores are NEG_INF = -1e30, not -inf; P is rounded to v's dtype
+// before P V in the forward (p_round below); the output is divided by l
+// (l == 0 -> 1) and cast to q's dtype.  The backward is f32 throughout;
+// dq and dk are multiplied by `scale` at the end, and dq/dk/dv are cast to
+// the input dtype.
+//
+// A sequential grid becomes a loop inside the block.  The TPU kernels
+// carry their accumulators in VMEM scratch across the inner grid axis
+// (which a TPU runs in order).  Here each block owns one 64-row tile: a
+// q tile in K4 and K5, which loop over the K/V tiles, and a k tile in
+// K6, which loops over the q tiles.  Each output element has one owner,
+// so there are no atomics and a rerun gives the same bits.  Causal tiles
+// strictly above the diagonal are skipped, as on the TPU; causal blocks
+// are launched heaviest first.  A ragged last tile (T not a multiple of
+// 64) is loaded as zeros and its keys masked, so every T >= 1 runs.
+//
+// What bounds them: at the bench shape (B=16, H=8, T=2048, D=64, causal)
+// the forward needs 4*B*H*T^2*D / 2 = 68.7 GFLOP and moves 135 MB: 0.069
+// ms at the bf16 tensor-core peak against 0.040 ms at the memory rate,
+// so operations bound K4 and K6 (given S, dP, dV and dK of the
+// backward); K5, left with dQ's share, sits near its bytes.  This
+// first version is a simple one: tiles of 64 x 64 staged in shared
+// memory as f32, every product an f32 FMA on the CUDA cores (a register
+// tile of 4 x 4 scores, or 4 rows x 4 columns of the accumulator, per
+// thread; float4 reads from shared memory without bank conflicts).  Its
+// ceiling is the card's 67 TFLOP/s f32 rate, not the 989 TFLOP/s of the
+// bf16 tensor cores: wgmma, TMA and a bf16 P V are a later PR's work.
+//
+// Every entry point launches on the caller's stream, allocates nothing,
+// and returns cudaGetLastError() so the Python wrapper can raise on a
+// refused launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTile = 64;       // rows of a q tile and of a k tile
+constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 elements each
+constexpr int kLdp = 80;        // row pitch of the [64][64] P / dS tiles
+constexpr float kNegInf = -1e30f;
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// p.astype(v.dtype) before P V: round to the input type and back.
+template <typename T>
+__device__ __forceinline__ float p_round(float x) {
+  return to_f32<T>(from_f32<T>(x));
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// Max / sum over the 16 threads (tx) that share a row of a tile: they
+// are the two half-warps of one warp.
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  }
+  return x;
+}
+
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) {
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  }
+  return x;
+}
+
+// Rows [t0, t0 + 64) of one (batch, head) of a [B, T, H, D] tensor
+// (`src` already offset to the batch and head) into a [64][DP + 4] f32
+// tile, times `mul`; rows past T and columns past d are zero.
+template <typename T, int DP>
+__device__ __forceinline__ void load_tile(float* __restrict__ dst,
+                                          const T* __restrict__ src,
+                                          long long s_t, int t0, int t_len,
+                                          int d, float mul) {
+  constexpr int kLd = DP + 4;
+  for (int idx = threadIdx.x; idx < kTile * DP; idx += kThreads) {
+    const int r = idx / DP;
+    const int c = idx - r * DP;
+    const int t = t0 + r;
+    float x = 0.0f;
+    if (t < t_len && c < d) x = to_f32<T>(src[(long long)t * s_t + c]) * mul;
+    dst[r * kLd + c] = x;
+  }
+}
+
+// acc[i][j] = sum_c A[ty + 16 i][c] * (B[tx + 16 j][c] * b_mul) over the
+// DP columns of two [64][DP + 4] tiles (S = Q K^T and its kin).
+template <int DP, bool kScaleB>
+__device__ __forceinline__ void dot_rows(const float* __restrict__ a_tile,
+                                         const float* __restrict__ b_tile,
+                                         float acc[4][4], float b_mul) {
+  constexpr int kLd = DP + 4;
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+#pragma unroll 4
+  for (int c = 0; c < DP; c += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = *reinterpret_cast<const float4*>(a_tile + (ty + 16 * i) * kLd + c);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      b[j] = *reinterpret_cast<const float4*>(b_tile + (tx + 16 * j) * kLd + c);
+      if (kScaleB) {
+        b[j].x *= b_mul;
+        b[j].y *= b_mul;
+        b[j].z *= b_mul;
+        b[j].w *= b_mul;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][n][e] += sum_j P[ty + 16 i][j] * V[j][64 n + 4 tx + e]: a
+// [64][64] tile (pitch kLdp) times a [64][DP + 4] tile (P V and its kin).
+template <int DP>
+__device__ __forceinline__ void acc_pv(const float* __restrict__ p_tile,
+                                       const float* __restrict__ v_tile,
+                                       float acc[4][DP / 64][4]) {
+  constexpr int kLd = DP + 4;
+  constexpr int kNc = DP / 64;
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+#pragma unroll 2
+  for (int j = 0; j < kTile; j += 4) {
+    float4 p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      p[i] = *reinterpret_cast<const float4*>(p_tile + (ty + 16 * i) * kLdp + j);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int n = 0; n < kNc; ++n) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            v_tile + (j + jj) * kLd + 64 * n + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pj = comp(p[i], jj);
+          acc[i][n][0] = fmaf(pj, v.x, acc[i][n][0]);
+          acc[i][n][1] = fmaf(pj, v.y, acc[i][n][1]);
+          acc[i][n][2] = fmaf(pj, v.z, acc[i][n][2]);
+          acc[i][n][3] = fmaf(pj, v.w, acc[i][n][3]);
+        }
+      }
+    }
+  }
+}
+
+// Rows of a [64][DP] register tile (rows ty + 16 i, columns 64 n + 4 tx +
+// e) into a contiguous [B, T, H, D] tensor, times `mul`.
+template <typename T, int DP>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst, long long o_st,
+                                           int t0, int t_len, int d,
+                                           const float acc[4][DP / 64][4],
+                                           float mul) {
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = t0 + ty + 16 * i;
+    if (t >= t_len) continue;
+#pragma unroll
+    for (int n = 0; n < DP / 64; ++n) {
+      const int c = 64 * n + 4 * tx;
+      if (c >= d) continue;  // d is a multiple of 8: 4 columns in or out
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dst[(long long)t * o_st + c + e] = from_f32<T>(acc[i][n][e] * mul);
+      }
+    }
+  }
+}
+
+template <int DP>
+constexpr int fwd_smem_bytes() {
+  return (3 * kTile * (DP + 4) + kTile * kLdp) * 4;
+}
+template <int DP>
+constexpr int dq_smem_bytes() {
+  return (4 * kTile * (DP + 4) + kTile * kLdp) * 4;
+}
+template <int DP>
+constexpr int dkv_smem_bytes() {
+  return (4 * kTile * (DP + 4) + 2 * kTile * kLdp + 2 * kTile) * 4;
+}
+
+struct Shape {
+  int heads, t_len, d;
+  long long in_sb, in_st, in_sh;  // strides of q, k, v (elements)
+  float scale;
+  int causal;
+};
+
+__device__ __forceinline__ int n_tiles(int t_len) {
+  return (t_len + kTile - 1) / kTile;
+}
+
+// ---------------------------------------------------------------------
+// K4: forward.  Block (q tile, head, batch); loops over the K/V tiles.
+// ---------------------------------------------------------------------
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse, Shape s) {
+  constexpr int kLd = DP + 4;
+  constexpr int kNc = DP / 64;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* k_s = q_s + kTile * kLd;
+  float* v_s = k_s + kTile * kLd;
+  float* p_s = v_s + kTile * kLd;
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+  const int n_q = n_tiles(s.t_len);
+  const int qi = s.causal ? n_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long in_off = b * s.in_sb + h * s.in_sh;
+  const int q0 = qi * kTile;
+
+  load_tile<T, DP>(q_s, q + in_off, s.in_st, q0, s.t_len, s.d, s.scale);
+  int n_k = n_tiles(s.t_len);
+  if (s.causal) n_k = min(n_k, (q0 + kTile + kTile - 1) / kTile);
+
+  float m[4], l[4], acc[4][kNc][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int n = 0; n < kNc; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
+    }
+  }
+
+  for (int kb = 0; kb < n_k; ++kb) {
+    const int k0 = kb * kTile;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, DP>(k_s, k + in_off, s.in_st, k0, s.t_len, s.d, 1.0f);
+    load_tile<T, DP>(v_s, v + in_off, s.in_st, k0, s.t_len, s.d, 1.0f);
+    __syncthreads();
+    float sc[4][4];
+    dot_rows<DP, false>(q_s, k_s, sc, 1.0f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q_pos = q0 + ty + 16 * i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k_pos = k0 + tx + 16 * j;
+        if (k_pos >= s.t_len || (s.causal && k_pos > q_pos)) sc[i][j] = kNegInf;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float corr = expf(m[i] - m_new);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(sc[i][j] - m_new);
+        rs += p;
+        p_s[(ty + 16 * i) * kLdp + tx + 16 * j] = p_round<T>(p);
+      }
+      l[i] = l[i] * corr + row_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int n = 0; n < kNc; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] *= corr;
+      }
+    }
+    __syncthreads();
+    acc_pv<DP>(p_s, v_s, acc);
+  }
+
+  const long long o_st = (long long)s.heads * s.d;
+  T* out_bh = out + (long long)b * s.t_len * o_st + (long long)h * s.d;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float l_safe = l[i] == 0.0f ? 1.0f : l[i];
+#pragma unroll
+    for (int n = 0; n < kNc; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = acc[i][n][e] / l_safe;
+    }
+    const int t = q0 + ty + 16 * i;
+    if (tx == 0 && t < s.t_len) {
+      lse[((long long)b * s.heads + h) * s.t_len + t] = m[i] + logf(l_safe);
+    }
+  }
+  store_rows<T, DP>(out_bh, o_st, q0, s.t_len, s.d, acc, 1.0f);
+}
+
+// ---------------------------------------------------------------------
+// K5: dQ.  Block (q tile, head, batch); loops over the K/V tiles.
+// ---------------------------------------------------------------------
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    Shape s) {
+  constexpr int kLd = DP + 4;
+  constexpr int kNc = DP / 64;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* do_s = q_s + kTile * kLd;
+  float* k_s = do_s + kTile * kLd;
+  float* v_s = k_s + kTile * kLd;
+  float* ds_s = v_s + kTile * kLd;
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+  const int n_q = n_tiles(s.t_len);
+  const int qi = s.causal ? n_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long in_off = b * s.in_sb + h * s.in_sh;
+  const long long o_st = (long long)s.heads * s.d;
+  const long long o_off = (long long)b * s.t_len * o_st + (long long)h * s.d;
+  const long long row_off = ((long long)b * s.heads + h) * s.t_len;
+  const int q0 = qi * kTile;
+
+  load_tile<T, DP>(q_s, q + in_off, s.in_st, q0, s.t_len, s.d, s.scale);
+  load_tile<T, DP>(do_s, dout + o_off, o_st, q0, s.t_len, s.d, 1.0f);
+  float lse_r[4], delta_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = q0 + ty + 16 * i;
+    lse_r[i] = t < s.t_len ? lse[row_off + t] : 0.0f;
+    delta_r[i] = t < s.t_len ? delta[row_off + t] : 0.0f;
+  }
+  int n_k = n_tiles(s.t_len);
+  if (s.causal) n_k = min(n_k, (q0 + kTile + kTile - 1) / kTile);
+
+  float acc[4][kNc][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int n = 0; n < kNc; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
+    }
+  }
+
+  for (int kb = 0; kb < n_k; ++kb) {
+    const int k0 = kb * kTile;
+    __syncthreads();
+    load_tile<T, DP>(k_s, k + in_off, s.in_st, k0, s.t_len, s.d, 1.0f);
+    load_tile<T, DP>(v_s, v + in_off, s.in_st, k0, s.t_len, s.d, 1.0f);
+    __syncthreads();
+    float sc[4][4], dp[4][4];
+    dot_rows<DP, false>(q_s, k_s, sc, 1.0f);
+    dot_rows<DP, false>(do_s, v_s, dp, 1.0f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q_pos = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k_pos = k0 + tx + 16 * j;
+        const float sv =
+            (k_pos >= s.t_len || (s.causal && k_pos > q_pos)) ? kNegInf : sc[i][j];
+        const float p = expf(sv - lse_r[i]);
+        ds_s[(ty + 16 * i) * kLdp + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
+      }
+    }
+    __syncthreads();
+    acc_pv<DP>(ds_s, k_s, acc);
+  }
+  store_rows<T, DP>(dq + o_off, o_st, q0, s.t_len, s.d, acc, s.scale);
+}
+
+// ---------------------------------------------------------------------
+// K6: dK, dV.  Block (k tile, head, batch); loops over the q tiles.
+// Scores are held transposed: rows are keys (ty), columns queries (tx).
+// ---------------------------------------------------------------------
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, Shape s) {
+  constexpr int kLd = DP + 4;
+  constexpr int kNc = DP / 64;
+  extern __shared__ float4 smem4[];
+  float* k_s = reinterpret_cast<float*>(smem4);
+  float* v_s = k_s + kTile * kLd;
+  float* q_s = v_s + kTile * kLd;
+  float* do_s = q_s + kTile * kLd;
+  float* pt_s = do_s + kTile * kLd;
+  float* dst_s = pt_s + kTile * kLdp;
+  float* lse_s = dst_s + kTile * kLdp;
+  float* delta_s = lse_s + kTile;
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+  const int kj = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long in_off = b * s.in_sb + h * s.in_sh;
+  const long long o_st = (long long)s.heads * s.d;
+  const long long o_off = (long long)b * s.t_len * o_st + (long long)h * s.d;
+  const long long row_off = ((long long)b * s.heads + h) * s.t_len;
+  const int k0 = kj * kTile;
+
+  load_tile<T, DP>(k_s, k + in_off, s.in_st, k0, s.t_len, s.d, 1.0f);
+  load_tile<T, DP>(v_s, v + in_off, s.in_st, k0, s.t_len, s.d, 1.0f);
+  const int n_q = n_tiles(s.t_len);
+  // Causal: q tiles wholly before this k tile see none of it.
+  const int q_first = s.causal ? k0 / kTile : 0;
+
+  float dk_acc[4][kNc][4], dv_acc[4][kNc][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int n = 0; n < kNc; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dk_acc[i][n][e] = 0.0f;
+        dv_acc[i][n][e] = 0.0f;
+      }
+    }
+  }
+
+  for (int qb = q_first; qb < n_q; ++qb) {
+    const int q0 = qb * kTile;
+    __syncthreads();
+    load_tile<T, DP>(q_s, q + in_off, s.in_st, q0, s.t_len, s.d, 1.0f);
+    load_tile<T, DP>(do_s, dout + o_off, o_st, q0, s.t_len, s.d, 1.0f);
+    if (threadIdx.x < kTile) {
+      const int t = q0 + threadIdx.x;
+      lse_s[threadIdx.x] = t < s.t_len ? lse[row_off + t] : 0.0f;
+      delta_s[threadIdx.x] = t < s.t_len ? delta[row_off + t] : 0.0f;
+    }
+    __syncthreads();
+    float st[4][4], dpt[4][4];
+    dot_rows<DP, true>(k_s, q_s, st, s.scale);  // k . (q * scale)
+    dot_rows<DP, false>(v_s, do_s, dpt, 1.0f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k_pos = k0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = tx + 16 * j;
+        const int q_pos = q0 + col;
+        const float sv =
+            (q_pos >= s.t_len || (s.causal && k_pos > q_pos)) ? kNegInf : st[i][j];
+        const float p = expf(sv - lse_s[col]);
+        pt_s[(ty + 16 * i) * kLdp + col] = p;
+        dst_s[(ty + 16 * i) * kLdp + col] = p * (dpt[i][j] - delta_s[col]);
+      }
+    }
+    __syncthreads();
+    acc_pv<DP>(pt_s, do_s, dv_acc);
+    acc_pv<DP>(dst_s, q_s, dk_acc);
+  }
+  store_rows<T, DP>(dk + o_off, o_st, k0, s.t_len, s.d, dk_acc, s.scale);
+  store_rows<T, DP>(dv + o_off, o_st, k0, s.t_len, s.d, dv_acc, 1.0f);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <typename T, int DP>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
+                       float* lse, int batch, const Shape& s, cudaStream_t st) {
+  constexpr int bytes = fwd_smem_bytes<DP>();
+  cudaError_t err = allow_smem(flash_fwd_kernel<T, DP>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s.t_len + kTile - 1) / kTile, s.heads, batch);
+  flash_fwd_kernel<T, DP><<<grid, kThreads, bytes, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, s);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, int batch, const Shape& s, cudaStream_t st) {
+  constexpr int bytes = dq_smem_bytes<DP>();
+  cudaError_t err = allow_smem(flash_dq_kernel<T, DP>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s.t_len + kTile - 1) / kTile, s.heads, batch);
+  flash_dq_kernel<T, DP><<<grid, kThreads, bytes, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+      (T*)dq, s);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta,
+                       void* dk, void* dv, int batch, const Shape& s,
+                       cudaStream_t st) {
+  constexpr int bytes = dkv_smem_bytes<DP>();
+  cudaError_t err = allow_smem(flash_dkv_kernel<T, DP>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s.t_len + kTile - 1) / kTile, s.heads, batch);
+  flash_dkv_kernel<T, DP><<<grid, kThreads, bytes, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+      (T*)dk, (T*)dv, s);
+  return cudaGetLastError();
+}
+
+// dtype: 0 = float32, 1 = bfloat16.  head_dim d <= 64 runs the DP=64
+// build, 64 < d <= 128 the DP=128 one (the wrapper checks d % 8 == 0).
+#define EDL_FLASH_DISPATCH(CALL)                                     \
+  do {                                                               \
+    if (d < 1 || d > 128 || t_len < 1 || heads < 1 || batch < 1)     \
+      return (int)cudaErrorInvalidValue;                             \
+    if (dtype == 1) {                                                \
+      if (d <= 64) return (int)CALL(__nv_bfloat16, 64);              \
+      return (int)CALL(__nv_bfloat16, 128);                          \
+    }                                                                \
+    if (dtype == 0) {                                                \
+      if (d <= 64) return (int)CALL(float, 64);                      \
+      return (int)CALL(float, 128);                                  \
+    }                                                                \
+    return (int)cudaErrorInvalidValue;                               \
+  } while (0)
+
+}  // namespace
+
+extern "C" {
+
+int edl_flash_fwd(const void* q, const void* k, const void* v, void* out,
+                  float* lse, int batch, int heads, int t_len, int d,
+                  long long in_sb, long long in_st, long long in_sh,
+                  float scale, int causal, int dtype, void* stream) {
+  const Shape s{heads, t_len, d, in_sb, in_st, in_sh, scale, causal};
+  const cudaStream_t st = (cudaStream_t)stream;
+#define EDL_CALL(T, DP) launch_fwd<T, DP>(q, k, v, out, lse, batch, s, st)
+  EDL_FLASH_DISPATCH(EDL_CALL);
+#undef EDL_CALL
+}
+
+int edl_flash_dq(const void* q, const void* k, const void* v, const void* dout,
+                 const float* lse, const float* delta, void* dq, int batch,
+                 int heads, int t_len, int d, long long in_sb, long long in_st,
+                 long long in_sh, float scale, int causal, int dtype,
+                 void* stream) {
+  const Shape s{heads, t_len, d, in_sb, in_st, in_sh, scale, causal};
+  const cudaStream_t st = (cudaStream_t)stream;
+#define EDL_CALL(T, DP) \
+  launch_dq<T, DP>(q, k, v, dout, lse, delta, dq, batch, s, st)
+  EDL_FLASH_DISPATCH(EDL_CALL);
+#undef EDL_CALL
+}
+
+int edl_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
+                  const float* lse, const float* delta, void* dk, void* dv,
+                  int batch, int heads, int t_len, int d, long long in_sb,
+                  long long in_st, long long in_sh, float scale, int causal,
+                  int dtype, void* stream) {
+  const Shape s{heads, t_len, d, in_sb, in_st, in_sh, scale, causal};
+  const cudaStream_t st = (cudaStream_t)stream;
+#define EDL_CALL(T, DP) \
+  launch_dkv<T, DP>(q, k, v, dout, lse, delta, dk, dv, batch, s, st)
+  EDL_FLASH_DISPATCH(EDL_CALL);
+#undef EDL_CALL
+}
+
+}  // extern "C"

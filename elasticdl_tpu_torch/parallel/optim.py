@@ -1,5 +1,5 @@
-"""Dense optimizers of the model zoo (``optax.adam``, ``optax.sgd``) over a
-dict of parameter tensors, updated in place.
+"""Dense optimizers of the model zoo (``optax.adam``, ``optax.adamw``,
+``optax.sgd``) over a dict of parameter tensors, updated in place.
 
 The operations and their order are optax's, so a step from the same
 state and gradients gives the JAX trainer's values up to the rounding of
@@ -10,6 +10,10 @@ the ``pow`` in the bias correction:
     count = count + 1
     u     = (mu / (1 - b1**count)) / (sqrt(nu / (1 - b2**count) + 0) + eps)
     p     = p + (-lr) * u
+
+``adamw`` is optax's chain in optax's order: the Adam direction ``u``
+above, then ``add_decayed_weights`` over every parameter (``u + wd *
+p``), then the scale by ``-lr``.
 
 ``torch.optim.Adam`` folds the corrections differently (``sqrt(v) /
 sqrt(bc2) + eps``, then ``lr / bc1``), which changes the bits for
@@ -45,11 +49,12 @@ class DenseOptimizer:
     apply: Callable[[Params, Params, dict], None]
 
 
-def adam(
-    learning_rate: float = 0.001, b1: float = 0.9, b2: float = 0.999,
-    eps: float = 1e-8,
-) -> DenseOptimizer:
-    lr_neg, b1f, b2f = _f32(-learning_rate), _f32(b1), _f32(b2)
+def _scale_by_adam(b1: float, b2: float, eps: float):
+    """optax ``scale_by_adam``: ``(init, direction)``, where
+    ``direction(keys, grads, state)`` updates the moments and the count
+    in place and returns the Adam direction ``mu_hat / (sqrt(nu_hat +
+    0) + eps)`` per key."""
+    b1f, b2f = _f32(b1), _f32(b2)
     omb1, omb2, epsf = _f32(1 - b1), _f32(1 - b2), _f32(eps)
 
     def init(params: Params) -> dict:
@@ -60,10 +65,7 @@ def adam(
             "nu": {k: torch.zeros_like(p) for k, p in params.items()},
         }
 
-    @torch.no_grad()
-    def apply(params: Params, grads: Params, state: dict) -> None:
-        keys = list(params)
-        p = [params[k] for k in keys]
+    def direction(keys, grads: Params, state: dict):
         g = [grads[k] for k in keys]
         mu = [state["mu"][k] for k in keys]
         nu = [state["nu"][k] for k in keys]
@@ -80,10 +82,43 @@ def adam(
         mu_hat = torch._foreach_div(mu, bc1)
         nu_hat = torch._foreach_div(nu, bc2)
         denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_add(nu_hat, 0.0)), epsf)
-        updates = torch._foreach_mul(torch._foreach_div(mu_hat, denom), lr_neg)
-        torch._foreach_add_(p, updates)
+        return torch._foreach_div(mu_hat, denom)
+
+    return init, direction
+
+
+def adam(
+    learning_rate: float = 0.001, b1: float = 0.9, b2: float = 0.999,
+    eps: float = 1e-8,
+) -> DenseOptimizer:
+    lr_neg = _f32(-learning_rate)
+    init, direction = _scale_by_adam(b1, b2, eps)
+
+    @torch.no_grad()
+    def apply(params: Params, grads: Params, state: dict) -> None:
+        keys = list(params)
+        updates = torch._foreach_mul(direction(keys, grads, state), lr_neg)
+        torch._foreach_add_([params[k] for k in keys], updates)
 
     return DenseOptimizer("adam", init, apply)
+
+
+def adamw(
+    learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+    weight_decay: float = 1e-4,
+) -> DenseOptimizer:
+    """optax ``adamw`` with ``mask=None`` (every parameter decays)."""
+    lr_neg, wd = _f32(-learning_rate), _f32(weight_decay)
+    init, direction = _scale_by_adam(b1, b2, eps)
+
+    @torch.no_grad()
+    def apply(params: Params, grads: Params, state: dict) -> None:
+        keys = list(params)
+        p = [params[k] for k in keys]
+        u = torch._foreach_add(direction(keys, grads, state), torch._foreach_mul(p, wd))
+        torch._foreach_add_(p, torch._foreach_mul(u, lr_neg))
+
+    return DenseOptimizer("adamw", init, apply)
 
 
 def sgd(learning_rate: float = 0.01) -> DenseOptimizer:

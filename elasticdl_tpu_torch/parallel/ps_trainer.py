@@ -37,6 +37,12 @@ import torch
 from elasticdl_tpu_torch.common.device import DeviceLike, resolve_device
 from elasticdl_tpu_torch.layers import embedding as emb
 from elasticdl_tpu_torch.parallel import sparse_optim
+from elasticdl_tpu_torch.parallel.dp_trainer import (
+    clone_tree,
+    copy_tree,
+    per_example_loss_fn,
+    to_device,
+)
 from elasticdl_tpu_torch.parallel.packed import PackedSpec
 
 logger = logging.getLogger("elasticdl_tpu_torch.parallel.ps_trainer")
@@ -57,17 +63,6 @@ class PSTrainState(NamedTuple):
     slots: Dict[str, Dict[str, Any]]       # table key -> sparse slots
 
 
-def per_example_loss_fn(loss_fn):
-    """Lift the zoo's batch-mean ``loss(labels, outputs)`` into a
-    per-example loss: applied to singleton batches under ``vmap`` (the
-    JAX ``per_example_loss_fn``), so padded rows can be masked exactly."""
-
-    def singleton(label, output):
-        return loss_fn(label[None], output[None])
-
-    return torch.func.vmap(singleton)
-
-
 def _check_mesh(mesh) -> None:
     if mesh is None or isinstance(mesh, (str, torch.device)):
         return
@@ -79,39 +74,10 @@ def _check_mesh(mesh) -> None:
         )
 
 
-def _to_device(value, device) -> torch.Tensor:
-    if isinstance(value, torch.Tensor):
-        return value.to(device)
-    return torch.from_numpy(np.ascontiguousarray(value)).to(device)
-
-
-@torch.no_grad()
-def _copy_into(dst: torch.Tensor, src) -> None:
-    if not isinstance(src, torch.Tensor):
-        src = torch.from_numpy(np.array(src, dtype=np.asarray(src).dtype))
-    dst.copy_(src.reshape(dst.shape))
-
-
-def _copy_tree(dst, src) -> None:
-    if isinstance(dst, dict):
-        if set(dst) != set(src):
-            raise KeyError(f"state keys {sorted(src)} != {sorted(dst)}")
-        for key in dst:
-            _copy_tree(dst[key], src[key])
-    else:
-        _copy_into(dst, src)
-
-
 def clone_state(state: PSTrainState) -> PSTrainState:
     """A deep copy of a state's tensors (on their device)."""
-
-    def clone(node):
-        if isinstance(node, dict):
-            return {k: clone(v) for k, v in node.items()}
-        return node.detach().clone()
-
-    return PSTrainState(state.step, clone(state.params), clone(state.opt_state),
-                        clone(state.tables), clone(state.slots))
+    return PSTrainState(state.step, clone_tree(state.params), clone_tree(state.opt_state),
+                        clone_tree(state.tables), clone_tree(state.slots))
 
 
 class ShardedEmbeddingTrainer:
@@ -201,10 +167,10 @@ class ShardedEmbeddingTrainer:
             self._step = int(value.step)
             return
         live = self.state
-        _copy_tree(live.params, value.params)
-        _copy_tree(live.opt_state, value.opt_state)
-        _copy_tree(live.tables, value.tables)
-        _copy_tree(live.slots, value.slots)
+        copy_tree(live.params, value.params)
+        copy_tree(live.opt_state, value.opt_state)
+        copy_tree(live.tables, value.tables)
+        copy_tree(live.slots, value.slots)
         self._step = int(value.step)
 
     def ensure_initialized(self, features=None) -> PSTrainState:
@@ -289,10 +255,10 @@ class ShardedEmbeddingTrainer:
     def stage_batch(self, features, labels, mask):
         """One batch onto the trainer's device."""
         return (
-            {k: _to_device(v, self.device) for k, v in features.items()},
-            _to_device(labels, self.device),
-            _to_device(np.asarray(mask, np.float32) if not isinstance(mask, torch.Tensor)
-                       else mask, self.device),
+            to_device(features, self.device),
+            to_device(labels, self.device),
+            to_device(np.asarray(mask, np.float32) if not isinstance(mask, torch.Tensor)
+                      else mask, self.device),
         )
 
     def train_step(self, features, labels):
@@ -369,7 +335,7 @@ class ShardedEmbeddingTrainer:
         self.ensure_initialized(features)
         self._model.eval()
         try:
-            out = self._model({k: _to_device(v, self.device) for k, v in features.items()})
+            out = self._model(to_device(features, self.device))
         finally:
             self._model.train()
         return out.cpu().numpy()

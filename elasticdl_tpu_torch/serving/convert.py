@@ -10,6 +10,8 @@ port tensor:
 - flax ``Dense`` ``kernel [in, out]`` / ``bias`` -> ``nn.Linear``
   ``weight [out, in]`` (transposed) / ``bias``;
 - ``DenseGeneral`` ``kernel`` / ``bias`` -> the same names, as stored;
+- ``LayerNorm`` ``scale`` / ``bias`` -> ``nn.LayerNorm`` ``weight`` /
+  ``bias``; flax ``Embed`` ``embedding`` -> ``nn.Embedding`` ``weight``;
 - an Embedding's ``embedding`` table, packed ``[num_blocks, 128]``,
   logical ``[vocab, dim]`` or already ``[vocab_padded, dim_padded]`` ->
   the layer's ``[vocab_padded, dim_padded]`` buffer
@@ -20,8 +22,9 @@ A leftover or missing key, or a shape that does not fit, raises.
 The other direction (``jax_variables_from_port``) writes the port's
 weights in the JAX layout for export, and ``trainer_state_from_jax``
 carries a whole JAX PS trainer state across (dense params, tables,
-sparse slots, optax Adam moments), so both trainers can start from the
-same bits.
+sparse slots, optax Adam moments), and ``dp_trainer_state_from_jax`` a
+JAX ``DataParallelTrainer`` state (params, optax AdamW), so both trainers
+can start from the same bits.
 """
 
 from __future__ import annotations
@@ -70,6 +73,11 @@ def _targets(model: nn.Module) -> Iterator[Tuple[str, str, str, object]]:
             yield prefix + "/bias", port + "bias", "as_is", module
         elif isinstance(module, Embedding):
             yield prefix + "/embedding", port + "embedding", "table", module
+        elif isinstance(module, nn.LayerNorm):
+            yield prefix + "/scale", port + "weight", "as_is", module
+            yield prefix + "/bias", port + "bias", "as_is", module
+        elif isinstance(module, nn.Embedding):
+            yield prefix + "/embedding", port + "weight", "as_is", module
 
 
 def state_dict_from_jax(variables: Mapping, model: nn.Module) -> Dict[str, np.ndarray]:
@@ -237,6 +245,36 @@ def trainer_state_from_jax(state, model: nn.Module):
         opt_state=opt_state,
         tables=tables,
         slots=slots,
+    )
+
+
+def dp_trainer_state_from_jax(state, model: nn.Module):
+    """A JAX ``TrainState`` with numpy leaves (``jax.device_get`` of
+    ``DataParallelTrainer.state``) -> the port's ``DPTrainState`` with
+    numpy leaves, for ``parallel.dp_trainer.DataParallelTrainer.state``:
+    params (Dense kernels transposed) and the optax ``adamw`` chain's
+    state, ``(ScaleByAdamState(count, mu, nu), EmptyState(),
+    EmptyState())`` -> ``{"count", "mu", "nu"}``; the decay and the
+    learning-rate scale carry nothing.  A state of another shape, or any
+    ``model_state``, raises."""
+    from elasticdl_tpu_torch.parallel.dp_trainer import DPTrainState
+
+    adam = _optax_adam_state(state.opt_state)
+    parts = state.opt_state if isinstance(state.opt_state, (tuple, list)) else (state.opt_state,)
+    others = [part for part in parts if part is not adam]
+    if adam is None or any(not isinstance(part, tuple) or len(part) for part in others):
+        raise ValueError(f"not an optax adam/adamw chain state: {state.opt_state!r:.200}")
+    if flatten_variables(state.model_state or {}):
+        raise KeyError(f"model_state collections are not ported: {sorted(state.model_state)}")
+    return DPTrainState(
+        step=int(np.asarray(state.step)),
+        params=_dense_from_jax(state.params, model),
+        opt_state={
+            "count": np.asarray(adam.count, np.int32),
+            "mu": _dense_from_jax(adam.mu, model),
+            "nu": _dense_from_jax(adam.nu, model),
+        },
+        model_state={},
     )
 
 

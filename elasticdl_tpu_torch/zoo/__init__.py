@@ -16,10 +16,11 @@ from typing import Union
 
 from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.common.params import parse_dict_params
-from elasticdl_tpu_torch.zoo import deepfm
+from elasticdl_tpu_torch.zoo import deepfm, transformer_lm
 
 REGISTRY = {
     "deepfm.deepfm_functional_api": deepfm,
+    "transformer.transformer_lm": transformer_lm,
 }
 
 #: Job flags the JAX loader forwards into ``model_params`` when the

@@ -1,0 +1,302 @@
+"""Transformer causal LM, the long-context configuration: the port of
+``model_zoo/transformer/transformer_lm.py``.
+
+A pre-LN decoder-only transformer.  Its causal self-attention runs the
+flash-attention kernels (``ops/flash_attention.py``: K4 forward, K5 and
+K6 backward) on the card, for every ``attn_impl``: the value is validated
+as in JAX and selects nothing, since the port has one attention engine
+(on the CPU the kernels' plain versions run).
+
+Modules carry flax's names, so ``serving/convert.py`` maps the JAX
+variables one to one: ``Embed_0`` (tokens) and ``Embed_1`` (positions),
+``block_i`` with ``attn.qkv`` (the ``DenseGeneral`` kernel ``[e, 3, H,
+D]``, bias ``[3, H, D]``), ``attn.proj``, ``LayerNorm_0/1``,
+``Dense_0/1``, then ``LayerNorm_0`` and ``lm_head``.
+
+The numerics are flax's.  Parameters are f32; with ``use_bf16`` every
+layer computes in bf16: the embeddings are gathered and cast, ``tok +
+pos`` and both residual adds are bf16, a Dense rounds its product to
+bf16 before adding the bias.  LayerNorm takes its statistics in f32
+(``E[x^2] - E[x]^2``, clipped at 0, epsilon 1e-6) and casts its output.
+GELU is the tanh approximation.  The LM head is f32 (``f32 x f32``) and
+the loss runs on f32 logits.
+
+The model-zoo contract of the JAX module: ``custom_model``, ``loss``
+(mean next-token cross entropy), ``optimizer`` (AdamW 3e-3, weight decay
+0.01), ``eval_metrics_fn`` and ``custom_data_reader``
+(``synthetic://lm?...``).  What needs more than one card (a mesh of more
+than one device, so context or tensor parallelism) or is not ported yet
+(``logits_compute="bf16"``) raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from elasticdl_tpu_torch.common.device import require_one_device, resolve_device
+from elasticdl_tpu_torch.data.synthetic import parse_synthetic_path, synthetic_lm_arrays
+from elasticdl_tpu_torch.ops.flash_attention import flash_attention
+from elasticdl_tpu_torch.parallel import optim
+from elasticdl_tpu_torch.zoo.deepfm import DenseGeneral, lecun_normal_
+
+VOCAB = 256
+SEQ_LEN = 128
+LN_EPS = 1e-6
+
+#: Where the bf16-operand LM head is queued.
+BF16_HEAD_ITEM = "ROADMAP.md Queue 1, what the long-context slice leaves"
+
+
+class Embed(nn.Embedding):
+    """flax ``Embed``: an f32 table, gathered and cast to ``dtype``."""
+
+    def __init__(self, num: int, features: int, dtype: torch.dtype, device=None):
+        super().__init__(num, features, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids.to(torch.int64), self.weight).to(self.compute_dtype)
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        # flax default_embed_init: variance_scaling(1, fan_in, "normal",
+        # out_axis=0) -> an untruncated normal of std 1/sqrt(features).
+        nn.init.normal_(self.weight, std=1.0 / math.sqrt(self.embedding_dim),
+                        generator=generator)
+
+
+class Dense(nn.Linear):
+    """flax ``Dense``: ``x @ kernel`` in ``dtype``, then ``+ bias``."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype, device=None):
+        super().__init__(in_features, out_features, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            # One f32 product, the bias added once: the same roundings.
+            return F.linear(x.to(dt), self.weight, self.bias)
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.in_features, generator)
+        nn.init.zeros_(self.bias)
+
+
+class QKVDense(DenseGeneral):
+    """flax ``DenseGeneral((3, H, D))`` on ``[B, T, e]``: kernel ``[e, 3,
+    H, D]``, bias ``[3, H, D]`` -> ``[B, T, 3, H, D]``."""
+
+    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype, device=None):
+        super().__init__(d_model, (3, num_heads, d_model // num_heads), device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        e = self.kernel.shape[0]
+        y = torch.matmul(x.to(dt), self.kernel.to(dt).reshape(e, -1))
+        y = y + self.bias.to(dt).reshape(-1)
+        return y.reshape(*x.shape[:-1], *self.kernel.shape[1:])
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``LayerNorm``: f32 statistics, epsilon 1e-6, output cast."""
+
+    def __init__(self, features: int, dtype: torch.dtype, device=None):
+        super().__init__(features, eps=LN_EPS, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.to(torch.float32)
+        mean = x32.mean(-1, keepdim=True)
+        var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x32 - mean) * mul + self.bias).to(self.compute_dtype)
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError(f"d_model {d_model} is not a multiple of num_heads {num_heads}")
+        self.qkv = QKVDense(d_model, num_heads, dtype, device)
+        self.proj = Dense(d_model, d_model, dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, e = x.shape
+        q, k, v = self.qkv(x).unbind(2)  # [B, T, H, D] each, views
+        out = flash_attention(q, k, v, causal=True)
+        return self.proj(out.reshape(b, t, e))
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        # DenseGeneral initialises its kernel as [e, 3*H*D]: fan_in e.
+        self.qkv.init_parameters(generator)
+        self.proj.init_parameters(generator)
+
+
+class Block(nn.Module):
+    def __init__(self, d_model: int, num_heads: int, mlp_ratio: int, dtype, device=None):
+        super().__init__()
+        self.attn = CausalSelfAttention(d_model, num_heads, dtype, device)
+        self.LayerNorm_0 = LayerNorm(d_model, dtype, device)
+        self.LayerNorm_1 = LayerNorm(d_model, dtype, device)
+        self.Dense_0 = Dense(d_model, d_model * mlp_ratio, dtype, device)
+        self.Dense_1 = Dense(d_model * mlp_ratio, d_model, dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.LayerNorm_0(x))
+        h = F.gelu(self.Dense_0(self.LayerNorm_1(x)), approximate="tanh")
+        return x + self.Dense_1(h)
+
+    def init_parameters(self, generator: torch.Generator) -> None:
+        self.attn.init_parameters(generator)
+        for layer in (self.LayerNorm_0, self.LayerNorm_1, self.Dense_0, self.Dense_1):
+            layer.init_parameters(generator)
+
+
+class TransformerLM(nn.Module):
+    def __init__(
+        self,
+        vocab: int = VOCAB,
+        d_model: int = 128,
+        num_heads: int = 4,
+        num_layers: int = 2,
+        max_len: int = 4096,
+        dtype: torch.dtype = torch.bfloat16,
+        remat: bool = False,
+        mlp_ratio: int = 4,
+        device=None,
+    ):
+        super().__init__()
+        self.num_layers = num_layers
+        self.remat = remat
+        self.Embed_0 = Embed(vocab, d_model, dtype, device)
+        self.Embed_1 = Embed(max_len, d_model, dtype, device)
+        for i in range(num_layers):
+            setattr(self, f"block_{i}", Block(d_model, num_heads, mlp_ratio, dtype, device))
+        self.LayerNorm_0 = LayerNorm(d_model, dtype, device)
+        self.lm_head = Dense(d_model, vocab, torch.float32, device)
+
+    def blocks(self):
+        return [getattr(self, f"block_{i}") for i in range(self.num_layers)]
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """Seeded initialisation, flax's defaults (draws in module order)."""
+        self.Embed_0.init_parameters(generator)
+        self.Embed_1.init_parameters(generator)
+        for block in self.blocks():
+            block.init_parameters(generator)
+        self.LayerNorm_0.init_parameters(generator)
+        self.lm_head.init_parameters(generator)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens ``[B, T]`` int -> logits ``[B, T, vocab]`` f32."""
+        t = tokens.shape[1]
+        x = self.Embed_0(tokens) + self.Embed_1(torch.arange(t, device=tokens.device)[None, :])
+        for block in self.blocks():
+            if self.remat and torch.is_grad_enabled():
+                # nn.remat: the block's activations are recomputed in the
+                # backward (flash forward included).
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
+        return self.lm_head(self.LayerNorm_0(x))
+
+
+def custom_model(
+    vocab: int = VOCAB,
+    d_model: int = 128,
+    num_heads: int = 4,
+    num_layers: int = 2,
+    max_len: int = 4096,
+    use_bf16: bool = True,
+    mesh: Optional[Any] = None,
+    attn_impl: str = "auto",
+    cp_layout: str = "contiguous",
+    model_axis_mode: str = "cp",
+    remat: bool = False,
+    logits_compute: str = "f32",
+    device=None,
+) -> TransformerLM:
+    """The JAX ``custom_model`` contract, built on ``device`` (None: the
+    CUDA card; weights uninitialised).  ``attn_impl``, ``cp_layout`` and
+    ``model_axis_mode`` are validated as in JAX; the last two act only
+    over a multi-device mesh, which raises."""
+    if attn_impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"attn_impl must be 'auto', 'pallas' or 'xla', got {attn_impl!r}")
+    if model_axis_mode not in ("cp", "tp"):
+        raise ValueError(f"model_axis_mode must be 'cp' or 'tp', got {model_axis_mode!r}")
+    if cp_layout not in ("contiguous", "zigzag"):
+        raise ValueError(f"cp_layout must be 'contiguous' or 'zigzag', got {cp_layout!r}")
+    if logits_compute not in ("f32", "bf16"):
+        raise ValueError(f"logits_compute must be 'f32' or 'bf16', got {logits_compute!r}")
+    if logits_compute == "bf16":
+        raise NotImplementedError(
+            f"logits_compute='bf16' (the bf16-operand LM head) is not ported: {BF16_HEAD_ITEM}"
+        )
+    # Context- or tensor-parallel attention needs a multi-device mesh.
+    require_one_device(mesh, "the port's transformer")
+    return TransformerLM(
+        vocab=vocab,
+        d_model=d_model,
+        num_heads=num_heads,
+        num_layers=num_layers,
+        max_len=max_len,
+        dtype=torch.bfloat16 if use_bf16 else torch.float32,
+        remat=remat,
+        device=resolve_device(device),
+    )
+
+
+def loss(labels: torch.Tensor, predictions: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy (``optax.
+    softmax_cross_entropy_with_integer_labels`` on f32 logits, then the
+    mean); labels ``[B, T]``, logits ``[B, T, V]``."""
+    logits = predictions.to(torch.float32)
+    shifted = logits - logits.amax(-1, keepdim=True).detach()
+    label_logits = torch.gather(shifted, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return (torch.log(torch.exp(shifted).sum(-1)) - label_logits).mean()
+
+
+def optimizer(lr: float = 3e-3) -> optim.DenseOptimizer:
+    return optim.adamw(lr, weight_decay=0.01)
+
+
+def eval_metrics_fn():
+    def perplexity(outputs, labels):
+        ce = float(loss(torch.as_tensor(np.asarray(labels)), torch.as_tensor(np.asarray(outputs))))
+        return float(np.exp(min(ce, 20.0)))
+
+    return {
+        "perplexity": perplexity,
+        "accuracy": lambda outputs, labels: float(
+            np.mean(np.argmax(outputs, axis=-1) == labels)
+        ),
+    }
+
+
+def custom_data_reader(data_path: str, **kwargs):
+    """``synthetic://lm?n=&len=&vocab=&seed=`` -> ``(tokens, next_tokens)``
+    int32 arrays (the JAX reader's records, stacked); None for any other
+    path."""
+    name, params = parse_synthetic_path(data_path)
+    if name != "lm":
+        return None
+    return synthetic_lm_arrays(
+        n=params.get("n", 2048),
+        seq_len=params.get("len", SEQ_LEN),
+        vocab=params.get("vocab", VOCAB),
+        seed=params.get("seed", 0),
+    )

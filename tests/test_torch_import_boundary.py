@@ -104,8 +104,9 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from elasticdl_tpu_torch.serving.export import load_for_serving
     from elasticdl_tpu_torch.serving.runtime import ServingReplica
 
+    from elasticdl_tpu_torch.parallel.dp_trainer import DataParallelTrainer
     from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer
-    from elasticdl_tpu_torch.zoo import build_model, deepfm
+    from elasticdl_tpu_torch.zoo import build_model, deepfm, transformer_lm
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for entry in (load_for_serving, ServingReplica):
@@ -116,3 +117,11 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     model = build_model("deepfm.deepfm_functional_api", "vocab_size=10", device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ShardedEmbeddingTrainer(model, deepfm.loss, deepfm.optimizer())
+    lm_params = "vocab=16,d_model=16,num_heads=2,num_layers=1"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model("transformer.transformer_lm", lm_params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer_lm.custom_model(vocab=16, d_model=16, num_heads=2, num_layers=1)
+    lm = build_model("transformer.transformer_lm", lm_params, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DataParallelTrainer(lm, transformer_lm.loss, transformer_lm.optimizer())
