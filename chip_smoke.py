@@ -63,10 +63,36 @@ kernels K4-K6):
     plain versions patched in: losses and parameters within the stated
     tolerances.
 
+The context-parallel slice (the ring-step kernels K7-K9, the LM with its
+sequence sharded over a mesh's ``model`` axis):
+
+13. K7 (the ring step's forward with the carry combine), K8 (dQ) and K9
+    (dK/dV) against their plain versions: four edge shapes with random
+    positions and one whose first 40 queries see no key (K8 must give
+    them dq = 0); every step of a ring of 4, contiguous and zigzag causal
+    positions, at the CP LM's slot shape (B=4, T_local=2048, H=8, D=64)
+    in bf16 and f32, and at ``bench.py``'s RING_BENCH (B=4, T_local=2048,
+    H=8, D=128, bf16) with a full step too.  Timed like phase 10 at
+    RING_BENCH's unmasked step beside their bounds and PyTorch's
+    memory-efficient attention with the step's mask as its bias.
+14. An in-process ring of 4 slots (``parallel.mesh.virtual_devices``) on
+    B=2, T=8192, H=8, D=64 bf16 causal, both layouts, against K4-K6 on
+    the whole sequence: output and gradients at phase 10's tolerances.
+15. The LM at TRANSFORMER_BENCH's widths, T=8192 (max_len 8192), batch 4,
+    context parallel over an in-process (data=1, model=4) mesh of the
+    card, ``contiguous`` and ``zigzag``: 2 warm-up and 10 timed steps
+    (tokens/s, median step, the CUDA-event breakdown with K7-K9's time in
+    the step, peak memory); the loss must fall.
+16. From one state, 3 steps of the CP path against the one-card trainer
+    (K4-K6 on T=8192): with f32 blocks at phase 12's tolerances; with
+    bf16 blocks at CP_BF16_TOL, kernels on both sides and then, as the
+    witness, the plain versions on both sides.
+
 Launch counts are zeroed just before each serving and training phase and
 read just after it; a kernel of the path that did not launch there (K1
 and K3 once per strict training step, K3 twice in the window; K4, K5 and
-K6 once per layer per LM step) fails the run.
+K6 once per layer per LM step; K7, K8 and K9 once per layer per ring step
+of a CP LM step, and K4-K6 never there) fails the run.
 The line before the last holds the card's name and power limit, the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, with no
 result, when no CUDA device is available or the port is not beside it.
@@ -177,6 +203,60 @@ LM_PATH_LOSS_RTOL = 1e-4
 LM_PATH_GRAD_RTOL = 1e-2
 LM_PATH_PARAM_MAX = 2 * LM_LR * 3 * 1.5
 LM_PATH_UPDATE_RTOL = 2e-2
+RING_REPLACES = {
+    "flash_ring_step_carry": "elasticdl_tpu/ops/flash_attention.py:344",
+    "flash_ring_step_dq": "elasticdl_tpu/ops/flash_attention.py:482",
+    "flash_ring_step_dkv": "elasticdl_tpu/ops/flash_attention.py:526",
+}
+#: bench.py's RING_BENCH: one ring step's shape (B, T_local, H, D) and
+#: the ring's N steps; bf16.
+RING_BENCH = dict(batch=4, t_local=2048, heads=8, head_dim=128, steps=4)
+#: K7's carry against its plain version, bf16 inputs.  The carry is f32,
+#: but both round P to bf16 before P V, and an exp an f32 ulp apart can
+#: round a p to the other bf16 neighbour, which moves that term by 2**-8
+#: of itself: phase 10's bf16 tolerance, 2 bf16 ulps (rtol 2**-7) plus
+#: 2**-10 of the largest magnitude.  lse within LSE_ATOL; K8 and K9 (all
+#: f32 arithmetic, summed in another order) and every f32-input output
+#: within ATTN_F32_*.
+RING_CARRY_TOL = (ATTN_RTOL, ATTN_ATOL_SHARE)
+#: Checked for correctness only: (B, Tq, Tk, H, D, dtype, causal) with
+#: random positions: Tq != Tk, ragged tiles, f32, head_dim 8-128.
+RING_EDGE_SHAPES = (
+    (2, 200, 333, 2, 32, "float32", True), (1, 130, 64, 3, 8, "bfloat16", True),
+    (2, 96, 160, 2, 128, "float32", False), (1, 64, 64, 1, 64, "bfloat16", True),
+)
+#: A final lse at or below half of NEG_INF: a row that saw no key.
+UNSEEN_LSE = -0.5e30
+#: Phase 14: an in-process ring of RING_SLOTS slots against K4-K6 on the
+#: whole sequence, (B, T, H, D) bf16 causal, at phase 10's tolerances.
+RING_WHOLE_SHAPE = (2, 8192, 8, 64)
+RING_SLOTS = 4
+#: Phases 15-16: the context-parallel LM, TRANSFORMER_BENCH's widths at
+#: T=8192 (max_len 8192), batch 4 (the bench's 32,768 tokens per step),
+#: on an in-process (data, model) mesh of the card: T_local = 2048 =
+#: RING_BENCH's t_local.
+CP_LM = dict(LM_BENCH, seq_len=8192)
+CP_BATCH = 4
+CP_MESH = (1, 4)
+CP_WARMUP, CP_STEPS, CP_BATCHES = 2, 10, 4
+#: One slot's ring step on the CP LM's path (B, T_local, H, D): phase 13
+#: holds K7-K9 to their plain versions there too (the head_dim-64 build),
+#: in bf16 (phase 15) and in f32 (phase 16's f32 models).
+CP_SLOT_SHAPE = (CP_BATCH, CP_LM["seq_len"] // CP_MESH[1], CP_LM["num_heads"],
+                 CP_LM["d_model"] // CP_LM["num_heads"])
+#: Phase 16 in bf16: CP against the one-card path, kernels on both sides
+#: and, as the witness of the cause, the plain versions on both sides
+#: (plain ring against plain whole sequence).  The two paths round each P
+#: to bf16 against another running max (a ring step's, the whole row's),
+#: an independent rounding per element that phase 12's two paths do not
+#: have, and AdamW's per-element step turns the rounding noise of small
+#: gradients into whole steps.  On an H100 (700 W) both pairs read, over
+#: both layouts: losses within 2.1e-5, gradients 8.4e-3 (relative L2),
+#: every parameter within 0.016, updates 5.2e-2 (relative L2), the plain
+#: pair within 3% of the kernel pair.  Held to (losses, gradients, every
+#: parameter, updates): phase 12's loss and parameter limits, and twice
+#: the largest reading, rounded up, for gradients and updates.
+CP_BF16_TOL = (LM_PATH_LOSS_RTOL, 2e-2, LM_PATH_PARAM_MAX, 1.1e-1)
 K3_HYPER = {
     "sgd": ("sgd", {"learning_rate": 0.01}),
     "momentum": ("momentum", {"learning_rate": 0.01, "momentum": 0.9, "nesterov": False}),
@@ -195,6 +275,13 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def card_device():
+    """The card every phase computes on."""
+    import torch
+
+    return torch.device("cuda", 0)
 
 
 def card_line() -> str:
@@ -902,14 +989,14 @@ def attention_bound_ms(b, t, h, d, causal):
     }
 
 
-def attention_close(name, got, want):
+def attention_close(name, got, want, tol=None):
     """Fail unless |got - want| <= rtol |want| + atol_share max|want|
-    elementwise (ATTN_* for bf16, ATTN_F32_* for f32); returns the max
-    abs difference."""
+    elementwise, ``tol = (rtol, atol_share)`` (default: ATTN_* for bf16,
+    ATTN_F32_* for f32); returns the max abs difference."""
     import torch
 
-    rtol, share = ((ATTN_F32_RTOL, ATTN_F32_ATOL_SHARE) if want.dtype == torch.float32
-                   else (ATTN_RTOL, ATTN_ATOL_SHARE))
+    rtol, share = tol or ((ATTN_F32_RTOL, ATTN_F32_ATOL_SHARE) if want.dtype == torch.float32
+                          else (ATTN_RTOL, ATTN_ATOL_SHARE))
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     limit = rtol * want.abs() + share * float(want.abs().max())
@@ -1047,9 +1134,10 @@ def attention_phase(card: str, seed: int):
 
 
 @contextlib.contextmanager
-def timed_attention(records):
-    """Wrap the three kernel functions so each call records CUDA events
-    around itself: the kernels' device time inside a step."""
+def timed_attention(records, names=None):
+    """Wrap the kernel functions ``names`` of ``ops.flash_attention``
+    (default K4-K6) so each call records CUDA events around itself: the
+    kernels' device time inside a step."""
     import torch
 
     from elasticdl_tpu_torch.ops import flash_attention as fa
@@ -1064,20 +1152,21 @@ def timed_attention(records):
             return result
         return timed
 
-    with mock.patch.object(fa, "flash_attention_fwd", wrap(fa.flash_attention_fwd)), \
-            mock.patch.object(fa, "flash_attention_dq", wrap(fa.flash_attention_dq)), \
-            mock.patch.object(fa, "flash_attention_dkv", wrap(fa.flash_attention_dkv)):
+    with contextlib.ExitStack() as stack:
+        for name in names or fa.KERNELS:
+            stack.enter_context(mock.patch.object(fa, name, wrap(getattr(fa, name))))
         yield
 
 
-def lm_time_parts(trainer, staged):
+def lm_time_parts(trainer, staged, names=None):
     """One LM step through its three parts between CUDA events, and the
-    attention kernels' summed device time inside it; ms."""
+    attention kernels' (``names``, default K4-K6) summed device time
+    inside it; ms."""
     import torch
 
     records = []
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    with timed_attention(records):
+    with timed_attention(records, names):
         marks[0].record()
         loss = trainer.forward(*staged)
         marks[1].record()
@@ -1117,6 +1206,21 @@ def plain_attention():
             fail(f"the plain path launched kernels: {fa.launch_counts()}")
 
 
+@contextlib.contextmanager
+def plain_ring():
+    """The plain versions in place of K7 and of K8 + K9 (the ring looks
+    them up on ``ops.flash_attention`` at each call); fails if a kernel
+    launches inside."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    with mock.patch.object(fa, "flash_ring_step_carry", fa.flash_ring_step_carry_plain), \
+            mock.patch.object(fa, "flash_ring_step_bwd", fa.flash_ring_step_bwd_plain):
+        fa.reset_launch_counts()
+        yield
+        if any(fa.launch_counts().values()):
+            fail(f"the plain ring launched kernels: {fa.launch_counts()}")
+
+
 def rel_l2(got, want) -> float:
     return float(torch_norm(got - want) / torch_norm(want).clamp_min(1e-30))
 
@@ -1125,52 +1229,61 @@ def torch_norm(x):
     return x.float().pow(2).sum().sqrt()
 
 
-def lm_compare_paths(trainer, staged, card):
-    """Phase 12: from one cloned state, one forward/backward and then 3
-    steps with the kernels, the same with the plain versions patched
-    in."""
+LM_PATH_TOL = (LM_PATH_LOSS_RTOL, LM_PATH_GRAD_RTOL, LM_PATH_PARAM_MAX, LM_PATH_UPDATE_RTOL)
+
+
+def lm_compare(first, second, staged, card, what, tol=LM_PATH_TOL):
+    """From ``first``'s state, one forward/backward and then 3 steps on
+    each of two runs, ``first`` and ``second``, each ``(trainer, context
+    factory)`` (one trainer twice for phase 12, two trainers for phase
+    16); fails past ``tol``: (losses, gradients, every parameter,
+    updates), by default the LM_PATH_* tolerances."""
+    loss_rtol, grad_rtol, param_max, update_rtol = tol
     import torch
 
     from elasticdl_tpu_torch.parallel.dp_trainer import DPTrainState, clone_tree
 
-    live = trainer.state
+    (trainer_a, context_a), (trainer_b, context_b) = first, second
+    live = trainer_a.state
     start = DPTrainState(live.step, clone_tree(live.params), clone_tree(live.opt_state), {})
-    k_loss = trainer.forward(*staged[0])
-    k_grads = trainer.backward(k_loss)
-    with plain_attention():
-        p_loss = trainer.forward(*staged[0])
-        p_grads = trainer.backward(p_loss)
-    grad_rel = {name: rel_l2(k_grads[name], g) for name, g in p_grads.items()}
-    k_loss, p_loss = float(k_loss.detach()), float(p_loss.detach())
-    loss0_rel = abs(k_loss - p_loss) / abs(p_loss)
-    del k_grads, p_grads, k_loss, p_loss
-    kernel_losses, kernel_params = lm_path_steps(trainer, staged)
-    trainer.state = start
-    with plain_attention():
-        plain_losses, plain_params = lm_path_steps(trainer, staged)
-    loss_rel = max([loss0_rel] + [abs(a - b) / abs(b) for a, b in zip(kernel_losses, plain_losses)])
+    trainer_b.state = start
+    with context_a():
+        a_loss = trainer_a.forward(*staged[0])
+        a_grads = trainer_a.backward(a_loss)
+    with context_b():
+        b_loss = trainer_b.forward(*staged[0])
+        b_grads = trainer_b.backward(b_loss)
+    grad_rel = {name: rel_l2(a_grads[name], g) for name, g in b_grads.items()}
+    a_loss, b_loss = float(a_loss.detach()), float(b_loss.detach())
+    loss0_rel = abs(a_loss - b_loss) / abs(b_loss)
+    del a_grads, b_grads, a_loss, b_loss
+    with context_a():
+        a_losses, a_params = lm_path_steps(trainer_a, staged)
+    trainer_b.state = start
+    with context_b():
+        b_losses, b_params = lm_path_steps(trainer_b, staged)
+    loss_rel = max([loss0_rel] + [abs(a - b) / abs(b) for a, b in zip(a_losses, b_losses)])
     worst, diff_sq, moved_sq = 0.0, 0.0, 0.0
-    for name, got in kernel_params.items():
-        worst = max(worst, float((got - plain_params[name]).abs().max()))
-        diff_sq += float(torch_norm(got - plain_params[name])) ** 2
-        moved_sq += float(torch_norm(plain_params[name] - start.params[name])) ** 2
+    for name, got in a_params.items():
+        worst = max(worst, float((got - b_params[name]).abs().max()))
+        diff_sq += float(torch_norm(got - b_params[name])) ** 2
+        moved_sq += float(torch_norm(b_params[name] - start.params[name])) ** 2
     update_rel = (diff_sq / max(moved_sq, 1e-30)) ** 0.5
-    del kernel_params, plain_params, start
+    del a_params, b_params, start
     torch.cuda.empty_cache()
     worst_grad = max(grad_rel, key=grad_rel.get)
-    summary = (f"losses {kernel_losses} vs {plain_losses} (max rel {loss_rel!r}); gradients "
+    summary = (f"losses {a_losses} vs {b_losses} (max rel {loss_rel!r}); gradients "
                f"from one state: max rel L2 {grad_rel[worst_grad]!r} ({worst_grad}); after 3 "
                f"steps: params max diff {worst!r}, updates rel L2 {update_rel!r}")
-    if not loss_rel <= LM_PATH_LOSS_RTOL:
-        fail(f"LM kernel and plain paths: {summary}")
-    if not grad_rel[worst_grad] <= LM_PATH_GRAD_RTOL:
-        fail(f"LM kernel and plain path gradients differ: {summary}")
-    if not (worst <= LM_PATH_PARAM_MAX and update_rel <= LM_PATH_UPDATE_RTOL):
-        fail(f"LM kernel and plain paths diverge: {summary}")
-    log(f"LM kernel path vs plain path: {summary} [{card}]")
-    return {"losses_kernel": kernel_losses, "losses_plain": plain_losses,
-            "max_loss_rel": loss_rel, "grad_rel_l2": grad_rel, "max_param_diff": worst,
-            "update_rel_l2": update_rel}
+    if not loss_rel <= loss_rtol:
+        fail(f"{what}: {summary}")
+    if not grad_rel[worst_grad] <= grad_rtol:
+        fail(f"{what}: gradients differ: {summary}")
+    if not (worst <= param_max and update_rel <= update_rtol):
+        fail(f"{what}: parameters diverge: {summary}")
+    log(f"{what}: {summary} [{card}]")
+    return {"losses_a": a_losses, "losses_b": b_losses, "max_loss_rel": loss_rel,
+            "grad_rel_l2": grad_rel, "max_param_diff": worst, "update_rel_l2": update_rel}
 
 
 def lm_training_phases(card: str, seed: int, warmup: int = 2, steps: int = 20,
@@ -1266,10 +1379,495 @@ def lm_training_phases(card: str, seed: int, warmup: int = 2, steps: int = 20,
     del window
 
     # phase 12: kernels against plain versions on the path
-    train["path"] = lm_compare_paths(trainer, staged, card)
+    train["path"] = lm_compare((trainer, contextlib.nullcontext), (trainer, plain_attention),
+                               staged, card, "LM kernel path vs plain path")
     del trainer, staged, model
     torch.cuda.empty_cache()
     return train
+
+
+# ----------------------------------------------------------------------
+# phase 13: the ring-step kernels (K7-K9) against the plain versions
+# ----------------------------------------------------------------------
+
+
+def ring_bound_ms(b, h, tq, tk, d, pairs, elem_bytes):
+    """Least time of K7, K8 and K9 on one step: the larger of the
+    operations over the bf16 peak and the bytes over the memory rate.
+    ``pairs``: the (query, key) pairs this step's positions leave
+    unmasked.  Operations, on phase 10's split: forward 4*B*H*D per pair,
+    K8 dQ 2, K9 S, dP, dV, dK 8.  Bytes: q, k, v in their dtype, dO f32,
+    acc read and written (K7), lse and delta, dq or dk and dv written
+    f32, the positions."""
+    unit = b * h * d * pairs
+    qkv = (tq + 2 * tk) * b * h * d * elem_bytes
+    q_rows, q_f32, k_f32 = b * h * tq * 4, b * h * tq * d * 4, b * h * tk * d * 4
+    pos = (tq + tk) * 4
+
+    def bound(ops, nbytes):
+        op_ms, byte_ms = ops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
+
+    return {
+        "flash_ring_step_carry": bound(4 * unit, qkv + 2 * q_f32 + 2 * q_rows + pos),
+        "flash_ring_step_dq": bound(2 * unit, qkv + 2 * q_f32 + 2 * q_rows + pos),
+        "flash_ring_step_dkv": bound(8 * unit, qkv + q_f32 + 2 * q_rows + 2 * k_f32 + pos),
+    }
+
+
+def unmasked_pairs(q_pos, k_pos, causal) -> int:
+    if not causal:
+        return q_pos.numel() * k_pos.numel()
+    return int((k_pos[None, :] <= q_pos[:, None]).sum())
+
+
+def ring_step_inputs(gen, dev, b, tq, tk, h, d, dtype):
+    """q as the ring passes it (a transposed view of [B, T, H, D]), the
+    K/V block contiguous [B, H, Tk, D], dO f32 [B, H, Tq, D]."""
+    import torch
+
+    q = torch.randn((b, tq, h, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+    k, v = (torch.randn((b, h, tk, d), generator=gen, device=dev).to(dtype) for _ in range(2))
+    do = torch.randn((b, h, tq, d), generator=gen, device=dev)
+    return q, k, v, do
+
+
+def ring_close(name, got, want, f32_inputs):
+    """K7's f32 carry from bf16 inputs to RING_CARRY_TOL; every other
+    f32 output to ATTN_F32_*."""
+    carry = name.startswith("acc") and not f32_inputs
+    return attention_close(name, got, want, RING_CARRY_TOL if carry else None)
+
+
+def check_ring_ring(fa, q, k, v, do, positions, causal, scale, what):
+    """One slot's whole ring: K7 step by step from the plain version's
+    carry (each step from the same carry), then K8 and K9 at every step
+    from the final lse and delta.  A fully masked step must leave the
+    carry bit for bit, and a row that saw no key in the ring (final lse
+    NEG_INF) must get dq = 0 from K8.  Returns the max abs errors and
+    ``unseen_rows``, the count of such rows."""
+    import torch
+
+    f32 = q.dtype == torch.float32
+    errs = dict.fromkeys(fa.RING_KERNELS, 0.0)
+    b, h, tq, d = q.shape
+    acc = torch.zeros((b, h, tq, d), dtype=torch.float32, device=q.device)
+    lse = torch.full((b, h, tq, 1), -1e30, dtype=torch.float32, device=q.device)
+    q_pos, k_steps = positions
+    for step, k_pos in enumerate(k_steps):
+        a_k, l_k = acc.clone(), lse.clone()
+        fa.flash_ring_step_carry(q, k, v, a_k, l_k, q_pos, k_pos, causal=causal, scale=scale)
+        masked = causal and int(k_pos.min()) > int(q_pos.max())
+        fa.flash_ring_step_carry_plain(q, k, v, acc, lse, q_pos, k_pos, causal=causal,
+                                       scale=scale)
+        torch.cuda.synchronize()
+        if masked and not (bit_equal(a_k, acc) and bit_equal(l_k, lse)):
+            fail(f"flash_ring_step_carry changed the carry on a fully masked step ({what})")
+        lse_err = float((l_k - lse).abs().max())
+        if not lse_err <= LSE_ATOL:
+            fail(f"flash_ring_step_carry lse differs from its plain version by {lse_err!r} "
+                 f"({what}, step {step})")
+        errs["flash_ring_step_carry"] = max(
+            errs["flash_ring_step_carry"], lse_err,
+            ring_close(f"acc {what} step {step}", a_k, acc, f32))
+    delta = torch.sum(do * acc.to(q.dtype).to(torch.float32), dim=-1, keepdim=True)
+    unseen = lse[..., 0] <= UNSEEN_LSE
+    errs["unseen_rows"] = int(unseen.sum())
+    for step, k_pos in enumerate(k_steps):
+        got = fa.flash_ring_step_bwd(q, k, v, do, lse, delta, q_pos, k_pos, causal=causal,
+                                     scale=scale)
+        want = fa.flash_ring_step_bwd_plain(q, k, v, do, lse, delta, q_pos, k_pos,
+                                            causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        if bool((got[0][unseen] != 0.0).any()):
+            fail(f"flash_ring_step_dq gave a row that saw no key a gradient ({what}, step "
+                 f"{step})")
+        errs["flash_ring_step_dq"] = max(errs["flash_ring_step_dq"], ring_close(
+            f"dq {what} step {step}", got[0], want[0], f32))
+        errs["flash_ring_step_dkv"] = max(
+            errs["flash_ring_step_dkv"],
+            ring_close(f"dk {what} step {step}", got[1], want[1], f32),
+            ring_close(f"dv {what} step {step}", got[2], want[2], f32))
+    return errs
+
+
+def ring_edges(fa, gen, dev, card):
+    """RING_EDGE_SHAPES with random positions (any order), on a q that is
+    a transposed view: correctness only."""
+    import torch
+
+    worst = dict.fromkeys(fa.RING_KERNELS, 0.0)
+    for b, tq, tk, h, d, dtype, causal in RING_EDGE_SHAPES:
+        what = f"B={b} Tq={tq} Tk={tk} H={h} D={d} {dtype} {'causal' if causal else 'full'}"
+        q, k, v, do = ring_step_inputs(gen, dev, b, tq, tk, h, d, getattr(torch, dtype))
+        q_pos = torch.randint(0, tq + tk, (tq,), generator=gen, device=dev, dtype=torch.int32)
+        k_steps = [torch.randint(0, tq + tk, (tk,), generator=gen, device=dev,
+                                 dtype=torch.int32) for _ in range(2)]
+        k_steps.append(q_pos.max() + 1 + k_steps[0])  # a fully masked step
+        errs = check_ring_ring(fa, q, k, v, do, (q_pos, k_steps), causal,
+                               fa.default_scale(d), what)
+        worst = {name: max(worst[name], errs[name]) for name in worst}
+    # Rows that see no key in the whole ring (a causal ring never makes
+    # one): queries 0-39 against keys from 40 on.  They keep the carry
+    # (lse NEG_INF) and K8/K9 give them no gradient, as the plain versions
+    # do (the Pallas formula gives their masked keys P = 1).
+    q, k, v, do = ring_step_inputs(gen, dev, 1, 130, 64, 2, 64, torch.bfloat16)
+    q_pos = torch.arange(130, device=dev, dtype=torch.int32)
+    k_steps = [40 + torch.randperm(64, generator=gen, device=dev).to(torch.int32),
+               200 + torch.arange(64, device=dev, dtype=torch.int32)]
+    errs = check_ring_ring(fa, q, k, v, do, (q_pos, k_steps), True, fa.default_scale(64),
+                           "rows that see no key")
+    if errs["unseen_rows"] != 2 * 40:
+        fail(f"the no-key edge case has {errs['unseen_rows']} unseen rows, not 80")
+    worst = {name: max(worst[name], errs[name]) for name in worst}
+    log(f"kernels K7-K9 at the edge shapes ({len(RING_EDGE_SHAPES)} shapes, random positions, "
+        f"and 80 rows that see no key): within tolerance, max abs errors {worst} [{card}]")
+    return worst
+
+
+def check_ring_layouts(fa, ring, q, k, v, do, n, scale, shape):
+    """Every step of every slot of a ring of ``n`` (q, K/V and dO drawn
+    once, at the shard length), contiguous and zigzag causal positions;
+    -> the max abs errors."""
+    import torch
+
+    t = q.shape[2]
+    errs = dict.fromkeys(fa.RING_KERNELS, 0.0)
+    for layout in ring.LAYOUTS:
+        pos = [torch.from_numpy(ring.shard_positions(i, t, n, layout)).to(q.device, torch.int32)
+               for i in range(n)]
+        for my in range(n):
+            k_steps = [pos[(my - step) % n] for step in range(n)]
+            got = check_ring_ring(fa, q, k, v, do, (pos[my], k_steps), True, scale,
+                                  f"{shape} {layout} shard {my}")
+            errs = {name: max(errs[name], got[name]) for name in errs}
+    return errs
+
+
+def efficient_attention_ms(q, k, v, do, q_pos, k_pos, flush):
+    """PyTorch's memory-efficient attention on the step's inputs, with
+    the step's positional mask as ``attn_bias`` and the logsumexp asked
+    for: the nearest one call to K7's partial (K7's combine with the
+    carry is not in it), and its backward, the nearest to K8 + K9.  A
+    yardstick only: the port never calls it."""
+    import torch
+
+    op = torch.ops.aten._scaled_dot_product_efficient_attention
+    qc = q.contiguous()
+    bias = torch.zeros((q.shape[0], q.shape[1], q.shape[2], k.shape[2]), dtype=q.dtype,
+                       device=q.device)
+    bias.masked_fill_(k_pos[None, :] > q_pos[:, None], float("-inf"))
+    fwd = median_ms(lambda: op(qc, k, v, bias, True), flush)
+    leaves = [x.detach().requires_grad_(True) for x in (qc, k, v)]
+    g = do.to(q.dtype)
+
+    def fwd_bwd():
+        out = op(*leaves, bias, True)[0]
+        torch.autograd.grad(out, leaves, g)
+
+    bwd = median_ms(fwd_bwd, flush) - fwd
+    del bias
+    return fwd, bwd
+
+
+def ring_kernel_phase(card: str, seed: int):
+    import torch
+
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel import ring_attention as ring
+
+    dev = card_device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+    edges = ring_edges(fa, gen, dev, card)
+    cfg = RING_BENCH
+    b, t, h, d, n = cfg["batch"], cfg["t_local"], cfg["heads"], cfg["head_dim"], cfg["steps"]
+    scale = fa.default_scale(d)
+    # The CP LM's slot shape (the head_dim-64 build), in bf16 and f32.
+    cb, ct, ch, cd = CP_SLOT_SHAPE
+    cp_errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        shape = f"B={cb} Tq=Tk={ct} H={ch} D={cd} {str(dtype)[6:]}"
+        cp_errs[shape] = check_ring_layouts(
+            fa, ring, *ring_step_inputs(gen, dev, cb, ct, ct, ch, cd, dtype), CP_MESH[1],
+            fa.default_scale(cd), shape)
+        log(f"kernels K7-K9 at the CP LM's slot shape {shape}, every step of a ring of "
+            f"{CP_MESH[1]}, contiguous and zigzag (causal): within tolerance, max abs errors "
+            f"{cp_errs[shape]} [{card}]")
+    torch.cuda.empty_cache()
+
+    q, k, v, do = ring_step_inputs(gen, dev, b, t, t, h, d, torch.bfloat16)
+    shape = f"B={b} Tq=Tk={t} H={h} D={d} bf16"
+    errs = check_ring_layouts(fa, ring, q, k, v, do, n, scale, shape)
+    full_pos = torch.arange(t, device=dev, dtype=torch.int32)
+    got = check_ring_ring(fa, q, k, v, do, (full_pos, [full_pos]), False, scale,
+                          f"{shape} full")
+    errs = {name: max(errs[name], got[name]) for name in errs}
+    log(f"kernels K7-K9 at {shape}, every step of a ring of {n}, contiguous and zigzag "
+        f"(causal) and one full step: within tolerance, max abs errors {errs} [{card}]")
+
+    # timed at the unmasked step: shard 1 against shard 0's block
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32, device=dev)
+    q_pos, k_pos = (torch.from_numpy(ring.shard_positions(i, t, n, "contiguous")).to(
+        dev, torch.int32) for i in (1, 0))
+    acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=dev)
+    lse = torch.full((b, h, t, 1), -1e30, dtype=torch.float32, device=dev)
+    fa.flash_ring_step_carry_plain(q, k, v, acc, lse, q_pos, k_pos, causal=True, scale=scale)
+    delta = torch.sum(do * acc.to(torch.bfloat16).to(torch.float32), dim=-1, keepdim=True)
+    kw = dict(causal=True, scale=scale)
+    a_k, l_k = acc.clone(), lse.clone()
+    times = {
+        "flash_ring_step_carry": (
+            median_ms(lambda: fa.flash_ring_step_carry(q, k, v, a_k, l_k, q_pos, k_pos, **kw),
+                      flush),
+            median_ms(lambda: fa.flash_ring_step_carry_plain(q, k, v, acc, lse, q_pos, k_pos,
+                                                             **kw), flush)),
+        "flash_ring_step_dq": (
+            median_ms(lambda: fa.flash_ring_step_dq(q, k, v, do, lse, delta, q_pos, k_pos, **kw),
+                      flush),
+            median_ms(lambda: fa.flash_ring_step_dq_plain(
+                q, k, v, do, lse[..., 0], delta[..., 0], q_pos, k_pos, **kw), flush)),
+        "flash_ring_step_dkv": (
+            median_ms(lambda: fa.flash_ring_step_dkv(q, k, v, do, lse, delta, q_pos, k_pos,
+                                                     **kw), flush),
+            median_ms(lambda: fa.flash_ring_step_dkv_plain(
+                q, k, v, do, lse[..., 0], delta[..., 0], q_pos, k_pos, **kw), flush)),
+    }
+    lib_fwd, lib_bwd = efficient_attention_ms(q, k, v, do, q_pos, k_pos, flush)
+    pairs = unmasked_pairs(q_pos, k_pos, True)
+    bounds = ring_bound_ms(b, h, t, t, d, pairs, 2)
+    timed = f"{shape}, unmasked step (contiguous, shard 1 vs shard 0's block)"
+    results = {}
+    for name in fa.RING_KERNELS:
+        ms, plain = times[name]
+        results[name] = {
+            "max_abs_err": max([errs[name]] + [e[name] for e in cp_errs.values()]),
+            "ring_bench_max_abs_err": errs[name],
+            "cp_slot_max_abs_err": {s: e[name] for s, e in cp_errs.items()},
+            "edge_shapes_max_abs_err": edges[name],
+            "ms": ms, "plain_ms": plain, "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+            "library_ms": lib_fwd if name == "flash_ring_step_carry" else lib_bwd,
+            "shape": timed,
+        }
+        log(f"kernel {name}: {timed}: {ms!r} ms (plain {plain!r} ms, bound "
+            f"{bounds[name][0]!r} ms by {bounds[name][1]}) [{card}]")
+    log(f"  efficient-attention yardstick (bias = the step's mask, lse): forward {lib_fwd!r} "
+        f"ms, backward (dq, dk, dv) {lib_bwd!r} ms [{card}]")
+    del q, k, v, do, acc, lse, a_k, l_k, delta, flush
+    torch.cuda.empty_cache()
+    return results
+
+
+# ----------------------------------------------------------------------
+# phase 14: the ring against the whole sequence
+# ----------------------------------------------------------------------
+
+
+def in_process_mesh(data: int, model: int):
+    from elasticdl_tpu_torch.parallel.mesh import MeshConfig, build_mesh, virtual_devices
+
+    return build_mesh(MeshConfig(data, model), devices=virtual_devices(data * model,
+                                                                       card_device()))
+
+
+def ring_whole_phase(card: str, seed: int):
+    """An in-process ring of RING_SLOTS slots (K7 forward, K8 + K9
+    backward) against K4-K6 on the whole sequence, causal, both layouts:
+    the output and the gradients of sum(out * dO), within phase 10's
+    tolerances."""
+    import torch
+
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel import ring_attention as ring
+
+    dev = card_device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 14)
+    b, t, h, d = RING_WHOLE_SHAPE
+    q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    leaves = [x.requires_grad_(True) for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True)
+    want = [out.detach()] + list(torch.autograd.grad(out, leaves, do))
+    mesh = in_process_mesh(1, RING_SLOTS)
+    shape = f"B={b} T={t} H={h} D={d} bf16 causal, {RING_SLOTS} slots"
+    result = {"shape": shape}
+    for layout in ring.LAYOUTS:
+        fa.reset_launch_counts()
+        out = ring.ring_self_attention(mesh, *leaves, causal=True, layout=layout)
+        got = [out.detach()] + list(torch.autograd.grad(out, leaves, do))
+        counts = fa.launch_counts()
+        if any(counts[name] != RING_SLOTS * RING_SLOTS for name in fa.RING_KERNELS):
+            fail(f"the {layout} ring launched {counts} (want {RING_SLOTS ** 2} of each of "
+                 f"K7-K9)")
+        result[layout] = {name: attention_close(f"ring {layout} {name} ({shape})", g, w)
+                          for name, g, w in zip(("out", "dq", "dk", "dv"), got, want)}
+        log(f"ring ({layout}) vs K4-K6 on the whole sequence, {shape}: within tolerance, max "
+            f"abs errors {result[layout]} [{card}]")
+        del out, got
+    del q, k, v, do, leaves, want
+    torch.cuda.empty_cache()
+    return result
+
+
+# ----------------------------------------------------------------------
+# phases 15-16: the context-parallel LM trained by DataParallelTrainer
+# ----------------------------------------------------------------------
+
+
+def cp_lm_phases(card: str, seed: int):
+    """Phase 15: the CP LM trained in both layouts (timed, launches
+    counted, the loss must fall); phase 16: from one state, 3 steps of CP
+    against the one-card trainer (K4-K6 on the whole sequence), f32 and
+    bf16, and the bf16 pair again with the plain versions."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.data.synthetic import synthetic_lm_arrays
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel import ring_attention as ring
+    from elasticdl_tpu_torch.parallel.dp_trainer import (
+        DataParallelTrainer,
+        DPTrainState,
+        clone_tree,
+    )
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    cfg, batch, (data, slots) = CP_LM, CP_BATCH, CP_MESH
+    zoo = resolve(LM_DEF)
+    tokens, nxt = synthetic_lm_arrays(batch * CP_BATCHES, cfg["seq_len"], cfg["vocab"], seed)
+    ones = np.ones((batch,), np.float32)
+    batches = [(tokens[i * batch:(i + 1) * batch], nxt[i * batch:(i + 1) * batch], ones)
+               for i in range(CP_BATCHES)]
+    params = dict(vocab=cfg["vocab"], d_model=cfg["d_model"], num_heads=cfg["num_heads"],
+                  num_layers=cfg["num_layers"], max_len=cfg["seq_len"])
+    mesh = in_process_mesh(data, slots)
+    per_step = cfg["num_layers"] * slots * slots
+    results = {}
+    for layout in ring.LAYOUTS:
+        model = build_model(LM_DEF, dict(params, mesh=mesh, cp_layout=layout))
+        trainer = DataParallelTrainer(model, zoo.loss, zoo.optimizer(LM_LR), mesh=mesh,
+                                      seed=seed)
+        if trainer.device != card_device():
+            fail(f"the CP trainer runs on {trainer.device}, not on the card")
+        trainer.ensure_initialized()
+        staged = [trainer.stage_batch(*b) for b in batches]
+        losses = [trainer.train_step_staged(staged[i % CP_BATCHES]) for i in range(CP_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        events = []
+        t0 = time.perf_counter()
+        for i in range(CP_WARMUP, CP_WARMUP + CP_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(trainer.train_step_staged(staged[i % CP_BATCHES]))
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fa.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for name in fa.RING_KERNELS:
+            if counts[name] != per_step * CP_STEPS:
+                fail(f"{name} launched {counts[name]} times in {CP_STEPS} CP steps ({layout}; "
+                     f"want {per_step * CP_STEPS})")
+        if any(counts[name] for name in fa.KERNELS):
+            fail(f"the CP path ({layout}) launched a whole-sequence kernel: {counts}")
+        losses = torch.stack(losses).cpu().numpy()
+        if not np.all(np.isfinite(losses)):
+            fail(f"non-finite CP LM loss ({layout}): {losses}")
+        first, last = float(losses[:3].mean()), float(losses[-3:].mean())
+        if not last < first:
+            fail(f"the CP LM loss did not fall ({layout}): first 3 steps {first!r}, last 3 "
+                 f"{last!r}")
+        step_ms = sorted(s.elapsed_time(e) for s, e in events)
+        parts = lm_time_parts(trainer, staged[0], fa.RING_KERNELS)
+        results[layout] = {
+            "tokens_per_s": CP_STEPS * batch * cfg["seq_len"] / wall,
+            "step_ms_median": step_ms[len(step_ms) // 2],
+            "loss_first3": first, "loss_last3": last,
+            "breakdown_ms": parts, "peak_memory_gb": peak / 1e9,
+            "launches": counts, "launches_per_step": per_step,
+        }
+        log(f"CP LM train ({layout}, mesh {data}x{slots} in-process): {CP_STEPS} steps of "
+            f"{batch}x{cfg['seq_len']}: {results[layout]['tokens_per_s']!r} tokens/s, step "
+            f"median {results[layout]['step_ms_median']!r} ms (device, CUDA events); loss "
+            f"{first!r} -> {last!r}; launches {counts}; peak {peak / 1e9!r} GB; one step's parts "
+            f"{parts} [{card}]")
+
+        del trainer, model, staged
+        torch.cuda.empty_cache()
+
+        # phase 16: the CP path against the one-card path, from one state.
+        # With f32 blocks the ring only regroups the f32 sums of K4-K6:
+        # phase 12's tolerances.  In bf16, CP_BF16_TOL, and the same
+        # comparison with the plain versions on both sides is the witness
+        # that the gap is the two paths' arithmetic, not a kernel's fault.
+        for use_bf16 in (False, True):
+            kind = "bf16" if use_bf16 else "f32"
+            model_params = dict(params, use_bf16=use_bf16)
+            cp_trainer = DataParallelTrainer(
+                build_model(LM_DEF, dict(model_params, mesh=mesh, cp_layout=layout)), zoo.loss,
+                zoo.optimizer(LM_LR), mesh=mesh, seed=seed)
+            one_card = DataParallelTrainer(build_model(LM_DEF, model_params,
+                                                       device=card_device()),
+                                           zoo.loss, zoo.optimizer(LM_LR), seed=seed,
+                                           device=card_device())
+            cp_trainer.ensure_initialized()
+            one_card.ensure_initialized()
+            staged = [cp_trainer.stage_batch(*b) for b in batches[:3]]
+            start = DPTrainState(0, clone_tree(cp_trainer.state.params),
+                                 clone_tree(cp_trainer.state.opt_state), {})
+            what = (f"CP LM ({layout}, {kind}, ring K7-K9) vs one-card LM ({kind}, K4-K6 on "
+                    f"T={cfg['seq_len']})")
+            results[layout][f"vs_one_card_{kind}"] = lm_compare(
+                (cp_trainer, contextlib.nullcontext), (one_card, contextlib.nullcontext), staged,
+                card, what, CP_BF16_TOL if use_bf16 else LM_PATH_TOL)
+            if use_bf16:
+                cp_trainer.state = start
+                results[layout]["vs_one_card_bf16_plain"] = lm_compare(
+                    (cp_trainer, plain_ring), (one_card, plain_attention), staged, card,
+                    f"the witness: plain CP LM ({layout}, bf16, the plain versions of K7-K9) "
+                    f"vs plain one-card LM (bf16, the plain versions of K4-K6)", CP_BF16_TOL)
+            del cp_trainer, one_card, staged, start
+            torch.cuda.empty_cache()
+    return results
+
+
+def ring_entries(ring_kernels, ring_whole, cp, card):
+    """The K7-K9 entries of the kernels line: timed at RING_BENCH (phase
+    13), launched on the CP LM path (phase 15, both layouts)."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    line = []
+    for name in fa.RING_KERNELS:
+        r = ring_kernels[name]
+        by_path = {f"cp_lm_train_{layout}_{CP_STEPS}_steps": cp[layout]["launches"][name]
+                   for layout in cp}
+        line.append({
+            "name": name, "ok": True, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": RING_REPLACES[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": r["max_abs_err"],
+            "ring_bench_max_abs_err": r["ring_bench_max_abs_err"],
+            "cp_slot_max_abs_err": r["cp_slot_max_abs_err"],
+            "edge_shapes_max_abs_err": r["edge_shapes_max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library": ("aten._scaled_dot_product_efficient_attention forward, the step's mask "
+                        "as attn_bias, without K7's combine"
+                        if name == "flash_ring_step_carry" else
+                        "aten._scaled_dot_product_efficient_attention backward (dq, dk, dv "
+                        "together)"),
+            "shape": r["shape"],
+            "ring_vs_whole_max_abs_err": {layout: ring_whole[layout] for layout in cp},
+            "train_step_ring_kernels_ms": {layout: cp[layout]["breakdown_ms"]["attention_kernels"]
+                                           for layout in cp},
+            "card": card,
+        })
+    return line
 
 
 def flash_entries(attention, edges, train, card):
@@ -1345,15 +1943,21 @@ def main() -> None:
         shutil.rmtree(workdir, ignore_errors=True)
     attention, edges = attention_phase(card, args.seed) if run(10) else (None, None)
     lm = lm_training_phases(card, args.seed) if run(11, 12) else None
+    ring_kernels = ring_kernel_phase(card, args.seed) if run(13) else None
+    ring_whole = ring_whole_phase(card, args.seed) if run(14) else None
+    cp = cp_lm_phases(card, args.seed) if run(15, 16) else None
     if wanted:
         log(json.dumps({"phases": sorted(wanted), "attention": attention,
-                        "attention_edges": edges, "lm_training": lm, "card": card}))
+                        "attention_edges": edges, "lm_training": lm,
+                        "ring_kernels": ring_kernels, "ring_whole": ring_whole,
+                        "cp_lm_training": cp, "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
         if count < 1:
             fail(f"kernel {name} was never launched on the serving path")
-    log(json.dumps({"training": train, "lm_training": lm, "card": card}))
+    log(json.dumps({"training": train, "lm_training": lm, "cp_lm_training": cp,
+                    "ring_whole": ring_whole, "card": card}))
 
     by_path = {
         "fused_lookup_fm": {"serve_merged": launches["fused_lookup_fm"],
@@ -1398,6 +2002,7 @@ def main() -> None:
         "card": card,
     })
     line += flash_entries(attention, edges, lm, card)
+    line += ring_entries(ring_kernels, ring_whole, cp, card)
     log(json.dumps({"kernels": line}))
     log(card)
     print(json.dumps({"ok": True, "device": {

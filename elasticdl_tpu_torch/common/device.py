@@ -15,8 +15,18 @@ import torch
 
 DeviceLike = Union[str, torch.device, None]
 
-#: Where what needs more than one card is queued.
-MULTI_CARD_ITEM = "ROADMAP.md Queue 1, multi-card routing"
+#: Where what needs more than one card is queued: item 5 of ROADMAP.md's
+#: Queue 1, one constant for each part of it that is still to port.  The
+#: context-parallel path (a ``parallel.mesh.Mesh`` whose ``model`` axis
+#: carries the sequence) is ported and raises none of them.
+MULTI_CARD_ITEM = "ROADMAP.md Queue 1 item 5, multi-card routing"
+#: The sharded dispatch of K1-K3 (tables over cards): the PS trainer and
+#: serving on several cards.
+SPARSE_DISPATCH_ITEM = f"{MULTI_CARD_ITEM}: the sharded K1-K3 dispatch"
+#: The transformer's model_axis_mode="tp".
+TENSOR_PARALLEL_ITEM = f"{MULTI_CARD_ITEM}: tensor parallelism (model_axis_mode='tp')"
+#: DataParallelTrainer's dense_sharding="fsdp".
+FSDP_ITEM = f"{MULTI_CARD_ITEM}: FSDP (dense_sharding='fsdp')"
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -35,14 +45,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return resolved
 
 
-def require_one_device(mesh, what: str) -> None:
+def require_one_device(mesh, what: str, item: str = MULTI_CARD_ITEM) -> None:
     """Raise ``NotImplementedError`` unless ``mesh`` is None, a device, or
-    a mesh (or list) of one device: ``what`` runs on one card."""
+    a mesh (or list) of one device: ``what`` runs on one card, and a
+    mesh of more waits for ``item``."""
     if mesh is None or isinstance(mesh, (str, torch.device)):
         return
     devices = getattr(mesh, "devices", mesh)
     if int(np.size(np.asarray(devices, dtype=object))) != 1:
         raise NotImplementedError(
-            f"{what} runs on one card: a mesh of more than one device waits "
-            f"for {MULTI_CARD_ITEM}"
+            f"{what} runs on one card: a mesh of more than one device waits for {item}"
         )

@@ -47,6 +47,9 @@ _LL = ctypes.c_longlong
 _F = ctypes.c_float
 
 _FLASH_TAIL = (_I, _I, _I, _I, _LL, _LL, _LL, _F, _I, _I, _P)
+# (batch, heads, tq, tk, d), q strides, k/v strides, scale, causal, dtype,
+# stream.
+_RING_TAIL = (_I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _I, _P)
 
 #: argtypes of every C entry point (pointers and the stream as c_void_p,
 #: so ctypes never cuts a 64-bit address to a 32-bit int; hyperparameters
@@ -67,6 +70,10 @@ SIGNATURES = {
     "edl_flash_fwd": (_P, _P, _P, _P, _P) + _FLASH_TAIL,        # q k v out lse
     "edl_flash_dq": (_P, _P, _P, _P, _P, _P, _P) + _FLASH_TAIL,  # q k v do lse delta dq
     "edl_flash_dkv": (_P,) * 8 + _FLASH_TAIL,                   # ... dk dv
+    # the ring steps: tensors, positions (q_pos, k_pos), then _RING_TAIL.
+    "edl_ring_fwd": (_P,) * 7 + _RING_TAIL,   # q k v acc lse q_pos k_pos
+    "edl_ring_dq": (_P,) * 9 + _RING_TAIL,    # q k v do lse delta dq q_pos k_pos
+    "edl_ring_dkv": (_P,) * 10 + _RING_TAIL,  # q k v do lse delta dk dv q_pos k_pos
 }
 
 

@@ -12,6 +12,21 @@
 //   edl_flash_dkv  <- _dkv_kernel (K6): dV = sum_q P^T dO and
 //                     dK = scale * sum_q dS^T Q of one K block.
 //
+// and three more for one step of the context-parallel ring (the local q
+// shard against one rotating K/V block, causal masking from explicit
+// position arrays), each replacing a Pallas kernel of the same file:
+//
+//   edl_ring_fwd   <- _fwd_ring_carry_kernel (K7): the step's flash
+//                     forward, combined in lse space with the running
+//                     (acc, lse) carry, which it updates in place.
+//   edl_ring_dq    <- _dq_ring_kernel (K8): the step's dQ contribution
+//                     from the final lse and delta, f32.
+//   edl_ring_dkv   <- _dkv_ring_kernel (K9): dK and dV of the rotating
+//                     block against the local q shard, f32.
+//
+// They reuse K4-K6's tiles and loops; what differs is set out above the
+// ring kernels below.
+//
 // Layout.  q, k, v are read in the public [B, T, H, D] layout through
 // their strides (batch, time, head; the last dimension contiguous), so
 // the transposes to [B, H, T, D] that the JAX function makes around its
@@ -54,6 +69,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -568,6 +584,430 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// K7-K9: one step of the context-parallel ring.
+//
+// Layout: the JAX functions' kernel layout [B, H, T, D].  q, k and v are
+// read through their strides (q's apart from the K/V block's, since Tq
+// and Tk may differ), so a transposed view of [B, T, H, D] activations
+// goes in without a copy.  acc, dO, dq, dk and dv are contiguous [B, H,
+// T, D] f32, lse and delta contiguous [B, H, Tq] f32 ([B, H, Tq, 1] in
+// JAX), q_pos [Tq] and k_pos [Tk] int32.
+//
+// The causal mask is k_pos > q_pos, read from the position arrays, not
+// derived from tile indices: a rotating block's positions depend on its
+// source shard, and the zigzag layout's are not even affine.  A key tile
+// whose smallest k_pos exceeds the q tile's largest q_pos is wholly
+// masked and skipped (in K9: a q tile whose largest q_pos is below the k
+// tile's smallest k_pos).  The Pallas kernels compute such tiles and
+// mask every score; a masked score adds exactly 0, so the numbers agree.
+// In K8 and K9 P is 0 where the key is masked, as exp(NEG_INF - lse) is
+// for any finite lse, and in a row whose final lse is NEG_INF (a row that
+// saw no key in the whole ring, which a causal ring never makes, since
+// every query sees its own position): there the Pallas formula gives
+// exp(0) = 1 to the masked keys of the tiles it computes, and these
+// kernels and their plain versions give the row no gradient at all.
+//
+// K7's online softmax is the ring kernel's, which differs from K4's
+// where a row has seen only masked keys: the max is clamped to 0
+// (safe_m), the masked p and the correction are 0, so an all-masked row
+// ends with l = 0 and lse_i = NEG_INF.  The combine with the carry
+// follows the JAX order: lse_new = logaddexp(lse_c, lse_i), alpha =
+// exp(lse_c - lse_new), beta = exp(lse_i - lse_new), acc = acc_c * alpha
+// + (acc_i / l) * beta.  A row with l = 0 is not written: the Pallas
+// formulas give the carry back there (alpha = 1, beta = 0), so a fully
+// masked step leaves the carry bit-identical.  P is rounded to v's dtype
+// before P V relative to the running max after each 64-key tile, as in
+// K4.  K8 and K9 are K5 and K6 with the position mask, an f32 dO and f32
+// outputs; scale multiplies q before Q K^T, and dq and dk at the end.
+//
+// What bounds them: at the ring bench's unmasked step (B=4, H=8, Tq=Tk=
+// 2048, D=128) K7 needs 4*B*H*Tq*Tk*D = 68.7 GFLOP, 0.069 ms at the bf16
+// tensor-core peak, and moves 118 MB, 0.035 ms at the memory rate:
+// operations bound K7-K9 as they bound K4-K6, and the design is theirs,
+// f32 FMA on the CUDA cores, whose 67 TFLOP/s is its ceiling.
+// ---------------------------------------------------------------------
+
+struct RingShape {
+  int heads, tq, tk, d;
+  long long q_sb, q_st, q_sh;     // strides of q (elements)
+  long long kv_sb, kv_st, kv_sh;  // strides of k and v
+  float scale;
+  int causal;
+};
+
+// Extra shared memory of a ring kernel: one tile's positions and four
+// reduction slots.
+constexpr int kRingSmemInts = kTile + 4;
+
+// The smallest (kMin) or largest position of rows [t0, t0 + 64) of `pos`
+// (rows past t_len left out), reduced by threads 0-63 (warps 0 and 1)
+// into red[0] and red[1]; the tile's positions go to pos_s when it is
+// given.  The caller synchronises before reading either.
+template <bool kMin>
+__device__ __forceinline__ void tile_pos_extreme(const int* __restrict__ pos, int t0,
+                                                 int t_len, int* red, int* pos_s) {
+  if (threadIdx.x >= kTile) return;
+  const int t = t0 + threadIdx.x;
+  const bool in = t < t_len;
+  const int p = in ? pos[t] : 0;
+  if (pos_s != nullptr) pos_s[threadIdx.x] = p;
+  int x = in ? p : (kMin ? INT_MAX : INT_MIN);
+  x = kMin ? __reduce_min_sync(0xffffffffu, x) : __reduce_max_sync(0xffffffffu, x);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+}
+
+__device__ __forceinline__ bool below_half_neg_inf(float x) { return x <= kNegInf * 0.5f; }
+
+// ---------------------------------------------------------------------
+// K7: ring-step forward with the carry combine.  Block (q tile, head,
+// batch); loops over the K/V block's tiles.
+// ---------------------------------------------------------------------
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+    ring_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, float* __restrict__ acc_c,
+                    float* __restrict__ lse_c, const int* __restrict__ q_pos,
+                    const int* __restrict__ k_pos, RingShape s) {
+  constexpr int kLd = DP + 4;
+  constexpr int kNc = DP / 64;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* k_s = q_s + kTile * kLd;
+  float* v_s = k_s + kTile * kLd;
+  float* p_s = v_s + kTile * kLd;
+  int* kpos_s = reinterpret_cast<int*>(p_s + kTile * kLdp);
+  int* red_s = kpos_s + kTile;  // [0, 1]: a key tile's min; [2, 3]: the q tile's max
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * kTile;
+  const long long row0 = ((long long)b * s.heads + h) * s.tq;
+  const T* k_bh = k + b * s.kv_sb + h * s.kv_sh;
+  const T* v_bh = v + b * s.kv_sb + h * s.kv_sh;
+
+  load_tile<T, DP>(q_s, q + b * s.q_sb + h * s.q_sh, s.q_st, q0, s.tq, s.d, s.scale);
+  int qp[4];
+  float lse_in[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = q0 + ty + 16 * i;
+    qp[i] = t < s.tq ? q_pos[t] : 0;
+    lse_in[i] = t < s.tq ? lse_c[row0 + t] : 0.0f;
+  }
+  tile_pos_extreme<false>(q_pos, q0, s.tq, red_s + 2, nullptr);
+  __syncthreads();
+  const int q_max = max(red_s[2], red_s[3]);
+
+  float m[4], l[4], acc[4][kNc][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int n = 0; n < kNc; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
+    }
+  }
+
+  const int n_k = n_tiles(s.tk);
+  for (int kb = 0; kb < n_k; ++kb) {
+    const int k0 = kb * kTile;
+    __syncthreads();  // the previous tile's readers are done
+    if (s.causal) {
+      tile_pos_extreme<true>(k_pos, k0, s.tk, red_s, kpos_s);
+      __syncthreads();
+      if (min(red_s[0], red_s[1]) > q_max) continue;  // every key masked
+    }
+    load_tile<T, DP>(k_s, k_bh, s.kv_st, k0, s.tk, s.d, 1.0f);
+    load_tile<T, DP>(v_s, v_bh, s.kv_st, k0, s.tk, s.d, 1.0f);
+    __syncthreads();
+    float sc[4][4];
+    dot_rows<DP, false>(q_s, k_s, sc, 1.0f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = tx + 16 * j;
+        if (k0 + col >= s.tk || (s.causal && kpos_s[col] > qp[i])) sc[i][j] = kNegInf;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      const float safe_m = below_half_neg_inf(m_new) ? 0.0f : m_new;
+      const float corr = below_half_neg_inf(m[i]) ? 0.0f : expf(m[i] - safe_m);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = below_half_neg_inf(sc[i][j]) ? 0.0f : expf(sc[i][j] - safe_m);
+        rs += p;
+        p_s[(ty + 16 * i) * kLdp + tx + 16 * j] = p_round<T>(p);
+      }
+      l[i] = l[i] * corr + row_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int n = 0; n < kNc; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][n][e] *= corr;
+      }
+    }
+    __syncthreads();
+    acc_pv<DP>(p_s, v_s, acc);
+  }
+
+  // The combine with the carry; a row that saw no key (l = 0) keeps it.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = q0 + ty + 16 * i;
+    if (t >= s.tq || l[i] == 0.0f) continue;
+    const float lse_i = (below_half_neg_inf(m[i]) ? 0.0f : m[i]) + logf(l[i]);
+    const float lc = lse_in[i];
+    const float lse_new = fmaxf(lc, lse_i) + log1pf(expf(-fabsf(lc - lse_i)));
+    const float safe = below_half_neg_inf(lse_new) ? 0.0f : lse_new;
+    const float alpha = expf((below_half_neg_inf(lc) ? kNegInf : lc) - safe);
+    const float beta = expf(lse_i - safe);
+    float* row = acc_c + (row0 + t) * s.d;
+#pragma unroll
+    for (int n = 0; n < kNc; ++n) {
+      const int c = 64 * n + 4 * tx;
+      if (c >= s.d) continue;  // d is a multiple of 8: 4 columns in or out
+#pragma unroll
+      for (int e = 0; e < 4; ++e) row[c + e] = row[c + e] * alpha + (acc[i][n][e] / l[i]) * beta;
+    }
+    if (tx == 0) lse_c[row0 + t] = lse_new;
+  }
+}
+
+// ---------------------------------------------------------------------
+// K8: ring-step dQ.  Block (q tile, head, batch); loops over the K/V
+// block's tiles.
+// ---------------------------------------------------------------------
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+    ring_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const float* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   float* __restrict__ dq, const int* __restrict__ q_pos,
+                   const int* __restrict__ k_pos, RingShape s) {
+  constexpr int kLd = DP + 4;
+  constexpr int kNc = DP / 64;
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* do_s = q_s + kTile * kLd;
+  float* k_s = do_s + kTile * kLd;
+  float* v_s = k_s + kTile * kLd;
+  float* ds_s = v_s + kTile * kLd;
+  int* kpos_s = reinterpret_cast<int*>(ds_s + kTile * kLdp);
+  int* red_s = kpos_s + kTile;
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * kTile;
+  const long long row0 = ((long long)b * s.heads + h) * s.tq;
+  const T* k_bh = k + b * s.kv_sb + h * s.kv_sh;
+  const T* v_bh = v + b * s.kv_sb + h * s.kv_sh;
+
+  load_tile<T, DP>(q_s, q + b * s.q_sb + h * s.q_sh, s.q_st, q0, s.tq, s.d, s.scale);
+  load_tile<float, DP>(do_s, dout + row0 * s.d, s.d, q0, s.tq, s.d, 1.0f);
+  int qp[4];
+  float lse_r[4], delta_r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = q0 + ty + 16 * i;
+    qp[i] = t < s.tq ? q_pos[t] : 0;
+    lse_r[i] = t < s.tq ? lse[row0 + t] : 0.0f;
+    delta_r[i] = t < s.tq ? delta[row0 + t] : 0.0f;
+  }
+  tile_pos_extreme<false>(q_pos, q0, s.tq, red_s + 2, nullptr);
+  __syncthreads();
+  const int q_max = max(red_s[2], red_s[3]);
+
+  float acc[4][kNc][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int n = 0; n < kNc; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
+    }
+  }
+
+  const int n_k = n_tiles(s.tk);
+  for (int kb = 0; kb < n_k; ++kb) {
+    const int k0 = kb * kTile;
+    __syncthreads();
+    if (s.causal) {
+      tile_pos_extreme<true>(k_pos, k0, s.tk, red_s, kpos_s);
+      __syncthreads();
+      if (min(red_s[0], red_s[1]) > q_max) continue;
+    }
+    load_tile<T, DP>(k_s, k_bh, s.kv_st, k0, s.tk, s.d, 1.0f);
+    load_tile<T, DP>(v_s, v_bh, s.kv_st, k0, s.tk, s.d, 1.0f);
+    __syncthreads();
+    float sc[4][4], dp[4][4];
+    dot_rows<DP, false>(q_s, k_s, sc, 1.0f);
+    dot_rows<DP, false>(do_s, v_s, dp, 1.0f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = tx + 16 * j;
+        const bool masked = k0 + col >= s.tk || (s.causal && kpos_s[col] > qp[i]) ||
+                            below_half_neg_inf(lse_r[i]);
+        const float p = masked ? 0.0f : expf(sc[i][j] - lse_r[i]);
+        ds_s[(ty + 16 * i) * kLdp + col] = p * (dp[i][j] - delta_r[i]);
+      }
+    }
+    __syncthreads();
+    acc_pv<DP>(ds_s, k_s, acc);
+  }
+  store_rows<float, DP>(dq + row0 * s.d, s.d, q0, s.tq, s.d, acc, s.scale);
+}
+
+// ---------------------------------------------------------------------
+// K9: ring-step dK, dV of the rotating block.  Block (k tile, head,
+// batch); loops over the local q shard's tiles.  Scores are held
+// transposed: rows are keys (ty), columns queries (tx).
+// ---------------------------------------------------------------------
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+    ring_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dk, float* __restrict__ dv,
+                    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
+                    RingShape s) {
+  constexpr int kLd = DP + 4;
+  constexpr int kNc = DP / 64;
+  extern __shared__ float4 smem4[];
+  float* k_s = reinterpret_cast<float*>(smem4);
+  float* v_s = k_s + kTile * kLd;
+  float* q_s = v_s + kTile * kLd;
+  float* do_s = q_s + kTile * kLd;
+  float* pt_s = do_s + kTile * kLd;
+  float* dst_s = pt_s + kTile * kLdp;
+  float* lse_s = dst_s + kTile * kLdp;
+  float* delta_s = lse_s + kTile;
+  int* qpos_s = reinterpret_cast<int*>(delta_s + kTile);
+  int* red_s = qpos_s + kTile;  // [0, 1]: a q tile's max; [2, 3]: the k tile's min
+  const int ty = threadIdx.x >> 4;
+  const int tx = threadIdx.x & 15;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int k0 = blockIdx.x * kTile;
+  const long long q_row0 = ((long long)b * s.heads + h) * s.tq;
+  const long long k_row0 = ((long long)b * s.heads + h) * s.tk;
+  const T* q_bh = q + b * s.q_sb + h * s.q_sh;
+
+  load_tile<T, DP>(k_s, k + b * s.kv_sb + h * s.kv_sh, s.kv_st, k0, s.tk, s.d, 1.0f);
+  load_tile<T, DP>(v_s, v + b * s.kv_sb + h * s.kv_sh, s.kv_st, k0, s.tk, s.d, 1.0f);
+  int kp[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = k0 + ty + 16 * i;
+    kp[i] = t < s.tk ? k_pos[t] : 0;
+  }
+  tile_pos_extreme<true>(k_pos, k0, s.tk, red_s + 2, nullptr);
+  __syncthreads();
+  const int k_min = min(red_s[2], red_s[3]);
+
+  float dk_acc[4][kNc][4], dv_acc[4][kNc][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int n = 0; n < kNc; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dk_acc[i][n][e] = 0.0f;
+        dv_acc[i][n][e] = 0.0f;
+      }
+    }
+  }
+
+  const int n_q = n_tiles(s.tq);
+  for (int qb = 0; qb < n_q; ++qb) {
+    const int q0 = qb * kTile;
+    __syncthreads();
+    if (s.causal) {
+      tile_pos_extreme<false>(q_pos, q0, s.tq, red_s, qpos_s);
+      __syncthreads();
+      if (k_min > max(red_s[0], red_s[1])) continue;  // every query before every key
+    }
+    load_tile<T, DP>(q_s, q_bh, s.q_st, q0, s.tq, s.d, 1.0f);
+    load_tile<float, DP>(do_s, dout + q_row0 * s.d, s.d, q0, s.tq, s.d, 1.0f);
+    if (threadIdx.x < kTile) {
+      const int t = q0 + threadIdx.x;
+      lse_s[threadIdx.x] = t < s.tq ? lse[q_row0 + t] : 0.0f;
+      delta_s[threadIdx.x] = t < s.tq ? delta[q_row0 + t] : 0.0f;
+    }
+    __syncthreads();
+    float st[4][4], dpt[4][4];
+    dot_rows<DP, true>(k_s, q_s, st, s.scale);  // k . (q * scale)
+    dot_rows<DP, false>(v_s, do_s, dpt, 1.0f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = tx + 16 * j;
+        const bool masked = q0 + col >= s.tq || (s.causal && kp[i] > qpos_s[col]) ||
+                            below_half_neg_inf(lse_s[col]);
+        const float p = masked ? 0.0f : expf(st[i][j] - lse_s[col]);
+        pt_s[(ty + 16 * i) * kLdp + col] = p;
+        dst_s[(ty + 16 * i) * kLdp + col] = p * (dpt[i][j] - delta_s[col]);
+      }
+    }
+    __syncthreads();
+    acc_pv<DP>(pt_s, do_s, dv_acc);
+    acc_pv<DP>(dst_s, q_s, dk_acc);
+  }
+  store_rows<float, DP>(dk + k_row0 * s.d, s.d, k0, s.tk, s.d, dk_acc, s.scale);
+  store_rows<float, DP>(dv + k_row0 * s.d, s.d, k0, s.tk, s.d, dv_acc, 1.0f);
+}
+
+template <typename T, int DP>
+cudaError_t launch_ring_fwd(const void* q, const void* k, const void* v, float* acc,
+                            float* lse, const int* q_pos, const int* k_pos, int batch,
+                            const RingShape& s, cudaStream_t st) {
+  constexpr int bytes = fwd_smem_bytes<DP>() + kRingSmemInts * 4;
+  cudaError_t err = allow_smem(ring_fwd_kernel<T, DP>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s.tq + kTile - 1) / kTile, s.heads, batch);
+  ring_fwd_kernel<T, DP><<<grid, kThreads, bytes, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, acc, lse, q_pos, k_pos, s);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t launch_ring_dq(const void* q, const void* k, const void* v,
+                           const float* dout, const float* lse, const float* delta,
+                           float* dq, const int* q_pos, const int* k_pos, int batch,
+                           const RingShape& s, cudaStream_t st) {
+  constexpr int bytes = dq_smem_bytes<DP>() + kRingSmemInts * 4;
+  cudaError_t err = allow_smem(ring_dq_kernel<T, DP>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s.tq + kTile - 1) / kTile, s.heads, batch);
+  ring_dq_kernel<T, DP><<<grid, kThreads, bytes, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, dout, lse, delta, dq, q_pos, k_pos, s);
+  return cudaGetLastError();
+}
+
+template <typename T, int DP>
+cudaError_t launch_ring_dkv(const void* q, const void* k, const void* v,
+                            const float* dout, const float* lse, const float* delta,
+                            float* dk, float* dv, const int* q_pos, const int* k_pos,
+                            int batch, const RingShape& s, cudaStream_t st) {
+  constexpr int bytes = dkv_smem_bytes<DP>() + kRingSmemInts * 4;
+  cudaError_t err = allow_smem(ring_dkv_kernel<T, DP>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s.tk + kTile - 1) / kTile, s.heads, batch);
+  ring_dkv_kernel<T, DP><<<grid, kThreads, bytes, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, dout, lse, delta, dk, dv, q_pos, k_pos, s);
+  return cudaGetLastError();
+}
+
 // dtype: 0 = float32, 1 = bfloat16.  head_dim d <= 64 runs the DP=64
 // build, 64 < d <= 128 the DP=128 one (the wrapper checks d % 8 == 0).
 #define EDL_FLASH_DISPATCH(CALL)                                     \
@@ -622,6 +1062,52 @@ int edl_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
   const cudaStream_t st = (cudaStream_t)stream;
 #define EDL_CALL(T, DP) \
   launch_dkv<T, DP>(q, k, v, dout, lse, delta, dk, dv, batch, s, st)
+  EDL_FLASH_DISPATCH(EDL_CALL);
+#undef EDL_CALL
+}
+
+// The ring steps: q strides, then the K/V block's; t_len, which the
+// dispatch checks, is the shorter of Tq and Tk.
+int edl_ring_fwd(const void* q, const void* k, const void* v, float* acc, float* lse,
+                 const int* q_pos, const int* k_pos, int batch, int heads, int tq,
+                 int tk, int d, long long q_sb, long long q_st, long long q_sh,
+                 long long kv_sb, long long kv_st, long long kv_sh, float scale,
+                 int causal, int dtype, void* stream) {
+  const RingShape s{heads, tq, tk, d, q_sb, q_st, q_sh, kv_sb, kv_st, kv_sh, scale, causal};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int t_len = tq < tk ? tq : tk;
+#define EDL_CALL(T, DP) \
+  launch_ring_fwd<T, DP>(q, k, v, acc, lse, q_pos, k_pos, batch, s, st)
+  EDL_FLASH_DISPATCH(EDL_CALL);
+#undef EDL_CALL
+}
+
+int edl_ring_dq(const void* q, const void* k, const void* v, const float* dout,
+                const float* lse, const float* delta, float* dq, const int* q_pos,
+                const int* k_pos, int batch, int heads, int tq, int tk, int d,
+                long long q_sb, long long q_st, long long q_sh, long long kv_sb,
+                long long kv_st, long long kv_sh, float scale, int causal, int dtype,
+                void* stream) {
+  const RingShape s{heads, tq, tk, d, q_sb, q_st, q_sh, kv_sb, kv_st, kv_sh, scale, causal};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int t_len = tq < tk ? tq : tk;
+#define EDL_CALL(T, DP) \
+  launch_ring_dq<T, DP>(q, k, v, dout, lse, delta, dq, q_pos, k_pos, batch, s, st)
+  EDL_FLASH_DISPATCH(EDL_CALL);
+#undef EDL_CALL
+}
+
+int edl_ring_dkv(const void* q, const void* k, const void* v, const float* dout,
+                 const float* lse, const float* delta, float* dk, float* dv,
+                 const int* q_pos, const int* k_pos, int batch, int heads, int tq,
+                 int tk, int d, long long q_sb, long long q_st, long long q_sh,
+                 long long kv_sb, long long kv_st, long long kv_sh, float scale,
+                 int causal, int dtype, void* stream) {
+  const RingShape s{heads, tq, tk, d, q_sb, q_st, q_sh, kv_sb, kv_st, kv_sh, scale, causal};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int t_len = tq < tk ? tq : tk;
+#define EDL_CALL(T, DP) \
+  launch_ring_dkv<T, DP>(q, k, v, dout, lse, delta, dk, dv, q_pos, k_pos, batch, s, st)
   EDL_FLASH_DISPATCH(EDL_CALL);
 #undef EDL_CALL
 }

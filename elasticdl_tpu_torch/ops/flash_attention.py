@@ -1,12 +1,27 @@
-"""Flash attention: the port of the single-device Pallas kernels of
-``elasticdl_tpu/ops/flash_attention.py``.  Three kernels, each a
-hand-written CUDA kernel in ``csrc/flash_attention.cu``:
+"""Flash attention: the port of the Pallas kernels of
+``elasticdl_tpu/ops/flash_attention.py``.  Six kernels, each a
+hand-written CUDA kernel in ``csrc/flash_attention.cu``; three for one
+device:
 
 ``flash_attention_fwd``  K4, replaces ``_fwd_kernel``: online-softmax
                          attention; ``(out, lse)``.
 ``flash_attention_dq``   K5, replaces ``_dq_kernel``: dQ from q, k, v,
                          dO, lse and delta.
 ``flash_attention_dkv``  K6, replaces ``_dkv_kernel``: dK and dV.
+
+and three for one step of the context-parallel ring
+(``parallel/ring_attention.py``), with the JAX functions' signatures and
+their ``[B, H, T, D]`` layout, the causal mask read from position arrays:
+
+``flash_ring_step_carry``  K7, replaces ``_fwd_ring_carry_kernel``: the
+                           step's forward, combined in lse space with the
+                           ``(acc, lse)`` carry, which it updates in place.
+``flash_ring_step_dq``     K8, replaces ``_dq_ring_kernel``: the step's
+                           f32 dq contribution.
+``flash_ring_step_dkv``    K9, replaces ``_dkv_ring_kernel``: f32 dk and
+                           dv of the rotating block.
+
+``flash_ring_step_bwd`` is the JAX function of that name: K8 then K9.
 
 ``flash_attention`` is the public function, a ``torch.autograd.Function``
 with the JAX ``custom_vjp``'s split: the forward launches K4 and saves
@@ -42,6 +57,7 @@ import numpy as np
 import torch
 
 KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+RING_KERNELS = ("flash_ring_step_carry", "flash_ring_step_dq", "flash_ring_step_dkv")
 
 NEG_INF = -1e30
 #: The CUDA kernels' tile: BLOCK queries by BLOCK keys.
@@ -54,7 +70,7 @@ PLAIN_BWD_ROWS = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _launch_lock = threading.Lock()
-_launches: Dict[str, int] = {name: 0 for name in KERNELS}
+_launches: Dict[str, int] = {name: 0 for name in KERNELS + RING_KERNELS}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -95,15 +111,19 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             f"q, k, v must share one [B, T, H, D] shape, got {tuple(q.shape)}, "
             f"{tuple(k.shape)}, {tuple(v.shape)}"
         )
+    _check_dtypes_devices(q, k, v)
+
+
+def _check_dtypes_devices(q, k, v) -> None:
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v devices differ: {q.device}, {k.device}, {v.device}")
 
 
-def _kernel_inputs(q, k, v):
-    """Check what the CUDA kernels take; q, k, v with one set of strides
-    and a contiguous last dimension (copied only when they lack it)."""
+def _check_kernel_dtype(q) -> None:
+    """The kernels take bf16 or f32 and head_dim a multiple of 8 up to
+    MAX_HEAD_DIM."""
     d = q.shape[-1]
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"the flash-attention kernels take bfloat16 or float32, got {q.dtype}")
@@ -112,6 +132,12 @@ def _kernel_inputs(q, k, v):
             f"the flash-attention kernels take head_dim a multiple of 8 up to "
             f"{MAX_HEAD_DIM}, got {d}"
         )
+
+
+def _kernel_inputs(q, k, v):
+    """Check what the CUDA kernels take; q, k, v with one set of strides
+    and a contiguous last dimension (copied only when they lack it)."""
+    _check_kernel_dtype(q)
     if not (q.stride() == k.stride() == v.stride()) or q.stride(-1) != 1:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return q, k, v
@@ -368,3 +394,282 @@ def flash_attention(
                          f"got block_q={block_q}")
     scale = default_scale(q.shape[-1]) if scale is None else float(np.float32(scale))
     return _FlashAttention.apply(q, k, v, scale, bool(causal), block_k)
+
+
+# ----------------------------------------------------------------------
+# K7-K9: one step of the context-parallel ring
+# ----------------------------------------------------------------------
+#
+# The JAX functions' layout: q [B, H, Tq, D], the rotating K/V block [B,
+# H, Tk, D], the carry acc [B, H, Tq, D] f32 and lse [B, H, Tq, 1] f32,
+# the global positions q_pos [Tq] and k_pos [Tk] (causal: k_pos > q_pos
+# is masked).  The plain versions repeat the Pallas ring kernels'
+# arithmetic step by step: q upcast and scaled in f32 before Q K^T, the
+# masked scores NEG_INF, the online softmax with its max clamped where a
+# row has seen only masked keys, P rounded to v's dtype before P V (over
+# key blocks of ``block_k``, as the CUDA kernel blocks them by BLOCK),
+# the lse-space combine in the JAX order, and an f32 backward from the
+# final lse and delta with dq and dk scaled at the end.
+
+
+def _half_neg_inf(x: torch.Tensor) -> torch.Tensor:
+    return x <= NEG_INF / 2
+
+
+def _logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.logaddexp``'s formula: max + log1p(exp(-|a - b|))."""
+    return torch.maximum(a, b) + torch.log1p(torch.exp(-(a - b).abs()))
+
+
+def _check_ring(q, k_blk, v_blk) -> None:
+    if q.dim() != 4 or k_blk.dim() != 4 or k_blk.shape != v_blk.shape:
+        raise ValueError(
+            f"q, k_blk, v_blk must be [B, H, T, D] with one K/V shape, got "
+            f"{tuple(q.shape)}, {tuple(k_blk.shape)}, {tuple(v_blk.shape)}"
+        )
+    b, h, _, d = q.shape
+    if (k_blk.shape[0], k_blk.shape[1], k_blk.shape[3]) != (b, h, d):
+        raise ValueError(f"q {tuple(q.shape)} and the K/V block {tuple(k_blk.shape)} differ "
+                         f"outside the sequence dimension")
+    _check_dtypes_devices(q, k_blk, v_blk)
+
+
+def _positions(pos, n: int, device: torch.device, name: str) -> torch.Tensor:
+    """Global positions as a contiguous int32 ``[n]`` tensor on ``device``."""
+    pos = pos if isinstance(pos, torch.Tensor) else torch.from_numpy(np.array(pos))
+    if tuple(pos.shape) != (n,):
+        raise ValueError(f"{name} must be [{n}], got {tuple(pos.shape)}")
+    return pos.to(device=device, dtype=torch.int32).contiguous()
+
+
+def _rows(x: torch.Tensor, q: torch.Tensor, name: str) -> torch.Tensor:
+    """lse/delta as f32 ``[B, H, Tq]`` (the JAX ``[B, H, Tq, 1]`` accepted)."""
+    b, h, tq, _ = q.shape
+    if x.dtype != torch.float32 or tuple(x.shape) not in ((b, h, tq), (b, h, tq, 1)):
+        raise ValueError(f"{name} must be float32 [B, H, Tq(, 1)] = {(b, h, tq)}, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.device != q.device:
+        raise ValueError(f"{name} on {x.device} but q on {q.device}")
+    return x.reshape(b, h, tq)
+
+
+def _ring_kernel_inputs(q, k, v):
+    """What the ring kernels take: bf16 or f32, head_dim a multiple of 8
+    up to MAX_HEAD_DIM, a contiguous last dimension and one set of K/V
+    strides (copied only when missing)."""
+    _check_kernel_dtype(q)
+    if q.stride(-1) != 1:
+        q = q.contiguous()
+    if k.stride() != v.stride() or k.stride(-1) != 1:
+        k, v = k.contiguous(), v.contiguous()
+    return q, k, v
+
+
+def _check_tiles(block_q: int, block_k: int) -> None:
+    if block_q != BLOCK or block_k != BLOCK:
+        raise ValueError(f"the ring-step kernels are built for {BLOCK}-wide tiles, got "
+                         f"block_q={block_q}, block_k={block_k}")
+
+
+def _ring_shape_args(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool):
+    b, h, tq, d = q.shape
+    q_sb, q_sh, q_st, _ = q.stride()
+    kv_sb, kv_sh, kv_st, _ = k.stride()
+    return (b, h, tq, k.shape[2], d, q_sb, q_st, q_sh, kv_sb, kv_st, kv_sh,
+            float(np.float32(scale)), int(bool(causal)), _DTYPE_CODE[q.dtype], _stream())
+
+
+def flash_ring_step_carry_plain(q, k_blk, v_blk, acc, lse, q_pos, k_pos, *, causal, scale,
+                                block_k: int = BLOCK):
+    """Plain PyTorch version of K7: ``(acc, lse)`` updated in place and
+    returned.  A row that sees no key keeps its carry (the Pallas
+    formulas give it back there)."""
+    b, h, tq, d = q.shape
+    scale = float(np.float32(scale))
+    qs = q.to(torch.float32) * scale
+    kf = k_blk.to(torch.float32)
+    m = torch.full((b, h, tq, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, tq, 1), dtype=torch.float32, device=q.device)
+    o = torch.zeros((b, h, tq, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, k_blk.shape[2], block_k):
+        k1 = min(k_blk.shape[2], k0 + block_k)
+        s = torch.matmul(qs, kf[:, :, k0:k1].transpose(-1, -2))
+        if causal:
+            s = torch.where(k_pos[k0:k1][None, :] > q_pos[:, None], NEG_INF, s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        safe_m = torch.where(_half_neg_inf(m_new), 0.0, m_new)
+        p = torch.exp(s - safe_m)
+        if causal:
+            p = torch.where(_half_neg_inf(s), 0.0, p)
+        correction = torch.where(_half_neg_inf(m), 0.0, torch.exp(m - safe_m))
+        l = l * correction + p.sum(-1, keepdim=True)
+        pv = torch.matmul(p.to(v_blk.dtype).to(torch.float32),
+                          v_blk[:, :, k0:k1].to(torch.float32))
+        o = o * correction + pv
+        m = m_new
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o_i = o / l_safe
+    lse_i = torch.where(l == 0.0, NEG_INF,
+                        torch.where(_half_neg_inf(m), 0.0, m) + torch.log(l_safe))
+    lse_c = lse.reshape(b, h, tq, 1)
+    lse_new = _logaddexp(lse_c, lse_i)
+    safe = torch.where(_half_neg_inf(lse_new), 0.0, lse_new)
+    alpha = torch.exp(torch.where(_half_neg_inf(lse_c), NEG_INF, lse_c) - safe)
+    beta = torch.exp(torch.where(_half_neg_inf(lse_i), NEG_INF, lse_i) - safe)
+    seen = l != 0.0
+    acc.copy_(torch.where(seen, acc * alpha + o_i * beta, acc))
+    lse.copy_(torch.where(seen, lse_new, lse_c).reshape(lse.shape))
+    return acc, lse
+
+
+def flash_ring_step_carry(q, k_blk, v_blk, acc, lse, q_pos, k_pos, *, causal, scale,
+                          block_q: int = BLOCK, block_k: int = BLOCK):
+    """K7: one ring step with the combine fused; the carry ``acc`` [B, H,
+    Tq, D] f32 and ``lse`` [B, H, Tq, 1] f32 are updated in place and
+    returned (the JAX function aliases them to its outputs).  On the
+    card the kernel's tile is ``BLOCK``."""
+    _check_ring(q, k_blk, v_blk)
+    b, h, tq, d = q.shape
+    if acc.dtype != torch.float32 or tuple(acc.shape) != (b, h, tq, d):
+        raise ValueError(f"acc must be float32 {(b, h, tq, d)}, got {acc.dtype} "
+                         f"{tuple(acc.shape)}")
+    _rows(lse, q, "lse")
+    q_pos = _positions(q_pos, tq, q.device, "q_pos")
+    k_pos = _positions(k_pos, k_blk.shape[2], q.device, "k_pos")
+    if _route(q) == "plain":
+        return flash_ring_step_carry_plain(q, k_blk, v_blk, acc, lse, q_pos, k_pos,
+                                           causal=causal, scale=scale, block_k=block_k)
+    _check_tiles(block_q, block_k)
+    if acc.device != q.device or not (acc.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("the ring-step forward updates acc and lse in place: they must be "
+                         "contiguous and on q's device")
+    q, k_blk, v_blk = _ring_kernel_inputs(q, k_blk, v_blk)
+    if acc.numel() and k_blk.shape[2]:
+        with torch.cuda.device(q.device):
+            _launch("flash_ring_step_carry", "edl_ring_fwd", q.data_ptr(), k_blk.data_ptr(),
+                    v_blk.data_ptr(), acc.data_ptr(), lse.data_ptr(), q_pos.data_ptr(),
+                    k_pos.data_ptr(), *_ring_shape_args(q, k_blk, scale, causal))
+    return acc, lse
+
+
+def _ring_bwd_rows(q, k, v, do, lse, delta, q_pos, k_pos, scale, causal, r0, r1):
+    """P and dS of query rows [r0, r1) against the block, f32 [B, H, rows,
+    Tk]: s = (q * scale) . k; P = exp(s - lse), 0 where the key is masked
+    or the row's final lse is NEG_INF (a row that saw no key in the whole
+    ring, where the Pallas formula's exp(NEG_INF - NEG_INF) would give 1;
+    K8 and K9 give 0 there too); dS = P * (dO . v - delta)."""
+    qs = q[:, :, r0:r1].to(torch.float32) * float(np.float32(scale))
+    s = torch.matmul(qs, k.to(torch.float32).transpose(-1, -2))
+    row_lse = lse[:, :, r0:r1, None]
+    p = torch.exp(s - row_lse)
+    dead = _half_neg_inf(row_lse)
+    if causal:
+        dead = dead | (k_pos[None, :] > q_pos[r0:r1, None])
+    p = torch.where(dead, 0.0, p)
+    dp = torch.matmul(do[:, :, r0:r1].to(torch.float32),
+                      v.to(torch.float32).transpose(-1, -2))
+    return p, p * (dp - delta[:, :, r0:r1, None])
+
+
+def flash_ring_step_dq_plain(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal, scale,
+                             rows: int = PLAIN_BWD_ROWS) -> torch.Tensor:
+    """Plain PyTorch version of K8: ``dq = scale * dS K``, f32 [B, H, Tq,
+    D]; ``lse``/``delta`` are f32 [B, H, Tq]."""
+    tq = q.shape[2]
+    kf = k_blk.to(torch.float32)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for r0 in range(0, tq, rows):
+        r1 = min(tq, r0 + rows)
+        _, ds = _ring_bwd_rows(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, scale, causal,
+                               r0, r1)
+        dq[:, :, r0:r1] = torch.matmul(ds, kf) * float(np.float32(scale))
+    return dq
+
+
+def flash_ring_step_dkv_plain(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal, scale,
+                              rows: int = PLAIN_BWD_ROWS):
+    """Plain PyTorch version of K9: ``dk = scale * dS^T Q`` and ``dv =
+    P^T dO``, f32 [B, H, Tk, D]."""
+    tq = q.shape[2]
+    dk = torch.zeros(k_blk.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(k_blk.shape, dtype=torch.float32, device=q.device)
+    for r0 in range(0, tq, rows):
+        r1 = min(tq, r0 + rows)
+        p, ds = _ring_bwd_rows(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, scale, causal,
+                               r0, r1)
+        dv += torch.matmul(p.transpose(-1, -2), do[:, :, r0:r1].to(torch.float32))
+        dk += torch.matmul(ds.transpose(-1, -2), q[:, :, r0:r1].to(torch.float32))
+    return dk * float(np.float32(scale)), dv
+
+
+def _ring_bwd_inputs(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos):
+    _check_ring(q, k_blk, v_blk)
+    if tuple(do.shape) != tuple(q.shape) or do.device != q.device:
+        raise ValueError(f"do must be {tuple(q.shape)} on {q.device}, got {tuple(do.shape)} "
+                         f"on {do.device}")
+    return (_rows(lse, q, "lse"), _rows(delta, q, "delta"),
+            _positions(q_pos, q.shape[2], q.device, "q_pos"),
+            _positions(k_pos, k_blk.shape[2], q.device, "k_pos"))
+
+
+def flash_ring_step_dq(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal, scale,
+                       block_q: int = BLOCK, block_k: int = BLOCK) -> torch.Tensor:
+    """K8: the step's dq contribution, f32 [B, H, Tq, D], from the FINAL
+    ring-combined ``lse`` and ``delta``."""
+    lse, delta, q_pos, k_pos = _ring_bwd_inputs(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos)
+    if _route(q) == "plain":
+        return flash_ring_step_dq_plain(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos,
+                                        causal=causal, scale=scale)
+    _check_tiles(block_q, block_k)
+    q, k_blk, v_blk = _ring_kernel_inputs(q, k_blk, v_blk)
+    do = do.to(torch.float32).contiguous()
+    lse, delta = lse.contiguous(), delta.contiguous()
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    if dq.numel() and k_blk.shape[2]:
+        with torch.cuda.device(q.device):
+            _launch("flash_ring_step_dq", "edl_ring_dq", q.data_ptr(), k_blk.data_ptr(),
+                    v_blk.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dq.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+                    *_ring_shape_args(q, k_blk, scale, causal))
+    return dq
+
+
+def flash_ring_step_dkv(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal, scale,
+                        block_q: int = BLOCK, block_k: int = BLOCK):
+    """K9: ``(dk, dv)`` of the rotating block, each f32 [B, H, Tk, D]."""
+    lse, delta, q_pos, k_pos = _ring_bwd_inputs(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos)
+    if _route(q) == "plain":
+        return flash_ring_step_dkv_plain(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos,
+                                         causal=causal, scale=scale)
+    _check_tiles(block_q, block_k)
+    q, k_blk, v_blk = _ring_kernel_inputs(q, k_blk, v_blk)
+    do = do.to(torch.float32).contiguous()
+    lse, delta = lse.contiguous(), delta.contiguous()
+    dk = torch.zeros(k_blk.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(k_blk.shape, dtype=torch.float32, device=q.device)
+    if dk.numel() and q.shape[2]:
+        with torch.cuda.device(q.device):
+            _launch("flash_ring_step_dkv", "edl_ring_dkv", q.data_ptr(), k_blk.data_ptr(),
+                    v_blk.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+                    *_ring_shape_args(q, k_blk, scale, causal))
+    return dk, dv
+
+
+def flash_ring_step_bwd(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal, scale,
+                        block_q: int = BLOCK, block_k: int = BLOCK):
+    """The JAX ``flash_ring_step_bwd``: one step's ``(dq [B, H, Tq, D],
+    dk, dv [B, H, Tk, D])``, all f32, by K8 then K9."""
+    kw = dict(causal=causal, scale=scale, block_q=block_q, block_k=block_k)
+    dq = flash_ring_step_dq(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, **kw)
+    return (dq, *flash_ring_step_dkv(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, **kw))
+
+
+def flash_ring_step_bwd_plain(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal, scale,
+                              block_q: int = BLOCK, block_k: int = BLOCK):
+    """Plain PyTorch version of the whole step backward (K8 and K9)."""
+    lse, delta, q_pos, k_pos = _ring_bwd_inputs(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos)
+    dq = flash_ring_step_dq_plain(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos,
+                                  causal=causal, scale=scale)
+    return (dq, *flash_ring_step_dkv_plain(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos,
+                                           causal=causal, scale=scale))

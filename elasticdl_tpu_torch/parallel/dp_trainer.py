@@ -1,39 +1,52 @@
-"""Data-parallel trainer on one card: the port of ``DataParallelTrainer``
+"""Data-parallel trainer: the port of ``DataParallelTrainer``
 (``elasticdl_tpu/parallel/dp_trainer.py``), the AllReduce strategy's
 trainer, which trains the transformer LM.
 
-On one card there is nothing to reduce: the model's ``nn.Parameter``s
-are the dense params, updated in place by a dense optimizer
-(``parallel/optim.py``; the LM's is AdamW).  The loss is the mask-weighted
-mean of the per-example loss (``per_example_loss_fn``), so padded rows
-contribute nothing, as in JAX.
+On one card, or on an in-process mesh (``parallel.mesh.virtual_devices``,
+whose slots share the card), there is nothing to reduce: the model's
+``nn.Parameter``s are the dense params, updated in place by a dense
+optimizer (``parallel/optim.py``; the LM's is AdamW), and a model built
+with the mesh runs its ring attention inside the step.  The loss is the
+mask-weighted mean of the per-example loss (``per_example_loss_fn``), so
+padded rows contribute nothing, as in JAX.
+
+On a process mesh (one rank per card, or gloo processes on the CPU)
+every rank takes the global batch and:
+
+1. pads it to the data axis with a mask (JAX ``sharding.pad_batch``);
+2. takes the rows of its data index and, when the model's ``model`` axis
+   carries the sequence, the positions of its model index
+   (``model.sequence_positions``);
+3. computes its share of the loss: its per-example losses (means over
+   its tokens) times its share of the tokens, mask-weighted, over the
+   global mask count, so the sum over ranks is JAX's global mean;
+4. all-reduces the gradients with SUM over the world (one flat buffer);
+5. applies the same AdamW; parameters stay replicated and identical.
 
 A step is three parts, each its own method so a caller can time them
 (``chip_smoke.py`` does, with CUDA events): ``forward`` (the model and
-the loss), ``backward`` (the dense gradients) and ``dense_update``.  The
-JAX ``train_window`` is a ``lax.scan`` over K steps in one program; here
-it is a Python loop over the staged batches.
+the loss), ``backward`` (the dense gradients, reduced on a process
+mesh) and ``dense_update``.  The JAX ``train_window`` is a ``lax.scan``
+over K steps in one program; here it is a Python loop over the staged
+batches.
 
-Not ported yet: a mesh of more than one device and
-``dense_sharding="fsdp"`` (multi-card, ROADMAP Queue 1) raise
-``NotImplementedError``; checkpoint save/restore is not ported;
-``model_state`` collections are empty (the transformer has none).
+Not ported yet: ``dense_sharding="fsdp"`` raises
+``NotImplementedError`` (ROADMAP Queue 1 item 5); checkpoint
+save/restore is not ported; ``model_state`` collections are empty (the
+transformer has none).
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from elasticdl_tpu_torch.common.device import (
-    MULTI_CARD_ITEM,
-    DeviceLike,
-    require_one_device,
-    resolve_device,
-)
+from elasticdl_tpu_torch.common.device import FSDP_ITEM, DeviceLike, resolve_device
+from elasticdl_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, resolve_mesh
 
 logger = logging.getLogger("elasticdl_tpu_torch.parallel.dp_trainer")
 
@@ -72,6 +85,34 @@ def clone_tree(tree):
     return tree.detach().clone()
 
 
+def pad_batch(tree, multiple: int) -> Tuple[Any, np.ndarray]:
+    """JAX ``sharding.pad_batch``: every array's leading dim up to a
+    multiple of ``multiple``, the padding rows repeating row 0 (an empty
+    batch pads with zeros); -> ``(tree, mask)``, the mask 1 for real
+    rows."""
+    if isinstance(tree, dict):
+        padded = {k: pad_batch(v, multiple)[0] for k, v in tree.items()}
+        return padded, pad_batch(next(iter(tree.values())), multiple)[1]
+    x = np.asarray(tree)
+    batch = x.shape[0]
+    rows = -(-batch // multiple) * multiple if batch else multiple
+    mask = np.ones((rows,), np.float32)
+    mask[batch:] = 0.0
+    if rows == batch:
+        return x, mask
+    if batch == 0:
+        return np.zeros((rows,) + x.shape[1:], x.dtype), mask
+    return np.concatenate([x, np.repeat(x[:1], rows - batch, axis=0)]), mask
+
+
+def _take(tree, rows, positions=None):
+    """Rows (and sequence positions) of every array of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: _take(v, rows, positions) for k, v in tree.items()}
+    x = tree[rows]
+    return x if positions is None else x[:, positions]
+
+
 @torch.no_grad()
 def copy_tree(dst, src) -> None:
     """Copy a state tree (tensors or numpy leaves) into ``dst``'s own
@@ -89,7 +130,8 @@ def copy_tree(dst, src) -> None:
 
 class DataParallelTrainer:
     """Dense trainer on one CUDA card (``device=None``) or, for the tests,
-    on the CPU (``device="cpu"``)."""
+    on the CPU (``device="cpu"``); over a ``parallel.mesh.Mesh`` it runs
+    on the mesh's device."""
 
     def __init__(
         self,
@@ -107,10 +149,24 @@ class DataParallelTrainer:
             )
         if dense_sharding == "fsdp":
             raise NotImplementedError(
-                f"dense_sharding='fsdp' shards the state over cards: {MULTI_CARD_ITEM}"
+                f"dense_sharding='fsdp' shards the state over cards: {FSDP_ITEM}"
             )
-        require_one_device(mesh, "the port's DataParallelTrainer")
-        self.device = resolve_device(device)
+        self._mesh = resolve_mesh(mesh, "the port's DataParallelTrainer")
+        # A process mesh: this rank holds a share of the batch (and of the
+        # sequence) and the gradients are reduced over the world.
+        self._world = self._mesh is not None and not self._mesh.in_process
+        if self._mesh is None:
+            self.device = resolve_device(device)
+        else:
+            if device is not None and torch.device(device) != self._mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {self._mesh.device}")
+            self.device = self._mesh.device
+            if self._world and self._mesh.shape[MODEL_AXIS] > 1 \
+                    and getattr(model, "mesh", None) is not self._mesh:
+                raise ValueError(
+                    "the mesh's model axis shards the sequence: build the model over the "
+                    "same mesh (custom_model(..., mesh=mesh))"
+                )
         self._model = model.to(self.device)
         self._loss_fn = loss_fn
         self._per_example_loss = per_example_loss_fn(loss_fn)
@@ -126,6 +182,10 @@ class DataParallelTrainer:
     @property
     def model(self) -> torch.nn.Module:
         return self._model
+
+    @property
+    def mesh(self):
+        return self._mesh
 
     @property
     def step(self) -> int:
@@ -164,6 +224,8 @@ class DataParallelTrainer:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(self._seed)
             self._model.init_parameters(generator)
+            if self._world:  # one seed gives one init; rank 0's is the state
+                self._reduce_flat(self._params.values(), broadcast=True)
         self._opt_state = self._tx.init(self._params)
         if self._pending_restore is not None:
             restore, self._pending_restore = self._pending_restore, None
@@ -174,21 +236,49 @@ class DataParallelTrainer:
 
     # -- the three parts of a step --------------------------------------
 
-    def forward(self, features, labels, mask) -> torch.Tensor:
-        """The model and the mask-weighted mean of the per-example loss."""
+    def forward(self, features, labels, mask, positions=None, denominator=None,
+                token_share: float = 1.0) -> torch.Tensor:
+        """The model and the mask-weighted mean of the per-example loss.
+        On a process mesh (``stage_batch`` supplies the rest): this
+        rank's tokens at ``positions``, and its share of the global mean,
+        over the global mask count ``denominator``."""
         self._model.train()
-        outputs = self._model(features)
+        if positions is None:
+            outputs = self._model(features)
+        else:
+            outputs = self._model(features, positions=positions)
         losses = self._per_example_loss(labels, outputs)
-        return torch.sum(losses * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        if denominator is None:
+            return torch.sum(losses * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        return torch.sum(losses * mask) * token_share / denominator
 
     def backward(self, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """-> ``{parameter name: gradient}`` (zeros where unused)."""
+        """-> ``{parameter name: gradient}`` (zeros where unused), summed
+        over the world on a process mesh."""
         names = list(self._params)
         grads = torch.autograd.grad(loss, [self._params[n] for n in names], allow_unused=True)
-        return {
+        grads = {
             n: g if g is not None else torch.zeros_like(self._params[n])
             for n, g in zip(names, grads)
         }
+        if self._world:
+            self._reduce_flat(grads.values())
+        return grads
+
+    @torch.no_grad()
+    def _reduce_flat(self, tensors, broadcast: bool = False) -> None:
+        """All-reduce (SUM over the world) or broadcast from rank 0 the
+        f32 ``tensors`` in place, through one flat buffer."""
+        tensors = list(tensors)
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        if broadcast:
+            dist.broadcast(flat, src=0)
+        else:
+            dist.all_reduce(flat)
+        offset = 0
+        for t in tensors:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
 
     def dense_update(self, grads: Dict[str, torch.Tensor]) -> None:
         self._tx.apply(self._params, grads, self._opt_state)
@@ -196,11 +286,40 @@ class DataParallelTrainer:
     # -- host-side entry points -----------------------------------------
 
     def stage_batch(self, features, labels, mask):
-        """One batch onto the trainer's device."""
+        """One batch onto the trainer's device; on a process mesh, this
+        rank's share of the global batch with what ``forward`` needs to
+        weigh it."""
+        if self._world:
+            feats, labels, mask, positions, denominator, share = self._local_batch(
+                features, labels, mask)
+            return (to_device(feats, self.device), to_device(labels, self.device),
+                    to_device(mask, self.device), None if positions is None
+                    else to_device(positions, self.device), denominator, share)
         if not isinstance(mask, torch.Tensor):
             mask = np.asarray(mask, np.float32)
         return (to_device(features, self.device), to_device(labels, self.device),
                 to_device(mask, self.device).to(torch.float32))
+
+    def _local_batch(self, features, labels, mask):
+        """A process mesh: the global batch padded to the data axis, then
+        this rank's rows and, when the sequence is sharded, its positions;
+        the global mask count and this rank's share of the tokens."""
+        data = self._mesh.shape[DATA_AXIS]
+        features, pad_mask = pad_batch(features, data)
+        mask = np.concatenate([np.asarray(mask, np.float32),
+                               np.zeros(len(pad_mask) - len(mask), np.float32)])
+        rows = len(mask) // data
+        mine = slice(self._mesh.data_index * rows, (self._mesh.data_index + 1) * rows)
+        seq_len = _seq_len(features)
+        positions = self._sequence_positions(seq_len)
+        share = 1.0 if positions is None else len(positions) / seq_len
+        labels = None if labels is None else _take(pad_batch(labels, data)[0], mine, positions)
+        return (_take(features, mine, positions), labels, mask[mine], positions,
+                float(max(mask.sum(), 1.0)), share)
+
+    def _sequence_positions(self, seq_len: int, index: Optional[int] = None):
+        fn = getattr(self._model, "sequence_positions", None)
+        return None if fn is None else fn(seq_len, index)
 
     def train_step(self, features, labels):
         # One card holds the whole batch: no padding rows, an all-ones
@@ -218,11 +337,18 @@ class DataParallelTrainer:
         loss = self.forward(*staged)
         self.dense_update(self.backward(loss))
         self._step += 1
-        return loss.detach()
+        loss = loss.detach()
+        if self._world:  # the global loss: every rank's share, summed
+            loss = loss.clone()
+            dist.all_reduce(loss)
+        return loss
 
     def stage_window(self, batches):
         """K ``(features, labels, mask)`` batches of one shape -> stacked
-        ``[K, batch, ...]`` tensors on the device."""
+        ``[K, batch, ...]`` tensors on the device (on a process mesh, the
+        K staged shares)."""
+        if self._world:
+            return [self.stage_batch(*b) for b in batches]
         return self.stage_batch(*(
             np.stack([np.asarray(b[i]) for b in batches]) for i in range(3)
         ))
@@ -231,6 +357,8 @@ class DataParallelTrainer:
         """Run every batch of a staged window; returns the ``[K]`` losses."""
         if self._opt_state is None:
             self.ensure_initialized()
+        if self._world:
+            return torch.stack([self.train_step_staged(staged) for staged in window])
         feats, labels, masks = window
         return torch.stack([
             self.train_step_staged((feats[k], labels[k], masks[k]))
@@ -239,13 +367,29 @@ class DataParallelTrainer:
 
     @torch.no_grad()
     def eval_step(self, features) -> np.ndarray:
+        """The model's outputs on the global ``features``; on a process
+        mesh every rank computes its share and the outputs are gathered
+        (a collective)."""
         self.ensure_initialized(features)
         self._model.eval()
         try:
+            if self._world:
+                return self._eval_world(features)
             out = self._model(to_device(features, self.device))
         finally:
             self._model.train()
         return out.cpu().numpy()
+
+    def _eval_world(self, features) -> np.ndarray:
+        n = len(np.asarray(features))
+        feats, _, _, positions, _, _ = self._local_batch(features, None, np.ones(n))
+        feats = to_device(feats, self.device)
+        out = self._model(feats) if positions is None else self._model(
+            feats, positions=to_device(positions, self.device))
+        seq_len = _seq_len(features)
+        full = self._mesh.gather_sequence(
+            out, seq_len, lambda index: self._sequence_positions(seq_len, index))
+        return full[:n].cpu().numpy()
 
     def state_to_host(self) -> Optional[DPTrainState]:
         """Host snapshot: the state with numpy leaves."""
@@ -266,3 +410,8 @@ class DataParallelTrainer:
         if self._opt_state is None:
             return {}
         return convert.flat_jax_variables(self._model)
+
+
+def _seq_len(features) -> int:
+    first = next(iter(features.values())) if isinstance(features, dict) else features
+    return int(np.asarray(first).shape[1])

@@ -21,8 +21,9 @@ a capture, the mask-weighted mean of the per-example loss), ``backward``
 (dense and sparse gradients), ``dense_update`` and ``sparse_apply``.
 
 Not ported yet: multi-card placement (``mesh`` must be None or one
-device), checkpoint save/restore, ``model_state`` collections (DeepFM
-has none).  ``sparse_kernel`` is accepted and selects nothing: on the
+device; the sharded K1-K3 dispatch is ROADMAP Queue 1 item 5),
+checkpoint save/restore, ``model_state`` collections (DeepFM has
+none).  ``sparse_kernel`` is accepted and selects nothing: on the
 card every sparse op is its kernel.
 """
 
@@ -34,7 +35,12 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from elasticdl_tpu_torch.common.device import DeviceLike, resolve_device
+from elasticdl_tpu_torch.common.device import (
+    SPARSE_DISPATCH_ITEM,
+    DeviceLike,
+    require_one_device,
+    resolve_device,
+)
 from elasticdl_tpu_torch.layers import embedding as emb
 from elasticdl_tpu_torch.parallel import sparse_optim
 from elasticdl_tpu_torch.parallel.dp_trainer import (
@@ -63,17 +69,6 @@ class PSTrainState(NamedTuple):
     slots: Dict[str, Dict[str, Any]]       # table key -> sparse slots
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is None or isinstance(mesh, (str, torch.device)):
-        return
-    devices = getattr(mesh, "devices", mesh)
-    if int(np.size(np.asarray(devices, dtype=object))) != 1:
-        raise ValueError(
-            "the port's ShardedEmbeddingTrainer runs on one card: mesh must "
-            "be None or hold one device (multi-card routing is not ported)"
-        )
-
-
 def clone_state(state: PSTrainState) -> PSTrainState:
     """A deep copy of a state's tensors (on their device)."""
     return PSTrainState(state.step, clone_tree(state.params), clone_tree(state.opt_state),
@@ -97,7 +92,8 @@ class ShardedEmbeddingTrainer:
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
-        _check_mesh(mesh)
+        require_one_device(mesh, "the port's ShardedEmbeddingTrainer",
+                           SPARSE_DISPATCH_ITEM)
         if sparse_kernel not in _SPARSE_KERNELS:
             raise ValueError(f"sparse_kernel must be one of {_SPARSE_KERNELS}, got {sparse_kernel!r}")
         self._model = model.to(self.device)

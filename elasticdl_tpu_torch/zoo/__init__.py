@@ -46,7 +46,8 @@ def resolve(model_def: str) -> ModuleType:
 def build_model(model_def: str, model_params: Union[str, dict], device=None):
     """Build the port's module for an artifact's ``model_def`` and
     ``model_params`` on ``device`` (None: the CUDA card, raising without
-    one; weights uninitialised)."""
+    one, or the device of a ``mesh`` in the params; weights
+    uninitialised)."""
     module = resolve(model_def)
     params = (
         parse_dict_params(model_params)
@@ -57,4 +58,6 @@ def build_model(model_def: str, model_params: Union[str, dict], device=None):
     for name, value in SERVING_FLAG_DEFAULTS.items():
         if name in accepted and name not in params:
             params[name] = value
+    if device is None and params.get("mesh") is not None:
+        return module.custom_model(**params)  # on the mesh's device
     return module.custom_model(**params, device=resolve_device(device))

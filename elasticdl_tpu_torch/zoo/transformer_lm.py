@@ -21,12 +21,26 @@ bf16 before adding the bias.  LayerNorm takes its statistics in f32
 GELU is the tanh approximation.  The LM head is f32 (``f32 x f32``) and
 the loss runs on f32 logits.
 
+Context parallelism (JAX ``:107-168``): built with a
+``parallel.mesh.Mesh`` whose ``model`` axis is larger than 1 and
+``model_axis_mode="cp"``, attention runs as ring attention over that axis
+(``parallel/ring_attention.py``: K7 forward, K8 and K9 backward).
+
+- On an in-process mesh the model takes the whole sequence; with
+  ``cp_layout="zigzag"`` it permutes x into the zigzag layout before
+  ``qkv`` and the attention output back after it, as JAX does.
+- On a process mesh each rank takes its own tokens and their global
+  positions, ``forward(tokens, positions)`` (``sequence_positions`` gives
+  them; ``Embed_1`` reads them), so the layouts differ only in which
+  positions a rank holds and nothing is permuted.
+
 The model-zoo contract of the JAX module: ``custom_model``, ``loss``
 (mean next-token cross entropy), ``optimizer`` (AdamW 3e-3, weight decay
 0.01), ``eval_metrics_fn`` and ``custom_data_reader``
-(``synthetic://lm?...``).  What needs more than one card (a mesh of more
-than one device, so context or tensor parallelism) or is not ported yet
-(``logits_compute="bf16"``) raises ``NotImplementedError``.
+(``synthetic://lm?...``).  What is not ported yet raises
+``NotImplementedError``: ``model_axis_mode="tp"`` over a mesh, a mesh
+that is not a ``Mesh`` and holds more than one device, and
+``logits_compute="bf16"``.
 """
 
 from __future__ import annotations
@@ -40,10 +54,16 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from elasticdl_tpu_torch.common.device import require_one_device, resolve_device
+from elasticdl_tpu_torch.common.device import TENSOR_PARALLEL_ITEM, resolve_device
 from elasticdl_tpu_torch.data.synthetic import parse_synthetic_path, synthetic_lm_arrays
 from elasticdl_tpu_torch.ops.flash_attention import flash_attention
 from elasticdl_tpu_torch.parallel import optim
+from elasticdl_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, resolve_mesh
+from elasticdl_tpu_torch.parallel.ring_attention import (
+    make_ring_attention,
+    shard_positions,
+    zigzag_orders,
+)
 from elasticdl_tpu_torch.zoo.deepfm import DenseGeneral, lecun_normal_
 
 VOCAB = 256
@@ -125,18 +145,42 @@ class LayerNorm(nn.LayerNorm):
         nn.init.zeros_(self.bias)
 
 
+def cp_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """``mesh`` when its ``model`` axis carries the sequence, else None."""
+    return mesh if mesh is not None and mesh.shape[MODEL_AXIS] > 1 else None
+
+
 class CausalSelfAttention(nn.Module):
-    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype, device=None):
+    def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype, device=None,
+                 mesh: Optional[Mesh] = None, cp_layout: str = "contiguous"):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} is not a multiple of num_heads {num_heads}")
         self.qkv = QKVDense(d_model, num_heads, dtype, device)
         self.proj = Dense(d_model, d_model, dtype, device)
+        self.mesh = cp_mesh(mesh)
+        self.cp_layout = cp_layout
+        # The ring's attention over the mesh's model axis, or None (one card).
+        self._ring = None if self.mesh is None else make_ring_attention(
+            self.mesh, causal=True, layout=cp_layout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, e = x.shape
-        q, k, v = self.qkv(x).unbind(2)  # [B, T, H, D] each, views
-        out = flash_attention(q, k, v, causal=True)
+        if self._ring is None:
+            q, k, v = self.qkv(x).unbind(2)  # [B, T, H, D] each, views
+            return self.proj(flash_attention(q, k, v, causal=True).reshape(b, t, e))
+        # An in-process mesh holds the whole sequence: the zigzag layout
+        # permutes x once before the position-wise qkv (JAX's order); a
+        # process rank already holds its zigzag positions.
+        inv = None
+        if self.cp_layout == "zigzag" and self.mesh.in_process:
+            order, inv = (torch.from_numpy(o).to(x.device)
+                          for o in zigzag_orders(t, self.mesh.shape[MODEL_AXIS]))
+            x = x[:, order]
+        q, k, v = self.qkv(x).unbind(2)
+        out = self._ring(q, k, v)
+        if inv is not None:
+            out = out[:, inv]
         return self.proj(out.reshape(b, t, e))
 
     def init_parameters(self, generator: torch.Generator) -> None:
@@ -146,9 +190,10 @@ class CausalSelfAttention(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, d_model: int, num_heads: int, mlp_ratio: int, dtype, device=None):
+    def __init__(self, d_model: int, num_heads: int, mlp_ratio: int, dtype, device=None,
+                 **attn_kwargs):
         super().__init__()
-        self.attn = CausalSelfAttention(d_model, num_heads, dtype, device)
+        self.attn = CausalSelfAttention(d_model, num_heads, dtype, device, **attn_kwargs)
         self.LayerNorm_0 = LayerNorm(d_model, dtype, device)
         self.LayerNorm_1 = LayerNorm(d_model, dtype, device)
         self.Dense_0 = Dense(d_model, d_model * mlp_ratio, dtype, device)
@@ -177,14 +222,19 @@ class TransformerLM(nn.Module):
         remat: bool = False,
         mlp_ratio: int = 4,
         device=None,
+        mesh: Optional[Mesh] = None,
+        cp_layout: str = "contiguous",
     ):
         super().__init__()
         self.num_layers = num_layers
         self.remat = remat
+        self.mesh = cp_mesh(mesh)
+        self.cp_layout = cp_layout
         self.Embed_0 = Embed(vocab, d_model, dtype, device)
         self.Embed_1 = Embed(max_len, d_model, dtype, device)
         for i in range(num_layers):
-            setattr(self, f"block_{i}", Block(d_model, num_heads, mlp_ratio, dtype, device))
+            setattr(self, f"block_{i}", Block(d_model, num_heads, mlp_ratio, dtype, device,
+                                              mesh=mesh, cp_layout=cp_layout))
         self.LayerNorm_0 = LayerNorm(d_model, dtype, device)
         self.lm_head = Dense(d_model, vocab, torch.float32, device)
 
@@ -201,10 +251,31 @@ class TransformerLM(nn.Module):
         self.LayerNorm_0.init_parameters(generator)
         self.lm_head.init_parameters(generator)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens ``[B, T]`` int -> logits ``[B, T, vocab]`` f32."""
-        t = tokens.shape[1]
-        x = self.Embed_0(tokens) + self.Embed_1(torch.arange(t, device=tokens.device)[None, :])
+    def sequence_positions(self, seq_len: int, index: Optional[int] = None):
+        """The global positions a rank of a process mesh holds of a
+        ``seq_len`` sequence (int64 numpy; ``index``: its model index,
+        default this rank's), or None when the model takes the whole
+        sequence (one card, an in-process mesh)."""
+        if self.mesh is None or self.mesh.in_process:
+            return None
+        n = self.mesh.shape[MODEL_AXIS]
+        if seq_len % n or (self.cp_layout == "zigzag" and seq_len % (2 * n)):
+            raise ValueError(f"seq_len {seq_len} does not shard over a model axis of {n} "
+                             f"({self.cp_layout} layout)")
+        index = self.mesh.model_index if index is None else index
+        return shard_positions(index, seq_len // n, n, self.cp_layout)
+
+    def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """tokens ``[B, T]`` int -> logits ``[B, T, vocab]`` f32.
+        ``positions`` ``[T]``: the tokens' global positions (default 0..T-1);
+        a rank of a process mesh passes its own."""
+        if positions is None:
+            if self.mesh is not None and not self.mesh.in_process:
+                raise ValueError("a rank of a process mesh passes its tokens' positions "
+                                 "(sequence_positions)")
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = self.Embed_0(tokens) + self.Embed_1(positions[None, :])
         for block in self.blocks():
             if self.remat and torch.is_grad_enabled():
                 # nn.remat: the block's activations are recomputed in the
@@ -231,9 +302,12 @@ def custom_model(
     device=None,
 ) -> TransformerLM:
     """The JAX ``custom_model`` contract, built on ``device`` (None: the
-    CUDA card; weights uninitialised).  ``attn_impl``, ``cp_layout`` and
-    ``model_axis_mode`` are validated as in JAX; the last two act only
-    over a multi-device mesh, which raises."""
+    CUDA card, or the mesh's device; weights uninitialised).
+    ``attn_impl``, ``cp_layout`` and ``model_axis_mode`` are validated as
+    in JAX, ``attn_impl`` only here: it selects nothing (every value runs
+    the kernels), so the model never sees it.  The other two act over a
+    ``Mesh`` whose model axis is larger than 1: ``"cp"`` runs ring
+    attention, ``"tp"`` raises."""
     if attn_impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"attn_impl must be 'auto', 'pallas' or 'xla', got {attn_impl!r}")
     if model_axis_mode not in ("cp", "tp"):
@@ -246,8 +320,16 @@ def custom_model(
         raise NotImplementedError(
             f"logits_compute='bf16' (the bf16-operand LM head) is not ported: {BF16_HEAD_ITEM}"
         )
-    # Context- or tensor-parallel attention needs a multi-device mesh.
-    require_one_device(mesh, "the port's transformer")
+    mesh = resolve_mesh(mesh, "the port's transformer")
+    if cp_mesh(mesh) is not None and model_axis_mode == "tp":
+        raise NotImplementedError(
+            f"model_axis_mode='tp' shards heads and the MLP over the model axis: "
+            f"{TENSOR_PARALLEL_ITEM}"
+        )
+    if mesh is not None:
+        if device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        device = mesh.device
     return TransformerLM(
         vocab=vocab,
         d_model=d_model,
@@ -257,6 +339,8 @@ def custom_model(
         dtype=torch.bfloat16 if use_bf16 else torch.float32,
         remat=remat,
         device=resolve_device(device),
+        mesh=mesh,
+        cp_layout=cp_layout,
     )
 
 
