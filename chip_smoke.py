@@ -88,16 +88,45 @@ sequence sharded over a mesh's ``model`` axis):
     bf16 blocks at CP_BF16_TOL, kernels on both sides and then, as the
     witness, the plain versions on both sides.
 
+The sharded K1-K3 dispatch and the block-gather probe K10:
+
+17. K10 (``ops/sparse_gather.py``) at its experiment script's size,
+    212,992 indices into the 26M-row, dim-16 table seeded on the device,
+    10 of them past the end or negative: bit-exact against its plain
+    version, timed like phase 2 beside its bound and ``index_select``;
+    then ``exp_sparse_gather``'s two selftests on the card, and one
+    default-mode and one ``--shard_map`` measurement (their tables
+    printed); the default mode is K10's path and counts its launches.
+18. Phase 2's 26M-row merged table over an in-process (data=1, model=4)
+    mesh (3.25M storage blocks, split): the sharded K2 bit-exact with the
+    one-card K2 (ids no shard owns read zeros), the sharded K1's ``acts``
+    equal and its sums within the reduction-order bound (fields + shards
+    terms), the sharded K3 bit-exact with the one-card K3 for each of
+    phase 5's kinds (two applies); the split layout's dim-1 table at 2.6M
+    rows (20,313 blocks) takes the replicated route (one launch); each
+    sharded call timed beside the one-card call.
+19. Phase 6's DeepFM over the (1, 4) mesh: warm-up, 20 timed steps
+    (samples/s, median step, launches per step: 4 of K1 and 4 of K3), the
+    loss falls; 3 sharded steps against 3 one-card steps from one state
+    at phase 7's tolerances; ``export_model``, then ``ServingReplica(out,
+    mesh=...)`` answers ``eval_step`` and serves phase 3's 200 requests
+    of 8 rows from 8 clients against the plain forward (4 K1 launches per
+    dispatch); a hot swap to phase 4's ``split_tables`` artifact (its
+    dim-8 table split, its dim-1 table replicated: 5 K2 launches per
+    dispatch).
+
 Launch counts are zeroed just before each serving and training phase and
 read just after it; a kernel of the path that did not launch there (K1
 and K3 once per strict training step, K3 twice in the window; K4, K5 and
 K6 once per layer per LM step; K7, K8 and K9 once per layer per ring step
-of a CP LM step, and K4-K6 never there) fails the run.
+of a CP LM step, and K4-K6 never there; over the mesh, K1 and K3 once
+per shard; K10 in the experiment script's default mode) fails the run.
 The line before the last holds the card's name and power limit, the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, with no
 result, when no CUDA device is available or the port is not beside it.
 ``--phases 1,10`` runs only the named phases (for a short check of one
-kernel; such a run prints no result line).
+kernel; such a run prints no result line; phase 19 reuses phase 4's
+artifact when both run).
 """
 
 from __future__ import annotations
@@ -135,6 +164,14 @@ LOGIT_RTOL, LOGIT_ATOL = 1e-5, 1e-6
 #: The training slice: the north-star table, bench.py's batch.
 TRAIN_PARAMS = "vocab_size=1000000,embedding_dim=8,hidden=128,split_tables=false"
 TRAIN_BATCH = 8192
+#: K10 and its experiment script (phase 17): the script's defaults.
+K10_SOURCE = "elasticdl_tpu_torch/ops/csrc/sparse_gather.cu"
+K10_REPLACES = "scripts/exp_sparse_gather.py:154"
+GATHER_IDS, GATHER_VOCAB = 212_992, 26_000_000
+#: The in-process mesh of phases 18-19, (data, model), and phase 4's
+#: split-layout vocabulary per field.
+SHARD_MESH = (1, 4)
+SPLIT_VOCAB = 100_000
 LR = 1e-3
 #: Kernel path against plain path over 3 training steps.  The losses
 #: differ only through the FM sums' order (kernel field by field,
@@ -810,9 +847,6 @@ def path_steps(trainer, staged, steps: int = 3):
 def compare_paths(trainer, staged, card):
     """Phase 7: from one cloned state, 3 steps with the kernels and 3 with
     the plain versions patched in."""
-    import numpy as np
-    import torch
-
     from elasticdl_tpu_torch.ops import sparse_embedding as ske
     from elasticdl_tpu_torch.parallel.ps_trainer import clone_state
 
@@ -824,24 +858,35 @@ def compare_paths(trainer, staged, card):
     with mock.patch.object(ske, "fused_lookup_fm", ske.fused_lookup_fm_plain), \
             mock.patch.object(ske, "fused_dedup_apply", ske.fused_dedup_apply_plain):
         plain_losses, plain_tables = path_steps(trainer, staged)
-    np.testing.assert_allclose(kernel_losses, plain_losses, rtol=PATH_LOSS_RTOL)
+    out = paths_agree("kernel path vs plain path", kernel_losses, plain_losses, kernel_tables,
+                      plain_tables, tables0, card)
+    return {"losses_kernel": kernel_losses, "losses_plain": plain_losses, **out}
+
+
+def paths_agree(what, losses_a, losses_b, tables_a, tables_b, tables0, card):
+    """Phase 7's tolerances over two 3-step runs from one state: losses
+    within PATH_LOSS_RTOL; every table element within 2*lr*3 and all but
+    PATH_LOOSE_SHARE of the moved ones within PATH_TABLE_ATOL."""
+    import numpy as np
+    import torch
+
+    np.testing.assert_allclose(losses_a, losses_b, rtol=PATH_LOSS_RTOL)
     worst, loose, moved = 0.0, 0, 0
-    for key, got in kernel_tables.items():
-        diff = (got - plain_tables[key]).abs()
+    for key, got in tables_a.items():
+        diff = (got - tables_b[key]).abs()
         worst = max(worst, float(diff.max()))
-        changed = (got != tables0[key]) | (plain_tables[key] != tables0[key])
+        changed = (got != tables0[key]) | (tables_b[key] != tables0[key])
         moved += int(changed.sum())
         loose += int((diff > PATH_TABLE_ATOL).sum())
-    del kernel_tables, plain_tables, tables0
+    del tables_a, tables_b, tables0
     torch.cuda.empty_cache()
     if worst > 2 * LR * 3 + PATH_TABLE_ATOL or loose > PATH_LOOSE_SHARE * max(moved, 1):
-        fail(f"kernel and plain paths diverge: max table diff {worst!r}, {loose} of {moved} "
+        fail(f"{what}: the paths diverge: max table diff {worst!r}, {loose} of {moved} "
              f"moved elements past {PATH_TABLE_ATOL}")
-    log(f"kernel path vs plain path, 3 steps: losses {kernel_losses} vs {plain_losses}; "
+    log(f"{what}, 3 steps: losses {losses_a} vs {losses_b}; "
         f"tables max diff {worst!r}, {loose} of {moved} moved elements past "
         f"{PATH_TABLE_ATOL} [{card}]")
-    return {"losses_kernel": kernel_losses, "losses_plain": plain_losses,
-            "max_table_diff": worst, "loose_elements": loose, "moved_elements": moved}
+    return {"max_table_diff": worst, "loose_elements": loose, "moved_elements": moved}
 
 
 def training_phases(card: str, seed: int, workdir: str, params: str = TRAIN_PARAMS,
@@ -1836,6 +1881,367 @@ def cp_lm_phases(card: str, seed: int):
     return results
 
 
+# ----------------------------------------------------------------------
+# phase 17: K10, the block-gather probe, and its experiment script
+# ----------------------------------------------------------------------
+
+
+def block_gather_phase(card: str, seed: int):
+    """K10 at the script's size against its plain version (clamped and
+    wrapped indices included), timed like phase 2 beside its bound and
+    ``index_select``; then the script's two selftests on the card and one
+    default-mode and one ``--shard_map`` measurement, as functions.  The
+    default mode is K10's main path: its launches are counted there."""
+    import torch
+
+    from elasticdl_tpu_torch.bench import exp_sparse_gather as bench
+    from elasticdl_tpu_torch.ops import sparse_gather as sg
+    from elasticdl_tpu_torch.parallel.packed import PackedSpec
+
+    dev = card_device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 17)
+    spec = PackedSpec(GATHER_VOCAB, 16)
+    table = torch.rand(spec.rows_shape, generator=gen, device=dev)
+    nb8 = spec.num_blocks // sg.BLOCK_ROWS
+    b = torch.randint(0, nb8, (GATHER_IDS,), generator=gen, device=dev, dtype=torch.int32)
+    edges = [nb8, nb8 + 5, 2**30, 2**31 - 1, -1, -2, -nb8 + 1, -nb8, -nb8 - 1, -2**31]
+    b[:len(edges)] = torch.tensor(edges, dtype=torch.int32, device=dev)
+    got, want = sg.block_gather(table, spec, b), sg.block_gather_plain(table, spec, b)
+    torch.cuda.synchronize()
+    if not bit_equal(got, want):
+        fail("block_gather (K10) differs from its plain version")
+    err = float((got - want).abs().max())
+    del got, want
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rule = sg.block_index(spec, b)  # the library call gets the rule's indices
+    blocks = table.view(-1, sg.BLOCK_ROWS, 128)
+    nbytes = 2 * GATHER_IDS * sg.BLOCK_ROWS * 128 * 4 + 4 * GATHER_IDS
+    result = {
+        "shape": f"b [{GATHER_IDS}] (10 clamped or wrapped), table {list(spec.rows_shape)} "
+                 f"= packed {list(spec.packed_shape)}",
+        "max_abs_err": err,
+        "ms": median_ms(lambda: sg.block_gather(table, spec, b), flush),
+        "plain_ms": median_ms(lambda: sg.block_gather_plain(table, spec, b), flush),
+        "library_ms": median_ms(lambda: blocks.index_select(0, rule), flush),
+        "bound_ms": bound_ms(nbytes),
+    }
+    log(f"kernel block_gather (K10): {result['shape']}: bit-exact with the plain version, "
+        f"{result['ms']!r} ms (plain {result['plain_ms']!r} ms, index_select "
+        f"{result['library_ms']!r} ms, bound {result['bound_ms']!r} ms) [{card}]")
+    del table, blocks, rule, b, flush
+    torch.cuda.empty_cache()
+    bench.selftest("cuda")
+    bench.selftest_shard_map("cuda")
+    sg.reset_launch_counts()
+    result["script"] = bench.main(GATHER_IDS, GATHER_VOCAB)
+    result["launches"] = sg.launch_counts()["block_gather"]
+    if result["launches"] < 1:
+        fail("the experiment script's default mode never launched block_gather (K10)")
+    torch.cuda.empty_cache()
+    result["script_shard_map"] = bench.main_shard_map(GATHER_IDS, GATHER_VOCAB)
+    torch.cuda.empty_cache()
+    log(f"exp_sparse_gather: K10 launched {result['launches']} times in the default mode's "
+        f"{result['script']['block_gather_calls']} timed calls [{card}]")
+    return result
+
+
+# ----------------------------------------------------------------------
+# phase 18: the sharded K1-K3 dispatch against the one-card kernels
+# ----------------------------------------------------------------------
+
+
+def sharded_kernel_phase(card: str, seed: int, vocab: int = 1_000_000,
+                         split_vocab: int = SPLIT_VOCAB):
+    """Phase 2's 26M-row merged table over an in-process (1, 4) mesh
+    (3.25M storage blocks: split): the sharded K2 and K1 against the
+    one-card kernels, the sharded K3 against the one-card K3 for each of
+    phase 5's kinds; the split layout's dim-1 table (20,313 blocks:
+    replicated); each timed against the one-card call."""
+    import torch
+
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+    from elasticdl_tpu_torch.parallel import packed as pk
+
+    dev = card_device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 18)
+    mesh = in_process_mesh(*SHARD_MESH)
+    slots = SHARD_MESH[1]
+    spec = pk.PackedSpec(vocab * NUM_CAT, 1 + 8)
+    if ske.table_partition_axis(spec.num_blocks, mesh) != "model":
+        fail(f"{spec.num_blocks} storage blocks do not split over {slots} model slots")
+    table = torch.empty(spec.rows_shape, dtype=torch.float32, device=dev)
+    table.uniform_(-0.05, 0.05, generator=gen)
+    table[:, spec.dim:] = 0.0
+    table[spec.vocab_size:] = 0.0
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32, device=dev)
+
+    def counted(fn):
+        ske.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, ske.launch_counts()
+
+    result = {"mesh": list(SHARD_MESH)}
+    # K2: in-table ids bit-exact; ids outside the table read zeros.
+    ids = torch.randint(0, spec.vocab_size, (65_536,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    got, counts = counted(lambda: ske.fused_lookup(spec, table, ids, mesh=mesh))
+    if counts["fused_lookup"] != slots or not bit_equal(got, ske.fused_lookup(spec, table, ids)):
+        fail(f"sharded fused_lookup: launches {counts}, or it differs from the one-card K2")
+    outside = torch.tensor([-1, -7, spec.vocab_padded, spec.vocab_padded + 9], device=dev,
+                           dtype=torch.int32)
+    if ske.fused_lookup(spec, table, outside, mesh=mesh).any():
+        fail("sharded fused_lookup read a row for an id no shard owns")
+    result["fused_lookup"] = {
+        "shape": "ids [65536]", "launches_per_call": counts["fused_lookup"],
+        "ms": median_ms(lambda: ske.fused_lookup(spec, table, ids, mesh=mesh), flush),
+        "one_card_ms": median_ms(lambda: ske.fused_lookup(spec, table, ids), flush),
+    }
+    # K1 at the training shape: acts equal (a zero may differ in sign where
+    # no shard owns a field), the sums within the reduction-order bound.
+    batch = TRAIN_BATCH
+    cat = torch.randint(0, spec.vocab_size, (batch, NUM_CAT), generator=gen, device=dev,
+                        dtype=torch.int32)
+    valid = torch.rand((batch, NUM_CAT), generator=gen, device=dev) > 0.05
+    bet = torch.randn((batch, NUM_CAT, spec.dim), generator=gen, device=dev)
+    worst = 0.0
+    for b in (None, bet):
+        got, counts = counted(lambda: ske.fused_lookup_fm(spec, table, b, cat, valid, mesh=mesh))
+        want = ske.fused_lookup_fm(spec, table, b, cat, valid)
+        if counts["fused_lookup_fm"] != slots or not torch.equal(got[0], want[0]):
+            fail(f"sharded fused_lookup_fm: launches {counts}, or acts differ from the one-card K1")
+        acts = want[0]
+        terms = (acts[..., 0].abs().sum(-1), acts[..., 1:].abs().sum(1),
+                 (acts[..., 1:] * acts[..., 1:]).sum(1))
+        for name, g, w, t in zip(("first", "sum_v", "sum_sq"), got[1:], want[1:], terms):
+            excess = (g - w).abs() - SUM_ORDER_ULPS * (NUM_CAT + slots) * t
+            if float(excess.max()) > 0.0:
+                fail(f"sharded fused_lookup_fm {name} differs from the one-card K1 by more than "
+                     f"the reduction-order bound (excess {float(excess.max())!r})")
+            worst = max(worst, float((g - w).abs().max()))
+    result["fused_lookup_fm"] = {
+        "shape": f"ids [{batch}, {NUM_CAT}] with bet", "launches_per_call": counts["fused_lookup_fm"],
+        "max_abs_err_sums": worst,
+        "ms": median_ms(lambda: ske.fused_lookup_fm(spec, table, bet, cat, valid, mesh=mesh),
+                        flush),
+        "one_card_ms": median_ms(lambda: ske.fused_lookup_fm(spec, table, bet, cat, valid), flush),
+    }
+    del cat, valid, bet, got, want, acts
+    # K3: every kind, two applies, bit-exact tables and slots.
+    n = TRAIN_BATCH * NUM_CAT
+    ids, grads, _ = k3_inputs(spec, gen, dev, n)
+    result["fused_dedup_apply"] = {}
+    for name, (kind, hyper) in K3_HYPER.items():
+        t_mesh, s_mesh = table.clone(), k3_slots(kind, table)
+        t_one, s_one = table.clone(), k3_slots(kind, table)
+        with deterministic():
+            for _ in range(2):
+                _, counts = counted(lambda: ske.fused_dedup_apply(
+                    spec, kind, hyper, t_mesh, s_mesh, ids, grads, mesh=mesh))
+                ske.fused_dedup_apply(spec, kind, hyper, t_one, s_one, ids, grads)
+        torch.cuda.synchronize()
+        if counts["fused_dedup_apply"] != slots or not bit_equal(t_mesh, t_one) or not all(
+                bit_equal(v.reshape(-1), s_one[k].reshape(-1)) for k, v in s_mesh.items()):
+            fail(f"sharded fused_dedup_apply[{name}]: launches {counts}, or its table or slots "
+                 "differ from the one-card K3")
+        entry = {"launches_per_call": counts["fused_dedup_apply"]}
+        if name == "adam":
+            entry["ms"] = median_ms(lambda: ske.fused_dedup_apply(
+                spec, kind, hyper, t_mesh, s_mesh, ids, grads, mesh=mesh), flush)
+            entry["one_card_ms"] = median_ms(lambda: ske.fused_dedup_apply(
+                spec, kind, hyper, t_one, s_one, ids, grads), flush)
+        result["fused_dedup_apply"][name] = entry
+        del t_mesh, s_mesh, t_one, s_one
+        torch.cuda.empty_cache()
+    del table
+    torch.cuda.empty_cache()
+    # The replicated route: the split layout's dim-1 table.
+    spec1 = pk.PackedSpec(split_vocab * NUM_CAT, 1)
+    if ske.table_partition_axis(spec1.num_blocks, mesh) is not None:
+        fail(f"{spec1.num_blocks} storage blocks should not split over {slots}")
+    table1 = torch.empty(spec1.rows_shape, dtype=torch.float32, device=dev)
+    table1.uniform_(-0.05, 0.05, generator=gen)
+    ids1 = torch.randint(-100, spec1.vocab_padded + 100, (65_536,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    got, counts = counted(lambda: ske.fused_lookup(spec1, table1, ids1, mesh=mesh))
+    if counts["fused_lookup"] != 1 or not bit_equal(got, ske.fused_lookup(spec1, table1, ids1)):
+        fail(f"replicated fused_lookup: launches {counts}, or it differs from the one-card K2")
+    g1 = torch.randn((65_536, 1), generator=gen, device=dev)
+    t_mesh, s_mesh = table1.clone(), k3_slots("adam", table1)
+    t_one, s_one = table1.clone(), k3_slots("adam", table1)
+    _, counts = counted(lambda: ske.fused_dedup_apply(spec1, "adam", K3_HYPER["adam"][1], t_mesh,
+                                                      s_mesh, ids1, g1, mesh=mesh))
+    ske.fused_dedup_apply(spec1, "adam", K3_HYPER["adam"][1], t_one, s_one, ids1, g1)
+    if counts["fused_dedup_apply"] != 1 or not bit_equal(t_mesh, t_one):
+        fail(f"replicated fused_dedup_apply: launches {counts}, or it differs from the one-card K3")
+    result["replicated"] = {"table": list(spec1.rows_shape), "blocks": spec1.num_blocks,
+                            "launches_per_call": 1}
+    del table1, t_mesh, s_mesh, t_one, s_one, flush
+    torch.cuda.empty_cache()
+    log(f"sharded K1-K3 over an in-process {SHARD_MESH} mesh: K2 bit-exact (ids no shard owns "
+        f"read zeros), K1 acts equal, sums within the bound (max {worst!r}), K3 bit-exact for "
+        f"{len(K3_HYPER)} kinds, the dim-1 table replicated (1 launch, bit-exact); "
+        f"{json.dumps({k: v for k, v in result.items() if k != 'replicated'})} [{card}]")
+    return result
+
+
+# ----------------------------------------------------------------------
+# phase 19: DeepFM PS training and serving over the mesh
+# ----------------------------------------------------------------------
+
+
+def mesh_training_phases(card: str, seed: int, workdir: str, params: str = TRAIN_PARAMS,
+                         warmup: int = 3, steps: int = 20, n_batches: int = 24):
+    """Phase 6's model and batch over an in-process (1, 4) mesh: timed
+    steps (one K1 and one K3 launch per shard per step), 3 sharded steps
+    against 3 one-card steps from one state (phase 7's tolerances), then
+    export, a mesh-built ``ServingReplica`` serving phase 3's requests,
+    and a hot swap to a ``split_tables`` artifact (dim-8 table split,
+    dim-1 replicated)."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.common.params import parse_dict_params
+    from elasticdl_tpu_torch.data.synthetic import synthetic_ctr_arrays
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+    from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer, clone_state
+    from elasticdl_tpu_torch.serving.batcher import BatcherConfig, MicroBatcher
+    from elasticdl_tpu_torch.serving.export import export_model
+    from elasticdl_tpu_torch.serving.runtime import ServingReplica
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    zoo = resolve(MODEL_DEF)
+    mesh = in_process_mesh(*SHARD_MESH)
+    slots = SHARD_MESH[1]
+    model_params = parse_dict_params(params)
+    vocab, batch = model_params["vocab_size"], TRAIN_BATCH
+    feats, labels = synthetic_ctr_arrays(batch * n_batches + 256, vocab_size=vocab, seed=seed)
+    batches = [({k: v[i * batch:(i + 1) * batch] for k, v in feats.items()},
+                labels[i * batch:(i + 1) * batch], np.ones((batch,), np.float32))
+               for i in range(n_batches)]
+    held_out = {k: v[n_batches * batch:] for k, v in feats.items()}
+
+    def trainer_for(model):
+        return ShardedEmbeddingTrainer(model, zoo.loss, zoo.optimizer(),
+                                       embedding_optimizer=zoo.embedding_optimizer(), seed=seed,
+                                       mesh=getattr(model, "mesh", None))
+
+    t0 = time.perf_counter()
+    trainer = trainer_for(build_model(MODEL_DEF, dict(model_params, mesh=mesh)))
+    if trainer.sparse_route != "shard_map" or \
+            trainer.table_placement != {"fm_embedding/embedding": "model"}:
+        fail(f"mesh trainer: route {trainer.sparse_route}, placement {trainer.table_placement}")
+    trainer.ensure_initialized()
+    staged = [trainer.stage_batch(*b) for b in batches]
+    torch.cuda.synchronize()
+    log(f"mesh trainer initialised over {mesh!r} in {time.perf_counter() - t0:.1f} s: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    losses = [trainer.train_step_staged(staged[i % n_batches]) for i in range(warmup)]
+    torch.cuda.synchronize()
+    ske.reset_launch_counts()
+    events = []
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(trainer.train_step_staged(staged[i % n_batches]))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ske.launch_counts()
+    for name in ("fused_lookup_fm", "fused_dedup_apply"):
+        if counts[name] != slots * steps:
+            fail(f"{name} launched {counts[name]} times in {steps} sharded steps "
+                 f"({slots} shards)")
+    step_ms = sorted(s.elapsed_time(e) for s, e in events)
+    losses = torch.stack(losses).cpu().numpy()
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    if not np.all(np.isfinite(losses)) or not last < first:
+        fail(f"mesh training: the loss did not fall: first 5 steps {first!r}, last 5 {last!r}")
+    result = {
+        "mesh": list(SHARD_MESH), "samples_per_s": steps * batch / wall,
+        "step_ms_median": step_ms[len(step_ms) // 2], "loss_first5": first, "loss_last5": last,
+        "launches": counts, "launches_per_step": {k: v / steps for k, v in counts.items()},
+        "breakdown_ms": time_parts(trainer, staged[0]),
+    }
+    log(f"train over the mesh: {steps} steps of {batch}: {result['samples_per_s']!r} samples/s, "
+        f"step median {result['step_ms_median']!r} ms (device, CUDA events); loss {first!r} -> "
+        f"{last!r}; launches {counts}; one step's parts {result['breakdown_ms']} [{card}]")
+
+    # sharded steps against one-card steps, from one state
+    start = clone_state(trainer.state)
+    tables0 = {key: t.clone() for key, t in start.tables.items()}
+    mesh_losses, mesh_tables = path_steps(trainer, staged)
+    one_card = trainer_for(build_model(MODEL_DEF, model_params))
+    one_card.ensure_initialized()
+    one_card.state = start
+    del start
+    one_losses, one_tables = path_steps(one_card, staged)
+    del one_card
+    result["vs_one_card"] = paths_agree("sharded path vs one-card path", mesh_losses, one_losses,
+                                        mesh_tables, one_tables, tables0, card)
+
+    # train -> serve over the mesh, then a hot swap to split tables
+    out = export_model(trainer, os.path.join(workdir, "mesh_trained"), model_zoo="model_zoo",
+                       model_def=MODEL_DEF, model_params=params)
+    want = trainer.eval_step(held_out)
+    del trainer, staged
+    torch.cuda.empty_cache()
+    replica = ServingReplica(out, mesh=mesh)
+    if replica.stats()["tables"] != {"fm_embedding/embedding": "model"}:
+        fail(f"mesh replica placed {replica.stats()['tables']}")
+    got = replica.execute(held_out, len(want))[: len(want)]
+    np.testing.assert_allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    dispatches = []
+
+    def timed_execute(features, n_valid):
+        t0 = time.perf_counter()
+        try:
+            return replica.execute(features, n_valid)
+        finally:
+            dispatches.append((time.perf_counter() - t0, n_valid))
+
+    batcher = MicroBatcher(timed_execute, BatcherConfig(max_batch_size=64, max_wait_us=2000,
+                                                         queue_limit=512)).start()
+    rng = np.random.default_rng(seed)
+    try:
+        replica.warmup(make_requests(rng, vocab, 1, 1)[0], batcher.buckets)
+        serve = serve_phase("serve over the mesh (merged)", replica, batcher,
+                            make_requests(rng, vocab, 200, 8), card, dispatches)
+        serve = {"launches": serve, "dispatches": len(dispatches)}
+        if serve["launches"]["fused_lookup_fm"] != slots * len(dispatches):
+            fail(f"serving over the mesh launched {serve['launches']} in {len(dispatches)} "
+                 f"dispatches ({slots} shards of one table)")
+        split = os.path.join(workdir, "gen2_split")
+        if not os.path.exists(split):
+            write_random_artifact(
+                split, f"vocab_size={SPLIT_VOCAB},embedding_dim=8,hidden=128,split_tables=true",
+                seed + 1)
+        replica.reload(split)
+        stats = replica.stats()
+        if stats["tables"] != {"fm_embedding/embedding": "model",
+                               "linear_embedding/embedding": None}:
+            fail(f"hot swap over the mesh placed {stats['tables']}")
+        log(f"hot swap over the mesh: {stats}")
+        replica.warmup(make_requests(rng, SPLIT_VOCAB, 1, 1)[0], batcher.buckets)
+        split_counts = serve_phase("serve over the mesh (split_tables)", replica, batcher,
+                                   make_requests(rng, SPLIT_VOCAB, 200, 8), card, dispatches)
+        # the dim-8 table's shards and the replicated dim-1 table
+        if split_counts["fused_lookup"] != (slots + 1) * len(dispatches):
+            fail(f"serving split tables over the mesh launched {split_counts} in "
+                 f"{len(dispatches)} dispatches")
+    finally:
+        batcher.stop()
+    result["serve"] = serve
+    result["serve_split"] = {"launches": split_counts, "dispatches": len(dispatches)}
+    del replica
+    torch.cuda.empty_cache()
+    return result
+
+
 def ring_entries(ring_kernels, ring_whole, cp, card):
     """The K7-K9 entries of the kernels line: timed at RING_BENCH (phase
     13), launched on the CP LM path (phase 15, both layouts)."""
@@ -1932,13 +2338,17 @@ def main() -> None:
 
     kernels = kernel_phase(card, args.seed) if run(2) else None
     k3 = dedup_apply_phase(card, args.seed) if run(5) else None
-    launches = train = None
+    gather = block_gather_phase(card, args.seed) if run(17) else None
+    sharded = sharded_kernel_phase(card, args.seed) if run(18) else None
+    launches = train = mesh_train = None
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if run(3, 4):
             launches = serving_phases(card, args.seed, workdir)
         if run(6, 7, 8, 9):
             train = training_phases(card, args.seed, workdir)
+        if run(19):
+            mesh_train = mesh_training_phases(card, args.seed, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     attention, edges = attention_phase(card, args.seed) if run(10) else (None, None)
@@ -1950,23 +2360,32 @@ def main() -> None:
         log(json.dumps({"phases": sorted(wanted), "attention": attention,
                         "attention_edges": edges, "lm_training": lm,
                         "ring_kernels": ring_kernels, "ring_whole": ring_whole,
-                        "cp_lm_training": cp, "card": card}))
+                        "cp_lm_training": cp, "block_gather": gather,
+                        "sharded_kernels": sharded, "mesh_training": mesh_train,
+                        "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
         if count < 1:
             fail(f"kernel {name} was never launched on the serving path")
     log(json.dumps({"training": train, "lm_training": lm, "cp_lm_training": cp,
-                    "ring_whole": ring_whole, "card": card}))
+                    "ring_whole": ring_whole, "sharded_kernels": sharded,
+                    "mesh_training": mesh_train, "card": card}))
 
     by_path = {
         "fused_lookup_fm": {"serve_merged": launches["fused_lookup_fm"],
                             "train_strict": train["launches_strict"]["fused_lookup_fm"],
-                            "train_window": train["launches_window"]["fused_lookup_fm"]},
-        "fused_lookup": {"serve_split": launches["fused_lookup"]},
+                            "train_window": train["launches_window"]["fused_lookup_fm"],
+                            "train_mesh": mesh_train["launches"]["fused_lookup_fm"],
+                            "serve_mesh": mesh_train["serve"]["launches"]["fused_lookup_fm"]},
+        "fused_lookup": {"serve_split": launches["fused_lookup"],
+                         "serve_split_mesh": mesh_train["serve_split"]["launches"]["fused_lookup"]},
         "fused_dedup_apply": {"train_strict": train["launches_strict"]["fused_dedup_apply"],
-                              "train_window": train["launches_window"]["fused_dedup_apply"]},
+                              "train_window": train["launches_window"]["fused_dedup_apply"],
+                              "train_mesh": mesh_train["launches"]["fused_dedup_apply"]},
     }
+    on_mesh = {"fused_lookup_fm": sharded["fused_lookup_fm"], "fused_lookup":
+               sharded["fused_lookup"], "fused_dedup_apply": sharded["fused_dedup_apply"]["adam"]}
     line = []
     for name in ("fused_lookup_fm", "fused_lookup"):
         r = kernels[name]
@@ -1987,6 +2406,7 @@ def main() -> None:
         if name == "fused_lookup_fm":
             entry.update({k: r[k] for k in ("train_shape_ms", "train_shape_plain_ms",
                                              "train_shape_bound_ms")})
+        entry["sharded"] = on_mesh[name]
         line.append(entry)
     adam = k3["by_kind"]["adam"]
     line.append({
@@ -1999,10 +2419,24 @@ def main() -> None:
         "bound_by": "bytes", "library_ms": None, "index_add_ms": k3["index_add_ms"],
         "shape": k3["shape"] + ", adam per-row", "by_kind": k3["by_kind"],
         "train_step_ms": train["breakdown_ms"]["fused_dedup_apply"],
+        "sharded": on_mesh["fused_dedup_apply"],
         "card": card,
     })
     line += flash_entries(attention, edges, lm, card)
     line += ring_entries(ring_kernels, ring_whole, cp, card)
+    line.append({
+        "name": "block_gather", "ok": True, "route": "cuda", "source": K10_SOURCE,
+        "replaces": K10_REPLACES, "launches": gather["launches"],
+        "launches_by_path": {"exp_sparse_gather_default_mode": gather["launches"]},
+        "launches_per_timed_call": gather["launches"] / gather["script"]["block_gather_calls"],
+        "max_abs_err": gather["max_abs_err"], "ms": gather["ms"], "plain_ms": gather["plain_ms"],
+        "bound_ms": gather["bound_ms"], "bound_by": "bytes", "library_ms": gather["library_ms"],
+        "library": "index_select(table.view(-1, 8, 128), 0, the index rule's blocks)",
+        "shape": gather["shape"],
+        "script_ms": {k: v["ms"] for k, v in gather["script"].items() if isinstance(v, dict)},
+        "script_shard_map_ms": {k: v["ms"] for k, v in gather["script_shard_map"].items()},
+        "card": card,
+    })
     log(json.dumps({"kernels": line}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,12 @@ What is ported so far: serving DeepFM (artifact loading in
 ``serving.export``, the micro-batcher ``serving.batcher``, the hot-swap
 replica ``serving.runtime``); training DeepFM in PS mode
 (``parallel.ps_trainer`` over ``layers.embedding`` and
-``ops.sparse_embedding``); and training the causal transformer LM on one
+``ops.sparse_embedding``); training the causal transformer LM on one
 card (``parallel.dp_trainer`` and ``zoo.transformer_lm`` over
-``ops.flash_attention``).
+``ops.flash_attention``) and context-parallel over a ``parallel.mesh``;
+the sharded dispatch of the sparse ops over a mesh, which the PS trainer
+and serving take; and the block-gather probe ``ops.sparse_gather`` with
+its experiment script ``bench.exp_sparse_gather``.
 """
 
 __version__ = "0.1.0"

@@ -16,13 +16,12 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 #: Where what needs more than one card is queued: item 5 of ROADMAP.md's
-#: Queue 1, one constant for each part of it that is still to port.  The
-#: context-parallel path (a ``parallel.mesh.Mesh`` whose ``model`` axis
-#: carries the sequence) is ported and raises none of them.
+#: Queue 1, one constant for each part of it that is still to port.  A
+#: ``parallel.mesh.Mesh`` (in-process, or one rank per card) is ported:
+#: the context-parallel path and the sharded K1-K3 dispatch raise none of
+#: them.  ``MULTI_CARD_ITEM`` itself is what a list of several real
+#: devices driven from one process raises.
 MULTI_CARD_ITEM = "ROADMAP.md Queue 1 item 5, multi-card routing"
-#: The sharded dispatch of K1-K3 (tables over cards): the PS trainer and
-#: serving on several cards.
-SPARSE_DISPATCH_ITEM = f"{MULTI_CARD_ITEM}: the sharded K1-K3 dispatch"
 #: The transformer's model_axis_mode="tp".
 TENSOR_PARALLEL_ITEM = f"{MULTI_CARD_ITEM}: tensor parallelism (model_axis_mode='tp')"
 #: DataParallelTrainer's dense_sharding="fsdp".

@@ -9,6 +9,12 @@ so the kernels' clamp rule never decides a result.
 The table is the buffer ``embedding`` of shape ``[vocab_padded,
 dim_padded]`` (``parallel/packed.py``).  There is no engine switch: on a
 CUDA tensor the lookup IS the kernel, on a CPU tensor its plain version.
+``mesh`` is the dispatch mesh of the lookups (``ops/sparse_embedding.py``
+"Sharded dispatch"); a layer built without one resolves against the
+process default ``ske.dispatch_mesh()`` at each call, as the JAX layer
+does at trace time.  On a process mesh a trainer or loader places the
+buffer first (``parallel/sharding.place_rows``): a table split over the
+``model`` axis then holds this rank's rows only.
 
 Training (the PS trainer's sparse-gradient capture): while a ``capture()``
 context is open, each call makes a zeros tensor ``bet`` that requires
@@ -115,6 +121,7 @@ class Embedding(nn.Module):
         embedding_dim: int,
         combiner: Optional[str] = None,
         fm_interaction: bool = False,
+        mesh=None,
         device=None,
     ):
         super().__init__()
@@ -125,6 +132,7 @@ class Embedding(nn.Module):
         self.spec = PackedSpec(vocab_size, embedding_dim)
         self.combiner = combiner
         self.fm_interaction = fm_interaction
+        self.mesh = mesh
         # Uninitialised: a loader fills it (serving/convert.load_state) or
         # init_parameters draws it; at full width it is gigabytes, so it
         # is never zero-filled first.
@@ -142,8 +150,14 @@ class Embedding(nn.Module):
     def init_parameters(self, generator: torch.Generator) -> None:
         default_embedding_init(self.spec, self.embedding, generator)
 
+    def dispatch_mesh(self):
+        """The mesh the lookups dispatch over: the layer's own, else the
+        process default."""
+        return self.mesh if self.mesh is not None else ske.dispatch_mesh()
+
     def forward(self, ids: torch.Tensor):
         spec = self.spec
+        mesh = self.dispatch_mesh()
         ids = ids.to(torch.int32)
         valid = (ids >= 0) & (ids < spec.vocab_size)
         safe_ids = torch.where(valid, ids, torch.zeros_like(ids))
@@ -159,8 +173,8 @@ class Embedding(nn.Module):
         if self.fm_interaction:
             if ids.dim() != 2:
                 raise ValueError("fm_interaction requires ids of shape [batch, fields]")
-            return ske.fused_lookup_fm(spec, self.embedding, bet, safe_ids, valid)
-        acts = ske.fused_lookup(spec, self.embedding, safe_ids.reshape(-1))
+            return ske.fused_lookup_fm(spec, self.embedding, bet, safe_ids, valid, mesh=mesh)
+        acts = ske.fused_lookup(spec, self.embedding, safe_ids.reshape(-1), mesh=mesh)
         acts = acts.reshape(safe_ids.shape + (spec.dim,))
         if bet is not None:
             acts = acts + bet

@@ -65,6 +65,7 @@ SIGNATURES = {
         _F, _F, _I, _F, _F, _F, _F, _F,    # lr_neg, mu, nesterov, eps, b1, b2, omb1, omb2
         _P,                                # stream
     ),
+    "edl_block_gather": (_P, _P, _P, _LL, _I, _P),  # table, idx, out, n, num_blocks8, stream
     # flash attention: tensors, then (batch, heads, t, d), q/k/v strides
     # (batch, time, head), scale, causal, dtype code, stream.
     "edl_flash_fwd": (_P, _P, _P, _P, _P) + _FLASH_TAIL,        # q k v out lse

@@ -27,6 +27,22 @@ Both are XLA ops in the JAX package, not Pallas kernels, so the backward
 is plain PyTorch here too.  The backward saves ``acts``, ids and
 ``valid``, never the table: ``fused_dedup_apply`` updates tables in place.
 
+Sharded dispatch (the JAX package's ``shard_map`` route): each function
+takes a keyword-only ``mesh`` (a ``parallel.mesh.Mesh``).  A mesh of more
+than one slot splits a table's storage blocks over its ``model`` axis
+when they divide it (``table_partition_axis``), else replicates the
+table.  Each model shard runs the same body (kernel or plain version)
+on its rows with the ids routed to it, and the lookups combine by a sum
+over ``model`` (exact zeros from every shard but the owner); the apply
+all-gathers ``(ids, grads)`` over ``data`` first, routes ids owned
+elsewhere to ``-1`` and combines nothing.  On an in-process mesh the
+shards are row views of one table and the body runs once per model
+slot; on a process mesh each rank holds its own rows and the combine is
+a collective (``parallel.mesh.axis_all_reduce`` / ``axis_all_gather``).
+Ids no shard owns read zeros on that route, where the one-card clamp
+rule reads a real row (JAX ``_sharded_lookup_impl``).  The backward of
+the two lookups stays the segment sum over the table as given.
+
 Tables are ``[vocab_padded, dim_padded]`` f32 logical rows
 (``parallel/packed.py``).  Contracts (those of ``docs/design.md`` for the
 TPU kernels): the lookup and ``acts`` are exact copies, bit for bit;
@@ -44,6 +60,13 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch.parallel import packed as pk
+from elasticdl_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    axis_all_gather,
+    axis_all_reduce,
+    axis_index,
+)
 from elasticdl_tpu_torch.parallel.packed import PackedSpec, row_index
 
 KERNELS = ("fused_lookup", "fused_lookup_fm", "fused_dedup_apply")
@@ -105,22 +128,100 @@ def _stream() -> int:
 
 
 # ----------------------------------------------------------------------
+# sharded dispatch: the rules (JAX ``ops/sparse_embedding.py:156-219``)
+# ----------------------------------------------------------------------
+
+#: The process-default dispatch mesh: an Embedding layer built without
+#: a ``mesh`` resolves against it.  The ops consult only their own
+#: ``mesh`` argument.
+_DISPATCH_MESH = None
+
+
+def set_dispatch_mesh(mesh) -> None:
+    global _DISPATCH_MESH
+    _DISPATCH_MESH = mesh
+
+
+def dispatch_mesh():
+    return _DISPATCH_MESH
+
+
+def dispatch_route(mesh=None) -> str:
+    """``"single_device"`` (one body on the whole table) or
+    ``"shard_map"`` (per-shard bodies over the mesh) for ``mesh``."""
+    if mesh is not None and mesh.size > 1:
+        return "shard_map"
+    return "single_device"
+
+
+def table_partition_axis(num_blocks: int, mesh) -> Optional[str]:
+    """The mesh axis a table's storage blocks are split over: ``model``
+    when it divides ``num_blocks`` (STORAGE blocks, ``spec.num_blocks``,
+    not rows), else None (the table is replicated)."""
+    if mesh is None:
+        return None
+    msize = mesh.shape.get(MODEL_AXIS, 1)
+    if msize > 1 and num_blocks % msize == 0:
+        return MODEL_AXIS
+    return None
+
+
+def _shard_local_spec(spec: PackedSpec, mesh) -> PackedSpec:
+    """One model shard's spec: the same dim, 1/model of the rows (exact:
+    ``table_partition_axis`` demanded divisibility)."""
+    return PackedSpec(spec.vocab_padded // mesh.shape[MODEL_AXIS], spec.dim)
+
+
+def _shards(spec: PackedSpec, table: torch.Tensor, mesh, what: str = "table"):
+    """-> ``(local_spec, [(first row, rows)])``: the model shards of
+    ``table`` this process holds, or ``(None, [(0, table)])`` for a
+    replicated table.  In process the shards are row views of the whole
+    table; on a process mesh ``table`` must be this rank's rows."""
+    if table_partition_axis(spec.num_blocks, mesh) is None:
+        _check_table(spec, table, what)
+        return None, [(0, table)]
+    local = _shard_local_spec(spec, mesh)
+    slots = axis_index(mesh, MODEL_AXIS)
+    if mesh.in_process:
+        _check_table(spec, table, what)
+        views = table.chunk(mesh.shape[MODEL_AXIS])
+        return local, [(s * local.vocab_padded, views[s]) for s in slots]
+    _check_table(local, table, f"{what} (this rank's model shard)")
+    return local, [(slots[0] * local.vocab_padded, table)]
+
+
+def _route_ids(local: PackedSpec, ids: torch.Tensor, start: int, fill: int):
+    """(ids routed to the shard whose rows start at ``start``, with
+    ``fill`` where another shard owns them; bool mask of the owned)."""
+    rel = ids.to(torch.int64) - start
+    owned = (rel >= 0) & (rel < local.vocab_padded)
+    return torch.where(owned, rel, fill).to(torch.int32), owned
+
+
+def _table_cotangent(spec, shape, ids, g, mesh):
+    """The segment sum of ``g`` by row over the table as it was given
+    (``shape``: the whole table, or this rank's shard on a process
+    mesh): duplicates sum, ids outside it drop."""
+    if shape != spec.rows_shape:  # this rank's rows of a split table
+        spec = _shard_local_spec(spec, mesh)
+        ids = _route_ids(spec, ids, mesh.model_index * spec.vocab_padded, -1)[0]
+    zeros = torch.zeros(shape, dtype=g.dtype, device=g.device)
+    return pk.scatter_add(spec, zeros, ids, g)
+
+
+# ----------------------------------------------------------------------
 # fused_lookup
 # ----------------------------------------------------------------------
 
 
-def fused_lookup_plain(
-    spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor
-) -> torch.Tensor:
-    """Plain PyTorch version of the lookup: clamp-rule rows, first
-    ``dim`` lanes.  ids [n] -> [n, dim]."""
+def _lookup_plain_body(spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     rows = table.index_select(0, row_index(spec, ids))
     return rows[:, : spec.dim]
 
 
 def _lookup_forward(spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if _route(table) == "plain":
-        return fused_lookup_plain(spec, table, ids)
+        return _lookup_plain_body(spec, table, ids)
     from elasticdl_tpu_torch.ops import _build
 
     ids = ids.contiguous()
@@ -137,39 +238,70 @@ def _lookup_forward(spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor) ->
     return out
 
 
+def _sharded_lookup(body, spec, table, ids, mesh):
+    """The shard_map route of the lookup: ``body`` on each model shard
+    with the ids routed to it (local id 0 elsewhere, masked to zero
+    after), then the sum over ``model``.  Each id has one owner, so the
+    sum adds exact zeros to the owner's row."""
+    local, shards = _shards(spec, table, mesh)
+    if local is None:
+        return body(spec, table, ids)
+    parts = []
+    for start, rows in shards:
+        routed, owned = _route_ids(local, ids, start, 0)
+        parts.append(body(local, rows, routed) * owned[:, None].to(table.dtype))
+    return axis_all_reduce(mesh, MODEL_AXIS, parts)
+
+
 class _FusedLookup(torch.autograd.Function):
     """The lookup with ``_lookup_bwd`` as its backward: the table's
     cotangent is the segment sum of the output cotangent by row
-    (duplicates sum, ids outside the table drop)."""
+    (duplicates sum, ids outside the table drop), on either route."""
 
     @staticmethod
-    def forward(ctx, spec, table, ids):
-        ctx.spec = spec
+    def forward(ctx, spec, table, ids, mesh, body):
+        ctx.spec, ctx.mesh, ctx.shape = spec, mesh, tuple(table.shape)
         ctx.save_for_backward(ids)
-        return _lookup_forward(spec, table, ids)
+        if dispatch_route(mesh) == "shard_map":
+            return _sharded_lookup(body, spec, table, ids, mesh)
+        return body(spec, table, ids)
 
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
         d_table = None
         if ctx.needs_input_grad[1]:
-            spec = ctx.spec
-            zeros = torch.zeros(spec.rows_shape, dtype=g.dtype, device=g.device)
-            d_table = pk.scatter_add(spec, zeros, ids, g)
-        return None, d_table, None
+            d_table = _table_cotangent(ctx.spec, ctx.shape, ids, g, ctx.mesh)
+        return None, d_table, None, None, None
+
+
+def fused_lookup_plain(
+    spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor, *, mesh=None
+) -> torch.Tensor:
+    """Plain PyTorch version of the lookup: clamp-rule rows, first
+    ``dim`` lanes.  ids [n] -> [n, dim].  With a ``mesh`` it takes the
+    sharded route with plain bodies (and the lookups' backward)."""
+    if dispatch_route(mesh) == "shard_map":
+        _check_ids(ids, table, 1)
+        return _FusedLookup.apply(spec, table, ids, mesh, _lookup_plain_body)
+    return _lookup_plain_body(spec, table, ids)
 
 
 def fused_lookup(
-    spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor
+    spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor, *, mesh=None
 ) -> torch.Tensor:
     """ids int32 [n] -> rows [n, dim] (the JAX ``fused_lookup``).
 
-    Every id reads a real row by the clamp rule (``packed.row_index``);
-    bit-exact with the JAX kernel for every id and with ``pk.lookup`` for
-    ids in ``[0, vocab_padded)``.  Differentiable in the table."""
-    _check_table(spec, table)
+    One card (``mesh`` None or of one slot): every id reads a real row by
+    the clamp rule (``packed.row_index``); bit-exact with the JAX kernel
+    for every id and with ``pk.lookup`` for ids in ``[0, vocab_padded)``.
+    A mesh of more: the sharded route (module docstring), on which ids
+    outside ``[0, vocab_padded)`` read zeros.  Differentiable in the
+    table."""
     _check_ids(ids, table, 1)
-    return _FusedLookup.apply(spec, table, ids)
+    if dispatch_route(mesh) == "single_device":
+        _check_table(spec, table)
+    return _FusedLookup.apply(spec, table, ids, mesh, _lookup_forward)
 
 
 # ----------------------------------------------------------------------
@@ -187,15 +319,7 @@ def fm_stats(acts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tens
     return first, torch.sum(v, dim=1), torch.sum(v * v, dim=1)
 
 
-def fused_lookup_fm_plain(
-    spec: PackedSpec,
-    table: torch.Tensor,
-    bet: Optional[torch.Tensor],
-    ids: torch.Tensor,
-    valid: torch.Tensor,
-) -> FmOut:
-    """Plain PyTorch version of the merged lookup + FM partial sums
-    (differentiable through plain autograd)."""
+def _lookup_fm_plain_body(spec, table, bet, ids, valid) -> FmOut:
     batch, fields = ids.shape
     rows = table.index_select(0, row_index(spec, ids.reshape(-1)))
     rows = rows[:, : spec.dim].reshape(batch, fields, spec.dim)
@@ -206,7 +330,7 @@ def fused_lookup_fm_plain(
 
 def _lookup_fm_forward(spec, table, bet, ids, valid) -> FmOut:
     if _route(table) == "plain":
-        return fused_lookup_fm_plain(spec, table, bet, ids, valid)
+        return _lookup_fm_plain_body(spec, table, bet, ids, valid)
     from elasticdl_tpu_torch.ops import _build
 
     batch, fields = ids.shape
@@ -233,6 +357,22 @@ def _lookup_fm_forward(spec, table, bet, ids, valid) -> FmOut:
     return acts, first, sum_v, sum_sq
 
 
+def _sharded_lookup_fm(body, spec, table, bet, ids, valid, mesh) -> FmOut:
+    """The shard_map route of the FM pass: on each model shard, ``body``
+    with ``valid AND owned here`` and local id 0 where that is false,
+    then each output summed over ``model`` (``acts`` gains exact zeros;
+    the sums are summed per shard, then across shards)."""
+    local, shards = _shards(spec, table, mesh)
+    if local is None:
+        return body(spec, table, bet, ids, valid)
+    parts = []
+    for start, rows in shards:
+        routed, owned = _route_ids(local, ids, start, 0)
+        mine = valid & owned
+        parts.append(body(local, rows, bet, torch.where(mine, routed, 0), mine))
+    return tuple(axis_all_reduce(mesh, MODEL_AXIS, [p[i] for p in parts]) for i in range(4))
+
+
 def fm_backward(acts, valid, d_acts, d_first, d_sumv, d_sumsq) -> torch.Tensor:
     """``_fm_bwd_math``'s per-field activation cotangent: first/sum_v/
     sum_sq are plain sums of ``acts`` components, so every cotangent
@@ -249,13 +389,17 @@ def fm_backward(acts, valid, d_acts, d_first, d_sumv, d_sumsq) -> torch.Tensor:
 
 
 class _FusedLookupFm(torch.autograd.Function):
-    """K1 forward with ``_fm_bwd_math`` as its backward: ``bet`` gets
-    ``d_field``; the table, only when asked for, its segment sum."""
+    """K1 forward with ``_fm_bwd_math`` as its backward, on either route:
+    ``bet`` gets ``d_field``; the table, only when asked for, its segment
+    sum."""
 
     @staticmethod
-    def forward(ctx, spec, table, bet, ids, valid):
-        out = _lookup_fm_forward(spec, table, bet, ids, valid)
-        ctx.spec = spec
+    def forward(ctx, spec, table, bet, ids, valid, mesh, body):
+        if dispatch_route(mesh) == "shard_map":
+            out = _sharded_lookup_fm(body, spec, table, bet, ids, valid, mesh)
+        else:
+            out = body(spec, table, bet, ids, valid)
+        ctx.spec, ctx.mesh, ctx.shape = spec, mesh, tuple(table.shape)
         ctx.save_for_backward(out[0], ids, valid)
         return out
 
@@ -265,41 +409,20 @@ class _FusedLookupFm(torch.autograd.Function):
         d_field = fm_backward(acts, valid, d_acts, d_first, d_sumv, d_sumsq)
         d_table = None
         if ctx.needs_input_grad[1]:
-            spec = ctx.spec
-            zeros = torch.zeros(spec.rows_shape, dtype=acts.dtype, device=acts.device)
-            d_table = pk.scatter_add(
-                spec, zeros, ids.reshape(-1), d_field.reshape(-1, spec.dim)
-            )
+            d_table = _table_cotangent(ctx.spec, ctx.shape, ids.reshape(-1),
+                                       d_field.reshape(-1, ctx.spec.dim), ctx.mesh)
         d_bet = d_field if ctx.needs_input_grad[2] else None
-        return None, d_table, d_bet, None, None
+        return None, d_table, d_bet, None, None, None, None
 
 
-def fused_lookup_fm(
-    spec: PackedSpec,
-    table: torch.Tensor,
-    bet: Optional[torch.Tensor],
-    ids: torch.Tensor,
-    valid: torch.Tensor,
-) -> FmOut:
-    """Combined ``1+dim`` lookup + FM partial sums in one pass (the JAX
-    ``fused_lookup_fm``).
-
-    ids int32 [batch, fields] (already offset), valid bool [batch,
-    fields], bet [batch, fields, dim] or None (zeros; serving passes
-    None, training its perturbation capture, whose gradient is the
-    sparse gradient).  Returns ``(acts [batch, fields, dim], first
-    [batch], sum_v [batch, dim-1], sum_sq [batch, dim-1])`` with ``acts =
-    (row + bet) * valid``; lane 0 is the first-order weight and lanes
-    1..dim the FM field vector:
-
-        second_order = 0.5 * sum_d(sum_v^2 - sum_sq)
-    """
+def _check_lookup_fm(spec, table, bet, ids, valid, mesh) -> None:
     if spec.dim < 2:
         raise ValueError(
             f"fused_lookup_fm needs a combined table of dim >= 2 "
             f"(1 linear lane + FM lanes), got dim={spec.dim}"
         )
-    _check_table(spec, table)
+    if dispatch_route(mesh) == "single_device":
+        _check_table(spec, table)
     _check_ids(ids, table, 2)
     if valid.shape != ids.shape or valid.dtype != torch.bool:
         raise ValueError(
@@ -315,7 +438,54 @@ def fused_lookup_fm(
             )
         if bet.device != table.device:
             raise ValueError(f"bet on {bet.device} but table on {table.device}")
-    return _FusedLookupFm.apply(spec, table, bet, ids, valid)
+
+
+def fused_lookup_fm_plain(
+    spec: PackedSpec,
+    table: torch.Tensor,
+    bet: Optional[torch.Tensor],
+    ids: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    mesh=None,
+) -> FmOut:
+    """Plain PyTorch version of the merged lookup + FM partial sums
+    (differentiable through plain autograd).  With a ``mesh`` it takes the
+    sharded route with plain bodies (and the FM backward)."""
+    if dispatch_route(mesh) == "shard_map":
+        _check_lookup_fm(spec, table, bet, ids, valid, mesh)
+        return _FusedLookupFm.apply(spec, table, bet, ids, valid, mesh, _lookup_fm_plain_body)
+    return _lookup_fm_plain_body(spec, table, bet, ids, valid)
+
+
+def fused_lookup_fm(
+    spec: PackedSpec,
+    table: torch.Tensor,
+    bet: Optional[torch.Tensor],
+    ids: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    mesh=None,
+) -> FmOut:
+    """Combined ``1+dim`` lookup + FM partial sums in one pass (the JAX
+    ``fused_lookup_fm``).
+
+    ids int32 [batch, fields] (already offset), valid bool [batch,
+    fields], bet [batch, fields, dim] or None (zeros; serving passes
+    None, training its perturbation capture, whose gradient is the
+    sparse gradient).  Returns ``(acts [batch, fields, dim], first
+    [batch], sum_v [batch, dim-1], sum_sq [batch, dim-1])`` with ``acts =
+    (row + bet) * valid``; lane 0 is the first-order weight and lanes
+    1..dim the FM field vector:
+
+        second_order = 0.5 * sum_d(sum_v^2 - sum_sq)
+
+    ``mesh``: a mesh of more than one slot takes the sharded route
+    (module docstring); ``acts`` is then the same values, the sums agree
+    to reduction order.
+    """
+    _check_lookup_fm(spec, table, bet, ids, valid, mesh)
+    return _FusedLookupFm.apply(spec, table, bet, ids, valid, mesh, _lookup_fm_forward)
 
 
 # ----------------------------------------------------------------------
@@ -415,41 +585,103 @@ def _check_apply(spec, kind, table, slots, ids, grads):
         raise ValueError(f"grads on {grads.device} but table on {table.device}")
 
 
+def _apply_plain_body(spec, kind, c, operands, t_global, ids, grads):
+    """The JAX scatter path, step for step, on ``operands`` (the table,
+    then the slots in ``KIND_SLOTS`` order; row views allowed), in place.
+    ``t_global``: adam_global's count, already advanced."""
+    dim = spec.dim
+    uids, gsum, touched = pk.dedup_representatives(spec, ids, grads)
+    tch = touched.to(operands[0].dtype)[:, None]
+    gsum = gsum * tch
+    rows64 = uids.to(torch.int64)
+    subs = tuple(op.index_select(0, rows64)[:, :dim] for op in operands)
+    if kind == "adam":
+        tr = torch.clamp(subs[3][:, :1] + tch, min=1.0)
+    else:
+        tr = t_global  # adam_global's count; None for the other kinds
+    deltas = apply_math(kind, c, gsum, subs, tr)
+    for op, delta in zip(operands, deltas):
+        pk.scatter_add(spec, op, uids, delta * tch)
+
+
+def _apply_body(spec, kind, c, operands, t_global, ids, grads):
+    """K3 on a CUDA table, the plain body on a CPU one."""
+    if _route(operands[0]) == "plain":
+        return _apply_plain_body(spec, kind, c, operands, t_global, ids, grads)
+    from elasticdl_tpu_torch.ops import _build
+
+    n = ids.shape[0]
+    if n == 0:
+        return
+    operands = list(operands) + [None] * (4 - len(operands))
+    keys = torch.where(
+        pk.in_table(spec, ids), ids,
+        torch.full_like(ids, spec.vocab_padded),
+    )
+    sorted_ids, perm = torch.sort(keys, stable=True)
+    grads = grads.contiguous()
+    with torch.cuda.device(operands[0].device):
+        code = _build.library().edl_fused_dedup_apply(
+            sorted_ids.data_ptr(), perm.data_ptr(), grads.data_ptr(), n,
+            spec.vocab_padded, spec.dim_padded, spec.dim, _KIND_CODE[kind],
+            *(op.data_ptr() if op is not None else None for op in operands),
+            t_global.data_ptr() if t_global is not None else None,
+            c["lr_neg"], c.get("mu", 0.0), int(c.get("nesterov", False)),
+            c.get("eps", 0.0), c.get("b1", 0.0), c.get("b2", 0.0),
+            c.get("omb1", 0.0), c.get("omb2", 0.0),
+            _stream(),
+        )
+    _build.check(code, "fused_dedup_apply")
+    _count_launch("fused_dedup_apply")
+
+
+def _dedup_apply(body, spec, kind, hyper, table, slots, ids, grads, mesh):
+    """Both routes of the apply around ``body``.  The sharded route
+    all-gathers ``(ids, grads)`` over ``data`` (in data-index order), then
+    runs ``body`` on each model shard of the table and its slots with the
+    ids owned elsewhere routed to ``-1`` (which the dedup drops); each id
+    keeps its occurrence order, so its summed gradient has the one-card
+    bits.  adam_global's scalar count advances once per apply."""
+    kind = _resolve_kind(kind, slots)
+    names = KIND_SLOTS[kind]
+    local, shards = None, [(0, [table] + [slots[name] for name in names])]
+    if dispatch_route(mesh) == "shard_map":
+        ids = axis_all_gather(mesh, DATA_AXIS, ids)
+        grads = axis_all_gather(mesh, DATA_AXIS, grads)
+        local, table_shards = _shards(spec, table, mesh)
+        slot_shards = [_shards(spec, slots[name], mesh, f"slot {name!r}")[1] for name in names]
+        shards = [(start, [rows] + [ss[i][1] for ss in slot_shards])
+                  for i, (start, rows) in enumerate(table_shards)]
+    checked = dict(slots, **dict(zip(names, shards[0][1][1:])))
+    _check_apply(local or spec, kind, shards[0][1][0], checked, ids, grads)
+    c = apply_constants(kind, hyper)
+    t_global = None
+    if kind == "adam_global":
+        t_global = slots["t_global"]
+        t_global.add_(1.0)
+    for start, operands in shards:
+        routed = ids if local is None else _route_ids(local, ids, start, -1)[0]
+        body(local or spec, kind, c, operands, t_global, routed, grads)
+    return table, slots
+
+
 def fused_dedup_apply_plain(
     spec: PackedSpec, kind: str, hyper: Mapping, table: torch.Tensor,
     slots: Dict[str, torch.Tensor], ids: torch.Tensor, grads: torch.Tensor,
+    *, mesh=None,
 ):
     """Plain PyTorch version: the JAX scatter path, step for step —
     ``dedup_representatives``, row gathers, the slot math, then the
     delta-form ``scatter_add`` of each operand (``parallel/
     sparse_optim.py`` ``scatter_apply``).  Updates in place and returns
-    ``(table, slots)``."""
-    kind = _resolve_kind(kind, slots)
-    c = apply_constants(kind, hyper)
-    dim = spec.dim
-    uids, gsum, touched = pk.dedup_representatives(spec, ids, grads)
-    tch = touched.to(table.dtype)[:, None]
-    gsum = gsum * tch
-    rows64 = uids.to(torch.int64)
-    names = KIND_SLOTS[kind]
-    operands = (table,) + tuple(slots[name] for name in names)
-    subs = tuple(op.index_select(0, rows64)[:, :dim] for op in operands)
-    if kind == "adam":
-        tr = torch.clamp(subs[3][:, :1] + tch, min=1.0)
-    elif kind == "adam_global":
-        slots["t_global"].add_(1.0)
-        tr = slots["t_global"]
-    else:
-        tr = None
-    deltas = apply_math(kind, c, gsum, subs, tr)
-    for op, delta in zip(operands, deltas):
-        pk.scatter_add(spec, op, uids, delta * tch)
-    return table, slots
+    ``(table, slots)``; ``mesh`` as ``fused_dedup_apply``."""
+    return _dedup_apply(_apply_plain_body, spec, kind, hyper, table, slots, ids, grads, mesh)
 
 
 def fused_dedup_apply(
     spec: PackedSpec, kind: str, hyper: Mapping, table: torch.Tensor,
     slots: Dict[str, torch.Tensor], ids: torch.Tensor, grads: torch.Tensor,
+    *, mesh=None,
 ):
     """One-pass sparse optimizer step, IN PLACE: ``(ids [n] int32, grads
     [n, dim] f32)`` in; ``table`` and the slots of ``kind``
@@ -467,40 +699,9 @@ def fused_dedup_apply(
     On CUDA the ids are sorted (stable, so each row's grads keep their
     position order) and the kernel sums each row's segment from 0.0f in
     that order, then applies the update to its row; each touched row
-    belongs to one segment, so the in-place update needs no atomics."""
-    kind = _resolve_kind(kind, slots)
-    _check_apply(spec, kind, table, slots, ids, grads)
-    if _route(table) == "plain":
-        return fused_dedup_apply_plain(spec, kind, hyper, table, slots, ids, grads)
-    from elasticdl_tpu_torch.ops import _build
+    belongs to one segment, so the in-place update needs no atomics.
 
-    c = apply_constants(kind, hyper)
-    operands = [table] + [slots[name] for name in KIND_SLOTS[kind]]
-    operands += [None] * (4 - len(operands))
-    tr_global = None
-    if kind == "adam_global":
-        slots["t_global"].add_(1.0)
-        tr_global = slots["t_global"].data_ptr()
-    n = ids.shape[0]
-    if n == 0:
-        return table, slots
-    keys = torch.where(
-        pk.in_table(spec, ids), ids,
-        torch.full_like(ids, spec.vocab_padded),
-    )
-    sorted_ids, perm = torch.sort(keys, stable=True)
-    grads = grads.contiguous()
-    with torch.cuda.device(table.device):
-        code = _build.library().edl_fused_dedup_apply(
-            sorted_ids.data_ptr(), perm.data_ptr(), grads.data_ptr(), n,
-            spec.vocab_padded, spec.dim_padded, spec.dim, _KIND_CODE[kind],
-            *(op.data_ptr() if op is not None else None for op in operands),
-            tr_global,
-            c["lr_neg"], c.get("mu", 0.0), int(c.get("nesterov", False)),
-            c.get("eps", 0.0), c.get("b1", 0.0), c.get("b2", 0.0),
-            c.get("omb1", 0.0), c.get("omb2", 0.0),
-            _stream(),
-        )
-    _build.check(code, "fused_dedup_apply")
-    _count_launch("fused_dedup_apply")
-    return table, slots
+    ``mesh``: a mesh of more than one slot takes the sharded route
+    (``_dedup_apply``); every table-shaped slot is split as the table
+    is, the scalar ``t_global`` is replicated."""
+    return _dedup_apply(_apply_body, spec, kind, hyper, table, slots, ids, grads, mesh)

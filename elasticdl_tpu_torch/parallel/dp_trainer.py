@@ -13,7 +13,7 @@ padded rows contribute nothing, as in JAX.
 On a process mesh (one rank per card, or gloo processes on the CPU)
 every rank takes the global batch and:
 
-1. pads it to the data axis with a mask (JAX ``sharding.pad_batch``);
+1. pads it to the data axis with a mask (``sharding.pad_batch``);
 2. takes the rows of its data index and, when the model's ``model`` axis
    carries the sequence, the positions of its model index
    (``model.sequence_positions``);
@@ -39,7 +39,7 @@ transformer has none).
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,6 +47,7 @@ import torch.distributed as dist
 
 from elasticdl_tpu_torch.common.device import FSDP_ITEM, DeviceLike, resolve_device
 from elasticdl_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, resolve_mesh
+from elasticdl_tpu_torch.parallel.sharding import pad_batch
 
 logger = logging.getLogger("elasticdl_tpu_torch.parallel.dp_trainer")
 
@@ -83,26 +84,6 @@ def clone_tree(tree):
     if isinstance(tree, dict):
         return {k: clone_tree(v) for k, v in tree.items()}
     return tree.detach().clone()
-
-
-def pad_batch(tree, multiple: int) -> Tuple[Any, np.ndarray]:
-    """JAX ``sharding.pad_batch``: every array's leading dim up to a
-    multiple of ``multiple``, the padding rows repeating row 0 (an empty
-    batch pads with zeros); -> ``(tree, mask)``, the mask 1 for real
-    rows."""
-    if isinstance(tree, dict):
-        padded = {k: pad_batch(v, multiple)[0] for k, v in tree.items()}
-        return padded, pad_batch(next(iter(tree.values())), multiple)[1]
-    x = np.asarray(tree)
-    batch = x.shape[0]
-    rows = -(-batch // multiple) * multiple if batch else multiple
-    mask = np.ones((rows,), np.float32)
-    mask[batch:] = 0.0
-    if rows == batch:
-        return x, mask
-    if batch == 0:
-        return np.zeros((rows,) + x.shape[1:], x.dtype), mask
-    return np.concatenate([x, np.repeat(x[:1], rows - batch, axis=0)]), mask
 
 
 def _take(tree, rows, positions=None):

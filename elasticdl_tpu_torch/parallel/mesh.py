@@ -20,6 +20,12 @@ devices.
   reduced over its data axis and its ring's rotation is a list roll.
 
 Anything else raises.
+
+The axis helpers (``axis_index``, ``axis_all_reduce``,
+``axis_all_gather``) are what the sharded sparse dispatch and the PS
+trainer share: on a process mesh they run the collective in the axis's
+subgroup; on an in-process mesh they are the loop over the slots or the
+identity that its layout implies.
 """
 
 from __future__ import annotations
@@ -148,6 +154,42 @@ class Mesh:
         kind = "in-process" if self.in_process else f"process rank {self.rank}"
         return (f"Mesh({self.shape[DATA_AXIS]}x{self.shape[MODEL_AXIS]} "
                 f"({DATA_AXIS} x {MODEL_AXIS}), {kind}, on {self.device})")
+
+
+def axis_index(mesh: Mesh, axis: str) -> Tuple[int, ...]:
+    """The indices along ``axis`` of the slots this process computes:
+    its own on a process mesh, every one on an in-process mesh (whose
+    callers loop over them)."""
+    if mesh.in_process:
+        return tuple(range(mesh.shape[axis]))
+    return (mesh.data_index if axis == DATA_AXIS else mesh.model_index,)
+
+
+def axis_all_reduce(mesh: Mesh, axis: str, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The sum over ``axis`` of the parts this process holds along it: on
+    a process mesh its one part, all-reduced (SUM) in the axis's
+    subgroup; on an in-process mesh the parts, added in slot order."""
+    if mesh.in_process:
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total
+    (part,) = parts
+    out = part.contiguous().clone()
+    dist.all_reduce(out, group=mesh.group(axis))
+    return out
+
+
+def axis_all_gather(mesh: Mesh, axis: str, tensor: torch.Tensor) -> torch.Tensor:
+    """Every slot's ``tensor`` along ``axis`` concatenated on dim 0 in
+    axis order (``all_gather(tiled=True)``): a collective in the axis's
+    subgroup on a process mesh; on an in-process mesh, which holds the
+    whole axis, the tensor as it is."""
+    if mesh.in_process or mesh.shape[axis] == 1:
+        return tensor
+    parts = [torch.empty_like(tensor) for _ in range(mesh.shape[axis])]
+    dist.all_gather(parts, tensor.contiguous(), group=mesh.group(axis))
+    return torch.cat(parts)
 
 
 def _process_mesh(config: MeshConfig) -> Mesh:

@@ -15,14 +15,20 @@ vocab_padded)`` are dropped.
 ``mode`` is accepted for the JAX signature's sake and selects nothing:
 the JAX package's stream / scatter / fused engines all meet this one
 contract (``tests/test_sparse_kernels.py``), and the port has one engine.
+``mesh`` selects the dispatch route of the apply: a mesh of more than
+one slot takes the sharded route of ``fused_dedup_apply`` (tables and
+their slots split over the ``model`` axis).  ``remake(mode, mesh)``
+rebuilds an optimizer with another mode and mesh and the same
+hyperparameters, as the JAX trainer does to thread its mesh.
 The streaming ``apply_acc`` (one step from an already accumulated
 gradient table) is not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
@@ -45,13 +51,22 @@ class SparseOptimizer:
     kind: str
     init_slots: Callable[..., Dict[str, torch.Tensor]]
     hyperparams: dict = field(default_factory=dict)
+    mode: str = "auto"
+    mesh: Any = None
 
     def apply(self, spec: PackedSpec, table, slots, ids, grads) -> Tuple:
         # Looked up at call time, so a caller can patch the module's
-        # function (chip_smoke.py runs the plain version that way).
+        # function (chip_smoke.py runs the plain version that way); a
+        # one-card optimizer calls it with the one-card signature.
+        mesh = {} if self.mesh is None else {"mesh": self.mesh}
         return ske.fused_dedup_apply(
-            spec, self.kind, self.hyperparams, table, slots, ids, grads
+            spec, self.kind, self.hyperparams, table, slots, ids, grads, **mesh
         )
+
+    def remake(self, mode: str, mesh=None) -> "SparseOptimizer":
+        """This optimizer with another ``mode`` and dispatch ``mesh``."""
+        _check_mode(mode)
+        return dataclasses.replace(self, mode=mode, mesh=mesh)
 
 
 def _check_mode(mode: str) -> None:
@@ -66,28 +81,28 @@ def _zeros_slots(*names):
     return init_slots
 
 
-def sgd(learning_rate: float = 0.01, mode: str = "auto") -> SparseOptimizer:
+def sgd(learning_rate: float = 0.01, mode: str = "auto", mesh=None) -> SparseOptimizer:
     _check_mode(mode)
     return SparseOptimizer(
-        "sgd", "sgd", _zeros_slots(), {"learning_rate": learning_rate}
+        "sgd", "sgd", _zeros_slots(), {"learning_rate": learning_rate}, mode, mesh
     )
 
 
 def momentum(
     learning_rate: float = 0.01, mu: float = 0.9, nesterov: bool = False,
-    mode: str = "auto",
+    mode: str = "auto", mesh=None,
 ) -> SparseOptimizer:
     _check_mode(mode)
     hyper = {"learning_rate": learning_rate, "momentum": mu, "nesterov": nesterov}
-    return SparseOptimizer("momentum", "momentum", _zeros_slots("momentum"), hyper)
+    return SparseOptimizer("momentum", "momentum", _zeros_slots("momentum"), hyper, mode, mesh)
 
 
 def adagrad(
-    learning_rate: float = 0.01, epsilon: float = 1e-7, mode: str = "auto",
+    learning_rate: float = 0.01, epsilon: float = 1e-7, mode: str = "auto", mesh=None,
 ) -> SparseOptimizer:
     _check_mode(mode)
     hyper = {"learning_rate": learning_rate, "epsilon": epsilon}
-    return SparseOptimizer("adagrad", "adagrad", _zeros_slots("accumulator"), hyper)
+    return SparseOptimizer("adagrad", "adagrad", _zeros_slots("accumulator"), hyper, mode, mesh)
 
 
 def adam(
@@ -97,6 +112,7 @@ def adam(
     epsilon: float = 1e-8,
     mode: str = "auto",
     bias_correction: str = "per_row",
+    mesh=None,
 ) -> SparseOptimizer:
     """Sparse Adam.  ``bias_correction="per_row"``: each row's correction
     uses its own touch count, slot ``t`` (f32, the count repeated over the
@@ -120,7 +136,7 @@ def adam(
     hyper = {"learning_rate": learning_rate, "beta_1": beta_1, "beta_2": beta_2,
              "epsilon": epsilon, "bias_correction": bias_correction}
     return SparseOptimizer(
-        "adam", "adam" if per_row else "adam_global", init_slots, hyper
+        "adam", "adam" if per_row else "adam_global", init_slots, hyper, mode, mesh
     )
 
 

@@ -148,13 +148,16 @@ def random_jax_variables(model: nn.Module, seed: int, scale: float = 0.05):
     return variables, tables
 
 
-def jax_variables_from_port(model: nn.Module):
+def jax_variables_from_port(model: nn.Module, gather=None):
     """The port's weights in the JAX layout, the inverse of
     ``state_dict_from_jax``: ``(variables, tables)`` as
     ``serving/export.write_artifact`` takes them — the nested ``{"params":
     ...}`` tree of numpy arrays without the tables (Dense kernels back to
     ``[in, out]``), and ``{key: (spec, [vocab_padded, dim_padded] rows)}``
-    with ``key`` the table's path under ``params``."""
+    with ``key`` the table's path under ``params``.  ``gather(key,
+    table)`` gives a table's full rows as a host array (a trainer whose
+    tables are split over a process mesh passes it); by default the
+    table as it is."""
     state = model.state_dict()
     variables: Dict = {}
     tables = {}
@@ -162,7 +165,9 @@ def jax_variables_from_port(model: nn.Module):
         path = jax_key.split("/")
         value = state[port_key].detach()
         if kind == "table":
-            tables["/".join(path[1:])] = (module.spec, value.cpu().numpy())
+            key = "/".join(path[1:])
+            rows = gather(key, value) if gather is not None else value.cpu().numpy()
+            tables[key] = (module.spec, rows)
             continue
         if kind == "dense_kernel":
             value = value.T
@@ -170,10 +175,11 @@ def jax_variables_from_port(model: nn.Module):
     return variables, tables
 
 
-def flat_jax_variables(model: nn.Module) -> Dict[str, np.ndarray]:
+def flat_jax_variables(model: nn.Module, gather=None) -> Dict[str, np.ndarray]:
     """Flat ``{"params/<path>/<leaf>": array}`` with LOGICAL ``[vocab,
-    dim]`` tables: the JAX trainers' ``get_variables_numpy`` view."""
-    variables, tables = jax_variables_from_port(model)
+    dim]`` tables: the JAX trainers' ``get_variables_numpy`` view
+    (``gather`` as in ``jax_variables_from_port``)."""
+    variables, tables = jax_variables_from_port(model, gather)
     flat = flatten_variables(variables)
     for key, (spec, rows) in tables.items():
         flat["params/" + key] = np.ascontiguousarray(rows[: spec.vocab_size, : spec.dim])

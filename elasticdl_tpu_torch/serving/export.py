@@ -23,6 +23,14 @@ never imports JAX.
 
 Tables are opened as memmaps and copied to the device in bounded row
 chunks into preallocated buffers (``serving/convert.load_state``).
+
+Over a ``parallel.mesh.Mesh`` (``load_for_serving(..., mesh=)``) the
+model is built over the mesh, whose lookups then take the sharded
+dispatch, and each sparse table is placed by ``serving_rules``: split
+over the ``model`` axis when its storage blocks divide it, else
+replicated.  In process a split table stays one tensor (the dispatch
+takes a row view per model slot); on a process mesh each rank loads its
+own rows only.
 """
 
 from __future__ import annotations
@@ -34,9 +42,15 @@ from typing import Mapping, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from elasticdl_tpu_torch.common.device import DeviceLike, resolve_device
+from elasticdl_tpu_torch.common.params import parse_dict_params
+from elasticdl_tpu_torch.ops import sparse_embedding as ske
+from elasticdl_tpu_torch.parallel.compile import Rule, RuleTable, tree_paths
+from elasticdl_tpu_torch.parallel.mesh import resolve_mesh
 from elasticdl_tpu_torch.parallel.packed import PackedSpec, as_rows
+from elasticdl_tpu_torch.parallel.sharding import axis_rows
 from elasticdl_tpu_torch.serving import convert
 from elasticdl_tpu_torch.zoo import build_model
 
@@ -84,14 +98,34 @@ def _resolve_refs(tree, model_dir: str):
     return tree
 
 
+def serving_rules(mesh) -> RuleTable:
+    """Placement of serving variables (the fused branch of the JAX
+    ``serving_rules``): a leaf named ``embedding`` is a table in packed
+    storage, whose dim 0 counts its blocks, and splits over the mesh's
+    ``model`` axis when they divide it (``ske.table_partition_axis``);
+    everything else replicates."""
+
+    def table_blocks(path, shape):
+        return ske.table_partition_axis(shape[0], mesh)
+
+    return RuleTable(
+        [Rule(r"(^|/)embedding$", table_blocks), Rule(".*", None)],
+        name="serving-fused",
+    )
+
+
 class ServingModel:
     """A loaded artifact: the port's module with its weights on
-    ``device``, in eval mode."""
+    ``device``, in eval mode; over a ``mesh``, ``placements`` maps each
+    table key to the axis its rows are split over (None: replicated)."""
 
-    def __init__(self, model: torch.nn.Module, signature: dict, device: torch.device):
+    def __init__(self, model: torch.nn.Module, signature: dict, device: torch.device,
+                 mesh=None, placements=None):
         self.model = model
         self.signature = signature
         self.device = device
+        self.mesh = mesh
+        self.placements = placements or {}
 
     def forward(self, features: Mapping[str, np.ndarray]) -> torch.Tensor:
         """Host features -> device outputs (no sync)."""
@@ -107,18 +141,42 @@ class ServingModel:
             return self.forward(features).cpu().numpy()
 
 
-def load_for_serving(model_dir: str, device: DeviceLike = None) -> ServingModel:
-    """Load an artifact onto ``device`` (``None``: the CUDA card)."""
+def load_for_serving(model_dir: str, device: DeviceLike = None, mesh=None) -> ServingModel:
+    """Load an artifact onto ``device`` (``None``: the CUDA card), or over
+    ``mesh`` on its device with each table placed by ``serving_rules``."""
+    mesh = resolve_mesh(mesh, "load_for_serving")
+    if mesh is not None:
+        if device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        device = mesh.device
     device = resolve_device(device)
     with open(os.path.join(model_dir, _SIGNATURE)) as f:
         signature = json.load(f)
     variables = _resolve_refs(
         read_variables(os.path.join(model_dir, _VARIABLES)), model_dir
     )
-    model = build_model(signature["model_def"], signature["model_params"], device)
-    convert.load_state(model, convert.state_dict_from_jax(variables, model))
+    params = signature["model_params"]
+    if mesh is not None:
+        params = dict(parse_dict_params(params) if isinstance(params, str) else params,
+                      mesh=mesh)
+    model = build_model(signature["model_def"], params, device)
+    state = convert.state_dict_from_jax(variables, model)
+    placements = {}
+    if mesh is not None:
+        by_path = dict(tree_paths(serving_rules(mesh).match(variables)[0]))
+        for jax_key, port_key, kind, module in convert._targets(model):
+            if kind != "table":
+                continue  # the port splits its sparse tables only
+            axis = placements[jax_key[len("params/"):]] = by_path[jax_key]
+            rows = axis_rows(module.spec.vocab_padded, mesh, axis)
+            if rows.stop - rows.start < module.spec.vocab_padded:  # a process mesh's share
+                module.embedding = torch.empty(
+                    (rows.stop - rows.start, module.spec.dim_padded),
+                    dtype=torch.float32, device=device)
+                state[port_key] = state[port_key][rows]
+    convert.load_state(model, state)
     model.eval()
-    return ServingModel(model, signature, device)
+    return ServingModel(model, signature, device, mesh, placements)
 
 
 def write_artifact(
@@ -187,17 +245,24 @@ def export_model(
     format (its ``export_model``): the dense params in the flax layout,
     each table packed in ``tables/<i>.npy``, and the signature with the
     trainer's ``step``.  Both this package's ``load_for_serving`` and the
-    JAX one read it."""
+    JAX one read it.  On a process mesh every rank calls it (the tables
+    are gathered) and rank 0 writes."""
     if trainer.state is None:
         raise ValueError("Cannot export: model was never initialized")
-    variables, tables = convert.jax_variables_from_port(trainer.model)
+    variables, tables = trainer.jax_variables()  # whole tables (gathered over a mesh)
     signature = {
         "model_zoo": model_zoo,
         "model_def": model_def,
         "model_params": model_params,
         "step": int(trainer.step),
     }
-    return write_artifact(out_dir, variables, tables, signature, chunk_rows)
+    mesh = trainer.mesh
+    if mesh is None or mesh.in_process:
+        return write_artifact(out_dir, variables, tables, signature, chunk_rows)
+    if mesh.rank == 0:  # a process mesh: one writer, the others wait for it
+        write_artifact(out_dir, variables, tables, signature, chunk_rows)
+    dist.barrier()
+    return out_dir
 
 
 def _copy_tree(node):

@@ -6,7 +6,10 @@ owns the device side of one replica:
 
 - **Loading.**  Each model generation is an artifact loaded with
   ``load_for_serving`` onto the replica's device (the CUDA card unless
-  the caller passes another).
+  the caller passes another), or over the replica's ``mesh``: the model
+  is built over it and each table placed by ``export.serving_rules`` (split
+  over the ``model`` axis, a row view per model slot in process, or
+  replicated), so the lookups take the sharded dispatch.
 - **Executing.**  ``execute(features, n_valid)`` is the MicroBatcher's
   execute callable: the model's forward under ``torch.inference_mode``,
   host-to-device copy first; the ``.cpu()`` of the result is the device
@@ -17,10 +20,12 @@ owns the device side of one replica:
 - **Hot-swap.**  ``reload(model_dir)`` builds the NEW generation fully
   before an atomic pointer swap; dispatches already riding the old
   generation drain on its in-flight counter before it is released.  A
-  failed build keeps the old generation serving and re-raises.
+  failed build keeps the old generation serving and re-raises.  The new
+  generation is loaded over the same mesh.
 
 Not ported yet (ROADMAP): delta apply and the canary's
-build/commit split, placement over several cards, journal events.
+build/commit split, several real cards driven from one process, journal
+events.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import numpy as np
 
 from elasticdl_tpu_torch.common.device import DeviceLike, resolve_device
 from elasticdl_tpu_torch.data.pipeline import pad_features
+from elasticdl_tpu_torch.parallel.mesh import resolve_mesh
 from elasticdl_tpu_torch.serving.export import ServingModel, load_for_serving
 
 logger = logging.getLogger("elasticdl_tpu_torch.serving.runtime")
@@ -87,22 +93,28 @@ class ServingReplica:
     def __init__(
         self,
         model_dir: str,
+        mesh=None,
         device: DeviceLike = None,
         drain_timeout_s: float = 30.0,
     ):
+        self._mesh = resolve_mesh(mesh, "the port's ServingReplica")
+        if self._mesh is not None:
+            if device is not None and resolve_device(device) != self._mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {self._mesh.device}")
+            device = self._mesh.device
         self._device = resolve_device(device)
         self._drain_timeout_s = drain_timeout_s
         self._lock = threading.Lock()
         self._next_gen_id = 1  # guarded-by: _lock
         self._generation = self._load_generation(model_dir)  # guarded-by: _lock
         logger.info(
-            "Serving replica up: generation %d (step %d) from %s on %s",
+            "Serving replica up: generation %d (step %d) from %s on %s, mesh %r, tables %s",
             self._generation.gen_id, self._generation.step, model_dir,
-            self._device,
+            self._device, self._mesh, self._generation.served.placements,
         )
 
     def _load_generation(self, model_dir: str) -> Generation:
-        served = load_for_serving(model_dir, device=self._device)
+        served = load_for_serving(model_dir, device=self._device, mesh=self._mesh)
         with self._lock:
             gen_id = self._next_gen_id
             self._next_gen_id += 1
@@ -185,6 +197,10 @@ class ServingReplica:
         return self._device
 
     @property
+    def mesh(self):
+        return self._mesh
+
+    @property
     def generation(self) -> Generation:
         """The currently-serving generation."""
         with self._lock:
@@ -199,4 +215,6 @@ class ServingReplica:
             "model_dir": gen.model_dir,
             "inflight": gen.inflight(),
             "device": str(self._device),
+            "mesh": repr(self._mesh),
+            "tables": dict(gen.served.placements),
         }

@@ -18,10 +18,13 @@ variables map one to one (``serving/convert.py``):
   tower ``Dense_0 [(26+13)*d -> hidden]``, ``Dense_1 [-> hidden//2]``,
   ``Dense_2 [-> 1]`` over the flattened fields.
 
-Training-only parameters (``sparse_apply_every``, ``sparse_kernel``,
-``mesh``) are accepted so an artifact's recorded params build the model;
-they decide nothing on the card beyond the JAX package's table-layout
-rule (``_split``), which they must reproduce for the variables to match.
+Training-only parameters (``sparse_apply_every``, ``sparse_kernel``)
+are accepted so an artifact's recorded params build the model; they
+decide nothing on the card beyond the JAX package's table-layout rule
+(``_split``), which they must reproduce for the variables to match.
+``mesh`` (a ``parallel.mesh.Mesh``) is threaded into the Embedding
+layers, whose lookups then take the sharded dispatch over it, and puts
+the model on the mesh's device.
 
 The model-zoo contract of the JAX module: ``loss`` (sigmoid binary cross
 entropy, batch mean), ``optimizer`` (dense Adam 1e-3) and
@@ -43,6 +46,7 @@ from torch import nn
 from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.layers.embedding import Embedding
 from elasticdl_tpu_torch.parallel import optim, sparse_optim
+from elasticdl_tpu_torch.parallel.mesh import resolve_mesh
 
 NUM_DENSE = 13
 NUM_CAT = 26
@@ -124,9 +128,11 @@ class DeepFM(nn.Module):
         split_tables=None,
         sparse_apply_every: int = 1,
         sparse_kernel=None,
+        mesh=None,
         device=None,
     ):
         super().__init__()
+        self.mesh = mesh
         self.vocab_size = vocab_size
         self.embedding_dim = embedding_dim
         total_vocab = vocab_size * NUM_CAT
@@ -139,11 +145,11 @@ class DeepFM(nn.Module):
             NUM_DENSE, (NUM_DENSE, d), device=device
         )
         if self.split:
-            self.linear_embedding = Embedding(total_vocab, 1, device=device)
-            self.fm_embedding = Embedding(total_vocab, d, device=device)
+            self.linear_embedding = Embedding(total_vocab, 1, mesh=mesh, device=device)
+            self.fm_embedding = Embedding(total_vocab, d, mesh=mesh, device=device)
         else:
             self.fm_embedding = Embedding(
-                total_vocab, 1 + d, fm_interaction=True, device=device
+                total_vocab, 1 + d, fm_interaction=True, mesh=mesh, device=device
             )
         self.Dense_0 = nn.Linear((NUM_CAT + NUM_DENSE) * d, hidden, device=device)
         self.Dense_1 = nn.Linear(hidden, hidden // 2, device=device)
@@ -211,10 +217,15 @@ def custom_model(
     device=None,
 ) -> DeepFM:
     """The JAX ``custom_model`` contract, built on ``device`` (None: the
-    CUDA card; weights uninitialised).  ``sparse_apply_every='auto'``
-    resolves from the table rows exactly as the JAX package does, since
-    it decides the table layout.  ``mesh`` is accepted and ignored: the
-    port runs on one card."""
+    CUDA card, or the mesh's device; weights uninitialised).
+    ``sparse_apply_every='auto'`` resolves from the table rows exactly as
+    the JAX package does, since it decides the table layout.  ``mesh``
+    goes to the Embedding layers (their lookups' dispatch mesh)."""
+    mesh = resolve_mesh(mesh, "the port's DeepFM")
+    if mesh is not None:
+        if device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        device = mesh.device
     if sparse_apply_every == "auto":
         total_rows = vocab_size * NUM_CAT * (2 if split_tables else 1)
         sparse_apply_every = (
@@ -227,6 +238,7 @@ def custom_model(
         split_tables=split_tables,
         sparse_apply_every=int(sparse_apply_every),
         sparse_kernel=sparse_kernel,
+        mesh=mesh,
         device=resolve_device(device),
     )
 

@@ -169,7 +169,17 @@ def test_unported_modes_and_meshes_raise():
         build_mesh(MeshConfig(2, 2))
     with pytest.raises(ValueError, match="device count"):
         build_mesh(MeshConfig(3, 2), devices=virtual_devices(4, "cpu"))
-    assert "sharded K1-K3 dispatch" in port_device.SPARSE_DISPATCH_ITEM
+    # The sharded K1-K3 dispatch is ported: what still raises is several
+    # real devices driven from one process (besides tp and fsdp above).
+    assert not hasattr(port_device, "SPARSE_DISPATCH_ITEM")
+    from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer
+    from elasticdl_tpu_torch.zoo import deepfm
+
+    with pytest.raises(NotImplementedError, match="multi-card"):
+        ShardedEmbeddingTrainer(deepfm.custom_model(vocab_size=10, device="cpu"), deepfm.loss,
+                                deepfm.optimizer(), mesh=["cuda:0", "cuda:1"], device="cpu")
+    with pytest.raises(NotImplementedError, match=port_device.MULTI_CARD_ITEM):
+        deepfm.custom_model(vocab_size=10, mesh=["cuda:0", "cuda:1"], device="cpu")
 
 
 def test_pad_batch_matches_jax():

@@ -56,6 +56,11 @@ def test_port_sources_import_nothing_forbidden():
     # transport, torch.distributed, is part of torch, not a forbidden name.
     assert {"elasticdl_tpu_torch.parallel.mesh",
             "elasticdl_tpu_torch.parallel.ring_attention"} <= names
+    # So are the sharded dispatch's and K10's, and the experiment script.
+    assert {"elasticdl_tpu_torch.parallel.compile",
+            "elasticdl_tpu_torch.parallel.sharding",
+            "elasticdl_tpu_torch.ops.sparse_gather",
+            "elasticdl_tpu_torch.bench.exp_sparse_gather"} <= names
     assert not _forbidden("torch.distributed")
 
 
@@ -135,3 +140,8 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         virtual_devices(4)
+    from elasticdl_tpu_torch.bench import exp_sparse_gather
+
+    for measure in (exp_sparse_gather.main, exp_sparse_gather.main_shard_map):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            measure(64, 320)
