@@ -8,7 +8,12 @@ Run from the root of a checkout.  Phases, each fatal on failure (the
 training phases 5-9 follow the serving phases 3-4):
 
 1. The card (``nvidia-smi`` name and power limit), torch/CUDA versions,
-   and the build of the hand-written kernels from ``ops/csrc``.
+   and the build of the hand-written kernels from ``ops/csrc``; each
+   attention kernel's registers, shared memory, stack and spill bytes,
+   and its count of tensor-core instructions (HMMA, HGMMA) in its SASS,
+   read with ``cuobjdump`` from the built library (a line says so where
+   cuobjdump is missing); the bf16 K4 and K6 builds must hold HMMA or
+   HGMMA.
 2. Each kernel against its plain PyTorch version on the card, on a
    26M-row table (DeepFM's 26 fields x 1M ids, dim 1+8 -> [26M, 16]
    f32), generated on the device from a seeded ``torch.Generator``:
@@ -51,13 +56,14 @@ kernels K4-K6):
     H=8, T=2048, D=64; causal and not) and at T=8192, B=2 (causal):
     out, lse, dq, dk, dv within the stated tolerances, then timed like
     phase 2 beside the plain versions, the bound (operations over the
-    bf16 peak, or bytes) and PyTorch's ``scaled_dot_product_attention``.
+    bf16 peak, or bytes) and PyTorch's ``scaled_dot_product_attention``,
+    with the TFLOP/s each reaches (the bound's operations over its time).
 11. Training at full width: ``TransformerLM`` at ``bench.py``'s
     ``TRANSFORMER_BENCH`` (vocab 32768, d_model 512, 8 heads, 4 layers,
     T=2048, bf16, f32 head), batch 16 of the synthetic LM data, AdamW
     3e-3, by ``DataParallelTrainer`` on the default device: warm-up, 20
-    timed steps (tokens/s, median step, a CUDA-event breakdown with the
-    attention kernels' in-step time, peak memory), the loss must fall;
+    timed steps (tokens/s, median step, a CUDA-event breakdown with K4's,
+    K5's and K6's in-step times, peak memory), the loss must fall;
     then one ``train_window`` of 4 staged steps.
 12. From one cloned state, 3 steps through the kernels and 3 with the
     plain versions patched in: losses and parameters within the stated
@@ -135,6 +141,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -338,6 +345,118 @@ def import_port():
     pkg = os.path.dirname(os.path.abspath(elasticdl_tpu_torch.__file__))
     if os.path.dirname(pkg) != here:
         fail(f"elasticdl_tpu_torch comes from {pkg}, not from this checkout")
+
+
+# ----------------------------------------------------------------------
+# phase 1: what the attention kernels were compiled to
+# ----------------------------------------------------------------------
+
+#: The bf16 builds of K4 and K6 run on the tensor cores (mma.sync): their
+#: SASS must hold HMMA (or wgmma's HGMMA).
+TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_dkv_mma_kernel")
+_KERNEL_LABEL = re.compile(r"((?:flash|ring)_[a-z_]*kernel)I(13__nv_bfloat16|f)?Li(\d+)E")
+
+
+def kernel_label(mangled: str):
+    """``name<dtype, DP>`` of an attention kernel's mangled name, or None."""
+    m = _KERNEL_LABEL.search(mangled)
+    if m is None:
+        return None
+    dtype = "f32" if m.group(2) == "f" else "bf16"
+    return f"{m.group(1)}<{dtype}, {m.group(3)}>"
+
+
+def cuobjdump_path():
+    from elasticdl_tpu_torch.ops import _build
+
+    candidate = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    return candidate if os.path.exists(candidate) else shutil.which("cuobjdump")
+
+
+def parse_ptxas_spills(log_text: str):
+    """{mangled name: (spill store bytes, spill load bytes)} from
+    ``-Xptxas=-v`` output."""
+    spills, current = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current:
+            spills[current] = (int(m.group(1)), int(m.group(2)))
+            current = None
+    return spills
+
+
+def parse_resource_usage(text: str):
+    """{mangled name: {REG, STACK, SHARED, LOCAL}} from ``cuobjdump
+    --dump-resource-usage``."""
+    usage, current = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function (\S+):", line)
+        if m:
+            current = m.group(1)
+            continue
+        if current and "REG:" in line:
+            usage[current] = {key: int(val) for key, val in
+                              re.findall(r"\b(REG|STACK|SHARED|LOCAL):(\d+)", line)}
+            current = None
+    return usage
+
+
+def parse_sass_mma(text: str):
+    """{mangled name: (HMMA count, HGMMA count)} from ``cuobjdump -sass``."""
+    counts, current = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            counts[current] = [0, 0]
+            continue
+        if current:
+            counts[current][0] += len(re.findall(r"\bHMMA\.", line))
+            counts[current][1] += len(re.findall(r"\bHGMMA\.", line))
+    return {name: tuple(c) for name, c in counts.items()}
+
+
+def attention_resources(lib_path: str, build_log: str):
+    """Registers, shared memory, spills and tensor-core instructions of
+    every attention kernel in the built library, by label; None, with a
+    line that says so, where cuobjdump is missing.  Fails if a bf16 K4
+    or K6 build holds no HMMA/HGMMA."""
+    tool = cuobjdump_path()
+    if tool is None:
+        log("  attention kernels' resources: cuobjdump not found (neither beside nvcc "
+            "nor on PATH): registers and SASS not read")
+        return None
+    usage = parse_resource_usage(subprocess.run(
+        [tool, "--dump-resource-usage", lib_path], check=True, capture_output=True,
+        text=True, timeout=300).stdout)
+    sass = parse_sass_mma(subprocess.run(
+        [tool, "-sass", lib_path], check=True, capture_output=True, text=True,
+        timeout=300).stdout)
+    spills = parse_ptxas_spills(build_log)
+    found = {}
+    for mangled, use in sorted(usage.items()):
+        label = kernel_label(mangled)
+        if label is None:
+            continue
+        hmma, hgmma = sass.get(mangled, (0, 0))
+        spill = spills.get(mangled, (None, None))
+        found[label] = {"registers": use.get("REG"), "static_shared_bytes": use.get("SHARED"),
+                        "stack_bytes": use.get("STACK"), "local_bytes": use.get("LOCAL"),
+                        "spill_store_bytes": spill[0], "spill_load_bytes": spill[1],
+                        "hmma": hmma, "hgmma": hgmma}
+        log(f"  {label}: {use.get('REG')} registers, spill stores/loads {spill[0]}/{spill[1]} "
+            f"bytes, stack {use.get('STACK')} B, local {use.get('LOCAL')} B, static shared "
+            f"{use.get('SHARED')} B, SASS HMMA {hmma} HGMMA {hgmma}")
+    for name in TENSOR_CORE_KERNELS:
+        for dp in (64, 128):
+            r = found.get(f"{name}<bf16, {dp}>")
+            if r is None or r["hmma"] + r["hgmma"] == 0:
+                fail(f"{name}<bf16, {dp}> is missing from the library or holds no HMMA/HGMMA")
+    return found
 
 
 # ----------------------------------------------------------------------
@@ -1019,19 +1138,24 @@ def attention_bound_ms(b, t, h, d, causal):
     once; bf16 tensors, f32 lse/delta).  Operations: forward 4*B*H*T^2*D,
     backward 10*B*H*T^2*D (x 1/2 causal); of the backward, K5 is given
     dQ (2) and K6 S, dP, dV and dK (8)."""
-    half = 0.5 if causal else 1.0
-    unit = b * h * t * t * d * half
     tensor, rows = b * t * h * d * 2, b * h * t * 4
+    nbytes = {"flash_attention_fwd": 4 * tensor + rows,
+              "flash_attention_dq": 5 * tensor + 2 * rows,
+              "flash_attention_dkv": 6 * tensor + 2 * rows}
+    out = {}
+    for name, ops in attention_ops(b, t, h, d, causal).items():
+        op_ms = ops / BF16_FLOPS_PER_S * 1e3
+        byte_ms = nbytes[name] / HBM_BYTES_PER_S * 1e3
+        out[name] = (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes")
+    return out
 
-    def bound(ops, nbytes):
-        op_ms, byte_ms = ops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
 
-    return {
-        "flash_attention_fwd": bound(4 * unit, 4 * tensor + rows),
-        "flash_attention_dq": bound(2 * unit, 5 * tensor + 2 * rows),
-        "flash_attention_dkv": bound(8 * unit, 6 * tensor + 2 * rows),
-    }
+def attention_ops(b, t, h, d, causal):
+    """The operations attention_bound_ms gives each of K4-K6 (what the
+    algorithm needs; a kernel's TFLOP/s is these over its time)."""
+    unit = b * h * t * t * d * (0.5 if causal else 1.0)
+    return {"flash_attention_fwd": 4 * unit, "flash_attention_dq": 2 * unit,
+            "flash_attention_dkv": 8 * unit}
 
 
 def attention_close(name, got, want, tol=None):
@@ -1153,16 +1277,20 @@ def attention_phase(card: str, seed: int):
         }
         lib_fwd, lib_bwd = sdpa_ms(q, k, v, do, causal, flush)
         bounds = attention_bound_ms(b, t, h, d, causal)
+        ops = attention_ops(b, t, h, d, causal)
         entry = {"shape": shape, "kernels": {}}
         for name in fa.KERNELS:
             ms, plain = times[name]
+            tflops = ops[name] / ms * 1e-9
             entry["kernels"][name] = {
                 "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+                "tflop_per_s": tflops,
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                 "library_ms": lib_fwd if name == "flash_attention_fwd" else lib_bwd,
             }
-            log(f"kernel {name}: {shape}: max_abs_err {errs[name]!r}, {ms!r} ms (plain "
-                f"{plain!r} ms, bound {bounds[name][0]!r} ms by {bounds[name][1]}) [{card}]")
+            log(f"kernel {name}: {shape}: max_abs_err {errs[name]!r}, {ms!r} ms, {tflops!r} "
+                f"TFLOP/s (plain {plain!r} ms, bound {bounds[name][0]!r} ms by "
+                f"{bounds[name][1]}) [{card}]")
         log(f"  sdpa yardstick {shape}: forward {lib_fwd!r} ms, backward (dq, dk, dv) "
             f"{lib_bwd!r} ms [{card}]")
         results.append(entry)
@@ -1181,35 +1309,35 @@ def attention_phase(card: str, seed: int):
 @contextlib.contextmanager
 def timed_attention(records, names=None):
     """Wrap the kernel functions ``names`` of ``ops.flash_attention``
-    (default K4-K6) so each call records CUDA events around itself: the
-    kernels' device time inside a step."""
+    (default K4-K6) so each call records CUDA events around itself into
+    ``records[name]``: the kernels' device time inside a step."""
     import torch
 
     from elasticdl_tpu_torch.ops import flash_attention as fa
 
-    def wrap(fn):
+    def wrap(name, fn):
         def timed(*args, **kwargs):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             result = fn(*args, **kwargs)
             end.record()
-            records.append((start, end))
+            records.setdefault(name, []).append((start, end))
             return result
         return timed
 
     with contextlib.ExitStack() as stack:
         for name in names or fa.KERNELS:
-            stack.enter_context(mock.patch.object(fa, name, wrap(getattr(fa, name))))
+            stack.enter_context(mock.patch.object(fa, name, wrap(name, getattr(fa, name))))
         yield
 
 
 def lm_time_parts(trainer, staged, names=None):
     """One LM step through its three parts between CUDA events, and the
-    attention kernels' (``names``, default K4-K6) summed device time
-    inside it; ms."""
+    attention kernels' (``names``, default K4-K6) device time inside it,
+    summed and by kernel (``kernel_ms``); ms."""
     import torch
 
-    records = []
+    records = {}
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     with timed_attention(records, names):
         marks[0].record()
@@ -1222,7 +1350,9 @@ def lm_time_parts(trainer, staged, names=None):
     torch.cuda.synchronize()
     parts = {name: marks[i].elapsed_time(marks[i + 1])
              for i, name in enumerate(("forward", "backward", "adamw"))}
-    parts["attention_kernels"] = sum(s.elapsed_time(e) for s, e in records)
+    parts["kernel_ms"] = {name: sum(s.elapsed_time(e) for s, e in events)
+                          for name, events in records.items()}
+    parts["attention_kernels"] = sum(parts["kernel_ms"].values())
     parts["step"] = marks[0].elapsed_time(marks[3])
     parts["attention_share"] = parts["attention_kernels"] / parts["step"]
     return parts
@@ -1403,6 +1533,9 @@ def lm_training_phases(card: str, seed: int, warmup: int = 2, steps: int = 20,
         f"tokens/s, step median {train['step_ms_median']!r} ms (device, CUDA events); loss "
         f"{first!r} -> {last!r}; launches {counts}; peak {peak / 1e9!r} GB; one step's "
         f"parts {parts} [{card}]")
+    log("LM step's attention kernels (device ms in one step, CUDA events): " + ", ".join(
+        f"{name} {ms!r}" for name, ms in parts["kernel_ms"].items())
+        + f"; {parts['attention_kernels']!r} of {parts['step']!r} [{card}]")
 
     # the staged window
     window = trainer.stage_window(batches[:4])
@@ -2276,7 +2409,15 @@ def ring_entries(ring_kernels, ring_whole, cp, card):
     return line
 
 
-def flash_entries(attention, edges, train, card):
+#: The build of each of K4-K6 on the LM's path (bf16, head_dim 64).
+FLASH_LM_BUILDS = {
+    "flash_attention_fwd": "flash_fwd_mma_kernel<bf16, 64>",
+    "flash_attention_dq": "flash_dq_kernel<bf16, 64>",
+    "flash_attention_dkv": "flash_dkv_mma_kernel<bf16, 64>",
+}
+
+
+def flash_entries(attention, edges, train, card, resources=None):
     """The K4-K6 entries of the kernels line: numbers at the LM's shape
     (the first of ATTN_SHAPES), the other shapes beside them."""
     line = []
@@ -2291,13 +2432,17 @@ def flash_entries(attention, edges, train, card):
             "max_abs_err": max(e["kernels"][name]["max_abs_err"] for e in attention),
             "edge_shapes_max_abs_err": edges[name],
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+            "tflop_per_s": main_shape["tflop_per_s"],
             "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
             "library_ms": main_shape["library_ms"],
+            "build": FLASH_LM_BUILDS[name],
+            "resources": (resources or {}).get(FLASH_LM_BUILDS[name]),
             "library": ("F.scaled_dot_product_attention forward" if name == "flash_attention_fwd"
                         else "F.scaled_dot_product_attention backward (dq, dk, dv together)"),
             "shape": attention[0]["shape"],
             "other_shapes": {e["shape"]: e["kernels"][name] for e in attention[1:]},
             "train_step_attention_ms": train["breakdown_ms"]["attention_kernels"],
+            "train_step_kernel_ms": train["breakdown_ms"]["kernel_ms"][name],
             "card": card,
         })
     return line
@@ -2329,12 +2474,14 @@ def main() -> None:
     from elasticdl_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
+    lib_path = _build.build()
     _build.library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    for path in sorted(_build.BUILD_DIR.glob("*.log")):
-        for line in path.read_text().splitlines():
-            if "registers" in line or "spill" in line or "entry function" in line:
-                log(f"  ptxas: {line.strip()}")
+    build_log = lib_path.with_suffix(".log").read_text()
+    for line in build_log.splitlines():
+        if "registers" in line or "spill" in line or "entry function" in line:
+            log(f"  ptxas: {line.strip()}")
+    resources = attention_resources(str(lib_path), build_log)
 
     kernels = kernel_phase(card, args.seed) if run(2) else None
     k3 = dedup_apply_phase(card, args.seed) if run(5) else None
@@ -2422,7 +2569,7 @@ def main() -> None:
         "sharded": on_mesh["fused_dedup_apply"],
         "card": card,
     })
-    line += flash_entries(attention, edges, lm, card)
+    line += flash_entries(attention, edges, lm, card, resources)
     line += ring_entries(ring_kernels, ring_whole, cp, card)
     line.append({
         "name": "block_gather", "ok": True, "route": "cuda", "source": K10_SOURCE,

@@ -33,8 +33,9 @@
 // kernels are skipped.  out, dO, dq, dk and dv are contiguous
 // [B, T, H, D]; lse and delta are contiguous [B, H, T] f32.
 //
-// Roundings, those of the TPU kernels: q is upcast to f32 and multiplied
-// by `scale` (already an f32) before Q K^T; every product and sum is f32;
+// Roundings, those of the TPU kernels (the FMA builds; the bf16
+// tensor-core builds of K4 and K6 differ as set out below): q is upcast
+// to f32 and multiplied by `scale` (already an f32) before Q K^T; every product and sum is f32;
 // masked scores are NEG_INF = -1e30, not -inf; P is rounded to v's dtype
 // before P V in the forward (p_round below); the output is divided by l
 // (l == 0 -> 1) and cast to q's dtype.  The backward is f32 throughout;
@@ -55,13 +56,31 @@
 // the forward needs 4*B*H*T^2*D / 2 = 68.7 GFLOP and moves 135 MB: 0.069
 // ms at the bf16 tensor-core peak against 0.040 ms at the memory rate,
 // so operations bound K4 and K6 (given S, dP, dV and dK of the
-// backward); K5, left with dQ's share, sits near its bytes.  This
-// first version is a simple one: tiles of 64 x 64 staged in shared
-// memory as f32, every product an f32 FMA on the CUDA cores (a register
-// tile of 4 x 4 scores, or 4 rows x 4 columns of the accumulator, per
-// thread; float4 reads from shared memory without bank conflicts).  Its
-// ceiling is the card's 67 TFLOP/s f32 rate, not the 989 TFLOP/s of the
-// bf16 tensor cores: wgmma, TMA and a bf16 P V are a later PR's work.
+// backward); K5, left with dQ's share, sits near its bytes.
+//
+// Two designs, chosen by the input dtype (EDL_FLASH_DISPATCH):
+//
+// - bf16 K4 and K6 (flash_fwd_mma_kernel, flash_dkv_mma_kernel; the LM's
+//   path) run their products on the tensor cores: mma.sync m16n8k16,
+//   bf16 operands, f32 sums, fed by ldmatrix from bf16 tiles that
+//   cp.async stages two deep.  Their ceiling is the 989 TFLOP/s bf16
+//   peak; mma.sync, not wgmma, and the f32 softmax between the products
+//   hold them well below it.  Three numbers must not move: the MMA runs
+//   on the unscaled bf16 q and S is scaled in f32 after it (rounding q *
+//   scale to bf16, inexact at D=128, moves lse past 1e-4); P is rounded
+//   to bf16 per 64 keys against the running max, as above, while l sums
+//   the unrounded p; and in K6, whose reference keeps P and dS in f32,
+//   each is split into hi = bf16(x) and lo = bf16(x - hi), two products
+//   into one f32 sum (x to ~16 bits), because one bf16 rounding of them
+//   puts dk past the kernels' bf16 tolerance.
+// - Everything else (f32 K4 and K6, K5 in both dtypes, K7-K9) is the
+//   first, simple design: tiles of 64 x 64 staged in shared memory as
+//   f32, every product an f32 FMA on the CUDA cores (a register tile of 4
+//   x 4 scores, or 4 rows x 4 columns of the accumulator, per thread;
+//   float4 reads from shared memory without bank conflicts), whose
+//   ceiling is the card's 67 TFLOP/s f32 rate.  f32 inputs keep it
+//   because their check (rtol 1e-5) is tighter than bf16 or TF32
+//   products can meet.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so the Python wrapper can raise on a
@@ -71,6 +90,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -543,16 +564,553 @@ cudaError_t allow_smem(K kernel, int bytes) {
                               bytes);
 }
 
+// ---------------------------------------------------------------------
+// K4 and K6 for bf16 inputs: the products on the tensor cores.
+//
+// mma.sync.m16n8k16 (bf16 operands, f32 accumulators) with ldmatrix from
+// shared memory.  Four warps; each owns 16 rows of the block's 64-row
+// tile (q rows in K4, key rows in K6), so a row's max and sums stay in
+// the four lanes that hold it.  Tiles are staged as bf16 by cp.async
+// (16 bytes a copy; a copy past T or past d has source size 0, which
+// fills zeros) at a row pitch of DP + 8 elements, so the 8 rows an
+// ldmatrix reads fall on distinct banks.  The loop's next tile is in
+// flight while this one computes: one barrier per tile, two stages.
+// Only these helpers and kernels differ from the FMA ones above.
+// ---------------------------------------------------------------------
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+
+template <int DP>
+__host__ __device__ constexpr int mma_pitch() {
+  return DP + 8;  // bf16 elements per staged row: 16 bytes past DP
+}
+template <int DP>
+__host__ __device__ constexpr int mma_tile_bytes() {
+  return kTile * mma_pitch<DP>() * 2;
+}
+template <int DP>
+__host__ __device__ constexpr int fwd_mma_smem_bytes() {
+  return 5 * mma_tile_bytes<DP>();  // Q, two stages of K and V
+}
+template <int DP>
+__host__ __device__ constexpr int dkv_mma_smem_bytes() {
+  return 6 * mma_tile_bytes<DP>() + 2 * 2 * kTile * 4;  // K, V, 2 x (Q, dO, lse, delta)
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zeros when !full (nothing is read then).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8 x 8 bf16 matrices; lane i gives the address of a row of matrix
+// i / 8.  _t transposes each matrix on the way.
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a b: a 16 x 16 (row), b 16 x 8 (col), bf16; c 16 x 8 f32.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 as a bf16 pair (x in the low half), rounded to nearest.
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// x = hi + lo to about 16 significant bits: hi = bf16(x), lo = bf16(x -
+// hi) (x - hi is exact in f32), each a bf16 pair as pack_bf16.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
+// The A fragment of a 16 x 16 tile from two 16 x 8 accumulator
+// fragments side by side (FA2's register reuse: S's columns are the
+// next product's k).
+__device__ __forceinline__ void acc_to_a(const float c0[4], const float c1[4], uint32_t a[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+__device__ __forceinline__ void acc_to_a_split(const float c0[4], const float c1[4],
+                                               uint32_t hi[4], uint32_t lo[4]) {
+  split_bf16(c0[0], c0[1], hi[0], lo[0]);
+  split_bf16(c0[2], c0[3], hi[1], lo[1]);
+  split_bf16(c1[0], c1[1], hi[2], lo[2]);
+  split_bf16(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// Max / sum over the four lanes that hold one row of an accumulator.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Rows [t0, t0 + 64) of one (batch, head) of a bf16 [B, T, H, D] tensor
+// into a [64][DP + 8] bf16 tile by cp.async; rows past T and columns
+// past d are zero.  d is a multiple of 8: a 16-byte copy is all in or
+// all out.  The caller commits.
+template <int DP>
+__device__ __forceinline__ void mma_load_tile(__nv_bfloat16* dst,
+                                              const __nv_bfloat16* __restrict__ src,
+                                              long long s_t, int t0, int t_len, int d) {
+  constexpr int kChunks = DP / 8;
+  constexpr int kLd = mma_pitch<DP>();
+#pragma unroll
+  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kMmaThreads) {
+    const int r = idx / kChunks;
+    const int c = (idx - r * kChunks) * 8;
+    const int t = t0 + r;
+    const bool in = t < t_len && c < d;
+    cp_async16(dst + r * kLd + c, in ? src + (long long)t * s_t + c : src, in);
+  }
+}
+
+// 64 f32 of a [B, H, T] row (lse, delta) from t0; zeros past T.
+__device__ __forceinline__ void mma_load_rows(float* dst, const float* __restrict__ src,
+                                              int t0, int t_len) {
+  if (threadIdx.x < kTile) {
+    const int t = t0 + threadIdx.x;
+    cp_async4(dst + threadIdx.x, t < t_len ? src + t : src, t < t_len);
+  }
+}
+
+// A warp's 16-row slab of an f32 accumulator tile (this lane: rows r
+// and r + 8, columns 8 n + 2 (lane % 4) + {0, 1}) into a contiguous [B,
+// T, H, D] bf16 tensor, times `mul`, in bf16 pairs.
+template <int DP>
+__device__ __forceinline__ void mma_store_rows(__nv_bfloat16* __restrict__ dst, long long o_st,
+                                               int r, int t_len, int d,
+                                               const float acc[DP / 8][4], float mul) {
+  const int c0 = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = r + 8 * half;
+    if (t >= t_len) continue;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int c = 8 * n + c0;
+      if (c >= d) continue;
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)t * o_st + c) =
+          __floats2bfloat162_rn(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// K4 on the tensor cores.  Block (q tile, head, batch), as
+// flash_fwd_kernel; warp w owns q rows 16 w .. 16 w + 15 and keeps them
+// in registers as A fragments.  Per 64-key tile: S = Q K^T by mma from
+// the unscaled bf16 q (the product of two bf16 is exact in f32), times
+// `scale` in f32; the online softmax of flash_fwd_kernel per 64 keys (l
+// sums the unrounded p); P rounded to bf16 straight from S's
+// accumulators into the A fragments of P V.
+// ---------------------------------------------------------------------
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ out, float* __restrict__ lse, Shape s) {
+  constexpr int kLd = mma_pitch<DP>();
+  constexpr int kElems = kTile * kLd;
+  constexpr int kN = DP / 8;  // 8-column fragments of a row of out
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* k_s = q_s + kElems;      // two stages
+  __nv_bfloat16* v_s = k_s + 2 * kElems;  // two stages
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_q = n_tiles(s.t_len);
+  const int qi = s.causal ? n_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long in_off = b * s.in_sb + h * s.in_sh;
+  const int q0 = qi * kTile;
+  int n_k = n_tiles(s.t_len);
+  if (s.causal) n_k = min(n_k, (q0 + kTile + kTile - 1) / kTile);
+
+  mma_load_tile<DP>(q_s, q + in_off, s.in_st, q0, s.t_len, s.d);
+  mma_load_tile<DP>(k_s, k + in_off, s.in_st, 0, s.t_len, s.d);
+  mma_load_tile<DP>(v_s, v + in_off, s.in_st, 0, s.t_len, s.d);
+  cp_async_commit();
+
+  // This lane's rows of the tile: r_lo and r_lo + 8.
+  const int r_lo = q0 + 16 * warp + (lane >> 2);
+  uint32_t qf[DP / 16][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, o[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  }
+
+  for (int kb = 0; kb < n_k; ++kb) {
+    // Tile kb has landed, and every warp is done with tile kb - 1, whose
+    // stage the next copy overwrites.
+    cp_async_wait_all();
+    __syncthreads();
+    if (kb == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        ldsm_x4(qf[kk], q_s + (16 * warp + (lane & 15)) * kLd + 16 * kk + 8 * (lane >> 4));
+      }
+    }
+    if (kb + 1 < n_k) {
+      const int stage = (kb + 1) & 1;
+      mma_load_tile<DP>(k_s + stage * kElems, k + in_off, s.in_st, (kb + 1) * kTile, s.t_len,
+                        s.d);
+      mma_load_tile<DP>(v_s + stage * kElems, v + in_off, s.in_st, (kb + 1) * kTile, s.t_len,
+                        s.d);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* ks = k_s + (kb & 1) * kElems;
+    const __nv_bfloat16* vs = v_s + (kb & 1) * kElems;
+
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4];
+        ldsm_x4(bk, ks + (16 * np + (lane & 7) + 8 * (lane >> 4)) * kLd + 16 * kk +
+                        8 * ((lane >> 3) & 1));
+        mma_bf16(sc[2 * np], qf[kk], bk[0], bk[1]);
+        mma_bf16(sc[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
+    }
+
+    const int k0 = kb * kTile;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int q_pos = r_lo + 8 * half;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k_pos = k0 + 8 * j + 2 * (lane & 3) + e;
+          float x = sc[j][2 * half + e] * s.scale;
+          if (k_pos >= s.t_len || (s.causal && k_pos > q_pos)) x = kNegInf;
+          sc[j][2 * half + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+      const float m_new = fmaxf(m[half], quad_max(mx));
+      const float corr = expf(m[half] - m_new);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(sc[j][2 * half + e] - m_new);
+          sc[j][2 * half + e] = p;
+          rs += p;
+        }
+      }
+      l[half] = l[half] * corr + quad_sum(rs);
+      m[half] = m_new;
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        o[n][2 * half] *= corr;
+        o[n][2 * half + 1] *= corr;
+      }
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // 16 keys a step
+      uint32_t pa[4];
+      acc_to_a(sc[2 * kk], sc[2 * kk + 1], pa);
+#pragma unroll
+      for (int np = 0; np < DP / 16; ++np) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, vs + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + 16 * np +
+                          8 * (lane >> 4));
+        mma_bf16(o[2 * np], pa, bv[0], bv[1]);
+        mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
+      }
+    }
+  }
+
+  const long long o_st = (long long)s.heads * s.d;
+  __nv_bfloat16* out_bh = out + (long long)b * s.t_len * o_st + (long long)h * s.d;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float l_safe = l[half] == 0.0f ? 1.0f : l[half];
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      o[n][2 * half] = o[n][2 * half] / l_safe;
+      o[n][2 * half + 1] = o[n][2 * half + 1] / l_safe;
+    }
+    const int t = r_lo + 8 * half;
+    if ((lane & 3) == 0 && t < s.t_len) {
+      lse[((long long)b * s.heads + h) * s.t_len + t] = m[half] + logf(l_safe);
+    }
+  }
+  mma_store_rows<DP>(out_bh, o_st, r_lo, s.t_len, s.d, o, 1.0f);
+}
+
+// ---------------------------------------------------------------------
+// K6 on the tensor cores.  Block (k tile, head, batch), as
+// flash_dkv_kernel, looping over the q tiles from the causal first; the
+// next q tile's Q, dO, lse and delta are in flight while this one
+// computes.  Warp w owns keys 16 w .. 16 w + 15 and its rows of dK and
+// dV; it takes the q tile 16 queries at a time (which bounds S^T and
+// dP^T to 8 registers each) and skips the 16 whose queries all precede
+// its keys under the causal mask.  S^T = K Q^T and dP^T = V dO^T by mma
+// (exact products, f32 sums), S^T times `scale` in f32; P = exp(S^T -
+// lse) and dS = P (dP^T - delta) in f32 registers.  dV += P^T dO and dK
+// += dS^T Q take P and dS from those registers as A fragments, each
+// split into hi = bf16(x) and lo = bf16(x - hi), two mma into one
+// accumulator: the reference keeps P and dS in f32, and one bf16
+// rounding of them puts dk past the kernels' bf16 tolerance.
+// ---------------------------------------------------------------------
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                         Shape s) {
+  constexpr int kLd = mma_pitch<DP>();
+  constexpr int kElems = kTile * kLd;
+  constexpr int kN = DP / 8;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* v_s = k_s + kElems;
+  __nv_bfloat16* q_s = v_s + kElems;       // two stages
+  __nv_bfloat16* do_s = q_s + 2 * kElems;  // two stages
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kElems);  // two stages
+  float* delta_s = lse_s + 2 * kTile;                          // two stages
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int kj = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long in_off = b * s.in_sb + h * s.in_sh;
+  const long long o_st = (long long)s.heads * s.d;
+  const long long o_off = (long long)b * s.t_len * o_st + (long long)h * s.d;
+  const long long row_off = ((long long)b * s.heads + h) * s.t_len;
+  const int k0 = kj * kTile;
+  const int n_q = n_tiles(s.t_len);
+  // Causal: q tiles wholly before this k tile see none of it.
+  const int q_first = s.causal ? kj : 0;
+
+  mma_load_tile<DP>(k_s, k + in_off, s.in_st, k0, s.t_len, s.d);
+  mma_load_tile<DP>(v_s, v + in_off, s.in_st, k0, s.t_len, s.d);
+  mma_load_tile<DP>(q_s, q + in_off, s.in_st, q_first * kTile, s.t_len, s.d);
+  mma_load_tile<DP>(do_s, dout + o_off, o_st, q_first * kTile, s.t_len, s.d);
+  mma_load_rows(lse_s, lse + row_off, q_first * kTile, s.t_len);
+  mma_load_rows(delta_s, delta + row_off, q_first * kTile, s.t_len);
+  cp_async_commit();
+
+  // This lane's key rows: r_lo and r_lo + 8.
+  const int k_lo = 16 * warp;
+  const int r_lo = k0 + k_lo + (lane >> 2);
+  float dk_acc[kN][4], dv_acc[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk_acc[n][e] = 0.0f;
+      dv_acc[n][e] = 0.0f;
+    }
+  }
+
+  for (int qb = q_first; qb < n_q; ++qb) {
+    const int it = qb - q_first;
+    cp_async_wait_all();
+    __syncthreads();
+    if (qb + 1 < n_q) {
+      const int stage = (it + 1) & 1;
+      const int t0 = (qb + 1) * kTile;
+      mma_load_tile<DP>(q_s + stage * kElems, q + in_off, s.in_st, t0, s.t_len, s.d);
+      mma_load_tile<DP>(do_s + stage * kElems, dout + o_off, o_st, t0, s.t_len, s.d);
+      mma_load_rows(lse_s + stage * kTile, lse + row_off, t0, s.t_len);
+      mma_load_rows(delta_s + stage * kTile, delta + row_off, t0, s.t_len);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* qs = q_s + (it & 1) * kElems;
+    const __nv_bfloat16* dos = do_s + (it & 1) * kElems;
+    const float* lses = lse_s + (it & 1) * kTile;
+    const float* deltas = delta_s + (it & 1) * kTile;
+    const int q0 = qb * kTile;
+
+#pragma unroll 1
+    for (int sub = 0; sub < kTile; sub += 16) {
+      if (s.causal && k0 + k_lo > q0 + sub + 15) continue;  // all masked: adds 0
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[j][e] = 0.0f;
+          dpt[j][e] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        uint32_t ka[4], va[4], bq[4], bo[4];
+        const int a_off = (k_lo + (lane & 15)) * kLd + 16 * kk + 8 * (lane >> 4);
+        const int b_off =
+            (sub + (lane & 7) + 8 * (lane >> 4)) * kLd + 16 * kk + 8 * ((lane >> 3) & 1);
+        ldsm_x4(ka, k_s + a_off);
+        ldsm_x4(va, v_s + a_off);
+        ldsm_x4(bq, qs + b_off);
+        ldsm_x4(bo, dos + b_off);
+        mma_bf16(st[0], ka, bq[0], bq[1]);
+        mma_bf16(st[1], ka, bq[2], bq[3]);
+        mma_bf16(dpt[0], va, bo[0], bo[1]);
+        mma_bf16(dpt[1], va, bo[2], bo[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = sub + 8 * j + 2 * (lane & 3) + (e & 1);
+          const int q_pos = q0 + col;
+          const int k_pos = r_lo + 8 * (e >> 1);
+          const float sv = (q_pos >= s.t_len || (s.causal && k_pos > q_pos))
+                               ? kNegInf
+                               : st[j][e] * s.scale;
+          const float p = expf(sv - lses[col]);
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - deltas[col]);
+        }
+      }
+      uint32_t p_hi[4], p_lo[4], ds_hi[4], ds_lo[4];
+      acc_to_a_split(st[0], st[1], p_hi, p_lo);
+      acc_to_a_split(dpt[0], dpt[1], ds_hi, ds_lo);
+#pragma unroll
+      for (int np = 0; np < DP / 16; ++np) {
+        uint32_t bo[4], bq[4];
+        const int b_off =
+            (sub + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + 16 * np + 8 * (lane >> 4);
+        ldsm_x4_t(bo, dos + b_off);
+        ldsm_x4_t(bq, qs + b_off);
+        mma_bf16(dv_acc[2 * np], p_hi, bo[0], bo[1]);
+        mma_bf16(dv_acc[2 * np], p_lo, bo[0], bo[1]);
+        mma_bf16(dv_acc[2 * np + 1], p_hi, bo[2], bo[3]);
+        mma_bf16(dv_acc[2 * np + 1], p_lo, bo[2], bo[3]);
+        mma_bf16(dk_acc[2 * np], ds_hi, bq[0], bq[1]);
+        mma_bf16(dk_acc[2 * np], ds_lo, bq[0], bq[1]);
+        mma_bf16(dk_acc[2 * np + 1], ds_hi, bq[2], bq[3]);
+        mma_bf16(dk_acc[2 * np + 1], ds_lo, bq[2], bq[3]);
+      }
+    }
+  }
+  mma_store_rows<DP>(dk + o_off, o_st, r_lo, s.t_len, s.d, dk_acc, s.scale);
+  mma_store_rows<DP>(dv + o_off, o_st, r_lo, s.t_len, s.d, dv_acc, 1.0f);
+}
+
+// The bf16 builds of K4 and K6 take 16-byte-aligned q, k, v, dO and
+// strides (the wrapper copies a tensor that lacks them); dO, out, dk and
+// dv are contiguous.
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+inline bool mma_inputs_ok(const void* q, const void* k, const void* v, const Shape& s) {
+  return aligned16(q) && aligned16(k) && aligned16(v) && s.in_sb % 8 == 0 &&
+         s.in_st % 8 == 0 && s.in_sh % 8 == 0 && s.d % 8 == 0;
+}
+
+template <int DP>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, void* out, float* lse,
+                           int batch, const Shape& s, cudaStream_t st) {
+  if (!mma_inputs_ok(q, k, v, s)) return cudaErrorMisalignedAddress;
+  constexpr int bytes = fwd_mma_smem_bytes<DP>();
+  cudaError_t err = allow_smem(flash_fwd_mma_kernel<DP>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s.t_len + kTile - 1) / kTile, s.heads, batch);
+  flash_fwd_mma_kernel<DP><<<grid, kMmaThreads, bytes, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)out, lse, s);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, void* dk, void* dv,
+                           int batch, const Shape& s, cudaStream_t st) {
+  if (!mma_inputs_ok(q, k, v, s) || !aligned16(dout)) return cudaErrorMisalignedAddress;
+  constexpr int bytes = dkv_mma_smem_bytes<DP>();
+  cudaError_t err = allow_smem(flash_dkv_mma_kernel<DP>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s.t_len + kTile - 1) / kTile, s.heads, batch);
+  flash_dkv_mma_kernel<DP><<<grid, kMmaThreads, bytes, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (const __nv_bfloat16*)dout, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, s);
+  return cudaGetLastError();
+}
+
 template <typename T, int DP>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out,
                        float* lse, int batch, const Shape& s, cudaStream_t st) {
-  constexpr int bytes = fwd_smem_bytes<DP>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, DP>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((s.t_len + kTile - 1) / kTile, s.heads, batch);
-  flash_fwd_kernel<T, DP><<<grid, kThreads, bytes, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, s);
-  return cudaGetLastError();
+  // bf16 runs on the tensor cores; f32 keeps the FMA kernel.
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_fwd_mma<DP>(q, k, v, out, lse, batch, s, st);
+  } else {
+    constexpr int bytes = fwd_smem_bytes<DP>();
+    cudaError_t err = allow_smem(flash_fwd_kernel<T, DP>, bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((s.t_len + kTile - 1) / kTile, s.heads, batch);
+    flash_fwd_kernel<T, DP><<<grid, kThreads, bytes, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, s);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int DP>
@@ -574,14 +1132,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, int batch, const Shape& s,
                        cudaStream_t st) {
-  constexpr int bytes = dkv_smem_bytes<DP>();
-  cudaError_t err = allow_smem(flash_dkv_kernel<T, DP>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((s.t_len + kTile - 1) / kTile, s.heads, batch);
-  flash_dkv_kernel<T, DP><<<grid, kThreads, bytes, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, s);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_dkv_mma<DP>(q, k, v, dout, lse, delta, dk, dv, batch, s, st);
+  } else {
+    constexpr int bytes = dkv_smem_bytes<DP>();
+    cudaError_t err = allow_smem(flash_dkv_kernel<T, DP>, bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((s.t_len + kTile - 1) / kTile, s.heads, batch);
+    flash_dkv_kernel<T, DP><<<grid, kThreads, bytes, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+        (T*)dk, (T*)dv, s);
+    return cudaGetLastError();
+  }
 }
 
 // ---------------------------------------------------------------------

@@ -38,6 +38,16 @@ end).  The tests hold the plain versions against the JAX package;
 ``chip_smoke.py`` holds the kernels against them on the card.  Nothing
 falls back from a kernel to its plain version.
 
+Two designs stand behind the kernels, chosen by dtype.  For bf16 inputs
+K4 and K6 run their products on the tensor cores (``mma.sync``, bf16
+operands, f32 sums), bounded by the card's bf16 rate: S is computed from
+the unscaled bf16 q and scaled in f32 after the product, and K6 feeds P
+and dS to its last two products split as ``hi = bf16(x)``, ``lo = bf16(x
+- hi)``, since the reference keeps them f32 and one bf16 rounding of them
+would put dk past the kernels' tolerance (``tests/test_torch_flash_mma_rounding.py``
+emulates both rules).  f32 inputs, K5 and K7-K9 are f32 FMA kernels on
+the CUDA cores.
+
 Layouts: q, k, v, out and the gradients are ``[B, T, H, D]`` as in the
 JAX function; the kernels read q, k, v through their strides, so the
 query/key/value slices of a fused projection go in without a copy.
@@ -134,13 +144,31 @@ def _check_kernel_dtype(q) -> None:
         )
 
 
+def _aligned16(x: torch.Tensor) -> bool:
+    """16-byte aligned data and row strides, as the bf16 kernels' 16-byte
+    copies need (f32 inputs take any alignment)."""
+    if x.dtype != torch.bfloat16:
+        return True
+    return x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:-1])
+
+
 def _kernel_inputs(q, k, v):
-    """Check what the CUDA kernels take; q, k, v with one set of strides
-    and a contiguous last dimension (copied only when they lack it)."""
+    """Check what the CUDA kernels take; q, k, v with one set of strides,
+    a contiguous last dimension and, in bf16, 16-byte alignment (copied
+    only when they lack it)."""
     _check_kernel_dtype(q)
-    if not (q.stride() == k.stride() == v.stride()) or q.stride(-1) != 1:
+    if (not (q.stride() == k.stride() == v.stride()) or q.stride(-1) != 1
+            or not all(_aligned16(x) for x in (q, k, v))):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if not all(_aligned16(x) for x in (q, k, v)):
+            q, k, v = q.clone(), k.clone(), v.clone()
     return q, k, v
+
+
+def _kernel_dout(do, q):
+    """dO in q's dtype, contiguous and, in bf16, 16-byte aligned."""
+    do = do.to(q.dtype).contiguous()
+    return do if _aligned16(do) else do.clone()
 
 
 def _stream() -> int:
@@ -206,7 +234,9 @@ def flash_attention_fwd(
     block_k: int = BLOCK,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: ``(out [B, T, H, D], lse [B, H, T] f32)``.  On the card the
-    kernel's tile is ``BLOCK``; ``block_k`` must be ``BLOCK`` there."""
+    kernel's tile is ``BLOCK``; ``block_k`` must be ``BLOCK`` there.  bf16
+    runs on the tensor cores (S = Q K^T from the unscaled q, scaled in
+    f32; P rounded to bf16 per ``BLOCK`` keys), f32 on the CUDA cores."""
     _check_qkv(q, k, v)
     if _route(q) == "plain":
         return flash_attention_fwd_plain(q, k, v, scale, causal, block_k)
@@ -303,7 +333,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, scale, causal) -> torch.Tensor:
     if _route(q) == "plain":
         return flash_attention_dq_plain(q, k, v, do, lse, delta, scale, causal)
     q, k, v = _kernel_inputs(q, k, v)
-    do = do.to(q.dtype).contiguous()
+    do = _kernel_dout(do, q)
     lse, delta = lse.contiguous(), delta.contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel():
@@ -315,13 +345,15 @@ def flash_attention_dq(q, k, v, do, lse, delta, scale, causal) -> torch.Tensor:
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, scale, causal):
-    """K6: ``(dk, dv)``, each ``[B, T, H, D]`` in the input dtype."""
+    """K6: ``(dk, dv)``, each ``[B, T, H, D]`` in the input dtype.  bf16
+    runs on the tensor cores, P and dS split into two bf16 terms each
+    before dV += P^T dO and dK += dS^T Q; f32 on the CUDA cores."""
     _check_qkv(q, k, v)
     _check_bwd(q, do, lse, delta)
     if _route(q) == "plain":
         return flash_attention_dkv_plain(q, k, v, do, lse, delta, scale, causal)
     q, k, v = _kernel_inputs(q, k, v)
-    do = do.to(q.dtype).contiguous()
+    do = _kernel_dout(do, q)
     lse, delta = lse.contiguous(), delta.contiguous()
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
