@@ -12,8 +12,7 @@ training phases 5-9 follow the serving phases 3-4):
    attention kernel's registers, shared memory, stack and spill bytes,
    and its count of tensor-core instructions (HMMA, HGMMA) in its SASS,
    read with ``cuobjdump`` from the built library (a line says so where
-   cuobjdump is missing); the bf16 K4 and K6 builds must hold HMMA or
-   HGMMA.
+   cuobjdump is missing); the bf16 K4-K7 builds must hold HMMA or HGMMA.
 2. Each kernel against its plain PyTorch version on the card, on a
    26M-row table (DeepFM's 26 fields x 1M ids, dim 1+8 -> [26M, 16]
    f32), generated on the device from a seeded ``torch.Generator``:
@@ -78,9 +77,12 @@ sequence sharded over a mesh's ``model`` axis):
     them dq = 0); every step of a ring of 4, contiguous and zigzag causal
     positions, at the CP LM's slot shape (B=4, T_local=2048, H=8, D=64)
     in bf16 and f32, and at ``bench.py``'s RING_BENCH (B=4, T_local=2048,
-    H=8, D=128, bf16) with a full step too.  Timed like phase 10 at
+    H=8, D=128, bf16) with a full step too; one bf16 edge on a q and a
+    K/V block that sit 2 bytes past a 16-byte boundary (the launcher
+    refuses them, the wrapper copies them).  Timed like phase 10 at
     RING_BENCH's unmasked step beside their bounds and PyTorch's
-    memory-efficient attention with the step's mask as its bias.
+    memory-efficient attention with the step's mask as its bias, and K7
+    also at the CP LM's slot shape (its unmasked step).
 14. An in-process ring of 4 slots (``parallel.mesh.virtual_devices``) on
     B=2, T=8192, H=8, D=64 bf16 causal, both layouts, against K4-K6 on
     the whole sequence: output and gradients at phase 10's tolerances.
@@ -351,9 +353,10 @@ def import_port():
 # phase 1: what the attention kernels were compiled to
 # ----------------------------------------------------------------------
 
-#: The bf16 builds of K4 and K6 run on the tensor cores (mma.sync): their
+#: The bf16 builds of K4-K7 run on the tensor cores (mma.sync): their
 #: SASS must hold HMMA (or wgmma's HGMMA).
-TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_dkv_mma_kernel")
+TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel",
+                       "ring_fwd_mma_kernel")
 _KERNEL_LABEL = re.compile(r"((?:flash|ring)_[a-z_]*kernel)I(13__nv_bfloat16|f)?Li(\d+)E")
 
 
@@ -423,8 +426,8 @@ def parse_sass_mma(text: str):
 def attention_resources(lib_path: str, build_log: str):
     """Registers, shared memory, spills and tensor-core instructions of
     every attention kernel in the built library, by label; None, with a
-    line that says so, where cuobjdump is missing.  Fails if a bf16 K4
-    or K6 build holds no HMMA/HGMMA."""
+    line that says so, where cuobjdump is missing.  Fails if a bf16
+    K4-K7 build holds no HMMA/HGMMA."""
     tool = cuobjdump_path()
     if tool is None:
         log("  attention kernels' resources: cuobjdump not found (neither beside nvcc "
@@ -1698,9 +1701,63 @@ def ring_edges(fa, gen, dev, card):
     if errs["unseen_rows"] != 2 * 40:
         fail(f"the no-key edge case has {errs['unseen_rows']} unseen rows, not 80")
     worst = {name: max(worst[name], errs[name]) for name in worst}
+    errs = ring_unaligned_edge(fa, gen, dev)
+    worst = {name: max(worst[name], errs[name]) for name in worst}
     log(f"kernels K7-K9 at the edge shapes ({len(RING_EDGE_SHAPES)} shapes, random positions, "
-        f"and 80 rows that see no key): within tolerance, max abs errors {worst} [{card}]")
+        f"80 rows that see no key, and a q and K/V block 2 bytes past a 16-byte boundary): "
+        f"within tolerance, max abs errors {worst} [{card}]")
     return worst
+
+
+#: cudaErrorMisalignedAddress, which the bf16 K7 launcher returns for a
+#: pointer or stride its 16-byte copies cannot take.
+CUDA_ERROR_MISALIGNED = 716
+
+
+def unaligned_copy(x):
+    """A contiguous copy of ``x`` that starts one element past an
+    allocation's (aligned) start: 2 bytes past a 16-byte boundary in
+    bf16."""
+    import torch
+
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def ring_unaligned_edge(fa, gen, dev):
+    """bf16 q and K/V block 2 bytes past a 16-byte boundary: the C entry
+    point refuses them (cudaErrorMisalignedAddress, nothing launched);
+    through the wrapper, which copies them, K7 launches and the ring
+    holds to the plain versions as at the other edges."""
+    import torch
+
+    from elasticdl_tpu_torch.ops import _build
+
+    b, tq, tk, h, d = 1, 130, 200, 2, 64
+    q, k, v, do = ring_step_inputs(gen, dev, b, tq, tk, h, d, torch.bfloat16)
+    q, k, v = unaligned_copy(q), unaligned_copy(k), unaligned_copy(v)
+    q_pos = torch.randint(0, tq + tk, (tq,), generator=gen, device=dev, dtype=torch.int32)
+    k_pos = torch.randint(0, tq + tk, (tk,), generator=gen, device=dev, dtype=torch.int32)
+    acc = torch.zeros((b, h, tq, d), dtype=torch.float32, device=dev)
+    lse = torch.full((b, h, tq, 1), -1e30, dtype=torch.float32, device=dev)
+    scale = fa.default_scale(d)
+    code = _build.library().edl_ring_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(), lse.data_ptr(),
+        q_pos.data_ptr(), k_pos.data_ptr(), *fa._ring_shape_args(q, k, scale, True))
+    torch.cuda.synchronize()
+    if code != CUDA_ERROR_MISALIGNED:
+        fail(f"edl_ring_fwd took a bf16 q 2 bytes past a 16-byte boundary (returned {code}, "
+             f"want {CUDA_ERROR_MISALIGNED})")
+    if not (bool((acc == 0.0).all()) and bool((lse == -1e30).all())):
+        fail("edl_ring_fwd refused a misaligned q but wrote the carry")
+    before = fa.launch_counts()["flash_ring_step_carry"]
+    errs = check_ring_ring(fa, q, k, v, do, (q_pos, [k_pos, q_pos.max() + 1 + k_pos]), True,
+                           scale, f"B={b} Tq={tq} Tk={tk} H={h} D={d} bf16 causal, unaligned")
+    if fa.launch_counts()["flash_ring_step_carry"] - before != 2:
+        fail("K7 did not launch on the unaligned inputs")
+    return errs
 
 
 def check_ring_layouts(fa, ring, q, k, v, do, n, scale, shape):
@@ -1748,6 +1805,52 @@ def efficient_attention_ms(q, k, v, do, q_pos, k_pos, flush):
     return fwd, bwd
 
 
+def ring_step_ops(b, h, d, pairs):
+    """The operations ring_bound_ms gives each of K7-K9 (a kernel's
+    TFLOP/s is these over its time)."""
+    unit = b * h * d * pairs
+    return {"flash_ring_step_carry": 4 * unit, "flash_ring_step_dq": 2 * unit,
+            "flash_ring_step_dkv": 8 * unit}
+
+
+def unmasked_step_positions(ring, dev, t, n):
+    """(q_pos, k_pos) of the ring's unmasked step: shard 1 against shard
+    0's block, contiguous."""
+    import torch
+
+    return tuple(torch.from_numpy(ring.shard_positions(i, t, n, "contiguous")).to(
+        dev, torch.int32) for i in (1, 0))
+
+
+def ring_fwd_slot_timing(fa, ring, gen, dev, flush, card):
+    """K7 timed at the CP LM's slot shape (bf16, the head_dim-64 build),
+    its unmasked step, beside its plain version, bound and the
+    memory-efficient forward (and that call's backward, the yardstick of
+    K8 + K9 on the CP LM's path)."""
+    import torch
+
+    b, t, h, d = CP_SLOT_SHAPE
+    q, k, v, do = ring_step_inputs(gen, dev, b, t, t, h, d, torch.bfloat16)
+    q_pos, k_pos = unmasked_step_positions(ring, dev, t, CP_MESH[1])
+    acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=dev)
+    lse = torch.full((b, h, t, 1), -1e30, dtype=torch.float32, device=dev)
+    kw = dict(causal=True, scale=fa.default_scale(d))
+    ms = median_ms(lambda: fa.flash_ring_step_carry(q, k, v, acc, lse, q_pos, k_pos, **kw), flush)
+    plain = median_ms(lambda: fa.flash_ring_step_carry_plain(q, k, v, acc, lse, q_pos, k_pos,
+                                                             **kw), flush)
+    lib, lib_bwd = efficient_attention_ms(q, k, v, do, q_pos, k_pos, flush)
+    pairs = unmasked_pairs(q_pos, k_pos, True)
+    bound, by = ring_bound_ms(b, h, t, t, d, pairs, 2)["flash_ring_step_carry"]
+    tflops = ring_step_ops(b, h, d, pairs)["flash_ring_step_carry"] / ms * 1e-9
+    shape = f"B={b} Tq=Tk={t} H={h} D={d} bf16, unmasked step (contiguous, shard 1 vs shard 0)"
+    log(f"kernel flash_ring_step_carry: {shape}: {ms!r} ms, {tflops!r} TFLOP/s (plain {plain!r} "
+        f"ms, bound {bound!r} ms by {by}; memory-efficient forward {lib!r} ms, its backward "
+        f"{lib_bwd!r} ms) [{card}]")
+    del q, k, v, do, acc, lse
+    return {"shape": shape, "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib, "library_backward_ms": lib_bwd, "tflop_per_s": tflops}
+
+
 def ring_kernel_phase(card: str, seed: int):
     import torch
 
@@ -1786,8 +1889,7 @@ def ring_kernel_phase(card: str, seed: int):
 
     # timed at the unmasked step: shard 1 against shard 0's block
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32, device=dev)
-    q_pos, k_pos = (torch.from_numpy(ring.shard_positions(i, t, n, "contiguous")).to(
-        dev, torch.int32) for i in (1, 0))
+    q_pos, k_pos = unmasked_step_positions(ring, dev, t, n)
     acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=dev)
     lse = torch.full((b, h, t, 1), -1e30, dtype=torch.float32, device=dev)
     fa.flash_ring_step_carry_plain(q, k, v, acc, lse, q_pos, k_pos, causal=True, scale=scale)
@@ -1814,25 +1916,31 @@ def ring_kernel_phase(card: str, seed: int):
     lib_fwd, lib_bwd = efficient_attention_ms(q, k, v, do, q_pos, k_pos, flush)
     pairs = unmasked_pairs(q_pos, k_pos, True)
     bounds = ring_bound_ms(b, h, t, t, d, pairs, 2)
+    ops = ring_step_ops(b, h, d, pairs)
     timed = f"{shape}, unmasked step (contiguous, shard 1 vs shard 0's block)"
     results = {}
     for name in fa.RING_KERNELS:
         ms, plain = times[name]
+        tflops = ops[name] / ms * 1e-9
         results[name] = {
             "max_abs_err": max([errs[name]] + [e[name] for e in cp_errs.values()]),
             "ring_bench_max_abs_err": errs[name],
             "cp_slot_max_abs_err": {s: e[name] for s, e in cp_errs.items()},
             "edge_shapes_max_abs_err": edges[name],
             "ms": ms, "plain_ms": plain, "bound_ms": bounds[name][0],
-            "bound_by": bounds[name][1],
+            "bound_by": bounds[name][1], "tflop_per_s": tflops,
             "library_ms": lib_fwd if name == "flash_ring_step_carry" else lib_bwd,
             "shape": timed,
         }
-        log(f"kernel {name}: {timed}: {ms!r} ms (plain {plain!r} ms, bound "
-            f"{bounds[name][0]!r} ms by {bounds[name][1]}) [{card}]")
+        log(f"kernel {name}: {timed}: {ms!r} ms, {tflops!r} TFLOP/s (plain {plain!r} ms, "
+            f"bound {bounds[name][0]!r} ms by {bounds[name][1]}) [{card}]")
     log(f"  efficient-attention yardstick (bias = the step's mask, lse): forward {lib_fwd!r} "
         f"ms, backward (dq, dk, dv) {lib_bwd!r} ms [{card}]")
-    del q, k, v, do, acc, lse, a_k, l_k, delta, flush
+    del q, k, v, do, acc, lse, a_k, l_k, delta
+    torch.cuda.empty_cache()
+    results["flash_ring_step_carry"]["cp_slot_timing"] = ring_fwd_slot_timing(
+        fa, ring, gen, dev, flush, card)
+    del flush
     torch.cuda.empty_cache()
     return results
 
@@ -1974,6 +2082,10 @@ def cp_lm_phases(card: str, seed: int):
             f"median {results[layout]['step_ms_median']!r} ms (device, CUDA events); loss "
             f"{first!r} -> {last!r}; launches {counts}; peak {peak / 1e9!r} GB; one step's parts "
             f"{parts} [{card}]")
+        log(f"CP LM step's ring kernels ({layout}; device ms in one step, CUDA events): "
+            + ", ".join(f"{name} {ms!r}" for name, ms in parts["kernel_ms"].items())
+            + f"; {parts['attention_kernels']!r} of {parts['step']!r} (forward "
+            f"{parts['forward']!r}, backward {parts['backward']!r}) [{card}]")
 
         del trainer, model, staged
         torch.cuda.empty_cache()
@@ -2375,7 +2487,16 @@ def mesh_training_phases(card: str, seed: int, workdir: str, params: str = TRAIN
     return result
 
 
-def ring_entries(ring_kernels, ring_whole, cp, card):
+#: The build of each of K7-K9 at RING_BENCH (bf16, head_dim 128) and on
+#: the CP LM's path (head_dim 64).
+RING_BUILDS = {
+    "flash_ring_step_carry": ("ring_fwd_mma_kernel<bf16, 128>", "ring_fwd_mma_kernel<bf16, 64>"),
+    "flash_ring_step_dq": ("ring_dq_kernel<bf16, 128>", "ring_dq_kernel<bf16, 64>"),
+    "flash_ring_step_dkv": ("ring_dkv_kernel<bf16, 128>", "ring_dkv_kernel<bf16, 64>"),
+}
+
+
+def ring_entries(ring_kernels, ring_whole, cp, card, resources=None):
     """The K7-K9 entries of the kernels line: timed at RING_BENCH (phase
     13), launched on the CP LM path (phase 15, both layouts)."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
@@ -2383,6 +2504,7 @@ def ring_entries(ring_kernels, ring_whole, cp, card):
     line = []
     for name in fa.RING_KERNELS:
         r = ring_kernels[name]
+        bench_build, path_build = RING_BUILDS[name]
         by_path = {f"cp_lm_train_{layout}_{CP_STEPS}_steps": cp[layout]["launches"][name]
                    for layout in cp}
         line.append({
@@ -2395,6 +2517,10 @@ def ring_entries(ring_kernels, ring_whole, cp, card):
             "edge_shapes_max_abs_err": r["edge_shapes_max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "tflop_per_s": r["tflop_per_s"],
+            "build": bench_build, "resources": (resources or {}).get(bench_build),
+            "path_build": path_build, "path_resources": (resources or {}).get(path_build),
+            "cp_slot_timing": r.get("cp_slot_timing"),
             "library": ("aten._scaled_dot_product_efficient_attention forward, the step's mask "
                         "as attn_bias, without K7's combine"
                         if name == "flash_ring_step_carry" else
@@ -2404,6 +2530,8 @@ def ring_entries(ring_kernels, ring_whole, cp, card):
             "ring_vs_whole_max_abs_err": {layout: ring_whole[layout] for layout in cp},
             "train_step_ring_kernels_ms": {layout: cp[layout]["breakdown_ms"]["attention_kernels"]
                                            for layout in cp},
+            "train_step_kernel_ms": {layout: cp[layout]["breakdown_ms"]["kernel_ms"][name]
+                                     for layout in cp},
             "card": card,
         })
     return line
@@ -2412,7 +2540,7 @@ def ring_entries(ring_kernels, ring_whole, cp, card):
 #: The build of each of K4-K6 on the LM's path (bf16, head_dim 64).
 FLASH_LM_BUILDS = {
     "flash_attention_fwd": "flash_fwd_mma_kernel<bf16, 64>",
-    "flash_attention_dq": "flash_dq_kernel<bf16, 64>",
+    "flash_attention_dq": "flash_dq_mma_kernel<bf16, 64>",
     "flash_attention_dkv": "flash_dkv_mma_kernel<bf16, 64>",
 }
 
@@ -2570,7 +2698,7 @@ def main() -> None:
         "card": card,
     })
     line += flash_entries(attention, edges, lm, card, resources)
-    line += ring_entries(ring_kernels, ring_whole, cp, card)
+    line += ring_entries(ring_kernels, ring_whole, cp, card, resources)
     line.append({
         "name": "block_gather", "ok": True, "route": "cuda", "source": K10_SOURCE,
         "replaces": K10_REPLACES, "launches": gather["launches"],

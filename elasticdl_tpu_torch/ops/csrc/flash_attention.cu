@@ -33,14 +33,14 @@
 // kernels are skipped.  out, dO, dq, dk and dv are contiguous
 // [B, T, H, D]; lse and delta are contiguous [B, H, T] f32.
 //
-// Roundings, those of the TPU kernels (the FMA builds; the bf16
-// tensor-core builds of K4 and K6 differ as set out below): q is upcast
-// to f32 and multiplied by `scale` (already an f32) before Q K^T; every product and sum is f32;
-// masked scores are NEG_INF = -1e30, not -inf; P is rounded to v's dtype
-// before P V in the forward (p_round below); the output is divided by l
-// (l == 0 -> 1) and cast to q's dtype.  The backward is f32 throughout;
-// dq and dk are multiplied by `scale` at the end, and dq/dk/dv are cast to
-// the input dtype.
+// Roundings, those of the TPU kernels (the f32 FMA builds; the bf16
+// tensor-core builds differ as set out below): q is upcast to f32 and
+// multiplied by `scale` (already an f32) before Q K^T; every product and
+// sum is f32; masked scores are NEG_INF = -1e30, not -inf; P is rounded
+// to v's dtype before P V in the forward (p_round below); the output is
+// divided by l (l == 0 -> 1) and cast to q's dtype.  The backward is f32
+// throughout; dq and dk are multiplied by `scale` at the end, and
+// dq/dk/dv are cast to the input dtype.
 //
 // A sequential grid becomes a loop inside the block.  The TPU kernels
 // carry their accumulators in VMEM scratch across the inner grid axis
@@ -60,25 +60,26 @@
 //
 // Two designs, chosen by the input dtype (EDL_FLASH_DISPATCH):
 //
-// - bf16 K4 and K6 (flash_fwd_mma_kernel, flash_dkv_mma_kernel; the LM's
-//   path) run their products on the tensor cores: mma.sync m16n8k16,
-//   bf16 operands, f32 sums, fed by ldmatrix from bf16 tiles that
-//   cp.async stages two deep.  Their ceiling is the 989 TFLOP/s bf16
-//   peak; mma.sync, not wgmma, and the f32 softmax between the products
-//   hold them well below it.  Three numbers must not move: the MMA runs
-//   on the unscaled bf16 q and S is scaled in f32 after it (rounding q *
-//   scale to bf16, inexact at D=128, moves lse past 1e-4); P is rounded
-//   to bf16 per 64 keys against the running max, as above, while l sums
-//   the unrounded p; and in K6, whose reference keeps P and dS in f32,
-//   each is split into hi = bf16(x) and lo = bf16(x - hi), two products
-//   into one f32 sum (x to ~16 bits), because one bf16 rounding of them
-//   puts dk past the kernels' bf16 tolerance.
-// - Everything else (f32 K4 and K6, K5 in both dtypes, K7-K9) is the
-//   first, simple design: tiles of 64 x 64 staged in shared memory as
-//   f32, every product an f32 FMA on the CUDA cores (a register tile of 4
-//   x 4 scores, or 4 rows x 4 columns of the accumulator, per thread;
-//   float4 reads from shared memory without bank conflicts), whose
-//   ceiling is the card's 67 TFLOP/s f32 rate.  f32 inputs keep it
+// - bf16 K4-K7 (flash_fwd_mma_kernel, flash_dq_mma_kernel,
+//   flash_dkv_mma_kernel, ring_fwd_mma_kernel; the LM's and the CP LM's
+//   forward path) run their products on the tensor cores: mma.sync
+//   m16n8k16, bf16 operands, f32 sums, fed by ldmatrix from bf16 tiles
+//   that cp.async stages two deep.  Their ceiling is the 989 TFLOP/s
+//   bf16 peak; mma.sync, not wgmma, and the f32 softmax between the
+//   products hold them well below it.  Three numbers must not move: the
+//   MMA runs on the unscaled bf16 q and S is scaled in f32 after it
+//   (rounding q * scale to bf16, inexact at D=128, moves lse past 1e-4);
+//   P is rounded to bf16 per 64 keys against the running max, as above,
+//   while l sums the unrounded p; and in K5 and K6, whose reference keeps
+//   P and dS in f32, each is split into hi = bf16(x) and lo = bf16(x -
+//   hi), two products into one f32 sum (x to ~16 bits), because one bf16
+//   rounding of them puts dq and dk past the kernels' bf16 tolerance.
+// - Everything else (the f32 builds of K4-K7, and K8-K9 in both dtypes)
+//   is the first, simple design: tiles of 64 x 64 staged in shared
+//   memory as f32, every product an f32 FMA on the CUDA cores (a register
+//   tile of 4 x 4 scores, or 4 rows x 4 columns of the accumulator, per
+//   thread; float4 reads from shared memory without bank conflicts),
+//   whose ceiling is the card's 67 TFLOP/s f32 rate.  f32 inputs keep it
 //   because their check (rtol 1e-5) is tighter than bf16 or TF32
 //   products can meet.
 //
@@ -565,12 +566,13 @@ cudaError_t allow_smem(K kernel, int bytes) {
 }
 
 // ---------------------------------------------------------------------
-// K4 and K6 for bf16 inputs: the products on the tensor cores.
+// K4-K6 for bf16 inputs (and K7, below the ring kernels): the products
+// on the tensor cores.
 //
 // mma.sync.m16n8k16 (bf16 operands, f32 accumulators) with ldmatrix from
 // shared memory.  Four warps; each owns 16 rows of the block's 64-row
-// tile (q rows in K4, key rows in K6), so a row's max and sums stay in
-// the four lanes that hold it.  Tiles are staged as bf16 by cp.async
+// tile (q rows in K4, K5 and K7, key rows in K6), so a row's max and
+// sums stay in the four lanes that hold it.  Tiles are staged as bf16 by cp.async
 // (16 bytes a copy; a copy past T or past d has source size 0, which
 // fills zeros) at a row pitch of DP + 8 elements, so the 8 rows an
 // ldmatrix reads fall on distinct banks.  The loop's next tile is in
@@ -592,6 +594,10 @@ __host__ __device__ constexpr int mma_tile_bytes() {
 template <int DP>
 __host__ __device__ constexpr int fwd_mma_smem_bytes() {
   return 5 * mma_tile_bytes<DP>();  // Q, two stages of K and V
+}
+template <int DP>
+__host__ __device__ constexpr int dq_mma_smem_bytes() {
+  return 6 * mma_tile_bytes<DP>();  // Q, dO, two stages of K and V
 }
 template <int DP>
 __host__ __device__ constexpr int dkv_mma_smem_bytes() {
@@ -711,9 +717,12 @@ __device__ __forceinline__ void mma_load_tile(__nv_bfloat16* dst,
   }
 }
 
-// 64 f32 of a [B, H, T] row (lse, delta) from t0; zeros past T.
-__device__ __forceinline__ void mma_load_rows(float* dst, const float* __restrict__ src,
-                                              int t0, int t_len) {
+// 64 4-byte values of a row (lse, delta: [B, H, T] f32; positions: [T]
+// int32) from t0; zeros past T.
+template <typename T>
+__device__ __forceinline__ void mma_load_rows(T* dst, const T* __restrict__ src, int t0,
+                                              int t_len) {
+  static_assert(sizeof(T) == 4, "4-byte rows");
   if (threadIdx.x < kTile) {
     const int t = t0 + threadIdx.x;
     cp_async4(dst + threadIdx.x, t < t_len ? src + t : src, t < t_len);
@@ -1055,9 +1064,181 @@ __global__ void __launch_bounds__(kMmaThreads)
   mma_store_rows<DP>(dv + o_off, o_st, r_lo, s.t_len, s.d, dv_acc, 1.0f);
 }
 
-// The bf16 builds of K4 and K6 take 16-byte-aligned q, k, v, dO and
-// strides (the wrapper copies a tensor that lacks them); dO, out, dk and
-// dv are contiguous.
+// ---------------------------------------------------------------------
+// K5 on the tensor cores.  Block (q tile, head, batch), as
+// flash_dq_kernel, looping over the K/V tiles up to the causal diagonal;
+// the next tile's K and V are in flight while this one computes (two
+// stages, as in K4).  Warp w owns q rows 16 w .. 16 w + 15 and their
+// rows of dQ; it takes a K/V tile 32 keys at a time (which bounds S and
+// dP to 16 registers each) and skips the 32 whose keys all follow its
+// rows under the causal mask.  S = Q K^T and dP = dO V^T by mma from the
+// unscaled bf16 q and the bf16 dO (exact products, f32 sums), S times
+// `scale` in f32 and masked; P = exp(S - lse) and dS = P (dP - delta) in
+// f32 registers.  dQ += dS K takes dS from those registers as A
+// fragments split into hi = bf16(x) and lo = bf16(x - hi), two mma into
+// one accumulator, with K through ldmatrix.trans as V in K4's P V: the
+// reference keeps dS in f32, and one bf16 rounding of it puts dq past
+// the kernels' bf16 tolerance.  Registers: at D = 64 the warp holds its
+// Q and dO rows as A fragments; at D = 128, whose dQ takes 64
+// accumulators, it reads them from shared memory by ldmatrix at each
+// 16-column step instead.
+// ---------------------------------------------------------------------
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dq, Shape s) {
+  constexpr int kLd = mma_pitch<DP>();
+  constexpr int kElems = kTile * kLd;
+  constexpr int kN = DP / 8;
+  constexpr int kSteps = DP / 16;    // 16-column steps of a q row
+  constexpr bool kHold = DP <= 64;   // Q and dO fragments in registers
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* do_s = q_s + kElems;
+  __nv_bfloat16* k_s = do_s + kElems;     // two stages
+  __nv_bfloat16* v_s = k_s + 2 * kElems;  // two stages
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_q = n_tiles(s.t_len);
+  const int qi = s.causal ? n_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long in_off = b * s.in_sb + h * s.in_sh;
+  const long long o_st = (long long)s.heads * s.d;
+  const long long o_off = (long long)b * s.t_len * o_st + (long long)h * s.d;
+  const long long row_off = ((long long)b * s.heads + h) * s.t_len;
+  const int q0 = qi * kTile;
+  int n_k = n_tiles(s.t_len);
+  if (s.causal) n_k = min(n_k, qi + 1);
+
+  mma_load_tile<DP>(q_s, q + in_off, s.in_st, q0, s.t_len, s.d);
+  mma_load_tile<DP>(do_s, dout + o_off, o_st, q0, s.t_len, s.d);
+  mma_load_tile<DP>(k_s, k + in_off, s.in_st, 0, s.t_len, s.d);
+  mma_load_tile<DP>(v_s, v + in_off, s.in_st, 0, s.t_len, s.d);
+  cp_async_commit();
+
+  // This lane's rows of the tile: r_lo and r_lo + 8.
+  const int r_lo = q0 + 16 * warp + (lane >> 2);
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = r_lo + 8 * half;
+    lse_r[half] = t < s.t_len ? lse[row_off + t] : 0.0f;
+    delta_r[half] = t < s.t_len ? delta[row_off + t] : 0.0f;
+  }
+  const int a_row = (16 * warp + (lane & 15)) * kLd + 8 * (lane >> 4);
+  uint32_t qf[kHold ? kSteps : 1][4], dof[kHold ? kSteps : 1][4];
+  float acc[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  }
+
+  for (int kb = 0; kb < n_k; ++kb) {
+    // Tile kb has landed, and every warp is done with tile kb - 1, whose
+    // stage the next copy overwrites.
+    cp_async_wait_all();
+    __syncthreads();
+    if constexpr (kHold) {
+      if (kb == 0) {
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk) {
+          ldsm_x4(qf[kk], q_s + a_row + 16 * kk);
+          ldsm_x4(dof[kk], do_s + a_row + 16 * kk);
+        }
+      }
+    }
+    if (kb + 1 < n_k) {
+      const int stage = (kb + 1) & 1;
+      mma_load_tile<DP>(k_s + stage * kElems, k + in_off, s.in_st, (kb + 1) * kTile, s.t_len,
+                        s.d);
+      mma_load_tile<DP>(v_s + stage * kElems, v + in_off, s.in_st, (kb + 1) * kTile, s.t_len,
+                        s.d);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* ks = k_s + (kb & 1) * kElems;
+    const __nv_bfloat16* vs = v_s + (kb & 1) * kElems;
+    const int k0 = kb * kTile;
+
+#pragma unroll 1
+    for (int sub = 0; sub < kTile; sub += 32) {
+      if (s.causal && k0 + sub > q0 + 16 * warp + 15) continue;  // all masked: adds 0
+      float sc[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = 0.0f;
+          dp[j][e] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t qa[4], da[4];
+        if constexpr (kHold) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            qa[i] = qf[kk][i];
+            da[i] = dof[kk][i];
+          }
+        } else {
+          ldsm_x4(qa, q_s + a_row + 16 * kk);
+          ldsm_x4(da, do_s + a_row + 16 * kk);
+        }
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bk[4], bv[4];
+          const int b_off = (sub + 16 * np + (lane & 7) + 8 * (lane >> 4)) * kLd + 16 * kk +
+                            8 * ((lane >> 3) & 1);
+          ldsm_x4(bk, ks + b_off);
+          ldsm_x4(bv, vs + b_off);
+          mma_bf16(sc[2 * np], qa, bk[0], bk[1]);
+          mma_bf16(sc[2 * np + 1], qa, bk[2], bk[3]);
+          mma_bf16(dp[2 * np], da, bv[0], bv[1]);
+          mma_bf16(dp[2 * np + 1], da, bv[2], bv[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k_pos = k0 + sub + 8 * j + 2 * (lane & 3) + (e & 1);
+          const int half = e >> 1;
+          const float sv = (k_pos >= s.t_len || (s.causal && k_pos > r_lo + 8 * half))
+                               ? kNegInf
+                               : sc[j][e] * s.scale;
+          const float p = expf(sv - lse_r[half]);
+          dp[j][e] = p * (dp[j][e] - delta_r[half]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {  // 16 keys a step
+        uint32_t ds_hi[4], ds_lo[4];
+        acc_to_a_split(dp[2 * kk], dp[2 * kk + 1], ds_hi, ds_lo);
+#pragma unroll
+        for (int np = 0; np < kSteps; ++np) {
+          uint32_t bk[4];
+          ldsm_x4_t(bk, ks + (sub + 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd +
+                            16 * np + 8 * (lane >> 4));
+          mma_bf16(acc[2 * np], ds_hi, bk[0], bk[1]);
+          mma_bf16(acc[2 * np], ds_lo, bk[0], bk[1]);
+          mma_bf16(acc[2 * np + 1], ds_hi, bk[2], bk[3]);
+          mma_bf16(acc[2 * np + 1], ds_lo, bk[2], bk[3]);
+        }
+      }
+    }
+  }
+  mma_store_rows<DP>(dq + o_off, o_st, r_lo, s.t_len, s.d, acc, s.scale);
+}
+
+// The bf16 builds of K4-K6 take 16-byte-aligned q, k, v, dO and strides
+// (the wrapper copies a tensor that lacks them); dO, out, dq, dk and dv
+// are contiguous.
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -1078,6 +1259,21 @@ cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, void* ou
   flash_fwd_mma_kernel<DP><<<grid, kMmaThreads, bytes, st>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (__nv_bfloat16*)out, lse, s);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* delta, void* dq, int batch,
+                          const Shape& s, cudaStream_t st) {
+  if (!mma_inputs_ok(q, k, v, s) || !aligned16(dout)) return cudaErrorMisalignedAddress;
+  constexpr int bytes = dq_mma_smem_bytes<DP>();
+  cudaError_t err = allow_smem(flash_dq_mma_kernel<DP>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s.t_len + kTile - 1) / kTile, s.heads, batch);
+  flash_dq_mma_kernel<DP><<<grid, kMmaThreads, bytes, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (const __nv_bfloat16*)dout, lse, delta, (__nv_bfloat16*)dq, s);
   return cudaGetLastError();
 }
 
@@ -1117,14 +1313,18 @@ template <typename T, int DP>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int batch, const Shape& s, cudaStream_t st) {
-  constexpr int bytes = dq_smem_bytes<DP>();
-  cudaError_t err = allow_smem(flash_dq_kernel<T, DP>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((s.t_len + kTile - 1) / kTile, s.heads, batch);
-  flash_dq_kernel<T, DP><<<grid, kThreads, bytes, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dq, s);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_dq_mma<DP>(q, k, v, dout, lse, delta, dq, batch, s, st);
+  } else {
+    constexpr int bytes = dq_smem_bytes<DP>();
+    cudaError_t err = allow_smem(flash_dq_kernel<T, DP>, bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((s.t_len + kTile - 1) / kTile, s.heads, batch);
+    flash_dq_kernel<T, DP><<<grid, kThreads, bytes, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+        (T*)dq, s);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int DP>
@@ -1186,8 +1386,10 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 // What bounds them: at the ring bench's unmasked step (B=4, H=8, Tq=Tk=
 // 2048, D=128) K7 needs 4*B*H*Tq*Tk*D = 68.7 GFLOP, 0.069 ms at the bf16
 // tensor-core peak, and moves 118 MB, 0.035 ms at the memory rate:
-// operations bound K7-K9 as they bound K4-K6, and the design is theirs,
-// f32 FMA on the CUDA cores, whose 67 TFLOP/s is its ceiling.
+// operations bound K7-K9 as they bound K4-K6.  The designs are theirs:
+// K7's bf16 build runs on the tensor cores (ring_fwd_mma_kernel, K4's
+// loop), its f32 build and K8-K9 are f32 FMA on the CUDA cores, whose 67
+// TFLOP/s is their ceiling.
 // ---------------------------------------------------------------------
 
 struct RingShape {
@@ -1529,17 +1731,278 @@ __global__ void __launch_bounds__(kThreads)
   store_rows<float, DP>(dv + k_row0 * s.d, s.d, k0, s.tk, s.d, dv_acc, 1.0f);
 }
 
+// ---------------------------------------------------------------------
+// K7 on the tensor cores (bf16 inputs).  Block (q tile, head, batch),
+// causal blocks heaviest first; warp w owns q rows 16 w .. 16 w + 15 and
+// holds them as A fragments, as in flash_fwd_mma_kernel, whose loop this
+// is: S = Q K^T by mma from the unscaled bf16 q, times `scale` in f32; P
+// rounded to bf16 per 64-key tile against the running max, l summing the
+// unrounded p.  What the ring changes:
+// - The mask is k_pos > q_pos: each lane reads q_pos of its rows r_lo
+//   and r_lo + 8 once, and each K tile's 64 positions are staged in
+//   shared memory beside it; columns past Tk are masked on their own
+//   (Tq != Tk is allowed).
+// - The online softmax is ring_fwd_kernel's (safe_m; p = 0 where s <=
+//   NEG_INF / 2; the correction 0 while m <= NEG_INF / 2), so a row that
+//   sees no key ends with l = 0 and leaves the carry bit for bit.
+// - Wholly masked K tiles are skipped with the two-stage pipeline kept
+//   full: a first pass writes each K tile's smallest position to shared
+//   memory (the zigzag layout's positions are not affine, so the live
+//   tiles are no prefix), and the loop walks and prefetches the live
+//   tiles only.  A q tile with no live K tile returns at once.
+// - The combine with the carry runs in the accumulators' layout, in
+//   JAX's order: lse_i, lse_new = logaddexp, alpha, beta; acc_c is read
+//   and written in place by the lane that holds each element, lse_c (read
+//   at the start, before any lane of the quad writes it) by lane % 4 = 0.
+// ---------------------------------------------------------------------
+template <int DP>
+__host__ __device__ constexpr int ring_fwd_mma_smem_bytes(int n_k) {
+  // Q, two stages of K, V and their positions, the q tile's max (2), each
+  // K tile's smallest position.
+  return fwd_mma_smem_bytes<DP>() + (2 * kTile + 2 + n_k) * 4;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads)
+    ring_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, float* __restrict__ acc_c,
+                        float* __restrict__ lse_c, const int* __restrict__ q_pos,
+                        const int* __restrict__ k_pos, RingShape s) {
+  constexpr int kLd = mma_pitch<DP>();
+  constexpr int kElems = kTile * kLd;
+  constexpr int kN = DP / 8;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* k_s = q_s + kElems;      // two stages
+  __nv_bfloat16* v_s = k_s + 2 * kElems;  // two stages
+  int* kpos_s = reinterpret_cast<int*>(v_s + 2 * kElems);  // two stages
+  int* red_s = kpos_s + 2 * kTile;
+  int* kmin_s = red_s + 2;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_q = n_tiles(s.tq);
+  const int qi = s.causal ? n_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int q0 = qi * kTile;
+  const long long row0 = ((long long)b * s.heads + h) * s.tq;
+  const __nv_bfloat16* k_bh = k + b * s.kv_sb + h * s.kv_sh;
+  const __nv_bfloat16* v_bh = v + b * s.kv_sb + h * s.kv_sh;
+  const int n_k = n_tiles(s.tk);
+
+  int q_max = INT_MAX;
+  if (s.causal) {
+    tile_pos_extreme<false>(q_pos, q0, s.tq, red_s, nullptr);
+    for (int i = warp; i < n_k; i += kMmaWarps) {
+      int x = INT_MAX;
+#pragma unroll
+      for (int c = lane; c < kTile; c += 32) {
+        const int t = i * kTile + c;
+        if (t < s.tk) x = min(x, k_pos[t]);
+      }
+      x = __reduce_min_sync(0xffffffffu, x);
+      if (lane == 0) kmin_s[i] = x;
+    }
+    __syncthreads();
+    q_max = max(red_s[0], red_s[1]);
+  }
+  // The first live K tile at or after i (every tile is live without the
+  // causal mask); the same in every thread.
+  auto next_live = [&](int i) {
+    if (s.causal) {
+      while (i < n_k && kmin_s[i] > q_max) ++i;
+    }
+    return i;
+  };
+  int kb = next_live(0);
+  if (kb >= n_k) return;  // every key masked: the carry stays as it is
+
+  mma_load_tile<DP>(q_s, q + b * s.q_sb + h * s.q_sh, s.q_st, q0, s.tq, s.d);
+  mma_load_tile<DP>(k_s, k_bh, s.kv_st, kb * kTile, s.tk, s.d);
+  mma_load_tile<DP>(v_s, v_bh, s.kv_st, kb * kTile, s.tk, s.d);
+  mma_load_rows(kpos_s, k_pos, kb * kTile, s.tk);
+  cp_async_commit();
+
+  // This lane's rows of the tile: r_lo and r_lo + 8.
+  const int r_lo = q0 + 16 * warp + (lane >> 2);
+  int qp[2];
+  float lse_in[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = r_lo + 8 * half;
+    qp[half] = t < s.tq ? q_pos[t] : 0;
+    lse_in[half] = t < s.tq ? lse_c[row0 + t] : 0.0f;
+  }
+  uint32_t qf[DP / 16][4];
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, o[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  }
+
+  for (int it = 0; kb < n_k; ++it) {
+    // Tile kb has landed, and every warp is done with the previous live
+    // tile, whose stage the next copy overwrites.
+    cp_async_wait_all();
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        ldsm_x4(qf[kk], q_s + (16 * warp + (lane & 15)) * kLd + 16 * kk + 8 * (lane >> 4));
+      }
+    }
+    const int next = next_live(kb + 1);
+    if (next < n_k) {
+      const int stage = (it + 1) & 1;
+      mma_load_tile<DP>(k_s + stage * kElems, k_bh, s.kv_st, next * kTile, s.tk, s.d);
+      mma_load_tile<DP>(v_s + stage * kElems, v_bh, s.kv_st, next * kTile, s.tk, s.d);
+      mma_load_rows(kpos_s + stage * kTile, k_pos, next * kTile, s.tk);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* ks = k_s + (it & 1) * kElems;
+    const __nv_bfloat16* vs = v_s + (it & 1) * kElems;
+    const int* kp = kpos_s + (it & 1) * kTile;
+
+    float sc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4];
+        ldsm_x4(bk, ks + (16 * np + (lane & 7) + 8 * (lane >> 4)) * kLd + 16 * kk +
+                        8 * ((lane >> 3) & 1));
+        mma_bf16(sc[2 * np], qf[kk], bk[0], bk[1]);
+        mma_bf16(sc[2 * np + 1], qf[kk], bk[2], bk[3]);
+      }
+    }
+
+    const int k0 = kb * kTile;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * (lane & 3) + e;
+          float x = sc[j][2 * half + e] * s.scale;
+          if (k0 + col >= s.tk || (s.causal && kp[col] > qp[half])) x = kNegInf;
+          sc[j][2 * half + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      }
+      const float m_new = fmaxf(m[half], quad_max(mx));
+      const float safe_m = below_half_neg_inf(m_new) ? 0.0f : m_new;
+      const float corr = below_half_neg_inf(m[half]) ? 0.0f : expf(m[half] - safe_m);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = sc[j][2 * half + e];
+          const float p = below_half_neg_inf(x) ? 0.0f : expf(x - safe_m);
+          sc[j][2 * half + e] = p;
+          rs += p;
+        }
+      }
+      l[half] = l[half] * corr + quad_sum(rs);
+      m[half] = m_new;
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        o[n][2 * half] *= corr;
+        o[n][2 * half + 1] *= corr;
+      }
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // 16 keys a step
+      uint32_t pa[4];
+      acc_to_a(sc[2 * kk], sc[2 * kk + 1], pa);
+#pragma unroll
+      for (int np = 0; np < DP / 16; ++np) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, vs + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + 16 * np +
+                          8 * (lane >> 4));
+        mma_bf16(o[2 * np], pa, bv[0], bv[1]);
+        mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
+      }
+    }
+    kb = next;
+  }
+
+  // The combine with the carry; a row that saw no key (l = 0) keeps it.
+  const int c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = r_lo + 8 * half;
+    if (t >= s.tq || l[half] == 0.0f) continue;
+    const float lse_i = (below_half_neg_inf(m[half]) ? 0.0f : m[half]) + logf(l[half]);
+    const float lc = lse_in[half];
+    const float lse_new = fmaxf(lc, lse_i) + log1pf(expf(-fabsf(lc - lse_i)));
+    const float safe = below_half_neg_inf(lse_new) ? 0.0f : lse_new;
+    const float alpha = expf((below_half_neg_inf(lc) ? kNegInf : lc) - safe);
+    const float beta = expf(lse_i - safe);
+    float* row = acc_c + (row0 + t) * s.d;
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      const int c = 8 * n + c0;
+      if (c >= s.d) continue;  // d is a multiple of 8: a fragment's columns in or out
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        row[c + e] = row[c + e] * alpha + (o[n][2 * half + e] / l[half]) * beta;
+      }
+    }
+    if ((lane & 3) == 0) lse_c[row0 + t] = lse_new;
+  }
+}
+
+// The bf16 build of K7 takes 16-byte-aligned q, k, v and strides, q's
+// and the K/V block's each (the wrapper copies a tensor that lacks them).
+inline bool ring_mma_inputs_ok(const void* q, const void* k, const void* v,
+                               const RingShape& s) {
+  return aligned16(q) && aligned16(k) && aligned16(v) && s.q_sb % 8 == 0 &&
+         s.q_st % 8 == 0 && s.q_sh % 8 == 0 && s.kv_sb % 8 == 0 && s.kv_st % 8 == 0 &&
+         s.kv_sh % 8 == 0 && s.d % 8 == 0;
+}
+
+template <int DP>
+cudaError_t launch_ring_fwd_mma(const void* q, const void* k, const void* v, float* acc,
+                                float* lse, const int* q_pos, const int* k_pos, int batch,
+                                const RingShape& s, cudaStream_t st) {
+  if (!ring_mma_inputs_ok(q, k, v, s)) return cudaErrorMisalignedAddress;
+  const int bytes = ring_fwd_mma_smem_bytes<DP>((s.tk + kTile - 1) / kTile);
+  cudaError_t err = allow_smem(ring_fwd_mma_kernel<DP>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s.tq + kTile - 1) / kTile, s.heads, batch);
+  ring_fwd_mma_kernel<DP><<<grid, kMmaThreads, bytes, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, acc, lse,
+      q_pos, k_pos, s);
+  return cudaGetLastError();
+}
+
 template <typename T, int DP>
 cudaError_t launch_ring_fwd(const void* q, const void* k, const void* v, float* acc,
                             float* lse, const int* q_pos, const int* k_pos, int batch,
                             const RingShape& s, cudaStream_t st) {
-  constexpr int bytes = fwd_smem_bytes<DP>() + kRingSmemInts * 4;
-  cudaError_t err = allow_smem(ring_fwd_kernel<T, DP>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((s.tq + kTile - 1) / kTile, s.heads, batch);
-  ring_fwd_kernel<T, DP><<<grid, kThreads, bytes, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, acc, lse, q_pos, k_pos, s);
-  return cudaGetLastError();
+  // bf16 runs on the tensor cores; f32 keeps the FMA kernel.
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_ring_fwd_mma<DP>(q, k, v, acc, lse, q_pos, k_pos, batch, s, st);
+  } else {
+    constexpr int bytes = fwd_smem_bytes<DP>() + kRingSmemInts * 4;
+    cudaError_t err = allow_smem(ring_fwd_kernel<T, DP>, bytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((s.tq + kTile - 1) / kTile, s.heads, batch);
+    ring_fwd_kernel<T, DP><<<grid, kThreads, bytes, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, acc, lse, q_pos, k_pos, s);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T, int DP>

@@ -39,14 +39,15 @@ end).  The tests hold the plain versions against the JAX package;
 falls back from a kernel to its plain version.
 
 Two designs stand behind the kernels, chosen by dtype.  For bf16 inputs
-K4 and K6 run their products on the tensor cores (``mma.sync``, bf16
+K4-K7 run their products on the tensor cores (``mma.sync``, bf16
 operands, f32 sums), bounded by the card's bf16 rate: S is computed from
-the unscaled bf16 q and scaled in f32 after the product, and K6 feeds P
-and dS to its last two products split as ``hi = bf16(x)``, ``lo = bf16(x
-- hi)``, since the reference keeps them f32 and one bf16 rounding of them
-would put dk past the kernels' tolerance (``tests/test_torch_flash_mma_rounding.py``
-emulates both rules).  f32 inputs, K5 and K7-K9 are f32 FMA kernels on
-the CUDA cores.
+the unscaled bf16 q and scaled in f32 after the product, P is rounded to
+bf16 per ``BLOCK`` keys, and K5 and K6 feed P and dS to their last
+products split as ``hi = bf16(x)``, ``lo = bf16(x - hi)``, since the
+reference keeps them f32 and one bf16 rounding of them would put dq and
+dk past the kernels' tolerance (``tests/test_torch_flash_mma_rounding.py``
+emulates these rules).  f32 inputs and K8-K9 are f32 FMA kernels on the
+CUDA cores.
 
 Layouts: q, k, v, out and the gradients are ``[B, T, H, D]`` as in the
 JAX function; the kernels read q, k, v through their strides, so the
@@ -327,7 +328,10 @@ def _check_bwd(q, do, lse, delta) -> None:
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, scale, causal) -> torch.Tensor:
-    """K5: dq ``[B, T, H, D]`` in q's dtype."""
+    """K5: dq ``[B, T, H, D]`` in q's dtype.  bf16 runs on the tensor
+    cores (S and dP by mma from the unscaled q and the bf16 dO, S scaled
+    in f32; dS split into two bf16 terms before dQ += dS K); f32 on the
+    CUDA cores."""
     _check_qkv(q, k, v)
     _check_bwd(q, do, lse, delta)
     if _route(q) == "plain":
@@ -487,13 +491,19 @@ def _rows(x: torch.Tensor, q: torch.Tensor, name: str) -> torch.Tensor:
 
 def _ring_kernel_inputs(q, k, v):
     """What the ring kernels take: bf16 or f32, head_dim a multiple of 8
-    up to MAX_HEAD_DIM, a contiguous last dimension and one set of K/V
-    strides (copied only when missing)."""
+    up to MAX_HEAD_DIM, a contiguous last dimension, one set of K/V
+    strides and, in bf16, 16-byte alignment of q and of the K/V block,
+    each with its own strides (copied only when missing)."""
     _check_kernel_dtype(q)
-    if q.stride(-1) != 1:
+    if q.stride(-1) != 1 or not _aligned16(q):
         q = q.contiguous()
-    if k.stride() != v.stride() or k.stride(-1) != 1:
+        if not _aligned16(q):
+            q = q.clone()
+    if (k.stride() != v.stride() or k.stride(-1) != 1
+            or not (_aligned16(k) and _aligned16(v))):
         k, v = k.contiguous(), v.contiguous()
+        if not (_aligned16(k) and _aligned16(v)):
+            k, v = k.clone(), v.clone()
     return q, k, v
 
 
@@ -559,7 +569,11 @@ def flash_ring_step_carry(q, k_blk, v_blk, acc, lse, q_pos, k_pos, *, causal, sc
     """K7: one ring step with the combine fused; the carry ``acc`` [B, H,
     Tq, D] f32 and ``lse`` [B, H, Tq, 1] f32 are updated in place and
     returned (the JAX function aliases them to its outputs).  On the
-    card the kernel's tile is ``BLOCK``."""
+    card the kernel's tile is ``BLOCK``.  bf16 runs on the tensor cores
+    (K4's rules: S from the unscaled q, scaled in f32; P rounded to bf16
+    per ``BLOCK`` keys; wholly masked key tiles skipped), with q and the
+    K/V block copied first where they lack 16-byte alignment; f32 on the
+    CUDA cores."""
     _check_ring(q, k_blk, v_blk)
     b, h, tq, d = q.shape
     if acc.dtype != torch.float32 or tuple(acc.shape) != (b, h, tq, d):

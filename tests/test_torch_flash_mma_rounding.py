@@ -1,5 +1,6 @@
-"""The rounding design of the bf16 tensor-core builds of K4 and K6
-(``flash_fwd_mma_kernel`` and ``flash_dkv_mma_kernel`` in
+"""The rounding design of the bf16 tensor-core builds of K4-K7
+(``flash_fwd_mma_kernel``, ``flash_dq_mma_kernel``,
+``flash_dkv_mma_kernel`` and ``ring_fwd_mma_kernel`` in
 ``elasticdl_tpu_torch/ops/csrc/flash_attention.cu``), emulated in
 PyTorch on the CPU and held to the port's plain versions and to the JAX
 kernels in interpret mode, at the tolerances ``chip_smoke.py`` holds the
@@ -12,9 +13,15 @@ upcast operands does up to summation order):
 - K4: S = Q K^T from the unscaled bf16 q, multiplied by ``scale`` in f32
   after the product; the online softmax per 64-key tile, l summing the
   unrounded p, P rounded to bf16 before P V.
+- K5: S = Q K^T scaled in f32 after the product, P = exp(S - lse) and dS
+  = P (dO V^T - delta) in f32, then dQ = dS K with dS split into hi =
+  bf16(x) and lo = bf16(x - hi), two products summed in f32.
 - K6: S^T = K Q^T scaled in f32 after the product, P and dS in f32, then
-  dV = P^T dO and dK = dS^T Q with P and dS each split into hi = bf16(x)
-  and lo = bf16(x - hi), two products summed in f32.
+  dV = P^T dO and dK = dS^T Q with P and dS each split as in K5.
+- K7: K4's forward with the ring's rules: the mask k_pos > q_pos, the
+  online softmax's max clamped to 0 while a row has seen only masked
+  keys (p = 0 there), then the lse-space combine with the carry in the
+  JAX order; a row that sees no key keeps its carry bit for bit.
 
 Inputs are seeded numpy draws at D=64 and D=128 (the kernels' two
 builds), causal and full; T is ragged (not a multiple of the 64-row
@@ -29,8 +36,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ATTN_ATOL_SHARE, ATTN_RTOL, LSE_ATOL
+from chip_smoke import ATTN_ATOL_SHARE, ATTN_RTOL, LSE_ATOL, RING_CARRY_TOL
 from elasticdl_tpu_torch.ops import flash_attention as fa
+from elasticdl_tpu_torch.parallel import ring_attention as ring
 
 jfa = importlib.import_module("elasticdl_tpu.ops.flash_attention")
 
@@ -99,6 +107,59 @@ def emulate_k6(q, k, v, do, lse, delta, scale, causal, split=True):
     dk = sum(torch.matmul(part, qf) for part in ds_parts) * scale
     return (dk.to(torch.bfloat16).transpose(1, 2).contiguous(),
             dv.to(torch.bfloat16).transpose(1, 2).contiguous())
+
+
+def emulate_k5(q, k, v, do, lse, delta, scale, causal, split=True):
+    """K5's arithmetic: dq bf16 ``[B, T, H, D]``.  ``split=False`` rounds
+    dS once to bf16 instead (the design the kernel avoids)."""
+    t = q.shape[1]
+    qf, kf, vf, dof = (x.transpose(1, 2).float() for x in (q, k, v, do))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale          # [B, H, queries, keys]
+    if causal:
+        pos = torch.arange(t)
+        s = torch.where(pos[None, :] > pos[:, None], fa.NEG_INF, s)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None])
+    parts = _split(ds) if split else (ds.to(torch.bfloat16).float(),)
+    dq = sum(torch.matmul(part, kf) for part in parts) * scale
+    return dq.to(torch.bfloat16).transpose(1, 2).contiguous()
+
+
+def _half_neg_inf(x):
+    return x <= fa.NEG_INF / 2
+
+
+def emulate_k7(q, k, v, acc, lse, q_pos, k_pos, scale, causal):
+    """K7's arithmetic on ``[B, H, T, D]`` inputs: the updated carry
+    ``(acc [B, H, Tq, D], lse [B, H, Tq, 1])`` as new tensors."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((b, h, tq, 1), fa.NEG_INF)
+    l = torch.zeros((b, h, tq, 1))
+    o = torch.zeros((b, h, tq, d))
+    for k0 in range(0, tk, TILE):
+        k1 = min(tk, k0 + TILE)
+        s = torch.matmul(qf, kf[:, :, k0:k1].transpose(-1, -2)) * scale
+        if causal:
+            s = torch.where(k_pos[k0:k1][None, :] > q_pos[:, None], fa.NEG_INF, s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        safe_m = torch.where(_half_neg_inf(m_new), 0.0, m_new)
+        p = torch.where(_half_neg_inf(s), 0.0, torch.exp(s - safe_m))
+        corr = torch.where(_half_neg_inf(m), 0.0, torch.exp(m - safe_m))
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + torch.matmul(p.to(torch.bfloat16).float(), vf[:, :, k0:k1])
+        m = m_new
+    seen = l != 0.0
+    l_safe = torch.where(seen, l, 1.0)
+    lse_i = torch.where(_half_neg_inf(m), 0.0, m) + torch.log(l_safe)
+    lse_c = lse.reshape(b, h, tq, 1)
+    lse_new = torch.maximum(lse_c, lse_i) + torch.log1p(torch.exp(-(lse_c - lse_i).abs()))
+    safe = torch.where(_half_neg_inf(lse_new), 0.0, lse_new)
+    alpha = torch.exp(torch.where(_half_neg_inf(lse_c), fa.NEG_INF, lse_c) - safe)
+    beta = torch.exp(lse_i - safe)
+    return (torch.where(seen, acc * alpha + (o / l_safe) * beta, acc),
+            torch.where(seen, lse_new, lse_c).reshape(lse.shape))
 
 
 def _excess(got, want):
@@ -213,3 +274,152 @@ def test_k6_one_rounding_fails_the_gate(d):
     dk, dv = emulate_k6(q, k, v, do, lse_p, delta, scale, True, split=False)
     dk_p, dv_p = fa.flash_attention_dkv_plain(q, k, v, do, lse_p, delta, scale, True)
     assert max(_excess(dk.float(), dk_p.float()), _excess(dv.float(), dv_p.float())) > 0.0
+
+
+def _carry(b, h, t, d, seed):
+    """A non-trivial incoming carry: an acc with its lse, and rows that
+    have seen nothing yet (lse NEG_INF, acc 0)."""
+    rng = np.random.default_rng(seed)
+    acc = rng.standard_normal((b, h, t, d)).astype(np.float32)
+    lse = rng.standard_normal((b, h, t, 1)).astype(np.float32) + 2.0
+    lse[:, 0, : t // 4] = fa.NEG_INF
+    acc[:, 0, : t // 4] = 0.0
+    return torch.from_numpy(acc), torch.from_numpy(lse)
+
+
+def _assert_carry_close(got, want, what):
+    (acc, lse), (acc_w, lse_w) = got, want
+    assert float((lse - lse_w).abs().max()) <= LSE_ATOL, what
+    rtol, share = RING_CARRY_TOL
+    limit = rtol * acc_w.abs() + share * acc_w.abs().max()
+    assert float(((acc - acc_w).abs() - limit).max()) <= 0.0, what
+
+
+def _bhtd(x):
+    return torch.from_numpy(x).to(torch.bfloat16).transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("t", [100, 200])
+@pytest.mark.parametrize("d,causal", CASES)
+def test_k5_rounding_matches_plain_version(d, causal, t):
+    q, k, v, do = (_bf16(x) for x in _draw(2, t, 2, d, seed=11 * d + t + causal))
+    scale = fa.default_scale(d)
+    out_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, scale, causal)
+    delta = fa.attention_delta(out_p, do)
+    dq = emulate_k5(q, k, v, do, lse_p, delta, scale, causal)
+    dq_p = fa.flash_attention_dq_plain(q, k, v, do, lse_p, delta, scale, causal)
+    _assert_close(dq.float(), dq_p.float(), "dq")
+
+
+@pytest.mark.parametrize("tq,tk", [(100, 200), (200, 130)])
+@pytest.mark.parametrize("d,causal", CASES)
+def test_k7_rounding_matches_plain_version(d, causal, tq, tk):
+    """Tq != Tk, ragged tiles, random positions (any order), a carry
+    with rows that have seen nothing."""
+    q, k, v = (_bhtd(x) for x in _draw(2, max(tq, tk), 2, d, seed=13 * d + tq + causal, n=3))
+    q, k, v = q[:, :, :tq], k[:, :, :tk], v[:, :, :tk]
+    rng = np.random.default_rng(d + tq)
+    q_pos = torch.from_numpy(rng.integers(0, tq + tk, tq).astype(np.int32))
+    k_pos = torch.from_numpy(rng.permutation(tq + tk)[:tk].astype(np.int32))
+    acc, lse = _carry(2, 2, tq, d, seed=d + tk)
+    scale = fa.default_scale(d)
+    got = emulate_k7(q, k, v, acc, lse, q_pos, k_pos, scale, causal)
+    want = fa.flash_ring_step_carry_plain(q, k, v, acc.clone(), lse.clone(), q_pos, k_pos,
+                                          causal=causal, scale=scale)
+    _assert_carry_close(got, want, (d, causal, tq, tk))
+
+
+@pytest.mark.parametrize("d,causal", CASES)
+def test_k5_rounding_matches_jax_kernel(d, causal):
+    q, k, v, do = (_bf16(x) for x in _draw(1, 2 * TILE, 2, d, seed=61 + d + causal))
+    scale = fa.default_scale(d)
+    jq, jk, jv, jdo = (_jax_bhtd(x) for x in (q, k, v, do))
+    j_out, j_lse = jfa._fwd(jq, jk, jv, scale, causal, TILE, TILE, True)
+    j_dq, _, _ = jfa._bwd(scale, causal, TILE, TILE, True, (jq, jk, jv, j_out, j_lse), jdo)
+    out = torch.from_numpy(_from_jax_bhtd(j_out)).to(torch.bfloat16)
+    lse = torch.from_numpy(np.array(j_lse, np.float32)[..., 0])
+    dq = emulate_k5(q, k, v, do, lse, fa.attention_delta(out, do), scale, causal)
+    _assert_close(dq.float().numpy(), _from_jax_bhtd(j_dq), "dq")
+
+
+# (q shard, K/V source shard, layout) of a ring of 4: an unmasked step,
+# the diagonal, a fully masked step, zigzag steps.
+RING_STEPS = [(1, 0, "contiguous"), (2, 2, "contiguous"), (0, 3, "contiguous"),
+              (0, 3, "zigzag"), (2, 1, "zigzag")]
+
+
+@pytest.mark.parametrize("q_index,src,layout", RING_STEPS)
+@pytest.mark.parametrize("d", [64, 128])
+def test_k7_rounding_matches_jax_kernel(d, q_index, src, layout):
+    t, n = 2 * TILE, 4
+    q, k, v = (_bhtd(x) for x in _draw(1, t, 2, d, seed=83 + d + 7 * q_index + src, n=3))
+    q_pos, k_pos = (torch.from_numpy(ring.shard_positions(i, t, n, layout).astype(np.int32))
+                    for i in (q_index, src))
+    acc, lse = _carry(1, 2, t, d, seed=91 + d)
+    scale = fa.default_scale(d)
+    j_acc, j_lse = jfa.flash_ring_step_carry(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)),
+        jnp.asarray(acc.numpy()), jnp.asarray(lse.numpy()), jnp.asarray(q_pos.numpy()),
+        jnp.asarray(k_pos.numpy()), causal=True, scale=scale, block_q=TILE, block_k=TILE,
+        interpret=True)
+    got = emulate_k7(q, k, v, acc, lse, q_pos, k_pos, scale, True)
+    want = (torch.from_numpy(np.array(j_acc)), torch.from_numpy(np.array(j_lse)))
+    _assert_carry_close(got, want, (d, q_index, src, layout))
+    if int(k_pos.min()) > int(q_pos.max()):  # fully masked: the carry kept bit for bit
+        for new, old in zip(got + want, (acc, lse) * 2):
+            assert torch.equal(new, old)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_k5_one_rounding_fails_the_gate(d):
+    """Why K5 splits dS: over 8 seeded draws, one bf16 rounding of it puts
+    dq past phase 10's bf16 tolerance on some (about half), while the
+    split passes them all.  A tolerance holds for every input, so one
+    failing draw rejects the design."""
+    scale = fa.default_scale(d)
+    once, split = [], []
+    for i in range(8):
+        q, k, v, do = (_bf16(x) for x in _draw(2, 200, 2, d, seed=11 * d + 201 + i))
+        out_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, scale, True)
+        delta = fa.attention_delta(out_p, do)
+        dq_p = fa.flash_attention_dq_plain(q, k, v, do, lse_p, delta, scale, True).float()
+        for got, rounded in ((once, False), (split, True)):
+            dq = emulate_k5(q, k, v, do, lse_p, delta, scale, True, split=rounded)
+            got.append(_excess(dq.float(), dq_p))
+    assert max(once) > 0.0 and max(split) <= 0.0, (once, split)
+
+
+def test_k7_scale_before_the_product_in_bf16_fails_the_gate():
+    """Why K7 scales S in f32 after the product, as K4 does: rounding q *
+    scale to bf16 (inexact at D=128) moves the carry's lse past LSE_ATOL."""
+    q, k, v = (_bhtd(x) for x in _draw(2, 200, 2, 128, seed=331, n=3))
+    pos = torch.arange(200, dtype=torch.int32)
+    acc = torch.zeros((2, 2, 200, 128))
+    lse = torch.full((2, 2, 200, 1), fa.NEG_INF)
+    scale = fa.default_scale(128)
+    q_scaled = (q.float() * scale).to(torch.bfloat16)
+    _, lse_got = emulate_k7(q_scaled, k, v, acc, lse, pos, pos, 1.0, True)
+    _, lse_p = fa.flash_ring_step_carry_plain(q, k, v, acc.clone(), lse.clone(), pos, pos,
+                                              causal=True, scale=scale)
+    assert float((lse_got - lse_p).abs().max()) > LSE_ATOL
+
+
+def test_ring_kernel_inputs_copy_only_what_lacks_alignment():
+    """The bf16 K7 build's 16-byte copies need 16-byte-aligned data and
+    strides, q's and the K/V block's each: the wrapper copies a bf16
+    tensor that lacks them and passes an aligned view (the ring's
+    transposed q) through.  The checks need no card."""
+    x = torch.zeros((2, 64, 2, 16), dtype=torch.bfloat16)
+    q = x.transpose(1, 2)  # the ring's q: a view with its own strides
+    k = torch.zeros((2, 2, 64, 16), dtype=torch.bfloat16)
+    got = fa._ring_kernel_inputs(q, k, k)
+    assert got[0] is q and got[1] is k and got[2] is k
+    flat = torch.zeros(2 * 2 * 64 * 16 + 1, dtype=torch.bfloat16)
+    off = flat[1:].view(2, 2, 64, 16)  # contiguous, but 2 bytes past an aligned address
+    assert off.data_ptr() % 16
+    q2, k2, v2 = fa._ring_kernel_inputs(off, off, k)
+    for y in (q2, k2, v2):
+        assert y.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in y.stride()[:-1])
+    assert torch.equal(q2, off) and torch.equal(k2, off)
+    f32 = torch.zeros(2 * 2 * 64 * 16 + 1)[1:].view(2, 2, 64, 16)
+    assert fa._ring_kernel_inputs(f32, f32, f32)[0] is f32  # f32 takes any alignment
