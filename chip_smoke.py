@@ -12,7 +12,8 @@ training phases 5-9 follow the serving phases 3-4):
    attention kernel's registers, shared memory, stack and spill bytes,
    and its count of tensor-core instructions (HMMA, HGMMA) in its SASS,
    read with ``cuobjdump`` from the built library (a line says so where
-   cuobjdump is missing); the bf16 K4-K7 builds must hold HMMA or HGMMA.
+   cuobjdump is missing); the bf16 K4-K9 builds (K8 and K9 each for a
+   bf16 and an f32 dO) must hold HMMA or HGMMA.
 2. Each kernel against its plain PyTorch version on the card, on a
    26M-row table (DeepFM's 26 fields x 1M ids, dim 1+8 -> [26M, 16]
    f32), generated on the device from a seeded ``torch.Generator``:
@@ -77,12 +78,14 @@ sequence sharded over a mesh's ``model`` axis):
     them dq = 0); every step of a ring of 4, contiguous and zigzag causal
     positions, at the CP LM's slot shape (B=4, T_local=2048, H=8, D=64)
     in bf16 and f32, and at ``bench.py``'s RING_BENCH (B=4, T_local=2048,
-    H=8, D=128, bf16) with a full step too; one bf16 edge on a q and a
-    K/V block that sit 2 bytes past a 16-byte boundary (the launcher
-    refuses them, the wrapper copies them).  Timed like phase 10 at
-    RING_BENCH's unmasked step beside their bounds and PyTorch's
-    memory-efficient attention with the step's mask as its bias, and K7
-    also at the CP LM's slot shape (its unmasked step).
+    H=8, D=128, bf16) with a full step too; with bf16 inputs K8 and K9
+    run twice, on a random f32 dO and on the path's bf16 dO; one bf16
+    edge on a q, a K/V block and a dO that sit 2 bytes past a 16-byte
+    boundary (the launchers refuse them, the wrappers copy them).  Timed
+    like phase 10 at RING_BENCH's unmasked step beside their bounds and
+    PyTorch's memory-efficient attention with the step's mask as its
+    bias (K8 and K9 with each dO), and at the CP LM's slot shape (its
+    unmasked step).
 14. An in-process ring of 4 slots (``parallel.mesh.virtual_devices``) on
     B=2, T=8192, H=8, D=64 bf16 causal, both layouts, against K4-K6 on
     the whole sequence: output and gradients at phase 10's tolerances.
@@ -353,20 +356,29 @@ def import_port():
 # phase 1: what the attention kernels were compiled to
 # ----------------------------------------------------------------------
 
-#: The bf16 builds of K4-K7 run on the tensor cores (mma.sync): their
-#: SASS must hold HMMA (or wgmma's HGMMA).
-TENSOR_CORE_KERNELS = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel",
-                       "ring_fwd_mma_kernel")
-_KERNEL_LABEL = re.compile(r"((?:flash|ring)_[a-z_]*kernel)I(13__nv_bfloat16|f)?Li(\d+)E")
+#: The bf16 builds of K4-K9 run on the tensor cores (mma.sync): their
+#: SASS must hold HMMA (or wgmma's HGMMA).  K8 and K9 are built for each
+#: count of dO parts: 1 (a bf16 dO, the CP path's) and 3 (an f32 dO split
+#: three ways, kF32DoParts).
+TENSOR_CORE_BUILDS = tuple(
+    [f"{name}<bf16, {dp}>" for name in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
+                                         "flash_dkv_mma_kernel", "ring_fwd_mma_kernel")
+     for dp in (64, 128)]
+    + [f"{name}<bf16, {dp}, {parts}>" for name in ("ring_dq_mma_kernel", "ring_dkv_mma_kernel")
+       for dp in (64, 128) for parts in (1, 3)])
+_KERNEL_LABEL = re.compile(
+    r"((?:flash|ring)_[a-z_]*kernel)I(13__nv_bfloat16|f)?Li(\d+)E(?:Li(\d+)E)?")
 
 
 def kernel_label(mangled: str):
-    """``name<dtype, DP>`` of an attention kernel's mangled name, or None."""
+    """``name<dtype, DP>`` (``name<bf16, DP, dO parts>`` for the bf16 K8
+    and K9) of an attention kernel's mangled name, or None."""
     m = _KERNEL_LABEL.search(mangled)
     if m is None:
         return None
     dtype = "f32" if m.group(2) == "f" else "bf16"
-    return f"{m.group(1)}<{dtype}, {m.group(3)}>"
+    parts = f", {m.group(4)}" if m.group(4) else ""
+    return f"{m.group(1)}<{dtype}, {m.group(3)}{parts}>"
 
 
 def cuobjdump_path():
@@ -427,7 +439,7 @@ def attention_resources(lib_path: str, build_log: str):
     """Registers, shared memory, spills and tensor-core instructions of
     every attention kernel in the built library, by label; None, with a
     line that says so, where cuobjdump is missing.  Fails if a bf16
-    K4-K7 build holds no HMMA/HGMMA."""
+    K4-K9 build holds no HMMA/HGMMA."""
     tool = cuobjdump_path()
     if tool is None:
         log("  attention kernels' resources: cuobjdump not found (neither beside nvcc "
@@ -454,11 +466,10 @@ def attention_resources(lib_path: str, build_log: str):
         log(f"  {label}: {use.get('REG')} registers, spill stores/loads {spill[0]}/{spill[1]} "
             f"bytes, stack {use.get('STACK')} B, local {use.get('LOCAL')} B, static shared "
             f"{use.get('SHARED')} B, SASS HMMA {hmma} HGMMA {hgmma}")
-    for name in TENSOR_CORE_KERNELS:
-        for dp in (64, 128):
-            r = found.get(f"{name}<bf16, {dp}>")
-            if r is None or r["hmma"] + r["hgmma"] == 0:
-                fail(f"{name}<bf16, {dp}> is missing from the library or holds no HMMA/HGMMA")
+    for label in TENSOR_CORE_BUILDS:
+        r = found.get(label)
+        if r is None or r["hmma"] + r["hgmma"] == 0:
+            fail(f"{label} is missing from the library or holds no HMMA/HGMMA")
     return found
 
 
@@ -1572,17 +1583,19 @@ def lm_training_phases(card: str, seed: int, warmup: int = 2, steps: int = 20,
 # ----------------------------------------------------------------------
 
 
-def ring_bound_ms(b, h, tq, tk, d, pairs, elem_bytes):
+def ring_bound_ms(b, h, tq, tk, d, pairs, elem_bytes, do_bytes):
     """Least time of K7, K8 and K9 on one step: the larger of the
     operations over the bf16 peak and the bytes over the memory rate.
     ``pairs``: the (query, key) pairs this step's positions leave
     unmasked.  Operations, on phase 10's split: forward 4*B*H*D per pair,
-    K8 dQ 2, K9 S, dP, dV, dK 8.  Bytes: q, k, v in their dtype, dO f32,
-    acc read and written (K7), lse and delta, dq or dk and dv written
-    f32, the positions."""
+    K8 dQ 2, K9 S, dP, dV, dK 8.  Bytes: q, k, v in their dtype, dO in
+    the dtype the kernel reads (``do_bytes``: 2 for the path's bf16, 4
+    for f32), acc read and written (K7), lse and delta, dq or dk and dv
+    written f32, the positions."""
     unit = b * h * d * pairs
     qkv = (tq + 2 * tk) * b * h * d * elem_bytes
     q_rows, q_f32, k_f32 = b * h * tq * 4, b * h * tq * d * 4, b * h * tk * d * 4
+    q_do = b * h * tq * d * do_bytes
     pos = (tq + tk) * 4
 
     def bound(ops, nbytes):
@@ -1591,8 +1604,8 @@ def ring_bound_ms(b, h, tq, tk, d, pairs, elem_bytes):
 
     return {
         "flash_ring_step_carry": bound(4 * unit, qkv + 2 * q_f32 + 2 * q_rows + pos),
-        "flash_ring_step_dq": bound(2 * unit, qkv + 2 * q_f32 + 2 * q_rows + pos),
-        "flash_ring_step_dkv": bound(8 * unit, qkv + q_f32 + 2 * q_rows + 2 * k_f32 + pos),
+        "flash_ring_step_dq": bound(2 * unit, qkv + q_do + q_f32 + 2 * q_rows + pos),
+        "flash_ring_step_dkv": bound(8 * unit, qkv + q_do + 2 * q_rows + 2 * k_f32 + pos),
     }
 
 
@@ -1620,13 +1633,15 @@ def ring_close(name, got, want, f32_inputs):
     return attention_close(name, got, want, RING_CARRY_TOL if carry else None)
 
 
-def check_ring_ring(fa, q, k, v, do, positions, causal, scale, what):
+def check_ring_ring(fa, q, k, v, do, positions, causal, scale, what, path_do=None):
     """One slot's whole ring: K7 step by step from the plain version's
     carry (each step from the same carry), then K8 and K9 at every step
-    from the final lse and delta.  A fully masked step must leave the
+    from the final lse and delta, on ``do`` (f32) and, with bf16 inputs,
+    again on the path's dO, bf16 (``path_do``, default ``do`` rounded to
+    bf16), with delta from each.  A fully masked step must leave the
     carry bit for bit, and a row that saw no key in the ring (final lse
-    NEG_INF) must get dq = 0 from K8.  Returns the max abs errors and
-    ``unseen_rows``, the count of such rows."""
+    NEG_INF) must get dq = 0 from K8.  Returns the max abs errors over
+    both dOs and ``unseen_rows``, the count of such rows."""
     import torch
 
     f32 = q.dtype == torch.float32
@@ -1651,24 +1666,27 @@ def check_ring_ring(fa, q, k, v, do, positions, causal, scale, what):
         errs["flash_ring_step_carry"] = max(
             errs["flash_ring_step_carry"], lse_err,
             ring_close(f"acc {what} step {step}", a_k, acc, f32))
-    delta = torch.sum(do * acc.to(q.dtype).to(torch.float32), dim=-1, keepdim=True)
     unseen = lse[..., 0] <= UNSEEN_LSE
     errs["unseen_rows"] = int(unseen.sum())
-    for step, k_pos in enumerate(k_steps):
-        got = fa.flash_ring_step_bwd(q, k, v, do, lse, delta, q_pos, k_pos, causal=causal,
-                                     scale=scale)
-        want = fa.flash_ring_step_bwd_plain(q, k, v, do, lse, delta, q_pos, k_pos,
-                                            causal=causal, scale=scale)
-        torch.cuda.synchronize()
-        if bool((got[0][unseen] != 0.0).any()):
-            fail(f"flash_ring_step_dq gave a row that saw no key a gradient ({what}, step "
-                 f"{step})")
-        errs["flash_ring_step_dq"] = max(errs["flash_ring_step_dq"], ring_close(
-            f"dq {what} step {step}", got[0], want[0], f32))
-        errs["flash_ring_step_dkv"] = max(
-            errs["flash_ring_step_dkv"],
-            ring_close(f"dk {what} step {step}", got[1], want[1], f32),
-            ring_close(f"dv {what} step {step}", got[2], want[2], f32))
+    dos = [do] if f32 else [do, do.to(torch.bfloat16) if path_do is None else path_do]
+    for g in dos:
+        delta = torch.sum(g.float() * acc.to(q.dtype).to(torch.float32), dim=-1, keepdim=True)
+        g_what = f"{what}, dO {str(g.dtype)[6:]}"
+        for step, k_pos in enumerate(k_steps):
+            got = fa.flash_ring_step_bwd(q, k, v, g, lse, delta, q_pos, k_pos, causal=causal,
+                                         scale=scale)
+            want = fa.flash_ring_step_bwd_plain(q, k, v, g, lse, delta, q_pos, k_pos,
+                                                causal=causal, scale=scale)
+            torch.cuda.synchronize()
+            if bool((got[0][unseen] != 0.0).any()):
+                fail(f"flash_ring_step_dq gave a row that saw no key a gradient ({g_what}, "
+                     f"step {step})")
+            errs["flash_ring_step_dq"] = max(errs["flash_ring_step_dq"], ring_close(
+                f"dq {g_what} step {step}", got[0], want[0], f32))
+            errs["flash_ring_step_dkv"] = max(
+                errs["flash_ring_step_dkv"],
+                ring_close(f"dk {g_what} step {step}", got[1], want[1], f32),
+                ring_close(f"dv {g_what} step {step}", got[2], want[2], f32))
     return errs
 
 
@@ -1709,8 +1727,8 @@ def ring_edges(fa, gen, dev, card):
     return worst
 
 
-#: cudaErrorMisalignedAddress, which the bf16 K7 launcher returns for a
-#: pointer or stride its 16-byte copies cannot take.
+#: cudaErrorMisalignedAddress, which the bf16 K7-K9 launchers return for
+#: a pointer or stride their 16-byte copies cannot take.
 CUDA_ERROR_MISALIGNED = 716
 
 
@@ -1727,22 +1745,34 @@ def unaligned_copy(x):
 
 
 def ring_unaligned_edge(fa, gen, dev):
-    """bf16 q and K/V block 2 bytes past a 16-byte boundary: the C entry
-    point refuses them (cudaErrorMisalignedAddress, nothing launched);
-    through the wrapper, which copies them, K7 launches and the ring
-    holds to the plain versions as at the other edges."""
+    """bf16 q and K/V block, and a bf16 dO, 2 bytes past a 16-byte
+    boundary: the C entry points refuse them (cudaErrorMisalignedAddress,
+    nothing launched, nothing written); through the wrappers, which copy
+    them, K7-K9 launch and the ring holds to the plain versions as at the
+    other edges."""
     import torch
 
     from elasticdl_tpu_torch.ops import _build
 
     b, tq, tk, h, d = 1, 130, 200, 2, 64
     q, k, v, do = ring_step_inputs(gen, dev, b, tq, tk, h, d, torch.bfloat16)
-    q, k, v = unaligned_copy(q), unaligned_copy(k), unaligned_copy(v)
+    do_u = unaligned_copy(do.to(torch.bfloat16))
     q_pos = torch.randint(0, tq + tk, (tq,), generator=gen, device=dev, dtype=torch.int32)
     k_pos = torch.randint(0, tq + tk, (tk,), generator=gen, device=dev, dtype=torch.int32)
+    scale = fa.default_scale(d)
+    rows = torch.zeros((b, h, tq), dtype=torch.float32, device=dev)
+    dq = torch.zeros((b, h, tq, d), dtype=torch.float32, device=dev)
+    code = _build.library().edl_ring_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do_u.data_ptr(), 1, rows.data_ptr(),
+        rows.data_ptr(), dq.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+        *fa._ring_shape_args(q, k, scale, True))
+    torch.cuda.synchronize()
+    if code != CUDA_ERROR_MISALIGNED or not bool((dq == 0.0).all()):
+        fail(f"edl_ring_dq took a bf16 dO 2 bytes past a 16-byte boundary (returned {code}, "
+             f"want {CUDA_ERROR_MISALIGNED}, dq untouched)")
+    q, k, v = unaligned_copy(q), unaligned_copy(k), unaligned_copy(v)
     acc = torch.zeros((b, h, tq, d), dtype=torch.float32, device=dev)
     lse = torch.full((b, h, tq, 1), -1e30, dtype=torch.float32, device=dev)
-    scale = fa.default_scale(d)
     code = _build.library().edl_ring_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(), lse.data_ptr(),
         q_pos.data_ptr(), k_pos.data_ptr(), *fa._ring_shape_args(q, k, scale, True))
@@ -1752,11 +1782,14 @@ def ring_unaligned_edge(fa, gen, dev):
              f"want {CUDA_ERROR_MISALIGNED})")
     if not (bool((acc == 0.0).all()) and bool((lse == -1e30).all())):
         fail("edl_ring_fwd refused a misaligned q but wrote the carry")
-    before = fa.launch_counts()["flash_ring_step_carry"]
+    before = fa.launch_counts()
     errs = check_ring_ring(fa, q, k, v, do, (q_pos, [k_pos, q_pos.max() + 1 + k_pos]), True,
-                           scale, f"B={b} Tq={tq} Tk={tk} H={h} D={d} bf16 causal, unaligned")
-    if fa.launch_counts()["flash_ring_step_carry"] - before != 2:
-        fail("K7 did not launch on the unaligned inputs")
+                           scale, f"B={b} Tq={tq} Tk={tk} H={h} D={d} bf16 causal, unaligned",
+                           path_do=do_u)
+    launched = {name: n - before[name] for name, n in fa.launch_counts().items()}
+    if any(launched[name] != 2 * (1 if name == "flash_ring_step_carry" else 2)
+           for name in fa.RING_KERNELS):
+        fail(f"K7-K9 did not launch on the unaligned inputs: {launched}")
     return errs
 
 
@@ -1822,33 +1855,65 @@ def unmasked_step_positions(ring, dev, t, n):
         dev, torch.int32) for i in (1, 0))
 
 
-def ring_fwd_slot_timing(fa, ring, gen, dev, flush, card):
-    """K7 timed at the CP LM's slot shape (bf16, the head_dim-64 build),
-    its unmasked step, beside its plain version, bound and the
-    memory-efficient forward (and that call's backward, the yardstick of
-    K8 + K9 on the CP LM's path)."""
+def ring_step_times(fa, q, k, v, do, q_pos, k_pos, scale, flush, names=None):
+    """{kernel: (ms, plain ms)} of ``names`` (default K7-K9) on one step,
+    K8 and K9 on ``do`` as given, from the plain version's final lse and
+    delta."""
+    import torch
+
+    b, h, t, d = q.shape
+    kw = dict(causal=True, scale=scale)
+    acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=q.device)
+    lse = torch.full((b, h, t, 1), -1e30, dtype=torch.float32, device=q.device)
+    fa.flash_ring_step_carry_plain(q, k, v, acc, lse, q_pos, k_pos, **kw)
+    delta = torch.sum(do.float() * acc.to(q.dtype).to(torch.float32), dim=-1, keepdim=True)
+    a_k, l_k = acc.clone(), lse.clone()
+    rows = (lse[..., 0], delta[..., 0])
+    calls = {
+        "flash_ring_step_carry": (
+            lambda: fa.flash_ring_step_carry(q, k, v, a_k, l_k, q_pos, k_pos, **kw),
+            lambda: fa.flash_ring_step_carry_plain(q, k, v, acc, lse, q_pos, k_pos, **kw)),
+        "flash_ring_step_dq": (
+            lambda: fa.flash_ring_step_dq(q, k, v, do, lse, delta, q_pos, k_pos, **kw),
+            lambda: fa.flash_ring_step_dq_plain(q, k, v, do, *rows, q_pos, k_pos, **kw)),
+        "flash_ring_step_dkv": (
+            lambda: fa.flash_ring_step_dkv(q, k, v, do, lse, delta, q_pos, k_pos, **kw),
+            lambda: fa.flash_ring_step_dkv_plain(q, k, v, do, *rows, q_pos, k_pos, **kw)),
+    }
+    return {name: (median_ms(calls[name][0], flush), median_ms(calls[name][1], flush))
+            for name in names or fa.RING_KERNELS}
+
+
+def ring_slot_timing(fa, ring, gen, dev, flush, card):
+    """K7-K9 timed at the CP LM's slot shape (bf16, the head_dim-64
+    builds; K8 and K9 on the path's bf16 dO), its unmasked step, beside
+    their plain versions, bounds and the memory-efficient forward and
+    backward (the latter the yardstick of K8 + K9 on the CP LM's path)."""
     import torch
 
     b, t, h, d = CP_SLOT_SHAPE
     q, k, v, do = ring_step_inputs(gen, dev, b, t, t, h, d, torch.bfloat16)
+    do = do.to(torch.bfloat16)
     q_pos, k_pos = unmasked_step_positions(ring, dev, t, CP_MESH[1])
-    acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=dev)
-    lse = torch.full((b, h, t, 1), -1e30, dtype=torch.float32, device=dev)
-    kw = dict(causal=True, scale=fa.default_scale(d))
-    ms = median_ms(lambda: fa.flash_ring_step_carry(q, k, v, acc, lse, q_pos, k_pos, **kw), flush)
-    plain = median_ms(lambda: fa.flash_ring_step_carry_plain(q, k, v, acc, lse, q_pos, k_pos,
-                                                             **kw), flush)
+    times = ring_step_times(fa, q, k, v, do, q_pos, k_pos, fa.default_scale(d), flush)
     lib, lib_bwd = efficient_attention_ms(q, k, v, do, q_pos, k_pos, flush)
     pairs = unmasked_pairs(q_pos, k_pos, True)
-    bound, by = ring_bound_ms(b, h, t, t, d, pairs, 2)["flash_ring_step_carry"]
-    tflops = ring_step_ops(b, h, d, pairs)["flash_ring_step_carry"] / ms * 1e-9
-    shape = f"B={b} Tq=Tk={t} H={h} D={d} bf16, unmasked step (contiguous, shard 1 vs shard 0)"
-    log(f"kernel flash_ring_step_carry: {shape}: {ms!r} ms, {tflops!r} TFLOP/s (plain {plain!r} "
-        f"ms, bound {bound!r} ms by {by}; memory-efficient forward {lib!r} ms, its backward "
-        f"{lib_bwd!r} ms) [{card}]")
-    del q, k, v, do, acc, lse
-    return {"shape": shape, "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib, "library_backward_ms": lib_bwd, "tflop_per_s": tflops}
+    bounds = ring_bound_ms(b, h, t, t, d, pairs, 2, 2)
+    ops = ring_step_ops(b, h, d, pairs)
+    shape = (f"B={b} Tq=Tk={t} H={h} D={d} bf16, dO bf16, unmasked step (contiguous, shard 1 "
+             f"vs shard 0)")
+    out = {}
+    for name, (ms, plain) in times.items():
+        tflops = ops[name] / ms * 1e-9
+        out[name] = {"shape": shape, "ms": ms, "plain_ms": plain, "bound_ms": bounds[name][0],
+                     "bound_by": bounds[name][1], "tflop_per_s": tflops,
+                     "library_ms": lib if name == "flash_ring_step_carry" else lib_bwd}
+        log(f"kernel {name}: {shape}: {ms!r} ms, {tflops!r} TFLOP/s (plain {plain!r} ms, bound "
+            f"{bounds[name][0]!r} ms by {bounds[name][1]}) [{card}]")
+    log(f"  efficient-attention yardstick at the CP slot: forward {lib!r} ms, backward (dq, dk, "
+        f"dv) {lib_bwd!r} ms [{card}]")
+    del q, k, v, do
+    return out
 
 
 def ring_kernel_phase(card: str, seed: int):
@@ -1887,35 +1952,16 @@ def ring_kernel_phase(card: str, seed: int):
     log(f"kernels K7-K9 at {shape}, every step of a ring of {n}, contiguous and zigzag "
         f"(causal) and one full step: within tolerance, max abs errors {errs} [{card}]")
 
-    # timed at the unmasked step: shard 1 against shard 0's block
+    # timed at the unmasked step: shard 1 against shard 0's block; K8 and
+    # K9 on the path's bf16 dO and on an f32 dO
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32, device=dev)
     q_pos, k_pos = unmasked_step_positions(ring, dev, t, n)
-    acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=dev)
-    lse = torch.full((b, h, t, 1), -1e30, dtype=torch.float32, device=dev)
-    fa.flash_ring_step_carry_plain(q, k, v, acc, lse, q_pos, k_pos, causal=True, scale=scale)
-    delta = torch.sum(do * acc.to(torch.bfloat16).to(torch.float32), dim=-1, keepdim=True)
-    kw = dict(causal=True, scale=scale)
-    a_k, l_k = acc.clone(), lse.clone()
-    times = {
-        "flash_ring_step_carry": (
-            median_ms(lambda: fa.flash_ring_step_carry(q, k, v, a_k, l_k, q_pos, k_pos, **kw),
-                      flush),
-            median_ms(lambda: fa.flash_ring_step_carry_plain(q, k, v, acc, lse, q_pos, k_pos,
-                                                             **kw), flush)),
-        "flash_ring_step_dq": (
-            median_ms(lambda: fa.flash_ring_step_dq(q, k, v, do, lse, delta, q_pos, k_pos, **kw),
-                      flush),
-            median_ms(lambda: fa.flash_ring_step_dq_plain(
-                q, k, v, do, lse[..., 0], delta[..., 0], q_pos, k_pos, **kw), flush)),
-        "flash_ring_step_dkv": (
-            median_ms(lambda: fa.flash_ring_step_dkv(q, k, v, do, lse, delta, q_pos, k_pos,
-                                                     **kw), flush),
-            median_ms(lambda: fa.flash_ring_step_dkv_plain(
-                q, k, v, do, lse[..., 0], delta[..., 0], q_pos, k_pos, **kw), flush)),
-    }
+    times = ring_step_times(fa, q, k, v, do.to(torch.bfloat16), q_pos, k_pos, scale, flush)
+    f32_dout = ring_step_times(fa, q, k, v, do, q_pos, k_pos, scale, flush, fa.RING_KERNELS[1:])
     lib_fwd, lib_bwd = efficient_attention_ms(q, k, v, do, q_pos, k_pos, flush)
     pairs = unmasked_pairs(q_pos, k_pos, True)
-    bounds = ring_bound_ms(b, h, t, t, d, pairs, 2)
+    bounds = ring_bound_ms(b, h, t, t, d, pairs, 2, 2)
+    f32_bounds = ring_bound_ms(b, h, t, t, d, pairs, 2, 4)
     ops = ring_step_ops(b, h, d, pairs)
     timed = f"{shape}, unmasked step (contiguous, shard 1 vs shard 0's block)"
     results = {}
@@ -1930,16 +1976,25 @@ def ring_kernel_phase(card: str, seed: int):
             "ms": ms, "plain_ms": plain, "bound_ms": bounds[name][0],
             "bound_by": bounds[name][1], "tflop_per_s": tflops,
             "library_ms": lib_fwd if name == "flash_ring_step_carry" else lib_bwd,
-            "shape": timed,
+            "shape": timed + (", dO bf16 (the path's)" if name != "flash_ring_step_carry"
+                              else ""),
         }
-        log(f"kernel {name}: {timed}: {ms!r} ms, {tflops!r} TFLOP/s (plain {plain!r} ms, "
-            f"bound {bounds[name][0]!r} ms by {bounds[name][1]}) [{card}]")
+        log(f"kernel {name}: {results[name]['shape']}: {ms!r} ms, {tflops!r} TFLOP/s (plain "
+            f"{plain!r} ms, bound {bounds[name][0]!r} ms by {bounds[name][1]}) [{card}]")
+        if name != "flash_ring_step_carry":
+            ms32, plain32 = f32_dout[name]
+            results[name]["f32_dout"] = {
+                "ms": ms32, "plain_ms": plain32, "bound_ms": f32_bounds[name][0],
+                "bound_by": f32_bounds[name][1], "tflop_per_s": ops[name] / ms32 * 1e-9}
+            log(f"kernel {name}: {timed}, dO f32: {ms32!r} ms, {ops[name] / ms32 * 1e-9!r} "
+                f"TFLOP/s (plain {plain32!r} ms, bound {f32_bounds[name][0]!r} ms by "
+                f"{f32_bounds[name][1]}) [{card}]")
     log(f"  efficient-attention yardstick (bias = the step's mask, lse): forward {lib_fwd!r} "
         f"ms, backward (dq, dk, dv) {lib_bwd!r} ms [{card}]")
-    del q, k, v, do, acc, lse, a_k, l_k, delta
+    del q, k, v, do
     torch.cuda.empty_cache()
-    results["flash_ring_step_carry"]["cp_slot_timing"] = ring_fwd_slot_timing(
-        fa, ring, gen, dev, flush, card)
+    for name, slot in ring_slot_timing(fa, ring, gen, dev, flush, card).items():
+        results[name]["cp_slot_timing"] = slot
     del flush
     torch.cuda.empty_cache()
     return results
@@ -2488,11 +2543,13 @@ def mesh_training_phases(card: str, seed: int, workdir: str, params: str = TRAIN
 
 
 #: The build of each of K7-K9 at RING_BENCH (bf16, head_dim 128) and on
-#: the CP LM's path (head_dim 64).
+#: the CP LM's path (head_dim 64); K8 and K9 with the path's bf16 dO (one
+#: part).
 RING_BUILDS = {
     "flash_ring_step_carry": ("ring_fwd_mma_kernel<bf16, 128>", "ring_fwd_mma_kernel<bf16, 64>"),
-    "flash_ring_step_dq": ("ring_dq_kernel<bf16, 128>", "ring_dq_kernel<bf16, 64>"),
-    "flash_ring_step_dkv": ("ring_dkv_kernel<bf16, 128>", "ring_dkv_kernel<bf16, 64>"),
+    "flash_ring_step_dq": ("ring_dq_mma_kernel<bf16, 128, 1>", "ring_dq_mma_kernel<bf16, 64, 1>"),
+    "flash_ring_step_dkv": ("ring_dkv_mma_kernel<bf16, 128, 1>",
+                            "ring_dkv_mma_kernel<bf16, 64, 1>"),
 }
 
 
@@ -2521,6 +2578,7 @@ def ring_entries(ring_kernels, ring_whole, cp, card, resources=None):
             "build": bench_build, "resources": (resources or {}).get(bench_build),
             "path_build": path_build, "path_resources": (resources or {}).get(path_build),
             "cp_slot_timing": r.get("cp_slot_timing"),
+            "f32_dout": r.get("f32_dout"),
             "library": ("aten._scaled_dot_product_efficient_attention forward, the step's mask "
                         "as attn_bias, without K7's combine"
                         if name == "flash_ring_step_carry" else

@@ -73,8 +73,9 @@ SIGNATURES = {
     "edl_flash_dkv": (_P,) * 8 + _FLASH_TAIL,                   # ... dk dv
     # the ring steps: tensors, positions (q_pos, k_pos), then _RING_TAIL.
     "edl_ring_fwd": (_P,) * 7 + _RING_TAIL,   # q k v acc lse q_pos k_pos
-    "edl_ring_dq": (_P,) * 9 + _RING_TAIL,    # q k v do lse delta dq q_pos k_pos
-    "edl_ring_dkv": (_P,) * 10 + _RING_TAIL,  # q k v do lse delta dk dv q_pos k_pos
+    # the backward steps: dO's dtype code after dO.
+    "edl_ring_dq": (_P,) * 4 + (_I,) + (_P,) * 5 + _RING_TAIL,  # ... lse delta dq q_pos k_pos
+    "edl_ring_dkv": (_P,) * 4 + (_I,) + (_P,) * 6 + _RING_TAIL,  # ... lse delta dk dv q_pos k_pos
 }
 
 

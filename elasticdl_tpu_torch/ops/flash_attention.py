@@ -39,15 +39,15 @@ end).  The tests hold the plain versions against the JAX package;
 falls back from a kernel to its plain version.
 
 Two designs stand behind the kernels, chosen by dtype.  For bf16 inputs
-K4-K7 run their products on the tensor cores (``mma.sync``, bf16
+K4-K9 run their products on the tensor cores (``mma.sync``, bf16
 operands, f32 sums), bounded by the card's bf16 rate: S is computed from
 the unscaled bf16 q and scaled in f32 after the product, P is rounded to
-bf16 per ``BLOCK`` keys, and K5 and K6 feed P and dS to their last
+bf16 per ``BLOCK`` keys, and K5, K6, K8 and K9 feed P and dS to their
 products split as ``hi = bf16(x)``, ``lo = bf16(x - hi)``, since the
 reference keeps them f32 and one bf16 rounding of them would put dq and
-dk past the kernels' tolerance (``tests/test_torch_flash_mma_rounding.py``
-emulates these rules).  f32 inputs and K8-K9 are f32 FMA kernels on the
-CUDA cores.
+dk past the kernels' tolerance; K8 and K9 split an f32 dO so too
+(``tests/test_torch_flash_mma_rounding.py`` emulates these rules).  f32
+inputs run f32 FMA kernels on the CUDA cores.
 
 Layouts: q, k, v, out and the gradients are ``[B, T, H, D]`` as in the
 JAX function; the kernels read q, k, v through their strides, so the
@@ -507,6 +507,17 @@ def _ring_kernel_inputs(q, k, v):
     return q, k, v
 
 
+def _ring_kernel_dout(do, q):
+    """dO as K8 and K9 read it: a bf16 dO beside bf16 q as it is (the CP
+    path's gradient; contiguous and 16-byte aligned, copied only when it
+    is not), any other as f32 (beside bf16 q the kernels split it hi/lo;
+    the f32 builds read it as it is)."""
+    if not (q.dtype == do.dtype == torch.bfloat16):
+        return do.to(torch.float32).contiguous()
+    do = do.contiguous()
+    return do if _aligned16(do) else do.clone()
+
+
 def _check_tiles(block_q: int, block_k: int) -> None:
     if block_q != BLOCK or block_k != BLOCK:
         raise ValueError(f"the ring-step kernels are built for {BLOCK}-wide tiles, got "
@@ -661,44 +672,48 @@ def _ring_bwd_inputs(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos):
 def flash_ring_step_dq(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal, scale,
                        block_q: int = BLOCK, block_k: int = BLOCK) -> torch.Tensor:
     """K8: the step's dq contribution, f32 [B, H, Tq, D], from the FINAL
-    ring-combined ``lse`` and ``delta``."""
+    ring-combined ``lse`` and ``delta``.  bf16 runs on the tensor cores
+    (K5's rules; dO read as given, bf16 or f32, an f32 dO split hi/lo),
+    f32 on the CUDA cores."""
     lse, delta, q_pos, k_pos = _ring_bwd_inputs(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos)
     if _route(q) == "plain":
         return flash_ring_step_dq_plain(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos,
                                         causal=causal, scale=scale)
     _check_tiles(block_q, block_k)
     q, k_blk, v_blk = _ring_kernel_inputs(q, k_blk, v_blk)
-    do = do.to(torch.float32).contiguous()
+    do = _ring_kernel_dout(do, q)
     lse, delta = lse.contiguous(), delta.contiguous()
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     if dq.numel() and k_blk.shape[2]:
         with torch.cuda.device(q.device):
             _launch("flash_ring_step_dq", "edl_ring_dq", q.data_ptr(), k_blk.data_ptr(),
-                    v_blk.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dq.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
+                    v_blk.data_ptr(), do.data_ptr(), _DTYPE_CODE[do.dtype], lse.data_ptr(),
+                    delta.data_ptr(), dq.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
                     *_ring_shape_args(q, k_blk, scale, causal))
     return dq
 
 
 def flash_ring_step_dkv(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal, scale,
                         block_q: int = BLOCK, block_k: int = BLOCK):
-    """K9: ``(dk, dv)`` of the rotating block, each f32 [B, H, Tk, D]."""
+    """K9: ``(dk, dv)`` of the rotating block, each f32 [B, H, Tk, D].
+    bf16 runs on the tensor cores (K6's rules; dO as in K8), f32 on the
+    CUDA cores."""
     lse, delta, q_pos, k_pos = _ring_bwd_inputs(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos)
     if _route(q) == "plain":
         return flash_ring_step_dkv_plain(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos,
                                          causal=causal, scale=scale)
     _check_tiles(block_q, block_k)
     q, k_blk, v_blk = _ring_kernel_inputs(q, k_blk, v_blk)
-    do = do.to(torch.float32).contiguous()
+    do = _ring_kernel_dout(do, q)
     lse, delta = lse.contiguous(), delta.contiguous()
     dk = torch.zeros(k_blk.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(k_blk.shape, dtype=torch.float32, device=q.device)
     if dk.numel() and q.shape[2]:
         with torch.cuda.device(q.device):
             _launch("flash_ring_step_dkv", "edl_ring_dkv", q.data_ptr(), k_blk.data_ptr(),
-                    v_blk.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dk.data_ptr(), dv.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
-                    *_ring_shape_args(q, k_blk, scale, causal))
+                    v_blk.data_ptr(), do.data_ptr(), _DTYPE_CODE[do.dtype], lse.data_ptr(),
+                    delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), q_pos.data_ptr(),
+                    k_pos.data_ptr(), *_ring_shape_args(q, k_blk, scale, causal))
     return dk, dv
 
 

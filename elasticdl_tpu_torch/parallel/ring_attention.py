@@ -302,12 +302,15 @@ def _ring_flash_backward(ring: Ring, causal: bool, scale: float, layout: str, q,
                          lses, g):
     """Every step reuses P = exp(S - lse_final) through K8 and K9; the
     dk/dv accumulators rotate with their K/V block, so after the n-th
-    rotation each block's gradient is home."""
+    rotation each block's gradient is home.  The kernels read the
+    gradient ``g`` in its own dtype (q's: bf16 on a bf16 model, whose
+    values an f32 copy would only widen); delta takes it upcast."""
     n, slots = ring.size, ring.slots
     tq, tk, positions, k_positions = _shards(ring, layout, q, k)
     qs = [_to_kernel(x) for x in q.split(tq, dim=1)]
-    dos = [_to_kernel(x).to(torch.float32).contiguous() for x in g.split(tq, dim=1)]
-    deltas = [torch.sum(do * _to_kernel(o).to(torch.float32), dim=-1, keepdim=True)
+    dos = [_to_kernel(x).contiguous() for x in g.split(tq, dim=1)]
+    deltas = [torch.sum(do.to(torch.float32) * _to_kernel(o).to(torch.float32), dim=-1,
+                        keepdim=True)
               for do, o in zip(dos, out.split(tq, dim=1))]
     held = [(_to_kernel(a).contiguous(), _to_kernel(c).contiguous(),
              torch.zeros((a.shape[0], a.shape[2], tk, a.shape[3]), dtype=torch.float32,

@@ -1,6 +1,7 @@
-"""The rounding design of the bf16 tensor-core builds of K4-K7
+"""The rounding design of the bf16 tensor-core builds of K4-K9
 (``flash_fwd_mma_kernel``, ``flash_dq_mma_kernel``,
-``flash_dkv_mma_kernel`` and ``ring_fwd_mma_kernel`` in
+``flash_dkv_mma_kernel``, ``ring_fwd_mma_kernel``, ``ring_dq_mma_kernel``
+and ``ring_dkv_mma_kernel`` in
 ``elasticdl_tpu_torch/ops/csrc/flash_attention.cu``), emulated in
 PyTorch on the CPU and held to the port's plain versions and to the JAX
 kernels in interpret mode, at the tolerances ``chip_smoke.py`` holds the
@@ -22,6 +23,13 @@ upcast operands does up to summation order):
   online softmax's max clamped to 0 while a row has seen only masked
   keys (p = 0 there), then the lse-space combine with the carry in the
   JAX order; a row that sees no key keeps its carry bit for bit.
+- K8 and K9 (f32 outputs, held to ``ATTN_F32_*``): S from the unscaled
+  bf16 q, scaled in f32; P = exp(S - lse), 0 where masked or where the
+  row's final lse is NEG_INF; dP from dO, a bf16 dO as it is and an f32
+  dO in three bf16 parts (each the bf16 of what the parts before it
+  left); dS = P (dP - delta) in f32; P and dS each split in two (hi, lo)
+  before dQ = dS K, dK = dS^T Q and dV = P^T dO, every cross product
+  kept.
 
 Inputs are seeded numpy draws at D=64 and D=128 (the kernels' two
 builds), causal and full; T is ragged (not a multiple of the 64-row
@@ -36,7 +44,14 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ATTN_ATOL_SHARE, ATTN_RTOL, LSE_ATOL, RING_CARRY_TOL
+from chip_smoke import (
+    ATTN_ATOL_SHARE,
+    ATTN_F32_ATOL_SHARE,
+    ATTN_F32_RTOL,
+    ATTN_RTOL,
+    LSE_ATOL,
+    RING_CARRY_TOL,
+)
 from elasticdl_tpu_torch.ops import flash_attention as fa
 from elasticdl_tpu_torch.parallel import ring_attention as ring
 
@@ -423,3 +438,242 @@ def test_ring_kernel_inputs_copy_only_what_lacks_alignment():
     assert torch.equal(q2, off) and torch.equal(k2, off)
     f32 = torch.zeros(2 * 2 * 64 * 16 + 1)[1:].view(2, 2, 64, 16)
     assert fa._ring_kernel_inputs(f32, f32, f32)[0] is f32  # f32 takes any alignment
+
+
+# ----------------------------------------------------------------------
+# K8 and K9: the ring step's backward, f32 outputs
+# ----------------------------------------------------------------------
+
+#: kF32DoParts of flash_attention.cu: the bf16 parts of an f32 dO.
+F32_DO_PARTS = 3
+
+
+def _parts(x, n):
+    """x as n bf16 values (as f32), each the bf16 of what the ones before
+    it left (every remainder exact in f32); their sum is x to ~8 n bits."""
+    parts, rest = [], x
+    for _ in range(n):
+        part = rest.to(torch.bfloat16).float()
+        parts.append(part)
+        rest = rest - part
+    return parts
+
+
+def emulate_k8_k9(q, k, v, do, lse, delta, q_pos, k_pos, scale, causal, once=None,
+                  do_parts=F32_DO_PARTS):
+    """K8's and K9's arithmetic on ``[B, H, T, D]`` inputs (q, k, v bf16;
+    dO bf16 or f32; lse, delta f32 ``[B, H, Tq]``): ``(dq, dk, dv)`` f32.
+    ``once`` names one operand, "p", "ds" or "do", rounded once to bf16
+    instead of split (the designs the kernels avoid); ``do_parts`` is the
+    count of bf16 parts of an f32 dO."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale      # [B, H, queries, keys]
+    row = lse[..., None]
+    dead = _half_neg_inf(row)
+    if causal:
+        dead = dead | (k_pos[None, :] > q_pos[:, None])
+    p = torch.where(dead, 0.0, torch.exp(s - row))
+    split_do = do.dtype == torch.float32 and once != "do"
+    do_parts = _parts(do.float(), do_parts if split_do else 1)
+    dp = sum(torch.matmul(part, vf.transpose(-1, -2)) for part in do_parts)
+    ds = p * (dp - delta[..., None])
+    p_parts = _parts(p, 1 if once == "p" else 2)
+    ds_parts = _parts(ds, 1 if once == "ds" else 2)
+    dq = sum(torch.matmul(part, kf) for part in ds_parts) * scale
+    dk = sum(torch.matmul(part.transpose(-1, -2), qf) for part in ds_parts) * scale
+    dv = sum(torch.matmul(a.transpose(-1, -2), b) for a in p_parts for b in do_parts)
+    return dq, dk, dv
+
+
+def _f32_share(got, want):
+    """The worst |got - want| as a share of phase 13's f32 limit, rtol
+    |want| + atol_share max|want| (> 1 fails the gate)."""
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    diff = (got - want).abs()
+    limit = ATTN_F32_RTOL * want.abs() + ATTN_F32_ATOL_SHARE * want.abs().max()
+    return float(torch.where(diff == 0.0, 0.0, diff / limit).max())
+
+
+def _ring_stats(q, k, v, do, q_pos, k_steps, scale, causal):
+    """The final lse and delta ``[B, H, Tq]`` of a ring over the K/V
+    blocks' positions ``k_steps`` (one block, k and v, for every step),
+    from the plain K7 steps: delta = sum(dO * bf16(out))."""
+    b, h, tq, d = q.shape
+    acc = torch.zeros((b, h, tq, d))
+    lse = torch.full((b, h, tq, 1), fa.NEG_INF)
+    for k_pos in k_steps:
+        fa.flash_ring_step_carry_plain(q, k, v, acc, lse, q_pos, k_pos, causal=causal,
+                                       scale=scale)
+    delta = torch.sum(do.float() * acc.to(torch.bfloat16).float(), dim=-1)
+    return lse[..., 0], delta
+
+
+def _ring_case(case, d, dout, seed):
+    """Inputs of a K8/K9 case: ``(q, k, v, do, lse, delta, q_pos, k_pos,
+    causal)``; q is a transposed view, as the ring passes it."""
+    kind, tq, tk, causal = case
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((2, tq, 2, d)).astype(np.float32))
+    q = q.to(torch.bfloat16).transpose(1, 2)
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, tk, d)).astype(np.float32)).to(
+        torch.bfloat16) for _ in range(2))
+    do = torch.from_numpy(rng.standard_normal((2, 2, tq, d)).astype(np.float32))
+    do = do.to(torch.bfloat16) if dout == "bf16" else do
+    if kind == "random":  # any order; some queries see no key (lse NEG_INF)
+        q_pos = torch.from_numpy(rng.integers(0, tq + tk, tq).astype(np.int32))
+        k_pos = torch.from_numpy(rng.permutation(tq + tk)[:tk].astype(np.int32))
+        steps = [k_pos]
+    else:  # shard 2 of a ring of 4 against every source, here source 1 or 2
+        layout, src = kind.split()
+        pos = [torch.from_numpy(ring.shard_positions(i, tq, 4, layout).astype(np.int32))
+               for i in range(4)]
+        q_pos, k_pos, steps = pos[2], pos[int(src)], pos
+    scale = fa.default_scale(d)
+    lse, delta = _ring_stats(q, k, v, do, q_pos, steps, scale, causal)
+    return q, k, v, do, lse, delta, q_pos, k_pos, causal
+
+
+# (kind, Tq, Tk, causal): ring steps of a ragged shard (96 rows: a whole
+# and a half tile), the unmasked step and the diagonal, contiguous and
+# zigzag; random positions with Tq != Tk, causal and full.
+K89_CASES = [("contiguous 1", 96, 96, True), ("contiguous 2", 96, 96, True),
+             ("zigzag 1", 96, 96, True), ("zigzag 2", 96, 96, True),
+             ("random", 100, 200, True), ("random", 200, 130, True),
+             ("random", 130, 100, False)]
+
+
+@pytest.mark.parametrize("dout", ["bf16", "f32"])
+@pytest.mark.parametrize("case", K89_CASES, ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}-{c[3]}")
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_k9_rounding_matches_plain_version(d, case, dout):
+    q, k, v, do, lse, delta, q_pos, k_pos, causal = _ring_case(case, d, dout, seed=d + case[1])
+    scale = fa.default_scale(d)
+    got = emulate_k8_k9(q, k, v, do, lse, delta, q_pos, k_pos, scale, causal)
+    want = fa.flash_ring_step_bwd_plain(q, k, v, do, lse, delta, q_pos, k_pos, causal=causal,
+                                        scale=scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _f32_share(g, w) <= 1.0, (name, _f32_share(g, w))
+    unseen = _half_neg_inf(lse)
+    assert torch.equal(got[0][unseen], torch.zeros_like(got[0][unseen]))
+
+
+@pytest.mark.parametrize("dout", ["bf16", "f32"])
+@pytest.mark.parametrize("q_index,src,layout", RING_STEPS)
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_k9_rounding_matches_jax_kernel(d, q_index, src, layout, dout):
+    """Against JAX's ``flash_ring_step_bwd`` (its Pallas kernels in
+    interpret mode) from a whole ring's final lse and delta, so every row
+    has seen a key; the bf16 dO enters JAX as its f32 values."""
+    t, n = 2 * TILE, 4
+    q, k, v = (_bhtd(x) for x in _draw(1, t, 2, d, seed=97 + d + 7 * q_index + src, n=3))
+    do = torch.from_numpy(_draw(1, t, 2, d, seed=5 + d, n=1)[0]).transpose(1, 2).contiguous()
+    do = do.to(torch.bfloat16) if dout == "bf16" else do
+    pos = [torch.from_numpy(ring.shard_positions(i, t, n, layout).astype(np.int32))
+           for i in range(n)]
+    scale = fa.default_scale(d)
+    lse, delta = _ring_stats(q, k, v, do, pos[q_index], pos, scale, True)
+    want = jfa.flash_ring_step_bwd(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)),
+        jnp.asarray(do.float().numpy()), jnp.asarray(lse[..., None].numpy()),
+        jnp.asarray(delta[..., None].numpy()), jnp.asarray(pos[q_index].numpy()),
+        jnp.asarray(pos[src].numpy()), causal=True, scale=scale, block_q=TILE, block_k=TILE,
+        interpret=True)
+    got = emulate_k8_k9(q, k, v, do, lse, delta, pos[q_index], pos[src], scale, True)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _f32_share(g, np.array(w)) <= 1.0, (name, _f32_share(g, np.array(w)))
+
+
+@pytest.mark.parametrize("once", ["ds", "p", "do"])
+def test_k8_k9_one_rounding_fails_the_gate(once):
+    """Why K8 and K9 split P and dS in two and an f32 dO in three: over 4
+    seeded draws, one bf16 rounding of any of them puts dq, dk or dv past
+    ATTN_F32_* on every draw, while the split passes them all."""
+    split, rounded = [], []
+    for i in range(4):
+        q, k, v, do, lse, delta, q_pos, k_pos, causal = _ring_case(
+            ("contiguous 1", 96, 96, True), 64, "f32", seed=401 + i)
+        scale = fa.default_scale(64)
+        want = fa.flash_ring_step_bwd_plain(q, k, v, do, lse, delta, q_pos, k_pos,
+                                            causal=causal, scale=scale)
+        for shares, rule in ((split, None), (rounded, once)):
+            got = emulate_k8_k9(q, k, v, do, lse, delta, q_pos, k_pos, scale, causal, once=rule)
+            shares.append(max(_f32_share(g, w) for g, w in zip(got, want)))
+    assert min(rounded) > 1.0 and max(split) <= 1.0, (rounded, split)
+
+
+@pytest.mark.parametrize("dout", ["bf16", "f32"])
+@pytest.mark.parametrize("layout", ["contiguous", "zigzag"])
+@pytest.mark.parametrize("d", [64, 128])
+def test_k8_k9_split_stays_under_half_the_gate(d, layout, dout):
+    """The split's margin at phase 13's ring shapes (T_local = 2048, a ring
+    of 4, causal; B and H cut to 1 and 2): against the plain versions,
+    on every live step of shard 1 from the ring's final lse and delta, the
+    worst element of dq, dk and dv stays under half of ATTN_F32_*.  (At
+    the full shapes, ``tests/torch_k89_split_margin.py``, an f32 dO in
+    two parts reaches 0.56-0.88 of it, in three 0.36-0.44.)"""
+    t, n = 2048, 4
+    rng = np.random.default_rng(1000 * d + len(layout) + len(dout))
+    x = rng.standard_normal((4, 1, 2, t, d)).astype(np.float32)
+    q, k, v = (torch.from_numpy(x[i]).to(torch.bfloat16) for i in range(3))
+    do = torch.from_numpy(x[3])
+    do = do.to(torch.bfloat16) if dout == "bf16" else do
+    pos = [torch.from_numpy(ring.shard_positions(i, t, n, layout).astype(np.int32))
+           for i in range(n)]
+    scale = fa.default_scale(d)
+    lse, delta = _ring_stats(q, k, v, do, pos[1], [pos[(1 - s) % n] for s in range(n)], scale,
+                             True)
+    worst = 0.0
+    for k_pos in pos:
+        if int(k_pos.min()) > int(pos[1].max()):
+            continue  # fully masked: zeros on both sides
+        got = emulate_k8_k9(q, k, v, do, lse, delta, pos[1], k_pos, scale, True)
+        want = fa.flash_ring_step_bwd_plain(q, k, v, do, lse, delta, pos[1], k_pos,
+                                            causal=True, scale=scale)
+        worst = max([worst] + [_f32_share(g, w) for g, w in zip(got, want)])
+    assert worst < 0.5, worst
+
+
+def _f32_round_toward_zero(x):
+    """f64 -> f32, rounded toward zero."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0.0))
+    return f
+
+
+def test_k9_sums_each_step_in_a_fresh_fragment():
+    """Why K8 and K9 sum each step's products in a fresh fragment and add
+    it to the running sum in f32: the tensor cores do not round their f32
+    sums to nearest, and on the card a dV sum carried through every mma
+    of a 2048-query shard (f32 dO: 3 x 2 mma per 16 queries, 768 in all)
+    missed ATTN_F32_*.  With each mma's sum rounded toward zero, as a
+    model of that, the carried sum misses the gate at the CP slot's width
+    (D=64, unmasked step), and the design's, a fresh fragment per 16
+    queries rounded toward zero and added to nearest, lands within half
+    of it, as the round-to-nearest emulation does."""
+    t, n, d = 2048, 4, 64
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((4, 1, 1, t, d)).astype(np.float32)
+    q, k, v = (torch.from_numpy(x[i]).to(torch.bfloat16) for i in range(3))
+    do = torch.from_numpy(x[3])
+    pos = [torch.from_numpy(ring.shard_positions(i, t, n, "contiguous").astype(np.int32))
+           for i in range(n)]
+    scale = fa.default_scale(d)
+    lse, delta = _ring_stats(q, k, v, do, pos[1], [pos[1], pos[0]], scale, True)
+    want = fa.flash_ring_step_bwd_plain(q, k, v, do, lse, delta, pos[1], pos[0], causal=True,
+                                        scale=scale)[2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])[0, 0]  # shard 1 against shard 0: every key unmasked
+    p_parts = [a.numpy().astype(np.float64) for a in _parts(p, 2)]
+    do_parts = [a[0, 0].numpy().astype(np.float64) for a in _parts(do, F32_DO_PARTS)]
+    carried, fresh_sum = np.zeros((t, d), np.float32), np.zeros((t, d), np.float32)
+    for q0 in range(0, t, 16):
+        fresh = np.zeros((t, d), np.float32)
+        for dd in do_parts:
+            for pp in p_parts:
+                prod = pp[q0:q0 + 16].T @ dd[q0:q0 + 16]  # one mma's products, exact
+                carried = _f32_round_toward_zero(carried.astype(np.float64) + prod)
+                fresh = _f32_round_toward_zero(fresh.astype(np.float64) + prod)
+        fresh_sum += fresh
+    assert _f32_share(carried, want[0, 0]) > 1.0
+    assert _f32_share(fresh_sum, want[0, 0]) < 0.5

@@ -293,6 +293,61 @@ def test_block_math_ring_matches_jax_and_the_flash_ring(layout):
     np.testing.assert_allclose(flash.numpy(), got.numpy(), **F32_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("layout", ["contiguous", "zigzag"])
+def test_ring_backward_takes_the_gradient_in_its_dtype(layout, dtype):
+    """The ring backward hands K8 and K9 the gradient in q's dtype (bf16
+    on a bf16 model) where it used to hand them an f32 copy: the plain
+    route's dq, dk and dv are bit-identical to those from the f32 copy,
+    through autograd and called directly."""
+    q, k, v, g = (torch.from_numpy(x).to(getattr(torch, dtype))
+                  for x in _draw((2, 64, H, D), seed=61, n=4))
+    r = ring.Ring(N, range(N))
+    if layout == "zigzag":
+        order, _ = ring.zigzag_orders(64, N)
+        q, k, v, g = (x[:, order] for x in (q, k, v, g))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = ring.ring_attention_pallas(*leaves, ring=r, causal=True, layout=layout)
+    got = torch.autograd.grad(out, leaves, g)
+    out2, lses = ring._ring_flash_forward(r, True, SCALE, layout, q, k, v)
+    assert torch.equal(out2, out.detach())
+    as_given = ring._ring_flash_backward(r, True, SCALE, layout, q, k, v, out2, lses, g)
+    upcast = ring._ring_flash_backward(r, True, SCALE, layout, q, k, v, out2, lses, g.float())
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, as_given, upcast):
+        assert a.dtype == getattr(torch, dtype), name
+        assert torch.equal(a, b) and torch.equal(b, c), name
+
+
+def test_bf16_gradient_reaches_the_step_kernels_without_an_upcast(monkeypatch):
+    """On a bf16 ring the step functions receive the bf16 gradient, and
+    the kernels' wrapper passes a bf16 dO beside bf16 q through as it is
+    (a copy only where it is not 16-byte aligned); any other dO is f32."""
+    seen = []
+
+    def spy(fn):
+        def wrapped(q, k_blk, v_blk, do, *args, **kwargs):
+            seen.append((fn.__name__, do.dtype))
+            return fn(q, k_blk, v_blk, do, *args, **kwargs)
+        return wrapped
+
+    for name in ("flash_ring_step_dq", "flash_ring_step_dkv"):
+        monkeypatch.setattr(fa, name, spy(getattr(fa, name)))
+    q = torch.from_numpy(_draw((2, 64, H, D), seed=62, n=1)[0]).to(torch.bfloat16)
+    q.requires_grad_(True)
+    ring.ring_attention_pallas(q, q, q, ring=ring.Ring(N, range(N)), causal=True).sum().backward()
+    assert len(seen) == 2 * N * N and {dtype for _, dtype in seen} == {torch.bfloat16}
+
+    bf16 = torch.zeros((2, 2, 64, 16), dtype=torch.bfloat16)
+    f32 = torch.zeros((2, 2, 64, 16))
+    assert fa._ring_kernel_dout(bf16, bf16) is bf16
+    assert fa._ring_kernel_dout(f32, bf16) is f32
+    assert fa._ring_kernel_dout(bf16, f32).dtype == torch.float32
+    off = torch.zeros(bf16.numel() + 1, dtype=torch.bfloat16)[1:].view(bf16.shape)
+    aligned = fa._ring_kernel_dout(off, bf16)
+    assert aligned.data_ptr() % 16 == 0 and aligned.dtype == torch.bfloat16
+    assert torch.equal(aligned, off)
+
+
 def test_ring_launches_nothing_on_cpu_and_validates():
     q = torch.zeros((2, 32, H, D), requires_grad=True)
     fa.reset_launch_counts()
