@@ -13,13 +13,20 @@ training phases 5-9 follow the serving phases 3-4):
    and its count of tensor-core instructions (HMMA, HGMMA) in its SASS,
    read with ``cuobjdump`` from the built library (a line says so where
    cuobjdump is missing); the bf16 K4-K9 builds (K8 and K9 each for a
-   bf16 and an f32 dO) must hold HMMA or HGMMA.
+   bf16 and an f32 dO) must hold HMMA or HGMMA; the registers, spills and
+   local memory of the sparse kernels (K1-K3, K10) beside them.
 2. Each kernel against its plain PyTorch version on the card, on a
    26M-row table (DeepFM's 26 fields x 1M ids, dim 1+8 -> [26M, 16]
    f32), generated on the device from a seeded ``torch.Generator``:
    exactness, then a median time per launch from CUDA events (L2
    flushed between launches), beside the plain version's time and the
-   least time the card's memory rate allows for the same bytes.
+   least time the card's memory rate allows for the same bytes (and for
+   K1 the same rows counted in whole 32-byte sectors).  K1's split at
+   [64, 26], [8192, 26] and [8192, 26] with ``bet``: the kernel alone
+   (its C entry point on inputs prepared once), the whole call, the
+   call's host time (a synchronize on each side) and its device records
+   per call from ``torch.profiler`` (kernels, copies and their
+   launches).
 3. Serving at full width: a merged-layout DeepFM artifact (vocab 1M per
    field, embedding_dim 8, hidden 128, seeded weights) written with
    ``write_artifact``, served by ``ServingReplica`` on the default
@@ -35,7 +42,13 @@ training phases 5-9 follow the serving phases 3-4):
    with heavy duplicates, ``-1`` padding, ids past the table and rows
    whose grads cancel exactly; bit-exact against the plain version run
    with PyTorch's deterministic algorithms (same summation order), then
-   timed like phase 2.
+   timed like phase 2, beside the bytes bound and the 32-byte-sector
+   bound; for each kind the split of phase 2 (the device records part
+   the sort from the kernel).  Then the same recipe on a 20,000-row
+   table at dims 1, 3, 5, 20 and 40 (one to ten groups a warp, and two
+   column passes), with segments of 150 and 40 and rows whose grads
+   cancel in some columns only: all six kinds bit-exact over two
+   applies.
 6. Training at full width: DeepFM merged (vocab 1M per field, 26M rows;
    table + m + v + t = 6.7 GB), ``embedding_dim`` 8, ``hidden`` 128,
    batch 8192 of the synthetic Criteo-layout data, dense Adam 1e-3 and
@@ -470,6 +483,30 @@ def attention_resources(lib_path: str, build_log: str):
         r = found.get(label)
         if r is None or r["hmma"] + r["hgmma"] == 0:
             fail(f"{label} is missing from the library or holds no HMMA/HGMMA")
+    found.update(sparse_resources(usage, spills))
+    return found
+
+
+_SPARSE_LABEL = re.compile(
+    r"(?<![0-9])\d+(lookup_fm_kernel|dedup_apply_kernel|lookup_kernel|block_gather_kernel)")
+
+
+def sparse_resources(usage, spills):
+    """Registers, spills and local memory of the sparse kernels (K1-K3,
+    K10), by name."""
+    found = {}
+    for mangled, use in sorted(usage.items()):
+        m = _SPARSE_LABEL.search(mangled)
+        if m is None:
+            continue
+        label = m.group(1)
+        spill = spills.get(mangled, (None, None))
+        found[label] = {"registers": use.get("REG"), "static_shared_bytes": use.get("SHARED"),
+                        "stack_bytes": use.get("STACK"), "local_bytes": use.get("LOCAL"),
+                        "spill_store_bytes": spill[0], "spill_load_bytes": spill[1]}
+        log(f"  {label}: {use.get('REG')} registers, spill stores/loads {spill[0]}/{spill[1]} "
+            f"bytes, stack {use.get('STACK')} B, local {use.get('LOCAL')} B, static shared "
+            f"{use.get('SHARED')} B")
     return found
 
 
@@ -480,7 +517,7 @@ def attention_resources(lib_path: str, build_log: str):
 
 def median_ms(fn, flush, reps: int = 30, warmup: int = 3) -> float:
     """Median device time of one call of ``fn`` (CUDA events), with the
-    L2 cache flushed before each timed call."""
+    L2 cache flushed (``flush`` written) before each timed call."""
     import torch
 
     for _ in range(warmup):
@@ -498,6 +535,55 @@ def median_ms(fn, flush, reps: int = 30, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in events)
     return times[len(times) // 2]
+
+
+def host_ms(fn, flush, reps: int = 30, warmup: int = 3) -> float:
+    """Median host time of one call of ``fn``, from a synchronize before
+    it to a synchronize after it (L2 flushed before each)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def profile_launches(fn, calls: int = 5):
+    """The device records of ``calls`` calls of ``fn`` from
+    ``torch.profiler`` (no flush between calls): per call, each kernel's
+    (or copy's) device time in ms and launches, and their sums; None
+    where the trace holds no device record."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    records = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        r = records.setdefault(evt.name[:120], {"ms": 0.0, "launches": 0})
+        r["ms"] += evt.time_range.elapsed_us() / 1e3 / calls
+        r["launches"] += 1
+    if not records:
+        return None
+    for r in records.values():
+        r["launches"] /= calls
+    return {"by_kernel": records, "device_ms": sum(r["ms"] for r in records.values()),
+            "launches": sum(r["launches"] for r in records.values())}
 
 
 def gather_ms(table, rows, flush) -> float:
@@ -565,6 +651,30 @@ def check_lookup_fm(ske, spec, table, bet, ids, valid):
             fail(f"fused_lookup_fm {name} differs from the plain version by more "
                  f"than the reduction-order bound (excess {float(excess.max())!r})")
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def call_split(kernel, call, flush):
+    """The kernel alone (its C entry point on inputs prepared once) beside
+    the whole wrapper call: device ms of each (CUDA events, L2 flushed),
+    the call's host ms and its device records per call."""
+    return {"kernel_ms": median_ms(kernel, flush), "call_ms": median_ms(call, flush),
+            "call_host_ms": host_ms(call, flush), "call_profile": profile_launches(call)}
+
+
+def k1_split(ske, spec, table, bet, ids, valid, flush):
+    inputs, outs = ske._lookup_fm_operands(spec, table, bet, ids, valid)
+    return call_split(lambda: ske._launch_lookup_fm(spec, table, inputs, outs),
+                      lambda: ske.fused_lookup_fm(spec, table, bet, ids, valid), flush)
+
+
+def log_split(what, split, bound, card):
+    prof = split["call_profile"]
+    records = ("no device records in the profiler's trace" if prof is None else
+               f"device records per call {prof['launches']!r} launches, {prof['device_ms']!r} ms: "
+               + json.dumps(prof["by_kernel"]))
+    log(f"split {what}: kernel alone {split['kernel_ms']!r} ms, whole call "
+        f"{split['call_ms']!r} ms (host {split['call_host_ms']!r} ms), bound {bound!r} ms; "
+        f"{records} [{card}]")
 
 
 def kernel_phase(card: str, seed: int):
@@ -636,6 +746,23 @@ def kernel_phase(card: str, seed: int):
             lambda: ske.fused_lookup_fm_plain(spec, table, bet, cat, valid), flush),
         "train_shape_bound_ms": bound_ms(lookup_fm_bytes(batch, NUM_CAT, spec.dim, True)),
     }
+    # The split: the kernel alone, the whole call, the call's launches.
+    r = results["fused_lookup_fm"]
+    r["sector_bound_ms"] = bound_ms(lookup_fm_sector_bytes(batch, NUM_CAT, spec.dim, False))
+    r["main_path_shape_sector_bound_ms"] = bound_ms(
+        lookup_fm_sector_bytes(64, NUM_CAT, spec.dim, False))
+    r["train_shape_sector_bound_ms"] = bound_ms(
+        lookup_fm_sector_bytes(batch, NUM_CAT, spec.dim, True))
+    log(f"fused_lookup_fm bounds in 32-byte sectors: [{batch}, {NUM_CAT}] "
+        f"{r['sector_bound_ms']!r} ms, with bet {r['train_shape_sector_bound_ms']!r} ms, "
+        f"[64, {NUM_CAT}] {r['main_path_shape_sector_bound_ms']!r} ms")
+    r["split"] = {}
+    for what, b, c, v, bound in (
+            (f"[64, {NUM_CAT}]", None, main_cat, main_valid, r["main_path_shape_bound_ms"]),
+            (f"[{batch}, {NUM_CAT}]", None, cat, valid, r["bound_ms"]),
+            (f"[{batch}, {NUM_CAT}] with bet", bet, cat, valid, r["train_shape_bound_ms"])):
+        r["split"][what] = k1_split(ske, spec, table, b, c, v, flush)
+        log_split(f"fused_lookup_fm {what}", r["split"][what], bound, card)
     for name, r in results.items():
         log(
             f"kernel {name}: {r['shape']}: max_abs_err {r['max_abs_err']!r}, "
@@ -874,6 +1001,136 @@ def k3_bytes(n: int, dim: int, touched: int, operands: int) -> int:
     return n * 4 + n * dim * 4 + touched * operands * dim * 4 * 2
 
 
+def sector_row_bytes(dim: int) -> int:
+    """The bytes of 32-byte sectors that a row's first ``dim`` f32 lanes
+    span, from a sector boundary (a logical row starts on one when its
+    dim_padded*4 is a multiple of 32)."""
+    return 32 * -(-dim * 4 // 32)
+
+
+def k3_sector_bytes(n: int, dim: int, touched: int, operands: int) -> int:
+    # k3_bytes with each touched operand row counted in whole sectors.
+    return n * 4 + n * dim * 4 + touched * operands * sector_row_bytes(dim) * 2
+
+
+def lookup_fm_sector_bytes(batch: int, fields: int, dim: int, with_bet: bool) -> int:
+    # lookup_fm_bytes with each table row read counted in whole sectors.
+    return (lookup_fm_bytes(batch, fields, dim, with_bet)
+            + batch * fields * (sector_row_bytes(dim) - dim * 4))
+
+
+def k3_split(ske, spec, kind, hyper, table, slots, ids, grads, flush):
+    """K3's ``call_split`` at one kind: the kernel alone on ids sorted
+    once; the call's device records split it into the sort and the
+    kernel."""
+    import torch
+
+    c = ske.apply_constants(kind, hyper)
+    operands = [table] + [slots[name] for name in ske.KIND_SLOTS[kind]]
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    return call_split(
+        lambda: ske._launch_apply(spec, kind, c, operands, slots.get("t_global"), sorted_ids,
+                                  perm, grads),
+        lambda: ske.fused_dedup_apply(spec, kind, hyper, table, slots, ids, grads), flush)
+
+
+def first_difference(got, want) -> str:
+    """Where two f32 tensors of one shape differ in their bits: how many
+    elements, and the first one's index and both values."""
+    import torch
+
+    diff = got.contiguous().view(torch.int32) != want.contiguous().view(torch.int32)
+    where = torch.nonzero(diff)
+    if where.numel() == 0:
+        return "no element differs"
+    at = tuple(int(x) for x in where[0])
+    return (f"{where.shape[0]} elements differ, the first at {list(at)}: "
+            f"{float(got[at]).hex()} against {float(want[at]).hex()}")
+
+
+def check_k3(ske, spec, name, table, ids, grads, cancel_rows, what=""):
+    """Two applies of K3 kind ``name`` and of its plain version from one
+    state: table and every slot bit-exact, rows whose grads cancel
+    untouched, no pad lane written.  Returns (max abs error, the
+    kernel's table and slots, the plain version's)."""
+    import torch
+
+    kind, hyper = K3_HYPER[name]
+    t_kernel, s_kernel = table.clone(), k3_slots(kind, table)
+    t_plain, s_plain = table.clone(), k3_slots(kind, table)
+    for _ in range(2):  # the second apply reads non-zero slots
+        ske.fused_dedup_apply(spec, kind, hyper, t_kernel, s_kernel, ids, grads)
+        with deterministic():
+            ske.fused_dedup_apply_plain(spec, kind, hyper, t_plain, s_plain, ids, grads)
+    torch.cuda.synchronize()
+    err = float((t_kernel - t_plain).abs().max())
+    if not bit_equal(t_kernel, t_plain):
+        fail(f"fused_dedup_apply[{name}]{what} table differs from the plain version "
+             f"(max abs {err!r}; {first_difference(t_kernel, t_plain)})")
+    for slot, value in s_kernel.items():
+        err = max(err, float((value - s_plain[slot]).abs().max()))
+        if not bit_equal(value.reshape(-1), s_plain[slot].reshape(-1)):
+            fail(f"fused_dedup_apply[{name}]{what} slot {slot} differs from the plain version "
+                 f"({first_difference(value.reshape(-1), s_plain[slot].reshape(-1))})")
+    if not torch.equal(t_kernel[cancel_rows.to(torch.int64)],
+                       table[cancel_rows.to(torch.int64)]):
+        fail(f"fused_dedup_apply[{name}]{what} moved a row whose grads cancel to zero")
+    if not bit_equal(t_kernel[:, spec.dim:].contiguous(), table[:, spec.dim:].contiguous()):
+        fail(f"fused_dedup_apply[{name}]{what} wrote a pad lane")
+    return err, (t_kernel, s_kernel), (t_plain, s_plain)
+
+
+#: Dims of phase 5's small applies: a group of one lane (32 a warp), of
+#: 3, 5 and 20 lanes (10, 6 and 1 a warp, lanes left over), and of 32
+#: lanes taking two column passes (dim 40).
+K3_EDGE_DIMS = (1, 3, 5, 20, 40)
+
+
+def k3_edge_inputs(spec, gen, dev, n: int):
+    """Phase 5's recipe (``k3_inputs``) on a small table, with segments
+    placed: 150 and 40 occurrences of two rows (many chunks), and 16 rows
+    that occur twice with the grads of their first ``max(1, dim // 2)``
+    columns cancelling (at dim 1 the whole row, which joins the rows that
+    must stay untouched)."""
+    import torch
+
+    ids, grads, cancel_rows = k3_inputs(spec, gen, dev, n, cancel_pairs=16)
+    base = spec.vocab_size - 64
+    part_rows = torch.arange(base + 2, base + 18, device=dev, dtype=torch.int32)
+    ids[(ids >= base) & (ids < base + 18)] = -1
+    where = torch.randperm(n, generator=gen, device=dev)
+    free = where[~torch.isin(where, torch.nonzero(torch.isin(ids, cancel_rows))[:, 0])]
+    ids[free[:150]] = base
+    ids[free[150:190]] = base + 1
+    a, b = free[190:206], free[206:222]
+    ids[a] = part_rows
+    ids[b] = part_rows
+    half = max(1, spec.dim // 2)
+    grads[b, :half] = -grads[a, :half]
+    if spec.dim == 1:
+        cancel_rows = torch.cat([cancel_rows, part_rows])
+    return ids, grads, cancel_rows
+
+
+def k3_edge_applies(ske, pk, gen, dev, card, vocab: int = 20_000, n: int = 4096):
+    """``k3_edge_inputs`` at each of K3_EDGE_DIMS: all six kinds, two
+    applies, bit-exact with the plain version."""
+    import torch
+
+    for dim in K3_EDGE_DIMS:
+        spec = pk.PackedSpec(vocab, dim)
+        table = torch.empty(spec.rows_shape, dtype=torch.float32, device=dev)
+        table.uniform_(-0.05, 0.05, generator=gen)
+        table[:, spec.dim:] = 0.0
+        table[spec.vocab_size:] = 0.0
+        ids, grads, cancel_rows = k3_edge_inputs(spec, gen, dev, n)
+        for name in K3_HYPER:
+            check_k3(ske, spec, name, table, ids, grads, cancel_rows, what=f" at dim {dim}")
+    log(f"fused_dedup_apply at dims {list(K3_EDGE_DIMS)} (vocab {vocab}, {n} ids: segments of "
+        f"150 and 40, partly cancelling rows, ids -1 and past the table): all "
+        f"{len(K3_HYPER)} kinds bit-exact with the plain version over two applies [{card}]")
+
+
 def dedup_apply_phase(card: str, seed: int):
     import torch
 
@@ -901,26 +1158,8 @@ def dedup_apply_phase(card: str, seed: int):
         f"{cancel_rows.numel()} rows cancelling to zero [{card}]")
     results = {}
     for name, (kind, hyper) in K3_HYPER.items():
-        t_kernel, s_kernel = table.clone(), k3_slots(kind, table)
-        t_plain, s_plain = table.clone(), k3_slots(kind, table)
-        for _ in range(2):  # the second apply reads non-zero slots
-            ske.fused_dedup_apply(spec, kind, hyper, t_kernel, s_kernel, ids, grads)
-            with deterministic():
-                ske.fused_dedup_apply_plain(spec, kind, hyper, t_plain, s_plain, ids, grads)
-        torch.cuda.synchronize()
-        err = float((t_kernel - t_plain).abs().max())
-        if not bit_equal(t_kernel, t_plain):
-            fail(f"fused_dedup_apply[{name}] table differs from the plain version "
-                 f"(max abs {err!r})")
-        for slot, value in s_kernel.items():
-            err = max(err, float((value - s_plain[slot]).abs().max()))
-            if not bit_equal(value.reshape(-1), s_plain[slot].reshape(-1)):
-                fail(f"fused_dedup_apply[{name}] slot {slot} differs from the plain version")
-        if not torch.equal(t_kernel[cancel_rows.to(torch.int64)],
-                           table[cancel_rows.to(torch.int64)]):
-            fail(f"fused_dedup_apply[{name}] moved a row whose grads cancel to zero")
-        if not bit_equal(t_kernel[:, spec.dim:].contiguous(), table[:, spec.dim:].contiguous()):
-            fail(f"fused_dedup_apply[{name}] wrote a pad lane")
+        err, (t_kernel, s_kernel), (t_plain, s_plain) = check_k3(
+            ske, spec, name, table, ids, grads, cancel_rows)
         operands = 1 + len(ske.KIND_SLOTS[kind])
         results[name] = {
             "kind": kind, "max_abs_err": err, "touched_rows": touched,
@@ -929,16 +1168,20 @@ def dedup_apply_phase(card: str, seed: int):
             "plain_ms": median_ms(lambda: ske.fused_dedup_apply_plain(
                 spec, kind, hyper, t_plain, s_plain, ids, grads), flush),
             "bound_ms": bound_ms(k3_bytes(n, spec.dim, touched, operands)),
+            "sector_bound_ms": bound_ms(k3_sector_bytes(n, spec.dim, touched, operands)),
         }
         r = results[name]
         log(f"kernel fused_dedup_apply[{name}]: ids [{n}], table {list(spec.rows_shape)} + "
             f"{operands - 1} slot(s): bit-exact with the plain version, {r['ms']!r} ms "
-            f"(plain {r['plain_ms']!r} ms, bound {r['bound_ms']!r} ms; index_add_ of the "
-            f"grads {index_add!r} ms) [{card}]")
+            f"(plain {r['plain_ms']!r} ms, bound {r['bound_ms']!r} ms, in 32-byte sectors "
+            f"{r['sector_bound_ms']!r} ms; index_add_ of the grads {index_add!r} ms) [{card}]")
+        r["split"] = k3_split(ske, spec, kind, hyper, t_kernel, s_kernel, ids, grads, flush)
+        log_split(f"fused_dedup_apply[{name}]", r["split"], r["bound_ms"], card)
         del t_kernel, s_kernel, t_plain, s_plain
         torch.cuda.empty_cache()
     del table, flush
     torch.cuda.empty_cache()
+    k3_edge_applies(ske, pk, gen, dev, card)
     return {"by_kind": results, "index_add_ms": index_add,
             "shape": f"ids [{n}] (skewed), table {list(spec.rows_shape)}, dim {spec.dim}"}
 
@@ -2595,6 +2838,12 @@ def ring_entries(ring_kernels, ring_whole, cp, card, resources=None):
     return line
 
 
+#: The build of each of K1-K3 on DeepFM's path (dim 9: K3's lanes load
+#: 4 window entries each).
+SPARSE_BUILDS = {"fused_lookup_fm": "lookup_fm_kernel", "fused_lookup": "lookup_kernel",
+                 "fused_dedup_apply": "dedup_apply_kernel"}
+
+
 #: The build of each of K4-K6 on the LM's path (bf16, head_dim 64).
 FLASH_LM_BUILDS = {
     "flash_attention_fwd": "flash_fwd_mma_kernel<bf16, 64>",
@@ -2737,8 +2986,11 @@ def main() -> None:
             "card": card,
         }
         if name == "fused_lookup_fm":
-            entry.update({k: r[k] for k in ("train_shape_ms", "train_shape_plain_ms",
-                                             "train_shape_bound_ms")})
+            entry.update({k: r[k] for k in (
+                "train_shape_ms", "train_shape_plain_ms", "train_shape_bound_ms",
+                "sector_bound_ms", "main_path_shape_sector_bound_ms",
+                "train_shape_sector_bound_ms", "split")})
+        entry["resources"] = (resources or {}).get(SPARSE_BUILDS[name])
         entry["sharded"] = on_mesh[name]
         line.append(entry)
     adam = k3["by_kind"]["adam"]
@@ -2750,6 +3002,8 @@ def main() -> None:
         "max_abs_err": max(r["max_abs_err"] for r in k3["by_kind"].values()),
         "ms": adam["ms"], "plain_ms": adam["plain_ms"], "bound_ms": adam["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "index_add_ms": k3["index_add_ms"],
+        "kernel_ms": adam["split"]["kernel_ms"], "sector_bound_ms": adam["sector_bound_ms"],
+        "resources": (resources or {}).get(SPARSE_BUILDS["fused_dedup_apply"]),
         "shape": k3["shape"] + ", adam per-row", "by_kind": k3["by_kind"],
         "train_step_ms": train["breakdown_ms"]["fused_dedup_apply"],
         "sharded": on_mesh["fused_dedup_apply"],

@@ -328,33 +328,45 @@ def _lookup_fm_plain_body(spec, table, bet, ids, valid) -> FmOut:
     return (acts, *fm_stats(acts))
 
 
-def _lookup_fm_forward(spec, table, bet, ids, valid) -> FmOut:
-    if _route(table) == "plain":
-        return _lookup_fm_plain_body(spec, table, bet, ids, valid)
-    from elasticdl_tpu_torch.ops import _build
-
+def _lookup_fm_operands(spec, table, bet, ids, valid):
+    """The kernel's inputs, contiguous, and its empty outputs."""
     batch, fields = ids.shape
-    ids = ids.contiguous()
-    # bool is passed as one byte per flag, never as a reinterpreted bool*.
-    valid_u8 = valid.to(torch.uint8).contiguous()
     if bet is not None:
         bet = bet.to(table.dtype).contiguous()
     device, dtype = table.device, table.dtype
-    acts = torch.empty((batch, fields, spec.dim), dtype=dtype, device=device)
-    first = torch.empty((batch,), dtype=dtype, device=device)
-    sum_v = torch.empty((batch, spec.dim - 1), dtype=dtype, device=device)
-    sum_sq = torch.empty((batch, spec.dim - 1), dtype=dtype, device=device)
-    with torch.cuda.device(device):
+    outs = (torch.empty((batch, fields, spec.dim), dtype=dtype, device=device),
+            torch.empty((batch,), dtype=dtype, device=device),
+            torch.empty((batch, spec.dim - 1), dtype=dtype, device=device),
+            torch.empty((batch, spec.dim - 1), dtype=dtype, device=device))
+    # valid's bool storage goes to the kernel as bytes, as it is: a
+    # torch.bool element is one byte holding 0 or 1, and the kernel only
+    # tests it against 0 (no conversion launch).
+    return (bet, ids.contiguous(), valid.contiguous()), outs
+
+
+def _launch_lookup_fm(spec, table, inputs, outs) -> None:
+    """One launch of K1's kernel on ``_lookup_fm_operands``' tensors."""
+    from elasticdl_tpu_torch.ops import _build
+
+    bet, ids, valid = inputs
+    batch, fields = ids.shape
+    with torch.cuda.device(table.device):
         code = _build.library().edl_fused_lookup_fm(
             table.data_ptr(), bet.data_ptr() if bet is not None else None,
-            ids.data_ptr(), valid_u8.data_ptr(), acts.data_ptr(),
-            first.data_ptr(), sum_v.data_ptr(), sum_sq.data_ptr(), batch,
+            ids.data_ptr(), valid.data_ptr(), *(o.data_ptr() for o in outs), batch,
             fields, spec.rows_per_block, spec.num_blocks, spec.dim_padded,
             spec.dim, _stream(),
         )
     _build.check(code, "fused_lookup_fm")
+
+
+def _lookup_fm_forward(spec, table, bet, ids, valid) -> FmOut:
+    if _route(table) == "plain":
+        return _lookup_fm_plain_body(spec, table, bet, ids, valid)
+    inputs, outs = _lookup_fm_operands(spec, table, bet, ids, valid)
+    _launch_lookup_fm(spec, table, inputs, outs)
     _count_launch("fused_lookup_fm")
-    return acts, first, sum_v, sum_sq
+    return outs
 
 
 def _sharded_lookup_fm(body, spec, table, bet, ids, valid, mesh) -> FmOut:
@@ -604,22 +616,16 @@ def _apply_plain_body(spec, kind, c, operands, t_global, ids, grads):
         pk.scatter_add(spec, op, uids, delta * tch)
 
 
-def _apply_body(spec, kind, c, operands, t_global, ids, grads):
-    """K3 on a CUDA table, the plain body on a CPU one."""
-    if _route(operands[0]) == "plain":
-        return _apply_plain_body(spec, kind, c, operands, t_global, ids, grads)
+def _launch_apply(spec, kind, c, operands, t_global, sorted_ids, perm, grads):
+    """One launch of K3's kernel on the stably sorted raw ids and their
+    positions (``torch.sort(ids, stable=True)``): each row's occurrences
+    keep their position order, and ids outside ``[0, vocab_padded)`` sort
+    to the ends, where the kernel skips them (it tests the range itself,
+    so no keying pass runs first)."""
     from elasticdl_tpu_torch.ops import _build
 
-    n = ids.shape[0]
-    if n == 0:
-        return
+    n = sorted_ids.shape[0]
     operands = list(operands) + [None] * (4 - len(operands))
-    keys = torch.where(
-        pk.in_table(spec, ids), ids,
-        torch.full_like(ids, spec.vocab_padded),
-    )
-    sorted_ids, perm = torch.sort(keys, stable=True)
-    grads = grads.contiguous()
     with torch.cuda.device(operands[0].device):
         code = _build.library().edl_fused_dedup_apply(
             sorted_ids.data_ptr(), perm.data_ptr(), grads.data_ptr(), n,
@@ -632,6 +638,16 @@ def _apply_body(spec, kind, c, operands, t_global, ids, grads):
             _stream(),
         )
     _build.check(code, "fused_dedup_apply")
+
+
+def _apply_body(spec, kind, c, operands, t_global, ids, grads):
+    """K3 on a CUDA table, the plain body on a CPU one."""
+    if _route(operands[0]) == "plain":
+        return _apply_plain_body(spec, kind, c, operands, t_global, ids, grads)
+    if ids.shape[0] == 0:
+        return
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    _launch_apply(spec, kind, c, operands, t_global, sorted_ids, perm, grads.contiguous())
     _count_launch("fused_dedup_apply")
 
 
@@ -696,10 +712,11 @@ def fused_dedup_apply(
     sum is exactly zero are untouched; written values are ``old +
     fl(new - old)`` for every operand; pad lanes stay zero.
 
-    On CUDA the ids are sorted (stable, so each row's grads keep their
-    position order) and the kernel sums each row's segment from 0.0f in
-    that order, then applies the update to its row; each touched row
-    belongs to one segment, so the in-place update needs no atomics.
+    On CUDA the raw ids are sorted (stable, so each row's grads keep
+    their position order) and the kernel sums each row's segment from
+    0.0f in that order, a chunk of sorted positions at a time, then
+    applies the update to its row; each touched row belongs to one
+    segment, so the in-place update needs no atomics.
 
     ``mesh``: a mesh of more than one slot takes the sharded route
     (``_dedup_apply``); every table-shaped slot is split as the table

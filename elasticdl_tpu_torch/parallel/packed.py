@@ -203,8 +203,14 @@ def dedup_representatives(spec: PackedSpec, ids: torch.Tensor, grads: torch.Tens
     # every occurrence's grad onto its representative; invalid -> row n,
     # cut off below (the JAX version drops them out of bounds).
     target = torch.where(valid, last, torch.full_like(pos, n))
-    gsum = torch.zeros((n + 1,) + tuple(grads.shape[1:]), dtype=grads.dtype, device=grads.device)
-    gsum.index_add_(0, target, grads)
-    gsum = gsum[:n]
+    # On CUDA, deterministic index_add_ sums the duplicates of one-wide
+    # rows in another order (its stride-1 kernel reduces them across a
+    # warp); a zero second lane keeps dim 1 on the kernel that adds them
+    # one after another in position order, as wider rows are.
+    one_wide = grads.dim() == 2 and grads.shape[1] == 1
+    src = torch.nn.functional.pad(grads, (0, 1)) if one_wide else grads
+    gsum = torch.zeros((n + 1,) + tuple(src.shape[1:]), dtype=grads.dtype, device=grads.device)
+    gsum.index_add_(0, target, src)
+    gsum = gsum[:n, :1].contiguous() if one_wide else gsum[:n]
     touched = valid & (pos == last) & torch.any(gsum != 0, dim=-1)
     return safe, gsum, touched
