@@ -14,7 +14,8 @@ training phases 5-9 follow the serving phases 3-4):
    read with ``cuobjdump`` from the built library (a line says so where
    cuobjdump is missing); the bf16 K4-K9 builds (K8 and K9 each for a
    bf16 and an f32 dO) must hold HMMA or HGMMA; the registers, spills and
-   local memory of the sparse kernels (K1-K3, K10) beside them.
+   local memory of the sparse kernels (K1-K3, K10; K2 per unit width)
+   beside them.
 2. Each kernel against its plain PyTorch version on the card, on a
    26M-row table (DeepFM's 26 fields x 1M ids, dim 1+8 -> [26M, 16]
    f32), generated on the device from a seeded ``torch.Generator``:
@@ -26,7 +27,12 @@ training phases 5-9 follow the serving phases 3-4):
    (its C entry point on inputs prepared once), the whole call, the
    call's host time (a synchronize on each side) and its device records
    per call from ``torch.profiler`` (kernels, copies and their
-   launches).
+   launches).  K2 the same way (both bounds, the split, ``index_select``
+   of the rows) at each of K2_SHAPES: 65,536 ids on the merged table, a
+   serving batch [1664] on the split layout's dim-1 and dim-8 tables, a
+   training batch [212,992] on the table-scale dim-1 and dim-8 tables;
+   then bit-exact at dims 1-130, n of 0, 1 and a ragged tile, ids
+   negative, past the table and near +-2**31.
 3. Serving at full width: a merged-layout DeepFM artifact (vocab 1M per
    field, embedding_dim 8, hidden 128, seeded weights) written with
    ``write_artifact``, served by ``ServingReplica`` on the default
@@ -122,8 +128,11 @@ The sharded K1-K3 dispatch and the block-gather probe K10:
     default-mode and one ``--shard_map`` measurement (their tables
     printed); the default mode is K10's path and counts its launches.
 18. Phase 2's 26M-row merged table over an in-process (data=1, model=4)
-    mesh (3.25M storage blocks, split): the sharded K2 bit-exact with the
-    one-card K2 (ids no shard owns read zeros), the sharded K1's ``acts``
+    mesh (3.25M storage blocks, split): the sharded K2 (the shard routing
+    inside the kernel) bit-exact with the one-card K2 (ids no shard owns
+    read zeros) and with the plain route for every id, also with a -0.0
+    and a NaN in two shards' first rows; 4 K2 launches and at most 7
+    device launches a call (profiler records); the sharded K1's ``acts``
     equal and its sums within the reduction-order bound (fields + shards
     terms), the sharded K3 bit-exact with the one-card K3 for each of
     phase 5's kinds (two applies); the split layout's dim-1 table at 2.6M
@@ -139,9 +148,22 @@ The sharded K1-K3 dispatch and the block-gather probe K10:
     dim-8 table split, its dim-1 table replicated: 5 K2 launches per
     dispatch).
 
+The table-scale split layout (K2 on the path it serves):
+
+20. ``bench.py``'s ``bench_deepfm_table_scale_strict`` through
+    ``build_model`` and ``ShardedEmbeddingTrainer``: DeepFM at vocab 1M
+    per field in the split layout its layout rule picks there (a dim-1
+    and a dim-8 table of 26M rows, with m and v 2.8 GB), batch 8192,
+    strict, sparse Adam with global bias correction: 3 warm-up and 20
+    timed steps (samples/s, median step, the step's parts with K2's
+    device time inside it), 2 K2 and 2 K3 launches a step and no K1, the
+    loss falls; 3 steps through the kernels against 3 with the plain
+    versions from one state (phase 7's tolerances).
+
 Launch counts are zeroed just before each serving and training phase and
 read just after it; a kernel of the path that did not launch there (K1
-and K3 once per strict training step, K3 twice in the window; K4, K5 and
+and K3 once per strict training step, K3 twice in the window; K2 and K3
+twice per split-layout step; K4, K5 and
 K6 once per layer per LM step; K7, K8 and K9 once per layer per ring step
 of a CP LM step, and K4-K6 never there; over the mesh, K1 and K3 once
 per shard; K10 in the experiment script's default mode) fails the run.
@@ -189,6 +211,8 @@ LOGIT_RTOL, LOGIT_ATOL = 1e-5, 1e-6
 #: The training slice: the north-star table, bench.py's batch.
 TRAIN_PARAMS = "vocab_size=1000000,embedding_dim=8,hidden=128,split_tables=false"
 TRAIN_BATCH = 8192
+#: Launches per strict step on that path (phase 6).
+TRAIN_LAUNCHES = {"fused_lookup_fm": 1, "fused_dedup_apply": 1}
 #: K10 and its experiment script (phase 17): the script's defaults.
 K10_SOURCE = "elasticdl_tpu_torch/ops/csrc/sparse_gather.cu"
 K10_REPLACES = "scripts/exp_sparse_gather.py:154"
@@ -198,6 +222,33 @@ GATHER_IDS, GATHER_VOCAB = 212_992, 26_000_000
 SHARD_MESH = (1, 4)
 SPLIT_VOCAB = 100_000
 LR = 1e-3
+#: K2 (phase 2) at the shapes of its paths: (label, table rows, dim, ids).
+#: The merged dim-9 table at 65,536 ids is the row every PR has timed
+#: (ids past both ends of the table among them); a bucket-64 serving
+#: batch x 26 fields on the split layout's two tables at phase 4's
+#: vocabulary; a training batch (8192 x 26) on the table-scale split
+#: tables of phase 20.
+K2_SHAPES = (
+    ("[65536] dim 9", 1_000_000 * NUM_CAT, 9, 65_536),
+    ("[1664] dim 1", SPLIT_VOCAB * NUM_CAT, 1, 64 * NUM_CAT),
+    ("[1664] dim 8", SPLIT_VOCAB * NUM_CAT, 8, 64 * NUM_CAT),
+    ("[212992] dim 1", 1_000_000 * NUM_CAT, 1, TRAIN_BATCH * NUM_CAT),
+    ("[212992] dim 8", 1_000_000 * NUM_CAT, 8, TRAIN_BATCH * NUM_CAT),
+)
+#: K2's edges (phase 2), each bit-exact with the plain version on a
+#: small table: every dim class (a dim of 1, 2, 3, 6, 8, 9, 16, 40; 128
+#: and 130, rows of dim_padded 128 and 256), n of 0, 1 and one that ends
+#: in a ragged tile, ids negative, past the table and near +-2**31.
+K2_EDGE_DIMS = (1, 2, 3, 6, 8, 9, 16, 40, 128, 130)
+K2_EDGE_NS = (0, 1, 4099)
+#: The sharded K2 call over SHARD_MESH (phase 18): one K2 launch per model
+#: shard and the combine's adds, nothing else on the device.
+SHARDED_K2_DEVICE_LAUNCHES = 2 * SHARD_MESH[1] - 1
+#: Phase 20: bench.py's bench_deepfm_table_scale_strict, whose 26M rows
+#: DeepFM's layout rule puts in the split layout (two tables, dims 1 and
+#: 8), strict apply, global-bias sparse Adam; 20 timed steps after 3.
+SPLIT_TRAIN_PARAMS = "vocab_size=1000000,embedding_dim=8,hidden=128,split_tables=true"
+SPLIT_TRAIN_LAUNCHES = {"fused_lookup": 2, "fused_lookup_fm": 0, "fused_dedup_apply": 2}
 #: Kernel path against plain path over 3 training steps.  The losses
 #: differ only through the FM sums' order (kernel field by field,
 #: torch.sum pairwise) and K3's gradient sums (plain index_add_ adds with
@@ -488,18 +539,19 @@ def attention_resources(lib_path: str, build_log: str):
 
 
 _SPARSE_LABEL = re.compile(
-    r"(?<![0-9])\d+(lookup_fm_kernel|dedup_apply_kernel|lookup_kernel|block_gather_kernel)")
+    r"(?<![0-9])\d+(lookup_fm_kernel|dedup_apply_kernel|lookup_kernel|block_gather_kernel)"
+    r"(?:ILi(\d+)E)?")
 
 
 def sparse_resources(usage, spills):
     """Registers, spills and local memory of the sparse kernels (K1-K3,
-    K10), by name."""
+    K10), by name (K2's builds as ``lookup_kernel<V>``, V floats a unit)."""
     found = {}
     for mangled, use in sorted(usage.items()):
         m = _SPARSE_LABEL.search(mangled)
         if m is None:
             continue
-        label = m.group(1)
+        label = m.group(1) if m.group(2) is None else f"{m.group(1)}<{m.group(2)}>"
         spill = spills.get(mangled, (None, None))
         found[label] = {"registers": use.get("REG"), "static_shared_bytes": use.get("SHARED"),
                         "stack_bytes": use.get("STACK"), "local_bytes": use.get("LOCAL"),
@@ -677,6 +729,92 @@ def log_split(what, split, bound, card):
         f"{records} [{card}]")
 
 
+def lookup_sector_bytes(n: int, dim: int) -> int:
+    # lookup_bytes with each row read counted in whole 32-byte sectors.
+    return lookup_bytes(n, dim) + n * (sector_row_bytes(dim) - dim * 4)
+
+
+def k2_split(ske, spec, table, ids, flush):
+    import torch
+
+    out = torch.empty((ids.shape[0], spec.dim), dtype=table.dtype, device=table.device)
+    return call_split(lambda: ske._launch_lookup(spec, table, ids, out),
+                      lambda: ske.fused_lookup(spec, table, ids), flush)
+
+
+def lookup_shapes(ske, gen, dev, merged_spec, merged, flush, card):
+    """K2 at each of K2_SHAPES: bit-exact with the plain version, then its
+    time beside the plain version's, ``index_select`` of the same rows,
+    the bytes bound and the 32-byte-sector bound, and the split of
+    phase 2.  The merged table is phase 2's; the others are made here.
+    The first shape's numbers are the entry's own (the history row)."""
+    import torch
+
+    from elasticdl_tpu_torch.parallel.packed import PackedSpec, row_index
+
+    shapes = {}
+    for label, rows, dim, n in K2_SHAPES:
+        spec = PackedSpec(rows, dim)
+        if spec == merged_spec:
+            table, lo, hi = merged, -1000, spec.vocab_padded + 1000
+        else:
+            table = torch.empty(spec.rows_shape, dtype=torch.float32, device=dev)
+            table.uniform_(-0.05, 0.05, generator=gen)
+            table[:, spec.dim:] = 0.0
+            lo, hi = 0, spec.vocab_size
+        ids = torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=torch.int32)
+        r = {
+            "shape": f"ids [{n}], table {list(spec.rows_shape)}, dim {dim}",
+            "max_abs_err": check_lookup(ske, spec, table, ids),
+            "ms": median_ms(lambda: ske.fused_lookup(spec, table, ids), flush),
+            "plain_ms": median_ms(lambda: ske.fused_lookup_plain(spec, table, ids), flush),
+            "gather_ms": gather_ms(table, row_index(spec, ids), flush),
+            "bound_ms": bound_ms(lookup_bytes(n, dim)),
+            "sector_bound_ms": bound_ms(lookup_sector_bytes(n, dim)),
+            "split": k2_split(ske, spec, table, ids, flush),
+        }
+        shapes[label] = r
+        log(f"kernel fused_lookup {label}: {r['shape']}: bit-exact with the plain version, "
+            f"{r['ms']!r} ms (plain {r['plain_ms']!r} ms, index_select of the rows "
+            f"{r['gather_ms']!r} ms, bound {r['bound_ms']!r} ms, in 32-byte sectors "
+            f"{r['sector_bound_ms']!r} ms) [{card}]")
+        log_split(f"fused_lookup {label}", r["split"], r["bound_ms"], card)
+        del table, ids
+        torch.cuda.empty_cache()
+    first = shapes[K2_SHAPES[0][0]]
+    return dict(first, shapes=shapes)
+
+
+def k2_edge_lookups(ske, gen, dev, card, vocab: int = 5000):
+    """K2 at each of K2_EDGE_DIMS and K2_EDGE_NS on a small table: ids
+    negative, past the table and near +-2**31 first, the rest drawn over
+    and around the table; bit-exact with the plain version."""
+    import torch
+
+    from elasticdl_tpu_torch.parallel.packed import PackedSpec
+
+    for dim in K2_EDGE_DIMS:
+        spec = PackedSpec(vocab, dim)
+        table = torch.empty(spec.rows_shape, dtype=torch.float32, device=dev)
+        table.uniform_(-1.0, 1.0, generator=gen)
+        edges = torch.tensor([-2**31, -2**31 + 1, -1, -7, 2**31 - 1, 2**31 - 2,
+                              spec.vocab_padded, spec.vocab_padded + 5, 0,
+                              spec.vocab_padded - 1], dtype=torch.int32, device=dev)
+        for n in K2_EDGE_NS:
+            ids = torch.randint(-100, spec.vocab_padded + 100, (n,), generator=gen,
+                                device=dev, dtype=torch.int32)
+            ids[:len(edges)] = edges[:n]
+            got = ske.fused_lookup(spec, table, ids)
+            torch.cuda.synchronize()
+            want = ske.fused_lookup_plain(spec, table, ids)
+            if not bit_equal(got, want):
+                fail(f"fused_lookup differs from its plain version at dim {dim}, n {n}: "
+                     f"{first_difference(got, want)}")
+    log(f"fused_lookup at dims {list(K2_EDGE_DIMS)} and n {list(K2_EDGE_NS)} (vocab {vocab}; "
+        f"ids negative, past the table and near +-2**31): bit-exact with the plain version "
+        f"[{card}]")
+
+
 def kernel_phase(card: str, seed: int):
     import torch
 
@@ -697,25 +835,8 @@ def kernel_phase(card: str, seed: int):
     def ids_in(n, lo, hi):
         return torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=torch.int32)
 
-    results = {}
-    # -- fused_lookup: 65,536 ids, negative and past the table included.
-    n = 65_536
-    ids = ids_in(n, -1000, spec.vocab_padded + 1000)
-    err = check_lookup(ske, spec, table, ids)
-    main_ids = ids_in(64 * NUM_CAT, 0, spec.vocab_size)  # a bucket-64 batch
-    check_lookup(ske, spec, table, main_ids)
-    results["fused_lookup"] = {
-        "shape": f"ids [{n}], table {list(spec.rows_shape)}, dim {spec.dim}",
-        "max_abs_err": err,
-        "ms": median_ms(lambda: ske.fused_lookup(spec, table, ids), flush),
-        "plain_ms": median_ms(lambda: ske.fused_lookup_plain(spec, table, ids), flush),
-        "gather_ms": gather_ms(table, row_index(spec, ids), flush),
-        "bound_ms": bound_ms(lookup_bytes(n, spec.dim)),
-        "main_path_shape": f"ids [{main_ids.shape[0]}]",
-        "main_path_shape_ms": median_ms(
-            lambda: ske.fused_lookup(spec, table, main_ids), flush),
-        "main_path_shape_bound_ms": bound_ms(lookup_bytes(main_ids.shape[0], spec.dim)),
-    }
+    results = {"fused_lookup": lookup_shapes(ske, gen, dev, spec, table, flush, card)}
+    k2_edge_lookups(ske, gen, dev, card)
 
     # -- fused_lookup_fm: B=8192, F=26 (some ids invalid), bet None as
     # serving passes it; bet non-zero checked once for the training slice.
@@ -763,14 +884,14 @@ def kernel_phase(card: str, seed: int):
             (f"[{batch}, {NUM_CAT}] with bet", bet, cat, valid, r["train_shape_bound_ms"])):
         r["split"][what] = k1_split(ske, spec, table, b, c, v, flush)
         log_split(f"fused_lookup_fm {what}", r["split"][what], bound, card)
-    for name, r in results.items():
-        log(
-            f"kernel {name}: {r['shape']}: max_abs_err {r['max_abs_err']!r}, "
-            f"{r['ms']!r} ms (plain {r['plain_ms']!r} ms, index_select of the rows "
-            f"{r['gather_ms']!r} ms, bound {r['bound_ms']!r} ms); "
-            f"main-path shape {r['main_path_shape']}: {r['main_path_shape_ms']!r} ms "
-            f"(bound {r['main_path_shape_bound_ms']!r} ms) [{card}]"
-        )
+    r = results["fused_lookup_fm"]
+    log(
+        f"kernel fused_lookup_fm: {r['shape']}: max_abs_err {r['max_abs_err']!r}, "
+        f"{r['ms']!r} ms (plain {r['plain_ms']!r} ms, index_select of the rows "
+        f"{r['gather_ms']!r} ms, bound {r['bound_ms']!r} ms); "
+        f"main-path shape {r['main_path_shape']}: {r['main_path_shape_ms']!r} ms "
+        f"(bound {r['main_path_shape_bound_ms']!r} ms) [{card}]"
+    )
     del table, flush
     torch.cuda.empty_cache()
     return results
@@ -1191,24 +1312,34 @@ def dedup_apply_phase(card: str, seed: int):
 # ----------------------------------------------------------------------
 
 
-def time_parts(trainer, staged):
+def time_parts(trainer, staged, timed=()):
     """One training step through its four parts, each between CUDA
-    events; returns ms per part."""
+    events; returns ms per part, and under ``kernel_ms`` the device time
+    of the sparse ops named in ``timed`` inside the step (CUDA events
+    around each call)."""
     import torch
 
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+
+    records = {}
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    marks[0].record()
-    loss, cap = trainer.forward(*staged)
-    marks[1].record()
-    dense, sparse, _ = trainer.backward(loss, cap)
-    marks[2].record()
-    trainer.dense_update(dense)
-    marks[3].record()
-    trainer.sparse_apply(sparse)
-    marks[4].record()
+    with timed_calls(ske, timed, records):
+        marks[0].record()
+        loss, cap = trainer.forward(*staged)
+        marks[1].record()
+        dense, sparse, _ = trainer.backward(loss, cap)
+        marks[2].record()
+        trainer.dense_update(dense)
+        marks[3].record()
+        trainer.sparse_apply(sparse)
+        marks[4].record()
     torch.cuda.synchronize()
     names = ("forward", "backward", "dense_update", "fused_dedup_apply")
-    return {name: marks[i].elapsed_time(marks[i + 1]) for i, name in enumerate(names)}
+    parts = {name: marks[i].elapsed_time(marks[i + 1]) for i, name in enumerate(names)}
+    if timed:
+        parts["kernel_ms"] = {name: sum(s.elapsed_time(e) for s, e in events)
+                              for name, events in records.items()}
+    return parts
 
 
 def path_steps(trainer, staged, steps: int = 3):
@@ -1220,7 +1351,7 @@ def path_steps(trainer, staged, steps: int = 3):
     return losses, tables
 
 
-def compare_paths(trainer, staged, card):
+def compare_paths(trainer, staged, card, what="kernel path vs plain path"):
     """Phase 7: from one cloned state, 3 steps with the kernels and 3 with
     the plain versions patched in."""
     from elasticdl_tpu_torch.ops import sparse_embedding as ske
@@ -1231,11 +1362,12 @@ def compare_paths(trainer, staged, card):
     kernel_losses, kernel_tables = path_steps(trainer, staged)
     trainer.state = start
     del start
-    with mock.patch.object(ske, "fused_lookup_fm", ske.fused_lookup_fm_plain), \
+    with mock.patch.object(ske, "fused_lookup", ske.fused_lookup_plain), \
+            mock.patch.object(ske, "fused_lookup_fm", ske.fused_lookup_fm_plain), \
             mock.patch.object(ske, "fused_dedup_apply", ske.fused_dedup_apply_plain):
         plain_losses, plain_tables = path_steps(trainer, staged)
-    out = paths_agree("kernel path vs plain path", kernel_losses, plain_losses, kernel_tables,
-                      plain_tables, tables0, card)
+    out = paths_agree(what, kernel_losses, plain_losses, kernel_tables, plain_tables, tables0,
+                      card)
     return {"losses_kernel": kernel_losses, "losses_plain": plain_losses, **out}
 
 
@@ -1266,7 +1398,15 @@ def paths_agree(what, losses_a, losses_b, tables_a, tables_b, tables0, card):
 
 
 def training_phases(card: str, seed: int, workdir: str, params: str = TRAIN_PARAMS,
-                    warmup: int = 5, steps: int = 50, n_batches: int = 64):
+                    warmup: int = 5, steps: int = 50, n_batches: int = 64,
+                    launches=TRAIN_LAUNCHES, embedding_optimizer=None,
+                    name: str = "train strict", serve_and_window: bool = True):
+    """Phases 6-9 (and, with phase 20's arguments, phase 20): strict
+    training at ``params``, timed, each kernel's launches held to
+    ``launches`` per step and the loss to fall; kernel path against plain
+    path; then, with ``serve_and_window``, train -> serve and the W=32
+    window.  ``embedding_optimizer``: a factory of the sparse optimizer
+    (default the zoo's)."""
     import numpy as np
     import torch
 
@@ -1291,8 +1431,9 @@ def training_phases(card: str, seed: int, workdir: str, params: str = TRAIN_PARA
 
     t0 = time.perf_counter()
     model = build_model(MODEL_DEF, params)  # the default device: the card
+    embedding_optimizer = embedding_optimizer or zoo.embedding_optimizer
     trainer = ShardedEmbeddingTrainer(model, zoo.loss, zoo.optimizer(),
-                                      embedding_optimizer=zoo.embedding_optimizer(), seed=seed)
+                                      embedding_optimizer=embedding_optimizer(), seed=seed)
     if trainer.device.type != "cuda":
         fail(f"ShardedEmbeddingTrainer's default device is {trainer.device}, not cuda")
     trainer.ensure_initialized()
@@ -1317,9 +1458,10 @@ def training_phases(card: str, seed: int, workdir: str, params: str = TRAIN_PARA
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     strict_counts = ske.launch_counts()
-    for name in ("fused_lookup_fm", "fused_dedup_apply"):
-        if strict_counts[name] != steps:
-            fail(f"{name} launched {strict_counts[name]} times in {steps} strict steps")
+    for kernel, per_step in launches.items():
+        if strict_counts[kernel] != per_step * steps:
+            fail(f"{name}: {kernel} launched {strict_counts[kernel]} times in {steps} steps "
+                 f"({per_step} a step expected)")
     step_ms = sorted(s.elapsed_time(e) for s, e in events)
     losses = torch.stack(losses).cpu().numpy()
     if not np.all(np.isfinite(losses)):
@@ -1327,7 +1469,8 @@ def training_phases(card: str, seed: int, workdir: str, params: str = TRAIN_PARA
     first, last = float(losses[:5].mean()), float(losses[-5:].mean())
     if not last < first:
         fail(f"the loss did not fall: first 5 steps {first!r}, last 5 {last!r}")
-    parts = time_parts(trainer, staged[0])
+    parts = time_parts(trainer, staged[0], timed=("fused_lookup",) if launches.get(
+        "fused_lookup") else ())
     train = {
         "samples_per_s": steps * batch / wall,
         "step_ms_median": step_ms[len(step_ms) // 2],
@@ -1335,12 +1478,18 @@ def training_phases(card: str, seed: int, workdir: str, params: str = TRAIN_PARA
         "breakdown_ms": parts,
         "launches_strict": strict_counts,
     }
-    log(f"train strict: {steps} steps of {batch}: {train['samples_per_s']!r} samples/s, "
+    log(f"{name}: {steps} steps of {batch}: {train['samples_per_s']!r} samples/s, "
         f"step median {train['step_ms_median']!r} ms (device, CUDA events); loss "
         f"{first!r} -> {last!r}; launches {strict_counts}; one step's parts {parts} [{card}]")
 
     # phase 7: kernels against plain versions on the path
-    train["path"] = compare_paths(trainer, staged, card)
+    train["path"] = compare_paths(
+        trainer, staged, card,
+        "kernel path vs plain path" if serve_and_window else f"{name}: kernel path vs plain path")
+    if not serve_and_window:
+        del trainer, staged, model
+        torch.cuda.empty_cache()
+        return train
 
     # phase 8: train -> serve
     out = export_model(trainer, os.path.join(workdir, "trained"), model_zoo="model_zoo",
@@ -1358,7 +1507,7 @@ def training_phases(card: str, seed: int, workdir: str, params: str = TRAIN_PARA
 
     # phase 9: the windowed apply
     windowed = ShardedEmbeddingTrainer(model, zoo.loss, zoo.optimizer(),
-                                       embedding_optimizer=zoo.embedding_optimizer(),
+                                       embedding_optimizer=embedding_optimizer(),
                                        seed=seed, sparse_apply_every=32)
     windowed.ensure_initialized()
     window = windowed.stage_window(batches)
@@ -1568,9 +1717,17 @@ def timed_attention(records, names=None):
     """Wrap the kernel functions ``names`` of ``ops.flash_attention``
     (default K4-K6) so each call records CUDA events around itself into
     ``records[name]``: the kernels' device time inside a step."""
-    import torch
-
     from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    with timed_calls(fa, names or fa.KERNELS, records):
+        yield
+
+
+@contextlib.contextmanager
+def timed_calls(module, names, records):
+    """Wrap the functions ``names`` of ``module`` so each call records
+    CUDA events around itself into ``records[name]``."""
+    import torch
 
     def wrap(name, fn):
         def timed(*args, **kwargs):
@@ -1583,8 +1740,8 @@ def timed_attention(records, names=None):
         return timed
 
     with contextlib.ExitStack() as stack:
-        for name in names or fa.KERNELS:
-            stack.enter_context(mock.patch.object(fa, name, wrap(name, getattr(fa, name))))
+        for name in names:
+            stack.enter_context(mock.patch.object(module, name, wrap(name, getattr(module, name))))
         yield
 
 
@@ -2494,6 +2651,76 @@ def block_gather_phase(card: str, seed: int):
 # ----------------------------------------------------------------------
 
 
+def device_launches(fn):
+    """Device launches per call of ``fn`` from the profiler's records
+    (None where the trace holds none)."""
+    prof = profile_launches(fn)
+    return None if prof is None else prof["launches"]
+
+
+def sharded_lookup_checks(ske, spec, table, gen, dev, mesh, flush, counted, card):
+    """The sharded K2 at 65,536 ids over ``mesh``: ``slots`` launches a
+    call; bit-exact with the one-card K2 for ids in the table, and with
+    the plain route (``fused_lookup_plain`` with the mesh) for every id:
+    ids past both ends and near +-2**31 (no shard owns them: zeros), and
+    again with a -0.0 and a NaN in the first row of two shards, which an
+    id another shard owns reads times 0.0 (the JAX route's mask).  Timed
+    beside the one-card call and the plain route; the call's device
+    records from the profiler (its device launches)."""
+    import torch
+
+    slots = mesh.shape["model"]
+    local_rows = spec.vocab_padded // slots
+    ids = torch.randint(0, spec.vocab_size, (65_536,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    got, counts = counted(lambda: ske.fused_lookup(spec, table, ids, mesh=mesh))
+    if counts["fused_lookup"] != slots or not bit_equal(got, ske.fused_lookup(spec, table, ids)):
+        fail(f"sharded fused_lookup: launches {counts}, or it differs from the one-card K2")
+    outside = torch.tensor([-1, -7, spec.vocab_padded, spec.vocab_padded + 9, -2**31,
+                            2**31 - 1], device=dev, dtype=torch.int32)
+    if ske.fused_lookup(spec, table, outside, mesh=mesh).any():
+        fail("sharded fused_lookup read a row for an id no shard owns")
+    starts = [s * local_rows for s in range(slots)]
+    edge_ids = ids.clone()
+    edges = outside.tolist() + starts + [local_rows - 1, local_rows, spec.vocab_padded - 1,
+                                         -2**31 + 1, 2**31 - 2]
+    edge_ids[:len(edges)] = torch.tensor(edges, dtype=torch.int32, device=dev)
+
+    def against_plain(what):
+        got = ske.fused_lookup(spec, table, edge_ids, mesh=mesh)
+        want = ske.fused_lookup_plain(spec, table, edge_ids, mesh=mesh)
+        torch.cuda.synchronize()
+        if not bit_equal(got, want):
+            fail(f"sharded fused_lookup differs from the plain route{what}: "
+                 f"{first_difference(got, want)}")
+
+    against_plain("")
+    planted = torch.tensor(starts[1:3], device=dev)
+    saved = table[planted].clone()
+    table[planted[0], 0] = -0.0
+    table[planted[1], 2] = float("nan")
+    against_plain(" with a -0.0 and a NaN in two shards' first rows")
+    table[planted] = saved
+    r = {
+        "shape": "ids [65536]", "launches_per_call": counts["fused_lookup"],
+        "ms": median_ms(lambda: ske.fused_lookup(spec, table, ids, mesh=mesh), flush),
+        "plain_ms": median_ms(lambda: ske.fused_lookup_plain(spec, table, ids, mesh=mesh), flush),
+        "one_card_ms": median_ms(lambda: ske.fused_lookup(spec, table, ids), flush),
+        "call_profile": profile_launches(lambda: ske.fused_lookup(spec, table, ids, mesh=mesh)),
+    }
+    prof = r["call_profile"]
+    if prof is None or prof["launches"] > SHARDED_K2_DEVICE_LAUNCHES:
+        fail(f"sharded fused_lookup: device records per call {json.dumps(prof)}, more than "
+             f"{SHARDED_K2_DEVICE_LAUNCHES} launches (or none recorded)")
+    r["device_launches_per_call"] = prof["launches"]
+    log(f"sharded fused_lookup over {SHARD_MESH}: bit-exact with the one-card K2 in the table "
+        f"and with the plain route for every id (edge ids; -0.0 and NaN in shard rows); "
+        f"{r['ms']!r} ms (plain route {r['plain_ms']!r} ms, one card {r['one_card_ms']!r} ms), "
+        f"{counts['fused_lookup']} K2 launches a call; device records per call: "
+        f"{json.dumps(prof)} [{card}]")
+    return r
+
+
 def sharded_kernel_phase(card: str, seed: int, vocab: int = 1_000_000,
                          split_vocab: int = SPLIT_VOCAB):
     """Phase 2's 26M-row merged table over an in-process (1, 4) mesh
@@ -2527,21 +2754,8 @@ def sharded_kernel_phase(card: str, seed: int, vocab: int = 1_000_000,
         return out, ske.launch_counts()
 
     result = {"mesh": list(SHARD_MESH)}
-    # K2: in-table ids bit-exact; ids outside the table read zeros.
-    ids = torch.randint(0, spec.vocab_size, (65_536,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    got, counts = counted(lambda: ske.fused_lookup(spec, table, ids, mesh=mesh))
-    if counts["fused_lookup"] != slots or not bit_equal(got, ske.fused_lookup(spec, table, ids)):
-        fail(f"sharded fused_lookup: launches {counts}, or it differs from the one-card K2")
-    outside = torch.tensor([-1, -7, spec.vocab_padded, spec.vocab_padded + 9], device=dev,
-                           dtype=torch.int32)
-    if ske.fused_lookup(spec, table, outside, mesh=mesh).any():
-        fail("sharded fused_lookup read a row for an id no shard owns")
-    result["fused_lookup"] = {
-        "shape": "ids [65536]", "launches_per_call": counts["fused_lookup"],
-        "ms": median_ms(lambda: ske.fused_lookup(spec, table, ids, mesh=mesh), flush),
-        "one_card_ms": median_ms(lambda: ske.fused_lookup(spec, table, ids), flush),
-    }
+    result["fused_lookup"] = sharded_lookup_checks(ske, spec, table, gen, dev, mesh, flush,
+                                                   counted, card)
     # K1 at the training shape: acts equal (a zero may differ in sign where
     # no shard owns a field), the sums within the reduction-order bound.
     batch = TRAIN_BATCH
@@ -2570,6 +2784,8 @@ def sharded_kernel_phase(card: str, seed: int, vocab: int = 1_000_000,
         "ms": median_ms(lambda: ske.fused_lookup_fm(spec, table, bet, cat, valid, mesh=mesh),
                         flush),
         "one_card_ms": median_ms(lambda: ske.fused_lookup_fm(spec, table, bet, cat, valid), flush),
+        "device_launches_per_call": device_launches(
+            lambda: ske.fused_lookup_fm(spec, table, bet, cat, valid, mesh=mesh)),
     }
     del cat, valid, bet, got, want, acts
     # K3: every kind, two applies, bit-exact tables and slots.
@@ -2595,6 +2811,8 @@ def sharded_kernel_phase(card: str, seed: int, vocab: int = 1_000_000,
                 spec, kind, hyper, t_mesh, s_mesh, ids, grads, mesh=mesh), flush)
             entry["one_card_ms"] = median_ms(lambda: ske.fused_dedup_apply(
                 spec, kind, hyper, t_one, s_one, ids, grads), flush)
+            entry["device_launches_per_call"] = device_launches(lambda: ske.fused_dedup_apply(
+                spec, kind, hyper, t_mesh, s_mesh, ids, grads, mesh=mesh))
         result["fused_dedup_apply"][name] = entry
         del t_mesh, s_mesh, t_one, s_one
         torch.cuda.empty_cache()
@@ -2785,6 +3003,26 @@ def mesh_training_phases(card: str, seed: int, workdir: str, params: str = TRAIN
     return result
 
 
+# ----------------------------------------------------------------------
+# phase 20: the table-scale strict DeepFM in the split layout
+# ----------------------------------------------------------------------
+
+
+def split_training_phase(card: str, seed: int, workdir: str):
+    """bench.py's bench_deepfm_table_scale_strict through the port's entry
+    points: 26M rows in the split layout (K2 on both tables, K3 on both),
+    batch 8192, strict, global-bias sparse Adam; 20 timed steps after 3,
+    the launches per step, the loss, and 3 steps against the plain
+    versions (phase 7's tolerances)."""
+    from elasticdl_tpu_torch.parallel import sparse_optim
+
+    return training_phases(
+        card, seed, workdir, params=SPLIT_TRAIN_PARAMS, warmup=3, steps=20, n_batches=24,
+        launches=SPLIT_TRAIN_LAUNCHES, name="train split strict (table scale)",
+        embedding_optimizer=lambda: sparse_optim.adam(LR, bias_correction="global"),
+        serve_and_window=False)
+
+
 #: The build of each of K7-K9 at RING_BENCH (bf16, head_dim 128) and on
 #: the CP LM's path (head_dim 64); K8 and K9 with the path's bf16 dO (one
 #: part).
@@ -2840,8 +3078,9 @@ def ring_entries(ring_kernels, ring_whole, cp, card, resources=None):
 
 #: The build of each of K1-K3 on DeepFM's path (dim 9: K3's lanes load
 #: 4 window entries each).
-SPARSE_BUILDS = {"fused_lookup_fm": "lookup_fm_kernel", "fused_lookup": "lookup_kernel",
-                 "fused_dedup_apply": "dedup_apply_kernel"}
+SPARSE_BUILDS = {"fused_lookup_fm": ("lookup_fm_kernel",),
+                 "fused_lookup": ("lookup_kernel<1>", "lookup_kernel<2>", "lookup_kernel<4>"),
+                 "fused_dedup_apply": ("dedup_apply_kernel",)}
 
 
 #: The build of each of K4-K6 on the LM's path (bf16, head_dim 64).
@@ -2922,7 +3161,7 @@ def main() -> None:
     k3 = dedup_apply_phase(card, args.seed) if run(5) else None
     gather = block_gather_phase(card, args.seed) if run(17) else None
     sharded = sharded_kernel_phase(card, args.seed) if run(18) else None
-    launches = train = mesh_train = None
+    launches = train = mesh_train = split_train = None
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if run(3, 4):
@@ -2931,6 +3170,8 @@ def main() -> None:
             train = training_phases(card, args.seed, workdir)
         if run(19):
             mesh_train = mesh_training_phases(card, args.seed, workdir)
+        if run(20):
+            split_train = split_training_phase(card, args.seed, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     attention, edges = attention_phase(card, args.seed) if run(10) else (None, None)
@@ -2944,7 +3185,7 @@ def main() -> None:
                         "ring_kernels": ring_kernels, "ring_whole": ring_whole,
                         "cp_lm_training": cp, "block_gather": gather,
                         "sharded_kernels": sharded, "mesh_training": mesh_train,
-                        "card": card}))
+                        "split_training": split_train, "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -2952,7 +3193,7 @@ def main() -> None:
             fail(f"kernel {name} was never launched on the serving path")
     log(json.dumps({"training": train, "lm_training": lm, "cp_lm_training": cp,
                     "ring_whole": ring_whole, "sharded_kernels": sharded,
-                    "mesh_training": mesh_train, "card": card}))
+                    "mesh_training": mesh_train, "split_training": split_train, "card": card}))
 
     by_path = {
         "fused_lookup_fm": {"serve_merged": launches["fused_lookup_fm"],
@@ -2961,10 +3202,13 @@ def main() -> None:
                             "train_mesh": mesh_train["launches"]["fused_lookup_fm"],
                             "serve_mesh": mesh_train["serve"]["launches"]["fused_lookup_fm"]},
         "fused_lookup": {"serve_split": launches["fused_lookup"],
-                         "serve_split_mesh": mesh_train["serve_split"]["launches"]["fused_lookup"]},
+                         "serve_split_mesh": mesh_train["serve_split"]["launches"]["fused_lookup"],
+                         "train_split_strict": split_train["launches_strict"]["fused_lookup"]},
         "fused_dedup_apply": {"train_strict": train["launches_strict"]["fused_dedup_apply"],
                               "train_window": train["launches_window"]["fused_dedup_apply"],
-                              "train_mesh": mesh_train["launches"]["fused_dedup_apply"]},
+                              "train_mesh": mesh_train["launches"]["fused_dedup_apply"],
+                              "train_split_strict":
+                                  split_train["launches_strict"]["fused_dedup_apply"]},
     }
     on_mesh = {"fused_lookup_fm": sharded["fused_lookup_fm"], "fused_lookup":
                sharded["fused_lookup"], "fused_dedup_apply": sharded["fused_dedup_apply"]["adam"]}
@@ -2974,23 +3218,26 @@ def main() -> None:
         entry = {
             "name": name, "ok": True, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
-            "launches": (train["launches_strict"][name] if name == "fused_lookup_fm"
-                         else launches[name]),
+            "launches": (train if name == "fused_lookup_fm" else split_train)[
+                "launches_strict"][name],
             "launches_by_path": by_path[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "gather_ms": r["gather_ms"],
-            "shape": r["shape"], "main_path_shape": r["main_path_shape"],
-            "main_path_shape_ms": r["main_path_shape_ms"],
-            "main_path_shape_bound_ms": r["main_path_shape_bound_ms"],
+            "shape": r["shape"], "sector_bound_ms": r["sector_bound_ms"], "split": r["split"],
             "card": card,
         }
         if name == "fused_lookup_fm":
             entry.update({k: r[k] for k in (
+                "main_path_shape", "main_path_shape_ms", "main_path_shape_bound_ms",
                 "train_shape_ms", "train_shape_plain_ms", "train_shape_bound_ms",
-                "sector_bound_ms", "main_path_shape_sector_bound_ms",
-                "train_shape_sector_bound_ms", "split")})
-        entry["resources"] = (resources or {}).get(SPARSE_BUILDS[name])
+                "main_path_shape_sector_bound_ms", "train_shape_sector_bound_ms")})
+        else:
+            entry["shapes"] = r["shapes"]
+            entry["train_split_step_ms"] = split_train["breakdown_ms"]["kernel_ms"][name]
+        builds = [(resources or {}).get(build) for build in SPARSE_BUILDS[name]]
+        entry["resources"] = (builds[0] if len(builds) == 1
+                              else dict(zip(SPARSE_BUILDS[name], builds)))
         entry["sharded"] = on_mesh[name]
         line.append(entry)
     adam = k3["by_kind"]["adam"]
@@ -3003,7 +3250,7 @@ def main() -> None:
         "ms": adam["ms"], "plain_ms": adam["plain_ms"], "bound_ms": adam["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "index_add_ms": k3["index_add_ms"],
         "kernel_ms": adam["split"]["kernel_ms"], "sector_bound_ms": adam["sector_bound_ms"],
-        "resources": (resources or {}).get(SPARSE_BUILDS["fused_dedup_apply"]),
+        "resources": (resources or {}).get(SPARSE_BUILDS["fused_dedup_apply"][0]),
         "shape": k3["shape"] + ", adam per-row", "by_kind": k3["by_kind"],
         "train_step_ms": train["breakdown_ms"]["fused_dedup_apply"],
         "sharded": on_mesh["fused_dedup_apply"],

@@ -55,7 +55,9 @@ _RING_TAIL = (_I, _I, _I, _I, _I, _LL, _LL, _LL, _LL, _LL, _LL, _F, _I, _I, _P)
 #: so ctypes never cuts a 64-bit address to a 32-bit int; hyperparameters
 #: as c_float, already rounded to f32 by the caller).
 SIGNATURES = {
-    "edl_fused_lookup": (_P, _P, _P, _LL, _I, _I, _I, _I, _P),
+    # table, ids, out, n, start (-1: one card), rows_per_block, num_blocks,
+    # dim_padded, dim, stream
+    "edl_fused_lookup": (_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P),
     "edl_fused_lookup_fm": (
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ),

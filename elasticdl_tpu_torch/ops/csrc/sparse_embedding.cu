@@ -5,7 +5,9 @@
 // elasticdl_tpu/ops/sparse_embedding.py:
 //
 //   edl_fused_lookup       <- _lookup_kernel (fused_lookup): gather each
-//                             id's row and keep its first `dim` lanes.
+//                             id's row and keep its first `dim` lanes, on
+//                             one card or on a model shard with the ids
+//                             routed to it; see its own note below.
 //   edl_fused_lookup_fm    <- _fm_kernel (fused_lookup_fm): the DeepFM
 //                             merged 1+d lookup, acts = (row + bet) * valid,
 //                             plus the first-order sum (lane 0) and the FM
@@ -54,27 +56,106 @@ __device__ __forceinline__ long long row_of(int id, int rows_per_block,
   return (long long)block * rows_per_block + slot;
 }
 
-// One thread per output element: neighbouring threads read neighbouring
-// lanes of a row; each thread owns its output (no atomics).
-__global__ void lookup_kernel(const float* __restrict__ table,
-                              const int* __restrict__ ids,
-                              float* __restrict__ out, long long n,
-                              int rows_per_block, int num_blocks,
-                              int dim_padded, int dim) {
-  const long long total = n * dim;
-  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       t < total; t += (long long)gridDim.x * blockDim.x) {
-    const long long i = t / dim;
-    const int lane = (int)(t - i * dim);
-    const long long row = row_of(__ldg(ids + i), rows_per_block, num_blocks);
-    out[t] = __ldg(table + row * dim_padded + lane);
-  }
+// ---------------------------------------------------------------------
+// edl_fused_lookup <- _lookup_kernel (fused_lookup),
+// elasticdl_tpu/ops/sparse_embedding.py:249, with the shard routing of
+// _sharded_lookup_impl (:340)
+//
+// The Pallas kernel DMAs one storage row per id, double-buffered (row
+// i+1's copy overlaps row i's lane select).  Here the output is read as
+// units of V floats (V = 4, 2 or 1: the widest that divides dim, chosen
+// by the launcher); a block owns a tile of `tile` ids, one contiguous
+// span of them and of the output, and every thread takes kLookupLoads
+// of the tile's units a blockDim apart:
+//   1. it loads the ids of all its units at once (the lanes of one id
+//      read the same word, coalesced) and turns each into its row by
+//      row_of.  On a model shard (start >= 0) the id is routed first:
+//      rel = id - start in 64 bits is owned when 0 <= rel < the shard's
+//      rows and reads its clamp-rule row; an id another shard owns reads
+//      local row 0, kept as 0.0f: its lanes are multiplied by 0.0f as the
+//      plain route and JAX mask them, so a -0.0 or a NaN in row 0 comes
+//      through as there (owned lanes are multiplied by 1.0f, as there);
+//   2. it issues all its units' row loads before it stores any, and the
+//      stores of a warp are contiguous.
+// What bounds it: a few bytes per id and no arithmetic, so the random
+// rows' 32-byte sectors and their latency.  A thread waits on two
+// dependent round trips (ids, then rows) with kLookupLoads row loads in
+// flight; a dim-8 row is two float4 loads and two float4 stores.  No
+// shared memory and no barrier: a unit's row load leaves as soon as its
+// own id is back (a build that staged the tile's row offsets in shared
+// memory first ran slower at small calls and at dim 1).  With the L2
+// cold, every schedule tried reads the path's shapes at nearly the same
+// time: the random rows' DRAM accesses set it (PERF.md).  Every lane is
+// an exact copy of the row's (times 1.0f or 0.0f on a shard).
+// ---------------------------------------------------------------------
+
+constexpr int kLookupLoads = 4;
+// Units a tile holds: one pass of a block's threads.
+constexpr int kLookupUnits = kThreads * kLookupLoads;
+// Fewer ids a tile until the grid has this many blocks (about two an SM):
+// a small call (a serving batch) spreads over the SMs.
+constexpr int kLookupMinBlocks = 512;
+
+template <int V> struct Units;
+template <> struct Units<1> { using T = float; };
+template <> struct Units<2> { using T = float2; };
+template <> struct Units<4> { using T = float4; };
+
+__device__ __forceinline__ float scaled(float x, float k) { return __fmul_rn(x, k); }
+__device__ __forceinline__ float2 scaled(float2 x, float k) {
+  return make_float2(__fmul_rn(x.x, k), __fmul_rn(x.y, k));
+}
+__device__ __forceinline__ float4 scaled(float4 x, float k) {
+  return make_float4(__fmul_rn(x.x, k), __fmul_rn(x.y, k), __fmul_rn(x.z, k),
+                     __fmul_rn(x.w, k));
 }
 
-unsigned int grid_for(long long total) {
-  long long blocks = (total + kThreads - 1) / kThreads;
-  // Past ~1M blocks the grid-stride loop takes over.
-  return (unsigned int)(blocks < (1 << 20) ? blocks : (1 << 20));
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+lookup_kernel(const float* __restrict__ table, const int* __restrict__ ids,
+              float* __restrict__ out, long long n, long long start,
+              int rows_per_block, int num_blocks, int dim_padded, int dim,
+              int tile) {
+  using T = typename Units<V>::T;
+  const long long i0 = (long long)blockIdx.x * tile;
+  const int count = (int)min((long long)tile, n - i0);
+  const int w = dim / V;  // units a row
+  const int units = count * w;
+  const bool routed = start >= 0;
+  const long long shard_rows = (long long)rows_per_block * num_blocks;
+  const int* tile_ids = ids + i0;
+  T* out_t = reinterpret_cast<T*>(out + i0 * dim);
+  for (int e0 = threadIdx.x; e0 < units; e0 += blockDim.x * kLookupLoads) {
+    int id[kLookupLoads];
+#pragma unroll
+    for (int u = 0; u < kLookupLoads; ++u) {
+      const int e = e0 + u * blockDim.x;
+      id[u] = e < units ? __ldg(tile_ids + e / w) : 0;
+    }
+    T x[kLookupLoads];
+    float keep[kLookupLoads];
+#pragma unroll
+    for (int u = 0; u < kLookupLoads; ++u) {
+      const int e = e0 + u * blockDim.x;
+      keep[u] = 1.0f;
+      if (e < units) {
+        int local = id[u];
+        if (routed) {
+          const long long rel = (long long)id[u] - start;
+          const bool owned = rel >= 0 && rel < shard_rows;
+          local = owned ? (int)rel : 0;
+          keep[u] = owned ? 1.0f : 0.0f;
+        }
+        const long long base = row_of(local, rows_per_block, num_blocks) * dim_padded;
+        x[u] = __ldg(reinterpret_cast<const T*>(table + base) + (e - (e / w) * w));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLookupLoads; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e < units) out_t[e] = routed ? scaled(x[u], keep[u]) : x[u];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -395,12 +476,36 @@ dedup_apply_kernel(const int* __restrict__ sorted_ids,
 extern "C" {
 
 int edl_fused_lookup(const float* table, const int* ids, float* out,
-                     long long n, int rows_per_block, int num_blocks,
-                     int dim_padded, int dim, void* stream) {
-  const long long total = n * dim;
-  if (total > 0) {
-    lookup_kernel<<<grid_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-        table, ids, out, n, rows_per_block, num_blocks, dim_padded, dim);
+                     long long n, long long start, int rows_per_block,
+                     int num_blocks, int dim_padded, int dim, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (dim <= 0 || dim > dim_padded) return (int)cudaErrorInvalidValue;
+  // The widest unit that divides the row and that both pointers' alignment
+  // allows (a row offset is a multiple of dim_padded, an output row's of
+  // dim).
+  const uintptr_t addresses = (uintptr_t)table | (uintptr_t)out;
+  int v = 4;
+  while (v > 1 && (dim % v != 0 || dim_padded % v != 0 || addresses % (4 * v) != 0)) v /= 2;
+  const long long w = dim / v;
+  long long tile = kLookupUnits / w;
+  const long long spread = (n + kLookupMinBlocks - 1) / kLookupMinBlocks;
+  tile = tile < spread ? tile : spread;
+  tile = tile < 1 ? 1 : tile;
+  const long long blocks = (n + tile - 1) / tile;
+  if (blocks > 0x7fffffffLL || tile * w > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  const unsigned int grid = (unsigned int)blocks;
+  if (v == 4) {
+    lookup_kernel<4><<<grid, kThreads, 0, s>>>(table, ids, out, n, start, rows_per_block,
+                                               num_blocks, dim_padded, dim, (int)tile);
+  } else if (v == 2) {
+    lookup_kernel<2><<<grid, kThreads, 0, s>>>(table, ids, out, n, start, rows_per_block,
+                                               num_blocks, dim_padded, dim, (int)tile);
+  } else {
+    lookup_kernel<1><<<grid, kThreads, 0, s>>>(table, ids, out, n, start, rows_per_block,
+                                               num_blocks, dim_padded, dim, (int)tile);
   }
   return (int)cudaGetLastError();
 }

@@ -32,7 +32,8 @@ takes a keyword-only ``mesh`` (a ``parallel.mesh.Mesh``).  A mesh of more
 than one slot splits a table's storage blocks over its ``model`` axis
 when they divide it (``table_partition_axis``), else replicates the
 table.  Each model shard runs the same body (kernel or plain version)
-on its rows with the ids routed to it, and the lookups combine by a sum
+on its rows with the ids routed to it (K2 is given the shard's first row
+and routes them inside its kernel), and the lookups combine by a sum
 over ``model`` (exact zeros from every shard but the owner); the apply
 all-gathers ``(ids, grads)`` over ``data`` first, routes ids owned
 elsewhere to ``-1`` and combines nothing.  On an in-process mesh the
@@ -214,42 +215,58 @@ def _table_cotangent(spec, shape, ids, g, mesh):
 # ----------------------------------------------------------------------
 
 
-def _lookup_plain_body(spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    rows = table.index_select(0, row_index(spec, ids))
-    return rows[:, : spec.dim]
+def _lookup_plain_body(spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor,
+                       start: Optional[int] = None) -> torch.Tensor:
+    """K2's plain version.  One card (``start`` None): the clamp-rule rows
+    of ``ids``, first ``dim`` lanes.  The model shard whose rows
+    (``table``, ``spec`` its local spec) start at global row ``start``:
+    its part of the sharded lookup (JAX ``_sharded_lookup_impl``'s body),
+    the ids routed to it (local id 0 where another shard owns them), the
+    rows, then ``* owned``: another shard's id reads local row 0 times
+    0.0, so a -0.0 or a NaN there comes through."""
+    if start is None:
+        return table.index_select(0, row_index(spec, ids))[:, : spec.dim]
+    routed, owned = _route_ids(spec, ids, start, 0)
+    return _lookup_plain_body(spec, table, routed) * owned[:, None].to(table.dtype)
 
 
-def _lookup_forward(spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    if _route(table) == "plain":
-        return _lookup_plain_body(spec, table, ids)
+def _launch_lookup(spec, table, ids, out, start: Optional[int] = None) -> None:
+    """One launch of K2's kernel on contiguous ``ids`` into ``out``: on
+    one card (``start`` None) or on the model shard whose rows
+    (``table``) start at global row ``start`` (the kernel routes the ids
+    itself, as ``_lookup_plain_body`` does)."""
     from elasticdl_tpu_torch.ops import _build
 
-    ids = ids.contiguous()
-    n = ids.shape[0]
-    out = torch.empty((n, spec.dim), dtype=table.dtype, device=table.device)
     with torch.cuda.device(table.device):
         code = _build.library().edl_fused_lookup(
-            table.data_ptr(), ids.data_ptr(), out.data_ptr(), n,
-            spec.rows_per_block, spec.num_blocks, spec.dim_padded, spec.dim,
-            _stream(),
+            table.data_ptr(), ids.data_ptr(), out.data_ptr(), ids.shape[0],
+            -1 if start is None else start, spec.rows_per_block, spec.num_blocks,
+            spec.dim_padded, spec.dim, _stream(),
         )
     _build.check(code, "fused_lookup")
+
+
+def _lookup_forward(spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor,
+                    start: Optional[int] = None) -> torch.Tensor:
+    """K2 on a CUDA table, its plain version on a CPU one."""
+    if _route(table) == "plain":
+        return _lookup_plain_body(spec, table, ids, start)
+    ids = ids.contiguous()
+    out = torch.empty((ids.shape[0], spec.dim), dtype=table.dtype, device=table.device)
+    _launch_lookup(spec, table, ids, out, start)
     _count_launch("fused_lookup")
     return out
 
 
 def _sharded_lookup(body, spec, table, ids, mesh):
     """The shard_map route of the lookup: ``body`` on each model shard
-    with the ids routed to it (local id 0 elsewhere, masked to zero
-    after), then the sum over ``model``.  Each id has one owner, so the
-    sum adds exact zeros to the owner's row."""
+    with its first row (the body routes the ids and masks what another
+    shard owns), then the sum over ``model``.  Each id has one owner, so
+    the sum adds exact zeros to the owner's row."""
     local, shards = _shards(spec, table, mesh)
     if local is None:
         return body(spec, table, ids)
-    parts = []
-    for start, rows in shards:
-        routed, owned = _route_ids(local, ids, start, 0)
-        parts.append(body(local, rows, routed) * owned[:, None].to(table.dtype))
+    parts = [body(local, rows, ids, start) for start, rows in shards]
     return axis_all_reduce(mesh, MODEL_AXIS, parts)
 
 
