@@ -160,11 +160,46 @@ The table-scale split layout (K2 on the path it serves):
     loss falls; 3 steps through the kernels against 3 with the plain
     versions from one state (phase 7's tolerances).
 
+Checkpoints and the delta chain (``elasticdl_tpu_torch.checkpoint``, the
+JAX package's on-disk layout), on the paths of K2, K3 and K4-K6:
+
+21. Phase 20's configuration: 5 steps, ``save_checkpoint`` into a
+    ``ShardedCheckpointSaver`` (tables, m and v, 2.8 GB), then a trainer
+    of another seed restores ``latest_step()`` at ``ensure_initialized``
+    into its own tensors (their ``data_ptr`` unchanged): every leaf
+    bit-exact (tables, m, v, ``t_global``, dense params, Adam state,
+    step); so does a trainer over the in-process (1, 4) mesh (the dim-8
+    table's 1,625,000 blocks split four ways, the dim-1 table's 203,125
+    replicated), whose next step's loss agrees with the one-card
+    trainer's (phase 7's loss tolerance); 3 steps of the saved and the
+    resumed trainer on the same batches at phase 7's tolerances (and
+    whether they were bit-exact); 10 timed steps of each in turns
+    (saved, resumed, resumed, saved: samples/s beside phase 20's, the
+    resumed trainer's 2 K2 and 2 K3 launches a step); the save, CRC and
+    restore seconds and the bytes written.
+22. From the resumed trainer: ``publish_full``, 2 steps,
+    ``publish_delta`` (the changed blocks and bytes of each table);
+    ``resolve_chain`` gives the full and the delta; the full's tables
+    patched with ``load_delta``'s blocks equal a fresh ``export_model``
+    bit for bit; ``ServingReplica(full)`` on the card, then
+    ``apply_delta``: the replica serves the delta's step, within
+    LOGIT_RTOL/LOGIT_ATOL of ``eval_step`` on the held-out rows, 2 K2
+    launches a dispatch; the publish and apply seconds.
+23. The LM at TRANSFORMER_BENCH (bf16 blocks), batch 16: 2 steps,
+    ``CheckpointSaver.save(trainer.state_to_jax_host())``,
+    ``load_latest`` into a fresh trainer (bit-exact), then one
+    forward/backward and 2 steps on both within LM_PATH_TOL, K4-K6 4
+    times each a step.
+
+Before each of phases 21-23 the free space of its directory is checked
+(a failure names the bytes needed); each deletes its directories.
+
 Launch counts are zeroed just before each serving and training phase and
 read just after it; a kernel of the path that did not launch there (K1
 and K3 once per strict training step, K3 twice in the window; K2 and K3
-twice per split-layout step; K4, K5 and
-K6 once per layer per LM step; K7, K8 and K9 once per layer per ring step
+twice per split-layout step, the resumed trainer's too, K2 twice per
+dispatch after ``apply_delta``; K4, K5 and K6 once per layer per LM
+step, the resumed LM's too; K7, K8 and K9 once per layer per ring step
 of a CP LM step, and K4-K6 never there; over the mesh, K1 and K3 once
 per shard; K10 in the experiment script's default mode) fails the run.
 The line before the last holds the card's name and power limit, the
@@ -172,7 +207,7 @@ last line ``{"ok": true, "device": {...}}``.  It exits non-zero, with no
 result, when no CUDA device is available or the port is not beside it.
 ``--phases 1,10`` runs only the named phases (for a short check of one
 kernel; such a run prints no result line; phase 19 reuses phase 4's
-artifact when both run).
+artifact when both run; phases 21 and 22 run together).
 """
 
 from __future__ import annotations
@@ -3023,6 +3058,375 @@ def split_training_phase(card: str, seed: int, workdir: str):
         serve_and_window=False)
 
 
+# ----------------------------------------------------------------------
+# phases 21-23: checkpoints, the delta chain, the LM's resume
+# ----------------------------------------------------------------------
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _, names in os.walk(path) for name in names)
+
+
+def require_free(workdir: str, nbytes: int, what: str) -> None:
+    """Fail unless ``workdir``'s file system has ``nbytes`` free."""
+    free = shutil.disk_usage(workdir).free
+    if free < nbytes:
+        fail(f"{what} needs {nbytes} bytes free in {workdir}, which has {free}")
+
+
+def state_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ps_state_tensors(trainer):
+    """Every tensor of a PS trainer's state: tables, slots, dense params
+    and the dense optimizer's state."""
+    state = trainer.state
+    out = list(state.tables.values()) + list(state.params.values())
+    out += [v for group in state.slots.values() for v in group.values()]
+    out += [state.opt_state["count"]] + list(state.opt_state["mu"].values()) \
+        + list(state.opt_state["nu"].values())
+    return out
+
+
+def ps_states_bit_equal(a, b) -> list:
+    """The names of the leaves where two PS trainers' states differ in any
+    bit (the step included)."""
+    sa, sb = a.state, b.state
+    bad = [] if sa.step == sb.step else ["step"]
+    pairs = [(f"table {k}", v, sb.tables[k]) for k, v in sa.tables.items()]
+    pairs += [(f"param {k}", v, sb.params[k]) for k, v in sa.params.items()]
+    pairs += [(f"slot {k}/{n}", v, sb.slots[k][n]) for k, g in sa.slots.items()
+              for n, v in g.items()]
+    pairs += [(f"opt {m}/{k}", v, sb.opt_state[m][k]) for m in ("mu", "nu")
+              for k, v in sa.opt_state[m].items()]
+    pairs.append(("opt count", sa.opt_state["count"], sb.opt_state["count"]))
+    return bad + [name for name, x, y in pairs if not bit_equal(x.detach(), y.detach())]
+
+
+def checkpoint_phases(card: str, seed: int, workdir: str, split_train=None,
+                      n_batches: int = 12):
+    """Phases 21-22 at phase 20's configuration (26M rows, split layout,
+    batch 8192, strict, global-bias sparse Adam): train 5 steps, a sharded
+    checkpoint, a resume into a trainer of another seed (bit-exact) and
+    into one over the in-process (1, 4) mesh, 3 steps on both one-card
+    trainers (phase 7's tolerances), 10 timed steps of each in turns; then the
+    delta chain from the resumed trainer, served by a replica that
+    applies it."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.checkpoint import delta as deltas
+    from elasticdl_tpu_torch.checkpoint.sharded import ShardedCheckpointSaver
+    from elasticdl_tpu_torch.common.params import parse_dict_params
+    from elasticdl_tpu_torch.data.synthetic import synthetic_ctr_arrays
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+    from elasticdl_tpu_torch.parallel import sparse_optim
+    from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer
+    from elasticdl_tpu_torch.serving.export import export_model
+    from elasticdl_tpu_torch.serving.runtime import ServingReplica
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    zoo = resolve(MODEL_DEF)
+    model_params = parse_dict_params(SPLIT_TRAIN_PARAMS)
+    vocab, batch = model_params["vocab_size"], TRAIN_BATCH
+    feats, labels = synthetic_ctr_arrays(batch * n_batches + 256, vocab_size=vocab, seed=seed)
+    batches = [({k: v[i * batch:(i + 1) * batch] for k, v in feats.items()},
+                labels[i * batch:(i + 1) * batch], np.ones((batch,), np.float32))
+               for i in range(n_batches)]
+    held_out = {k: v[n_batches * batch:] for k, v in feats.items()}
+
+    def trainer_for(trainer_seed, mesh=None):
+        params = model_params if mesh is None else dict(model_params, mesh=mesh)
+        return ShardedEmbeddingTrainer(
+            build_model(MODEL_DEF, params), zoo.loss, zoo.optimizer(),
+            embedding_optimizer=sparse_optim.adam(LR, bias_correction="global"),
+            seed=trainer_seed, mesh=mesh)
+
+    def steps(trainer, first, count):
+        return [float(trainer.train_step_staged(staged[(first + i) % n_batches]))
+                for i in range(count)]
+
+    saved = trainer_for(seed)
+    saved.ensure_initialized()
+    staged = [saved.stage_batch(*b) for b in batches]
+    steps(saved, 0, 5)
+    torch.cuda.synchronize()
+
+    # phase 21: save, resume bit-exact, resume over the mesh
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    need = state_bytes(ps_state_tensors(saved))
+    require_free(workdir, need + need // 10, "phase 21's checkpoint")
+    saver = ShardedCheckpointSaver(ckpt_dir)
+    t0 = time.perf_counter()
+    saved.save_checkpoint(saver, saved.step)
+    save_s = time.perf_counter() - t0
+    written = dir_bytes(ckpt_dir)
+    t0 = time.perf_counter()
+    step = saver.latest_step()
+    crc_s = time.perf_counter() - t0
+    if step != 5:
+        fail(f"latest_step() is {step}, the checkpoint's step 5")
+
+    resumed = trainer_for(seed + 1)
+    ptrs = {key: layer.embedding.data_ptr() for key, layer in resumed._layers.items()}
+    t0 = time.perf_counter()
+    resumed.set_sharded_restore(saver, step)
+    resumed.ensure_initialized()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    moved = {k for k, t in resumed.state.tables.items() if t.data_ptr() != ptrs[k]}
+    if moved:
+        fail(f"the restore replaced the trainer's own tables {sorted(moved)}")
+    differ = ps_states_bit_equal(saved, resumed)
+    if differ:
+        fail(f"the resumed trainer differs from the saved one in {differ}")
+
+    mesh = in_process_mesh(*SHARD_MESH)
+    on_mesh = trainer_for(seed + 2, mesh)
+    t0 = time.perf_counter()
+    on_mesh.set_sharded_restore(saver, step)
+    on_mesh.ensure_initialized()
+    torch.cuda.synchronize()
+    mesh_restore_s = time.perf_counter() - t0
+    if on_mesh.table_placement != {"fm_embedding/embedding": "model",
+                                   "linear_embedding/embedding": None}:
+        fail(f"the mesh trainer placed {on_mesh.table_placement}")
+    differ = ps_states_bit_equal(saved, on_mesh)
+    if differ:
+        fail(f"the trainer resumed over the mesh differs from the saved one in {differ}")
+    mesh_loss = steps(on_mesh, 5, 1)[0]
+    del on_mesh
+    torch.cuda.empty_cache()
+    log(f"checkpoint at step {step}: saved {written} bytes ({written / 1e9!r} GB) in "
+        f"{save_s!r} s; latest_step (CRC) {crc_s!r} s; restore {restore_s!r} s one card, "
+        f"{mesh_restore_s!r} s over the {SHARD_MESH} mesh; both bit-exact [{card}]")
+
+    tables0 = {key: t.clone() for key, t in saved.state.tables.items()}
+    saved_losses = steps(saved, 5, 3)
+    saved_tables = {key: t.clone() for key, t in saved.state.tables.items()}
+    resumed_losses = steps(resumed, 5, 3)
+    resumed_tables = {key: t.clone() for key, t in resumed.state.tables.items()}
+    exact = saved_losses == resumed_losses and all(
+        bit_equal(t, saved_tables[k]) for k, t in resumed_tables.items())
+    agree = paths_agree("resumed vs saved trainer", resumed_losses, saved_losses,
+                        resumed_tables, saved_tables, tables0, card)
+    np.testing.assert_allclose(mesh_loss, saved_losses[0], rtol=PATH_LOSS_RTOL)
+    log(f"resumed vs saved, 3 steps: bit-exact {exact}; the mesh trainer's step loss "
+        f"{mesh_loss!r} vs {saved_losses[0]!r} [{card}]")
+
+    def timed(trainer, first):
+        """10 steps: (samples/s on the host clock, median step ms)."""
+        events = []
+        t0 = time.perf_counter()
+        for i in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            trainer.train_step_staged(staged[(first + i) % n_batches])
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return 10 * batch / wall, sorted(s.elapsed_time(e) for s, e in events)[5]
+
+    # The saved and the resumed trainer in turns (saved, resumed, resumed,
+    # saved) on the same batches: the rate a restore leaves, within one call.
+    turns = {"saved": [timed(saved, 8)]}
+    ske.reset_launch_counts()
+    turns["resumed"] = [timed(resumed, 8)]
+    counts = ske.launch_counts()
+    for kernel, per_step in SPLIT_TRAIN_LAUNCHES.items():
+        if counts[kernel] != per_step * 10:
+            fail(f"the resumed trainer launched {kernel} {counts[kernel]} times in 10 steps")
+    turns["resumed"].append(timed(resumed, 18))
+    turns["saved"].append(timed(saved, 18))
+    del saved
+    torch.cuda.empty_cache()
+    phase20 = None if split_train is None else split_train["samples_per_s"]
+    result = {
+        "step": step, "save_s": save_s, "bytes_written": written, "latest_step_crc_s": crc_s,
+        "restore_s": restore_s, "mesh_restore_s": mesh_restore_s,
+        "resumed_bit_exact_3_steps": exact, "resumed_vs_saved": agree,
+        "mesh_loss": mesh_loss, "saved_loss": saved_losses[0],
+        "resumed_samples_per_s": [r for r, _ in turns["resumed"]],
+        "resumed_step_ms_median": [m for _, m in turns["resumed"]],
+        "saved_samples_per_s": [r for r, _ in turns["saved"]],
+        "saved_step_ms_median": [m for _, m in turns["saved"]],
+        "phase20_samples_per_s": phase20, "launches_resumed": counts,
+    }
+    log(f"10 steps of {batch} in turns (saved, resumed, resumed, saved): resumed "
+        f"{result['resumed_samples_per_s']} samples/s, step medians "
+        f"{result['resumed_step_ms_median']} ms; saved {result['saved_samples_per_s']}, "
+        f"{result['saved_step_ms_median']} ms (phase 20: {phase20!r}); the resumed trainer's "
+        f"launches {counts} [{card}]")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # phase 22: the delta chain
+    pub = os.path.join(workdir, "pub")
+    require_free(workdir, 4 * sum(state_bytes([t]) for t in resumed.state.tables.values()),
+                 "phase 22's delta chain")
+    exporter = deltas.DeltaExporter(pub, model_zoo="model_zoo", model_def=MODEL_DEF,
+                                    model_params=SPLIT_TRAIN_PARAMS)
+    t0 = time.perf_counter()
+    full_dir = exporter.publish_full(resumed)
+    full_s = time.perf_counter() - t0
+    steps(resumed, 28, 2)
+    t0 = time.perf_counter()
+    delta_dir = exporter.publish_delta(resumed)
+    delta_s = time.perf_counter() - t0
+    if deltas.resolve_chain(pub) != (full_dir, [delta_dir]):
+        fail(f"resolve_chain gave {deltas.resolve_chain(pub)}, not ({full_dir}, [{delta_dir}])")
+    loaded = deltas.load_delta(delta_dir)
+    changed = {key: {"blocks": int(rows.size), "of_blocks": int(meta["packed_shape"][0]),
+                     "bytes": int(rows.nbytes + vals.nbytes)}
+               for key, (rows, vals, meta) in loaded["tables"].items()}
+    log(f"delta {loaded['manifest']['base_step']} -> {loaded['manifest']['step']}: changed "
+        f"{changed}; publish_full {full_s!r} s, publish_delta {delta_s!r} s [{card}]")
+    fresh = export_model(resumed, os.path.join(workdir, "fresh"), model_zoo="model_zoo",
+                         model_def=MODEL_DEF, model_params=SPLIT_TRAIN_PARAMS)
+    with open(os.path.join(full_dir, "signature.json")) as f:
+        tables_meta = json.load(f)["tables"]
+    for meta in tables_meta:
+        patched = np.load(os.path.join(full_dir, meta["file"]))
+        rows, vals, _ = loaded["tables"][meta["key"]]
+        patched[rows] = vals
+        want = np.load(os.path.join(fresh, meta["file"]), mmap_mode="r")
+        if not np.array_equal(patched.view(np.uint32), want.view(np.uint32)):
+            fail(f"{meta['key']}: the full patched with the delta is not the fresh export")
+        del patched, want
+    shutil.rmtree(fresh, ignore_errors=True)
+
+    want = resumed.eval_step(held_out)
+    replica = ServingReplica(full_dir)
+    t0 = time.perf_counter()
+    gen = replica.apply_delta(delta_dir)
+    apply_s = time.perf_counter() - t0
+    if gen.step != resumed.step or replica.generation is not gen:
+        fail(f"after apply_delta the replica serves step {replica.generation.step}, "
+             f"the trainer is at {resumed.step}")
+    ske.reset_launch_counts()
+    got = replica.execute(held_out, len(want))[: len(want)]
+    serve_counts = ske.launch_counts()
+    np.testing.assert_allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    if serve_counts["fused_lookup"] != 2 or serve_counts["fused_lookup_fm"]:
+        fail(f"one dispatch after apply_delta launched {serve_counts}")
+    log(f"replica after apply_delta: generation {gen.gen_id} at step {gen.step}, "
+        f"{len(want)} rows within rtol {LOGIT_RTOL} of eval_step; apply_delta {apply_s!r} s; "
+        f"one dispatch's launches {serve_counts} [{card}]")
+    result.update({"publish_full_s": full_s, "publish_delta_s": delta_s,
+                   "apply_delta_s": apply_s, "delta_changed": changed,
+                   "launches_serve_delta": serve_counts})
+    del replica, gen, resumed, staged
+    torch.cuda.empty_cache()
+    shutil.rmtree(pub, ignore_errors=True)
+    return result
+
+
+def lm_checkpoint_phase(card: str, seed: int, n_batches: int = 4):
+    """Phase 23: the LM at TRANSFORMER_BENCH (bf16 blocks), batch 16: 2
+    steps, ``CheckpointSaver.save(state_to_jax_host())``, ``load_latest``
+    into a fresh trainer (bit-exact), then one forward/backward and 2
+    steps on both within LM_PATH_TOL, K4-K6 4 times each a step."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.checkpoint.saver import CheckpointSaver
+    from elasticdl_tpu_torch.data.synthetic import synthetic_lm_arrays
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+    from elasticdl_tpu_torch.serving import convert
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    cfg, batch = LM_BENCH, LM_BATCH
+    zoo = resolve(LM_DEF)
+    tokens, nxt = synthetic_lm_arrays(batch * n_batches, cfg["seq_len"], cfg["vocab"], seed)
+    ones = np.ones((batch,), np.float32)
+    params = dict(vocab=cfg["vocab"], d_model=cfg["d_model"], num_heads=cfg["num_heads"],
+                  num_layers=cfg["num_layers"], max_len=cfg["seq_len"])
+
+    def trainer_for(trainer_seed):
+        return DataParallelTrainer(build_model(LM_DEF, params), zoo.loss,
+                                   zoo.optimizer(LM_LR), seed=trainer_seed)
+
+    saved = trainer_for(seed)
+    saved.ensure_initialized()
+    staged = [saved.stage_batch(tokens[i * batch:(i + 1) * batch],
+                                nxt[i * batch:(i + 1) * batch], ones) for i in range(n_batches)]
+    for i in range(2):
+        saved.train_step_staged(staged[i])
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_lm_ckpt_")
+    try:
+        tensors = list(saved.state.params.values()) + [
+            v for m in ("mu", "nu") for v in saved.state.opt_state[m].values()]
+        need = state_bytes(tensors)
+        require_free(workdir, need + need // 10, "phase 23's checkpoint")
+        saver = CheckpointSaver(workdir)
+        t0 = time.perf_counter()
+        saver.save(saved.state_to_jax_host(), saved.step)
+        save_s = time.perf_counter() - t0
+        written = dir_bytes(workdir)
+        t0 = time.perf_counter()
+        state, step = saver.load_latest()
+        resumed = trainer_for(seed + 1)
+        resumed.state = convert.dp_trainer_state_from_jax(state, resumed.model)
+        resumed.ensure_initialized()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del state
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    a, b = saved.state, resumed.state
+    differ = [] if a.step == b.step == step == 2 else ["step"]
+    differ += [k for k, v in a.params.items() if not bit_equal(v.detach(), b.params[k].detach())]
+    differ += [f"{m}/{k}" for m in ("mu", "nu") for k, v in a.opt_state[m].items()
+               if not bit_equal(v, b.opt_state[m][k])]
+    if not bit_equal(a.opt_state["count"], b.opt_state["count"]):
+        differ.append("count")
+    if differ:
+        fail(f"the resumed LM trainer differs from the saved one in {differ}")
+    log(f"LM checkpoint at step {step}: state.pkl of {written} bytes in {save_s!r} s, "
+        f"load_latest + restore {restore_s!r} s, bit-exact [{card}]")
+
+    loss_rtol, grad_rtol, param_max, update_rtol = LM_PATH_TOL
+    start = {k: p.detach().clone() for k, p in a.params.items()}
+    runs = {}
+    for name, trainer in (("saved", saved), ("resumed", resumed)):
+        grads = trainer.backward(trainer.forward(*staged[2]))
+        fa.reset_launch_counts()
+        losses = [float(trainer.train_step_staged(staged[2 + i])) for i in range(2)]
+        torch.cuda.synchronize()
+        runs[name] = (losses, grads, fa.launch_counts(),
+                      {k: p.detach().clone() for k, p in trainer.state.params.items()})
+        del grads
+    (a_losses, a_grads, _, a_params), (b_losses, b_grads, counts, b_params) = (
+        runs["saved"], runs["resumed"])
+    want = 2 * cfg["num_layers"]
+    if any(counts[name] != want for name in fa.KERNELS):
+        fail(f"2 resumed LM steps launched {counts} (want {want} of each)")
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(b_losses, a_losses))
+    grad_rel = max(rel_l2(b_grads[k], g) for k, g in a_grads.items())
+    worst = max(float((b_params[k] - p).abs().max()) for k, p in a_params.items())
+    diff_sq = sum(float(torch_norm(b_params[k] - p)) ** 2 for k, p in a_params.items())
+    moved_sq = sum(float(torch_norm(p - start[k])) ** 2 for k, p in a_params.items())
+    update_rel = (diff_sq / max(moved_sq, 1e-30)) ** 0.5
+    exact = b_losses == a_losses and all(bit_equal(b_params[k], p) for k, p in a_params.items())
+    summary = (f"losses {b_losses} vs {a_losses} (max rel {loss_rel!r}); gradients max rel L2 "
+               f"{grad_rel!r}; params max diff {worst!r}, updates rel L2 {update_rel!r}; "
+               f"bit-exact {exact}")
+    if not (loss_rel <= loss_rtol and grad_rel <= grad_rtol and worst <= param_max
+            and update_rel <= update_rtol):
+        fail(f"the resumed LM diverges from the saved one: {summary}")
+    log(f"LM resumed vs saved, 2 steps: {summary}; launches {counts} [{card}]")
+    del saved, resumed, staged, runs, a, b, start
+    torch.cuda.empty_cache()
+    return {"step": step, "save_s": save_s, "bytes_written": written, "restore_s": restore_s,
+            "losses_resumed": b_losses, "losses_saved": a_losses, "max_loss_rel": loss_rel,
+            "grad_rel_l2": grad_rel, "max_param_diff": worst, "update_rel_l2": update_rel,
+            "bit_exact_2_steps": exact, "launches_resumed_2_steps": counts}
+
+
 #: The build of each of K7-K9 at RING_BENCH (bf16, head_dim 128) and on
 #: the CP LM's path (head_dim 64); K8 and K9 with the path's bf16 dO (one
 #: part).
@@ -3091,18 +3495,21 @@ FLASH_LM_BUILDS = {
 }
 
 
-def flash_entries(attention, edges, train, card, resources=None):
+def flash_entries(attention, edges, train, card, resources=None, resumed=None):
     """The K4-K6 entries of the kernels line: numbers at the LM's shape
     (the first of ATTN_SHAPES), the other shapes beside them."""
     line = []
     for name in FLASH_REPLACES:
         main_shape = attention[0]["kernels"][name]
+        by_path = {"lm_train_20_steps": train["launches_step"][name],
+                   "lm_train_window_4_steps": train["launches_window"][name]}
+        if resumed is not None:
+            by_path["lm_resumed_2_steps"] = resumed["launches_resumed_2_steps"][name]
         line.append({
             "name": name, "ok": True, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES[name],
             "launches": train["launches_step"][name],
-            "launches_by_path": {"lm_train_20_steps": train["launches_step"][name],
-                                 "lm_train_window_4_steps": train["launches_window"][name]},
+            "launches_by_path": by_path,
             "max_abs_err": max(e["kernels"][name]["max_abs_err"] for e in attention),
             "edge_shapes_max_abs_err": edges[name],
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
@@ -3161,7 +3568,7 @@ def main() -> None:
     k3 = dedup_apply_phase(card, args.seed) if run(5) else None
     gather = block_gather_phase(card, args.seed) if run(17) else None
     sharded = sharded_kernel_phase(card, args.seed) if run(18) else None
-    launches = train = mesh_train = split_train = None
+    launches = train = mesh_train = split_train = ckpt = None
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if run(3, 4):
@@ -3172,10 +3579,13 @@ def main() -> None:
             mesh_train = mesh_training_phases(card, args.seed, workdir)
         if run(20):
             split_train = split_training_phase(card, args.seed, workdir)
+        if run(21, 22):
+            ckpt = checkpoint_phases(card, args.seed, workdir, split_train)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     attention, edges = attention_phase(card, args.seed) if run(10) else (None, None)
     lm = lm_training_phases(card, args.seed) if run(11, 12) else None
+    lm_ckpt = lm_checkpoint_phase(card, args.seed) if run(23) else None
     ring_kernels = ring_kernel_phase(card, args.seed) if run(13) else None
     ring_whole = ring_whole_phase(card, args.seed) if run(14) else None
     cp = cp_lm_phases(card, args.seed) if run(15, 16) else None
@@ -3185,7 +3595,8 @@ def main() -> None:
                         "ring_kernels": ring_kernels, "ring_whole": ring_whole,
                         "cp_lm_training": cp, "block_gather": gather,
                         "sharded_kernels": sharded, "mesh_training": mesh_train,
-                        "split_training": split_train, "card": card}))
+                        "split_training": split_train, "checkpoint": ckpt,
+                        "lm_checkpoint": lm_ckpt, "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -3193,7 +3604,8 @@ def main() -> None:
             fail(f"kernel {name} was never launched on the serving path")
     log(json.dumps({"training": train, "lm_training": lm, "cp_lm_training": cp,
                     "ring_whole": ring_whole, "sharded_kernels": sharded,
-                    "mesh_training": mesh_train, "split_training": split_train, "card": card}))
+                    "mesh_training": mesh_train, "split_training": split_train,
+                    "checkpoint": ckpt, "lm_checkpoint": lm_ckpt, "card": card}))
 
     by_path = {
         "fused_lookup_fm": {"serve_merged": launches["fused_lookup_fm"],
@@ -3203,12 +3615,17 @@ def main() -> None:
                             "serve_mesh": mesh_train["serve"]["launches"]["fused_lookup_fm"]},
         "fused_lookup": {"serve_split": launches["fused_lookup"],
                          "serve_split_mesh": mesh_train["serve_split"]["launches"]["fused_lookup"],
-                         "train_split_strict": split_train["launches_strict"]["fused_lookup"]},
+                         "train_split_strict": split_train["launches_strict"]["fused_lookup"],
+                         "train_split_resumed_10_steps": ckpt["launches_resumed"]["fused_lookup"],
+                         "serve_after_apply_delta_1_dispatch":
+                             ckpt["launches_serve_delta"]["fused_lookup"]},
         "fused_dedup_apply": {"train_strict": train["launches_strict"]["fused_dedup_apply"],
                               "train_window": train["launches_window"]["fused_dedup_apply"],
                               "train_mesh": mesh_train["launches"]["fused_dedup_apply"],
                               "train_split_strict":
-                                  split_train["launches_strict"]["fused_dedup_apply"]},
+                                  split_train["launches_strict"]["fused_dedup_apply"],
+                              "train_split_resumed_10_steps":
+                                  ckpt["launches_resumed"]["fused_dedup_apply"]},
     }
     on_mesh = {"fused_lookup_fm": sharded["fused_lookup_fm"], "fused_lookup":
                sharded["fused_lookup"], "fused_dedup_apply": sharded["fused_dedup_apply"]["adam"]}
@@ -3256,7 +3673,7 @@ def main() -> None:
         "sharded": on_mesh["fused_dedup_apply"],
         "card": card,
     })
-    line += flash_entries(attention, edges, lm, card, resources)
+    line += flash_entries(attention, edges, lm, card, resources, lm_ckpt)
     line += ring_entries(ring_kernels, ring_whole, cp, card, resources)
     line.append({
         "name": "block_gather", "ok": True, "route": "cuda", "source": K10_SOURCE,

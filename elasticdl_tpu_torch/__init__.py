@@ -15,8 +15,10 @@ replica ``serving.runtime``); training DeepFM in PS mode
 card (``parallel.dp_trainer`` and ``zoo.transformer_lm`` over
 ``ops.flash_attention``) and context-parallel over a ``parallel.mesh``;
 the sharded dispatch of the sparse ops over a mesh, which the PS trainer
-and serving take; and the block-gather probe ``ops.sparse_gather`` with
-its experiment script ``bench.exp_sparse_gather``.
+and serving take; the block-gather probe ``ops.sparse_gather`` with
+its experiment script ``bench.exp_sparse_gather``; and checkpoints in
+the JAX package's layout (``checkpoint``: plain, sharded and the delta
+chain, which the serving replica applies).
 """
 
 __version__ = "0.1.0"

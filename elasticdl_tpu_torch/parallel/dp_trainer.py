@@ -30,10 +30,18 @@ mesh) and ``dense_update``.  The JAX ``train_window`` is a ``lax.scan``
 over K steps in one program; here it is a Python loop over the staged
 batches.
 
+Checkpoints keep the JAX package's layout: ``state_to_jax_host`` is the
+JAX ``TrainState(step, params, opt_state, model_state)`` with numpy
+leaves and the optax chain, which ``checkpoint.CheckpointSaver.save``
+writes as a JAX worker's ``state.pkl`` (``load_latest``, then
+``serving.convert.dp_trainer_state_from_jax``, restores it); the sharded
+pair ``save_checkpoint`` / ``set_sharded_restore`` (JAX
+``dp_trainer.py:433-532``) writes every leaf replicated, as
+``dense|<path>`` in ``dense.pkl``'s ``leaves``.
+
 Not ported yet: ``dense_sharding="fsdp"`` raises
-``NotImplementedError`` (ROADMAP Queue 1 item 5); checkpoint
-save/restore is not ported; ``model_state`` collections are empty (the
-transformer has none).
+``NotImplementedError`` (ROADMAP Queue 1 item 5); ``model_state``
+collections are empty (the transformer has none).
 """
 
 from __future__ import annotations
@@ -157,6 +165,7 @@ class DataParallelTrainer:
         self._opt_state: Optional[dict] = None
         self._step = 0
         self._pending_restore: Optional[DPTrainState] = None
+        self._pending_sharded_restore = None  # (saver, step)
 
     # -- state ----------------------------------------------------------
 
@@ -201,14 +210,17 @@ class DataParallelTrainer:
         do not depend on it."""
         if self._opt_state is not None:
             return self.state
-        if self._pending_restore is None:
+        if self._pending_restore is None and self._pending_sharded_restore is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(self._seed)
             self._model.init_parameters(generator)
             if self._world:  # one seed gives one init; rank 0's is the state
                 self._reduce_flat(self._params.values(), broadcast=True)
         self._opt_state = self._tx.init(self._params)
-        if self._pending_restore is not None:
+        if self._pending_sharded_restore is not None:
+            self._pending_restore = None
+            self._restore_sharded()
+        elif self._pending_restore is not None:
             restore, self._pending_restore = self._pending_restore, None
             self.state = restore
         logger.info("Initialized model on %s: %d parameters [%s]", self.device,
@@ -384,6 +396,70 @@ class DataParallelTrainer:
 
         return DPTrainState(self._step, host(dict(self._params)), host(self._opt_state), {})
 
+    def state_to_jax_host(self):
+        """Host snapshot in the JAX layout: the JAX ``TrainState`` with
+        numpy leaves and the optax chain (``serving.convert.
+        jax_dp_trainer_state_from_port``), what ``CheckpointSaver.save``
+        writes for a JAX worker to restore."""
+        from elasticdl_tpu_torch.serving import convert
+
+        if self._opt_state is None:
+            return None
+        return convert.jax_dp_trainer_state_from_port(self.state, self._model, self._tx.name)
+
+    # -- sharded checkpoints (JAX dp_trainer.py:433-532) ----------------
+
+    def save_checkpoint(self, saver, step: int) -> None:
+        """Sharded checkpoint (``checkpoint.sharded.ShardedCheckpointSaver``)
+        with every leaf replicated: rank 0 writes ``{"step", "leaves":
+        {"dense|<path>": leaf}}``, the JAX trainer's leaf names; every
+        rank calls it (the save is collective)."""
+        if self._opt_state is None:
+            return
+        dense = None
+        if not self._world or self._mesh.rank == 0:
+            dense = {"step": int(self._step), "leaves": dict(_leaf_items(self.state_to_jax_host()))}
+        saver.save(step, dense, {})
+
+    def set_sharded_restore(self, saver, step: int) -> None:
+        """Restore ``step`` of ``saver`` at ``ensure_initialized``."""
+        self._pending_sharded_restore = (saver, step)
+        self._step = step
+
+    def _restore_sharded(self) -> None:
+        """Every leaf of this build from the checkpoint: from ``dense.pkl``,
+        or read whole from the shard files where the JAX trainer wrote it
+        sharded (FSDP); a missing leaf, or one of another shape or dtype,
+        raises."""
+        from elasticdl_tpu_torch.serving import convert
+
+        saver, step = self._pending_sharded_restore
+        self._pending_sharded_restore = None
+        arrays = saver.manifest(step)["arrays"]
+        dense = saver.load_dense(step)
+
+        def fetch(key, template):
+            if key in arrays:
+                leaf = saver.load_rows(step, key, 0, arrays[key]["shape"][0])
+            elif key in dense["leaves"]:
+                leaf = dense["leaves"][key]
+            else:
+                raise KeyError(f"Checkpoint at step {step} missing leaf {key} "
+                               "(model structure changed?)")
+            leaf = np.asarray(leaf)
+            if leaf.shape != template.shape or leaf.dtype != template.dtype:
+                raise ValueError(f"Checkpoint leaf {key} is {leaf.dtype}{list(leaf.shape)}, "
+                                 f"this build's {template.dtype}{list(template.shape)}")
+            return leaf
+
+        try:
+            restored = _map_leaves(self.state_to_jax_host(), fetch)
+        finally:
+            saver.release(step)
+        self.state = convert.dp_trainer_state_from_jax(restored, self._model)
+        self._step = int(dense["step"])
+        logger.info("Restored sharded checkpoint at step %d", self._step)
+
     def get_variables_numpy(self) -> Dict[str, np.ndarray]:
         """Flat ``{"params/<flax path>": array}`` in the JAX layout."""
         from elasticdl_tpu_torch.serving import convert
@@ -391,6 +467,29 @@ class DataParallelTrainer:
         if self._opt_state is None:
             return {}
         return convert.flat_jax_variables(self._model)
+
+
+def _leaf_items(tree):
+    """("dense|<path>", leaf) of every leaf of a JAX-layout state: the
+    JAX trainer's ``_leaf_key`` names, in ``jax.tree_util``'s order."""
+    items = []
+    _map_leaves(tree, lambda key, leaf: items.append((key, leaf)))
+    return items
+
+
+def _map_leaves(tree, fn, path=()):
+    """``tree`` with each leaf replaced by ``fn("dense|<path>", leaf)``,
+    each path entry as ``jax.tree_util`` prints it: a NamedTuple field
+    ``.name``, a tuple index ``[i]``, a dict key as it is (dicts in
+    sorted key order)."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_leaves(getattr(tree, f), fn, path + ("." + f,))
+                            for f in tree._fields))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_leaves(c, fn, path + (f"[{i}]",)) for i, c in enumerate(tree))
+    if isinstance(tree, dict):
+        return {k: _map_leaves(tree[k], fn, path + (str(k),)) for k in sorted(tree)}
+    return fn("dense|" + "/".join(path), tree)
 
 
 def _seq_len(features) -> int:

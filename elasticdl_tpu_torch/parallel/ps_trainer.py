@@ -44,11 +44,22 @@ A step is four parts, each its own method so a caller can time them
 a capture, the mask-weighted mean of the per-example loss), ``backward``
 (dense and sparse gradients), ``dense_update`` and ``sparse_apply``.
 
+Sharded checkpoints (``save_checkpoint``, ``set_sharded_restore``,
+JAX ``ps_trainer.py:846-1029``) keep the JAX package's layout
+(``checkpoint/sharded.py``), so either trainer restores what the other
+wrote: arrays ``table|<key>`` and ``slot|<key>|<name>`` in rows of
+storage blocks (``PackedSpec.packed_shape``; the port's row-form table
+is the same bytes), and ``dense.pkl`` with ``step``, the flax-layout
+``params`` (table placeholders included), the optax chain
+``opt_state``, an empty ``model_state`` and the ``scalar_slots`` (adam's
+``t_global``).  Each process writes and reads only its own block
+interval; a restore copies into the trainer's own tensors in chunks.
+
 Not ported: the JAX xla engine's whole-mesh table placement (the port
 has one engine, the fused kernels'); several real cards driven from one
-process (``resolve_mesh`` raises); checkpoint save/restore;
-``model_state`` collections (DeepFM has none).  ``sparse_kernel`` is
-accepted and selects nothing: on the card every sparse op is its kernel.
+process (``resolve_mesh`` raises); ``model_state`` collections (DeepFM
+has none).  ``sparse_kernel`` is accepted and selects nothing: on the
+card every sparse op is its kernel.
 """
 
 from __future__ import annotations
@@ -186,6 +197,7 @@ class ShardedEmbeddingTrainer:
         self._step = 0
         self._pending_oov: List[torch.Tensor] = []
         self._pending_restore: Optional[PSTrainState] = None
+        self._pending_sharded_restore = None  # (saver, step)
 
     # -- public surface -------------------------------------------------
 
@@ -322,7 +334,7 @@ class ShardedEmbeddingTrainer:
         on it."""
         if self._opt_state is not None:
             return self.state
-        if self._pending_restore is None:
+        if self._pending_restore is None and self._pending_sharded_restore is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(self._seed)
             self._model.init_parameters(generator)
@@ -335,7 +347,10 @@ class ShardedEmbeddingTrainer:
             for key, layer in self._layers.items()
         }
         self._opt_state = self._tx.init(self._params)
-        if self._pending_restore is not None:
+        if self._pending_sharded_restore is not None:
+            self._pending_restore = None
+            self._restore_sharded()
+        elif self._pending_restore is not None:
             restore, self._pending_restore = self._pending_restore, None
             self.state = restore
         total_rows = sum(layer.spec.vocab_size for layer in self._layers.values())
@@ -541,6 +556,124 @@ class ShardedEmbeddingTrainer:
             return axis_all_gather(self._mesh, DATA_AXIS, out)[:n].cpu().numpy()
         finally:
             self._model.train()
+
+    # -- sharded checkpoints (JAX ps_trainer.py:846-1029) ---------------
+
+    def _local_blocks(self, key: str) -> Tuple[int, int]:
+        """This process's interval of a table's storage blocks."""
+        spec = self._layers[key].spec
+        rows = axis_rows(spec.vocab_padded, self._mesh, self._placement[key])
+        return rows.start // spec.rows_per_block, rows.stop // spec.rows_per_block
+
+    def _checkpoint_arrays(self) -> Dict[str, Tuple[str, torch.Tensor]]:
+        """Checkpoint name -> (table key, this process's tensor) of every
+        table and table-shaped slot; scalar slots ride the dense pickle."""
+        out = {f"table|{key}": (key, layer.embedding) for key, layer in self._layers.items()}
+        for key, group in self._slots.items():
+            for name, value in group.items():
+                if value.dim():
+                    out[f"slot|{key}|{name}"] = (key, value)
+        return out
+
+    def save_checkpoint(self, saver, step: int) -> None:
+        """COLLECTIVE sharded checkpoint (``checkpoint.sharded.
+        ShardedCheckpointSaver``): every process calls it and writes only
+        its own block interval of each table and slot (on a process mesh
+        the ranks of data index 0, a replicated table rank 0 alone); rank
+        0 writes the dense state in the JAX layout."""
+        from elasticdl_tpu_torch.checkpoint.sharded import ShardedArray
+        from elasticdl_tpu_torch.serving import convert
+
+        if self._opt_state is None:
+            return
+        rank0 = not self._world or self._mesh.rank == 0
+        dense = None
+        if rank0:
+            scalar = {key: {name: v for name, v in group.items() if not v.dim()}
+                      for key, group in self._slots.items()}
+            jax_state = convert.jax_trainer_state_from_port(
+                PSTrainState(self._step, self._params, self._opt_state, {}, scalar),
+                self._model, self._tx.name)
+            dense = {"step": jax_state.step, "params": jax_state.params,
+                     "opt_state": jax_state.opt_state, "model_state": {},
+                     "scalar_slots": jax_state.slots}
+        writes = not self._world or self._mesh.data_index == 0
+        sharded = {}
+        for name, (key, value) in self._checkpoint_arrays().items():
+            spec = self._layers[key].spec
+            lo, hi = self._local_blocks(key)
+            parts = [(lo, hi, value.view(hi - lo, spec.block_width))] if writes else []
+            sharded[name] = ShardedArray(spec.packed_shape, "float32", parts)
+        saver.save(step, dense, sharded)
+
+    def set_sharded_restore(self, saver, step: int) -> None:
+        """Restore ``step`` of ``saver`` at ``ensure_initialized``, once
+        the tables and slots exist."""
+        self._pending_sharded_restore = (saver, step)
+        self._step = step
+
+    @torch.no_grad()
+    def _restore_sharded(self) -> None:
+        """Copy the checkpoint into the trainer's own tensors: the dense
+        state from the pickle; each table and slot, this process's block
+        interval only, in chunks of ``convert.CHUNK_ROWS`` rows."""
+        from elasticdl_tpu_torch.serving import convert
+
+        saver, step = self._pending_sharded_restore
+        self._pending_sharded_restore = None
+        arrays = saver.manifest(step).get("arrays", {})
+        have = {name[len("table|"):] for name in arrays if name.startswith("table|")}
+        if have != set(self._layers):
+            raise ValueError(
+                f"Checkpoint at step {step} holds embedding tables {sorted(have)} but this "
+                f"build expects {sorted(self._layers)} — the model's table layout changed "
+                "between save and restore (e.g. DeepFM's per-mode layout splits/merges tables "
+                "when --sparse_apply_every crosses the strict/windowed boundary at >10M rows). "
+                "Restore with the same sparse_apply_every, or pin the layout with "
+                "--model_params split_tables=true|false"
+            )
+        dense = saver.load_dense(step)
+        scalar_slots = dense.get("scalar_slots", {})
+        for key, group in self._slots.items():
+            for name, value in group.items():
+                if not value.dim() and name not in scalar_slots.get(key, {}):
+                    raise ValueError(
+                        f"Checkpoint at step {step} has no scalar slot {key}/{name} — it was "
+                        "written by a build with a different optimizer configuration (e.g. "
+                        "adam bias_correction='per_row' vs 'global'); restore with the "
+                        "matching configuration"
+                    )
+        targets = self._checkpoint_arrays()
+        for name, (key, value) in targets.items():
+            want = (list(self._layers[key].spec.packed_shape), "float32")
+            meta = arrays.get(name)
+            got = None if meta is None else (list(meta["shape"]), meta["dtype"])
+            if got != want:
+                raise ValueError(
+                    f"Checkpoint slot/table {name} is {got} but this build expects {want} — "
+                    "slot layouts or the vocabulary changed; re-train or migrate the checkpoint"
+                )
+        copy_tree(self._params, convert._dense_from_jax(dense["params"], self._model))
+        copy_tree(self._opt_state, convert.port_opt_state(dense["opt_state"], self._model))
+        for key, group in self._slots.items():
+            for name, value in group.items():
+                if not value.dim():
+                    value.fill_(float(np.asarray(scalar_slots[key][name], np.float32)))
+        try:
+            for name, (key, value) in targets.items():
+                spec = self._layers[key].spec
+                lo, hi = self._local_blocks(key)
+                blocks = value.view(hi - lo, spec.block_width)
+                chunk = max(1, convert.CHUNK_ROWS // spec.rows_per_block)
+                for start in range(lo, hi, chunk):
+                    stop = min(hi, start + chunk)
+                    rows = np.array(saver.load_rows(step, name, start, stop))  # writable copy
+                    blocks[start - lo:stop - lo].copy_(torch.from_numpy(rows))
+        finally:
+            saver.release(step)  # the shard files close, the restore done or failed
+        self._step = int(np.asarray(dense["step"]))
+        logger.info("Restored sharded checkpoint at step %d (%d tables)", self._step,
+                    len(self._layers))
 
     def jax_variables(self):
         """The weights in the JAX layout with whole tables, as

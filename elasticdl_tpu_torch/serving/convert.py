@@ -24,7 +24,12 @@ weights in the JAX layout for export, and ``trainer_state_from_jax``
 carries a whole JAX PS trainer state across (dense params, tables,
 sparse slots, optax Adam moments), and ``dp_trainer_state_from_jax`` a
 JAX ``DataParallelTrainer`` state (params, optax AdamW), so both trainers
-can start from the same bits.
+can start from the same bits.  Their inverses,
+``jax_trainer_state_from_port`` and ``jax_dp_trainer_state_from_port``,
+give the port's states in the JAX layout with numpy leaves, the optax
+chain rebuilt from the port's ``{"count", "mu", "nu"}``
+(``jax_opt_state``): the trees the checkpoints write
+(``checkpoint/``), which the JAX package restores.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from elasticdl_tpu_torch.checkpoint import _pickle
 from elasticdl_tpu_torch.layers.embedding import Embedding
 from elasticdl_tpu_torch.parallel.packed import as_rows
 from elasticdl_tpu_torch.zoo.deepfm import DenseGeneral
@@ -159,20 +165,14 @@ def jax_variables_from_port(model: nn.Module, gather=None):
     tables are split over a process mesh passes it); by default the
     table as it is."""
     state = model.state_dict()
-    variables: Dict = {}
     tables = {}
     for jax_key, port_key, kind, module in _targets(model):
-        path = jax_key.split("/")
-        value = state[port_key].detach()
         if kind == "table":
-            key = "/".join(path[1:])
+            key = jax_key[len("params/"):]
+            value = state[port_key].detach()
             rows = gather(key, value) if gather is not None else value.cpu().numpy()
             tables[key] = (module.spec, rows)
-            continue
-        if kind == "dense_kernel":
-            value = value.T
-        set_in_tree(variables, path, value.cpu().numpy().copy())
-    return variables, tables
+    return {"params": _dense_to_jax(state, model)}, tables
 
 
 def flat_jax_variables(model: nn.Module, gather=None) -> Dict[str, np.ndarray]:
@@ -200,6 +200,73 @@ def _dense_from_jax(tree: Mapping, model: nn.Module) -> Dict[str, np.ndarray]:
     return out
 
 
+def _host(value) -> np.ndarray:
+    """A tensor or array as a C-contiguous numpy copy."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    return np.array(value, order="C")
+
+
+def _dense_to_jax(values: Mapping, model: nn.Module, placeholders: bool = False) -> Dict:
+    """The inverse of ``_dense_from_jax``: ``{port parameter name:
+    value}`` -> the params-shaped JAX tree with numpy leaves (Dense
+    kernels back to ``[in, out]``).  ``placeholders``: each table's leaf
+    is the 0-d f32 zero the JAX PS trainer keeps in its dense params,
+    else tables are left out."""
+    tree: Dict = {}
+    for jax_key, port_key, kind, _ in _targets(model):
+        path = jax_key.split("/")[1:]
+        if kind == "table":
+            if placeholders:
+                set_in_tree(tree, path, np.zeros((), np.float32))
+            continue
+        value = values[port_key]
+        if kind == "dense_kernel":
+            value = value.T
+        set_in_tree(tree, path, _host(value))
+    return tree
+
+
+def jax_opt_state(optimizer: str, opt_state: Mapping, model: nn.Module,
+                  placeholders: bool = False):
+    """The port's dense optimizer state (``parallel/optim.py``, by the
+    optimizer's ``name``) -> the optax chain state the zoo's optimizer of
+    that name carries: ``adam`` -> ``(ScaleByAdamState(count, mu, nu),
+    EmptyState())``, ``adamw`` one ``EmptyState()`` more (its decay and
+    learning-rate scale), ``sgd`` -> ``(EmptyState(), EmptyState())``.
+    ``placeholders`` as in ``_dense_to_jax`` (the PS trainer's)."""
+    if optimizer == "sgd":
+        return (_pickle.EmptyState(), _pickle.EmptyState())
+    if optimizer not in ("adam", "adamw"):
+        raise ValueError(f"no optax chain known for the dense optimizer {optimizer!r}")
+    adam = _pickle.ScaleByAdamState(
+        count=np.asarray(_host(opt_state["count"]), np.int32),
+        mu=_dense_to_jax(opt_state["mu"], model, placeholders),
+        nu=_dense_to_jax(opt_state["nu"], model, placeholders),
+    )
+    empties = 1 if optimizer == "adam" else 2
+    return (adam,) + (_pickle.EmptyState(),) * empties
+
+
+def port_opt_state(opt_state, model: nn.Module) -> Dict:
+    """An optax chain state -> the port's dense optimizer state: optax
+    Adam's ``{"count", "mu", "nu"}``, or ``{}`` (a chain without Adam
+    carries nothing: sgd has none)."""
+    adam = _optax_adam_state(opt_state)
+    if adam is None:
+        return {}
+    return {
+        "count": np.asarray(adam.count, np.int32),
+        "mu": _dense_from_jax(adam.mu, model),
+        "nu": _dense_from_jax(adam.nu, model),
+    }
+
+
+def _table_specs(model: nn.Module):
+    return {jax_key[len("params/"):]: module.spec
+            for jax_key, _, kind, module in _targets(model) if kind == "table"}
+
+
 def _optax_adam_state(opt_state):
     """The ``ScaleByAdamState`` inside an optax chain's state, or None."""
     if all(hasattr(opt_state, name) for name in ("count", "mu", "nu")):
@@ -223,18 +290,7 @@ def trainer_state_from_jax(state, model: nn.Module):
     sgd has none)."""
     from elasticdl_tpu_torch.parallel.ps_trainer import PSTrainState
 
-    specs = {
-        jax_key[len("params/"):]: module.spec
-        for jax_key, _, kind, module in _targets(model) if kind == "table"
-    }
-    adam = _optax_adam_state(state.opt_state)
-    opt_state = {}
-    if adam is not None:
-        opt_state = {
-            "count": np.asarray(adam.count, np.int32),
-            "mu": _dense_from_jax(adam.mu, model),
-            "nu": _dense_from_jax(adam.nu, model),
-        }
+    specs = _table_specs(model)
     if set(state.tables) != set(specs):
         raise KeyError(f"JAX tables {sorted(state.tables)} != the port's {sorted(specs)}")
     tables = {key: as_rows(specs[key], np.asarray(arr)) for key, arr in state.tables.items()}
@@ -248,9 +304,35 @@ def trainer_state_from_jax(state, model: nn.Module):
     return PSTrainState(
         step=int(np.asarray(state.step)),
         params=_dense_from_jax(state.params, model),
-        opt_state=opt_state,
+        opt_state=port_opt_state(state.opt_state, model),
         tables=tables,
         slots=slots,
+    )
+
+
+def jax_trainer_state_from_port(state, model: nn.Module, optimizer: str):
+    """The inverse of ``trainer_state_from_jax``: the port's
+    ``PSTrainState`` (tensors or numpy, whole tables) -> the JAX
+    ``PSTrainState`` with numpy leaves: dense params with the table
+    placeholders, the optax chain of the dense ``optimizer`` (its name),
+    an empty ``model_state``, tables and table-shaped slots packed
+    ``[num_blocks, block_width]``, scalar slots as 0-d f32."""
+    specs = _table_specs(model)
+
+    def packed(key, value):
+        return _host(value).reshape(specs[key].packed_shape)
+
+    return _pickle.PSTrainState(
+        step=np.asarray(state.step, np.int32),
+        params=_dense_to_jax(state.params, model, placeholders=True),
+        opt_state=jax_opt_state(optimizer, state.opt_state, model, placeholders=True),
+        model_state={},
+        tables={key: packed(key, value) for key, value in state.tables.items()},
+        slots={
+            key: {name: packed(key, v) if np.ndim(v) else np.asarray(_host(v), np.float32)
+                  for name, v in group.items()}
+            for key, group in state.slots.items()
+        },
     )
 
 
@@ -280,6 +362,19 @@ def dp_trainer_state_from_jax(state, model: nn.Module):
             "mu": _dense_from_jax(adam.mu, model),
             "nu": _dense_from_jax(adam.nu, model),
         },
+        model_state={},
+    )
+
+
+def jax_dp_trainer_state_from_port(state, model: nn.Module, optimizer: str):
+    """The inverse of ``dp_trainer_state_from_jax``: the port's
+    ``DPTrainState`` -> the JAX ``TrainState(step, params, opt_state,
+    model_state)`` with numpy leaves and the optax chain of the dense
+    ``optimizer`` (its name): what a JAX ``state.pkl`` holds."""
+    return _pickle.TrainState(
+        step=np.asarray(state.step, np.int32),
+        params=_dense_to_jax(state.params, model),
+        opt_state=jax_opt_state(optimizer, state.opt_state, model),
         model_state={},
     )
 

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from elasticdl_tpu_torch.checkpoint import _pickle
 from elasticdl_tpu_torch.common.device import DeviceLike, resolve_device
 from elasticdl_tpu_torch.common.params import parse_dict_params
 from elasticdl_tpu_torch.ops import sparse_embedding as ske
@@ -60,32 +61,10 @@ _VARIABLES = "variables.pkl"
 _TABLES_DIR = "tables"
 _TABLE_REF = "__table__"
 
-_ALLOWED_GLOBALS = frozenset(
-    {
-        ("numpy", "ndarray"),
-        ("numpy", "dtype"),
-        ("numpy._core.multiarray", "_reconstruct"),
-        ("numpy._core.multiarray", "scalar"),
-        ("numpy.core.multiarray", "_reconstruct"),
-        ("numpy.core.multiarray", "scalar"),
-    }
-)
-
-
-class _ArtifactUnpickler(pickle.Unpickler):
-    def find_class(self, module: str, name: str):
-        if (module, name) not in _ALLOWED_GLOBALS:
-            raise pickle.UnpicklingError(
-                f"artifact variables name {module}.{name}; only numpy arrays "
-                f"and containers of them may appear in {_VARIABLES}"
-            )
-        return super().find_class(module, name)
-
-
 def read_variables(path: str):
     """Unpickle an artifact's ``variables.pkl`` with numpy-only globals."""
     with open(path, "rb") as f:
-        return _ArtifactUnpickler(f).load()
+        return _pickle.load(f, jax_names=False, what=f"artifact variables {_VARIABLES}")
 
 
 def _resolve_refs(tree, model_dir: str):

@@ -23,23 +23,39 @@ owns the device side of one replica:
   failed build keeps the old generation serving and re-raises.  The new
   generation is loaded over the same mesh.
 
-Not ported yet (ROADMAP): delta apply and the canary's
-build/commit split, several real cards driven from one process, journal
-events.
+- **Delta apply.**  ``build_delta_generation(delta_dir)`` builds, and
+  ``commit_generation`` serves, the generation a published delta
+  (``checkpoint/delta.py``) makes of the current one: the delta's
+  integrity is checked (a corrupt delta is quarantined and raises) and
+  its base step must be the served step; each table is a clone of the
+  current one with the changed storage blocks written in
+  (``index_copy_`` on the block view; on a process mesh, the blocks of
+  this rank's rows), the dense params are the delta's, and the module is
+  a copy of the current one that shares nothing with it but the mesh.
+  The serving pointer moves only at ``commit_generation``, through the
+  swap ``reload`` uses; on failure the old generation keeps serving and
+  the error is re-raised.  ``apply_delta`` is both in one call.
+
+Not ported yet (ROADMAP): several real cards driven from one process;
+journal events and the ``serving.delta_apply`` fault site.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import threading
 import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 from elasticdl_tpu_torch.common.device import DeviceLike, resolve_device
 from elasticdl_tpu_torch.data.pipeline import pad_features
 from elasticdl_tpu_torch.parallel.mesh import resolve_mesh
+from elasticdl_tpu_torch.parallel.sharding import axis_rows
+from elasticdl_tpu_torch.serving import convert
 from elasticdl_tpu_torch.serving.export import ServingModel, load_for_serving
 
 logger = logging.getLogger("elasticdl_tpu_torch.serving.runtime")
@@ -173,6 +189,9 @@ class ServingReplica:
                 model_dir, old_gen.gen_id, old_gen.step,
             )
             raise
+        return self._swap(new_gen, "full")
+
+    def _swap(self, new_gen: Generation, kind: str) -> Generation:
         with self._lock:
             old_gen = self._generation
             self._generation = new_gen
@@ -184,11 +203,96 @@ class ServingReplica:
                 "%.1fs drain", old_gen.gen_id, leftover, self._drain_timeout_s,
             )
         logger.info(
-            "Hot-swapped generation %d (step %d) -> %d (step %d); drained %d "
-            "in-flight dispatch(es)", old_gen.gen_id, old_gen.step,
+            "Hot-swapped (%s) generation %d (step %d) -> %d (step %d); drained %d "
+            "in-flight dispatch(es)", kind, old_gen.gen_id, old_gen.step,
             new_gen.gen_id, new_gen.step, inflight_at_swap,
         )
         return new_gen
+
+    # -- delta apply -----------------------------------------------------
+
+    def build_delta_generation(self, delta_dir: str) -> Generation:
+        """Build (but do not serve) the generation ``delta_dir`` makes of
+        the current one; ``commit_generation`` serves it.  An integrity
+        failure (the delta is quarantined), a chain gap (the delta's base
+        step is not the served step) or any other error leaves the old
+        generation serving and re-raises."""
+        from elasticdl_tpu_torch.checkpoint import delta as deltas
+        from elasticdl_tpu_torch.checkpoint.saver import verify_integrity
+
+        old_gen = self.generation
+        try:
+            reason = verify_integrity(delta_dir)
+            if reason is not None:
+                deltas.quarantine_artifact(delta_dir, reason)
+                raise ValueError(f"corrupt delta {delta_dir}: {reason}")
+            loaded = deltas.load_delta(delta_dir)
+            manifest = loaded["manifest"]
+            if int(manifest["base_step"]) != old_gen.step:
+                raise ValueError(
+                    f"delta {delta_dir} chains from step {manifest['base_step']} but "
+                    f"generation {old_gen.gen_id} serves step {old_gen.step}"
+                )
+            served = self._patched(old_gen.served, loaded)
+            served.signature["step"] = int(manifest["step"])
+            served.signature["event_time"] = float(manifest.get("event_time", 0.0))
+            with self._lock:
+                if self._generation is not old_gen:
+                    raise RuntimeError("generation changed under delta apply; re-resolve the "
+                                       "chain")
+                gen_id = self._next_gen_id
+                self._next_gen_id += 1
+        except Exception:
+            logger.exception("Delta apply from %s failed; generation %d (step %d) keeps "
+                             "serving", delta_dir, old_gen.gen_id, old_gen.step)
+            raise
+        return Generation(gen_id, delta_dir, served)
+
+    @torch.no_grad()
+    def _patched(self, old: ServingModel, loaded: dict) -> ServingModel:
+        """A copy of ``old`` with the delta's blocks written into clones of
+        its tables and the delta's dense params."""
+        modules = {key[len("params/"):]: module
+                   for key, _, kind, module in convert._targets(old.model) if kind == "table"}
+        if set(loaded["tables"]) != set(modules):
+            raise ValueError(f"delta patches tables {sorted(loaded['tables'])}, the generation "
+                             f"serves {sorted(modules)}")
+        memo = {}
+        for key, (rows, vals, meta) in loaded["tables"].items():
+            spec = modules[key].spec
+            if list(meta["packed_shape"]) != list(spec.packed_shape):
+                raise ValueError(f"delta table {key} is {meta['packed_shape']}, the "
+                                 f"generation's {list(spec.packed_shape)}")
+            base = modules[key].embedding
+            local = axis_rows(spec.vocab_padded, old.mesh, old.placements.get(key))
+            lo, hi = local.start // spec.rows_per_block, local.stop // spec.rows_per_block
+            mine = (rows >= lo) & (rows < hi)
+            table = base.clone()
+            table.view(hi - lo, spec.block_width).index_copy_(
+                0, torch.from_numpy(rows[mine] - lo).to(table.device),
+                torch.from_numpy(np.ascontiguousarray(vals[mine])).to(table.device))
+            memo[id(base)] = table
+        for module in old.model.modules():  # the copy shares the mesh
+            if getattr(module, "mesh", None) is not None:
+                memo[id(module.mesh)] = module.mesh
+        model = copy.deepcopy(old.model, memo)
+        targets = model.state_dict(keep_vars=True)
+        for key, value in convert._dense_from_jax(loaded["dense"]["params"], model).items():
+            if tuple(value.shape) != tuple(targets[key].shape):
+                raise ValueError(f"delta param {key} is {tuple(value.shape)}, the "
+                                 f"generation's {tuple(targets[key].shape)}")
+            targets[key].data.copy_(torch.from_numpy(np.array(value, np.float32)))
+        return ServingModel(model, dict(old.signature), old.device, old.mesh,
+                            dict(old.placements))
+
+    def commit_generation(self, new_gen: Generation) -> Generation:
+        """Serve a generation from ``build_delta_generation``: the swap
+        and drain of ``reload``."""
+        return self._swap(new_gen, "delta")
+
+    def apply_delta(self, delta_dir: str) -> Generation:
+        """``build_delta_generation`` then ``commit_generation``."""
+        return self.commit_generation(self.build_delta_generation(delta_dir))
 
     # -- readouts --------------------------------------------------------
 

@@ -61,6 +61,11 @@ def test_port_sources_import_nothing_forbidden():
             "elasticdl_tpu_torch.parallel.sharding",
             "elasticdl_tpu_torch.ops.sparse_gather",
             "elasticdl_tpu_torch.bench.exp_sparse_gather"} <= names
+    # So are the checkpoint modules, which write the JAX package's names.
+    assert {"elasticdl_tpu_torch.checkpoint._pickle",
+            "elasticdl_tpu_torch.checkpoint.saver",
+            "elasticdl_tpu_torch.checkpoint.sharded",
+            "elasticdl_tpu_torch.checkpoint.delta"} <= names
     assert not _forbidden("torch.distributed")
 
 
@@ -84,6 +89,18 @@ with tempfile.TemporaryDirectory() as d:
     out = replica.execute({"dense": np.ones((2, 13), np.float32),
                            "cat": np.ones((2, 26), np.int32)}, 2)
     assert out.shape == (2,) and np.isfinite(out).all()
+# Writing pickles that name optax's and the JAX package's classes, and
+# reading them back, imports neither.
+from elasticdl_tpu_torch.checkpoint.saver import CheckpointSaver
+from elasticdl_tpu_torch.parallel import optim
+model = build_model("deepfm.deepfm_functional_api", params, device="cpu")
+chain = convert.jax_opt_state(
+    "adamw", optim.adamw(1e-3).init(dict(model.named_parameters())), model)
+with tempfile.TemporaryDirectory() as d:
+    saver = CheckpointSaver(d)
+    saver.save({"opt_state": chain}, 1)
+    state, step = saver.load_latest()
+    assert step == 1 and type(state["opt_state"][0]).__name__ == "ScaleByAdamState"
 forbidden = sys.argv[2].split(",")
 loaded = [m for m in sys.modules
           if any(m == f or m.startswith(f + ".") for f in forbidden)]
