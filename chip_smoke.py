@@ -191,6 +191,39 @@ JAX package's on-disk layout), on the paths of K2, K3 and K4-K6:
     forward/backward and 2 steps on both within LM_PATH_TOL, K4-K6 4
     times each a step.
 
+The continuous train -> serve loop (``serving/continuous.py``,
+``serving/replica_main.py``), at phase 20's configuration, nothing cut
+(phase 22's resumed trainer and replica when they ran):
+
+24. In process: a ``DeltaExporter`` publishes a full, then deltas of 2
+    steps each (event time = the step); a ``ServingReplica`` on the card
+    is moved only by ``DeltaWatcher.poll_once()``: the first poll reloads
+    the full, then one applied link per poll for 3 links, the held-out
+    logits within LOGIT_RTOL/LOGIT_ATOL of ``eval_step`` after each, 2 K2
+    a dispatch; the fault run (``serving.delta_apply:error=injected@2``):
+    link 2 rolls back, the same generation serves the same bits, the next
+    poll applies it; the canary gate (``CanaryGate`` over 256 labeled
+    held-out rows): the delta of the trainer with its output layer
+    (``Dense_2``) negated is held with the pointer unmoved, the healthy
+    delta republished at that step passes (16 K2 in the gate's shadow
+    runs); the journal's ``model_swap`` and ``quality_gate`` events; the
+    seconds of each ``poll_once``, publish, ``build_delta_generation``,
+    ``shadow_execute`` and ``commit_generation``; then a compaction.
+25. ``python -m elasticdl_tpu_torch.serving.replica_main`` on the card
+    from the compacted full, ``--pub_dir`` polled every 0.5 s,
+    ``ELASTICDL_FAULTS=serving.delta_apply:error=injected@2``: once it is
+    in ``live_replicas``, 8 closed-loop ``PredictClient``s send 8-row
+    requests while 3 deltas are published; after each, ``/stats`` reaches
+    its step and the held-out logits from ``/predict`` agree with
+    ``eval_step``; SIGTERM, exit 0 within 30 s.  Every request answered,
+    the last ``serving_telemetry`` with 0 errors, 0 shed and 0 dropped,
+    ``model_swap`` applied per link with one rolled_back, no JAX or gRPC
+    module loaded, 2 K2 launches per dispatch (the process's counts on
+    ``/stats``); requests/s and p50/p99 over the run and within 1 s of
+    each swap, publish -> served lag per link, seconds to the first
+    answer.  A replica process that dies fails the phase with its log's
+    tail.
+
 Before each of phases 21-23 the free space of its directory is checked
 (a failure names the bytes needed); each deletes its directories.
 
@@ -198,7 +231,9 @@ Launch counts are zeroed just before each serving and training phase and
 read just after it; a kernel of the path that did not launch there (K1
 and K3 once per strict training step, K3 twice in the window; K2 and K3
 twice per split-layout step, the resumed trainer's too, K2 twice per
-dispatch after ``apply_delta``; K4, K5 and K6 once per layer per LM
+dispatch after ``apply_delta`` and after each link of phase 24, in the
+gate's shadow runs and in the replica process of phase 25 (its own
+counts, on ``/stats``); K4, K5 and K6 once per layer per LM
 step, the resumed LM's too; K7, K8 and K9 once per layer per ring step
 of a CP LM step, and K4-K6 never there; over the mesh, K1 and K3 once
 per shard; K10 in the experiment script's default mode) fails the run.
@@ -207,7 +242,8 @@ last line ``{"ok": true, "device": {...}}``.  It exits non-zero, with no
 result, when no CUDA device is available or the port is not beside it.
 ``--phases 1,10`` runs only the named phases (for a short check of one
 kernel; such a run prints no result line; phase 19 reuses phase 4's
-artifact when both run; phases 21 and 22 run together).
+artifact when both run; phases 21 and 22 run together, and so do 24 and
+25).
 """
 
 from __future__ import annotations
@@ -218,6 +254,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -3106,14 +3143,15 @@ def ps_states_bit_equal(a, b) -> list:
 
 
 def checkpoint_phases(card: str, seed: int, workdir: str, split_train=None,
-                      n_batches: int = 12):
+                      n_batches: int = 12, keep: bool = False):
     """Phases 21-22 at phase 20's configuration (26M rows, split layout,
     batch 8192, strict, global-bias sparse Adam): train 5 steps, a sharded
     checkpoint, a resume into a trainer of another seed (bit-exact) and
     into one over the in-process (1, 4) mesh, 3 steps on both one-card
     trainers (phase 7's tolerances), 10 timed steps of each in turns; then the
     delta chain from the resumed trainer, served by a replica that
-    applies it."""
+    applies it.  With ``keep``, returns ``(result, loop)``: the resumed
+    trainer, its data and the replica, for phases 24-25."""
     import numpy as np
     import torch
 
@@ -3136,6 +3174,7 @@ def checkpoint_phases(card: str, seed: int, workdir: str, split_train=None,
                 labels[i * batch:(i + 1) * batch], np.ones((batch,), np.float32))
                for i in range(n_batches)]
     held_out = {k: v[n_batches * batch:] for k, v in feats.items()}
+    held_labels = labels[n_batches * batch:]
 
     def trainer_for(trainer_seed, mesh=None):
         params = model_params if mesh is None else dict(model_params, mesh=mesh)
@@ -3318,9 +3357,11 @@ def checkpoint_phases(card: str, seed: int, workdir: str, split_train=None,
     result.update({"publish_full_s": full_s, "publish_delta_s": delta_s,
                    "apply_delta_s": apply_s, "delta_changed": changed,
                    "launches_serve_delta": serve_counts})
+    shutil.rmtree(pub, ignore_errors=True)
+    if keep:
+        return result, LoopTrainer(resumed, staged, held_out, held_labels, 30, replica)
     del replica, gen, resumed, staged
     torch.cuda.empty_cache()
-    shutil.rmtree(pub, ignore_errors=True)
     return result
 
 
@@ -3425,6 +3466,452 @@ def lm_checkpoint_phase(card: str, seed: int, n_batches: int = 4):
             "losses_resumed": b_losses, "losses_saved": a_losses, "max_loss_rel": loss_rel,
             "grad_rel_l2": grad_rel, "max_param_diff": worst, "update_rel_l2": update_rel,
             "bit_exact_2_steps": exact, "launches_resumed_2_steps": counts}
+
+
+# ----------------------------------------------------------------------
+# phases 24-25: the continuous delta loop, in process and as a process
+# ----------------------------------------------------------------------
+
+
+class LoopTrainer:
+    """Phase 20's trainer with its staged batches, 256 labeled held-out
+    rows and (when phase 22 made one) a replica: what phases 24-25 train,
+    publish and check against."""
+
+    def __init__(self, trainer, staged, held_out, held_labels, cursor=0, replica=None):
+        self.trainer, self.staged = trainer, staged
+        self.held_out, self.held_labels = held_out, held_labels
+        self.cursor, self.replica = cursor, replica
+
+    def train(self, count: int) -> None:
+        for _ in range(count):
+            self.trainer.train_step_staged(self.staged[self.cursor % len(self.staged)])
+            self.cursor += 1
+
+
+def loop_trainer(seed: int, n_batches: int = 12) -> LoopTrainer:
+    """Phase 20's configuration from scratch (phases 24-25 run without
+    phases 21-22): 26M rows in the split layout, batch 8192, strict,
+    global-bias sparse Adam, 5 steps."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common.params import parse_dict_params
+    from elasticdl_tpu_torch.data.synthetic import synthetic_ctr_arrays
+    from elasticdl_tpu_torch.parallel import sparse_optim
+    from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    zoo = resolve(MODEL_DEF)
+    vocab, batch = parse_dict_params(SPLIT_TRAIN_PARAMS)["vocab_size"], TRAIN_BATCH
+    feats, labels = synthetic_ctr_arrays(batch * n_batches + 256, vocab_size=vocab, seed=seed)
+    trainer = ShardedEmbeddingTrainer(
+        build_model(MODEL_DEF, SPLIT_TRAIN_PARAMS), zoo.loss, zoo.optimizer(),
+        embedding_optimizer=sparse_optim.adam(LR, bias_correction="global"), seed=seed)
+    trainer.ensure_initialized()
+    staged = [trainer.stage_batch({k: v[i * batch:(i + 1) * batch] for k, v in feats.items()},
+                                  labels[i * batch:(i + 1) * batch],
+                                  np.ones((batch,), np.float32)) for i in range(n_batches)]
+    out = LoopTrainer(trainer, staged, {k: v[n_batches * batch:] for k, v in feats.items()},
+                      labels[n_batches * batch:])
+    out.train(5)
+    return out
+
+
+class Timed:
+    """Seconds of every call of ``owner.name``, patched in place."""
+
+    def __init__(self, owner, name: str):
+        self.seconds = []
+        self._patch = mock.patch.object(owner, name, self._wrap(getattr(owner, name)))
+
+    def _wrap(self, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds.append(time.perf_counter() - t0)
+        return timed
+
+    def __enter__(self):
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._patch.__exit__(*exc)
+
+
+def journal_events(path: str, event: str) -> list:
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [r for r in map(json.loads, filter(str.strip, f)) if r.get("event") == event]
+
+
+def check_served(replica, loop: LoopTrainer, what: str, card: str) -> dict:
+    """The replica's held-out logits against ``eval_step`` at the
+    trainer's step, and one dispatch's launches (2 K2, no K1)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+
+    want = loop.trainer.eval_step(loop.held_out)
+    if replica.generation.step != loop.trainer.step:
+        fail(f"{what}: the replica serves step {replica.generation.step}, the trainer is at "
+             f"{loop.trainer.step}")
+    ske.reset_launch_counts()
+    got = replica.execute(loop.held_out, len(want))[: len(want)]
+    counts = ske.launch_counts()
+    np.testing.assert_allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    if counts["fused_lookup"] != 2 or counts["fused_lookup_fm"]:
+        fail(f"{what}: one dispatch launched {counts}")
+    return counts
+
+
+def continuous_loop_phase(card: str, loop: LoopTrainer, workdir: str):
+    """Phase 24: a DeltaExporter publishes a full and deltas of 2 steps
+    (event time = the step) while a ServingReplica on the card is moved
+    only by DeltaWatcher.poll_once(): the clean run (the full, then 3
+    links, each within LOGIT_RTOL of eval_step, 2 K2 a dispatch), the
+    fault run (``serving.delta_apply:error=injected@2``: link 2 rolls
+    back, the same generation serves the same bits, the next poll applies
+    it) and the canary gate (256 labeled held-out rows: the delta of the
+    trainer with its output layer negated is held, the pointer unmoved;
+    the healthy delta republished at that step passes).  Returns the
+    result, the exporter and the compacted full phase 25 starts from."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch import obs
+    from elasticdl_tpu_torch.checkpoint import delta as deltas
+    from elasticdl_tpu_torch.common import faults
+    from elasticdl_tpu_torch.data.pipeline import bucket_sizes
+    from elasticdl_tpu_torch.obs.quality import CanaryGate, ReplayBuffer
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+    from elasticdl_tpu_torch.serving.continuous import DeltaWatcher
+    from elasticdl_tpu_torch.serving.export import export_model
+    from elasticdl_tpu_torch.serving.runtime import ServingReplica
+
+    trainer = loop.trainer
+    pub = os.path.join(workdir, "pub_loop")
+    require_free(workdir, 6 * sum(state_bytes([t]) for t in trainer.state.tables.values()),
+                 "phase 24's delta chain")
+    journal = obs.init_journal(os.path.join(workdir, "journal_loop"))
+    replica = loop.replica
+    if replica is None:  # the model the replica served before the loop
+        start_dir = export_model(trainer, os.path.join(workdir, "start"), model_zoo="model_zoo",
+                                 model_def=MODEL_DEF, model_params=SPLIT_TRAIN_PARAMS)
+        replica = ServingReplica(start_dir)
+    loop.replica = None
+    exporter = deltas.DeltaExporter(pub, model_zoo="model_zoo", model_def=MODEL_DEF,
+                                    model_params=SPLIT_TRAIN_PARAMS)
+    watcher = DeltaWatcher(replica, pub)
+    polls, publish_s, summaries = [], [], []
+
+    def publish(exp=exporter):
+        loop.train(2)
+        t0 = time.perf_counter()
+        link = exp.publish_delta(trainer, event_time=float(trainer.step))
+        publish_s.append(time.perf_counter() - t0)
+        return link
+
+    def poll(w=watcher, outcome="applied"):
+        t0 = time.perf_counter()
+        summary = w.poll_once()
+        polls.append(time.perf_counter() - t0)
+        summaries.append(summary)
+        if summary["outcome"] != outcome:
+            fail(f"poll_once gave {summary}, not outcome {outcome}")
+        return summary
+
+    with Timed(ServingReplica, "build_delta_generation") as build, \
+            Timed(ServingReplica, "commit_generation") as commit, \
+            Timed(ServingReplica, "shadow_execute") as shadow, \
+            Timed(ServingReplica, "reload") as reload:
+        # The clean run: the full, then three links.
+        loop.train(2)
+        t0 = time.perf_counter()
+        full = exporter.publish_full(trainer, event_time=float(trainer.step))
+        full_s = time.perf_counter() - t0
+        if not poll()["reloaded_full"]:
+            fail(f"the first poll did not reload the full: {summaries[-1]}")
+        clean_counts = [check_served(replica, loop, "after the full", card)]
+        for _ in range(3):
+            publish()
+            if poll()["applied_deltas"] != 1:
+                fail(f"a poll applied {summaries[-1]['applied_deltas']} links, not 1")
+            clean_counts.append(check_served(replica, loop, "after a link", card))
+        # The fault run: the 2nd build from here on fails and rolls back.
+        faults.install("serving.delta_apply:error=injected@2")
+        publish()
+        poll()
+        publish()
+        old = replica.generation
+        before = replica.execute(loop.held_out, len(loop.held_labels))
+        summary = poll(outcome="rolled_back")
+        if replica.generation is not old or "injected" not in str(summary["reason"]):
+            fail(f"the injected fault did not roll back in place: {summary}")
+        if not bit_equal(torch.from_numpy(replica.execute(loop.held_out, len(before))),
+                         torch.from_numpy(before)):
+            fail("the rolled-back generation does not serve the same bits")
+        poll()
+        check_served(replica, loop, "after the retried link", card)
+        faults.clear()
+        # The canary gate over 256 labeled held-out rows, in 4 batches.
+        replay = ReplayBuffer()
+        for i in range(0, len(loop.held_labels), 64):
+            replay.add({k: v[i:i + 64] for k, v in loop.held_out.items()},
+                       loop.held_labels[i:i + 64])
+        gate = CanaryGate(replay, min_rows=256)
+        gated = DeltaWatcher(replica, pub, gate=gate, buckets=bucket_sizes(64), origin="phase24")
+        loop.train(2)
+        out_layer = [p for name, p in trainer.state.params.items() if name.startswith("Dense_2")]
+        with torch.no_grad():
+            for p in out_layer:
+                p.neg_()
+        poisoner = copy.copy(exporter)  # its own head: the real chain stays as it was
+        t0 = time.perf_counter()
+        poisoned = poisoner.publish_delta(trainer, event_time=float(trainer.step))
+        publish_s.append(time.perf_counter() - t0)
+        with torch.no_grad():
+            for p in out_layer:
+                p.neg_()  # restored bit for bit
+        old = replica.generation
+        ske.reset_launch_counts()
+        summary = poll(gated, outcome="held")
+        gate_counts = ske.launch_counts()
+        if summary["held"] != poisoned or replica.generation is not old:
+            fail(f"the poisoned delta moved the pointer: {summary}")
+        shutil.rmtree(poisoned)  # withdrawn; the healthy delta of that step replaces it
+        t0 = time.perf_counter()
+        healthy = exporter.publish_delta(trainer, event_time=float(trainer.step))
+        publish_s.append(time.perf_counter() - t0)
+        if os.path.basename(healthy) != os.path.basename(poisoned):
+            fail(f"the republished link {healthy} is not the held one's step")
+        poll(gated)
+        check_served(replica, loop, "after the gated link", card)
+        t0 = time.perf_counter()
+        compacted = exporter.compact()
+        compact_s = time.perf_counter() - t0
+    swaps = journal_events(journal, "model_swap")
+    gates = journal_events(journal, "quality_gate")
+    outcomes = [(e["kind"], e["outcome"]) for e in swaps]
+    want = ([("full", "applied")] + [("delta", "applied")] * 4
+            + [("delta", "rolled_back"), ("delta", "applied"), ("delta", "applied")])
+    if outcomes != want:
+        fail(f"model_swap events {outcomes}, want {want}")
+    if [g["outcome"] for g in gates] != ["held", "passed"] or \
+            any(obs.missing_fields(e) for e in swaps + gates):
+        fail(f"quality_gate events {gates}")
+    obs.journal().configure(None)
+    if gate_counts["fused_lookup"] != 2 * 2 * 4:  # 2 K2 x 2 generations x 4 batches
+        fail(f"the gate's shadow runs launched {gate_counts}")
+    median = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    result = {
+        "steps": [s["step"] for s in summaries], "outcomes": [s["outcome"] for s in summaries],
+        "poll_s": polls, "publish_full_s": full_s, "publish_delta_s": publish_s,
+        "reload_s": reload.seconds, "build_delta_generation_s": build.seconds,
+        "commit_generation_s": commit.seconds, "shadow_execute_s": shadow.seconds,
+        "compact_s": compact_s, "launches_clean_per_dispatch": clean_counts,
+        "launches_gate_poll": gate_counts,
+        "gate": {k: gates[0].get(k) for k in ("reason", "baseline_logloss", "candidate_logloss",
+                                              "baseline_auc", "candidate_auc", "rows")},
+        "gate_passed": {k: gates[1].get(k) for k in ("baseline_auc", "candidate_auc",
+                                                     "baseline_logloss",
+                                                     "candidate_logloss")},
+        "card": card,
+    }
+    log(f"continuous loop: polls {result['outcomes']} at steps {result['steps']}; poll_once "
+        f"{polls!r} s (median {median(polls)!r}); publish_full {full_s!r} s, publish_delta "
+        f"{publish_s!r} s; reload {reload.seconds!r} s, build_delta_generation {build.seconds!r}"
+        f" s, commit_generation {commit.seconds!r} s, shadow_execute {shadow.seconds!r} s; "
+        f"compact {compact_s!r} s; each link within rtol {LOGIT_RTOL} of eval_step, 2 K2 a "
+        f"dispatch; the gate held the negated output layer ({result['gate']}) and passed the "
+        f"healthy link ({result['gate_passed']}), {gate_counts['fused_lookup']} K2 in its "
+        f"shadow runs [{card}]")
+    del replica, watcher, gated
+    torch.cuda.empty_cache()
+    return result, exporter, compacted, pub
+
+
+def percentile_ms(latencies, pct: float):
+    if not latencies:
+        return None
+    lat = sorted(latencies)
+    return lat[min(len(lat) - 1, int(round(pct / 100.0 * (len(lat) - 1))))] * 1e3
+
+
+def replica_process_phase(card: str, loop: LoopTrainer, exporter, full: str, pub: str,
+                          workdir: str, clients: int = 8):
+    """Phase 25: ``python -m elasticdl_tpu_torch.serving.replica_main`` on
+    the card from the compacted full, tracking ``pub`` every 0.5 s with
+    ``serving.delta_apply:error=injected@2`` in its environment; 8
+    closed-loop PredictClients send 8-row requests throughout while 3
+    deltas are published; after each, /stats reaches the step and the
+    held-out logits from /predict agree with eval_step; SIGTERM ends it
+    with exit 0 within 30 s."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.serving.frontend import PredictClient, encode_features
+    from elasticdl_tpu_torch.serving.replica_main import live_replicas
+
+    trainer = loop.trainer
+    serve = os.path.join(workdir, "serve")
+    os.makedirs(serve, exist_ok=True)
+    warmup = os.path.join(workdir, "warmup.npz")
+    with open(warmup, "wb") as f:
+        f.write(encode_features({k: v[:1] for k, v in loop.held_out.items()}))
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, ELASTICDL_FAULTS="serving.delta_apply:error=injected@2",
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    stderr_path = os.path.join(workdir, "replica.log")
+    stderr = open(stderr_path, "w")
+    t_launch = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "elasticdl_tpu_torch.serving.replica_main", "--model_dir", full,
+         "--pub_dir", pub, "--serve_dir", serve, "--pub_poll_interval_s", "0.5",
+         "--telemetry_interval_s", "1.0", "--warmup_features", warmup],
+        cwd=here, env=env, stdout=subprocess.DEVNULL, stderr=stderr)
+
+    def died(what):
+        stderr.flush()
+        with open(stderr_path) as f:
+            tail = f.read()[-6000:]
+        fail(f"the replica process exited {proc.returncode} {what}:\n{tail}")
+
+    def wait_for(what, predicate, timeout_s):
+        deadline = time.perf_counter() + timeout_s
+        while time.perf_counter() < deadline:
+            value = predicate()
+            if value:
+                return value
+            if proc.poll() is not None:
+                died(f"waiting for {what}")
+            time.sleep(0.05)
+        fail(f"timed out after {timeout_s} s waiting for {what}")
+
+    stop = threading.Event()
+    records, errors, threads = [], [], []
+    try:
+        info = wait_for("live_replicas", lambda: live_replicas(serve), 300)[0]
+        addr = f"127.0.0.1:{info['port']}"
+        probe = PredictClient(addr, deadline_s=60.0)
+        rows = {k: v[:64] for k, v in loop.held_out.items()}
+        probe.predict(rows)
+        first_answer_s = time.perf_counter() - t_launch
+        rng = np.random.default_rng(25)
+        vocab = int(SPLIT_TRAIN_PARAMS.split("vocab_size=")[1].split(",")[0])
+        pool = make_requests(rng, vocab, 64, 8)
+
+        def client(w):
+            c = PredictClient(addr, deadline_s=30.0)
+            i = w
+            try:
+                while not stop.is_set():
+                    t0 = time.time()
+                    try:
+                        out = c.predict(pool[i % len(pool)])
+                        if out.shape != (8,) or not np.all(np.isfinite(out)):
+                            raise ValueError(f"response of shape {out.shape} / non-finite")
+                        records.append((t0, time.time()))
+                    except Exception as exc:  # counted, reported after join
+                        errors.append(repr(exc))
+                    i += clients
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=client, args=(w,), name=f"smoke-client-{w}")
+                   for w in range(clients)]
+        t_run = time.time()
+        for t in threads:
+            t.start()
+        links = []
+        for _ in range(3):
+            loop.train(2)
+            link = exporter.publish_delta(trainer, event_time=float(trainer.step))
+            t_pub = time.time()
+            step = trainer.step
+            wait_for(f"step {step} on /stats",
+                     lambda: probe.stats()["step"] == step, 120)
+            t_seen = time.time()
+            checked = 0
+            for i in range(0, len(loop.held_labels), 64):
+                part = {k: v[i:i + 64] for k, v in loop.held_out.items()}
+                np.testing.assert_allclose(probe.predict(part), trainer.eval_step(part),
+                                           rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+                checked += 64
+            links.append({"link": os.path.basename(link), "step": step, "published_ts": t_pub,
+                          "stats_seen_s": t_seen - t_pub, "rows_checked": checked})
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+            if t.is_alive():
+                fail(f"client thread {t.name} did not finish")
+        t_end = time.time()
+        stats = probe.stats()
+        probe.close()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            fail("the replica process did not exit within 30 s of SIGTERM")
+        if rc != 0:
+            died("after SIGTERM")
+    except Exception:
+        if proc.poll() is not None:
+            died("while serving")  # its log's tail, not only this traceback
+        raise
+    finally:
+        stop.set()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        stderr.close()
+    if errors:
+        fail(f"{len(errors)} of {len(errors) + len(records)} requests failed: {errors[:3]}")
+    journal = os.path.join(serve, "events.jsonl")
+    start = journal_events(journal, "serving_replica_start")
+    swaps = journal_events(journal, "model_swap")
+    last = journal_events(journal, "serving_telemetry")[-1]
+    outcomes = [(e["outcome"], e["step"]) for e in swaps]
+    applied = [e for e in swaps if e["outcome"] == "applied"]
+    if [e["step"] for e in applied] != [link["step"] for link in links] or \
+            [e["outcome"] for e in swaps].count("rolled_back") != 1:
+        fail(f"model_swap events {outcomes}, links {[link['step'] for link in links]}")
+    if len(start) != 1 or start[0]["forbidden_modules"]:
+        fail(f"the replica process loaded {start and start[0]['forbidden_modules']}")
+    requests = len(records) + 1 + 4 * len(links)
+    if (last["served"], last["errors"], last["shed"], last["dropped"]) != (requests, 0, 0, 0):
+        fail(f"the replica's last telemetry {last} against {requests} requests answered")
+    launches = stats["kernel_launches"]
+    dispatches = stats["executes"]  # the batcher's dispatches and the warm-up's
+    if launches["fused_lookup"] != 2 * dispatches or launches["fused_lookup_fm"]:
+        fail(f"the replica process launched {launches} in {dispatches} dispatches")
+    for link, swap in zip(links, applied):
+        link["served_lag_s"] = swap["ts"] - link["published_ts"]
+        window = [(b - a) for a, b in records if abs(a - swap["ts"]) <= 1.0]
+        link["window_requests_per_s"] = len(window) / 2.0
+        link["window_p50_ms"] = percentile_ms(window, 50)
+        link["window_p99_ms"] = percentile_ms(window, 99)
+        del link["published_ts"]
+    latencies = [b - a for a, b in records]
+    result = {
+        "requests": len(records), "requests_per_s": len(records) / (t_end - t_run),
+        "p50_ms": percentile_ms(latencies, 50), "p99_ms": percentile_ms(latencies, 99),
+        "links": links, "swaps": outcomes, "first_answer_s": first_answer_s,
+        "startup_s": start[0]["startup_s"], "launches": launches, "dispatches": dispatches,
+        "last_telemetry": {k: last[k] for k in ("served", "errors", "shed", "dropped",
+                                                "p50_ms", "p99_ms", "step")},
+        "card": card,
+    }
+    log(f"replica process: {len(records)} requests of 8 rows from {clients} clients, "
+        f"{result['requests_per_s']!r} requests/s, p50 {result['p50_ms']!r} ms, p99 "
+        f"{result['p99_ms']!r} ms, 0 failed; swaps {outcomes}; per link {links}; first answer "
+        f"{first_answer_s!r} s after launch (startup {result['startup_s']!r} s); launches "
+        f"{launches} in {dispatches} dispatches; exit 0 on SIGTERM [{card}]")
+    return result
 
 
 #: The build of each of K7-K9 at RING_BENCH (bf16, head_dim 128) and on
@@ -3568,7 +4055,7 @@ def main() -> None:
     k3 = dedup_apply_phase(card, args.seed) if run(5) else None
     gather = block_gather_phase(card, args.seed) if run(17) else None
     sharded = sharded_kernel_phase(card, args.seed) if run(18) else None
-    launches = train = mesh_train = split_train = ckpt = None
+    launches = train = mesh_train = split_train = ckpt = continuous = process = None
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if run(3, 4):
@@ -3579,8 +4066,19 @@ def main() -> None:
             mesh_train = mesh_training_phases(card, args.seed, workdir)
         if run(20):
             split_train = split_training_phase(card, args.seed, workdir)
+        loop = None
         if run(21, 22):
-            ckpt = checkpoint_phases(card, args.seed, workdir, split_train)
+            ckpt = checkpoint_phases(card, args.seed, workdir, split_train, keep=run(24, 25))
+            if run(24, 25):
+                ckpt, loop = ckpt
+        if run(24, 25):
+            loop = loop or loop_trainer(args.seed)
+            continuous, exporter, full, pub = continuous_loop_phase(card, loop, workdir)
+            process = replica_process_phase(card, loop, exporter, full, pub, workdir)
+            del loop, exporter
+            import torch
+
+            torch.cuda.empty_cache()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     attention, edges = attention_phase(card, args.seed) if run(10) else (None, None)
@@ -3596,7 +4094,8 @@ def main() -> None:
                         "cp_lm_training": cp, "block_gather": gather,
                         "sharded_kernels": sharded, "mesh_training": mesh_train,
                         "split_training": split_train, "checkpoint": ckpt,
-                        "lm_checkpoint": lm_ckpt, "card": card}))
+                        "lm_checkpoint": lm_ckpt, "continuous_loop": continuous,
+                        "replica_process": process, "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -3605,7 +4104,8 @@ def main() -> None:
     log(json.dumps({"training": train, "lm_training": lm, "cp_lm_training": cp,
                     "ring_whole": ring_whole, "sharded_kernels": sharded,
                     "mesh_training": mesh_train, "split_training": split_train,
-                    "checkpoint": ckpt, "lm_checkpoint": lm_ckpt, "card": card}))
+                    "checkpoint": ckpt, "lm_checkpoint": lm_ckpt,
+                    "continuous_loop": continuous, "replica_process": process, "card": card}))
 
     by_path = {
         "fused_lookup_fm": {"serve_merged": launches["fused_lookup_fm"],
@@ -3618,7 +4118,12 @@ def main() -> None:
                          "train_split_strict": split_train["launches_strict"]["fused_lookup"],
                          "train_split_resumed_10_steps": ckpt["launches_resumed"]["fused_lookup"],
                          "serve_after_apply_delta_1_dispatch":
-                             ckpt["launches_serve_delta"]["fused_lookup"]},
+                             ckpt["launches_serve_delta"]["fused_lookup"],
+                         "continuous_loop_1_dispatch_per_link": [
+                             c["fused_lookup"] for c in continuous["launches_clean_per_dispatch"]],
+                         "continuous_loop_gate_shadow_runs":
+                             continuous["launches_gate_poll"]["fused_lookup"],
+                         "replica_process": process["launches"]["fused_lookup"]},
         "fused_dedup_apply": {"train_strict": train["launches_strict"]["fused_dedup_apply"],
                               "train_window": train["launches_window"]["fused_dedup_apply"],
                               "train_mesh": mesh_train["launches"]["fused_dedup_apply"],

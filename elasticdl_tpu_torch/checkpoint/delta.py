@@ -27,15 +27,16 @@ deleted) and stops at the first gap: the consumer serves what survives.
 chain and repairs a quarantine gap.
 
 The exporter is one process's: on a process mesh ``export_model`` is a
-collective every rank calls, and the publishing belongs to rank 0.  Not
-ported: the checkpoint metrics, the journal events and the ``ckpt.delta``
-fault site (ROADMAP.md Queue 1 item 8).
+collective every rank calls, and the publishing belongs to rank 0.
+``ckpt.delta`` is a fault site of every ``publish_delta``: a ``truncate``
+fault tears the largest file of the delta after the manifest recorded
+its CRC, so the consumer quarantines the link.  Not ported: the
+checkpoint metrics and journal events (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
 
 import json
-import logging
 import os
 import shutil
 import tempfile
@@ -44,9 +45,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from elasticdl_tpu_torch.checkpoint.saver import verify_integrity, write_integrity_manifest
+from elasticdl_tpu_torch.common import faults
+from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.serving.export import export_model, read_variables
 
-logger = logging.getLogger("elasticdl_tpu_torch.checkpoint.delta")
+logger = get_logger("checkpoint.delta")
 
 DELTA_FORMAT = "elasticdl_tpu_delta/1"
 DELTA_MANIFEST = "delta.json"
@@ -76,6 +79,21 @@ def quarantine_artifact(path: str, reason: str) -> str:
     except OSError:
         logger.exception("Quarantine rename failed for %s", path)
     return target
+
+
+def _apply_delta_write_fault(tmp_dir: str, filenames: List[str]) -> None:
+    """The ``ckpt.delta`` fault site: tear the largest inventoried file
+    after the manifest recorded its checksum."""
+    spec = faults.fire("ckpt.delta")
+    if spec is None or spec.kind != "truncate":
+        return
+    target = max((os.path.join(tmp_dir, name) for name in filenames), key=os.path.getsize)
+    size = os.path.getsize(target)
+    keep = int(spec.arg) if spec.arg else size // 2
+    with open(target, "r+b") as f:
+        f.truncate(keep)
+    logger.warning("FAULT INJECTION: truncated delta file %s to %d of %d bytes",
+                   target, keep, size)
 
 
 class DeltaExporter:
@@ -205,10 +223,12 @@ class DeltaExporter:
         with open(os.path.join(delta_tmp, DELTA_MANIFEST), "w") as f:
             json.dump(manifest, f, indent=2)
         write_integrity_manifest(delta_tmp, files)
+        _apply_delta_write_fault(delta_tmp, files)
         final_dir = os.path.join(self._pub_dir, _delta_name(base_step, step))
         os.rename(delta_tmp, final_dir)
         # The head mirrors the trainer (from the pristine export, never
-        # re-read from the published dir): the next delta chains from here.
+        # re-read from the published dir), even when a fault tore the
+        # files: the next delta chains from here.
         self._head = new_tables
         self._head_step = step
         self._head_signature = signature

@@ -385,14 +385,15 @@ class DataParallelTrainer:
         return full[:n].cpu().numpy()
 
     def state_to_host(self) -> Optional[DPTrainState]:
-        """Host snapshot: the state with numpy leaves."""
+        """Host snapshot: the state with numpy leaves, copies on every device
+        (a snapshot kept across a step does not change with it)."""
         if self._opt_state is None:
             return None
 
         def host(tree):
             if isinstance(tree, dict):
                 return {k: host(v) for k, v in tree.items()}
-            return tree.detach().cpu().numpy()
+            return tree.detach().to("cpu", copy=True).numpy()
 
         return DPTrainState(self._step, host(dict(self._params)), host(self._opt_state), {})
 

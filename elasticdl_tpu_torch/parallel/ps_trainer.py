@@ -310,19 +310,20 @@ class ShardedEmbeddingTrainer:
 
     def state_to_host(self) -> Optional[PSTrainState]:
         """Host snapshot with numpy leaves, whole tables and slots
-        (gathered on a process mesh: a collective)."""
+        (gathered on a process mesh: a collective); copies on every
+        device, so a snapshot kept across a step does not change."""
         if self._opt_state is None:
             return None
 
         def host(tree):
             if isinstance(tree, dict):
                 return {k: host(v) for k, v in tree.items()}
-            return tree.detach().cpu().numpy()
+            return tree.detach().to("cpu", copy=True).numpy()
 
         return PSTrainState(
             self._step, host(dict(self._params)), host(self._opt_state),
             {key: self._gather(key, layer.embedding) for key, layer in self._layers.items()},
-            {key: {name: self._gather(key, v) if v.dim() else v.detach().cpu().numpy()
+            {key: {name: self._gather(key, v) if v.dim() else v.detach().to("cpu", copy=True).numpy()
                    for name, v in group.items()}
              for key, group in self._slots.items()},
         )

@@ -85,7 +85,8 @@ def place_rows(tensor: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:
 def gather_to_host(tensor: torch.Tensor, mesh, axis: Optional[str]) -> np.ndarray:
     """The full rows of a placed table as a host array: on a process mesh
     with ``axis`` split, gathered over that axis (a collective: every
-    rank of the axis calls it)."""
+    rank of the axis calls it).  Always a copy, never a view of the live
+    tensor, on every device."""
     if _on_process_axis(mesh, axis):
         tensor = axis_all_gather(mesh, axis, tensor)
-    return tensor.detach().cpu().numpy()
+    return tensor.detach().to("cpu", copy=True).numpy()

@@ -15,14 +15,23 @@ waited ``max_wait_us``, whichever comes first.
 - **Failure fan-out.**  An execute error fails every live request of
   that batch with ``RequestError``; the batcher thread keeps running.
 
-The batcher thread never holds its lock across the execute callable.
-The JAX package's metrics, journal events, fault-injection sites and
-tracing/quality hooks are not ported yet (ROADMAP).
+Hooks and instruments (the JAX package's): ``on_request(phases,
+outcome, rows)`` books every finished request (the availability
+ledger's), ``on_shed(rows)`` every admission reject, ``on_batch(stacked)``
+sees each dispatch's real (unpadded) rows; a shed is journaled as a
+``request_shed`` event and counted in ``elasticdl_serving_shed_total``;
+the queue depth and rows per dispatch are metrics; each request carries
+its phase clocks (queue / batch / execute / respond); ``serving.execute``
+is a fault site
+(latency stalls the batcher thread, error fails the batch).  All clocks
+are host-side, and the batcher thread never holds its lock across the
+execute callable.  The request-trace ids and the shared ``serve.batch``
+span of the JAX package wait for the tracing plane (ROADMAP.md Queue 1
+item 8).
 """
 
 from __future__ import annotations
 
-import logging
 import threading
 import time
 from collections import deque
@@ -31,9 +40,18 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.common import faults
+from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.data.pipeline import bucket_sizes, pad_and_stage
 
-logger = logging.getLogger("elasticdl_tpu_torch.serving.batcher")
+logger = get_logger("serving.batcher")
+
+_SHED = obs.counter(
+    "elasticdl_serving_shed_total",
+    "Requests rejected at admission, by cause",
+    labelnames=("reason",),
+)
 
 
 class QueueFullError(RuntimeError):
@@ -55,6 +73,9 @@ class _Pending:
     done: threading.Event = field(default_factory=threading.Event)
     result: Optional[np.ndarray] = None
     error: Optional[BaseException] = None
+    # Phase clocks filled in by the batcher thread (queue / batch /
+    # execute / respond: ledger.REQUEST_PHASES).
+    phases: Dict[str, float] = field(default_factory=dict)
 
     def wait(self, timeout: Optional[float] = None) -> np.ndarray:
         if not self.done.wait(timeout):
@@ -75,17 +96,27 @@ class MicroBatcher:
     """Aggregates admitted requests into padded-bucket dispatches.
 
     ``execute_fn(features, n_valid)`` runs the inference step on a padded
-    batch and returns outputs with the batch on axis 0.  ``start``/
-    ``stop`` own the single batcher thread.
+    batch and returns outputs with the batch on axis 0; ``on_request``,
+    ``on_shed`` and ``on_batch`` (optional) are the hooks of the module
+    docstring; ``clock`` is the monotonic clock every phase is read
+    from.  ``start``/``stop`` own the single batcher thread.
     """
 
     def __init__(
         self,
         execute_fn: Callable[[Dict[str, np.ndarray], int], np.ndarray],
         config: BatcherConfig = BatcherConfig(),
+        on_request: Optional[Callable[[Dict[str, float], str, int], None]] = None,
+        on_shed: Optional[Callable[[int], None]] = None,
+        on_batch: Optional[Callable[[Dict[str, np.ndarray]], None]] = None,
+        clock: Callable[[], float] = time.monotonic,
     ):
         self._execute_fn = execute_fn
         self._config = config
+        self._on_request = on_request
+        self._on_shed = on_shed
+        self._on_batch = on_batch
+        self._clock = clock
         self._buckets = bucket_sizes(config.max_batch_size)
         self._lock = threading.Lock()
         self._queue: deque = deque()  # guarded-by: _lock
@@ -93,6 +124,16 @@ class MicroBatcher:
         self._wakeup = threading.Condition(self._lock)
         self._stopped = False  # guarded-by: _lock
         self._thread: Optional[threading.Thread] = None
+        self._m_depth = obs.gauge(
+            "elasticdl_serving_queue_depth",
+            "Requests currently waiting for a batch slot",
+        )
+        self._m_depth.set_function(lambda: len(self._queue))
+        self._m_batch_rows = obs.histogram(
+            "elasticdl_serving_batch_rows",
+            "Real (unpadded) rows per dispatched batch",
+            buckets=tuple(float(b) for b in self._buckets),
+        )
 
     @property
     def buckets(self) -> Tuple[int, ...]:
@@ -140,7 +181,7 @@ class MicroBatcher:
                 f"request rows {rows} exceed max_batch_size "
                 f"{self._config.max_batch_size}; split the request"
             )
-        now = time.monotonic()
+        now = self._clock()
         req = _Pending(
             features={k: np.asarray(v) for k, v in features.items()},
             rows=rows,
@@ -151,13 +192,25 @@ class MicroBatcher:
             if self._stopped:
                 raise RequestError("batcher stopped")
             depth = len(self._queue)
-            if depth >= self._config.queue_limit:
-                raise QueueFullError(
-                    f"admission queue full ({depth}/{self._config.queue_limit})"
-                )
-            self._queue.append(req)
-            self._queued_rows += rows
-            self._wakeup.notify()
+            shed = depth >= self._config.queue_limit
+            if not shed:
+                self._queue.append(req)
+                self._queued_rows += rows
+                self._wakeup.notify()
+        if shed:
+            _SHED.inc(reason="queue_full")
+            obs.journal().record(
+                "request_shed",
+                reason="queue_full",
+                queue_depth=depth,
+                queue_limit=self._config.queue_limit,
+                rows=rows,
+            )
+            if self._on_shed is not None:
+                self._on_shed(rows)
+            raise QueueFullError(
+                f"admission queue full ({depth}/{self._config.queue_limit})"
+            )
         return req
 
     def predict(
@@ -184,7 +237,7 @@ class MicroBatcher:
                 if self._queued_rows >= self._config.max_batch_size:
                     break
                 if self._queue:
-                    age = time.monotonic() - self._queue[0].enqueued_at
+                    age = self._clock() - self._queue[0].enqueued_at
                     if age >= max_wait_s:
                         break
                     self._wakeup.wait(timeout=max_wait_s - age)
@@ -212,13 +265,19 @@ class MicroBatcher:
                 logger.exception("batch dispatch failed")
 
     def _dispatch(self, batch: List[_Pending]):
-        now = time.monotonic()
-        live = []
+        t_batch = self._clock()
         for req in batch:
-            if req.deadline is not None and now > req.deadline:
-                self._finish(req, None, RequestError("deadline expired in queue"))
-            else:
-                live.append(req)
+            req.phases["queue"] = max(0.0, t_batch - req.enqueued_at)
+        expired = [r for r in batch if r.deadline is not None and t_batch > r.deadline]
+        live = [r for r in batch if r not in expired]
+        for req in expired:
+            _SHED.inc(reason="deadline")
+            obs.journal().record(
+                "request_shed", reason="deadline", rows=req.rows,
+                waited_s=round(req.phases["queue"], 6),
+            )
+            self._finish(req, None, RequestError("deadline expired in queue"),
+                         outcome="dropped")
         if not live:
             return
         rows = sum(r.rows for r in live)
@@ -226,20 +285,58 @@ class MicroBatcher:
             key: np.concatenate([r.features[key] for r in live], axis=0)
             for key in live[0].features
         }
+        if self._on_batch is not None:
+            # Sees the REAL (unpadded) rows; its failure never fails the
+            # batch.
+            try:
+                self._on_batch(stacked)
+            except Exception:
+                logger.exception("on_batch hook failed (ignored)")
         padded, _ = pad_and_stage(stacked, rows, self._buckets)
+        t_exec = self._clock()
+        batch_s = t_exec - t_batch
+        self._m_batch_rows.observe(float(rows))
         try:
+            # Fault site: a latency fault stalls the batcher thread (the
+            # queue piles up behind it); an error fault fails the batch.
+            spec = faults.fire("serving.execute")
+            if spec is not None:
+                if spec.kind == "latency":
+                    time.sleep(float(spec.arg or 0.1))
+                elif spec.kind == "error":
+                    raise RuntimeError(
+                        f"FAULT INJECTION: serving execute failed ({spec.arg or 'error'})"
+                    )
             outputs = np.asarray(self._execute_fn(padded, rows))
         except Exception as exc:
+            t_done = self._clock()
+            self._stamp_batch(live, batch_s, t_done - t_exec)
             for req in live:
-                self._finish(req, None, RequestError(f"execute failed: {exc}"))
+                self._finish(req, None, RequestError(f"execute failed: {exc}"),
+                             outcome="error")
             raise
+        execute_s = self._clock() - t_exec
+        self._stamp_batch(live, batch_s, execute_s)
         offset = 0
         for req in live:
-            self._finish(req, outputs[offset:offset + req.rows], None)
+            self._finish(req, outputs[offset:offset + req.rows], None, outcome="served")
             offset += req.rows
 
     @staticmethod
-    def _finish(req: _Pending, result, error):
+    def _stamp_batch(live: List[_Pending], batch_s: float, execute_s: float):
+        """Stamp each member's batch and execute phases."""
+        for req in live:
+            req.phases["batch"] = batch_s
+            req.phases["execute"] = execute_s
+
+    def _finish(self, req: _Pending, result, error, outcome: str):
+        t0 = self._clock()
         req.result = result
         req.error = error
         req.done.set()
+        req.phases["respond"] = self._clock() - t0
+        if self._on_request is not None:
+            try:
+                self._on_request(dict(req.phases), outcome, req.rows)
+            except Exception:
+                logger.exception("availability-ledger callback failed")

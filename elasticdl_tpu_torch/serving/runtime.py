@@ -32,18 +32,23 @@ owns the device side of one replica:
   (``index_copy_`` on the block view; on a process mesh, the blocks of
   this rank's rows), the dense params are the delta's, and the module is
   a copy of the current one that shares nothing with it but the mesh.
-  The serving pointer moves only at ``commit_generation``, through the
-  swap ``reload`` uses; on failure the old generation keeps serving and
-  the error is re-raised.  ``apply_delta`` is both in one call.
+  The serving pointer moves only at ``commit_generation(new_gen,
+  model_dir)``, through the swap ``reload`` uses; on failure the old
+  generation keeps serving and the error is re-raised.  ``apply_delta``
+  is both in one call.  ``serving.delta_apply`` is a fault site at the
+  start of every build (an ``error`` fault fails it).
+- **Journal.**  Every swap is a ``model_swap`` event (``kind`` full or
+  delta, ``outcome`` applied or rolled_back, the new and the old
+  generation and step), the JAX package's record; each generation keeps
+  its event-time frontier (``event_time``: the full's signature, the
+  delta manifest's), which ``stats()`` reports as ``model_event_time``.
 
-Not ported yet (ROADMAP): several real cards driven from one process;
-journal events and the ``serving.delta_apply`` fault site.
+Not ported yet (ROADMAP): several real cards driven from one process.
 """
 
 from __future__ import annotations
 
 import copy
-import logging
 import threading
 import time
 from typing import Dict, Optional, Sequence
@@ -51,24 +56,30 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.common import faults
 from elasticdl_tpu_torch.common.device import DeviceLike, resolve_device
+from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.data.pipeline import pad_features
 from elasticdl_tpu_torch.parallel.mesh import resolve_mesh
 from elasticdl_tpu_torch.parallel.sharding import axis_rows
 from elasticdl_tpu_torch.serving import convert
 from elasticdl_tpu_torch.serving.export import ServingModel, load_for_serving
 
-logger = logging.getLogger("elasticdl_tpu_torch.serving.runtime")
+logger = get_logger("serving.runtime")
 
 
 class Generation:
-    """One loaded model generation plus an in-flight dispatch count, so
-    a hot swap can drain it before release."""
+    """One loaded model generation, its event-time frontier (what the
+    freshness tracker reads), plus an in-flight dispatch count, so a hot
+    swap can drain it before release."""
 
-    def __init__(self, gen_id: int, model_dir: str, served: ServingModel):
+    def __init__(self, gen_id: int, model_dir: str, served: ServingModel,
+                 event_time: float = 0.0):
         self.gen_id = gen_id
         self.model_dir = model_dir
         self.served = served
+        self.event_time = float(event_time)
         self._lock = threading.Lock()
         self._inflight = 0  # guarded-by: _lock
         self._idle = threading.Condition(self._lock)
@@ -122,6 +133,7 @@ class ServingReplica:
         self._drain_timeout_s = drain_timeout_s
         self._lock = threading.Lock()
         self._next_gen_id = 1  # guarded-by: _lock
+        self._executes = 0  # guarded-by: _lock
         self._generation = self._load_generation(model_dir)  # guarded-by: _lock
         logger.info(
             "Serving replica up: generation %d (step %d) from %s on %s, mesh %r, tables %s",
@@ -134,14 +146,16 @@ class ServingReplica:
         with self._lock:
             gen_id = self._next_gen_id
             self._next_gen_id += 1
-        return Generation(gen_id, model_dir, served)
+        return Generation(gen_id, model_dir, served,
+                          event_time=float(served.signature.get("event_time", 0.0)))
 
     # -- the dispatch path ----------------------------------------------
 
-    def _acquire(self) -> Generation:
+    def _acquire(self, count: bool = False) -> Generation:
         # begin() under the swap lock: a concurrent reload either sees
         # this dispatch in flight and drains it, or swapped first.
         with self._lock:
+            self._executes += count
             gen = self._generation
             gen.begin()
             return gen
@@ -157,7 +171,7 @@ class ServingReplica:
         """Run the current generation on one (padded) batch — the
         MicroBatcher's execute_fn.  Returns host outputs for every row,
         pad rows included (the batcher slices ``n_valid`` off)."""
-        return self._run(self._acquire(), features)
+        return self._run(self._acquire(count=True), features)
 
     def warmup(self, features: Dict[str, np.ndarray], buckets: Sequence[int]):
         """Run every padded-bucket shape once before live traffic."""
@@ -179,19 +193,31 @@ class ServingReplica:
         """Atomic generation swap: build the new generation fully, swap
         the pointer, then drain the old generation's in-flight
         dispatches.  A failed build never touches the pointer: the old
-        generation keeps serving and the error is re-raised."""
+        generation keeps serving, the rollback is journaled as a
+        ``model_swap`` with ``outcome=rolled_back`` and the error is
+        re-raised."""
         try:
             new_gen = self._load_generation(model_dir)
-        except Exception:
+        except Exception as exc:
             old_gen = self.generation
+            self._journal_rollback("full", old_gen, model_dir, exc)
             logger.exception(
                 "Reload from %s failed; generation %d (step %d) keeps serving",
                 model_dir, old_gen.gen_id, old_gen.step,
             )
             raise
-        return self._swap(new_gen, "full")
+        return self._swap(new_gen, model_dir, "full")
 
-    def _swap(self, new_gen: Generation, kind: str) -> Generation:
+    @staticmethod
+    def _journal_rollback(kind: str, old_gen: Generation, model_dir: str, exc: Exception):
+        obs.journal().record(
+            "model_swap", kind=kind, outcome="rolled_back",
+            generation=old_gen.gen_id, step=old_gen.step,
+            old_generation=old_gen.gen_id, old_step=old_gen.step,
+            model_dir=model_dir, reason=repr(exc),
+        )
+
+    def _swap(self, new_gen: Generation, model_dir: str, kind: str) -> Generation:
         with self._lock:
             old_gen = self._generation
             self._generation = new_gen
@@ -207,21 +233,33 @@ class ServingReplica:
             "in-flight dispatch(es)", kind, old_gen.gen_id, old_gen.step,
             new_gen.gen_id, new_gen.step, inflight_at_swap,
         )
+        obs.journal().record(
+            "model_swap", kind=kind, outcome="applied",
+            generation=new_gen.gen_id, step=new_gen.step,
+            old_generation=old_gen.gen_id, old_step=old_gen.step,
+            model_dir=model_dir, drained_inflight=inflight_at_swap,
+            undrained=leftover, event_time=new_gen.event_time,
+        )
         return new_gen
 
     # -- delta apply -----------------------------------------------------
 
     def build_delta_generation(self, delta_dir: str) -> Generation:
         """Build (but do not serve) the generation ``delta_dir`` makes of
-        the current one; ``commit_generation`` serves it.  An integrity
-        failure (the delta is quarantined), a chain gap (the delta's base
-        step is not the served step) or any other error leaves the old
-        generation serving and re-raises."""
+        the current one; ``commit_generation`` serves it.  An injected
+        ``serving.delta_apply`` fault, an integrity failure (the delta is
+        quarantined), a chain gap (the delta's base step is not the
+        served step) or any other error leaves the old generation
+        serving, journals a ``model_swap`` with ``outcome=rolled_back``
+        and re-raises."""
         from elasticdl_tpu_torch.checkpoint import delta as deltas
         from elasticdl_tpu_torch.checkpoint.saver import verify_integrity
 
         old_gen = self.generation
         try:
+            spec = faults.fire("serving.delta_apply")
+            if spec is not None and spec.kind == "error":
+                raise RuntimeError(f"FAULT INJECTION: delta apply failed ({spec.arg or 'error'})")
             reason = verify_integrity(delta_dir)
             if reason is not None:
                 deltas.quarantine_artifact(delta_dir, reason)
@@ -234,19 +272,21 @@ class ServingReplica:
                     f"generation {old_gen.gen_id} serves step {old_gen.step}"
                 )
             served = self._patched(old_gen.served, loaded)
+            event_time = float(manifest.get("event_time", 0.0))
             served.signature["step"] = int(manifest["step"])
-            served.signature["event_time"] = float(manifest.get("event_time", 0.0))
+            served.signature["event_time"] = event_time
             with self._lock:
                 if self._generation is not old_gen:
                     raise RuntimeError("generation changed under delta apply; re-resolve the "
                                        "chain")
                 gen_id = self._next_gen_id
                 self._next_gen_id += 1
-        except Exception:
+        except Exception as exc:
+            self._journal_rollback("delta", old_gen, delta_dir, exc)
             logger.exception("Delta apply from %s failed; generation %d (step %d) keeps "
                              "serving", delta_dir, old_gen.gen_id, old_gen.step)
             raise
-        return Generation(gen_id, delta_dir, served)
+        return Generation(gen_id, delta_dir, served, event_time=event_time)
 
     @torch.no_grad()
     def _patched(self, old: ServingModel, loaded: dict) -> ServingModel:
@@ -285,14 +325,15 @@ class ServingReplica:
         return ServingModel(model, dict(old.signature), old.device, old.mesh,
                             dict(old.placements))
 
-    def commit_generation(self, new_gen: Generation) -> Generation:
+    def commit_generation(self, new_gen: Generation, model_dir: str) -> Generation:
         """Serve a generation from ``build_delta_generation``: the swap
-        and drain of ``reload``."""
-        return self._swap(new_gen, "delta")
+        and drain of ``reload`` (journaled ``model_swap`` kind="delta"
+        outcome="applied", naming ``model_dir``)."""
+        return self._swap(new_gen, model_dir, "delta")
 
     def apply_delta(self, delta_dir: str) -> Generation:
         """``build_delta_generation`` then ``commit_generation``."""
-        return self.commit_generation(self.build_delta_generation(delta_dir))
+        return self.commit_generation(self.build_delta_generation(delta_dir), delta_dir)
 
     # -- readouts --------------------------------------------------------
 
@@ -312,7 +353,8 @@ class ServingReplica:
 
     def stats(self) -> dict:
         """Bounded host-side snapshot of the replica."""
-        gen = self.generation
+        with self._lock:
+            gen, executes = self._generation, self._executes
         return {
             "generation": gen.gen_id,
             "step": gen.step,
@@ -321,4 +363,10 @@ class ServingReplica:
             "device": str(self._device),
             "mesh": repr(self._mesh),
             "tables": dict(gen.served.placements),
+            # Event-time frontier of the served model: the freshness
+            # tracker's serving-side input (0.0 for pre-delta artifacts).
+            "model_event_time": gen.event_time,
+            # Dispatches through execute (warm-up included, shadow runs
+            # not): what a launch count per dispatch divides by.
+            "executes": executes,
         }

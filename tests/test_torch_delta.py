@@ -183,7 +183,7 @@ def test_chain_gap_is_rejected_and_build_waits_for_commit(tmp_path):
     assert replica.generation.gen_id == 1  # built, not served
     shadow = replica.shadow_execute(features, candidate)
     np.testing.assert_array_equal(replica.execute(features, BATCH), before)
-    replica.commit_generation(candidate)
+    replica.commit_generation(candidate, first)
     replica.apply_delta(second)
     assert replica.generation.step == 4
     assert not np.array_equal(shadow, before)

@@ -67,6 +67,20 @@ def test_port_sources_import_nothing_forbidden():
             "elasticdl_tpu_torch.checkpoint.sharded",
             "elasticdl_tpu_torch.checkpoint.delta"} <= names
     assert not _forbidden("torch.distributed")
+    # So are the serving process and the continuous loop, with their
+    # copies of the JAX package's JAX-free modules.
+    assert {"elasticdl_tpu_torch.common.log_utils",
+            "elasticdl_tpu_torch.common.faults",
+            "elasticdl_tpu_torch.obs",
+            "elasticdl_tpu_torch.obs.metrics",
+            "elasticdl_tpu_torch.obs.journal",
+            "elasticdl_tpu_torch.obs.freshness",
+            "elasticdl_tpu_torch.obs.quality",
+            "elasticdl_tpu_torch.obs.exporter",
+            "elasticdl_tpu_torch.serving.ledger",
+            "elasticdl_tpu_torch.serving.continuous",
+            "elasticdl_tpu_torch.serving.frontend",
+            "elasticdl_tpu_torch.serving.replica_main"} <= names
 
 
 _SUBPROCESS = r"""
@@ -117,6 +131,30 @@ def test_port_runs_without_loading_forbidden_modules():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
+
+
+def test_replica_main_import_closure_holds_no_jax_or_grpc():
+    """What ``python -m elasticdl_tpu_torch.serving.replica_main`` loads
+    before it serves: its imports and ``main``'s."""
+    code = (
+        "import sys\n"
+        "from elasticdl_tpu_torch.serving import replica_main\n"
+        "from elasticdl_tpu_torch.common import faults\n"
+        "from elasticdl_tpu_torch.obs.exporter import MetricsExporter\n"
+        "from elasticdl_tpu_torch.obs.freshness import FreshnessTracker\n"
+        "from elasticdl_tpu_torch.serving.batcher import MicroBatcher\n"
+        "from elasticdl_tpu_torch.serving.continuous import DeltaWatcher\n"
+        "from elasticdl_tpu_torch.serving.frontend import ServingFrontend\n"
+        "from elasticdl_tpu_torch.serving.ledger import ledger\n"
+        "from elasticdl_tpu_torch.serving.runtime import ServingReplica\n"
+        "print('LOADED', replica_main._loaded_forbidden())\n"
+        "print('ALL', sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'grpc', 'flax', 'optax', 'elasticdl_tpu', 'model_zoo')))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout and "ALL []" in proc.stdout, proc.stdout
 
 
 def test_resolve_device_never_falls_back_to_cpu(monkeypatch):

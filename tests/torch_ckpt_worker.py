@@ -62,7 +62,7 @@ def trainer_over(mesh, seed):
 
 def gathered(trainer):
     """A copy of the whole state (a collective), flat, by checkpoint-like
-    names (on the CPU ``state_to_host`` may share the live tensors)."""
+    names."""
     host = trainer.state_to_host()
     out = {f"param|{k}": v for k, v in host.params.items()}
     out["opt|count"] = np.asarray(host.opt_state["count"])
@@ -71,7 +71,7 @@ def gathered(trainer):
     out.update({f"table|{k}": v for k, v in host.tables.items()})
     for key, group in host.slots.items():
         out.update({f"slot|{key}|{n}": np.asarray(v) for n, v in group.items()})
-    return {k: np.array(v) for k, v in out.items()}
+    return out
 
 
 def own_blocks(trainer, mesh):
