@@ -224,6 +224,30 @@ The continuous train -> serve loop (``serving/continuous.py``,
     answer.  A replica process that dies fails the phase with its log's
     tail.
 
+The elastic job (``master/``, ``worker/``, ``parallel/elastic.py``):
+
+26. ``python -m elasticdl_tpu_torch.master.main`` runs the PS job on the
+    card as processes: DeepFM at vocab 1M per field in the split layout
+    its layout rule picks under ``--sparse_apply_every=1`` (26M rows),
+    the zoo's per-row Adam, batch 8192, ``synthetic://criteo`` with
+    196,608 records in 6 tasks of 32,768, a checkpoint every 12 steps,
+    ``--pipeline async --parse_pool_workers 2``, one worker process (one
+    NCCL rank per card: the card's job is a world of one).  Once the
+    step-12 checkpoint is committed the worker, the master's child, is
+    SIGKILLed by its pid: the master's journal must show the churn and a
+    second world, the new worker restore step 12, the in-flight task be
+    requeued and every record range done, exit 0; each worker process
+    journals K2 and K3 twice per step it trained and no JAX, gRPC or
+    protobuf module (the master too); the export is bit-exact with the
+    final sharded checkpoint's tables and dense params, and a
+    ``ServingReplica`` of it answers 256 held-out rows within
+    LOGIT_RTOL/LOGIT_ATOL of a trainer restored from that checkpoint.
+    Printed (host clock): master start -> first task, worker launch ->
+    first step, samples/s over the steady tasks (neither a worker's first
+    nor holding a save) beside phase 20's and over the whole job, each
+    checkpoint save, the rescale (kill -> detection, relaunch, restore,
+    first step after), the wall.
+
 Before each of phases 21-23 the free space of its directory is checked
 (a failure names the bytes needed); each deletes its directories.
 
@@ -233,7 +257,8 @@ and K3 once per strict training step, K3 twice in the window; K2 and K3
 twice per split-layout step, the resumed trainer's too, K2 twice per
 dispatch after ``apply_delta`` and after each link of phase 24, in the
 gate's shadow runs and in the replica process of phase 25 (its own
-counts, on ``/stats``); K4, K5 and K6 once per layer per LM
+counts, on ``/stats``); K2 and K3 twice per step in each worker process
+of phase 26 (its own counts, in its journal); K4, K5 and K6 once per layer per LM
 step, the resumed LM's too; K7, K8 and K9 once per layer per ring step
 of a CP LM step, and K4-K6 never there; over the mesh, K1 and K3 once
 per shard; K10 in the experiment script's default mode) fails the run.
@@ -280,6 +305,11 @@ REPLACES = {
 SUM_ORDER_ULPS = 2.0 * 2.0 ** -24
 #: Served logits against the plain forward: the hot-swap bar.
 LOGIT_RTOL, LOGIT_ATOL = 1e-5, 1e-6
+#: Phase 26: the elastic job's records (24 steps of TRAIN_BATCH), its
+#: tasks (6) and its checkpoint cadence (the worker dies after step 12).
+ELASTIC_RECORDS = 196_608
+ELASTIC_PER_TASK = 32_768
+ELASTIC_CKPT_STEPS = 12
 #: The training slice: the north-star table, bench.py's batch.
 TRAIN_PARAMS = "vocab_size=1000000,embedding_dim=8,hidden=128,split_tables=false"
 TRAIN_BATCH = 8192
@@ -3914,6 +3944,271 @@ def replica_process_phase(card: str, loop: LoopTrainer, exporter, full: str, pub
     return result
 
 
+# ----------------------------------------------------------------------
+# phase 26: the elastic PS job on one host, a worker SIGKILLed mid-job
+# ----------------------------------------------------------------------
+
+
+def tree_leaves(tree, path=()):
+    """``(path, leaf)`` of a nested dict, depth first."""
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            yield from tree_leaves(value, path + (key,))
+    else:
+        yield path, tree
+
+
+def wait_until(what, predicate, proc, log_path, timeout_s):
+    """Poll ``predicate`` until it is truthy; fail with the master's log
+    tail if the job exits first or the wait times out."""
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        value = predicate()
+        if value:
+            return value
+        if proc.poll() is not None:
+            fail(f"the job exited {proc.returncode} waiting for {what}:\n{tail(log_path)}")
+        time.sleep(0.02)
+    fail(f"timed out after {timeout_s} s waiting for {what}:\n{tail(log_path)}")
+
+
+def tail(path: str, nbytes: int = 6000) -> str:
+    if not os.path.exists(path):
+        return f"({path} missing)"
+    with open(path, errors="replace") as f:
+        return f.read()[-nbytes:]
+
+
+def in_flight(events: str, worker_id: int, since_ts: float) -> list:
+    """Tasks dispatched to ``worker_id`` at or after ``since_ts`` and not
+    reported done, from the master's journal (empty while the journal's
+    last line is still being written: the caller polls again)."""
+    try:
+        done = {e["task_id"] for e in journal_events(events, "task_done")}
+        dispatched = journal_events(events, "task_dispatch")
+    except ValueError:
+        return []
+    return [e["task_id"] for e in dispatched
+            if e["worker_id"] == worker_id and e["ts"] >= since_ts and e["task_id"] not in done]
+
+
+def parent_pid(pid: int) -> int:
+    with open(f"/proc/{pid}/stat") as f:
+        return int(f.read().rsplit(")", 1)[1].split()[1])
+
+
+def elastic_job_phase(card: str, seed: int, workdir: str, split_train=None,
+                      n: int = ELASTIC_RECORDS, vocab: int = 1_000_000,
+                      per_task: int = ELASTIC_PER_TASK, batch: int = TRAIN_BATCH,
+                      checkpoint_steps: int = ELASTIC_CKPT_STEPS, extra_flags=()):
+    """Phase 26: ``python -m elasticdl_tpu_torch.master.main`` runs the PS
+    job (DeepFM at vocab 1M per field, the split layout its layout rule
+    picks under strict apply, the zoo's per-row Adam, batch 8192, ``n``
+    records in tasks of ``per_task``, async staging with 2 parse workers)
+    with one worker process on the card; once the step-``checkpoint_steps``
+    checkpoint is committed, the worker (the master's child, by its exact
+    pid) is SIGKILLed.  The job must re-form, the new worker restore that
+    step, the in-flight task be requeued and every record range done,
+    exit 0; both workers' K2 and K3 twice a step; no forbidden module in
+    any process; the export bit-exact with the final checkpoint, and a
+    ServingReplica of it within LOGIT_RTOL/LOGIT_ATOL of a trainer
+    restored from that checkpoint."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.checkpoint.sharded import ShardedCheckpointSaver
+    from elasticdl_tpu_torch.data.synthetic import synthetic_ctr_arrays
+    from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer
+    from elasticdl_tpu_torch.serving.export import read_variables
+    from elasticdl_tpu_torch.serving.runtime import ServingReplica
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    torch.cuda.empty_cache()
+    require_free(workdir, 4 * 3_000_000_000, "the elastic job (3 checkpoints + the export)")
+    job = os.path.join(workdir, "elastic")
+    ckpt, out = os.path.join(job, "ckpt"), os.path.join(job, "out")
+    os.makedirs(job)
+    master_log = os.path.join(job, "master.log")
+    here = os.path.dirname(os.path.abspath(__file__))
+    params = f"vocab_size={vocab}"
+    argv = [sys.executable, "-m", "elasticdl_tpu_torch.master.main",
+            "--distribution_strategy=ParameterServerStrategy", "--num_workers=1",
+            "--model_zoo=model_zoo", f"--model_def={MODEL_DEF}", f"--model_params={params}",
+            "--sparse_apply_every=1", f"--training_data=synthetic://criteo?n={n}&vocab={vocab}",
+            f"--minibatch_size={batch}", f"--records_per_task={per_task}",
+            f"--checkpoint_dir={ckpt}", f"--checkpoint_steps={checkpoint_steps}",
+            f"--output={out}", "--pipeline=async", "--parse_pool_workers=2", *extra_flags]
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    events = os.path.join(ckpt, "events.jsonl")
+    committed = os.path.join(ckpt, f"step_{checkpoint_steps:012d}", "manifest.json")
+    t_start = time.time()
+    with open(master_log, "wb") as log_file:
+        proc = subprocess.Popen(argv, cwd=here, env=env, stdout=log_file,
+                                stderr=subprocess.STDOUT)
+    try:
+        wait_until(f"the step-{checkpoint_steps} checkpoint", lambda: os.path.exists(committed),
+                   proc, master_log, 600)
+        t_commit = os.path.getmtime(committed)
+        # Kill while a task dispatched after the commit is in flight.
+        wait_until("a task in flight after the checkpoint",
+                   lambda: in_flight(events, 0, t_commit), proc, master_log, 600)
+        launch = journal_events(events, "worker_launch")[0]
+        victim = launch["pid"]
+        if launch["worker_id"] != 0 or parent_pid(victim) != proc.pid:
+            fail(f"worker {launch} is not the master's ({proc.pid}) child")
+        os.kill(victim, signal.SIGKILL)
+        t_kill = time.time()
+        log(f"elastic job: SIGKILLed worker 0 (pid {victim}, the master's child) "
+            f"{t_kill - t_start!r} s after the master started, once step {checkpoint_steps} "
+            "was committed")
+        try:
+            rc = proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            fail(f"the job did not finish within 600 s of the kill:\n{tail(master_log)}")
+        t_end = time.time()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    logs = os.path.join(ckpt, "elasticdl-job_worker_logs")
+    if rc != 0:
+        fail(f"the job exited {rc}:\n{tail(master_log)}\n--- worker 1\n"
+             f"{tail(os.path.join(logs, 'worker_1.log'))}")
+
+    def worker_events(wid, event):
+        return journal_events(os.path.join(ckpt, f"events_worker_{wid}.jsonl"), event)
+
+    master = {name: journal_events(events, name) for name in (
+        "master_start", "task_dispatch", "task_done", "task_requeue", "worker_launch",
+        "worker_churn", "rendezvous", "master_exit")}
+    churn = master["worker_churn"]
+    if len(churn) != 1 or churn[0]["workers"] != [0] or churn[0]["exit_codes"] != [-9]:
+        fail(f"worker_churn events {churn}")
+    if [e["workers"] for e in master["rendezvous"]] != [[0], [1]]:
+        fail(f"rendezvous events {master['rendezvous']}")
+    requeued = [t for e in master["task_requeue"] if e["reason"] == "worker_churn"
+                for t in e["task_ids"]]
+    ranges = {e["task_id"]: (e["start"], e["end"]) for e in master["task_dispatch"]}
+    done = [ranges[e["task_id"]] for e in master["task_done"]]
+    if not requeued or any(ranges[t] not in done for t in requeued):
+        fail(f"the in-flight task {requeued} was not requeued and done: done {sorted(done)}")
+    covered = sorted(set(done))
+    expected = [(lo, min(lo + per_task, n)) for lo in range(0, n, per_task)]
+    if covered != expected:
+        fail(f"record ranges done {covered}, want {expected}")
+    restored = [e["step"] for e in worker_events(1, "checkpoint_restore")]
+    saved0 = [e["step"] for e in worker_events(0, "checkpoint_saved")]
+    if restored != [checkpoint_steps] or max(saved0) != checkpoint_steps:
+        fail(f"worker 1 restored {restored}; worker 0 saved {saved0}")
+    final = [e["step"] for e in worker_events(1, "model_exported")]
+    per_worker = {}
+    for wid in (0, 1):
+        last = worker_events(wid, "worker_task_done")[-1]
+        got, steps = last["kernel_launches"], last["process_steps"]
+        want = {"fused_lookup": 2 * steps, "fused_dedup_apply": 2 * steps}
+        if got != want:
+            fail(f"worker {wid} launched {got} in {steps} steps (want {want})")
+        if last["forbidden_modules"]:
+            fail(f"worker {wid} loaded {last['forbidden_modules']}")
+        per_worker[wid] = {"steps": steps, "launches": got}
+    if master["master_exit"][-1]["forbidden_modules"] or not master["master_exit"][-1]["succeeded"]:
+        fail(f"master exit {master['master_exit'][-1]}")
+    exits = worker_events(1, "worker_exit")
+    if not exits or exits[0]["forbidden_modules"] or exits[0]["kernel_launches"] != \
+            per_worker[1]["launches"]:
+        fail(f"worker 1 exit {exits}")
+    # Export against the final checkpoint, bit for bit.
+    saver = ShardedCheckpointSaver(ckpt)
+    last_step = saver.latest_step()
+    if final != [last_step]:
+        fail(f"exported step {final}, last checkpoint {last_step}")
+    if last_step != checkpoint_steps + per_worker[1]["steps"]:
+        fail(f"the last checkpoint is step {last_step}; worker 1 trained "
+             f"{per_worker[1]['steps']} steps from {checkpoint_steps}")
+    variables = read_variables(os.path.join(out, "variables.pkl"))
+    dense = saver.load_dense(last_step)
+    ckpt_params = dict(tree_leaves(dense["params"]))
+    compared = 0
+    for path, leaf in tree_leaves(variables["params"]):
+        if path[-1] == "__table__":
+            key = "/".join(path[:-1])
+            exported = np.load(os.path.join(out, leaf))
+            stored = saver.load_rows(last_step, f"table|{key}", 0, exported.shape[0])
+        else:
+            exported, stored = np.asarray(leaf), np.asarray(ckpt_params[path])
+        if exported.shape != stored.shape or not np.array_equal(exported.view(np.uint8),
+                                                                 stored.view(np.uint8)):
+            fail(f"the export's {'/'.join(path)} differs from checkpoint step {last_step}")
+        compared += exported.size
+    # The export served against a trainer restored from the checkpoint.
+    zoo = resolve(MODEL_DEF)
+    held, _ = synthetic_ctr_arrays(256, vocab_size=vocab, seed=seed + 26)
+    trainer = ShardedEmbeddingTrainer(build_model(MODEL_DEF, params + ",sparse_apply_every=1"),
+                                      zoo.loss, zoo.optimizer(),
+                                      embedding_optimizer=zoo.embedding_optimizer())
+    trainer.set_sharded_restore(saver, last_step)
+    trainer.ensure_initialized()
+    want = trainer.eval_step(held)
+    replica = ServingReplica(out)
+    got = replica.execute(held, len(want))[: len(want)]
+    np.testing.assert_allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL)
+    if not np.all(np.isfinite(got)):
+        fail("the served logits are not finite")
+    del trainer, replica
+    torch.cuda.empty_cache()
+    # Times, on the host's clock.
+    t0 = master["master_start"][0]["ts"]
+    launches = {e["worker_id"]: e["ts"] for e in master["worker_launch"]}
+    first = {wid: worker_events(wid, "first_step")[0]["ts"] for wid in (0, 1)}
+    # Steady tasks: neither a worker's first (start-up) nor holding a
+    # checkpoint save; the worker's own seconds for each (parse + steps).
+    steady, trained = [], []
+    for wid in (0, 1):
+        done = worker_events(wid, "worker_task_done")
+        trained += done
+        saved_at = [e["ts"] for e in worker_events(wid, "checkpoint_saved")]
+        steady += [e for e in done[1:]
+                   if not any(e["ts"] - e["seconds"] <= ts <= e["ts"] for ts in saved_at)]
+    steady_s = sum(e["seconds"] for e in steady)
+    steady_rate = sum(e["records"] for e in steady) / steady_s if steady else None
+    # The share of the steady tasks' seconds the step loop spent waiting
+    # for the host's next batch (parse, shuffle, stack).
+    data_wait_share = sum(e["data_wait_s"] for e in steady) / steady_s if steady else None
+    job_rate = sum(e["records"] for e in trained) / (
+        max(e["ts"] for e in trained) - master["task_dispatch"][0]["ts"])
+    saves = [{"worker": wid, "step": e["step"], "s": e["seconds"]}
+             for wid in (0, 1) for e in worker_events(wid, "checkpoint_saved")]
+    restore = worker_events(1, "checkpoint_restore")[0]
+    result = {
+        "records": n, "records_per_task": per_task, "batch": batch, "steps": last_step,
+        "first_dispatch_s": master["task_dispatch"][0]["ts"] - t0,
+        "worker_launch_to_first_step_s": {w: first[w] - launches[w] for w in (0, 1)},
+        "steady_tasks": len(steady), "steady_samples_per_s": steady_rate,
+        "job_samples_per_s": job_rate, "steady_data_wait_share": data_wait_share,
+        "phase20_samples_per_s": None if split_train is None else split_train["samples_per_s"],
+        "checkpoint_saves": saves,
+        "rescale_s": {"detected": churn[0]["ts"] - t_kill, "relaunched": launches[1] - t_kill,
+                      "restored": restore["ts"] - t_kill, "restore_itself": restore["seconds"],
+                      "first_step_after": first[1] - t_kill},
+        "wall_s": t_end - t_start, "killed_pid": victim, "requeued_tasks": requeued,
+        "per_worker": per_worker, "export_elements_bit_exact": compared,
+        "served_max_abs_err": float(np.max(np.abs(got - want))), "card": card,
+    }
+    log(f"elastic job: master start -> first task {result['first_dispatch_s']!r} s; worker "
+        f"launch -> first step {result['worker_launch_to_first_step_s']} s; "
+        f"{result['steady_samples_per_s']!r} samples/s over {len(steady)} steady tasks "
+        f"(no start-up, no save; the step loop waited for host data {data_wait_share!r} of "
+        f"their time; phase 20 in process: {result['phase20_samples_per_s']!r}), "
+        f"{job_rate!r} over the job (first dispatch -> last task, the rescale included); "
+        f"saves {saves}; "
+        f"rescale after the kill {result['rescale_s']} s; wall {result['wall_s']!r} s; "
+        f"requeued {requeued}; K2/K3 per worker {per_worker}; export bit-exact with step "
+        f"{last_step} ({compared} elements), served within rtol {LOGIT_RTOL} of the restored "
+        f"trainer [{card}]")
+    shutil.rmtree(job, ignore_errors=True)
+    return result
+
+
 #: The build of each of K7-K9 at RING_BENCH (bf16, head_dim 128) and on
 #: the CP LM's path (head_dim 64); K8 and K9 with the path's bf16 dO (one
 #: part).
@@ -4055,7 +4350,7 @@ def main() -> None:
     k3 = dedup_apply_phase(card, args.seed) if run(5) else None
     gather = block_gather_phase(card, args.seed) if run(17) else None
     sharded = sharded_kernel_phase(card, args.seed) if run(18) else None
-    launches = train = mesh_train = split_train = ckpt = continuous = process = None
+    launches = train = mesh_train = split_train = ckpt = continuous = process = elastic = None
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if run(3, 4):
@@ -4081,6 +4376,12 @@ def main() -> None:
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    if run(26):  # in a directory of its own: the earlier phases' files are gone
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            elastic = elastic_job_phase(card, args.seed, workdir, split_train)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
     attention, edges = attention_phase(card, args.seed) if run(10) else (None, None)
     lm = lm_training_phases(card, args.seed) if run(11, 12) else None
     lm_ckpt = lm_checkpoint_phase(card, args.seed) if run(23) else None
@@ -4095,7 +4396,7 @@ def main() -> None:
                         "sharded_kernels": sharded, "mesh_training": mesh_train,
                         "split_training": split_train, "checkpoint": ckpt,
                         "lm_checkpoint": lm_ckpt, "continuous_loop": continuous,
-                        "replica_process": process, "card": card}))
+                        "replica_process": process, "elastic_job": elastic, "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -4105,7 +4406,8 @@ def main() -> None:
                     "ring_whole": ring_whole, "sharded_kernels": sharded,
                     "mesh_training": mesh_train, "split_training": split_train,
                     "checkpoint": ckpt, "lm_checkpoint": lm_ckpt,
-                    "continuous_loop": continuous, "replica_process": process, "card": card}))
+                    "continuous_loop": continuous, "replica_process": process,
+                    "elastic_job": elastic, "card": card}))
 
     by_path = {
         "fused_lookup_fm": {"serve_merged": launches["fused_lookup_fm"],
@@ -4123,14 +4425,21 @@ def main() -> None:
                              c["fused_lookup"] for c in continuous["launches_clean_per_dispatch"]],
                          "continuous_loop_gate_shadow_runs":
                              continuous["launches_gate_poll"]["fused_lookup"],
-                         "replica_process": process["launches"]["fused_lookup"]},
+                         "replica_process": process["launches"]["fused_lookup"],
+                         "elastic_job_worker_process": {
+                             f"worker {w} ({r['steps']} steps)": r["launches"]["fused_lookup"]
+                             for w, r in elastic["per_worker"].items()}},
         "fused_dedup_apply": {"train_strict": train["launches_strict"]["fused_dedup_apply"],
                               "train_window": train["launches_window"]["fused_dedup_apply"],
                               "train_mesh": mesh_train["launches"]["fused_dedup_apply"],
                               "train_split_strict":
                                   split_train["launches_strict"]["fused_dedup_apply"],
                               "train_split_resumed_10_steps":
-                                  ckpt["launches_resumed"]["fused_dedup_apply"]},
+                                  ckpt["launches_resumed"]["fused_dedup_apply"],
+                              "elastic_job_worker_process": {
+                                  f"worker {w} ({r['steps']} steps)":
+                                      r["launches"]["fused_dedup_apply"]
+                                  for w, r in elastic["per_worker"].items()}},
     }
     on_mesh = {"fused_lookup_fm": sharded["fused_lookup_fm"], "fused_lookup":
                sharded["fused_lookup"], "fused_dedup_apply": sharded["fused_dedup_apply"]["adam"]}

@@ -1,0 +1,297 @@
+"""The flag system of the master and worker processes: the port's copy of
+``elasticdl_tpu/common/args.py``.
+
+Flat argparse with one parser assembly per role sharing flag groups; the
+master forwards a worker's flags through ``args_to_argv``.  Every JAX
+flag is kept with its name and default, plus ``--device`` (``cuda``, the
+card, unless ``cpu`` is given, as ``serving/replica_main.py`` has it).
+
+A flag whose non-default value selects a part the port leaves out raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item (``check_ported``,
+run by both ``parse_*_args``).  Flags of planes that are on by default in
+the JAX package (``--policy_enabled``, ``--slo_enabled`` and the policy's
+numbers) and ``--jax_compilation_cache_dir`` are accepted and select
+nothing.  ``--sparse_kernel`` selects nothing either: on the card every
+sparse op is its hand-written kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+from elasticdl_tpu_torch.common.log_utils import get_logger
+
+logger = get_logger("common.args")
+
+#: Where each part this module refuses is queued.
+K8S_ITEM = ("ROADMAP.md Queue 1 item 6, what the job slice leaves: the Kubernetes "
+            "pod manager (k8s_pod_manager.py, k8s_client.py, tpu_slice.py)")
+EVALUATION_ITEM = ("ROADMAP.md Queue 1 item 6, what the job slice leaves: the "
+                   "evaluation service (--validation_data, --prediction_data, "
+                   "evaluation and prediction jobs) and the client CLI")
+OBS_ITEM = ("ROADMAP.md Queue 1 item 8: telemetry, goodput, tracing, stepstats, "
+            "the profiler, the TensorBoard service and the SLO plane")
+LOCAL_ITEM = ("ROADMAP.md Queue 1 item 7: the Local strategy's single-device "
+              "Worker and Trainer")
+
+
+def pos_int(value):
+    ivalue = int(value)
+    if ivalue <= 0:
+        raise argparse.ArgumentTypeError(f"{value} must be a positive integer")
+    return ivalue
+
+
+def non_neg_int(value):
+    ivalue = int(value)
+    if ivalue < 0:
+        raise argparse.ArgumentTypeError(f"{value} must be >= 0")
+    return ivalue
+
+
+def pos_int_or_auto(value):
+    if value == "auto":
+        return value
+    return pos_int(value)
+
+
+def str2bool(value):
+    if isinstance(value, bool):
+        return value
+    if value.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if value.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError(f"Cannot parse bool from {value!r}")
+
+
+def add_common_arguments(parser: argparse.ArgumentParser):
+    parser.add_argument("--job_name", default="elasticdl-job", help="Job name")
+    parser.add_argument(
+        "--distribution_strategy", default="Local",
+        choices=["Local", "ParameterServerStrategy", "AllreduceStrategy"],
+        help="ParameterServerStrategy (sharded embedding tables, K2/K3 on "
+        "the card) or AllreduceStrategy (dense gradients summed over the "
+        "world); Local's single-device worker is not ported",
+    )
+    parser.add_argument("--log_level", default="INFO")
+    parser.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="where the workers train: the CUDA card (the default; no card "
+        "raises) or the CPU, where the kernels' plain versions run and a "
+        "world of several workers joins over gloo",
+    )
+
+
+def add_model_zoo_arguments(parser: argparse.ArgumentParser):
+    parser.add_argument(
+        "--model_zoo", required=True,
+        help="Accepted and never imported: model_def resolves through the "
+        "port's zoo (elasticdl_tpu_torch.zoo.REGISTRY)",
+    )
+    parser.add_argument("--model_def", required=True,
+                        help="e.g. deepfm.deepfm_functional_api")
+    parser.add_argument("--model_params", default="",
+                        help="Comma-separated key=value pairs passed to custom_model()")
+    parser.add_argument("--dataset_fn", default="dataset_fn")
+    parser.add_argument("--loss", default="loss")
+    parser.add_argument("--optimizer", default="optimizer")
+    parser.add_argument("--eval_metrics_fn", default="eval_metrics_fn")
+    parser.add_argument("--custom_data_reader", default="custom_data_reader")
+    parser.add_argument("--callbacks", default="callbacks")
+
+
+def add_data_arguments(parser: argparse.ArgumentParser):
+    parser.add_argument("--training_data", default="", help="Training data path/pattern")
+    parser.add_argument("--validation_data", default="", help="Validation data path")
+    parser.add_argument("--prediction_data", default="", help="Prediction data path")
+    parser.add_argument("--records_per_task", type=pos_int, default=4096)
+    parser.add_argument("--minibatch_size", type=pos_int, default=64)
+    parser.add_argument("--num_epochs", type=pos_int, default=1)
+    parser.add_argument("--data_reader_params", default="",
+                        help="Comma-separated key=value pairs passed to the data reader")
+
+
+def add_train_arguments(parser: argparse.ArgumentParser):
+    parser.add_argument("--evaluation_steps", type=non_neg_int, default=0)
+    parser.add_argument("--checkpoint_steps", type=non_neg_int, default=0)
+    parser.add_argument("--checkpoint_dir", default="")
+    parser.add_argument("--keep_checkpoint_max", type=non_neg_int, default=3)
+    parser.add_argument("--output", default="", help="Trained model output path")
+    parser.add_argument("--tensorboard_log_dir", default="")
+    parser.add_argument("--dense_sharding", default="replicated",
+                        choices=["replicated", "fsdp"])
+    parser.add_argument(
+        "--train_window_steps", type=non_neg_int, default=0,
+        help="Training batches staged per dispatch. 0 = AUTO: up to 400, "
+        "bounded by the task's batch count and a 1 GiB staged-bytes cap",
+    )
+    parser.add_argument(
+        "--sparse_apply_every", type=pos_int_or_auto, default="auto",
+        help="ParameterServerStrategy only: one sparse apply per N steps "
+        "(1 = strict); 'auto' is strict up to 10M table rows, 32 above",
+    )
+    parser.add_argument("--sparse_kernel", default="auto", choices=["xla", "fused", "auto"])
+    parser.add_argument(
+        "--pipeline", default="sync", choices=["sync", "async"],
+        help="'async' parses and stacks batches on a background thread "
+        "(and a parse pool, --parse_pool_workers) while the step loop "
+        "trains; the variables are those of 'sync'",
+    )
+    parser.add_argument("--parse_pool_workers", type=non_neg_int, default=0)
+    parser.add_argument("--pipeline_inflight", type=pos_int, default=2)
+    parser.add_argument("--dispatch_depth", type=pos_int, default=2)
+    parser.add_argument(
+        "--oov_diagnostics", type=str2bool, nargs="?", const=True, default=False,
+        help="Log per-step counts of embedding ids >= vocab_size (host-side)",
+    )
+    parser.add_argument("--profile_steps", default="")
+    parser.add_argument("--mesh_model_axis", type=pos_int, default=1)
+    parser.add_argument("--task_timeout_s", type=non_neg_int, default=900)
+    parser.add_argument("--jax_compilation_cache_dir", default="",
+                        help="Accepted; selects nothing (the port compiles no XLA)")
+    parser.add_argument("--use_bf16", type=str2bool, nargs="?", const=True, default=True)
+
+
+def add_cluster_arguments(parser: argparse.ArgumentParser):
+    parser.add_argument("--num_workers", type=pos_int, default=1)
+    parser.add_argument("--master_addr", default="", help="host:port of the master")
+    parser.add_argument("--master_port", type=non_neg_int, default=0,
+                        help="0 picks a free port")
+    parser.add_argument("--worker_pod_priority", default="")
+    parser.add_argument("--metrics_port", type=non_neg_int, default=None,
+                        help="Serve /metrics, /healthz, /debug/vars from the master")
+    parser.add_argument("--max_worker_restarts", type=non_neg_int, default=3)
+    parser.add_argument("--namespace", default="default")
+    parser.add_argument("--image_name", default="")
+    parser.add_argument("--need_elasticity", type=str2bool, nargs="?", const=True,
+                        default=True)
+    parser.add_argument("--policy_enabled", type=str2bool, nargs="?", const=True,
+                        default=True)
+    parser.add_argument("--policy_amortize_horizon_s", type=float, default=600.0)
+    parser.add_argument("--policy_tick_interval_s", type=float, default=2.0)
+    parser.add_argument("--policy_min_workers", type=pos_int, default=1)
+    parser.add_argument("--policy_evict_after", type=pos_int, default=3)
+    parser.add_argument("--policy_kill_budget", type=non_neg_int, default=1)
+    parser.add_argument("--policy_kill_budget_window_s", type=float, default=600.0)
+    parser.add_argument("--slo_enabled", type=str2bool, nargs="?", const=True, default=True)
+    parser.add_argument("--slo_goodput_target", type=float, default=0.0)
+    parser.add_argument("--slo_compliance_window_s", type=float, default=3600.0)
+    parser.add_argument("--slo_tick_interval_s", type=float, default=2.0)
+    parser.add_argument("--quality_drift_bins", type=non_neg_int, default=0)
+    parser.add_argument("--quality_drift_threshold", type=float, default=0.25)
+    parser.add_argument(
+        "--worker_liveness_timeout_s", type=non_neg_int, default=60,
+        help="Kill and relaunch a worker whose heartbeat is silent this long (0 disables)",
+    )
+    parser.add_argument("--devices_per_worker", type=pos_int, default=1)
+    parser.add_argument("--master_resource_request", default="")
+    parser.add_argument("--worker_resource_request", default="")
+    parser.add_argument("--tpu_slice", default="")
+    parser.add_argument("--volume", default="")
+
+
+def build_master_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="elasticdl_tpu_torch master",
+                                     allow_abbrev=False)
+    add_common_arguments(parser)
+    add_model_zoo_arguments(parser)
+    add_data_arguments(parser)
+    add_train_arguments(parser)
+    add_cluster_arguments(parser)
+    parser.add_argument("--job_type", default="training_with_evaluation")
+    return parser
+
+
+def build_worker_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="elasticdl_tpu_torch worker",
+                                     allow_abbrev=False)
+    add_common_arguments(parser)
+    add_model_zoo_arguments(parser)
+    add_data_arguments(parser)
+    add_train_arguments(parser)
+    parser.add_argument("--worker_id", type=non_neg_int, required=True)
+    parser.add_argument("--master_addr", required=True)
+    parser.add_argument("--job_type", default="training_with_evaluation")
+    return parser
+
+
+#: flag -> (its default, the item a non-default value waits for).
+_NOT_PORTED = {
+    "validation_data": ("", EVALUATION_ITEM),
+    "prediction_data": ("", EVALUATION_ITEM),
+    "evaluation_steps": (0, EVALUATION_ITEM),
+    "tensorboard_log_dir": ("", OBS_ITEM),
+    "profile_steps": ("", OBS_ITEM),
+    "slo_goodput_target": (0.0, OBS_ITEM),
+    "quality_drift_bins": (0, OBS_ITEM),
+    "image_name": ("", K8S_ITEM),
+    "tpu_slice": ("", K8S_ITEM),
+    "volume": ("", K8S_ITEM),
+    "namespace": ("default", K8S_ITEM),
+    "worker_pod_priority": ("", K8S_ITEM),
+    "master_resource_request": ("", K8S_ITEM),
+    "worker_resource_request": ("", K8S_ITEM),
+    "devices_per_worker": (1, K8S_ITEM),
+}
+
+_TRAINING_JOBS = ("training_only", "training_with_evaluation")
+
+
+def check_ported(args) -> None:
+    """Raise ``NotImplementedError`` naming the ``ROADMAP.md`` item of any
+    flag whose value selects a part the port leaves out."""
+    for flag, (default, item) in _NOT_PORTED.items():
+        value = getattr(args, flag, default)
+        if value != default:
+            raise NotImplementedError(f"--{flag}={value!r} is not ported: {item}")
+    if getattr(args, "job_type", _TRAINING_JOBS[1]) not in _TRAINING_JOBS:
+        raise NotImplementedError(f"--job_type={args.job_type!r} is not ported: {EVALUATION_ITEM}")
+
+
+def _apply_log_level(args):
+    logging.getLogger("elasticdl_tpu_torch").setLevel(args.log_level)
+
+
+def parse_master_args(argv=None):
+    args, _unknown = build_master_parser().parse_known_args(argv)
+    _apply_log_level(args)
+    check_ported(args)
+    return args
+
+
+def parse_worker_args(argv=None):
+    args, _unknown = build_worker_parser().parse_known_args(argv)
+    _apply_log_level(args)
+    check_ported(args)
+    return args
+
+
+def format_dict_params(params: dict) -> str:
+    """Inverse of ``parse_dict_params``: ``{'a': 1, 'b': True}`` ->
+    ``'a=1,b=true'``, sorted; records the resolved model params (job flags
+    included) in a served artifact."""
+    def fmt(value):
+        if isinstance(value, bool):
+            return "true" if value else "false"
+        return str(value)
+
+    for key, value in params.items():
+        if isinstance(value, str) and "," in value:
+            raise ValueError(
+                f"model param {key}={value!r} cannot round-trip through the k=v,k=v format"
+            )
+    return ",".join(f"{k}={fmt(v)}" for k, v in sorted(params.items()))
+
+
+def args_to_argv(args: argparse.Namespace, keys=None) -> list:
+    """A namespace back into ``--flag value`` argv (master -> workers)."""
+    argv = []
+    for key, value in sorted(vars(args).items()):
+        if keys is not None and key not in keys:
+            continue
+        if value is None or value == "":
+            continue
+        argv.extend([f"--{key}", str(value)])
+    return argv

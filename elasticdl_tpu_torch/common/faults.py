@@ -19,10 +19,15 @@ Injection sites wired into the port:
     ckpt.delta           every DeltaExporter.publish_delta (kind:
                          truncate[=keep_bytes]: tears the largest delta
                          file after the manifest recorded its CRC)
+    rpc.<method>         every attempt of a master call (common/retry.py;
+                         kinds: error[=CODE] fails the attempt with that
+                         status code, latency[=seconds] delays it)
+    worker.task          every task a cluster worker starts
+                         (worker/collective_worker.py; kind:
+                         crash[=exit code] kills the process at once)
 
-The JAX package's other sites (``rpc.*``, ``ckpt.write``, ``worker.*``,
-``stream.*``, ``quality.*``) wait for their modules (ROADMAP.md Queue 1
-items 6 and 8).
+The JAX package's other sites (``ckpt.write``, ``stream.*``,
+``quality.*``) wait for their modules (ROADMAP.md Queue 1 item 8).
 
 Spec grammar (comma/semicolon separated, via ``ELASTICDL_FAULTS`` or
 ``install()``), the JAX package's:
@@ -174,3 +179,9 @@ def fire(site: str) -> Optional[FaultSpec]:
             if spec.site == site and spec.triggers_at(n):
                 return spec
     return None
+
+
+def crash_now(spec: FaultSpec) -> None:
+    """Apply a ``crash`` fault: immediate process death (no atexit, no
+    flush), which the pod manager cannot tell from a SIGKILL."""
+    os._exit(int(spec.arg or 13))

@@ -1,16 +1,333 @@
-"""Pad-to-bucket staging for serving batches.
+"""Host data staging: the port's copy of ``elasticdl_tpu/data/pipeline.py``.
 
-The port's copy of the shared pad-and-stage step of
-``elasticdl_tpu/data/pipeline.py``: a dispatched batch is padded to the
-smallest power-of-two bucket that holds it, so the device sees at most
-``len(buckets)`` batch shapes.
+- ``PipelineConfig`` (:70): the knobs, from ``--pipeline``,
+  ``--parse_pool_workers``, ``--pipeline_inflight`` and
+  ``--dispatch_depth``.
+- ``ParsePool`` (:133): an ordered, bounded thread-pool map; results in
+  submission order, errors raised where serial ``map`` would raise them.
+- ``Prefetcher`` (:230): bounded background readahead over a batch
+  iterator; the queue bound is the backpressure contract, and
+  ``close()`` drains synchronously, so no stale batch crosses a task
+  boundary (and with it a rendezvous).
+- ``StagingPipeline`` (:339): staging booked as overlap while a dispatch
+  is outstanding.
+- The serving pad-to-bucket step (``bucket_sizes``, ``pad_and_stage``).
+
+The training worker (``worker/collective_worker.py``) runs sync by
+default; ``--pipeline async`` moves record parsing and batch stacking
+off the step loop, and the variables trained are those of sync.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import queue
+import threading
+import time
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+
+PIPELINE_MODES = ("sync", "async")
+
+
+class PipelineConfig:
+    """Knobs for the async staging engine, threadable from CLI args.
+
+    mode            "sync" keeps the reference-parity serial step loop;
+                    "async" turns on parse pool + prefetch + overlap
+                    booking.
+    parse_workers   host parse pool size (0 = parse inline on the
+                    producer thread; the pool is still bypassed
+                    entirely in sync mode).
+    max_inflight    bounded lookahead: max batches buffered between the
+                    producer and the step loop (backpressure bound).
+    dispatch_depth  how many windows may be in flight on the device
+                    queue before staging stops earning overlap credit.
+    """
+
+    def __init__(
+        self,
+        mode: str = "sync",
+        parse_workers: int = 0,
+        max_inflight: int = 2,
+        dispatch_depth: int = 2,
+    ):
+        if mode not in PIPELINE_MODES:
+            raise ValueError(
+                f"pipeline mode {mode!r} not in {PIPELINE_MODES}"
+            )
+        self.mode = mode
+        self.parse_workers = max(0, int(parse_workers))
+        self.max_inflight = max(1, int(max_inflight))
+        self.dispatch_depth = max(1, int(dispatch_depth))
+
+    @property
+    def is_async(self) -> bool:
+        return self.mode == "async"
+
+    @classmethod
+    def from_args(cls, args) -> "PipelineConfig":
+        return cls(
+            mode=getattr(args, "pipeline", "sync"),
+            parse_workers=getattr(args, "parse_pool_workers", 0),
+            max_inflight=getattr(args, "pipeline_inflight", 2),
+            dispatch_depth=getattr(args, "dispatch_depth", 2),
+        )
+
+
+class _ImapState:
+    """Per-imap reassembly buffer shared between submitter and workers."""
+
+    __slots__ = ("cond", "results")
+
+    def __init__(self):
+        self.cond = threading.Condition()
+        self.results: Dict[int, Any] = {}
+
+
+class ParsePool:
+    """Ordered, bounded thread-pool map for host parse work (the port's
+    worker stacks each batch's records on it).
+
+    `imap(fn, iterable)` yields `fn(item)` in submission order while up
+    to `lookahead` items execute concurrently on `workers` threads.
+    Exceptions re-raise at the yield position of the item that failed —
+    exactly where serial `map` would have raised — so downstream code
+    cannot observe reordering even under failure.  With `workers == 0`
+    the pool degrades to plain serial `map` (no threads at all).
+    """
+
+    _CLOSE = object()
+
+    def __init__(self, workers: int):
+        self.workers = max(0, int(workers))
+        self._tasks: "queue.Queue" = queue.Queue()
+        self._threads = [
+            threading.Thread(
+                target=self._worker, name=f"parse-pool-{i}", daemon=True
+            )
+            for i in range(self.workers)
+        ]
+        for t in self._threads:
+            t.start()
+        self._closed = False
+
+    def _worker(self) -> None:
+        while True:
+            task = self._tasks.get()
+            if task is self._CLOSE:
+                return
+            seq, fn, item, state = task
+            try:
+                out = (True, fn(item))
+            except BaseException as exc:  # propagated to the consumer
+                out = (False, exc)
+            with state.cond:
+                state.results[seq] = out
+                state.cond.notify_all()
+
+    def imap(
+        self,
+        fn: Callable[[Any], Any],
+        iterable: Iterable[Any],
+        lookahead: Optional[int] = None,
+    ) -> Iterator[Any]:
+        if self.workers == 0:
+            yield from map(fn, iterable)
+            return
+        if self._closed:
+            raise RuntimeError("ParsePool is closed")
+        if lookahead is None:
+            lookahead = 2 * self.workers
+        lookahead = max(1, int(lookahead))
+        state = _ImapState()
+        it = iter(iterable)
+        submitted = 0
+        next_yield = 0
+        exhausted = False
+        while True:
+            # Keep the pool fed up to the lookahead bound; the bound is
+            # what keeps host memory flat when the consumer is slow.
+            while not exhausted and submitted - next_yield < lookahead:
+                try:
+                    item = next(it)
+                except StopIteration:
+                    exhausted = True
+                    break
+                self._tasks.put((submitted, fn, item, state))
+                submitted += 1
+            if next_yield >= submitted and exhausted:
+                return
+            with state.cond:
+                while next_yield not in state.results:
+                    state.cond.wait()
+                ok, value = state.results.pop(next_yield)
+            next_yield += 1
+            if not ok:
+                raise value
+            yield value
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        for _ in self._threads:
+            self._tasks.put(self._CLOSE)
+        for t in self._threads:
+            t.join()
+
+
+class Prefetcher:
+    """Bounded background readahead over an iterator.
+
+    The producer thread pulls from `source` and buffers up to
+    `max_inflight` items; `__next__` hands them out in order.  The
+    consumer's blocked time (`wait_s`) and the producer's total
+    production time (`prod_s`) are both clocked: the step loop books
+    `wait_s` as `data_wait` (it really stalled) and
+    `max(0, prod_s - wait_s)` as overlap credit (host work that hid
+    behind device execution).  `close()` drains synchronously — after it
+    returns no producer thread is running and no buffered item will
+    ever be observed, which is what lets a churn/rescale/checkpoint
+    boundary guarantee no stale batch crosses a rendezvous generation.
+    """
+
+    _DONE = object()
+
+    def __init__(self, source: Iterable[Any], max_inflight: int = 2):
+        self._queue: "queue.Queue" = queue.Queue(
+            maxsize=max(1, int(max_inflight))
+        )
+        self._source = iter(source)
+        self._stop = threading.Event()
+        self._exc: Optional[BaseException] = None
+        self.prod_s = 0.0
+        self.wait_s = 0.0
+        self.produced = 0
+        self.consumed = 0
+        self._finished = False
+        self._thread = threading.Thread(
+            target=self._produce, name="prefetcher", daemon=True
+        )
+        self._thread.start()
+
+    def _put(self, item: Any) -> bool:
+        """Queue.put that aborts promptly when close() is racing us."""
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _produce(self) -> None:
+        try:
+            while not self._stop.is_set():
+                t0 = time.perf_counter()
+                try:
+                    item = next(self._source)
+                except StopIteration:
+                    break
+                self.prod_s += time.perf_counter() - t0
+                self.produced += 1
+                if not self._put(item):
+                    return
+        except BaseException as exc:  # re-raised at the consumer
+            self._exc = exc
+        self._put(self._DONE)
+
+    def __iter__(self) -> "Prefetcher":
+        return self
+
+    def __next__(self) -> Any:
+        if self._finished:
+            raise StopIteration
+        t0 = time.perf_counter()
+        item = self._queue.get()
+        self.wait_s += time.perf_counter() - t0
+        if item is self._DONE:
+            self._finished = True
+            if self._exc is not None:
+                exc, self._exc = self._exc, None
+                raise exc
+            raise StopIteration
+        self.consumed += 1
+        return item
+
+    @property
+    def overlap_s(self) -> float:
+        """Producer time hidden behind the consumer's own work."""
+        return max(0.0, self.prod_s - self.wait_s)
+
+    def close(self) -> None:
+        """Synchronous drain: stop the producer, discard buffered items,
+        join.  Safe to call multiple times and mid-iteration."""
+        self._stop.set()
+        # Unblock a producer stuck on a full queue / a consumer racing.
+        while True:
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join()
+        # Drop anything the producer flushed while we were joining.
+        while True:
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                break
+        self._finished = True
+
+
+class StagingPipeline:
+    """Device staging with honest booking.  CUDA launches are
+    asynchronous, so `stage_window`/`stage_batch` issued while a previous
+    window still runs on the card overlaps with it: such staging time is
+    booked as `overlap_s` (and as overlap credit on a step-anatomy
+    ledger, when one is given), the rest as `stage_s`.  The outstanding
+    count is capped at `dispatch_depth`; `note_synced()` resets it where
+    the host waited for the card (a readback, a task boundary).
+    """
+
+    def __init__(self, anatomy=None, dispatch_depth: int = 2):
+        self._anatomy = anatomy
+        self._depth = max(1, int(dispatch_depth))
+        self._outstanding = 0
+        self.stage_s = 0.0
+        self.overlap_s = 0.0
+
+    @property
+    def outstanding(self) -> int:
+        return self._outstanding
+
+    def stage(self, fn: Callable[..., Any], *args: Any) -> Any:
+        """Run a trainer staging fn, booking its host time truthfully."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        dt = time.perf_counter() - t0
+        if self._outstanding > 0:
+            self.overlap_s += dt
+            if self._anatomy is not None:
+                self._anatomy.note_overlap_seconds(dt)
+        else:
+            self.stage_s += dt
+            if self._anatomy is not None:
+                self._anatomy.note_phase_seconds("stage", dt)
+        return out
+
+    def note_dispatched(self) -> None:
+        """A window/step was dispatched to the device queue."""
+        self._outstanding = min(self._outstanding + 1, self._depth)
+
+    def note_synced(self) -> None:
+        """The host observed a device result (blocking readback): the
+        device queue is drained, nothing is outstanding."""
+        self._outstanding = 0
+
+    def drain(self) -> None:
+        """Task/rendezvous boundary: forget in-flight accounting."""
+        self._outstanding = 0
 
 
 def bucket_sizes(max_batch_size: int) -> Tuple[int, ...]:

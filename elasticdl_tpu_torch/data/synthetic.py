@@ -8,15 +8,21 @@ dense features, categories and labels, bit for bit: a record's
 label depends on a sparse set of (field, id) weights plus a linear term
 on the dense features, so both the embedding path and the dense path must
 learn for the loss to fall.  Built whole-array at once (the reader builds
-a list of per-record tuples).
+a list of per-record tuples); ``SyntheticCTRReader`` serves them as the
+reader's records, ``({"dense": f32 [13], "cat": i32 [26]}, label)``, and
+builds the arrays only when a worker first reads (the master counts
+records from the path alone).
 """
 
 from __future__ import annotations
 
 import urllib.parse
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from elasticdl_tpu_torch.data.reader import AbstractDataReader
 
 NUM_DENSE = 13
 NUM_CAT = 26
@@ -74,3 +80,36 @@ def parse_synthetic_path(data_path: str) -> Tuple[Optional[str], Dict[str, int]]
         for key, values in urllib.parse.parse_qs(parsed.query).items()
     }
     return parsed.netloc, params
+
+
+class SyntheticCTRReader(AbstractDataReader):
+    """The records of the JAX zoo's ``synthetic_ctr_reader``
+    (``model_zoo/datasets.py:101-140``) for every task range, from
+    ``synthetic_ctr_arrays``."""
+
+    def __init__(self, n: int, vocab_size: int = 1000, seed: int = 0,
+                 shard_name: str = "ctr-synth", **kwargs):
+        super().__init__(**kwargs)
+        self._n = int(n)
+        self._vocab = int(vocab_size)
+        self._seed = int(seed)
+        self._shard_name = shard_name
+        self._arrays = None
+        self._lock = threading.Lock()
+
+    def create_shards(self):
+        return {self._shard_name: self._n}
+
+    def arrays(self):
+        """``(features, labels)`` of every record, built once."""
+        with self._lock:
+            if self._arrays is None:
+                self._arrays = synthetic_ctr_arrays(self._n, vocab_size=self._vocab,
+                                                    seed=self._seed)
+            return self._arrays
+
+    def read_records(self, task):
+        features, labels = self.arrays()
+        dense, cats = features["dense"], features["cat"]
+        for i in range(task.start, min(task.end, self._n)):
+            yield {"dense": dense[i], "cat": cats[i]}, labels[i]

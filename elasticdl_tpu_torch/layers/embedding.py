@@ -38,8 +38,11 @@ from typing import Dict, Iterator, Optional
 import torch
 from torch import nn
 
+from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.ops import sparse_embedding as ske
-from elasticdl_tpu_torch.parallel.packed import PackedSpec
+from elasticdl_tpu_torch.parallel.packed import PackedSpec, oov_debug_enabled
+
+logger = get_logger("layers.embedding")
 
 #: The JAX ``default_embedding_init`` range (the reference's Keras
 #: 'uniform' initializer).
@@ -161,6 +164,13 @@ class Embedding(nn.Module):
         ids = ids.to(torch.int32)
         valid = (ids >= 0) & (ids < spec.vocab_size)
         safe_ids = torch.where(valid, ids, torch.zeros_like(ids))
+        if oov_debug_enabled():
+            oov = int(torch.sum(ids >= spec.vocab_size))
+            if oov:
+                logger.warning(
+                    "OOV diagnostics [%s]: %d ids >= vocab_size (%d) this step; they read "
+                    "zeros and receive no update: hash open-vocabulary ids into fixed bins",
+                    self.extra_repr(), oov, spec.vocab_size)
         bet = None
         cap = active_capture()
         if cap is not None:

@@ -1,0 +1,107 @@
+"""Cluster-mode job orchestration on one host: the port's copy of
+``elasticdl_tpu/master/job_runner.py`` (``_build_worker_manager`` :171,
+local processes only; ``_ensure_elastic_checkpointing`` :241;
+``run_allreduce_job`` :283; ``run_ps_job`` :371).
+
+The master starts its services and a ``LocalProcessManager``, then
+supervises the worker fleet until the job completes.  Extra worker
+environment rides ``ELASTICDL_WORKER_ENV`` (``K=V;K2=V2``).  The policy
+engine and the SLO plane (``--policy_enabled``, ``--slo_enabled``, on by
+default in the JAX package) are accepted and select nothing, and so does
+the regrow of a shrunk world (``ELASTICDL_CAPACITY_FILE``) (ROADMAP.md
+Queue 1 items 6 and 8).
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+
+from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.common.boundary import forbidden_modules_loaded
+from elasticdl_tpu_torch.common.constants import Mode
+from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.master.main import start_master
+from elasticdl_tpu_torch.master.pod_manager import LocalProcessManager, worker_argv_from_args
+from elasticdl_tpu_torch.master.rendezvous_server import ElasticRendezvous
+
+logger = get_logger("master.job_runner")
+
+
+def _build_worker_manager(args, master, rendezvous, worker_env) -> LocalProcessManager:
+    return LocalProcessManager(
+        num_workers=args.num_workers,
+        worker_argv_fn=worker_argv_from_args(args, master.addr),
+        worker_env=worker_env,
+        log_dir=os.path.join(args.checkpoint_dir or tempfile.gettempdir(),
+                             f"{args.job_name}_worker_logs"),
+        rendezvous=rendezvous,
+        task_manager=master.task_manager,
+        max_restarts=args.max_worker_restarts,
+        job_finished_fn=master.task_manager.finished,
+        liveness_timeout_s=args.worker_liveness_timeout_s,
+    )
+
+
+def _ensure_elastic_checkpointing(args, mode: str):
+    """Churn recovery is restart-the-world + restore-latest: an elastic
+    training job without a checkpoint would silently reset its weights
+    on churn while the task queue keeps finished tasks finished.  So it
+    gets a job-scoped directory and a save cadence by default."""
+    if mode != Mode.TRAINING or not args.need_elasticity:
+        return
+    if not args.checkpoint_dir:
+        args.checkpoint_dir = tempfile.mkdtemp(prefix=f"{args.job_name}_ckpt_")
+        logger.warning("Elastic job has no --checkpoint_dir; worker churn would silently "
+                       "reset model weights while task progress survives. Defaulting to %s",
+                       args.checkpoint_dir)
+    if not args.checkpoint_steps:
+        args.checkpoint_steps = 100
+        logger.warning("Elastic job has --checkpoint_steps=0; defaulting to %d so re-formed "
+                       "worlds restore recent state.", args.checkpoint_steps)
+
+
+def run_allreduce_job(args, mode: str = Mode.TRAINING) -> int:
+    """N worker processes form a world; churn re-forms it."""
+    _ensure_elastic_checkpointing(args, mode)
+    rendezvous = ElasticRendezvous()
+    master = start_master(args, rendezvous_server=rendezvous)
+    worker_env = {}
+    for pair in os.environ.get("ELASTICDL_WORKER_ENV", "").split(";"):
+        if "=" in pair:
+            key, value = pair.split("=", 1)
+            worker_env[key.strip()] = value
+    manager = _build_worker_manager(args, master, rendezvous, worker_env)
+    master.pod_manager = manager
+    progress_persister = master.progress_persister
+    job_succeeded = False
+    try:
+        manager.start()
+        ok = manager.wait()
+        if not ok:
+            logger.error("Job failed: %s", manager.failed_reason)
+            return 1
+        if not master.task_manager.finished():
+            logger.error("Workers exited but tasks remain unfinished")
+            return 1
+        logger.info("Job complete (%d records finished, %d replayed after churn)",
+                    master.task_manager.finished_record_count,
+                    master.task_manager.recovered_record_count)
+        job_succeeded = True
+        return 0
+    finally:
+        manager.stop()
+        master.stop()
+        obs.journal().record("master_exit", succeeded=job_succeeded,
+                             restarts_used=manager.restarts_used,
+                             forbidden_modules=forbidden_modules_loaded())
+        if job_succeeded and progress_persister is not None:
+            # A terminal snapshot would make the next run with this
+            # checkpoint_dir a silent no-op.
+            progress_persister.clear()
+
+
+def run_ps_job(args, mode: str = Mode.TRAINING) -> int:
+    """ParameterServerStrategy: the same topology as AllReduce (the tables
+    live in the workers' trainers; there are no PS processes)."""
+    return run_allreduce_job(args, mode)

@@ -1,0 +1,80 @@
+"""The master's service: the port's copy of
+``elasticdl_tpu/master/servicer.py`` (``MasterServicer`` :31, the seven
+methods of the proto's ``Master`` service) over HTTP
+(``common/http_rpc.py``) in place of gRPC.
+
+``get_task`` and ``report_task_result`` drive the ``TaskManager``;
+``get_comm_rank`` and ``report_worker_liveness`` the
+``ElasticRendezvous`` (a world of one without one); ``report_version``
+folds the workers' model versions with max; ``get_shard_checkpoint``
+returns the task-progress JSON.  ``report_evaluation_metrics`` answers
+UNIMPLEMENTED: the evaluation service is not ported (ROADMAP.md Queue 1
+item 6), and no port worker calls it.
+"""
+
+from __future__ import annotations
+
+from elasticdl_tpu_torch.common import messages as msg
+from elasticdl_tpu_torch.common.http_rpc import JsonRpcServer
+from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.common.retry import RpcError
+
+logger = get_logger("master.servicer")
+
+
+class MasterServicer:
+    def __init__(self, task_manager, rendezvous_server=None):
+        self._task_manager = task_manager
+        self._rendezvous_server = rendezvous_server
+        self._model_version = 0
+
+    @property
+    def model_version(self) -> int:
+        return self._model_version
+
+    def get_task(self, request: msg.GetTaskRequest) -> msg.GetTaskResponse:
+        return msg.GetTaskResponse(task=self._task_manager.get(request.worker_id))
+
+    def report_task_result(self, request: msg.ReportTaskResultRequest
+                           ) -> msg.ReportTaskResultResponse:
+        success = not request.err_message
+        self._task_manager.report(request.task_id, success, worker_id=request.worker_id,
+                                  exec_counters=dict(request.exec_counters))
+        if not success:
+            logger.warning("Worker %d failed task %d: %s", request.worker_id,
+                           request.task_id, request.err_message)
+        return msg.ReportTaskResultResponse()
+
+    def report_evaluation_metrics(self, request):
+        from elasticdl_tpu_torch.common.args import EVALUATION_ITEM
+
+        raise RpcError("UNIMPLEMENTED", f"evaluation metrics: {EVALUATION_ITEM}")
+
+    def report_version(self, request: msg.ReportVersionRequest) -> msg.ReportVersionResponse:
+        self._model_version = max(self._model_version, request.model_version)
+        return msg.ReportVersionResponse()
+
+    def get_comm_rank(self, request: msg.GetCommRankRequest) -> msg.GetCommRankResponse:
+        if self._rendezvous_server is None:
+            return msg.GetCommRankResponse(rank_id=0, world_size=1, rendezvous_id=0)
+        return self._rendezvous_server.get_comm_rank(request.worker_id, request.host)
+
+    def report_worker_liveness(self, request: msg.ReportWorkerLivenessRequest
+                               ) -> msg.ReportWorkerLivenessResponse:
+        should_reset = False
+        if self._rendezvous_server is not None:
+            should_reset = self._rendezvous_server.report_liveness(
+                request.worker_id, request.host, request.rendezvous_id)
+        return msg.ReportWorkerLivenessResponse(should_reset=should_reset)
+
+    def get_shard_checkpoint(self, request) -> msg.ShardCheckpointResponse:
+        return msg.ShardCheckpointResponse(content=self._task_manager.to_checkpoint())
+
+
+def start_master_server(servicer: MasterServicer, port: int = 0):
+    """Serve ``servicer`` over HTTP on ``port`` (0 picks a free one);
+    returns ``(server, port)``."""
+    server = JsonRpcServer(servicer, port=port, name="master")
+    bound = server.start()
+    logger.info("Master HTTP server listening on port %d", bound)
+    return server, bound

@@ -37,10 +37,12 @@ from elasticdl_tpu_torch.obs.metrics import (
     Gauge,
     Histogram,
     MetricsRegistry,
+    RateTracker,
 )
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry", "EventJournal", "DURATION_BUCKETS",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "RateTracker", "EventJournal",
+    "DURATION_BUCKETS",
     "REQUIRED_FIELDS", "registry", "journal", "counter", "gauge", "histogram", "init_journal",
     "span", "missing_fields",
 ]

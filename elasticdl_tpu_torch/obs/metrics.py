@@ -20,7 +20,9 @@ from __future__ import annotations
 
 import re
 import threading
+import time
 from bisect import bisect_left
+from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 
@@ -321,3 +323,32 @@ class MetricsRegistry:
         return "\n".join(lines) + "\n"
 
 
+
+
+class RateTracker:
+    """Sliding-window throughput over an event feed: ``add(n)`` on each
+    report, ``rate()`` = events/second over the trailing window (the
+    master's job-wide steps/s and examples/s)."""
+
+    def __init__(self, window_s: float = 60.0):
+        self._window_s = float(window_s)
+        self._lock = threading.Lock()
+        self._samples: deque = deque()  # (t, amount)
+
+    def _prune_locked(self, now: float):
+        horizon = now - self._window_s
+        while self._samples and self._samples[0][0] < horizon:
+            self._samples.popleft()
+
+    def add(self, amount: float, now: Optional[float] = None):
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            self._samples.append((now, float(amount)))
+            self._prune_locked(now)
+
+    def rate(self, now: Optional[float] = None) -> float:
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            self._prune_locked(now)
+            total = sum(amount for _t, amount in self._samples)
+        return total / self._window_s

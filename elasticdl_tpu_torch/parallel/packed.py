@@ -21,12 +21,31 @@ real row.  Ids outside ``[0, vocab)`` are the Embedding layer's business
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 LANES = 128
+
+# Opt-in out-of-vocabulary diagnostics (--oov_diagnostics, or the
+# environment's ELASTICDL_OOV_DEBUG), JAX packed.py:46-57.  Ids outside
+# [0, vocab) read zeros and receive no update; with diagnostics on, the
+# Embedding layer logs each step's count of ids >= vocab_size (a host
+# readback, so a sync per lookup: a diagnostic, off by default).
+_OOV_DEBUG = os.environ.get("ELASTICDL_OOV_DEBUG", "").strip().lower() in (
+    "1", "true", "yes", "on",
+)
+
+
+def set_oov_debug(enabled: bool) -> None:
+    global _OOV_DEBUG
+    _OOV_DEBUG = bool(enabled)
+
+
+def oov_debug_enabled() -> bool:
+    return _OOV_DEBUG
 
 
 def _pad_dim(dim: int) -> int:

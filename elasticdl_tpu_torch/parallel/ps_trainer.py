@@ -361,6 +361,14 @@ class ShardedEmbeddingTrainer:
             )
             logger.info("sparse_apply_every=auto -> %d (%.1fM embedding rows)",
                         self._sparse_apply_every, total_rows / 1e6)
+        if self._sparse_apply_every == 1 and total_rows > AUTO_APPLY_TABLE_ROWS:
+            # JAX ps_trainer.py:435-449: strict apply at this scale pays the
+            # table-sized optimizer step every step; say so.
+            logger.warning(
+                "Strict per-step sparse apply with %.1fM embedding rows resident: "
+                "--sparse_apply_every=16 amortizes the table-sized sparse optimizer step "
+                "at this scale; strict mode stays exact per step if that is what you need",
+                total_rows / 1e6)
         logger.info(
             "Initialized PS-mode model on %s: %d dense params, %d table(s) of "
             "%d rows [%s, sparse_apply_every=%d, route %s]", self.device,

@@ -220,15 +220,19 @@ def export_model(
     chunk_rows: int = convert.CHUNK_ROWS,
 ) -> str:
     """Write the servable artifact of a trained
-    ``parallel.ps_trainer.ShardedEmbeddingTrainer`` in the JAX package's
-    format (its ``export_model``): the dense params in the flax layout,
-    each table packed in ``tables/<i>.npy``, and the signature with the
-    trainer's ``step``.  Both this package's ``load_for_serving`` and the
-    JAX one read it.  On a process mesh every rank calls it (the tables
-    are gathered) and rank 0 writes."""
+    ``parallel.ps_trainer.ShardedEmbeddingTrainer`` (or
+    ``parallel.dp_trainer.DataParallelTrainer``, which has no tables) in
+    the JAX package's format (its ``export_model``): the dense params in
+    the flax layout, each table packed in ``tables/<i>.npy``, and the
+    signature with the trainer's ``step``.  Both this package's
+    ``load_for_serving`` and the JAX one read it.  On a process mesh every
+    rank calls it (the tables are gathered) and rank 0 writes."""
     if trainer.state is None:
         raise ValueError("Cannot export: model was never initialized")
-    variables, tables = trainer.jax_variables()  # whole tables (gathered over a mesh)
+    if hasattr(trainer, "jax_variables"):
+        variables, tables = trainer.jax_variables()  # whole tables (gathered over a mesh)
+    else:  # dense params only, replicated on every rank
+        variables, tables = convert.jax_variables_from_port(trainer.model)
     signature = {
         "model_zoo": model_zoo,
         "model_def": model_def,

@@ -36,16 +36,15 @@ import http.client
 import io
 import json
 import os
-import random
 import threading
 import time
-from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional
 
 import numpy as np
 
 from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.common.retry import HTTP_STATUS, IDEMPOTENT_POLICY, RetryPolicy
 from elasticdl_tpu_torch.serving.batcher import MicroBatcher, QueueFullError
 
 logger = get_logger("serving.frontend")
@@ -55,17 +54,6 @@ logger = get_logger("serving.frontend")
 _DEADLINE_HEADROOM_S = 0.005
 
 DEADLINE_HEADER = "X-Deadline-S"
-
-#: gRPC status code name -> HTTP status.
-HTTP_STATUS = {
-    "OK": 200,
-    "INVALID_ARGUMENT": 400,
-    "RESOURCE_EXHAUSTED": 429,
-    "INTERNAL": 500,
-    "UNAVAILABLE": 503,
-    "DEADLINE_EXCEEDED": 504,
-}
-
 
 # ---------------------------------------------------------------------------
 # Wire codec: numpy's own portable serialization as the message format
@@ -268,33 +256,6 @@ class ServingFrontend:
 # Client
 # ---------------------------------------------------------------------------
 
-
-@dataclass(frozen=True)
-class RetryPolicy:
-    """Per-request deadline + bounded exponential backoff: the JAX
-    package's ``common/grpc_utils.RetryPolicy``.  Backoff for attempt k
-    (1-based) is ``min(max_backoff_s, base_backoff_s * 2**(k-1))`` scaled
-    by a deterministic jitter in [1, 1 + jitter] seeded from (salt,
-    method, k); ``total_budget_s`` bounds the whole call, backoff
-    included."""
-
-    timeout_s: float = 30.0
-    max_attempts: int = 1
-    base_backoff_s: float = 0.1
-    max_backoff_s: float = 2.0
-    jitter: float = 0.25
-    total_budget_s: float = 120.0
-
-    def backoff_s(self, method: str, attempt: int, salt: str = "") -> float:
-        base = min(self.max_backoff_s, self.base_backoff_s * (2 ** (attempt - 1)))
-        if not self.jitter:
-            return base
-        u = random.Random(f"{salt}:{method}:{attempt}").random()
-        return base * (1.0 + self.jitter * u)
-
-
-#: The JAX package's idempotent policy (``RPC.MAX_ATTEMPTS`` attempts).
-IDEMPOTENT_POLICY = RetryPolicy(max_attempts=24)
 
 #: What a retry rides through: the replica is (re)starting or going away.
 _TRANSIENT_ERRORS = (ConnectionRefusedError, ConnectionResetError, ConnectionAbortedError,

@@ -36,13 +36,13 @@ import argparse
 import json
 import os
 import signal
-import sys
 import tempfile
 import threading
 import time
 from typing import List
 
 from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.common.boundary import forbidden_modules_loaded
 from elasticdl_tpu_torch.common.log_utils import get_logger
 
 logger = get_logger("serving.replica")
@@ -242,13 +242,9 @@ def _journal_telemetry(replica, batcher, replica_id: int, snap: dict):
     )
 
 
-def _loaded_forbidden() -> List[str]:
-    """The JAX, gRPC or JAX-package modules this process has imported
-    (the port imports none; the start event records the proof)."""
-    return sorted(m for m in sys.modules if m.split(".")[0] in _FORBIDDEN_ROOTS)
-
-
-_FORBIDDEN_ROOTS = ("jax", "jaxlib", "grpc", "elasticdl_tpu")
+#: The JAX, gRPC or JAX-package modules this process has imported (the
+#: port imports none; the start event records the proof).
+_loaded_forbidden = forbidden_modules_loaded
 
 
 def main(argv=None) -> int:

@@ -1,0 +1,520 @@
+"""The cluster-mode worker's lockstep task loop: the port's copy of
+``elasticdl_tpu/worker/collective_worker.py`` (``_run_task_loop`` :272,
+``_local_batches`` :391, the window logic :461-520,
+``_process_train_task`` :522, ``_process_train_end`` :798,
+``_maybe_checkpoint`` :821).
+
+- Rank 0 pulls tasks from the master and broadcasts them; every rank
+  runs the same steps per task.
+- Each global minibatch is the ranks' contiguous per-rank slices in rank
+  order (``parallel/elastic.iter_local_batch_ranges``), every slice
+  padded to ``minibatch_size`` rows and masked.  The port's trainers take
+  the global batch and keep the rows of their data index
+  (``stage_batch``), so on a world of W every rank parses the W slices;
+  on one card (the world the card's machine has) that is its own.
+- Batches are staged in dispatch windows: AUTO (0) is up to 400 steps,
+  bounded by the task's batch count and a 1 GiB staged-bytes cap, and a
+  multiple of the windowed sparse apply's interval; the window ratchets
+  upward across tasks.
+- On any worker's death the world dies and the pod manager re-launches
+  it; this process restores the latest checkpoint at boot (the PS
+  trainer's sharded one through ``set_sharded_restore``), checks every
+  rank picked the same step, and the master's queue replays what was in
+  flight (at-least-once).  A failed task is reported and the process
+  exits, so the world re-forms.
+- ``--pipeline async`` parses and stacks batches off the step loop: a
+  ``Prefetcher`` thread reads the task's records, a ``ParsePool`` stacks
+  them (``--parse_pool_workers``), and the trained variables are those of
+  sync.
+
+The worker journals (``obs``) ``checkpoint_restore``, ``first_step``,
+``checkpoint_saved`` and, after every task, ``worker_task_done`` with
+the steps this process trained, its kernel launches and any forbidden
+module loaded, so a process that is killed leaves its counts behind,
+and the seconds the step loop waited for host data (``data_wait_s``;
+with async staging also the staging and prefetch seconds hidden behind
+the card's work).
+Only the TRAINING and TRAIN_END_CALLBACK tasks are ported: evaluation
+and prediction tasks raise (ROADMAP.md Queue 1 item 6), and the
+columnar batch path waits for the readers.
+"""
+
+from __future__ import annotations
+
+import time
+import traceback
+from typing import Optional
+
+import numpy as np
+import torch
+
+from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.common import faults
+from elasticdl_tpu_torch.common import messages as msg
+from elasticdl_tpu_torch.common.boundary import forbidden_modules_loaded
+from elasticdl_tpu_torch.common.constants import Mode, TaskExecCounterKey
+from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.common.model_utils import ModelSpec
+from elasticdl_tpu_torch.data.dataset import Dataset, SequentialRecords, _stack
+from elasticdl_tpu_torch.data.pipeline import (
+    ParsePool,
+    PipelineConfig,
+    Prefetcher,
+    StagingPipeline,
+)
+from elasticdl_tpu_torch.parallel import elastic
+from elasticdl_tpu_torch.parallel.elastic import WorldInfo
+from elasticdl_tpu_torch.parallel.sharding import pad_batch
+
+logger = get_logger("worker.collective_worker")
+
+
+def kernel_launches() -> dict:
+    """The process's hand-written kernel launches, by wrapper name."""
+    from elasticdl_tpu_torch.ops import flash_attention, sparse_embedding
+
+    counts = dict(sparse_embedding.launch_counts())
+    counts.update(flash_attention.launch_counts())
+    return {k: v for k, v in counts.items() if v}
+
+
+def _concat(parts):
+    """Per-rank blocks -> one global batch (dicts and arrays alike)."""
+    if len(parts) == 1:
+        return parts[0]
+    if isinstance(parts[0], dict):
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    return np.concatenate(parts)
+
+
+class CollectiveWorker:
+    #: AUTO window bounds (``--train_window_steps=0``), the JAX package's.
+    AUTO_WINDOW_STEPS = 400
+    AUTO_WINDOW_BYTES = 1 << 30
+    #: The leader reports its model version at least this often (steps).
+    REPORT_VERSION_EVERY_STEPS = 20
+    #: Seconds between polls while the master answers WAIT.
+    WAIT_SLEEP_S = 0.5
+
+    def __init__(
+        self,
+        master_client,
+        model_spec: ModelSpec,
+        data_reader,
+        minibatch_size: int,
+        world: WorldInfo,
+        trainer,
+        checkpoint_saver=None,
+        checkpoint_steps: int = 0,
+        train_window_steps: int = 0,
+        pipeline: Optional[PipelineConfig] = None,
+    ):
+        self._mc = master_client
+        self._spec = model_spec
+        self._mb = minibatch_size
+        self._world = world
+        self._trainer = trainer
+        self._ckpt = checkpoint_saver
+        self._ckpt_steps = checkpoint_steps
+        self._last_reported_version = 0
+        self._last_ckpt_step = 0
+        self._window_steps = int(train_window_steps)
+        self._pipeline = pipeline or PipelineConfig()
+        self._parse_pool = (ParsePool(self._pipeline.parse_workers)
+                            if self._pipeline.is_async and self._pipeline.parse_workers > 0
+                            else None)
+        self._batch_nbytes: Optional[int] = None
+        self._apply_short_warned = False
+        # The windowed sparse apply chunks within one dispatch window, so
+        # an explicit window grows to a multiple of its interval; 'auto'
+        # resolves at the trainer's init (_sync_apply_every).
+        self._apply_every = self._trainer_apply_every()
+        self._grow_explicit_window_to_apply_multiple()
+        self._effective_window: Optional[int] = None
+        self._readers = {msg.TRAINING: data_reader, msg.TRAIN_END_CALLBACK: data_reader}
+        self._shard_names = list(data_reader.shard_names())
+        self._metadata = data_reader.metadata
+        self._started = time.monotonic()
+        self._host_seconds: dict = {}  # the last train task's host-side seconds
+        #: Train steps this process ran (all its tasks).
+        self.process_steps = 0
+
+    @property
+    def trainer(self):
+        return self._trainer
+
+    def _trainer_apply_every(self) -> int:
+        return int(getattr(self._trainer, "sparse_apply_every", 1) or 1)
+
+    # -- restore -------------------------------------------------------------
+
+    @property
+    def _sharded_ckpt(self) -> bool:
+        """The sharded protocol when both sides speak it: every rank reads
+        and writes its own rows (the PS tables)."""
+        return hasattr(self._trainer, "save_checkpoint") and hasattr(self._ckpt, "latest_step")
+
+    def restore_from_checkpoint(self):
+        if self._ckpt is None:
+            return
+        start = time.monotonic()
+        if self._sharded_ckpt:
+            step = self._ckpt.latest_step()
+            if step is None:
+                return
+            self._trainer.set_sharded_restore(self._ckpt, step)
+        else:
+            from elasticdl_tpu_torch.serving import convert
+
+            state, step = self._ckpt.load_latest()
+            if state is None:
+                return
+            self._trainer.state = convert.dp_trainer_state_from_jax(state, self._trainer.model)
+        # Seeds the save cadence: no spurious checkpoint right after restore.
+        self._last_ckpt_step = step
+        # The restore itself lands at the trainer's first ensure_initialized.
+        self._trainer.ensure_initialized()
+        seconds = time.monotonic() - start
+        logger.info("Rank %d restored checkpoint at step %d in %.3f s", self._world.rank, step,
+                    seconds)
+        obs.journal().record("checkpoint_restore", rank=self._world.rank, step=step,
+                             seconds=round(seconds, 6))
+
+    def _verify_restore_consistency(self):
+        """Every rank must have restored the same step; a divergent rank
+        exits so the world re-forms from a consistent snapshot."""
+        if self._world.world_size <= 1:
+            return
+        from elasticdl_tpu_torch.parallel.collective import (
+            CollectiveCommunicator,
+            CollectiveResult,
+        )
+
+        step = int(self._last_ckpt_step)
+        status, leader_step = CollectiveCommunicator(self._trainer.mesh).broadcast(
+            np.int64(step), root=0)
+        if status is not CollectiveResult.SUCCEEDED:
+            raise RuntimeError("Restore-consistency broadcast failed; re-forming world")
+        if int(leader_step) != step:
+            raise RuntimeError(
+                f"Rank {self._world.rank} restored checkpoint step {step} but rank 0 "
+                f"restored {int(leader_step)}: divergent restores; aborting so the world "
+                "re-forms from a consistent snapshot")
+
+    # -- the task loop -------------------------------------------------------
+
+    def run(self):
+        heartbeat = elastic.HeartbeatReporter(self._mc, self._world).start()
+        try:
+            self._run_task_loop()
+        finally:
+            heartbeat.stop()
+            if self._parse_pool is not None:
+                self._parse_pool.close()
+
+    def _run_task_loop(self):
+        self.restore_from_checkpoint()
+        self._verify_restore_consistency()
+        while True:
+            task = self._mc.get_task() if self._world.is_leader else None
+            task = elastic.broadcast_task(task, self._shard_names, self._world)
+            if task.task_id == -1 and task.type != msg.WAIT:
+                logger.info("Job complete; rank %d exiting", self._world.rank)
+                break
+            if task.type == msg.WAIT:
+                time.sleep(self.WAIT_SLEEP_S)
+                continue
+            spec = faults.fire("worker.task")
+            if spec is not None and spec.kind == "crash":
+                faults.crash_now(spec)
+            try:
+                type_name = msg.task_type_name(task.type)
+            except ValueError:
+                type_name = "UNKNOWN"
+            start = time.monotonic()
+            try:
+                with obs.span("worker.task", labels={"type": type_name},
+                              task_id=task.task_id, rank=self._world.rank):
+                    counters = self._process_task(task)
+            except Exception as exc:
+                logger.error("Task %d failed on rank %d:\n%s", task.task_id, self._world.rank,
+                             traceback.format_exc())
+                if self._world.is_leader:
+                    self._mc.report_task_result_best_effort(task.task_id, str(exc) or repr(exc))
+                # A failed collective step poisons the world: die, and let
+                # the pod manager re-form it.
+                raise
+            self._note_task_done(task, counters, time.monotonic() - start)
+            if self._world.is_leader:
+                # The step succeeded on every rank; a lost report is only
+                # an RPC fault (the master requeues the task).
+                self._mc.report_task_result_best_effort(task.task_id, "", counters)
+        self._report_version(force=True)
+        self._maybe_checkpoint(force=True)
+
+    def _note_task_done(self, task, counters: dict, seconds: float) -> None:
+        batches = counters.get(TaskExecCounterKey.BATCH_COUNT, 0)
+        self.process_steps += batches
+        obs.journal().record(
+            "worker_task_done", task_id=task.task_id, rank=self._world.rank,
+            type=msg.task_type_name(task.type), start=task.start, end=task.end,
+            steps=batches, records=counters.get(TaskExecCounterKey.RECORD_COUNT, 0),
+            seconds=round(seconds, 6), step=self._trainer.step,
+            process_steps=self.process_steps, kernel_launches=kernel_launches(),
+            forbidden_modules=forbidden_modules_loaded(), **self._host_seconds,
+        )
+
+    def _process_task(self, task) -> dict:
+        self._host_seconds = {}
+        if task.type == msg.TRAINING:
+            return self._process_train_task(task)
+        if task.type == msg.TRAIN_END_CALLBACK:
+            return self._process_train_end(task)
+        from elasticdl_tpu_torch.common.args import EVALUATION_ITEM
+
+        raise NotImplementedError(
+            f"{msg.task_type_name(task.type)} tasks are not ported: {EVALUATION_ITEM}")
+
+    # -- batches ---------------------------------------------------------------
+
+    def _task_records(self, task, mode: str) -> SequentialRecords:
+        """One-pass cursor over the task's parsed records (the same on
+        every rank: ``dataset_fn`` is deterministic per task and mode)."""
+        reader = self._readers.get(task.type, self._readers[msg.TRAINING])
+        dataset = self._spec.dataset_fn(
+            Dataset.from_generator(lambda: reader.read_records(task)), mode, self._metadata)
+        return SequentialRecords(dataset)
+
+    def _raw_batches(self, task, mode: str):
+        """Yield ``(slices, template, global_real)`` per global step:
+        every rank's records of the step in rank order."""
+        records = self._task_records(task, mode)
+        ranks = [WorldInfo(r, self._world.world_size, self._world.rendezvous_id,
+                           self._world.coordinator_addr)
+                 for r in range(self._world.world_size)]
+        for parts in zip(*(elastic.iter_local_batch_ranges(task.start, task.end, self._mb, w)
+                           for w in ranks)):
+            slices = [records.slice(lo - task.start, hi - task.start) for lo, hi, _ in parts]
+            template = None if all(slices) else records.template()
+            yield slices, template, parts[0][2]
+
+    def _assemble(self, raw):
+        """``(features, labels, mask, global_real)`` of one global step:
+        each rank's slice stacked, padded to ``minibatch_size`` (an empty
+        one from the first record) and masked, then concatenated."""
+        slices, template, global_real = raw
+        feats, labels, masks = [], [], []
+        for records in slices:
+            batch = _stack(records if records else [template])
+            f, lab = batch if isinstance(batch, tuple) else (batch, None)
+            f, mask = pad_batch(f, self._mb)
+            mask[:len(records)] = 1.0
+            mask[len(records):] = 0.0
+            feats.append(f)
+            masks.append(mask)
+            labels.append(None if lab is None else pad_batch(lab, self._mb)[0])
+        return (_concat(feats), None if labels[0] is None else _concat(labels),
+                np.concatenate(masks), global_real)
+
+    def _local_batches(self, task, mode: str):
+        raw = self._raw_batches(task, mode)
+        if self._parse_pool is not None:
+            return self._parse_pool.imap(self._assemble, raw)
+        return map(self._assemble, raw)
+
+    # -- dispatch windows ------------------------------------------------------
+
+    def _grow_explicit_window_to_apply_multiple(self) -> None:
+        if self._window_steps and self._apply_every > 1 and self._window_steps % self._apply_every:
+            grown = -(-self._window_steps // self._apply_every) * self._apply_every
+            logger.warning(
+                "Dispatch window %d is not a multiple of sparse_apply_every=%d; growing the "
+                "window to %d so every chunk reaches the configured apply interval",
+                self._window_steps, self._apply_every, grown)
+            self._window_steps = grown
+
+    def _sync_apply_every(self) -> bool:
+        """Re-read the trainer's (auto-resolved) apply interval after its
+        init; True if it changed."""
+        resolved = self._trainer_apply_every()
+        if resolved == self._apply_every:
+            return False
+        self._apply_every = resolved
+        self._grow_explicit_window_to_apply_multiple()
+        return True
+
+    def _window_candidate(self, task_batches: int) -> int:
+        explicit = self._window_steps
+        cand = min(explicit or self.AUTO_WINDOW_STEPS, task_batches)
+        if not explicit and self._batch_nbytes:
+            cand = min(cand, max(1, self.AUTO_WINDOW_BYTES // self._batch_nbytes))
+        if self._apply_every > 1:
+            if cand > self._apply_every:
+                cand -= cand % self._apply_every
+            elif cand < self._apply_every and not self._apply_short_warned:
+                self._apply_short_warned = True
+                logger.warning(
+                    "Auto dispatch window %d is below sparse_apply_every=%d (task size or the "
+                    "%d MB staged-bytes cap): sparse applies run every %d steps instead",
+                    cand, self._apply_every, self.AUTO_WINDOW_BYTES >> 20, cand)
+        return max(1, cand)
+
+    def _process_train_task(self, task) -> dict:
+        batch_count = 0
+        record_count = 0
+        data_wait_s = 0.0
+        last_loss = None
+        pending: list = []
+        pending_real = 0
+        global_batch = self._mb * self._world.world_size
+        task_batches = max(1, -(-(task.end - task.start) // global_batch))
+        candidate = self._window_candidate(task_batches)
+        if self._effective_window is None or candidate > self._effective_window:
+            self._effective_window = candidate
+            if self._world.is_leader:
+                logger.info("Dispatch window -> %d steps (%s; task of %d records yields %d "
+                            "global batches)", candidate,
+                            f"--train_window_steps={self._window_steps}"
+                            if self._window_steps else "auto",
+                            task.end - task.start, task_batches)
+        window_steps = self._effective_window
+        staging = (StagingPipeline(dispatch_depth=self._pipeline.dispatch_depth)
+                   if self._pipeline.is_async else None)
+
+        def stage_call(fn, *args):
+            return staging.stage(fn, *args) if staging is not None else fn(*args)
+
+        def flush():
+            nonlocal batch_count, record_count, pending, pending_real, last_loss
+            if not pending:
+                return
+            first = self.process_steps == 0 and batch_count == 0
+            if len(pending) == window_steps:
+                window = stage_call(self._trainer.stage_window, pending)
+                last_loss = self._trainer.train_window(window)[-1]
+                if staging is not None:
+                    staging.note_dispatched()
+            else:
+                for staged_batch in pending:
+                    staged = stage_call(self._trainer.stage_batch, *staged_batch)
+                    last_loss = self._trainer.train_step_staged(staged)
+                    if staging is not None:
+                        staging.note_dispatched()
+            if first:
+                loss = float(last_loss)  # waits for the card
+                seconds = time.monotonic() - self._started
+                logger.info("First train steps done at step %d (loss %.5f), %.3f s after the "
+                            "worker loop started", self._trainer.step, loss, seconds)
+                obs.journal().record("first_step", rank=self._world.rank,
+                                     step=self._trainer.step, steps=len(pending),
+                                     seconds_since_start=round(seconds, 6))
+            batch_count += len(pending)
+            record_count += pending_real
+            pending, pending_real = [], 0
+            self._report_version_if_due()
+            self._maybe_checkpoint()
+
+        batches = iter(self._local_batches(task, Mode.TRAINING))
+        prefetcher = None
+        if self._pipeline.is_async:
+            prefetcher = Prefetcher(batches, max_inflight=self._pipeline.max_inflight)
+            batches = prefetcher
+        try:
+            while True:
+                t_wait = time.monotonic()
+                item = next(batches, None)  # the step loop blocked on host data
+                data_wait_s += time.monotonic() - t_wait
+                if item is None:
+                    break
+                features, labels, mask, global_real = item
+                self._trainer.ensure_initialized(features)
+                if self._batch_nbytes is None:
+                    # The window's one-time refinement from the real batch
+                    # size and the now-resolved apply interval.
+                    apply_changed = self._sync_apply_every()
+                    leaves = list(features.values()) if isinstance(features, dict) else [features]
+                    self._batch_nbytes = sum(np.asarray(x).nbytes
+                                             for x in leaves + [labels, mask] if x is not None)
+                    refined = self._window_candidate(task_batches)
+                    if refined < window_steps or (apply_changed and refined != window_steps):
+                        if self._world.is_leader:
+                            logger.info("Dispatch window %d -> %d (staged batch is %.1f MB, "
+                                        "%d MB auto cap; sparse_apply_every=%d)", window_steps,
+                                        refined, self._batch_nbytes / 2**20,
+                                        self.AUTO_WINDOW_BYTES >> 20, self._apply_every)
+                        window_steps = refined
+                        self._effective_window = refined
+                pending.append((features, labels, mask))
+                pending_real += global_real
+                if len(pending) == window_steps:
+                    flush()
+            flush()
+        finally:
+            # Task boundary: drain, so no stale batch crosses a rendezvous.
+            if prefetcher is not None:
+                prefetcher.close()
+            if staging is not None:
+                staging.drain()
+        if last_loss is not None and self._world.is_leader:
+            logger.info("task %d done: step=%d loss=%.5f (%d global batches)", task.task_id,
+                        self._trainer.step, float(last_loss), batch_count)
+        self._report_version()
+        self._host_seconds = {"data_wait_s": round(data_wait_s, 6)}
+        if staging is not None:
+            self._host_seconds.update(stage_s=round(staging.stage_s, 6),
+                                      stage_overlap_s=round(staging.overlap_s, 6),
+                                      prefetch_overlap_s=round(prefetcher.overlap_s, 6))
+        counters = {TaskExecCounterKey.BATCH_COUNT: batch_count,
+                    TaskExecCounterKey.RECORD_COUNT: record_count}
+        consume_oov = getattr(self._trainer, "consume_oov_count", None)
+        if consume_oov is not None:
+            oov = consume_oov()
+            if oov:
+                counters[TaskExecCounterKey.OOV_LOOKUP_COUNT] = oov
+        return counters
+
+    def _process_train_end(self, task) -> dict:
+        self._maybe_checkpoint(force=True)
+        if self._world.is_leader and self._spec.callbacks is not None:
+            for callback in self._spec.callbacks() or []:
+                callback(self)
+        return {}
+
+    # -- versions and checkpoints ----------------------------------------------
+
+    def _report_version_if_due(self):
+        if self._trainer.step - self._last_reported_version >= self.REPORT_VERSION_EVERY_STEPS:
+            self._report_version()
+
+    def _report_version(self, force: bool = False):
+        if not self._world.is_leader:
+            return
+        step = self._trainer.step
+        if force or step > self._last_reported_version:
+            self._mc.report_version(step)
+            self._last_reported_version = step
+
+    def _maybe_checkpoint(self, force: bool = False):
+        """Every rank decides alike and joins the save (collective for
+        sharded tables); the cadence is a delta, steps jump by windows."""
+        if self._ckpt is None or self._trainer.state is None:
+            return
+        step = self._trainer.step
+        due = force or (self._ckpt_steps and step - self._last_ckpt_step >= self._ckpt_steps)
+        if not (due and step > 0 and step != self._last_ckpt_step):
+            return
+        start = time.monotonic()
+        with obs.span("checkpoint.save", rank=self._world.rank, step=step):
+            if self._sharded_ckpt:
+                self._trainer.save_checkpoint(self._ckpt, step)
+            else:
+                host_state = self._trainer.state_to_jax_host()
+                if self._world.is_leader:
+                    self._ckpt.save(host_state, step)
+        if self._trainer.device.type == "cuda":
+            torch.cuda.synchronize(self._trainer.device)
+        seconds = time.monotonic() - start
+        logger.info("Checkpoint at step %d saved in %.3f s", step, seconds)
+        obs.journal().record("checkpoint_saved", rank=self._world.rank, step=step,
+                             seconds=round(seconds, 6))
+        self._last_ckpt_step = step

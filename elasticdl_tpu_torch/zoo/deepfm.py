@@ -27,8 +27,10 @@ layers, whose lookups then take the sharded dispatch over it, and puts
 the model on the mesh's device.
 
 The model-zoo contract of the JAX module: ``loss`` (sigmoid binary cross
-entropy, batch mean), ``optimizer`` (dense Adam 1e-3) and
-``embedding_optimizer`` (sparse per-row Adam 1e-3).  ``init_parameters``
+entropy, batch mean), ``optimizer`` (dense Adam 1e-3),
+``embedding_optimizer`` (sparse per-row Adam 1e-3), ``dataset_fn``
+(parse, then in training a 4096-record shuffle seeded 0) and
+``custom_data_reader`` (``synthetic://criteo?n=&vocab=&seed=``).  ``init_parameters``
 draws flax's default initialisation from a ``torch.Generator``:
 lecun-normal kernels, zero biases, the Embedding layer's uniform tables.
 In training the Embedding layers pass their perturbation capture through
@@ -40,10 +42,12 @@ from __future__ import annotations
 import math
 from typing import Any, Dict
 
+import numpy as np
 import torch
 from torch import nn
 
 from elasticdl_tpu_torch.common.device import resolve_device
+from elasticdl_tpu_torch.data.synthetic import SyntheticCTRReader, parse_synthetic_path
 from elasticdl_tpu_torch.layers.embedding import Embedding
 from elasticdl_tpu_torch.parallel import optim, sparse_optim
 from elasticdl_tpu_torch.parallel.mesh import resolve_mesh
@@ -257,3 +261,37 @@ def optimizer(lr: float = 0.001) -> optim.DenseOptimizer:
 
 def embedding_optimizer(lr: float = 0.001) -> sparse_optim.SparseOptimizer:
     return sparse_optim.adam(lr)
+
+
+def dataset_fn(dataset, mode, metadata):
+    """JAX ``deepfm_functional_api.py:216``: each record to
+    ``({"dense": f32, "cat": i32}, i32 label)``, shuffled in training."""
+    def parse(record):
+        features, label = record
+        return (
+            {
+                "dense": np.asarray(features["dense"], np.float32),
+                "cat": np.asarray(features["cat"], np.int32),
+            },
+            np.int32(label),
+        )
+
+    dataset = dataset.map(parse)
+    if mode == "training":
+        dataset = dataset.shuffle(4096, seed=0)
+    return dataset
+
+
+def custom_data_reader(data_path: str, **kwargs):
+    """JAX ``deepfm_functional_api.py:298`` for ``synthetic://`` paths: the
+    zoo's Criteo-layout records; None for any other path (its ETRF
+    reader is not ported, ``data/reader.py``)."""
+    name, params = parse_synthetic_path(data_path)
+    if name is None:
+        return None
+    return SyntheticCTRReader(
+        n=params.get("n", 4096),
+        vocab_size=params.get("vocab", VOCAB),
+        seed=params.get("seed", 0),
+        shard_name="criteo-synth",
+    )

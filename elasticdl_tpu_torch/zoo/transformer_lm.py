@@ -36,8 +36,8 @@ Context parallelism (JAX ``:107-168``): built with a
 
 The model-zoo contract of the JAX module: ``custom_model``, ``loss``
 (mean next-token cross entropy), ``optimizer`` (AdamW 3e-3, weight decay
-0.01), ``eval_metrics_fn`` and ``custom_data_reader``
-(``synthetic://lm?...``).  What is not ported yet raises
+0.01), ``eval_metrics_fn``, ``dataset_fn`` and ``custom_data_reader``
+(``synthetic://lm?...``, a reader).  What is not ported yet raises
 ``NotImplementedError``: ``model_axis_mode="tp"`` over a mesh, a mesh
 that is not a ``Mesh`` and holds more than one device, and
 ``logits_compute="bf16"``.
@@ -55,6 +55,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from elasticdl_tpu_torch.common.device import TENSOR_PARALLEL_ITEM, resolve_device
+from elasticdl_tpu_torch.data.reader import NumpyDataReader
 from elasticdl_tpu_torch.data.synthetic import parse_synthetic_path, synthetic_lm_arrays
 from elasticdl_tpu_torch.ops.flash_attention import flash_attention
 from elasticdl_tpu_torch.parallel import optim
@@ -371,16 +372,30 @@ def eval_metrics_fn():
     }
 
 
+def dataset_fn(dataset, mode, metadata):
+    """JAX ``transformer_lm.py:331``: each record to int32 ``(tokens,
+    next_tokens)``, shuffled in training."""
+    def parse(record):
+        tokens, next_tokens = record
+        return np.asarray(tokens, np.int32), np.asarray(next_tokens, np.int32)
+
+    dataset = dataset.map(parse)
+    if mode == "training":
+        dataset = dataset.shuffle(1024, seed=0)
+    return dataset
+
+
 def custom_data_reader(data_path: str, **kwargs):
-    """``synthetic://lm?n=&len=&vocab=&seed=`` -> ``(tokens, next_tokens)``
-    int32 arrays (the JAX reader's records, stacked); None for any other
-    path."""
+    """``synthetic://lm?n=&len=&vocab=&seed=`` -> a reader of the JAX zoo
+    reader's records, ``(tokens, next_tokens)`` int32 rows; None for any
+    other path."""
     name, params = parse_synthetic_path(data_path)
     if name != "lm":
         return None
-    return synthetic_lm_arrays(
+    tokens, next_tokens = synthetic_lm_arrays(
         n=params.get("n", 2048),
         seq_len=params.get("len", SEQ_LEN),
         vocab=params.get("vocab", VOCAB),
         seed=params.get("seed", 0),
     )
+    return NumpyDataReader(tokens, next_tokens, shard_name="lm-synth")

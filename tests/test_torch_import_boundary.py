@@ -14,7 +14,8 @@ from elasticdl_tpu_torch.common import device as port_device
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "elasticdl_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "grpc", "model_zoo", "elasticdl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "grpc", "google.protobuf", "model_zoo",
+             "elasticdl_tpu")
 
 
 def _forbidden(module: str) -> bool:
@@ -32,6 +33,8 @@ def _port_modules():
 def test_forbidden_name_rule():
     assert _forbidden("elasticdl_tpu") and _forbidden("elasticdl_tpu.ops")
     assert _forbidden("jax.numpy") and _forbidden("grpc")
+    assert _forbidden("google.protobuf") and _forbidden("google.protobuf.message")
+    assert not _forbidden("google") and not _forbidden("google.cloud")
     assert not _forbidden("elasticdl_tpu_torch") and not _forbidden("jaxtyping_free")
 
 
@@ -81,6 +84,27 @@ def test_port_sources_import_nothing_forbidden():
             "elasticdl_tpu_torch.serving.continuous",
             "elasticdl_tpu_torch.serving.frontend",
             "elasticdl_tpu_torch.serving.replica_main"} <= names
+    # So are the elastic job's: the master, its transport, the worker.
+    assert {"elasticdl_tpu_torch.common.args",
+            "elasticdl_tpu_torch.common.boundary",
+            "elasticdl_tpu_torch.common.constants",
+            "elasticdl_tpu_torch.common.http_rpc",
+            "elasticdl_tpu_torch.common.messages",
+            "elasticdl_tpu_torch.common.model_utils",
+            "elasticdl_tpu_torch.common.retry",
+            "elasticdl_tpu_torch.data.dataset",
+            "elasticdl_tpu_torch.data.reader",
+            "elasticdl_tpu_torch.master.job_runner",
+            "elasticdl_tpu_torch.master.main",
+            "elasticdl_tpu_torch.master.pod_manager",
+            "elasticdl_tpu_torch.master.rendezvous_server",
+            "elasticdl_tpu_torch.master.servicer",
+            "elasticdl_tpu_torch.master.task_manager",
+            "elasticdl_tpu_torch.parallel.collective",
+            "elasticdl_tpu_torch.parallel.elastic",
+            "elasticdl_tpu_torch.worker.collective_worker",
+            "elasticdl_tpu_torch.worker.main",
+            "elasticdl_tpu_torch.worker.master_client"} <= names
 
 
 _SUBPROCESS = r"""
@@ -155,6 +179,48 @@ def test_replica_main_import_closure_holds_no_jax_or_grpc():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout and "ALL []" in proc.stdout, proc.stdout
+
+
+def test_port_forbidden_list_is_this_tests():
+    from elasticdl_tpu_torch.common import boundary
+
+    assert set(boundary.FORBIDDEN_MODULES) == set(FORBIDDEN)
+
+
+def test_master_and_worker_processes_load_nothing_forbidden(tmp_path):
+    """A whole job (``python -m elasticdl_tpu_torch.master.main`` and the
+    worker process it starts): each journals the forbidden modules it
+    loaded at exit, and the lists are empty."""
+    ckpt = tmp_path / "ckpt"
+    proc = subprocess.run(
+        [sys.executable, "-m", "elasticdl_tpu_torch.master.main",
+         "--distribution_strategy=ParameterServerStrategy", "--model_zoo=model_zoo",
+         "--model_def=deepfm.deepfm_functional_api", "--model_params=vocab_size=20",
+         "--training_data=synthetic://criteo?n=64&vocab=20", "--minibatch_size=32",
+         "--records_per_task=32", f"--checkpoint_dir={ckpt}", "--device=cpu"],
+        cwd=str(REPO), capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    import json
+
+    def events(name):
+        return [json.loads(line) for line in (ckpt / name).read_text().splitlines()]
+
+    master = [e for e in events("events.jsonl") if e["event"] == "master_exit"]
+    worker = [e for e in events("events_worker_0.jsonl") if e["event"] == "worker_exit"]
+    assert master and master[0]["forbidden_modules"] == [] and master[0]["succeeded"]
+    assert worker and worker[0]["forbidden_modules"] == [] and worker[0]["steps"] == 2
+    assert "worker exit:" in (ckpt / "elasticdl-job_worker_logs" / "worker_0.log").read_text()
+
+
+def test_job_refuses_to_start_without_a_card(monkeypatch):
+    from elasticdl_tpu_torch.master import main as master_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        master_main.main(["--distribution_strategy=ParameterServerStrategy",
+                          "--model_zoo=model_zoo", "--model_def=deepfm.deepfm_functional_api",
+                          "--training_data=synthetic://criteo?n=64&vocab=20"])
 
 
 def test_resolve_device_never_falls_back_to_cpu(monkeypatch):

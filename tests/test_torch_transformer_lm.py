@@ -257,7 +257,9 @@ def test_synthetic_lm_arrays_match_the_zoo_reader():
     np.testing.assert_array_equal(nxt, np.stack([r[1] for r in records]))
     assert tokens.dtype == nxt.dtype == np.int32
     got = port_zoo.custom_data_reader(f"synthetic://lm?n={n}&len={seq_len}&vocab={vocab}&seed=9")
-    np.testing.assert_array_equal(got[0], tokens)
+    port_records = list(got.read_records(task))
+    np.testing.assert_array_equal(np.stack([r[0] for r in port_records]), tokens)
+    np.testing.assert_array_equal(np.stack([r[1] for r in port_records]), nxt)
     assert port_zoo.custom_data_reader("synthetic://mnist?n=4") is None
     assert port_zoo.custom_data_reader("/data/records") is None
 
