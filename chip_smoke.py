@@ -247,6 +247,30 @@ The elastic job (``master/``, ``worker/``, ``parallel/elastic.py``):
     nor holding a save) beside phase 20's and over the whole job, each
     checkpoint save, the rescale (kill -> detection, relaunch, restore,
     first step after), the wall.
+27. The same job reads files and evaluates: before the master starts,
+    the port's writer (``zoo.deepfm.write_criteo_etrf``) writes 786,432
+    records drawn from ``--seed`` as ``bench.py:514-532`` draws them in
+    6 ETRF shards of 131,072 (165 bytes a record and 8 of index), and
+    65,536 from ``seed + 27`` in one validation shard; the job trains on the
+    shard directory through the columnar route (96 steps in 24 tasks of
+    32,768) with ``--validation_data`` and ``--evaluation_steps=48``,
+    one checkpoint at the end, no kill.  Gates: exit 0; every training
+    range done and every evaluation range done in every round (rounds
+    journaled at versions 48 and 96, each over 65,536 rows); "Columnar
+    task path engaged" logged for training and for evaluation, and no
+    task read record by record through the ETRF reader; the native
+    codec served the worker; 2 K2 and 2 K3 a training step and 2 K2 an
+    evaluation batch in the worker's journal; no forbidden module in
+    either process; the final round's accuracy equal to, and its AUC
+    within AUC_TOL of, an in-process evaluation of the final checkpoint
+    over the same validation records.  Printed (host clock): samples/s
+    and the data-wait share over the steady tasks (all but the first)
+    beside phase 26's when both ran, a steady task's mean split (task
+    seconds, dispatch -> done, data wait, the columnar read and parse,
+    the transform, staging), one task's materialisation timed again in
+    the smoke run's own process (read, parse, join, transform, whole,
+    the Python codec's read), evaluation samples/s and each round's
+    seconds, the wall.
 
 Before each of phases 21-23 the free space of its directory is checked
 (a failure names the bytes needed); each deletes its directories.
@@ -258,7 +282,8 @@ twice per split-layout step, the resumed trainer's too, K2 twice per
 dispatch after ``apply_delta`` and after each link of phase 24, in the
 gate's shadow runs and in the replica process of phase 25 (its own
 counts, on ``/stats``); K2 and K3 twice per step in each worker process
-of phase 26 (its own counts, in its journal); K4, K5 and K6 once per layer per LM
+of phase 26 (its own counts, in its journal), and in phase 27's worker
+also K2 twice per evaluation batch; K4, K5 and K6 once per layer per LM
 step, the resumed LM's too; K7, K8 and K9 once per layer per ring step
 of a CP LM step, and K4-K6 never there; over the mesh, K1 and K3 once
 per shard; K10 in the experiment script's default mode) fails the run.
@@ -268,7 +293,7 @@ result, when no CUDA device is available or the port is not beside it.
 ``--phases 1,10`` runs only the named phases (for a short check of one
 kernel; such a run prints no result line; phase 19 reuses phase 4's
 artifact when both run; phases 21 and 22 run together, and so do 24 and
-25).
+25; phase 27 prints phase 26's figures beside its own when both run).
 """
 
 from __future__ import annotations
@@ -310,6 +335,16 @@ LOGIT_RTOL, LOGIT_ATOL = 1e-5, 1e-6
 ELASTIC_RECORDS = 196_608
 ELASTIC_PER_TASK = 32_768
 ELASTIC_CKPT_STEPS = 12
+#: Phase 27: the job on ETRF files, 6 training shards of 131,072 records
+#: (96 steps of TRAIN_BATCH in tasks of ELASTIC_PER_TASK), one validation
+#: shard, an evaluation round every 48 model versions.
+ETRF_SHARDS = 6
+ETRF_PER_SHARD = 131_072
+ETRF_VALIDATION = 65_536
+ETRF_EVAL_STEPS = 48
+#: The final AUC against an in-process evaluation of the same model:
+#: near-tied logits may order differently.
+AUC_TOL = 1e-4
 #: The training slice: the north-star table, bench.py's batch.
 TRAIN_PARAMS = "vocab_size=1000000,embedding_dim=8,hidden=128,split_tables=false"
 TRAIN_BATCH = 8192
@@ -4209,6 +4244,321 @@ def elastic_job_phase(card: str, seed: int, workdir: str, split_train=None,
     return result
 
 
+# ----------------------------------------------------------------------
+# phase 27: the elastic PS job reads ETRF files and evaluates
+# ----------------------------------------------------------------------
+
+
+def write_criteo_shards(directory: str, n: int, shards: int, vocab: int, seed: int) -> int:
+    """``n`` Criteo-layout records from ``seed`` (bench.py:514-532's draw:
+    dense uniform, cat uniform below ``vocab``, a 0/1 label) written in
+    ``shards`` equal ETRF files by the port's writer; returns the bytes
+    on disk."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.zoo.deepfm import write_criteo_etrf
+
+    os.makedirs(directory)
+    rng = np.random.RandomState(seed)
+    dense = rng.rand(n, NUM_DENSE).astype(np.float32)
+    cat = rng.randint(0, vocab, size=(n, NUM_CAT)).astype(np.int32)
+    label = rng.randint(0, 2, size=(n, 1)).astype(np.uint8)
+    per = n // shards
+    for i in range(shards):
+        rows = slice(i * per, (i + 1) * per)
+        write_criteo_etrf(os.path.join(directory, f"part-{i:05d}.etrf"), dense[rows], cat[rows],
+                          label[rows])
+    return dir_bytes(directory)
+
+
+def in_process_metrics(trainer, directory: str, batch: int):
+    """The zoo's metrics over every record of an ETRF directory, read by
+    the columnar route (evaluation mode: no shuffle) and evaluated by
+    ``trainer`` in batches of ``batch``."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common import messages as msg
+    from elasticdl_tpu_torch.data.columnar import materialize_columnar_task
+    from elasticdl_tpu_torch.zoo import deepfm
+
+    reader = deepfm.CriteoRecordReader(directory)
+    outputs, labels = [], []
+    for shard, count in reader.create_shards().items():
+        task = msg.Task(shard_name=shard, start=0, end=count, type=msg.EVALUATION)
+        cols = materialize_columnar_task(reader, task, deepfm.columnar_dataset_fn,
+                                         "evaluation", None)
+        for lo in range(0, cols.n, batch):
+            features, lab = cols.slice(lo, lo + batch)
+            outputs.append(trainer.eval_step(features))
+            labels.append(lab)
+    outputs, labels = np.concatenate(outputs), np.concatenate(labels)
+    return {k: float(np.asarray(fn(outputs, labels)))
+            for k, fn in deepfm.eval_metrics_fn().items()}, len(labels)
+
+
+def materialize_split(directory: str, per_task: int, reps: int = 5) -> dict:
+    """Host milliseconds (median of ``reps``, this process, no step loop
+    beside it) of one training task's columnar materialisation and its
+    parts: the native read of its chunks, the structured-dtype parse,
+    the join, the zoo's transform; the whole with no parse pool and with
+    the job's two parse workers; and the Python codec's read."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.common import messages as msg
+    from elasticdl_tpu_torch.data import recordfile
+    from elasticdl_tpu_torch.data.columnar import materialize_columnar_task, task_seed
+    from elasticdl_tpu_torch.data.pipeline import ParsePool
+    from elasticdl_tpu_torch.zoo import deepfm
+
+    reader = deepfm.CriteoRecordReader(directory)
+    shard = reader.shard_names()[0]
+    task = msg.Task(shard_name=shard, start=0, end=per_task)
+    layout = reader.layout()
+
+    def median_ms(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    chunks = list(recordfile.read_range_buffers(shard, 0, per_task))
+    parsed = [layout.parse_buffer(b, n) for b, n in chunks]
+    columns = {k: np.concatenate([c[k] for c in parsed]) for k in parsed[0]}
+    pool = ParsePool(2)
+    try:
+        out = {
+            "chunks": len(chunks),
+            "read_ms": median_ms(lambda: list(recordfile.read_range_buffers(shard, 0, per_task))),
+            "parse_ms": median_ms(lambda: [layout.parse_buffer(b, n) for b, n in chunks]),
+            "join_ms": median_ms(lambda: {k: np.concatenate([c[k] for c in parsed])
+                                          for k in parsed[0]}),
+            "transform_ms": median_ms(lambda: deepfm.columnar_dataset_fn(
+                columns, "training", None, seed=task_seed(task))),
+            "whole_ms": median_ms(lambda: materialize_columnar_task(
+                reader, task, deepfm.columnar_dataset_fn, "training", None)),
+            "whole_2_parse_workers_ms": median_ms(lambda: materialize_columnar_task(
+                reader, task, deepfm.columnar_dataset_fn, "training", None, parse_pool=pool)),
+        }
+    finally:
+        pool.close()
+    os.environ["ELASTICDL_DISABLE_NATIVE"] = "1"
+    try:
+        out["python_codec_read_ms"] = median_ms(
+            lambda: list(recordfile.read_range_buffers(shard, 0, per_task)))
+    finally:
+        del os.environ["ELASTICDL_DISABLE_NATIVE"]
+    return out
+
+
+def etrf_job_phase(card: str, seed: int, workdir: str, elastic=None,
+                   shards: int = ETRF_SHARDS, per_shard: int = ETRF_PER_SHARD,
+                   validation: int = ETRF_VALIDATION, vocab: int = 1_000_000,
+                   per_task: int = ELASTIC_PER_TASK, batch: int = TRAIN_BATCH,
+                   eval_steps: int = ETRF_EVAL_STEPS, extra_flags=()):
+    """Phase 27: ``python -m elasticdl_tpu_torch.master.main`` runs phase
+    26's PS job (vocab 1M per field, the split layout under strict apply,
+    per-row Adam, batch 8192, async staging with 2 parse workers, one
+    worker on the card) on ``shards`` ETRF files of ``per_shard`` records
+    written beforehand by the port's writer, and evaluates on a
+    ``validation``-record shard every ``eval_steps`` model versions and
+    at the end; one checkpoint, at the end.  Gates: exit 0, every
+    training and evaluation range done, the columnar route engaged for
+    training and evaluation with no per-record ETRF read, the native
+    codec, 2 K2 and 2 K3 a training step and 2 K2 an evaluation batch,
+    no forbidden module in any process, and the final metrics equal to an
+    in-process evaluation of the final checkpoint (accuracy exactly, AUC
+    within AUC_TOL)."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.checkpoint.sharded import ShardedCheckpointSaver
+    from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    torch.cuda.empty_cache()
+    require_free(workdir, 4_000_000_000, "the ETRF job (its files and one checkpoint)")
+    job = os.path.join(workdir, "etrf")
+    train_dir, val_dir = os.path.join(job, "train"), os.path.join(job, "validation")
+    ckpt = os.path.join(job, "ckpt")
+    n = shards * per_shard
+    t0 = time.perf_counter()
+    written = write_criteo_shards(train_dir, n, shards, vocab, seed)
+    written += write_criteo_shards(val_dir, validation, 1, vocab, seed + 27)
+    write_s = time.perf_counter() - t0
+    log(f"etrf job: wrote {shards} training shards of {per_shard} records and one validation "
+        f"shard of {validation} ({written} bytes) in {write_s!r} s, before the job")
+    master_log = os.path.join(job, "master.log")
+    here = os.path.dirname(os.path.abspath(__file__))
+    params = f"vocab_size={vocab}"
+    argv = [sys.executable, "-m", "elasticdl_tpu_torch.master.main",
+            "--distribution_strategy=ParameterServerStrategy", "--num_workers=1",
+            "--model_zoo=model_zoo", f"--model_def={MODEL_DEF}", f"--model_params={params}",
+            "--sparse_apply_every=1", f"--training_data={train_dir}",
+            f"--validation_data={val_dir}", f"--evaluation_steps={eval_steps}",
+            f"--minibatch_size={batch}", f"--records_per_task={per_task}",
+            f"--checkpoint_dir={ckpt}", "--checkpoint_steps=1000000",
+            "--pipeline=async", "--parse_pool_workers=2", *extra_flags]
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t_start = time.time()
+    with open(master_log, "wb") as log_file:
+        proc = subprocess.Popen(argv, cwd=here, env=env, stdout=log_file,
+                                stderr=subprocess.STDOUT)
+    try:
+        rc = proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        fail(f"the ETRF job did not finish within 900 s:\n{tail(master_log)}")
+    wall = time.time() - t_start
+    worker_log = os.path.join(ckpt, "elasticdl-job_worker_logs", "worker_0.log")
+    if rc != 0:
+        fail(f"the ETRF job exited {rc}:\n{tail(master_log)}\n--- worker 0\n{tail(worker_log)}")
+    events = os.path.join(ckpt, "events.jsonl")
+    wevents = os.path.join(ckpt, "events_worker_0.jsonl")
+    master = {name: journal_events(events, name) for name in (
+        "master_start", "task_dispatch", "task_done", "task_requeue", "evaluation_metrics",
+        "master_exit")}
+    if master["task_requeue"]:
+        fail(f"tasks were requeued: {master['task_requeue']}")
+    dispatched = {e["task_id"]: e for e in master["task_dispatch"]}
+    done_ids = [e["task_id"] for e in master["task_done"]]
+    if sorted(done_ids) != sorted(dispatched):
+        fail(f"dispatched {sorted(dispatched)}, done {sorted(done_ids)}")
+    by_type = {}
+    for tid in done_ids:
+        e = dispatched[tid]
+        by_type.setdefault(e["type"], []).append((os.path.basename(e["shard"]), e["start"],
+                                                  e["end"]))
+    want_train = sorted((f"part-{i:05d}.etrf", lo, min(lo + per_task, per_shard))
+                        for i in range(shards) for lo in range(0, per_shard, per_task))
+    if sorted(by_type.get("TRAINING", [])) != want_train:
+        fail(f"training ranges done {sorted(by_type.get('TRAINING', []))}, want {want_train}")
+    rounds = master["evaluation_metrics"]
+    steps = n // batch
+    want_versions = list(range(eval_steps, steps + 1, eval_steps))
+    if [r["model_version"] for r in rounds] != want_versions or any(
+            r["examples"] != validation for r in rounds):
+        fail(f"evaluation rounds {rounds}, want versions {want_versions} of {validation} rows")
+    want_eval = [("part-00000.etrf", lo, min(lo + per_task, validation))
+                 for lo in range(0, validation, per_task)]
+    eval_done = by_type.get("EVALUATION", [])
+    runs = {r: eval_done.count(r) for r in want_eval}
+    if set(eval_done) != set(want_eval) or len(set(runs.values())) != 1 \
+            or runs[want_eval[0]] < len(rounds):
+        fail(f"evaluation ranges done {sorted(eval_done)}, want each of {want_eval} in every "
+             "round")
+    eval_rounds_run = runs[want_eval[0]]
+    with open(worker_log, errors="replace") as f:
+        wlog = f.read()
+    for mode in ("training", "evaluation"):
+        if f"Columnar task path engaged ({mode}" not in wlog:
+            fail(f"the columnar route was not engaged for {mode}:\n{tail(worker_log)}")
+    readers = journal_events(wevents, "data_readers")
+    if not readers or readers[0]["record_codec"] != "native":
+        fail(f"the native ETRF codec did not serve the worker: {readers}")
+    done = journal_events(wevents, "worker_task_done")
+    last = done[-1]
+    if last["etrf_per_record_reads"]:
+        fail(f"the worker read {last['etrf_per_record_reads']} tasks record by record")
+    train_steps, eval_batches = last["process_steps"], last["process_eval_batches"]
+    want_launches = {"fused_lookup": 2 * train_steps + 2 * eval_batches,
+                     "fused_dedup_apply": 2 * train_steps}
+    if train_steps != steps or last["kernel_launches"] != want_launches:
+        fail(f"the worker launched {last['kernel_launches']} in {train_steps} steps and "
+             f"{eval_batches} evaluation batches (want {want_launches}, {steps} steps)")
+    exits = journal_events(wevents, "worker_exit")
+    if (last["forbidden_modules"] or not exits or exits[0]["forbidden_modules"]
+            or master["master_exit"][-1]["forbidden_modules"]
+            or not master["master_exit"][-1]["succeeded"]):
+        fail(f"forbidden modules or a failed exit: worker {last['forbidden_modules']}, "
+             f"{exits}, master {master['master_exit'][-1]}")
+    # The final round against the final checkpoint, evaluated here.
+    saver = ShardedCheckpointSaver(ckpt)
+    last_step = saver.latest_step()
+    if last_step != steps:
+        fail(f"the last checkpoint is step {last_step}, want {steps}")
+    zoo = resolve(MODEL_DEF)
+    trainer = ShardedEmbeddingTrainer(build_model(MODEL_DEF, params + ",sparse_apply_every=1"),
+                                      zoo.loss, zoo.optimizer(),
+                                      embedding_optimizer=zoo.embedding_optimizer())
+    trainer.set_sharded_restore(saver, last_step)
+    trainer.ensure_initialized()
+    here_metrics, examples = in_process_metrics(trainer, val_dir, batch)
+    del trainer
+    torch.cuda.empty_cache()
+    final = rounds[-1]["metrics"]
+    if (examples != validation or final["accuracy"] != here_metrics["accuracy"]
+            or abs(final["auc"] - here_metrics["auc"]) > AUC_TOL
+            or not all(np.isfinite(v) for v in final.values())):
+        fail(f"the job's final metrics {final} against {here_metrics} in process")
+    # Figures, on the host's clock.  Steady: training tasks but the
+    # first (start-up); no save falls inside one (the only save is at
+    # the end).
+    train_done = [e for e in done if e["type"] == "TRAINING"]
+    steady = train_done[1:]
+    steady_s = sum(e["seconds"] for e in steady)
+    steady_rate = sum(e["records"] for e in steady) / steady_s
+    wait_share = sum(e["data_wait_s"] for e in steady) / steady_s
+    eval_done_w = [e for e in done if e["type"] == "EVALUATION"]
+    eval_rate = sum(e["records"] for e in eval_done_w) / sum(e["seconds"] for e in eval_done_w)
+    durations = {e["task_id"]: e["duration_s"] for e in master["task_done"]}
+    ids = [e["task_id"] for e in steady]
+
+    def mean(values):
+        values = list(values)
+        return sum(values) / len(values)
+
+    split = {
+        "task_s": mean(e["seconds"] for e in steady),
+        "dispatch_to_done_s": mean(durations[t] for t in ids),
+        "data_wait_s": mean(e["data_wait_s"] for e in steady),
+        "columnar_read_parse_s": mean(e["columnar_s"] - e["columnar_transform_s"]
+                                      for e in steady),
+        "columnar_transform_s": mean(e["columnar_transform_s"] for e in steady),
+        "stage_s": mean(e["stage_s"] for e in steady),
+        "stage_overlap_s": mean(e["stage_overlap_s"] for e in steady),
+        "prefetch_overlap_s": mean(e["prefetch_overlap_s"] for e in steady),
+    }
+    first = journal_events(wevents, "first_step")
+    launch = journal_events(events, "worker_launch")
+    host_split = materialize_split(train_dir, per_task)
+    result = {
+        "records": n, "shards": shards, "validation_records": validation,
+        "records_per_task": per_task, "batch": batch, "steps": steps,
+        "files_bytes": written, "write_s": write_s, "wall_s": wall,
+        "first_dispatch_s": master["task_dispatch"][0]["ts"] - master["master_start"][0]["ts"],
+        "worker_launch_to_first_step_s": first[0]["ts"] - launch[0]["ts"],
+        "steady_tasks": len(steady), "steady_samples_per_s": steady_rate,
+        "steady_data_wait_share": wait_share, "steady_task_split_s": split,
+        "materialize_split_ms": host_split,
+        "phase26_steady_samples_per_s": None if elastic is None else
+        elastic["steady_samples_per_s"],
+        "phase26_steady_data_wait_share": None if elastic is None else
+        elastic["steady_data_wait_share"],
+        "eval_samples_per_s": eval_rate, "eval_rounds_run": eval_rounds_run,
+        "eval_round_s": {r["model_version"]: r["seconds"] for r in rounds},
+        "final_metrics": final, "in_process_metrics": here_metrics,
+        "auc_abs_diff": abs(final["auc"] - here_metrics["auc"]),
+        "per_worker": {0: {"steps": train_steps, "eval_batches": eval_batches,
+                           "launches": last["kernel_launches"]}},
+        "record_codec": readers[0]["record_codec"], "card": card,
+    }
+    log(f"etrf job: {steady_rate!r} samples/s over {len(steady)} steady tasks (phase 26 in "
+        f"this call: {result['phase26_steady_samples_per_s']!r}); the step loop waited for "
+        f"host data {wait_share!r} of their time (phase 26: "
+        f"{result['phase26_steady_data_wait_share']!r}); a steady task's mean split {split} s; "
+        f"one task's materialisation in this process {host_split} ms; "
+        f"evaluation {eval_rate!r} samples/s, rounds {result['eval_round_s']} s ("
+        f"{eval_rounds_run} run); final metrics {final}, in process {here_metrics}; worker "
+        f"launch -> first step {result['worker_launch_to_first_step_s']!r} s; K2/K3 "
+        f"{last['kernel_launches']} in {train_steps} steps and {eval_batches} evaluation "
+        f"batches; codec {result['record_codec']}; wall {wall!r} s [{card}]")
+    shutil.rmtree(job, ignore_errors=True)
+    return result
+
+
 #: The build of each of K7-K9 at RING_BENCH (bf16, head_dim 128) and on
 #: the CP LM's path (head_dim 64); K8 and K9 with the path's bf16 dO (one
 #: part).
@@ -4376,10 +4726,14 @@ def main() -> None:
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    if run(26):  # in a directory of its own: the earlier phases' files are gone
+    etrf = None
+    if run(26, 27):  # in a directory of its own: the earlier phases' files are gone
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
-            elastic = elastic_job_phase(card, args.seed, workdir, split_train)
+            if run(26):
+                elastic = elastic_job_phase(card, args.seed, workdir, split_train)
+            if run(27):
+                etrf = etrf_job_phase(card, args.seed, workdir, elastic)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     attention, edges = attention_phase(card, args.seed) if run(10) else (None, None)
@@ -4396,7 +4750,8 @@ def main() -> None:
                         "sharded_kernels": sharded, "mesh_training": mesh_train,
                         "split_training": split_train, "checkpoint": ckpt,
                         "lm_checkpoint": lm_ckpt, "continuous_loop": continuous,
-                        "replica_process": process, "elastic_job": elastic, "card": card}))
+                        "replica_process": process, "elastic_job": elastic,
+                        "etrf_job": etrf, "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -4407,7 +4762,7 @@ def main() -> None:
                     "mesh_training": mesh_train, "split_training": split_train,
                     "checkpoint": ckpt, "lm_checkpoint": lm_ckpt,
                     "continuous_loop": continuous, "replica_process": process,
-                    "elastic_job": elastic, "card": card}))
+                    "elastic_job": elastic, "etrf_job": etrf, "card": card}))
 
     by_path = {
         "fused_lookup_fm": {"serve_merged": launches["fused_lookup_fm"],
@@ -4428,7 +4783,11 @@ def main() -> None:
                          "replica_process": process["launches"]["fused_lookup"],
                          "elastic_job_worker_process": {
                              f"worker {w} ({r['steps']} steps)": r["launches"]["fused_lookup"]
-                             for w, r in elastic["per_worker"].items()}},
+                             for w, r in elastic["per_worker"].items()},
+                         "etrf_job_worker_process": {
+                             f"worker {w} ({r['steps']} steps, {r['eval_batches']} evaluation "
+                             "batches)": r["launches"]["fused_lookup"]
+                             for w, r in etrf["per_worker"].items()}},
         "fused_dedup_apply": {"train_strict": train["launches_strict"]["fused_dedup_apply"],
                               "train_window": train["launches_window"]["fused_dedup_apply"],
                               "train_mesh": mesh_train["launches"]["fused_dedup_apply"],
@@ -4439,7 +4798,11 @@ def main() -> None:
                               "elastic_job_worker_process": {
                                   f"worker {w} ({r['steps']} steps)":
                                       r["launches"]["fused_dedup_apply"]
-                                  for w, r in elastic["per_worker"].items()}},
+                                  for w, r in elastic["per_worker"].items()},
+                              "etrf_job_worker_process": {
+                                  f"worker {w} ({r['steps']} steps)":
+                                      r["launches"]["fused_dedup_apply"]
+                                  for w, r in etrf["per_worker"].items()}},
     }
     on_mesh = {"fused_lookup_fm": sharded["fused_lookup_fm"], "fused_lookup":
                sharded["fused_lookup"], "fused_dedup_apply": sharded["fused_dedup_apply"]["adam"]}

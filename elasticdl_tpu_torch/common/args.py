@@ -27,13 +27,15 @@ logger = get_logger("common.args")
 #: Where each part this module refuses is queued.
 K8S_ITEM = ("ROADMAP.md Queue 1 item 6, what the job slice leaves: the Kubernetes "
             "pod manager (k8s_pod_manager.py, k8s_client.py, tpu_slice.py)")
-EVALUATION_ITEM = ("ROADMAP.md Queue 1 item 6, what the job slice leaves: the "
-                   "evaluation service (--validation_data, --prediction_data, "
-                   "evaluation and prediction jobs) and the client CLI")
 OBS_ITEM = ("ROADMAP.md Queue 1 item 8: telemetry, goodput, tracing, stepstats, "
             "the profiler, the TensorBoard service and the SLO plane")
 LOCAL_ITEM = ("ROADMAP.md Queue 1 item 7: the Local strategy's single-device "
               "Worker and Trainer")
+#: The client CLI (``elasticdl train/evaluate/predict``), which no flag of
+#: these parsers selects: jobs start from ``python -m
+#: elasticdl_tpu_torch.master.main``.
+EVALUATION_ITEM = ("ROADMAP.md Queue 1 item 6, what the job slice leaves: the "
+                   "client CLI (client/{api,main,submit}.py)")
 
 
 def pos_int(value):
@@ -219,9 +221,6 @@ def build_worker_parser() -> argparse.ArgumentParser:
 
 #: flag -> (its default, the item a non-default value waits for).
 _NOT_PORTED = {
-    "validation_data": ("", EVALUATION_ITEM),
-    "prediction_data": ("", EVALUATION_ITEM),
-    "evaluation_steps": (0, EVALUATION_ITEM),
     "tensorboard_log_dir": ("", OBS_ITEM),
     "profile_steps": ("", OBS_ITEM),
     "slo_goodput_target": (0.0, OBS_ITEM),
@@ -236,9 +235,6 @@ _NOT_PORTED = {
     "devices_per_worker": (1, K8S_ITEM),
 }
 
-_TRAINING_JOBS = ("training_only", "training_with_evaluation")
-
-
 def check_ported(args) -> None:
     """Raise ``NotImplementedError`` naming the ``ROADMAP.md`` item of any
     flag whose value selects a part the port leaves out."""
@@ -246,8 +242,6 @@ def check_ported(args) -> None:
         value = getattr(args, flag, default)
         if value != default:
             raise NotImplementedError(f"--{flag}={value!r} is not ported: {item}")
-    if getattr(args, "job_type", _TRAINING_JOBS[1]) not in _TRAINING_JOBS:
-        raise NotImplementedError(f"--job_type={args.job_type!r} is not ported: {EVALUATION_ITEM}")
 
 
 def _apply_log_level(args):

@@ -124,10 +124,25 @@ class ShardCheckpointResponse:
 
 
 @dataclass
-class ReportEvaluationMetricsRequest:
-    """Kept for the method's signature; the evaluation service that reads
-    it is not ported (its tensors would travel as npz, not JSON)."""
+class Tensor:
+    """The proto's ``Tensor`` for JSON: ``dims`` and ``name`` as there,
+    ``dtype`` a numpy dtype string (``"<f4"``) in place of the enum, and
+    ``content`` the little-endian bytes in base64
+    (``common/tensor_utils.py`` converts)."""
 
+    name: str = ""
+    dims: List[int] = field(default_factory=list)
+    dtype: str = ""
+    content: str = ""
+
+
+@dataclass
+class ReportEvaluationMetricsRequest:
+    """A chunk of an evaluation task's outputs and labels (the JAX
+    package's chunked reports: several per task, joined by ``task_id``)."""
+
+    model_outputs: List[Tensor] = field(default_factory=list)
+    labels: List[Tensor] = field(default_factory=list)
     worker_id: int = 0
     model_version: int = 0
     task_id: int = 0
@@ -161,4 +176,7 @@ def from_json(cls, obj: dict):
     obj = dict(obj)
     if cls is GetTaskResponse and isinstance(obj.get("task"), dict):
         obj["task"] = Task(**obj["task"])
+    if cls is ReportEvaluationMetricsRequest:
+        for key in ("model_outputs", "labels"):
+            obj[key] = [Tensor(**t) for t in obj.get(key, [])]
     return cls(**obj)

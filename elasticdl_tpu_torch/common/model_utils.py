@@ -28,6 +28,8 @@ class ModelSpec:
     loss: Callable
     optimizer: Callable
     dataset_fn: Callable
+    # The columnar task path's whole-column transform (data/columnar.py).
+    columnar_dataset_fn: Optional[Callable] = None
     eval_metrics_fn: Optional[Callable] = None
     callbacks: Optional[Callable] = None
     custom_data_reader: Optional[Callable] = None
@@ -94,6 +96,7 @@ def load_model_spec(args) -> ModelSpec:
         loss=require(args.loss),
         optimizer=require(args.optimizer),
         dataset_fn=require(args.dataset_fn),
+        columnar_dataset_fn=optional("columnar_dataset_fn"),
         eval_metrics_fn=optional(args.eval_metrics_fn),
         callbacks=optional(args.callbacks),
         custom_data_reader=optional(args.custom_data_reader),

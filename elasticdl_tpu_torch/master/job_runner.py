@@ -1,7 +1,10 @@
 """Cluster-mode job orchestration on one host: the port's copy of
 ``elasticdl_tpu/master/job_runner.py`` (``_build_worker_manager`` :171,
 local processes only; ``_ensure_elastic_checkpointing`` :241;
-``run_allreduce_job`` :283; ``run_ps_job`` :371).
+``run_allreduce_job`` :283; ``run_ps_job`` :371).  An evaluation-only
+job queues its round at version 0 before the workers start; at the
+end the evaluation service computes any round still open and the final
+metrics are logged.
 
 The master starts its services and a ``LocalProcessManager``, then
 supervises the worker fleet until the job completes.  Extra worker
@@ -66,6 +69,11 @@ def run_allreduce_job(args, mode: str = Mode.TRAINING) -> int:
     _ensure_elastic_checkpointing(args, mode)
     rendezvous = ElasticRendezvous()
     master = start_master(args, rendezvous_server=rendezvous)
+    if mode == Mode.EVALUATION:
+        if master.evaluation_service is not None:
+            master.evaluation_service.trigger_evaluation(model_version=0)
+        else:
+            master.task_manager.create_evaluation_tasks(model_version=0)
     worker_env = {}
     for pair in os.environ.get("ELASTICDL_WORKER_ENV", "").split(";"):
         if "=" in pair:
@@ -78,6 +86,11 @@ def run_allreduce_job(args, mode: str = Mode.TRAINING) -> int:
     try:
         manager.start()
         ok = manager.wait()
+        if master.evaluation_service is not None:
+            master.evaluation_service.finalize()
+            metrics = master.evaluation_service.latest_metrics
+            if metrics:
+                logger.info("Final metrics: %s", metrics)
         if not ok:
             logger.error("Job failed: %s", manager.failed_reason)
             return 1

@@ -13,9 +13,15 @@ builds the task queue from the training data's shards (or resumes a
 ``task_progress.json`` left in ``--checkpoint_dir`` by a master of either
 package), serves the master's methods over HTTP, and runs the job
 (``master/job_runner.py``): the rendezvous, the worker processes and
-their supervision.  The journal is ``<checkpoint_dir>/events.jsonl``.
-The job trains on the card unless ``--device cpu`` is given, and the
-master refuses to start when there is no card.
+their supervision.  With ``--validation_data`` and the zoo's
+``eval_metrics_fn`` the ``EvaluationService`` queues evaluation rounds
+every ``--evaluation_steps`` model versions (at each epoch's end when 0)
+and once the training tasks are done; ``--job_type`` ``evaluation_only``
+runs one round at version 0 over the workers' restored model, and
+``prediction_only`` the ``--prediction_data`` tasks.  The journal is
+``<checkpoint_dir>/events.jsonl``.  The job trains on the card unless
+``--device cpu`` is given, and the master refuses to start when there is
+no card.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from __future__ import annotations
 import os
 import sys
 from dataclasses import dataclass
+from typing import Optional
 
 from elasticdl_tpu_torch import obs
 from elasticdl_tpu_torch.common.args import LOCAL_ITEM, parse_master_args
@@ -30,6 +37,7 @@ from elasticdl_tpu_torch.common.constants import DistributionStrategy
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_utils import load_model_spec
 from elasticdl_tpu_torch.data.reader import build_data_reader
+from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
 from elasticdl_tpu_torch.master.servicer import MasterServicer, start_master_server
 from elasticdl_tpu_torch.master.task_manager import TaskManager, TaskProgressPersister
 
@@ -41,6 +49,7 @@ class Master:
     args: object
     model_spec: object
     task_manager: TaskManager
+    evaluation_service: Optional[EvaluationService]
     servicer: MasterServicer
     server: object = None
     port: int = 0
@@ -83,6 +92,14 @@ def build_master(args, model_spec=None, rendezvous_server=None) -> Master:
         training_shards = training_reader.create_shards()
         if not training_shards:
             raise ValueError(f"--training_data={args.training_data!r} produced no shards")
+    evaluation_shards = {}
+    if args.validation_data:
+        evaluation_shards = build_data_reader(args, model_spec,
+                                              args.validation_data).create_shards()
+    prediction_shards = {}
+    if args.prediction_data:
+        prediction_shards = build_data_reader(args, model_spec,
+                                              args.prediction_data).create_shards()
 
     # A predecessor's shard-progress snapshot wins over fresh task
     # creation (cluster strategies only), so a restarted master continues
@@ -106,10 +123,26 @@ def build_master(args, model_spec=None, rendezvous_server=None) -> Master:
             task_manager = None
     if task_manager is None:
         task_manager = TaskManager(training_shards=training_shards,
+                                   evaluation_shards=evaluation_shards,
+                                   prediction_shards=prediction_shards,
                                    records_per_task=args.records_per_task,
                                    num_epochs=args.num_epochs,
                                    task_timeout_s=args.task_timeout_s)
-    servicer = MasterServicer(task_manager=task_manager, rendezvous_server=rendezvous_server)
+    evaluation_service = None
+    if model_spec.eval_metrics_fn is not None and evaluation_shards:
+        evaluation_service = EvaluationService(task_manager,
+                                               eval_metrics_fn=model_spec.eval_metrics_fn,
+                                               evaluation_steps=args.evaluation_steps)
+    servicer = MasterServicer(task_manager=task_manager, evaluation_service=evaluation_service,
+                              rendezvous_server=rendezvous_server)
+    if evaluation_service is not None and training_shards:
+        # A final round when the training tasks are done; at each epoch's
+        # end too when no step interval is set.
+        task_manager.add_tasks_done_callback(
+            lambda: evaluation_service.trigger_evaluation(servicer.model_version))
+        if args.evaluation_steps <= 0:
+            task_manager.add_epoch_done_callback(
+                lambda epoch: evaluation_service.trigger_evaluation(servicer.model_version))
     if model_spec.callbacks is not None and training_shards:
         # Queue the TRAIN_END_CALLBACK task so the zoo's callbacks run.
         task_manager.add_tasks_done_callback(task_manager.create_train_end_task)
@@ -117,8 +150,9 @@ def build_master(args, model_spec=None, rendezvous_server=None) -> Master:
     if progress_path:
         progress_persister = TaskProgressPersister(task_manager, args.checkpoint_dir).start()
     return Master(args=args, model_spec=model_spec, task_manager=task_manager,
-                  servicer=servicer, rendezvous_server=rendezvous_server,
-                  data_reader=training_reader, progress_persister=progress_persister)
+                  evaluation_service=evaluation_service, servicer=servicer,
+                  rendezvous_server=rendezvous_server, data_reader=training_reader,
+                  progress_persister=progress_persister)
 
 
 def start_master(args, model_spec=None, rendezvous_server=None) -> Master:
@@ -158,7 +192,18 @@ def main(argv=None) -> int:
 
     runner = (run_ps_job if args.distribution_strategy == DistributionStrategy.PARAMETER_SERVER
               else run_allreduce_job)
-    return runner(args)
+    return runner(args, mode_from_job_type(args.job_type))
+
+
+def mode_from_job_type(job_type: str) -> str:
+    from elasticdl_tpu_torch.common.constants import JobType, Mode
+
+    return {
+        JobType.TRAINING_ONLY: Mode.TRAINING,
+        JobType.TRAINING_WITH_EVALUATION: Mode.TRAINING,
+        JobType.EVALUATION_ONLY: Mode.EVALUATION,
+        JobType.PREDICTION_ONLY: Mode.PREDICTION,
+    }[job_type]
 
 
 if __name__ == "__main__":

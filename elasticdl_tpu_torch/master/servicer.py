@@ -6,10 +6,11 @@ methods of the proto's ``Master`` service) over HTTP
 ``get_task`` and ``report_task_result`` drive the ``TaskManager``;
 ``get_comm_rank`` and ``report_worker_liveness`` the
 ``ElasticRendezvous`` (a world of one without one); ``report_version``
-folds the workers' model versions with max; ``get_shard_checkpoint``
-returns the task-progress JSON.  ``report_evaluation_metrics`` answers
-UNIMPLEMENTED: the evaluation service is not ported (ROADMAP.md Queue 1
-item 6), and no port worker calls it.
+folds the workers' model versions with max and lets the
+``EvaluationService`` queue a round that is due;
+``report_evaluation_metrics`` hands a chunk of evaluation outputs to it
+(a job without one drops them); ``get_shard_checkpoint`` returns the
+task-progress JSON.
 """
 
 from __future__ import annotations
@@ -17,16 +18,17 @@ from __future__ import annotations
 from elasticdl_tpu_torch.common import messages as msg
 from elasticdl_tpu_torch.common.http_rpc import JsonRpcServer
 from elasticdl_tpu_torch.common.log_utils import get_logger
-from elasticdl_tpu_torch.common.retry import RpcError
 
 logger = get_logger("master.servicer")
 
 
 class MasterServicer:
-    def __init__(self, task_manager, rendezvous_server=None):
+    def __init__(self, task_manager, rendezvous_server=None, evaluation_service=None):
         self._task_manager = task_manager
+        self._evaluation_service = evaluation_service
         self._rendezvous_server = rendezvous_server
         self._model_version = 0
+        self._zero_task_warned: set = set()
 
     @property
     def model_version(self) -> int:
@@ -45,13 +47,26 @@ class MasterServicer:
                            request.task_id, request.err_message)
         return msg.ReportTaskResultResponse()
 
-    def report_evaluation_metrics(self, request):
-        from elasticdl_tpu_torch.common.args import EVALUATION_ITEM
-
-        raise RpcError("UNIMPLEMENTED", f"evaluation metrics: {EVALUATION_ITEM}")
+    def report_evaluation_metrics(self, request: msg.ReportEvaluationMetricsRequest
+                                  ) -> msg.ReportEvaluationMetricsResponse:
+        if self._evaluation_service is not None:
+            if not request.task_id and request.model_version not in self._zero_task_warned:
+                # Chunks join their round when their task completes, and
+                # task ids start at 1: a report without one would stage
+                # rows that nothing ever promotes.
+                self._zero_task_warned.add(request.model_version)
+                logger.warning("report_evaluation_metrics for version %d arrived without a "
+                               "task_id (worker/master protocol mismatch?); its rows will not "
+                               "join the round's metrics", request.model_version)
+            self._evaluation_service.report_evaluation_metrics(
+                request.model_version, list(request.model_outputs), list(request.labels),
+                task_id=request.task_id)
+        return msg.ReportEvaluationMetricsResponse()
 
     def report_version(self, request: msg.ReportVersionRequest) -> msg.ReportVersionResponse:
         self._model_version = max(self._model_version, request.model_version)
+        if self._evaluation_service is not None:
+            self._evaluation_service.add_evaluation_task_if_needed(self._model_version)
         return msg.ReportVersionResponse()
 
     def get_comm_rank(self, request: msg.GetCommRankRequest) -> msg.GetCommRankResponse:

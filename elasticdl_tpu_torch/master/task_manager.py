@@ -12,6 +12,10 @@ package's, and so is the progress JSON (``to_checkpoint`` /
 ``from_checkpoint``): a restarted master of either package resumes the
 other's ``task_progress.json``.
 
+Evaluation rounds go to the front of the queue
+(``create_evaluation_tasks``), and the evaluation service hears of each
+completed evaluation task and each finished epoch through callbacks.
+
 Journal events (``task_dispatch``, ``task_done``, ``task_requeue``,
 ``task_failed_permanently``, ``train_epoch_done``,
 ``task_progress_resume``) and metrics go through the port's ``obs``.
@@ -165,6 +169,8 @@ class TaskManager:
         # True while done-callbacks run (they queue the TRAIN_END task):
         # get() answers WAIT, not job-complete, until they finish.
         self._finalizing = False
+        self._epoch_done_callbacks: List[Callable[[int], None]] = []
+        self._eval_task_done_callbacks: List[Callable[[int, int], None]] = []
 
         if self._training_shards:
             self._create_training_tasks_locked()
@@ -195,6 +201,19 @@ class TaskManager:
 
     def _create_training_tasks_locked(self):
         return self._create_tasks_locked(self._training_shards, msg.TRAINING)
+
+    def create_evaluation_tasks(self, model_version: int) -> int:
+        """Queue a round of evaluation tasks at the front of the queue."""
+        with self._lock:
+            tasks = []
+            for name, start, num_records in self._shard_ranges(self._evaluation_shards):
+                for lo in range(start, start + num_records, self._records_per_task):
+                    hi = min(lo + self._records_per_task, start + num_records)
+                    tasks.append(_Task(name, lo, hi, msg.EVALUATION, model_version, self._epoch))
+            self._todo.extendleft(reversed(tasks))
+            logger.info("Created %d EVALUATION tasks at model version %d", len(tasks),
+                        model_version)
+            return len(tasks)
 
     # -- dispatch protocol --------------------------------------------------
 
@@ -250,6 +269,11 @@ class TaskManager:
             if finished_epoch is not None:
                 obs.journal().record("train_epoch_done", epoch=finished_epoch,
                                      next_epoch=finished_epoch + 1)
+                for callback in self._epoch_done_callbacks:
+                    try:
+                        callback(finished_epoch)
+                    except Exception:
+                        logger.exception("epoch-done callback failed")
             if fired_done:
                 self._run_done_callbacks(done_callbacks)
 
@@ -261,6 +285,7 @@ class TaskManager:
         was in flight."""
         fired_done = False
         callbacks_to_run = []
+        eval_done_callbacks = []
         journal_events: List[dict] = []
         with self._lock:
             entry = self._doing.pop(task_id, None)
@@ -290,6 +315,8 @@ class TaskManager:
                     self._metrics.record_rate.add(records)
                 if task.type == msg.TRAINING:
                     self._finished_record_count += task.end - task.start
+                if task.type == msg.EVALUATION:
+                    eval_done_callbacks = list(self._eval_task_done_callbacks)
                 for key, value in (exec_counters or {}).items():
                     self._exec_counters[key] = self._exec_counters.get(key, 0) + value
                 oov = (exec_counters or {}).get(TaskExecCounterKey.OOV_LOOKUP_COUNT, 0)
@@ -329,6 +356,13 @@ class TaskManager:
                     callbacks_to_run = list(self._tasks_done_callbacks)
         for event in journal_events:
             obs.journal().record(**event)
+        # Outside the lock; the round sees its task done before any
+        # tasks-done callback queues the next round.
+        for callback in eval_done_callbacks:
+            try:
+                callback(task.model_version, task_id)
+            except Exception:
+                logger.exception("eval-task-done callback failed")
         if fired_done:
             self._run_done_callbacks(callbacks_to_run)
         return True
@@ -392,6 +426,19 @@ class TaskManager:
     def add_tasks_done_callback(self, callback: Callable[[], None]):
         with self._lock:
             self._tasks_done_callbacks.append(callback)
+
+    def add_eval_task_done_callback(self, callback: Callable[[int, int], None]):
+        """``callback(model_version, task_id)`` after each EVALUATION task
+        completes (outside the lock): the evaluation service closes
+        rounds on task completions, not on report counts."""
+        with self._lock:
+            self._eval_task_done_callbacks.append(callback)
+
+    def add_epoch_done_callback(self, callback: Callable[[int], None]):
+        """``callback(epoch)`` (outside the lock) each time a training
+        epoch completes and the next epoch's tasks are queued."""
+        with self._lock:
+            self._epoch_done_callbacks.append(callback)
 
     def create_train_end_task(self) -> None:
         """Queue the TRAIN_END_CALLBACK task (runs the zoo's callbacks)."""

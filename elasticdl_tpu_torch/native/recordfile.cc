@@ -1,0 +1,359 @@
+// Native ETRF record-file codec: the port's copy of
+// elasticdl_tpu/native/recordfile.cc, byte-identical in format with the
+// Python codec in elasticdl_tpu_torch/data/recordfile.py:
+//
+//   header:  magic "ETRF" + u32 version (little-endian)
+//   record:  u32 payload_length + u32 crc32(payload) + payload
+//   footer:  u64 record_count + u64 index_offset + magic "FTRE"
+//            index (at index_offset) = record_count u64 file offsets
+//
+// The C API is batch-oriented: one call reads a whole [start, end) range
+// (CRC-checked) into a caller buffer with per-record lengths, a single
+// Python<->C crossing per chunk instead of per record.  Thread-safety:
+// one reader/writer handle per thread; error text is thread-local.
+// Built at first use by elasticdl_tpu_torch/native/__init__.py with the
+// host C++ compiler (g++ -O3 -shared -fPIC), with zlib's CRC-32 when its
+// headers are installed.
+
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <string>
+#include <vector>
+
+#ifdef EDL_USE_ZLIB
+#include <zlib.h>
+#endif
+
+namespace {
+
+constexpr char kMagic[4] = {'E', 'T', 'R', 'F'};
+constexpr char kFooterMagic[4] = {'F', 'T', 'R', 'E'};
+constexpr uint32_t kVersion = 1;
+constexpr size_t kHeaderSize = 8;    // magic + u32 version
+constexpr size_t kFooterSize = 20;   // u64 count + u64 index_offset + magic
+constexpr size_t kRecordHead = 8;    // u32 len + u32 crc
+
+thread_local std::string g_last_error;
+
+void set_error(const std::string& message) { g_last_error = message; }
+
+// zlib-compatible CRC-32 (polynomial 0xEDB88320), two implementations
+// dispatched by payload size: slicing-by-8 (below) has no per-call setup
+// and serves small payloads; zlib's crc32 (built with -DEDL_USE_ZLIB -lz)
+// needs length to amortize its braided loop and serves payloads of 512
+// bytes and more.  Without zlib headers the build uses slicing-by-8
+// everywhere.
+const uint32_t (*crc_tables())[256] {
+  static uint32_t tables[8][256];
+  static bool initialized = false;
+  if (!initialized) {
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; ++k) {
+        c = (c & 1) ? 0xEDB88320u ^ (c >> 1) : c >> 1;
+      }
+      tables[0][i] = c;
+    }
+    for (int t = 1; t < 8; ++t) {
+      for (uint32_t i = 0; i < 256; ++i) {
+        uint32_t c = tables[t - 1][i];
+        tables[t][i] = tables[0][c & 0xFF] ^ (c >> 8);
+      }
+    }
+    initialized = true;
+  }
+  return tables;
+}
+
+uint32_t crc32_slice8(const uint8_t* data, size_t len) {
+  const uint32_t (*t)[256] = crc_tables();
+  uint32_t c = 0xFFFFFFFFu;
+  while (len >= 8) {
+    uint32_t lo;
+    uint32_t hi;
+    std::memcpy(&lo, data, 4);      // little-endian loads (x86/arm LE)
+    std::memcpy(&hi, data + 4, 4);
+    c ^= lo;
+    c = t[7][c & 0xFF] ^ t[6][(c >> 8) & 0xFF] ^ t[5][(c >> 16) & 0xFF] ^
+        t[4][c >> 24] ^ t[3][hi & 0xFF] ^ t[2][(hi >> 8) & 0xFF] ^
+        t[1][(hi >> 16) & 0xFF] ^ t[0][hi >> 24];
+    data += 8;
+    len -= 8;
+  }
+  for (size_t i = 0; i < len; ++i) {
+    c = t[0][(c ^ data[i]) & 0xFF] ^ (c >> 8);
+  }
+  return c ^ 0xFFFFFFFFu;
+}
+
+#ifdef EDL_USE_ZLIB
+uint32_t crc32_impl(const uint8_t* data, size_t len) {
+  if (len < 512) return crc32_slice8(data, len);
+  return static_cast<uint32_t>(::crc32(0L, data, len));
+}
+#else
+uint32_t crc32_impl(const uint8_t* data, size_t len) {
+  return crc32_slice8(data, len);
+}
+#endif  // EDL_USE_ZLIB
+
+uint32_t read_u32(const uint8_t* p) {
+  return static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[1]) << 8) |
+         (static_cast<uint32_t>(p[2]) << 16) |
+         (static_cast<uint32_t>(p[3]) << 24);
+}
+
+uint64_t read_u64(const uint8_t* p) {
+  return static_cast<uint64_t>(read_u32(p)) |
+         (static_cast<uint64_t>(read_u32(p + 4)) << 32);
+}
+
+void write_u32(uint8_t* p, uint32_t v) {
+  p[0] = v & 0xFF;
+  p[1] = (v >> 8) & 0xFF;
+  p[2] = (v >> 16) & 0xFF;
+  p[3] = (v >> 24) & 0xFF;
+}
+
+void write_u64(uint8_t* p, uint64_t v) {
+  write_u32(p, static_cast<uint32_t>(v));
+  write_u32(p + 4, static_cast<uint32_t>(v >> 32));
+}
+
+struct Reader {
+  FILE* file = nullptr;
+  uint64_t count = 0;
+  uint64_t index_offset = 0;
+  std::vector<uint64_t> index;  // loaded lazily on first range read
+};
+
+struct Writer {
+  FILE* file = nullptr;
+  std::vector<uint64_t> offsets;
+};
+
+bool load_index(Reader* r) {
+  if (!r->index.empty() || r->count == 0) return true;
+  if (fseek(r->file, static_cast<long>(r->index_offset), SEEK_SET) != 0) {
+    set_error("seek to index failed");
+    return false;
+  }
+  std::vector<uint8_t> raw(r->count * 8);
+  if (fread(raw.data(), 1, raw.size(), r->file) != raw.size()) {
+    set_error("truncated index");
+    return false;
+  }
+  r->index.resize(r->count);
+  for (uint64_t i = 0; i < r->count; ++i) {
+    r->index[i] = read_u64(raw.data() + i * 8);
+  }
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bumped on ANY C-ABI change (argument lists included): the Python side
+// refuses to bind a library whose version doesn't match, which converts
+// "stale .so with a fresher mtime called with shifted arguments" from
+// heap corruption into a clean rebuild.
+long long edl_abi_version() { return 2; }
+
+const char* edl_rf_last_error() { return g_last_error.c_str(); }
+
+// ---------------------------------------------------------------------
+// Reader
+// ---------------------------------------------------------------------
+
+void* edl_rf_open(const char* path) {
+  FILE* f = fopen(path, "rb");
+  if (!f) {
+    set_error(std::string("cannot open ") + path);
+    return nullptr;
+  }
+  uint8_t header[kHeaderSize];
+  if (fread(header, 1, kHeaderSize, f) != kHeaderSize ||
+      memcmp(header, kMagic, 4) != 0) {
+    set_error("bad magic (not an ETRF file)");
+    fclose(f);
+    return nullptr;
+  }
+  if (fseek(f, 0, SEEK_END) != 0) {
+    set_error("seek failed");
+    fclose(f);
+    return nullptr;
+  }
+  long size = ftell(f);
+  if (size < static_cast<long>(kHeaderSize + kFooterSize)) {
+    set_error("file too small to be an ETRF record file");
+    fclose(f);
+    return nullptr;
+  }
+  uint8_t footer[kFooterSize];
+  fseek(f, size - static_cast<long>(kFooterSize), SEEK_SET);
+  if (fread(footer, 1, kFooterSize, f) != kFooterSize ||
+      memcmp(footer + 16, kFooterMagic, 4) != 0) {
+    set_error("bad footer magic (truncated or not an ETRF file)");
+    fclose(f);
+    return nullptr;
+  }
+  Reader* r = new Reader();
+  r->file = f;
+  r->count = read_u64(footer);
+  r->index_offset = read_u64(footer + 8);
+  return r;
+}
+
+long long edl_rf_count(void* handle) {
+  return static_cast<long long>(static_cast<Reader*>(handle)->count);
+}
+
+// Total payload bytes of records [start, end) (clamped); -1 on error.
+// O(1): records are contiguous, so the byte span between the start
+// record's offset and the end boundary (next record's offset, or the
+// index itself for the last record) minus the fixed per-record heads IS
+// the payload total — no I/O beyond the already-loaded index.
+long long edl_rf_range_size(void* handle, long long start, long long end) {
+  Reader* r = static_cast<Reader*>(handle);
+  if (start < 0) start = 0;
+  if (end > static_cast<long long>(r->count)) end = r->count;
+  if (start >= end) return 0;
+  if (!load_index(r)) return -1;
+  uint64_t boundary = (end < static_cast<long long>(r->count))
+                          ? r->index[end]
+                          : r->index_offset;
+  long long total = static_cast<long long>(boundary - r->index[start]) -
+                    static_cast<long long>(kRecordHead) * (end - start);
+  if (boundary < r->index[start] || total < 0) {
+    set_error("corrupt index (non-monotonic offsets)");
+    return -1;
+  }
+  return total;
+}
+
+// Read records [start, end) into buf (payloads back-to-back, at most
+// buf_size bytes), lengths[i] = payload length of record start+i.
+// CRC-checked; a record whose length field would overrun the caller's
+// buffer (corrupt length byte) errors out instead of writing past it.
+// Returns records read, or -1 on error.
+long long edl_rf_read_range(void* handle, long long start, long long end,
+                            uint8_t* buf, long long buf_size,
+                            uint32_t* lengths) {
+  Reader* r = static_cast<Reader*>(handle);
+  if (start < 0) start = 0;
+  if (end > static_cast<long long>(r->count)) end = r->count;
+  if (start >= end) return 0;
+  if (!load_index(r)) return -1;
+  if (fseek(r->file, static_cast<long>(r->index[start]), SEEK_SET) != 0) {
+    set_error("seek failed");
+    return -1;
+  }
+  uint8_t* out = buf;
+  long long remaining = buf_size;
+  for (long long i = start; i < end; ++i) {
+    uint8_t head[kRecordHead];
+    if (fread(head, 1, kRecordHead, r->file) != kRecordHead) {
+      set_error("truncated record head");
+      return -1;
+    }
+    uint32_t length = read_u32(head);
+    uint32_t crc = read_u32(head + 4);
+    if (static_cast<long long>(length) > remaining) {
+      set_error("record length exceeds buffer (corrupt length field)");
+      return -1;
+    }
+    if (fread(out, 1, length, r->file) != length) {
+      set_error("truncated record");
+      return -1;
+    }
+    if (crc32_impl(out, length) != crc) {
+      set_error("CRC mismatch (corrupt record)");
+      return -1;
+    }
+    lengths[i - start] = length;
+    out += length;
+    remaining -= length;
+  }
+  return end - start;
+}
+
+void edl_rf_close(void* handle) {
+  Reader* r = static_cast<Reader*>(handle);
+  if (r->file) fclose(r->file);
+  delete r;
+}
+
+// ---------------------------------------------------------------------
+// Writer
+// ---------------------------------------------------------------------
+
+void* edl_rf_writer_open(const char* path) {
+  FILE* f = fopen(path, "wb");
+  if (!f) {
+    set_error(std::string("cannot create ") + path);
+    return nullptr;
+  }
+  uint8_t header[kHeaderSize];
+  memcpy(header, kMagic, 4);
+  write_u32(header + 4, kVersion);
+  if (fwrite(header, 1, kHeaderSize, f) != kHeaderSize) {
+    set_error("header write failed");
+    fclose(f);
+    return nullptr;
+  }
+  Writer* w = new Writer();
+  w->file = f;
+  return w;
+}
+
+int edl_rf_writer_write(void* handle, const uint8_t* data, uint32_t length) {
+  Writer* w = static_cast<Writer*>(handle);
+  long pos = ftell(w->file);
+  if (pos < 0) {
+    set_error("tell failed");
+    return -1;
+  }
+  uint8_t head[kRecordHead];
+  write_u32(head, length);
+  write_u32(head + 4, crc32_impl(data, length));
+  if (fwrite(head, 1, kRecordHead, w->file) != kRecordHead ||
+      fwrite(data, 1, length, w->file) != length) {
+    set_error("record write failed");
+    return -1;
+  }
+  w->offsets.push_back(static_cast<uint64_t>(pos));
+  return 0;
+}
+
+int edl_rf_writer_close(void* handle) {
+  Writer* w = static_cast<Writer*>(handle);
+  int status = 0;
+  long index_offset = ftell(w->file);
+  if (index_offset < 0) {
+    set_error("tell failed");
+    status = -1;
+  } else {
+    std::vector<uint8_t> raw(w->offsets.size() * 8 + kFooterSize);
+    for (size_t i = 0; i < w->offsets.size(); ++i) {
+      write_u64(raw.data() + i * 8, w->offsets[i]);
+    }
+    uint8_t* footer = raw.data() + w->offsets.size() * 8;
+    write_u64(footer, w->offsets.size());
+    write_u64(footer + 8, static_cast<uint64_t>(index_offset));
+    memcpy(footer + 16, kFooterMagic, 4);
+    if (fwrite(raw.data(), 1, raw.size(), w->file) != raw.size()) {
+      set_error("footer write failed");
+      status = -1;
+    }
+  }
+  if (fclose(w->file) != 0) {
+    set_error("close failed");
+    status = -1;
+  }
+  delete w;
+  return status;
+}
+
+}  // extern "C"

@@ -373,6 +373,11 @@ class DataParallelTrainer:
             self._model.train()
         return out.cpu().numpy()
 
+    def eval_step_local(self, features) -> np.ndarray:
+        """JAX ``dp_trainer.py:417``: the outputs of every row of the
+        worker's global batch (a collective on a process mesh)."""
+        return self.eval_step(features)
+
     def _eval_world(self, features) -> np.ndarray:
         n = len(np.asarray(features))
         feats, _, _, positions, _, _ = self._local_batch(features, None, np.ones(n))

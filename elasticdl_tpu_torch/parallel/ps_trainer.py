@@ -566,6 +566,13 @@ class ShardedEmbeddingTrainer:
         finally:
             self._model.train()
 
+    def eval_step_local(self, features) -> np.ndarray:
+        """JAX ``ps_trainer.py:833``: the outputs of every row of the
+        worker's batch, each rank's slice padded, in rank order (the
+        port's trainers take the global batch); a collective on a
+        process mesh, so every rank calls it."""
+        return self.eval_step(features)
+
     # -- sharded checkpoints (JAX ps_trainer.py:846-1029) ---------------
 
     def _local_blocks(self, key: str) -> Tuple[int, int]:

@@ -1,8 +1,8 @@
 """The cluster-mode worker's lockstep task loop: the port's copy of
 ``elasticdl_tpu/worker/collective_worker.py`` (``_run_task_loop`` :272,
 ``_local_batches`` :391, the window logic :461-520,
-``_process_train_task`` :522, ``_process_train_end`` :798,
-``_maybe_checkpoint`` :821).
+``_process_train_task`` :522, ``_process_eval_task`` :745,
+``_process_train_end`` :798, ``_maybe_checkpoint`` :821).
 
 - Rank 0 pulls tasks from the master and broadcasts them; every rank
   runs the same steps per task.
@@ -22,10 +22,22 @@
   rank picked the same step, and the master's queue replays what was in
   flight (at-least-once).  A failed task is reported and the process
   exits, so the world re-forms.
-- ``--pipeline async`` parses and stacks batches off the step loop: a
-  ``Prefetcher`` thread reads the task's records, a ``ParsePool`` stacks
-  them (``--parse_pool_workers``), and the trained variables are those of
-  sync.
+- A task's batches come by one of two routes.  The columnar route
+  (``data/columnar.py``), when the task's reader has ``read_columns``
+  (the ETRF readers) and the zoo a ``columnar_dataset_fn``: the task is
+  read and parsed as whole columns (on the ``ParsePool``'s threads with
+  ``--parse_pool_workers``), shuffled by one permutation, and each
+  batch is row-range views of it.  Otherwise the per-record route (the
+  ``synthetic://`` readers): the zoo's ``dataset_fn`` record by record,
+  each batch stacked.  "Columnar task path engaged" is logged the first
+  time a mode takes the columnar route.
+- ``--pipeline async`` builds batches off the step loop: a ``Prefetcher``
+  thread runs the route (the per-record route stacks on the
+  ``ParsePool``), and the trained variables are those of sync.
+- EVALUATION tasks run ``eval_step_local`` on every batch and report the
+  real rows' outputs and labels to the master in chunks of
+  ``EVAL_REPORT_BATCHES`` batches (``per_rank_real_counts`` strips the
+  padding); PREDICTION tasks run the forward and report nothing.
 
 The worker journals (``obs``) ``checkpoint_restore``, ``first_step``,
 ``checkpoint_saved`` and, after every task, ``worker_task_done`` with
@@ -33,17 +45,18 @@ the steps this process trained, its kernel launches and any forbidden
 module loaded, so a process that is killed leaves its counts behind,
 and the seconds the step loop waited for host data (``data_wait_s``;
 with async staging also the staging and prefetch seconds hidden behind
-the card's work).
-Only the TRAINING and TRAIN_END_CALLBACK tasks are ported: evaluation
-and prediction tasks raise (ROADMAP.md Queue 1 item 6), and the
-columnar batch path waits for the readers.
+the card's work), the columnar route's seconds (``columnar_s``: read,
+parse and transform; ``columnar_transform_s``: the zoo's transform) and
+the tasks this process read record by record through an ETRF reader
+(``etrf_per_record_reads``, 0 on the columnar route).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 import traceback
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -55,6 +68,7 @@ from elasticdl_tpu_torch.common.boundary import forbidden_modules_loaded
 from elasticdl_tpu_torch.common.constants import Mode, TaskExecCounterKey
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_utils import ModelSpec
+from elasticdl_tpu_torch.data.columnar import materialize_columnar_task
 from elasticdl_tpu_torch.data.dataset import Dataset, SequentialRecords, _stack
 from elasticdl_tpu_torch.data.pipeline import (
     ParsePool,
@@ -62,6 +76,7 @@ from elasticdl_tpu_torch.data.pipeline import (
     Prefetcher,
     StagingPipeline,
 )
+from elasticdl_tpu_torch.data.reader import etrf_per_record_reads
 from elasticdl_tpu_torch.parallel import elastic
 from elasticdl_tpu_torch.parallel.elastic import WorldInfo
 from elasticdl_tpu_torch.parallel.sharding import pad_batch
@@ -87,6 +102,29 @@ def _concat(parts):
     return np.concatenate(parts)
 
 
+def named_arrays(tree, default_name: str = "output") -> dict:
+    """JAX ``worker/worker.py:324``: a model-output or label tree as
+    ``{name: np.ndarray}``; dict keys kept (nested ones joined with '/'),
+    a bare array under ``default_name``."""
+    if isinstance(tree, dict):
+        flat = {}
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                for sub, arr in named_arrays(value, default_name).items():
+                    flat[f"{key}/{sub}"] = arr
+            else:
+                flat[str(key)] = np.asarray(value)
+        return flat
+    return {default_name: np.asarray(tree)}
+
+
+def concat_named(batches: list) -> dict:
+    """JAX ``worker/worker.py:343``: ``{name: array}`` dicts joined along
+    axis 0."""
+    names = batches[0].keys()
+    return {name: np.concatenate([b[name] for b in batches]) for name in names}
+
+
 class CollectiveWorker:
     #: AUTO window bounds (``--train_window_steps=0``), the JAX package's.
     AUTO_WINDOW_STEPS = 400
@@ -95,6 +133,9 @@ class CollectiveWorker:
     REPORT_VERSION_EVERY_STEPS = 20
     #: Seconds between polls while the master answers WAIT.
     WAIT_SLEEP_S = 0.5
+    #: The leader reports an evaluation task's outputs every this many
+    #: batches (the master joins the chunks at the round's end).
+    EVAL_REPORT_BATCHES = 32
 
     def __init__(
         self,
@@ -108,6 +149,8 @@ class CollectiveWorker:
         checkpoint_steps: int = 0,
         train_window_steps: int = 0,
         pipeline: Optional[PipelineConfig] = None,
+        validation_data_reader=None,
+        prediction_data_reader=None,
     ):
         self._mc = master_client
         self._spec = model_spec
@@ -131,13 +174,28 @@ class CollectiveWorker:
         self._apply_every = self._trainer_apply_every()
         self._grow_explicit_window_to_apply_multiple()
         self._effective_window: Optional[int] = None
-        self._readers = {msg.TRAINING: data_reader, msg.TRAIN_END_CALLBACK: data_reader}
-        self._shard_names = list(data_reader.shard_names())
+        self._readers = {
+            msg.TRAINING: data_reader,
+            msg.TRAIN_END_CALLBACK: data_reader,
+            msg.EVALUATION: validation_data_reader or data_reader,
+            msg.PREDICTION: prediction_data_reader or data_reader,
+        }
+        # The broadcast's shard index: every reader's names, the same on
+        # every rank (shard_names, not create_shards: no counting).
+        names: List[str] = []
+        for reader in (data_reader, validation_data_reader, prediction_data_reader):
+            for name in reader.shard_names() if reader is not None else ():
+                if name not in names:
+                    names.append(name)
+        self._shard_names = names
         self._metadata = data_reader.metadata
+        self._columnar_logged: set = set()  # modes that took the columnar route
         self._started = time.monotonic()
-        self._host_seconds: dict = {}  # the last train task's host-side seconds
-        #: Train steps this process ran (all its tasks).
+        self._host_seconds: dict = {}  # the last task's host-side seconds
+        #: Train steps, and evaluation and prediction batches, this
+        #: process ran (all its tasks).
         self.process_steps = 0
+        self.process_eval_batches = 0
 
     @property
     def trainer(self):
@@ -254,13 +312,19 @@ class CollectiveWorker:
 
     def _note_task_done(self, task, counters: dict, seconds: float) -> None:
         batches = counters.get(TaskExecCounterKey.BATCH_COUNT, 0)
-        self.process_steps += batches
+        if task.type == msg.TRAINING:
+            self.process_steps += batches
+            records = counters.get(TaskExecCounterKey.RECORD_COUNT, 0)
+        else:
+            self.process_eval_batches += batches
+            records = task.end - task.start
         obs.journal().record(
             "worker_task_done", task_id=task.task_id, rank=self._world.rank,
             type=msg.task_type_name(task.type), start=task.start, end=task.end,
-            steps=batches, records=counters.get(TaskExecCounterKey.RECORD_COUNT, 0),
-            seconds=round(seconds, 6), step=self._trainer.step,
-            process_steps=self.process_steps, kernel_launches=kernel_launches(),
+            steps=batches, records=records, seconds=round(seconds, 6),
+            step=self._trainer.step, process_steps=self.process_steps,
+            process_eval_batches=self.process_eval_batches,
+            kernel_launches=kernel_launches(), etrf_per_record_reads=etrf_per_record_reads(),
             forbidden_modules=forbidden_modules_loaded(), **self._host_seconds,
         )
 
@@ -268,59 +332,121 @@ class CollectiveWorker:
         self._host_seconds = {}
         if task.type == msg.TRAINING:
             return self._process_train_task(task)
+        if task.type == msg.EVALUATION:
+            return self._process_eval_task(task)
+        if task.type == msg.PREDICTION:
+            return self._process_eval_task(task, report=False)
         if task.type == msg.TRAIN_END_CALLBACK:
             return self._process_train_end(task)
-        from elasticdl_tpu_torch.common.args import EVALUATION_ITEM
-
-        raise NotImplementedError(
-            f"{msg.task_type_name(task.type)} tasks are not ported: {EVALUATION_ITEM}")
+        raise ValueError(f"Unknown task type {task.type}")
 
     # -- batches ---------------------------------------------------------------
+
+    def _reader(self, task):
+        return self._readers.get(task.type, self._readers[msg.TRAINING])
 
     def _task_records(self, task, mode: str) -> SequentialRecords:
         """One-pass cursor over the task's parsed records (the same on
         every rank: ``dataset_fn`` is deterministic per task and mode)."""
-        reader = self._readers.get(task.type, self._readers[msg.TRAINING])
+        reader = self._reader(task)
         dataset = self._spec.dataset_fn(
             Dataset.from_generator(lambda: reader.read_records(task)), mode, self._metadata)
         return SequentialRecords(dataset)
+
+    def _step_ranges(self, task):
+        """Per global step, every rank's ``(lo, hi, global_real)`` in rank
+        order."""
+        ranks = [WorldInfo(r, self._world.world_size, self._world.rendezvous_id,
+                           self._world.coordinator_addr)
+                 for r in range(self._world.world_size)]
+        return zip(*(elastic.iter_local_batch_ranges(task.start, task.end, self._mb, w)
+                     for w in ranks))
 
     def _raw_batches(self, task, mode: str):
         """Yield ``(slices, template, global_real)`` per global step:
         every rank's records of the step in rank order."""
         records = self._task_records(task, mode)
-        ranks = [WorldInfo(r, self._world.world_size, self._world.rendezvous_id,
-                           self._world.coordinator_addr)
-                 for r in range(self._world.world_size)]
-        for parts in zip(*(elastic.iter_local_batch_ranges(task.start, task.end, self._mb, w)
-                           for w in ranks)):
+        for parts in self._step_ranges(task):
             slices = [records.slice(lo - task.start, hi - task.start) for lo, hi, _ in parts]
             template = None if all(slices) else records.template()
             yield slices, template, parts[0][2]
 
-    def _assemble(self, raw):
-        """``(features, labels, mask, global_real)`` of one global step:
-        each rank's slice stacked, padded to ``minibatch_size`` (an empty
-        one from the first record) and masked, then concatenated."""
-        slices, template, global_real = raw
+    def _global_batch(self, slices, global_real):
+        """``(features, labels, mask, global_real)`` of one global step from
+        each rank's ``(features, labels, n_real)`` in rank order: each
+        padded to ``minibatch_size`` and masked, then concatenated."""
         feats, labels, masks = [], [], []
-        for records in slices:
-            batch = _stack(records if records else [template])
-            f, lab = batch if isinstance(batch, tuple) else (batch, None)
+        for f, lab, n_real in slices:
             f, mask = pad_batch(f, self._mb)
-            mask[:len(records)] = 1.0
-            mask[len(records):] = 0.0
+            mask[:n_real] = 1.0
+            mask[n_real:] = 0.0
             feats.append(f)
             masks.append(mask)
             labels.append(None if lab is None else pad_batch(lab, self._mb)[0])
         return (_concat(feats), None if labels[0] is None else _concat(labels),
                 np.concatenate(masks), global_real)
 
-    def _local_batches(self, task, mode: str):
+    def _assemble(self, raw):
+        """One global step of the per-record route: each rank's records
+        stacked (an empty slice from the first record)."""
+        slices, template, global_real = raw
+        stacked = []
+        for records in slices:
+            batch = _stack(records if records else [template])
+            f, lab = batch if isinstance(batch, tuple) else (batch, None)
+            stacked.append((f, lab, len(records)))
+        return self._global_batch(stacked, global_real)
+
+    def _record_batches(self, task, mode: str):
         raw = self._raw_batches(task, mode)
         if self._parse_pool is not None:
             return self._parse_pool.imap(self._assemble, raw)
         return map(self._assemble, raw)
+
+    def _local_batches(self, task, mode: str):
+        """``(features, labels, mask, global_real)`` per global step, by
+        the columnar route when the reader and the zoo both have the
+        columnar surface, else by the per-record route.  Lazy: the work
+        runs where the batches are consumed (the prefetch thread)."""
+        if (getattr(self._reader(task), "read_columns", None) is not None
+                and getattr(self._spec, "columnar_dataset_fn", None) is not None):
+            return self._columnar_batches(task, mode)
+        return self._record_batches(task, mode)
+
+    def _columnar_batches(self, task, mode: str):
+        start = time.monotonic()
+        transform_s = 0.0
+        dataset_fn = self._spec.columnar_dataset_fn
+
+        @functools.wraps(dataset_fn)  # keeps the signature's ``seed``
+        def timed_fn(*args, **kwargs):
+            nonlocal transform_s
+            t0 = time.monotonic()
+            try:
+                return dataset_fn(*args, **kwargs)
+            finally:
+                transform_s += time.monotonic() - t0
+
+        columnar = materialize_columnar_task(self._reader(task), task, timed_fn, mode,
+                                             self._metadata, parse_pool=self._parse_pool)
+        if columnar is None:  # an empty task
+            yield from self._record_batches(task, mode)
+            return
+        self._host_seconds.update(columnar_s=round(time.monotonic() - start, 6),
+                                  columnar_transform_s=round(transform_s, 6))
+        if mode not in self._columnar_logged:
+            self._columnar_logged.add(mode)
+            logger.info("Columnar task path engaged (%s, %d rows, zero per-record Python)",
+                        mode, columnar.n)
+        for parts in self._step_ranges(task):
+            slices = []
+            for lo, hi, _ in parts:
+                lo_off, hi_off = lo - task.start, hi - task.start
+                n_real = max(0, min(hi_off, columnar.n) - lo_off)
+                # Row-range views; an empty slice shapes from row 0.
+                f, lab = columnar.slice(lo_off, hi_off) if n_real else columnar.slice(0, 1)
+                slices.append((f, lab, n_real))
+            yield self._global_batch(slices, parts[0][2])
 
     # -- dispatch windows ------------------------------------------------------
 
@@ -459,7 +585,7 @@ class CollectiveWorker:
             logger.info("task %d done: step=%d loss=%.5f (%d global batches)", task.task_id,
                         self._trainer.step, float(last_loss), batch_count)
         self._report_version()
-        self._host_seconds = {"data_wait_s": round(data_wait_s, 6)}
+        self._host_seconds["data_wait_s"] = round(data_wait_s, 6)
         if staging is not None:
             self._host_seconds.update(stage_s=round(staging.stage_s, 6),
                                       stage_overlap_s=round(staging.overlap_s, 6),
@@ -472,6 +598,41 @@ class CollectiveWorker:
             if oov:
                 counters[TaskExecCounterKey.OOV_LOOKUP_COUNT] = oov
         return counters
+
+    def _process_eval_task(self, task, report: bool = True) -> dict:
+        """Outputs of every batch; with ``report`` the leader sends the
+        real rows' outputs and labels to the master, ``EVAL_REPORT_BATCHES``
+        batches a chunk (the master joins a task's chunks when it is
+        done)."""
+        outputs_list, labels_list = [], []
+        batch_count = 0
+
+        def flush():
+            if not outputs_list:
+                return
+            self._mc.report_evaluation_metrics(
+                model_version=task.model_version, model_outputs=concat_named(outputs_list),
+                labels=concat_named(labels_list), task_id=task.task_id)
+            outputs_list.clear()
+            labels_list.clear()
+
+        for features, labels, _mask, global_real in self._local_batches(task, Mode.EVALUATION):
+            outputs = self._trainer.eval_step_local(features)  # a collective on a mesh
+            batch_count += 1
+            if not (report and self._world.is_leader):
+                continue
+            # Rank r's real rows are a prefix of its padded slice.
+            counts = elastic.per_rank_real_counts(global_real, self._mb,
+                                                  self._world.world_size)
+            keep = np.concatenate([np.arange(r * self._mb, r * self._mb + count)
+                                   for r, count in enumerate(counts)]).astype(np.int64)
+            outputs_list.append({name: arr[keep]
+                                 for name, arr in named_arrays(outputs, "output").items()})
+            labels_list.append({name: arr[keep] for name, arr in named_arrays(labels, "").items()})
+            if len(outputs_list) >= self.EVAL_REPORT_BATCHES:
+                flush()
+        flush()
+        return {TaskExecCounterKey.BATCH_COUNT: batch_count}
 
     def _process_train_end(self, task) -> dict:
         self._maybe_checkpoint(force=True)

@@ -15,6 +15,12 @@ rank runs the export (``serving/export.export_model``; a table gather
 over a process mesh, rank 0 writes).  SIGTERM becomes ``SystemExit``, so
 ``finally`` blocks run.
 
+With ``--validation_data`` / ``--prediction_data`` it builds their
+readers for evaluation and prediction tasks.  A worker that reads record
+files logs once which ETRF codec serves it (``data/recordfile.codec``:
+the native host codec or the Python one) and journals it in
+``data_readers``.
+
 With ``--checkpoint_dir`` the worker journals into
 ``<checkpoint_dir>/events_worker_<id>.jsonl`` (the master's journal is
 ``events.jsonl`` there); at exit it logs one line, ``worker exit: {...}``,
@@ -72,12 +78,18 @@ def main(argv=None) -> int:
 
     model_spec = load_model_spec(args)
     data_reader = build_data_reader(args, model_spec, args.training_data)
+    validation_reader = (build_data_reader(args, model_spec, args.validation_data)
+                         if args.validation_data else None)
+    prediction_reader = (build_data_reader(args, model_spec, args.prediction_data)
+                         if args.prediction_data else None)
+    _note_readers(data_reader, validation_reader, prediction_reader)
     client = MasterClient(args.master_addr, worker_id=args.worker_id)
     worker = None
     try:
-        worker = _build_collective_worker(args, model_spec, data_reader, client)
+        worker = _build_collective_worker(args, model_spec, data_reader, client,
+                                          validation_reader, prediction_reader)
         worker.run()
-        if args.output:
+        if args.output and "training" in args.job_type:
             from elasticdl_tpu_torch.serving.export import export_model
             from elasticdl_tpu_torch.common.args import format_dict_params
 
@@ -102,7 +114,23 @@ def main(argv=None) -> int:
         obs.journal().record("worker_exit", **summary)
 
 
-def _build_collective_worker(args, model_spec, data_reader, client):
+def _note_readers(*readers) -> None:
+    """Log and journal the readers and, when one reads record files, the
+    ETRF codec that serves them (built at first use)."""
+    from elasticdl_tpu_torch.data import recordfile
+    from elasticdl_tpu_torch.data.reader import FixedWidthEtrfReader, RecordIODataReader
+
+    names = [type(r).__name__ if r is not None else None for r in readers]
+    files = any(isinstance(r, (FixedWidthEtrfReader, RecordIODataReader)) for r in readers)
+    codec = recordfile.codec() if files else None
+    if files:
+        logger.info("Record codec: %s", codec)
+    obs.journal().record("data_readers", training=names[0], validation=names[1],
+                         prediction=names[2], record_codec=codec)
+
+
+def _build_collective_worker(args, model_spec, data_reader, client, validation_reader=None,
+                             prediction_reader=None):
     """Join the world, build the trainer over its mesh, restore state."""
     from elasticdl_tpu_torch.checkpoint.saver import CheckpointSaver
     from elasticdl_tpu_torch.checkpoint.sharded import ShardedCheckpointSaver
@@ -165,6 +193,8 @@ def _build_collective_worker(args, model_spec, data_reader, client):
         checkpoint_steps=args.checkpoint_steps,
         train_window_steps=args.train_window_steps,
         pipeline=PipelineConfig.from_args(args),
+        validation_data_reader=validation_reader,
+        prediction_data_reader=prediction_reader,
     )
 
 

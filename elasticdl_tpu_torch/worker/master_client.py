@@ -14,16 +14,21 @@ restart on the same port.  Idempotency per call, as in JAX:
 - ``report_version``: retried; the master folds it with max().
 - ``report_task_result``: NOT retried; a duplicate failure report would
   charge the task's retry budget twice.
-- ``report_evaluation_metrics``: NOT retried (the evaluation service is
-  not ported; the method raises).
+- ``report_evaluation_metrics``: NOT retried, with its own deadline
+  (``RPC.EVAL_REPORT_DEADLINE_S``): a duplicate chunk would count its
+  rows twice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, Dict, Optional
 
+import numpy as np
+
 from elasticdl_tpu_torch.common import messages as msg
+from elasticdl_tpu_torch.common.constants import RPC
 from elasticdl_tpu_torch.common.http_rpc import JsonRpcClient
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.retry import (
@@ -31,6 +36,7 @@ from elasticdl_tpu_torch.common.retry import (
     NON_IDEMPOTENT_POLICY,
     RetryPolicy,
 )
+from elasticdl_tpu_torch.common.tensor_utils import ndarray_to_tensor
 
 logger = get_logger("worker.master_client")
 
@@ -86,6 +92,22 @@ class MasterClient:
                            "will requeue the task (at-least-once)", task_id,
                            "failure" if err_message else "success")
             return False
+
+    def report_evaluation_metrics(self, model_version: int, model_outputs, labels,
+                                  task_id: int = 0):
+        """``model_outputs`` is ``{name: array}``; ``labels`` an array or a
+        ``{name: array}`` dict.  ``task_id`` joins the chunk to its
+        EVALUATION task."""
+        if not isinstance(labels, dict):
+            labels = {"": np.asarray(labels)}
+        request = msg.ReportEvaluationMetricsRequest(
+            model_outputs=[ndarray_to_tensor(a, name) for name, a in model_outputs.items()],
+            labels=[ndarray_to_tensor(a, name) for name, a in labels.items()],
+            worker_id=self._worker_id, model_version=model_version, task_id=task_id)
+        policy = self._no_retry_policy
+        if policy.timeout_s != RPC.EVAL_REPORT_DEADLINE_S:
+            policy = dataclasses.replace(policy, timeout_s=RPC.EVAL_REPORT_DEADLINE_S)
+        self._client.call("report_evaluation_metrics", request, policy)
 
     def report_version(self, model_version: int):
         self._client.call("report_version", msg.ReportVersionRequest(

@@ -29,8 +29,12 @@ the model on the mesh's device.
 The model-zoo contract of the JAX module: ``loss`` (sigmoid binary cross
 entropy, batch mean), ``optimizer`` (dense Adam 1e-3),
 ``embedding_optimizer`` (sparse per-row Adam 1e-3), ``dataset_fn``
-(parse, then in training a 4096-record shuffle seeded 0) and
-``custom_data_reader`` (``synthetic://criteo?n=&vocab=&seed=``).  ``init_parameters``
+(parse, then in training a 4096-record shuffle seeded 0),
+``columnar_dataset_fn`` (whole-column casts, then in training one
+permutation seeded by the task), ``eval_metrics_fn`` (accuracy, AUC) and
+``custom_data_reader`` (``synthetic://criteo?n=&vocab=&seed=``, or
+Criteo-layout ETRF: one ``.etrf`` file or a directory of them, read by
+``CriteoRecordReader``; ``write_criteo_etrf`` writes such a file).  ``init_parameters``
 draws flax's default initialisation from a ``torch.Generator``:
 lecun-normal kernels, zero biases, the Embedding layer's uniform tables.
 In training the Embedding layers pass their perturbation capture through
@@ -47,7 +51,11 @@ import torch
 from torch import nn
 
 from elasticdl_tpu_torch.common.device import resolve_device
+from elasticdl_tpu_torch.data import recordfile
+from elasticdl_tpu_torch.data.columnar import training_permutation
+from elasticdl_tpu_torch.data.reader import FixedWidthEtrfReader, is_etrf_dir
 from elasticdl_tpu_torch.data.synthetic import SyntheticCTRReader, parse_synthetic_path
+from elasticdl_tpu_torch.data.vectorized import RecordLayout
 from elasticdl_tpu_torch.layers.embedding import Embedding
 from elasticdl_tpu_torch.parallel import optim, sparse_optim
 from elasticdl_tpu_torch.parallel.mesh import resolve_mesh
@@ -282,16 +290,104 @@ def dataset_fn(dataset, mode, metadata):
     return dataset
 
 
+def columnar_dataset_fn(columns, mode, metadata, seed: int = 0):
+    """JAX ``deepfm_functional_api.py:233``: the columnar task path's
+    counterpart of ``dataset_fn`` (``data/columnar.py``): whole-column
+    casts and, in training, one permutation seeded by the task (the same
+    on every rank, different for every task and epoch)."""
+    features = {
+        "dense": np.ascontiguousarray(columns["dense"], np.float32),
+        "cat": np.ascontiguousarray(columns["cat"], np.int32),
+    }
+    labels = columns["label"][:, 0].astype(np.int32)
+    if mode == "training":
+        perm = training_permutation(len(labels), seed=seed)
+        features = {k: v[perm] for k, v in features.items()}
+        labels = labels[perm]
+    return features, labels
+
+
+def _auc(outputs, labels):
+    """JAX ``model_zoo/wide_and_deep/wide_and_deep.py:114``: the rank-sum
+    AUC of logits against 0/1 labels (0.5 when a class is missing)."""
+    order = np.argsort(outputs)
+    ranks = np.empty_like(order, dtype=np.float64)
+    ranks[order] = np.arange(1, len(outputs) + 1)
+    pos = labels.astype(bool)
+    n_pos = int(pos.sum())
+    n_neg = len(labels) - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return 0.5
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def eval_metrics_fn():
+    """JAX ``deepfm_functional_api.py:253``: accuracy of ``logit > 0`` and
+    AUC, over a whole evaluation round's outputs and labels."""
+    return {
+        "accuracy": lambda outputs, labels: np.mean(
+            (outputs > 0).astype(np.int64) == labels.astype(np.int64)
+        ),
+        "auc": _auc,
+    }
+
+
+def criteo_record_layout() -> RecordLayout:
+    """One Criteo record in an ETRF file: 13 f32, 26 i32, a u8 label
+    (157 bytes, little-endian, packed)."""
+    return RecordLayout([
+        ("dense", np.float32, NUM_DENSE),
+        ("cat", np.int32, NUM_CAT),
+        ("label", np.uint8, 1),
+    ])
+
+
+def write_criteo_etrf(path: str, dense, cat, label) -> int:
+    """Write ``n`` Criteo records (``dense [n, 13]``, ``cat [n, 26]``,
+    ``label [n]`` or ``[n, 1]``) to one ETRF file in
+    ``criteo_record_layout``; returns ``n``."""
+    n = len(dense)
+    rows = np.concatenate([
+        np.ascontiguousarray(dense, np.float32).view(np.uint8),
+        np.ascontiguousarray(cat, np.int32).view(np.uint8),
+        np.asarray(label, np.uint8).reshape(n, 1),
+    ], axis=1)
+    return recordfile.write_records(path, (row.tobytes() for row in rows))
+
+
+class CriteoRecordReader(FixedWidthEtrfReader):
+    """Criteo-layout ETRF, one file or a directory of shard files, each
+    a shard of the master's queue.  The columnar path parses whole
+    chunks; ``read_records`` yields the per-record path's items."""
+
+    def __init__(self, path: str, **kwargs):
+        super().__init__(path, **kwargs)
+        self._layout = criteo_record_layout()
+
+    def layout(self):
+        return self._layout
+
+    def _row(self, cols, i):
+        return (
+            {"dense": cols["dense"][i], "cat": cols["cat"][i]},
+            np.int32(cols["label"][i, 0]),
+        )
+
+
 def custom_data_reader(data_path: str, **kwargs):
-    """JAX ``deepfm_functional_api.py:298`` for ``synthetic://`` paths: the
-    zoo's Criteo-layout records; None for any other path (its ETRF
-    reader is not ported, ``data/reader.py``)."""
+    """JAX ``deepfm_functional_api.py:298``: ``synthetic://`` paths give the
+    zoo's generated records, a ``.etrf`` file or a directory of them
+    (``recordio:`` prefix allowed) a ``CriteoRecordReader``; None for any
+    other path."""
     name, params = parse_synthetic_path(data_path)
-    if name is None:
-        return None
-    return SyntheticCTRReader(
-        n=params.get("n", 4096),
-        vocab_size=params.get("vocab", VOCAB),
-        seed=params.get("seed", 0),
-        shard_name="criteo-synth",
-    )
+    if name is not None:
+        return SyntheticCTRReader(
+            n=params.get("n", 4096),
+            vocab_size=params.get("vocab", VOCAB),
+            seed=params.get("seed", 0),
+            shard_name="criteo-synth",
+        )
+    path = data_path.removeprefix("recordio:")
+    if path.endswith(".etrf") or is_etrf_dir(path):
+        return CriteoRecordReader(path)
+    return None

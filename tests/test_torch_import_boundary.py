@@ -3,6 +3,7 @@ flax/optax, no gRPC and nothing of the JAX package or its model zoo,
 and its entry points never drop to the CPU on their own."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -105,6 +106,15 @@ def test_port_sources_import_nothing_forbidden():
             "elasticdl_tpu_torch.worker.collective_worker",
             "elasticdl_tpu_torch.worker.main",
             "elasticdl_tpu_torch.worker.master_client"} <= names
+    # So are the readers, the native codec's binding, the columnar path
+    # and the evaluation service.
+    assert {"elasticdl_tpu_torch.native",
+            "elasticdl_tpu_torch.common.tensor_utils",
+            "elasticdl_tpu_torch.data.columnar",
+            "elasticdl_tpu_torch.data.odps_reader",
+            "elasticdl_tpu_torch.data.recordfile",
+            "elasticdl_tpu_torch.data.vectorized",
+            "elasticdl_tpu_torch.master.evaluation_service"} <= names
 
 
 _SUBPROCESS = r"""
@@ -179,6 +189,31 @@ def test_replica_main_import_closure_holds_no_jax_or_grpc():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout and "ALL []" in proc.stdout, proc.stdout
+
+
+def test_native_codec_loads_no_jax_package_module(tmp_path):
+    """Building, loading and reading through the port's native ETRF
+    codec (``elasticdl_tpu_torch/native``) loads nothing of the JAX
+    package, its own native library included."""
+    code = (
+        "import sys\n"
+        "from elasticdl_tpu_torch import native\n"
+        "from elasticdl_tpu_torch.data import recordfile\n"
+        "from elasticdl_tpu_torch.zoo import deepfm\n"
+        f"path = {str(tmp_path / 'x.etrf')!r}\n"
+        "recordfile.write_records(path, [b'a', b'bc'])\n"
+        "assert native.record_file() is not None and recordfile.codec() == 'native'\n"
+        "assert list(recordfile.read_all(path)) == [b'a', b'bc']\n"
+        "assert deepfm.custom_data_reader(path).create_shards() == {path: 2}\n"
+        f"forbidden = {FORBIDDEN!r}\n"
+        "print('LOADED', sorted(m for m in sys.modules\n"
+        "                       if any(m == f or m.startswith(f + '.') for f in forbidden)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "ELASTICDL_DISABLE_NATIVE"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), capture_output=True,
+                          text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
 
 
 def test_port_forbidden_list_is_this_tests():

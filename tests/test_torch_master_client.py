@@ -7,6 +7,7 @@ import socket
 import threading
 import time
 
+import numpy as np
 import pytest
 
 from elasticdl_tpu.common import grpc_utils
@@ -55,10 +56,16 @@ def test_every_method_over_http():
         assert client.report_worker_liveness("127.0.0.1", 0) is True  # a stale world
         client.report_version(7)
         assert '"todo"' in client.get_shard_checkpoint()
+        # No evaluation service in this job: the chunk is dropped.
+        client.report_evaluation_metrics(7, {"output": np.zeros(3, np.float32)},
+                                         np.ones(3, np.int32), task_id=task.task_id)
         raw = JsonRpcClient(f"127.0.0.1:{port}")
+        assert isinstance(raw.call("report_evaluation_metrics",
+                                   msg.ReportEvaluationMetricsRequest(),
+                                   retry.NON_IDEMPOTENT_POLICY),
+                          msg.ReportEvaluationMetricsResponse)
         with pytest.raises(retry.RpcError) as err:
-            raw.call("report_evaluation_metrics", msg.ReportEvaluationMetricsRequest(),
-                     retry.NON_IDEMPOTENT_POLICY)
+            raw._once("no_such_method", b"{}", 5.0, False)
         assert err.value.code == "UNIMPLEMENTED" and err.value.status == 501
         raw.close()
     finally:

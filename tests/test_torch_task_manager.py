@@ -341,7 +341,11 @@ def test_deepfm_dataset_fn_gives_the_zoo_batches(mode):
     jax_reader = jax_deepfm.custom_data_reader(path)
     port_reader = port_deepfm.custom_data_reader(path)
     assert port_reader.create_shards() == jax_reader.create_shards()
-    assert port_deepfm.custom_data_reader("/data/criteo.etrf") is None
+    etrf = "/data/criteo.etrf"
+    assert type(port_deepfm.custom_data_reader(etrf)).__name__ == \
+        type(jax_deepfm.custom_data_reader(etrf)).__name__ == "CriteoRecordReader"
+    assert port_deepfm.custom_data_reader("/data/records") is None
+    assert jax_deepfm.custom_data_reader("/data/records") is None
     for start, end in [(0, 128), (128, 256), (256, 300)]:
         task = _task(start, end)
         want = port_dataset.SequentialRecords(jax_deepfm.dataset_fn(
@@ -382,11 +386,17 @@ def test_parsers_keep_every_jax_flag_and_default():
         assert {k: port_flags[k] for k in jax_flags} == jax_flags
         assert port_flags["device"] == "cuda"
     required = ["--model_zoo", "model_zoo", "--model_def", "deepfm.deepfm_functional_api"]
-    for flag, value in [("--validation_data", "x"), ("--tensorboard_log_dir", "/tmp/tb"),
-                        ("--image_name", "img"), ("--job_type", "evaluation_only"),
+    for flag, value in [("--profile_steps", "1,2"), ("--tensorboard_log_dir", "/tmp/tb"),
+                        ("--image_name", "img"), ("--volume", "v"),
                         ("--slo_goodput_target", "0.9")]:
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
             port_args.parse_master_args(required + [flag, value])
+    # The evaluation flags and jobs are ported.
+    for job_type in ("evaluation_only", "prediction_only", "training_only"):
+        args = port_args.parse_master_args(required + [
+            "--validation_data", "x", "--prediction_data", "y", "--evaluation_steps", "5",
+            "--job_type", job_type])
+        assert (args.validation_data, args.evaluation_steps, args.job_type) == ("x", 5, job_type)
     args = port_args.parse_master_args(required + ["--jax_compilation_cache_dir", "/tmp/c",
                                                    "--policy_enabled", "false"])
     assert args.jax_compilation_cache_dir == "/tmp/c" and args.policy_enabled is False
