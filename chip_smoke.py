@@ -271,6 +271,39 @@ The elastic job (``master/``, ``worker/``, ``parallel/elastic.py``):
     the smoke run's own process (read, parse, join, transform, whole,
     the Python codec's read), evaluation samples/s and each round's
     seconds, the wall.
+28. ResNet-50 at ``bench.py``'s ``bench_resnet50`` width, nothing cut
+    (224x224 uint8 images, batch 128, bf16, 1000 classes, stages (3, 4,
+    6, 3), Nesterov SGD at 0.1, the model ``channels_last``) trained
+    through ``DataParallelTrainer`` (a world of one): 20 timed steps after
+    3.  Printed: images/s (host wall), the step's median and range (CUDA
+    events), the median split into forward, backward and update (CUDA
+    events, 5 steps), one step's host enqueue time after an empty queue,
+    a step's device time by kernel class and its busy share
+    (``torch.profiler``), the peak memory, the loss at the first and last step, and the largest
+    move of the running statistics (they must move).  Gate 1: the card's
+    f32 eval forward at batch 8 (weights from a seeded random JAX-layout
+    tree through ``serving.convert``) within VISION_F32_RTOL of the
+    largest logit of the port's CPU forward on the same weights.  Gate
+    2: the single-device ``Trainer`` and ``DataParallelTrainer``, 3 steps
+    from one state with cuDNN's deterministic algorithms, their parameter
+    updates and ``batch_stats`` moves within VISION_PATHS_RTOL (relative
+    L2).
+29. The Local job from files: the port's ``write_image_etrf`` writes 2
+    training shards of 1,536 synthetic ImageNet images stored at 256x256
+    and a validation shard of 512 (``--seed``), then ``python -m
+    elasticdl_tpu_torch.client.main train --distribution_strategy=Local``
+    trains ResNet-50 on them (batch 128, tasks of 384, an evaluation round
+    every 12 versions, ``--output``).  Gates: exit 0; every training and
+    evaluation range done, the rounds at versions 12 and 24 over 512
+    rows; "Columnar task path engaged" for training and evaluation with
+    224x224 batches (the 256 -> 224 crops); no forbidden module in the
+    process; the final accuracy equal to, and the final loss within
+    VISION_LOSS_RTOL of, an evaluation in the smoke run's process of the
+    exported artifact reloaded through
+    ``serving/export.load_for_serving``.  Printed (host clock): images/s
+    over the steady tasks (all but the first), a steady task's mean
+    split (task, data wait, read and parse, crop, stage), each round's
+    seconds, the wall.  Phases 28 and 29 launch none of K1-K10.
 
 Before each of phases 21-23 the free space of its directory is checked
 (a failure names the bytes needed); each deletes its directories.
@@ -293,7 +326,8 @@ result, when no CUDA device is available or the port is not beside it.
 ``--phases 1,10`` runs only the named phases (for a short check of one
 kernel; such a run prints no result line; phase 19 reuses phase 4's
 artifact when both run; phases 21 and 22 run together, and so do 24 and
-25; phase 27 prints phase 26's figures beside its own when both run).
+25; phase 27 prints phase 26's figures beside its own when both run;
+``--phases 28,29`` runs the vision phases alone).
 """
 
 from __future__ import annotations
@@ -310,6 +344,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from unittest import mock
 
 #: Published H100 SXM peak memory rate (NVIDIA data sheet), bytes/s.
@@ -345,6 +380,37 @@ ETRF_EVAL_STEPS = 48
 #: The final AUC against an in-process evaluation of the same model:
 #: near-tied logits may order differently.
 AUC_TOL = 1e-4
+#: Phases 28-29: ResNet-50 at bench.py's bench_resnet50 width (224x224
+#: uint8 images, batch 128, bf16, 1000 classes, stages (3, 4, 6, 3),
+#: Nesterov SGD at 0.1), nothing cut.
+VISION_DEF = "resnet50.resnet50_subclass"
+VISION_BATCH = 128
+VISION_SIZE = 224
+VISION_CLASSES = 1000
+VISION_LR = 0.1
+#: Gate 1: the card's f32 eval forward (channels_last, cuDNN, TF32 off)
+#: against the port's CPU forward on the same weights, max |diff| over the
+#: largest CPU logit.
+VISION_F32_RTOL = 1e-3
+#: Gate 2: 3 steps of the single-device Trainer against
+#: DataParallelTrainer on the card from one state, cuDNN deterministic:
+#: relative L2 of the parameter updates and of the batch_stats' moves.
+VISION_PATHS_RTOL = 1e-2
+#: Phase 29: the job's final evaluation loss against the exported
+#: model's, evaluated here on the same rows (accuracy must be equal):
+#: relative difference.  With random labels the accuracy sits at chance,
+#: so the loss is what tells a wrong export (batch_stats, a kernel's
+#: layout) from the trained model.
+VISION_LOSS_RTOL = 1e-5
+#: Phase 29: the Local job on image ETRF stored at 256 (crops to 224), 2
+#: training shards of 1,536 records (24 steps of 128 in tasks of 384), a
+#: validation shard of 512, an evaluation round every 12 model versions.
+VISION_STORE_SIZE = 256
+VISION_SHARDS = 2
+VISION_PER_SHARD = 1536
+VISION_VALIDATION = 512
+VISION_PER_TASK = 384
+VISION_EVAL_STEPS = 12
 #: The training slice: the north-star table, bench.py's batch.
 TRAIN_PARAMS = "vocab_size=1000000,embedding_dim=8,hidden=128,split_tables=false"
 TRAIN_BATCH = 8192
@@ -4570,6 +4636,418 @@ RING_BUILDS = {
 }
 
 
+# ----------------------------------------------------------------------
+# phases 28-29: the vision zoo, DataParallelTrainer and the Local job
+# ----------------------------------------------------------------------
+
+
+def vision_model(params: dict, use_bf16: bool = True, device=None):
+    from elasticdl_tpu_torch.zoo import resnet50
+
+    return resnet50.custom_model(use_bf16=use_bf16, device=device, **params)
+
+
+def vision_time_parts(trainer, staged):
+    """One DataParallelTrainer step through its three parts, between CUDA
+    events (ms each)."""
+    import torch
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    marks[0].record()
+    loss = trainer.forward(*staged)
+    marks[1].record()
+    grads = trainer.backward(loss)
+    marks[2].record()
+    trainer.dense_update(grads)
+    marks[3].record()
+    torch.cuda.synchronize()
+    names = ("forward", "backward", "dense_update")
+    return {name: marks[i].elapsed_time(marks[i + 1]) for i, name in enumerate(names)}
+
+
+def flat_numpy(tree) -> "np.ndarray":
+    import numpy as np
+
+    return np.concatenate([np.ravel(np.asarray(tree[k], np.float64)) for k in sorted(tree)])
+
+
+def rel_update(a, b, start) -> float:
+    """``|(a - start) - (b - start)| / |a - start|``, flattened."""
+    import numpy as np
+
+    da, db = flat_numpy(a) - flat_numpy(start), flat_numpy(b) - flat_numpy(start)
+    return float(np.linalg.norm(da - db) / max(np.linalg.norm(da), 1e-30))
+
+
+def vision_kernel_category(name: str) -> str:
+    """A coarse class of a device record's name, for a step's breakdown."""
+    low = name.lower()
+    if any(k in low for k in ("conv", "xmma", "implicit", "dgrad", "wgrad", "cudnn", "gemm",
+                              "cutlass", "nhwc")):
+        return "conv and gemm"
+    if "reduce" in low:
+        return "reductions"
+    if "elementwise" in low or "vectorized" in low or "foreach" in low:
+        return "elementwise"
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    return "other"
+
+
+def vision_profile(trainer, staged, step_ms: float) -> dict:
+    """One step's device records (``torch.profiler``, 2 steps): its
+    device time by class and its top kernels, the launches, and the share
+    of the step (CUDA events) the card was busy; None without records."""
+    prof = profile_launches(lambda: trainer.train_step_staged(staged), calls=2)
+    if prof is None:
+        return None
+    classes = {}
+    for name, r in prof["by_kernel"].items():
+        c = classes.setdefault(vision_kernel_category(name), {"ms": 0.0, "launches": 0.0})
+        c["ms"] += r["ms"]
+        c["launches"] += r["launches"]
+    top = sorted(prof["by_kernel"].items(), key=lambda kv: -kv[1]["ms"])[:6]
+    return {"device_ms": prof["device_ms"], "launches": prof["launches"],
+            "busy_share": prof["device_ms"] / step_ms, "by_class": classes,
+            "top_kernels": dict(top)}
+
+
+def vision_f32_gate(card: str, seed: int, params: dict, size: int, batch: int) -> dict:
+    """Gate 1: ResNet-50 in f32, eval mode, weights from a seeded random
+    JAX-layout tree carried over by ``serving.convert``: the card's
+    forward (channels_last, cuDNN) against the port's CPU forward."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.serving import convert
+
+    cpu = vision_model(params, use_bf16=False, device="cpu")
+    state = convert.state_dict_from_jax(convert.random_jax_variables(cpu, seed)[0], cpu)
+    convert.load_state(cpu, state)
+    on_card = vision_model(params, use_bf16=False)
+    convert.load_state(on_card, state)
+    if not on_card.Conv_0.weight.is_contiguous(memory_format=torch.channels_last):
+        fail("the ResNet-50 on the card is not channels_last")
+    x = np.random.default_rng(seed + 28).integers(0, 256, (batch, size, size, 3), np.uint8)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = cpu(torch.from_numpy(x), train=False).numpy()
+        cpu_s = time.perf_counter() - t0
+        got = on_card(torch.from_numpy(x).to(card_device()), train=False).cpu().numpy()
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    if not (np.isfinite(got).all() and err <= VISION_F32_RTOL * scale):
+        fail(f"the card's f32 ResNet-50 forward is {err!r} from the CPU's (largest logit "
+             f"{scale!r}, tolerance {VISION_F32_RTOL} of it)")
+    log(f"vision gate 1: f32 eval forward, batch {batch}: card vs CPU max |diff| {err!r} "
+        f"(largest logit {scale!r}, tolerance {VISION_F32_RTOL} of it); the CPU forward took "
+        f"{cpu_s!r} s [{card}]")
+    del cpu, on_card
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "max_logit": scale, "rtol": VISION_F32_RTOL, "batch": batch}
+
+
+def vision_paths_gate(card: str, seed: int, params: dict, images, labels) -> dict:
+    """Gate 2: the single-device ``Trainer`` and ``DataParallelTrainer`` on
+    the card, 3 steps from one state on the same batches, cuDNN's
+    deterministic algorithms on both."""
+    import torch
+
+    from elasticdl_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+    from elasticdl_tpu_torch.worker.trainer import Trainer, TrainState
+    from elasticdl_tpu_torch.zoo import resnet50 as zoo
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        dp = DataParallelTrainer(vision_model(params), zoo.loss, zoo.optimizer(VISION_LR),
+                                 seed=seed + 1)
+        dp.ensure_initialized()
+        start = dp.state_to_host()
+        local = Trainer(vision_model(params), zoo.loss, zoo.optimizer(VISION_LR), seed=seed + 2)
+        local.state = TrainState(*start)
+        local.ensure_initialized()
+        for i in range(3):
+            dp.train_step(images[i], labels[i])
+            local.train_step(images[i], labels[i])
+        a = dp.state_to_host()
+        b_params, b_stats = ({k: v.detach().cpu().numpy() for k, v in tree.items()}
+                             for tree in (local.state.params,
+                                          local.state.model_state["batch_stats"]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    result = {"params_rel_update": rel_update(a.params, b_params, start.params),
+              "batch_stats_rel_update": rel_update(a.model_state["batch_stats"], b_stats,
+                                                   start.model_state["batch_stats"]),
+              "rtol": VISION_PATHS_RTOL}
+    if not (result["params_rel_update"] <= VISION_PATHS_RTOL
+            and result["batch_stats_rel_update"] <= VISION_PATHS_RTOL):
+        fail(f"Trainer and DataParallelTrainer disagree after 3 steps: {result}")
+    log(f"vision gate 2: 3 steps, Trainer vs DataParallelTrainer: parameter updates "
+        f"{result['params_rel_update']!r}, batch_stats moves "
+        f"{result['batch_stats_rel_update']!r} apart (relative L2; tolerance "
+        f"{VISION_PATHS_RTOL}) [{card}]")
+    del dp, local
+    torch.cuda.empty_cache()
+    return result
+
+
+def vision_training_phase(card: str, seed: int, batch: int = VISION_BATCH,
+                          size: int = VISION_SIZE, classes: int = VISION_CLASSES,
+                          warmup: int = 3, steps: int = 20, gate_batch: int = 8):
+    """Phase 28: ResNet-50 trained through ``DataParallelTrainer`` (a world
+    of one) at ``bench_resnet50``'s width; then gates 1 and 2."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+    from elasticdl_tpu_torch.zoo import resnet50 as zoo
+
+    params = {"num_classes": classes}
+    n_batches = 4
+    rng = np.random.default_rng(seed)
+    images = rng.integers(0, 256, (n_batches, batch, size, size, 3), np.uint8)
+    labels = rng.integers(0, classes, (n_batches, batch)).astype(np.int32)
+    trainer = DataParallelTrainer(vision_model(params), zoo.loss, zoo.optimizer(VISION_LR),
+                                  seed=seed)
+    if trainer.device.type != "cuda":
+        fail(f"DataParallelTrainer's default device is {trainer.device}, not cuda")
+    trainer.ensure_initialized()
+    ones = np.ones((batch,), np.float32)
+    staged = [trainer.stage_batch(images[i], labels[i], ones) for i in range(n_batches)]
+    stats = trainer.state.model_state["batch_stats"]
+    stats0 = {k: v.detach().clone() for k, v in stats.items()}
+    n_params = sum(p.numel() for p in trainer.state.params.values())
+    log(f"ResNet-50 trainer on {trainer.device}: {n_params} parameters, {len(stats)} "
+        f"batch_stats leaves, batch {batch}x{size}x{size}x3 uint8, bf16")
+    losses = [trainer.train_step_staged(staged[i % n_batches]) for i in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(trainer.train_step_staged(staged[i % n_batches]))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sorted(s.elapsed_time(e) for s, e in events)
+    losses = torch.stack(losses).float().cpu().numpy()
+    if not np.all(np.isfinite(losses)):
+        fail(f"non-finite ResNet-50 loss: {losses}")
+    moved = max(float((stats[k] - stats0[k]).abs().max()) for k in stats)
+    if not moved > 0:
+        fail("the ResNet-50 batch_stats did not move in training")
+    splits = [vision_time_parts(trainer, staged[i % n_batches]) for i in range(5)]
+    parts = {name: sorted(p[name] for p in splits)[2] for name in splits[0]}
+    host = []
+    for i in range(5):  # enqueue time of one step after an empty queue
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.train_step_staged(staged[i % n_batches])
+        host.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    profile = vision_profile(trainer, staged[0], step_ms[len(step_ms) // 2])
+    train = {
+        "images_per_s": steps * batch / wall,
+        "step_ms_median": step_ms[len(step_ms) // 2],
+        "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+        "split_ms_median": parts, "host_enqueue_ms_median": sorted(host)[2],
+        "peak_memory_gb": peak / 1e9, "loss_first": float(losses[0]),
+        "loss_last": float(losses[-1]), "batch_stats_max_move": moved,
+        "shape": f"{batch}x{size}x{size}x3 uint8, {classes} classes, bf16, stages "
+                 f"{zoo.STAGE_SIZES}",
+        "profile": profile,
+    }
+    log(f"ResNet-50 train: {steps} steps: {train['images_per_s']!r} images/s (host wall), "
+        f"step median {train['step_ms_median']!r} ms (CUDA events; min {step_ms[0]!r}, max "
+        f"{step_ms[-1]!r}); median split {parts} ms; one step's host enqueue after an empty "
+        f"queue {train['host_enqueue_ms_median']!r} ms; peak {peak / 1e9!r} GB; loss "
+        f"{losses[0]!r} -> {losses[-1]!r}; batch_stats moved (max |change| {moved!r}) "
+        f"[{card}]")
+    if profile is None:
+        log("ResNet-50 step profile: torch.profiler recorded no device time")
+    else:
+        log(f"ResNet-50 step profile (torch.profiler, 2 steps): {profile['device_ms']!r} ms of "
+            f"device time a step in {profile['launches']!r} launches, busy "
+            f"{profile['busy_share']!r} of the step; by class "
+            f"{ {k: round(v['ms'], 3) for k, v in profile['by_class'].items()} } ms; top "
+            f"{ {k[:60]: round(v['ms'], 3) for k, v in profile['top_kernels'].items()} } "
+            f"[{card}]")
+    del trainer, staged
+    torch.cuda.empty_cache()
+    train["gate_f32_forward"] = vision_f32_gate(card, seed, params, size, gate_batch)
+    train["gate_trainer_paths"] = vision_paths_gate(card, seed, params, images, labels)
+    return train
+
+
+def write_image_shards(directory: str, reader, lo: int, n: int, shards: int) -> int:
+    """``n`` records of ``reader`` from ``lo`` as ``shards`` image-ETRF files
+    (``data/image.write_image_etrf``); returns the bytes written."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.data.image import write_image_etrf
+
+    os.makedirs(directory, exist_ok=True)
+    per = n // shards
+    written = 0
+    for shard in range(shards):
+        rows = range(lo + shard * per, lo + (shard + 1) * per)
+        images = np.stack([reader.image(i) for i in rows])
+        labels = np.asarray([reader.labels[i] for i in rows], np.int32)
+        path = os.path.join(directory, f"part-{shard:05d}.etrf")
+        write_image_etrf(path, images, labels)
+        written += os.path.getsize(path)
+    return written
+
+
+def local_job_phase(card: str, seed: int, workdir: str, shards: int = VISION_SHARDS,
+                    per_shard: int = VISION_PER_SHARD, validation: int = VISION_VALIDATION,
+                    stored: int = VISION_STORE_SIZE, batch: int = VISION_BATCH,
+                    per_task: int = VISION_PER_TASK, eval_steps: int = VISION_EVAL_STEPS,
+                    classes: int = VISION_CLASSES, crop: int = VISION_SIZE, model_params="",
+                    extra_flags=()):
+    """Phase 29: ``python -m elasticdl_tpu_torch.client.main train
+    --distribution_strategy=Local`` trains ResNet-50 from image ETRF
+    shards on the card, evaluates every ``eval_steps`` versions and
+    exports; the export, reloaded through ``serving/export.py``, is
+    evaluated here over the same validation records."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.data.synthetic import SyntheticImagenetReader
+    from elasticdl_tpu_torch.serving.export import load_for_serving
+    from elasticdl_tpu_torch.zoo import resnet50 as zoo
+    from elasticdl_tpu_torch.zoo import resolve
+
+    job = os.path.join(workdir, "local")
+    train_dir, val_dir = os.path.join(job, "train"), os.path.join(job, "validation")
+    journal_dir, out = os.path.join(job, "journal"), os.path.join(job, "export")
+    n = shards * per_shard
+    reader = SyntheticImagenetReader(n=n + validation, seed=seed, image_size=stored,
+                                     num_classes=classes)
+    require_free(workdir, 2 * (n + validation) * (stored * stored * 3 + 12),
+                 "the Local job's image shards")
+    t0 = time.perf_counter()
+    written = write_image_shards(train_dir, reader, 0, n, shards)
+    written += write_image_shards(val_dir, reader, n, validation, 1)
+    log(f"local job: wrote {shards} training shards of {per_shard} {stored}x{stored} images and "
+        f"one validation shard of {validation} ({written} bytes) in "
+        f"{time.perf_counter() - t0!r} s, before the job")
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "elasticdl_tpu_torch.client.main", "train",
+            "--distribution_strategy=Local", "--model_zoo=model_zoo", f"--model_def={VISION_DEF}",
+            f"--training_data={train_dir}", f"--validation_data={val_dir}",
+            f"--evaluation_steps={eval_steps}", f"--minibatch_size={batch}",
+            f"--records_per_task={per_task}", f"--output={out}",
+            f"--checkpoint_dir={journal_dir}", f"--model_params=num_classes={classes}"
+            + (f",{model_params}" if model_params else ""), *extra_flags]
+    job_log = os.path.join(job, "job.log")
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t_start = time.time()
+    with open(job_log, "wb") as log_file:
+        proc = subprocess.Popen(argv, cwd=here, env=env, stdout=log_file,
+                                stderr=subprocess.STDOUT)
+    try:
+        rc = proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        fail(f"the Local job did not finish within 900 s:\n{tail(job_log)}")
+    wall = time.time() - t_start
+    if rc != 0:
+        fail(f"the Local job exited {rc}:\n{tail(job_log)}")
+    events = os.path.join(journal_dir, "events.jsonl")
+    journal = {name: journal_events(events, name) for name in (
+        "task_dispatch", "task_done", "task_requeue", "evaluation_metrics", "worker_task_done",
+        "local_job_exit")}
+    if journal["task_requeue"]:
+        fail(f"tasks were requeued: {journal['task_requeue']}")
+    dispatched = {e["task_id"]: e for e in journal["task_dispatch"]}
+    done_ids = [e["task_id"] for e in journal["task_done"]]
+    if sorted(done_ids) != sorted(dispatched):
+        fail(f"dispatched {sorted(dispatched)}, done {sorted(done_ids)}")
+    by_type = {}
+    for tid in done_ids:
+        e = dispatched[tid]
+        by_type.setdefault(e["type"], []).append((os.path.basename(e["shard"]), e["start"],
+                                                  e["end"]))
+    want_train = sorted((f"part-{i:05d}.etrf", lo, min(lo + per_task, per_shard))
+                        for i in range(shards) for lo in range(0, per_shard, per_task))
+    if sorted(by_type.get("TRAINING", [])) != want_train:
+        fail(f"training ranges done {sorted(by_type.get('TRAINING', []))}, want {want_train}")
+    want_eval = {("part-00000.etrf", lo, min(lo + per_task, validation))
+                 for lo in range(0, validation, per_task)}
+    if set(by_type.get("EVALUATION", [])) != want_eval:
+        fail(f"evaluation ranges done {by_type.get('EVALUATION')}, want {sorted(want_eval)}")
+    steps = n // batch
+    rounds = journal["evaluation_metrics"]
+    want_versions = list(range(eval_steps, steps + 1, eval_steps))
+    if [r["model_version"] for r in rounds] != want_versions or any(
+            r["examples"] != validation for r in rounds):
+        fail(f"evaluation rounds {rounds}, want versions {want_versions} of {validation} rows")
+    with open(job_log, errors="replace") as f:
+        text = f.read()
+    for mode, rows in (("training", per_task), ("evaluation", min(per_task, validation))):
+        engaged = f"Columnar task path engaged ({mode}, {rows} rows of [{crop}, {crop}, 3]"
+        if engaged not in text:
+            fail(f"no '{engaged}' in the job's log:\n{tail(job_log)}")
+    exits = journal["local_job_exit"]
+    if not exits or exits[-1]["forbidden_modules"] or exits[-1]["steps"] != steps:
+        fail(f"the Local job's exit record: {exits}")
+    done = journal["worker_task_done"]
+    train_done = [e for e in done if e["type"] == "TRAINING"]
+    if any(e["batch_shape"] != [crop, crop, 3] for e in done):
+        fail(f"a task's batches are not {crop}x{crop}: {[e['batch_shape'] for e in done]}")
+    # The exported model, reloaded and evaluated here.
+    served = load_for_serving(out)
+    val_columns = list(zoo.ImageRecordReader(val_dir).read_columns(
+        types.SimpleNamespace(shard_name=os.path.join(val_dir, "part-00000.etrf"), start=0,
+                              end=validation)))[0]
+    val_images, val_labels = zoo.columnar_dataset_fn(val_columns, "evaluation", None)
+    logits = np.concatenate([served.predict(val_images[lo:lo + batch])
+                             for lo in range(0, validation, batch)])
+    here_metrics = {name: float(fn(logits, val_labels)) for name, fn in
+                    resolve(VISION_DEF).eval_metrics_fn().items()}
+    final = rounds[-1]["metrics"]
+    loss_rel_diff = abs(final["loss"] - here_metrics["loss"]) / abs(here_metrics["loss"])
+    if final["accuracy"] != here_metrics["accuracy"] or not all(
+            np.isfinite(v) for v in final.values()) or not loss_rel_diff <= VISION_LOSS_RTOL:
+        fail(f"the job's final metrics {final} against {here_metrics} from the export (loss "
+             f"relative difference {loss_rel_diff!r}, tolerance {VISION_LOSS_RTOL})")
+    del served
+    torch.cuda.empty_cache()
+    steady = train_done[1:]
+    records = sum(e["steps"] for e in steady) * batch
+    seconds = sum(e["seconds"] for e in steady)
+    mean = {key: 1e3 * sum(e[key] for e in steady) / len(steady)
+            for key in ("seconds", "data_wait_s", "columnar_s", "columnar_transform_s",
+                        "stage_s")}
+    result = {
+        "images_per_s_steady": records / seconds,
+        "task_ms_mean": {"task": mean["seconds"], "data_wait": mean["data_wait_s"],
+                         "read_and_parse": mean["columnar_s"] - mean["columnar_transform_s"],
+                         "crop": mean["columnar_transform_s"], "stage": mean["stage_s"]},
+        "rounds": [{"version": r["model_version"], "seconds": r["seconds"],
+                    "metrics": r["metrics"]} for r in rounds],
+        "final_metrics": final, "export_metrics": here_metrics,
+        "loss_rel_diff": loss_rel_diff, "wall_s": wall,
+        "steps": steps, "job_seconds": exits[-1]["seconds"],
+    }
+    log(f"local job: {steps} steps of {batch} in {len(train_done)} tasks of {per_task} from "
+        f"{stored}x{stored} ETRF cropped to {crop}: {result['images_per_s_steady']!r} images/s "
+        f"over the steady tasks (host clock); a steady task's mean split (ms) "
+        f"{result['task_ms_mean']}; {len(rounds)} evaluation rounds "
+        f"{[(r['version'], r['seconds']) for r in result['rounds']]} (version, s); final "
+        f"{final} = the export's {here_metrics} (loss relative difference {loss_rel_diff!r}, "
+        f"tolerance {VISION_LOSS_RTOL}); wall {wall!r} s [{card}]")
+    return result
+
+
+
 def ring_entries(ring_kernels, ring_whole, cp, card, resources=None):
     """The K7-K9 entries of the kernels line: timed at RING_BENCH (phase
     13), launched on the CP LM path (phase 15, both layouts)."""
@@ -4736,6 +5214,14 @@ def main() -> None:
                 etrf = etrf_job_phase(card, args.seed, workdir, elastic)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
+    vision = vision_training_phase(card, args.seed) if run(28) else None
+    local = None
+    if run(29):
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            local = local_job_phase(card, args.seed, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
     attention, edges = attention_phase(card, args.seed) if run(10) else (None, None)
     lm = lm_training_phases(card, args.seed) if run(11, 12) else None
     lm_ckpt = lm_checkpoint_phase(card, args.seed) if run(23) else None
@@ -4751,7 +5237,8 @@ def main() -> None:
                         "split_training": split_train, "checkpoint": ckpt,
                         "lm_checkpoint": lm_ckpt, "continuous_loop": continuous,
                         "replica_process": process, "elastic_job": elastic,
-                        "etrf_job": etrf, "card": card}))
+                        "etrf_job": etrf, "vision_training": vision, "local_job": local,
+                        "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -4762,7 +5249,8 @@ def main() -> None:
                     "mesh_training": mesh_train, "split_training": split_train,
                     "checkpoint": ckpt, "lm_checkpoint": lm_ckpt,
                     "continuous_loop": continuous, "replica_process": process,
-                    "elastic_job": elastic, "etrf_job": etrf, "card": card}))
+                    "elastic_job": elastic, "etrf_job": etrf, "vision_training": vision,
+                    "local_job": local, "card": card}))
 
     by_path = {
         "fused_lookup_fm": {"serve_merged": launches["fused_lookup_fm"],

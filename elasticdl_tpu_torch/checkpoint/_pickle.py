@@ -3,14 +3,15 @@
 A pickled state of the JAX package (``elasticdl_tpu/checkpoint``) names a
 few globals besides numpy's: the optax chain states of the zoo's dense
 optimizers (``adam`` -> ``(ScaleByAdamState, EmptyState)``, ``adamw``
-one ``EmptyState`` more, ``sgd`` -> ``(EmptyState, EmptyState)``), a
+one ``EmptyState`` more, ``sgd`` -> ``(EmptyState, EmptyState)``, and
+``(TraceState, EmptyState)`` with momentum), a
 data-parallel ``state.pkl``'s ``elasticdl_tpu.worker.trainer.TrainState``
 and a PS trainer's ``elasticdl_tpu.parallel.ps_trainer.PSTrainState``.
 The port may import none of those modules, so it keeps NamedTuple
 stand-ins of the same fields (below) and maps the names both ways:
 
 - ``load``: a restricted ``Unpickler`` that resolves numpy's array
-  globals and maps exactly the four JAX names onto the stand-ins; any
+  globals and maps exactly the five JAX names onto the stand-ins; any
   other global raises ``RefusedGlobal``, a ``pickle.UnpicklingError``.
   ``load(f, jax_names=False)`` is the serving artifact's numpy-only
   reader.
@@ -36,6 +37,12 @@ class ScaleByAdamState(NamedTuple):
     count: Any
     mu: Any
     nu: Any
+
+
+class TraceState(NamedTuple):
+    """``optax.transforms._accumulation.TraceState`` (sgd's momentum)."""
+
+    trace: Any
 
 
 class EmptyState(NamedTuple):
@@ -66,6 +73,7 @@ class PSTrainState(NamedTuple):
 JAX_NAMES = {
     ScaleByAdamState: ("optax._src.transform", "ScaleByAdamState"),
     EmptyState: ("optax._src.base", "EmptyState"),
+    TraceState: ("optax.transforms._accumulation", "TraceState"),
     TrainState: ("elasticdl_tpu.worker.trainer", "TrainState"),
     PSTrainState: ("elasticdl_tpu.parallel.ps_trainer", "PSTrainState"),
 }

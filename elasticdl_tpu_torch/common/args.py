@@ -29,13 +29,9 @@ K8S_ITEM = ("ROADMAP.md Queue 1 item 6, what the job slice leaves: the Kubernete
             "pod manager (k8s_pod_manager.py, k8s_client.py, tpu_slice.py)")
 OBS_ITEM = ("ROADMAP.md Queue 1 item 8: telemetry, goodput, tracing, stepstats, "
             "the profiler, the TensorBoard service and the SLO plane")
-LOCAL_ITEM = ("ROADMAP.md Queue 1 item 7: the Local strategy's single-device "
-              "Worker and Trainer")
-#: The client CLI (``elasticdl train/evaluate/predict``), which no flag of
-#: these parsers selects: jobs start from ``python -m
-#: elasticdl_tpu_torch.master.main``.
-EVALUATION_ITEM = ("ROADMAP.md Queue 1 item 6, what the job slice leaves: the "
-                   "client CLI (client/{api,main,submit}.py)")
+#: The ``zoo`` subcommand of the client CLI (``client/zoo.py``).
+ZOO_ITEM = ("ROADMAP.md Queue 1 item 7, what the vision slice leaves: the model-zoo "
+            "CLI (client/zoo.py, zoo init|build|push)")
 
 
 def pos_int(value):
@@ -73,9 +69,10 @@ def add_common_arguments(parser: argparse.ArgumentParser):
     parser.add_argument(
         "--distribution_strategy", default="Local",
         choices=["Local", "ParameterServerStrategy", "AllreduceStrategy"],
-        help="ParameterServerStrategy (sharded embedding tables, K2/K3 on "
-        "the card) or AllreduceStrategy (dense gradients summed over the "
-        "world); Local's single-device worker is not ported",
+        help="Local (the master and one worker in the client's process, "
+        "client.main train|evaluate|predict), ParameterServerStrategy (sharded "
+        "embedding tables, K2/K3 on the card) or AllreduceStrategy (dense "
+        "gradients summed over the world)",
     )
     parser.add_argument("--log_level", default="INFO")
     parser.add_argument(

@@ -116,6 +116,12 @@ class JsonRpcServer:
         self._thread.start()
         return self.port
 
+    def wait_for_termination(self) -> None:
+        """Block until the server is stopped (or this thread interrupted)."""
+        thread = self._thread
+        if thread is not None:
+            thread.join()
+
     def stop(self) -> None:
         """Answer UNAVAILABLE from here on (open keep-alive connections
         included), stop accepting and close the listening socket."""

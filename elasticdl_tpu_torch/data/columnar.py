@@ -13,10 +13,16 @@ views.  A reader without ``read_columns`` or a zoo without
 
 from __future__ import annotations
 
+import functools
 import inspect
+import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
+
+from elasticdl_tpu_torch.common.log_utils import get_logger
+
+logger = get_logger("data.columnar")
 
 Tree = Any  # nested dict/tuple of np.ndarray, all sharing axis-0 length
 
@@ -90,6 +96,40 @@ def materialize_columnar_task(reader, task, columnar_dataset_fn: Optional[Callab
         kwargs["seed"] = task_seed(task)
     features, labels = columnar_dataset_fn(columns, mode, metadata, **kwargs)
     return ColumnarTask(features, labels)
+
+
+def materialize_for_worker(reader, task, columnar_dataset_fn: Callable, mode: str, metadata,
+                           stats: dict, logged: set, parse_pool=None) -> Optional[ColumnarTask]:
+    """A worker's columnar route for one task: ``materialize_columnar_task``
+    with its seconds booked into ``stats`` (``columnar_s``: read, parse
+    and transform; ``columnar_transform_s``: the zoo's transform), and
+    "Columnar task path engaged" logged the first time a mode (added to
+    ``logged``) takes it.  None for an empty task."""
+    start = time.monotonic()
+    transform_s = 0.0
+
+    @functools.wraps(columnar_dataset_fn)  # keeps the signature's ``seed``
+    def timed_fn(*args, **kwargs):
+        nonlocal transform_s
+        t0 = time.monotonic()
+        try:
+            return columnar_dataset_fn(*args, **kwargs)
+        finally:
+            transform_s += time.monotonic() - t0
+
+    columnar = materialize_columnar_task(reader, task, timed_fn, mode, metadata,
+                                         parse_pool=parse_pool)
+    if columnar is None:
+        return None
+    stats.update(columnar_s=round(time.monotonic() - start, 6),
+                 columnar_transform_s=round(transform_s, 6))
+    if mode not in logged:
+        logged.add(mode)
+        shape = (f" of {list(columnar.features.shape[1:])}"
+                 if isinstance(columnar.features, np.ndarray) else "")
+        logger.info("Columnar task path engaged (%s, %d rows%s, zero per-record Python)",
+                    mode, columnar.n, shape)
+    return columnar
 
 
 def training_permutation(n: int, seed: int = 0) -> np.ndarray:

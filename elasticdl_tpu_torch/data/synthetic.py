@@ -1,6 +1,15 @@
 """Synthetic training data: the port's own copies of the JAX zoo's
-``synthetic_ctr_reader`` and ``synthetic_lm_reader`` arrays
-(``model_zoo/datasets.py``), and of its ``synthetic://`` path parser.
+``synthetic_ctr_reader`` and ``synthetic_lm_reader`` arrays, of its
+vision readers (``synthetic_mnist_reader``, ``synthetic_cifar10_reader``
+and ``synthetic_imagenet_reader``, ``model_zoo/datasets.py:30-98``) and
+of its ``synthetic://`` path parser.
+
+The vision readers make the same draws in the same order as the JAX
+ones, so one seed gives the same uint8 images and int32 labels: a
+class-dependent bright patch on uniform noise, so accuracy can move.
+MNIST and CIFAR-10 are whole arrays (``NumpyDataReader``); ImageNet
+draws each image when its record is read, from a per-record seed, so a
+224x224x3 set never sits in memory whole.
 
 For the click data (Criteo layout), the same
 ``numpy.random.default_rng(seed)`` draws in the same order give the same
@@ -22,7 +31,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from elasticdl_tpu_torch.data.reader import AbstractDataReader
+from elasticdl_tpu_torch.data.reader import AbstractDataReader, NumpyDataReader
 
 NUM_DENSE = 13
 NUM_CAT = 26
@@ -113,3 +122,65 @@ class SyntheticCTRReader(AbstractDataReader):
         dense, cats = features["dense"], features["cat"]
         for i in range(task.start, min(task.end, self._n)):
             yield {"dense": dense[i], "cat": cats[i]}, labels[i]
+
+
+def synthetic_mnist_reader(n: int = 4096, seed: int = 0, shard_name: str = "mnist-synth"):
+    """28x28 uint8 images, the label's 7x5 patch set to 200."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, size=n).astype(np.int32)
+    images = rng.integers(0, 64, size=(n, 28, 28)).astype(np.uint8)
+    for cls in range(10):
+        rows = (cls // 5) * 14 + 3
+        cols = (cls % 5) * 5 + 1
+        images[labels == cls, rows:rows + 7, cols:cols + 5] = 200
+    return NumpyDataReader(images, labels, shard_name=shard_name)
+
+
+def synthetic_cifar10_reader(n: int = 4096, seed: int = 0, shard_name: str = "cifar-synth"):
+    """32x32x3 uint8 images, the label's 8x6 patch of one channel set to 220."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, size=n).astype(np.int32)
+    images = rng.integers(0, 64, size=(n, 32, 32, 3)).astype(np.uint8)
+    for cls in range(10):
+        rows = (cls // 5) * 16 + 3
+        cols = (cls % 5) * 6 + 1
+        images[labels == cls, rows:rows + 8, cols:cols + 6, cls % 3] = 220
+    return NumpyDataReader(images, labels, shard_name=shard_name)
+
+
+class SyntheticImagenetReader(AbstractDataReader):
+    """``image_size``^2 x 3 uint8 images drawn per record, the label's
+    12x12 patch of one channel set to 220 at a grid position."""
+
+    def __init__(self, n: int = 1024, seed: int = 0, image_size: int = 224,
+                 num_classes: int = 1000, shard_name: str = "imagenet-synth", **kwargs):
+        super().__init__(**kwargs)
+        rng = np.random.default_rng(seed)
+        self._n = int(n)
+        self._labels = rng.integers(0, num_classes, size=n).astype(np.int32)
+        self._seeds = rng.integers(0, 2**31 - 1, size=n)
+        self._size = int(image_size)
+        self._grid = max(1, image_size // 16)
+        self._shard_name = shard_name
+
+    def create_shards(self):
+        return {self._shard_name: self._n}
+
+    @property
+    def labels(self) -> np.ndarray:
+        """Every record's int32 label."""
+        return self._labels
+
+    def image(self, i: int) -> np.ndarray:
+        s = self._size
+        image = np.random.default_rng(int(self._seeds[i])).integers(
+            0, 64, size=(s, s, 3)).astype(np.uint8)
+        cls = int(self._labels[i])
+        row = (cls // self._grid) % self._grid * 16
+        col = (cls % self._grid) * 16
+        image[row:row + 12, col:col + 12, cls % 3] = 220
+        return image
+
+    def read_records(self, task):
+        for i in range(task.start, min(task.end, self._n)):
+            yield self.image(i), self._labels[i]

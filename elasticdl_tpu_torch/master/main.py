@@ -21,18 +21,24 @@ runs one round at version 0 over the workers' restored model, and
 ``prediction_only`` the ``--prediction_data`` tasks.  The journal is
 ``<checkpoint_dir>/events.jsonl``.  The job trains on the card unless
 ``--device cpu`` is given, and the master refuses to start when there is
-no card.
+no card.  With ``--distribution_strategy=Local`` (the default) it starts
+a bare master and serves until it is terminated, for a worker started by
+hand (``python -m elasticdl_tpu_torch.worker.main
+--distribution_strategy=Local``); ``python -m
+elasticdl_tpu_torch.client.main train`` runs the master and its worker
+together.
 """
 
 from __future__ import annotations
 
 import os
+import signal
 import sys
 from dataclasses import dataclass
 from typing import Optional
 
 from elasticdl_tpu_torch import obs
-from elasticdl_tpu_torch.common.args import LOCAL_ITEM, parse_master_args
+from elasticdl_tpu_torch.common.args import parse_master_args
 from elasticdl_tpu_torch.common.constants import DistributionStrategy
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_utils import load_model_spec
@@ -175,24 +181,44 @@ def start_master(args, model_spec=None, rendezvous_server=None) -> Master:
 
 def main(argv=None) -> int:
     """``python -m elasticdl_tpu_torch.master.main``: runs a cluster job
-    (the control plane and the worker fleet) to its end."""
+    (the control plane and the worker fleet) to its end, or, with the
+    Local strategy, serves a bare master until SIGTERM."""
     from elasticdl_tpu_torch.common import faults
 
     if faults.install_from_env():
         logger.warning("Fault injection armed from %s=%r", faults.ENV_VAR,
                        os.environ.get(faults.ENV_VAR))
     args = parse_master_args(argv)
-    if args.distribution_strategy == DistributionStrategy.LOCAL:
-        raise NotImplementedError(f"--distribution_strategy=Local is not ported: {LOCAL_ITEM}")
     if args.device != "cpu":
         from elasticdl_tpu_torch.common.device import resolve_device
 
         resolve_device(args.device)  # no card: refuse before any worker starts
+    if args.distribution_strategy == DistributionStrategy.LOCAL:
+        return _serve_local_master(args)
     from elasticdl_tpu_torch.master.job_runner import run_allreduce_job, run_ps_job
 
     runner = (run_ps_job if args.distribution_strategy == DistributionStrategy.PARAMETER_SERVER
               else run_allreduce_job)
     return runner(args, mode_from_job_type(args.job_type))
+
+
+def _serve_local_master(args) -> int:
+    def terminate(signum, frame):
+        raise SystemExit(128 + signum)
+
+    try:
+        signal.signal(signal.SIGTERM, terminate)
+    except ValueError:
+        pass  # not the main thread (an in-process harness)
+    master = start_master(args)
+    logger.info("Master running on port %d", master.port)
+    logger.warning("Master started standalone in Local mode; use `python -m "
+                   "elasticdl_tpu_torch.client.main train` to run master and worker together.")
+    try:
+        master.server.wait_for_termination()
+    finally:
+        master.stop()
+    return 0
 
 
 def mode_from_job_type(job_type: str) -> str:

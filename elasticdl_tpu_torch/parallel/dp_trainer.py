@@ -1,6 +1,6 @@
 """Data-parallel trainer: the port of ``DataParallelTrainer``
 (``elasticdl_tpu/parallel/dp_trainer.py``), the AllReduce strategy's
-trainer, which trains the transformer LM.
+trainer, which trains the transformer LM and the vision zoo.
 
 On one card, or on an in-process mesh (``parallel.mesh.virtual_devices``,
 whose slots share the card), there is nothing to reduce: the model's
@@ -23,6 +23,19 @@ every rank takes the global batch and:
 4. all-reduces the gradients with SUM over the world (one flat buffer);
 5. applies the same AdamW; parameters stay replicated and identical.
 
+``model_state`` holds a conv net's ``batch_stats`` (``{"batch_stats":
+{"<module>.mean"|".var": buffer}}``, ``zoo/vision.batch_stats``): the
+model's own buffers, updated by a training forward and read by
+evaluation (JAX ``:318-337`` and ``:352``).  A model whose ``forward``
+takes ``train`` is called with it (``model_apply``, JAX's
+``_model_apply``).  JAX's SPMD step takes batch statistics over the
+global batch.  On a process mesh each rank holds only its rows of that
+batch (every rank stacks all ranks' slices, then keeps its own,
+``stage_batch``), so each batch norm averages its per-rank ``[E[x],
+E[x^2]]`` over the ranks (a differentiable all-reduce, ``stats_reduce``);
+the ranks' rows are equal in number, so the average is the global
+batch's, and the running averages stay identical on every rank.
+
 A step is three parts, each its own method so a caller can time them
 (``chip_smoke.py`` does, with CUDA events): ``forward`` (the model and
 the loss), ``backward`` (the dense gradients, reduced on a process
@@ -40,12 +53,12 @@ pair ``save_checkpoint`` / ``set_sharded_restore`` (JAX
 ``dense|<path>`` in ``dense.pkl``'s ``leaves``.
 
 Not ported yet: ``dense_sharding="fsdp"`` raises
-``NotImplementedError`` (ROADMAP Queue 1 item 5); ``model_state``
-collections are empty (the transformer has none).
+``NotImplementedError`` (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
 
+import inspect
 import logging
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -64,7 +77,24 @@ class DPTrainState(NamedTuple):
     step: int
     params: Dict[str, Any]       # parameter name -> tensor
     opt_state: Dict[str, Any]    # the dense optimizer's state
-    model_state: Dict[str, Any]  # non-trainable collections (none yet)
+    model_state: Dict[str, Any]  # {"batch_stats": {name: tensor}}, or {}
+
+
+def model_apply(model: torch.nn.Module, features, train: bool, **kwargs):
+    """Call ``model``, passing ``train`` only where its ``forward`` takes
+    it (JAX ``worker/trainer.py:47-57``, ``_model_apply``)."""
+    if "train" in inspect.signature(model.forward).parameters:
+        kwargs["train"] = train
+    return model(features, **kwargs)
+
+
+def model_state_of(model: torch.nn.Module) -> Dict[str, Any]:
+    """The live ``model_state`` of ``model``: ``{"batch_stats": ...}`` for
+    a conv net, ``{}`` for a model without batch norm."""
+    from elasticdl_tpu_torch.zoo.vision import batch_stats
+
+    stats = batch_stats(model)
+    return {"batch_stats": stats} if stats else {}
 
 
 def per_example_loss_fn(loss_fn):
@@ -162,10 +192,28 @@ class DataParallelTrainer:
         self._tx = optimizer
         self._seed = seed
         self._params: Dict[str, torch.nn.Parameter] = dict(self._model.named_parameters())
+        self._model_state = model_state_of(self._model)
+        if self._world and self._model_state:
+            self._sync_batch_stats()
         self._opt_state: Optional[dict] = None
         self._step = 0
         self._pending_restore: Optional[DPTrainState] = None
         self._pending_sharded_restore = None  # (saver, step)
+
+    def _sync_batch_stats(self) -> None:
+        """Every batch norm takes the global batch's statistics: the mean
+        of the ranks' ``[E[x], E[x^2]]`` (see the module docstring)."""
+        from torch.distributed.nn.functional import all_reduce
+
+        from elasticdl_tpu_torch.zoo.vision import BatchNorm
+
+        if self._mesh.shape[MODEL_AXIS] > 1:
+            raise ValueError("batch statistics need every rank to hold rows of the batch: "
+                             "a model with batch norm trains on a mesh whose model axis is 1")
+        world = self._mesh.shape[DATA_AXIS]
+        for module in self._model.modules():
+            if isinstance(module, BatchNorm):
+                module.stats_reduce = lambda moments: all_reduce(moments) / world
 
     # -- state ----------------------------------------------------------
 
@@ -186,7 +234,7 @@ class DataParallelTrainer:
         """The live state (references to the trainer's tensors)."""
         if self._opt_state is None:
             return None
-        return DPTrainState(self._step, dict(self._params), self._opt_state, {})
+        return DPTrainState(self._step, dict(self._params), self._opt_state, self._model_state)
 
     @state.setter
     def state(self, value: DPTrainState) -> None:
@@ -194,14 +242,13 @@ class DataParallelTrainer:
         ``serving.convert.dp_trainer_state_from_jax``) into the trainer;
         before initialisation it is applied by ``ensure_initialized``."""
         value = DPTrainState(*value)
-        if value.model_state:
-            raise KeyError(f"model_state collections are not ported: {sorted(value.model_state)}")
         if self._opt_state is None:
             self._pending_restore = value
             self._step = int(value.step)
             return
         copy_tree(self._params, value.params)
         copy_tree(self._opt_state, value.opt_state)
+        copy_tree(self._model_state, value.model_state)
         self._step = int(value.step)
 
     def ensure_initialized(self, features=None) -> DPTrainState:
@@ -237,7 +284,7 @@ class DataParallelTrainer:
         over the global mask count ``denominator``."""
         self._model.train()
         if positions is None:
-            outputs = self._model(features)
+            outputs = model_apply(self._model, features, train=True)
         else:
             outputs = self._model(features, positions=positions)
         losses = self._per_example_loss(labels, outputs)
@@ -368,7 +415,7 @@ class DataParallelTrainer:
         try:
             if self._world:
                 return self._eval_world(features)
-            out = self._model(to_device(features, self.device))
+            out = model_apply(self._model, to_device(features, self.device), train=False)
         finally:
             self._model.train()
         return out.cpu().numpy()
@@ -382,9 +429,12 @@ class DataParallelTrainer:
         n = len(np.asarray(features))
         feats, _, _, positions, _, _ = self._local_batch(features, None, np.ones(n))
         feats = to_device(feats, self.device)
-        out = self._model(feats) if positions is None else self._model(
-            feats, positions=to_device(positions, self.device))
-        seq_len = _seq_len(features)
+        if positions is None:
+            out = model_apply(self._model, feats, train=False)
+            seq_len = out.shape[1]  # every rank holds whole rows
+        else:
+            out = self._model(feats, positions=to_device(positions, self.device))
+            seq_len = _seq_len(features)
         full = self._mesh.gather_sequence(
             out, seq_len, lambda index: self._sequence_positions(seq_len, index))
         return full[:n].cpu().numpy()
@@ -400,7 +450,8 @@ class DataParallelTrainer:
                 return {k: host(v) for k, v in tree.items()}
             return tree.detach().to("cpu", copy=True).numpy()
 
-        return DPTrainState(self._step, host(dict(self._params)), host(self._opt_state), {})
+        return DPTrainState(self._step, host(dict(self._params)), host(self._opt_state),
+                            host(self._model_state))
 
     def state_to_jax_host(self):
         """Host snapshot in the JAX layout: the JAX ``TrainState`` with
@@ -467,7 +518,8 @@ class DataParallelTrainer:
         logger.info("Restored sharded checkpoint at step %d", self._step)
 
     def get_variables_numpy(self) -> Dict[str, np.ndarray]:
-        """Flat ``{"params/<flax path>": array}`` in the JAX layout."""
+        """Flat ``{"params/<flax path>": array}`` (and ``"batch_stats/..."``)
+        in the JAX layout."""
         from elasticdl_tpu_torch.serving import convert
 
         if self._opt_state is None:

@@ -1,5 +1,6 @@
 """Dense optimizers of the model zoo (``optax.adam``, ``optax.adamw``,
-``optax.sgd``) over a dict of parameter tensors, updated in place.
+``optax.sgd`` with or without (Nesterov) momentum) over a dict of
+parameter tensors, updated in place.
 
 The operations and their order are optax's, so a step from the same
 state and gradients gives the JAX trainer's values up to the rounding of
@@ -27,7 +28,7 @@ scalar, so a step never waits on the card.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -121,18 +122,32 @@ def adamw(
     return DenseOptimizer("adamw", init, apply)
 
 
-def sgd(learning_rate: float = 0.01) -> DenseOptimizer:
+def sgd(learning_rate: float = 0.01, momentum: Optional[float] = None,
+        nesterov: bool = False) -> DenseOptimizer:
+    """optax ``sgd``: ``chain(trace(momentum, nesterov), scale(-lr))``, or
+    ``chain(identity, scale(-lr))`` without momentum.  With momentum the
+    state is ``{"trace": {key: tensor}}``, optax's ``TraceState``:
+
+        trace = g + momentum * trace
+        u     = g + momentum * trace   if nesterov else trace
+        p     = p + (-lr) * u
+    """
     lr_neg = _f32(-learning_rate)
+    decay = None if momentum is None else _f32(momentum)
 
     def init(params: Params) -> dict:
-        return {}
+        if decay is None:
+            return {}
+        return {"trace": {k: torch.zeros_like(p) for k, p in params.items()}}
 
     @torch.no_grad()
     def apply(params: Params, grads: Params, state: dict) -> None:
         keys = list(params)
-        torch._foreach_add_(
-            [params[k] for k in keys],
-            torch._foreach_mul([grads[k] for k in keys], lr_neg),
-        )
+        g = [grads[k] for k in keys]
+        if decay is not None:
+            trace = [state["trace"][k] for k in keys]
+            torch._foreach_copy_(trace, torch._foreach_add(g, torch._foreach_mul(trace, decay)))
+            g = torch._foreach_add(g, torch._foreach_mul(trace, decay)) if nesterov else trace
+        torch._foreach_add_([params[k] for k in keys], torch._foreach_mul(g, lr_neg))
 
     return DenseOptimizer("sgd", init, apply)

@@ -15,21 +15,29 @@ port tensor:
 - an Embedding's ``embedding`` table, packed ``[num_blocks, 128]``,
   logical ``[vocab, dim]`` or already ``[vocab_padded, dim_padded]`` ->
   the layer's ``[vocab_padded, dim_padded]`` buffer
-  (``parallel/packed.as_rows``; a packed memmap stays a view).
+  (``parallel/packed.as_rows``; a packed memmap stays a view);
+- flax ``Conv`` ``kernel [kh, kw, in, out]`` / ``bias`` -> the vision
+  zoo's ``Conv`` ``weight [out, in, kh, kw]`` / ``bias``;
+- ``BatchNorm`` ``scale`` / ``bias`` -> ``weight`` / ``bias``, and its
+  ``batch_stats/<module path>/mean|var`` -> the buffers ``mean`` /
+  ``var`` (the one collection besides ``params``).
 
 A leftover or missing key, or a shape that does not fit, raises.
 
 The other direction (``jax_variables_from_port``) writes the port's
 weights in the JAX layout for export, and ``trainer_state_from_jax``
 carries a whole JAX PS trainer state across (dense params, tables,
-sparse slots, optax Adam moments), and ``dp_trainer_state_from_jax`` a
-JAX ``DataParallelTrainer`` state (params, optax AdamW), so both trainers
-can start from the same bits.  Their inverses,
-``jax_trainer_state_from_port`` and ``jax_dp_trainer_state_from_port``,
-give the port's states in the JAX layout with numpy leaves, the optax
-chain rebuilt from the port's ``{"count", "mu", "nu"}``
-(``jax_opt_state``): the trees the checkpoints write
-(``checkpoint/``), which the JAX package restores.
+sparse slots, optax Adam moments), ``dp_trainer_state_from_jax`` a JAX
+``DataParallelTrainer`` state and ``local_trainer_state_from_jax`` a
+single-device ``Trainer`` one (params, ``batch_stats``, the optax AdamW
+moments or the SGD momentum trace), so the trainers can start from the
+same bits.  Their inverses, ``jax_trainer_state_from_port`` and
+``jax_dp_trainer_state_from_port`` (the DP and the single-device
+trainers share JAX's ``TrainState``), give the port's states in the JAX
+layout with numpy leaves, the optax chain rebuilt from the port's
+``{"count", "mu", "nu"}`` or ``{"trace"}`` (``jax_opt_state``): the
+trees the checkpoints write (``checkpoint/``), which the JAX package
+restores.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from elasticdl_tpu_torch.checkpoint import _pickle
 from elasticdl_tpu_torch.layers.embedding import Embedding
 from elasticdl_tpu_torch.parallel.packed import as_rows
 from elasticdl_tpu_torch.zoo.deepfm import DenseGeneral
+from elasticdl_tpu_torch.zoo.vision import BatchNorm, Conv
 
 #: Rows copied to the device per step when loading a table, so loading
 #: never holds more than this many rows of it on the host at once.
@@ -84,6 +93,40 @@ def _targets(model: nn.Module) -> Iterator[Tuple[str, str, str, object]]:
             yield prefix + "/bias", port + "bias", "as_is", module
         elif isinstance(module, nn.Embedding):
             yield prefix + "/embedding", port + "weight", "as_is", module
+        elif isinstance(module, Conv):
+            yield prefix + "/kernel", port + "weight", "conv_kernel", module
+            if module.bias is not None:
+                yield prefix + "/bias", port + "bias", "as_is", module
+        elif isinstance(module, BatchNorm):
+            yield prefix + "/scale", port + "weight", "bn_scale", module
+            yield prefix + "/bias", port + "bias", "as_is", module
+            stats = "batch_stats" + prefix[len("params"):]
+            yield stats + "/mean", port + "mean", "stat_mean", module
+            yield stats + "/var", port + "var", "stat_var", module
+
+
+#: Kinds of ``_targets`` that are ``batch_stats``, not ``params``.
+STAT_KINDS = ("stat_mean", "stat_var")
+
+
+def _to_port(kind: str, value) -> np.ndarray:
+    """A JAX-layout dense leaf -> the port's layout."""
+    value = np.asarray(value)
+    if kind == "dense_kernel":
+        return value.T
+    if kind == "conv_kernel":
+        return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    return value
+
+
+def _to_jax(kind: str, value: np.ndarray) -> np.ndarray:
+    """The inverse of ``_to_port``, C-contiguous (what a JAX export or
+    checkpoint holds)."""
+    if kind == "dense_kernel":
+        return np.ascontiguousarray(value.T)
+    if kind == "conv_kernel":
+        return np.ascontiguousarray(value.transpose(2, 3, 1, 0))  # OIHW -> HWIO
+    return value
 
 
 def state_dict_from_jax(variables: Mapping, model: nn.Module) -> Dict[str, np.ndarray]:
@@ -97,12 +140,7 @@ def state_dict_from_jax(variables: Mapping, model: nn.Module) -> Dict[str, np.nd
         if jax_key not in flat:
             raise KeyError(f"JAX variables lack {jax_key!r} (for {port_key})")
         value = flat.pop(jax_key)
-        if kind == "dense_kernel":
-            value = np.asarray(value).T
-        elif kind == "table":
-            value = as_rows(module.spec, value)
-        else:
-            value = np.asarray(value)
+        value = as_rows(module.spec, value) if kind == "table" else _to_port(kind, value)
         if tuple(value.shape) != shapes[port_key]:
             raise ValueError(
                 f"{jax_key} has shape {tuple(value.shape)}, the port's "
@@ -137,6 +175,9 @@ def random_jax_variables(model: nn.Module, seed: int, scale: float = 0.05):
     tables = {}
     for jax_key, port_key, kind, module in _targets(model):
         path = jax_key.split("/")
+        if kind in ("conv_kernel", "bn_scale") + STAT_KINDS:
+            set_in_tree(variables, path, _random_vision_leaf(rng, kind, shapes[port_key], scale))
+            continue
         if kind == "table":
             spec = module.spec
             rows = np.zeros(spec.rows_shape, np.float32)
@@ -152,6 +193,20 @@ def random_jax_variables(model: nn.Module, seed: int, scale: float = 0.05):
         draw = rng.random(shape, dtype=np.float32)
         set_in_tree(variables, path, (2.0 * draw - 1.0) * np.float32(scale))
     return variables, tables
+
+
+def _random_vision_leaf(rng, kind: str, port_shape, scale: float) -> np.ndarray:
+    """A conv net's leaves, drawn so a deep stack keeps its signal: conv
+    kernels uniform with lecun's variance ``1 / fan_in`` (HWIO), batch
+    norm scales and running variances in ``[0.5, 1.5)``, running means in
+    ``[-scale, scale)``."""
+    draw = rng.random(port_shape, dtype=np.float32)
+    if kind == "conv_kernel":
+        bound = np.float32(np.sqrt(3.0 / np.prod(port_shape[1:])))
+        return _to_jax(kind, (2.0 * draw - 1.0) * bound)
+    if kind == "stat_mean":
+        return (2.0 * draw - 1.0) * np.float32(scale)
+    return draw + np.float32(0.5)
 
 
 def jax_variables_from_port(model: nn.Module, gather=None):
@@ -172,11 +227,12 @@ def jax_variables_from_port(model: nn.Module, gather=None):
             value = state[port_key].detach()
             rows = gather(key, value) if gather is not None else value.cpu().numpy()
             tables[key] = (module.spec, rows)
-    return {"params": _dense_to_jax(state, model)}, tables
+    return {"params": _dense_to_jax(state, model), **_model_state_to_jax(state, model)}, tables
 
 
 def flat_jax_variables(model: nn.Module, gather=None) -> Dict[str, np.ndarray]:
-    """Flat ``{"params/<path>/<leaf>": array}`` with LOGICAL ``[vocab,
+    """Flat ``{"params/<path>/<leaf>": array}`` (and
+    ``"batch_stats/<path>/mean|var"``) with LOGICAL ``[vocab,
     dim]`` tables: the JAX trainers' ``get_variables_numpy`` view
     (``gather`` as in ``jax_variables_from_port``)."""
     variables, tables = jax_variables_from_port(model, gather)
@@ -193,11 +249,36 @@ def _dense_from_jax(tree: Mapping, model: nn.Module) -> Dict[str, np.ndarray]:
     flat = flatten_variables({"params": tree})
     out = {}
     for jax_key, port_key, kind, _ in _targets(model):
-        if kind == "table":
+        if kind == "table" or kind in STAT_KINDS:
             continue
-        value = np.asarray(flat[jax_key])
-        out[port_key] = value.T if kind == "dense_kernel" else value
+        out[port_key] = _to_port(kind, flat[jax_key])
     return out
+
+
+def _model_state_from_jax(model_state, model: nn.Module) -> Dict:
+    """A JAX ``model_state`` (``{"batch_stats": tree}``, or empty) -> the
+    port's ``{"batch_stats": {"<module>.mean"|".var": array}}``, or ``{}``
+    for a model without batch norm.  A missing or extra leaf raises."""
+    flat = flatten_variables(dict(model_state or {}))
+    out = {}
+    for jax_key, port_key, kind, _ in _targets(model):
+        if kind in STAT_KINDS:
+            if jax_key not in flat:
+                raise KeyError(f"JAX model_state lacks {jax_key!r} (for {port_key})")
+            out[port_key] = np.asarray(flat.pop(jax_key))
+    if flat:
+        raise KeyError(f"JAX model_state without a port counterpart: {sorted(flat)}")
+    return {"batch_stats": out} if out else {}
+
+
+def _model_state_to_jax(values: Mapping, model: nn.Module) -> Dict:
+    """``{port buffer name: value}`` (a state dict, or a ``model_state``'s
+    ``batch_stats``) -> the JAX ``{"batch_stats": tree}``, or ``{}``."""
+    tree: Dict = {}
+    for jax_key, port_key, kind, _ in _targets(model):
+        if kind in STAT_KINDS:
+            set_in_tree(tree, jax_key.split("/"), _host(values[port_key]))
+    return tree
 
 
 def _host(value) -> np.ndarray:
@@ -216,14 +297,13 @@ def _dense_to_jax(values: Mapping, model: nn.Module, placeholders: bool = False)
     tree: Dict = {}
     for jax_key, port_key, kind, _ in _targets(model):
         path = jax_key.split("/")[1:]
+        if kind in STAT_KINDS:
+            continue
         if kind == "table":
             if placeholders:
                 set_in_tree(tree, path, np.zeros((), np.float32))
             continue
-        value = values[port_key]
-        if kind == "dense_kernel":
-            value = value.T
-        set_in_tree(tree, path, _host(value))
+        set_in_tree(tree, path, _to_jax(kind, _host(values[port_key])))
     return tree
 
 
@@ -233,9 +313,14 @@ def jax_opt_state(optimizer: str, opt_state: Mapping, model: nn.Module,
     optimizer's ``name``) -> the optax chain state the zoo's optimizer of
     that name carries: ``adam`` -> ``(ScaleByAdamState(count, mu, nu),
     EmptyState())``, ``adamw`` one ``EmptyState()`` more (its decay and
-    learning-rate scale), ``sgd`` -> ``(EmptyState(), EmptyState())``.
-    ``placeholders`` as in ``_dense_to_jax`` (the PS trainer's)."""
+    learning-rate scale), ``sgd`` -> ``(EmptyState(), EmptyState())``, or
+    ``(TraceState(trace), EmptyState())`` with momentum (a ``"trace"``
+    in the state).  ``placeholders`` as in ``_dense_to_jax`` (the PS
+    trainer's)."""
     if optimizer == "sgd":
+        if "trace" in opt_state:
+            trace = _dense_to_jax(opt_state["trace"], model, placeholders)
+            return (_pickle.TraceState(trace=trace), _pickle.EmptyState())
         return (_pickle.EmptyState(), _pickle.EmptyState())
     if optimizer not in ("adam", "adamw"):
         raise ValueError(f"no optax chain known for the dense optimizer {optimizer!r}")
@@ -250,8 +335,11 @@ def jax_opt_state(optimizer: str, opt_state: Mapping, model: nn.Module,
 
 def port_opt_state(opt_state, model: nn.Module) -> Dict:
     """An optax chain state -> the port's dense optimizer state: optax
-    Adam's ``{"count", "mu", "nu"}``, or ``{}`` (a chain without Adam
-    carries nothing: sgd has none)."""
+    Adam's ``{"count", "mu", "nu"}``, sgd's momentum ``{"trace"}``, or
+    ``{}`` (a chain of empty states carries nothing: plain sgd)."""
+    trace = _optax_trace_state(opt_state)
+    if trace is not None:
+        return {"trace": _dense_from_jax(trace.trace, model)}
     adam = _optax_adam_state(opt_state)
     if adam is None:
         return {}
@@ -276,6 +364,15 @@ def _optax_adam_state(opt_state):
             found = _optax_adam_state(part)
             if found is not None:
                 return found
+    return None
+
+
+def _optax_trace_state(opt_state):
+    """The ``TraceState`` of an optax ``sgd`` chain with momentum, or None."""
+    parts = opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,)
+    for part in parts:
+        if isinstance(part, tuple) and getattr(part, "_fields", None) == ("trace",):
+            return part
     return None
 
 
@@ -336,46 +433,58 @@ def jax_trainer_state_from_port(state, model: nn.Module, optimizer: str):
     )
 
 
+def _dense_opt_state_from_jax(opt_state, model: nn.Module) -> Dict:
+    """The optax chain of a dense trainer -> the port's optimizer state:
+    ``adam``/``adamw``'s ``(ScaleByAdamState(count, mu, nu), EmptyState()
+    [, EmptyState()])`` -> ``{"count", "mu", "nu"}``, momentum ``sgd``'s
+    ``(TraceState(trace), EmptyState())`` -> ``{"trace"}``; the decay and
+    the learning-rate scale carry nothing.  Any other chain raises."""
+    parts = opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,)
+    moments = _optax_adam_state(opt_state) or _optax_trace_state(opt_state)
+    others = [part for part in parts if part is not moments]
+    if moments is None or any(not isinstance(part, tuple) or len(part) for part in others):
+        raise ValueError("not an optax adam/adamw chain state, nor sgd's momentum chain: "
+                         f"{opt_state!r:.200}")
+    return port_opt_state(opt_state, model)
+
+
 def dp_trainer_state_from_jax(state, model: nn.Module):
     """A JAX ``TrainState`` with numpy leaves (``jax.device_get`` of
     ``DataParallelTrainer.state``) -> the port's ``DPTrainState`` with
     numpy leaves, for ``parallel.dp_trainer.DataParallelTrainer.state``:
-    params (Dense kernels transposed) and the optax ``adamw`` chain's
-    state, ``(ScaleByAdamState(count, mu, nu), EmptyState(),
-    EmptyState())`` -> ``{"count", "mu", "nu"}``; the decay and the
-    learning-rate scale carry nothing.  A state of another shape, or any
-    ``model_state``, raises."""
+    params (Dense kernels transposed, conv kernels to OIHW), the optimizer
+    state (``_dense_opt_state_from_jax``) and the ``batch_stats``."""
     from elasticdl_tpu_torch.parallel.dp_trainer import DPTrainState
 
-    adam = _optax_adam_state(state.opt_state)
-    parts = state.opt_state if isinstance(state.opt_state, (tuple, list)) else (state.opt_state,)
-    others = [part for part in parts if part is not adam]
-    if adam is None or any(not isinstance(part, tuple) or len(part) for part in others):
-        raise ValueError(f"not an optax adam/adamw chain state: {state.opt_state!r:.200}")
-    if flatten_variables(state.model_state or {}):
-        raise KeyError(f"model_state collections are not ported: {sorted(state.model_state)}")
-    return DPTrainState(
-        step=int(np.asarray(state.step)),
-        params=_dense_from_jax(state.params, model),
-        opt_state={
-            "count": np.asarray(adam.count, np.int32),
-            "mu": _dense_from_jax(adam.mu, model),
-            "nu": _dense_from_jax(adam.nu, model),
-        },
-        model_state={},
-    )
+    return DPTrainState(*_train_state_from_jax(state, model))
+
+
+def local_trainer_state_from_jax(state, model: nn.Module):
+    """A JAX single-device ``Trainer``'s ``TrainState`` (numpy leaves) ->
+    the port's ``worker.trainer.TrainState`` with numpy leaves."""
+    from elasticdl_tpu_torch.worker.trainer import TrainState
+
+    return TrainState(*_train_state_from_jax(state, model))
+
+
+def _train_state_from_jax(state, model: nn.Module) -> tuple:
+    return (int(np.asarray(state.step)), _dense_from_jax(state.params, model),
+            _dense_opt_state_from_jax(state.opt_state, model),
+            _model_state_from_jax(state.model_state, model))
 
 
 def jax_dp_trainer_state_from_port(state, model: nn.Module, optimizer: str):
-    """The inverse of ``dp_trainer_state_from_jax``: the port's
-    ``DPTrainState`` -> the JAX ``TrainState(step, params, opt_state,
-    model_state)`` with numpy leaves and the optax chain of the dense
-    ``optimizer`` (its name): what a JAX ``state.pkl`` holds."""
+    """The inverse of ``dp_trainer_state_from_jax`` and of
+    ``local_trainer_state_from_jax``: the port's ``DPTrainState`` or
+    ``worker.trainer.TrainState`` -> the JAX ``TrainState(step, params,
+    opt_state, model_state)`` (both JAX trainers keep that one) with numpy
+    leaves and the optax chain of the dense ``optimizer`` (its name): what
+    a JAX ``state.pkl`` holds."""
     return _pickle.TrainState(
         step=np.asarray(state.step, np.int32),
         params=_dense_to_jax(state.params, model),
         opt_state=jax_opt_state(optimizer, state.opt_state, model),
-        model_state={},
+        model_state=_model_state_to_jax(dict(state.model_state).get("batch_stats", {}), model),
     )
 
 
@@ -395,6 +504,9 @@ def load_state(
         target = targets[key]
         if tuple(value.shape) != tuple(target.shape):
             raise ValueError(f"{key}: shape {tuple(value.shape)} != {tuple(target.shape)}")
+        if not target.is_contiguous():  # a channels_last conv kernel: small, copied whole
+            target.data.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
+            continue
         rows = value.shape[0] if value.ndim else 1
         value = value.reshape(rows, -1)
         flat_target = target.data.view(rows, -1)

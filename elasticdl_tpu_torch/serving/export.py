@@ -5,8 +5,10 @@ export.py``) as it is:
 
     <model_dir>/
       signature.json   - model identity (zoo/def/params), table inventory
-      variables.pkl    - nested variables tree; embedding-table leaves
-                         are {"__table__": "tables/<i>.npy"} references
+      variables.pkl    - nested variables tree ({"params": ...} and, for
+                         a conv net, {"batch_stats": ...}); embedding-
+                         table leaves are {"__table__": "tables/<i>.npy"}
+                         references
       tables/<i>.npy   - one packed [num_blocks, 128] f32 table per file
 
 ``variables.pkl`` is read with a restricted unpickler that resolves only
@@ -49,6 +51,7 @@ from elasticdl_tpu_torch.common.device import DeviceLike, resolve_device
 from elasticdl_tpu_torch.common.params import parse_dict_params
 from elasticdl_tpu_torch.ops import sparse_embedding as ske
 from elasticdl_tpu_torch.parallel.compile import Rule, RuleTable, tree_paths
+from elasticdl_tpu_torch.parallel.dp_trainer import model_apply
 from elasticdl_tpu_torch.parallel.mesh import resolve_mesh
 from elasticdl_tpu_torch.parallel.packed import PackedSpec, as_rows
 from elasticdl_tpu_torch.parallel.sharding import axis_rows
@@ -106,15 +109,18 @@ class ServingModel:
         self.mesh = mesh
         self.placements = placements or {}
 
-    def forward(self, features: Mapping[str, np.ndarray]) -> torch.Tensor:
-        """Host features -> device outputs (no sync)."""
-        tensors = {
-            key: torch.from_numpy(np.ascontiguousarray(value)).to(self.device)
-            for key, value in features.items()
-        }
-        return self.model(tensors)
+    def forward(self, features) -> torch.Tensor:
+        """Host features (a dict of arrays, or one array: an image batch)
+        -> device outputs (no sync); batch norm reads its running
+        averages."""
+        if isinstance(features, Mapping):
+            tensors = {key: torch.from_numpy(np.ascontiguousarray(value)).to(self.device)
+                       for key, value in features.items()}
+        else:
+            tensors = torch.from_numpy(np.ascontiguousarray(features)).to(self.device)
+        return model_apply(self.model, tensors, train=False)
 
-    def predict(self, features: Mapping[str, np.ndarray]) -> np.ndarray:
+    def predict(self, features) -> np.ndarray:
         """Host features -> host outputs; ``.cpu()`` is the device sync."""
         with torch.inference_mode():
             return self.forward(features).cpu().numpy()
@@ -221,10 +227,13 @@ def export_model(
 ) -> str:
     """Write the servable artifact of a trained
     ``parallel.ps_trainer.ShardedEmbeddingTrainer`` (or
-    ``parallel.dp_trainer.DataParallelTrainer``, which has no tables) in
-    the JAX package's format (its ``export_model``): the dense params in
-    the flax layout, each table packed in ``tables/<i>.npy``, and the
-    signature with the trainer's ``step``.  Both this package's
+    ``parallel.dp_trainer.DataParallelTrainer`` or
+    ``worker.trainer.Trainer``, which have no tables) in the JAX
+    package's format (its ``export_model``): the dense params in the flax
+    layout with the ``batch_stats`` beside them (``variables.pkl`` holds
+    ``{"params": ..., "batch_stats": ...}``, as JAX's ``save_model``
+    writes), each table packed in ``tables/<i>.npy``, and the signature
+    with the trainer's ``step``.  Both this package's
     ``load_for_serving`` and the JAX one read it.  On a process mesh every
     rank calls it (the tables are gathered) and rank 0 writes."""
     if trainer.state is None:

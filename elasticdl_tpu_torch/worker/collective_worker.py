@@ -53,7 +53,6 @@ the tasks this process read record by record through an ETRF reader
 
 from __future__ import annotations
 
-import functools
 import time
 import traceback
 from typing import List, Optional
@@ -68,7 +67,7 @@ from elasticdl_tpu_torch.common.boundary import forbidden_modules_loaded
 from elasticdl_tpu_torch.common.constants import Mode, TaskExecCounterKey
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.model_utils import ModelSpec
-from elasticdl_tpu_torch.data.columnar import materialize_columnar_task
+from elasticdl_tpu_torch.data.columnar import materialize_for_worker
 from elasticdl_tpu_torch.data.dataset import Dataset, SequentialRecords, _stack
 from elasticdl_tpu_torch.data.pipeline import (
     ParsePool,
@@ -123,6 +122,34 @@ def concat_named(batches: list) -> dict:
     axis 0."""
     names = batches[0].keys()
     return {name: np.concatenate([b[name] for b in batches]) for name in names}
+
+
+
+class EvalReports:
+    """An evaluation task's ``{name: array}`` outputs and labels, sent to
+    the master ``every`` batches a chunk under the task's model version,
+    so the master joins all of a round's tasks whatever step the worker
+    is at (it joins a task's chunks when the task is done)."""
+
+    def __init__(self, master_client, task, every: int):
+        self._mc, self._task, self._every = master_client, task, every
+        self._outputs: list = []
+        self._labels: list = []
+
+    def add(self, outputs: dict, labels: dict) -> None:
+        self._outputs.append(outputs)
+        self._labels.append(labels)
+        if len(self._outputs) >= self._every:
+            self.flush()
+
+    def flush(self) -> None:
+        if not self._outputs:
+            return
+        self._mc.report_evaluation_metrics(
+            model_version=self._task.model_version, model_outputs=concat_named(self._outputs),
+            labels=concat_named(self._labels), task_id=self._task.task_id)
+        self._outputs.clear()
+        self._labels.clear()
 
 
 class CollectiveWorker:
@@ -414,30 +441,12 @@ class CollectiveWorker:
         return self._record_batches(task, mode)
 
     def _columnar_batches(self, task, mode: str):
-        start = time.monotonic()
-        transform_s = 0.0
-        dataset_fn = self._spec.columnar_dataset_fn
-
-        @functools.wraps(dataset_fn)  # keeps the signature's ``seed``
-        def timed_fn(*args, **kwargs):
-            nonlocal transform_s
-            t0 = time.monotonic()
-            try:
-                return dataset_fn(*args, **kwargs)
-            finally:
-                transform_s += time.monotonic() - t0
-
-        columnar = materialize_columnar_task(self._reader(task), task, timed_fn, mode,
-                                             self._metadata, parse_pool=self._parse_pool)
+        columnar = materialize_for_worker(self._reader(task), task, self._spec.columnar_dataset_fn,
+                                          mode, self._metadata, self._host_seconds,
+                                          self._columnar_logged, parse_pool=self._parse_pool)
         if columnar is None:  # an empty task
             yield from self._record_batches(task, mode)
             return
-        self._host_seconds.update(columnar_s=round(time.monotonic() - start, 6),
-                                  columnar_transform_s=round(transform_s, 6))
-        if mode not in self._columnar_logged:
-            self._columnar_logged.add(mode)
-            logger.info("Columnar task path engaged (%s, %d rows, zero per-record Python)",
-                        mode, columnar.n)
         for parts in self._step_ranges(task):
             slices = []
             for lo, hi, _ in parts:
@@ -604,18 +613,8 @@ class CollectiveWorker:
         real rows' outputs and labels to the master, ``EVAL_REPORT_BATCHES``
         batches a chunk (the master joins a task's chunks when it is
         done)."""
-        outputs_list, labels_list = [], []
+        reports = EvalReports(self._mc, task, self.EVAL_REPORT_BATCHES)
         batch_count = 0
-
-        def flush():
-            if not outputs_list:
-                return
-            self._mc.report_evaluation_metrics(
-                model_version=task.model_version, model_outputs=concat_named(outputs_list),
-                labels=concat_named(labels_list), task_id=task.task_id)
-            outputs_list.clear()
-            labels_list.clear()
-
         for features, labels, _mask, global_real in self._local_batches(task, Mode.EVALUATION):
             outputs = self._trainer.eval_step_local(features)  # a collective on a mesh
             batch_count += 1
@@ -626,12 +625,9 @@ class CollectiveWorker:
                                                   self._world.world_size)
             keep = np.concatenate([np.arange(r * self._mb, r * self._mb + count)
                                    for r, count in enumerate(counts)]).astype(np.int64)
-            outputs_list.append({name: arr[keep]
-                                 for name, arr in named_arrays(outputs, "output").items()})
-            labels_list.append({name: arr[keep] for name, arr in named_arrays(labels, "").items()})
-            if len(outputs_list) >= self.EVAL_REPORT_BATCHES:
-                flush()
-        flush()
+            reports.add({name: arr[keep] for name, arr in named_arrays(outputs, "output").items()},
+                        {name: arr[keep] for name, arr in named_arrays(labels, "").items()})
+        reports.flush()
         return {TaskExecCounterKey.BATCH_COUNT: batch_count}
 
     def _process_train_end(self, task) -> dict:

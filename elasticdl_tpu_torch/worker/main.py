@@ -5,7 +5,11 @@
         --distribution_strategy ParameterServerStrategy --model_def ... [--device cpu]
 
 The pod manager launches one per worker id (``master/pod_manager.py``).
-It joins the world (``parallel/elastic.join_world``), builds the trainer
+With ``--distribution_strategy=Local`` it runs the Local ``Worker``
+(``worker/worker.py``, JAX ``:117-146``) against a bare master
+(``python -m elasticdl_tpu_torch.master.main``, the Local strategy):
+one process, no world, the single-device ``Trainer``.  Otherwise it
+joins the world (``parallel/elastic.join_world``), builds the trainer
 (``ShardedEmbeddingTrainer`` for ParameterServerStrategy,
 ``DataParallelTrainer`` for AllreduceStrategy) and the saver
 (``ShardedCheckpointSaver`` for PS, ``CheckpointSaver`` for DP), restores
@@ -37,7 +41,7 @@ import sys
 import time
 
 from elasticdl_tpu_torch import obs
-from elasticdl_tpu_torch.common.args import LOCAL_ITEM, parse_worker_args
+from elasticdl_tpu_torch.common.args import parse_worker_args
 from elasticdl_tpu_torch.common.log_utils import get_logger
 
 logger = get_logger("worker.main")
@@ -59,9 +63,6 @@ def main(argv=None) -> int:
         logger.warning("Fault injection armed from %s=%r", faults.ENV_VAR,
                        os.environ.get(faults.ENV_VAR))
     args = parse_worker_args(argv)
-    if args.distribution_strategy not in ("AllreduceStrategy", "ParameterServerStrategy"):
-        raise NotImplementedError(
-            f"--distribution_strategy={args.distribution_strategy} is not ported: {LOCAL_ITEM}")
     if args.checkpoint_dir:
         obs.init_journal(args.checkpoint_dir, filename=f"events_worker_{args.worker_id}.jsonl")
     if args.oov_diagnostics:
@@ -86,8 +87,18 @@ def main(argv=None) -> int:
     client = MasterClient(args.master_addr, worker_id=args.worker_id)
     worker = None
     try:
-        worker = _build_collective_worker(args, model_spec, data_reader, client,
-                                          validation_reader, prediction_reader)
+        if args.distribution_strategy == "Local":
+            from elasticdl_tpu_torch.data.pipeline import PipelineConfig
+            from elasticdl_tpu_torch.worker.worker import Worker
+
+            worker = Worker(master_client=client, model_spec=model_spec,
+                            data_reader=data_reader, minibatch_size=args.minibatch_size,
+                            validation_data_reader=validation_reader,
+                            prediction_data_reader=prediction_reader,
+                            pipeline=PipelineConfig.from_args(args), device=args.device)
+        else:
+            worker = _build_collective_worker(args, model_spec, data_reader, client,
+                                              validation_reader, prediction_reader)
         worker.run()
         if args.output and "training" in args.job_type:
             from elasticdl_tpu_torch.serving.export import export_model

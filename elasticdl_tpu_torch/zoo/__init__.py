@@ -16,11 +16,15 @@ from typing import Union
 
 from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.common.params import parse_dict_params
-from elasticdl_tpu_torch.zoo import deepfm, transformer_lm
+from elasticdl_tpu_torch.zoo import cifar10, deepfm, mnist, resnet50, transformer_lm
 
 REGISTRY = {
     "deepfm.deepfm_functional_api": deepfm,
     "transformer.transformer_lm": transformer_lm,
+    "mnist.mnist_functional_api": mnist,
+    "mnist.mnist_subclass": mnist.SUBCLASS,
+    "cifar10.cifar10_functional_api": cifar10,
+    "resnet50.resnet50_subclass": resnet50,
 }
 
 #: Job flags the JAX loader forwards into ``model_params`` when the

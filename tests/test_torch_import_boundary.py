@@ -115,6 +115,18 @@ def test_port_sources_import_nothing_forbidden():
             "elasticdl_tpu_torch.data.recordfile",
             "elasticdl_tpu_torch.data.vectorized",
             "elasticdl_tpu_torch.master.evaluation_service"} <= names
+    # So are the Local strategy's and the vision zoo's.
+    assert {"elasticdl_tpu_torch.client",
+            "elasticdl_tpu_torch.client.api",
+            "elasticdl_tpu_torch.client.main",
+            "elasticdl_tpu_torch.data.image",
+            "elasticdl_tpu_torch.data.task_data_service",
+            "elasticdl_tpu_torch.worker.trainer",
+            "elasticdl_tpu_torch.worker.worker",
+            "elasticdl_tpu_torch.zoo.vision",
+            "elasticdl_tpu_torch.zoo.mnist",
+            "elasticdl_tpu_torch.zoo.cifar10",
+            "elasticdl_tpu_torch.zoo.resnet50"} <= names
 
 
 _SUBPROCESS = r"""
@@ -301,3 +313,20 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     for measure in (exp_sparse_gather.main, exp_sparse_gather.main_shard_map):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             measure(64, 320)
+
+
+def test_vision_entry_points_default_to_the_card(monkeypatch):
+    from elasticdl_tpu_torch.worker.trainer import Trainer
+    from elasticdl_tpu_torch.zoo import build_model, cifar10, mnist, resnet50
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for model_def in ("mnist.mnist_functional_api", "mnist.mnist_subclass",
+                      "cifar10.cifar10_functional_api", "resnet50.resnet50_subclass"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(model_def, "")
+    for zoo in (mnist, cifar10, resnet50):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            zoo.custom_model()
+    model = mnist.custom_model(device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model, mnist.loss, mnist.optimizer())
