@@ -305,6 +305,50 @@ The elastic job (``master/``, ``worker/``, ``parallel/elastic.py``):
     split (task, data wait, read and parse, crop, stage), each round's
     seconds, the wall.  Phases 28 and 29 launch none of K1-K10.
 
+The census slice (``preprocessing/``, the CTR zoo, the supervisor):
+
+30. The CTR zoo through ``ShardedEmbeddingTrainer`` on the card: census
+    Wide&Deep (its device transforms inside ``forward``, one id space of
+    201 rows) and its feature-column twin (229 rows) at batch 512 of raw
+    ``synthetic://census`` records, Wide-and-Deep at its default vocab
+    (26,000 rows) at batch 4096: 20 timed steps after 3 (samples/s,
+    median step; K2 and K3 twice a step, for the wide dim-1 and the deep
+    dim-8 table, no K1), 3 steps through the kernels against 3 through
+    the plain versions from one state (losses, tables and dense params
+    at phase 7's tolerances, at the zoo's lr), then K2 and K3 alone on
+    one step's ids and gradients: K2 bit-exact with its plain version,
+    K3 over two applies bit-exact with its plain version under
+    deterministic algorithms, each timed (the kernel alone, the whole
+    call) beside the plain version and the bytes bound.
+31. Census as a PS job: ``python -m elasticdl_tpu_torch.client.main
+    train --distribution_strategy=ParameterServerStrategy
+    --model_def=census.census_wide_deep`` on 32,768 raw synthetic census
+    records (UCI Adult has 32,561), 2 epochs of batch 512 (128 steps) in
+    tasks of 4,096, 8,192 validation records evaluated every 32
+    versions, exported to ``--output``.  Gates: exit 0; every range
+    done, every round over the 8,192 records; the loss falls (the
+    worker's per-task losses); 2 K2 and 2 K3 a step and 2 K2 an
+    evaluation batch in the worker's journal; no forbidden module; the
+    export C-contiguous at step 128, and its evaluation here on the same
+    records equal to the job's final metrics (accuracy exactly, AUC
+    within AUC_TOL).  Printed (host clock): steady samples/s and the
+    data-wait share, a worker's start, each round's seconds.
+32. ``serving.supervisor.start_serving_fleet(2, ...)`` serves phase 31's
+    export from two replica processes on the card; requests are 8-row
+    batches of raw census records through ``preprocess_record``.  Gates:
+    both replicas answer each request bit-identically and within
+    LOGIT_RTOL/LOGIT_ATOL of ``eval_step``; 8 closed-loop clients see
+    every request answered while one replica reloads gen2 (phase 31's
+    checkpoint after 4 more steps), which it then serves while the other
+    serves gen1; after ``kill_worker(rid, 9)`` the survivor answers
+    throughout and the supervisor starts a replica with a fresh id that
+    serves gen1; 2 K2 a dispatch in each replica (``/stats``); the
+    journal holds ``serving_fleet_start``, three ``serving_replica_start``
+    (no forbidden module), ``model_swap`` and one ``worker_churn``.
+    Printed: requests/s and p50/p99 before the swap, across it, on the
+    survivor across the kill and after it; kill -> the fresh replica's
+    first answer.
+
 Before each of phases 21-23 the free space of its directory is checked
 (a failure names the bytes needed); each deletes its directories.
 
@@ -319,7 +363,10 @@ of phase 26 (its own counts, in its journal), and in phase 27's worker
 also K2 twice per evaluation batch; K4, K5 and K6 once per layer per LM
 step, the resumed LM's too; K7, K8 and K9 once per layer per ring step
 of a CP LM step, and K4-K6 never there; over the mesh, K1 and K3 once
-per shard; K10 in the experiment script's default mode) fails the run.
+per shard; K10 in the experiment script's default mode; K2 and K3 twice
+per step of each CTR zoo model and of phase 31's worker process, there
+also K2 twice per evaluation batch, and K2 twice per dispatch of each
+replica of phase 32) fails the run.
 The line before the last holds the card's name and power limit, the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, with no
 result, when no CUDA device is available or the port is not beside it.
@@ -327,7 +374,8 @@ result, when no CUDA device is available or the port is not beside it.
 kernel; such a run prints no result line; phase 19 reuses phase 4's
 artifact when both run; phases 21 and 22 run together, and so do 24 and
 25; phase 27 prints phase 26's figures beside its own when both run;
-``--phases 28,29`` runs the vision phases alone).
+``--phases 28,29`` runs the vision phases alone; phase 32 runs phase 31
+first, whose export it serves).
 """
 
 from __future__ import annotations
@@ -411,6 +459,33 @@ VISION_PER_SHARD = 1536
 VISION_VALIDATION = 512
 VISION_PER_TASK = 384
 VISION_EVAL_STEPS = 12
+#: Phase 30: the CTR zoo at the trainer level, (model_def, params,
+#: batch, data path, the zoo's lr): both census models at batch 512 of
+#: raw records (one id space of 201 and of 229 rows), W&D at its default
+#: vocab (26,000 rows) and batch 4096.  K2 and K3 twice a step (the wide
+#: dim-1 and the deep dim-8 table), no K1.
+CTR_ZOO = (
+    ("census.census_wide_deep", "", 512, "synthetic://census?n={n}&seed={seed}", 0.01),
+    ("census.census_feature_columns", "", 512, "synthetic://census?n={n}&seed={seed}", 0.01),
+    ("wide_and_deep.wide_and_deep", "vocab_size=1000", 4096,
+     "synthetic://census?n={n}&vocab=1000&seed={seed}", 0.005),
+)
+CTR_ZOO_LAUNCHES = {"fused_lookup": 2, "fused_dedup_apply": 2, "fused_lookup_fm": 0}
+CTR_ZOO_STEPS = 20
+#: Phases 31-32: census Wide&Deep as a PS job (BASELINE.json config 3):
+#: 32,768 raw records (the UCI Adult training set has 32,561), 2 epochs
+#: of batch 512 (128 steps) in tasks of 4,096, 8,192 validation records
+#: evaluated every 32 versions; the fleet's gen2 is the job's state after
+#: 4 more steps, and each load window of the fleet lasts FLEET_WINDOW_S.
+CENSUS_DEF = "census.census_wide_deep"
+CENSUS_RECORDS = 32_768
+CENSUS_VALIDATION = 8192
+CENSUS_BATCH = 512
+CENSUS_PER_TASK = 4096
+CENSUS_EPOCHS = 2
+CENSUS_EVAL_STEPS = 32
+CENSUS_GEN2_STEPS = 4
+FLEET_WINDOW_S = 3.0
 #: The training slice: the north-star table, bench.py's batch.
 TRAIN_PARAMS = "vocab_size=1000000,embedding_dim=8,hidden=128,split_tables=false"
 TRAIN_BATCH = 8192
@@ -1372,14 +1447,13 @@ def first_difference(got, want) -> str:
             f"{float(got[at]).hex()} against {float(want[at]).hex()}")
 
 
-def check_k3(ske, spec, name, table, ids, grads, cancel_rows, what=""):
-    """Two applies of K3 kind ``name`` and of its plain version from one
-    state: table and every slot bit-exact, rows whose grads cancel
-    untouched, no pad lane written.  Returns (max abs error, the
-    kernel's table and slots, the plain version's)."""
+def k3_two_applies(ske, spec, kind, hyper, table, ids, grads, what):
+    """Two applies of K3 and of its plain version (deterministic) from one
+    state (``table``, zero slots): table and every slot bit-exact.
+    Returns (max abs error, the kernel's table and slots, the plain
+    version's)."""
     import torch
 
-    kind, hyper = K3_HYPER[name]
     t_kernel, s_kernel = table.clone(), k3_slots(kind, table)
     t_plain, s_plain = table.clone(), k3_slots(kind, table)
     for _ in range(2):  # the second apply reads non-zero slots
@@ -1389,13 +1463,24 @@ def check_k3(ske, spec, name, table, ids, grads, cancel_rows, what=""):
     torch.cuda.synchronize()
     err = float((t_kernel - t_plain).abs().max())
     if not bit_equal(t_kernel, t_plain):
-        fail(f"fused_dedup_apply[{name}]{what} table differs from the plain version "
+        fail(f"fused_dedup_apply{what} table differs from the plain version "
              f"(max abs {err!r}; {first_difference(t_kernel, t_plain)})")
     for slot, value in s_kernel.items():
         err = max(err, float((value - s_plain[slot]).abs().max()))
         if not bit_equal(value.reshape(-1), s_plain[slot].reshape(-1)):
-            fail(f"fused_dedup_apply[{name}]{what} slot {slot} differs from the plain version "
+            fail(f"fused_dedup_apply{what} slot {slot} differs from the plain version "
                  f"({first_difference(value.reshape(-1), s_plain[slot].reshape(-1))})")
+    return err, (t_kernel, s_kernel), (t_plain, s_plain)
+
+
+def check_k3(ske, spec, name, table, ids, grads, cancel_rows, what=""):
+    """``k3_two_applies`` of K3 kind ``name``, and rows whose grads cancel
+    untouched, no pad lane written."""
+    import torch
+
+    kind, hyper = K3_HYPER[name]
+    err, (t_kernel, s_kernel), (t_plain, s_plain) = k3_two_applies(
+        ske, spec, kind, hyper, table, ids, grads, f"[{name}]{what}")
     if not torch.equal(t_kernel[cancel_rows.to(torch.int64)],
                        table[cancel_rows.to(torch.int64)]):
         fail(f"fused_dedup_apply[{name}]{what} moved a row whose grads cancel to zero")
@@ -1554,27 +1639,38 @@ def path_steps(trainer, staged, steps: int = 3):
     return losses, tables
 
 
-def compare_paths(trainer, staged, card, what="kernel path vs plain path"):
+def compare_paths(trainer, staged, card, what="kernel path vs plain path", lr=LR,
+                  dense=False):
     """Phase 7: from one cloned state, 3 steps with the kernels and 3 with
-    the plain versions patched in."""
+    the plain versions patched in; with ``dense`` the dense params are
+    held beside the tables (phase 30)."""
     from elasticdl_tpu_torch.ops import sparse_embedding as ske
     from elasticdl_tpu_torch.parallel.ps_trainer import clone_state
 
+    def steps():
+        losses, moved = path_steps(trainer, staged)
+        if dense:
+            moved.update({f"dense/{k}": v.detach().clone()
+                          for k, v in trainer.state.params.items()})
+        return losses, moved
+
     start = clone_state(trainer.state)
     tables0 = {key: t.clone() for key, t in start.tables.items()}
-    kernel_losses, kernel_tables = path_steps(trainer, staged)
+    if dense:
+        tables0.update({f"dense/{k}": v.clone() for k, v in start.params.items()})
+    kernel_losses, kernel_tables = steps()
     trainer.state = start
     del start
     with mock.patch.object(ske, "fused_lookup", ske.fused_lookup_plain), \
             mock.patch.object(ske, "fused_lookup_fm", ske.fused_lookup_fm_plain), \
             mock.patch.object(ske, "fused_dedup_apply", ske.fused_dedup_apply_plain):
-        plain_losses, plain_tables = path_steps(trainer, staged)
+        plain_losses, plain_tables = steps()
     out = paths_agree(what, kernel_losses, plain_losses, kernel_tables, plain_tables, tables0,
-                      card)
+                      card, lr)
     return {"losses_kernel": kernel_losses, "losses_plain": plain_losses, **out}
 
 
-def paths_agree(what, losses_a, losses_b, tables_a, tables_b, tables0, card):
+def paths_agree(what, losses_a, losses_b, tables_a, tables_b, tables0, card, lr=LR):
     """Phase 7's tolerances over two 3-step runs from one state: losses
     within PATH_LOSS_RTOL; every table element within 2*lr*3 and all but
     PATH_LOOSE_SHARE of the moved ones within PATH_TABLE_ATOL."""
@@ -1591,7 +1687,7 @@ def paths_agree(what, losses_a, losses_b, tables_a, tables_b, tables0, card):
         loose += int((diff > PATH_TABLE_ATOL).sum())
     del tables_a, tables_b, tables0
     torch.cuda.empty_cache()
-    if worst > 2 * LR * 3 + PATH_TABLE_ATOL or loose > PATH_LOOSE_SHARE * max(moved, 1):
+    if worst > 2 * lr * 3 + PATH_TABLE_ATOL or loose > PATH_LOOSE_SHARE * max(moved, 1):
         fail(f"{what}: the paths diverge: max table diff {worst!r}, {loose} of {moved} "
              f"moved elements past {PATH_TABLE_ATOL}")
     log(f"{what}, 3 steps: losses {losses_a} vs {losses_b}; "
@@ -5048,6 +5144,532 @@ def local_job_phase(card: str, seed: int, workdir: str, shards: int = VISION_SHA
 
 
 
+# ----------------------------------------------------------------------
+# phases 30-32: the CTR zoo, Census as a PS job, the supervised fleet
+# ----------------------------------------------------------------------
+
+
+def ctr_zoo_batches(zoo, path: str, batch: int, n_batches: int):
+    """``n_batches`` training batches of ``batch`` from the zoo's reader of
+    ``path`` through its ``dataset_fn`` (the shuffle included), each
+    ``(features, labels, mask)``."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.data.dataset import Dataset, _stack
+
+    n = batch * n_batches
+    reader = zoo.custom_data_reader(path)
+    records = list(reader.read_records(types.SimpleNamespace(start=0, end=n, shard_name="")))
+    rows = list(zoo.dataset_fn(Dataset.from_iterable(records), "training", None))
+    return [(*_stack(rows[i:i + batch]), np.ones((batch,), np.float32))
+            for i in range(0, n, batch)]
+
+
+def ctr_zoo_kernels(ske, pk, trainer, opt, staged, flush, label, card):
+    """K2 and K3 (``opt``'s kind) alone on one step's shapes of
+    ``trainer``'s tables (the ids and gradients the step captures): K2
+    bit-exact with its plain
+    version, K3 over two applies bit-exact with its plain version under
+    deterministic algorithms; each timed (CUDA events, L2 flushed) as
+    the kernel alone and the whole call, beside the plain version and
+    the bytes bound."""
+    import torch
+
+    loss, cap = trainer.forward(*staged)
+    _, sparse, _ = trainer.backward(loss, cap)
+    out = {"fused_lookup": {}, "fused_dedup_apply": {}}
+    for key, (ids, grads) in sparse.items():
+        spec, table = trainer.table_specs[key], trainer.state.tables[key]
+        ids, grads = ids.contiguous(), grads.detach().contiguous()
+        n = ids.shape[0]
+        shape = f"ids [{n}], table {list(spec.rows_shape)}, dim {spec.dim}"
+        split = k2_split(ske, spec, table, ids, flush)
+        k2 = {"shape": shape, "max_abs_err": check_lookup(ske, spec, table, ids),
+              "kernel_ms": split["kernel_ms"], "ms": split["call_ms"],
+              "plain_ms": median_ms(lambda: ske.fused_lookup_plain(spec, table, ids), flush),
+              "bound_ms": bound_ms(lookup_bytes(n, spec.dim)), "bound_by": "bytes",
+              "library_ms": None}
+        out["fused_lookup"][key] = k2
+        touched = int(pk.dedup_representatives(spec, ids, grads)[2].sum())
+        operands = 1 + len(ske.KIND_SLOTS[opt.kind])
+        err, (t_kernel, s_kernel), (t_plain, s_plain) = k3_two_applies(
+            ske, spec, opt.kind, opt.hyperparams, table, ids, grads, f"[{label} {key}]")
+        split = k3_split(ske, spec, opt.kind, opt.hyperparams, t_kernel, s_kernel, ids, grads,
+                         flush)
+        k3 = {"shape": f"{shape}, {touched} touched rows, {opt.kind}", "max_abs_err": err,
+              "kernel_ms": split["kernel_ms"], "ms": split["call_ms"],
+              "plain_ms": median_ms(lambda: ske.fused_dedup_apply_plain(
+                  spec, opt.kind, opt.hyperparams, t_plain, s_plain, ids, grads), flush),
+              "bound_ms": bound_ms(k3_bytes(n, spec.dim, touched, operands)),
+              "bound_by": "bytes", "library_ms": None, "touched_rows": touched}
+        out["fused_dedup_apply"][key] = k3
+        for name, r in (("fused_lookup", k2), ("fused_dedup_apply", k3)):
+            log(f"kernel {name} on {label}'s {key}: {r['shape']}: bit-exact with the plain "
+                f"version; kernel alone {r['kernel_ms']!r} ms, whole call {r['ms']!r} ms "
+                f"(plain {r['plain_ms']!r} ms, bound {r['bound_ms']!r} ms) [{card}]")
+        del t_kernel, s_kernel, t_plain, s_plain
+    return out
+
+
+def ctr_zoo_phase(card: str, seed: int, models=None, warmup: int = 3,
+                  steps: int = CTR_ZOO_STEPS, n_batches: int = 8):
+    """Phase 30: each of CTR_ZOO's models through ShardedEmbeddingTrainer
+    on the card: ``steps`` timed steps after ``warmup`` (K2 and K3 twice
+    a step, no K1), the kernel path against the plain path over 3 steps
+    from one state (losses, tables and dense params at phase 7's
+    tolerances), then K2 and K3 alone on the step's shapes."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+    from elasticdl_tpu_torch.parallel import packed as pk
+    from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    dev = card_device()
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32, device=dev)
+    results = {}
+    for model_def, params, batch, path, lr in models or CTR_ZOO:
+        zoo = resolve(model_def)
+        batches = ctr_zoo_batches(zoo, path.format(n=batch * n_batches, seed=seed), batch,
+                                  n_batches)
+        trainer = ShardedEmbeddingTrainer(build_model(model_def, params), zoo.loss,
+                                          zoo.optimizer(),
+                                          embedding_optimizer=zoo.embedding_optimizer(),
+                                          seed=seed)
+        if trainer.device.type != "cuda":
+            fail(f"{model_def}: ShardedEmbeddingTrainer's default device is {trainer.device}")
+        trainer.ensure_initialized()
+        staged = [trainer.stage_batch(*b) for b in batches]
+        losses = [trainer.train_step_staged(staged[i % n_batches]) for i in range(warmup)]
+        torch.cuda.synchronize()
+        ske.reset_launch_counts()
+        events = []
+        t0 = time.perf_counter()
+        for i in range(warmup, warmup + steps):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            losses.append(trainer.train_step_staged(staged[i % n_batches]))
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ske.launch_counts()
+        want = {name: per_step * steps for name, per_step in CTR_ZOO_LAUNCHES.items()}
+        if {k: counts[k] for k in want} != want:
+            fail(f"{model_def}: launched {counts} in {steps} steps (want {want})")
+        losses = torch.stack(losses).cpu().numpy()
+        if not np.all(np.isfinite(losses)):
+            fail(f"{model_def}: non-finite training loss {losses}")
+        step_ms = sorted(s.elapsed_time(e) for s, e in events)
+        specs = {key: list(spec.rows_shape) for key, spec in trainer.table_specs.items()}
+        r = {"batch": batch, "tables": specs, "samples_per_s": steps * batch / wall,
+             "step_ms_median": step_ms[len(step_ms) // 2],
+             "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+             "launches": {k: counts[k] for k in ske.launch_counts()},
+             "launches_per_step": {k: counts[k] / steps for k in want}}
+        log(f"ctr zoo {model_def} ({params or 'defaults'}), batch {batch}, tables {specs}: "
+            f"{steps} steps, {r['samples_per_s']!r} samples/s (host wall), step median "
+            f"{r['step_ms_median']!r} ms (CUDA events); launches per step "
+            f"{r['launches_per_step']} ({counts} in {steps}); loss {r['loss_first']!r} -> "
+            f"{r['loss_last']!r} [{card}]")
+        r["path"] = compare_paths(trainer, staged, card, f"{model_def}: kernel path vs plain "
+                                  "path (tables and dense params)", lr=lr, dense=True)
+        r["kernels"] = ctr_zoo_kernels(ske, pk, trainer, zoo.embedding_optimizer(), staged[0],
+                                       flush, model_def, card)
+        results[model_def] = r
+        del trainer, staged
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return results
+
+
+def census_eval_batches(records, batch: int):
+    """Evaluation batches of the census zoo's ``dataset_fn`` (no shuffle)."""
+    from elasticdl_tpu_torch.data.dataset import Dataset, _stack
+    from elasticdl_tpu_torch.zoo import census_wide_deep as census
+
+    rows = list(census.dataset_fn(Dataset.from_iterable(records), "evaluation", None))
+    return [_stack(rows[i:i + batch]) for i in range(0, len(rows), batch)]
+
+
+def census_job_phase(card: str, seed: int, workdir: str, n: int = CENSUS_RECORDS,
+                     validation: int = CENSUS_VALIDATION, batch: int = CENSUS_BATCH,
+                     per_task: int = CENSUS_PER_TASK, epochs: int = CENSUS_EPOCHS,
+                     eval_steps: int = CENSUS_EVAL_STEPS, extra_flags=()):
+    """Phase 31: ``python -m elasticdl_tpu_torch.client.main train
+    --distribution_strategy=ParameterServerStrategy`` trains census
+    Wide&Deep on the card from ``n`` raw synthetic census records
+    (``epochs`` epochs, tasks of ``per_task``, batch ``batch``), evaluates
+    ``validation`` records every ``eval_steps`` versions and exports.
+    Gates: exit 0; every range done, every round over the validation
+    records; the loss falls; 2 K2 and 2 K3 a step and 2 K2 an evaluation
+    batch in the worker's journal; no forbidden module; the export
+    C-contiguous, and its in-process evaluation on the same records
+    equal to the job's final metrics (accuracy exactly, AUC within
+    AUC_TOL)."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.data.synthetic import synthetic_census_records
+    from elasticdl_tpu_torch.serving.export import load_for_serving, read_variables
+    from elasticdl_tpu_torch.zoo import resolve
+
+    job = os.path.join(workdir, "census")
+    ckpt, out = os.path.join(job, "ckpt"), os.path.join(job, "export")
+    os.makedirs(job)
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "elasticdl_tpu_torch.client.main", "train",
+            "--distribution_strategy=ParameterServerStrategy", "--model_zoo=model_zoo",
+            f"--model_def={CENSUS_DEF}", f"--training_data=synthetic://census?n={n}&seed={seed}",
+            f"--validation_data=synthetic://census?n={validation}&seed={seed + 1}",
+            f"--minibatch_size={batch}", f"--records_per_task={per_task}",
+            f"--num_epochs={epochs}", f"--evaluation_steps={eval_steps}", f"--output={out}",
+            f"--checkpoint_dir={ckpt}", "--checkpoint_steps=1000000", *extra_flags]
+    job_log = os.path.join(job, "job.log")
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t_start = time.time()
+    with open(job_log, "wb") as log_file:
+        proc = subprocess.Popen(argv, cwd=here, env=env, stdout=log_file,
+                                stderr=subprocess.STDOUT)
+    try:
+        rc = proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        fail(f"the census job did not finish within 900 s:\n{tail(job_log)}")
+    wall = time.time() - t_start
+    worker_log = os.path.join(ckpt, "elasticdl-job_worker_logs", "worker_0.log")
+    if rc != 0:
+        fail(f"the census job exited {rc}:\n{tail(job_log)}\n--- worker 0\n{tail(worker_log)}")
+    events = os.path.join(ckpt, "events.jsonl")
+    wevents = os.path.join(ckpt, "events_worker_0.jsonl")
+    master = {name: journal_events(events, name) for name in (
+        "task_dispatch", "task_done", "task_requeue", "evaluation_metrics", "worker_launch",
+        "master_exit")}
+    if master["task_requeue"]:
+        fail(f"tasks were requeued: {master['task_requeue']}")
+    dispatched = {e["task_id"]: e for e in master["task_dispatch"]}
+    by_type = {}
+    for e in master["task_done"]:
+        d = dispatched[e["task_id"]]
+        by_type.setdefault(d["type"], []).append((d["start"], d["end"]))
+    want_train = sorted([(lo, min(lo + per_task, n)) for lo in range(0, n, per_task)] * epochs)
+    if sorted(by_type.get("TRAINING", [])) != want_train:
+        fail(f"training ranges done {sorted(by_type.get('TRAINING', []))}, want {want_train}")
+    steps = epochs * n // batch
+    rounds = master["evaluation_metrics"]
+    want_versions = list(range(eval_steps, steps + 1, eval_steps))
+    if [r["model_version"] for r in rounds] != want_versions or any(
+            r["examples"] != validation for r in rounds):
+        fail(f"evaluation rounds {rounds}, want versions {want_versions} of {validation} rows")
+    done = journal_events(wevents, "worker_task_done")
+    last = done[-1]
+    train_steps, eval_batches = last["process_steps"], last["process_eval_batches"]
+    want_launches = {"fused_lookup": 2 * train_steps + 2 * eval_batches,
+                     "fused_dedup_apply": 2 * train_steps}
+    if train_steps != steps or last["kernel_launches"] != want_launches:
+        fail(f"the worker launched {last['kernel_launches']} in {train_steps} steps and "
+             f"{eval_batches} evaluation batches (want {want_launches}, {steps} steps)")
+    exits = journal_events(wevents, "worker_exit")
+    if (last["forbidden_modules"] or not exits or exits[0]["forbidden_modules"]
+            or master["master_exit"][-1]["forbidden_modules"]
+            or not master["master_exit"][-1]["succeeded"]):
+        fail(f"forbidden modules or a failed exit: worker {last['forbidden_modules']}, "
+             f"{exits}, master {master['master_exit'][-1]}")
+    with open(worker_log, errors="replace") as f:
+        task_losses = [float(x) for x in re.findall(r"task \d+ done: step=\d+ loss=([-\d.e]+)",
+                                                   f.read())]
+    if len(task_losses) < 4 or not np.mean(task_losses[-2:]) < np.mean(task_losses[:2]):
+        fail(f"the census job's loss did not fall: per task {task_losses}")
+    # The export: C-contiguous dense leaves, then evaluated here.
+    with open(os.path.join(out, "signature.json")) as f:
+        signature = json.load(f)
+    loose = [path for path, leaf in tree_leaves(read_variables(
+        os.path.join(out, "variables.pkl"))["params"])
+             if path[-1] != "__table__" and not np.asarray(leaf).flags.c_contiguous]
+    if signature["step"] != steps or loose:
+        fail(f"the export is step {signature['step']} (want {steps}); not C-contiguous: {loose}")
+    zoo = resolve(CENSUS_DEF)
+    served = load_for_serving(out)
+    outputs, labels = [], []
+    for features, lab in census_eval_batches(synthetic_census_records(validation, seed + 1),
+                                             batch):
+        outputs.append(served.predict(features))
+        labels.append(lab)
+    outputs, labels = np.concatenate(outputs), np.concatenate(labels)
+    here_metrics = {k: float(fn(outputs, labels)) for k, fn in zoo.eval_metrics_fn().items()}
+    final = rounds[-1]["metrics"]
+    if (final["accuracy"] != here_metrics["accuracy"]
+            or abs(final["auc"] - here_metrics["auc"]) > AUC_TOL
+            or not all(np.isfinite(v) for v in final.values())):
+        fail(f"the census job's final metrics {final} against the export's {here_metrics}")
+    del served
+    torch.cuda.empty_cache()
+    train_done = [e for e in done if e["type"] == "TRAINING"]
+    steady = train_done[1:]
+    steady_s = sum(e["seconds"] for e in steady)
+    first = journal_events(wevents, "first_step")
+    result = {
+        "records": n, "validation_records": validation, "batch": batch, "steps": steps,
+        "tasks": len(train_done), "steady_samples_per_s": sum(e["records"] for e in steady)
+        / steady_s, "steady_data_wait_share": sum(e["data_wait_s"] for e in steady) / steady_s,
+        "worker_launch_to_first_step_s": first[0]["ts"] - master["worker_launch"][0]["ts"],
+        "eval_round_s": {r["model_version"]: r["seconds"] for r in rounds},
+        "eval_metrics": {r["model_version"]: r["metrics"] for r in rounds},
+        "final_metrics": final, "export_metrics": here_metrics,
+        "task_losses": task_losses, "launches": last["kernel_launches"],
+        "launches_per_step": {"fused_lookup": 2, "fused_dedup_apply": 2},
+        "eval_batches": eval_batches, "wall_s": wall, "export": out, "checkpoint": ckpt,
+        "card": card,
+    }
+    log(f"census job: {steps} steps of {batch} in {len(train_done)} tasks of {per_task}: "
+        f"{result['steady_samples_per_s']!r} samples/s over {len(steady)} steady tasks (host "
+        f"clock), the step loop waiting for host data {result['steady_data_wait_share']!r} of "
+        f"their time; worker launch -> first step {result['worker_launch_to_first_step_s']!r} "
+        f"s; evaluation rounds {result['eval_round_s']} s; loss per task {task_losses[0]!r} -> "
+        f"{task_losses[-1]!r}; final {final} = the export's {here_metrics}; K2/K3 "
+        f"{last['kernel_launches']} in {train_steps} steps and {eval_batches} evaluation "
+        f"batches (2 and 2 a step, 2 K2 an evaluation batch); wall {wall!r} s [{card}]")
+    return result
+
+
+def census_requests(seed: int, count: int, rows: int = 8):
+    """``count`` requests of ``rows`` raw census records each, through
+    ``preprocess_record`` (the host transforms training used)."""
+    from elasticdl_tpu_torch.data.dataset import _stack
+    from elasticdl_tpu_torch.data.synthetic import synthetic_census_records
+    from elasticdl_tpu_torch.zoo import census_wide_deep as census
+
+    records = synthetic_census_records(count * rows, seed)
+    feats = [census.preprocess_record(raw) for raw, _ in records]
+    return [_stack(feats[i:i + rows]) for i in range(0, len(feats), rows)]
+
+
+def start_clients(addrs, requests, clients: int, stop):
+    """``clients`` closed-loop threads until ``stop``: thread ``w`` sends
+    its ``k``-th request to ``addrs[(w + k * clients) % len(addrs)]``.
+    Returns ``(threads, records [(t0, t1)], errors)``."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.serving.frontend import PredictClient
+
+    records, errors = [], []
+
+    def client(w):
+        conns = [PredictClient(a, deadline_s=30.0) for a in addrs]
+        i = w
+        try:
+            while not stop.is_set():
+                t0 = time.time()
+                try:
+                    out = conns[i % len(conns)].predict(requests[i % len(requests)])
+                    if out.shape != (8,) or not np.all(np.isfinite(out)):
+                        raise ValueError(f"response of shape {out.shape} / non-finite")
+                    records.append((t0, time.time()))
+                except Exception as exc:  # counted, reported by the caller
+                    errors.append(repr(exc))
+                i += clients
+        finally:
+            for c in conns:
+                c.close()
+
+    threads = [threading.Thread(target=client, args=(w,), name=f"fleet-client-{w}")
+               for w in range(clients)]
+    for t in threads:
+        t.start()
+    return threads, records, errors
+
+
+def stop_clients(what, threads, stop, records, errors, t_start):
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+        if t.is_alive():
+            fail(f"{what}: client thread {t.name} did not finish")
+    seconds = time.time() - t_start
+    if errors:
+        fail(f"{what}: {len(errors)} of {len(errors) + len(records)} requests failed: "
+             f"{errors[:3]}")
+    latencies = [b - a for a, b in records]
+    return {"requests": len(records), "seconds": seconds,
+            "requests_per_s": len(records) / seconds, "p50_ms": percentile_ms(latencies, 50),
+            "p99_ms": percentile_ms(latencies, 99)}
+
+
+def census_fleet_phase(card: str, seed: int, workdir: str, job: dict, clients: int = 8,
+                       window_s: float = FLEET_WINDOW_S, gen2_steps: int = CENSUS_GEN2_STEPS,
+                       device=None):
+    """Phase 32: ``serving.supervisor.start_serving_fleet(2, gen1)`` serves
+    phase 31's export from two replica processes on the card.  Gates:
+    both answer 8-row requests of raw census records bit-identically and
+    within LOGIT_RTOL/LOGIT_ATOL of ``eval_step``; 8 closed-loop clients
+    see every request answered while one replica reloads gen2 (phase
+    31's state after ``gen2_steps`` more steps), which it then serves,
+    the other gen1; after ``kill_worker(rid, 9)`` the supervisor starts a
+    replica with a fresh id that serves gen1, the survivor answering
+    throughout; 2 K2 a dispatch in each replica; the journal's fleet
+    events."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch import obs
+    from elasticdl_tpu_torch.checkpoint.sharded import ShardedCheckpointSaver
+    from elasticdl_tpu_torch.data.synthetic import synthetic_census_records
+    from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer
+    from elasticdl_tpu_torch.serving.export import export_model
+    from elasticdl_tpu_torch.serving.frontend import PredictClient, encode_features
+    from elasticdl_tpu_torch.serving.supervisor import start_serving_fleet, wait_for_replicas
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    gen1 = job["export"]
+    gen2 = os.path.join(workdir, "census", "gen2")
+    zoo = resolve(CENSUS_DEF)
+    saver = ShardedCheckpointSaver(job["checkpoint"])
+    trainer = ShardedEmbeddingTrainer(build_model(CENSUS_DEF, "", device), zoo.loss,
+                                      zoo.optimizer(),
+                                      embedding_optimizer=zoo.embedding_optimizer(),
+                                      device=device)
+    trainer.set_sharded_restore(saver, saver.latest_step())
+    trainer.ensure_initialized()
+    requests = census_requests(seed + 32, 64)
+    want1 = [trainer.eval_step(r) for r in requests]
+    batch = job["batch"]
+    train = census_eval_batches(synthetic_census_records(batch * gen2_steps, seed + 33), batch)
+    for features, labels in train:
+        trainer.train_step(features, labels)
+    export_model(trainer, gen2, model_zoo="model_zoo", model_def=CENSUS_DEF, model_params="")
+    want2 = [trainer.eval_step(r) for r in requests]
+    del trainer
+    torch.cuda.empty_cache()
+    if all(np.allclose(a, b, rtol=LOGIT_RTOL, atol=LOGIT_ATOL) for a, b in zip(want1, want2)):
+        fail("gen2 serves the same logits as gen1")
+
+    def close(got, want, what):
+        np.testing.assert_allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL, err_msg=what)
+
+    serve = os.path.join(workdir, "serve_fleet")
+    warm = os.path.join(workdir, "fleet_warmup.npz")
+    with open(warm, "wb") as f:
+        f.write(encode_features({k: v[:1] for k, v in requests[0].items()}))
+    t_launch = time.perf_counter()
+    manager = start_serving_fleet(2, gen1, serve, max_batch_size=64, max_wait_us=2000,
+                                  telemetry_interval_s=0.5, warmup_features=warm,
+                                  **({"device": device} if device else {}))
+    probes, stats = {}, {}
+    try:
+        live = wait_for_replicas(serve, 2, timeout_s=300)
+        addr = {r["replica_id"]: f"127.0.0.1:{r['port']}" for r in live}
+        probes = {rid: PredictClient(a, deadline_s=60.0) for rid, a in addr.items()}
+        rid_swap, rid_kill = sorted(probes)
+        for r, want in zip(requests, want1):
+            a, b = probes[rid_swap].predict(r), probes[rid_kill].predict(r)
+            if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+                fail(f"the replicas answer one request differently: {a} vs {b}")
+            close(a, want, "gen1 against eval_step")
+        first_answers_s = time.perf_counter() - t_launch
+        windows = {}
+        # (a) both replicas, before the swap
+        stop = threading.Event()
+        t0 = time.time()
+        threads, records, errors = start_clients(list(addr.values()), requests, clients, stop)
+        time.sleep(window_s)
+        windows["before_swap"] = stop_clients("before the swap", threads, stop, records,
+                                              errors, t0)
+        # (b) a live reload of one replica under load: every request answered
+        stop = threading.Event()
+        t0 = time.time()
+        threads, records, errors = start_clients(list(addr.values()), requests, clients, stop)
+        time.sleep(0.5)
+        t_swap = time.time()
+        swapped = probes[rid_swap].reload(gen2)
+        swap_s = time.time() - t_swap
+        time.sleep(0.5)
+        windows["across_swap"] = stop_clients("across the swap", threads, stop, records,
+                                              errors, t0)
+        if swapped["generation"] != 2:
+            fail(f"the reload answered {swapped}")
+        for r, w1, w2 in zip(requests, want1, want2):
+            close(probes[rid_swap].predict(r), w2, "the swapped replica against gen2")
+            close(probes[rid_kill].predict(r), w1, "the other replica against gen1")
+        stats[rid_kill] = probes[rid_kill].stats()
+        # (c) SIGKILL one replica: the survivor answers throughout, the
+        # supervisor starts a replica with a fresh id
+        stop = threading.Event()
+        t0 = time.time()
+        threads, records, errors = start_clients([addr[rid_swap]], requests, clients, stop)
+        time.sleep(0.2)
+        t_kill = time.perf_counter()
+        manager.kill_worker(rid_kill, signal.SIGKILL)
+        deadline = time.perf_counter() + 300
+        fresh = []
+        while not fresh:
+            if time.perf_counter() > deadline:
+                fail(f"no fresh replica 300 s after the kill: {manager.current_worker_ids()}")
+            fresh = [r for r in wait_for_replicas(serve, 2, timeout_s=300)
+                     if r["replica_id"] not in (rid_swap, rid_kill)]
+            time.sleep(0.05)
+        rid_fresh = fresh[0]["replica_id"]
+        addr[rid_fresh] = f"127.0.0.1:{fresh[0]['port']}"
+        probes[rid_fresh] = PredictClient(addr[rid_fresh], deadline_s=60.0)
+        probes[rid_fresh].predict(requests[0])
+        kill_to_answer_s = time.perf_counter() - t_kill
+        windows["survivor_across_kill"] = stop_clients("the survivor across the kill", threads,
+                                                       stop, records, errors, t0)
+        if manager.current_worker_ids() != [rid_swap, rid_fresh] or rid_fresh <= rid_kill:
+            fail(f"replicas {manager.current_worker_ids()} after the kill of {rid_kill}")
+        for r, want in zip(requests, want1):
+            close(probes[rid_fresh].predict(r), want, "the fresh replica against gen1")
+        # (d) the repaired fleet
+        live_addrs = [addr[rid_swap], addr[rid_fresh]]
+        stop = threading.Event()
+        t0 = time.time()
+        threads, records, errors = start_clients(live_addrs, requests, clients, stop)
+        time.sleep(window_s)
+        windows["after_kill"] = stop_clients("after the kill", threads, stop, records, errors,
+                                             t0)
+        for rid in (rid_swap, rid_fresh):
+            stats[rid] = probes[rid].stats()
+    finally:
+        for probe in probes.values():
+            probe.close()
+        manager.stop()
+        obs.journal().configure(None)
+    per_replica = {}
+    for rid, st in stats.items():
+        launches, dispatches = st["kernel_launches"], st["executes"]
+        if launches.get("fused_lookup") != 2 * dispatches or launches.get(
+                "fused_lookup_fm") or launches.get("fused_dedup_apply"):
+            fail(f"replica {rid} launched {launches} in {dispatches} dispatches")
+        per_replica[rid] = {"dispatches": dispatches, "launches": launches,
+                            "generation": st["generation"]}
+    if (per_replica[rid_swap]["generation"], per_replica[rid_fresh]["generation"]) != (2, 1):
+        fail(f"generations after the kill: {per_replica}")
+    journal = os.path.join(serve, "events.jsonl")
+    starts = journal_events(journal, "serving_replica_start")
+    churn = journal_events(journal, "worker_churn")
+    swaps = journal_events(journal, "model_swap")
+    if (not journal_events(journal, "serving_fleet_start")
+            or sorted(e["replica_id"] for e in starts) != [rid_swap, rid_kill, rid_fresh]
+            or any(e["forbidden_modules"] or not e["device"].startswith(
+                "cpu" if device == "cpu" else "cuda") for e in starts)
+            or [(e["workers"], e["exit_codes"]) for e in churn] != [([rid_kill], [-9])]
+            or not any(e.get("outcome") == "applied" for e in swaps)):
+        fail(f"the fleet's journal: starts {starts}, churn {churn}, swaps {swaps}")
+    result = {"replicas": sorted(per_replica), "windows": windows, "swap_s": swap_s,
+              "first_answers_s": first_answers_s, "kill_to_fresh_answer_s": kill_to_answer_s,
+              "killed": rid_kill, "fresh": rid_fresh, "per_replica": per_replica,
+              "startup_s": {e["replica_id"]: e["startup_s"] for e in starts}, "card": card}
+    log(f"census fleet: 2 replica processes up and answering {first_answers_s!r} s after the "
+        f"launch (replica start {result['startup_s']} s); 8-row requests from {clients} "
+        f"clients: {windows}; reload to gen2 {swap_s!r} s under load, 0 dropped; SIGKILL of "
+        f"replica {rid_kill} -> fresh replica {rid_fresh} answering {kill_to_answer_s!r} s "
+        f"later, the survivor answering throughout; per replica {per_replica} [{card}]")
+    return result
+
+
 def ring_entries(ring_kernels, ring_whole, cp, card, resources=None):
     """The K7-K9 entries of the kernels line: timed at RING_BENCH (phase
     13), launched on the CP LM path (phase 15, both layouts)."""
@@ -5222,6 +5844,16 @@ def main() -> None:
             local = local_job_phase(card, args.seed, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
+    zoo = ctr_zoo_phase(card, args.seed) if run(30) else None
+    census = fleet = None
+    if run(31, 32):  # phase 32 serves phase 31's export
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            census = census_job_phase(card, args.seed, workdir)
+            if run(32):
+                fleet = census_fleet_phase(card, args.seed, workdir, census)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
     attention, edges = attention_phase(card, args.seed) if run(10) else (None, None)
     lm = lm_training_phases(card, args.seed) if run(11, 12) else None
     lm_ckpt = lm_checkpoint_phase(card, args.seed) if run(23) else None
@@ -5238,6 +5870,7 @@ def main() -> None:
                         "lm_checkpoint": lm_ckpt, "continuous_loop": continuous,
                         "replica_process": process, "elastic_job": elastic,
                         "etrf_job": etrf, "vision_training": vision, "local_job": local,
+                        "ctr_zoo": zoo, "census_job": census, "census_fleet": fleet,
                         "card": card}))
         log("partial run: no result line")
         return
@@ -5250,7 +5883,8 @@ def main() -> None:
                     "checkpoint": ckpt, "lm_checkpoint": lm_ckpt,
                     "continuous_loop": continuous, "replica_process": process,
                     "elastic_job": elastic, "etrf_job": etrf, "vision_training": vision,
-                    "local_job": local, "card": card}))
+                    "local_job": local, "ctr_zoo": zoo, "census_job": census,
+                    "census_fleet": fleet, "card": card}))
 
     by_path = {
         "fused_lookup_fm": {"serve_merged": launches["fused_lookup_fm"],
@@ -5275,7 +5909,16 @@ def main() -> None:
                          "etrf_job_worker_process": {
                              f"worker {w} ({r['steps']} steps, {r['eval_batches']} evaluation "
                              "batches)": r["launches"]["fused_lookup"]
-                             for w, r in etrf["per_worker"].items()}},
+                             for w, r in etrf["per_worker"].items()},
+                         **{f"ctr_zoo_{m}_{CTR_ZOO_STEPS}_steps": r["launches"]["fused_lookup"]
+                            for m, r in zoo.items()},
+                         f"census_job_worker_process ({census['steps']} steps, "
+                         f"{census['eval_batches']} evaluation batches)":
+                             census["launches"]["fused_lookup"],
+                         "census_fleet_replica_process": {
+                             f"replica {rid} ({r['dispatches']} dispatches)":
+                                 r["launches"]["fused_lookup"]
+                             for rid, r in fleet["per_replica"].items()}},
         "fused_dedup_apply": {"train_strict": train["launches_strict"]["fused_dedup_apply"],
                               "train_window": train["launches_window"]["fused_dedup_apply"],
                               "train_mesh": mesh_train["launches"]["fused_dedup_apply"],
@@ -5290,7 +5933,11 @@ def main() -> None:
                               "etrf_job_worker_process": {
                                   f"worker {w} ({r['steps']} steps)":
                                       r["launches"]["fused_dedup_apply"]
-                                  for w, r in etrf["per_worker"].items()}},
+                                  for w, r in etrf["per_worker"].items()},
+                              **{f"ctr_zoo_{m}_{CTR_ZOO_STEPS}_steps":
+                                 r["launches"]["fused_dedup_apply"] for m, r in zoo.items()},
+                              f"census_job_worker_process ({census['steps']} steps)":
+                                  census["launches"]["fused_dedup_apply"]},
     }
     on_mesh = {"fused_lookup_fm": sharded["fused_lookup_fm"], "fused_lookup":
                sharded["fused_lookup"], "fused_dedup_apply": sharded["fused_dedup_apply"]["adam"]}
@@ -5317,6 +5964,7 @@ def main() -> None:
         else:
             entry["shapes"] = r["shapes"]
             entry["train_split_step_ms"] = split_train["breakdown_ms"]["kernel_ms"][name]
+            entry["ctr_zoo_shapes"] = {m: z["kernels"][name] for m, z in zoo.items()}
         builds = [(resources or {}).get(build) for build in SPARSE_BUILDS[name]]
         entry["resources"] = (builds[0] if len(builds) == 1
                               else dict(zip(SPARSE_BUILDS[name], builds)))
@@ -5336,6 +5984,7 @@ def main() -> None:
         "shape": k3["shape"] + ", adam per-row", "by_kind": k3["by_kind"],
         "train_step_ms": train["breakdown_ms"]["fused_dedup_apply"],
         "sharded": on_mesh["fused_dedup_apply"],
+        "ctr_zoo_shapes": {m: z["kernels"]["fused_dedup_apply"] for m, z in zoo.items()},
         "card": card,
     })
     line += flash_entries(attention, edges, lm, card, resources, lm_ckpt)

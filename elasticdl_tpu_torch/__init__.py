@@ -18,7 +18,9 @@ the sharded dispatch of the sparse ops over a mesh, which the PS trainer
 and serving take; the block-gather probe ``ops.sparse_gather`` with
 its experiment script ``bench.exp_sparse_gather``; and checkpoints in
 the JAX package's layout (``checkpoint``: plain, sharded and the delta
-chain, which the serving replica applies).
+chain, which the serving replica applies); the preprocessing layers
+(``preprocessing``) and the CTR zoo they feed (census, wide_and_deep),
+and the supervised fleet of replica processes (``serving.supervisor``).
 """
 
 __version__ = "0.1.0"

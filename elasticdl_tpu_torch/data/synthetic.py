@@ -21,6 +21,12 @@ a list of per-record tuples); ``SyntheticCTRReader`` serves them as the
 reader's records, ``({"dense": f32 [13], "cat": i32 [26]}, label)``, and
 builds the arrays only when a worker first reads (the master counts
 records from the path alone).
+
+Census (``model_zoo/datasets.py:207-292``): RAW records, strings and
+unscaled floats, the input the preprocessing layers exist for;
+``synthetic_census_reader`` makes the JAX reader's draws in its order,
+so one seed gives the same records value for value, the labels taken at
+the median of all ``n`` logits.
 """
 
 from __future__ import annotations
@@ -89,6 +95,81 @@ def parse_synthetic_path(data_path: str) -> Tuple[Optional[str], Dict[str, int]]
         for key, values in urllib.parse.parse_qs(parsed.query).items()
     }
     return parsed.netloc, params
+
+
+# Census raw-feature vocabularies (the census dataset the reference's
+# preprocessing layers were built for).
+CENSUS_EDUCATION = [
+    "Bachelors", "HS-grad", "11th", "Masters", "9th", "Some-college",
+    "Assoc-acdm", "Assoc-voc", "7th-8th", "Doctorate", "Prof-school",
+    "5th-6th", "10th", "1st-4th", "Preschool", "12th",
+]
+CENSUS_WORKCLASS = [
+    "Private", "Self-emp-not-inc", "Self-emp-inc", "Federal-gov",
+    "Local-gov", "State-gov", "Without-pay", "Never-worked",
+]
+CENSUS_OCCUPATIONS = [f"occupation-{i}" for i in range(40)]  # high cardinality: hashed
+
+
+def synthetic_census_records(n: int = 4096, seed: int = 0) -> list:
+    """``n`` census records ``({"age", "capital_gain", "hours_per_week":
+    f32, "education", "workclass", "occupation": str}, i32 label)``; the
+    label depends on every feature family, so a model only learns when
+    its preprocessing wires them all through."""
+    rng = np.random.default_rng(seed)
+    age = rng.uniform(17, 90, size=n).astype(np.float32)
+    gain = np.abs(rng.normal(3000, 8000, size=n)).astype(np.float32)
+    hours = rng.uniform(1, 99, size=n).astype(np.float32)
+    edu_idx = rng.integers(0, len(CENSUS_EDUCATION), size=n)
+    work_idx = rng.integers(0, len(CENSUS_WORKCLASS), size=n)
+    occ_idx = rng.integers(0, len(CENSUS_OCCUPATIONS), size=n)
+    w_edu = rng.standard_normal(len(CENSUS_EDUCATION)).astype(np.float32)
+    w_work = rng.standard_normal(len(CENSUS_WORKCLASS)).astype(np.float32)
+    w_occ = rng.standard_normal(len(CENSUS_OCCUPATIONS)).astype(np.float32)
+    logits = (w_edu[edu_idx] + w_work[work_idx] + w_occ[occ_idx] + 0.03 * (hours - 40.0)
+              + 0.02 * (age - 40.0) + gain / 20000.0)
+    labels = (logits > np.median(logits)).astype(np.int32)
+    return [
+        ({"age": age[i], "capital_gain": gain[i], "hours_per_week": hours[i],
+          "education": CENSUS_EDUCATION[edu_idx[i]],
+          "workclass": CENSUS_WORKCLASS[work_idx[i]],
+          "occupation": CENSUS_OCCUPATIONS[occ_idx[i]]}, labels[i])
+        for i in range(n)
+    ]
+
+
+class SyntheticCensusReader(AbstractDataReader):
+    """The records of ``synthetic_census_records`` for every task range,
+    built when a worker first reads (the master counts them from the
+    path alone)."""
+
+    def __init__(self, n: int = 4096, seed: int = 0, shard_name: str = "census-synth",
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._n = int(n)
+        self._seed = int(seed)
+        self._shard_name = shard_name
+        self._records = None
+        self._lock = threading.Lock()
+
+    def create_shards(self):
+        return {self._shard_name: self._n}
+
+    def records(self) -> list:
+        with self._lock:
+            if self._records is None:
+                self._records = synthetic_census_records(self._n, self._seed)
+            return self._records
+
+    def read_records(self, task):
+        records = self.records()
+        for i in range(task.start, min(task.end, self._n)):
+            yield records[i]
+
+
+def synthetic_census_reader(n: int = 4096, seed: int = 0,
+                            shard_name: str = "census-synth") -> SyntheticCensusReader:
+    return SyntheticCensusReader(n=n, seed=seed, shard_name=shard_name)
 
 
 class SyntheticCTRReader(AbstractDataReader):

@@ -9,9 +9,14 @@ restart budget lasts, one smaller after) under a fresh rendezvous id and
 launches fresh worker processes, which restore the latest checkpoint.
 Data progress lives in the master's ``TaskManager``, which survives.  A
 worker whose heartbeat goes silent is killed, which turns a hang into
-the same churn.  Explicit resizes (``scale``), the regrow of a shrunk
-world toward its target and the policy engine that drives them wait for
-ROADMAP.md Queue 1 item 6.
+the same churn.  ``current_worker_ids`` and ``kill_worker`` are the
+surface a supervisor or a drill drives; the churn handler is a locked
+check (stopped, or the world already replaced: return) around
+``_handle_churn_serialized``, which a subclass overrides
+(``serving/supervisor.py`` replaces only the dead replicas).  Explicit
+resizes (``scale``), the regrow of a shrunk world toward its target,
+the straggler advisories and the policy engine that drives them wait
+for ROADMAP.md Queue 1 item 6.
 
 ``LocalProcessManager`` runs the workers as child processes of the
 master (``python -m elasticdl_tpu_torch.worker.main``), each logging to
@@ -78,6 +83,9 @@ class ElasticWorkerManager:
         self._startup_grace_s = (startup_grace_s if startup_grace_s is not None
                                  else 4 * liveness_timeout_s)
         self._lock = threading.Lock()
+        # Serialises the paths that replace the world (the churn repair
+        # releases _lock mid-flight); always taken before _lock.
+        self._resize_lock = threading.Lock()
         self._handles: List = []
         self._next_worker_id = 0
         self._restarts_used = 0
@@ -139,6 +147,19 @@ class ElasticWorkerManager:
     def restarts_used(self) -> int:
         with self._lock:
             return self._restarts_used
+
+    def current_worker_ids(self) -> List[int]:
+        with self._lock:
+            return [h.worker_id for h in self._handles]
+
+    def kill_worker(self, worker_id: int, sig: int = 9):
+        """Kill one worker (a drill, or a preemption's simulation); the
+        monitor then handles its exit as churn."""
+        with self._lock:
+            target = next((h for h in self._handles if h.worker_id == worker_id), None)
+        if target is None:
+            raise ValueError(f"No live worker {worker_id}")
+        self._substrate_kill(target, sig)  # outside the lock: a substrate may block
 
     def stop(self):
         with self._lock:
@@ -233,10 +254,17 @@ class ElasticWorkerManager:
                 self._substrate_kill(h, 9)
 
     def _handle_churn(self, handles: List, crashed):
-        """One churn event: any worker death invalidates the whole world."""
-        with self._lock:
-            if self._stopped:
-                return
+        """One churn event, unless the fleet was stopped or the world was
+        replaced since ``handles`` was polled (their exits are then
+        expected teardown)."""
+        with self._resize_lock:
+            with self._lock:
+                if self._stopped or self._handles != handles:
+                    return
+            self._handle_churn_serialized(handles, crashed)
+
+    def _handle_churn_serialized(self, handles: List, crashed):
+        """Restart the world: any worker death invalidates it."""
         for h, code in crashed:
             logger.warning("%s died (exit %s) — world re-formation", self._describe(h), code)
             self._m_relaunches.inc(reason=_exit_reason(code))

@@ -26,8 +26,8 @@ The JAX package's flags are kept, with their names and defaults.  A
 flag that would enable a plane the port does not have (``--slo_*`` > 0,
 ``--quality_join_window_s`` > 0) raises ``NotImplementedError``; the
 ``--trace_*`` flags select nothing (ROADMAP.md Queue 1 items 4 and 8).
-The supervisor (``serving/supervisor.py``) waits for the master's pod
-manager (Queue 1 item 6).
+``serving/supervisor.py`` runs a fleet of these processes and replaces
+a dead one with a fresh id.
 """
 
 from __future__ import annotations

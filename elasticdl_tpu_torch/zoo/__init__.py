@@ -16,7 +16,16 @@ from typing import Union
 
 from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.common.params import parse_dict_params
-from elasticdl_tpu_torch.zoo import cifar10, deepfm, mnist, resnet50, transformer_lm
+from elasticdl_tpu_torch.zoo import (
+    census_feature_columns,
+    census_wide_deep,
+    cifar10,
+    deepfm,
+    mnist,
+    resnet50,
+    transformer_lm,
+    wide_and_deep,
+)
 
 REGISTRY = {
     "deepfm.deepfm_functional_api": deepfm,
@@ -25,6 +34,9 @@ REGISTRY = {
     "mnist.mnist_subclass": mnist.SUBCLASS,
     "cifar10.cifar10_functional_api": cifar10,
     "resnet50.resnet50_subclass": resnet50,
+    "census.census_wide_deep": census_wide_deep,
+    "census.census_feature_columns": census_feature_columns,
+    "wide_and_deep.wide_and_deep": wide_and_deep,
 }
 
 #: Job flags the JAX loader forwards into ``model_params`` when the

@@ -187,6 +187,6 @@ def test_split_rule_matches_flax(vocab):
 def test_registry_resolves_only_ported_models():
     assert resolve("deepfm.deepfm_functional_api") is port_deepfm
     with pytest.raises(ValueError, match="not ported"):
-        resolve("census.census_wide_deep")
+        resolve("no_such.model")
     with pytest.raises(ValueError):
         port_deepfm.custom_model(sparse_kernel="pallas", device="meta")

@@ -127,6 +127,14 @@ def test_port_sources_import_nothing_forbidden():
             "elasticdl_tpu_torch.zoo.mnist",
             "elasticdl_tpu_torch.zoo.cifar10",
             "elasticdl_tpu_torch.zoo.resnet50"} <= names
+    # So are the preprocessing layers, the CTR zoo and the supervisor.
+    assert {"elasticdl_tpu_torch.preprocessing",
+            "elasticdl_tpu_torch.preprocessing.layers",
+            "elasticdl_tpu_torch.preprocessing.feature_column",
+            "elasticdl_tpu_torch.zoo.census_wide_deep",
+            "elasticdl_tpu_torch.zoo.census_feature_columns",
+            "elasticdl_tpu_torch.zoo.wide_and_deep",
+            "elasticdl_tpu_torch.serving.supervisor"} <= names
 
 
 _SUBPROCESS = r"""
@@ -317,14 +325,18 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
 
 def test_vision_entry_points_default_to_the_card(monkeypatch):
     from elasticdl_tpu_torch.worker.trainer import Trainer
-    from elasticdl_tpu_torch.zoo import build_model, cifar10, mnist, resnet50
+    from elasticdl_tpu_torch.zoo import (build_model, census_feature_columns, census_wide_deep,
+                                         cifar10, mnist, resnet50, wide_and_deep)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for model_def in ("mnist.mnist_functional_api", "mnist.mnist_subclass",
-                      "cifar10.cifar10_functional_api", "resnet50.resnet50_subclass"):
+                      "cifar10.cifar10_functional_api", "resnet50.resnet50_subclass",
+                      "census.census_wide_deep", "census.census_feature_columns",
+                      "wide_and_deep.wide_and_deep"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(model_def, "")
-    for zoo in (mnist, cifar10, resnet50):
+    for zoo in (mnist, cifar10, resnet50, census_wide_deep, census_feature_columns,
+                wide_and_deep):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             zoo.custom_model()
     model = mnist.custom_model(device="cpu")
