@@ -349,6 +349,42 @@ The census slice (``preprocessing/``, the CTR zoo, the supervisor):
     survivor across the kill and after it; kill -> the fresh replica's
     first answer.
 
+The elastic control plane (``obs/{goodput,stepstats,telemetry}.py``,
+``master/policy.py``) runs in every job: phases 26, 27 and 31 print the
+master's goodput ledger (``goodput_ratio``, its phases summing to its
+wall within LEDGER_RTOL; phase 26 its one ``rescale_cost`` of cause
+``worker_churn``, split into detection, rendezvous and redo, beside the
+host-clock rescale seconds), and each worker journals its step anatomy
+after every flush.  The AllReduce jobs:
+
+33. ``python -m elasticdl_tpu_torch.master.main
+    --distribution_strategy=AllreduceStrategy`` trains ResNet-20
+    (``cifar10.cifar10_functional_api``, bf16) on 16,384 synthetic
+    CIFAR-10 images (cut from 50,000), batch 128, tasks of 2,048, a
+    checkpoint every 32 steps, one worker process (a world of one).
+    Once the step-32 checkpoint is committed and a task is in flight,
+    the worker is SIGKILLed; the world re-forms.  Gates: exit 0; the
+    churn, a second world, the in-flight task requeued and every range
+    done; the new worker's restore bit-exact with the checkpoint (its
+    journaled CRC32 of params, SGD trace and ``batch_stats`` equal to the
+    dead worker's at that save and to the file's); the export equal to
+    the final checkpoint's params and ``batch_stats``, bit for bit; one
+    ``rescale_cost`` of cause ``worker_churn`` whose parts sum to its
+    total; the ledger's phases summing to its wall within LEDGER_RTOL;
+    the policy engine's ``hold`` decisions journaled; every journal
+    record carrying the port's required fields; no forbidden module in
+    any process; no K1-K10 launch (none is on this path).  Printed: the
+    goodput ratio and phases, the rescale's detection, rendezvous and
+    redo seconds beside the host clock's kill -> first step, the step
+    anatomy's fractions with the card's roofline verdict, steady
+    images/s.
+34. The same job on ResNet-50 at phase 28's width (224x224 uint8
+    images, batch 128, bf16, 1000 classes) on 6,144 synthetic ImageNet
+    images (cut from 1.28M) in tasks of 768, a checkpoint every 12
+    steps, ``--pipeline async --parse_pool_workers 4``; the same kill
+    after the step-12 save and the same gates.  Printed as phase 33,
+    beside phase 28's CUDA-event step time when it ran.
+
 Before each of phases 21-23 the free space of its directory is checked
 (a failure names the bytes needed); each deletes its directories.
 
@@ -459,6 +495,18 @@ VISION_PER_SHARD = 1536
 VISION_VALIDATION = 512
 VISION_PER_TASK = 384
 VISION_EVAL_STEPS = 12
+#: Phases 33-34: the AllReduce jobs, a world of one, SIGKILLed after
+#: the step-``ckpt`` save: (model_def, model_params, data drawn from
+#: ``--seed``, records, batch, records a task, ckpt, extra flags).  The
+#: data are cut, the widths not.
+ALLREDUCE_JOBS = {
+    33: ("cifar10.cifar10_functional_api", "", "synthetic://cifar10?n={n}&seed={seed}",
+         16_384, 128, 2048, 32, ("--pipeline=async", "--parse_pool_workers=2")),
+    34: (VISION_DEF, "", "synthetic://imagenet?n={n}&seed={seed}", 6144, VISION_BATCH, 768, 12,
+         ("--pipeline=async", "--parse_pool_workers=4")),
+}
+#: The goodput ledger's phases against its wall: relative difference.
+LEDGER_RTOL = 1e-6
 #: Phase 30: the CTR zoo at the trainer level, (model_def, params,
 #: batch, data path, the zoo's lr): both census models at batch 512 of
 #: raw records (one id space of 201 and of 229 rows), W&D at its default
@@ -4389,8 +4437,17 @@ def elastic_job_phase(card: str, seed: int, workdir: str, split_train=None,
                       "first_step_after": first[1] - t_kill},
         "wall_s": t_end - t_start, "killed_pid": victim, "requeued_tasks": requeued,
         "per_worker": per_worker, "export_elements_bit_exact": compared,
-        "served_max_abs_err": float(np.max(np.abs(got - want))), "card": card,
+        "served_max_abs_err": float(np.max(np.abs(got - want))),
+        "goodput": ledger_summary(events, "elastic job", causes=["worker_churn"]),
+        "journal_records_checked": journals_schema(ckpt, "elastic job"), "card": card,
     }
+    cost = result["goodput"]["rescale_cost"][0]
+    log(f"elastic job: goodput_ratio {result['goodput']['goodput_ratio']!r} over "
+        f"{result['goodput']['wall_s']!r} s (phases {result['goodput']['phases_s']}); the "
+        f"rescale on the ledger: detection {cost['detection_s']!r} s, rendezvous "
+        f"{cost['rendezvous_s']!r} s, redo {cost['redo_s']!r} s of {cost['redo_records']} "
+        f"records, total {cost['total_s']!r} s; on the host clock {result['rescale_s']} s "
+        f"[{card}]")
     log(f"elastic job: master start -> first task {result['first_dispatch_s']!r} s; worker "
         f"launch -> first step {result['worker_launch_to_first_step_s']} s; "
         f"{result['steady_samples_per_s']!r} samples/s over {len(steady)} steady tasks "
@@ -4705,8 +4762,12 @@ def etrf_job_phase(card: str, seed: int, workdir: str, elastic=None,
         "auc_abs_diff": abs(final["auc"] - here_metrics["auc"]),
         "per_worker": {0: {"steps": train_steps, "eval_batches": eval_batches,
                            "launches": last["kernel_launches"]}},
-        "record_codec": readers[0]["record_codec"], "card": card,
+        "record_codec": readers[0]["record_codec"],
+        "goodput": ledger_summary(events, "etrf job"),
+        "journal_records_checked": journals_schema(ckpt, "etrf job"), "card": card,
     }
+    log(f"etrf job: goodput_ratio {result['goodput']['goodput_ratio']!r} over "
+        f"{result['goodput']['wall_s']!r} s (phases {result['goodput']['phases_s']}) [{card}]")
     log(f"etrf job: {steady_rate!r} samples/s over {len(steady)} steady tasks (phase 26 in "
         f"this call: {result['phase26_steady_samples_per_s']!r}); the step loop waited for "
         f"host data {wait_share!r} of their time (phase 26: "
@@ -5423,8 +5484,11 @@ def census_job_phase(card: str, seed: int, workdir: str, n: int = CENSUS_RECORDS
         "task_losses": task_losses, "launches": last["kernel_launches"],
         "launches_per_step": {"fused_lookup": 2, "fused_dedup_apply": 2},
         "eval_batches": eval_batches, "wall_s": wall, "export": out, "checkpoint": ckpt,
-        "card": card,
+        "goodput": ledger_summary(events, "census job"),
+        "journal_records_checked": journals_schema(ckpt, "census job"), "card": card,
     }
+    log(f"census job: goodput_ratio {result['goodput']['goodput_ratio']!r} over "
+        f"{result['goodput']['wall_s']!r} s (phases {result['goodput']['phases_s']}) [{card}]")
     log(f"census job: {steps} steps of {batch} in {len(train_done)} tasks of {per_task}: "
         f"{result['steady_samples_per_s']!r} samples/s over {len(steady)} steady tasks (host "
         f"clock), the step loop waiting for host data {result['steady_data_wait_share']!r} of "
@@ -5670,6 +5734,237 @@ def census_fleet_phase(card: str, seed: int, workdir: str, job: dict, clients: i
     return result
 
 
+# ----------------------------------------------------------------------
+# the elastic control plane: the goodput ledger in every job; phases
+# 33-34, the AllReduce jobs on ResNet-20 and ResNet-50
+# ----------------------------------------------------------------------
+
+
+def ledger_summary(events: str, what: str, causes=()) -> dict:
+    """The master's goodput ledger of a finished job: its
+    ``goodput_summary`` (ratio, wall, phases) and ``rescale_cost``
+    records.  Fails unless the phases sum to the wall within LEDGER_RTOL,
+    the rescales' causes are ``causes`` and each rescale's detection,
+    rendezvous and redo sum to its total (journal rounding: 1e-6 s each)."""
+    summaries = journal_events(events, "goodput_summary")
+    if len(summaries) != 1:
+        fail(f"{what}: goodput_summary records {summaries}")
+    summary = summaries[0]
+    phases_s = sum(summary["phases"].values())
+    if abs(phases_s - summary["wall_s"]) > LEDGER_RTOL * summary["wall_s"]:
+        fail(f"{what}: the ledger's phases sum to {phases_s!r} s, its wall is "
+             f"{summary['wall_s']!r} s")
+    costs = journal_events(events, "rescale_cost")
+    if [c["cause"] for c in costs] != list(causes):
+        fail(f"{what}: rescale_cost causes {[c['cause'] for c in costs]}, want {list(causes)}")
+    for c in costs:
+        parts = c["detection_s"] + c["rendezvous_s"] + c["redo_s"]
+        if abs(parts - c["total_s"]) > 3e-6:
+            fail(f"{what}: rescale {c} parts sum to {parts!r}")
+    return {"goodput_ratio": summary["goodput_ratio"], "wall_s": summary["wall_s"],
+            "phases_s": summary["phases"], "records_done": summary["records_done"],
+            "records_redone": summary["records_redone"],
+            "rescale_cost": [{k: c[k] for k in ("cause", "old_size", "new_size", "total_s",
+                                                "detection_s", "rendezvous_s", "redo_s",
+                                                "redo_records")} for c in costs]}
+
+
+def journals_schema(directory: str, what: str) -> int:
+    """Every record of every journal in ``directory`` carries the fields
+    the port's schema (``obs.REQUIRED_FIELDS``) requires; the count."""
+    from elasticdl_tpu_torch import obs
+
+    checked = 0
+    for name in sorted(os.listdir(directory)):
+        if not (name.startswith("events") and name.endswith(".jsonl")):
+            continue
+        with open(os.path.join(directory, name)) as f:
+            for record in map(json.loads, filter(str.strip, f)):
+                missing = obs.missing_fields(record)
+                if missing:
+                    fail(f"{what}: {name} record {record} lacks {missing}")
+                checked += 1
+    return checked
+
+
+def allreduce_job_phase(card: str, seed: int, workdir: str, number: int, vision=None,
+                        extra_flags=()):
+    """Phases 33-34 (``ALLREDUCE_JOBS``): the AllReduce job as processes,
+    a world of one on the card, the worker SIGKILLed after a save; see
+    the module docstring."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.checkpoint.saver import CheckpointSaver, read_pickle
+    from elasticdl_tpu_torch.serving import convert
+    from elasticdl_tpu_torch.serving.export import read_variables
+    from elasticdl_tpu_torch.worker.collective_worker import state_digest
+
+    model_def, params, data, n, batch, per_task, ckpt_steps, flags = ALLREDUCE_JOBS[number]
+    what = f"phase {number} ({model_def})"
+    job = os.path.join(workdir, f"allreduce_{number}")
+    ckpt, out = os.path.join(job, "ckpt"), os.path.join(job, "out")
+    os.makedirs(job)
+    master_log = os.path.join(job, "master.log")
+    here = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "elasticdl_tpu_torch.master.main",
+            "--distribution_strategy=AllreduceStrategy", "--num_workers=1",
+            "--model_zoo=model_zoo", f"--model_def={model_def}",
+            *([f"--model_params={params}"] if params else []),
+            f"--training_data={data.format(n=n, seed=seed)}", f"--minibatch_size={batch}",
+            f"--records_per_task={per_task}", f"--checkpoint_dir={ckpt}",
+            f"--checkpoint_steps={ckpt_steps}", "--keep_checkpoint_max=10",
+            f"--output={out}", *flags, *extra_flags]
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    events = os.path.join(ckpt, "events.jsonl")
+    committed = os.path.join(ckpt, f"step_{ckpt_steps:012d}", "state.pkl")
+    t_start = time.time()
+    with open(master_log, "wb") as log_file:
+        proc = subprocess.Popen(argv, cwd=here, env=env, stdout=log_file,
+                                stderr=subprocess.STDOUT)
+    try:
+        wait_until(f"{what}: the step-{ckpt_steps} checkpoint",
+                   lambda: os.path.exists(committed), proc, master_log, 600)
+        t_commit = os.path.getmtime(committed)
+        wait_until(f"{what}: a task in flight after the checkpoint",
+                   lambda: in_flight(events, 0, t_commit), proc, master_log, 600)
+        launch = journal_events(events, "worker_launch")[0]
+        victim = launch["pid"]
+        if launch["worker_id"] != 0 or parent_pid(victim) != proc.pid:
+            fail(f"{what}: worker {launch} is not the master's ({proc.pid}) child")
+        os.kill(victim, signal.SIGKILL)
+        t_kill = time.time()
+        # The saved state's digest, read while the file is certainly there.
+        saved_digest = state_digest(read_pickle(committed))
+        log(f"{what}: SIGKILLed worker 0 (pid {victim}) {t_kill - t_start!r} s after the "
+            f"master started, once step {ckpt_steps} was committed")
+        try:
+            rc = proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            fail(f"{what}: the job did not finish within 600 s of the kill:\n{tail(master_log)}")
+        t_end = time.time()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    logs = os.path.join(ckpt, "elasticdl-job_worker_logs")
+    if rc != 0:
+        fail(f"{what}: the job exited {rc}:\n{tail(master_log)}\n--- worker 1\n"
+             f"{tail(os.path.join(logs, 'worker_1.log'))}")
+
+    def worker_events(wid, event):
+        return journal_events(os.path.join(ckpt, f"events_worker_{wid}.jsonl"), event)
+
+    master = {name: journal_events(events, name) for name in (
+        "task_dispatch", "task_done", "task_requeue", "worker_launch", "worker_churn",
+        "rendezvous", "master_exit", "policy_decision")}
+    churn = master["worker_churn"]
+    if len(churn) != 1 or churn[0]["workers"] != [0] or churn[0]["exit_codes"] != [-9]:
+        fail(f"{what}: worker_churn events {churn}")
+    if [e["workers"] for e in master["rendezvous"]] != [[0], [1]]:
+        fail(f"{what}: rendezvous events {master['rendezvous']}")
+    requeued = [t for e in master["task_requeue"] if e["reason"] == "worker_churn"
+                for t in e["task_ids"]]
+    ranges = {e["task_id"]: (e["start"], e["end"]) for e in master["task_dispatch"]}
+    done = [ranges[e["task_id"]] for e in master["task_done"]]
+    if not requeued or any(ranges[t] not in done for t in requeued):
+        fail(f"{what}: the in-flight task {requeued} was not requeued and done")
+    expected = [(lo, min(lo + per_task, n)) for lo in range(0, n, per_task)]
+    if sorted(set(done)) != expected:
+        fail(f"{what}: record ranges done {sorted(set(done))}, want {expected}")
+    # The restore, bit for bit: the new worker's digest of what landed in
+    # its trainer, the dead worker's at the save, the file's.
+    restores = worker_events(1, "checkpoint_restore")
+    saves0 = {e["step"]: e for e in worker_events(0, "checkpoint_saved")}
+    if [e["step"] for e in restores] != [ckpt_steps] or max(saves0) != ckpt_steps:
+        fail(f"{what}: worker 1 restored {restores}; worker 0 saved {sorted(saves0)}")
+    digests = {"restored": {k: restores[0].get(k) for k in saved_digest},
+               "saved": {k: saves0[ckpt_steps].get(k) for k in saved_digest},
+               "file": saved_digest}
+    if not digests["restored"] == digests["saved"] == digests["file"] or \
+            "model_state_crc32" not in saved_digest:
+        fail(f"{what}: state digests differ (params, SGD trace, batch_stats): {digests}")
+    # The export against the final checkpoint, bit for bit.
+    saver = CheckpointSaver(ckpt)
+    final_state, last_step = saver.load_latest()
+    exported_at = [e["step"] for e in worker_events(1, "model_exported")]
+    if exported_at != [last_step]:
+        fail(f"{what}: exported at {exported_at}, last checkpoint {last_step}")
+    variables = read_variables(os.path.join(out, "variables.pkl"))
+    compared = 0
+    for group, stored in (("params", final_state.params),
+                          ("batch_stats", final_state.model_state["batch_stats"])):
+        got = convert.flatten_variables(variables[group])
+        want = convert.flatten_variables(stored)
+        if sorted(got) != sorted(want):
+            fail(f"{what}: the export's {group} names differ from the checkpoint's")
+        for key, leaf in want.items():
+            a, b = np.asarray(got[key]), np.asarray(leaf)
+            if a.shape != b.shape or a.dtype != b.dtype or not np.array_equal(
+                    a.view(np.uint8), b.view(np.uint8)):
+                fail(f"{what}: the export's {group}/{key} differs from step {last_step}")
+            compared += a.size
+    ledger = ledger_summary(events, what, causes=["worker_churn"])
+    holds = [d for d in master["policy_decision"] if d["action"] == "hold"]
+    if not holds or any(d["action"] != "hold" for d in master["policy_decision"]):
+        fail(f"{what}: policy decisions {master['policy_decision']}")
+    records = journals_schema(ckpt, what)
+    exits = {wid: worker_events(wid, "worker_exit") for wid in (0, 1)}
+    if not exits[1] or exits[1][0]["forbidden_modules"] or exits[1][0]["kernel_launches"]:
+        fail(f"{what}: worker 1 exit {exits[1]}")
+    if master["master_exit"][-1]["forbidden_modules"] or not master["master_exit"][-1][
+            "succeeded"]:
+        fail(f"{what}: master exit {master['master_exit'][-1]}")
+    if worker_events(0, "worker_task_done")[-1]["kernel_launches"]:
+        fail(f"{what}: worker 0 launched {worker_events(0, 'worker_task_done')[-1]}")
+    anatomy = {wid: (worker_events(wid, "step_anatomy") or [None])[-1] for wid in (0, 1)}
+    if anatomy[1] is None or not anatomy[1].get("fractions"):
+        fail(f"{what}: no step anatomy in worker 1's journal")
+    # Steady tasks: not a worker's first, holding no save.
+    steady = []
+    for wid in (0, 1):
+        tasks = worker_events(wid, "worker_task_done")
+        saved_at = [e["ts"] for e in worker_events(wid, "checkpoint_saved")]
+        steady += [e for e in tasks[1:]
+                   if not any(e["ts"] - e["seconds"] <= ts <= e["ts"] for ts in saved_at)]
+    steady_s = sum(e["seconds"] for e in steady)
+    first1 = worker_events(1, "first_step")[0]["ts"]
+    result = {
+        "model_def": model_def, "records": n, "batch": batch, "records_per_task": per_task,
+        "steps": last_step, "killed_after_step": ckpt_steps,
+        "goodput": ledger,
+        "rescale_host_s": {"detected": churn[0]["ts"] - t_kill,
+                           "relaunched": master["worker_launch"][1]["ts"] - t_kill,
+                           "restored": restores[0]["ts"] - t_kill,
+                           "restore_itself": restores[0]["seconds"],
+                           "first_step_after": first1 - t_kill},
+        "anatomy": {wid: None if a is None else {k: a.get(k) for k in (
+            "fractions", "dominant_phase", "bound", "mfu", "totals", "steps", "examples",
+            "overlap_s", "mem_hwm_mb", "compiles")} for wid, a in anatomy.items()},
+        "steady_tasks": len(steady),
+        "steady_images_per_s": sum(e["records"] for e in steady) / steady_s if steady else None,
+        "steady_data_wait_share": (sum(e["data_wait_s"] for e in steady) / steady_s
+                                   if steady else None),
+        "phase28_step_ms": None if vision is None else vision.get("step_ms_median"),
+        "digests": digests["file"], "export_elements_bit_exact": compared,
+        "policy_holds": len(holds), "journal_records_checked": records,
+        "wall_s": t_end - t_start, "card": card,
+    }
+    cost = ledger["rescale_cost"][0]
+    a1 = result["anatomy"][1]
+    log(f"{what}: goodput_ratio {ledger['goodput_ratio']!r} over {ledger['wall_s']!r} s "
+        f"(phases {ledger['phases_s']}); rescale (ledger) detection {cost['detection_s']!r} s, "
+        f"rendezvous {cost['rendezvous_s']!r} s, redo {cost['redo_s']!r} s of "
+        f"{cost['redo_records']} records, total {cost['total_s']!r} s; host clock "
+        f"{result['rescale_host_s']} s; step anatomy (worker 1) {a1['fractions']}, bound "
+        f"{a1['bound']!r}, mfu {a1['mfu']!r}, overlap {a1['overlap_s']!r} s; steady "
+        f"{result['steady_images_per_s']!r} images/s over {len(steady)} tasks (data-wait share "
+        f"{result['steady_data_wait_share']!r}; phase 28's step {result['phase28_step_ms']!r} "
+        f"ms); restore bit-exact {digests['file']}; export bit-exact with step {last_step} "
+        f"({compared} elements); {len(holds)} policy holds; wall {result['wall_s']!r} s [{card}]")
+    shutil.rmtree(job, ignore_errors=True)
+    return result
+
+
 def ring_entries(ring_kernels, ring_whole, cp, card, resources=None):
     """The K7-K9 entries of the kernels line: timed at RING_BENCH (phase
     13), launched on the CP LM path (phase 15, both layouts)."""
@@ -5854,6 +6149,16 @@ def main() -> None:
                 fleet = census_fleet_phase(card, args.seed, workdir, census)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
+    allreduce = {}
+    if run(33, 34):
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            for number in (33, 34):
+                if run(number):
+                    allreduce[number] = allreduce_job_phase(card, args.seed, workdir, number,
+                                                            vision)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
     attention, edges = attention_phase(card, args.seed) if run(10) else (None, None)
     lm = lm_training_phases(card, args.seed) if run(11, 12) else None
     lm_ckpt = lm_checkpoint_phase(card, args.seed) if run(23) else None
@@ -5871,7 +6176,7 @@ def main() -> None:
                         "replica_process": process, "elastic_job": elastic,
                         "etrf_job": etrf, "vision_training": vision, "local_job": local,
                         "ctr_zoo": zoo, "census_job": census, "census_fleet": fleet,
-                        "card": card}))
+                        "allreduce_jobs": allreduce, "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -5884,7 +6189,7 @@ def main() -> None:
                     "continuous_loop": continuous, "replica_process": process,
                     "elastic_job": elastic, "etrf_job": etrf, "vision_training": vision,
                     "local_job": local, "ctr_zoo": zoo, "census_job": census,
-                    "census_fleet": fleet, "card": card}))
+                    "census_fleet": fleet, "allreduce_jobs": allreduce, "card": card}))
 
     by_path = {
         "fused_lookup_fm": {"serve_merged": launches["fused_lookup_fm"],

@@ -8,10 +8,11 @@ card, unless ``cpu`` is given, as ``serving/replica_main.py`` has it).
 
 A flag whose non-default value selects a part the port leaves out raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item (``check_ported``,
-run by both ``parse_*_args``).  Flags of planes that are on by default in
-the JAX package (``--policy_enabled``, ``--slo_enabled`` and the policy's
-numbers) and ``--jax_compilation_cache_dir`` are accepted and select
-nothing.  ``--sparse_kernel`` selects nothing either: on the card every
+run by both ``parse_*_args``).  ``--policy_enabled`` and the
+``--policy_*`` numbers select the goodput-driven policy engine
+(``master/policy.py``, ``PolicyConfig.from_args``).  ``--slo_enabled``,
+on by default in the JAX package, and ``--jax_compilation_cache_dir``
+are accepted and select nothing.  ``--sparse_kernel`` selects nothing either: on the card every
 sparse op is its hand-written kernel.
 """
 
@@ -27,8 +28,8 @@ logger = get_logger("common.args")
 #: Where each part this module refuses is queued.
 K8S_ITEM = ("ROADMAP.md Queue 1 item 6, what the job slice leaves: the Kubernetes "
             "pod manager (k8s_pod_manager.py, k8s_client.py, tpu_slice.py)")
-OBS_ITEM = ("ROADMAP.md Queue 1 item 8: telemetry, goodput, tracing, stepstats, "
-            "the profiler, the TensorBoard service and the SLO plane")
+OBS_ITEM = ("ROADMAP.md Queue 1 item 8: tracing, the profiler, the TensorBoard "
+            "service and the SLO plane")
 #: The ``zoo`` subcommand of the client CLI (``client/zoo.py``).
 ZOO_ITEM = ("ROADMAP.md Queue 1 item 7, what the vision slice leaves: the model-zoo "
             "CLI (client/zoo.py, zoo init|build|push)")

@@ -1,18 +1,26 @@
 """Cluster-mode job orchestration on one host: the port's copy of
-``elasticdl_tpu/master/job_runner.py`` (``_build_worker_manager`` :171,
-local processes only; ``_ensure_elastic_checkpointing`` :241;
-``run_allreduce_job`` :283; ``run_ps_job`` :371).  An evaluation-only
-job queues its round at version 0 before the workers start; at the
-end the evaluation service computes any round still open and the final
-metrics are logged.
+``elasticdl_tpu/master/job_runner.py`` (``_capacity_oracle_from_env``
+:29, ``_build_policy_engine`` :86, ``_GatedScaleUp`` :136,
+``_build_worker_manager`` :171, local processes only;
+``_ensure_elastic_checkpointing`` :241; ``run_allreduce_job`` :283;
+``run_ps_job`` :371).  An evaluation-only job queues its round at
+version 0 before the workers start; at the end the evaluation service
+computes any round still open and the final metrics are logged.
 
 The master starts its services and a ``LocalProcessManager``, then
 supervises the worker fleet until the job completes.  Extra worker
-environment rides ``ELASTICDL_WORKER_ENV`` (``K=V;K2=V2``).  The policy
-engine and the SLO plane (``--policy_enabled``, ``--slo_enabled``, on by
-default in the JAX package) are accepted and select nothing, and so does
-the regrow of a shrunk world (``ELASTICDL_CAPACITY_FILE``) (ROADMAP.md
-Queue 1 items 6 and 8).
+environment rides ``ELASTICDL_WORKER_ENV`` (``K=V;K2=V2``).
+
+The elastic control plane: with ``--need_elasticity`` and
+``--policy_enabled`` (both on by default) the goodput-driven policy
+engine (``master/policy.py``) ticks beside the manager.  It reads the
+goodput ledger and the telemetry aggregator's stragglers, gates every
+regrow of a shrunk world, parks a thrashing fleet at its floor, and
+evicts persistent stragglers within its kill budget.  Capacity for a
+regrow is the integer in the file ``ELASTICDL_CAPACITY_FILE`` names (no
+file: no regrow).  Straggler advisories also reach the manager and the
+ledger.  The SLO plane (``--slo_enabled``) is accepted and selects
+nothing (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -27,11 +35,70 @@ from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.master.main import start_master
 from elasticdl_tpu_torch.master.pod_manager import LocalProcessManager, worker_argv_from_args
 from elasticdl_tpu_torch.master.rendezvous_server import ElasticRendezvous
+from elasticdl_tpu_torch.obs import goodput
 
 logger = get_logger("master.job_runner")
 
 
-def _build_worker_manager(args, master, rendezvous, worker_env) -> LocalProcessManager:
+def _capacity_oracle_from_env():
+    """The regrow signal on one host: the file ``$ELASTICDL_CAPACITY_FILE``
+    holds the count of free worker slots.  No variable: no regrow."""
+    path = os.environ.get("ELASTICDL_CAPACITY_FILE", "")
+    if not path:
+        return None
+
+    def check(needed: int) -> int:
+        try:
+            with open(path) as f:
+                slots = int(f.read().strip() or 0)
+        except (OSError, ValueError):
+            return 0
+        return max(0, min(needed, slots))
+
+    return check
+
+
+def _build_policy_engine(args, master):
+    """The policy engine, when elasticity is on and ``--policy_enabled``;
+    it polls the telemetry aggregator's flagged set each tick."""
+    if not (args.need_elasticity and getattr(args, "policy_enabled", True)):
+        return None
+    from elasticdl_tpu_torch.master.policy import ElasticPolicyEngine, PolicyConfig
+
+    return ElasticPolicyEngine(
+        PolicyConfig.from_args(args),
+        stragglers_fn=master.telemetry.stragglers if master.telemetry is not None else None)
+
+
+class _GatedScaleUp:
+    """The policy first (amortization, cooldown, thrash: every denial
+    journals a ``policy_decision``), then the capacity oracle."""
+
+    def __init__(self, check_fn, policy_engine):
+        self._check_fn = check_fn
+        self._policy_engine = policy_engine
+
+    def __call__(self, needed: int) -> int:
+        return self._policy_engine.gate_scale_up(needed, self._check_fn)
+
+    def failed(self):
+        self._policy_engine.scale_up_aborted()
+        if hasattr(self._check_fn, "failed"):
+            self._check_fn.failed()
+
+    def succeeded(self):
+        if hasattr(self._check_fn, "succeeded"):
+            self._check_fn.succeeded()
+
+
+def _gated_scale_up(check_fn, policy_engine):
+    if check_fn is None or policy_engine is None:
+        return check_fn
+    return _GatedScaleUp(check_fn, policy_engine)
+
+
+def _build_worker_manager(args, master, rendezvous, worker_env,
+                          policy_engine=None) -> LocalProcessManager:
     return LocalProcessManager(
         num_workers=args.num_workers,
         worker_argv_fn=worker_argv_from_args(args, master.addr),
@@ -43,6 +110,8 @@ def _build_worker_manager(args, master, rendezvous, worker_env) -> LocalProcessM
         max_restarts=args.max_worker_restarts,
         job_finished_fn=master.task_manager.finished,
         liveness_timeout_s=args.worker_liveness_timeout_s,
+        scale_up_check_fn=_gated_scale_up(
+            _capacity_oracle_from_env() if args.need_elasticity else None, policy_engine),
     )
 
 
@@ -79,12 +148,25 @@ def run_allreduce_job(args, mode: str = Mode.TRAINING) -> int:
         if "=" in pair:
             key, value = pair.split("=", 1)
             worker_env[key.strip()] = value
-    manager = _build_worker_manager(args, master, rendezvous, worker_env)
+    policy_engine = _build_policy_engine(args, master)
+    manager = _build_worker_manager(args, master, rendezvous, worker_env,
+                                    policy_engine=policy_engine)
     master.pod_manager = manager
+    if policy_engine is not None:
+        policy_engine.bind(manager)
+    if master.telemetry is not None:
+        # Advisories to the manager and the ledger (training while a
+        # worker is flagged is degraded_straggler); the policy engine
+        # polls the same detector each tick instead.
+        master.telemetry.add_straggler_callback(manager.note_straggler)
+        master.telemetry.add_straggler_callback(
+            lambda wid, flagged, _evidence: goodput.ledger().on_straggler(wid, flagged))
     progress_persister = master.progress_persister
     job_succeeded = False
     try:
         manager.start()
+        if policy_engine is not None:
+            policy_engine.start()
         ok = manager.wait()
         if master.evaluation_service is not None:
             master.evaluation_service.finalize()
@@ -103,6 +185,8 @@ def run_allreduce_job(args, mode: str = Mode.TRAINING) -> int:
         job_succeeded = True
         return 0
     finally:
+        if policy_engine is not None:
+            policy_engine.stop()
         manager.stop()
         master.stop()
         obs.journal().record("master_exit", succeeded=job_succeeded,

@@ -19,7 +19,11 @@ every ``--evaluation_steps`` model versions (at each epoch's end when 0)
 and once the training tasks are done; ``--job_type`` ``evaluation_only``
 runs one round at version 0 over the workers' restored model, and
 ``prediction_only`` the ``--prediction_data`` tasks.  The journal is
-``<checkpoint_dir>/events.jsonl``.  The job trains on the card unless
+``<checkpoint_dir>/events.jsonl``; a master that finds one there seeds
+its goodput ledger from it (``obs/goodput.py``), so the goodput ratio
+keeps the job's lifetime across master restarts.  Telemetry on the
+workers' heartbeats lands in a ``TelemetryAggregator`` scoped to the
+current world (``obs/telemetry.py``).  The job trains on the card unless
 ``--device cpu`` is given, and the master refuses to start when there is
 no card.  With ``--distribution_strategy=Local`` (the default) it starts
 a bare master and serves until it is terminated, for a worker started by
@@ -46,6 +50,8 @@ from elasticdl_tpu_torch.data.reader import build_data_reader
 from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
 from elasticdl_tpu_torch.master.servicer import MasterServicer, start_master_server
 from elasticdl_tpu_torch.master.task_manager import TaskManager, TaskProgressPersister
+from elasticdl_tpu_torch.obs import goodput
+from elasticdl_tpu_torch.obs.telemetry import TelemetryAggregator
 
 logger = get_logger("master.main")
 
@@ -63,6 +69,7 @@ class Master:
     data_reader: object = None
     progress_persister: object = None
     metrics_exporter: object = None
+    telemetry: object = None
 
     @property
     def addr(self) -> str:
@@ -88,7 +95,14 @@ class Master:
 
 def build_master(args, model_spec=None, rendezvous_server=None) -> Master:
     if getattr(args, "checkpoint_dir", ""):
-        logger.info("Event journal -> %s", obs.init_journal(args.checkpoint_dir))
+        from elasticdl_tpu_torch.obs.journal import DEFAULT_FILENAME
+
+        resumed = os.path.exists(os.path.join(args.checkpoint_dir, DEFAULT_FILENAME))
+        journal_path = obs.init_journal(args.checkpoint_dir)
+        logger.info("Event journal -> %s", journal_path)
+        if resumed:
+            # A predecessor's timeline: the ratio keeps job-lifetime meaning.
+            goodput.ledger().seed_from_journal(journal_path)
     model_spec = model_spec or load_model_spec(args)
 
     training_reader = None
@@ -139,8 +153,13 @@ def build_master(args, model_spec=None, rendezvous_server=None) -> Master:
         evaluation_service = EvaluationService(task_manager,
                                                eval_metrics_fn=model_spec.eval_metrics_fn,
                                                evaluation_steps=args.evaluation_steps)
+    # Scoped to the current world: reports from a torn-down world neither
+    # skew the aggregates nor read as stale forever.
+    telemetry = TelemetryAggregator(
+        current_workers_fn=((lambda: [wid for wid, _h in rendezvous_server.world()])
+                            if rendezvous_server is not None else None))
     servicer = MasterServicer(task_manager=task_manager, evaluation_service=evaluation_service,
-                              rendezvous_server=rendezvous_server)
+                              rendezvous_server=rendezvous_server, telemetry=telemetry)
     if evaluation_service is not None and training_shards:
         # A final round when the training tasks are done; at each epoch's
         # end too when no step interval is set.
@@ -158,7 +177,7 @@ def build_master(args, model_spec=None, rendezvous_server=None) -> Master:
     return Master(args=args, model_spec=model_spec, task_manager=task_manager,
                   evaluation_service=evaluation_service, servicer=servicer,
                   rendezvous_server=rendezvous_server, data_reader=training_reader,
-                  progress_persister=progress_persister)
+                  progress_persister=progress_persister, telemetry=telemetry)
 
 
 def start_master(args, model_spec=None, rendezvous_server=None) -> Master:
@@ -176,6 +195,8 @@ def start_master(args, model_spec=None, rendezvous_server=None) -> Master:
     obs.journal().record(
         "master_start", job_name=args.job_name, port=master.port, pid=os.getpid(),
         metrics_port=master.metrics_exporter.port if master.metrics_exporter else None)
+    # Phase accounting starts idle, until a dispatch or a world opens one.
+    goodput.ledger().transition("idle", cause="master_start")
     return master
 
 

@@ -10,19 +10,25 @@ launches fresh worker processes, which restore the latest checkpoint.
 Data progress lives in the master's ``TaskManager``, which survives.  A
 worker whose heartbeat goes silent is killed, which turns a hang into
 the same churn.  ``current_worker_ids`` and ``kill_worker`` are the
-surface a supervisor or a drill drives; the churn handler is a locked
-check (stopped, or the world already replaced: return) around
-``_handle_churn_serialized``, which a subclass overrides
-(``serving/supervisor.py`` replaces only the dead replicas).  Explicit
-resizes (``scale``), the regrow of a shrunk world toward its target,
-the straggler advisories and the policy engine that drives them wait
-for ROADMAP.md Queue 1 item 6.
+surface a supervisor, a drill or the policy engine drives; the churn
+handler is a locked check (stopped, or the world already replaced:
+return) around ``_handle_churn_serialized``, which a subclass overrides
+(``serving/supervisor.py`` replaces only the dead replicas).
+
+Elastic resizes: ``scale(n)`` drains the world and re-forms it at ``n``;
+a world that shrank under churn grows back toward
+``target_num_workers`` when ``scale_up_check_fn(needed)`` grants workers
+(the job runner chains the capacity oracle behind the policy engine's
+gate, ``master/policy.py``).  The telemetry plane's straggler
+advisories land in ``note_straggler`` (advisory: the policy engine is
+what evicts).  Every churn, resize and the job's end drive the goodput
+ledger (``obs/goodput.py``), which prices each rescale as detection,
+rendezvous and redo.
 
 ``LocalProcessManager`` runs the workers as child processes of the
 master (``python -m elasticdl_tpu_torch.worker.main``), each logging to
 ``<log_dir>/worker_<id>.log``.  The Kubernetes substrate is not ported
-(ROADMAP.md Queue 1 item 6); the goodput ledger's rescale accounting
-waits for item 8.
+(ROADMAP.md Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import Callable, Dict, List, Optional
 
 from elasticdl_tpu_torch import obs
 from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.obs import goodput
 
 logger = get_logger("master.pod_manager")
 
@@ -69,6 +76,8 @@ class ElasticWorkerManager:
         poll_interval_s: float = 0.2,
         liveness_timeout_s: float = 0.0,
         startup_grace_s: Optional[float] = None,
+        target_num_workers: Optional[int] = None,
+        scale_up_check_fn: Optional[Callable[[int], int]] = None,
     ):
         self._num_workers = num_workers
         self._worker_argv_fn = worker_argv_fn
@@ -82,6 +91,11 @@ class ElasticWorkerManager:
         # barrier: a never-heartbeated worker gets a longer grace.
         self._startup_grace_s = (startup_grace_s if startup_grace_s is not None
                                  else 4 * liveness_timeout_s)
+        # A world that shrank under churn grows back toward the target
+        # when scale_up_check_fn grants capacity.
+        self._target_num_workers = (target_num_workers if target_num_workers is not None
+                                    else num_workers)
+        self._scale_up_check_fn = scale_up_check_fn
         self._lock = threading.Lock()
         # Serialises the paths that replace the world (the churn repair
         # releases _lock mid-flight); always taken before _lock.
@@ -98,6 +112,14 @@ class ElasticWorkerManager:
             "Worker relaunches within world re-formations, by cause", labelnames=("reason",))
         self._m_hung_kills = obs.counter("elasticdl_hung_worker_kills_total",
                                          "Workers killed for silent heartbeats (hang -> churn)")
+        self._m_straggler_advisories = obs.counter(
+            "elasticdl_straggler_advisories_total",
+            "Straggler advisories received from the telemetry plane")
+        # Workers the telemetry plane flags as stragglers: advisory state.
+        self._straggler_ids: set = set()
+        obs.gauge("elasticdl_workers_target",
+                  "Worker count the elastic manager is trying to reach").set_function(
+            lambda: self._target_num_workers)
         obs.gauge("elasticdl_workers_actual", "Workers currently launched").set_function(
             lambda: len(self._handles))
 
@@ -161,6 +183,67 @@ class ElasticWorkerManager:
             raise ValueError(f"No live worker {worker_id}")
         self._substrate_kill(target, sig)  # outside the lock: a substrate may block
 
+    def note_straggler(self, worker_id: int, flagged: bool, evidence=None):
+        """The telemetry plane's straggler advisory.  It does not kill: a
+        straggler makes progress, and killing it restarts the world and
+        replays its work.  A hang still becomes churn through the
+        liveness timeout, and the policy engine evicts PERSISTENT
+        stragglers under its own hysteresis and kill budget."""
+        with self._lock:
+            if flagged:
+                self._straggler_ids.add(worker_id)
+            else:
+                self._straggler_ids.discard(worker_id)
+        if flagged:
+            self._m_straggler_advisories.inc()
+            logger.warning("Telemetry advisory: worker %d is straggling (%s); not killing it",
+                           worker_id, evidence or {})
+        else:
+            logger.info("Telemetry advisory: worker %d straggler cleared", worker_id)
+
+    def current_straggler_ids(self) -> List[int]:
+        with self._lock:
+            return sorted(self._straggler_ids)
+
+    def set_target_num_workers(self, num_workers: int):
+        """The size the manager grows toward, without a rescale now: the
+        monitor's ``_maybe_scale_up`` grows as ``scale_up_check_fn``
+        allows (the policy engine restores a parked fleet this way)."""
+        with self._lock:
+            self._target_num_workers = max(1, int(num_workers))
+
+    def target_num_workers(self) -> int:
+        with self._lock:
+            return self._target_num_workers
+
+    def scale(self, num_workers: int):
+        """Explicit resize: recover the in-flight tasks, tear the world
+        down, relaunch it at ``num_workers`` (the target follows, so a
+        shrink is not regrown at once)."""
+        if num_workers < 1:
+            raise ValueError(f"scale() needs >= 1 worker, got {num_workers}")
+        with self._resize_lock:
+            with self._lock:
+                if self._stopped:
+                    return
+                handles = list(self._handles)
+                self._handles = []
+            direction = ("up" if num_workers > len(handles)
+                         else "down" if num_workers < len(handles) else "flat")
+            logger.info("Scaling world %d -> %d workers (%s)", len(handles), num_workers,
+                        direction)
+            goodput.ledger().on_rescale_detected("scale", len(handles))
+            self._recover_world_tasks(handles)
+            self._substrate_terminate(handles)
+            goodput.ledger().on_drain_complete(num_workers)
+            with self._lock:
+                self._num_workers = num_workers
+                self._target_num_workers = num_workers
+            self._m_relaunches.inc(num_workers, reason="scale")
+            obs.journal().record("scale", old_size=len(handles), new_size=num_workers,
+                                 direction=direction)
+            self._launch_world(num_workers)
+
     def stop(self):
         with self._lock:
             self._stopped = True
@@ -179,6 +262,8 @@ class ElasticWorkerManager:
                 return
             worker_ids = list(range(self._next_worker_id, self._next_worker_id + n))
             self._next_worker_id += n
+            # Advisories die with their world: ids are never reused.
+            self._straggler_ids.intersection_update(worker_ids)
         if self._rendezvous is not None:
             self._rendezvous.set_worker_hosts([(wid, self._worker_host(wid))
                                                for wid in worker_ids])
@@ -209,6 +294,7 @@ class ElasticWorkerManager:
                 self._stopped = True
                 handles = list(self._handles)
             obs.journal().record("job_failed", reason=self._failed_reason)
+            goodput.ledger().finish("job_failed")
             self._substrate_terminate(handles)
             self._done_event.set()
 
@@ -223,6 +309,7 @@ class ElasticWorkerManager:
             polled = [(h, self._substrate_poll(h)) for h in handles]
             exited = [(h, code) for h, code in polled if code is not None]
             if not exited:
+                self._maybe_scale_up(handles)
                 continue
             crashed = [(h, code) for h, code in exited if code != 0]
             if crashed and not self._job_finished():
@@ -234,6 +321,7 @@ class ElasticWorkerManager:
             if all(code is not None for _, code in polled):
                 logger.info("All workers exited; job done")
                 obs.journal().record("job_complete", restarts_used=self.restarts_used)
+                goodput.ledger().finish("job_complete", restarts_used=self.restarts_used)
                 self._done_event.set()
                 return
 
@@ -252,6 +340,38 @@ class ElasticWorkerManager:
                 obs.journal().record("hung_worker_kill", worker_id=h.worker_id,
                                      silent_s=self._liveness_timeout_s)
                 self._substrate_kill(h, 9)
+
+    def _maybe_scale_up(self, handles: List) -> bool:
+        """Regrow a world that shrank under churn once capacity returns:
+        restart-the-world at the larger size (the new workers restore the
+        latest checkpoint, the task manager replays what was in flight)."""
+        current = len(handles)
+        if current >= self._target_num_workers or self._scale_up_check_fn is None:
+            return False
+        if self._job_finished():
+            return False
+        with self._resize_lock:
+            with self._lock:
+                if self._stopped or self._handles != handles:
+                    return False  # replaced since the poll; the next tick re-judges
+            grant = self._scale_up_check_fn(self._target_num_workers - current)
+            if grant <= 0:
+                return False
+            new_size = min(self._target_num_workers, current + grant)
+            logger.info("Capacity returned: growing world %d -> %d workers", current, new_size)
+            with self._lock:
+                if self._stopped:
+                    return True
+                self._handles = []
+                self._num_workers = new_size
+            self._m_relaunches.inc(new_size, reason="scale_up")
+            obs.journal().record("scale_up", old_size=current, new_size=new_size)
+            goodput.ledger().on_rescale_detected("scale_up", current)
+            self._recover_world_tasks(handles)
+            self._substrate_terminate(handles)
+            goodput.ledger().on_drain_complete(new_size)
+            self._launch_world(new_size)
+            return True
 
     def _handle_churn(self, handles: List, crashed):
         """One churn event, unless the fleet was stopped or the world was
@@ -277,9 +397,13 @@ class ElasticWorkerManager:
             "worker_churn", workers=[h.worker_id for h, _ in crashed],
             exit_codes=[code for _, code in crashed], old_size=old_size,
             restarts_used=self._restarts_used, budget_left=budget_left)
+        # The rescale's clock starts at detection; the churn requeues
+        # below land inside its record (TaskManager.recover_tasks).
+        goodput.ledger().on_rescale_detected("worker_churn", old_size)
         self._recover_world_tasks(handles)
         self._substrate_terminate(handles)  # survivors die with the world
         new_size = old_size if budget_left else old_size - 1
+        goodput.ledger().on_drain_complete(max(0, new_size))
         if new_size < 1:
             with self._lock:
                 self._failed_reason = reason = (
@@ -288,6 +412,7 @@ class ElasticWorkerManager:
                 self._stopped = True
             logger.error("Job failed: %s", reason)
             obs.journal().record("job_failed", reason=reason)
+            goodput.ledger().finish("job_failed")
             self._done_event.set()
             return
         logger.info("Re-forming world: %d -> %d workers (restart %d/%d)", old_size,

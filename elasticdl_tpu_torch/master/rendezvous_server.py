@@ -13,7 +13,9 @@ address, on a port derived from the rendezvous id.
 
 Heartbeats (``report_liveness``) feed ``stale_workers``, which the pod
 manager reads to kill a hung worker; a worker that never beat is judged
-against the startup grace from the world's declaration.
+against the startup grace from the world's declaration.  A declaration
+and the moment the last rank takes its rank drive the goodput ledger's
+rendezvous phase and its rescale cost (``obs/goodput.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 from elasticdl_tpu_torch import obs
 from elasticdl_tpu_torch.common import messages as msg
 from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.obs import goodput
 
 logger = get_logger("master.rendezvous")
 
@@ -97,6 +100,8 @@ class ElasticRendezvous:
                                  coordinator=self._coordinator_addr)
             logger.info("Rendezvous %d: world_size=%d coordinator=%s workers=%s",
                         rendezvous_id, len(workers), self._coordinator_addr, worker_ids)
+        # Outside the lock: the ledger journals.
+        goodput.ledger().on_world_declared(rendezvous_id, len(worker_ids))
         return rendezvous_id
 
     @property
@@ -148,6 +153,7 @@ class ElasticRendezvous:
     def get_comm_rank(self, worker_id: int, host: str = "") -> msg.GetCommRankResponse:
         """``host`` is the worker's advertised address; it rides the rank
         poll, never the heartbeat, so polling is not a heartbeat."""
+        formed_id = None
         with self._lock:
             self._record_host_locked(worker_id, host)
             self._resolve_coordinator_locked()
@@ -157,14 +163,19 @@ class ElasticRendezvous:
                 self._ranks_polled.add(worker_id)
                 if self._ranks_polled >= set(ids):
                     self._formation_observed = True
+                    formed_id = self._rendezvous_id
                     self._m_formation.observe(time.monotonic() - self._world_declared_monotonic)
-            return msg.GetCommRankResponse(
+            response = msg.GetCommRankResponse(
                 rank_id=rank,
                 world_size=len(self._workers),
                 rendezvous_id=self._rendezvous_id,
                 coordinator_addr=self._coordinator_addr,
                 worker_hosts=[h for _, h in self._workers],
             )
+        if formed_id is not None:
+            # Every member has its rank: the rescale's rendezvous part ends.
+            goodput.ledger().on_world_formed(formed_id)
+        return response
 
     def report_liveness(self, worker_id: int, host: str, rendezvous_id: int) -> bool:
         """A heartbeat; True when the worker's world is stale."""

@@ -10,7 +10,8 @@ folds the workers' model versions with max and lets the
 ``EvaluationService`` queue a round that is due;
 ``report_evaluation_metrics`` hands a chunk of evaluation outputs to it
 (a job without one drops them); ``get_shard_checkpoint`` returns the
-task-progress JSON.
+task-progress JSON.  A heartbeat's ``telemetry_json`` goes to the
+``TelemetryAggregator`` (``obs/telemetry.py``), which never raises.
 """
 
 from __future__ import annotations
@@ -23,8 +24,10 @@ logger = get_logger("master.servicer")
 
 
 class MasterServicer:
-    def __init__(self, task_manager, rendezvous_server=None, evaluation_service=None):
+    def __init__(self, task_manager, rendezvous_server=None, evaluation_service=None,
+                 telemetry=None):
         self._task_manager = task_manager
+        self._telemetry = telemetry
         self._evaluation_service = evaluation_service
         self._rendezvous_server = rendezvous_server
         self._model_version = 0
@@ -80,6 +83,8 @@ class MasterServicer:
         if self._rendezvous_server is not None:
             should_reset = self._rendezvous_server.report_liveness(
                 request.worker_id, request.host, request.rendezvous_id)
+        if self._telemetry is not None and request.telemetry_json:
+            self._telemetry.ingest(request.worker_id, request.telemetry_json)
         return msg.ReportWorkerLivenessResponse(should_reset=should_reset)
 
     def get_shard_checkpoint(self, request) -> msg.ShardCheckpointResponse:

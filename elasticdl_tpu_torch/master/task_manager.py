@@ -19,8 +19,11 @@ completed evaluation task and each finished epoch through callbacks.
 Journal events (``task_dispatch``, ``task_done``, ``task_requeue``,
 ``task_failed_permanently``, ``train_epoch_done``,
 ``task_progress_resume``) and metrics go through the port's ``obs``.
-Not ported: the streaming dispatcher's hooks (``master/stream.py``), the
-tracing plane's spans and the goodput ledger (ROADMAP.md Queue 1 item 8).
+Dispatches, completions and requeues (failure, churn, timeout) drive the
+goodput ledger (``obs/goodput.py``): what work is in flight and what is
+redone.  Not ported: the streaming dispatcher's hooks
+(``master/stream.py``) and the tracing plane's spans (ROADMAP.md Queue 1
+items 6 and 8).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from elasticdl_tpu_torch import obs
 from elasticdl_tpu_torch.common import messages as msg
 from elasticdl_tpu_torch.common.constants import TaskExecCounterKey
 from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.obs import goodput
 
 logger = get_logger("master.task_manager")
 
@@ -266,6 +270,13 @@ class TaskManager:
             # Journal writes outside the dispatch lock.
             for event in journal_events:
                 obs.journal().record(**event)
+            # The ledger too (it journals): a dispatch opens the work
+            # phase; a timeout requeue adds to the redo debt.
+            for event in journal_events:
+                if event["event"] == "task_requeue":
+                    goodput.ledger().note_requeue(event.get("records", 0), event["reason"])
+                elif event["event"] == "task_dispatch":
+                    goodput.ledger().note_dispatch()
             if finished_epoch is not None:
                 obs.journal().record("train_epoch_done", epoch=finished_epoch,
                                      next_epoch=finished_epoch + 1)
@@ -356,6 +367,15 @@ class TaskManager:
                     callbacks_to_run = list(self._tasks_done_callbacks)
         for event in journal_events:
             obs.journal().record(**event)
+        # Completed training records repay any redo debt; a failure's
+        # requeue adds to it.
+        training = task.type == msg.TRAINING
+        task_records = task.end - task.start
+        if success:
+            goodput.ledger().note_task_done(records=task_records if training else 0,
+                                            training=training)
+        elif any(e["event"] == "task_requeue" for e in journal_events):
+            goodput.ledger().note_requeue(task_records if training else 0, "failure")
         # Outside the lock; the round sees its task done before any
         # tasks-done callback queues the next round.
         for callback in eval_done_callbacks:
@@ -386,18 +406,21 @@ class TaskManager:
             recovered = [tid for tid, (owner, _t, _s, _tr) in self._doing.items()
                          if owner == worker_id]
             trace_ids = []
+            churn_records = 0
             for tid in recovered:
                 _owner, task, _start, trace_id = self._doing.pop(tid)
                 trace_ids.append(trace_id)
                 self._todo.appendleft(task)
                 if task.type == msg.TRAINING:
                     self._recovered_record_count += task.end - task.start
+                    churn_records += task.end - task.start
             if recovered:
                 self._metrics.requeues.inc(len(recovered), reason="worker_churn")
                 logger.info("Recovered %d tasks from worker %d", len(recovered), worker_id)
         if recovered:
             obs.journal().record("task_requeue", reason="worker_churn", worker_id=worker_id,
                                  task_ids=recovered, trace_ids=trace_ids)
+            goodput.ledger().note_requeue(churn_records, "worker_churn", tasks=len(recovered))
         return len(recovered)
 
     def _recover_timed_out_locked(self) -> List[dict]:

@@ -18,9 +18,11 @@ unbounded identifiers (replica ids, paths) ride the journal.
 events go (the JAX package's ``scripts/validate_journal.py`` holds the
 whole of it); ``missing_fields`` checks one record against it.
 
-Not ported yet (ROADMAP.md Queue 1 item 8): the tracing plane (span and
-trace ids, exemplars), the SLO plane, goodput, step anatomy, telemetry
-over the master's heartbeat.
+The planes beside this module: the goodput ledger (``obs/goodput.py``),
+the step anatomy (``obs/stepstats.py``) and the worker telemetry over the
+master's heartbeat (``obs/telemetry.py``).  Not ported yet (ROADMAP.md
+Queue 1 item 8): the tracing plane (span and trace ids, exemplars), the
+SLO plane, the offline report.
 """
 
 from __future__ import annotations
@@ -57,6 +59,19 @@ REQUIRED_FIELDS = {
     "serving_replica_start": ("replica_id", "port"),
     "freshness_slo": ("state", "lag_s", "slo_s"),
     "quality_gate": ("outcome", "step", "origin"),
+    # The elastic control plane: telemetry, stragglers, the goodput
+    # ledger, the policy engine, the step anatomy, explicit resizes.
+    "worker_telemetry": ("worker_id",),
+    "straggler_detected": ("worker_id", "metric"),
+    "straggler_cleared": ("worker_id",),
+    "phase_transition": ("from", "to", "seconds"),
+    "rescale_cost": ("cause", "total_s", "detection_s", "rendezvous_s", "redo_s"),
+    "goodput_summary": ("goodput_ratio", "wall_s", "phases"),
+    "policy_decision": ("action", "reason"),
+    "step_anatomy": ("worker_id",),
+    "scale": ("old_size", "new_size"),
+    "scale_up": ("old_size", "new_size"),
+    "clock_probe": ("worker_id", "probe_ts", "t_send", "t_recv"),
 }
 
 _registry = MetricsRegistry()

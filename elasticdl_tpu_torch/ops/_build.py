@@ -180,9 +180,22 @@ def build() -> Path:
             fcntl.flock(lock, fcntl.LOCK_UN)
 
 
+#: Times this process built or loaded the library (``library`` runs once).
+_LOADS = 0
+
+
+def build_counts() -> dict:
+    """``{"kernel_library": n}``: the count the trainers expose as
+    ``kernel_builds``, which the step anatomy watches (a dispatch during
+    which it rose books ``compile``, ``obs/stepstats.BuildWatcher``)."""
+    return {"kernel_library": _LOADS}
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call in the process)."""
+    global _LOADS
+    _LOADS += 1
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

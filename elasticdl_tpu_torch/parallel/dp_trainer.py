@@ -67,6 +67,7 @@ import torch
 import torch.distributed as dist
 
 from elasticdl_tpu_torch.common.device import FSDP_ITEM, DeviceLike, resolve_device
+from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, resolve_mesh
 from elasticdl_tpu_torch.parallel.sharding import pad_batch
 
@@ -224,6 +225,12 @@ class DataParallelTrainer:
     @property
     def mesh(self):
         return self._mesh
+
+    @property
+    def kernel_builds(self) -> Dict[str, int]:
+        """The kernel library's build/load count (the JAX trainers'
+        ``jitted_entrypoints``: what the step anatomy watches for compiles)."""
+        return _build.build_counts()
 
     @property
     def step(self) -> int:

@@ -15,6 +15,12 @@ fresh processes, which is what this module runs again.
 Rank 0 pulls each task from the master and broadcasts it to every rank
 as a fixed-shape int64 tensor; every rank then runs the same number of
 steps per task (the lockstep invariant collectives need).
+
+Joining a world is this process's goodput ``rendezvous`` phase
+(``obs/goodput.py``).  The heartbeat carries the worker's telemetry
+snapshot (``obs/telemetry.py``) and journals a ``clock_probe`` around
+each carrying call; a telemetry failure sends an empty snapshot and
+never stops the heartbeat.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 from elasticdl_tpu_torch import obs
 from elasticdl_tpu_torch.common import messages as msg
 from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.obs import goodput
 
 logger = get_logger("parallel.elastic")
 
@@ -62,7 +69,15 @@ def join_world(master_client, device: str = "cuda", poll_interval_s: float = 0.5
     is resolved, then join the process group (none for a world of one):
     NCCL when ``device`` is ``cuda``, gloo when it is ``cpu``.  Each poll
     advertises this worker's host; it never counts as a heartbeat."""
-    deadline = time.time() + timeout_s
+    # Worker-side goodput: from the first rank poll to the process
+    # group's barrier is rendezvous time (this process's ledger).
+    with goodput.ledger().phase("rendezvous", cause="join_world"):
+        return _join_world_inner(master_client, device, poll_interval_s,
+                                 time.time() + timeout_s, initialization_timeout_s)
+
+
+def _join_world_inner(master_client, device, poll_interval_s, deadline,
+                      initialization_timeout_s) -> WorldInfo:
     host = advertised_host()
     while True:
         resp = master_client.get_comm_rank(host)
@@ -94,16 +109,18 @@ def join_world(master_client, device: str = "cuda", poll_interval_s: float = 0.5
 class HeartbeatReporter:
     """Background liveness heartbeats to the master: the pod manager kills a
     worker whose heartbeats go silent, turning a hang into the process
-    exit churn handling reacts to.  Intervals carry ±``JITTER`` of
-    deterministic per-worker jitter, so a re-formed fleet does not beat
-    in lockstep."""
+    exit churn handling reacts to.  With a ``WorkerTelemetry`` each beat
+    ships its bounded snapshot as ``telemetry_json``.  Intervals carry
+    ±``JITTER`` of deterministic per-worker jitter, so a re-formed fleet
+    does not beat in lockstep."""
 
     WARN_INTERVAL_S = 60.0
     JITTER = 0.2
 
     def __init__(self, master_client, world: WorldInfo, host: str = "",
-                 interval_s: float = 5.0, jitter: float = JITTER):
+                 interval_s: float = 5.0, telemetry=None, jitter: float = JITTER):
         self._mc = master_client
+        self._telemetry = telemetry
         self._world = world
         self._host = host or advertised_host()
         self._interval_s = interval_s
@@ -132,8 +149,25 @@ class HeartbeatReporter:
         tick = 0
         while not self._stop.wait(self.jittered_interval_s(tick)):
             tick += 1
+            payload = ""
+            if self._telemetry is not None:
+                try:
+                    payload = self._telemetry.snapshot_json()
+                except Exception:
+                    payload = ""  # telemetry never kills the liveness plane
             try:
-                self._mc.report_worker_liveness(self._host, self._world.rendezvous_id)
+                t_send = time.time()
+                self._mc.report_worker_liveness(self._host, self._world.rendezvous_id,
+                                                telemetry_json=payload)
+                t_recv = time.time()
+                probe_ts = getattr(self._telemetry, "last_snapshot_ts", 0.0) if payload else 0.0
+                if probe_ts:
+                    # Paired with the master's worker_telemetry record
+                    # (same worker_ts) into a clock-offset estimate.
+                    obs.journal().record("clock_probe", worker_id=self._mc.worker_id,
+                                         probe_ts=probe_ts, t_send=round(t_send, 6),
+                                         t_recv=round(t_recv, 6),
+                                         rtt_s=round(t_recv - t_send, 6))
             except Exception as exc:
                 # The pod manager owns the failure, but say so (rate-limited).
                 self.error_count += 1
@@ -168,17 +202,21 @@ def _decode_task(arr: np.ndarray, shard_names: List[str]) -> msg.Task:
                     start=start, end=end, type=type_, model_version=version, epoch=epoch)
 
 
-def broadcast_task(task: Optional[msg.Task], shard_names: List[str], world: WorldInfo
-                   ) -> msg.Task:
+def broadcast_task(task: Optional[msg.Task], shard_names: List[str], world: WorldInfo,
+                   anatomy=None) -> msg.Task:
     """Every rank calls this; rank 0 supplies the task and every rank
     returns it.  ``shard_names`` is the same list, in the same order, on
     every rank.  The leader keeps its own task object (the encoding drops
-    the trace id)."""
+    the trace id).  ``anatomy`` (``obs/stepstats.StepAnatomy``) books the
+    broadcast under ``data_wait`` on the other ranks, for a real task
+    only: this is their task-queue wait (the leader books its own)."""
     if world.world_size == 1:
         if task is None:
             raise ValueError("a world of one broadcasts its own task: got None")
         return task
     import torch.distributed as dist
+
+    start = time.monotonic()
 
     device = (torch.device("cuda", torch.cuda.current_device())
               if dist.get_backend() == "nccl" else torch.device("cpu"))
@@ -186,7 +224,10 @@ def broadcast_task(task: Optional[msg.Task], shard_names: List[str], world: Worl
     dist.broadcast(encoded, src=0)
     if world.is_leader and task is not None:
         return task
-    return _decode_task(encoded.cpu().numpy(), shard_names)
+    decoded = _decode_task(encoded.cpu().numpy(), shard_names)
+    if anatomy is not None and decoded.task_id != -1 and decoded.type != msg.WAIT:
+        anatomy.note_phase_seconds("data_wait", time.monotonic() - start)
+    return decoded
 
 
 # ---------------------------------------------------------------------------

@@ -73,6 +73,7 @@ import torch.distributed as dist
 
 from elasticdl_tpu_torch.common.device import DeviceLike, resolve_device
 from elasticdl_tpu_torch.layers import embedding as emb
+from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.ops import sparse_embedding as ske
 from elasticdl_tpu_torch.parallel import sparse_optim
 from elasticdl_tpu_torch.parallel.compile import Rule, RuleTable
@@ -226,6 +227,12 @@ class ShardedEmbeddingTrainer:
     def table_placement(self) -> Dict[str, Optional[str]]:
         """Table key -> the mesh axis its rows are split over, or None."""
         return dict(self._placement)
+
+    @property
+    def kernel_builds(self) -> Dict[str, int]:
+        """The kernel library's build/load count (the JAX trainers'
+        ``jitted_entrypoints``: what the step anatomy watches for compiles)."""
+        return _build.build_counts()
 
     @property
     def step(self) -> int:

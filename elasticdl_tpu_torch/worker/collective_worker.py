@@ -39,22 +39,36 @@
   ``EVAL_REPORT_BATCHES`` batches (``per_rank_real_counts`` strips the
   padding); PREDICTION tasks run the forward and report nothing.
 
+The elastic control plane (``obs/``): the step anatomy books each
+flush's host time as data wait, stage, compile (the first
+``ensure_initialized``, or a dispatch that built the kernel library),
+execute and bookkeep, one window per flush, with the prefetcher's and the
+staging pipeline's hidden time as overlap, and journals the cumulative
+anatomy (``step_anatomy``) after each flush; the telemetry records each
+flush's steps and records for the heartbeat; this process's goodput
+ledger books the task loop's ``training`` and ``idle`` (WAIT), the
+restore at boot and each save.
+
 The worker journals (``obs``) ``checkpoint_restore``, ``first_step``,
-``checkpoint_saved`` and, after every task, ``worker_task_done`` with
-the steps this process trained, its kernel launches and any forbidden
-module loaded, so a process that is killed leaves its counts behind,
-and the seconds the step loop waited for host data (``data_wait_s``;
-with async staging also the staging and prefetch seconds hidden behind
-the card's work), the columnar route's seconds (``columnar_s``: read,
-parse and transform; ``columnar_transform_s``: the zoo's transform) and
-the tasks this process read record by record through an ETRF reader
-(``etrf_per_record_reads``, 0 on the columnar route).
+``checkpoint_saved`` (both on the DP path with the state's CRC32s,
+``state_digest``, on every rank) and, after every task,
+``worker_task_done`` with the steps this process trained, its kernel
+launches and any forbidden module loaded, so a process that is killed
+leaves its counts behind, and the seconds the step loop waited for host
+data (``data_wait_s``; with async staging also the staging and prefetch
+seconds hidden behind the card's work), the columnar route's seconds
+(``columnar_s``: read, parse and transform; ``columnar_transform_s``: the
+zoo's transform) and the tasks this process read record by record
+through an ETRF reader (``etrf_per_record_reads``, 0 on the columnar
+route).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 import traceback
+import zlib
 from typing import List, Optional
 
 import numpy as np
@@ -76,6 +90,7 @@ from elasticdl_tpu_torch.data.pipeline import (
     StagingPipeline,
 )
 from elasticdl_tpu_torch.data.reader import etrf_per_record_reads
+from elasticdl_tpu_torch.obs import goodput, stepstats
 from elasticdl_tpu_torch.parallel import elastic
 from elasticdl_tpu_torch.parallel.elastic import WorldInfo
 from elasticdl_tpu_torch.parallel.sharding import pad_batch
@@ -90,6 +105,36 @@ def kernel_launches() -> dict:
     counts = dict(sparse_embedding.launch_counts())
     counts.update(flash_attention.launch_counts())
     return {k: v for k, v in counts.items() if v}
+
+
+def _crc32_tree(node, crc: int = 0) -> int:
+    """CRC32 over a tree's leaves in order: mappings by sorted key,
+    sequences (the optimizer's named tuples) by position."""
+    if isinstance(node, dict):
+        for key in sorted(node):
+            crc = _crc32_tree(node[key], zlib.crc32(str(key).encode(), crc))
+        return crc
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            crc = _crc32_tree(child, crc)
+        return crc
+    if node is None:
+        return zlib.crc32(b"None", crc)
+    return zlib.crc32(np.ascontiguousarray(np.asarray(node)).tobytes(), crc)
+
+
+def state_digest(host_state) -> dict:
+    """CRC32s of a JAX-layout host state: ``state_crc32`` over its params,
+    optimizer state and ``model_state`` (ResNet's ``batch_stats``), and
+    ``model_state_crc32`` over the last alone (absent without one).  The
+    DP path journals them at each save and restore, so a journal shows
+    that a restore landed the saved state bit for bit and that the ranks
+    of a world hold the same one."""
+    digest = {"state_crc32": _crc32_tree([host_state.params, host_state.opt_state,
+                                          host_state.model_state])}
+    if host_state.model_state:
+        digest["model_state_crc32"] = _crc32_tree(host_state.model_state)
+    return digest
 
 
 def _concat(parts):
@@ -178,9 +223,17 @@ class CollectiveWorker:
         pipeline: Optional[PipelineConfig] = None,
         validation_data_reader=None,
         prediction_data_reader=None,
+        telemetry=None,
+        anatomy=None,
     ):
         self._mc = master_client
         self._spec = model_spec
+        # The heartbeat's telemetry collector and the step anatomy (by
+        # default the one bound to the collector); None turns either off.
+        self._telemetry = telemetry
+        self._anatomy = anatomy or getattr(telemetry, "anatomy", None)
+        if self._anatomy is not None and hasattr(trainer, "kernel_builds"):
+            self._anatomy.watch_builds(lambda: trainer.kernel_builds)
         self._mb = minibatch_size
         self._world = world
         self._trainer = trainer
@@ -242,6 +295,12 @@ class CollectiveWorker:
     def restore_from_checkpoint(self):
         if self._ckpt is None:
             return
+        # This process's ledger: after a re-formation the restore is part
+        # of what the rescale costs.
+        with goodput.ledger().phase("checkpoint_restore", cause="boot"):
+            self._restore_from_checkpoint_inner()
+
+    def _restore_from_checkpoint_inner(self):
         start = time.monotonic()
         if self._sharded_ckpt:
             step = self._ckpt.latest_step()
@@ -262,8 +321,9 @@ class CollectiveWorker:
         seconds = time.monotonic() - start
         logger.info("Rank %d restored checkpoint at step %d in %.3f s", self._world.rank, step,
                     seconds)
+        digest = {} if self._sharded_ckpt else state_digest(self._trainer.state_to_jax_host())
         obs.journal().record("checkpoint_restore", rank=self._world.rank, step=step,
-                             seconds=round(seconds, 6))
+                             seconds=round(seconds, 6), **digest)
 
     def _verify_restore_consistency(self):
         """Every rank must have restored the same step; a divergent rank
@@ -289,7 +349,8 @@ class CollectiveWorker:
     # -- the task loop -------------------------------------------------------
 
     def run(self):
-        heartbeat = elastic.HeartbeatReporter(self._mc, self._world).start()
+        heartbeat = elastic.HeartbeatReporter(self._mc, self._world,
+                                              telemetry=self._telemetry).start()
         try:
             self._run_task_loop()
         finally:
@@ -297,16 +358,38 @@ class CollectiveWorker:
             if self._parse_pool is not None:
                 self._parse_pool.close()
 
+    # -- step anatomy (no-op contexts when the plane is off) -------------------
+
+    def _anat_phase(self, name: str):
+        if self._anatomy is None:
+            return contextlib.nullcontext()
+        return self._anatomy.phase(name)
+
+    def _anat_dispatch(self, n_steps: int, n_examples: int):
+        if self._anatomy is None:
+            return contextlib.nullcontext()
+        return self._anatomy.dispatch(n_steps, n_examples)
+
     def _run_task_loop(self):
         self.restore_from_checkpoint()
         self._verify_restore_consistency()
         while True:
+            # The leader's queue wait is data_wait, for a real task only
+            # (a WAIT poll is the ledger's idle); the other ranks book
+            # theirs inside broadcast_task.
+            queue_wait_start = time.monotonic()
             task = self._mc.get_task() if self._world.is_leader else None
-            task = elastic.broadcast_task(task, self._shard_names, self._world)
+            task = elastic.broadcast_task(task, self._shard_names, self._world,
+                                          anatomy=self._anatomy)
+            if (self._anatomy is not None and self._world.is_leader and task.task_id != -1
+                    and task.type != msg.WAIT):
+                self._anatomy.note_phase_seconds("data_wait",
+                                                 time.monotonic() - queue_wait_start)
             if task.task_id == -1 and task.type != msg.WAIT:
                 logger.info("Job complete; rank %d exiting", self._world.rank)
                 break
             if task.type == msg.WAIT:
+                goodput.ledger().transition("idle", cause="wait_task")
                 time.sleep(self.WAIT_SLEEP_S)
                 continue
             spec = faults.fire("worker.task")
@@ -316,6 +399,9 @@ class CollectiveWorker:
                 type_name = msg.task_type_name(task.type)
             except ValueError:
                 type_name = "UNKNOWN"
+            goodput.ledger().transition("training", cause="task_start")
+            if self._telemetry is not None:
+                self._telemetry.begin_task(task.task_id, type_name, task.end - task.start)
             start = time.monotonic()
             try:
                 with obs.span("worker.task", labels={"type": type_name},
@@ -513,41 +599,67 @@ class CollectiveWorker:
                             if self._window_steps else "auto",
                             task.end - task.start, task_batches)
         window_steps = self._effective_window
-        staging = (StagingPipeline(dispatch_depth=self._pipeline.dispatch_depth)
+        # Async staging books as overlap while a dispatch is outstanding
+        # (the anatomy's credit); sync books the exclusive stage phase.
+        staging = (StagingPipeline(self._anatomy, dispatch_depth=self._pipeline.dispatch_depth)
                    if self._pipeline.is_async else None)
+        overlap_booked = [0.0]  # the prefetcher's overlap already credited
 
         def stage_call(fn, *args):
-            return staging.stage(fn, *args) if staging is not None else fn(*args)
+            if staging is not None:
+                return staging.stage(fn, *args)
+            with self._anat_phase("stage"):
+                return fn(*args)
 
         def flush():
             nonlocal batch_count, record_count, pending, pending_real, last_loss
             if not pending:
                 return
             first = self.process_steps == 0 and batch_count == 0
+            flush_start = time.monotonic()
             if len(pending) == window_steps:
                 window = stage_call(self._trainer.stage_window, pending)
-                last_loss = self._trainer.train_window(window)[-1]
+                with self._anat_dispatch(len(pending), pending_real):
+                    last_loss = self._trainer.train_window(window)[-1]
                 if staging is not None:
                     staging.note_dispatched()
             else:
-                for staged_batch in pending:
+                for i, staged_batch in enumerate(pending):
                     staged = stage_call(self._trainer.stage_batch, *staged_batch)
-                    last_loss = self._trainer.train_step_staged(staged)
+                    # The flush's real records are credited once.
+                    with self._anat_dispatch(1, pending_real if i == 0 else 0):
+                        last_loss = self._trainer.train_step_staged(staged)
                     if staging is not None:
                         staging.note_dispatched()
-            if first:
-                loss = float(last_loss)  # waits for the card
-                seconds = time.monotonic() - self._started
-                logger.info("First train steps done at step %d (loss %.5f), %.3f s after the "
-                            "worker loop started", self._trainer.step, loss, seconds)
-                obs.journal().record("first_step", rank=self._world.rank,
-                                     step=self._trainer.step, steps=len(pending),
-                                     seconds_since_start=round(seconds, 6))
-            batch_count += len(pending)
-            record_count += pending_real
-            pending, pending_real = [], 0
-            self._report_version_if_due()
-            self._maybe_checkpoint()
+            with self._anat_phase("bookkeep"):
+                if first:
+                    loss = float(last_loss)  # waits for the card
+                    seconds = time.monotonic() - self._started
+                    logger.info("First train steps done at step %d (loss %.5f), %.3f s after "
+                                "the worker loop started", self._trainer.step, loss, seconds)
+                    obs.journal().record("first_step", rank=self._world.rank,
+                                         step=self._trainer.step, steps=len(pending),
+                                         seconds_since_start=round(seconds, 6))
+                if self._telemetry is not None:
+                    # One sample per flush: its mean step time and records.
+                    self._telemetry.record_steps(len(pending), time.monotonic() - flush_start,
+                                                 records=pending_real)
+                batch_count += len(pending)
+                record_count += pending_real
+                pending, pending_real = [], 0
+                self._report_version_if_due()
+                self._maybe_checkpoint()
+            if self._anatomy is not None:
+                if prefetcher is not None and prefetcher.overlap_s > overlap_booked[0]:
+                    self._anatomy.note_overlap_seconds(prefetcher.overlap_s - overlap_booked[0])
+                    overlap_booked[0] = prefetcher.overlap_s
+                if self._anatomy.close_window() is not None:  # one window per flush
+                    # The cumulative anatomy to this process's journal too:
+                    # the heartbeat's copy reaches the master's journal at
+                    # most every journal interval, and a short world may
+                    # end before one.
+                    stepstats.journal_anatomy(self._anatomy.worker_id,
+                                              self._anatomy.snapshot())
 
         batches = iter(self._local_batches(task, Mode.TRAINING))
         prefetcher = None
@@ -557,12 +669,18 @@ class CollectiveWorker:
         try:
             while True:
                 t_wait = time.monotonic()
-                item = next(batches, None)  # the step loop blocked on host data
+                with self._anat_phase("data_wait"):
+                    item = next(batches, None)  # the step loop blocked on host data
                 data_wait_s += time.monotonic() - t_wait
                 if item is None:
                     break
                 features, labels, mask, global_real = item
-                self._trainer.ensure_initialized(features)
+                if self._trainer.state is None:
+                    # First touch (model init, a restore landing): compile.
+                    with self._anat_phase("compile"):
+                        self._trainer.ensure_initialized(features)
+                else:
+                    self._trainer.ensure_initialized(features)
                 if self._batch_nbytes is None:
                     # The window's one-time refinement from the real batch
                     # size and the now-resolved apply interval.
@@ -661,17 +779,20 @@ class CollectiveWorker:
         if not (due and step > 0 and step != self._last_ckpt_step):
             return
         start = time.monotonic()
-        with obs.span("checkpoint.save", rank=self._world.rank, step=step):
-            if self._sharded_ckpt:
-                self._trainer.save_checkpoint(self._ckpt, step)
-            else:
-                host_state = self._trainer.state_to_jax_host()
-                if self._world.is_leader:
-                    self._ckpt.save(host_state, step)
-        if self._trainer.device.type == "cuda":
-            torch.cuda.synchronize(self._trainer.device)
+        digest = {}
+        with goodput.ledger().phase("checkpoint_save", cause="cadence"):
+            with obs.span("checkpoint.save", rank=self._world.rank, step=step):
+                if self._sharded_ckpt:
+                    self._trainer.save_checkpoint(self._ckpt, step)
+                else:
+                    host_state = self._trainer.state_to_jax_host()
+                    digest = state_digest(host_state)
+                    if self._world.is_leader:
+                        self._ckpt.save(host_state, step)
+            if self._trainer.device.type == "cuda":
+                torch.cuda.synchronize(self._trainer.device)
         seconds = time.monotonic() - start
         logger.info("Checkpoint at step %d saved in %.3f s", step, seconds)
         obs.journal().record("checkpoint_saved", rank=self._world.rank, step=step,
-                             seconds=round(seconds, 6))
+                             seconds=round(seconds, 6), **digest)
         self._last_ckpt_step = step

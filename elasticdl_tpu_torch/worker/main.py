@@ -25,6 +25,12 @@ files logs once which ETRF codec serves it (``data/recordfile.codec``:
 the native host codec or the Python one) and journals it in
 ``data_readers``.
 
+A collective worker builds a ``WorkerTelemetry`` with a ``StepAnatomy``
+bound to it (``obs/telemetry.py``, ``obs/stepstats.py``): step times,
+task progress, RPC retries and the step's phase split ride its
+heartbeats to the master.  The Local worker gets the anatomy alone and
+journals it per task (no heartbeat there).
+
 With ``--checkpoint_dir`` the worker journals into
 ``<checkpoint_dir>/events_worker_<id>.jsonl`` (the master's journal is
 ``events.jsonl`` there); at exit it logs one line, ``worker exit: {...}``,
@@ -95,6 +101,7 @@ def main(argv=None) -> int:
                             data_reader=data_reader, minibatch_size=args.minibatch_size,
                             validation_data_reader=validation_reader,
                             prediction_data_reader=prediction_reader,
+                            anatomy=_anatomy(args),
                             pipeline=PipelineConfig.from_args(args), device=args.device)
         else:
             worker = _build_collective_worker(args, model_spec, data_reader, client,
@@ -140,6 +147,15 @@ def _note_readers(*readers) -> None:
                          prediction=names[2], record_codec=codec)
 
 
+def _anatomy(args):
+    """The step anatomy, its FLOPs row inferred from the model's path."""
+    from elasticdl_tpu_torch.obs.stepstats import StepAnatomy
+
+    anatomy = StepAnatomy(args.worker_id)
+    anatomy.set_model(args.model_def or args.model_zoo)
+    return anatomy
+
+
 def _build_collective_worker(args, model_spec, data_reader, client, validation_reader=None,
                              prediction_reader=None):
     """Join the world, build the trainer over its mesh, restore state."""
@@ -152,8 +168,14 @@ def _build_collective_worker(args, model_spec, data_reader, client, validation_r
     from elasticdl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
     from elasticdl_tpu_torch.worker.collective_worker import CollectiveWorker
 
+    from elasticdl_tpu_torch.obs.telemetry import WorkerTelemetry
+
     device = resolve_device(args.device)  # the card raises here when there is none
     world = join_world(client, device=device.type)
+    telemetry = WorkerTelemetry(args.worker_id)
+    telemetry.bind_retry_stats(client.retry_stats)
+    telemetry.set_rendezvous(world.rendezvous_id)
+    telemetry.bind_anatomy(_anatomy(args))
     # A world of one trains on one device with no mesh; a larger one over
     # the process mesh of the joined group.
     mesh = build_mesh(MeshConfig(model=args.mesh_model_axis)) if world.world_size > 1 else None
@@ -206,6 +228,7 @@ def _build_collective_worker(args, model_spec, data_reader, client, validation_r
         pipeline=PipelineConfig.from_args(args),
         validation_data_reader=validation_reader,
         prediction_data_reader=prediction_reader,
+        telemetry=telemetry,
     )
 
 

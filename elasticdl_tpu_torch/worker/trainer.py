@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch.common.device import DeviceLike, resolve_device
+from elasticdl_tpu_torch.ops import _build
 from elasticdl_tpu_torch.parallel.dp_trainer import (
     copy_tree,
     model_apply,
@@ -70,6 +71,12 @@ class Trainer:
     @property
     def model(self) -> torch.nn.Module:
         return self._model
+
+    @property
+    def kernel_builds(self) -> Dict[str, int]:
+        """The kernel library's build/load count (the JAX trainers'
+        ``jitted_entrypoints``: what the step anatomy watches for compiles)."""
+        return _build.build_counts()
 
     @property
     def step(self) -> int:

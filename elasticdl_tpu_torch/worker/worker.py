@@ -31,13 +31,19 @@ parse and transform; ``columnar_transform_s``: the zoo's transform),
 the seconds spent moving batches to the device (``stage_s``) and the
 batches' image shape.
 
-The JAX worker's goodput ledger, step profiler, step anatomy and
-quality hooks are accepted (``profiler``, ``anatomy``) and select
-nothing: ``common.args.OBS_ITEM``.
+A WAIT answer parks this process's goodput ledger in ``idle``
+(``obs/goodput.py``).  With a ``StepAnatomy`` (``anatomy``,
+``obs/stepstats.py``) a training task's host time is booked as data
+wait, stage, execute (a step that built the kernel library: compile) and
+bookkeep, one window per task, and the cumulative anatomy is journaled
+as ``step_anatomy`` after each training task: the Local worker has no
+heartbeat to carry it.  The JAX worker's step profiler and quality hooks
+are accepted (``profiler``) and select nothing: ``common.args.OBS_ITEM``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 import traceback
 from typing import Optional
@@ -53,6 +59,7 @@ from elasticdl_tpu_torch.common.model_utils import ModelSpec
 from elasticdl_tpu_torch.data.columnar import materialize_for_worker
 from elasticdl_tpu_torch.data.pipeline import PipelineConfig, Prefetcher
 from elasticdl_tpu_torch.data.task_data_service import TaskDataService
+from elasticdl_tpu_torch.obs import goodput, stepstats
 from elasticdl_tpu_torch.worker.collective_worker import EvalReports, named_arrays
 from elasticdl_tpu_torch.worker.trainer import Trainer
 
@@ -105,6 +112,9 @@ class Worker:
         self._pipeline = pipeline or PipelineConfig()
         self._columnar_logged: set = set()
         self._task_stats: dict = {}
+        self._anatomy = anatomy
+        if anatomy is not None:
+            anatomy.watch_builds(lambda: self._trainer.kernel_builds)
         #: Train steps and evaluation/prediction batches this worker ran.
         self.process_steps = 0
         self.process_eval_batches = 0
@@ -112,6 +122,11 @@ class Worker:
     @property
     def trainer(self) -> Trainer:
         return self._trainer
+
+    def _anat_phase(self, name: str):
+        if self._anatomy is None:
+            return contextlib.nullcontext()
+        return self._anatomy.phase(name)
 
     # -- the task loop ---------------------------------------------------------
 
@@ -124,6 +139,7 @@ class Worker:
                 logger.info("Job complete; worker %d exiting", self._mc.worker_id)
                 break
             if task.type == msg.WAIT:
+                goodput.ledger().transition("idle", cause="wait_task")
                 time.sleep(self._wait_sleep_s)
                 continue
             spec = faults.fire("worker.task")
@@ -200,13 +216,17 @@ class Worker:
         for lo in range(0, columnar.n, self._minibatch_size):
             yield columnar.slice(lo, min(lo + self._minibatch_size, columnar.n))
 
-    def _timed_batches(self, batches):
-        """Yield the batches, booking the time the loop waited for each."""
+    def _timed_batches(self, batches, anatomy=None):
+        """Yield the batches, booking the time the loop waited for each
+        (on ``anatomy`` too, as ``data_wait``, with a prefetcher's hidden
+        time as its overlap)."""
         wait = 0.0
         try:
             while True:
                 t0 = time.monotonic()
-                batch = next(batches, None)
+                with (anatomy.phase("data_wait") if anatomy is not None
+                      else contextlib.nullcontext()):
+                    batch = next(batches, None)
                 wait += time.monotonic() - t0
                 if batch is None:
                     return
@@ -214,6 +234,8 @@ class Worker:
         finally:
             self._task_stats["data_wait_s"] = round(wait, 6)
             if isinstance(batches, Prefetcher):
+                if anatomy is not None:
+                    anatomy.note_overlap_seconds(batches.overlap_s)
                 # Task boundary: no stale batch survives into the next task.
                 batches.close()
 
@@ -223,19 +245,31 @@ class Worker:
         batch_count = record_count = 0
         stage_s = 0.0
         last_loss = None
-        for features, labels in self._timed_batches(iter(self._batches(task, Mode.TRAINING))):
+        batches = iter(self._batches(task, Mode.TRAINING))
+        for features, labels in self._timed_batches(batches, self._anatomy):
             spec = faults.fire("worker.step")
             if spec is not None and spec.kind == "crash":
                 faults.crash_now(spec)
             t0 = time.monotonic()
-            staged = self._trainer.stage_batch(features, labels)
+            with self._anat_phase("stage"):
+                staged = self._trainer.stage_batch(features, labels)
             stage_s += time.monotonic() - t0
-            last_loss = self._trainer.train_step_staged(staged)
+            if self._anatomy is not None:
+                with self._anatomy.dispatch(1, len(labels)):
+                    last_loss = self._trainer.train_step_staged(staged)
+            else:
+                last_loss = self._trainer.train_step_staged(staged)
             batch_count += 1
             record_count += len(labels)
-            if self._trainer.step % self._report_every == 0:
-                self._report_version()
+            with self._anat_phase("bookkeep"):
+                if self._trainer.step % self._report_every == 0:
+                    self._report_version()
         self._task_stats["stage_s"] = round(stage_s, 6)
+        if self._anatomy is not None:
+            # One window per task; no heartbeat carries it here, so the
+            # cumulative anatomy goes to this process's journal.
+            self._anatomy.close_window()
+            stepstats.journal_anatomy(self._anatomy.worker_id, self._anatomy.snapshot())
         if last_loss is not None:
             logger.info("task %d done: step=%d loss=%.5f (%d batches)", task.task_id,
                         self._trainer.step, float(last_loss), batch_count)

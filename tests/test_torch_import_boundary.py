@@ -135,6 +135,11 @@ def test_port_sources_import_nothing_forbidden():
             "elasticdl_tpu_torch.zoo.census_feature_columns",
             "elasticdl_tpu_torch.zoo.wide_and_deep",
             "elasticdl_tpu_torch.serving.supervisor"} <= names
+    # So are the elastic control plane's.
+    assert {"elasticdl_tpu_torch.obs.goodput",
+            "elasticdl_tpu_torch.obs.stepstats",
+            "elasticdl_tpu_torch.obs.telemetry",
+            "elasticdl_tpu_torch.master.policy"} <= names
 
 
 _SUBPROCESS = r"""
