@@ -385,6 +385,40 @@ after every flush.  The AllReduce jobs:
     after the step-12 save and the same gates.  Printed as phase 33,
     beside phase 28's CUDA-event step time when it ran.
 
+The bf16 LM head, the continuous job from a stream and the sparse
+optimizer's xla engines:
+
+35. The LM at phase 11's width with ``logits_compute="bf16"`` beside the
+    f32 head, each 20 timed steps from one seed: K4-K6 once per layer per
+    step; the bf16 head's logits (f32) within the bf16 operand-rounding
+    bound of the f32 head on the same parameters and input (``head_bound``:
+    ``(2**-7 + 2**-16 + 2 d 2**-24) * |x| @ |w|.T``); the cuBLAS bf16
+    product's output not rounded to bf16; 3 steps against the plain path
+    (phase 12's tolerances).  Prints step ms, the head's forward and
+    backward ms (CUDA events) and tokens/s for both heads.  TF32 is off.
+36. The continuous loop from an unbounded stream on DeepFM at phase 20's
+    configuration (reusing phase 22/24's trainer when it ran): a
+    ``SyntheticClickStream`` at ``[(4.0, 51200), (2.0, 204800)]``
+    records/s on 24 virtual ticks of 0.25 s, a ``StreamingTaskManager``
+    (tasks of 8192, lookahead 8) drained by three workers a tick, deltas
+    published with the watermark's event time, a DeltaWatcher moving an
+    in-process ServingReplica under a load-generator thread, the faults
+    ``stream.source:latency=1.0@t2.0``, ``ckpt.delta:truncate@2`` and
+    ``serving.delta_apply:error=injected@3``, a worker's churn at tick 5
+    and the master rebuilt from its journal at tick 17.  Gates: the
+    watermark across the rebuild, the redo debt exactly the churned
+    ranges (the master's in-flight ranges re-cut and trained once), no
+    dropped request, the quarantine and the rollback journaled, the
+    freshness SLO (1.5 s) breached then clear, the served logits equal
+    to a reload of the compacted chain (rtol 1e-5), K3 twice a step and
+    K2 twice a step plus twice a dispatch.
+37. The sparse optimizer's xla engines: for sgd, momentum, adagrad and
+    adam, 3 DeepFM steps at phase 6's widths with ``sparse_kernel="xla"``
+    in stream and in scatter mode beside K3; each engine replays K3's
+    ids and grads from the same start (deterministic algorithms) within
+    rtol 1e-6 / atol 5e-7 of K3 (sgd 1e-6 / 1e-6), ``apply_acc`` equal to
+    ``apply``; each engine's step ms beside K3's.
+
 Before each of phases 21-23 the free space of its directory is checked
 (a failure names the bytes needed); each deletes its directories.
 
@@ -402,7 +436,10 @@ of a CP LM step, and K4-K6 never there; over the mesh, K1 and K3 once
 per shard; K10 in the experiment script's default mode; K2 and K3 twice
 per step of each CTR zoo model and of phase 31's worker process, there
 also K2 twice per evaluation batch, and K2 twice per dispatch of each
-replica of phase 32) fails the run.
+replica of phase 32; K4-K6 once per layer per step of both heads in
+phase 35; in phase 36 K3 twice per step and K2 twice per step and
+twice per dispatch; K3 once per step of phase 37's K3 runs and never in
+its engines' runs) fails the run.
 The line before the last holds the card's name and power limit, the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, with no
 result, when no CUDA device is available or the port is not beside it.
@@ -5965,6 +6002,678 @@ def allreduce_job_phase(card: str, seed: int, workdir: str, number: int, vision=
     return result
 
 
+# ----------------------------------------------------------------------
+# phase 35: the LM with the bf16 head
+# ----------------------------------------------------------------------
+
+
+#: bf16 rounds a value to 8 significant bits: a relative error of at
+#: most 2**-8 for each operand it rounds (round to nearest even).
+BF16_UNIT = 2.0 ** -8
+
+
+def head_bound(x, weight):
+    """The bf16 head's largest allowed distance from the f32 head on the
+    head's input ``x`` [n, d] and ``weight`` [V, d], elementwise: each
+    product ``x_i w_i`` moves by at most ``(2 * 2**-8 + 2**-16) |x_i w_i|``
+    when both operands round to bf16, and each f32 sum of d terms by at
+    most ``d * 2**-24`` of the sum of magnitudes; so ``|bf16 - f32| <=
+    (2**-7 + 2**-16 + 2 d 2**-24) * (|x| @ |w|.T)``."""
+    import torch
+
+    d = x.shape[-1]
+    scale = 2 * BF16_UNIT + BF16_UNIT ** 2 + 2 * d * 2.0 ** -24
+    return scale * torch.mm(x.float().abs(), weight.float().abs().t())
+
+
+def head_times(head, x, grad, flush):
+    """The head alone on its step's input: forward and backward medians
+    (CUDA events, L2 flushed before each), ms."""
+    import torch
+
+    x = x.detach().requires_grad_()
+
+    def forward():
+        return head(x)
+
+    out = forward()
+
+    def backward():
+        head.weight.grad = head.bias.grad = x.grad = None
+        torch.autograd.backward(out, grad, retain_graph=True)
+
+    return median_ms(forward, flush), median_ms(backward, flush)
+
+
+def lm_bf16_head_phase(card: str, seed: int, warmup: int = 2, steps: int = 20,
+                       n_batches: int = 4):
+    """Phase 35: the LM at phase 11's width with ``logits_compute="bf16"``
+    against the f32 head, each trained ``steps`` steps from one seed."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.data.synthetic import synthetic_lm_arrays
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    cfg, batch = LM_BENCH, LM_BATCH
+    zoo = resolve(LM_DEF)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the f32 head and the bf16 head's backward would time TF32")
+    tokens, nxt = synthetic_lm_arrays(batch * n_batches, cfg["seq_len"], cfg["vocab"], seed)
+    ones = np.ones((batch,), np.float32)
+    batches = [(tokens[i * batch:(i + 1) * batch], nxt[i * batch:(i + 1) * batch], ones)
+               for i in range(n_batches)]
+    params = dict(vocab=cfg["vocab"], d_model=cfg["d_model"], num_heads=cfg["num_heads"],
+                  num_layers=cfg["num_layers"], max_len=cfg["seq_len"])
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device=card_device())
+    result = {}
+    for head in ("f32", "bf16"):
+        model = build_model(LM_DEF, dict(params, logits_compute=head))
+        trainer = DataParallelTrainer(model, zoo.loss, zoo.optimizer(LM_LR), seed=seed)
+        trainer.ensure_initialized()
+        staged = [trainer.stage_batch(*b) for b in batches]
+        losses = [trainer.train_step_staged(staged[i % n_batches]) for i in range(warmup)]
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        events = []
+        t0 = time.perf_counter()
+        for i in range(warmup, warmup + steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(trainer.train_step_staged(staged[i % n_batches]))
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fa.launch_counts()
+        for name in fa.KERNELS:
+            if counts[name] != cfg["num_layers"] * steps:
+                fail(f"{head} head: {name} launched {counts[name]} times in {steps} steps")
+        losses = torch.stack(losses).cpu().numpy()
+        if not np.all(np.isfinite(losses)) or not losses[-3:].mean() < losses[:3].mean():
+            fail(f"{head} head: the loss did not fall: {losses}")
+        step_ms = sorted(s.elapsed_time(e) for s, e in events)
+        # The head alone on the step's real input (the final LayerNorm's
+        # output), with an f32 cotangent of the logits' shape.
+        captured = []
+        hook = model.LayerNorm_0.register_forward_hook(lambda m, i, o: captured.append(o))
+        with torch.no_grad():
+            model(staged[0][0])
+        hook.remove()
+        x = captured[0].detach()
+        grad = torch.randn(x.shape[:-1] + (cfg["vocab"],), device=x.device) * 1e-4
+        fwd_ms, bwd_ms = head_times(model.lm_head, x, grad, flush)
+        result[head] = {
+            "tokens_per_s": steps * batch * cfg["seq_len"] / wall,
+            "step_ms_median": step_ms[len(step_ms) // 2],
+            "head_forward_ms": fwd_ms, "head_backward_ms": bwd_ms,
+            "loss_first3": float(losses[:3].mean()), "loss_last3": float(losses[-3:].mean()),
+            "launches": counts, "launches_per_step": {k: v / steps for k, v in counts.items()},
+        }
+        if head == "f32":
+            f32_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        else:
+            # Gates on one state: the f32 trainer's parameters in both heads.
+            model.load_state_dict(f32_state)
+            with torch.no_grad():
+                hook = model.LayerNorm_0.register_forward_hook(lambda m, i, o: captured.append(o))
+                got = model(staged[0][0][:1])
+                hook.remove()
+                rows = captured[-1].reshape(-1, cfg["d_model"])
+                weight, bias = model.lm_head.weight, model.lm_head.bias
+                want = torch.nn.functional.linear(rows.float(), weight, bias)
+                got = got.reshape(-1, cfg["vocab"])
+                if got.dtype != torch.float32:
+                    fail(f"the bf16 head returned {got.dtype} logits, not float32")
+                bound = head_bound(rows, weight)
+                excess = (got - want).abs() - bound
+                worst = float(((got - want).abs() / bound.clamp_min(1e-30)).max())
+                if float(excess.max()) > 0:
+                    fail(f"bf16 head logits exceed the rounding bound: {worst!r} of it")
+                # The cuBLAS bf16 product's f32 output is not rounded to
+                # bf16: it differs from its own bf16 rounding.
+                direct = torch.mm(rows.to(torch.bfloat16), weight.to(torch.bfloat16).t(),
+                                  out_dtype=torch.float32)
+                if torch.equal(direct, direct.to(torch.bfloat16).float()):
+                    fail("the bf16 product's f32 output holds only bf16 values")
+                plain = torch.mm(rows.to(torch.bfloat16).float(),
+                                 weight.to(torch.bfloat16).float().t())
+                plain_err = float((direct - plain).abs().max())
+            result["gate"] = {"max_share_of_bound": worst, "logits_dtype": str(got.dtype),
+                              "bf16_mm_vs_upcast_max_abs": plain_err,
+                              "max_abs_vs_f32_head": float((got - want).abs().max())}
+            del got, want, bound, excess, direct, plain
+            result["path"] = lm_compare((trainer, contextlib.nullcontext),
+                                        (trainer, plain_attention), staged, card,
+                                        "bf16-head LM kernel path vs plain path")
+        del trainer, model, staged, x, grad, captured
+        torch.cuda.empty_cache()
+    del f32_state
+    log(f"LM bf16 head gates: {result['gate']} [{card}]")
+    for head in ("f32", "bf16"):
+        r = result[head]
+        log(f"LM {head} head: {r['tokens_per_s']!r} tokens/s, step median "
+            f"{r['step_ms_median']!r} ms, head forward {r['head_forward_ms']!r} ms, backward "
+            f"{r['head_backward_ms']!r} ms (CUDA events), loss {r['loss_first3']!r} -> "
+            f"{r['loss_last3']!r}; launches per step {r['launches_per_step']} [{card}]")
+    result["card"] = card
+    return result
+
+
+# ----------------------------------------------------------------------
+# phase 36: the continuous loop from an unbounded stream
+# ----------------------------------------------------------------------
+
+
+#: JAX's chaos scenario (``tests/test_stream_e2e.py``: 400/1600 records/s,
+#: tasks of 64) scaled by 8192/64 to tasks of one training batch.
+STREAM_LOOP = dict(schedule=((4.0, 51200.0), (2.0, 204800.0)), records_per_task=8192,
+                   lookahead=8, ticks=24, dt=0.25, slo_s=1.5, workers=3,
+                   faults=("stream.source:latency=1.0@t2.0, ckpt.delta:truncate@2, "
+                           "serving.delta_apply:error=injected@3"),
+                   kill_tick=17, churn_tick=5, full_tick=3, delta_ticks=(7, 13, 18, 20),
+                   compact_tick=15, query_rows=64)
+STREAM_FIELDS = tuple(f"cat{i}" for i in range(26))
+
+
+def stream_batch(lo: int, hi: int, vocab: int):
+    """DeepFM's features and labels of stream offsets [lo, hi): the 26
+    categorical ids from ``synthetic_click_batch`` (one field a column,
+    the table's vocab), 13 dense values and the label from
+    ``click_label_rule``, each a pure function of the offset."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.data.stream import click_label_rule, synthetic_click_batch
+
+    click = synthetic_click_batch(lo, hi, vocab, STREAM_FIELDS)
+    offsets = np.arange(lo, hi, dtype=np.int64)[:, None]
+    dense = ((offsets * (3 + 2 * np.arange(13)) + 5) % 97).astype(np.float32) / 48.5 - 1.0
+    cat = np.stack([click[f] for f in STREAM_FIELDS], axis=1).astype(np.int32)
+    return {"dense": dense, "cat": cat}, click_label_rule(click).astype(np.int32)
+
+
+def stream_trainer(seed: int, params: str, device=None):
+    """Phase 20's trainer (the split layout, global-bias sparse Adam)."""
+    from elasticdl_tpu_torch.parallel import sparse_optim
+    from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    zoo = resolve(MODEL_DEF)
+    trainer = ShardedEmbeddingTrainer(
+        build_model(MODEL_DEF, params, device=device), zoo.loss, zoo.optimizer(),
+        embedding_optimizer=sparse_optim.adam(LR, bias_correction="global"), seed=seed,
+        device=device)
+    trainer.ensure_initialized()
+    return trainer
+
+
+def journal_all(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def merged_cover(ranges):
+    merged = []
+    for lo, hi in sorted(ranges):
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    return [tuple(r) for r in merged]
+
+
+def stream_loop_phase(card: str, seed: int, workdir: str, trainer=None, cfg=STREAM_LOOP,
+                      params: str = SPLIT_TRAIN_PARAMS, device=None):
+    """Phase 36: the continuous train -> serve loop fed by an unbounded
+    click stream, on a virtual timeline the driver owns (``cfg``): the
+    streaming master cuts tasks of one batch, three workers drain them
+    into ``trainer`` each tick (K2 and K3 twice a step), deltas go out
+    with the watermark's event time, a DeltaWatcher moves an in-process
+    ServingReplica while a load generator queries it, and the faults of
+    ``cfg`` plus a worker's churn and the master's SIGKILL (rebuilt from
+    the journal) hit the loop.  ``device``: None for the card, "cpu" for
+    the CPU test."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch import obs
+    from elasticdl_tpu_torch.checkpoint import delta as deltas
+    from elasticdl_tpu_torch.common import faults
+    from elasticdl_tpu_torch.common import messages as msg
+    from elasticdl_tpu_torch.common.params import parse_dict_params
+    from elasticdl_tpu_torch.data.stream import SyntheticClickStream, iter_stream_batches
+    from elasticdl_tpu_torch.master.stream import StreamingTaskManager
+    from elasticdl_tpu_torch.obs.freshness import FreshnessTracker
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+    from elasticdl_tpu_torch.serving.continuous import DeltaWatcher
+    from elasticdl_tpu_torch.serving.runtime import ServingReplica
+
+    on_card = device is None
+    vocab = parse_dict_params(params)["vocab_size"]
+    per_task = cfg["records_per_task"]
+    built = trainer is None
+    t_setup = time.perf_counter()
+    if built:
+        trainer = stream_trainer(seed, params, device)
+    setup_s = time.perf_counter() - t_setup
+    journal = obs.init_journal(os.path.join(workdir, "journal_stream"))
+    pub = os.path.join(workdir, "pub_stream")
+    exporter = deltas.DeltaExporter(pub, model_zoo="model_zoo", model_def=MODEL_DEF,
+                                    model_params=params)
+    stream = SyntheticClickStream(cfg["schedule"], name="clicks")
+    manager = StreamingTaskManager(stream, records_per_task=per_task,
+                                   lookahead_tasks=cfg["lookahead"])
+    tracker = FreshnessTracker(slo_s=cfg["slo_s"])
+    faults.install(cfg["faults"])
+    query, _ = stream_batch(10 ** 9, 10 ** 9 + cfg["query_rows"], vocab)
+    train_counts, steps = {}, [0]
+
+    def train(task):
+        for feats, labels in iter_stream_batches(
+                lambda lo, hi: stream_batch(lo, hi, vocab), task.start, task.end, per_task):
+            trainer.train_step_staged(trainer.stage_batch(
+                feats, labels, np.ones((len(labels),), np.float32)))
+            steps[0] += 1
+        key = (task.start, task.end)
+        train_counts[key] = train_counts.get(key, 0) + 1
+
+    def drain(worker_id, budget=64):
+        for _ in range(budget):
+            task = manager.get(worker_id)
+            if task.task_id < 0:
+                return
+            train(task)
+            manager.report(task.task_id, True, worker_id=worker_id)
+
+    replica = watcher = None
+    latencies, errors, executes = [], [], [0]
+    stop = threading.Event()
+
+    def loadgen():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                out = replica.execute(query, cfg["query_rows"])
+            except Exception as exc:  # a dropped request fails the phase
+                errors.append(repr(exc))
+                return
+            latencies.append(time.perf_counter() - t0)
+            executes[0] += 1
+            if not np.all(np.isfinite(out)):
+                errors.append("non-finite logits")
+                return
+
+    thread = threading.Thread(target=loadgen, daemon=True)
+    publish_s, links = [], []
+
+    def publish_delta():
+        t0 = time.perf_counter()
+        link = exporter.publish_delta(trainer, event_time=manager.watermark_event_time())
+        publish_s.append(time.perf_counter() - t0)
+        if link is not None:
+            tracker.note_published(exporter.head_step, manager.watermark_event_time())
+            links.append((exporter.head_step, time.perf_counter()))
+        return link
+
+    served_at, churned, killed, rolled_back = {}, [], [], False
+    redo_cut, watermark_kept = None, None
+    ske.reset_launch_counts()
+    t_loop = time.perf_counter()
+    try:
+        for i in range(cfg["ticks"]):
+            stream.advance(cfg["dt"])
+            now = stream.elapsed_s
+            for spec in faults.due("stream.source", now):
+                if spec.kind == "latency":
+                    stream.stall(float(spec.arg or 1.0))
+            if i == cfg["kill_tick"]:
+                # The master dies with tasks in flight; its journal survives.
+                for w in (0, 1):
+                    task = manager.get(w)
+                    if task.task_id >= 0:
+                        killed.append((task.start, task.end))
+                if not killed:
+                    fail("the master's kill tick dispatched nothing")
+                before = manager.watermark
+                del manager
+                manager = StreamingTaskManager.resume_from_journal(
+                    journal_all(journal), stream, records_per_task=per_task,
+                    lookahead_tasks=cfg["lookahead"])
+                watermark_kept = (before, manager.watermark)
+                if manager.watermark != before:
+                    fail(f"the rebuilt master's watermark {manager.watermark} is not {before}")
+                cut = []
+                while True:  # what the rebuilt master re-cuts below its old frontier
+                    task = manager.get(0)
+                    if task.task_id < 0 or task.start >= max(hi for _, hi in killed):
+                        if task.task_id >= 0:
+                            train(task)
+                            manager.report(task.task_id, True, worker_id=0)
+                        break
+                    cut.append((task.start, task.end))
+                    train(task)
+                    manager.report(task.task_id, True, worker_id=0)
+                redo_cut = cut
+            if i == cfg["full_tick"]:
+                t0 = time.perf_counter()
+                full = exporter.publish_full(trainer, event_time=manager.watermark_event_time())
+                publish_s.append(time.perf_counter() - t0)
+                tracker.note_published(exporter.head_step, manager.watermark_event_time())
+                replica = ServingReplica(full, device=device)
+                watcher = DeltaWatcher(replica, pub, freshness=tracker)
+                gen = replica.generation
+                tracker.note_served(gen.gen_id, gen.step, gen.event_time)
+                thread.start()
+            elif i in cfg["delta_ticks"]:
+                if publish_delta() is None:
+                    fail(f"tick {i}: the delta published nothing")
+            elif i == cfg["compact_tick"]:
+                if exporter.compact() is None:
+                    fail("compaction wrote no full")
+                tracker.note_published(exporter.head_step, manager.watermark_event_time())
+            if i == cfg["churn_tick"]:
+                # Worker 2 trains two tasks and dies before reporting them.
+                for _ in range(2):
+                    task = manager.get(2)
+                    if task.task_id < 0:
+                        break
+                    train(task)
+                    churned.append((task.start, task.end))
+                if not churned or manager.recover_tasks(2) != len(churned):
+                    fail(f"the churn tick requeued {churned}")
+            for w in range(cfg["workers"]):
+                drain(w)
+            if watcher is not None:
+                summary = watcher.poll_once()
+                if summary["failed"] is not None:
+                    rolled_back = True
+                served_at.setdefault(replica.generation.step, time.perf_counter())
+            tracker.note_watermark(manager.watermark_event_time())
+            tracker.evaluate(now)
+        stream.close()
+        for _ in range(100):
+            if manager.finished():
+                break
+            for w in range(cfg["workers"]):
+                drain(w)
+        if not manager.finished():
+            fail(f"the closed stream did not drain: {manager.stream_counts()}")
+        publish_delta()
+        for _ in range(4):
+            if replica.generation.step == exporter.head_step:
+                break
+            watcher.poll_once()
+            served_at.setdefault(replica.generation.step, time.perf_counter())
+        tracker.note_watermark(manager.watermark_event_time())
+        tracker.evaluate(stream.elapsed_s)
+    finally:
+        stop.set()
+        if thread.is_alive():
+            thread.join(timeout=60)
+        faults.clear()
+    loop_s = time.perf_counter() - t_loop
+    counts = ske.launch_counts()
+    total = stream.available()
+    stream_counts = manager.stream_counts()
+    if stream_counts["watermark"] != total or stream_counts["pending_ranges"]:
+        fail(f"the watermark did not reach the stream's end {total}: {stream_counts}")
+    if merged_cover(train_counts) != [(0, total)]:
+        fail(f"the trained ranges do not cover [0, {total}): {merged_cover(train_counts)}")
+    duplicates = {r: c for r, c in train_counts.items() if c > 1}
+    if duplicates != {r: 2 for r in churned}:
+        fail(f"redo debt {duplicates} is not the churned in-flight ranges {churned}")
+    if any(train_counts[r] != 1 for r in killed) or sorted(redo_cut or []) != sorted(killed):
+        fail(f"the master's in-flight ranges {killed} were redone as {redo_cut}")
+    if errors or not latencies:
+        fail(f"the load generator dropped requests: {errors[:3]} ({len(latencies)} answered)")
+    if not rolled_back:
+        fail("the serving.delta_apply fault never rolled back")
+    if replica.generation.step != exporter.head_step:
+        fail(f"serving stopped at step {replica.generation.step}, the chain at "
+             f"{exporter.head_step}")
+    served = replica.execute(query, cfg["query_rows"])
+    reloaded_dir = exporter.compact()
+    reloaded = ServingReplica(reloaded_dir, device=device)
+    again = reloaded.execute(query, cfg["query_rows"])
+    np.testing.assert_allclose(served, again, rtol=1e-5, atol=0)
+    final_counts = ske.launch_counts()
+    if tracker.breached or tracker.lag_s(stream.elapsed_s) > tracker.slo_s:
+        fail(f"freshness did not recover: lag {tracker.lag_s(stream.elapsed_s)}")
+    obs.journal().configure(None)
+    slo = journal_events(journal, "freshness_slo")
+    if not slo or slo[0]["state"] != "breach" or slo[-1]["state"] != "clear":
+        fail(f"freshness events {[e['state'] for e in slo]}: no breach then clear")
+    swaps = [e["outcome"] for e in journal_events(journal, "model_swap")]
+    quarantined = journal_events(journal, "checkpoint_quarantined")
+    if "rolled_back" not in swaps or swaps[-1] != "applied" or not quarantined:
+        fail(f"model_swap {swaps}, quarantines {quarantined}")
+    marks = [e["offset"] for e in journal_events(journal, "stream_watermark")]
+    if marks != sorted(marks) or marks[-1] != total:
+        fail(f"stream_watermark offsets {marks[:5]}... end at {marks[-1:]}, not {total}")
+    requeues = [e for e in journal_events(journal, "task_requeue")
+                if e.get("reason") == "worker_churn"]
+    if sum(len(e["task_ids"]) for e in requeues) != len(churned):
+        fail(f"churn requeues journaled {requeues}")
+    if on_card:
+        want = {"fused_dedup_apply": 2 * steps[0],
+                "fused_lookup": 2 * steps[0] + 2 * executes[0]}
+        if (counts["fused_dedup_apply"] != want["fused_dedup_apply"]
+                or counts["fused_lookup"] != want["fused_lookup"]
+                or counts["fused_lookup_fm"]):
+            fail(f"{steps[0]} steps and {executes[0]} dispatches launched {counts}, want {want}")
+    lat_ms = sorted(x * 1e3 for x in latencies)
+    link_s = {}
+    for step, at in links:
+        served_t = min((t for s, t in served_at.items() if s >= step), default=None)
+        link_s[step] = None if served_t is None else served_t - at
+    result = {
+        "tasks_trained": sum(train_counts.values()), "steps": steps[0], "records": total,
+        "watermark": stream_counts["watermark"],
+        "watermark_event_time": manager.watermark_event_time(),
+        "event_time_lag_s": stream.elapsed_s - manager.watermark_event_time(),
+        "steps_per_s_host": steps[0] / loop_s, "loop_s": loop_s, "setup_s": setup_s,
+        "publish_s": publish_s, "publish_to_served_s": link_s,
+        "requests": len(latencies), "requests_per_s": len(latencies) / loop_s,
+        "p50_ms": lat_ms[len(lat_ms) // 2], "p99_ms": percentile_ms(latencies, 99),
+        "churned": churned, "master_in_flight": killed, "redo_after_rebuild": redo_cut,
+        "watermark_across_rebuild": watermark_kept, "swaps": swaps,
+        "quarantined": len(quarantined), "freshness": [e["state"] for e in slo],
+        "launches": counts, "launches_with_final_checks": final_counts,
+        "journal": journal, "card": card,
+    }
+    log(f"stream loop: {result['tasks_trained']} tasks ({steps[0]} steps, {total} records) "
+        f"trained in {loop_s!r} s of host time, {result['steps_per_s_host']!r} steps/s; "
+        f"watermark {result['watermark']} at event time {result['watermark_event_time']!r} s, "
+        f"lag {result['event_time_lag_s']!r} s on the virtual clock; publish -> served "
+        f"{link_s} s; {result['requests']} requests, {result['requests_per_s']!r}/s, p50 "
+        f"{result['p50_ms']!r} ms, p99 {result['p99_ms']!r} ms under the loop; churn redo "
+        f"{churned}, the rebuilt master re-cut {redo_cut} (in flight {killed}), watermark "
+        f"{watermark_kept}; swaps {swaps}; freshness {result['freshness']}; launches {counts} "
+        f"[{card}]")
+    del replica, reloaded, watcher
+    if built:
+        del trainer
+    if on_card:
+        torch.cuda.empty_cache()
+    return result
+
+
+# ----------------------------------------------------------------------
+# phase 37: the xla engines (stream, scatter) on the card
+# ----------------------------------------------------------------------
+
+
+#: Phase 37's optimizers: the four of the JAX package, K3_HYPER's numbers.
+ENGINE_KINDS = ("sgd", "momentum", "adagrad", "adam")
+ENGINE_TOL = dict(rtol=1e-6, atol=5e-7)        # K3 against the JAX scatter path
+ENGINE_SGD_SCATTER_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def engine_optimizer(name: str, mode: str):
+    from elasticdl_tpu_torch.parallel import sparse_optim
+
+    kind, hyper = K3_HYPER[name]
+    hyper = dict(hyper)
+    if kind == "momentum":
+        hyper["mu"] = hyper.pop("momentum")
+    return sparse_optim.by_name(kind, mode=mode, **hyper)
+
+
+def close_state(what, got_table, got_slots, want_table, want_slots, tol):
+    """Max |got - want| over a table and its slots; fails past ``tol``."""
+    worst = 0.0
+    pairs = [("table", got_table, want_table)] + [
+        (k, got_slots[k], want_slots[k]) for k in want_slots]
+    for name, got, want in pairs:
+        got, want = got.double(), want.double()
+        excess = (got - want).abs() - (tol["atol"] + tol["rtol"] * want.abs())
+        if float(excess.max()) > 0:
+            i = int(excess.argmax())
+            fail(f"{what}: {name} differs at {i}: {float(got.flatten()[i])!r} vs "
+                 f"{float(want.flatten()[i])!r}")
+        worst = max(worst, float((got - want).abs().max()))
+    if worst != worst:
+        fail(f"{what}: non-finite state")
+    return worst
+
+
+def engines_phase(card: str, seed: int, steps: int = 3, n_batches: int = 3):
+    """Phase 37: for sgd, momentum, adagrad and adam, 3 DeepFM steps at
+    phase 6's widths with ``sparse_kernel="xla"`` in stream and in scatter
+    mode beside K3 (``sparse_kernel="fused"``), from one state: each
+    engine replays K3's sparse inputs (the same ids and grads) from the
+    same tables and slots, and must land within the K3-vs-JAX-scatter
+    tolerances of K3; the stream engine's ``apply_acc`` must equal its
+    ``apply``; each engine's trainer step is timed beside K3's."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.data.synthetic import synthetic_ctr_arrays
+    from elasticdl_tpu_torch.layers import embedding as emb
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+    from elasticdl_tpu_torch.parallel import packed as pk
+    from elasticdl_tpu_torch.parallel import sparse_optim
+    from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer, clone_state
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    zoo = resolve(MODEL_DEF)
+    vocab = int(dict(p.split("=") for p in TRAIN_PARAMS.split(","))["vocab_size"])
+    feats, labels = synthetic_ctr_arrays(TRAIN_BATCH * n_batches, vocab_size=vocab, seed=seed)
+    batches = [({k: v[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH] for k, v in feats.items()},
+                labels[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                np.ones((TRAIN_BATCH,), np.float32)) for i in range(n_batches)]
+    model = build_model(MODEL_DEF, TRAIN_PARAMS)
+    layers = {n.replace(".", "/") + "/embedding": m for n, m in model.named_modules()
+              if isinstance(m, emb.Embedding)}
+    result = {}
+    for name in ENGINE_KINDS:
+        runs = {}
+        start = None
+        for engine in ("fused", "stream", "scatter"):
+            opt = engine_optimizer(name, "auto" if engine == "fused" else engine)
+            trainer = ShardedEmbeddingTrainer(
+                model, zoo.loss, zoo.optimizer(), embedding_optimizer=opt, seed=seed,
+                sparse_kernel="fused" if engine == "fused" else "xla")
+            if start is None:
+                trainer.ensure_initialized()
+                start = clone_state(trainer.state)
+            else:
+                trainer.state = clone_state(start)
+                trainer.ensure_initialized()
+            staged = [trainer.stage_batch(*b) for b in batches]
+            recorded = []
+            apply = trainer.sparse_apply
+
+            def record(sparse, apply=apply, recorded=recorded):
+                recorded.append({k: (i.clone(), g.clone()) for k, (i, g) in sparse.items()})
+                return apply(sparse)
+
+            trainer.sparse_apply = record
+            torch.cuda.synchronize()
+            ske.reset_launch_counts()
+            events = []
+            for i in range(steps):
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s.record()
+                trainer.train_step_staged(staged[i % n_batches])
+                e.record()
+                events.append((s, e))
+            torch.cuda.synchronize()
+            counts = ske.launch_counts()
+            want_k3 = steps if engine == "fused" else 0
+            if counts["fused_dedup_apply"] != want_k3:
+                fail(f"{name} {engine}: K3 launched {counts['fused_dedup_apply']} times")
+            runs[engine] = {"step_ms": [s.elapsed_time(e) for s, e in events],
+                            "recorded": recorded, "launches": counts}
+            del trainer, staged
+        # The apply-level gate: each engine on K3's recorded inputs, from
+        # the start state, one table at a time.
+        diffs, acc_exact = {"stream": 0.0, "scatter": 0.0}, True
+        tol = ENGINE_SGD_SCATTER_TOL if name == "sgd" else ENGINE_TOL
+        with deterministic():
+            for key in runs["fused"]["recorded"][0]:
+                spec = layers[key].spec
+
+                def replay(engine, key=key, spec=spec):
+                    opt = engine_optimizer(name, engine)
+                    table = start.tables[key].clone()
+                    slots = {k: v.clone() for k, v in start.slots[key].items()}
+                    for sparse in runs["fused"]["recorded"]:
+                        opt.apply(spec, table, slots, *sparse[key])
+                    return table, slots
+
+                k3_table, k3_slots = replay("fused")
+                for engine in ("stream", "scatter"):
+                    got = replay(engine)
+                    diffs[engine] = max(diffs[engine], close_state(
+                        f"{name} {engine} vs K3 ({key})", *got, k3_table, k3_slots, tol))
+                    del got
+                del k3_table, k3_slots
+                # apply_acc against apply (the stream engine), step 1's inputs.
+                opt = engine_optimizer(name, "stream")
+                ids, grads = runs["fused"]["recorded"][0][key]
+                a_table, b_table = start.tables[key].clone(), start.tables[key].clone()
+                a_slots = {k: v.clone() for k, v in start.slots[key].items()}
+                b_slots = {k: v.clone() for k, v in start.slots[key].items()}
+                opt.apply_acc(spec, a_table, a_slots,
+                              pk.grad_accumulate(spec, a_table, ids, grads))
+                opt.apply(spec, b_table, b_slots, ids, grads)
+                if name == "sgd":  # apply adds once per occurrence, apply_acc once per row
+                    close_state("sgd apply_acc vs apply", a_table, {}, b_table, {},
+                                ENGINE_SGD_SCATTER_TOL)
+                else:
+                    exact = bool(torch.equal(a_table, b_table)) and all(
+                        torch.equal(a_slots[k], b_slots[k]) for k in a_slots)
+                    if not exact:
+                        fail(f"{name}: apply_acc differs from apply ({key})")
+                    acc_exact = acc_exact and exact
+                del a_table, b_table, a_slots, b_slots
+        n_ids = int(next(iter(runs["fused"]["recorded"][0].values()))[0].shape[0])
+        med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+        result[name] = {
+            "step_ms": {e: med(r["step_ms"]) for e, r in runs.items()},
+            "step_ms_all": {e: r["step_ms"] for e, r in runs.items()},
+            "max_abs_vs_k3": diffs, "apply_acc_bit_exact": acc_exact,
+            "launches": {e: r["launches"] for e, r in runs.items()},
+            "mode_auto_selects": {key: sparse_optim.select_mode(layer.spec, n_ids, "auto")
+                                  for key, layer in layers.items()},
+        }
+        log(f"engines {name}: step ms (CUDA events, median of {steps}) K3 "
+            f"{result[name]['step_ms']['fused']!r}, stream {result[name]['step_ms']['stream']!r},"
+            f" scatter {result[name]['step_ms']['scatter']!r}; after {steps} applies of K3's "
+            f"inputs max |engine - K3| {diffs}; apply_acc == apply {acc_exact} [{card}]")
+        del runs, start
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    result["card"] = card
+    return result
+
+
 def ring_entries(ring_kernels, ring_whole, cp, card, resources=None):
     """The K7-K9 entries of the kernels line: timed at RING_BENCH (phase
     13), launched on the CP LM path (phase 15, both layouts)."""
@@ -6022,7 +6731,7 @@ FLASH_LM_BUILDS = {
 }
 
 
-def flash_entries(attention, edges, train, card, resources=None, resumed=None):
+def flash_entries(attention, edges, train, card, resources=None, resumed=None, heads=None):
     """The K4-K6 entries of the kernels line: numbers at the LM's shape
     (the first of ATTN_SHAPES), the other shapes beside them."""
     line = []
@@ -6032,6 +6741,9 @@ def flash_entries(attention, edges, train, card, resources=None, resumed=None):
                    "lm_train_window_4_steps": train["launches_window"][name]}
         if resumed is not None:
             by_path["lm_resumed_2_steps"] = resumed["launches_resumed_2_steps"][name]
+        if heads is not None:
+            for head in ("f32", "bf16"):
+                by_path[f"lm_{head}_head_20_steps"] = heads[head]["launches"][name]
         line.append({
             "name": name, "ok": True, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES[name],
@@ -6096,6 +6808,7 @@ def main() -> None:
     gather = block_gather_phase(card, args.seed) if run(17) else None
     sharded = sharded_kernel_phase(card, args.seed) if run(18) else None
     launches = train = mesh_train = split_train = ckpt = continuous = process = elastic = None
+    stream_loop = None
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if run(3, 4):
@@ -6115,10 +6828,15 @@ def main() -> None:
             loop = loop or loop_trainer(args.seed)
             continuous, exporter, full, pub = continuous_loop_phase(card, loop, workdir)
             process = replica_process_phase(card, loop, exporter, full, pub, workdir)
-            del loop, exporter
+            del exporter
+            shutil.rmtree(pub, ignore_errors=True)
             import torch
 
             torch.cuda.empty_cache()
+        if run(36):  # phase 22/24's trainer where it is still here
+            stream_loop = stream_loop_phase(card, args.seed, workdir,
+                                            trainer=loop.trainer if loop else None)
+        del loop
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     etrf = None
@@ -6139,6 +6857,7 @@ def main() -> None:
             local = local_job_phase(card, args.seed, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
+    engines = engines_phase(card, args.seed) if run(37) else None
     zoo = ctr_zoo_phase(card, args.seed) if run(30) else None
     census = fleet = None
     if run(31, 32):  # phase 32 serves phase 31's export
@@ -6161,6 +6880,7 @@ def main() -> None:
             shutil.rmtree(workdir, ignore_errors=True)
     attention, edges = attention_phase(card, args.seed) if run(10) else (None, None)
     lm = lm_training_phases(card, args.seed) if run(11, 12) else None
+    lm_heads = lm_bf16_head_phase(card, args.seed) if run(35) else None
     lm_ckpt = lm_checkpoint_phase(card, args.seed) if run(23) else None
     ring_kernels = ring_kernel_phase(card, args.seed) if run(13) else None
     ring_whole = ring_whole_phase(card, args.seed) if run(14) else None
@@ -6176,7 +6896,8 @@ def main() -> None:
                         "replica_process": process, "elastic_job": elastic,
                         "etrf_job": etrf, "vision_training": vision, "local_job": local,
                         "ctr_zoo": zoo, "census_job": census, "census_fleet": fleet,
-                        "allreduce_jobs": allreduce, "card": card}))
+                        "allreduce_jobs": allreduce, "lm_bf16_head": lm_heads,
+                        "stream_loop": stream_loop, "engines": engines, "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -6189,7 +6910,9 @@ def main() -> None:
                     "continuous_loop": continuous, "replica_process": process,
                     "elastic_job": elastic, "etrf_job": etrf, "vision_training": vision,
                     "local_job": local, "ctr_zoo": zoo, "census_job": census,
-                    "census_fleet": fleet, "allreduce_jobs": allreduce, "card": card}))
+                    "census_fleet": fleet, "allreduce_jobs": allreduce,
+                    "lm_bf16_head": lm_heads, "stream_loop": stream_loop, "engines": engines,
+                    "card": card}))
 
     by_path = {
         "fused_lookup_fm": {"serve_merged": launches["fused_lookup_fm"],
@@ -6223,7 +6946,9 @@ def main() -> None:
                          "census_fleet_replica_process": {
                              f"replica {rid} ({r['dispatches']} dispatches)":
                                  r["launches"]["fused_lookup"]
-                             for rid, r in fleet["per_replica"].items()}},
+                             for rid, r in fleet["per_replica"].items()},
+                         f"stream_loop ({stream_loop['steps']} steps, {stream_loop['requests']} "
+                         "dispatches)": stream_loop["launches"]["fused_lookup"]},
         "fused_dedup_apply": {"train_strict": train["launches_strict"]["fused_dedup_apply"],
                               "train_window": train["launches_window"]["fused_dedup_apply"],
                               "train_mesh": mesh_train["launches"]["fused_dedup_apply"],
@@ -6242,7 +6967,12 @@ def main() -> None:
                               **{f"ctr_zoo_{m}_{CTR_ZOO_STEPS}_steps":
                                  r["launches"]["fused_dedup_apply"] for m, r in zoo.items()},
                               f"census_job_worker_process ({census['steps']} steps)":
-                                  census["launches"]["fused_dedup_apply"]},
+                                  census["launches"]["fused_dedup_apply"],
+                              f"stream_loop ({stream_loop['steps']} steps)":
+                                  stream_loop["launches"]["fused_dedup_apply"],
+                              **{f"engines_{k}_k3_3_steps":
+                                 engines[k]["launches"]["fused"]["fused_dedup_apply"]
+                                 for k in ENGINE_KINDS}},
     }
     on_mesh = {"fused_lookup_fm": sharded["fused_lookup_fm"], "fused_lookup":
                sharded["fused_lookup"], "fused_dedup_apply": sharded["fused_dedup_apply"]["adam"]}
@@ -6287,12 +7017,13 @@ def main() -> None:
         "kernel_ms": adam["split"]["kernel_ms"], "sector_bound_ms": adam["sector_bound_ms"],
         "resources": (resources or {}).get(SPARSE_BUILDS["fused_dedup_apply"][0]),
         "shape": k3["shape"] + ", adam per-row", "by_kind": k3["by_kind"],
+        "xla_engines_step_ms": {k: engines[k]["step_ms"] for k in ENGINE_KINDS},
         "train_step_ms": train["breakdown_ms"]["fused_dedup_apply"],
         "sharded": on_mesh["fused_dedup_apply"],
         "ctr_zoo_shapes": {m: z["kernels"]["fused_dedup_apply"] for m, z in zoo.items()},
         "card": card,
     })
-    line += flash_entries(attention, edges, lm, card, resources, lm_ckpt)
+    line += flash_entries(attention, edges, lm, card, resources, lm_ckpt, lm_heads)
     line += ring_entries(ring_kernels, ring_whole, cp, card, resources)
     line.append({
         "name": "block_gather", "ok": True, "route": "cuda", "source": K10_SOURCE,

@@ -146,7 +146,7 @@ def main(n_ids: int = 212_992, vocab: int = 26_000_000, device=None) -> dict:
         k10_launches = sg.launch_counts()["block_gather"]
         _row(results, "dedup:",
              _time(lambda i: pk.dedup_representatives(spec, shifted[i], grads)), n_ids)
-        opt = sparse_optim.adam(0.001, bias_correction="global")
+        opt = sparse_optim.adam(0.001, bias_correction="global", mode="fused")
         slots = opt.init_slots(spec, table)
         _row(results, "adam apply plain:", _time(lambda i: ske.fused_dedup_apply_plain(
             spec, opt.kind, opt.hyperparams, table, slots, shifted[i], grads)), n_ids)
@@ -186,7 +186,7 @@ def main_shard_map(n_ids: int = 212_992, vocab: int = 26_000_000, device=None) -
              _time(lambda i: ske.fused_lookup(spec, table, shifted[i])), n_ids)
         _row(results, "fused_lookup (K2, sm):",
              _time(lambda i: ske.fused_lookup(spec, table, shifted[i], mesh=mesh)), n_ids, SHARDS)
-        opt = sparse_optim.adam(0.001, bias_correction="global")
+        opt = sparse_optim.adam(0.001, bias_correction="global", mode="fused")
         sharded = opt.remake("fused", mesh=mesh)
         slots = opt.init_slots(spec, table)
         _row(results, "adam apply plain:", _time(lambda i: ske.fused_dedup_apply_plain(
@@ -273,7 +273,7 @@ def selftest(device="cpu") -> int:
     want = torch.stack([gtable.view(-1, 8, 128)[_block_reference(int(x), gspec.num_blocks)]
                         for x in b.tolist()])
     assert torch.equal(sg.block_gather(gtable, gspec, b), want), "block_gather"
-    opt = sparse_optim.adam(0.001)
+    opt = sparse_optim.adam(0.001, mode="fused")
     applied, slots = table.clone(), opt.init_slots(spec, table)
     opt.apply(spec, applied, slots, ids, grads)
     ref = _adam_reference(spec, table, ids, grads, opt.hyperparams)

@@ -30,8 +30,10 @@ The exporter is one process's: on a process mesh ``export_model`` is a
 collective every rank calls, and the publishing belongs to rank 0.
 ``ckpt.delta`` is a fault site of every ``publish_delta``: a ``truncate``
 fault tears the largest file of the delta after the manifest recorded
-its CRC, so the consumer quarantines the link.  Not ported: the
-checkpoint metrics and journal events (ROADMAP.md Queue 1 item 8).
+its CRC, so the consumer quarantines the link, and journals
+``checkpoint_quarantined`` (the JAX package's event).  Not ported: the
+checkpoint metrics and the other journal events (ROADMAP.md Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from elasticdl_tpu_torch import obs
 from elasticdl_tpu_torch.checkpoint.saver import verify_integrity, write_integrity_manifest
 from elasticdl_tpu_torch.common import faults
 from elasticdl_tpu_torch.common.log_utils import get_logger
@@ -78,6 +81,7 @@ def quarantine_artifact(path: str, reason: str) -> str:
         os.rename(path, target)
     except OSError:
         logger.exception("Quarantine rename failed for %s", path)
+    obs.journal().record("checkpoint_quarantined", path=path, reason=reason)
     return target
 
 

@@ -12,8 +12,8 @@ steps trained, the seconds and the forbidden modules it loaded (none).  ``Allred
 ``ParameterServerStrategy`` hand over to ``master/job_runner``, which
 starts the worker processes.  Jobs run on the card unless ``--device
 cpu`` is given; without a card they refuse to start.  ``--image_name``
-(a Kubernetes submission) raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item (``common/args.check_ported``).
+with a cluster strategy submits the job to Kubernetes instead
+(``client/submit.py``): the client creates the master pod and returns.
 """
 
 from __future__ import annotations
@@ -46,6 +46,12 @@ def predict(argv) -> int:
 
 
 def _run_job(args, mode: str) -> int:
+    if args.image_name and args.distribution_strategy != DistributionStrategy.LOCAL:
+        # ``--image_name`` means "run on Kubernetes": create the master
+        # pod and return; the cluster runs the job.
+        from elasticdl_tpu_torch.client.submit import submit_job
+
+        return submit_job(args, mode)
     resolve_device(args.device)  # no card: refuse before anything starts
     if args.distribution_strategy == DistributionStrategy.LOCAL:
         return _run_local(args, mode)

@@ -12,8 +12,12 @@ run by both ``parse_*_args``).  ``--policy_enabled`` and the
 ``--policy_*`` numbers select the goodput-driven policy engine
 (``master/policy.py``, ``PolicyConfig.from_args``).  ``--slo_enabled``,
 on by default in the JAX package, and ``--jax_compilation_cache_dir``
-are accepted and select nothing.  ``--sparse_kernel`` selects nothing either: on the card every
-sparse op is its hand-written kernel.
+are accepted and select nothing.  ``--sparse_kernel`` selects the sparse
+optimizer's engine (``parallel/ps_trainer.resolve_sparse_kernel``).
+``--image_name`` submits the job to a Kubernetes cluster
+(``client/submit.py``), whose master runs the workers as pods
+(``master/k8s_pod_manager.py``); ``--devices_per_worker`` is accepted and
+selects nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,8 +30,6 @@ from elasticdl_tpu_torch.common.log_utils import get_logger
 logger = get_logger("common.args")
 
 #: Where each part this module refuses is queued.
-K8S_ITEM = ("ROADMAP.md Queue 1 item 6, what the job slice leaves: the Kubernetes "
-            "pod manager (k8s_pod_manager.py, k8s_client.py, tpu_slice.py)")
 OBS_ITEM = ("ROADMAP.md Queue 1 item 8: tracing, the profiler, the TensorBoard "
             "service and the SLO plane")
 #: The ``zoo`` subcommand of the client CLI (``client/zoo.py``).
@@ -223,14 +225,6 @@ _NOT_PORTED = {
     "profile_steps": ("", OBS_ITEM),
     "slo_goodput_target": (0.0, OBS_ITEM),
     "quality_drift_bins": (0, OBS_ITEM),
-    "image_name": ("", K8S_ITEM),
-    "tpu_slice": ("", K8S_ITEM),
-    "volume": ("", K8S_ITEM),
-    "namespace": ("default", K8S_ITEM),
-    "worker_pod_priority": ("", K8S_ITEM),
-    "master_resource_request": ("", K8S_ITEM),
-    "worker_resource_request": ("", K8S_ITEM),
-    "devices_per_worker": (1, K8S_ITEM),
 }
 
 def check_ported(args) -> None:

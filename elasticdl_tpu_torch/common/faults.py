@@ -25,9 +25,19 @@ Injection sites wired into the port:
     worker.task          every task a cluster worker starts
                          (worker/collective_worker.py; kind:
                          crash[=exit code] kills the process at once)
+    stream.source        every SyntheticClickStream.advance
+                         (data/stream.py; kind: latency[=seconds]: a
+                         wedged upstream pipe stalls production for that
+                         much VIRTUAL time; ``@t`` specs are applied by
+                         the driver through ``due()`` + ``stream.stall``)
+    stream.labels        every delayed-label range fetch
+                         (data/stream.feedback_labels; kinds: truncate,
+                         a label-feed outage that returns no labels for
+                         the range; error, a poisoned feed with every
+                         label flipped)
 
-The JAX package's other sites (``ckpt.write``, ``stream.*``,
-``quality.*``) wait for their modules (ROADMAP.md Queue 1 item 8).
+The JAX package's other sites (``ckpt.write``, ``quality.*``) wait for
+their modules (ROADMAP.md Queue 1 item 8).
 
 Spec grammar (comma/semicolon separated, via ``ELASTICDL_FAULTS`` or
 ``install()``), the JAX package's:
@@ -39,9 +49,14 @@ Spec grammar (comma/semicolon separated, via ``ELASTICDL_FAULTS`` or
     ckpt.delta:truncate@2                  the 2nd delta publish torn
 
 ``after`` is 1-based (default 1); ``count`` is how many consecutive calls
-trigger (default 1, ``x*`` = every call from ``after`` on).  A
-``@t<seconds>`` spec parses as in the JAX package but never fires through
-``fire()``: its schedule driver (``due``) is not ported.
+trigger (default 1, ``x*`` = every call from ``after`` on).
+
+**Schedule-based triggers** (``@t<seconds>``): the spec fires once, at a
+relative time on a timeline the *caller* owns; this module never reads
+a clock.  A driver polls ``due(site, elapsed_s)`` with its own elapsed
+seconds and applies every newly due spec; ``remaining_due(site)`` says
+when the schedule is spent.  Time specs never trigger through ``fire()``
+and never combine with ``xcount``.
 """
 
 from __future__ import annotations
@@ -67,7 +82,7 @@ class FaultSpec:
 
     def triggers_at(self, call_number: int) -> bool:
         if self.at_s is not None:
-            return False  # schedule specs never fire through fire()
+            return False  # schedule specs fire through due(), not fire()
         if call_number < self.after:
             return False
         return self.count < 0 or call_number < self.after + self.count
@@ -77,6 +92,7 @@ class FaultSpec:
 class _Registry:
     specs: List[FaultSpec] = field(default_factory=list)
     counters: Dict[str, int] = field(default_factory=dict)
+    fired_schedule: set = field(default_factory=set)  # spec indices
     lock: threading.Lock = field(default_factory=threading.Lock)
 
 
@@ -179,6 +195,36 @@ def fire(site: str) -> Optional[FaultSpec]:
             if spec.site == site and spec.triggers_at(n):
                 return spec
     return None
+
+
+def due(site: str, elapsed_s: float) -> List[FaultSpec]:
+    """The ``@t<seconds>`` specs of ``site`` whose time has come at
+    ``elapsed_s``, seconds on the caller's timeline.  Each spec is
+    returned exactly once, however often a driver polls."""
+    registry = _registry
+    if registry is None:
+        return []
+    hits: List[FaultSpec] = []
+    with registry.lock:
+        for index, spec in enumerate(registry.specs):
+            if spec.site != site or spec.at_s is None:
+                continue
+            if spec.at_s <= elapsed_s and index not in registry.fired_schedule:
+                registry.fired_schedule.add(index)
+                hits.append(spec)
+    hits.sort(key=lambda spec: spec.at_s)
+    return hits
+
+
+def remaining_due(site: str) -> int:
+    """How many of ``site``'s schedule-based specs have not fired yet."""
+    registry = _registry
+    if registry is None:
+        return 0
+    with registry.lock:
+        return sum(1 for index, spec in enumerate(registry.specs)
+                   if spec.site == site and spec.at_s is not None
+                   and index not in registry.fired_schedule)
 
 
 def crash_now(spec: FaultSpec) -> None:

@@ -1,15 +1,19 @@
-"""Cluster-mode job orchestration on one host: the port's copy of
+"""Cluster-mode job orchestration: the port's copy of
 ``elasticdl_tpu/master/job_runner.py`` (``_capacity_oracle_from_env``
-:29, ``_build_policy_engine`` :86, ``_GatedScaleUp`` :136,
-``_build_worker_manager`` :171, local processes only;
-``_ensure_elastic_checkpointing`` :241; ``run_allreduce_job`` :283;
-``run_ps_job`` :371).  An evaluation-only job queues its round at
-version 0 before the workers start; at the end the evaluation service
-computes any round still open and the final metrics are logged.
+:29, ``_K8sCapacityProbe`` :48, ``_running_on_k8s`` :78,
+``_build_policy_engine`` :86, ``_GatedScaleUp`` :136,
+``_build_worker_manager`` :171, ``_ensure_elastic_checkpointing`` :241;
+``run_allreduce_job`` :283; ``run_ps_job`` :371).  An evaluation-only job
+queues its round at version 0 before the workers start; at the end the
+evaluation service computes any round still open and the final metrics
+are logged.
 
-The master starts its services and a ``LocalProcessManager``, then
-supervises the worker fleet until the job completes.  Extra worker
-environment rides ``ELASTICDL_WORKER_ENV`` (``K=V;K2=V2``).
+The master starts its services and a worker manager, then supervises
+the worker fleet until the job completes.  With ``--image_name`` inside
+a cluster (``KUBERNETES_SERVICE_HOST`` or ``ELASTICDL_K8S_HOST`` set) the
+workers are pods (``master/k8s_pod_manager.py``), otherwise local
+processes (``LocalProcessManager``).  Extra worker environment rides
+``ELASTICDL_WORKER_ENV`` (``K=V;K2=V2``).
 
 The elastic control plane: with ``--need_elasticity`` and
 ``--policy_enabled`` (both on by default) the goodput-driven policy
@@ -18,15 +22,19 @@ goodput ledger and the telemetry aggregator's stragglers, gates every
 regrow of a shrunk world, parks a thrashing fleet at its floor, and
 evicts persistent stragglers within its kill budget.  Capacity for a
 regrow is the integer in the file ``ELASTICDL_CAPACITY_FILE`` names (no
-file: no regrow).  Straggler advisories also reach the manager and the
-ledger.  The SLO plane (``--slo_enabled``) is accepted and selects
-nothing (ROADMAP.md Queue 1 item 8).
+file: no regrow on one host; on Kubernetes an optimistic probe at most
+every 300 s, backed off while its probe pods stay Pending).  Straggler
+advisories also reach the manager and the ledger.  The SLO plane
+(``--slo_enabled``) is accepted and selects nothing (ROADMAP.md Queue 1
+item 8).
 """
 
 from __future__ import annotations
 
 import os
+import socket
 import tempfile
+import time
 
 from elasticdl_tpu_torch import obs
 from elasticdl_tpu_torch.common.boundary import forbidden_modules_loaded
@@ -56,6 +64,40 @@ def _capacity_oracle_from_env():
         return max(0, min(needed, slots))
 
     return check
+
+
+class _K8sCapacityProbe:
+    """Scale-up oracle on Kubernetes: capacity is unknowable without a
+    scheduler dry-run, so probe optimistically, granting a regrow attempt
+    at most every ``cooldown_s``; the pod manager's probe pods then prove
+    or refute it.  ``$ELASTICDL_CAPACITY_FILE`` wins when present."""
+
+    def __init__(self, cooldown_s: float = 300.0):
+        self._base_cooldown_s = cooldown_s
+        self._cooldown_s = cooldown_s
+        self._last_probe = time.time()
+
+    def __call__(self, needed: int) -> int:
+        explicit = _capacity_oracle_from_env()
+        if explicit is not None:
+            return explicit(needed)
+        now = time.time()
+        if now - self._last_probe < self._cooldown_s:
+            return 0
+        self._last_probe = now
+        return needed
+
+    def failed(self):
+        """Probe pods never scheduled: exponential backoff (cap 1 h)."""
+        self._cooldown_s = min(self._cooldown_s * 2, 3600.0)
+
+    def succeeded(self):
+        self._cooldown_s = self._base_cooldown_s
+
+
+def _running_on_k8s(args) -> bool:
+    return bool(args.image_name) and bool(
+        os.environ.get("KUBERNETES_SERVICE_HOST") or os.environ.get("ELASTICDL_K8S_HOST"))
 
 
 def _build_policy_engine(args, master):
@@ -97,21 +139,55 @@ def _gated_scale_up(check_fn, policy_engine):
     return _GatedScaleUp(check_fn, policy_engine)
 
 
-def _build_worker_manager(args, master, rendezvous, worker_env,
-                          policy_engine=None) -> LocalProcessManager:
-    return LocalProcessManager(
+def _build_worker_manager(args, master, rendezvous, worker_env, policy_engine=None):
+    """Worker pods inside a cluster (``_running_on_k8s``), local
+    processes otherwise."""
+    common = dict(
         num_workers=args.num_workers,
-        worker_argv_fn=worker_argv_from_args(args, master.addr),
-        worker_env=worker_env,
-        log_dir=os.path.join(args.checkpoint_dir or tempfile.gettempdir(),
-                             f"{args.job_name}_worker_logs"),
         rendezvous=rendezvous,
         task_manager=master.task_manager,
         max_restarts=args.max_worker_restarts,
         job_finished_fn=master.task_manager.finished,
         liveness_timeout_s=args.worker_liveness_timeout_s,
+    )
+    if _running_on_k8s(args):
+        from elasticdl_tpu_torch.master.k8s_client import (
+            K8sClient,
+            K8sConfig,
+            parse_resource_spec,
+        )
+        from elasticdl_tpu_torch.master.k8s_pod_manager import KubernetesPodManager
+
+        if args.tpu_slice and args.need_elasticity:
+            # client/submit's refusal, for masters started without it.
+            raise ValueError("--tpu_slice is incompatible with --need_elasticity "
+                             "(pod slices schedule all-or-nothing; see client/submit)")
+        client = K8sClient(K8sConfig.resolve(args.namespace))
+        pod_ip = os.environ.get("MY_POD_IP", "") or socket.gethostbyname(socket.gethostname())
+        own_name = os.environ.get("HOSTNAME", "")
+        return KubernetesPodManager(
+            worker_argv_fn=worker_argv_from_args(args, f"{pod_ip}:{master.port}"),
+            k8s_client=client,
+            job_name=args.job_name,
+            image=args.image_name,
+            worker_env=worker_env,
+            worker_resources=parse_resource_spec(args.worker_resource_request) or None,
+            priority_class=args.worker_pod_priority,
+            owner_pod=client.get_pod(own_name) if own_name else None,
+            volume_spec=args.volume,
+            tpu_slice=args.tpu_slice,
+            scale_up_check_fn=_gated_scale_up(
+                _K8sCapacityProbe() if args.need_elasticity else None, policy_engine),
+            **common,
+        )
+    return LocalProcessManager(
+        worker_argv_fn=worker_argv_from_args(args, master.addr),
+        worker_env=worker_env,
+        log_dir=os.path.join(args.checkpoint_dir or tempfile.gettempdir(),
+                             f"{args.job_name}_worker_logs"),
         scale_up_check_fn=_gated_scale_up(
             _capacity_oracle_from_env() if args.need_elasticity else None, policy_engine),
+        **common,
     )
 
 
@@ -123,6 +199,13 @@ def _ensure_elastic_checkpointing(args, mode: str):
     if mode != Mode.TRAINING or not args.need_elasticity:
         return
     if not args.checkpoint_dir:
+        if _running_on_k8s(args):
+            # A master-pod-local directory is invisible to worker pods: a
+            # re-formed world would restore nothing.
+            raise ValueError(
+                "Elastic training on Kubernetes requires --checkpoint_dir on storage every "
+                'pod shares: mount it with --volume (e.g. --volume "claim_name=ckpt-pvc,'
+                'mount_path=/ckpt" --checkpoint_dir /ckpt/myjob)')
         args.checkpoint_dir = tempfile.mkdtemp(prefix=f"{args.job_name}_ckpt_")
         logger.warning("Elastic job has no --checkpoint_dir; worker churn would silently "
                        "reset model weights while task progress survives. Defaulting to %s",

@@ -25,7 +25,9 @@ keeps the job's lifetime across master restarts.  Telemetry on the
 workers' heartbeats lands in a ``TelemetryAggregator`` scoped to the
 current world (``obs/telemetry.py``).  The job trains on the card unless
 ``--device cpu`` is given, and the master refuses to start when there is
-no card.  With ``--distribution_strategy=Local`` (the default) it starts
+no card, except as a master pod (``--image_name`` inside a Kubernetes
+cluster, ``client/submit.py``): its workers are pods that request their
+own cards.  With ``--distribution_strategy=Local`` (the default) it starts
 a bare master and serves until it is terminated, for a worker started by
 hand (``python -m elasticdl_tpu_torch.worker.main
 --distribution_strategy=Local``); ``python -m
@@ -210,17 +212,29 @@ def main(argv=None) -> int:
         logger.warning("Fault injection armed from %s=%r", faults.ENV_VAR,
                        os.environ.get(faults.ENV_VAR))
     args = parse_master_args(argv)
-    if args.device != "cpu":
-        from elasticdl_tpu_torch.common.device import resolve_device
-
-        resolve_device(args.device)  # no card: refuse before any worker starts
     if args.distribution_strategy == DistributionStrategy.LOCAL:
+        _refuse_without_card(args)
         return _serve_local_master(args)
-    from elasticdl_tpu_torch.master.job_runner import run_allreduce_job, run_ps_job
+    from elasticdl_tpu_torch.master.job_runner import (
+        _running_on_k8s,
+        run_allreduce_job,
+        run_ps_job,
+    )
+
+    if not _running_on_k8s(args):
+        # A master pod needs no card: its worker pods request theirs.
+        _refuse_without_card(args)
 
     runner = (run_ps_job if args.distribution_strategy == DistributionStrategy.PARAMETER_SERVER
               else run_allreduce_job)
     return runner(args, mode_from_job_type(args.job_type))
+
+
+def _refuse_without_card(args) -> None:
+    if args.device != "cpu":
+        from elasticdl_tpu_torch.common.device import resolve_device
+
+        resolve_device(args.device)  # no card: refuse before any worker starts
 
 
 def _serve_local_master(args) -> int:

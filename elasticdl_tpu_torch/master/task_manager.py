@@ -21,9 +21,13 @@ Journal events (``task_dispatch``, ``task_done``, ``task_requeue``,
 ``task_progress_resume``) and metrics go through the port's ``obs``.
 Dispatches, completions and requeues (failure, churn, timeout) drive the
 goodput ledger (``obs/goodput.py``): what work is in flight and what is
-redone.  Not ported: the streaming dispatcher's hooks
-(``master/stream.py``) and the tracing plane's spans (ROADMAP.md Queue 1
-items 6 and 8).
+redone.  Four hooks let ``master/stream.StreamingTaskManager`` ride this
+protocol over an unbounded source: ``_maybe_refill_locked`` tops the
+queue up under the dispatch lock, ``_stream_open_locked`` keeps an open
+stream from ending an epoch or the job, ``_note_task_complete_locked``
+advances the watermark, and ``_checkpoint_extra_locked`` persists the
+stream cursor.  Not ported: the tracing plane's spans (ROADMAP.md Queue
+1 item 8).
 """
 
 from __future__ import annotations
@@ -232,7 +236,14 @@ class TaskManager:
         try:
             with self._lock:
                 journal_events.extend(self._recover_timed_out_locked())
+                # Streaming hook: an unbounded source tops the queue up
+                # under the same lock hold.
+                self._maybe_refill_locked(journal_events)
                 if not self._todo and not self._doing:
+                    if self._stream_open_locked():
+                        # The queue is dry but the stream can still
+                        # produce: never an epoch barrier, never the end.
+                        return msg.Task(task_id=-1, type=msg.WAIT)
                     if self._epoch + 1 < self._num_epochs and self._training_shards:
                         finished_epoch = self._epoch
                         self._epoch += 1
@@ -326,6 +337,8 @@ class TaskManager:
                     self._metrics.record_rate.add(records)
                 if task.type == msg.TRAINING:
                     self._finished_record_count += task.end - task.start
+                    # Streaming hook: the watermark advances here.
+                    self._note_task_complete_locked(task, journal_events)
                 if task.type == msg.EVALUATION:
                     eval_done_callbacks = list(self._eval_task_done_callbacks)
                 for key, value in (exec_counters or {}).items():
@@ -359,7 +372,8 @@ class TaskManager:
                 self._todo.appendleft(task)
                 if task.type == msg.TRAINING:
                     self._recovered_record_count += task.end - task.start
-            if not self._todo and not self._doing and not self._done_callbacks_fired:
+            if (not self._todo and not self._doing and not self._done_callbacks_fired
+                    and not self._stream_open_locked()):
                 if self._epoch + 1 >= self._num_epochs or not self._training_shards:
                     self._done_callbacks_fired = True
                     self._finalizing = True
@@ -399,6 +413,26 @@ class TaskManager:
         finally:
             with self._lock:
                 self._finalizing = False
+
+    # -- streaming hooks (overridden by master/stream.StreamingTaskManager) --
+
+    def _maybe_refill_locked(self, journal_events: List[dict]) -> None:
+        """Called under the lock at the top of every ``get()``: an
+        unbounded source tops the queue up here.  Base: no-op."""
+
+    def _stream_open_locked(self) -> bool:
+        """True while an unbounded source can still produce records;
+        gates the epoch-advance and job-complete branches.  Base: False."""
+        return False
+
+    def _note_task_complete_locked(self, task: _Task, journal_events: List[dict]) -> None:
+        """Called under the lock for every completed TRAINING task.
+        Base: no-op."""
+
+    def _checkpoint_extra_locked(self) -> Dict[str, object]:
+        """Extra JSON merged into ``to_checkpoint()`` under the lock.
+        Base: {}."""
+        return {}
 
     def recover_tasks(self, worker_id: int) -> int:
         """Requeue every task in flight on a dead or removed worker."""
@@ -473,6 +507,7 @@ class TaskManager:
             no_more_epochs = self._epoch + 1 >= self._num_epochs or not self._training_shards
             finalization_settled = self._done_callbacks_fired and not self._finalizing
             return (not self._todo and not self._doing and no_more_epochs
+                    and not self._stream_open_locked()
                     and (finalization_settled or not self._tasks_done_callbacks))
 
     @property
@@ -506,7 +541,7 @@ class TaskManager:
         with self._lock:
             todo = [t.to_json() for t in self._todo]
             todo.extend(t.to_json() for (_w, t, _s, _tr) in self._doing.values())
-            return json.dumps({
+            state = {
                 "epoch": self._epoch,
                 "num_epochs": self._num_epochs,
                 "records_per_task": self._records_per_task,
@@ -515,7 +550,9 @@ class TaskManager:
                 "evaluation_shards": self._evaluation_shards,
                 "prediction_shards": self._prediction_shards,
                 "todo": todo,
-            })
+            }
+            state.update(self._checkpoint_extra_locked())
+            return json.dumps(state)
 
     @classmethod
     def from_checkpoint(cls, content: str, task_timeout_s: float = 0.0,

@@ -5,6 +5,8 @@ The continuous train->serve loop has three frontiers, each an event
 time on the stream's clock:
 
     watermark   every record with an earlier event time is trained
+                (``master/stream.StreamingTaskManager.
+                watermark_event_time``)
     published   the newest committed full/delta artifact's frontier
                 (checkpoint/delta.py)
     served      the generation currently answering requests

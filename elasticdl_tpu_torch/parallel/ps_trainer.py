@@ -55,11 +55,16 @@ is the same bytes), and ``dense.pkl`` with ``step``, the flax-layout
 ``t_global``).  Each process writes and reads only its own block
 interval; a restore copies into the trainer's own tensors in chunks.
 
-Not ported: the JAX xla engine's whole-mesh table placement (the port
-has one engine, the fused kernels'); several real cards driven from one
+Not ported: the JAX xla engine's whole-mesh table placement (over a
+mesh of several slots the port's stream engine raises; K3 and the
+scatter engine take the sharded route); several real cards driven from one
 process (``resolve_mesh`` raises); ``model_state`` collections (DeepFM
-has none).  ``sparse_kernel`` is accepted and selects nothing: on the
-card every sparse op is its kernel.
+has none).  ``sparse_kernel`` picks the embedding optimizer's engine
+(``resolve_sparse_kernel``): ``xla`` keeps the optimizer's own mode (the
+stream/scatter engines, ``parallel/sparse_optim.py``), ``fused`` runs K3,
+and ``auto`` and None run K3 too, where JAX's ``auto`` resolves to
+``xla`` (ROADMAP.md Queue 3 records the difference).  Lookups run K2 on
+every setting.
 """
 
 from __future__ import annotations
@@ -109,6 +114,15 @@ AUTO_APPLY_W = 32
 _SPARSE_KERNELS = (None, "xla", "fused", "auto")
 
 
+def resolve_sparse_kernel(requested: Optional[str]) -> str:
+    """``'xla'`` or ``'fused'`` for a ``--sparse_kernel`` value.  None and
+    ``'auto'`` resolve to ``'fused'``: the card's numbers for K3 stand in
+    ``PERF.md``, the evidence JAX's ``AUTO_FUSED_READY`` waits for."""
+    if requested not in _SPARSE_KERNELS:
+        raise ValueError(f"sparse_kernel must be one of {_SPARSE_KERNELS}, got {requested!r}")
+    return "xla" if requested == "xla" else "fused"
+
+
 class PSTrainState(NamedTuple):
     step: int
     params: Dict[str, Any]                 # dense parameter name -> tensor
@@ -154,8 +168,7 @@ class ShardedEmbeddingTrainer:
             if device is not None and torch.device(device) != self._mesh.device:
                 raise ValueError(f"device {device} is not the mesh's {self._mesh.device}")
             self.device = self._mesh.device
-        if sparse_kernel not in _SPARSE_KERNELS:
-            raise ValueError(f"sparse_kernel must be one of {_SPARSE_KERNELS}, got {sparse_kernel!r}")
+        self._sparse_kernel = resolve_sparse_kernel(sparse_kernel)
         self._model = model.to(self.device)
         self._loss_fn = loss_fn
         self._per_example_loss = per_example_loss_fn(loss_fn)
@@ -166,7 +179,8 @@ class ShardedEmbeddingTrainer:
                 "sparse SGD(0.01) for embedding tables"
             )
             embedding_optimizer = sparse_optim.sgd(0.01)
-        self._emb_tx = embedding_optimizer.remake(embedding_optimizer.mode, mesh=self._mesh)
+        mode = "fused" if self._sparse_kernel == "fused" else embedding_optimizer.mode
+        self._emb_tx = embedding_optimizer.remake(mode, mesh=self._mesh)
         self._sparse_apply_every = (
             None if sparse_apply_every == "auto" else max(1, int(sparse_apply_every))
         )

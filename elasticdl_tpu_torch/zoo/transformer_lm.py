@@ -18,8 +18,10 @@ layer computes in bf16: the embeddings are gathered and cast, ``tok +
 pos`` and both residual adds are bf16, a Dense rounds its product to
 bf16 before adding the bias.  LayerNorm takes its statistics in f32
 (``E[x^2] - E[x]^2``, clipped at 0, epsilon 1e-6) and casts its output.
-GELU is the tanh approximation.  The LM head is f32 (``f32 x f32``) and
-the loss runs on f32 logits.
+GELU is the tanh approximation.  The LM head is f32 (``f32 x f32``) by
+default; ``logits_compute="bf16"`` takes JAX's ``_Bf16AccF32Head``
+(``Bf16AccF32Head``): bf16 operands, f32 accumulation and f32 logits,
+with the f32 head's parameter names.  The loss runs on f32 logits.
 
 Context parallelism (JAX ``:107-168``): built with a
 ``parallel.mesh.Mesh`` whose ``model`` axis is larger than 1 and
@@ -38,9 +40,8 @@ The model-zoo contract of the JAX module: ``custom_model``, ``loss``
 (mean next-token cross entropy), ``optimizer`` (AdamW 3e-3, weight decay
 0.01), ``eval_metrics_fn``, ``dataset_fn`` and ``custom_data_reader``
 (``synthetic://lm?...``, a reader).  What is not ported yet raises
-``NotImplementedError``: ``model_axis_mode="tp"`` over a mesh, a mesh
-that is not a ``Mesh`` and holds more than one device, and
-``logits_compute="bf16"``.
+``NotImplementedError``: ``model_axis_mode="tp"`` over a mesh, and a mesh
+that is not a ``Mesh`` and holds more than one device.
 """
 
 from __future__ import annotations
@@ -70,10 +71,6 @@ from elasticdl_tpu_torch.zoo.deepfm import DenseGeneral, lecun_normal_
 VOCAB = 256
 SEQ_LEN = 128
 LN_EPS = 1e-6
-
-#: Where the bf16-operand LM head is queued.
-BF16_HEAD_ITEM = "ROADMAP.md Queue 1, what the long-context slice leaves"
-
 
 class Embed(nn.Embedding):
     """flax ``Embed``: an f32 table, gathered and cast to ``dtype``."""
@@ -109,6 +106,54 @@ class Dense(nn.Linear):
     def init_parameters(self, generator: torch.Generator) -> None:
         lecun_normal_(self.weight, self.in_features, generator)
         nn.init.zeros_(self.bias)
+
+
+class _Bf16AccF32Matmul(torch.autograd.Function):
+    """``x @ weight.T`` on bf16-rounded operands, accumulated and returned
+    in f32 (JAX's ``dot_general(..., preferred_element_type=f32)``).
+
+    The backward follows JAX's transpose rules for that ``dot_general``:
+    each cotangent is the product of the f32 output cotangent with the
+    other bf16 operand, computed in f32 and rounded to bf16 (the dtype of
+    the operand it belongs to), then cast back through the ``astype``:
+    ``dx = bf16(g @ wb)``, ``dweight = bf16(g.T @ xb)``.  On a CUDA tensor
+    the forward is cuBLAS's bf16 product with an f32 output
+    (``torch.mm(..., out_dtype=float32)``); the backward's products are
+    f32 ones (TF32 stays off, PyTorch's default), as on the CPU, where
+    every product upcasts the bf16 operands (their products are exact,
+    so only the summation order differs from JAX)."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        xb = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+        wb = weight.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.x_dtype, ctx.x_shape = x.dtype, x.shape
+        if xb.is_cuda:
+            out = torch.mm(xb, wb.t(), out_dtype=torch.float32)
+        else:
+            out = torch.mm(xb.float(), wb.float().t())
+        return out.reshape(*x.shape[:-1], weight.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        xb, wb = ctx.saved_tensors
+        g = grad.reshape(-1, grad.shape[-1]).to(torch.float32)
+        dx = torch.mm(g, wb.float()).to(torch.bfloat16).to(ctx.x_dtype)
+        dweight = torch.mm(g.t(), xb.float()).to(torch.bfloat16).to(torch.float32)
+        return dx.reshape(ctx.x_shape), dweight
+
+
+class Bf16AccF32Head(Dense):
+    """JAX's ``_Bf16AccF32Head``: the LM head with bf16 operands and f32
+    accumulation and logits.  Its parameters are f32 under ``nn.Dense``'s
+    names, so checkpoints and ``serving/convert.py`` serve either head."""
+
+    def __init__(self, in_features: int, vocab: int, device=None):
+        super().__init__(in_features, vocab, torch.float32, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _Bf16AccF32Matmul.apply(x, self.weight) + self.bias
 
 
 class QKVDense(DenseGeneral):
@@ -225,6 +270,7 @@ class TransformerLM(nn.Module):
         device=None,
         mesh: Optional[Mesh] = None,
         cp_layout: str = "contiguous",
+        logits_compute: str = "f32",
     ):
         super().__init__()
         self.num_layers = num_layers
@@ -237,7 +283,9 @@ class TransformerLM(nn.Module):
             setattr(self, f"block_{i}", Block(d_model, num_heads, mlp_ratio, dtype, device,
                                               mesh=mesh, cp_layout=cp_layout))
         self.LayerNorm_0 = LayerNorm(d_model, dtype, device)
-        self.lm_head = Dense(d_model, vocab, torch.float32, device)
+        # Logits in f32 either way: the loss softmax wants full precision.
+        self.lm_head = (Bf16AccF32Head(d_model, vocab, device) if logits_compute == "bf16"
+                        else Dense(d_model, vocab, torch.float32, device))
 
     def blocks(self):
         return [getattr(self, f"block_{i}") for i in range(self.num_layers)]
@@ -317,10 +365,6 @@ def custom_model(
         raise ValueError(f"cp_layout must be 'contiguous' or 'zigzag', got {cp_layout!r}")
     if logits_compute not in ("f32", "bf16"):
         raise ValueError(f"logits_compute must be 'f32' or 'bf16', got {logits_compute!r}")
-    if logits_compute == "bf16":
-        raise NotImplementedError(
-            f"logits_compute='bf16' (the bf16-operand LM head) is not ported: {BF16_HEAD_ITEM}"
-        )
     mesh = resolve_mesh(mesh, "the port's transformer")
     if cp_mesh(mesh) is not None and model_axis_mode == "tp":
         raise NotImplementedError(
@@ -342,6 +386,7 @@ def custom_model(
         device=resolve_device(device),
         mesh=mesh,
         cp_layout=cp_layout,
+        logits_compute=logits_compute,
     )
 
 

@@ -140,6 +140,13 @@ def test_port_sources_import_nothing_forbidden():
             "elasticdl_tpu_torch.obs.stepstats",
             "elasticdl_tpu_torch.obs.telemetry",
             "elasticdl_tpu_torch.master.policy"} <= names
+    # So are the streaming master, its source and the cluster launch.
+    assert {"elasticdl_tpu_torch.data.stream",
+            "elasticdl_tpu_torch.master.stream",
+            "elasticdl_tpu_torch.master.k8s_client",
+            "elasticdl_tpu_torch.master.k8s_pod_manager",
+            "elasticdl_tpu_torch.master.tpu_slice",
+            "elasticdl_tpu_torch.client.submit"} <= names
 
 
 _SUBPROCESS = r"""

@@ -164,8 +164,6 @@ def test_bare_local_master_and_worker_process(tmp_path):
 def test_client_refuses_what_is_not_ported(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
         client_main.main(["zoo", "init"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        client_main.main(["train", *MNIST, "--image_name=img", "--device=cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         client_main.main(["train", "--distribution_strategy=Local", *MNIST,

@@ -146,13 +146,14 @@ def _jax_optimizer(name, mode):
 def _port_optimizer(name):
     base, hyper = KINDS[name]
     if base == "sgd":
-        return pso.by_name("sgd", learning_rate=hyper["learning_rate"], mode="scatter")
+        return pso.by_name("sgd", learning_rate=hyper["learning_rate"], mode="fused")
     if base == "momentum":
-        return pso.momentum(hyper["learning_rate"], hyper["momentum"], hyper["nesterov"])
+        return pso.momentum(hyper["learning_rate"], hyper["momentum"], hyper["nesterov"],
+                            mode="fused")
     if base == "adagrad":
-        return pso.adagrad(hyper["learning_rate"], hyper["epsilon"])
+        return pso.adagrad(hyper["learning_rate"], hyper["epsilon"], mode="fused")
     return pso.adam(hyper["learning_rate"], hyper["beta_1"], hyper["beta_2"],
-                    hyper["epsilon"],
+                    hyper["epsilon"], mode="fused",
                     bias_correction="global" if name == "adam_global" else "per_row")
 
 

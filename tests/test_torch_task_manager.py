@@ -387,7 +387,6 @@ def test_parsers_keep_every_jax_flag_and_default():
         assert port_flags["device"] == "cuda"
     required = ["--model_zoo", "model_zoo", "--model_def", "deepfm.deepfm_functional_api"]
     for flag, value in [("--profile_steps", "1,2"), ("--tensorboard_log_dir", "/tmp/tb"),
-                        ("--image_name", "img"), ("--volume", "v"),
                         ("--slo_goodput_target", "0.9")]:
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
             port_args.parse_master_args(required + [flag, value])

@@ -16,6 +16,13 @@ T=32, batch 4.  Tolerances:
   activations entering the f32 head differ by about a bf16 ulp (2**-8,
   0.4-0.8% relative); measured 1.0% of the largest logit, 0.6-0.7% of
   the mean magnitude.
+- the bf16 head (``logits_compute="bf16"``): its logits against JAX's
+  ``_Bf16AccF32Head`` at rtol 1e-5 / atol 1e-6 (the bf16 operands'
+  products are exact in f32; only the summation order differs); dx and
+  dkernel within one bf16 ulp (rtol 2**-7): each is an f32 sum rounded to
+  bf16, and the two frameworks sum in other orders, so a sum near a
+  rounding boundary may round to the neighbouring bf16 value; the whole
+  f32-bodied model with that head within the bf16 logit shares above;
 - trainer (f32): per-step losses rtol 1e-5; final params after 3 AdamW
   steps atol 1e-6 / rtol 1e-5 for all but 0.5% of the elements, every
   element within ``2·lr·steps·1.5``: Adam's first steps are sign-like,
@@ -278,8 +285,8 @@ def test_eval_metrics_match_the_zoo():
 def test_unsupported_choices_raise():
     with pytest.raises(NotImplementedError, match="multi-card"):
         _port_model(mesh=["cuda:0", "cuda:1"])
-    with pytest.raises(NotImplementedError, match="logits_compute"):
-        _port_model(logits_compute="bf16")
+    with pytest.raises(ValueError, match="logits_compute"):
+        _port_model(logits_compute="fp8")
     with pytest.raises(ValueError, match="attn_impl"):
         _port_model(attn_impl="triton")
     with pytest.raises(ValueError, match="model_axis_mode"):
@@ -298,3 +305,57 @@ def test_unsupported_choices_raise():
     with pytest.raises(ValueError, match="dense_sharding"):
         DataParallelTrainer(model, port_zoo.loss, port_zoo.optimizer(), device="cpu",
                             dense_sharding="zero3")
+
+
+def test_bf16_logits_head_parity_and_checkpoint_names():
+    """``logits_compute="bf16"``: the same parameter tree as the f32 head
+    (one JAX checkpoint loads into both heads), and the head's logits,
+    dx and dkernel against JAX's ``_Bf16AccF32Head`` under ``jax.vjp``."""
+    tokens, _ = _data(BATCH)
+    j32 = zoo.custom_model(**PARAMS, use_bf16=False)
+    j16 = zoo.custom_model(**PARAMS, use_bf16=False, logits_compute="bf16")
+    variables = _jax_variables(j32, tokens)
+    paths = lambda v: {p for p, _ in jax.tree_util.tree_flatten_with_path(v)[0]}  # noqa: E731
+    assert paths(variables) == paths(_jax_variables(j16, tokens))
+    f32_head, bf16_head = _port_from_jax(variables), _port_from_jax(
+        variables, logits_compute="bf16")
+    assert isinstance(bf16_head.lm_head, port_zoo.Bf16AccF32Head)
+    assert ({n for n, _ in f32_head.named_parameters()}
+            == {n for n, _ in bf16_head.named_parameters()})
+    want = np.asarray(j16.apply(variables, jnp.asarray(tokens)))
+    with torch.no_grad():
+        got = bf16_head(torch.from_numpy(tokens))
+        ref = f32_head(torch.from_numpy(tokens))
+    assert got.dtype == torch.float32
+    diff = np.abs(got.numpy() - want)
+    assert diff.max() <= BF16_LOGIT_MAX_SHARE * np.abs(want).max(), diff.max()
+    assert diff.mean() <= BF16_LOGIT_MEAN_SHARE * np.abs(want).mean(), diff.mean()
+    assert not torch.equal(got, ref)  # the operands really were rounded
+
+    # The head alone, forward and backward, on both x dtypes.
+    rng = np.random.default_rng(5)
+    kernel = (rng.standard_normal((32, 200)) * 0.2).astype(np.float32)
+    bias = rng.standard_normal(200).astype(np.float32)
+    g = rng.standard_normal((3, 7, 200)).astype(np.float32)
+    head = zoo._Bf16AccF32Head(200)
+    for x_dtype, t_dtype in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        x = jnp.asarray(rng.standard_normal((3, 7, 32)).astype(np.float32)).astype(x_dtype)
+        params = {"params": {"kernel": jnp.asarray(kernel), "bias": jnp.asarray(bias)}}
+        out, vjp = jax.vjp(lambda p, x: head.apply(p, x), params, x)
+        dparams, dx = vjp(jnp.asarray(g))
+        port = port_zoo.Bf16AccF32Head(32, 200, device="cpu")
+        with torch.no_grad():
+            port.weight.copy_(torch.from_numpy(kernel.T))
+            port.bias.copy_(torch.from_numpy(bias))
+        xt = torch.from_numpy(np.array(x.astype(jnp.float32))).to(t_dtype).requires_grad_()
+        logits = port(xt)
+        logits.backward(torch.from_numpy(g))
+        assert logits.dtype == torch.float32 and xt.grad.dtype == t_dtype
+        np.testing.assert_allclose(logits.detach().numpy(), np.asarray(out),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(xt.grad.float().numpy(), np.asarray(dx.astype(jnp.float32)),
+                                   rtol=2 ** -7, atol=0)
+        np.testing.assert_allclose(port.weight.grad.numpy().T,
+                                   np.asarray(dparams["params"]["kernel"]), rtol=2 ** -7, atol=0)
+        np.testing.assert_allclose(port.bias.grad.numpy(),
+                                   np.asarray(dparams["params"]["bias"]), rtol=1e-5, atol=1e-5)
