@@ -419,6 +419,40 @@ optimizer's xla engines:
     rtol 1e-6 / atol 5e-7 of K3 (sgd 1e-6 / 1e-6), ``apply_acc`` equal to
     ``apply``; each engine's step ms beside K3's.
 
+The observability planes (``obs/{tracing,trace,history,slo,report,top}.py``,
+``master/tensorboard_service.py``, ``common/profiler.py``):
+
+38. Phase 27's job (ETRF, vocab 1M per field split, batch 8192,
+    evaluation every 48 versions) with ``--tensorboard_log_dir``,
+    ``--profile_steps=9,17`` (tasks 3 and 4: two whole train windows),
+    ``--slo_goodput_target=0.5`` and ``--metrics_port=0``, a checkpoint
+    every 24 steps, and worker 0 SIGKILLed after the first as in phase 26.
+    Gates: (a) the merged master and worker journals assemble
+    (``obs.trace``) with no span outside its parent, each done task's
+    ``task.lifetime`` root has worker-side children, the CLI and
+    ``--selftest`` pass; (b) ``obs.report --json``: a goodput ratio in
+    (0, 1], one rescale with a cost, the phases summing to the wall within
+    LEDGER_RTOL; (c) the event file (every record's CRC checked) holds one
+    ``eval/*`` set per finalized round at its model version and the
+    ``train/*`` scalars; (d) the ``torch.profiler`` Chrome trace of the
+    window holds CUDA kernels named ``lookup_kernel`` (K2) and
+    ``dedup_apply_kernel`` (K3), 2 each a traced step; (e) while the job
+    runs the master's ``/slo`` lists the goodput SLO with its burn rates
+    and ``obs.top --once`` shows a row for each live worker.  Printed:
+    steady samples/s beside phase 27's, the report, the kernels' device
+    ms inside the job.
+39. The replica process at phase 25's configuration (phase 25's
+    artifact when it ran) with ``--trace_head_every=8``,
+    ``--slo_availability_target=0.99`` and ``--slo_p99_ms`` at 4x phase
+    25's p99, under 8 closed-loop clients whose 8-row requests carry
+    trace ids.  Gates: every request answered; the sampled requests
+    journaled with the generation, each assembling to ``rpc.predict`` ->
+    ``serve.queue`` / ``serve.batch`` -> ``serve.execute`` /
+    ``serve.respond`` with the batch span carrying the generation, at
+    least one in 8 traced requests; ``/slo`` lists both SLOs;
+    ``obs.top --serving --once`` renders the replica's row; 2 K2 a
+    dispatch.  Printed: requests/s and p99 beside phase 25's.
+
 Before each of phases 21-23 the free space of its directory is checked
 (a failure names the bytes needed); each deletes its directories.
 
@@ -439,7 +473,10 @@ also K2 twice per evaluation batch, and K2 twice per dispatch of each
 replica of phase 32; K4-K6 once per layer per step of both heads in
 phase 35; in phase 36 K3 twice per step and K2 twice per step and
 twice per dispatch; K3 once per step of phase 37's K3 runs and never in
-its engines' runs) fails the run.
+its engines' runs; K2 and K3 twice per step and K2 twice per evaluation
+batch in each of phase 38's workers, and twice per traced step in its
+profiler's trace; K2 twice per dispatch of phase 39's replica) fails the
+run.
 The line before the last holds the card's name and power limit, the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, with no
 result, when no CUDA device is available or the port is not beside it.
@@ -448,7 +485,8 @@ kernel; such a run prints no result line; phase 19 reuses phase 4's
 artifact when both run; phases 21 and 22 run together, and so do 24 and
 25; phase 27 prints phase 26's figures beside its own when both run;
 ``--phases 28,29`` runs the vision phases alone; phase 32 runs phase 31
-first, whose export it serves).
+first, whose export it serves; phase 38 prints phase 27's figures and
+phase 39 phase 25's beside its own when both run).
 """
 
 from __future__ import annotations
@@ -6674,6 +6712,551 @@ def engines_phase(card: str, seed: int, steps: int = 3, n_batches: int = 3):
     return result
 
 
+# ----------------------------------------------------------------------
+# phases 38-39: the observability planes on the card
+# ----------------------------------------------------------------------
+
+#: Phase 38's job: phase 27's, a checkpoint every 24 steps (the SIGKILL
+#: follows the first), the profiler over steps [9, 17) (tasks 3 and 4:
+#: two whole train windows of 4 steps, neither a worker's first task),
+#: the goodput SLO at 0.5.
+OBS_CKPT_STEPS = 24
+OBS_PROFILE_STEPS = (9, 17)
+OBS_GOODPUT_TARGET = 0.5
+#: The kernels the profiler's window must show by name (a substring of
+#: the demangled symbol, e.g. ``void lookup_kernel<4>(...)``): K2 and K3,
+#: twice each a step (PERF.md §6).
+PROFILED_KERNELS = {"fused_lookup": "lookup_kernel", "fused_dedup_apply": "dedup_apply_kernel"}
+#: Phase 39's p99 SLO is 4x phase 25's p99; without phase 25 in the run,
+#: the highest p99 phase 25 has shown (74 ms on an NVIDIA H100 80GB HBM3,
+#: 700.00 W: PERF.md §5).
+PHASE25_P99_MS = 74.0
+TRACED_SECONDS = 8.0
+TRACE_HEAD_EVERY = 8
+
+
+def http_json(addr: str, path: str, timeout_s: float = 10.0):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{addr}{path}", timeout=timeout_s) as response:
+        return json.loads(response.read().decode("utf-8"))
+
+
+def obs_tool(*args, timeout_s: float = 120.0):
+    """``python -m elasticdl_tpu_torch.obs.<tool> args``: (exit code,
+    stdout, stderr)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=here, capture_output=True,
+                          text=True, timeout=timeout_s)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def top_rows(frame: str) -> list:
+    """The first column of each row under ``obs.top``'s table header."""
+    lines = frame.splitlines()
+    for i, line in enumerate(lines):
+        if line.startswith(("WORKER", "REPLICA")):
+            return [row.split()[0] for row in lines[i + 1:] if row.strip()]
+    return []
+
+
+class PlaneWatch(threading.Thread):
+    """Polls a running master's exporter until its ``/slo`` lists the
+    goodput SLO with burn rates and ``obs.top --once`` shows a row for
+    every live worker (launched and not churned, from the journal)."""
+
+    def __init__(self, tb_dir: str, events: str):
+        super().__init__(name="plane-watch", daemon=True)
+        self._tb, self._events = tb_dir, events
+        self.stop = threading.Event()
+        self.slo = self.top = None
+        self.errors = []
+
+    def live_workers(self) -> list:
+        launched = {e["worker_id"] for e in journal_events(self._events, "worker_launch")}
+        gone = {w for e in journal_events(self._events, "worker_churn") for w in e["workers"]}
+        return sorted(launched - gone)
+
+    def run(self):
+        from elasticdl_tpu_torch.obs.exporter import MetricsExporter
+
+        while not self.stop.wait(0.5):
+            try:
+                port = MetricsExporter.read_port_file(self._tb)
+                if port is None:
+                    continue
+                addr = f"127.0.0.1:{port}"
+                if self.slo is None:
+                    payload = http_json(addr, "/slo")
+                    rows = [s for s in payload.get("statuses", []) if s["slo"] == "goodput"]
+                    if rows and set(rows[0]["burn_rates"]) == {
+                            "fast_short", "fast_long", "slow_short", "slow_long"}:
+                        self.slo = {"ticks": payload["ticks"], **rows[0]}
+                if self.top is None:
+                    live = self.live_workers()
+                    rc, out, err = obs_tool("elasticdl_tpu_torch.obs.top", "--addr", addr,
+                                            "--once", timeout_s=60)
+                    rows = top_rows(out)
+                    if rc == 0 and live and all(str(w) in rows for w in live):
+                        self.top = {"live": live, "rows": rows, "frame": out}
+                if self.slo is not None and self.top is not None:
+                    return
+            except Exception as exc:  # the job may be between states; keep polling
+                self.errors.append(repr(exc))
+
+
+#: A demangled kernel's name and template arguments, the first word that
+#: an argument list follows (``void (anonymous namespace)::lookup_kernel<4>(...``).
+_KERNEL_NAME = re.compile(r"(\w+(?:<\d+>)?)\(")
+
+
+def profiled_kernels(trace_path: str) -> dict:
+    """Per name in PROFILED_KERNELS: the CUDA kernel events of a Chrome
+    trace whose name holds it, their count and mean device ms."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    out = {}
+    for name, symbol in PROFILED_KERNELS.items():
+        mine = [e for e in kernels if symbol in e.get("name", "")]
+        out[name] = {"events": len(mine),
+                     "mean_ms": (sum(e["dur"] for e in mine) / len(mine) / 1e3) if mine else None,
+                     "symbols": sorted({m.group(1) for m in map(_KERNEL_NAME.search, (
+                         e["name"] for e in mine)) if m})}
+    out["kernel_events"] = len(kernels)
+    return out
+
+
+def observed_job_phase(card: str, seed: int, workdir: str, etrf=None,
+                       shards: int = ETRF_SHARDS, per_shard: int = ETRF_PER_SHARD,
+                       validation: int = ETRF_VALIDATION, vocab: int = 1_000_000,
+                       per_task: int = ELASTIC_PER_TASK, batch: int = TRAIN_BATCH,
+                       eval_steps: int = ETRF_EVAL_STEPS, checkpoint_steps: int = OBS_CKPT_STEPS,
+                       profile_steps=OBS_PROFILE_STEPS, extra_flags=()):
+    """Phase 38: phase 27's job (ETRF, vocab 1M per field split, batch
+    8192, evaluation every ``eval_steps`` versions) with the observability
+    planes on: ``--tensorboard_log_dir``, ``--profile_steps``,
+    ``--slo_goodput_target``, ``--metrics_port=0``; worker 0 SIGKILLed
+    once the step-``checkpoint_steps`` checkpoint is committed and a task
+    is in flight.  Gates: (a) the merged journals assemble with no span
+    outside its parent, each done task's ``task.lifetime`` root has
+    worker-side children, and the assembler's CLI and selftest pass; (b)
+    ``obs.report --json``: a goodput ratio in (0, 1], one rescale with a
+    cost, the phases summing to the wall within LEDGER_RTOL; (c) the event
+    file, every record's CRC checked: one ``eval/*`` set per finalized
+    round at its version, the ``train/*`` scalars; (d) the profiler's
+    Chrome trace holds K2 and K3 by name, 2 each a traced step; (e) while
+    the job runs, ``/slo`` lists the goodput SLO with its burn rates and
+    ``obs.top --once`` a row for each live worker."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.master.tensorboard_service import read_events
+    from elasticdl_tpu_torch.obs import trace as obs_trace
+
+    torch.cuda.empty_cache()
+    require_free(workdir, 4 * 3_000_000_000 + 1_000_000_000,
+                 "the observed job (its files and 3 checkpoints)")
+    job = os.path.join(workdir, "observed")
+    train_dir, val_dir = os.path.join(job, "train"), os.path.join(job, "validation")
+    ckpt, tb = os.path.join(job, "ckpt"), os.path.join(job, "tb")
+    n = shards * per_shard
+    t0 = time.perf_counter()
+    write_criteo_shards(train_dir, n, shards, vocab, seed)
+    write_criteo_shards(val_dir, validation, 1, vocab, seed + 27)
+    write_s = time.perf_counter() - t0
+    master_log = os.path.join(job, "master.log")
+    here = os.path.dirname(os.path.abspath(__file__))
+    start, end = profile_steps
+    argv = [sys.executable, "-m", "elasticdl_tpu_torch.master.main",
+            "--distribution_strategy=ParameterServerStrategy", "--num_workers=1",
+            "--model_zoo=model_zoo", f"--model_def={MODEL_DEF}",
+            f"--model_params=vocab_size={vocab}", "--sparse_apply_every=1",
+            f"--training_data={train_dir}", f"--validation_data={val_dir}",
+            f"--evaluation_steps={eval_steps}", f"--minibatch_size={batch}",
+            f"--records_per_task={per_task}", f"--checkpoint_dir={ckpt}",
+            f"--checkpoint_steps={checkpoint_steps}", "--pipeline=async",
+            "--parse_pool_workers=2", f"--tensorboard_log_dir={tb}",
+            f"--profile_steps={start},{end}", f"--slo_goodput_target={OBS_GOODPUT_TARGET}",
+            "--metrics_port=0", *extra_flags]
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    events = os.path.join(tb, "events.jsonl")
+    committed = os.path.join(ckpt, f"step_{checkpoint_steps:012d}", "manifest.json")
+    t_start = time.time()
+    with open(master_log, "wb") as log_file:
+        proc = subprocess.Popen(argv, cwd=here, env=env, stdout=log_file,
+                                stderr=subprocess.STDOUT)
+    watch = PlaneWatch(tb, events)
+    watch.start()
+    try:
+        wait_until(f"the step-{checkpoint_steps} checkpoint", lambda: os.path.exists(committed),
+                   proc, master_log, 600)
+        t_commit = os.path.getmtime(committed)
+        wait_until("a task in flight after the checkpoint",
+                   lambda: in_flight(events, 0, t_commit), proc, master_log, 600)
+        launch = journal_events(events, "worker_launch")[0]
+        victim = launch["pid"]
+        if launch["worker_id"] != 0 or parent_pid(victim) != proc.pid:
+            fail(f"observed job: worker {launch} is not the master's ({proc.pid}) child")
+        os.kill(victim, signal.SIGKILL)
+        log(f"observed job: SIGKILLed worker 0 (pid {victim}) {time.time() - t_start!r} s after "
+            f"the master started, once step {checkpoint_steps} was committed")
+        try:
+            rc = proc.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            fail(f"the observed job did not finish within 900 s:\n{tail(master_log)}")
+        wall = time.time() - t_start
+    finally:
+        watch.stop.set()
+        watch.join(timeout=120)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    logs = os.path.join(ckpt, "elasticdl-job_worker_logs")
+    if rc != 0:
+        fail(f"the observed job exited {rc}:\n{tail(master_log)}\n--- worker 1\n"
+             f"{tail(os.path.join(logs, 'worker_1.log'))}")
+
+    def worker_events(wid, event):
+        return journal_events(os.path.join(tb, f"events_worker_{wid}.jsonl"), event)
+
+    master = {name: journal_events(events, name) for name in (
+        "task_dispatch", "task_done", "worker_churn", "evaluation_metrics", "master_exit")}
+    if len(master["worker_churn"]) != 1 or master["master_exit"][-1]["forbidden_modules"]:
+        fail(f"observed job: churn {master['worker_churn']}, exit {master['master_exit']}")
+    schema_checked = journals_schema(tb, "observed job")
+
+    # (e) the live planes.
+    if watch.slo is None or watch.top is None:
+        fail(f"observed job: the live planes never answered: /slo {watch.slo}, top "
+             f"{watch.top}; errors {watch.errors[-3:]}")
+
+    # (a) the trace.
+    assembled = obs_trace.assemble([tb])
+    problems = assembled["invariant_problems"] + obs_trace.validate_chrome_trace(
+        assembled["chrome"])
+    spans = assembled["spans"]
+    by_id = {s["span_id"]: s for s in spans}
+    for done in master["task_done"]:
+        root = by_id.get(done["trace_id"])
+        children = [s for s in spans if s["parent_span_id"] == done["trace_id"]
+                    and s["proc"].startswith("worker_")]
+        if root is None or root["name"] != "task.lifetime" or root["proc"] != "master":
+            problems.append(f"task {done['task_id']}: root {root}")
+        elif not {"worker.task", "worker.report_task"} <= {s["name"] for s in children}:
+            problems.append(f"task {done['task_id']}: worker children "
+                            f"{sorted(s['name'] for s in children)}")
+    trace_json = os.path.join(job, "trace.json")
+    rc_cli, _, err_cli = obs_tool("elasticdl_tpu_torch.obs.trace", tb, "-o", trace_json)
+    rc_self, out_self, err_self = obs_tool("elasticdl_tpu_torch.obs.trace", "--selftest")
+    if rc_cli != 0 or rc_self != 0:
+        problems.append(f"obs.trace exited {rc_cli} / --selftest {rc_self}: "
+                        f"{err_cli[-800:]} {err_self[-800:]}")
+    if problems:
+        fail(f"observed job: the trace: {problems[:5]}")
+
+    # (b) the report.
+    report_json = os.path.join(job, "report.json")
+    rc_rep, report_text, err_rep = obs_tool("elasticdl_tpu_torch.obs.report", events,
+                                            "--json", report_json)
+    if rc_rep != 0:
+        fail(f"observed job: obs.report exited {rc_rep}: {err_rep[-2000:]}")
+    with open(report_json) as f:
+        report = json.load(f)
+    phases_s = sum(report["phases"].values())
+    rescales = report["rescales"]
+    if not (0.0 < report["goodput_ratio"] <= 1.0) or len(rescales) != 1 or \
+            not rescales[0].get("total_s") or \
+            abs(phases_s - report["wall_s"]) > LEDGER_RTOL * report["wall_s"]:
+        fail(f"observed job: the report's ratio {report['goodput_ratio']}, rescales "
+             f"{rescales}, phases {phases_s!r} s against wall {report['wall_s']!r} s")
+
+    # (c) the TensorBoard scalars.
+    event_files = sorted(f for f in os.listdir(tb) if f.startswith("events.out.tfevents."))
+    if len(event_files) != 1:
+        fail(f"observed job: event files {event_files}")
+    scalars = {}
+    for record in read_events(os.path.join(tb, event_files[0])):
+        for tag, value in record["scalars"].items():
+            scalars.setdefault(tag, []).append((record["step"], value))
+    rounds = master["evaluation_metrics"]
+    if not rounds:
+        fail("observed job: no evaluation round")
+    for name in rounds[0]["metrics"]:
+        want = [(r["model_version"], float(np.float32(r["metrics"][name]))) for r in rounds]
+        if scalars.get(f"eval/{name}") != want:
+            fail(f"observed job: eval/{name} scalars {scalars.get(f'eval/{name}')}, want {want}")
+    train_tags = sorted(t for t in scalars if t.startswith("train/"))
+    if not {"train/records_finished", "train/model_version", "train/worker_restarts"} <= \
+            set(train_tags) or scalars["train/records_finished"][-1][1] != n:
+        fail(f"observed job: train scalars {train_tags}: "
+             f"{scalars.get('train/records_finished')}")
+
+    # (d) the profiler's window.
+    windows = worker_events(0, "profile_window")
+    if [w["action"] for w in windows] != ["open", "close"] or not windows[1].get("trace_file"):
+        fail(f"observed job: worker 0's profile_window events {windows}")
+    window_steps = per_task // batch
+    first = windows[0]["at_step"]
+    last = -(-(end - 1 - first) // window_steps) * window_steps + first
+    traced_steps = last - first
+    profiled = profiled_kernels(windows[1]["trace_file"])
+    for name in PROFILED_KERNELS:
+        if profiled[name]["events"] != 2 * traced_steps:
+            fail(f"observed job: the profiler's trace holds {profiled[name]['events']} "
+                 f"{PROFILED_KERNELS[name]} kernels in {traced_steps} steps (want "
+                 f"{2 * traced_steps}); {profiled['kernel_events']} kernel events")
+    trace_mb = os.path.getsize(windows[1]["trace_file"]) / 1e6
+
+    # Launches and rates, as phase 27.
+    per_worker, steady = {}, []
+    for wid in (0, 1):
+        done = worker_events(wid, "worker_task_done")
+        last_done = done[-1]
+        steps, evals = last_done["process_steps"], last_done["process_eval_batches"]
+        want = {"fused_lookup": 2 * steps + 2 * evals, "fused_dedup_apply": 2 * steps}
+        if last_done["kernel_launches"] != want or last_done["forbidden_modules"]:
+            fail(f"observed job: worker {wid} launched {last_done['kernel_launches']} in "
+                 f"{steps} steps and {evals} evaluation batches (want {want})")
+        per_worker[wid] = {"steps": steps, "eval_batches": evals,
+                           "launches": last_done["kernel_launches"]}
+        saved_at = [e["ts"] for e in worker_events(wid, "checkpoint_saved")]
+        traced = [w["ts"] for w in worker_events(wid, "profile_window")]
+        train_done = [e for e in done if e["type"] == "TRAINING"]
+        steady += [e for e in train_done[1:] if not any(
+            e["ts"] - e["seconds"] <= ts <= e["ts"] for ts in saved_at + traced)]
+    steady_s = sum(e["seconds"] for e in steady)
+    steady_rate = sum(e["records"] for e in steady) / steady_s if steady else None
+    result = {
+        "records": n, "batch": batch, "write_s": write_s, "wall_s": wall,
+        "steady_tasks": len(steady), "steady_samples_per_s": steady_rate,
+        "phase27_steady_samples_per_s": None if etrf is None else etrf["steady_samples_per_s"],
+        "per_worker": per_worker, "journal_records_checked": schema_checked,
+        "trace": {"spans": len(spans), "clamped": assembled["clamped"],
+                  "offsets": assembled["offsets"],
+                  "chrome_events": len(assembled["chrome"]["traceEvents"])},
+        "report": {k: report[k] for k in ("goodput_ratio", "wall_s", "phases")},
+        "rescale": {k: rescales[0].get(k) for k in ("total_s", "detection_s", "rendezvous_s",
+                                                    "redo_s")},
+        "eval_rounds": [r["model_version"] for r in rounds], "train_scalar_tags": train_tags,
+        "profile": {"window": list(profile_steps), "at_step": first,
+                    "traced_steps": traced_steps, "trace_mb": trace_mb, **profiled},
+        "slo": {k: watch.slo[k] for k in ("ticks", "burn_rates", "budget_remaining_ratio",
+                                          "alerting", "grade")},
+        "top_rows": watch.top["rows"], "live_workers": watch.top["live"], "card": card,
+    }
+    log(f"observed job: report goodput_ratio {report['goodput_ratio']!r} over "
+        f"{report['wall_s']!r} s, rescale {result['rescale']}; {len(spans)} spans "
+        f"({assembled['clamped']} clamped) over {len(master['task_done'])} tasks; eval rounds "
+        f"{result['eval_rounds']}; /slo goodput {result['slo']}; top rows {watch.top['rows']} "
+        f"(live {watch.top['live']}) [{card}]")
+    log(f"observed job: the profiler's window over steps {first + 1}-{last} ({trace_mb:.1f} MB): "
+        f"K2 {profiled['fused_lookup']['events']} x {profiled['fused_lookup']['mean_ms']!r} ms, "
+        f"K3 {profiled['fused_dedup_apply']['events']} x "
+        f"{profiled['fused_dedup_apply']['mean_ms']!r} ms ({profiled['fused_lookup']['symbols']}, "
+        f"{profiled['fused_dedup_apply']['symbols']}) [{card}]")
+    log(f"observed job: {steady_rate!r} samples/s over {len(steady)} steady tasks with the "
+        f"planes on (phase 27 in this call, planes off: "
+        f"{result['phase27_steady_samples_per_s']!r}); K2/K3 per worker {per_worker}; wall "
+        f"{wall!r} s [{card}]")
+    shutil.rmtree(job, ignore_errors=True)
+    return result
+
+
+def traced_replica_phase(card: str, seed: int, workdir: str, full=None, held_out=None,
+                         replica25=None, clients: int = 8, seconds: float = TRACED_SECONDS):
+    """Phase 39: ``python -m elasticdl_tpu_torch.serving.replica_main`` on
+    the card at phase 25's configuration (phase 20's split DeepFM, 26M
+    rows; phase 25's compacted full when it ran, else a fresh full of
+    ``loop_trainer``) with ``--trace_head_every=8``,
+    ``--slo_availability_target=0.99`` and ``--slo_p99_ms`` at 4x phase
+    25's p99; 8 closed-loop clients send 8-row requests, each with its
+    own trace id and a client span id.  Gates: every request answered;
+    the sampled requests journaled as ``request_trace`` events with the
+    generation, each an assembled span tree (``rpc.predict`` under the
+    client's span, ``serve.queue`` and ``serve.respond`` under it,
+    ``serve.execute`` under the dispatch's one ``serve.batch``, which
+    carries the generation), at least one in ``head_every`` of the
+    traced requests; ``/slo`` lists both SLOs with burn rates; ``obs.top
+    --serving --once`` renders the replica's row; 2 K2 a dispatch
+    (``/stats``)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.obs import trace as obs_trace
+    from elasticdl_tpu_torch.serving.frontend import PredictClient, encode_features
+    from elasticdl_tpu_torch.serving.replica_main import live_replicas
+
+    own = full is None
+    if own:
+        from elasticdl_tpu_torch.checkpoint.delta import DeltaExporter
+
+        loop = loop_trainer(seed)
+        pub = os.path.join(workdir, "traced_pub")
+        exporter = DeltaExporter(pub, model_zoo="model_zoo", model_def=MODEL_DEF,
+                                 model_params=SPLIT_TRAIN_PARAMS)
+        full = exporter.publish_full(loop.trainer, event_time=float(loop.trainer.step))
+        held_out = loop.held_out
+        del loop, exporter
+        import torch
+
+        torch.cuda.empty_cache()
+    p25 = replica25["p99_ms"] if replica25 else PHASE25_P99_MS
+    slo_p99 = 4.0 * p25
+    serve = os.path.join(workdir, "traced_serve")
+    os.makedirs(serve, exist_ok=True)
+    warmup = os.path.join(workdir, "traced_warmup.npz")
+    with open(warmup, "wb") as f:
+        f.write(encode_features({k: v[:1] for k, v in held_out.items()}))
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    stderr_path = os.path.join(workdir, "traced_replica.log")
+    stderr = open(stderr_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "elasticdl_tpu_torch.serving.replica_main", "--model_dir", full,
+         "--serve_dir", serve, "--telemetry_interval_s", "1.0", "--warmup_features", warmup,
+         f"--trace_head_every={TRACE_HEAD_EVERY}", "--slo_availability_target=0.99",
+         f"--slo_p99_ms={slo_p99}"],
+        cwd=here, env=env, stdout=subprocess.DEVNULL, stderr=stderr)
+
+    def died(what):
+        stderr.flush()
+        fail(f"the traced replica exited {proc.returncode} {what}:\n{tail(stderr_path)}")
+
+    stop = threading.Event()
+    records, errors = [], []
+    try:
+        deadline = time.perf_counter() + 300
+        while not live_replicas(serve):
+            if proc.poll() is not None:
+                died("before it published its port")
+            if time.perf_counter() > deadline:
+                fail("the traced replica did not publish its port within 300 s")
+            time.sleep(0.05)
+        info = live_replicas(serve)[0]
+        addr, metrics_addr = f"127.0.0.1:{info['port']}", f"127.0.0.1:{info['metrics_port']}"
+        rng = np.random.default_rng(39)
+        vocab = int(SPLIT_TRAIN_PARAMS.split("vocab_size=")[1].split(",")[0])
+        pool = make_requests(rng, vocab, 64, 8)
+
+        def client(w):
+            c = PredictClient(addr, deadline_s=30.0)
+            i = 0
+            try:
+                while not stop.is_set():
+                    trace_id = f"lg-{w}-{i}"
+                    t0 = time.time()
+                    try:
+                        out = c.predict(pool[(w + i * clients) % len(pool)],
+                                        trace_id=trace_id, span_id=trace_id)
+                        if out.shape != (8,) or not np.all(np.isfinite(out)):
+                            raise ValueError(f"response of shape {out.shape} / non-finite")
+                        records.append((t0, time.time(), trace_id))
+                    except Exception as exc:
+                        errors.append(repr(exc))
+                    i += 1
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=client, args=(w,), name=f"traced-client-{w}")
+                   for w in range(clients)]
+        t_run = time.time()
+        for t in threads:
+            t.start()
+        time.sleep(seconds)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+            if t.is_alive():
+                fail(f"client thread {t.name} did not finish")
+        t_end = time.time()
+        time.sleep(2.5)  # two SLO ticks and a telemetry record after the traffic
+        slo = http_json(metrics_addr, "/slo")
+        rc_top, frame, err_top = obs_tool("elasticdl_tpu_torch.obs.top", "--addr", metrics_addr,
+                                          "--serving", "--once", timeout_s=60)
+        probe = PredictClient(addr, deadline_s=30.0)
+        stats = probe.stats()
+        probe.close()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            if proc.wait(timeout=30) != 0:
+                died("after SIGTERM")
+        except subprocess.TimeoutExpired:
+            fail("the traced replica did not exit within 30 s of SIGTERM")
+    except Exception:
+        if proc.poll() is not None:
+            died("while serving")
+        raise
+    finally:
+        stop.set()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        stderr.close()
+    if errors:
+        fail(f"traced replica: {len(errors)} of {len(errors) + len(records)} requests failed: "
+             f"{errors[:3]}")
+    journal = os.path.join(serve, "events.jsonl")
+    traces = journal_events(journal, "request_trace")
+    generation = journal_events(journal, "serving_replica_start")[0]["generation"]
+    sampled_head = [t for t in traces if t["sampled_by"] == "head"]
+    problems = []
+    if len(sampled_head) < len(records) // TRACE_HEAD_EVERY or any(
+            t.get("generation") != generation for t in traces):
+        problems.append(f"{len(sampled_head)} head samples of {len(records)} traced requests; "
+                        f"generations {sorted({t.get('generation') for t in traces})}")
+    assembled = obs_trace.assemble([journal])
+    spans = assembled["spans"]
+    by_id = {s["span_id"]: s for s in spans}
+    for t in traces:
+        chain = obs_trace.request_chain(spans, t["trace_id"])
+        names = [s["name"] for s in chain]
+        rpc = next((s for s in chain if s["name"] == "rpc.predict"), None)
+        batch = by_id.get((rpc or {}).get("args", {}).get("batch_span_id", ""))
+        execute = next((s for s in chain if s["name"] == "serve.execute"), None)
+        if (names != list(obs_trace.SERVING_SPAN_ORDER[1:]) or rpc["parent_span_id"] != t[
+                "trace_id"] or batch is None or batch["args"].get("generation") != generation
+                or execute["parent_span_id"] != batch["span_id"]):
+            problems.append(f"{t['trace_id']}: chain {names}, batch {batch}")
+            break
+    problems += assembled["invariant_problems"]
+    statuses = {s["slo"]: s for s in slo.get("statuses", [])}
+    if set(statuses) != {"serving_availability", "serving_latency"} or any(
+            len(s["burn_rates"]) != 4 for s in statuses.values()):
+        problems.append(f"/slo statuses {sorted(statuses)}")
+    if rc_top != 0 or top_rows(frame)[:1] != ["0"]:
+        problems.append(f"obs.top --serving exited {rc_top}: {frame[-800:]} {err_top[-400:]}")
+    launches, dispatches = stats["kernel_launches"], stats["executes"]
+    if launches["fused_lookup"] != 2 * dispatches or launches["fused_lookup_fm"]:
+        problems.append(f"launches {launches} in {dispatches} dispatches")
+    if problems:
+        fail(f"traced replica: {problems[:4]}")
+    latencies = [b - a for a, b, _ in records]
+    result = {
+        "requests": len(records), "requests_per_s": len(records) / (t_end - t_run),
+        "p50_ms": percentile_ms(latencies, 50), "p99_ms": percentile_ms(latencies, 99),
+        "phase25_requests_per_s": None if not replica25 else replica25["requests_per_s"],
+        "phase25_p99_ms": None if not replica25 else replica25["p99_ms"],
+        "slo_p99_ms": slo_p99, "sampled": len(traces),
+        "sampled_by": {k: sum(t["sampled_by"] == k for t in traces)
+                       for k in ("head", "tail", "outcome")},
+        "spans": len(spans), "generation": generation,
+        "slo": {name: {k: s[k] for k in ("burn_rates", "budget_remaining_ratio", "alerting")}
+                for name, s in statuses.items()},
+        "launches": launches, "dispatches": dispatches, "artifact": "phase 25's" if not own
+        else "its own", "card": card,
+    }
+    log(f"traced replica: {len(records)} traced requests of 8 rows from {clients} clients, "
+        f"{result['requests_per_s']!r} requests/s, p50 {result['p50_ms']!r} ms, p99 "
+        f"{result['p99_ms']!r} ms (phase 25 in this call: {result['phase25_requests_per_s']!r} "
+        f"requests/s, p99 {result['phase25_p99_ms']!r} ms); {len(traces)} sampled "
+        f"{result['sampled_by']}; /slo {result['slo']} (p99 bound {slo_p99!r} ms); launches "
+        f"{launches} in {dispatches} dispatches [{card}]")
+    if own:
+        shutil.rmtree(os.path.dirname(full), ignore_errors=True)
+    shutil.rmtree(serve, ignore_errors=True)
+    return result
+
+
 def ring_entries(ring_kernels, ring_whole, cp, card, resources=None):
     """The K7-K9 entries of the kernels line: timed at RING_BENCH (phase
     13), launched on the CP LM path (phase 15, both layouts)."""
@@ -6808,7 +7391,7 @@ def main() -> None:
     gather = block_gather_phase(card, args.seed) if run(17) else None
     sharded = sharded_kernel_phase(card, args.seed) if run(18) else None
     launches = train = mesh_train = split_train = ckpt = continuous = process = elastic = None
-    stream_loop = None
+    stream_loop = traced = None
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if run(3, 4):
@@ -6828,6 +7411,9 @@ def main() -> None:
             loop = loop or loop_trainer(args.seed)
             continuous, exporter, full, pub = continuous_loop_phase(card, loop, workdir)
             process = replica_process_phase(card, loop, exporter, full, pub, workdir)
+            if run(39):  # phase 25's artifact, under traced traffic
+                traced = traced_replica_phase(card, args.seed, workdir, full=full,
+                                              held_out=loop.held_out, replica25=process)
             del exporter
             shutil.rmtree(pub, ignore_errors=True)
             import torch
@@ -6847,6 +7433,16 @@ def main() -> None:
                 elastic = elastic_job_phase(card, args.seed, workdir, split_train)
             if run(27):
                 etrf = etrf_job_phase(card, args.seed, workdir, elastic)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+    observed = None
+    if run(38, 39):
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            if run(38):
+                observed = observed_job_phase(card, args.seed, workdir, etrf)
+            if run(39) and traced is None:
+                traced = traced_replica_phase(card, args.seed, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     vision = vision_training_phase(card, args.seed) if run(28) else None
@@ -6897,7 +7493,8 @@ def main() -> None:
                         "etrf_job": etrf, "vision_training": vision, "local_job": local,
                         "ctr_zoo": zoo, "census_job": census, "census_fleet": fleet,
                         "allreduce_jobs": allreduce, "lm_bf16_head": lm_heads,
-                        "stream_loop": stream_loop, "engines": engines, "card": card}))
+                        "stream_loop": stream_loop, "engines": engines,
+                        "observed_job": observed, "traced_replica": traced, "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -6912,7 +7509,7 @@ def main() -> None:
                     "local_job": local, "ctr_zoo": zoo, "census_job": census,
                     "census_fleet": fleet, "allreduce_jobs": allreduce,
                     "lm_bf16_head": lm_heads, "stream_loop": stream_loop, "engines": engines,
-                    "card": card}))
+                    "observed_job": observed, "traced_replica": traced, "card": card}))
 
     by_path = {
         "fused_lookup_fm": {"serve_merged": launches["fused_lookup_fm"],
@@ -6948,7 +7545,16 @@ def main() -> None:
                                  r["launches"]["fused_lookup"]
                              for rid, r in fleet["per_replica"].items()},
                          f"stream_loop ({stream_loop['steps']} steps, {stream_loop['requests']} "
-                         "dispatches)": stream_loop["launches"]["fused_lookup"]},
+                         "dispatches)": stream_loop["launches"]["fused_lookup"],
+                         "observed_job_worker_process": {
+                             f"worker {w} ({r['steps']} steps, {r['eval_batches']} evaluation "
+                             "batches)": r["launches"]["fused_lookup"]
+                             for w, r in observed["per_worker"].items()},
+                         f"observed_job_profiler_window ({observed['profile']['traced_steps']} "
+                         "steps, CUDA kernel events)":
+                             observed["profile"]["fused_lookup"]["events"],
+                         f"traced_replica_process ({traced['dispatches']} dispatches)":
+                             traced["launches"]["fused_lookup"]},
         "fused_dedup_apply": {"train_strict": train["launches_strict"]["fused_dedup_apply"],
                               "train_window": train["launches_window"]["fused_dedup_apply"],
                               "train_mesh": mesh_train["launches"]["fused_dedup_apply"],
@@ -6970,6 +7576,13 @@ def main() -> None:
                                   census["launches"]["fused_dedup_apply"],
                               f"stream_loop ({stream_loop['steps']} steps)":
                                   stream_loop["launches"]["fused_dedup_apply"],
+                              "observed_job_worker_process": {
+                                  f"worker {w} ({r['steps']} steps)":
+                                      r["launches"]["fused_dedup_apply"]
+                                  for w, r in observed["per_worker"].items()},
+                              f"observed_job_profiler_window "
+                              f"({observed['profile']['traced_steps']} steps, CUDA kernel "
+                              "events)": observed["profile"]["fused_dedup_apply"]["events"],
                               **{f"engines_{k}_k3_3_steps":
                                  engines[k]["launches"]["fused"]["fused_dedup_apply"]
                                  for k in ENGINE_KINDS}},
@@ -7000,6 +7613,7 @@ def main() -> None:
             entry["shapes"] = r["shapes"]
             entry["train_split_step_ms"] = split_train["breakdown_ms"]["kernel_ms"][name]
             entry["ctr_zoo_shapes"] = {m: z["kernels"][name] for m, z in zoo.items()}
+            entry["job_profiler_window"] = observed["profile"][name]
         builds = [(resources or {}).get(build) for build in SPARSE_BUILDS[name]]
         entry["resources"] = (builds[0] if len(builds) == 1
                               else dict(zip(SPARSE_BUILDS[name], builds)))
@@ -7021,6 +7635,7 @@ def main() -> None:
         "train_step_ms": train["breakdown_ms"]["fused_dedup_apply"],
         "sharded": on_mesh["fused_dedup_apply"],
         "ctr_zoo_shapes": {m: z["kernels"]["fused_dedup_apply"] for m, z in zoo.items()},
+        "job_profiler_window": observed["profile"]["fused_dedup_apply"],
         "card": card,
     })
     line += flash_entries(attention, edges, lm, card, resources, lm_ckpt, lm_heads)

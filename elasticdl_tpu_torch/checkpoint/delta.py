@@ -31,9 +31,12 @@ collective every rank calls, and the publishing belongs to rank 0.
 ``ckpt.delta`` is a fault site of every ``publish_delta``: a ``truncate``
 fault tears the largest file of the delta after the manifest recorded
 its CRC, so the consumer quarantines the link, and journals
-``checkpoint_quarantined`` (the JAX package's event).  Not ported: the
-checkpoint metrics and the other journal events (ROADMAP.md Queue 1
-item 8).
+``checkpoint_quarantined``.  Each publish observes the
+``elasticdl_checkpoint_*`` metrics (kinds ``serving_full`` and
+``delta``) and journals the JAX package's events with its fields:
+``checkpoint_saved`` (a full), ``delta_checkpoint`` (``step``,
+``base_step``, ``rows``, ``tables``, ``event_time``) and
+``delta_compaction`` (``step``, ``deltas_folded``, ``event_time``).
 """
 
 from __future__ import annotations
@@ -42,12 +45,17 @@ import json
 import os
 import shutil
 import tempfile
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from elasticdl_tpu_torch import obs
-from elasticdl_tpu_torch.checkpoint.saver import verify_integrity, write_integrity_manifest
+from elasticdl_tpu_torch.checkpoint.saver import (
+    _ckpt_metrics,
+    verify_integrity,
+    write_integrity_manifest,
+)
 from elasticdl_tpu_torch.common import faults
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.serving.export import export_model, read_variables
@@ -77,6 +85,7 @@ def quarantine_artifact(path: str, reason: str) -> str:
         target = f"{path}{_QUARANTINE_SUFFIX}.{n}"
         n += 1
     logger.error("Quarantining corrupt artifact %s -> %s (%s)", path, target, reason)
+    _ckpt_metrics()[3].inc()
     try:
         os.rename(path, target)
     except OSError:
@@ -153,6 +162,7 @@ class DeltaExporter:
     def publish_full(self, trainer, event_time: float = 0.0) -> str:
         """Export a full artifact as the new chain base (with the integrity
         manifest) and reset the head."""
+        start = time.monotonic()
         tmp_dir = self._export_to_tmp(trainer)
         signature = self._ingest_tmp(tmp_dir, event_time)
         step = int(signature["step"])
@@ -169,6 +179,8 @@ class DeltaExporter:
             return final_dir
         os.rename(tmp_dir, final_dir)
         self._deltas_since_full = 0
+        self._note_saved(start, "serving_full", "checkpoint_saved", step=step,
+                         kind="serving_full", event_time=float(event_time))
         logger.info("Published full serving artifact at step %d -> %s", step, final_dir)
         self._garbage_collect()
         return final_dir
@@ -179,6 +191,7 @@ class DeltaExporter:
         the head."""
         if self._head_step is None:
             raise RuntimeError("publish_full must seed the chain first")
+        start = time.monotonic()
         tmp_dir = self._export_to_tmp(trainer)
         with open(os.path.join(tmp_dir, "signature.json")) as f:
             signature = json.load(f)
@@ -239,6 +252,8 @@ class DeltaExporter:
         self._head_dense = dense_bytes
         self._head_event_time = float(event_time)
         self._deltas_since_full += 1
+        self._note_saved(start, "delta", "delta_checkpoint", step=step, base_step=base_step,
+                         rows=total_rows, tables=len(tables_meta), event_time=float(event_time))
         logger.info("Published delta %d -> %d (%d changed blocks) -> %s",
                     base_step, step, total_rows, final_dir)
         return final_dir
@@ -248,6 +263,7 @@ class DeltaExporter:
         repairs a quarantine gap after the last full."""
         if self._head_step is None or self._head_signature is None:
             return None
+        start = time.monotonic()
         step = self._head_step
         final_dir = os.path.join(self._pub_dir, _full_name(step))
         if os.path.exists(final_dir):
@@ -266,11 +282,19 @@ class DeltaExporter:
             json.dump(signature, f, indent=2)
         write_integrity_manifest(tmp_dir, files)
         os.rename(tmp_dir, final_dir)
-        logger.info("Compacted %d delta(s) into full artifact at step %d",
-                    self._deltas_since_full, step)
-        self._deltas_since_full = 0
+        folded, self._deltas_since_full = self._deltas_since_full, 0
+        self._note_saved(start, "serving_full", "delta_compaction", step=step,
+                         deltas_folded=folded, event_time=self._head_event_time)
+        logger.info("Compacted %d delta(s) into full artifact at step %d", folded, step)
         self._garbage_collect()
         return final_dir
+
+    @staticmethod
+    def _note_saved(start: float, metric_kind: str, event: str, **fields) -> None:
+        save_hist, _restore, saves, _quarantines = _ckpt_metrics()
+        save_hist.observe(time.monotonic() - start, kind=metric_kind)
+        saves.inc(kind=metric_kind)
+        obs.journal().record(event, **fields)
 
     def _garbage_collect(self) -> None:
         """Drop fulls beyond ``keep_fulls`` and deltas wholly covered by

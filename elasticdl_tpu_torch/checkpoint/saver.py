@@ -19,8 +19,13 @@ pickle that names a class the port does not read
 (``_pickle.RefusedGlobal``) is skipped, not quarantined.
 ``keep_max`` checkpoints are retained.
 
-Not ported: the checkpoint metrics, the journal events and the
-``ckpt.write`` fault site (ROADMAP.md Queue 1 item 8).
+Observability, as the JAX package's: the ``elasticdl_checkpoint_*``
+metrics (save and restore durations and saves by kind, quarantines), and
+the ``checkpoint_saved`` (``step``, ``kind``) and ``checkpoint_restored``
+journal events.  A saver whose caller journals each save itself (the
+collective worker, once per rank with its digest) sets ``journal_saves``
+to False.  Not ported: the ``ckpt.write`` fault site (ROADMAP.md Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -35,9 +40,25 @@ import time
 import zlib
 from typing import Any, Dict, Optional, Tuple
 
+from elasticdl_tpu_torch import obs
 from elasticdl_tpu_torch.checkpoint import _pickle
 
 logger = logging.getLogger("elasticdl_tpu_torch.checkpoint.saver")
+
+
+def _ckpt_metrics():
+    """The checkpoint plane's metrics (get-or-create; shared with the
+    sharded saver and the delta exporter)."""
+    return (
+        obs.histogram("elasticdl_checkpoint_save_duration_seconds",
+                      "Checkpoint write latency, by checkpoint kind", labelnames=("kind",)),
+        obs.histogram("elasticdl_checkpoint_restore_duration_seconds",
+                      "Checkpoint restore latency, by checkpoint kind", labelnames=("kind",)),
+        obs.counter("elasticdl_checkpoint_saves_total",
+                    "Checkpoints committed, by checkpoint kind", labelnames=("kind",)),
+        obs.counter("elasticdl_checkpoint_quarantines_total",
+                    "Corrupt checkpoints quarantined (integrity failures)"),
+    )
 
 _STATE_FILE = "state.pkl"
 _INTEGRITY_FILE = "integrity.json"
@@ -123,6 +144,8 @@ class CheckpointSaver:
     def __init__(self, checkpoint_dir: str, keep_max: int = 3):
         self._dir = checkpoint_dir
         self._keep_max = keep_max
+        #: Journal ``checkpoint_saved`` at each commit.
+        self.journal_saves = True
         os.makedirs(checkpoint_dir, exist_ok=True)
         self.sweep_stale_tmp()
 
@@ -162,6 +185,7 @@ class CheckpointSaver:
         """Snapshot a host state (numpy leaves, e.g. ``DataParallelTrainer.
         state_to_jax_host()``) at ``step``, atomically, with a CRC32
         manifest over the state file."""
+        start = time.monotonic()
         final_dir = self._step_dir(step)
         if os.path.exists(final_dir):
             return final_dir
@@ -169,14 +193,23 @@ class CheckpointSaver:
         write_pickle(os.path.join(tmp_dir, _STATE_FILE), state)
         write_integrity_manifest(tmp_dir, [_STATE_FILE])
         os.rename(tmp_dir, final_dir)
+        self._note_saved(start, step, "full")
         logger.info("Saved checkpoint at step %d -> %s", step, final_dir)
         self._garbage_collect()
         return final_dir
+
+    def _note_saved(self, start: float, step: int, kind: str, **fields) -> None:
+        save_hist, _restore, saves, _quarantines = _ckpt_metrics()
+        save_hist.observe(time.monotonic() - start, kind=kind)
+        saves.inc(kind=kind)
+        if self.journal_saves:
+            obs.journal().record("checkpoint_saved", step=step, kind=kind, **fields)
 
     def load_latest(self) -> Tuple[Optional[Any], int]:
         """(state, step); (None, 0) when no checkpoint loads.  A corrupt
         snapshot (checksum mismatch, unloadable pickle) is quarantined and
         the next-newest good one wins."""
+        start = time.monotonic()
         for step in reversed(self.steps()):
             step_dir = self._step_dir(step)
             try:
@@ -210,6 +243,8 @@ class CheckpointSaver:
                 logger.exception("Could not load checkpoint %s (environment error, not "
                                  "corruption); skipping it this restore", step_dir)
                 continue
+            _ckpt_metrics()[1].observe(time.monotonic() - start, kind="full")
+            obs.journal().record("checkpoint_restored", step=step, kind="full")
             logger.info("Restored checkpoint from step %d", step)
             return state, step
         return None, 0
@@ -224,6 +259,8 @@ class CheckpointSaver:
             n += 1
         logger.error("Quarantining corrupt checkpoint %s -> %s (%s); falling back to the "
                      "previous step", step_dir, target, reason)
+        _ckpt_metrics()[3].inc()
+        obs.journal().record("checkpoint_quarantined", path=step_dir, reason=reason)
         try:
             os.rename(step_dir, target)
         except OSError:

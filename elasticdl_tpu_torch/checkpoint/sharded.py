@@ -39,6 +39,7 @@ import json
 import logging
 import os
 import struct
+import time
 import zipfile
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -179,6 +180,7 @@ class ShardedCheckpointSaver(CheckpointSaver):
         the rows this process writes; a part covering every row is written
         by rank 0 alone.  ``dense_state`` (numpy leaves) may be None on
         ranks other than 0."""
+        start = time.monotonic()
         process, n_processes = process_index_count()
         final_dir = self._step_dir(step)
         tmp_dir = final_dir + ".shared.tmp"
@@ -228,6 +230,7 @@ class ShardedCheckpointSaver(CheckpointSaver):
             except OSError:
                 if not os.path.exists(final_dir):
                     raise
+            self._note_saved(start, step, "sharded", n_processes=n_processes)
             logger.info("Saved sharded checkpoint at step %d (%d arrays, %d procs)",
                         step, len(sharded), n_processes)
             self._garbage_collect()

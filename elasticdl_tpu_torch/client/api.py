@@ -67,6 +67,7 @@ def _run_job(args, mode: str) -> int:
 def _run_local(args, mode: str) -> int:
     """The master and one worker in this process."""
     from elasticdl_tpu_torch.common.boundary import forbidden_modules_loaded
+    from elasticdl_tpu_torch.common.profiler import StepProfiler
     from elasticdl_tpu_torch.data.pipeline import PipelineConfig
     from elasticdl_tpu_torch.data.reader import build_data_reader
     from elasticdl_tpu_torch.master.main import start_master
@@ -100,6 +101,8 @@ def _run_local(args, mode: str) -> int:
             validation_data_reader=validation_reader,
             pipeline=PipelineConfig.from_args(args),
             device=args.device,
+            profiler=StepProfiler(args.tensorboard_log_dir, args.profile_steps, worker_id=0,
+                                  device=args.device),
         )
         worker.run()
         if mode == Mode.TRAINING and args.output:

@@ -10,9 +10,12 @@ A flag whose non-default value selects a part the port leaves out raises
 ``NotImplementedError`` naming its ``ROADMAP.md`` item (``check_ported``,
 run by both ``parse_*_args``).  ``--policy_enabled`` and the
 ``--policy_*`` numbers select the goodput-driven policy engine
-(``master/policy.py``, ``PolicyConfig.from_args``).  ``--slo_enabled``,
-on by default in the JAX package, and ``--jax_compilation_cache_dir``
-are accepted and select nothing.  ``--sparse_kernel`` selects the sparse
+(``master/policy.py``, ``PolicyConfig.from_args``).  The observability
+flags select their planes: ``--tensorboard_log_dir`` the TensorBoard
+scalars and the journal's directory, ``--profile_steps`` the
+``torch.profiler`` window (``common/profiler.py``), ``--slo_enabled``
+(on by default) and ``--slo_goodput_target`` the master's SLO plane.
+``--jax_compilation_cache_dir`` is accepted and selects nothing.  ``--sparse_kernel`` selects the sparse
 optimizer's engine (``parallel/ps_trainer.resolve_sparse_kernel``).
 ``--image_name`` submits the job to a Kubernetes cluster
 (``client/submit.py``), whose master runs the workers as pods
@@ -30,8 +33,8 @@ from elasticdl_tpu_torch.common.log_utils import get_logger
 logger = get_logger("common.args")
 
 #: Where each part this module refuses is queued.
-OBS_ITEM = ("ROADMAP.md Queue 1 item 8: tracing, the profiler, the TensorBoard "
-            "service and the SLO plane")
+OBS_ITEM = ("ROADMAP.md Queue 1 item 8: the quality plane (QualityLedger, DriftMonitor, "
+            "the labels request)")
 #: The ``zoo`` subcommand of the client CLI (``client/zoo.py``).
 ZOO_ITEM = ("ROADMAP.md Queue 1 item 7, what the vision slice leaves: the model-zoo "
             "CLI (client/zoo.py, zoo init|build|push)")
@@ -221,9 +224,6 @@ def build_worker_parser() -> argparse.ArgumentParser:
 
 #: flag -> (its default, the item a non-default value waits for).
 _NOT_PORTED = {
-    "tensorboard_log_dir": ("", OBS_ITEM),
-    "profile_steps": ("", OBS_ITEM),
-    "slo_goodput_target": (0.0, OBS_ITEM),
     "quality_drift_bins": (0, OBS_ITEM),
 }
 

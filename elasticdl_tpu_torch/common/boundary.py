@@ -1,6 +1,8 @@
 """What no process of the port may load: the JAX package's stack (JAX,
 flax, optax), its transport (gRPC, protobuf), the JAX package itself and
-its model zoo.  The card's machine has none of them.  The master, the
+its model zoo, and ``tensorboard`` (``torch.utils.tensorboard``'s
+backend; the port writes its event files itself).  The card's machine
+has none of them.  The master, the
 workers and the serving replica record ``forbidden_modules_loaded()`` in
 their journals, and the tests hold it empty."""
 
@@ -10,7 +12,7 @@ import sys
 from typing import List
 
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "optax", "grpc", "google.protobuf",
-                     "model_zoo", "elasticdl_tpu")
+                     "model_zoo", "elasticdl_tpu", "tensorboard")
 
 
 def forbidden_modules_loaded() -> List[str]:

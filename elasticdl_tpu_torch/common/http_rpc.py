@@ -15,15 +15,25 @@ the retried calls, and opens a fresh connection for a call made once
 (``max_attempts == 1``), so a connection the server closed while idle
 (a master restart) can never fail a call that is not retried.  A failed
 attempt drops its connection, so a retry reconnects.
+
+Trace context rides two request headers named as the JAX package's gRPC
+metadata keys (``elasticdl_tpu/common/grpc_utils.py:62-107``):
+``elasticdl-trace-id`` and ``elasticdl-span-id``.  ``call(...,
+metadata=trace_metadata(trace_id, span_id))`` sends them; the server
+hands them to the dispatch of the service's method in a context
+variable, which the handler reads with ``trace_id_from_context()`` and
+``span_id_from_context()`` (empty when the peer sent neither), so its
+span parents under the caller's.
 """
 
 from __future__ import annotations
 
+import contextvars
 import http.client
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 from elasticdl_tpu_torch.common import messages
 from elasticdl_tpu_torch.common.log_utils import get_logger
@@ -36,6 +46,39 @@ from elasticdl_tpu_torch.common.retry import (
 )
 
 logger = get_logger("common.http_rpc")
+
+#: The headers of the trace context (the JAX package's metadata keys).
+TRACE_METADATA_KEY = "elasticdl-trace-id"
+SPAN_METADATA_KEY = "elasticdl-span-id"
+
+#: The trace context of the call being dispatched on this thread:
+#: ``(trace_id, span_id)``.
+_CALL_CONTEXT: contextvars.ContextVar = contextvars.ContextVar(
+    "elasticdl_rpc_trace_context", default=("", ""))
+
+
+def trace_metadata(trace_id: str, span_id: str = "") -> Optional[Tuple[Tuple[str, str], ...]]:
+    """The header pairs carrying ``trace_id`` and the caller's
+    ``span_id``; None when both are empty (JAX ``grpc_utils.
+    trace_metadata``)."""
+    pairs = []
+    if trace_id:
+        pairs.append((TRACE_METADATA_KEY, str(trace_id)))
+    if span_id:
+        pairs.append((SPAN_METADATA_KEY, str(span_id)))
+    return tuple(pairs) or None
+
+
+def trace_id_from_context() -> str:
+    """The caller's trace id in the handler of the call being served
+    ('' when it sent none)."""
+    return _CALL_CONTEXT.get()[0]
+
+
+def span_id_from_context() -> str:
+    """The caller's span id in the handler of the call being served
+    ('' when it sent none): the parent of the handler's span."""
+    return _CALL_CONTEXT.get()[1]
 
 
 class _Server(ThreadingHTTPServer):
@@ -60,7 +103,7 @@ class JsonRpcServer:
         self._stopping = threading.Event()
         self.port: Optional[int] = None
 
-    def _dispatch(self, method: str, body: bytes) -> bytes:
+    def _dispatch(self, method: str, body: bytes, trace: Tuple[str, str] = ("", "")) -> bytes:
         if self._stopping.is_set():
             raise RpcError("UNAVAILABLE", "server stopping")
         if method not in messages.METHODS:
@@ -70,7 +113,11 @@ class JsonRpcServer:
             request = messages.from_json(request_cls, json.loads(body.decode("utf-8") or "{}"))
         except (ValueError, TypeError) as exc:
             raise RpcError("INVALID_ARGUMENT", f"bad {method} request: {exc}")
-        response = getattr(self._service, method)(request)
+        token = _CALL_CONTEXT.set(trace)
+        try:
+            response = getattr(self._service, method)(request)
+        finally:
+            _CALL_CONTEXT.reset(token)
         return json.dumps(messages.to_json(response)).encode("utf-8")
 
     def start(self) -> int:
@@ -84,8 +131,10 @@ class JsonRpcServer:
                 length = int(self.headers.get("Content-Length") or 0)
                 body = self.rfile.read(length) if length else b""
                 method = self.path.partition("?")[0].strip("/")
+                trace = (self.headers.get(TRACE_METADATA_KEY) or "",
+                         self.headers.get(SPAN_METADATA_KEY) or "")
                 try:
-                    out = dispatch(method, body)
+                    out = dispatch(method, body, trace)
                 except RpcError as exc:
                     self._reply(exc.status, {"code": exc.code, "message": exc.message})
                     return
@@ -173,11 +222,12 @@ class JsonRpcClient:
         if conn is not None:
             conn.close()
 
-    def _once(self, method: str, body: bytes, timeout_s: float, reuse: bool) -> dict:
+    def _once(self, method: str, body: bytes, timeout_s: float, reuse: bool,
+              headers: Optional[dict] = None) -> dict:
         conn = self._connection(timeout_s, reuse)
         try:
             conn.request("POST", f"/{method}", body=body,
-                         headers={"Content-Type": "application/json"})
+                         headers=headers or {"Content-Type": "application/json"})
             response = conn.getresponse()
             payload = response.read()
         except Exception:
@@ -200,14 +250,16 @@ class JsonRpcClient:
         code = next((c for c, s in HTTP_STATUS.items() if s == response.status), "UNKNOWN")
         raise RpcError(code, payload.decode("utf-8", "replace"))
 
-    def call(self, method: str, request, policy: RetryPolicy):
+    def call(self, method: str, request, policy: RetryPolicy, metadata=None):
         """The response message of ``method`` for ``request`` under
-        ``policy`` (``common/retry.call_with_retry``)."""
+        ``policy`` (``common/retry.call_with_retry``); ``metadata``
+        (``trace_metadata``) rides as request headers."""
         body = json.dumps(messages.to_json(request)).encode("utf-8")
         _, response_cls = messages.METHODS[method]
         reuse = policy.max_attempts > 1
+        headers = {"Content-Type": "application/json", **dict(metadata or ())}
         obj = call_with_retry(
-            lambda timeout_s: self._once(method, body, timeout_s, reuse),
+            lambda timeout_s: self._once(method, body, timeout_s, reuse, headers),
             method, policy, stats=self.stats, sleep=self._sleep, clock=self._clock,
             seed=self._seed,
         )

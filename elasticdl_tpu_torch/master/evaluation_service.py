@@ -11,8 +11,9 @@ dropped.
 
 Each finalized round is logged as in JAX and journaled as
 ``evaluation_metrics`` (version, examples, metrics, the round's seconds
-from its trigger to its metrics); the TensorBoard summary is not ported
-(ROADMAP.md Queue 1 item 8).
+from its trigger to its metrics), and written to TensorBoard as
+``eval/<name>`` scalars at the round's model version when the job has a
+``TensorBoardService`` (``--tensorboard_log_dir``).
 """
 
 from __future__ import annotations
@@ -36,8 +37,10 @@ class EvaluationService:
         task_manager,
         eval_metrics_fn=None,
         evaluation_steps: int = 0,
+        tensorboard_service=None,
     ):
         self._task_manager = task_manager
+        self._tensorboard_service = tensorboard_service
         self._eval_metrics_fn = eval_metrics_fn
         self._evaluation_steps = evaluation_steps
         self._lock = threading.Lock()
@@ -215,6 +218,8 @@ class EvaluationService:
             "evaluation_metrics", model_version=model_version, examples=n_examples,
             metrics=metrics,
             seconds=None if triggered is None else round(time.monotonic() - triggered, 6))
+        if self._tensorboard_service is not None:
+            self._tensorboard_service.write_dict_to_summary(metrics, model_version)
         with self._lock:
             self._latest_metrics = metrics
         return metrics

@@ -24,9 +24,15 @@ evicts persistent stragglers within its kill budget.  Capacity for a
 regrow is the integer in the file ``ELASTICDL_CAPACITY_FILE`` names (no
 file: no regrow on one host; on Kubernetes an optimistic probe at most
 every 300 s, backed off while its probe pods stay Pending).  Straggler
-advisories also reach the manager and the ledger.  The SLO plane
-(``--slo_enabled``) is accepted and selects nothing (ROADMAP.md Queue 1
-item 8).
+advisories also reach the manager and the ledger.
+
+The SLO plane (``obs/slo.py``, JAX ``job_runner.py:104-132``): with
+``--slo_enabled`` (the default) a history sampler and burn-rate
+evaluator tick every ``--slo_tick_interval_s`` over the master's
+registry and serve ``/slo``; ``--slo_goodput_target`` > 0 registers the
+goodput SLO over ``elasticdl_goodput_ratio``, and its alert edges reach
+the policy engine's ``note_slo_alert``.  The TensorBoard service's
+``train/worker_restarts`` reads the manager's restart count.
 """
 
 from __future__ import annotations
@@ -110,6 +116,28 @@ def _build_policy_engine(args, master):
     return ElasticPolicyEngine(
         PolicyConfig.from_args(args),
         stragglers_fn=master.telemetry.stragglers if master.telemetry is not None else None)
+
+
+def _build_slo_plane(args, master, policy_engine):
+    """The master's SLO plane; None without ``--slo_enabled``.  The
+    sampler always runs (it feeds /slo); the goodput SLO registers only
+    when ``--slo_goodput_target`` > 0."""
+    if not getattr(args, "slo_enabled", True):
+        return None
+    from elasticdl_tpu_torch.obs.slo import SLOPlane, goodput_slo
+
+    specs = []
+    target = float(getattr(args, "slo_goodput_target", 0.0) or 0.0)
+    if target > 0:
+        specs.append(goodput_slo(target, compliance_window_s=float(
+            getattr(args, "slo_compliance_window_s", 3600.0))))
+    plane = SLOPlane(specs=specs, tick_interval_s=float(getattr(args, "slo_tick_interval_s", 2.0)),
+                     origin="master")
+    if policy_engine is not None:
+        plane.slos.add_alert_callback(policy_engine.note_slo_alert)
+    if master.metrics_exporter is not None:
+        master.metrics_exporter.set_slo_plane(plane)
+    return plane
 
 
 class _GatedScaleUp:
@@ -244,12 +272,17 @@ def run_allreduce_job(args, mode: str = Mode.TRAINING) -> int:
         master.telemetry.add_straggler_callback(manager.note_straggler)
         master.telemetry.add_straggler_callback(
             lambda wid, flagged, _evidence: goodput.ledger().on_straggler(wid, flagged))
+    if master.tensorboard_service is not None:
+        master.tensorboard_service.bind(restarts_fn=lambda: manager.restarts_used)
+    slo_plane = _build_slo_plane(args, master, policy_engine)
     progress_persister = master.progress_persister
     job_succeeded = False
     try:
         manager.start()
         if policy_engine is not None:
             policy_engine.start()
+        if slo_plane is not None:
+            slo_plane.start()
         ok = manager.wait()
         if master.evaluation_service is not None:
             master.evaluation_service.finalize()
@@ -268,6 +301,8 @@ def run_allreduce_job(args, mode: str = Mode.TRAINING) -> int:
         job_succeeded = True
         return 0
     finally:
+        if slo_plane is not None:
+            slo_plane.stop()
         if policy_engine is not None:
             policy_engine.stop()
         manager.stop()

@@ -33,6 +33,16 @@ hand (``python -m elasticdl_tpu_torch.worker.main
 --distribution_strategy=Local``); ``python -m
 elasticdl_tpu_torch.client.main train`` runs the master and its worker
 together.
+
+Observability as in JAX (``master/main.py:163-204,240-300``): the journal
+lives in ``--tensorboard_log_dir`` when given, else in
+``--checkpoint_dir``; with ``--tensorboard_log_dir`` a
+``TensorBoardService`` (``master/tensorboard_service.py``) writes the
+evaluation rounds and the sampled training progress as scalars; with
+``--metrics_port`` the exporter serves ``/metrics``, ``/journal``,
+``/slo`` and ``/debug/vars`` and writes its port to ``<journal
+dir>/metrics_port``.  The master names itself ``master`` on the
+assembled trace and installs the tracing plane's flight recorder.
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ class Master:
     progress_persister: object = None
     metrics_exporter: object = None
     telemetry: object = None
+    tensorboard_service: object = None
 
     @property
     def addr(self) -> str:
@@ -84,6 +95,12 @@ class Master:
             except Exception:
                 logger.exception("Metrics exporter stop failed")
             self.metrics_exporter = None
+        if self.tensorboard_service is not None:
+            try:
+                self.tensorboard_service.close()
+            except Exception:
+                logger.exception("TensorBoard close failed")
+            self.tensorboard_service = None
         if self.progress_persister is not None:
             try:
                 self.progress_persister.stop()
@@ -96,11 +113,12 @@ class Master:
 
 
 def build_master(args, model_spec=None, rendezvous_server=None) -> Master:
-    if getattr(args, "checkpoint_dir", ""):
+    journal_dir = _journal_dir(args)
+    if journal_dir:
         from elasticdl_tpu_torch.obs.journal import DEFAULT_FILENAME
 
-        resumed = os.path.exists(os.path.join(args.checkpoint_dir, DEFAULT_FILENAME))
-        journal_path = obs.init_journal(args.checkpoint_dir)
+        resumed = os.path.exists(os.path.join(journal_dir, DEFAULT_FILENAME))
+        journal_path = obs.init_journal(journal_dir)
         logger.info("Event journal -> %s", journal_path)
         if resumed:
             # A predecessor's timeline: the ratio keeps job-lifetime meaning.
@@ -150,11 +168,18 @@ def build_master(args, model_spec=None, rendezvous_server=None) -> Master:
                                    records_per_task=args.records_per_task,
                                    num_epochs=args.num_epochs,
                                    task_timeout_s=args.task_timeout_s)
+    tensorboard_service = None
+    if getattr(args, "tensorboard_log_dir", ""):
+        from elasticdl_tpu_torch.master.tensorboard_service import TensorBoardService
+
+        tensorboard_service = TensorBoardService(args.tensorboard_log_dir,
+                                                 task_manager=task_manager)
     evaluation_service = None
     if model_spec.eval_metrics_fn is not None and evaluation_shards:
         evaluation_service = EvaluationService(task_manager,
                                                eval_metrics_fn=model_spec.eval_metrics_fn,
-                                               evaluation_steps=args.evaluation_steps)
+                                               evaluation_steps=args.evaluation_steps,
+                                               tensorboard_service=tensorboard_service)
     # Scoped to the current world: reports from a torn-down world neither
     # skew the aggregates nor read as stale forever.
     telemetry = TelemetryAggregator(
@@ -162,6 +187,9 @@ def build_master(args, model_spec=None, rendezvous_server=None) -> Master:
                             if rendezvous_server is not None else None))
     servicer = MasterServicer(task_manager=task_manager, evaluation_service=evaluation_service,
                               rendezvous_server=rendezvous_server, telemetry=telemetry)
+    if tensorboard_service is not None:
+        tensorboard_service.bind(model_version_fn=lambda: servicer.model_version)
+        tensorboard_service.start()
     if evaluation_service is not None and training_shards:
         # A final round when the training tasks are done; at each epoch's
         # end too when no step interval is set.
@@ -179,10 +207,21 @@ def build_master(args, model_spec=None, rendezvous_server=None) -> Master:
     return Master(args=args, model_spec=model_spec, task_manager=task_manager,
                   evaluation_service=evaluation_service, servicer=servicer,
                   rendezvous_server=rendezvous_server, data_reader=training_reader,
-                  progress_persister=progress_persister, telemetry=telemetry)
+                  progress_persister=progress_persister, telemetry=telemetry,
+                  tensorboard_service=tensorboard_service)
+
+
+def _journal_dir(args) -> str:
+    """The journal sits beside the TensorBoard events, else in the
+    checkpoint dir."""
+    return getattr(args, "tensorboard_log_dir", "") or getattr(args, "checkpoint_dir", "")
 
 
 def start_master(args, model_spec=None, rendezvous_server=None) -> Master:
+    from elasticdl_tpu_torch.obs import tracing
+
+    tracing.set_process("master")
+    tracing.install_flight_recorder()
     master = build_master(args, model_spec, rendezvous_server)
     master.server, master.port = start_master_server(master.servicer, port=args.master_port)
     if getattr(args, "metrics_port", None) is not None:
@@ -194,6 +233,9 @@ def start_master(args, model_spec=None, rendezvous_server=None) -> Master:
             # Observability never takes the control plane down.
             logger.exception("Metrics exporter could not bind port %d; continuing without "
                              "/metrics", args.metrics_port)
+        if master.metrics_exporter is not None and _journal_dir(args):
+            # --metrics_port 0 binds an ephemeral port: scrapers read it here.
+            master.metrics_exporter.write_port_file(_journal_dir(args))
     obs.journal().record(
         "master_start", job_name=args.job_name, port=master.port, pid=os.getpid(),
         metrics_port=master.metrics_exporter.port if master.metrics_exporter else None)

@@ -27,8 +27,8 @@ rendezvous and redo.
 
 ``LocalProcessManager`` runs the workers as child processes of the
 master (``python -m elasticdl_tpu_torch.worker.main``), each logging to
-``<log_dir>/worker_<id>.log``.  The Kubernetes substrate is not ported
-(ROADMAP.md Queue 1 item 6).
+``<log_dir>/worker_<id>.log``.  On Kubernetes the workers are pods
+(``master/k8s_pod_manager.py``).
 """
 
 from __future__ import annotations

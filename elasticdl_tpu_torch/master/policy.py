@@ -39,8 +39,9 @@ event carrying its evidence (identical holds are deduplicated to one per
 ``hold_journal_interval_s``; action decisions always land).
 ``elasticdl_policy_decisions_total{action=...}`` counts them and
 ``elasticdl_policy_kill_budget_remaining`` / ``elasticdl_policy_thrash``
-expose the enforcement state.  ``note_slo_alert`` is ported and stays
-unbound: the SLO plane is not part of the port yet.
+expose the enforcement state.  ``note_slo_alert`` takes the SLO plane's
+alert edges (``master/job_runner._build_slo_plane`` binds it); fired
+SLOs ride every decision as ``slo_advisory``.
 
 Threading: ``tick()`` runs on the engine's own daemon thread;
 ``gate_scale_up`` is called from the pod manager's monitor thread.  All
@@ -154,9 +155,9 @@ class ElasticPolicyEngine:
         # and DISTINCT workers' eviction-fallback holds are distinct
         # evidence, never deduped against each other.
         self._last_hold: Dict[tuple, float] = {}  # guarded-by: _lock
-        # slo name -> fire evidence from an SLO plane — advisory only:
-        # it rides every journaled decision as `slo_advisory`.  The port
-        # has no SLO plane yet, so nothing calls note_slo_alert.
+        # slo name -> fire evidence from the SLO plane (obs/slo.py) —
+        # advisory only: it rides every journaled decision as
+        # `slo_advisory`.
         self._slo_alerts: Dict[str, dict] = {}  # guarded-by: _lock
         self._last_decision: Optional[dict] = None  # guarded-by: _lock
         self._last_scale_action_t = float("-inf")  # guarded-by: _lock
@@ -252,10 +253,9 @@ class ElasticPolicyEngine:
                 self._prune_holds_locked(self._flagged)
 
     def note_slo_alert(self, slo: str, alerting: bool, evidence=None):
-        """SLO-plane input (the JAX package binds its SLO registry's
-        alert callback here; the port's SLO plane is not written yet, so
-        this stays unbound): track the fired set and journal the edge as
-        an advisory hold.  A clear for
+        """SLO-plane input (the SLO registry's alert callback,
+        ``obs/slo.SLORegistry.add_alert_callback``): track the fired set
+        and journal the edge as an advisory hold.  A clear for
         an SLO that never fired here is dropped — a follower replaying
         an old journal tail must not emit phantom clears."""
         now = self._clock()

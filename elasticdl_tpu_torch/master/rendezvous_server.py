@@ -15,7 +15,8 @@ Heartbeats (``report_liveness``) feed ``stale_workers``, which the pod
 manager reads to kill a hung worker; a worker that never beat is judged
 against the startup grace from the world's declaration.  A declaration
 and the moment the last rank takes its rank drive the goodput ledger's
-rendezvous phase and its rescale cost (``obs/goodput.py``).
+rendezvous phase and its rescale cost (``obs/goodput.py``); the same
+window journals as a ``rendezvous.formation`` span (``obs/tracing.py``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Dict, List, Optional, Tuple
 from elasticdl_tpu_torch import obs
 from elasticdl_tpu_torch.common import messages as msg
 from elasticdl_tpu_torch.common.log_utils import get_logger
-from elasticdl_tpu_torch.obs import goodput
+from elasticdl_tpu_torch.obs import goodput, tracing
 
 logger = get_logger("master.rendezvous")
 
@@ -154,6 +155,7 @@ class ElasticRendezvous:
         """``host`` is the worker's advertised address; it rides the rank
         poll, never the heartbeat, so polling is not a heartbeat."""
         formed_id = None
+        formation_span = None
         with self._lock:
             self._record_host_locked(worker_id, host)
             self._resolve_coordinator_locked()
@@ -164,7 +166,13 @@ class ElasticRendezvous:
                 if self._ranks_polled >= set(ids):
                     self._formation_observed = True
                     formed_id = self._rendezvous_id
-                    self._m_formation.observe(time.monotonic() - self._world_declared_monotonic)
+                    formation_s = time.monotonic() - self._world_declared_monotonic
+                    self._m_formation.observe(formation_s)
+                    # Declaration -> every member has its rank; journaled
+                    # outside the lock.
+                    formation_span = dict(start_ts=self._world_declared_at,
+                                          duration_s=formation_s, rendezvous_id=formed_id,
+                                          world_size=len(ids))
             response = msg.GetCommRankResponse(
                 rank_id=rank,
                 world_size=len(self._workers),
@@ -175,6 +183,8 @@ class ElasticRendezvous:
         if formed_id is not None:
             # Every member has its rank: the rescale's rendezvous part ends.
             goodput.ledger().on_world_formed(formed_id)
+        if formation_span is not None:
+            tracing.tracer().record_span("rendezvous.formation", **formation_span)
         return response
 
     def report_liveness(self, worker_id: int, host: str, rendezvous_id: int) -> bool:

@@ -12,13 +12,27 @@ folds the workers' model versions with max and lets the
 (a job without one drops them); ``get_shard_checkpoint`` returns the
 task-progress JSON.  A heartbeat's ``telemetry_json`` goes to the
 ``TelemetryAggregator`` (``obs/telemetry.py``), which never raises.
+
+``get_task`` and ``report_task_result`` journal the master half of a
+task's trace (JAX ``servicer.py:66,90``): ``rpc.get_task`` and
+``rpc.report_task_result`` spans, parented under the caller's span from
+the ``elasticdl-span-id`` header (under the task root without one); the
+trace id the worker echoes in ``elasticdl-trace-id`` reaches the
+``TaskManager``.  WAIT and job-complete answers journal no span.
 """
 
 from __future__ import annotations
 
+import time
+
 from elasticdl_tpu_torch.common import messages as msg
-from elasticdl_tpu_torch.common.http_rpc import JsonRpcServer
+from elasticdl_tpu_torch.common.http_rpc import (
+    JsonRpcServer,
+    span_id_from_context,
+    trace_id_from_context,
+)
 from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.obs import tracing
 
 logger = get_logger("master.servicer")
 
@@ -38,13 +52,32 @@ class MasterServicer:
         return self._model_version
 
     def get_task(self, request: msg.GetTaskRequest) -> msg.GetTaskResponse:
-        return msg.GetTaskResponse(task=self._task_manager.get(request.worker_id))
+        # Timed around the dispatcher, journaled after the fact: the trace
+        # id exists once get() mints it.
+        start_ts = time.time()
+        start = time.monotonic()
+        task = self._task_manager.get(request.worker_id)
+        if task.trace_id:
+            tracing.tracer().record_span(
+                "rpc.get_task", start_ts=start_ts, duration_s=time.monotonic() - start,
+                trace_id=task.trace_id, parent_id=span_id_from_context() or task.trace_id,
+                worker_id=request.worker_id, task_id=task.task_id)
+        return msg.GetTaskResponse(task=task)
 
     def report_task_result(self, request: msg.ReportTaskResultRequest
                            ) -> msg.ReportTaskResultResponse:
         success = not request.err_message
+        trace_id = trace_id_from_context()
+        start_ts = time.time()
+        start = time.monotonic()
         self._task_manager.report(request.task_id, success, worker_id=request.worker_id,
-                                  exec_counters=dict(request.exec_counters))
+                                  exec_counters=dict(request.exec_counters), trace_id=trace_id)
+        if trace_id:
+            tracing.tracer().record_span(
+                "rpc.report_task_result", start_ts=start_ts,
+                duration_s=time.monotonic() - start, trace_id=trace_id,
+                parent_id=span_id_from_context() or trace_id, worker_id=request.worker_id,
+                task_id=request.task_id)
         if not success:
             logger.warning("Worker %d failed task %d: %s", request.worker_id,
                            request.task_id, request.err_message)

@@ -26,8 +26,13 @@ protocol over an unbounded source: ``_maybe_refill_locked`` tops the
 queue up under the dispatch lock, ``_stream_open_locked`` keeps an open
 stream from ending an epoch or the job, ``_note_task_complete_locked``
 advances the watermark, and ``_checkpoint_extra_locked`` persists the
-stream cursor.  Not ported: the tracing plane's spans (ROADMAP.md Queue
-1 item 8).
+stream cursor.
+
+The tracing plane (``obs/tracing.py``): each dispatch mints a trace id,
+and the attempt's dispatch -> report lifetime journals as the trace's
+root span ``task.lifetime`` (``span_id == trace_id``) when the task is
+reported, requeued on churn or timed out (with ``error`` set to
+``failure``, ``failed_permanently``, ``worker_churn`` or ``timeout``).
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from elasticdl_tpu_torch import obs
 from elasticdl_tpu_torch.common import messages as msg
 from elasticdl_tpu_torch.common.constants import TaskExecCounterKey
 from elasticdl_tpu_torch.common.log_utils import get_logger
-from elasticdl_tpu_torch.obs import goodput
+from elasticdl_tpu_torch.obs import goodput, tracing
 
 logger = get_logger("master.task_manager")
 
@@ -233,9 +238,11 @@ class TaskManager:
         fired_done = False
         done_callbacks = []
         journal_events: List[dict] = []
+        expired_spans: List[dict] = []
         try:
             with self._lock:
-                journal_events.extend(self._recover_timed_out_locked())
+                expired_events, expired_spans = self._recover_timed_out_locked()
+                journal_events.extend(expired_events)
                 # Streaming hook: an unbounded source tops the queue up
                 # under the same lock hold.
                 self._maybe_refill_locked(journal_events)
@@ -281,6 +288,9 @@ class TaskManager:
             # Journal writes outside the dispatch lock.
             for event in journal_events:
                 obs.journal().record(**event)
+            # A timed-out attempt closes its trace's root span.
+            for span in expired_spans:
+                tracing.tracer().record_span(**span)
             # The ledger too (it journals): a dispatch opens the work
             # phase; a timeout requeue adds to the redo debt.
             for event in journal_events:
@@ -319,6 +329,11 @@ class TaskManager:
             type_name = _type_name(task.type)
             duration_s = time.time() - started
             self._metrics.duration.observe(duration_s, type=type_name)
+            # The trace's root: this attempt's dispatch -> report lifetime,
+            # journaled outside the lock once the outcome is known.
+            root_span = dict(name="task.lifetime", start_ts=started, duration_s=duration_s,
+                             trace_id=stored_trace, root=True, task_id=task_id,
+                             worker_id=worker_id, type=type_name)
             if success:
                 self._metrics.completed.inc(type=type_name)
                 done_event = dict(event="task_done", task_id=task_id, worker_id=worker_id,
@@ -354,6 +369,7 @@ class TaskManager:
                 logger.error("Task %d (%s[%d,%d)) exhausted %d retries; dropping", task_id,
                              task.shard_name, task.start, task.end, self._max_task_retries)
                 self._metrics.failed_permanently.inc()
+                root_span["error"] = "failed_permanently"
                 journal_events.append(dict(
                     event="task_failed_permanently", task_id=task_id, trace_id=stored_trace,
                     shard=task.shard_name, start=task.start, end=task.end,
@@ -365,6 +381,7 @@ class TaskManager:
                 logger.info("Task %d failed; requeueing (retry %d/%d)", task_id,
                             task.retry_count, self._max_task_retries)
                 self._metrics.requeues.inc(reason="failure")
+                root_span["error"] = "failure"
                 journal_events.append(dict(
                     event="task_requeue", reason="failure", task_id=task_id,
                     trace_id=stored_trace, worker_id=worker_id, retry=task.retry_count,
@@ -381,6 +398,8 @@ class TaskManager:
                     callbacks_to_run = list(self._tasks_done_callbacks)
         for event in journal_events:
             obs.journal().record(**event)
+        if stored_trace:
+            tracing.tracer().record_span(**root_span)
         # Completed training records repay any redo debt; a failure's
         # requeue adds to it.
         training = task.type == msg.TRAINING
@@ -441,9 +460,12 @@ class TaskManager:
                          if owner == worker_id]
             trace_ids = []
             churn_records = 0
+            churn_spans = []
+            now = time.time()
             for tid in recovered:
                 _owner, task, _start, trace_id = self._doing.pop(tid)
                 trace_ids.append(trace_id)
+                churn_spans.append((tid, trace_id, _start, now - _start))
                 self._todo.appendleft(task)
                 if task.type == msg.TRAINING:
                     self._recovered_record_count += task.end - task.start
@@ -454,20 +476,32 @@ class TaskManager:
         if recovered:
             obs.journal().record("task_requeue", reason="worker_churn", worker_id=worker_id,
                                  task_ids=recovered, trace_ids=trace_ids)
+            # Each recovered attempt's root span closes with the churn.
+            for tid, trace_id, started, elapsed in churn_spans:
+                if trace_id:
+                    tracing.tracer().record_span(
+                        "task.lifetime", start_ts=started, duration_s=elapsed,
+                        trace_id=trace_id, root=True, task_id=tid, worker_id=worker_id,
+                        error="worker_churn")
             goodput.ledger().note_requeue(churn_records, "worker_churn", tasks=len(recovered))
         return len(recovered)
 
-    def _recover_timed_out_locked(self) -> List[dict]:
+    def _recover_timed_out_locked(self) -> Tuple[List[dict], List[dict]]:
         """Requeue tasks in flight longer than the timeout; returns their
-        journal events (written by the caller outside the lock)."""
+        journal events and ``task.lifetime`` root spans (written by the
+        caller outside the lock)."""
         if not self._task_timeout_s:
-            return []
+            return [], []
         now = time.time()
         expired = [tid for tid, (_owner, _task, start, _tr) in self._doing.items()
                    if now - start > self._task_timeout_s]
-        events = []
+        events, spans = [], []
         for tid in expired:
             owner, task, _start, trace_id = self._doing.pop(tid)
+            if trace_id:
+                spans.append(dict(name="task.lifetime", start_ts=_start,
+                                  duration_s=now - _start, trace_id=trace_id, root=True,
+                                  task_id=tid, worker_id=owner, error="timeout"))
             self._todo.appendleft(task)
             records = task.end - task.start if task.type == msg.TRAINING else 0
             self._recovered_record_count += records
@@ -476,7 +510,7 @@ class TaskManager:
                                trace_id=trace_id, worker_id=owner,
                                timeout_s=self._task_timeout_s, records=records))
             logger.info("Task %d timed out on worker %d; requeued", tid, owner)
-        return events
+        return events, spans
 
     # -- introspection / lifecycle -----------------------------------------
 

@@ -19,10 +19,13 @@ events go (the JAX package's ``scripts/validate_journal.py`` holds the
 whole of it); ``missing_fields`` checks one record against it.
 
 The planes beside this module: the goodput ledger (``obs/goodput.py``),
-the step anatomy (``obs/stepstats.py``) and the worker telemetry over the
-master's heartbeat (``obs/telemetry.py``).  Not ported yet (ROADMAP.md
-Queue 1 item 8): the tracing plane (span and trace ids, exemplars), the
-SLO plane, the offline report.
+the step anatomy (``obs/stepstats.py``), the worker telemetry over the
+master's heartbeat (``obs/telemetry.py``), the tracing plane
+(``obs/tracing.py``, through which ``span`` journals), the SLO plane
+(``obs/history.py``, ``obs/slo.py``) and the offline tools over the
+journals (``obs/trace.py``, ``obs/report.py``, ``obs/top.py``).  Not
+ported yet (ROADMAP.md Queue 1 item 8): the quality plane's
+``QualityLedger`` and ``DriftMonitor``.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ __all__ = [
 #: event -> the fields every record of it carries (the JAX schema's
 #: required fields for the events the port writes).
 REQUIRED_FIELDS = {
-    "span": ("name", "duration_s"),
+    "span": ("name", "duration_s", "start_ts", "span_id", "proc"),
     "model_swap": ("generation", "step"),
     "request_shed": ("reason",),
     "serving_telemetry": ("replica_id",),
@@ -72,6 +75,16 @@ REQUIRED_FIELDS = {
     "scale": ("old_size", "new_size"),
     "scale_up": ("old_size", "new_size"),
     "clock_probe": ("worker_id", "probe_ts", "t_send", "t_recv"),
+    # The tracing, SLO, profiler and checkpoint planes.
+    "registry_snapshot": ("reason",),
+    "request_trace": ("trace_id", "outcome", "sampled_by"),
+    "slo_status": ("slo", "budget_remaining_ratio"),
+    "slo_alert": ("slo", "state"),
+    "profile_window": ("worker_id", "action", "trace_dir"),
+    "checkpoint_saved": ("step", "kind"),
+    "checkpoint_restored": ("step", "kind"),
+    "delta_checkpoint": ("step", "base_step"),
+    "delta_compaction": ("step",),
 }
 
 _registry = MetricsRegistry()
@@ -126,21 +139,23 @@ def _span_metric_name(name: str) -> str:
 @contextlib.contextmanager
 def span(name: str, labels=None, **fields):
     """Timer emitting a histogram observation
-    (``elasticdl_span_<name>_seconds``, bounded ``labels`` only) and a
-    journal ``span`` record with the wall start and the duration;
-    ``fields`` (unbounded ids welcome) ride the journal record only."""
+    (``elasticdl_span_<name>_seconds``, bounded ``labels`` only) and,
+    through the tracing plane (``obs/tracing.py``), a journal ``span``
+    record with span, parent and trace ids; ``fields`` (unbounded ids
+    welcome, ``trace_id`` among them) ride the journal record only.
+    Yields the open ``tracing.Span``."""
+    from elasticdl_tpu_torch.obs import tracing
+
     labels = dict(labels or {})
     hist = _registry.histogram(_span_metric_name(name), f"Duration of {name} spans",
                                labelnames=tuple(sorted(labels)))
-    start_ts = time.time()
+    trace_id = fields.pop("trace_id", "")
     start = time.monotonic()
     try:
-        yield
+        with tracing.tracer().span(name, trace_id=trace_id, **{**labels, **fields}) as open_span:
+            yield open_span
     finally:
-        duration = time.monotonic() - start
-        hist.observe(duration, **labels)
-        _journal.record("span", name=name, start_ts=round(start_ts, 6),
-                        duration_s=round(duration, 6), **{**labels, **fields})
+        hist.observe(time.monotonic() - start, **labels)
 
 
 def missing_fields(record: dict) -> Tuple[str, ...]:

@@ -1,5 +1,5 @@
-"""Observability HTTP exporter of a replica process: the port's copy of
-``elasticdl_tpu/obs/exporter.py``.
+"""Observability HTTP exporter of a master or a replica process: the
+port's copy of ``elasticdl_tpu/obs/exporter.py``.
 
 Serves on ``--metrics_port``:
 
@@ -7,10 +7,13 @@ Serves on ``--metrics_port``:
     /healthz      liveness JSON ({"status": "ok", "uptime_s": ...})
     /journal      last-N journal events as JSON (?n=, bounded tail; no
                   file paths)
+    /slo          the SLO plane's snapshot (``obs/slo.SLOPlane``):
+                  statuses with burn-rate sparklines and bounded history
+                  samples (?n=, capped; no file paths); 200 with empty
+                  statuses when no plane is wired
+    /debug/vars   every metric as JSON and the journal's recent tail
 
-``/slo`` and ``/debug/vars`` answer 404 until the SLO plane is ported
-(ROADMAP.md Queue 1 item 8).  Every endpoint answers HEAD with headers
-only.  Stdlib ``http.server`` only, on named daemon threads; a scrape
+Every endpoint answers HEAD with headers only.  Stdlib ``http.server`` only, on named daemon threads; a scrape
 reads registry snapshots and never blocks on service locks.  The bound
 port is written to ``<dir>/metrics_port`` (``write_port_file``), so
 ``--metrics_port 0`` is discoverable.
@@ -66,6 +69,7 @@ class MetricsExporter:
         port: int = 0,
         host: str = "",
         journal_tail: int = 100,
+        slo_plane=None,
     ):
         if registry is None or journal is None:
             from elasticdl_tpu_torch import obs
@@ -77,6 +81,7 @@ class MetricsExporter:
         self._host = host
         self._port = port
         self._journal_tail = journal_tail
+        self._slo_plane = slo_plane
         self._server: Optional[_ExporterHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         self._started_monotonic = 0.0
@@ -84,6 +89,11 @@ class MetricsExporter:
     @property
     def port(self) -> int:
         return self._port
+
+    def set_slo_plane(self, plane) -> None:
+        """Wire (or replace) the ``SLOPlane`` behind ``/slo``: the master
+        builds its plane after the exporter."""
+        self._slo_plane = plane
 
     def start(self) -> "MetricsExporter":
         self._started_monotonic = time.monotonic()
@@ -112,7 +122,8 @@ class MetricsExporter:
         )
         self._thread.start()
         logger.info(
-            "Metrics exporter listening on port %d (/metrics, /healthz, /journal)",
+            "Metrics exporter listening on port %d (/metrics, /healthz, /journal, /slo, "
+            "/debug/vars)",
             self._port,
         )
         return self
@@ -189,6 +200,19 @@ class MetricsExporter:
                     pass
         return max(1, min(n, self.JOURNAL_TAIL_MAX))
 
+    #: Upper bound on ?n= for /slo history samples per series.
+    SLO_SAMPLES_MAX = 128
+
+    def _slo_samples_n(self, query: str) -> int:
+        n = 32
+        for pair in query.split("&"):
+            if pair.startswith("n="):
+                try:
+                    n = int(pair[2:])
+                except ValueError:
+                    pass
+        return max(1, min(n, self.SLO_SAMPLES_MAX))
+
     def _handle(self, request: BaseHTTPRequestHandler, head: bool = False):
         path, _, query = request.path.partition("?")
         status = 200
@@ -214,11 +238,28 @@ class MetricsExporter:
                     {"events": events, "count": len(events)}, default=str
                 ).encode("utf-8")
                 content_type = "application/json"
+            elif path == "/slo":
+                # Statuses and bounded samples only, no file paths; a
+                # process without a plane answers empty statuses.
+                plane = self._slo_plane
+                if plane is None:
+                    payload = {"statuses": [], "series": [], "alerting": [],
+                               "note": "no slo plane"}
+                else:
+                    payload = plane.snapshot(samples_per_series=self._slo_samples_n(query))
+                body = json.dumps(payload, default=str).encode("utf-8")
+                content_type = "application/json"
+            elif path == "/debug/vars":
+                body = json.dumps(
+                    {"metrics": self._registry.to_dict(),
+                     "journal": {"path": self._journal.path,
+                                 "tail": self._journal.tail(self._journal_tail)}},
+                    default=str,
+                ).encode("utf-8")
+                content_type = "application/json"
             else:
                 status = 404
-                # /slo too: the SLO plane is not ported (ROADMAP.md
-                # Queue 1 item 8).
-                body = b"not found (try /metrics, /healthz, /journal)\n"
+                body = b"not found (try /metrics, /healthz, /journal, /slo, /debug/vars)\n"
                 content_type = "text/plain"
         except Exception:
             # A scrape failure is the exporter's bug, never the replica's:

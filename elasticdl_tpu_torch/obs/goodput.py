@@ -34,8 +34,8 @@ Restart survival: a replacement master seeds cumulative per-phase
 seconds from the resumed journal (``seed_from_journal``), so the live
 ``elasticdl_goodput_ratio`` gauge keeps job-lifetime meaning across
 master generations.  The outage gap itself (no master alive to account
-it) is not seen by the live gauge; the JAX package's offline report
-(``obs/report.py``) attributes it and is not ported yet.
+it) is not seen by the live gauge; the offline report
+(``obs/report.py``) attributes it from the inter-generation journal gap.
 
 Process scoping: each process accounts its own ledger.  Control-plane
 hooks (the task manager, the rendezvous, the pod manager) drive the

@@ -52,6 +52,11 @@ class EventJournal:
         if path:
             self.configure(path, max_bytes)
 
+    @property
+    def path(self) -> Optional[str]:
+        with self._lock:
+            return self._path
+
     def configure(
         self, path: Optional[str], max_bytes: Optional[int] = None
     ) -> Optional[str]:

@@ -127,6 +127,14 @@ class Counter(_Metric):
                 return {(): 0.0}  # unlabeled counters export even at zero
             return dict(self._values)
 
+    def to_dict(self) -> dict:
+        return {
+            "type": self.kind,
+            "help": self.help,
+            "values": {",".join(key) if key else "": value
+                       for key, value in sorted(self._snapshot().items())},
+        }
+
     def expose_lines(self) -> List[str]:
         return [
             f"{self.name}{self._label_str(key)} {_format_number(value)}"
@@ -190,6 +198,14 @@ class Gauge(_Metric):
                 pass
         return values
 
+    def to_dict(self) -> dict:
+        return {
+            "type": self.kind,
+            "help": self.help,
+            "values": {",".join(key) if key else "": value
+                       for key, value in sorted(self._snapshot().items())},
+        }
+
     def expose_lines(self) -> List[str]:
         return [
             f"{self.name}{self._label_str(key)} {_format_number(value)}"
@@ -245,6 +261,21 @@ class Histogram(_Metric):
                 dict(self._sums),
                 dict(self._counts),
             )
+
+    def to_dict(self) -> dict:
+        bucket_counts, sums, counts = self._snapshot()
+        return {
+            "type": self.kind,
+            "help": self.help,
+            "buckets": list(self.buckets),
+            "values": {
+                ",".join(key) if key else "": {
+                    "count": counts[key], "sum": sums[key],
+                    "bucket_counts": bucket_counts[key],
+                }
+                for key in sorted(bucket_counts)
+            },
+        }
 
     def expose_lines(self) -> List[str]:
         bucket_counts, sums, counts = self._snapshot()
@@ -313,6 +344,10 @@ class MetricsRegistry:
     def collect(self) -> List[_Metric]:
         with self._lock:
             return [self._metrics[name] for name in sorted(self._metrics)]
+
+    def to_dict(self) -> dict:
+        """JSON-able dump of every metric (the ``/debug/vars`` payload)."""
+        return {metric.name: metric.to_dict() for metric in self.collect()}
 
     def render_prometheus(self) -> str:
         """Prometheus text exposition (0.0.4) of every registered metric."""

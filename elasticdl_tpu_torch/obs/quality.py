@@ -11,9 +11,12 @@ resolves by the explicit ``unknown_policy`` and says so in the verdict.
 ``binary_auc`` and ``binary_logloss`` are the metric math (host-side
 numpy; None = undefined, never NaN).
 
-Not ported yet (ROADMAP.md Queue 1 item 8): ``QualityLedger`` (the
-label join that fills the replay buffer from served traffic),
-``DriftMonitor`` and its sketches, the ``labels`` request.
+Not ported yet (ROADMAP.md Queue 1 item 8, what the observability slice
+leaves): ``QualityLedger`` (the label join that fills the replay buffer
+from served traffic, fed by the exemplar sampler's sampled requests),
+``DriftMonitor`` and its sketches, the ``labels`` request, the
+``model_quality`` SLO (``quality_slo``) and the replica's
+``--quality_join_window_s`` and the workers' ``--quality_drift_bins``.
 """
 
 from __future__ import annotations

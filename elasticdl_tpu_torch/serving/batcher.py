@@ -25,9 +25,15 @@ its phase clocks (queue / batch / execute / respond); ``serving.execute``
 is a fault site
 (latency stalls the batcher thread, error fails the batch).  All clocks
 are host-side, and the batcher thread never holds its lock across the
-execute callable.  The request-trace ids and the shared ``serve.batch``
-span of the JAX package wait for the tracing plane (ROADMAP.md Queue 1
-item 8).
+execute callable.
+
+Request tracing (JAX ``batcher.py:392``): a request submitted with a
+trace id and its caller's ``rpc.predict`` span id carries them and its
+wall-clock enqueue stamp; each dispatch with a traced member mints ONE
+shared ``serve.batch`` span payload (start, duration, rows, bucket,
+member count) that every member points at (``batch_info``).  Nothing is
+journaled here: the exemplar sampler journals the batch span once, when
+a member is sampled.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ import numpy as np
 from elasticdl_tpu_torch import obs
 from elasticdl_tpu_torch.common import faults
 from elasticdl_tpu_torch.common.log_utils import get_logger
-from elasticdl_tpu_torch.data.pipeline import bucket_sizes, pad_and_stage
+from elasticdl_tpu_torch.data.pipeline import bucket_for, bucket_sizes, pad_and_stage
+from elasticdl_tpu_torch.obs import tracing
 
 logger = get_logger("serving.batcher")
 
@@ -76,6 +83,13 @@ class _Pending:
     # Phase clocks filled in by the batcher thread (queue / batch /
     # execute / respond: ledger.REQUEST_PHASES).
     phases: Dict[str, float] = field(default_factory=dict)
+    # The trace context (the caller's trace id and rpc.predict span id)
+    # and the wall-clock enqueue stamp the deferred spans start from.
+    trace_id: str = ""
+    parent_span_id: str = ""
+    enqueued_ts: float = 0.0
+    # The shared serve.batch span payload of the dispatch it rode.
+    batch_info: Optional[dict] = None
 
     def wait(self, timeout: Optional[float] = None) -> np.ndarray:
         if not self.done.wait(timeout):
@@ -171,10 +185,16 @@ class MicroBatcher:
     # -- admission ------------------------------------------------------
 
     def submit(
-        self, features: Dict[str, np.ndarray], deadline_s: Optional[float] = None
+        self,
+        features: Dict[str, np.ndarray],
+        deadline_s: Optional[float] = None,
+        trace_id: str = "",
+        parent_span_id: str = "",
     ) -> _Pending:
         """Admit one request (all arrays share axis-0 row count).  Raises
-        QueueFullError when the admission queue is at capacity."""
+        QueueFullError when the admission queue is at capacity.
+        ``trace_id`` and ``parent_span_id`` ride the pending record, so a
+        sampled request can journal its spans after the fact."""
         rows = int(np.asarray(next(iter(features.values()))).shape[0])
         if rows > self._config.max_batch_size:
             raise ValueError(
@@ -187,6 +207,9 @@ class MicroBatcher:
             rows=rows,
             enqueued_at=now,
             deadline=(now + deadline_s) if deadline_s else None,
+            trace_id=str(trace_id),
+            parent_span_id=str(parent_span_id),
+            enqueued_ts=time.time(),
         )
         with self._lock:
             if self._stopped:
@@ -218,10 +241,13 @@ class MicroBatcher:
         features: Dict[str, np.ndarray],
         deadline_s: Optional[float] = None,
         wait_timeout_s: Optional[float] = 60.0,
+        trace_id: str = "",
+        parent_span_id: str = "",
     ) -> np.ndarray:
         """submit + wait, the synchronous convenience for request
         handler threads."""
-        return self.submit(features, deadline_s).wait(wait_timeout_s)
+        return self.submit(features, deadline_s, trace_id=trace_id,
+                           parent_span_id=parent_span_id).wait(wait_timeout_s)
 
     # -- the batcher thread ---------------------------------------------
 
@@ -292,7 +318,9 @@ class MicroBatcher:
                 self._on_batch(stacked)
             except Exception:
                 logger.exception("on_batch hook failed (ignored)")
+        wall_batch = time.time()
         padded, _ = pad_and_stage(stacked, rows, self._buckets)
+        bucket = bucket_for(rows, self._buckets)
         t_exec = self._clock()
         batch_s = t_exec - t_batch
         self._m_batch_rows.observe(float(rows))
@@ -310,24 +338,34 @@ class MicroBatcher:
             outputs = np.asarray(self._execute_fn(padded, rows))
         except Exception as exc:
             t_done = self._clock()
-            self._stamp_batch(live, batch_s, t_done - t_exec)
+            self._stamp_batch(live, wall_batch, batch_s, t_done - t_exec, rows, bucket)
             for req in live:
                 self._finish(req, None, RequestError(f"execute failed: {exc}"),
                              outcome="error")
             raise
         execute_s = self._clock() - t_exec
-        self._stamp_batch(live, batch_s, execute_s)
+        self._stamp_batch(live, wall_batch, batch_s, execute_s, rows, bucket)
         offset = 0
         for req in live:
             self._finish(req, outputs[offset:offset + req.rows], None, outcome="served")
             offset += req.rows
 
     @staticmethod
-    def _stamp_batch(live: List[_Pending], batch_s: float, execute_s: float):
-        """Stamp each member's batch and execute phases."""
+    def _stamp_batch(live: List[_Pending], wall_batch: float, batch_s: float,
+                     execute_s: float, rows: int, bucket: int):
+        """Stamp each member's batch and execute phases, and, when a
+        member is traced, attach one shared ``serve.batch`` span payload
+        to every member (a minted span id, journaled by the sampler)."""
+        info = None
+        if any(r.trace_id for r in live):
+            info = {"name": "serve.batch", "start_ts": wall_batch,
+                    "duration_s": batch_s + execute_s,
+                    "span_id": tracing.tracer().mint_span_id(), "batch_rows": rows,
+                    "bucket": bucket, "requests": len(live)}
         for req in live:
             req.phases["batch"] = batch_s
             req.phases["execute"] = execute_s
+            req.batch_info = info
 
     def _finish(self, req: _Pending, result, error, outcome: str):
         t0 = self._clock()

@@ -26,8 +26,20 @@ request (predict, stats) with the JAX package's policy (attempts,
 backoff, jitter and budget of ``IDEMPOTENT_POLICY``) on a refused or
 reset connection and on 503.
 
-Not ported yet (ROADMAP.md Queue 1 item 8): trace ids over the transport
-and the ``labels`` request of the quality plane.
+Request tracing (JAX ``frontend.py:99-130,214``): a predict carrying the
+``elasticdl-trace-id`` header (and the caller's span in
+``elasticdl-span-id``) makes the handler the server edge of the
+request's trace.  Its spans are not journaled inline: the finished
+request (every outcome, queue-full sheds included) goes to the
+replica's ``ExemplarSampler`` (``serving/ledger.py``) with its deferred
+span set, ``rpc.predict`` under the caller's span, ``serve.queue`` and
+``serve.respond`` under it, ``serve.execute`` under the dispatch's
+shared ``serve.batch``, which carries the serving generation.  A request
+without the headers is served as before.  ``PredictClient.predict(...,
+trace_id=, span_id=)`` sends them.
+
+Not ported yet (ROADMAP.md Queue 1 item 8): the ``labels`` request of the
+quality plane.
 """
 
 from __future__ import annotations
@@ -43,8 +55,14 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
+from elasticdl_tpu_torch.common.http_rpc import (
+    SPAN_METADATA_KEY,
+    TRACE_METADATA_KEY,
+    trace_metadata,
+)
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.retry import HTTP_STATUS, IDEMPOTENT_POLICY, RetryPolicy
+from elasticdl_tpu_torch.obs import tracing
 from elasticdl_tpu_torch.serving.batcher import MicroBatcher, QueueFullError
 
 logger = get_logger("serving.frontend")
@@ -100,11 +118,13 @@ class PredictServicer:
     owns the device, so handlers only block on ``_Pending.wait``.  Each
     returns the response bytes or raises ``PredictError``."""
 
-    def __init__(self, replica, batcher: MicroBatcher):
+    def __init__(self, replica, batcher: MicroBatcher, sampler=None):
         self._replica = replica
         self._batcher = batcher
+        self._sampler = sampler
 
-    def predict(self, request: bytes, remaining: Optional[float]) -> bytes:
+    def predict(self, request: bytes, remaining: Optional[float], trace_id: str = "",
+                client_span_id: str = "") -> bytes:
         try:
             features = decode_features(request)
         except Exception as exc:
@@ -112,21 +132,87 @@ class PredictServicer:
         deadline_s = None
         if remaining is not None and remaining < 3600:
             deadline_s = max(0.0, remaining - _DEADLINE_HEADROOM_S)
+        rpc_span_id = tracing.tracer().mint_span_id() if trace_id else ""
+        start_ts = time.time()
+        start_mono = time.monotonic()
+        req = None
+        outcome = "served"
+        error = None  # raised after the trace is observed
+        outputs = None
         try:
-            req = self._batcher.submit(features, deadline_s=deadline_s)
+            req = self._batcher.submit(features, deadline_s=deadline_s, trace_id=trace_id,
+                                       parent_span_id=rpc_span_id)
             outputs = req.wait(remaining if remaining is not None else 60.0)
         except QueueFullError as exc:
-            raise PredictError("RESOURCE_EXHAUSTED", str(exc))
+            outcome, error = "shed", PredictError("RESOURCE_EXHAUSTED", str(exc))
         except TimeoutError as exc:
-            raise PredictError("DEADLINE_EXCEEDED", str(exc))
+            outcome, error = "dropped", PredictError("DEADLINE_EXCEEDED", str(exc))
         except ValueError as exc:
-            raise PredictError("INVALID_ARGUMENT", str(exc))
+            outcome, error = "error", PredictError("INVALID_ARGUMENT", str(exc))
         except RuntimeError as exc:
             # RequestError: dropped on deadline in queue, or execute failed.
             if "deadline" in str(exc):
-                raise PredictError("DEADLINE_EXCEEDED", str(exc))
-            raise PredictError("INTERNAL", str(exc))
+                outcome, error = "dropped", PredictError("DEADLINE_EXCEEDED", str(exc))
+            else:
+                outcome, error = "error", PredictError("INTERNAL", str(exc))
+        self._observe_trace(trace_id, client_span_id, rpc_span_id, req, outcome, start_ts,
+                            max(0.0, time.monotonic() - start_mono))
+        if error is not None:
+            raise error
         return encode_array(outputs)
+
+    def _observe_trace(self, trace_id: str, client_span_id: str, rpc_span_id: str, req,
+                       outcome: str, start_ts: float, duration_s: float):
+        """The request's deferred span set (rpc.predict, the phase spans
+        from the batcher's stamps, the shared serve.batch) to the sampler.
+        The clocks were all read already; a failure here never fails the
+        request."""
+        sampler = self._sampler
+        if sampler is None or not trace_id:
+            return
+        try:
+            phases = dict(req.phases) if req is not None else {}
+            rows = req.rows if req is not None else 1
+            rpc_span = {"name": "rpc.predict", "start_ts": start_ts, "duration_s": duration_s,
+                        "trace_id": trace_id, "span_id": rpc_span_id,
+                        "parent_id": client_span_id, "rows": rows, "outcome": outcome}
+            spans = [rpc_span]
+            batch = bucket = None
+            if req is not None and "queue" in phases:
+                spans.append({"name": "serve.queue", "start_ts": req.enqueued_ts,
+                              "duration_s": phases["queue"], "trace_id": trace_id,
+                              "parent_id": rpc_span_id})
+            if req is not None and req.batch_info is not None:
+                batch = dict(req.batch_info)
+                bucket = batch.get("bucket")
+                rpc_span["batch_span_id"] = batch["span_id"]
+                exec_start = req.enqueued_ts + phases.get("queue", 0.0) + phases.get("batch", 0.0)
+                if "execute" in phases:
+                    spans.append({"name": "serve.execute", "start_ts": exec_start,
+                                  "duration_s": phases["execute"], "trace_id": trace_id,
+                                  "span_id": tracing.tracer().mint_span_id(),
+                                  "parent_id": batch["span_id"],
+                                  "batch_span_id": batch["span_id"], "rows": rows})
+                    if "respond" in phases:
+                        # Under rpc.predict, not execute: respond starts
+                        # where execute ends, and the assembler's clamp
+                        # would squash a child outliving its parent.
+                        spans.append({"name": "serve.respond",
+                                      "start_ts": exec_start + phases["execute"],
+                                      "duration_s": phases["respond"], "trace_id": trace_id,
+                                      "parent_id": rpc_span_id})
+            generation = None
+            try:
+                generation = int(self._replica.generation.gen_id)
+            except Exception:
+                pass
+            if batch is not None and generation is not None:
+                batch["generation"] = generation
+            sampler.observe(trace_id, phases, outcome, rows=rows,
+                            latency_s=(duration_s if not phases else None), spans=spans,
+                            batch=batch, generation=generation, bucket=bucket)
+        except Exception:
+            logger.exception("request-trace observe failed")
 
     def reload(self, request: bytes) -> bytes:
         try:
@@ -172,8 +258,9 @@ class ServingFrontend:
     ``PredictServicer``.  ``start()`` binds (port 0 = ephemeral) and
     returns the bound port."""
 
-    def __init__(self, replica, batcher: MicroBatcher, port: int = 0, host: str = ""):
-        self._servicer = PredictServicer(replica, batcher)
+    def __init__(self, replica, batcher: MicroBatcher, port: int = 0, host: str = "",
+                 sampler=None):
+        self._servicer = PredictServicer(replica, batcher, sampler=sampler)
         self._requested = (host, port)
         self._server: Optional[_FrontendHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
@@ -197,7 +284,10 @@ class ServingFrontend:
                     if path == "/predict":
                         header = self.headers.get(DEADLINE_HEADER)
                         remaining = float(header) if header else None
-                        out, ctype = servicer.predict(body, remaining), "application/octet-stream"
+                        out = servicer.predict(body, remaining,
+                                               self.headers.get(TRACE_METADATA_KEY) or "",
+                                               self.headers.get(SPAN_METADATA_KEY) or "")
+                        ctype = "application/octet-stream"
                     elif path == "/reload":
                         out, ctype = servicer.reload(body), "application/json"
                     elif path == "/stats":
@@ -339,12 +429,15 @@ class PredictClient:
                 self.retries += 1
                 self._sleep(backoff)
 
-    def predict(self, features: Dict[str, np.ndarray],
-                deadline_s: Optional[float] = None) -> np.ndarray:
+    def predict(self, features: Dict[str, np.ndarray], deadline_s: Optional[float] = None,
+                trace_id: str = "", span_id: str = "") -> np.ndarray:
+        """``trace_id`` / ``span_id`` ride the trace headers, so the
+        replica's rpc.predict span joins the caller's trace; empty sends
+        none."""
         timeout = self._deadline_s if deadline_s is None else float(deadline_s)
         policy = RetryPolicy(timeout_s=timeout, max_attempts=IDEMPOTENT_POLICY.max_attempts)
-        payload = self._call("predict", encode_features(features), policy,
-                             {DEADLINE_HEADER: repr(timeout)})
+        headers = {DEADLINE_HEADER: repr(timeout), **dict(trace_metadata(trace_id, span_id) or ())}
+        payload = self._call("predict", encode_features(features), policy, headers)
         return decode_array(payload)
 
     def reload(self, model_dir: str, deadline_s: float = 120.0) -> dict:

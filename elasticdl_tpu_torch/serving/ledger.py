@@ -21,9 +21,16 @@ Exported via the obs registry (scraped from the replica's exporter):
 - ``elasticdl_serving_qps``: served requests/s over the same window.
 
 Requests finish on the batcher thread while the exporter scrapes from
-its own; the lock covers the window and the counters.  The JAX package's
-``ExemplarSampler`` waits for the tracing plane (ROADMAP.md Queue 1
-item 8).
+its own; the lock covers the window and the counters.
+
+``ExemplarSampler`` (JAX ``serving/ledger.py:228-390``) is the request
+tracing plane's sensor: of the requests that carry a trace id it keeps
+the head (1 in ``head_every``), the tail (slower than the threshold) and
+every failed one, and journals each as a ``request_trace`` event plus
+its span tree (``rpc.predict`` -> ``serve.batch`` -> ``serve.execute``,
+``serve.queue`` and ``serve.respond`` under ``rpc.predict``).  Its
+predictions do not feed a quality ledger: that waits with the quality
+plane (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from collections import deque
 from typing import Dict, Optional
 
 from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.obs import tracing
 
 #: The exclusive sub-phases of one serving request's wall time (the JAX
 #: package's ``obs/stepstats.py`` ``REQUEST_PHASES``): ``queue`` =
@@ -200,6 +208,182 @@ class AvailabilityLedger:
             },
             "qps": round(self.qps(), 2),
         }
+
+
+class ExemplarSampler:
+    """Bounded ring of completed request records with a three-policy
+    sampling decision:
+
+    - **head**: deterministic 1-in-``head_every`` of traced requests
+      (a counter, not a coin flip — the same request stream always
+      journals the same head set);
+    - **tail**: latency above ``tail_threshold_ms`` (wired to the
+      replica's ``--slo_p99_ms`` target, so "slow" means "slow against
+      the SLO the fleet pages on");
+    - **outcome**: every shed / dropped / error request (failures are
+      always evidence).
+
+    A sampled request journals one ``request_trace`` event plus its
+    deferred span set (``rpc.predict`` -> ``serve.queue`` ->
+    ``serve.execute`` -> ``serve.respond``), and the shared
+    ``serve.batch`` span its bucket rode — journaled ONCE per batch, on
+    the first sampled member (a bounded id ring dedupes).  Unsampled
+    requests write nothing: journaling stays O(sampled).
+
+    Requests without a trace id (clients that sent no
+    ``elasticdl-trace-id`` header) are invisible to the sampler — there is no
+    id to journal, and skipping them keeps the head counter pure in the
+    *traced* stream.
+
+    All clocks are read by the caller (the frontend and the batcher)
+    and arrive as wall stamps inside the prepared span payloads; this
+    class only counts, compares and journals.
+    """
+
+    def __init__(
+        self,
+        head_every: int = 128,
+        tail_threshold_ms: float = 0.0,
+        capacity: int = 64,
+        replica_id: Optional[int] = None,
+        journal=None,
+    ):
+        self._head_every = max(0, int(head_every))
+        self._tail_threshold_ms = float(tail_threshold_ms)
+        self._capacity = max(1, int(capacity))
+        self._replica_id = replica_id
+        self._journal = journal
+        self._lock = threading.Lock()
+        self._count = 0  # traced requests seen, guarded-by: _lock
+        self._sampled = 0  # guarded-by: _lock
+        self._ring: deque = deque(maxlen=self._capacity)  # guarded-by: _lock
+        # Shared-batch-span dedup: ids already journaled (bounded LRU;
+        # no deque maxlen — eviction must also clean the set).
+        self._batch_ids: deque = deque()  # guarded-by: _lock
+        self._batch_id_set = set()  # guarded-by: _lock
+
+    def _journal_ref(self):
+        if self._journal is not None:
+            return self._journal
+        return obs.journal()
+
+    # -- the sampling decision ------------------------------------------
+
+    def observe(
+        self,
+        trace_id: str,
+        phases: Dict[str, float],
+        outcome: str,
+        rows: int = 1,
+        latency_s: Optional[float] = None,
+        spans=None,
+        batch: Optional[dict] = None,
+        generation: Optional[int] = None,
+        bucket: Optional[int] = None,
+    ) -> str:
+        """Feed one completed request; returns the sampling reason
+        (``head`` / ``tail`` / ``outcome``) or ``""`` when unsampled.
+
+        ``spans`` is the deferred span payload list (record_span kwargs,
+        prepared by the frontend with wall stamps already read);
+        ``batch`` is the shared serve.batch payload (must carry
+        ``span_id``).  Both journal only on a sample.
+        """
+        if not trace_id:
+            return ""
+        if latency_s is None:
+            latency_s = sum(
+                float(phases.get(p, 0.0)) for p in REQUEST_PHASES
+            )
+        latency_ms = float(latency_s) * 1e3
+        with self._lock:
+            self._count += 1
+            if outcome != "served":
+                sampled_by = "outcome"
+            elif (
+                self._tail_threshold_ms > 0
+                and latency_ms > self._tail_threshold_ms
+            ):
+                sampled_by = "tail"
+            elif (
+                self._head_every > 0
+                and (self._count - 1) % self._head_every == 0
+            ):
+                sampled_by = "head"
+            else:
+                return ""
+            self._sampled += 1
+            batch_is_new = False
+            if batch is not None and batch.get("span_id"):
+                batch_id = batch["span_id"]
+                if batch_id not in self._batch_id_set:
+                    batch_is_new = True
+                    self._batch_ids.append(batch_id)
+                    self._batch_id_set.add(batch_id)
+                    while len(self._batch_ids) > self._capacity:
+                        self._batch_id_set.discard(self._batch_ids.popleft())
+            phases_ms = {
+                p: round(float(phases[p]) * 1e3, 3)
+                for p in REQUEST_PHASES
+                if p in phases
+            }
+            dominant = (
+                max(phases_ms, key=phases_ms.get) if phases_ms else ""
+            )
+            record = {
+                "trace_id": trace_id,
+                "outcome": outcome,
+                "sampled_by": sampled_by,
+                "latency_ms": round(latency_ms, 3),
+                "phases": phases_ms,
+                "dominant_phase": dominant,
+                "rows": int(rows),
+            }
+            self._ring.append(dict(record))
+        # Journal OUTSIDE the lock: the journal has its own lock and a
+        # slow disk must not serialize the request handler threads here.
+        extra = {}
+        if self._replica_id is not None:
+            extra["replica_id"] = self._replica_id
+        if generation is not None:
+            extra["generation"] = generation
+        if bucket is not None:
+            extra["bucket"] = bucket
+        self._journal_ref().record("request_trace", **record, **extra)
+        if batch_is_new:
+            tracing.record_span(**batch)
+        for payload in spans or ():
+            tracing.record_span(**payload)
+        return sampled_by
+
+    # -- readouts -------------------------------------------------------
+
+    def counts(self) -> Dict[str, int]:
+        with self._lock:
+            return {"observed": self._count, "sampled": self._sampled}
+
+    def exemplars(self) -> list:
+        """Ring contents, oldest first (bounded copies)."""
+        with self._lock:
+            return [dict(r) for r in self._ring]
+
+    def slowest(self) -> Optional[dict]:
+        """The slowest request currently in the ring (the obs.top
+        footer / serving_telemetry ``exemplar`` field)."""
+        with self._lock:
+            if not self._ring:
+                return None
+            return dict(max(self._ring, key=lambda r: r["latency_ms"]))
+
+    def trace_ids(self, k: int = 4) -> list:
+        """Up to ``k`` exemplar trace ids, slowest first — the
+        offending-request evidence a fired latency ``slo_alert``
+        attaches."""
+        with self._lock:
+            ranked = sorted(
+                self._ring, key=lambda r: -r["latency_ms"]
+            )
+        return [r["trace_id"] for r in ranked[: max(0, int(k))]]
 
 
 _ledger: Optional[AvailabilityLedger] = None

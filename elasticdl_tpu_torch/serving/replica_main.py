@@ -22,12 +22,26 @@ Discovery rides the shared ``--serve_dir``:
   ``model_swap``, ``request_shed``, and ``serving_telemetry`` once per
   ``--telemetry_interval_s`` and once at exit.
 
-The JAX package's flags are kept, with their names and defaults.  A
-flag that would enable a plane the port does not have (``--slo_*`` > 0,
-``--quality_join_window_s`` > 0) raises ``NotImplementedError``; the
-``--trace_*`` flags select nothing (ROADMAP.md Queue 1 items 4 and 8).
-``serving/supervisor.py`` runs a fleet of these processes and replaces
-a dead one with a fresh id.
+The JAX package's flags are kept, with their names and defaults, and
+select their planes as in JAX (``replica_main.py:184-212,318-352``):
+
+- request tracing: an ``ExemplarSampler`` (``serving/ledger.py``) with
+  ``--trace_head_every``, ``--trace_exemplar_capacity`` and
+  ``--trace_tail_threshold_ms`` (0 ties it to ``--slo_p99_ms``) samples
+  the requests that carry a trace id; its spans name the process
+  ``replica_<id>``, and ``serving_telemetry`` carries the slowest
+  exemplar;
+- the SLO plane (``obs/slo.py``), ticked by the telemetry loop and served
+  on ``/slo``: ``--slo_availability_target`` > 0 registers the
+  availability SLO, ``--slo_p99_ms`` > 0 the p99 latency SLO,
+  ``--freshness_slo_s`` > 0 with ``--pub_dir`` the freshness SLO, each
+  over ``--slo_compliance_window_s``; a fired latency alert carries the
+  slowest exemplars' trace ids.
+
+``--quality_join_window_s`` > 0 would enable the model-quality plane,
+which the port does not have yet: it raises ``NotImplementedError``
+(ROADMAP.md Queue 1 item 8).  ``serving/supervisor.py`` runs a fleet of
+these processes and replaces a dead one with a fresh id.
 """
 
 from __future__ import annotations
@@ -196,29 +210,61 @@ def parse_replica_args(argv=None) -> argparse.Namespace:
 
 
 def _refuse_unported_planes(args) -> None:
-    """A flag that would enable a plane the port does not have yet raises
-    instead of selecting nothing; the tracing flags are accepted and
-    select nothing (ROADMAP.md Queue 1 item 4)."""
-    enabled = [name for name in ("slo_availability_target", "slo_p99_ms",
-                                 "quality_join_window_s")
-               if getattr(args, name) > 0]
-    if enabled:
+    """``--quality_join_window_s`` would enable the model-quality plane,
+    which the port does not have yet: it raises instead of selecting
+    nothing."""
+    if args.quality_join_window_s > 0:
         raise NotImplementedError(
-            f"--{', --'.join(enabled)}: the SLO and model-quality planes are not ported "
-            "(ROADMAP.md Queue 1 item 8)")
+            "--quality_join_window_s: the model-quality plane is not ported (ROADMAP.md "
+            "Queue 1 item 8)")
+
+
+def _build_slo_plane(args):
+    """This replica's SLO plane over the process registry: the history
+    sampler always runs (it feeds /slo); each SLO registers when its
+    flag asks for it.  The telemetry loop ticks it."""
+    from elasticdl_tpu_torch.obs.slo import (
+        SLOPlane,
+        freshness_slo,
+        serving_availability_slo,
+        serving_latency_slo,
+    )
+
+    specs = []
+    window_s = float(args.slo_compliance_window_s)
+    if args.slo_availability_target > 0:
+        specs.append(serving_availability_slo(args.slo_availability_target,
+                                              compliance_window_s=window_s))
+    if args.slo_p99_ms > 0:
+        specs.append(serving_latency_slo(args.slo_p99_ms, compliance_window_s=window_s))
+    if args.freshness_slo_s > 0 and args.pub_dir:
+        specs.append(freshness_slo(args.freshness_slo_s, compliance_window_s=window_s))
+    return SLOPlane(specs=specs, origin=f"replica_{args.replica_id}")
 
 
 def _telemetry_loop(stop: threading.Event, interval_s: float, replica, batcher,
-                    replica_id: int):
+                    replica_id: int, slo_plane=None, sampler=None):
     from elasticdl_tpu_torch.serving.ledger import ledger
 
     while not stop.wait(interval_s):
-        _journal_telemetry(replica, batcher, replica_id, ledger().snapshot())
+        if slo_plane is not None:
+            try:
+                slo_plane.tick()
+            except Exception:
+                logger.exception("SLO tick failed")
+        _journal_telemetry(replica, batcher, replica_id, ledger().snapshot(), sampler)
 
 
-def _journal_telemetry(replica, batcher, replica_id: int, snap: dict):
+def _journal_telemetry(replica, batcher, replica_id: int, snap: dict, sampler=None):
     stats = replica.stats()
     phase_p99 = snap.get("phase_p99_ms", {})
+    extra = {}
+    slowest = sampler.slowest() if sampler is not None else None
+    if slowest is not None:
+        # The slowest recent exemplar (obs.top --serving's footer).
+        extra["exemplar"] = {"trace_id": slowest["trace_id"],
+                             "latency_ms": slowest["latency_ms"],
+                             "dominant_phase": slowest["dominant_phase"]}
     obs.journal().record(
         "serving_telemetry",
         replica_id=replica_id,
@@ -239,6 +285,7 @@ def _journal_telemetry(replica, batcher, replica_id: int, snap: dict):
         dropped=snap["counts"]["dropped"],
         shed=snap["counts"]["shed"],
         errors=snap["counts"]["error"],
+        **extra,
     )
 
 
@@ -253,16 +300,20 @@ def main(argv=None) -> int:
     obs.init_journal(args.serve_dir)
 
     from elasticdl_tpu_torch.common import faults
+    from elasticdl_tpu_torch.obs import tracing
     from elasticdl_tpu_torch.obs.exporter import MetricsExporter
     from elasticdl_tpu_torch.obs.freshness import FreshnessTracker
     from elasticdl_tpu_torch.serving.batcher import BatcherConfig, MicroBatcher
     from elasticdl_tpu_torch.serving.continuous import DeltaWatcher
     from elasticdl_tpu_torch.serving.frontend import ServingFrontend, decode_features
-    from elasticdl_tpu_torch.serving.ledger import ledger
+    from elasticdl_tpu_torch.serving.ledger import ExemplarSampler, ledger
     from elasticdl_tpu_torch.serving.runtime import ServingReplica
 
     if faults.install_from_env():
         logger.warning("Replica %d: fault injection armed from env", args.replica_id)
+    # Every replica of a fleet appends to one serve-dir journal; its span
+    # records carry their own process name.
+    tracing.set_process(f"replica_{args.replica_id}")
 
     t_start = time.perf_counter()
     replica = ServingReplica(args.model_dir, device=args.device)
@@ -277,6 +328,9 @@ def main(argv=None) -> int:
         on_request=book.record_request,
         on_shed=book.record_shed,
     ).start()
+    sampler = ExemplarSampler(head_every=args.trace_head_every,
+                              tail_threshold_ms=args.trace_tail_threshold_ms or args.slo_p99_ms,
+                              capacity=args.trace_exemplar_capacity, replica_id=args.replica_id)
     # Every resource below owns a daemon thread and/or a listening
     # socket; a failure anywhere between start() and the serve loop
     # (warmup decode, bind error, pub_dir scan) must still drain them
@@ -285,6 +339,7 @@ def main(argv=None) -> int:
     exporter = None
     watcher = None
     telemetry = None
+    slo_plane = None
     stop = threading.Event()
     try:
         if args.warmup_features:
@@ -293,9 +348,12 @@ def main(argv=None) -> int:
             replica.warmup(example, batcher.buckets)
             logger.info("Warmed %d bucket shapes", len(batcher.buckets))
 
-        frontend = ServingFrontend(replica, batcher, port=args.port)
+        frontend = ServingFrontend(replica, batcher, port=args.port, sampler=sampler)
         port = frontend.start()
-        exporter = MetricsExporter(port=args.metrics_port).start()
+        slo_plane = _build_slo_plane(args)
+        # A latency page carries the slowest sampled trace ids.
+        slo_plane.slos.set_exemplar_provider(lambda _slo: sampler.trace_ids(4))
+        exporter = MetricsExporter(port=args.metrics_port, slo_plane=slo_plane).start()
         write_replica_info(args.serve_dir, args.replica_id, {
             "replica_id": args.replica_id,
             "pid": os.getpid(),
@@ -323,7 +381,8 @@ def main(argv=None) -> int:
 
         telemetry = threading.Thread(
             target=_telemetry_loop,
-            args=(stop, args.telemetry_interval_s, replica, batcher, args.replica_id),
+            args=(stop, args.telemetry_interval_s, replica, batcher, args.replica_id,
+                  slo_plane, sampler),
             name="serving-telemetry",
             daemon=True,
         )
@@ -350,10 +409,12 @@ def main(argv=None) -> int:
         batcher.stop()
         if exporter is not None:
             exporter.stop()
+        if slo_plane is not None:
+            slo_plane.stop()
         if telemetry is not None:
             telemetry.join(timeout=5)
             # The last word of this replica: its final counts.
-            _journal_telemetry(replica, batcher, args.replica_id, book.snapshot())
+            _journal_telemetry(replica, batcher, args.replica_id, book.snapshot(), sampler)
     return 0
 
 

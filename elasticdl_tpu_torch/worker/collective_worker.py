@@ -49,6 +49,15 @@ flush's steps and records for the heartbeat; this process's goodput
 ledger books the task loop's ``training`` and ``idle`` (WAIT), the
 restore at boot and each save.
 
+The tracing plane (``obs/tracing.py``): each task runs in a
+``worker.task`` span under the dispatch-minted trace id (the master's
+``task.lifetime`` root), each flush's anatomy window becomes ``step.*``
+child spans, and the restore and each save are ``checkpoint.restore`` /
+``checkpoint.save`` spans.  With a ``profiler``
+(``common/profiler.StepProfiler``, ``--profile_steps``) each flush is
+bracketed by ``before_steps`` / ``after_steps``, so the window's train
+steps run under ``torch.profiler``.
+
 The worker journals (``obs``) ``checkpoint_restore``, ``first_step``,
 ``checkpoint_saved`` (both on the DP path with the state's CRC32s,
 ``state_digest``, on every rank) and, after every task,
@@ -90,7 +99,7 @@ from elasticdl_tpu_torch.data.pipeline import (
     StagingPipeline,
 )
 from elasticdl_tpu_torch.data.reader import etrf_per_record_reads
-from elasticdl_tpu_torch.obs import goodput, stepstats
+from elasticdl_tpu_torch.obs import goodput, stepstats, tracing
 from elasticdl_tpu_torch.parallel import elastic
 from elasticdl_tpu_torch.parallel.elastic import WorldInfo
 from elasticdl_tpu_torch.parallel.sharding import pad_batch
@@ -225,8 +234,10 @@ class CollectiveWorker:
         prediction_data_reader=None,
         telemetry=None,
         anatomy=None,
+        profiler=None,
     ):
         self._mc = master_client
+        self._profiler = profiler
         self._spec = model_spec
         # The heartbeat's telemetry collector and the step anatomy (by
         # default the one bound to the collector); None turns either off.
@@ -238,6 +249,9 @@ class CollectiveWorker:
         self._world = world
         self._trainer = trainer
         self._ckpt = checkpoint_saver
+        if checkpoint_saver is not None:
+            # Every rank journals its own save below, with its digest.
+            checkpoint_saver.journal_saves = False
         self._ckpt_steps = checkpoint_steps
         self._last_reported_version = 0
         self._last_ckpt_step = 0
@@ -298,7 +312,8 @@ class CollectiveWorker:
         # This process's ledger: after a re-formation the restore is part
         # of what the rescale costs.
         with goodput.ledger().phase("checkpoint_restore", cause="boot"):
-            self._restore_from_checkpoint_inner()
+            with tracing.span("checkpoint.restore", rank=self._world.rank):
+                self._restore_from_checkpoint_inner()
 
     def _restore_from_checkpoint_inner(self):
         start = time.monotonic()
@@ -357,6 +372,8 @@ class CollectiveWorker:
             heartbeat.stop()
             if self._parse_pool is not None:
                 self._parse_pool.close()
+            if self._profiler is not None:
+                self._profiler.stop()
 
     # -- step anatomy (no-op contexts when the plane is off) -------------------
 
@@ -403,15 +420,20 @@ class CollectiveWorker:
             if self._telemetry is not None:
                 self._telemetry.begin_task(task.task_id, type_name, task.end - task.start)
             start = time.monotonic()
+            # The worker half of the task's trace: the leader knows the
+            # dispatch-minted trace id (the broadcast drops strings).
+            span_fields = dict(task_id=task.task_id, rank=self._world.rank)
+            if task.trace_id:
+                span_fields["trace_id"] = task.trace_id
             try:
-                with obs.span("worker.task", labels={"type": type_name},
-                              task_id=task.task_id, rank=self._world.rank):
+                with obs.span("worker.task", labels={"type": type_name}, **span_fields):
                     counters = self._process_task(task)
             except Exception as exc:
                 logger.error("Task %d failed on rank %d:\n%s", task.task_id, self._world.rank,
                              traceback.format_exc())
                 if self._world.is_leader:
-                    self._mc.report_task_result_best_effort(task.task_id, str(exc) or repr(exc))
+                    self._mc.report_task_result_best_effort(task.task_id, str(exc) or repr(exc),
+                                                            trace_id=task.trace_id)
                 # A failed collective step poisons the world: die, and let
                 # the pod manager re-form it.
                 raise
@@ -419,7 +441,8 @@ class CollectiveWorker:
             if self._world.is_leader:
                 # The step succeeded on every rank; a lost report is only
                 # an RPC fault (the master requeues the task).
-                self._mc.report_task_result_best_effort(task.task_id, "", counters)
+                self._mc.report_task_result_best_effort(task.task_id, "", counters,
+                                                        trace_id=task.trace_id)
         self._report_version(force=True)
         self._maybe_checkpoint(force=True)
 
@@ -616,6 +639,10 @@ class CollectiveWorker:
             if not pending:
                 return
             first = self.process_steps == 0 and batch_count == 0
+            if self._profiler is not None:
+                # Before the dispatch: a fused window traces whole, so the
+                # profile window's edges round outward to whole windows.
+                self._profiler.before_steps(self._trainer.step, len(pending))
             flush_start = time.monotonic()
             if len(pending) == window_steps:
                 window = stage_call(self._trainer.stage_window, pending)
@@ -647,19 +674,24 @@ class CollectiveWorker:
                 batch_count += len(pending)
                 record_count += pending_real
                 pending, pending_real = [], 0
+                if self._profiler is not None:
+                    self._profiler.after_steps(self._trainer.step)
                 self._report_version_if_due()
                 self._maybe_checkpoint()
             if self._anatomy is not None:
                 if prefetcher is not None and prefetcher.overlap_s > overlap_booked[0]:
                     self._anatomy.note_overlap_seconds(prefetcher.overlap_s - overlap_booked[0])
                     overlap_booked[0] = prefetcher.overlap_s
-                if self._anatomy.close_window() is not None:  # one window per flush
+                anatomy_window = self._anatomy.close_window()  # one window per flush
+                if anatomy_window is not None:
                     # The cumulative anatomy to this process's journal too:
                     # the heartbeat's copy reaches the master's journal at
                     # most every journal interval, and a short world may
                     # end before one.
                     stepstats.journal_anatomy(self._anatomy.worker_id,
                                               self._anatomy.snapshot())
+                    # The window's phases as child spans of worker.task.
+                    tracing.tracer().record_window_spans(anatomy_window)
 
         batches = iter(self._local_batches(task, Mode.TRAINING))
         prefetcher = None
@@ -779,14 +811,17 @@ class CollectiveWorker:
         if not (due and step > 0 and step != self._last_ckpt_step):
             return
         start = time.monotonic()
-        digest = {}
+        # The saver's fields (JAX's ``checkpoint_saved``) and the DP
+        # state's digest.
+        fields = {"kind": "full"}
         with goodput.ledger().phase("checkpoint_save", cause="cadence"):
             with obs.span("checkpoint.save", rank=self._world.rank, step=step):
                 if self._sharded_ckpt:
                     self._trainer.save_checkpoint(self._ckpt, step)
+                    fields = {"kind": "sharded", "n_processes": self._world.world_size}
                 else:
                     host_state = self._trainer.state_to_jax_host()
-                    digest = state_digest(host_state)
+                    fields.update(state_digest(host_state))
                     if self._world.is_leader:
                         self._ckpt.save(host_state, step)
             if self._trainer.device.type == "cuda":
@@ -794,5 +829,5 @@ class CollectiveWorker:
         seconds = time.monotonic() - start
         logger.info("Checkpoint at step %d saved in %.3f s", step, seconds)
         obs.journal().record("checkpoint_saved", rank=self._world.rank, step=step,
-                             seconds=round(seconds, 6), **digest)
+                             seconds=round(seconds, 6), **fields)
         self._last_ckpt_step = step

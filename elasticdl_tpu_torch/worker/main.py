@@ -31,11 +31,15 @@ task progress, RPC retries and the step's phase split ride its
 heartbeats to the master.  The Local worker gets the anatomy alone and
 journals it per task (no heartbeat there).
 
-With ``--checkpoint_dir`` the worker journals into
-``<checkpoint_dir>/events_worker_<id>.jsonl`` (the master's journal is
-``events.jsonl`` there); at exit it logs one line, ``worker exit: {...}``,
-with the process's kernel launch counts, the steps it trained and the
-forbidden modules it loaded (none).
+The worker journals into ``<dir>/events_worker_<id>.jsonl``, where
+``<dir>`` is ``--tensorboard_log_dir`` or else ``--checkpoint_dir`` (the
+master's journal is ``events.jsonl`` there); at exit it logs one line,
+``worker exit: {...}``, with the process's kernel launch counts, the
+steps it trained and the forbidden modules it loaded (none).  Its spans
+name the process ``worker_<id>`` (``obs/tracing.set_process``), and the
+flight recorder flushes its open spans at exit.  ``--profile_steps``
+runs a ``common/profiler.StepProfiler`` over the task loop, writing
+under ``<tensorboard_log_dir>/profile/worker_<id>/``.
 """
 
 from __future__ import annotations
@@ -69,8 +73,13 @@ def main(argv=None) -> int:
         logger.warning("Fault injection armed from %s=%r", faults.ENV_VAR,
                        os.environ.get(faults.ENV_VAR))
     args = parse_worker_args(argv)
-    if args.checkpoint_dir:
-        obs.init_journal(args.checkpoint_dir, filename=f"events_worker_{args.worker_id}.jsonl")
+    from elasticdl_tpu_torch.obs import tracing
+
+    tracing.set_process(f"worker_{args.worker_id}")
+    tracing.install_flight_recorder()
+    journal_dir = args.tensorboard_log_dir or args.checkpoint_dir
+    if journal_dir:
+        obs.init_journal(journal_dir, filename=f"events_worker_{args.worker_id}.jsonl")
     if args.oov_diagnostics:
         from elasticdl_tpu_torch.parallel import packed
 
@@ -101,7 +110,7 @@ def main(argv=None) -> int:
                             data_reader=data_reader, minibatch_size=args.minibatch_size,
                             validation_data_reader=validation_reader,
                             prediction_data_reader=prediction_reader,
-                            anatomy=_anatomy(args),
+                            anatomy=_anatomy(args), profiler=_profiler(args),
                             pipeline=PipelineConfig.from_args(args), device=args.device)
         else:
             worker = _build_collective_worker(args, model_spec, data_reader, client,
@@ -145,6 +154,13 @@ def _note_readers(*readers) -> None:
         logger.info("Record codec: %s", codec)
     obs.journal().record("data_readers", training=names[0], validation=names[1],
                          prediction=names[2], record_codec=codec)
+
+
+def _profiler(args):
+    from elasticdl_tpu_torch.common.profiler import StepProfiler
+
+    return StepProfiler(args.tensorboard_log_dir, args.profile_steps, args.worker_id,
+                        device=args.device)
 
 
 def _anatomy(args):
@@ -229,6 +245,7 @@ def _build_collective_worker(args, model_spec, data_reader, client, validation_r
         validation_data_reader=validation_reader,
         prediction_data_reader=prediction_reader,
         telemetry=telemetry,
+        profiler=_profiler(args),
     )
 
 

@@ -17,6 +17,13 @@ restart on the same port.  Idempotency per call, as in JAX:
 - ``report_evaluation_metrics``: NOT retried, with its own deadline
   (``RPC.EVAL_REPORT_DEADLINE_S``): a duplicate chunk would count its
   rows twice.
+
+Tracing (``obs/tracing.py``): ``get_task`` mints its span id before the
+call and sends it as the ``elasticdl-span-id`` header, so the master's
+``rpc.get_task`` span parents under it, and journals ``worker.get_task``
+once the answer names the trace (WAIT polls journal nothing); a traced
+``report_task_result`` runs in a ``worker.report_task`` span whose ids
+ride the headers.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import numpy as np
 
 from elasticdl_tpu_torch.common import messages as msg
 from elasticdl_tpu_torch.common.constants import RPC
-from elasticdl_tpu_torch.common.http_rpc import JsonRpcClient
+from elasticdl_tpu_torch.common.http_rpc import JsonRpcClient, trace_metadata
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.retry import (
     IDEMPOTENT_POLICY,
@@ -37,6 +44,7 @@ from elasticdl_tpu_torch.common.retry import (
     RetryPolicy,
 )
 from elasticdl_tpu_torch.common.tensor_utils import ndarray_to_tensor
+from elasticdl_tpu_torch.obs import tracing
 
 logger = get_logger("worker.master_client")
 
@@ -68,16 +76,36 @@ class MasterClient:
 
     def get_task(self, task_type: int = msg.TRAINING) -> msg.Task:
         request = msg.GetTaskRequest(worker_id=self._worker_id, task_type=task_type)
-        return self._client.call("get_task", request, self._retry_policy).task
+        span_id = tracing.tracer().mint_span_id()
+        start_ts = time.time()
+        start = time.monotonic()
+        task = self._client.call("get_task", request, self._retry_policy,
+                                 metadata=trace_metadata("", span_id=span_id)).task
+        if task.trace_id:
+            # The root's span id is the trace id: the client parents under
+            # it without having seen the root.
+            tracing.tracer().record_span(
+                "worker.get_task", start_ts=start_ts, duration_s=time.monotonic() - start,
+                trace_id=task.trace_id, parent_id=task.trace_id, span_id=span_id,
+                worker_id=self._worker_id)
+        return task
 
     def report_task_result(self, task_id: int, err_message: str = "",
                            exec_counters: Optional[Dict[str, int]] = None, trace_id: str = ""):
-        """``trace_id`` is accepted for the JAX signature; the master
-        journals the id it minted at dispatch."""
+        """``trace_id`` (the dispatch-minted ``Task.trace_id``) rides the
+        trace header back to the master."""
         request = msg.ReportTaskResultRequest(
             task_id=task_id, err_message=err_message, worker_id=self._worker_id,
             exec_counters={k: int(v) for k, v in (exec_counters or {}).items()})
-        self._client.call("report_task_result", request, self._no_retry_policy)
+        if not trace_id:
+            self._client.call("report_task_result", request, self._no_retry_policy)
+            return
+        # Under the task root (worker.task has closed by now); the span's
+        # id rides the headers, so rpc.report_task_result nests under it.
+        with tracing.tracer().span("worker.report_task", trace_id=trace_id, parent_id=trace_id,
+                                   worker_id=self._worker_id, task_id=task_id) as report_span:
+            self._client.call("report_task_result", request, self._no_retry_policy,
+                              metadata=trace_metadata(trace_id, span_id=report_span.span_id))
 
     def report_task_result_best_effort(self, task_id: int, err_message: str = "",
                                        exec_counters: Optional[Dict[str, int]] = None,

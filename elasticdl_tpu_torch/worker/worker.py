@@ -37,8 +37,13 @@ A WAIT answer parks this process's goodput ledger in ``idle``
 wait, stage, execute (a step that built the kernel library: compile) and
 bookkeep, one window per task, and the cumulative anatomy is journaled
 as ``step_anatomy`` after each training task: the Local worker has no
-heartbeat to carry it.  The JAX worker's step profiler and quality hooks
-are accepted (``profiler``) and select nothing: ``common.args.OBS_ITEM``.
+heartbeat to carry it.  With a ``profiler``
+(``common/profiler.StepProfiler``, ``--profile_steps``) each train step
+is bracketed by ``before_steps`` / ``after_steps``, and ``run`` stops it
+on the way out, so an aborting worker still writes its trace.  Each task
+runs in a ``worker.task`` span under its trace id (``obs/tracing.py``).
+The JAX worker's quality hooks wait with the quality plane
+(``common.args.OBS_ITEM``).
 """
 
 from __future__ import annotations
@@ -90,6 +95,7 @@ class Worker:
         self._mc = master_client
         self._spec = model_spec
         self._minibatch_size = minibatch_size
+        self._profiler = profiler
         train_service = TaskDataService(data_reader, model_spec.dataset_fn)
         # Evaluation and prediction tasks read their own data when given.
         self._services = {
@@ -132,6 +138,13 @@ class Worker:
 
     def run(self):
         """Pull tasks until the master says the job is done."""
+        try:
+            self._run_inner()
+        finally:
+            if self._profiler is not None:
+                self._profiler.stop()
+
+    def _run_inner(self):
         consecutive_failures = 0
         while True:
             task = self._mc.get_task()
@@ -150,7 +163,8 @@ class Worker:
                 counters = self._process_task(task)
             except Exception as exc:
                 logger.error("Task %d failed:\n%s", task.task_id, traceback.format_exc())
-                self._mc.report_task_result_best_effort(task.task_id, str(exc) or repr(exc))
+                self._mc.report_task_result_best_effort(task.task_id, str(exc) or repr(exc),
+                                                        trace_id=task.trace_id)
                 consecutive_failures += 1
                 if consecutive_failures >= self._max_consecutive_failures:
                     raise RuntimeError(f"{consecutive_failures} consecutive task failures; "
@@ -159,14 +173,16 @@ class Worker:
                 self._note_task_done(task, counters, time.monotonic() - start)
                 # A lost success report is an RPC fault, not a task failure:
                 # the master requeues the task.
-                self._mc.report_task_result_best_effort(task.task_id, "", counters)
+                self._mc.report_task_result_best_effort(task.task_id, "", counters,
+                                                        trace_id=task.trace_id)
                 consecutive_failures = 0
         self._report_version(force=True)
 
     def _process_task(self, task) -> dict:
         self._task_stats = {}
+        span_fields = {"trace_id": task.trace_id} if task.trace_id else {}
         with obs.span("worker.task", labels={"type": msg.task_type_name(task.type)},
-                      task_id=task.task_id):
+                      task_id=task.task_id, **span_fields):
             if task.type == msg.TRAINING:
                 return self._process_train_task(task)
             if task.type == msg.EVALUATION:
@@ -254,6 +270,8 @@ class Worker:
             with self._anat_phase("stage"):
                 staged = self._trainer.stage_batch(features, labels)
             stage_s += time.monotonic() - t0
+            if self._profiler is not None:
+                self._profiler.before_steps(self._trainer.step)
             if self._anatomy is not None:
                 with self._anatomy.dispatch(1, len(labels)):
                     last_loss = self._trainer.train_step_staged(staged)
@@ -262,6 +280,8 @@ class Worker:
             batch_count += 1
             record_count += len(labels)
             with self._anat_phase("bookkeep"):
+                if self._profiler is not None:
+                    self._profiler.after_steps(self._trainer.step)
                 if self._trainer.step % self._report_every == 0:
                     self._report_version()
         self._task_stats["stage_s"] = round(stage_s, 6)

@@ -505,3 +505,81 @@ def test_process_mesh_checkpoint_restores_under_fewer_ranks(process_mesh_ckpt, w
     np.testing.assert_allclose(restored["next_loss"], saved["next_loss"], **STEP_TOL)
     # Every rank read only its own block interval of each table.
     assert restored["own_intervals_only"].all() and restored["reads"] > 0
+
+
+# ----------------------------------------------------------------------
+# Checkpoint events and metrics
+# ----------------------------------------------------------------------
+
+
+def _checkpoint_plane(monkeypatch, package):
+    """Route ``package``'s journal to a fresh one; returns (journal, a
+    reader of the checkpoint counters' values)."""
+    obs = __import__(package, fromlist=["obs"]).obs
+    journal = obs.EventJournal()
+    monkeypatch.setattr(obs, "journal", lambda: journal)
+
+    def counters():
+        dump = obs.registry().to_dict()
+        return {name: dump.get(name, {}).get("values", {}) for name in (
+            "elasticdl_checkpoint_saves_total", "elasticdl_checkpoint_quarantines_total")}
+
+    return journal, counters
+
+
+def _events_of(journal, names=("checkpoint_saved", "checkpoint_restored",
+                               "checkpoint_quarantined")):
+    out = []
+    for e in journal.tail(100):
+        if e["event"] in names:
+            e = {k: v for k, v in e.items() if k not in ("ts", "path")}
+            if "reason" in e:  # the sizes in it are each pickle's own
+                e["reason"] = e["reason"].split(":")[0] + (
+                    " (torn write)" if "torn write" in e["reason"] else "")
+            out.append(e)
+    return out
+
+
+def _increments(before, after):
+    return {name: {key: value - before[name].get(key, 0.0) for key, value in values.items()
+                   if value != before[name].get(key, 0.0)}
+            for name, values in after.items()}
+
+
+def test_checkpoint_events_and_metrics_match_jax(tmp_path, monkeypatch):
+    """The same save, restore, quarantine and sharded save in both
+    packages journal the same events and move the same counters."""
+    (f0, l0), _ = _batches()
+    jt = _jax_trainer(True, "sgd")
+    jt.train_step(f0, l0)
+    pt = _port_trainer(True, "sgd")
+    pt.train_step(f0, l0)
+    got = {}
+    for name, package, saver_cls, sharded_cls, trainer, host in (
+            ("jax", "elasticdl_tpu", JaxSaver, JaxShardedSaver, jt, jax.device_get(jt.state)),
+            ("port", "elasticdl_tpu_torch", CheckpointSaver, ShardedCheckpointSaver, pt,
+             convert.jax_trainer_state_from_port(pt.state_to_host(), pt.model, "sgd"))):
+        journal, counters = _checkpoint_plane(monkeypatch, package)
+        before = counters()
+        root = tmp_path / name
+        saver = saver_cls(str(root / "dp"))
+        saver.save(host, 1)
+        saver.save(host, 2)
+        _tear(root / "dp" / "step_000000000002" / "state.pkl")
+        state, step = saver.load_latest()  # quarantines 2, restores 1
+        assert step == 1 and state is not None
+        trainer.save_checkpoint(sharded_cls(str(root / "ps")), 1)
+        got[name] = (_events_of(journal), _increments(before, counters()))
+    assert got["port"] == got["jax"]
+    events = [(e["event"], e.get("kind"), e.get("step")) for e in got["port"][0]]
+    assert events == [("checkpoint_saved", "full", 1), ("checkpoint_saved", "full", 2),
+                      ("checkpoint_quarantined", None, None),
+                      ("checkpoint_restored", "full", 1), ("checkpoint_saved", "sharded", 1)]
+    assert got["port"][0][-1]["n_processes"] == 1
+    assert got["port"][1]["elasticdl_checkpoint_saves_total"] == {"full": 2.0, "sharded": 1.0}
+    # A saver whose caller journals each save itself stays silent.
+    journal, _ = _checkpoint_plane(monkeypatch, "elasticdl_tpu_torch")
+    quiet = CheckpointSaver(str(tmp_path / "quiet"))
+    quiet.journal_saves = False
+    quiet.save(convert.jax_trainer_state_from_port(pt.state_to_host(), pt.model, "sgd"), 1)
+    assert _events_of(journal) == []

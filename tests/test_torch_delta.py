@@ -189,3 +189,53 @@ def test_chain_gap_is_rejected_and_build_waits_for_commit(tmp_path):
     assert not np.array_equal(shadow, before)
     np.testing.assert_allclose(replica.execute(features, BATCH), trainer.eval_step(features),
                                **LOGIT_TOL)
+
+
+def test_publish_events_and_metrics_match_jax(tmp_path, monkeypatch):
+    """The same full, delta and compaction in both packages journal
+    ``checkpoint_saved`` / ``delta_checkpoint`` / ``delta_compaction``
+    with the same fields and move the same checkpoint counters."""
+    batches = _batches()
+    mesh = build_mesh(MeshConfig(), devices=jax.devices()[:1])
+    jt = JaxTrainer(zoo.custom_model(vocab_size=VOCAB, embedding_dim=4, hidden=16,
+                                     split_tables=True),
+                    zoo.loss, zoo.optimizer(), mesh,
+                    embedding_optimizer=zoo.embedding_optimizer())
+    pt = _port_trainer(True)
+    got = {}
+    for name, package, module, trainer in (("jax", "elasticdl_tpu", jax_delta, jt),
+                                           ("port", "elasticdl_tpu_torch", delta, pt)):
+        obs = __import__(package, fromlist=["obs"]).obs
+        journal = obs.EventJournal()
+        monkeypatch.setattr(obs, "journal", lambda journal=journal: journal)
+        before = obs.registry().to_dict().get("elasticdl_checkpoint_saves_total",
+                                              {}).get("values", {})
+        trainer.train_step(*batches[0])
+        exporter = module.DeltaExporter(str(tmp_path / name), **_zoo_args(True))
+        exporter.publish_full(trainer, event_time=1.0)
+        for batch in batches[1:3]:
+            trainer.train_step(*batch)
+        exporter.publish_delta(trainer, event_time=2.5)
+        trainer.train_step(*batches[3])
+        exporter.publish_delta(trainer, event_time=4.0)
+        exporter.compact()
+        after = obs.registry().to_dict()["elasticdl_checkpoint_saves_total"]["values"]
+        # ``rows`` counts the blocks whose bits changed: each trainer's
+        # own numbers, so it is only checked to be there.
+        got[name] = ([{k: (v > 0 if k == "rows" else v) for k, v in e.items() if k != "ts"}
+                      for e in journal.tail(100)
+                      if e["event"] in ("checkpoint_saved", "delta_checkpoint",
+                                        "delta_compaction")],
+                     {k: v - before.get(k, 0.0) for k, v in after.items()
+                      if v != before.get(k, 0.0)})
+    assert got["port"] == got["jax"]
+    events, counts = got["port"]
+    assert [e["event"] for e in events] == ["checkpoint_saved", "delta_checkpoint",
+                                            "delta_checkpoint", "delta_compaction"]
+    assert events[0] == {"event": "checkpoint_saved", "step": 1, "kind": "serving_full",
+                         "event_time": 1.0}
+    assert (events[1]["base_step"], events[1]["step"], events[1]["tables"]) == (1, 3, 2)
+    assert events[1]["rows"] is True and events[2]["event_time"] == 4.0
+    assert events[3] == {"event": "delta_compaction", "step": 4, "deltas_folded": 2,
+                         "event_time": 4.0}
+    assert counts == {"serving_full": 2.0, "delta": 2.0}

@@ -1,6 +1,7 @@
 """The port (elasticdl_tpu_torch) stands alone: it imports no JAX, no
-flax/optax, no gRPC and nothing of the JAX package or its model zoo,
-and its entry points never drop to the CPU on their own."""
+flax/optax, no gRPC, no tensorboard (the card's machine has none of
+them) and nothing of the JAX package or its model zoo, and its entry
+points never drop to the CPU on their own."""
 
 import ast
 import os
@@ -16,7 +17,7 @@ from elasticdl_tpu_torch.common import device as port_device
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "elasticdl_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "grpc", "google.protobuf", "model_zoo",
-             "elasticdl_tpu")
+             "elasticdl_tpu", "tensorboard")
 
 
 def _forbidden(module: str) -> bool:
@@ -37,6 +38,8 @@ def test_forbidden_name_rule():
     assert _forbidden("google.protobuf") and _forbidden("google.protobuf.message")
     assert not _forbidden("google") and not _forbidden("google.cloud")
     assert not _forbidden("elasticdl_tpu_torch") and not _forbidden("jaxtyping_free")
+    assert _forbidden("tensorboard") and _forbidden("tensorboard.backend.event_processing")
+    assert not _forbidden("torch.utils") and not _forbidden("tensorboardX_free")
 
 
 def test_port_sources_import_nothing_forbidden():
@@ -147,6 +150,15 @@ def test_port_sources_import_nothing_forbidden():
             "elasticdl_tpu_torch.master.k8s_pod_manager",
             "elasticdl_tpu_torch.master.tpu_slice",
             "elasticdl_tpu_torch.client.submit"} <= names
+    # So are the observability planes.
+    assert {"elasticdl_tpu_torch.obs.tracing",
+            "elasticdl_tpu_torch.obs.trace",
+            "elasticdl_tpu_torch.obs.history",
+            "elasticdl_tpu_torch.obs.slo",
+            "elasticdl_tpu_torch.obs.report",
+            "elasticdl_tpu_torch.obs.top",
+            "elasticdl_tpu_torch.master.tensorboard_service",
+            "elasticdl_tpu_torch.common.profiler"} <= names
 
 
 _SUBPROCESS = r"""
@@ -248,6 +260,25 @@ def test_native_codec_loads_no_jax_package_module(tmp_path):
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
+@pytest.mark.parametrize("tool", ["report", "trace", "top"])
+def test_obs_tools_load_nothing_forbidden(tool):
+    """``python -m elasticdl_tpu_torch.obs.<tool> --help`` runs, and the
+    tool's whole import closure holds no forbidden module."""
+    proc = subprocess.run([sys.executable, "-m", f"elasticdl_tpu_torch.obs.{tool}", "--help"],
+                          cwd=str(REPO), capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert f"elasticdl_tpu_torch.obs.{tool}" in proc.stdout
+    code = (f"import sys, runpy\nsys.argv = ['x', '--help']\n"
+            f"try:\n    runpy.run_module('elasticdl_tpu_torch.obs.{tool}', run_name='__main__')\n"
+            f"except SystemExit:\n    pass\n"
+            f"forbidden = {FORBIDDEN!r}\n"
+            "print('LOADED', sorted(m for m in sys.modules\n"
+            "                       if any(m == f or m.startswith(f + '.') for f in forbidden)))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0 and "LOADED []" in proc.stdout, proc.stdout + proc.stderr
+
+
 def test_port_forbidden_list_is_this_tests():
     from elasticdl_tpu_torch.common import boundary
 
@@ -333,6 +364,15 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     for measure in (exp_sparse_gather.main, exp_sparse_gather.main_shard_map):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             measure(64, 320)
+    # The profiler window profiles the card, CUDA activity included.
+    from elasticdl_tpu_torch.common import profiler
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profiler.StepProfiler(str(tmp_path), "1,2")
+    assert torch.profiler.ProfilerActivity.CUDA in profiler.profiler_activities(
+        torch.device("cuda"))
+    assert profiler.StepProfiler(str(tmp_path), "1,2", device="cpu").activities == [
+        torch.profiler.ProfilerActivity.CPU]
 
 
 def test_vision_entry_points_default_to_the_card(monkeypatch):

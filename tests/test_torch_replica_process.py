@@ -180,7 +180,7 @@ def test_transport_statuses(edge):
     client = PredictClient(f"127.0.0.1:{port}", deadline_s=WAIT_S)
     np.testing.assert_array_equal(client.predict(x), np.arange(4, dtype=np.float32) + 1.0)
     assert _raw(port, "/predict", b"junk")[0] == 400
-    assert _raw(port, "/slo", b"")[0] == 404
+    assert _raw(port, "/slo", b"")[0] == 404  # the predict edge serves no /slo
     with pytest.raises(PredictError) as err:
         client.predict({"x": np.zeros((9, 1), np.float32)})  # rows > max_batch_size
     assert (err.value.code, err.value.status) == ("INVALID_ARGUMENT", 400)
@@ -245,7 +245,11 @@ def test_exporter_endpoints_and_port_file(tmp_path):
     assert b'elasticdl_serving_requests_total{outcome="served"} 1' in got["/metrics"][1]
     assert json.loads(got["/healthz"][1])["status"] == "ok"
     assert json.loads(got["/journal?n=5"][1])["events"][0]["event"] == "model_swap"
-    assert got["/slo"][0] == got["/debug/vars"][0] == 404
+    assert got["/slo"][0] == got["/debug/vars"][0] == 200
+    assert json.loads(got["/slo"][1])["statuses"] == []  # no plane wired
+    debug = json.loads(got["/debug/vars"][1])
+    assert debug["metrics"]["elasticdl_serving_requests_total"]["values"] == {"served": 1.0}
+    assert debug["journal"]["tail"][0]["event"] == "model_swap"
 
 
 def test_replica_flags_match_jax_and_unported_planes_raise(monkeypatch, tmp_path):
@@ -254,11 +258,14 @@ def test_replica_flags_match_jax_and_unported_planes_raise(monkeypatch, tmp_path
     got = vars(replica_main.parse_replica_args(argv))
     assert {k: got[k] for k in want} == want
     assert got["device"] == "cuda"
-    for flag in ("--slo_p99_ms", "--slo_availability_target", "--quality_join_window_s"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            replica_main.parse_replica_args(argv + [flag, "0.5"])
-    replica_main.parse_replica_args(argv + ["--trace_head_every", "4", "--sparse_kernel",
-                                            "fused"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        replica_main.parse_replica_args(argv + ["--quality_join_window_s", "0.5"])
+    # The SLO and tracing flags select their planes.
+    args = replica_main.parse_replica_args(argv + [
+        "--slo_p99_ms", "0.5", "--slo_availability_target", "0.5", "--trace_head_every", "4",
+        "--sparse_kernel", "fused"])
+    assert (args.slo_p99_ms, args.slo_availability_target, args.trace_head_every) == (
+        0.5, 0.5, 4)
     # No card and no --device cpu: the replica raises, it never serves on
     # the CPU on its own.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
