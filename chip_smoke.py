@@ -453,6 +453,45 @@ The observability planes (``obs/{tracing,trace,history,slo,report,top}.py``,
     ``obs.top --serving --once`` renders the replica's row; 2 K2 a
     dispatch.  Printed: requests/s and p99 beside phase 25's.
 
+The model-quality plane (``obs/quality.py``, the ``labels`` request,
+``bench/loadgen.py``) and the lock checker (``analysis/runtime.py``):
+
+40. JAX's poisoned-delta canary scenario (``tests/test_quality.py``) in
+    process under ``ELASTICDL_LOCKCHECK=1``, at phase 20's configuration
+    (the trainer of phases 24 and 36 when they ran, after them, else a
+    fresh one): the trainer
+    learns the served layout's click labels and publishes; two
+    ServingReplicas, each with a QualityLedger (a join window of 8
+    virtual seconds), a CanaryGate and a DeltaWatcher, serve 16-row
+    requests whose labels join two ticks late.  A clean link; a retrain
+    on labels flipped by ``stream.labels:error``; a recovery retrain
+    compacted past the held link and a healthy link.  Gates: every
+    execute answers; the gate outcomes passed, held on every poll (2
+    each), passed; the generation unmoved and the same bits served while
+    held; the windows' AUC/logloss equal ``binary_auc``/
+    ``binary_logloss`` of ``pairs()``; K2 twice per replay batch and
+    generation in each held poll; ``lockcheck.assert_clean()``.
+    Printed: the lock count and longest hold, the shadow evaluations'
+    seconds, the drift sketch's edges.
+41. ``replica_main`` on the card from phase 40's compacted full, tracking
+    its pub dir, with ``--quality_join_window_s=8``,
+    ``--quality_slo_logloss`` between the model's clean and flipped
+    logloss on the request pool and ``--trace_head_every=8``, under 8
+    closed-loop clients of 8-row traced requests and a label feed
+    (``bench/loadgen.run_label_feed``) about 2 s behind.  The parent
+    publishes a clean link, flips the feed until ``/slo`` shows
+    ``model_quality`` burning, heals it, then publishes a link retrained
+    on flipped labels.  Gates: every request answered; the feed's joins
+    equal the replica's joined counter; a ``quality_window``'s logloss
+    equal to the one recomputed from the responses and labels of the
+    sampled ids within 1e-6; the clean link passed, the poisoned one held
+    on 2 polls or more with the step unmoved; ``model_quality`` at 0 in
+    its short window before the flip and burning after; ``obs.report``'s
+    quality section; ``obs.top --serving --once``; K2 twice a dispatch
+    and twice per replay batch and generation of each shadow evaluation
+    (``/stats``).  Printed: requests/s, p99, the joined share and the
+    gate's shadow-evaluation seconds beside phase 39's.
+
 Before each of phases 21-23 the free space of its directory is checked
 (a failure names the bytes needed); each deletes its directories.
 
@@ -475,8 +514,11 @@ phase 35; in phase 36 K3 twice per step and K2 twice per step and
 twice per dispatch; K3 once per step of phase 37's K3 runs and never in
 its engines' runs; K2 and K3 twice per step and K2 twice per evaluation
 batch in each of phase 38's workers, and twice per traced step in its
-profiler's trace; K2 twice per dispatch of phase 39's replica) fails the
-run.
+profiler's trace; K2 twice per dispatch of phase 39's replica; K2 and
+K3 twice per training step of phase 40 and K2 twice per replay batch
+and generation in each of its held polls; K2 twice per dispatch and
+twice per replay batch and generation of each shadow evaluation in
+phase 41's replica) fails the run.
 The line before the last holds the card's name and power limit, the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, with no
 result, when no CUDA device is available or the port is not beside it.
@@ -486,7 +528,9 @@ artifact when both run; phases 21 and 22 run together, and so do 24 and
 25; phase 27 prints phase 26's figures beside its own when both run;
 ``--phases 28,29`` runs the vision phases alone; phase 32 runs phase 31
 first, whose export it serves; phase 38 prints phase 27's figures and
-phase 39 phase 25's beside its own when both run).
+phase 39 phase 25's beside its own when both run; phases 40 and 41 run
+together, 41 serving 40's chain, and phase 41 prints phase 39's figures
+beside its own when both run).
 """
 
 from __future__ import annotations
@@ -7257,6 +7301,678 @@ def traced_replica_phase(card: str, seed: int, workdir: str, full=None, held_out
     return result
 
 
+# ----------------------------------------------------------------------
+# phases 40-41: the model-quality plane, the canary gate fed by served
+# traffic
+# ----------------------------------------------------------------------
+
+
+#: JAX's canary scenario (``tests/test_quality.py``, the poisoned-delta
+#: e2e) on phase 20's split DeepFM: 16-row requests from a pool of 64, a
+#: 256-pair window, a join window of 8 virtual seconds, labels 2 ticks
+#: late, a replay of 16 batches; clean steps before the full, a clean
+#: link, a poisoned retrain, a recovery retrain compacted past the held
+#: link and a healthy link, each of TRAIN_BATCH rows from a pool of 8.
+QUALITY = dict(rows=16, requests=64, window=256, join_window_s=8.0, replay_batches=16,
+               train_batches=8, clean_steps=24, link_steps=2, poison_steps=30,
+               recovery_steps=60, healthy_steps=12, clean_ticks=30, storm_ticks=20,
+               settle_ticks=6, held_ticks=(31, 45), drift_threshold=0.2)
+#: Phase 41: seconds of clean labeled traffic before the first check,
+#: the label feed's delay, the poisoned retrain's steps.
+QUALITY_PROCESS = dict(clean_s=4.0, label_delay_s=2.0, poison_steps=30, link_steps=2,
+                       window=2048, burn_timeout_s=30.0, held_timeout_s=60.0)
+#: The bound of a served logit's logloss check against the window's.
+QUALITY_LOGLOSS_TOL = 1e-6
+
+
+def quality_gate_phase(card: str, seed: int, workdir: str, trainer=None,
+                       params: str = SPLIT_TRAIN_PARAMS, batch: int = TRAIN_BATCH,
+                       cfg=QUALITY, device=None):
+    """Phase 40: JAX's poisoned-delta canary scenario in process, under
+    the lock checker (``ELASTICDL_LOCKCHECK=1`` before any lock of the
+    phase is made), at phase 20's configuration: ``trainer`` (the one
+    phases 24 and 36 trained when they ran, else a fresh one) trains on the click labels of
+    the served feature layout (``data/stream.feedback_labels``) and
+    publishes through a DeltaExporter; two ServingReplicas, each with a
+    QualityLedger (virtual clock), a CanaryGate over the ledger's replay
+    buffer and a DeltaWatcher, serve 16-row requests whose labels join
+    two ticks late.  A clean link passes; a retrain on labels flipped by
+    ``stream.labels:error`` is held on every poll while the old
+    generation serves the same bits; after the feed heals, a recovery
+    retrain compacts past the held link and the next clean link passes.
+    Gates: every execute answers; the gate outcomes; the windows' AUC and
+    logloss equal ``binary_auc``/``binary_logloss`` of ``pairs()``, one
+    ``quality_window`` a tick a replica; on the card K2 twice per
+    replay batch and generation in each held poll and K2 and K3 twice a
+    training step; ``lockcheck.assert_clean()``.  The drift sketch's
+    edges under JAX's hot-key storm are printed.  Returns (result, the
+    chain phase 41 serves: trainer, exporter, pub dir, its compacted
+    full and the training batches).  ``device``: None for the
+    card, "cpu" for the CPU test."""
+    import numpy as np
+
+    from elasticdl_tpu_torch import obs
+    from elasticdl_tpu_torch.analysis import runtime as lockcheck
+    from elasticdl_tpu_torch.checkpoint import delta as deltas
+    from elasticdl_tpu_torch.common import faults
+    from elasticdl_tpu_torch.common.params import parse_dict_params
+    from elasticdl_tpu_torch.data.stream import feedback_labels
+    from elasticdl_tpu_torch.obs.quality import (
+        CanaryGate,
+        DriftMonitor,
+        QualityLedger,
+        ReplayBuffer,
+        binary_auc,
+        binary_logloss,
+    )
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+    from elasticdl_tpu_torch.serving.continuous import DeltaWatcher
+    from elasticdl_tpu_torch.serving.runtime import ServingReplica
+
+    on_card = device is None
+    previous = os.environ.get(lockcheck.ENV_VAR)
+    os.environ[lockcheck.ENV_VAR] = "1"
+    lockcheck.reset()
+    t_phase = time.perf_counter()
+    try:
+        vocab = parse_dict_params(params)["vocab_size"]
+        rng = np.random.default_rng(seed + 40)
+        train_feats = make_requests(rng, vocab, cfg["train_batches"], batch)
+        requests = make_requests(rng, vocab, cfg["requests"], cfg["rows"])
+        if trainer is None:
+            trainer = stream_trainer(seed, params, device)
+        drift = DriftMonitor(threshold=cfg["drift_threshold"], bins=64, origin="replica_0")
+        cursor, train_counts, train_s = [0], [], []
+
+        def train(count):
+            ske.reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(count):
+                feats = train_feats[cursor[0] % len(train_feats)]
+                labels = feedback_labels(feats).astype(np.int32)
+                trainer.train_step_staged(trainer.stage_batch(
+                    feats, labels, np.ones((batch,), np.float32)))
+                drift.observe_train(feats)
+                cursor[0] += 1
+            train_s.append(time.perf_counter() - t0)
+            counts = ske.launch_counts()
+            train_counts.append((count, counts))
+            if on_card and (counts["fused_lookup"] != 2 * count
+                            or counts["fused_dedup_apply"] != 2 * count):
+                fail(f"{count} training steps launched {counts}")
+
+        pub = os.path.join(workdir, "pub_quality")
+        require_free(workdir, 4 * state_bytes(list(trainer.state.tables.values())),
+                     "phase 40's delta chain")
+        journal = obs.init_journal(os.path.join(workdir, "journal_quality"))
+        exporter = deltas.DeltaExporter(pub, model_zoo="model_zoo", model_def=MODEL_DEF,
+                                        model_params=params)
+        train(cfg["clean_steps"])
+        t0 = time.perf_counter()
+        full = exporter.publish_full(trainer, event_time=float(trainer.step))
+        publish_full_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replicas = [ServingReplica(full, device=device) for _ in range(2)]
+        load_s = time.perf_counter() - t0
+        ledgers, watchers = [], []
+        for rid, replica in enumerate(replicas):
+            replay = ReplayBuffer(max_batches=cfg["replay_batches"])
+            ledgers.append(QualityLedger(window_size=cfg["window"],
+                                         join_window_s=cfg["join_window_s"],
+                                         origin=f"replica_{rid}", replay=replay))
+            gate = CanaryGate(replay, max_logloss_regress=0.10, max_auc_drop=0.05, min_rows=64)
+            watchers.append(DeltaWatcher(replica, pub, gate=gate, origin=f"replica_{rid}"))
+        rows, pending, served, polls = cfg["rows"], {}, [0], []
+
+        def execute(rid, feats):
+            out = np.asarray(replicas[rid].execute(feats, rows)).ravel()[:rows]
+            if out.shape != (rows,) or not np.all(np.isfinite(out)):
+                fail(f"replica {rid} answered {out.shape} / non-finite outputs")
+            served[0] += 1
+            return out
+
+        def serve_tick(tick, attach):
+            now = float(tick)
+            feats = requests[(tick * 7) % len(requests)]
+            for rid, ledger in enumerate(ledgers):
+                ledger.note_prediction(f"t{tick}-r{rid}", execute(rid, feats), now,
+                                       features=feats if attach else None)
+            pending[tick] = feats
+            late = pending.pop(tick - 2, None)
+            if late is not None:
+                labels = feedback_labels(late)  # the one shared label feed
+                for rid, ledger in enumerate(ledgers):
+                    ledger.note_label(f"t{tick - 2}-r{rid}", labels, now)
+            for ledger in ledgers:
+                ledger.journal_window(now)
+            drift.observe_serve(feats)
+            drift.evaluate(now)
+
+        def poll(outcome):
+            out = []
+            for watcher in watchers:
+                ske.reset_launch_counts()
+                t0 = time.perf_counter()
+                summary = watcher.poll_once()
+                polls.append({"outcome": summary["outcome"], "s": time.perf_counter() - t0,
+                              "launches": ske.launch_counts()})
+                if summary["outcome"] != outcome:
+                    fail(f"poll_once gave {summary}, not outcome {outcome}")
+                out.append(summary)
+            return out
+
+        def check_windows(what):
+            for ledger in ledgers:
+                snap = ledger.snapshot()
+                labels, preds = ledger.pairs()
+                if (snap["auc"] != binary_auc(labels, preds)
+                        or snap["logloss"] != binary_logloss(labels, preds)):
+                    fail(f"{what}: the window {snap} is not its pairs' AUC/logloss")
+            return [ledger.snapshot() for ledger in ledgers]
+
+        with Timed(CanaryGate, "evaluate") as gate_timer:
+            for tick in range(cfg["clean_ticks"]):
+                serve_tick(tick, attach=True)
+            clean = check_windows("after the clean traffic")
+            train(cfg["link_steps"])
+            exporter.publish_delta(trainer, event_time=float(trainer.step))
+            poll("applied")
+            probe = requests[0]
+            live = [r.generation for r in replicas]
+            before = [execute(rid, probe) for rid in range(2)]
+            # Poison: the same flipped feed trains the delta and joins online.
+            faults.install("stream.labels:errorx*")
+            train(cfg["poison_steps"])
+            poisoned = exporter.publish_delta(trainer, event_time=float(trainer.step))
+            hot = {"dense": probe["dense"], "cat": np.full_like(probe["cat"], 17)}
+            held = []
+            first = cfg["clean_ticks"]
+            for tick in range(first, first + cfg["storm_ticks"]):
+                serve_tick(tick, attach=False)  # the replay keeps its known-good evidence
+                for rid in range(2):
+                    execute(rid, hot)
+                drift.observe_serve(hot)
+                if tick in cfg["held_ticks"]:
+                    for summary in poll("held"):
+                        if summary["held"] != poisoned:
+                            fail(f"the poll held {summary['held']}, not {poisoned}")
+                        held.append(summary["reason"])
+            for rid, replica in enumerate(replicas):
+                if replica.generation is not live[rid]:
+                    fail(f"replica {rid} moved off its generation under a held link")
+                if not np.array_equal(execute(rid, probe), before[rid]):
+                    fail(f"replica {rid} does not serve the previous generation's bits")
+            storm = check_windows("after the storm")
+            # Recovery: the feed heals, a clean retrain compacts past the
+            # held link (an ungated reload), and the next link passes.
+            faults.clear()
+            train(cfg["recovery_steps"])
+            exporter.publish_delta(trainer, event_time=float(trainer.step))
+            t0 = time.perf_counter()
+            exporter.compact()
+            compact_s = time.perf_counter() - t0
+            first += cfg["storm_ticks"]
+            for tick in range(first, first + cfg["settle_ticks"]):
+                serve_tick(tick, attach=True)
+            if not all(s["reloaded_full"] for s in poll("applied")):
+                fail("the compacted full did not reload")
+            train(cfg["healthy_steps"])
+            exporter.publish_delta(trainer, event_time=float(trainer.step))
+            first += cfg["settle_ticks"]
+            for tick in range(first, first + cfg["settle_ticks"]):
+                serve_tick(tick, attach=True)
+            if [s["applied_deltas"] for s in poll("applied")] != [1, 1]:
+                fail(f"the healthy link did not apply: {polls[-2:]}")
+            final = check_windows("after the recovery")
+        for replica in replicas:
+            if replica.generation.step != trainer.step:
+                fail(f"a replica serves step {replica.generation.step}, the trainer is at "
+                     f"{trainer.step}")
+        # Phase 41 starts from a full at the head.
+        t0 = time.perf_counter()
+        head = exporter.compact()
+        compact_s = [compact_s, time.perf_counter() - t0]
+        gates = journal_events(journal, "quality_gate")
+        outcomes = [(g["origin"], g["outcome"]) for g in gates]
+        want = ([("replica_0", "passed"), ("replica_1", "passed")]
+                + [("replica_0", "held"), ("replica_1", "held")] * 2
+                + [("replica_0", "passed"), ("replica_1", "passed")])
+        if outcomes != want or any(obs.missing_fields(g) for g in gates):
+            fail(f"quality_gate events {outcomes}, want {want}")
+        drifts = [e["state"] for e in journal_events(journal, "quality_drift")]
+        windows = journal_events(journal, "quality_window")
+        if len(windows) != 2 * (first + cfg["settle_ticks"]):
+            fail(f"{len(windows)} quality_window events")
+        held_polls = [p for p in polls if p["outcome"] == "held"]
+        replay_batches = cfg["replay_batches"]
+        if on_card and any(p["launches"]["fused_lookup"] != 2 * 2 * replay_batches
+                           or p["launches"]["fused_lookup_fm"] for p in held_polls):
+            fail(f"the held polls' shadow runs launched {[p['launches'] for p in held_polls]}")
+        report = lockcheck.report()
+        lockcheck.assert_clean()
+        obs.journal().configure(None)
+        longest = max(report["max_hold_s"].items(), key=lambda kv: kv[1])
+        metrics = ("auc", "logloss", "calibration_error", "prediction_mean", "joined")
+        result = {
+            "outcomes": [o for _, o in outcomes], "held_reasons": held,
+            "gates": [{k: g.get(k) for k in ("origin", "outcome", "step", "reason",
+                                              "baseline_logloss", "candidate_logloss",
+                                              "baseline_auc", "candidate_auc", "rows")}
+                      for g in gates],
+            "windows": {what: [{k: s[k] for k in metrics} for s in snaps]
+                        for what, snaps in (("clean", clean), ("storm", storm),
+                                            ("final", final))},
+            "drift_edges": drifts, "served": served[0], "steps": cursor[0],
+            "train_s": train_s, "train_launches": train_counts,
+            "poll_s": [p["s"] for p in polls], "held_poll_launches": [
+                p["launches"] for p in held_polls],
+            "shadow_eval_s": gate_timer.seconds, "publish_full_s": publish_full_s,
+            "replica_load_s": load_s, "compact_s": compact_s,
+            "lockcheck": {"locks": len(report["max_hold_s"]),
+                          "names": sorted(report["max_hold_s"]),
+                          "acquisitions": report["acquisitions"],
+                          "longest_hold": {"lock": longest[0], "s": longest[1]},
+                          "long_holds": len(report["long_holds"]), "inversions": 0},
+            "phase_s": time.perf_counter() - t_phase, "card": card,
+        }
+    finally:
+        faults.clear()
+        if previous is None:
+            os.environ.pop(lockcheck.ENV_VAR, None)
+        else:
+            os.environ[lockcheck.ENV_VAR] = previous
+    log(f"quality gate: outcomes {result['outcomes']} (held: {held}); windows {result['windows']};"
+        f" drift {drifts}; {served[0]} executes answered; shadow evaluations "
+        f"{gate_timer.seconds!r} s; polls {result['poll_s']!r} s; K2 in each held poll "
+        f"{[p['fused_lookup'] for p in result['held_poll_launches']]}; training launches "
+        f"{train_counts}; lock checker: {result['lockcheck']} clean [{card}]")
+    del replicas, watchers, ledgers
+    if on_card:
+        import torch
+
+        torch.cuda.empty_cache()
+    chain = {"trainer": trainer, "exporter": exporter, "pub": pub, "full": head,
+             "train_feats": train_feats}
+    return result, chain
+
+
+def _window_pairs(sends, sampled, responses, window: int):
+    """The (labels, predictions) a replica's QualityLedger holds after the
+    label sends ``sends`` (in order: each a list of (trace id, labels)
+    with the replica's reply): the sampled ids join in send order, each
+    request's rows in order; the window keeps the newest ``window``."""
+    import numpy as np
+
+    labels, preds = [], []
+    for items, reply in sends:
+        joined = [(tid, y) for tid, y in items if tid in sampled]
+        if len(joined) != reply["joined"]:
+            fail(f"a label send joined {reply['joined']} ids, {len(joined)} of them sampled")
+        for tid, y in joined:
+            labels.append(np.asarray(y, np.float64).ravel())
+            preds.append(np.asarray(responses[tid], np.float32).astype(np.float64).ravel())
+    if not labels:
+        return np.zeros(0), np.zeros(0)
+    return np.concatenate(labels)[-window:], np.concatenate(preds)[-window:]
+
+
+def quality_replica_phase(card: str, seed: int, workdir: str, chain: dict, traced=None,
+                          clients: int = 8, params: str = SPLIT_TRAIN_PARAMS,
+                          cfg=QUALITY_PROCESS, device=None):
+    """Phase 41: ``python -m elasticdl_tpu_torch.serving.replica_main`` on
+    the card from phase 40's compacted full, tracking its pub dir, with
+    ``--quality_join_window_s=8``, ``--quality_slo_logloss`` between the
+    model's clean and flipped logloss on the request pool,
+    ``--trace_head_every=8`` and ``--pub_dir``.  8 closed-loop clients
+    send 8-row traced requests; a label feed (``bench/loadgen``) sends
+    each answered request's labels through the ``labels`` request about
+    2 s late.  The parent publishes a clean link, flips the feed
+    (``stream.labels:error``) until ``/slo`` shows the ``model_quality``
+    SLO burning, heals it, then publishes a link retrained on flipped
+    labels.  Gates: every request answered; the feed's joins equal the
+    replica's joined counter; a ``quality_window`` event's logloss equal
+    to the one recomputed from the responses and labels of the sampled
+    ids within QUALITY_LOGLOSS_TOL; the clean link passed and the
+    poisoned one held on at least 2 polls, with the step unmoved and the
+    same outputs served (batched with the traffic: within LOGIT_RTOL);
+    ``model_quality`` burning only while flipped
+    labels join; ``obs.report`` has a quality section; ``obs.top
+    --serving --once`` renders the replica's row; on the card K2 twice a
+    dispatch and twice per replay batch and generation of each shadow
+    evaluation (``/stats``)."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.bench.loadgen import run_label_feed
+    from elasticdl_tpu_torch.common import faults
+    from elasticdl_tpu_torch.common.params import parse_dict_params
+    from elasticdl_tpu_torch.data.stream import feedback_labels
+    from elasticdl_tpu_torch.obs.quality import binary_auc, binary_logloss
+    from elasticdl_tpu_torch.serving.frontend import PredictClient, encode_features
+    from elasticdl_tpu_torch.serving.replica_main import live_replicas
+
+    on_card = device is None
+    trainer, exporter = chain["trainer"], chain["exporter"]
+    vocab = parse_dict_params(params)["vocab_size"]
+    pool = make_requests(np.random.default_rng(seed + 41), vocab, 64, 8)
+    pool_labels = np.concatenate([feedback_labels(r) for r in pool])
+    pool_logits = np.concatenate([np.asarray(trainer.eval_step(r)).ravel() for r in pool])
+    clean_ll = binary_logloss(pool_labels, pool_logits)
+    flipped_ll = binary_logloss(1.0 - pool_labels, pool_logits)
+    if flipped_ll - clean_ll < 0.5:
+        fail(f"the model's logloss on the pool, clean {clean_ll} and flipped {flipped_ll}, is too "
+             "close for the quality SLO to tell apart")
+    bound = 0.5 * (clean_ll + flipped_ll)
+    serve = os.path.join(workdir, "quality_serve")
+    os.makedirs(serve, exist_ok=True)
+    warmup = os.path.join(workdir, "quality_warmup.npz")
+    with open(warmup, "wb") as f:
+        f.write(encode_features({k: v[:1] for k, v in pool[0].items()}))
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    argv = [sys.executable, "-m", "elasticdl_tpu_torch.serving.replica_main", "--model_dir",
+            chain["full"], "--serve_dir", serve, "--pub_dir", chain["pub"],
+            "--pub_poll_interval_s", "0.5", "--telemetry_interval_s", "1.0", "--warmup_features",
+            warmup, f"--trace_head_every={TRACE_HEAD_EVERY}", "--quality_join_window_s=8",
+            f"--quality_window_size={cfg['window']}", f"--quality_slo_logloss={bound}"]
+    if device is not None:
+        argv += ["--device", device]
+    stderr_path = os.path.join(workdir, "quality_replica.log")
+    stderr = open(stderr_path, "w")
+    t_launch = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=here, env=env, stdout=subprocess.DEVNULL, stderr=stderr)
+    journal = os.path.join(serve, "events.jsonl")
+
+    def died(what):
+        stderr.flush()
+        fail(f"the quality replica exited {proc.returncode} {what}:\n{tail(stderr_path)}")
+
+    def wait_for(what, predicate, timeout_s):
+        deadline = time.perf_counter() + timeout_s
+        while time.perf_counter() < deadline:
+            value = predicate()
+            if value:
+                return value
+            if proc.poll() is not None:
+                died(f"waiting for {what}")
+            time.sleep(0.1)
+        fail(f"timed out after {timeout_s} s waiting for {what}")
+
+    # The poisoned retrain's labels, flipped by the feed's fault site up
+    # front: the feed keeps running (a paused feed's labels would age past
+    # the join window) and must stay clean while the link is gated.
+    train_feats = chain["train_feats"]
+    clean_labels = [feedback_labels(f).astype(np.int32) for f in train_feats]
+    faults.install("stream.labels:errorx*")
+    flipped_labels = [feedback_labels(f).astype(np.int32) for f in train_feats]
+    faults.clear()
+
+    def train(count, labels):
+        for i in range(count):
+            k = i % len(train_feats)
+            trainer.train_step_staged(trainer.stage_batch(
+                train_feats[k], labels[k], np.ones((len(labels[k]),), np.float32)))
+
+    def gate_events(step):
+        return [e for e in journal_events(journal, "quality_gate") if e["step"] == step]
+
+    def model_quality(slo):
+        rows = [s for s in slo.get("statuses", []) if s["slo"] == "model_quality"]
+        return rows[0] if rows else None
+
+    stop, feed_stop, feed_lock = threading.Event(), threading.Event(), threading.Lock()
+    records, errors, responses, sends, lags = [], [], {}, [], []
+    fed = [0]
+    try:
+        info = wait_for("live_replicas", lambda: live_replicas(serve), 300)[0]
+        addr, metrics_addr = f"127.0.0.1:{info['port']}", f"127.0.0.1:{info['metrics_port']}"
+        port_published_s = time.perf_counter() - t_launch
+        probe = PredictClient(addr, deadline_s=30.0)
+
+        def client(w):
+            c = PredictClient(addr, deadline_s=30.0)
+            i = 0
+            try:
+                while not stop.is_set():
+                    trace_id, idx = f"q-{w}-{i}", (w + i * clients) % len(pool)
+                    t0 = time.time()
+                    try:
+                        out = c.predict(pool[idx], trace_id=trace_id, span_id=trace_id)
+                        if out.shape != (8,) or not np.all(np.isfinite(out)):
+                            raise ValueError(f"response of shape {out.shape} / non-finite")
+                        responses[trace_id] = out
+                        records.append((t0, time.time(), trace_id, idx))
+                    except Exception as exc:
+                        errors.append(repr(exc))
+                    i += 1
+            finally:
+                c.close()
+
+        def send(mapping, feeder):
+            reply = feeder.send_labels(mapping)
+            sends.append(([(k, v) for k, v in mapping.items()], reply))
+            return reply
+
+        def feed():
+            feeder = PredictClient(addr, deadline_s=30.0)
+            try:
+                while not feed_stop.wait(0.1):
+                    with feed_lock:
+                        due, now = [], time.time()
+                        while fed[0] < len(records) and \
+                                now - records[fed[0]][1] >= cfg["label_delay_s"]:
+                            _, _, trace_id, idx = records[fed[0]]
+                            due.append((trace_id, pool[idx]))
+                            fed[0] += 1
+                        if due:
+                            oldest = records[fed[0] - len(due)][1]
+                            t0 = time.time()
+                            stats = run_label_feed([lambda m: send(m, feeder)], due,
+                                                   group=len(due))
+                            lags.append((t0 - oldest, time.time() - t0, len(due)))
+                            if stats["send_errors"] or stats["outages"]:
+                                errors.append(f"label feed {stats}")
+            finally:
+                feeder.close()
+
+        threads = [threading.Thread(target=client, args=(w,), name=f"quality-client-{w}")
+                   for w in range(clients)]
+        feeder = threading.Thread(target=feed, name="quality-label-feed")
+        t_run = time.time()
+        for t in threads:
+            t.start()
+        feeder.start()
+
+        def sampled_ids():
+            return {e["trace_id"] for e in journal_events(journal, "request_trace")
+                    if e["outcome"] == "served"}
+
+        def window_check(what):
+            """With the feed paused: the first quality_window journaled
+            after the last send against the window rebuilt from the sends."""
+            try:
+                labels, preds = _window_pairs(sends, sampled_ids(), responses, cfg["window"])
+            except SystemExit:
+                log(f"label sends (oldest label's age s, send s, labels): {lags}")
+                raise
+            joined = 8 * sum(reply["joined"] for _, reply in sends)
+            event = wait_for(f"a quality_window of {joined} joined pairs ({what})", lambda: next(
+                (e for e in journal_events(journal, "quality_window")
+                 if e["joined"] == joined and e["window"] == labels.size), None), 10)
+            want = binary_logloss(labels, preds)
+            if abs(event["logloss"] - want) > QUALITY_LOGLOSS_TOL:
+                fail(f"{what}: the window's logloss {event['logloss']} against {want} "
+                     "recomputed from the responses and labels")
+            return {"joined": joined, "window": event["window"], "logloss": event["logloss"],
+                    "recomputed_logloss": want, "auc": event.get("auc"),
+                    "recomputed_auc": binary_auc(labels, preds)}
+
+        time.sleep(cfg["clean_s"])
+        with feed_lock:
+            clean_window = window_check("clean traffic")
+            clean_slo = model_quality(http_json(metrics_addr, "/slo"))
+        if clean_slo is None or clean_slo["alerting"]:
+            fail(f"/slo's model_quality during clean traffic: {clean_slo}")
+        # A clean link passes the gate fed by the joined traffic.
+        train(cfg["link_steps"], clean_labels)
+        exporter.publish_delta(trainer, event_time=float(trainer.step))
+        clean_step = trainer.step
+        t_pub = time.perf_counter()
+        wait_for(f"step {clean_step} on /stats", lambda: probe.stats()["step"] == clean_step, 60)
+        clean_link_s = time.perf_counter() - t_pub
+        clean_gate = gate_events(clean_step)
+        if [g["outcome"] for g in clean_gate] != ["passed"] or clean_gate[0]["quality"] != "known":
+            fail(f"the clean link's gate: {clean_gate}")
+        # The feed flips: the model_quality SLO burns while flipped labels
+        # join, and not before (its short window past the small first
+        # windows' noise).
+        def fast_burn():
+            status = model_quality(http_json(metrics_addr, "/slo"))
+            return status, status["burn_rates"]["fast_short"]
+
+        cold = wait_for("model_quality's short-window burn at 0 on clean labels",
+                        lambda: (lambda sb: sb[0] if sb[1] == 0 else None)(fast_burn()),
+                        cfg["burn_timeout_s"])
+        faults.install("stream.labels:errorx*")
+        t_flip = time.perf_counter()
+        burning = wait_for("model_quality burning on /slo",
+                           lambda: (lambda sb: sb[0] if sb[1] > 0 else None)(fast_burn()),
+                           cfg["burn_timeout_s"])
+        burn_s = time.perf_counter() - t_flip
+        faults.clear()
+        time.sleep(cfg["label_delay_s"] + 1.0)  # clean joins refill the replay buffer
+        # A retrain on flipped labels while the clean feed runs on.
+        before = probe.predict(pool[0])
+        live_step = probe.stats()["step"]
+        train(cfg["poison_steps"], flipped_labels)
+        exporter.publish_delta(trainer, event_time=float(trainer.step))
+        poisoned_step = trainer.step
+        held = wait_for("the poisoned link held twice", lambda: (
+            lambda g: g if len(g) >= 2 else None)(
+                [e for e in gate_events(poisoned_step) if e["outcome"] == "held"]),
+            cfg["held_timeout_s"])
+        after = probe.predict(pool[0])
+        held_step = probe.stats()["step"]
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+            if t.is_alive():
+                fail(f"client thread {t.name} did not finish")
+        t_end = time.time()
+        time.sleep(cfg["label_delay_s"] + 0.5)  # the feed sends the last labels
+        feed_stop.set()
+        feeder.join(timeout=60)
+        with feed_lock:
+            if fed[0] != len(records):
+                fail(f"the label feed sent {fed[0]} of {len(records)} requests' labels")
+            final_window = window_check("after the traffic")
+        time.sleep(2.5)  # two SLO ticks and a telemetry record after the traffic
+        slo = http_json(metrics_addr, "/slo")
+        rc_top, frame, err_top = obs_tool("elasticdl_tpu_torch.obs.top", "--addr", metrics_addr,
+                                          "--serving", "--once", timeout_s=60)
+        # The watcher retries the held link every poll: three reads of
+        # /stats, of which one outside every shadow evaluation counts.
+        stat_reads = []
+        for _ in range(3):
+            t0 = time.time()
+            stats = probe.stats()
+            stat_reads.append((t0, time.time(), stats))
+            time.sleep(0.17)
+        probe.close()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            if proc.wait(timeout=30) != 0:
+                died("after SIGTERM")
+        except subprocess.TimeoutExpired:
+            fail("the quality replica did not exit within 30 s of SIGTERM")
+    except Exception:
+        if proc.poll() is not None:
+            died("while serving")
+        raise
+    finally:
+        stop.set()
+        feed_stop.set()
+        faults.clear()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        stderr.close()
+    problems = []
+    if errors:
+        problems.append(f"{len(errors)} of {len(errors) + len(records)} requests failed: "
+                        f"{errors[:3]}")
+    if held_step != live_step or not np.allclose(after, before, rtol=LOGIT_RTOL,
+                                                 atol=LOGIT_ATOL):
+        problems.append(f"under the held link the replica moved from step {live_step} to "
+                        f"{held_step} or served {after} for {before}")
+    labels_sent = sum(len(items) for items, _ in sends)
+    joined_ids = sum(reply["joined"] for _, reply in sends)
+    if not joined_ids or final_window["joined"] != 8 * joined_ids:
+        problems.append(f"{joined_ids} ids joined by the feed, the replica's counter "
+                        f"{final_window['joined']} pairs")
+    report_json = os.path.join(workdir, "quality_report.json")
+    rc_report, report_text, err_report = obs_tool("elasticdl_tpu_torch.obs.report", journal,
+                                                  "--json", report_json)
+    quality_section = None
+    if rc_report == 0:
+        with open(report_json) as f:
+            quality_section = json.load(f).get("quality")
+    if not quality_section or quality_section.get("holds", 0) < 2 or \
+            "model quality" not in report_text:
+        problems.append(f"obs.report's quality section {quality_section} ({err_report[-400:]})")
+    if rc_top != 0 or top_rows(frame)[:1] != ["0"]:
+        problems.append(f"obs.top --serving exited {rc_top}: {frame[-800:]} {err_top[-400:]}")
+    # Each gate verdict follows its shadow evaluation's span; a known one
+    # ran its replay batches (8 rows each, one dispatch a generation).
+    gates = journal_events(journal, "quality_gate")
+    spans = [(e["start_ts"], e["start_ts"] + e["duration_s"])
+             for e in journal_events(journal, "span") if e["name"] == "quality.shadow_eval"]
+    shadow = [b - a for a, b in spans]
+    if len(spans) != len(gates):
+        problems.append(f"{len(spans)} shadow-evaluation spans for {len(gates)} gate verdicts")
+    clean_reads = [(t0, st) for t0, t1, st in stat_reads
+                   if not any(a < t1 + 0.005 and b > t0 - 0.005 for a, b in spans)]
+    if not clean_reads:
+        fail(f"quality replica: every /stats read overlapped a shadow evaluation: {spans[-4:]}")
+    t_stats, stats = clean_reads[0]
+    launches, dispatches = stats["kernel_launches"], stats["executes"]
+    shadow_batches = sum(g["rows"] // 8 for g, (_, end) in zip(gates, spans)
+                         if g.get("quality") == "known" and end < t_stats)
+    if on_card and (launches["fused_lookup"] != 2 * dispatches + 2 * 2 * shadow_batches
+                    or launches["fused_lookup_fm"]):
+        problems.append(f"launches {launches} in {dispatches} dispatches and {shadow_batches} "
+                        "replay batches of shadow evaluations")
+    if problems:
+        fail(f"quality replica: {problems[:4]}")
+    latencies = [b - a for a, b, _, _ in records]
+    result = {
+        "requests": len(records), "requests_per_s": len(records) / (t_end - t_run),
+        "p50_ms": percentile_ms(latencies, 50), "p99_ms": percentile_ms(latencies, 99),
+        "phase39_requests_per_s": None if not traced else traced["requests_per_s"],
+        "phase39_p99_ms": None if not traced else traced["p99_ms"],
+        "labels_sent": labels_sent, "joined_ids": joined_ids,
+        "joined_share": joined_ids / max(1, labels_sent), "sends": len(sends),
+        "slo_bound": bound, "pool_logloss": {"clean": clean_ll, "flipped": flipped_ll},
+        "clean_window": clean_window, "final_window": final_window,
+        "clean_link_s": clean_link_s, "burn_s": burn_s,
+        "burn_rates_before_flip": cold["burn_rates"], "burn_rates": burning["burn_rates"],
+        "gates": [{k: g.get(k) for k in ("outcome", "step", "quality", "rows", "reason")}
+                  for g in gates], "held_polls": len(held),
+        "shadow_eval_s": shadow, "port_published_s": port_published_s,
+        "slo_after": model_quality(slo), "launches": launches, "dispatches": dispatches,
+        "shadow_batches": shadow_batches, "card": card,
+    }
+    log(f"quality replica: {len(records)} traced requests of 8 rows from {clients} clients, "
+        f"{result['requests_per_s']!r} requests/s, p99 {result['p99_ms']!r} ms (phase 39 in "
+        f"this call: {result['phase39_requests_per_s']!r} requests/s, p99 "
+        f"{result['phase39_p99_ms']!r} ms); labels {labels_sent} sent, {joined_ids} joined "
+        f"(share {result['joined_share']!r}); windows {clean_window} / {final_window}; clean "
+        f"link passed in {clean_link_s!r} s; model_quality burning {burn_s!r} s after the flip "
+        f"({burning['burn_rates']}); poisoned link held {len(held)} times; shadow evaluations "
+        f"{shadow!r} s; launches {launches} in {dispatches} dispatches and {shadow_batches} "
+        f"shadow batches [{card}]")
+    shutil.rmtree(serve, ignore_errors=True)
+    return result
+
 def ring_entries(ring_kernels, ring_whole, cp, card, resources=None):
     """The K7-K9 entries of the kernels line: timed at RING_BENCH (phase
     13), launched on the CP LM path (phase 15, both layouts)."""
@@ -7391,7 +8107,7 @@ def main() -> None:
     gather = block_gather_phase(card, args.seed) if run(17) else None
     sharded = sharded_kernel_phase(card, args.seed) if run(18) else None
     launches = train = mesh_train = split_train = ckpt = continuous = process = elastic = None
-    stream_loop = traced = None
+    stream_loop = traced = quality_gate = quality_process = None
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if run(3, 4):
@@ -7416,12 +8132,20 @@ def main() -> None:
                                               held_out=loop.held_out, replica25=process)
             del exporter
             shutil.rmtree(pub, ignore_errors=True)
-            import torch
-
             torch.cuda.empty_cache()
         if run(36):  # phase 22/24's trainer where it is still here
             stream_loop = stream_loop_phase(card, args.seed, workdir,
                                             trainer=loop.trainer if loop else None)
+            shutil.rmtree(os.path.join(workdir, "pub_stream"), ignore_errors=True)
+            torch.cuda.empty_cache()
+        if run(40, 41):  # after phase 36, which must not see phase 40's flipped labels
+            quality_gate, chain = quality_gate_phase(card, args.seed, workdir,
+                                                     trainer=loop.trainer if loop else None)
+            if run(41):
+                quality_process = quality_replica_phase(card, args.seed, workdir, chain, traced)
+            shutil.rmtree(chain["pub"], ignore_errors=True)
+            del chain
+            torch.cuda.empty_cache()
         del loop
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -7494,7 +8218,9 @@ def main() -> None:
                         "ctr_zoo": zoo, "census_job": census, "census_fleet": fleet,
                         "allreduce_jobs": allreduce, "lm_bf16_head": lm_heads,
                         "stream_loop": stream_loop, "engines": engines,
-                        "observed_job": observed, "traced_replica": traced, "card": card}))
+                        "observed_job": observed, "traced_replica": traced,
+                        "quality_gate": quality_gate, "quality_replica": quality_process,
+                        "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -7509,8 +8235,13 @@ def main() -> None:
                     "local_job": local, "ctr_zoo": zoo, "census_job": census,
                     "census_fleet": fleet, "allreduce_jobs": allreduce,
                     "lm_bf16_head": lm_heads, "stream_loop": stream_loop, "engines": engines,
-                    "observed_job": observed, "traced_replica": traced, "card": card}))
+                    "observed_job": observed, "traced_replica": traced,
+                    "quality_gate": quality_gate, "quality_replica": quality_process,
+                    "card": card}))
 
+    quality_steps = sum(n for n, _ in quality_gate["train_launches"])
+    quality_trained = {name: sum(c[name] for _, c in quality_gate["train_launches"])
+                       for name in ("fused_lookup", "fused_dedup_apply")}
     by_path = {
         "fused_lookup_fm": {"serve_merged": launches["fused_lookup_fm"],
                             "train_strict": train["launches_strict"]["fused_lookup_fm"],
@@ -7554,7 +8285,15 @@ def main() -> None:
                          "steps, CUDA kernel events)":
                              observed["profile"]["fused_lookup"]["events"],
                          f"traced_replica_process ({traced['dispatches']} dispatches)":
-                             traced["launches"]["fused_lookup"]},
+                             traced["launches"]["fused_lookup"],
+                         f"quality_gate_trainer ({quality_steps} steps)":
+                             quality_trained["fused_lookup"],
+                         "quality_gate_held_polls_shadow_runs (16 replay batches x 2 "
+                         "generations each)": [
+                             c["fused_lookup"] for c in quality_gate["held_poll_launches"]],
+                         f"quality_replica_process ({quality_process['dispatches']} dispatches, "
+                         f"{quality_process['shadow_batches']} replay batches of shadow "
+                         "evaluations)": quality_process["launches"]["fused_lookup"]},
         "fused_dedup_apply": {"train_strict": train["launches_strict"]["fused_dedup_apply"],
                               "train_window": train["launches_window"]["fused_dedup_apply"],
                               "train_mesh": mesh_train["launches"]["fused_dedup_apply"],
@@ -7585,7 +8324,9 @@ def main() -> None:
                               "events)": observed["profile"]["fused_dedup_apply"]["events"],
                               **{f"engines_{k}_k3_3_steps":
                                  engines[k]["launches"]["fused"]["fused_dedup_apply"]
-                                 for k in ENGINE_KINDS}},
+                                 for k in ENGINE_KINDS},
+                              f"quality_gate_trainer ({quality_steps} steps)":
+                                  quality_trained["fused_dedup_apply"]},
     }
     on_mesh = {"fused_lookup_fm": sharded["fused_lookup_fm"], "fused_lookup":
                sharded["fused_lookup"], "fused_dedup_apply": sharded["fused_dedup_apply"]["adam"]}

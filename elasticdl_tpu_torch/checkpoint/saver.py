@@ -24,8 +24,13 @@ metrics (save and restore durations and saves by kind, quarantines), and
 the ``checkpoint_saved`` (``step``, ``kind``) and ``checkpoint_restored``
 journal events.  A saver whose caller journals each save itself (the
 collective worker, once per rank with its digest) sets ``journal_saves``
-to False.  Not ported: the ``ckpt.write`` fault site (ROADMAP.md Queue 1
-item 8).
+to False.
+
+The ``ckpt.write`` fault site (``common/faults.py``) is the JAX
+package's: ``ckpt.write:truncate[=keep_bytes]`` tears the state file (the
+sharded saver's ``dense.pkl``) after the manifest recorded its CRC, the
+corruption a crashed flush leaves, so the next restore quarantines that
+step and falls back.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from typing import Any, Dict, Optional, Tuple
 
 from elasticdl_tpu_torch import obs
 from elasticdl_tpu_torch.checkpoint import _pickle
+from elasticdl_tpu_torch.common import faults
 
 logger = logging.getLogger("elasticdl_tpu_torch.checkpoint.saver")
 
@@ -140,6 +146,20 @@ def read_pickle(path: str) -> Any:
         return _pickle.load(f, what=path)
 
 
+def _apply_write_fault(state_path: str) -> None:
+    """The ``ckpt.write`` injection site: a ``truncate`` fault tears the
+    just-written state file AFTER its checksum was recorded, exactly the
+    corruption a crashed flush produces."""
+    spec = faults.fire("ckpt.write")
+    if spec is None or spec.kind != "truncate":
+        return
+    size = os.path.getsize(state_path)
+    keep = int(spec.arg) if spec.arg else size // 2
+    with open(state_path, "r+b") as f:
+        f.truncate(keep)
+    logger.warning("FAULT INJECTION: truncated %s to %d of %d bytes", state_path, keep, size)
+
+
 class CheckpointSaver:
     def __init__(self, checkpoint_dir: str, keep_max: int = 3):
         self._dir = checkpoint_dir
@@ -190,8 +210,10 @@ class CheckpointSaver:
         if os.path.exists(final_dir):
             return final_dir
         tmp_dir = tempfile.mkdtemp(prefix=f"step_{step:012d}.tmp", dir=self._dir)
-        write_pickle(os.path.join(tmp_dir, _STATE_FILE), state)
+        state_path = os.path.join(tmp_dir, _STATE_FILE)
+        write_pickle(state_path, state)
         write_integrity_manifest(tmp_dir, [_STATE_FILE])
+        _apply_write_fault(state_path)
         os.rename(tmp_dir, final_dir)
         self._note_saved(start, step, "full")
         logger.info("Saved checkpoint at step %d -> %s", step, final_dir)

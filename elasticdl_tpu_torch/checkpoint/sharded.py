@@ -48,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from elasticdl_tpu_torch.checkpoint.saver import (
+    _apply_write_fault,
     CheckpointSaver,
     read_pickle,
     verify_integrity,
@@ -225,6 +226,7 @@ class ShardedCheckpointSaver(CheckpointSaver):
             with open(os.path.join(tmp_dir, _MANIFEST), "w") as f:
                 json.dump(manifest, f)
             write_integrity_manifest(tmp_dir, shard_files + [_DENSE, _MANIFEST])
+            _apply_write_fault(os.path.join(tmp_dir, _DENSE))
             try:
                 os.rename(tmp_dir, final_dir)
             except OSError:

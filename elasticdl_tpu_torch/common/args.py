@@ -6,15 +6,17 @@ master forwards a worker's flags through ``args_to_argv``.  Every JAX
 flag is kept with its name and default, plus ``--device`` (``cuda``, the
 card, unless ``cpu`` is given, as ``serving/replica_main.py`` has it).
 
-A flag whose non-default value selects a part the port leaves out raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item (``check_ported``,
-run by both ``parse_*_args``).  ``--policy_enabled`` and the
-``--policy_*`` numbers select the goodput-driven policy engine
-(``master/policy.py``, ``PolicyConfig.from_args``).  The observability
+``--policy_enabled`` and the ``--policy_*`` numbers select the
+goodput-driven policy engine (``master/policy.py``,
+``PolicyConfig.from_args``).  The observability
 flags select their planes: ``--tensorboard_log_dir`` the TensorBoard
 scalars and the journal's directory, ``--profile_steps`` the
 ``torch.profiler`` window (``common/profiler.py``), ``--slo_enabled``
-(on by default) and ``--slo_goodput_target`` the master's SLO plane.
+(on by default) and ``--slo_goodput_target`` the master's SLO plane,
+``--quality_drift_bins`` > 0 the train-side drift sketch
+(``obs/quality.enable_train_sketch``, at ``--quality_drift_threshold``) of
+the workers: unlike JAX, whose worker parser lacks them, both flags are
+the worker's too, and the master forwards them.
 ``--jax_compilation_cache_dir`` is accepted and selects nothing.  ``--sparse_kernel`` selects the sparse
 optimizer's engine (``parallel/ps_trainer.resolve_sparse_kernel``).
 ``--image_name`` submits the job to a Kubernetes cluster
@@ -32,9 +34,6 @@ from elasticdl_tpu_torch.common.log_utils import get_logger
 
 logger = get_logger("common.args")
 
-#: Where each part this module refuses is queued.
-OBS_ITEM = ("ROADMAP.md Queue 1 item 8: the quality plane (QualityLedger, DriftMonitor, "
-            "the labels request)")
 #: The ``zoo`` subcommand of the client CLI (``client/zoo.py``).
 ZOO_ITEM = ("ROADMAP.md Queue 1 item 7, what the vision slice leaves: the model-zoo "
             "CLI (client/zoo.py, zoo init|build|push)")
@@ -184,8 +183,6 @@ def add_cluster_arguments(parser: argparse.ArgumentParser):
     parser.add_argument("--slo_goodput_target", type=float, default=0.0)
     parser.add_argument("--slo_compliance_window_s", type=float, default=3600.0)
     parser.add_argument("--slo_tick_interval_s", type=float, default=2.0)
-    parser.add_argument("--quality_drift_bins", type=non_neg_int, default=0)
-    parser.add_argument("--quality_drift_threshold", type=float, default=0.25)
     parser.add_argument(
         "--worker_liveness_timeout_s", type=non_neg_int, default=60,
         help="Kill and relaunch a worker whose heartbeat is silent this long (0 disables)",
@@ -197,6 +194,13 @@ def add_cluster_arguments(parser: argparse.ArgumentParser):
     parser.add_argument("--volume", default="")
 
 
+def add_quality_arguments(parser: argparse.ArgumentParser):
+    """The train-side drift sketch's flags: on the master, which forwards
+    them, and on the worker, which enables the sketch."""
+    parser.add_argument("--quality_drift_bins", type=non_neg_int, default=0)
+    parser.add_argument("--quality_drift_threshold", type=float, default=0.25)
+
+
 def build_master_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="elasticdl_tpu_torch master",
                                      allow_abbrev=False)
@@ -205,6 +209,7 @@ def build_master_parser() -> argparse.ArgumentParser:
     add_data_arguments(parser)
     add_train_arguments(parser)
     add_cluster_arguments(parser)
+    add_quality_arguments(parser)
     parser.add_argument("--job_type", default="training_with_evaluation")
     return parser
 
@@ -216,24 +221,11 @@ def build_worker_parser() -> argparse.ArgumentParser:
     add_model_zoo_arguments(parser)
     add_data_arguments(parser)
     add_train_arguments(parser)
+    add_quality_arguments(parser)
     parser.add_argument("--worker_id", type=non_neg_int, required=True)
     parser.add_argument("--master_addr", required=True)
     parser.add_argument("--job_type", default="training_with_evaluation")
     return parser
-
-
-#: flag -> (its default, the item a non-default value waits for).
-_NOT_PORTED = {
-    "quality_drift_bins": (0, OBS_ITEM),
-}
-
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` naming the ``ROADMAP.md`` item of any
-    flag whose value selects a part the port leaves out."""
-    for flag, (default, item) in _NOT_PORTED.items():
-        value = getattr(args, flag, default)
-        if value != default:
-            raise NotImplementedError(f"--{flag}={value!r} is not ported: {item}")
 
 
 def _apply_log_level(args):
@@ -243,14 +235,12 @@ def _apply_log_level(args):
 def parse_master_args(argv=None):
     args, _unknown = build_master_parser().parse_known_args(argv)
     _apply_log_level(args)
-    check_ported(args)
     return args
 
 
 def parse_worker_args(argv=None):
     args, _unknown = build_worker_parser().parse_known_args(argv)
     _apply_log_level(args)
-    check_ported(args)
     return args
 
 

@@ -16,6 +16,10 @@ Injection sites wired into the port:
     serving.delta_apply  every ServingReplica.build_delta_generation
                          (kind: error[=msg]: the apply fails and rolls
                          back to the previous generation)
+    ckpt.write           every CheckpointSaver state-file write
+                         (checkpoint/saver.py; kind: truncate[=keep_bytes]:
+                         a torn write, after the manifest recorded the
+                         whole file's CRC)
     ckpt.delta           every DeltaExporter.publish_delta (kind:
                          truncate[=keep_bytes]: tears the largest delta
                          file after the manifest recorded its CRC)
@@ -35,9 +39,13 @@ Injection sites wired into the port:
                          a label-feed outage that returns no labels for
                          the range; error, a poisoned feed with every
                          label flipped)
-
-The JAX package's other sites (``ckpt.write``, ``quality.*``) wait for
-their modules (ROADMAP.md Queue 1 item 8).
+    quality.label_join   every label delivery into the quality ledger
+                         (obs/quality.py; kinds: error, the label is
+                         dropped; truncate, delivered twice, the
+                         at-least-once feed's duplicate)
+    quality.shadow_eval  every canary-gate shadow evaluation (kind:
+                         error[=msg]: the evaluation blows up and the
+                         gate degrades to quality unknown)
 
 Spec grammar (comma/semicolon separated, via ``ELASTICDL_FAULTS`` or
 ``install()``), the JAX package's:

@@ -18,13 +18,13 @@ from its trigger to its metrics), and written to TensorBoard as
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Dict, List
 
 import numpy as np
 
 from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 from elasticdl_tpu_torch.common import tensor_utils
 from elasticdl_tpu_torch.common.log_utils import get_logger
 
@@ -43,7 +43,7 @@ class EvaluationService:
         self._tensorboard_service = tensorboard_service
         self._eval_metrics_fn = eval_metrics_fn
         self._evaluation_steps = evaluation_steps
-        self._lock = threading.Lock()
+        self._lock = make_lock("EvaluationService._lock")
         # model_version -> when its first round was triggered (monotonic).
         self._triggered_at: Dict[int, float] = {}  # guarded-by: _lock
         self._last_eval_version = -1  # guarded-by: _lock

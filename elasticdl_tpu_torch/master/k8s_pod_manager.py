@@ -33,6 +33,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.master.k8s_client import (
     ApiError,
@@ -129,7 +130,7 @@ class KubernetesPodManager(ElasticWorkerManager):
         # Inherited supervision fields this substrate also mutates keep
         # the base class's lock discipline:
         # guarded-by: _lock: _handles, _next_worker_id, _num_workers
-        self._state_lock = threading.Lock()
+        self._state_lock = make_lock("KubernetesPodManager._state_lock")
         self._pod_states: Dict[str, _PodState] = {}  # guarded-by: _state_lock
         self._we_deleted: set = set()  # guarded-by: _state_lock
         self._created_at: Dict[str, float] = {}  # guarded-by: _state_lock

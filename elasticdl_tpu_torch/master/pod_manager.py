@@ -41,6 +41,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.obs import goodput
 
@@ -96,10 +97,10 @@ class ElasticWorkerManager:
         self._target_num_workers = (target_num_workers if target_num_workers is not None
                                     else num_workers)
         self._scale_up_check_fn = scale_up_check_fn
-        self._lock = threading.Lock()
+        self._lock = make_lock("ElasticWorkerManager._lock")
         # Serialises the paths that replace the world (the churn repair
         # releases _lock mid-flight); always taken before _lock.
-        self._resize_lock = threading.Lock()
+        self._resize_lock = make_lock("ElasticWorkerManager._resize_lock")
         self._handles: List = []
         self._next_worker_id = 0
         self._restarts_used = 0
@@ -494,7 +495,7 @@ WORKER_FLAGS = {
     "profile_steps", "train_window_steps", "dense_sharding", "mesh_model_axis",
     "sparse_apply_every", "sparse_kernel", "pipeline", "parse_pool_workers",
     "pipeline_inflight", "dispatch_depth", "jax_compilation_cache_dir", "oov_diagnostics",
-    "device",
+    "quality_drift_bins", "quality_drift_threshold", "device",
 }
 
 

@@ -57,6 +57,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
 from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 from elasticdl_tpu_torch.common.log_utils import get_logger
 
 logger = get_logger("master.policy")
@@ -137,7 +138,7 @@ class ElasticPolicyEngine:
         self._ledger = ledger
         self._stragglers_fn = stragglers_fn
 
-        self._lock = threading.Lock()
+        self._lock = make_lock("ElasticPolicyEngine._lock")
         self._manager = manager  # guarded-by: _lock
         self._flagged: Dict[int, dict] = {}  # guarded-by: _lock
         self._flag_streak: Dict[int, int] = {}  # guarded-by: _lock

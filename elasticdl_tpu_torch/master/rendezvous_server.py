@@ -23,11 +23,11 @@ from __future__ import annotations
 
 import os
 import socket
-import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 from elasticdl_tpu_torch.common import messages as msg
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.obs import goodput, tracing
@@ -52,7 +52,7 @@ class ElasticRendezvous:
     """The single source of truth for the current world."""
 
     def __init__(self, coordinator_port_fn=find_free_port):
-        self._lock = threading.Lock()
+        self._lock = make_lock("ElasticRendezvous._lock")
         self._coordinator_port_fn = coordinator_port_fn
         self._rendezvous_id = 0
         self._workers: List[Tuple[int, str]] = []  # sorted (worker_id, host)

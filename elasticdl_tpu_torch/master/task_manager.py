@@ -48,6 +48,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
 from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 from elasticdl_tpu_torch.common import messages as msg
 from elasticdl_tpu_torch.common.constants import TaskExecCounterKey
 from elasticdl_tpu_torch.common.log_utils import get_logger
@@ -158,7 +159,7 @@ class TaskManager:
         task_timeout_s: float = 0.0,
         max_task_retries: int = 3,
     ):
-        self._lock = threading.Lock()
+        self._lock = make_lock("TaskManager._lock")
         self._metrics = _TaskManagerMetrics(self)
         self._training_shards = dict(training_shards or {})
         self._evaluation_shards = dict(evaluation_shards or {})

@@ -36,6 +36,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 from elasticdl_tpu_torch.common.log_utils import get_logger
 
 logger = get_logger("master.tensorboard")
@@ -248,7 +249,7 @@ class TensorBoardService:
         self._sample_interval_s = sample_interval_s
         # Guards the writer: scalars arrive from servicer threads, the
         # sampler thread and close().
-        self._lock = threading.Lock()
+        self._lock = make_lock("TensorBoardService._lock")
         self._stop_event = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._writer: Optional[EventFileWriter] = None

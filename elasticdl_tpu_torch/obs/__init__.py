@@ -22,10 +22,10 @@ The planes beside this module: the goodput ledger (``obs/goodput.py``),
 the step anatomy (``obs/stepstats.py``), the worker telemetry over the
 master's heartbeat (``obs/telemetry.py``), the tracing plane
 (``obs/tracing.py``, through which ``span`` journals), the SLO plane
-(``obs/history.py``, ``obs/slo.py``) and the offline tools over the
-journals (``obs/trace.py``, ``obs/report.py``, ``obs/top.py``).  Not
-ported yet (ROADMAP.md Queue 1 item 8): the quality plane's
-``QualityLedger`` and ``DriftMonitor``.
+(``obs/history.py``, ``obs/slo.py``), the model-quality plane
+(``obs/quality.py``: the label-join ledger, the drift sketches, the
+canary gate) and the offline tools over the journals (``obs/trace.py``,
+``obs/report.py``, ``obs/top.py``).
 """
 
 from __future__ import annotations
@@ -62,6 +62,8 @@ REQUIRED_FIELDS = {
     "serving_replica_start": ("replica_id", "port"),
     "freshness_slo": ("state", "lag_s", "slo_s"),
     "quality_gate": ("outcome", "step", "origin"),
+    "quality_window": ("joined", "origin"),
+    "quality_drift": ("state", "divergence", "origin"),
     # The elastic control plane: telemetry, stragglers, the goodput
     # ledger, the policy engine, the step anatomy, explicit resizes.
     "worker_telemetry": ("worker_id",),

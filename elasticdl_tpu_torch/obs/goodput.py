@@ -51,11 +51,11 @@ rides the journal fields.
 from __future__ import annotations
 
 import contextlib
-import threading
 import time
 from typing import Dict, List, Optional
 
 from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 from elasticdl_tpu_torch.common.log_utils import get_logger
 
 logger = get_logger("obs.goodput")
@@ -92,7 +92,7 @@ class GoodputLedger:
     """
 
     def __init__(self, clock=time.monotonic):
-        self._lock = threading.Lock()
+        self._lock = make_lock("GoodputLedger._lock")
         self._clock = clock
         self._phase: Optional[str] = None  # guarded-by: _lock
         self._phase_started = 0.0  # guarded-by: _lock

@@ -36,9 +36,10 @@ per-bucket rings.
 
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 
 
 
@@ -84,7 +85,7 @@ class MetricsHistory:
         self.registry = registry
         self._max_series = max(1, int(max_series))
         self._max_samples = max(2, int(max_samples))
-        self._lock = threading.Lock()
+        self._lock = make_lock("MetricsHistory._lock")
         # (name, labelkey) -> _Series, in least-recently-updated order.
         self._series: "OrderedDict[Tuple[str, str], _Series]" = OrderedDict()  # guarded-by: _lock
         self._last_now = float("-inf")  # guarded-by: _lock

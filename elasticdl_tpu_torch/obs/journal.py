@@ -21,11 +21,11 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 from collections import deque
 from typing import List, Optional
 
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 from elasticdl_tpu_torch.common.log_utils import get_logger
 
 logger = get_logger("obs.journal")
@@ -42,7 +42,7 @@ class EventJournal:
         max_bytes: int = DEFAULT_MAX_BYTES,
         tail_events: int = 256,
     ):
-        self._lock = threading.Lock()
+        self._lock = make_lock("EventJournal._lock")
         self._path: Optional[str] = None  # guarded-by: _lock
         self._file = None  # guarded-by: _lock
         self._size = 0  # guarded-by: _lock

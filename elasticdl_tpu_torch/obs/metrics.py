@@ -19,11 +19,12 @@ triple with cumulative ``le`` buckets.
 from __future__ import annotations
 
 import re
-import threading
 import time
 from bisect import bisect_left
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 
 
 #: Default duration buckets (seconds): spans sub-millisecond RPC handling
@@ -68,7 +69,7 @@ class _Metric:
         self.name = name
         self.help = help
         self.labelnames = tuple(labelnames)
-        self._lock = threading.Lock()
+        self._lock = make_lock(f"obs.{type(self).__name__}._lock")
 
     def _key(self, labels: Dict[str, object]) -> Tuple[str, ...]:
         if set(labels) != set(self.labelnames):
@@ -305,7 +306,7 @@ class MetricsRegistry:
     a restarted replica's objects) and get the same objects back."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("MetricsRegistry._lock")
         self._metrics: Dict[str, _Metric] = {}  # guarded-by: _lock
 
     def _get_or_create(self, cls, name, help, labelnames, **kwargs):
@@ -367,7 +368,7 @@ class RateTracker:
 
     def __init__(self, window_s: float = 60.0):
         self._window_s = float(window_s)
-        self._lock = threading.Lock()
+        self._lock = make_lock("obs.RateTracker._lock")
         self._samples: deque = deque()  # (t, amount)
 
     def _prune_locked(self, now: float):

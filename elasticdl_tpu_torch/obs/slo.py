@@ -50,6 +50,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.obs.history import MetricsHistory
 
@@ -241,7 +242,7 @@ class SLORegistry:
         self.history = history
         self.status_interval_s = float(status_interval_s)
         self.origin = str(origin)
-        self._lock = threading.Lock()
+        self._lock = make_lock("SLORegistry._lock")
         self._specs: Dict[str, SLOSpec] = {}  # guarded-by: _lock
         self._alerting: Dict[str, str] = {}  # name -> grade, guarded-by: _lock
         self._statuses: Dict[str, dict] = {}  # guarded-by: _lock

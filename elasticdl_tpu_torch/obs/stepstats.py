@@ -48,11 +48,11 @@ adds the dominant phase to straggler evidence.
 from __future__ import annotations
 
 import contextlib
-import threading
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 from elasticdl_tpu_torch.common.log_utils import get_logger
 
 logger = get_logger("obs.stepstats")
@@ -230,7 +230,7 @@ class BuildWatcher:
     def __init__(self):
         # Own lock: poll() runs on the task-loop thread while the
         # heartbeat thread reads `compiles` for the snapshot.
-        self._lock = threading.Lock()
+        self._lock = make_lock("BuildWatcher._lock")
         self._providers: List[Callable[[], Optional[Dict[str, int]]]] = []  # guarded-by: _lock
         self._last: Dict[str, int] = {}  # guarded-by: _lock
         self._compiles: Dict[str, int] = {}  # guarded-by: _lock
@@ -298,7 +298,7 @@ class StepAnatomy:
         clock: Callable[[], float] = time.monotonic,
         max_windows: int = MAX_SNAPSHOT_WINDOWS,
     ):
-        self._lock = threading.Lock()
+        self._lock = make_lock("StepAnatomy._lock")
         self._worker_id = int(worker_id)
         self._clock = clock
         self._watcher = BuildWatcher()

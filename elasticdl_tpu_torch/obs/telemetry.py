@@ -29,12 +29,12 @@ snapshot either package's worker writes is read by either aggregator.
 from __future__ import annotations
 
 import json
-import threading
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence
 
 from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.obs import stepstats
 
@@ -137,7 +137,7 @@ class WorkerTelemetry:
     per step); ``snapshot_json()`` is called by the heartbeat thread."""
 
     def __init__(self, worker_id: int, step_window: int = 128):
-        self._lock = threading.Lock()
+        self._lock = make_lock("WorkerTelemetry._lock")
         self._worker_id = worker_id
         # Per-step durations, one sample per recorded flush (the sample is
         # the flush's mean step time) — a bounded window so percentiles
@@ -447,7 +447,7 @@ class TelemetryAggregator:
         journal_interval_s: float = 10.0,
         clock: Callable[[], float] = time.monotonic,
     ):
-        self._lock = threading.Lock()
+        self._lock = make_lock("TelemetryAggregator._lock")
         self._detector = detector or StragglerDetector()
         self._current_workers_fn = current_workers_fn
         self._journal_interval_s = float(journal_interval_s)

@@ -41,11 +41,11 @@ import contextvars
 import itertools
 import json
 import os
-import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 from elasticdl_tpu_torch.common.log_utils import get_logger
 
 logger = get_logger("obs.tracing")
@@ -89,7 +89,7 @@ class Tracer:
     """
 
     def __init__(self, journal=None, proc: str = ""):
-        self._lock = threading.Lock()
+        self._lock = make_lock("Tracer._lock")
         self._journal = journal
         # Pid + random salt + in-process seq: the pid alone is NOT a
         # process-unique discriminator on the k8s substrate (every pod's

@@ -47,6 +47,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 from elasticdl_tpu_torch.common import faults
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.data.pipeline import bucket_for, bucket_sizes, pad_and_stage
@@ -132,7 +133,7 @@ class MicroBatcher:
         self._on_batch = on_batch
         self._clock = clock
         self._buckets = bucket_sizes(config.max_batch_size)
-        self._lock = threading.Lock()
+        self._lock = make_lock("MicroBatcher._lock")
         self._queue: deque = deque()  # guarded-by: _lock
         self._queued_rows = 0  # guarded-by: _lock
         self._wakeup = threading.Condition(self._lock)

@@ -23,7 +23,9 @@ shadow-evaluated BEFORE the swap: ``build_delta_generation`` constructs
 the candidate off to the side, the gate scores live-vs-candidate
 logloss/AUC on its replay batches, and a beyond-threshold regression
 HOLDs the link (candidate discarded, old generation serving, journaled
-``quality_gate`` outcome=held, retried next poll).
+``quality_gate`` outcome=held, retried next poll).  The shadow evaluation
+runs in a ``quality.shadow_eval`` span (the port's addition), so a
+replica process's journal carries the gate's seconds.
 """
 
 from __future__ import annotations
@@ -97,8 +99,11 @@ class DeltaWatcher:
         on build failure, same as the ungated `apply_delta` path."""
         candidate = self._replica.build_delta_generation(delta_dir)
         live = self._replica.generation
-        verdict = self._gate.evaluate(
-            self._shadow_fn(live), self._shadow_fn(candidate))
+        # The shadow evaluation's seconds ride a span (the port's own: a
+        # replica process's gate is otherwise timed by nothing).
+        with obs.span("quality.shadow_eval", step=int(delta_step), origin=self._origin):
+            verdict = self._gate.evaluate(
+                self._shadow_fn(live), self._shadow_fn(candidate))
         extra = {
             key: verdict[key]
             for key in ("reason", "rows", "quality", "baseline_logloss",

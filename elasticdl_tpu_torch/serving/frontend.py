@@ -15,6 +15,13 @@ bytes.  Requests (HTTP/1.1, keep-alive):
   after the hot swap (a delta dir applies as a delta).
 - ``POST /stats``: JSON replica stats, queue depth, the availability
   ledger's snapshot and the process's sparse-kernel launch counts.
+- ``POST /labels``: delayed feedback labels of the model-quality plane,
+  an npz dict keyed by TRACE ID (the join key the quality ledger holds
+  for sampled requests) -> JSON ``{"received", "joined", "enabled"}``.
+  Unknown ids (unsampled, expired, or a replica without the quality
+  plane, which answers ``enabled: false``) are absorbed, never errors,
+  so an at-least-once label feed is safe to replay against any replica;
+  a payload that is not an npz is INVALID_ARGUMENT.
 
 gRPC's status codes become HTTP statuses, with a JSON body
 ``{"code": <the gRPC code's name>, "message": ...}``:
@@ -36,10 +43,9 @@ span set, ``rpc.predict`` under the caller's span, ``serve.queue`` and
 ``serve.respond`` under it, ``serve.execute`` under the dispatch's
 shared ``serve.batch``, which carries the serving generation.  A request
 without the headers is served as before.  ``PredictClient.predict(...,
-trace_id=, span_id=)`` sends them.
-
-Not ported yet (ROADMAP.md Queue 1 item 8): the ``labels`` request of the
-quality plane.
+trace_id=, span_id=)`` sends them.  A sampled served request's outputs
+and features go with it to the sampler, which notes them in the quality
+ledger; ``PredictClient.send_labels`` sends the labels that join them.
 """
 
 from __future__ import annotations
@@ -118,10 +124,11 @@ class PredictServicer:
     owns the device, so handlers only block on ``_Pending.wait``.  Each
     returns the response bytes or raises ``PredictError``."""
 
-    def __init__(self, replica, batcher: MicroBatcher, sampler=None):
+    def __init__(self, replica, batcher: MicroBatcher, sampler=None, quality=None):
         self._replica = replica
         self._batcher = batcher
         self._sampler = sampler
+        self._quality = quality
 
     def predict(self, request: bytes, remaining: Optional[float], trace_id: str = "",
                 client_span_id: str = "") -> bytes:
@@ -156,13 +163,15 @@ class PredictServicer:
             else:
                 outcome, error = "error", PredictError("INTERNAL", str(exc))
         self._observe_trace(trace_id, client_span_id, rpc_span_id, req, outcome, start_ts,
-                            max(0.0, time.monotonic() - start_mono))
+                            max(0.0, time.monotonic() - start_mono), outputs=outputs,
+                            features=features)
         if error is not None:
             raise error
         return encode_array(outputs)
 
     def _observe_trace(self, trace_id: str, client_span_id: str, rpc_span_id: str, req,
-                       outcome: str, start_ts: float, duration_s: float):
+                       outcome: str, start_ts: float, duration_s: float, outputs=None,
+                       features=None):
         """The request's deferred span set (rpc.predict, the phase spans
         from the batcher's stamps, the shared serve.batch) to the sampler.
         The clocks were all read already; a failure here never fails the
@@ -210,7 +219,8 @@ class PredictServicer:
                 batch["generation"] = generation
             sampler.observe(trace_id, phases, outcome, rows=rows,
                             latency_s=(duration_s if not phases else None), spans=spans,
-                            batch=batch, generation=generation, bucket=bucket)
+                            batch=batch, generation=generation, bucket=bucket,
+                            predictions=outputs, features=features)
         except Exception:
             logger.exception("request-trace observe failed")
 
@@ -245,6 +255,27 @@ class PredictServicer:
         payload["kernel_launches"] = launch_counts()
         return json.dumps(payload).encode("utf-8")
 
+    def labels(self, request: bytes) -> bytes:
+        """Delayed feedback labels: npz keyed by trace id.  Unknown
+        trace ids (unsampled, expired, or a replica without the quality
+        plane) are absorbed, never errors."""
+        try:
+            mapping = decode_features(request)
+        except Exception as exc:
+            raise PredictError("INVALID_ARGUMENT", f"bad labels payload: {exc}")
+        quality = self._quality
+        joined = 0
+        if quality is not None:
+            now = time.monotonic()
+            for trace_id, label_arr in mapping.items():
+                try:
+                    if quality.note_label(trace_id, label_arr, now=now):
+                        joined += 1
+                except Exception:
+                    logger.exception("label join failed for %s", trace_id)
+        return json.dumps({"received": len(mapping), "joined": joined,
+                           "enabled": quality is not None}).encode("utf-8")
+
 
 class _FrontendHTTPServer(ThreadingHTTPServer):
     daemon_threads = True
@@ -259,8 +290,8 @@ class ServingFrontend:
     returns the bound port."""
 
     def __init__(self, replica, batcher: MicroBatcher, port: int = 0, host: str = "",
-                 sampler=None):
-        self._servicer = PredictServicer(replica, batcher, sampler=sampler)
+                 sampler=None, quality=None):
+        self._servicer = PredictServicer(replica, batcher, sampler=sampler, quality=quality)
         self._requested = (host, port)
         self._server: Optional[_FrontendHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
@@ -292,9 +323,11 @@ class ServingFrontend:
                         out, ctype = servicer.reload(body), "application/json"
                     elif path == "/stats":
                         out, ctype = servicer.stats(body), "application/json"
+                    elif path == "/labels":
+                        out, ctype = servicer.labels(body), "application/json"
                     else:
-                        self._reply(404, b"not found (try /predict, /reload, /stats)\n",
-                                    "text/plain")
+                        self._reply(404, b"not found (try /predict, /reload, /stats, "
+                                    b"/labels)\n", "text/plain")
                         return
                 except PredictError as exc:
                     message = str(exc)[len(exc.code) + 2:]
@@ -448,6 +481,14 @@ class PredictClient:
 
     def stats(self, deadline_s: float = 10.0) -> dict:
         payload = self._call("stats", b"", RetryPolicy(timeout_s=deadline_s, max_attempts=2))
+        return json.loads(payload.decode("utf-8"))
+
+    def send_labels(self, labels: Dict[str, np.ndarray], deadline_s: float = 10.0) -> dict:
+        """Deliver delayed feedback labels keyed by trace id (the
+        ``labels`` request).  Retried: at-least-once is safe, a duplicate
+        delivery lands as an orphan on the server, never a double join."""
+        payload = self._call("labels", encode_features(labels),
+                             RetryPolicy(timeout_s=deadline_s, max_attempts=3))
         return json.loads(payload.decode("utf-8"))
 
     def close(self):

@@ -28,20 +28,25 @@ tracing plane's sensor: of the requests that carry a trace id it keeps
 the head (1 in ``head_every``), the tail (slower than the threshold) and
 every failed one, and journals each as a ``request_trace`` event plus
 its span tree (``rpc.predict`` -> ``serve.batch`` -> ``serve.execute``,
-``serve.queue`` and ``serve.respond`` under ``rpc.predict``).  Its
-predictions do not feed a quality ledger: that waits with the quality
-plane (ROADMAP.md Queue 1 item 8).
+``serve.queue`` and ``serve.respond`` under ``rpc.predict``).  A
+sampled served request's predictions and features also enter the
+model-quality plane's ``QualityLedger`` (``obs/quality.py``) when the
+sampler has one, so label joins score exactly the population the trace
+plane exemplifies; a failing note is logged and ignored.
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Dict, Optional
 
 from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.analysis.runtime import make_lock
+from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.obs import tracing
+
+logger = get_logger("serving.ledger")
 
 #: The exclusive sub-phases of one serving request's wall time (the JAX
 #: package's ``obs/stepstats.py`` ``REQUEST_PHASES``): ``queue`` =
@@ -66,7 +71,7 @@ class AvailabilityLedger:
         if registry is None:
             registry = obs.registry()
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = make_lock("AvailabilityLedger._lock")
         self._outcomes = {o: 0 for o in OUTCOMES}  # guarded-by: _lock
         self._rows = {o: 0 for o in OUTCOMES}  # guarded-by: _lock
         self._phase_s = {p: 0.0 for p in REQUEST_PHASES}  # guarded-by: _lock
@@ -247,13 +252,19 @@ class ExemplarSampler:
         capacity: int = 64,
         replica_id: Optional[int] = None,
         journal=None,
+        quality=None,
     ):
         self._head_every = max(0, int(head_every))
         self._tail_threshold_ms = float(tail_threshold_ms)
         self._capacity = max(1, int(capacity))
         self._replica_id = replica_id
         self._journal = journal
-        self._lock = threading.Lock()
+        # Model-quality label-join ledger (obs/quality.py): sampled
+        # SERVED requests' predictions enter its pending-join ring, so
+        # the quality plane rides the same O(sampled) decision this
+        # sampler already makes.
+        self._quality = quality
+        self._lock = make_lock("ExemplarSampler._lock")
         self._count = 0  # traced requests seen, guarded-by: _lock
         self._sampled = 0  # guarded-by: _lock
         self._ring: deque = deque(maxlen=self._capacity)  # guarded-by: _lock
@@ -280,6 +291,8 @@ class ExemplarSampler:
         batch: Optional[dict] = None,
         generation: Optional[int] = None,
         bucket: Optional[int] = None,
+        predictions=None,
+        features=None,
     ) -> str:
         """Feed one completed request; returns the sampling reason
         (``head`` / ``tail`` / ``outcome``) or ``""`` when unsampled.
@@ -288,6 +301,10 @@ class ExemplarSampler:
         prepared by the frontend with wall stamps already read);
         ``batch`` is the shared serve.batch payload (must carry
         ``span_id``).  Both journal only on a sample.
+
+        ``predictions``/``features`` (host arrays) feed the quality
+        ledger's pending-join ring when this sampler has one, only for
+        sampled SERVED requests.
         """
         if not trace_id:
             return ""
@@ -354,6 +371,12 @@ class ExemplarSampler:
             tracing.record_span(**batch)
         for payload in spans or ():
             tracing.record_span(**payload)
+        if self._quality is not None and outcome == "served" and predictions is not None:
+            try:
+                self._quality.note_prediction(trace_id, predictions, now=time.monotonic(),
+                                              features=features)
+            except Exception:
+                logger.exception("quality note_prediction failed (ignored)")
         return sampled_by
 
     # -- readouts -------------------------------------------------------

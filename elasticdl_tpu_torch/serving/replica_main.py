@@ -38,10 +38,19 @@ select their planes as in JAX (``replica_main.py:184-212,318-352``):
   over ``--slo_compliance_window_s``; a fired latency alert carries the
   slowest exemplars' trace ids.
 
-``--quality_join_window_s`` > 0 would enable the model-quality plane,
-which the port does not have yet: it raises ``NotImplementedError``
-(ROADMAP.md Queue 1 item 8).  ``serving/supervisor.py`` runs a fleet of
-these processes and replaces a dead one with a fresh id.
+- the model-quality plane (``obs/quality.py``), all or nothing on
+  ``--quality_join_window_s`` > 0: the sampler notes each sampled served
+  request in a ``QualityLedger`` that the frontend's ``labels`` request
+  joins, the joins fill the ``ReplayBuffer`` of the ``CanaryGate`` that
+  the ``DeltaWatcher`` runs every delta link through, and the batcher's
+  dispatch hook feeds the serve side of a ``DriftMonitor``.  The
+  telemetry loop journals the ``quality_window`` (and sets the
+  ``elasticdl_quality_*`` gauges) before the SLO tick, then evaluates
+  the drift; ``--quality_slo_logloss`` > 0 registers the
+  ``model_quality`` SLO over the logloss gauge.
+
+``serving/supervisor.py`` runs a fleet of these processes and replaces a
+dead one with a fresh id.
 """
 
 from __future__ import annotations
@@ -205,18 +214,7 @@ def parse_replica_args(argv=None) -> argparse.Namespace:
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         logger.warning("Ignoring unknown replica args: %s", unknown)
-    _refuse_unported_planes(args)
     return args
-
-
-def _refuse_unported_planes(args) -> None:
-    """``--quality_join_window_s`` would enable the model-quality plane,
-    which the port does not have yet: it raises instead of selecting
-    nothing."""
-    if args.quality_join_window_s > 0:
-        raise NotImplementedError(
-            "--quality_join_window_s: the model-quality plane is not ported (ROADMAP.md "
-            "Queue 1 item 8)")
 
 
 def _build_slo_plane(args):
@@ -226,6 +224,7 @@ def _build_slo_plane(args):
     from elasticdl_tpu_torch.obs.slo import (
         SLOPlane,
         freshness_slo,
+        quality_slo,
         serving_availability_slo,
         serving_latency_slo,
     )
@@ -239,14 +238,56 @@ def _build_slo_plane(args):
         specs.append(serving_latency_slo(args.slo_p99_ms, compliance_window_s=window_s))
     if args.freshness_slo_s > 0 and args.pub_dir:
         specs.append(freshness_slo(args.freshness_slo_s, compliance_window_s=window_s))
+    if args.quality_slo_logloss > 0 and args.quality_join_window_s > 0:
+        specs.append(quality_slo(args.quality_slo_logloss, compliance_window_s=window_s))
     return SLOPlane(specs=specs, origin=f"replica_{args.replica_id}")
 
 
+def _build_quality_plane(args):
+    """The model-quality plane (``obs/quality.py``), all or nothing on
+    ``--quality_join_window_s``: the label-join ledger feeding a replay
+    buffer, the drift monitor, and the canary gate the DeltaWatcher runs
+    every delta link through.  (quality, drift, gate), or three Nones
+    when disabled, so the rest of main() wires nothing."""
+    if args.quality_join_window_s <= 0:
+        return None, None, None
+    from elasticdl_tpu_torch.obs.quality import (
+        CanaryGate,
+        DriftMonitor,
+        QualityLedger,
+        ReplayBuffer,
+    )
+
+    origin = f"replica_{args.replica_id}"
+    replay = ReplayBuffer()
+    quality = QualityLedger(window_size=args.quality_window_size,
+                            join_window_s=args.quality_join_window_s, origin=origin,
+                            replay=replay)
+    drift = DriftMonitor(threshold=args.quality_drift_threshold, origin=origin)
+    gate = CanaryGate(replay, max_logloss_regress=args.quality_gate_max_logloss_regress,
+                      max_auc_drop=args.quality_gate_max_auc_drop,
+                      min_rows=args.quality_gate_min_rows,
+                      unknown_policy=args.quality_unknown_policy, force=args.quality_gate_force)
+    return quality, drift, gate
+
+
 def _telemetry_loop(stop: threading.Event, interval_s: float, replica, batcher,
-                    replica_id: int, slo_plane=None, sampler=None):
+                    replica_id: int, slo_plane=None, sampler=None, quality=None, drift=None):
     from elasticdl_tpu_torch.serving.ledger import ledger
 
     while not stop.wait(interval_s):
+        if quality is not None:
+            try:
+                # The window's gauges BEFORE the SLO tick samples the
+                # registry, so the quality SLO never scores stale data.
+                quality.journal_window(time.monotonic())
+            except Exception:
+                logger.exception("quality window journal failed")
+        if drift is not None:
+            try:
+                drift.evaluate(time.monotonic())
+            except Exception:
+                logger.exception("drift evaluation failed")
         if slo_plane is not None:
             try:
                 slo_plane.tick()
@@ -317,6 +358,7 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     replica = ServingReplica(args.model_dir, device=args.device)
+    quality, drift, gate = _build_quality_plane(args)
     book = ledger()
     batcher = MicroBatcher(
         replica.execute,
@@ -327,10 +369,12 @@ def main(argv=None) -> int:
         ),
         on_request=book.record_request,
         on_shed=book.record_shed,
+        on_batch=drift.observe_serve if drift is not None else None,
     ).start()
     sampler = ExemplarSampler(head_every=args.trace_head_every,
                               tail_threshold_ms=args.trace_tail_threshold_ms or args.slo_p99_ms,
-                              capacity=args.trace_exemplar_capacity, replica_id=args.replica_id)
+                              capacity=args.trace_exemplar_capacity, replica_id=args.replica_id,
+                              quality=quality)
     # Every resource below owns a daemon thread and/or a listening
     # socket; a failure anywhere between start() and the serve loop
     # (warmup decode, bind error, pub_dir scan) must still drain them
@@ -348,7 +392,8 @@ def main(argv=None) -> int:
             replica.warmup(example, batcher.buckets)
             logger.info("Warmed %d bucket shapes", len(batcher.buckets))
 
-        frontend = ServingFrontend(replica, batcher, port=args.port, sampler=sampler)
+        frontend = ServingFrontend(replica, batcher, port=args.port, sampler=sampler,
+                                   quality=quality)
         port = frontend.start()
         slo_plane = _build_slo_plane(args)
         # A latency page carries the slowest sampled trace ids.
@@ -382,7 +427,7 @@ def main(argv=None) -> int:
         telemetry = threading.Thread(
             target=_telemetry_loop,
             args=(stop, args.telemetry_interval_s, replica, batcher, args.replica_id,
-                  slo_plane, sampler),
+                  slo_plane, sampler, quality, drift),
             name="serving-telemetry",
             daemon=True,
         )
@@ -392,11 +437,11 @@ def main(argv=None) -> int:
             freshness = (FreshnessTracker(args.freshness_slo_s)
                          if args.freshness_slo_s > 0 else None)
             watcher = DeltaWatcher(
-                replica, args.pub_dir, freshness=freshness, buckets=batcher.buckets,
+                replica, args.pub_dir, freshness=freshness, gate=gate, buckets=batcher.buckets,
                 origin=f"replica_{args.replica_id}",
             ).start(args.pub_poll_interval_s)
-            logger.info("Tracking delta chain in %s every %.1fs", args.pub_dir,
-                        args.pub_poll_interval_s)
+            logger.info("Tracking delta chain in %s every %.1fs%s", args.pub_dir,
+                        args.pub_poll_interval_s, " (canary-gated)" if gate is not None else "")
 
         while not stop.wait(0.5):
             pass

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch import obs
+from elasticdl_tpu_torch.analysis.runtime import make_lock
 from elasticdl_tpu_torch.common import faults
 from elasticdl_tpu_torch.common.device import DeviceLike, resolve_device
 from elasticdl_tpu_torch.common.log_utils import get_logger
@@ -80,7 +81,7 @@ class Generation:
         self.model_dir = model_dir
         self.served = served
         self.event_time = float(event_time)
-        self._lock = threading.Lock()
+        self._lock = make_lock("Generation._lock")
         self._inflight = 0  # guarded-by: _lock
         self._idle = threading.Condition(self._lock)
 
@@ -131,7 +132,7 @@ class ServingReplica:
             device = self._mesh.device
         self._device = resolve_device(device)
         self._drain_timeout_s = drain_timeout_s
-        self._lock = threading.Lock()
+        self._lock = make_lock("ServingReplica._lock")
         self._next_gen_id = 1  # guarded-by: _lock
         self._executes = 0  # guarded-by: _lock
         self._generation = self._load_generation(model_dir)  # guarded-by: _lock

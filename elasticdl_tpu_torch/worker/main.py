@@ -40,6 +40,9 @@ name the process ``worker_<id>`` (``obs/tracing.set_process``), and the
 flight recorder flushes its open spans at exit.  ``--profile_steps``
 runs a ``common/profiler.StepProfiler`` over the task loop, writing
 under ``<tensorboard_log_dir>/profile/worker_<id>/``.
+``--quality_drift_bins`` > 0 (forwarded by the master) enables the
+process's train-side drift sketch (``obs/quality.enable_train_sketch``),
+which the Local worker's train batches feed.
 """
 
 from __future__ import annotations
@@ -84,6 +87,15 @@ def main(argv=None) -> int:
         from elasticdl_tpu_torch.parallel import packed
 
         packed.set_oov_debug(True)
+    if args.quality_drift_bins > 0:
+        # Train-side skew sketch (obs/quality.py): every train batch's
+        # integer feature ids fold into a process-local DriftMonitor
+        # (host-side numpy, O(bins) memory).
+        from elasticdl_tpu_torch.obs import quality
+
+        quality.enable_train_sketch(quality.DriftMonitor(
+            threshold=args.quality_drift_threshold, bins=args.quality_drift_bins,
+            origin=f"worker_{args.worker_id}"))
     obs.journal().record("worker_start", worker_id=args.worker_id, pid=os.getpid(),
                          device=args.device)
     from elasticdl_tpu_torch.common.model_utils import load_model_spec

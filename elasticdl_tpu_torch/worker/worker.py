@@ -42,8 +42,10 @@ heartbeat to carry it.  With a ``profiler``
 is bracketed by ``before_steps`` / ``after_steps``, and ``run`` stops it
 on the way out, so an aborting worker still writes its trace.  Each task
 runs in a ``worker.task`` span under its trace id (``obs/tracing.py``).
-The JAX worker's quality hooks wait with the quality plane
-(``common.args.OBS_ITEM``).
+Each train batch goes to the quality plane's train-side drift sketch
+(``obs/quality.note_train_batch``) as the host arrays it arrived as,
+before staging, so the sketch never reads a device tensor; the hook is
+free until ``--quality_drift_bins`` enables a monitor.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ from elasticdl_tpu_torch.common.model_utils import ModelSpec
 from elasticdl_tpu_torch.data.columnar import materialize_for_worker
 from elasticdl_tpu_torch.data.pipeline import PipelineConfig, Prefetcher
 from elasticdl_tpu_torch.data.task_data_service import TaskDataService
-from elasticdl_tpu_torch.obs import goodput, stepstats
+from elasticdl_tpu_torch.obs import goodput, quality, stepstats
 from elasticdl_tpu_torch.worker.collective_worker import EvalReports, named_arrays
 from elasticdl_tpu_torch.worker.trainer import Trainer
 
@@ -266,6 +268,8 @@ class Worker:
             spec = faults.fire("worker.step")
             if spec is not None and spec.kind == "crash":
                 faults.crash_now(spec)
+            # Host arrays, before staging: never a device read.
+            quality.note_train_batch(features)
             t0 = time.monotonic()
             with self._anat_phase("stage"):
                 staged = self._trainer.stage_batch(features, labels)

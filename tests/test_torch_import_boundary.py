@@ -159,6 +159,10 @@ def test_port_sources_import_nothing_forbidden():
             "elasticdl_tpu_torch.obs.top",
             "elasticdl_tpu_torch.master.tensorboard_service",
             "elasticdl_tpu_torch.common.profiler"} <= names
+    # So are the lock checker and the quality plane's label feed.
+    assert {"elasticdl_tpu_torch.analysis",
+            "elasticdl_tpu_torch.analysis.runtime",
+            "elasticdl_tpu_torch.bench.loadgen"} <= names
 
 
 _SUBPROCESS = r"""
@@ -225,6 +229,8 @@ def test_replica_main_import_closure_holds_no_jax_or_grpc():
         "from elasticdl_tpu_torch.serving.frontend import ServingFrontend\n"
         "from elasticdl_tpu_torch.serving.ledger import ledger\n"
         "from elasticdl_tpu_torch.serving.runtime import ServingReplica\n"
+        "from elasticdl_tpu_torch.obs.quality import QualityLedger\n"
+        "from elasticdl_tpu_torch.bench.loadgen import run_label_feed\n"
         "print('LOADED', replica_main._loaded_forbidden())\n"
         "print('ALL', sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'grpc', 'flax', 'optax', 'elasticdl_tpu', 'model_zoo')))\n"

@@ -258,8 +258,18 @@ def test_replica_flags_match_jax_and_unported_planes_raise(monkeypatch, tmp_path
     got = vars(replica_main.parse_replica_args(argv))
     assert {k: got[k] for k in want} == want
     assert got["device"] == "cuda"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        replica_main.parse_replica_args(argv + ["--quality_join_window_s", "0.5"])
+    # The quality plane is ported: its flags parse, select the plane, and
+    # add the model_quality SLO.
+    args = replica_main.parse_replica_args(argv + ["--quality_join_window_s", "0.5",
+                                                   "--quality_slo_logloss", "0.7"])
+    assert (args.quality_join_window_s, args.quality_slo_logloss) == (0.5, 0.7)
+    quality_plane = replica_main._build_quality_plane(args)
+    assert [type(p).__name__ for p in quality_plane] == ["QualityLedger", "DriftMonitor",
+                                                        "CanaryGate"]
+    assert [s.name for s in replica_main._build_slo_plane(args).slos.specs()] == [
+        "model_quality"]
+    assert replica_main._build_quality_plane(
+        replica_main.parse_replica_args(argv)) == (None, None, None)
     # The SLO and tracing flags select their planes.
     args = replica_main.parse_replica_args(argv + [
         "--slo_p99_ms", "0.5", "--slo_availability_target", "0.5", "--trace_head_every", "4",

@@ -61,6 +61,16 @@ def test_replica_argv_matches_jax(kwargs):
     assert supervisor.replica_argv_fn("/m", "/s", **kwargs)(7) == want + ["--device", "cuda"]
     assert supervisor.replica_argv_fn("/m", "/s", device="cpu", **kwargs)(3)[-2:] == [
         "--device", "cpu"]
+    # The replica parses what the supervisor sends; armed, it builds the
+    # quality plane with the supervisor's gate settings.
+    from elasticdl_tpu_torch.serving import replica_main
+
+    args = replica_main.parse_replica_args(supervisor.replica_argv_fn("/m", "/s", **kwargs)(7)[3:])
+    _ledger, _drift, gate = replica_main._build_quality_plane(args)
+    if kwargs.get("quality_join_window_s"):
+        assert (gate._force, gate._unknown_policy) == (True, "closed")
+    else:
+        assert gate is None
 
 
 # -- the churn handler on a fake substrate -------------------------------------

@@ -381,19 +381,24 @@ def test_parsers_keep_every_jax_flag_and_default():
         jax_p, port_p = getattr(jax_args, build)(), getattr(port_args, build)()
         jax_flags = {a.dest: a.default for a in jax_p._actions if a.dest != "help"}
         port_flags = {a.dest: a.default for a in port_p._actions if a.dest != "help"}
-        assert set(port_flags) - set(jax_flags) == {"device"}
+        # The worker also takes the drift sketch's flags, which JAX's
+        # worker parser lacks: the master forwards them.
+        extra = {"device"} | ({"quality_drift_bins", "quality_drift_threshold"}
+                              if build == "build_worker_parser" else set())
+        assert set(port_flags) - set(jax_flags) == extra
         assert set(jax_flags) <= set(port_flags)
         assert {k: port_flags[k] for k in jax_flags} == jax_flags
         assert port_flags["device"] == "cuda"
     required = ["--model_zoo", "model_zoo", "--model_def", "deepfm.deepfm_functional_api"]
-    # The observability planes are ported; the quality plane's flag raises.
+    # The observability planes are ported, the quality plane's flags too.
     args = port_args.parse_master_args(required + [
         "--profile_steps", "1,2", "--tensorboard_log_dir", "/tmp/tb",
         "--slo_goodput_target", "0.9"])
     assert (args.profile_steps, args.tensorboard_log_dir, args.slo_goodput_target) == (
         "1,2", "/tmp/tb", 0.9)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
-        port_args.parse_master_args(required + ["--quality_drift_bins", "8"])
+    args = port_args.parse_master_args(required + ["--quality_drift_bins", "8",
+                                                   "--quality_drift_threshold", "0.4"])
+    assert (args.quality_drift_bins, args.quality_drift_threshold) == (8, 0.4)
     # The evaluation flags and jobs are ported.
     for job_type in ("evaluation_only", "prediction_only", "training_only"):
         args = port_args.parse_master_args(required + [
