@@ -492,6 +492,26 @@ The model-quality plane (``obs/quality.py``, the ``labels`` request,
     (``/stats``).  Printed: requests/s, p99, the joined share and the
     gate's shadow-evaluation seconds beside phase 39's.
 
+The static analyzer (``analysis/``) against what the card sees:
+
+42. ``python -m elasticdl_tpu_torch.analysis elasticdl_tpu_torch
+    --format json`` in a subprocess: exit 0, every .py file of the port
+    and all 15 rules scanned, zero findings; the per-rule findings and
+    suppressions and the scan's seconds printed.  Then, under
+    ``torch.cuda.set_sync_debug_mode("warn")`` with every warning kept,
+    a census of the synchronising calls: a positive control first (a
+    ``# hot-path`` function of this script reading a CUDA tensor with
+    ``.item()``, which the census and ``jit-host-sync`` must both see),
+    then 3 strict DeepFM steps at phase 6's configuration (K1, K3), 3
+    merged-layout dispatches of 64 rows at phase 3's configuration (K1)
+    and 2 LM steps at ``LM_BENCH`` (K4-K6), each after one step outside
+    the census; a training step is ``stage_batch`` then
+    ``train_step_staged``, as the worker's loop runs it.  Each sync's innermost frame in the port is mapped to its
+    enclosing function with the analyzer's function index; printed per
+    path: syncs per step and each site, inside a hot function or
+    outside.  Gate: every sync inside a function the analyzer marks hot
+    is a ``jit-host-sync`` finding or carries its ``noqa-invariant``.
+
 Before each of phases 21-23 the free space of its directory is checked
 (a failure names the bytes needed); each deletes its directories.
 
@@ -8067,6 +8087,309 @@ def flash_entries(attention, edges, train, card, resources=None, resumed=None, h
     return line
 
 
+# ----------------------------------------------------------------------
+# phase 42: the port's static analyzer on the card, and the host-sync
+# census of the main paths held against its jit-host-sync rule
+# ----------------------------------------------------------------------
+
+#: The analyzer's rules: 6 control-plane, 3 protocol, 6 hot-path.
+ANALYZER_RULES = 15
+#: What ``torch.cuda.set_sync_debug_mode("warn")`` warns with.
+SYNC_WARNING = "called a synchronizing CUDA operation"
+#: Steps (dispatches) each path runs under the census.
+CENSUS_STEPS = {"deepfm_strict": 3, "serve_merged": 3, "lm": 2}
+
+
+def census_control(x):  # hot-path
+    """Phase 42's positive control: a hot step that reads a CUDA tensor
+    on the host, which the census and ``jit-host-sync`` must both see."""
+    return x.sum().item()
+
+
+def port_py_files(pkg: str) -> int:
+    """The .py files under ``pkg``, counted by walking it (the count the
+    analyzer's scan must report)."""
+    count = 0
+    for _root, dirs, names in os.walk(pkg):
+        dirs[:] = [d for d in dirs if d not in ("__pycache__", ".git")]
+        count += sum(1 for name in names if name.endswith(".py"))
+    return count
+
+
+def analyzer_scan(card: str) -> dict:
+    """``python -m elasticdl_tpu_torch.analysis elasticdl_tpu_torch
+    --format json`` as on the CPU: exit 0, every .py file of the port,
+    all 15 rules, zero findings."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "elasticdl_tpu_torch.analysis", "elasticdl_tpu_torch",
+         "--format", "json"], cwd=here, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"the port's analyzer exited {proc.returncode} over its own tree:\n"
+             f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    data = json.loads(proc.stdout)
+    files = port_py_files(os.path.join(here, "elasticdl_tpu_torch"))
+    if data["files_scanned"] != files or len(data["rules"]) != ANALYZER_RULES:
+        fail(f"the analyzer scanned {data['files_scanned']} files with {len(data['rules'])} "
+             f"rules; the tree has {files} .py files and the analyzer {ANALYZER_RULES} rules")
+    if data["findings"]:
+        fail(f"the analyzer reported {len(data['findings'])} findings: {data['findings'][:5]}")
+    out = {"seconds": seconds, "files": data["files_scanned"], "rules": len(data["rules"]),
+           "findings_by_rule": {rule: 0 for rule in data["rules"]},
+           "suppressed_by_rule": data["suppressed_by_rule"],
+           "suppressed": data["suppressed"], "timing_s": sum(data["timing"].values()),
+           "graph": data["graph"]}
+    log(f"analyzer: python -m elasticdl_tpu_torch.analysis over {out['files']} files, "
+        f"{out['rules']} rules: exit 0, 0 findings; suppressed by rule "
+        f"{out['suppressed_by_rule']}; {seconds!r} s of command time "
+        f"({out['timing_s']!r} s in the index and rules) [{card}]")
+    return out
+
+
+class SyncCensus:
+    """Every synchronising CUDA call while ``watching``: the warning
+    ``torch.cuda.set_sync_debug_mode("warn")`` raises, at the innermost
+    frame of the port (or of this script), mapped to its enclosing
+    function with the analyzer's function index."""
+
+    def __init__(self):
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.here = here
+        self.script = os.path.abspath(__file__)
+        self.port = os.path.join(here, "elasticdl_tpu_torch") + os.sep
+        self.records = []  # (path relative to the checkout, line)
+
+    @contextlib.contextmanager
+    def watching(self):
+        import warnings
+
+        import torch
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = self._show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+    def _show(self, message, category, filename, lineno, file=None, line=None):
+        import traceback
+
+        if SYNC_WARNING not in str(message):
+            return
+        site = None
+        for frame in reversed(traceback.extract_stack()[:-1]):
+            path = os.path.abspath(frame.filename)
+            if path.startswith(self.port) or path == self.script:
+                site = (os.path.relpath(path, self.here), frame.lineno)
+                break
+        self.records.append(site or (filename, lineno))
+
+    def take(self) -> list:
+        records, self.records = self.records, []
+        return records
+
+
+def analyzer_index(paths):
+    """The analyzer's view of ``paths``: each file's function index with
+    the whole-program hot-ness, and the lines ``jit-host-sync`` reports
+    or that carry its ``noqa-invariant``."""
+    from elasticdl_tpu_torch.analysis.core import SourceFile, discover_files
+    from elasticdl_tpu_torch.analysis.program import build_program_index
+    from elasticdl_tpu_torch.analysis.torch_rules import check_jit_host_sync
+
+    sources = {path: SourceFile.parse(path) for path in discover_files(paths)}
+    build_program_index(list(sources.values()))
+    covered = set()
+    for path, source in sources.items():
+        covered.update((path, v.line) for v in check_jit_host_sync(source))
+        covered.update((path, line) for line, rules in source.noqa.items()
+                       if "jit-host-sync" in rules and line not in source.noqa_without_reason)
+    return sources, covered
+
+
+def census_sites(records, sources, covered, steps: int) -> dict:
+    """Group ``records`` by site: count, enclosing function, hot or not,
+    and whether the static rule covers it."""
+    from elasticdl_tpu_torch.analysis.traced import traced_index
+
+    sites = {}
+    for path, line in records:
+        entry = sites.setdefault((path, line), {"site": f"{path}:{line}", "count": 0})
+        entry["count"] += 1
+    out = []
+    for (path, line), entry in sorted(sites.items()):
+        source = sources.get(path)
+        info = traced_index(source).function_at(line) if source is not None else None
+        hot = bool(info) and info.qualname in traced_index(source).traced
+        entry.update(function=info.qualname if info else None, hot=hot,
+                     covered=(path, line) in covered)
+        out.append(entry)
+    hot = sum(entry["count"] for entry in out if entry["hot"])
+    return {"steps": steps, "syncs": len(records), "syncs_per_step": len(records) / steps,
+            "hot_syncs_per_step": hot / steps,
+            "outside_syncs_per_step": (len(records) - hot) / steps, "sites": out}
+
+
+def analyzer_census_phase(card: str, seed: int) -> dict:
+    """Phase 42: the analyzer's gate on the card, then the census of
+    host syncs on three main paths (a positive control first); every sync
+    in a function the analyzer marks hot must be a jit-host-sync finding
+    or carry its noqa-invariant."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.analysis.core import SourceFile
+    from elasticdl_tpu_torch.analysis.torch_rules import check_jit_host_sync
+    from elasticdl_tpu_torch.data.synthetic import synthetic_ctr_arrays, synthetic_lm_arrays
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+    from elasticdl_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+    from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer
+    from elasticdl_tpu_torch.serving.export import export_model
+    from elasticdl_tpu_torch.serving.runtime import ServingReplica
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    start = time.perf_counter()
+    out = {"scan": analyzer_scan(card)}
+    census = SyncCensus()
+    here = census.here
+    t0 = time.perf_counter()
+    sources, covered = analyzer_index([os.path.join(here, "elasticdl_tpu_torch")])
+    sources = {os.path.relpath(path, here): src for path, src in sources.items()}
+    covered = {(os.path.relpath(path, here), line) for path, line in covered}
+    script = os.path.relpath(census.script, here)
+    sources[script] = SourceFile.parse(census.script)
+    control_lines = {v.line for v in check_jit_host_sync(sources[script])
+                     if "census_control" in v.message}
+    covered |= {(script, line) for line in control_lines}
+    out["index_s"] = time.perf_counter() - t0
+    dev = card_device()
+
+    # the positive control: one .item() on a CUDA tensor in a hot step
+    with census.watching():
+        census_control(torch.ones(4, device=dev))
+    control = census_sites(census.take(), sources, covered, 1)
+    seen = [s for s in control["sites"] if s["function"] == "census_control"]
+    if not seen or not seen[0]["hot"] or not control_lines or not seen[0]["covered"]:
+        fail(f"positive control: census {control['sites']}, jit-host-sync lines "
+             f"{sorted(control_lines)}: the census or the rule missed census_control's .item()")
+    out["control"] = control
+    log(f"positive control: census_control's .item() on a CUDA tensor seen by the census at "
+        f"{seen[0]['site']} (hot) and reported there by jit-host-sync [{card}]")
+
+    paths = {}
+    # 3 strict DeepFM steps at training_phases' configuration (K1, K3)
+    zoo = resolve(MODEL_DEF)
+    model = build_model(MODEL_DEF, TRAIN_PARAMS)
+    trainer = ShardedEmbeddingTrainer(model, zoo.loss, zoo.optimizer(),
+                                      embedding_optimizer=zoo.embedding_optimizer(), seed=seed)
+    trainer.ensure_initialized()
+    n = CENSUS_STEPS["deepfm_strict"] + 1
+    feats, labels = synthetic_ctr_arrays(TRAIN_BATCH * n, vocab_size=1_000_000, seed=seed)
+    batches = [({k: v[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH] for k, v in feats.items()},
+                labels[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                np.ones((TRAIN_BATCH,), np.float32)) for i in range(n)]
+    # A step as the worker's loop runs it: stage the batch, then the step.
+    trainer.train_step_staged(trainer.stage_batch(*batches[0]))  # first use, outside
+    torch.cuda.synchronize()
+    ske.reset_launch_counts()
+    with census.watching():
+        losses = [trainer.train_step_staged(trainer.stage_batch(*batch))
+                  for batch in batches[1:]]
+    counts = ske.launch_counts()
+    torch.cuda.synchronize()
+    steps = CENSUS_STEPS["deepfm_strict"]
+    if counts["fused_lookup_fm"] != steps or counts["fused_dedup_apply"] != steps:
+        fail(f"census: {steps} DeepFM steps launched {counts}")
+    if not bool(torch.isfinite(torch.stack(losses)).all()):
+        fail("census: non-finite DeepFM loss")
+    paths["deepfm_strict"] = dict(census_sites(census.take(), sources, covered, steps),
+                                  launches=counts)
+
+    # 3 merged-layout dispatches at serving_phases' configuration (K1)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_census_")
+    try:
+        artifact = export_model(trainer, os.path.join(workdir, "merged"), model_zoo="model_zoo",
+                                model_def=MODEL_DEF, model_params=TRAIN_PARAMS)
+        del trainer, model
+        torch.cuda.empty_cache()
+        replica = ServingReplica(artifact)
+        request = make_requests(np.random.default_rng(seed), 1_000_000, 1, 64)[0]
+        replica.execute(request, 64)  # first use, outside the census
+        torch.cuda.synchronize()
+        ske.reset_launch_counts()
+        with census.watching():
+            served = [replica.execute(request, 64) for _ in range(CENSUS_STEPS["serve_merged"])]
+        counts = ske.launch_counts()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    steps = CENSUS_STEPS["serve_merged"]
+    if counts["fused_lookup_fm"] != steps:
+        fail(f"census: {steps} dispatches launched {counts}")
+    if any(r.shape != (64,) or not np.all(np.isfinite(r)) for r in served):
+        fail("census: a dispatch returned a wrong shape or non-finite logits")
+    paths["serve_merged"] = dict(census_sites(census.take(), sources, covered, steps),
+                                 launches=counts)
+    del replica
+    torch.cuda.empty_cache()
+
+    # 2 LM steps at LM_BENCH as lm_training_phases runs them (K4-K6)
+    cfg = LM_BENCH
+    lm_zoo = resolve(LM_DEF)
+    lm = build_model(LM_DEF, dict(vocab=cfg["vocab"], d_model=cfg["d_model"],
+                                  num_heads=cfg["num_heads"], num_layers=cfg["num_layers"],
+                                  max_len=cfg["seq_len"]))
+    lm_trainer = DataParallelTrainer(lm, lm_zoo.loss, lm_zoo.optimizer(LM_LR), seed=seed)
+    lm_trainer.ensure_initialized()
+    n = CENSUS_STEPS["lm"] + 1
+    tokens, nxt = synthetic_lm_arrays(LM_BATCH * n, cfg["seq_len"], cfg["vocab"], seed)
+    ones = np.ones((LM_BATCH,), np.float32)
+    batches = [(tokens[i * LM_BATCH:(i + 1) * LM_BATCH], nxt[i * LM_BATCH:(i + 1) * LM_BATCH],
+                ones) for i in range(n)]
+    lm_trainer.train_step_staged(lm_trainer.stage_batch(*batches[0]))  # first use, outside
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    with census.watching():
+        losses = [lm_trainer.train_step_staged(lm_trainer.stage_batch(*batch))
+                  for batch in batches[1:]]
+    counts = fa.launch_counts()
+    torch.cuda.synchronize()
+    steps = CENSUS_STEPS["lm"]
+    if any(counts[name] != cfg["num_layers"] * steps for name in fa.KERNELS):
+        fail(f"census: {steps} LM steps launched {counts}")
+    if not bool(torch.isfinite(torch.stack(losses)).all()):
+        fail("census: non-finite LM loss")
+    paths["lm"] = dict(census_sites(census.take(), sources, covered, steps), launches=counts)
+    del lm_trainer, lm
+    torch.cuda.empty_cache()
+
+    missed = [(name, site) for name, path in paths.items() for site in path["sites"]
+              if site["hot"] and not site["covered"]]
+    for name, path in paths.items():
+        log(f"sync census, {name}: {path['syncs']} syncs in {path['steps']} steps "
+            f"({path['syncs_per_step']!r} a step: {path['hot_syncs_per_step']!r} inside hot "
+            f"functions, {path['outside_syncs_per_step']!r} outside), launches "
+            f"{path['launches']} [{card}]")
+        for site in path["sites"]:
+            where = "hot" if site["hot"] else "outside hot"
+            rule = ("jit-host-sync covers it" if site["covered"]
+                    else "NOT covered by jit-host-sync" if site["hot"] else "")
+            log(f"  {site['site']} in {site['function']} ({where}): {site['count']}x"
+                + (f"; {rule}" if rule else ""))
+    if missed:
+        fail(f"syncs inside hot functions that jit-host-sync misses: {missed}")
+    out["paths"] = paths
+    out["seconds"] = time.perf_counter() - start
+    log(f"phase 42: analyzer and census in {out['seconds']!r} s (index {out['index_s']!r} s) "
+        f"[{card}]")
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -8205,6 +8528,7 @@ def main() -> None:
     ring_kernels = ring_kernel_phase(card, args.seed) if run(13) else None
     ring_whole = ring_whole_phase(card, args.seed) if run(14) else None
     cp = cp_lm_phases(card, args.seed) if run(15, 16) else None
+    analyzer = analyzer_census_phase(card, args.seed) if run(42) else None
     if wanted:
         log(json.dumps({"phases": sorted(wanted), "attention": attention,
                         "attention_edges": edges, "lm_training": lm,
@@ -8220,7 +8544,7 @@ def main() -> None:
                         "stream_loop": stream_loop, "engines": engines,
                         "observed_job": observed, "traced_replica": traced,
                         "quality_gate": quality_gate, "quality_replica": quality_process,
-                        "card": card}))
+                        "analyzer_census": analyzer, "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -8237,7 +8561,7 @@ def main() -> None:
                     "lm_bf16_head": lm_heads, "stream_loop": stream_loop, "engines": engines,
                     "observed_job": observed, "traced_replica": traced,
                     "quality_gate": quality_gate, "quality_replica": quality_process,
-                    "card": card}))
+                    "analyzer_census": analyzer, "card": card}))
 
     quality_steps = sum(n for n, _ in quality_gate["train_launches"])
     quality_trained = {name: sum(c[name] for _, c in quality_gate["train_launches"])

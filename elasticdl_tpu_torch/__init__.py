@@ -20,7 +20,13 @@ its experiment script ``bench.exp_sparse_gather``; and checkpoints in
 the JAX package's layout (``checkpoint``: plain, sharded and the delta
 chain, which the serving replica applies); the preprocessing layers
 (``preprocessing``) and the CTR zoo they feed (census, wide_and_deep),
-and the supervised fleet of replica processes (``serving.supervisor``).
+and the supervised fleet of replica processes (``serving.supervisor``);
+the static analyzer over the port, ``python -m elasticdl_tpu_torch.
+analysis`` (the JAX package's 15 rules: control-plane, protocol over a
+cross-module index, and hot-path over the functions that run on the
+device step — ``nn.Module.forward``, ``autograd.Function`` and the steps
+marked ``# hot-path``), with the port's journal registry
+``analysis.journal_schema``.
 """
 
 __version__ = "0.1.0"

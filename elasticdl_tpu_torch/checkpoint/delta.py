@@ -179,8 +179,9 @@ class DeltaExporter:
             return final_dir
         os.rename(tmp_dir, final_dir)
         self._deltas_since_full = 0
-        self._note_saved(start, "serving_full", "checkpoint_saved", step=step,
-                         kind="serving_full", event_time=float(event_time))
+        self._note_saved(start, "serving_full")
+        obs.journal().record("checkpoint_saved", step=step, kind="serving_full",
+                             event_time=float(event_time))
         logger.info("Published full serving artifact at step %d -> %s", step, final_dir)
         self._garbage_collect()
         return final_dir
@@ -252,8 +253,10 @@ class DeltaExporter:
         self._head_dense = dense_bytes
         self._head_event_time = float(event_time)
         self._deltas_since_full += 1
-        self._note_saved(start, "delta", "delta_checkpoint", step=step, base_step=base_step,
-                         rows=total_rows, tables=len(tables_meta), event_time=float(event_time))
+        self._note_saved(start, "delta")
+        obs.journal().record("delta_checkpoint", step=step, base_step=base_step,
+                             rows=total_rows, tables=len(tables_meta),
+                             event_time=float(event_time))
         logger.info("Published delta %d -> %d (%d changed blocks) -> %s",
                     base_step, step, total_rows, final_dir)
         return final_dir
@@ -283,18 +286,19 @@ class DeltaExporter:
         write_integrity_manifest(tmp_dir, files)
         os.rename(tmp_dir, final_dir)
         folded, self._deltas_since_full = self._deltas_since_full, 0
-        self._note_saved(start, "serving_full", "delta_compaction", step=step,
-                         deltas_folded=folded, event_time=self._head_event_time)
+        self._note_saved(start, "serving_full")
+        obs.journal().record("delta_compaction", step=step, deltas_folded=folded,
+                             event_time=self._head_event_time)
         logger.info("Compacted %d delta(s) into full artifact at step %d", folded, step)
         self._garbage_collect()
         return final_dir
 
     @staticmethod
-    def _note_saved(start: float, metric_kind: str, event: str, **fields) -> None:
+    def _note_saved(start: float, metric_kind: str) -> None:
+        """The save's metrics; each caller journals its event after."""
         save_hist, _restore, saves, _quarantines = _ckpt_metrics()
         save_hist.observe(time.monotonic() - start, kind=metric_kind)
         saves.inc(kind=metric_kind)
-        obs.journal().record(event, **fields)
 
     def _garbage_collect(self) -> None:
         """Drop fulls beyond ``keep_fulls`` and deltas wholly covered by

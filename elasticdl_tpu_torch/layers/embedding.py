@@ -165,12 +165,12 @@ class Embedding(nn.Module):
         valid = (ids >= 0) & (ids < spec.vocab_size)
         safe_ids = torch.where(valid, ids, torch.zeros_like(ids))
         if oov_debug_enabled():
-            oov = int(torch.sum(ids >= spec.vocab_size))
-            if oov:
+            oov_ids = int(torch.sum(ids >= spec.vocab_size))  # noqa-invariant: jit-host-sync (the OOV diagnostics an operator turns on: off by default, it reads the count every step on purpose)
+            if oov_ids:
                 logger.warning(
                     "OOV diagnostics [%s]: %d ids >= vocab_size (%d) this step; they read "
                     "zeros and receive no update: hash open-vocabulary ids into fixed bins",
-                    self.extra_repr(), oov, spec.vocab_size)
+                    self.extra_repr(), oov_ids, spec.vocab_size)
         bet = None
         cap = active_capture()
         if cap is not None:

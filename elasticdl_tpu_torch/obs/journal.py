@@ -71,7 +71,7 @@ class EventJournal:
             if path is None:
                 return None
             try:
-                self._file = open(path, "a", encoding="utf-8")
+                self._file = open(path, "a", encoding="utf-8")  # noqa-invariant: blocking-under-lock (the lock exists to serialize handle swaps; configure() is a rare admin call, not a hot path)
                 self._size = os.path.getsize(path)
             except OSError:
                 logger.exception(
@@ -111,7 +111,7 @@ class EventJournal:
                 # multi-byte text must count at its encoded width.
                 nbytes = len(line.encode("utf-8"))
                 if self._size + nbytes > self._max_bytes:
-                    self._rotate_locked()
+                    self._rotate_locked()  # noqa-invariant: blocking-under-lock (rotation must be atomic with the append; the journal lock IS the file-write serializer, not a control-plane lock)
                 self._file.write(line)
                 self._file.flush()
                 self._size += nbytes
@@ -132,7 +132,7 @@ class EventJournal:
         self._file.close()
         self._file = None
         os.replace(self._path, self._path + ROTATED_SUFFIX)
-        self._file = open(self._path, "a", encoding="utf-8")
+        self._file = open(self._path, "a", encoding="utf-8")  # noqa-invariant: blocking-under-lock (the reopen is the rotation critical section; dropping the lock here would tear the replace/reopen pair)
         self._size = 0
 
     def tail(self, n: int = 50) -> List[dict]:
@@ -146,13 +146,13 @@ class EventJournal:
         with self._lock:
             if self._file is None or len(self._tail) >= n:
                 return list(self._tail)[-n:]
-            return self._tail_from_disk_locked(n)
+            return self._tail_from_disk_locked(n)  # noqa-invariant: blocking-under-lock (deliberate: the read must not race _rotate_locked's os.replace — see the docstring above)
 
     def _tail_from_disk_locked(self, n: int) -> List[dict]:
         self._file.flush()
-        lines = self._read_tail_lines(self._path, n)
+        lines = self._read_tail_lines(self._path, n)  # noqa-invariant: blocking-under-lock (bounded tail read, serialized against rotation by design)
         if len(lines) < n:
-            rotated = self._read_tail_lines(
+            rotated = self._read_tail_lines(  # noqa-invariant: blocking-under-lock (bounded tail read, serialized against rotation by design)
                 self._path + ROTATED_SUFFIX, n - len(lines)
             )
             lines = rotated + lines

@@ -99,7 +99,7 @@ def reset_launch_counts() -> None:
 
 
 def _count_launch(name: str) -> None:
-    with _launch_lock:
+    with _launch_lock:  # noqa-invariant: trace-purity (the launch counter chip_smoke.py reads: an uncontended lock around one integer add, after the launch is queued)
         _launches[name] += 1
 
 
@@ -472,7 +472,7 @@ def _check_ring(q, k_blk, v_blk) -> None:
 
 def _positions(pos, n: int, device: torch.device, name: str) -> torch.Tensor:
     """Global positions as a contiguous int32 ``[n]`` tensor on ``device``."""
-    pos = pos if isinstance(pos, torch.Tensor) else torch.from_numpy(np.array(pos))
+    pos = pos if isinstance(pos, torch.Tensor) else torch.from_numpy(np.array(pos))  # noqa-invariant: jit-host-sync (the host branch: pos is a numpy or list position table here, never a tensor)
     if tuple(pos.shape) != (n,):
         raise ValueError(f"{name} must be [{n}], got {tuple(pos.shape)}")
     return pos.to(device=device, dtype=torch.int32).contiguous()

@@ -49,7 +49,7 @@ class CollectiveCommunicator:
             device = (torch.device("cuda", torch.cuda.current_device())
                       if dist.get_backend() == "nccl" else torch.device("cpu"))
             tensor = torch.as_tensor(np.asarray(data)).to(device)
-            dist.broadcast(tensor, src=root)
+            dist.broadcast(tensor, src=root, group=dist.group.WORLD)
             return CollectiveResult.SUCCEEDED, tensor.cpu().numpy()
         except Exception as exc:  # a peer's failure -> a status, not a crash
             logger.error("broadcast failed: %s", exc)

@@ -319,9 +319,9 @@ class DataParallelTrainer:
         tensors = list(tensors)
         flat = torch.cat([t.reshape(-1) for t in tensors])
         if broadcast:
-            dist.broadcast(flat, src=0)
+            dist.broadcast(flat, src=0, group=dist.group.WORLD)
         else:
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=dist.group.WORLD)
         offset = 0
         for t in tensors:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
@@ -378,7 +378,7 @@ class DataParallelTrainer:
         self.ensure_initialized(features)
         return self.train_step_staged(self.stage_batch(features, labels, mask))
 
-    def train_step_staged(self, staged):
+    def train_step_staged(self, staged):  # hot-path
         if self._opt_state is None:
             raise RuntimeError("train_step_staged requires ensure_initialized() first")
         loss = self.forward(*staged)
@@ -387,7 +387,7 @@ class DataParallelTrainer:
         loss = loss.detach()
         if self._world:  # the global loss: every rank's share, summed
             loss = loss.clone()
-            dist.all_reduce(loss)
+            dist.all_reduce(loss, group=dist.group.WORLD)
         return loss
 
     def stage_window(self, batches):
@@ -404,6 +404,10 @@ class DataParallelTrainer:
         """Run every batch of a staged window; returns the ``[K]`` losses."""
         if self._opt_state is None:
             self.ensure_initialized()
+        return self._train_window(window)
+
+    def _train_window(self, window) -> torch.Tensor:  # hot-path
+        """The window step's device part (JAX ``_train_window_impl``)."""
         if self._world:
             return torch.stack([self.train_step_staged(staged) for staged in window])
         feats, labels, masks = window
@@ -422,10 +426,18 @@ class DataParallelTrainer:
         try:
             if self._world:
                 return self._eval_world(features)
-            out = model_apply(self._model, to_device(features, self.device), train=False)
+            out = self._eval_outputs(to_device(features, self.device))
         finally:
             self._model.train()
         return out.cpu().numpy()
+
+    def _eval_outputs(self, features, positions=None) -> torch.Tensor:  # hot-path
+        """The eval step's device part (JAX ``_eval_step_impl``): the
+        model's outputs on staged ``features`` (at ``positions`` on a
+        context-parallel mesh)."""
+        if positions is None:
+            return model_apply(self._model, features, train=False)
+        return self._model(features, positions=positions)
 
     def eval_step_local(self, features) -> np.ndarray:
         """JAX ``dp_trainer.py:417``: the outputs of every row of the
@@ -437,10 +449,10 @@ class DataParallelTrainer:
         feats, _, _, positions, _, _ = self._local_batch(features, None, np.ones(n))
         feats = to_device(feats, self.device)
         if positions is None:
-            out = model_apply(self._model, feats, train=False)
+            out = self._eval_outputs(feats)
             seq_len = out.shape[1]  # every rank holds whole rows
         else:
-            out = self._model(feats, positions=to_device(positions, self.device))
+            out = self._eval_outputs(feats, to_device(positions, self.device))
             seq_len = _seq_len(features)
         full = self._mesh.gather_sequence(
             out, seq_len, lambda index: self._sequence_positions(seq_len, index))

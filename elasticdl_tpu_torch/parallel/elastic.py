@@ -221,7 +221,7 @@ def broadcast_task(task: Optional[msg.Task], shard_names: List[str], world: Worl
     device = (torch.device("cuda", torch.cuda.current_device())
               if dist.get_backend() == "nccl" else torch.device("cpu"))
     encoded = torch.from_numpy(_encode_task(task, shard_names)).to(device)
-    dist.broadcast(encoded, src=0)
+    dist.broadcast(encoded, src=0, group=dist.group.WORLD)
     if world.is_leader and task is not None:
         return task
     decoded = _decode_task(encoded.cpu().numpy(), shard_names)

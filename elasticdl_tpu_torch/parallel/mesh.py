@@ -142,7 +142,7 @@ class Mesh:
         full = torch.empty((rows * self.shape[DATA_AXIS], seq_len) + tuple(part.shape[2:]),
                            dtype=part.dtype, device=part.device)
         parts = [torch.empty_like(part) for _ in range(self.size)]
-        dist.all_gather(parts, part.contiguous())
+        dist.all_gather(parts, part.contiguous(), group=dist.group.WORLD)
         for rank, got in enumerate(parts):
             data_index, model_index = divmod(rank, self.shape[MODEL_AXIS])
             pos = positions(model_index)

@@ -180,7 +180,8 @@ class ShardedEmbeddingTrainer:
             )
             embedding_optimizer = sparse_optim.sgd(0.01)
         mode = "fused" if self._sparse_kernel == "fused" else embedding_optimizer.mode
-        self._emb_tx = embedding_optimizer.remake(mode, mesh=self._mesh)
+        self._emb_tx: sparse_optim.SparseOptimizer = embedding_optimizer.remake(
+            mode, mesh=self._mesh)
         self._sparse_apply_every = (
             None if sparse_apply_every == "auto" else max(1, int(sparse_apply_every))
         )
@@ -405,7 +406,7 @@ class ShardedEmbeddingTrainer:
         tensors = list(tensors)
         flat = torch.cat([t.reshape(-1) for t in tensors])
         if broadcast:
-            dist.broadcast(flat, src=0)
+            dist.broadcast(flat, src=0, group=dist.group.WORLD)
         else:
             flat = axis_all_reduce(self._mesh, DATA_AXIS, [flat])
         offset = 0
@@ -505,7 +506,7 @@ class ShardedEmbeddingTrainer:
             loss = axis_all_reduce(self._mesh, DATA_AXIS, [loss])
         return loss
 
-    def train_step_staged(self, staged):
+    def train_step_staged(self, staged):  # hot-path
         if self._opt_state is None:
             raise RuntimeError("train_step_staged requires ensure_initialized() first")
         loss, cap = self.forward(*staged)
@@ -527,7 +528,7 @@ class ShardedEmbeddingTrainer:
         masks = np.stack([np.asarray(b[2], np.float32) for b in batches])
         return self.stage_batch(feats, labels, masks)
 
-    def train_window(self, window):
+    def train_window(self, window):  # hot-path
         """Run every batch of a staged window; returns the ``[K]`` losses.
         With ``sparse_apply_every=W > 1`` the window runs as chunks of W
         steps with one sparse apply each (a shorter last chunk included)."""
@@ -579,13 +580,18 @@ class ShardedEmbeddingTrainer:
         self._model.eval()
         try:
             if not self._world:
-                return self._model(to_device(features, self.device)).cpu().numpy()
+                return self._eval_outputs(to_device(features, self.device)).cpu().numpy()
             n = len(next(iter(features.values())))
             padded = pad_batch(features, data_axis_size(self._mesh))[0]
-            out = self._model(to_device(shard_batch(padded, self._mesh), self.device))
+            out = self._eval_outputs(to_device(shard_batch(padded, self._mesh), self.device))
             return axis_all_gather(self._mesh, DATA_AXIS, out)[:n].cpu().numpy()
         finally:
             self._model.train()
+
+    def _eval_outputs(self, features) -> torch.Tensor:  # hot-path
+        """The eval step's device part (JAX ``_eval_step_impl``): the
+        model's outputs on staged ``features``."""
+        return self._model(features)
 
     def eval_step_local(self, features) -> np.ndarray:
         """JAX ``ps_trainer.py:833``: the outputs of every row of the

@@ -358,7 +358,7 @@ class _RingFlash(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
-def ring_attention_pallas(q, k, v, *, ring: Ring, causal: bool = False,
+def ring_attention_pallas(q, k, v, *, ring: Ring, causal: bool = False,  # hot-path
                           scale: Optional[float] = None, layout: str = "contiguous"):
     """Ring attention with the flash step kernels, K7-K9 (the JAX name):
     the contract of ``ring_attention``, differentiable in q, k, v."""

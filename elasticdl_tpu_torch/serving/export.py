@@ -111,19 +111,19 @@ class ServingModel:
 
     def forward(self, features) -> torch.Tensor:
         """Host features (a dict of arrays, or one array: an image batch)
-        -> device outputs (no sync); batch norm reads its running
-        averages."""
+        -> device outputs; batch norm reads its running averages.  The
+        copies from pageable host memory synchronise with the card."""
         if isinstance(features, Mapping):
-            tensors = {key: torch.from_numpy(np.ascontiguousarray(value)).to(self.device)
+            tensors = {key: torch.from_numpy(np.ascontiguousarray(value)).to(self.device)  # noqa-invariant: jit-host-sync (the request's host arrays reach the card here, once per dispatch; the copy from pageable memory blocks)
                        for key, value in features.items()}
         else:
-            tensors = torch.from_numpy(np.ascontiguousarray(features)).to(self.device)
+            tensors = torch.from_numpy(np.ascontiguousarray(features)).to(self.device)  # noqa-invariant: jit-host-sync (the request's host arrays reach the card here, once per dispatch; the copy from pageable memory blocks)
         return model_apply(self.model, tensors, train=False)
 
     def predict(self, features) -> np.ndarray:
         """Host features -> host outputs; ``.cpu()`` is the device sync."""
         with torch.inference_mode():
-            return self.forward(features).cpu().numpy()
+            return self.forward(features).cpu().numpy()  # noqa-invariant: jit-host-sync (the response leaves the card here: one read per dispatch, where the JAX serving runtime reads its compiled step's outputs)
 
 
 def load_for_serving(model_dir: str, device: DeviceLike = None, mesh=None) -> ServingModel:

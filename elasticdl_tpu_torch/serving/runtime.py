@@ -94,7 +94,7 @@ class Generation:
             self._inflight += 1
 
     def end(self):
-        with self._lock:
+        with self._lock:  # noqa-invariant: trace-purity (the in-flight count a hot swap drains on: taken once per dispatch after its outputs are on the host)
             self._inflight -= 1
             self._idle.notify_all()
 
@@ -162,9 +162,10 @@ class ServingReplica:
             return gen
 
     @staticmethod
-    def _run(gen: Generation, features: Dict[str, np.ndarray]) -> np.ndarray:
+    def _run(gen: Generation, features: Dict[str, np.ndarray]) -> np.ndarray:  # hot-path
+        served: ServingModel = gen.served
         try:
-            return gen.served.predict(features)
+            return served.predict(features)
         finally:
             gen.end()
 

@@ -132,10 +132,11 @@ class MasterClient:
             model_outputs=[ndarray_to_tensor(a, name) for name, a in model_outputs.items()],
             labels=[ndarray_to_tensor(a, name) for name, a in labels.items()],
             worker_id=self._worker_id, model_version=model_version, task_id=task_id)
-        policy = self._no_retry_policy
-        if policy.timeout_s != RPC.EVAL_REPORT_DEADLINE_S:
-            policy = dataclasses.replace(policy, timeout_s=RPC.EVAL_REPORT_DEADLINE_S)
-        self._client.call("report_evaluation_metrics", request, policy)
+        no_retry_policy = self._no_retry_policy
+        if no_retry_policy.timeout_s != RPC.EVAL_REPORT_DEADLINE_S:
+            no_retry_policy = dataclasses.replace(no_retry_policy,
+                                                  timeout_s=RPC.EVAL_REPORT_DEADLINE_S)
+        self._client.call("report_evaluation_metrics", request, no_retry_policy)
 
     def report_version(self, model_version: int):
         self._client.call("report_version", msg.ReportVersionRequest(

@@ -131,6 +131,10 @@ class Trainer:
     def train_step_staged(self, staged) -> torch.Tensor:
         features, labels = staged
         self.ensure_initialized(features)
+        return self._train_step(features, labels)
+
+    def _train_step(self, features, labels) -> torch.Tensor:  # hot-path
+        """The step's device part (JAX ``_train_step_impl``)."""
         loss = self._loss_fn(labels, model_apply(self._model, features, train=True))
         names = list(self._params)
         grads = torch.autograd.grad(loss, [self._params[n] for n in names], allow_unused=True)
@@ -145,8 +149,11 @@ class Trainer:
     def eval_step(self, features) -> np.ndarray:
         """The model's outputs (running averages for batch norm) on host."""
         self.ensure_initialized(features)
-        out = model_apply(self._model, to_device(features, self.device), train=False)
-        return out.cpu().numpy()
+        return self._eval_outputs(to_device(features, self.device)).cpu().numpy()
+
+    def _eval_outputs(self, features) -> torch.Tensor:  # hot-path
+        """The eval step's device part (JAX ``_eval_step_impl``)."""
+        return model_apply(self._model, features, train=False)
 
     def state_to_jax_host(self):
         """The state in the JAX layout with numpy leaves (a JAX

@@ -220,7 +220,7 @@ class CausalSelfAttention(nn.Module):
         # process rank already holds its zigzag positions.
         inv = None
         if self.cp_layout == "zigzag" and self.mesh.in_process:
-            order, inv = (torch.from_numpy(o).to(x.device)
+            order, inv = (torch.from_numpy(o).to(x.device)  # noqa-invariant: jit-host-sync (the zigzag permutation of an in-process CP mesh: two index uploads a forward, on the context-parallel path only)
                           for o in zigzag_orders(t, self.mesh.shape[MODEL_AXIS]))
             x = x[:, order]
         q, k, v = self.qkv(x).unbind(2)

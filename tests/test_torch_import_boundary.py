@@ -400,3 +400,59 @@ def test_vision_entry_points_default_to_the_card(monkeypatch):
     model = mnist.custom_model(device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(model, mnist.loss, mnist.optimizer())
+
+
+_ANALYZER_WITHOUT_TORCH = """
+import runpy
+import sys
+
+# torch, numpy and the JAX package made unimportable: the analyzer and
+# the journal registry run on the standard library alone.
+for name in ("torch", "numpy", "jax", "elasticdl_tpu"):
+    sys.modules[name] = None
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+except SystemExit as exc:
+    code = exc.code
+else:
+    code = 0
+print("LOADED", sorted(m for m in sys.modules if sys.modules[m] is not None
+                       and m.split(".")[0] in ("torch", "numpy", "jax", "elasticdl_tpu")))
+sys.exit(code)
+"""
+
+
+@pytest.mark.parametrize("argv", [
+    ["elasticdl_tpu_torch.analysis", "elasticdl_tpu_torch"],
+    ["elasticdl_tpu_torch.analysis.journal_schema", "--selftest"],
+    ["elasticdl_tpu_torch.analysis.journal_schema", "--check-sources"],
+], ids=["analysis-cli", "journal-selftest", "journal-check-sources"])
+def test_analyzer_runs_without_torch_or_the_jax_package(argv):
+    proc = subprocess.run([sys.executable, "-c", _ANALYZER_WITHOUT_TORCH, *argv],
+                          cwd=str(REPO), capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def test_analyzer_modules_import_the_standard_library_only():
+    """The static analyzer and the journal registry (the runtime lock
+    checker, ``runtime.py``, logs through ``common/log_utils``)."""
+    offenders = []
+    for path in sorted((PORT / "analysis").glob("*.py")):
+        if path.name == "runtime.py":
+            continue
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                if root not in sys.stdlib_module_names and not name.startswith(
+                        "elasticdl_tpu_torch.analysis"):
+                    offenders.append(f"{path.name}:{node.lineno} {name}")
+    assert not offenders, offenders
+
