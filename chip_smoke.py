@@ -512,6 +512,42 @@ The static analyzer (``analysis/``) against what the card sees:
     outside.  Gate: every sync inside a function the analyzer marks hot
     is a ``jit-host-sync`` finding or carries its ``noqa-invariant``.
 
+The fleet under the policy engine and a user's own model zoo:
+
+43. ``start_serving_fleet(2, ..., policy=ElasticPolicyEngine(...))``
+    serves phase 31's export (phase 32's census model at full width) on
+    the card, ``--slo_p99_ms`` POLICY_SLO_P99_MS over a compliance window
+    of POLICY_COMPLIANCE_S, ticked every POLICY_TICK_S; the interpreter
+    of ``replica_argv_fn(python=...)`` arms a ``serving.execute`` latency
+    fault (POLICY_FAULT_COUNT dispatches of POLICY_STALL_S) through
+    ``ELASTICDL_FAULTS`` in replica 0 only.  4 closed-loop clients a
+    replica send 8-row raw census requests from POLICY_WARM_S after the
+    replica's start.  Gates (JAX's ``tests/test_slo.py:733-813``): replica
+    0's ``serving_latency`` pages within the bound the windows give
+    (printed), then clears after the fault, within its bound; replica 1
+    fires nothing; the engine journals one ``slo_alert`` hold
+    (``slo_advisory`` ``["serving_latency"]``, origin ``replica_0``) and
+    then ``slo_alert_cleared``, only holds, no ``worker_churn`` or
+    ``scale``, the replicas still 0 and 1; every answer of both replicas
+    within LOGIT_RTOL/LOGIT_ATOL of ``eval_step``; the shared journal valid
+    under ``analysis/journal_schema.py``, no forbidden module; the
+    engine's thread stopped with the fleet; 2 K2 a dispatch in each
+    replica (``/stats``).  Printed: the seconds from the first delayed
+    dispatch to the page, to the engine's decision and to the clear;
+    requests/s and p50/p99 per replica before, during and after the
+    fault.
+44. ``elasticdl zoo init`` into a work directory; ``load_model_spec``
+    with ``--model_zoo <dir> --model_def my_model`` loads the scaffold
+    (input width USER_ZOO_INPUT); the Local ``Trainer`` takes 3 steps on
+    the card on seeded numpy batches of USER_ZOO_BATCH (the loss finite,
+    every parameter moved); ``export_model(model_zoo=<dir>)`` is served
+    by ``replica_main --model_zoo <dir>`` in a fresh process within
+    LOGIT_RTOL/LOGIT_ATOL of ``eval_step``, its journal listing no
+    forbidden module; ``zoo build --dockerfile-only`` renders a context
+    holding ``elasticdl_tpu_torch/ops/csrc/flash_attention.cu`` and no
+    ``elasticdl_tpu/``, ``_build/``, ``__pycache__`` or ``*.so``.  The
+    scaffold is an MLP: no kernel launches, here or in the replica.
+
 Before each of phases 21-23 the free space of its directory is checked
 (a failure names the bytes needed); each deletes its directories.
 
@@ -538,7 +574,8 @@ profiler's trace; K2 twice per dispatch of phase 39's replica; K2 and
 K3 twice per training step of phase 40 and K2 twice per replay batch
 and generation in each of its held polls; K2 twice per dispatch and
 twice per replay batch and generation of each shadow evaluation in
-phase 41's replica) fails the run.
+phase 41's replica; K2 twice per dispatch of each replica of phase 43)
+fails the run.
 The line before the last holds the card's name and power limit, the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, with no
 result, when no CUDA device is available or the port is not beside it.
@@ -546,8 +583,8 @@ result, when no CUDA device is available or the port is not beside it.
 kernel; such a run prints no result line; phase 19 reuses phase 4's
 artifact when both run; phases 21 and 22 run together, and so do 24 and
 25; phase 27 prints phase 26's figures beside its own when both run;
-``--phases 28,29`` runs the vision phases alone; phase 32 runs phase 31
-first, whose export it serves; phase 38 prints phase 27's figures and
+``--phases 28,29`` runs the vision phases alone; phases 32 and 43 run
+phase 31 first, whose export they serve; phase 38 prints phase 27's figures and
 phase 39 phase 25's beside its own when both run; phases 40 and 41 run
 together, 41 serving 40's chain, and phase 41 prints phase 39's figures
 beside its own when both run).
@@ -8390,6 +8427,411 @@ def analyzer_census_phase(card: str, seed: int) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 43: the census fleet under the real policy engine; phase 44: a
+# user's own model zoo end to end
+# ----------------------------------------------------------------------
+
+#: Phase 43's SLO settings.  Every window is 5 s but the warn pair's long
+#: one (1800/120 = 15 s, ``obs/slo.py``); at a 0.25 s tick a page needs 3
+#: bad samples of ~20 and a warn 4 of ~60, so a fault that starts once
+#: the windows are full pages before it warns.
+POLICY_SLO_P99_MS = 250.0
+POLICY_COMPLIANCE_S = 1800.0
+POLICY_TICK_S = 0.25
+#: The fault, in replica 0 only: POLICY_FAULT_COUNT dispatches stall
+#: POLICY_STALL_S each, from the POLICY_FAULT_AFTER-th dispatch after the
+#: probes on; the clients start POLICY_WARM_S after the replica, so the
+#: SLO windows are full when it starts.
+POLICY_STALL_S = 0.5
+POLICY_FAULT_COUNT = 20
+POLICY_FAULT_AFTER = 400
+POLICY_WARM_S = 12.0
+#: The user zoo of phase 44: the scaffold at this input width and batch.
+USER_ZOO_INPUT = 16
+USER_ZOO_BATCH = 256
+
+
+def fleet_policy_wrapper(path: str, spec: str) -> str:
+    """An interpreter for ``replica_argv_fn(python=...)`` that arms
+    ``ELASTICDL_FAULTS=spec`` in replica 0 only."""
+    with open(path, "w") as f:
+        f.write("#!/bin/sh\n"
+                "case \" $* \" in *\" --replica_id 0 \"*)\n"
+                f"  ELASTICDL_FAULTS='{spec}'; export ELASTICDL_FAULTS;;\n"
+                f"esac\nexec {sys.executable} \"$@\"\n")
+    os.chmod(path, 0o755)
+    return path
+
+
+def checked_clients(addr, requests, want, per_replica: int, stop):
+    """``per_replica`` closed-loop threads a replica until ``stop``, each
+    answer held to ``want`` within LOGIT_RTOL/LOGIT_ATOL.  Returns
+    ``(threads, records [(rid, t0, t1)], errors)``."""
+    import numpy as np
+
+    from elasticdl_tpu_torch.serving.frontend import PredictClient
+
+    records, errors = [], []
+
+    def client(rid, w):
+        conn = PredictClient(addr[rid], deadline_s=60.0)
+        i = w
+        try:
+            while not stop.is_set():
+                t0 = time.time()
+                try:
+                    got = conn.predict(requests[i % len(requests)])
+                    np.testing.assert_allclose(got, want[i % len(requests)], rtol=LOGIT_RTOL,
+                                               atol=LOGIT_ATOL)
+                    records.append((rid, t0, time.time()))
+                except Exception as exc:  # counted, reported by the caller
+                    errors.append(f"replica {rid}: {exc!r}"[:400])
+                i += per_replica
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(rid, w), name=f"policy-client-{rid}-{w}")
+               for rid in sorted(addr) for w in range(per_replica)]
+    for t in threads:
+        t.start()
+    return threads, records, errors
+
+
+def p99_lift_time(latencies, threshold_s: float, earlier: int):
+    """When the replica's p99 gauge first exceeds ``threshold_s``: the
+    ledger's rule (``serving/ledger.AvailabilityLedger``: the p99 rank of
+    the last ``WINDOW`` served latencies) replayed on ``latencies``
+    ``[(t_end, seconds)]`` in time order, after ``earlier`` fast answers.
+    None if it never does."""
+    import collections
+
+    from elasticdl_tpu_torch.serving.ledger import WINDOW
+
+    window = collections.deque([0.0] * earlier, maxlen=WINDOW)
+    for t_end, latency in latencies:
+        window.append(latency)
+        if latency <= threshold_s:
+            continue
+        ranked = sorted(window)
+        if ranked[min(len(ranked) - 1, int(round(0.99 * (len(ranked) - 1))))] > threshold_s:
+            return t_end
+    return None
+
+
+def window_stats(records, rid, lo, hi):
+    """Requests/s and p50/p99 of replica ``rid``'s answers ending in
+    ``[lo, hi)`` (host clock)."""
+    latencies = [t1 - t0 for r, t0, t1 in records if r == rid and lo <= t1 < hi]
+    seconds = hi - lo
+    return {"requests": len(latencies), "seconds": seconds,
+            "requests_per_s": len(latencies) / seconds if seconds > 0 else None,
+            "p50_ms": percentile_ms(latencies, 50), "p99_ms": percentile_ms(latencies, 99)}
+
+
+def fleet_policy_phase(card: str, seed: int, workdir: str, job: dict, per_replica: int = 4,
+                       device=None):
+    """Phase 43: ``start_serving_fleet(2, ..., policy=ElasticPolicyEngine(...))``
+    serves phase 31's export from two replica processes with a latency
+    fault in replica 0.  Gates (JAX's ``tests/test_slo.py:733-813`` over
+    real processes): replica 0's ``serving_latency`` pages within the
+    bound the windows give and clears after the fault; replica 1 fires
+    nothing; the engine journals ``slo_alert`` (``slo_advisory``
+    ``["serving_latency"]``, origin ``replica_0``) then
+    ``slo_alert_cleared`` and kills or rescales nothing; every answer of
+    both replicas within LOGIT_RTOL/LOGIT_ATOL of ``eval_step``; the
+    journal valid under ``analysis/journal_schema.py``, no forbidden
+    module; 2 K2 a dispatch in each replica."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch import obs
+    from elasticdl_tpu_torch.analysis import journal_schema
+    from elasticdl_tpu_torch.checkpoint.sharded import ShardedCheckpointSaver
+    from elasticdl_tpu_torch.master.policy import ElasticPolicyEngine, PolicyConfig
+    from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer
+    from elasticdl_tpu_torch.serving.frontend import PredictClient, encode_features
+    from elasticdl_tpu_torch.serving.supervisor import start_serving_fleet, wait_for_replicas
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    t_phase = time.perf_counter()
+    zoo = resolve(CENSUS_DEF)
+    saver = ShardedCheckpointSaver(job["checkpoint"])
+    trainer = ShardedEmbeddingTrainer(build_model(CENSUS_DEF, "", device), zoo.loss,
+                                      zoo.optimizer(),
+                                      embedding_optimizer=zoo.embedding_optimizer(),
+                                      device=device)
+    trainer.set_sharded_restore(saver, saver.latest_step())
+    trainer.ensure_initialized()
+    requests = census_requests(seed + 43, 64)
+    want = [trainer.eval_step(r) for r in requests]
+    del trainer
+    torch.cuda.empty_cache()
+
+    serve = os.path.join(workdir, "serve_policy")
+    warm = os.path.join(workdir, "policy_warmup.npz")
+    with open(warm, "wb") as f:
+        f.write(encode_features({k: v[:1] for k, v in requests[0].items()}))
+    fault = (f"serving.execute:latency={POLICY_STALL_S}"
+             f"@{len(requests) + POLICY_FAULT_AFTER}x{POLICY_FAULT_COUNT}")
+    python = fleet_policy_wrapper(os.path.join(workdir, "policy_python.sh"), fault)
+    engine = ElasticPolicyEngine(PolicyConfig(tick_interval_s=1.0))
+    manager = start_serving_fleet(
+        2, job["export"], serve, policy=engine, python=python, max_batch_size=64,
+        max_wait_us=2000, telemetry_interval_s=POLICY_TICK_S, warmup_features=warm,
+        slo_p99_ms=POLICY_SLO_P99_MS, slo_availability_target=0.999,
+        slo_compliance_window_s=POLICY_COMPLIANCE_S, **({"device": device} if device else {}))
+    journal = os.path.join(serve, "events.jsonl")
+    probes, stats, stop = {}, {}, threading.Event()
+    threads, records, errors = [], [], []
+    try:
+        if manager.policy is not engine or manager.slo_follower is None:
+            fail("start_serving_fleet did not bind the engine and its follower")
+        live = wait_for_replicas(serve, 2, timeout_s=300)
+        addr = {r["replica_id"]: f"127.0.0.1:{r['port']}" for r in live}
+        if sorted(addr) != [0, 1]:
+            fail(f"replicas {sorted(addr)}")
+        probes = {rid: PredictClient(a, deadline_s=60.0) for rid, a in addr.items()}
+        for rid in (0, 1):  # the probes: len(requests) dispatches each, before the fault
+            for r, w in zip(requests, want):
+                np.testing.assert_allclose(probes[rid].predict(r), w, rtol=LOGIT_RTOL,
+                                           atol=LOGIT_ATOL, err_msg=f"replica {rid} probe")
+        start0 = next(e["ts"] for e in journal_events(journal, "serving_replica_start")
+                      if e["replica_id"] == 0)
+        time.sleep(max(0.0, start0 + POLICY_WARM_S - time.time()))
+        t_clients = time.time()
+        threads, records, errors = checked_clients(addr, requests, want, per_replica, stop)
+        deadline = time.time() + 180
+        while not any(d.get("reason") == "slo_alert_cleared"
+                      for d in journal_events(journal, "policy_decision")):
+            if time.time() > deadline or errors:
+                fail(f"no slo_alert_cleared decision 180 s after the clients started "
+                     f"(errors {errors[:3]}): alerts {journal_events(journal, 'slo_alert')}")
+            time.sleep(0.25)
+        time.sleep(2.0)  # an after window past the clear
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+            if t.is_alive():
+                fail(f"client thread {t.name} did not finish")
+        t_end = time.time()
+        if errors:
+            fail(f"{len(errors)} of {len(errors) + len(records)} answers failed: {errors[:3]}")
+        ids, restarts = manager.current_worker_ids(), manager.restarts_used
+        stats = {rid: probes[rid].stats() for rid in (0, 1)}
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        for probe in probes.values():
+            probe.close()
+        manager.stop()
+        obs.journal().configure(None)
+    if engine._thread is not None and engine._thread.is_alive():
+        fail("the engine's tick thread outlived the fleet")
+
+    slow = sorted((t0, t1) for rid, t0, t1 in records
+                  if rid == 0 and t1 - t0 >= POLICY_STALL_S)
+    if len(slow) < POLICY_FAULT_COUNT:
+        fail(f"{len(slow)} answers of replica 0 took the {POLICY_STALL_S} s stall")
+    t_fault = slow[0][1] - POLICY_STALL_S  # the first delayed dispatch began
+    t_fault_end = slow[-1][1]
+    alerts = journal_events(journal, "slo_alert")
+    decisions = journal_events(journal, "policy_decision")
+    fires = [a for a in alerts if a["state"] == "fire"]
+    clears = [a for a in alerts if a["state"] == "clear"]
+    if ([(a["slo"], a["origin"], a["state"]) for a in alerts]
+            != [("serving_latency", "replica_0", "fire"),
+                ("serving_latency", "replica_0", "clear")] or fires[0]["grade"] != "page"):
+        fail(f"alerts {alerts}: want one page of replica 0's serving_latency, then its clear")
+    fired_s, cleared_s = fires[0]["ts"] - t_fault, clears[0]["ts"] - t_fault
+    advisory = [d for d in decisions if d["reason"] == "slo_alert"]
+    cleared = [d for d in decisions if d["reason"] == "slo_alert_cleared"]
+    if (len(advisory) != 1 or advisory[0]["slo_advisory"] != ["serving_latency"]
+            or advisory[0]["origin"] != "replica_0" or advisory[0]["grade"] != "page"
+            or len(cleared) != 1 or cleared[0]["origin"] != "replica_0"
+            or cleared[0]["ts"] < advisory[0]["ts"]):
+        fail(f"policy decisions {decisions}")
+    decided_s = advisory[0]["ts"] - t_fault
+    # The bounds the windows give.  The page: the ledger's p99 lifts when
+    # enough slow answers sit in its window (replayed on replica 0's
+    # answers after its probes), then 3 bad samples at POLICY_TICK_S page,
+    # a tick of jitter; the follower polls each second.  The clear: the
+    # slow answers leave the ledger's window of 2048, then the warn pair's
+    # long window drains.
+    lifted = p99_lift_time(sorted((t1, t1 - t0) for rid, t0, t1 in records if rid == 0),
+                           POLICY_SLO_P99_MS / 1e3, len(requests))
+    if lifted is None:
+        fail(f"replica 0's {len(slow)} slow answers never lift its p99 over "
+             f"{POLICY_SLO_P99_MS} ms")
+    page_bound_s = lifted - t_fault + 4 * POLICY_TICK_S + 0.5
+    decide_bound_s = page_bound_s + 2.0
+    after = window_stats(records, 0, t_fault_end, clears[0]["ts"])
+    clear_bound_s = (t_fault_end - t_fault + 2048 / max(after["requests_per_s"], 1.0)
+                     + POLICY_COMPLIANCE_S / 120 + 4 * POLICY_TICK_S + 2.0)
+    if not (0 < fired_s <= page_bound_s and fired_s <= decided_s <= decide_bound_s
+            and t_fault_end - t_fault < cleared_s <= clear_bound_s):
+        fail(f"page {fired_s!r} s (bound {page_bound_s!r}), decision {decided_s!r} s (bound "
+             f"{decide_bound_s!r}), clear {cleared_s!r} s (bound {clear_bound_s!r}) after the "
+             "first delayed dispatch")
+    if ({d["action"] for d in decisions} != {"hold"} or ids != [0, 1] or restarts
+            or journal_events(journal, "worker_churn") or journal_events(journal, "scale")):
+        fail(f"the engine acted: decisions {decisions}, replicas {ids}, restarts {restarts}")
+    problems = journal_schema.validate_file(journal)
+    starts = journal_events(journal, "serving_replica_start")
+    if problems or [e["forbidden_modules"] for e in starts] != [[], []]:
+        fail(f"journal problems {problems[:5]}; replica starts {starts}")
+    per_replica_launches = {}
+    for rid, st in stats.items():
+        launches, dispatches = st["kernel_launches"], st["executes"]
+        if launches.get("fused_lookup") != 2 * dispatches or launches.get(
+                "fused_lookup_fm") or launches.get("fused_dedup_apply"):
+            fail(f"replica {rid} launched {launches} in {dispatches} dispatches")
+        per_replica_launches[rid] = {"dispatches": dispatches, "launches": launches}
+    windows = {rid: {"before": window_stats(records, rid, t_clients, t_fault),
+                     "during": window_stats(records, rid, t_fault, t_fault_end),
+                     "after": window_stats(records, rid, t_fault_end, t_end)}
+               for rid in (0, 1)}
+    result = {"fault": fault, "first_delayed_dispatch_to_page_s": fired_s,
+              "first_delayed_dispatch_to_p99_lift_s": lifted - t_fault,
+              "page_bound_s": page_bound_s, "first_delayed_dispatch_to_decision_s": decided_s,
+              "decision_bound_s": decide_bound_s, "first_delayed_dispatch_to_clear_s": cleared_s,
+              "clear_bound_s": clear_bound_s, "fault_window_s": t_fault_end - t_fault,
+              "slow_answers": len(slow), "windows": windows, "per_replica": per_replica_launches,
+              "decisions": [(d["action"], d["reason"]) for d in decisions],
+              "journal_records": sum(1 for _ in open(journal)),
+              "phase_s": time.perf_counter() - t_phase, "card": card}
+    log(f"fleet policy: the phase {result['phase_s']!r} s; fault {fault} in replica 0; from its first delayed dispatch the p99 "
+        f"over {POLICY_SLO_P99_MS} ms {lifted - t_fault!r} s, the page {fired_s!r} s (bound "
+        f"{page_bound_s!r}), the engine's slo_alert hold {decided_s!r} s "
+        f"(bound {decide_bound_s!r}), the clear {cleared_s!r} s (bound {clear_bound_s!r}; fault "
+        f"window {t_fault_end - t_fault!r} s, {len(slow)} slow answers); decisions "
+        f"{result['decisions']}, no kill, no rescale; per replica before/during/after "
+        f"{windows}; K2 {per_replica_launches} [{card}]")
+    return result
+
+
+def user_zoo_phase(card: str, seed: int, workdir: str, device=None):
+    """Phase 44: ``elasticdl zoo init`` scaffolds a user's model zoo;
+    ``load_model_spec`` loads it (``--model_zoo <dir> --model_def
+    my_model``); the Local ``Trainer`` takes 3 steps on the card (the loss
+    finite, the parameters moved); ``export_model(model_zoo=<dir>)`` is
+    served by ``replica_main --model_zoo <dir>`` in a fresh process within
+    LOGIT_RTOL/LOGIT_ATOL of ``eval_step``, no forbidden module loaded;
+    ``zoo build --dockerfile-only`` renders a context with the kernel
+    sources and without the JAX package, build outputs or libraries.  An
+    MLP: no kernel launches, in this process or the replica."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.client import main as client_main
+    from elasticdl_tpu_torch.common.args import parse_master_args
+    from elasticdl_tpu_torch.common.model_utils import load_model_spec
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+    from elasticdl_tpu_torch.ops import sparse_gather as sg
+    from elasticdl_tpu_torch.serving.export import export_model
+    from elasticdl_tpu_torch.serving.frontend import PredictClient
+    from elasticdl_tpu_torch.serving.supervisor import wait_for_replicas
+    from elasticdl_tpu_torch.worker.trainer import Trainer
+
+    def counts():
+        return {**ske.launch_counts(), **fa.launch_counts(), **sg.launch_counts()}
+
+    zoo_dir = os.path.join(workdir, "user_zoo")
+    times = {}
+    t_phase = t0 = time.perf_counter()
+    if client_main.main(["zoo", "init", zoo_dir]) != 0:
+        fail("zoo init failed")
+    spec = load_model_spec(parse_master_args([
+        "--model_zoo", zoo_dir, "--model_def", "my_model", "--training_data", "t",
+        "--model_params", f"input_dim={USER_ZOO_INPUT}"]))
+    if os.path.dirname(spec.module.__file__) != os.path.realpath(zoo_dir):
+        fail(f"my_model came from {spec.module.__file__}")
+    times["init_and_load_s"] = time.perf_counter() - t0
+    for module in (ske, fa, sg):
+        module.reset_launch_counts()
+    trainer = Trainer(spec.build_model(device=device), spec.loss, spec.optimizer(), seed=seed,
+                      device=device)
+    rng = np.random.default_rng(seed + 44)
+    batches = [(rng.standard_normal((USER_ZOO_BATCH, USER_ZOO_INPUT)).astype(np.float32),
+                rng.integers(0, 2, USER_ZOO_BATCH).astype(np.int32)) for _ in range(3)]
+    trainer.ensure_initialized()
+    before = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    t0 = time.perf_counter()
+    losses = [float(trainer.train_step(x, y)) for x, y in batches]
+    times["three_steps_s"] = time.perf_counter() - t0
+    moved = {k: float((v - before[k]).abs().max()) for k, v in trainer.model.state_dict().items()}
+    if not all(np.isfinite(losses)) or not all(m > 0 for m in moved.values()):
+        fail(f"user zoo training: losses {losses}, largest moves {moved}")
+    x = rng.standard_normal((64, USER_ZOO_INPUT)).astype(np.float32)
+    want = trainer.eval_step(x)
+    in_process = counts()
+    art = export_model(trainer, os.path.join(workdir, "user_zoo_export"), model_zoo=zoo_dir,
+                       model_def="my_model", model_params=f"input_dim={USER_ZOO_INPUT}")
+    serve = os.path.join(workdir, "user_zoo_serve")
+    log_path = os.path.join(workdir, "user_zoo_replica.log")
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "elasticdl_tpu_torch.serving.replica_main", "--model_dir",
+             art, "--serve_dir", serve, "--model_zoo", zoo_dir,
+             *(["--device", device] if device else [])],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log_file,
+            stderr=subprocess.STDOUT)
+    try:
+        (live,) = wait_for_replicas(serve, 1, timeout_s=300)
+        client = PredictClient(f"127.0.0.1:{live['port']}", deadline_s=60.0)
+        try:
+            got = client.predict({"features": x})
+            times["replica_launch_to_answer_s"] = time.perf_counter() - t0
+            st = client.stats()
+        finally:
+            client.close()
+    finally:
+        proc.terminate()
+        try:
+            code = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"the user zoo's replica did not stop on SIGTERM: {tail(log_path)}")
+    if code != 0:
+        fail(f"the user zoo's replica exited {code}: {tail(log_path)}")
+    err = float(np.abs(got - want).max())
+    np.testing.assert_allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL,
+                               err_msg="the replica against eval_step")
+    starts = journal_events(os.path.join(serve, "events.jsonl"), "serving_replica_start")
+    if ([e["forbidden_modules"] for e in starts] != [[]]
+            or not starts[0]["device"].startswith("cpu" if device == "cpu" else "cuda")):
+        fail(f"the user zoo's replica start: {starts}")
+    if any(in_process.values()) or any(st["kernel_launches"].values()):
+        fail(f"kernel launches on the MLP path: here {in_process}, the replica "
+             f"{st['kernel_launches']}")
+    context = os.path.join(workdir, "user_zoo_context")
+    t0 = time.perf_counter()
+    if client_main.main(["zoo", "build", zoo_dir, "--context", context,
+                         "--dockerfile-only"]) != 0:
+        fail("zoo build --dockerfile-only failed")
+    times["build_context_s"] = time.perf_counter() - t0
+    walked = [(root, dirs, files) for root, dirs, files in os.walk(context)]
+    bad = [os.path.join(root, name) for root, dirs, files in walked for name in dirs + files
+           if name in ("_build", "__pycache__", "elasticdl_tpu") or name.endswith(".so")]
+    if bad or not os.path.exists(os.path.join(
+            context, "elasticdl_tpu_torch", "ops", "csrc", "flash_attention.cu")):
+        fail(f"the build context: unwanted {bad[:5]}, or no flash_attention.cu")
+    times["phase_s"] = time.perf_counter() - t_phase
+    result = {"losses": losses, "largest_moves": moved, "max_abs_err": err, "times": times,
+              "context_files": sum(len(files) for _, _, files in walked), "card": card}
+    log(f"user zoo: the phase {times['phase_s']!r} s; zoo init + load_model_spec {times['init_and_load_s']!r} s; 3 Local "
+        f"Trainer steps on the scaffold (input {USER_ZOO_INPUT}, batch {USER_ZOO_BATCH}) "
+        f"{times['three_steps_s']!r} s, losses {losses}; replica_main --model_zoo launch -> "
+        f"answer {times['replica_launch_to_answer_s']!r} s, max |replica - eval_step| {err!r}; "
+        f"zoo build context {result['context_files']} files in {times['build_context_s']!r} "
+        f"s; no kernel launched [{card}]")
+    return result
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -8502,13 +8944,15 @@ def main() -> None:
             shutil.rmtree(workdir, ignore_errors=True)
     engines = engines_phase(card, args.seed) if run(37) else None
     zoo = ctr_zoo_phase(card, args.seed) if run(30) else None
-    census = fleet = None
-    if run(31, 32):  # phase 32 serves phase 31's export
+    census = fleet = fleet_policy = None
+    if run(31, 32, 43):  # phases 32 and 43 serve phase 31's export
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             census = census_job_phase(card, args.seed, workdir)
             if run(32):
                 fleet = census_fleet_phase(card, args.seed, workdir, census)
+            if run(43):
+                fleet_policy = fleet_policy_phase(card, args.seed, workdir, census)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     allreduce = {}
@@ -8529,6 +8973,13 @@ def main() -> None:
     ring_whole = ring_whole_phase(card, args.seed) if run(14) else None
     cp = cp_lm_phases(card, args.seed) if run(15, 16) else None
     analyzer = analyzer_census_phase(card, args.seed) if run(42) else None
+    user_zoo = None
+    if run(44):
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            user_zoo = user_zoo_phase(card, args.seed, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
     if wanted:
         log(json.dumps({"phases": sorted(wanted), "attention": attention,
                         "attention_edges": edges, "lm_training": lm,
@@ -8544,7 +8995,8 @@ def main() -> None:
                         "stream_loop": stream_loop, "engines": engines,
                         "observed_job": observed, "traced_replica": traced,
                         "quality_gate": quality_gate, "quality_replica": quality_process,
-                        "analyzer_census": analyzer, "card": card}))
+                        "analyzer_census": analyzer, "fleet_policy": fleet_policy,
+                        "user_zoo": user_zoo, "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -8561,7 +9013,8 @@ def main() -> None:
                     "lm_bf16_head": lm_heads, "stream_loop": stream_loop, "engines": engines,
                     "observed_job": observed, "traced_replica": traced,
                     "quality_gate": quality_gate, "quality_replica": quality_process,
-                    "analyzer_census": analyzer, "card": card}))
+                    "analyzer_census": analyzer, "fleet_policy": fleet_policy,
+                    "user_zoo": user_zoo, "card": card}))
 
     quality_steps = sum(n for n, _ in quality_gate["train_launches"])
     quality_trained = {name: sum(c[name] for _, c in quality_gate["train_launches"])
@@ -8599,6 +9052,10 @@ def main() -> None:
                              f"replica {rid} ({r['dispatches']} dispatches)":
                                  r["launches"]["fused_lookup"]
                              for rid, r in fleet["per_replica"].items()},
+                         "census_fleet_under_the_policy_engine_replica_process": {
+                             f"replica {rid} ({r['dispatches']} dispatches)":
+                                 r["launches"]["fused_lookup"]
+                             for rid, r in fleet_policy["per_replica"].items()},
                          f"stream_loop ({stream_loop['steps']} steps, {stream_loop['requests']} "
                          "dispatches)": stream_loop["launches"]["fused_lookup"],
                          "observed_job_worker_process": {

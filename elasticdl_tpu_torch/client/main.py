@@ -6,15 +6,13 @@
         --training_data=synthetic://mnist?n=4096 --output=<dir> [--device cpu]
 
 ``train``, ``evaluate`` and ``predict`` run a job (``client/api.py``);
-``zoo`` (``init|build|push``) raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item.
+``zoo`` (``init|build|push``) manages a user's model zoo
+(``client/zoo.py``).
 """
 
 from __future__ import annotations
 
 import sys
-
-from elasticdl_tpu_torch.common.args import ZOO_ITEM
 
 USAGE = (
     "Usage: python -m elasticdl_tpu_torch.client.main <command> [flags]\n"
@@ -22,7 +20,7 @@ USAGE = (
     "  train      Run a training job\n"
     "  evaluate   Run an evaluation job\n"
     "  predict    Run a prediction job\n"
-    "  zoo        Manage a model zoo (init/build/push): not ported\n"
+    "  zoo        Manage a model zoo (init/build/push)\n"
 )
 
 
@@ -37,7 +35,9 @@ def main(argv=None) -> int:
 
         return getattr(api, command)(rest)
     if command == "zoo":
-        raise NotImplementedError(f"the zoo subcommand is not ported: {ZOO_ITEM}")
+        from elasticdl_tpu_torch.client import zoo
+
+        return zoo.main(rest)
     print(f"Unknown command: {command!r}", file=sys.stderr)
     print(USAGE, file=sys.stderr)
     return 2

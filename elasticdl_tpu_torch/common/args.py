@@ -34,10 +34,6 @@ from elasticdl_tpu_torch.common.log_utils import get_logger
 
 logger = get_logger("common.args")
 
-#: The ``zoo`` subcommand of the client CLI (``client/zoo.py``).
-ZOO_ITEM = ("ROADMAP.md Queue 1 item 7, what the vision slice leaves: the model-zoo "
-            "CLI (client/zoo.py, zoo init|build|push)")
-
 
 def pos_int(value):
     ivalue = int(value)

@@ -2,8 +2,15 @@
 ``elasticdl_tpu/common/model_utils.py`` (``ModelSpec`` :24,
 ``load_model_spec`` :103).
 
-``model_def`` resolves through the port's zoo (``zoo.REGISTRY``), never
-by importing ``--model_zoo``, which is accepted and ignored.  The job
+``load_module`` (``:73-87``) resolves ``model_def``: the nine names of
+the port's zoo (``zoo.REGISTRY``: what artifacts and jobs record, the
+JAX zoo's names) are the port's own modules, whatever ``--model_zoo``
+says; any other name is imported from the ``--model_zoo`` directory as
+JAX does (its parent on ``sys.path``, then
+``<basename>.<model_def>``), or from an importable package of that
+name.  A user module whose import pulls in a forbidden module (JAX,
+flax, optax, the JAX package or its zoo: ``common/boundary.py``) is
+refused, naming the modules.  The job
 flags JAX forwards into ``model_params`` when ``custom_model`` declares
 them and the params do not set them (``_forward_flag``): ``use_bf16``,
 ``sparse_apply_every`` and ``sparse_kernel``.
@@ -11,10 +18,15 @@ them and the params do not set them (``_forward_flag``): ``use_bf16``,
 
 from __future__ import annotations
 
+import importlib
 import inspect
+import os
+import sys
 from dataclasses import dataclass, field
+from types import ModuleType
 from typing import Any, Callable, Optional
 
+from elasticdl_tpu_torch.common import boundary
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.common.params import parse_dict_params
 
@@ -60,11 +72,75 @@ def _forward_flag(custom_model, model_params: dict, name, value) -> None:
         model_params[name] = value
 
 
+def _module_of(value) -> str:
+    name = value.__name__ if isinstance(value, ModuleType) else getattr(value, "__module__", "")
+    return name if isinstance(name, str) else ""
+
+
+def load_module(model_zoo: str, model_def: str):
+    """The module of ``model_def``: the port's own for a name of
+    ``zoo.REGISTRY``; else ``model_def`` (a dotted module path) imported
+    from the ``model_zoo`` directory (added to ``sys.path``), from the
+    importable package ``model_zoo``, or as it is when ``model_zoo`` is
+    empty.  Raises ``ValueError`` when that module does not exist and
+    ``ImportError`` when its import would load a forbidden module."""
+    from elasticdl_tpu_torch.zoo import REGISTRY
+
+    if model_def in REGISTRY:
+        return REGISTRY[model_def]
+    directory = ""
+    if model_zoo and os.path.isdir(model_zoo):
+        directory = os.path.abspath(model_zoo)
+        parent = os.path.dirname(directory)
+        if parent not in sys.path:
+            sys.path.insert(0, parent)
+        package = os.path.basename(directory)
+        module_name = f"{package}.{model_def}"
+    else:
+        package = model_zoo
+        module_name = f"{model_zoo}.{model_def}" if model_zoo else model_def
+    if directory and package in sys.modules:
+        loaded = boundary.module_directory(sys.modules[package])
+        if loaded != os.path.realpath(directory):
+            raise ImportError(f"model_zoo {model_zoo!r}: another package {package!r} is already "
+                              f"loaded in this process, from {loaded}")
+    before = set(sys.modules)
+    try:
+        with boundary.refusing_forbidden_imports(own_package=package if directory else ""):
+            module = importlib.import_module(module_name)
+    except ModuleNotFoundError as exc:
+        missing = exc.name or ""
+        if not (module_name == missing or module_name.startswith(missing + ".")):
+            raise  # a dependency of the user's module is missing
+        raise ValueError(
+            f"model_def {model_def!r} is not ported and not importable from model_zoo "
+            f"{model_zoo!r} ({exc}); the port's zoo serves {sorted(REGISTRY)}") from None
+    except ImportError as exc:
+        raise ImportError(f"model_def {model_def!r} from model_zoo {model_zoo!r} is refused: "
+                          f"{exc}") from exc
+    own = (lambda m: m == package or m.startswith(package + ".")) if directory else (
+        lambda m: False)
+    loaded = (set(sys.modules) - before) | {module_name}
+    # What the user's modules hold (``from jax import jit``), for modules
+    # this process had loaded before: their import statements were
+    # refused above, an ``importlib`` call is caught here.
+    held = {_module_of(value) for m in loaded if own(m) or m == module_name
+            for value in list(vars(sys.modules.get(m, module)).values())}
+    pulled = sorted(m for m in loaded | held
+                    if m and boundary.is_forbidden(m) and not own(m))
+    if pulled:
+        raise ImportError(f"model_def {model_def!r} from model_zoo {model_zoo!r} is refused: "
+                          f"loading it loaded {pulled}")
+    if directory:
+        boundary.admit_user_zoo(package, directory)
+    logger.info("Loaded model_def %r from model_zoo %r (%s)", model_def, model_zoo,
+                getattr(module, "__file__", module_name))
+    return module
+
+
 def load_model_spec(args) -> ModelSpec:
     """Resolve the zoo contract from parsed job args."""
-    from elasticdl_tpu_torch import zoo
-
-    module = zoo.resolve(args.model_def)
+    module = load_module(getattr(args, "model_zoo", ""), args.model_def)
 
     def require(name):
         fn = getattr(module, name, None)

@@ -40,8 +40,15 @@ event carrying its evidence (identical holds are deduplicated to one per
 ``elasticdl_policy_decisions_total{action=...}`` counts them and
 ``elasticdl_policy_kill_budget_remaining`` / ``elasticdl_policy_thrash``
 expose the enforcement state.  ``note_slo_alert`` takes the SLO plane's
-alert edges (``master/job_runner._build_slo_plane`` binds it); fired
-SLOs ride every decision as ``slo_advisory``.
+alert edges (``master/job_runner._build_slo_plane`` binds it; a serving
+fleet's ``serving/supervisor.SLOAlertFollower`` forwards its replicas');
+fired SLOs ride every decision as ``slo_advisory``.  An alert is
+advisory only: it never evicts or rescales.  The engine tracks each
+alert per SLO and origin, so several replicas firing one SLO are
+several alerts (JAX keys them by SLO alone, ``elasticdl_tpu/master/
+policy.py:274-275``, and dedups their holds by SLO alone, ``:717``: a
+second replica's fire went unjournaled and the first one's clear
+dropped the SLO from the advisory while the second still paged).
 
 Threading: ``tick()`` runs on the engine's own daemon thread;
 ``gate_scale_up`` is called from the pod manager's monitor thread.  All
@@ -156,10 +163,10 @@ class ElasticPolicyEngine:
         # and DISTINCT workers' eviction-fallback holds are distinct
         # evidence, never deduped against each other.
         self._last_hold: Dict[tuple, float] = {}  # guarded-by: _lock
-        # slo name -> fire evidence from the SLO plane (obs/slo.py) —
-        # advisory only: it rides every journaled decision as
-        # `slo_advisory`.
-        self._slo_alerts: Dict[str, dict] = {}  # guarded-by: _lock
+        # (slo name, origin) -> fire evidence from the SLO plane
+        # (obs/slo.py) — advisory only: the names ride every journaled
+        # decision as `slo_advisory`.
+        self._slo_alerts: Dict[tuple, dict] = {}  # guarded-by: _lock
         self._last_decision: Optional[dict] = None  # guarded-by: _lock
         self._last_scale_action_t = float("-inf")  # guarded-by: _lock
         self._pre_approval_scale_t = float("-inf")  # guarded-by: _lock
@@ -258,14 +265,17 @@ class ElasticPolicyEngine:
         ``obs/slo.SLORegistry.add_alert_callback``): track the fired set
         and journal the edge as an advisory hold.  A clear for
         an SLO that never fired here is dropped — a follower replaying
-        an old journal tail must not emit phantom clears."""
+        an old journal tail must not emit phantom clears.  Each origin's
+        alert (a fleet's replicas share SLO names) fires and clears on
+        its own."""
         now = self._clock()
         slo = str(slo)
         evidence = dict(evidence or {})
+        key = (slo, str(evidence.get("origin", "")))
         with self._lock:
             if alerting:
-                self._slo_alerts[slo] = evidence
-            elif self._slo_alerts.pop(slo, None) is None:
+                self._slo_alerts[key] = evidence
+            elif self._slo_alerts.pop(key, None) is None:
                 return
         self._hold(
             now,
@@ -277,9 +287,13 @@ class ElasticPolicyEngine:
         )
 
     def slo_alerts(self) -> Dict[str, dict]:
-        """Currently-fired SLO alerts: name -> fire evidence."""
+        """Currently-fired SLO alerts: name -> fire evidence (of the
+        first origin, by name, when several fired it)."""
+        alerts: Dict[str, dict] = {}
         with self._lock:
-            return {name: dict(ev) for name, ev in self._slo_alerts.items()}
+            for (name, _origin), ev in sorted(self._slo_alerts.items()):
+                alerts.setdefault(name, dict(ev))
+        return alerts
 
     def _prune_holds_locked(self, flagged) -> None:
         """Drop per-worker hold-dedup entries for workers no longer
@@ -685,7 +699,7 @@ class ElasticPolicyEngine:
         with self._lock:
             if self._slo_alerts:
                 decision.setdefault(
-                    "slo_advisory", sorted(self._slo_alerts)
+                    "slo_advisory", sorted({name for name, _ in self._slo_alerts})
                 )
             self._last_decision = {**decision, "t": now}
             if action != "hold":
@@ -705,9 +719,10 @@ class ElasticPolicyEngine:
         hold_journal_interval_s — the gate is polled every pod monitor
         tick and must not flood the journal, but different workers'
         eviction-fallback holds each carry their own evidence and always
-        land.  SLO advisories dedup per (reason, slo) the same way —
-        distinct SLOs firing are distinct evidence."""
-        key = (reason, evidence.get("worker_id"), evidence.get("slo"))
+        land.  SLO advisories dedup per (reason, slo, origin) the same
+        way — distinct SLOs, or one SLO of distinct replicas, firing are
+        distinct evidence."""
+        key = (reason, evidence.get("worker_id"), evidence.get("slo"), evidence.get("origin"))
         with self._lock:
             last_t = self._last_hold.get(key, float("-inf"))
             if now - last_t < self.config.hold_journal_interval_s:

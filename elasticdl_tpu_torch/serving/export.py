@@ -126,9 +126,13 @@ class ServingModel:
             return self.forward(features).cpu().numpy()  # noqa-invariant: jit-host-sync (the response leaves the card here: one read per dispatch, where the JAX serving runtime reads its compiled step's outputs)
 
 
-def load_for_serving(model_dir: str, device: DeviceLike = None, mesh=None) -> ServingModel:
+def load_for_serving(model_dir: str, device: DeviceLike = None, mesh=None,
+                     model_zoo: str = "") -> ServingModel:
     """Load an artifact onto ``device`` (``None``: the CUDA card), or over
-    ``mesh`` on its device with each table placed by ``serving_rules``."""
+    ``mesh`` on its device with each table placed by ``serving_rules``.
+    A user's ``model_def`` is imported from ``model_zoo``, which overrides
+    the artifact's recorded one when the artifact moved between machines
+    (JAX's ``load_for_serving``, ``elasticdl_tpu/serving/export.py:254-285``)."""
     mesh = resolve_mesh(mesh, "load_for_serving")
     if mesh is not None:
         if device is not None and resolve_device(device) != mesh.device:
@@ -144,7 +148,8 @@ def load_for_serving(model_dir: str, device: DeviceLike = None, mesh=None) -> Se
     if mesh is not None:
         params = dict(parse_dict_params(params) if isinstance(params, str) else params,
                       mesh=mesh)
-    model = build_model(signature["model_def"], params, device)
+    model = build_model(signature["model_def"], params, device,
+                        model_zoo=model_zoo or signature.get("model_zoo", ""))
     state = convert.state_dict_from_jax(variables, model)
     placements = {}
     if mesh is not None:

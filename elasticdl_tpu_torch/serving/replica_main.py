@@ -129,8 +129,9 @@ def parse_replica_args(argv=None) -> argparse.Namespace:
                         help="predict port (0 = ephemeral)")
     parser.add_argument("--metrics_port", type=int, default=0)
     parser.add_argument("--model_zoo", default="",
-                        help="accepted for the JAX package's argv; the port "
-                             "resolves model_def in its own zoo")
+                        help="the directory (or package) of a user's model_def, "
+                             "overriding the artifact's recorded one; the "
+                             "port's zoo names resolve to its own modules")
     parser.add_argument("--sparse_kernel", default="auto",
                         choices=("xla", "fused", "auto"),
                         help="accepted for the JAX package's argv; the port "
@@ -357,7 +358,7 @@ def main(argv=None) -> int:
     tracing.set_process(f"replica_{args.replica_id}")
 
     t_start = time.perf_counter()
-    replica = ServingReplica(args.model_dir, device=args.device)
+    replica = ServingReplica(args.model_dir, device=args.device, model_zoo=args.model_zoo)
     quality, drift, gate = _build_quality_plane(args)
     book = ledger()
     batcher = MicroBatcher(

@@ -124,7 +124,11 @@ class ServingReplica:
         mesh=None,
         device: DeviceLike = None,
         drain_timeout_s: float = 30.0,
+        model_zoo: str = "",
     ):
+        # A user's model_def is imported from here (the artifact's
+        # recorded zoo when empty), as JAX's ServingReplica does (:163).
+        self._model_zoo = model_zoo
         self._mesh = resolve_mesh(mesh, "the port's ServingReplica")
         if self._mesh is not None:
             if device is not None and resolve_device(device) != self._mesh.device:
@@ -143,7 +147,8 @@ class ServingReplica:
         )
 
     def _load_generation(self, model_dir: str) -> Generation:
-        served = load_for_serving(model_dir, device=self._device, mesh=self._mesh)
+        served = load_for_serving(model_dir, device=self._device, mesh=self._mesh,
+                                  model_zoo=self._model_zoo)
         with self._lock:
             gen_id = self._next_gen_id
             self._next_gen_id += 1

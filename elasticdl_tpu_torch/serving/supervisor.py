@@ -15,11 +15,16 @@ the restart budget and the monitor thread are inherited.
 ``start_serving_fleet`` is the one call that assembles it: journal into
 the shared serve dir, build each replica's argv (``replica_argv_fn``:
 ``python -m elasticdl_tpu_torch.serving.replica_main`` on the card
-unless ``device="cpu"``), start the manager and, given a policy engine,
-bind it and forward the replicas' ``slo_alert`` edges to it
-(``SLOAlertFollower``).  No policy engine is ported yet (ROADMAP.md
-Queue 1 item 6): any object with ``bind(manager)``, ``start()`` and
-``note_slo_alert`` serves.
+unless ``device="cpu"``), start the manager and, given a policy engine
+(``master/policy.ElasticPolicyEngine``), bind it to the manager, start
+its tick and forward the replicas' ``slo_alert`` edges to its
+``note_slo_alert`` (``SLOAlertFollower``).  An alert is advisory: the
+engine journals a ``policy_decision`` hold carrying the alert's origin
+and ``slo_advisory``, and kills or rescales no replica for it.  The
+manager's ``stop()`` stops the follower and the engine with the fleet
+(JAX's stops the follower only, ``elasticdl_tpu/serving/
+supervisor.py:131-134``, and its engine's tick thread outlived the
+fleet, journaling holds into whatever journal came next).
 """
 
 from __future__ import annotations
@@ -105,14 +110,17 @@ class ServingReplicaManager(LocalProcessManager):
     """Subprocess pod manager that replaces the dead (not
     restart-the-world)."""
 
-    #: Set by start_serving_fleet when a policy is given; stop() drains it
-    #: with the fleet.
+    #: Set by start_serving_fleet when a policy is given; stop() drains
+    #: them with the fleet.
     slo_follower: Optional[SLOAlertFollower] = None
+    policy = None
 
     def stop(self):
         follower = self.slo_follower
         if follower is not None:
             follower.stop()
+        if self.policy is not None:
+            self.policy.stop()
         super().stop()
 
     def _handle_churn_serialized(self, handles: List, crashed):
@@ -283,9 +291,9 @@ def start_serving_fleet(
                          serve_dir=serve_dir)
     manager.start()
     if policy is not None:
-        policy.bind(manager).start()
+        # The manager owns the engine's and the follower's teardown (stop()).
+        manager.policy = policy.bind(manager).start()
         if hasattr(policy, "note_slo_alert"):
-            # The manager owns the follower's teardown (stop()).
             manager.slo_follower = SLOAlertFollower(policy).start()
     return manager
 

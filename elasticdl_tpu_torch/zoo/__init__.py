@@ -2,10 +2,12 @@
 ``model_def`` to the port's module.
 
 Counterpart of ``elasticdl_tpu/common/model_utils.py`` ``load_module`` +
-``load_model_spec``.  The JAX loader imports
-``<basename(model_zoo)>.<model_def>``; the port never imports the
-recorded zoo path (it would load the JAX zoo), it looks the name up
-here.  This directory is deliberately not named ``model_zoo``.
+``load_model_spec``.  The nine names below are the JAX zoo's, which
+artifacts and jobs record; they resolve to the port's modules whatever
+the recorded ``model_zoo`` says (importing it would load the JAX zoo).
+Any other ``model_def`` is a user's module, imported from ``model_zoo``
+by ``common/model_utils.load_module``.  This directory is deliberately
+not named ``model_zoo``.
 """
 
 from __future__ import annotations
@@ -49,22 +51,21 @@ SERVING_FLAG_DEFAULTS = {
 }
 
 
-def resolve(model_def: str) -> ModuleType:
-    try:
-        return REGISTRY[model_def]
-    except KeyError:
-        raise ValueError(
-            f"model_def {model_def!r} is not ported; the port serves "
-            f"{sorted(REGISTRY)}"
-        ) from None
+def resolve(model_def: str, model_zoo: str = "") -> ModuleType:
+    """The module of ``model_def``: the port's own for a registry name,
+    else the user's from ``model_zoo`` (``model_utils.load_module``)."""
+    from elasticdl_tpu_torch.common.model_utils import load_module
+
+    return load_module(model_zoo, model_def)
 
 
-def build_model(model_def: str, model_params: Union[str, dict], device=None):
-    """Build the port's module for an artifact's ``model_def`` and
-    ``model_params`` on ``device`` (None: the CUDA card, raising without
-    one, or the device of a ``mesh`` in the params; weights
-    uninitialised)."""
-    module = resolve(model_def)
+def build_model(model_def: str, model_params: Union[str, dict], device=None,
+                model_zoo: str = ""):
+    """Build the module of an artifact's ``model_def`` (from ``model_zoo``
+    when it is a user's) and ``model_params`` on ``device`` (None: the
+    CUDA card, raising without one, or the device of a ``mesh`` in the
+    params; weights uninitialised)."""
+    module = resolve(model_def, model_zoo)
     params = (
         parse_dict_params(model_params)
         if isinstance(model_params, str)

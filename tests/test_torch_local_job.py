@@ -161,9 +161,11 @@ def test_bare_local_master_and_worker_process(tmp_path):
         master.stdout.close()
 
 
-def test_client_refuses_what_is_not_ported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        client_main.main(["zoo", "init"])
+def test_client_refuses_what_is_not_ported(monkeypatch, tmp_path):
+    # The zoo subcommand is ported (client/zoo.py); an unknown command is refused.
+    assert client_main.main(["zoo", "init", str(tmp_path / "zoo")]) == 0
+    assert (tmp_path / "zoo" / "my_model.py").exists()
+    assert client_main.main(["no_such_command"]) == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         client_main.main(["train", "--distribution_strategy=Local", *MNIST,

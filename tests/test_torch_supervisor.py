@@ -282,12 +282,15 @@ def test_start_serving_fleet_binds_a_policy(tmp_path, monkeypatch):
             self.started = True
             return self
 
+        def stop(self):
+            self.stopped = True
+
     monkeypatch.setattr(supervisor, "ServingReplicaManager", FakeFleet)
     policy = Policy()
     manager = supervisor.start_serving_fleet(2, "/m", str(tmp_path / "serve"), policy=policy,
                                              device="cpu")
     try:
-        assert policy.manager is manager and policy.started
+        assert policy.manager is manager and policy.started and manager.policy is policy
         assert manager.slo_follower is not None and manager.current_worker_ids() == [0, 1]
         argv = manager._worker_argv_fn(0)
         assert argv[argv.index("-m") + 1] == "elasticdl_tpu_torch.serving.replica_main"
@@ -299,6 +302,7 @@ def test_start_serving_fleet_binds_a_policy(tmp_path, monkeypatch):
         manager.stop()
         obs.journal().configure(None)
     assert manager.slo_follower._thread is None
+    assert policy.stopped  # the engine stops with the fleet
     with open(tmp_path / "serve" / "events.jsonl") as f:
         starts = [e for e in map(json.loads, f) if e["event"] == "serving_fleet_start"]
     assert starts and starts[0]["replicas"] == 2
