@@ -80,7 +80,7 @@ kernels K4-K6):
 11. Training at full width: ``TransformerLM`` at ``bench.py``'s
     ``TRANSFORMER_BENCH`` (vocab 32768, d_model 512, 8 heads, 4 layers,
     T=2048, bf16, f32 head), batch 16 of the synthetic LM data, AdamW
-    3e-3, by ``DataParallelTrainer`` on the default device: warm-up, 20
+    3e-3, by ``DataParallelTrainer`` on the default device: warm-up, 10
     timed steps (tokens/s, median step, a CUDA-event breakdown with K4's,
     K5's and K6's in-step times, peak memory), the loss must fall;
     then one ``train_window`` of 4 staged steps.
@@ -110,7 +110,7 @@ sequence sharded over a mesh's ``model`` axis):
     the whole sequence: output and gradients at phase 10's tolerances.
 15. The LM at TRANSFORMER_BENCH's widths, T=8192 (max_len 8192), batch 4,
     context parallel over an in-process (data=1, model=4) mesh of the
-    card, ``contiguous`` and ``zigzag``: 2 warm-up and 10 timed steps
+    card, ``contiguous`` and ``zigzag``: 2 warm-up and 5 timed steps
     (tokens/s, median step, the CUDA-event breakdown with K7-K9's time in
     the step, peak memory); the loss must fall.
 16. From one state, 3 steps of the CP path against the one-card trainer
@@ -548,6 +548,43 @@ The fleet under the policy engine and a user's own model zoo:
     ``elasticdl_tpu/``, ``_build/``, ``__pycache__`` or ``*.so``.  The
     scaffold is an MLP: no kernel launches, here or in the replica.
 
+Tensor parallelism, FSDP, the xla engine over the whole mesh and the
+host optimizer kernels:
+
+45. The LM at phase 11's widths (bf16 blocks, f32 head, batch 16) with
+    ``model_axis_mode="tp"`` over an in-process (data=1, model=4) mesh of
+    the card: each slot's 2 heads through K4-K6 on ``[16, 2048, 2, 64]``,
+    its columns of ``Dense_0`` and rows of ``Dense_1``; 2 warm-up and 5
+    timed steps (tokens/s, median step, K4-K6's launches and in-step
+    times from CUDA events, peak memory), the loss falls; then, from one
+    state, 3 steps against phase 11's one-card trainer with f32 blocks at
+    phase 12's tolerances, and with bf16 blocks at CP_BF16_TOL, kernels
+    on both sides and, as the witness, the plain versions on both.
+46. The same LM with ``dense_sharding="fsdp"`` over an in-process
+    (data=4, model=1) mesh: the sharded leaves and their AdamW slots held
+    as 4 blocks of 1/4, the gathered copies released between steps; 3
+    steps from one state against the replicated trainer, losses,
+    parameters and slots equal bit for bit.  Then, in a subprocess
+    (``--fsdp_world_child``), the FSDP trainer on a world-of-one NCCL
+    group (``tcp://localhost``), 3 steps, and ``CollectiveCommunicator``'s
+    ``allreduce`` (MEAN and SUM: ``SUCCEEDED``, the value returned) and
+    ``barrier``.
+47. Phase 19's DeepFM widths and batch (26M rows, batch 8192) in the
+    split layout (its lookups are K2) with ``sparse_kernel="xla"`` and
+    sparse Adam over an in-process (2, 2) mesh: the dim-8 table and its
+    slots placed over the whole ``(data, model)`` mesh, the dim-1 table
+    replicated (the trainer's ``table_placement`` and the journal's
+    ``sparse_kernel_selected``); K2 on the 4 intervals bit for bit
+    against the one-card K2 and its plain route (edge ids included),
+    timed beside both; 2 warm-up and 5 timed steps (K2 5 times a step,
+    no K1 or K3); 3 steps against phase 37's one-card xla engine from one
+    state at phase 37's tolerances (the sparse applies under PyTorch's
+    deterministic algorithms on both sides).
+48. The host optimizer kernels (``native/kernel_api.cc``) built with
+    ``g++`` on this machine: dense and sparse sgd, momentum, adagrad and
+    adam, 3 steps each against their numpy twins at NATIVE_TOL (adam's
+    step counts exact), each call's host time.
+
 Before each of phases 21-23 the free space of its directory is checked
 (a failure names the bytes needed); each deletes its directories.
 
@@ -574,7 +611,10 @@ profiler's trace; K2 twice per dispatch of phase 39's replica; K2 and
 K3 twice per training step of phase 40 and K2 twice per replay batch
 and generation in each of its held polls; K2 twice per dispatch and
 twice per replay batch and generation of each shadow evaluation in
-phase 41's replica; K2 twice per dispatch of each replica of phase 43)
+phase 41's replica; K2 twice per dispatch of each replica of phase 43;
+K4-K6 once per layer per model slot per step of phase 45 and once per
+layer per step of phase 46, in process and in its world of one; K2
+five times per step of phase 47 and never K1 or K3 there)
 fails the run.
 The line before the last holds the card's name and power limit, the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, with no
@@ -771,6 +811,8 @@ LM_BENCH = dict(vocab=32768, d_model=512, num_heads=8, num_layers=4, seq_len=204
                 mlp_ratio=4)
 LM_BATCH = 16
 LM_LR = 3e-3
+#: Phase 11's timed steps.
+LM_STEPS = 10
 FLASH_SOURCE = "elasticdl_tpu_torch/ops/csrc/flash_attention.cu"
 FLASH_REPLACES = {
     "flash_attention_fwd": "elasticdl_tpu/ops/flash_attention.py:54",
@@ -853,7 +895,7 @@ RING_SLOTS = 4
 CP_LM = dict(LM_BENCH, seq_len=8192)
 CP_BATCH = 4
 CP_MESH = (1, 4)
-CP_WARMUP, CP_STEPS, CP_BATCHES = 2, 10, 4
+CP_WARMUP, CP_STEPS, CP_BATCHES = 2, 5, 4
 #: One slot's ring step on the CP LM's path (B, T_local, H, D): phase 13
 #: holds K7-K9 to their plain versions there too (the head_dim-64 build),
 #: in bf16 (phase 15) and in f32 (phase 16's f32 models).
@@ -2398,7 +2440,7 @@ def lm_compare(first, second, staged, card, what, tol=LM_PATH_TOL):
             "grad_rel_l2": grad_rel, "max_param_diff": worst, "update_rel_l2": update_rel}
 
 
-def lm_training_phases(card: str, seed: int, warmup: int = 2, steps: int = 20,
+def lm_training_phases(card: str, seed: int, warmup: int = 2, steps: int = LM_STEPS,
                        n_batches: int = 8):
     import numpy as np
     import torch
@@ -8087,19 +8129,29 @@ FLASH_LM_BUILDS = {
 }
 
 
-def flash_entries(attention, edges, train, card, resources=None, resumed=None, heads=None):
+def flash_entries(attention, edges, train, card, resources=None, resumed=None, heads=None,
+                  tp=None, fsdp=None):
     """The K4-K6 entries of the kernels line: numbers at the LM's shape
-    (the first of ATTN_SHAPES), the other shapes beside them."""
+    (the first of ATTN_SHAPES), the other shapes beside them, and the
+    launches and in-step times of the TP and FSDP paths."""
     line = []
     for name in FLASH_REPLACES:
         main_shape = attention[0]["kernels"][name]
-        by_path = {"lm_train_20_steps": train["launches_step"][name],
+        by_path = {f"lm_train_{LM_STEPS}_steps": train["launches_step"][name],
                    "lm_train_window_4_steps": train["launches_window"][name]}
         if resumed is not None:
             by_path["lm_resumed_2_steps"] = resumed["launches_resumed_2_steps"][name]
         if heads is not None:
             for head in ("f32", "bf16"):
                 by_path[f"lm_{head}_head_20_steps"] = heads[head]["launches"][name]
+        if tp is not None:
+            by_path[f"lm_tensor_parallel_{TP_STEPS}_steps (mesh {TP_MESH}, "
+                    f"{tp['launches_per_step']} a step)"] = tp["launches"][name]
+        if fsdp is not None:
+            by_path[f"lm_fsdp_{FSDP_STEPS}_steps (mesh {FSDP_MESH})"] = \
+                fsdp["runs"]["fsdp"]["launches"][name]
+            by_path[f"lm_fsdp_world_of_one_{FSDP_STEPS}_steps"] = \
+                fsdp["world_of_one"]["launches"][name]
         line.append({
             "name": name, "ok": True, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES[name],
@@ -8119,6 +8171,9 @@ def flash_entries(attention, edges, train, card, resources=None, resumed=None, h
             "other_shapes": {e["shape"]: e["kernels"][name] for e in attention[1:]},
             "train_step_attention_ms": train["breakdown_ms"]["attention_kernels"],
             "train_step_kernel_ms": train["breakdown_ms"]["kernel_ms"][name],
+            "tp_launches_per_step": None if tp is None else tp["launches_per_step"],
+            "tp_slot_shape": None if tp is None else tp["slot_shape"],
+            "tp_step_kernel_ms": None if tp is None else tp["breakdown_ms"]["kernel_ms"][name],
             "card": card,
         })
     return line
@@ -8832,11 +8887,652 @@ def user_zoo_phase(card: str, seed: int, workdir: str, device=None):
     return result
 
 
+# ----------------------------------------------------------------------
+# phases 45-48: tensor parallelism, FSDP, the xla engine's whole-mesh
+# tables, the host optimizer kernels
+# ----------------------------------------------------------------------
+
+#: Phase 45: the LM at phase 11's widths, tensor parallel over an
+#: in-process (data=1, model=4) mesh of the card (2 heads a slot).
+TP_MESH = (1, 4)
+TP_WARMUP, TP_STEPS, TP_BATCHES = 2, 5, 4
+#: Phase 46: the same LM with FSDP dense state over an in-process
+#: (data=4, model=1) mesh; 3 steps against replicated from one state.
+FSDP_MESH = (4, 1)
+FSDP_STEPS = 3
+#: Phase 47: the xla engine over an in-process (2, 2) mesh, on phase 19's
+#: widths and batch (26M rows, batch 8192) in the split layout, whose
+#: lookups are K2 (the merged layout's are K1): the dim-8 table's 1.625M
+#: storage blocks split over the 4 slots, the dim-1 table's 203,125 do
+#: not and it replicates.  Per step: K2 once per slot on the dim-8 table
+#: and once on the dim-1 table.
+XLA_MESH = (2, 2)
+XLA_WARMUP, XLA_STEPS, XLA_BATCHES = 2, 5, 4
+XLA_PLACEMENT = {"fm_embedding/embedding": ("data", "model"), "linear_embedding/embedding": None}
+XLA_K2_PER_STEP = XLA_MESH[0] * XLA_MESH[1] + 1
+#: Phase 48: the host optimizer kernels against numpy on these shapes: a
+#: dense vector, and a [rows, dim] table with a training batch's ids.
+NATIVE_DENSE_N = 1 << 20
+NATIVE_TABLE = (1_000_000, 8)
+NATIVE_IDS = TRAIN_BATCH * NUM_CAT
+#: The host kernels against numpy's float32 loops: the same operations in
+#: the same order, up to a multiply-add the compiler may contract and
+#: ``std::pow`` against numpy's ``power`` in the bias corrections; the
+#: step counts exact.
+NATIVE_TOL = dict(rtol=1e-5, atol=1e-7)
+
+
+def lm_params(cfg=None) -> dict:
+    cfg = cfg or LM_BENCH
+    return dict(vocab=cfg["vocab"], d_model=cfg["d_model"], num_heads=cfg["num_heads"],
+                num_layers=cfg["num_layers"], max_len=cfg["seq_len"])
+
+
+def lm_batches(seed: int, n_batches: int, batch: int = LM_BATCH, cfg=None):
+    import numpy as np
+
+    from elasticdl_tpu_torch.data.synthetic import synthetic_lm_arrays
+
+    cfg = cfg or LM_BENCH
+    tokens, nxt = synthetic_lm_arrays(batch * n_batches, cfg["seq_len"], cfg["vocab"], seed)
+    ones = np.ones((batch,), np.float32)
+    return [(tokens[i * batch:(i + 1) * batch], nxt[i * batch:(i + 1) * batch], ones)
+            for i in range(n_batches)]
+
+
+def timed_steps(trainer, staged, warmup: int, steps: int):
+    """``warmup`` then ``steps`` steps over ``staged`` (cycled), each timed
+    between CUDA events; the launch counts of K4-K9 and of K1-K3 are zeroed
+    after the warm-up.  -> (losses, step ms sorted, wall s, peak bytes)."""
+    import torch
+
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+
+    losses = [trainer.train_step_staged(staged[i % len(staged)]) for i in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    ske.reset_launch_counts()
+    events = []
+    t0 = time.perf_counter()
+    for i in range(warmup, warmup + steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(trainer.train_step_staged(staged[i % len(staged)]))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [float(x) for x in torch.stack(losses).cpu()]
+    return losses, sorted(s.elapsed_time(e) for s, e in events), wall, \
+        torch.cuda.max_memory_allocated()
+
+
+def loss_falls(what: str, losses, head: int = 2) -> tuple:
+    import numpy as np
+
+    first, last = float(np.mean(losses[:head])), float(np.mean(losses[-head:]))
+    if not np.all(np.isfinite(losses)) or not last < first:
+        fail(f"{what}: the loss did not fall: {losses}")
+    return first, last
+
+
+def tp_lm_phase(card: str, seed: int):
+    """Phase 45: the LM tensor parallel over an in-process (1, 4) mesh:
+    2 warm-up and 5 timed steps (tokens/s, median step, K4-K6's launches
+    and in-step times, peak memory; K4-K6 once per layer per slot per
+    step, on ``[B, T, H/4, D]``; the loss must fall); then, from one
+    state, 3 steps against phase 11's one-card trainer, with f32 blocks
+    at phase 12's tolerances and with bf16 blocks at CP_BF16_TOL, kernels
+    on both sides and, as the witness, the plain versions on both."""
+    import torch
+
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel.dp_trainer import (
+        DataParallelTrainer,
+        DPTrainState,
+        clone_tree,
+    )
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    cfg, batch = LM_BENCH, LM_BATCH
+    zoo = resolve(LM_DEF)
+    data, slots = TP_MESH
+    mesh = in_process_mesh(data, slots)
+    params = lm_params()
+    batches = lm_batches(seed, TP_BATCHES)
+    model = build_model(LM_DEF, dict(params, mesh=mesh, model_axis_mode="tp"))
+    trainer = DataParallelTrainer(model, zoo.loss, zoo.optimizer(LM_LR), mesh=mesh, seed=seed)
+    if trainer.device != card_device() or model.model_axis_mode != "tp":
+        fail(f"the TP trainer runs on {trainer.device} with model axis {model.model_axis_mode}")
+    trainer.ensure_initialized()
+    staged = [trainer.stage_batch(*b) for b in batches]
+    losses, step_ms, wall, peak = timed_steps(trainer, staged, TP_WARMUP, TP_STEPS)
+    counts = fa.launch_counts()
+    per_step = cfg["num_layers"] * slots
+    for name in fa.KERNELS:
+        if counts[name] != per_step * TP_STEPS:
+            fail(f"{name} launched {counts[name]} times in {TP_STEPS} TP steps (want "
+                 f"{per_step * TP_STEPS}: once per layer per model slot)")
+    if any(counts[name] for name in fa.RING_KERNELS):
+        fail(f"the TP path launched a ring kernel: {counts}")
+    first, last = loss_falls("TP LM", losses)
+    parts = lm_time_parts(trainer, staged[0])
+    result = {
+        "mesh": list(TP_MESH), "tokens_per_s": TP_STEPS * batch * cfg["seq_len"] / wall,
+        "step_ms_median": step_ms[len(step_ms) // 2], "loss_first2": first,
+        "loss_last2": last, "breakdown_ms": parts, "peak_memory_gb": peak / 1e9,
+        "launches": counts, "launches_per_step": per_step,
+        "slot_shape": [batch, cfg["seq_len"], cfg["num_heads"] // slots,
+                       cfg["d_model"] // cfg["num_heads"]],
+    }
+    log(f"TP LM train (mesh {data}x{slots} in-process, {cfg['num_heads'] // slots} heads a "
+        f"slot): {TP_STEPS} steps of {batch}x{cfg['seq_len']}: {result['tokens_per_s']!r} "
+        f"tokens/s, step median {result['step_ms_median']!r} ms (device, CUDA events); loss "
+        f"{first!r} -> {last!r}; launches {counts}; peak {peak / 1e9!r} GB; one step's parts "
+        f"{parts} [{card}]")
+    del trainer, model, staged
+    torch.cuda.empty_cache()
+
+    for use_bf16 in (False, True):
+        kind = "bf16" if use_bf16 else "f32"
+        model_params = dict(params, use_bf16=use_bf16)
+        tp = DataParallelTrainer(
+            build_model(LM_DEF, dict(model_params, mesh=mesh, model_axis_mode="tp")), zoo.loss,
+            zoo.optimizer(LM_LR), mesh=mesh, seed=seed)
+        one_card = DataParallelTrainer(build_model(LM_DEF, model_params, device=card_device()),
+                                       zoo.loss, zoo.optimizer(LM_LR), seed=seed,
+                                       device=card_device())
+        tp.ensure_initialized()
+        one_card.ensure_initialized()
+        staged = [tp.stage_batch(*b) for b in batches[:3]]
+        start = DPTrainState(0, clone_tree(tp.state.params), clone_tree(tp.state.opt_state), {})
+        what = f"TP LM ({kind}, K4-K6 on each slot's heads) vs one-card LM ({kind})"
+        result[f"vs_one_card_{kind}"] = lm_compare(
+            (tp, contextlib.nullcontext), (one_card, contextlib.nullcontext), staged, card, what,
+            CP_BF16_TOL if use_bf16 else LM_PATH_TOL)
+        if use_bf16:
+            tp.state = start
+            result["vs_one_card_bf16_plain"] = lm_compare(
+                (tp, plain_attention), (one_card, plain_attention), staged, card,
+                "the witness: plain TP LM (bf16, the plain versions of K4-K6) vs plain "
+                "one-card LM (bf16)", CP_BF16_TOL)
+        del tp, one_card, staged, start
+        torch.cuda.empty_cache()
+    result["card"] = card
+    return result
+
+
+def fsdp_world_child(seed: int) -> None:
+    """Phase 46's subprocess: a world of one NCCL rank (``tcp://localhost``),
+    the FSDP trainer over its process mesh (a data axis of one: the
+    replicated layout), 3 steps, then ``CollectiveCommunicator``'s
+    ``allreduce`` and ``barrier``; prints one JSON line."""
+    import datetime
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel.collective import CollectiveCommunicator
+    from elasticdl_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+    from elasticdl_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        zoo = resolve(LM_DEF)
+        mesh = build_mesh(MeshConfig(1, 1))
+        trainer = DataParallelTrainer(build_model(LM_DEF, dict(lm_params(), mesh=mesh)),
+                                      zoo.loss, zoo.optimizer(LM_LR), mesh=mesh, seed=seed,
+                                      dense_sharding="fsdp")
+        batches = lm_batches(seed, FSDP_STEPS)
+        trainer.ensure_initialized()
+        fa.reset_launch_counts()
+        losses = [float(trainer.train_step_local(*b)) for b in batches]
+        torch.cuda.synchronize()
+        counts = fa.launch_counts()
+        comm = CollectiveCommunicator(mesh)
+        value = np.asarray([1.5, -2.25], np.float32)
+        mean_status, mean = comm.allreduce(value, op="MEAN")
+        sum_status, total = comm.allreduce(value, op="SUM")
+        barrier = comm.barrier("chip_smoke")
+        print(json.dumps({
+            "backend": dist.get_backend(), "world": dist.get_world_size(),
+            "mesh": repr(mesh), "device": str(trainer.device),
+            "fsdp_leaves": len(trainer.fsdp_leaves), "losses": losses, "launches": counts,
+            "allreduce_mean": [mean_status.name, np.asarray(mean).tolist()],
+            "allreduce_sum": [sum_status.name, np.asarray(total).tolist()],
+            "barrier": barrier.name}), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def fsdp_lm_phase(card: str, seed: int):
+    """Phase 46: the LM with FSDP dense state over an in-process (4, 1)
+    mesh: each sharded leaf and its AdamW slots held as 4 blocks of 1/4,
+    the model's gathered copies released between steps; 3 steps against
+    the replicated trainer from one state, losses and every parameter
+    and slot equal bit for bit (the optimizer is elementwise); K4-K6
+    once per layer per step.  Then, in a subprocess, the FSDP trainer on
+    a world-of-one NCCL group and ``CollectiveCommunicator``'s
+    ``allreduce`` (``SUCCEEDED``, the value returned) and ``barrier``."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel.dp_trainer import (
+        DataParallelTrainer,
+        DPTrainState,
+        clone_tree,
+    )
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    cfg, zoo = LM_BENCH, resolve(LM_DEF)
+    mesh = in_process_mesh(*FSDP_MESH)
+    data = FSDP_MESH[0]
+    params = dict(lm_params(), mesh=mesh)
+    batches = lm_batches(seed, FSDP_STEPS)
+    replicated = DataParallelTrainer(build_model(LM_DEF, params), zoo.loss,
+                                     zoo.optimizer(LM_LR), mesh=mesh, seed=seed)
+    fsdp = DataParallelTrainer(build_model(LM_DEF, params), zoo.loss, zoo.optimizer(LM_LR),
+                               mesh=mesh, seed=seed, dense_sharding="fsdp")
+    replicated.ensure_initialized()
+    live = replicated.state
+    fsdp.ensure_initialized()
+    fsdp.state = DPTrainState(0, clone_tree(live.params), clone_tree(live.opt_state), {})
+    leaves = fsdp.fsdp_leaves
+    local = fsdp.local_state
+    whole_elems = sum(int(np.prod(leaf.flax_shape)) for leaf in leaves.values())
+    for name, leaf in leaves.items():
+        for i in range(data):
+            for tree in (local.params, local.opt_state["mu"], local.opt_state["nu"]):
+                if tuple(tree[f"{name}@{i}"].shape) != leaf.block_shape:
+                    fail(f"FSDP block {name}@{i}: {tuple(tree[f'{name}@{i}'].shape)}, want "
+                         f"{leaf.block_shape}")
+        if fsdp.model.get_parameter(name).untyped_storage().size():
+            fail(f"FSDP kept the gathered copy of {name} between steps")
+    if not leaves:
+        fail("FSDP sharded no leaf of the LM")
+    staged = [replicated.stage_batch(*b) for b in batches]
+    runs = {}
+    for name, trainer in (("fsdp", fsdp), ("replicated", replicated)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        events, losses = [], []
+        for i in range(FSDP_STEPS):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            losses.append(trainer.train_step_staged(staged[i]))
+            e.record()
+            events.append((s, e))
+        torch.cuda.synchronize()
+        runs[name] = {"losses": [float(x) for x in losses],
+                      "step_ms": [s.elapsed_time(e) for s, e in events],
+                      "launches": fa.launch_counts(),
+                      "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        want = cfg["num_layers"] * FSDP_STEPS
+        if any(runs[name]["launches"][k] != want for k in fa.KERNELS):
+            fail(f"{name}: K4-K6 launched {runs[name]['launches']} in {FSDP_STEPS} steps "
+                 f"(want {want} each)")
+    if runs["fsdp"]["losses"] != runs["replicated"]["losses"]:
+        fail(f"FSDP losses {runs['fsdp']['losses']} != replicated {runs['replicated']['losses']}")
+    got, want = fsdp.state, replicated.state
+    differ = [name for name in want.params if not torch.equal(got.params[name], want.params[name])]
+    differ += [f"{slot}/{name}" for slot in ("mu", "nu") for name in want.params
+               if not torch.equal(got.opt_state[slot][name], want.opt_state[slot][name])]
+    if differ:
+        fail(f"FSDP vs replicated after {FSDP_STEPS} steps: {len(differ)} leaves differ, "
+             f"first {differ[:4]}")
+    result = {
+        "mesh": list(FSDP_MESH), "sharded_leaves": len(leaves), "leaves": len(want.params),
+        "sharded_elements": whole_elems,
+        "elements": sum(p.numel() for p in want.params.values()),
+        "block_fraction": 1 / data, "runs": runs, "bit_equal": True,
+    }
+    log(f"FSDP LM over {FSDP_MESH} in-process: {len(leaves)} of {len(want.params)} leaves "
+        f"({whole_elems} of {result['elements']} elements) held as {data} blocks with their "
+        f"AdamW slots; {FSDP_STEPS} steps bit-equal to replicated (losses, params, mu, nu); "
+        f"step ms FSDP {runs['fsdp']['step_ms']} vs replicated {runs['replicated']['step_ms']} "
+        f"(CUDA events), peak {runs['fsdp']['peak_memory_gb']!r} vs "
+        f"{runs['replicated']['peak_memory_gb']!r} GB [{card}]")
+    del fsdp, replicated, staged, got, want, live, local
+    torch.cuda.empty_cache()
+
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--fsdp_world_child",
+                           "--seed", str(seed)], capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        fail(f"the FSDP world of one exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    world = json.loads(lines[-1])
+    value = np.asarray([1.5, -2.25], np.float32)
+    if world["backend"] != "nccl" or world["world"] != 1 or \
+            not world["device"].startswith("cuda"):
+        fail(f"the FSDP world of one ran {world}")
+    if world["allreduce_mean"] != ["SUCCEEDED", value.tolist()] or \
+            world["allreduce_sum"] != ["SUCCEEDED", value.tolist()] or \
+            world["barrier"] != "SUCCEEDED":
+        fail(f"CollectiveCommunicator on a world of one: {world}")
+    if any(world["launches"][k] != cfg["num_layers"] * FSDP_STEPS for k in fa.KERNELS):
+        fail(f"the FSDP world of one launched {world['launches']}")
+    if not all(np.isfinite(world["losses"])):
+        fail(f"the FSDP world of one: losses {world['losses']}")
+    result["world_of_one"] = world
+    log(f"FSDP world of one (NCCL, {world['mesh']}): {world['fsdp_leaves']} sharded leaves (a "
+        f"data axis of one is the replicated layout), losses {world['losses']}, launches "
+        f"{world['launches']}; allreduce {world['allreduce_mean']} / {world['allreduce_sum']}, "
+        f"barrier {world['barrier']} [{card}]")
+    result["card"] = card
+    return result
+
+
+def whole_mesh_lookup_checks(ske, spec, table, gen, dev, mesh, flush, card):
+    """K2 on the whole-mesh intervals of ``table`` (65,536 ids): one launch
+    per slot; bit-exact with the one-card K2 for ids in the table and
+    with the plain route (``fused_lookup_plain``, the same placement) for
+    every id, ids no interval owns included; timed beside both."""
+    import torch
+
+    slots = mesh.size
+    ids = torch.randint(0, spec.vocab_size, (65_536,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ske.reset_launch_counts()
+    got = ske.fused_lookup(spec, table, ids, mesh=mesh, whole_mesh=True)
+    counts = ske.launch_counts()
+    if counts["fused_lookup"] != slots or not bit_equal(got, ske.fused_lookup(spec, table, ids)):
+        fail(f"whole-mesh fused_lookup: launches {counts}, or it differs from the one-card K2")
+    local_rows = spec.vocab_padded // slots
+    edges = [-1, -2**31, spec.vocab_padded, 2**31 - 1] + [s * local_rows for s in range(slots)] \
+        + [local_rows - 1, spec.vocab_padded - 1]
+    edge_ids = ids.clone()
+    edge_ids[:len(edges)] = torch.tensor(edges, dtype=torch.int32, device=dev)
+    got = ske.fused_lookup(spec, table, edge_ids, mesh=mesh, whole_mesh=True)
+    want = ske.fused_lookup_plain(spec, table, edge_ids, mesh=mesh, whole_mesh=True)
+    torch.cuda.synchronize()
+    if not bit_equal(got, want):
+        fail(f"whole-mesh fused_lookup differs from its plain route: "
+             f"{first_difference(got, want)}")
+    n, dim = ids.shape[0], spec.dim
+    r = {
+        "shape": f"ids [{n}] dim {dim} over {slots} intervals", "launches_per_call": slots,
+        "ms": median_ms(lambda: ske.fused_lookup(spec, table, ids, mesh=mesh, whole_mesh=True),
+                        flush),
+        "plain_ms": median_ms(lambda: ske.fused_lookup_plain(spec, table, ids, mesh=mesh,
+                                                             whole_mesh=True), flush),
+        "one_card_ms": median_ms(lambda: ske.fused_lookup(spec, table, ids), flush),
+        "bound_ms": bound_ms(lookup_bytes(n, dim)),
+        "max_abs_err": float((got - want).abs().max()),
+    }
+    log(f"whole-mesh fused_lookup over {XLA_MESH} ({slots} intervals of {local_rows} rows): "
+        f"bit-exact with the one-card K2 and with the plain route (edge ids); {r['ms']!r} ms "
+        f"(plain route {r['plain_ms']!r} ms, one card {r['one_card_ms']!r} ms, bound "
+        f"{r['bound_ms']!r} ms), {slots} K2 launches a call [{card}]")
+    return r
+
+
+def whole_mesh_xla_phase(card: str, seed: int):
+    """Phase 47: the xla engine's whole-mesh tables: the placement (the
+    trainer's and the journal's ``sparse_kernel_selected``), K2 on the
+    whole-mesh intervals against the one-card K2 and its plain route, 2
+    warm-up and 5 timed steps (K2 launches per step, step ms), then 3
+    steps against phase 37's one-card xla engine from one state (the
+    sparse applies under PyTorch's deterministic algorithms on both
+    sides), tables and slots at phase 37's tolerances."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch import obs
+    from elasticdl_tpu_torch.common.params import parse_dict_params
+    from elasticdl_tpu_torch.data.synthetic import synthetic_ctr_arrays
+    from elasticdl_tpu_torch.ops import sparse_embedding as ske
+    from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer, clone_state
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    zoo = resolve(MODEL_DEF)
+    mesh = in_process_mesh(*XLA_MESH)
+    params = parse_dict_params(SPLIT_TRAIN_PARAMS)
+    feats, labels = synthetic_ctr_arrays(TRAIN_BATCH * XLA_BATCHES,
+                                         vocab_size=params["vocab_size"], seed=seed)
+    batches = [({k: v[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH] for k, v in feats.items()},
+                labels[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH],
+                np.ones((TRAIN_BATCH,), np.float32)) for i in range(XLA_BATCHES)]
+
+    def trainer_for(mesh):
+        model = build_model(MODEL_DEF, dict(params, mesh=mesh) if mesh else params)
+        trainer = ShardedEmbeddingTrainer(model, zoo.loss, zoo.optimizer(),
+                                          embedding_optimizer=zoo.embedding_optimizer(),
+                                          seed=seed, sparse_kernel="xla", mesh=mesh)
+        apply = trainer.sparse_apply
+
+        def deterministic_apply(sparse, apply=apply):
+            with deterministic():  # index_add_ in index order on both sides
+                apply(sparse)
+
+        trainer.sparse_apply = deterministic_apply
+        return trainer
+
+    trainer = trainer_for(mesh)
+    if trainer.table_placement != XLA_PLACEMENT:
+        fail(f"the xla engine over {XLA_MESH} placed {trainer.table_placement}")
+    trainer.ensure_initialized()
+    record = [r for r in obs.journal().tail(50) if r["event"] == "sparse_kernel_selected"][-1]
+    want_record = {k: None if v is None else ",".join(v) for k, v in XLA_PLACEMENT.items()}
+    if record.get("kernel") != "xla" or record.get("placement") != want_record:
+        fail(f"the journal's sparse_kernel_selected: {record}")
+    gen = torch.Generator(device=card_device())
+    gen.manual_seed(seed)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=card_device())
+    layer = trainer.model.fm_embedding
+    lookup = whole_mesh_lookup_checks(ske, layer.spec, layer.embedding, gen, card_device(),
+                                      mesh, flush, card)
+    del flush
+    staged = [trainer.stage_batch(*b) for b in batches]
+    losses, step_ms, wall, peak = timed_steps(trainer, staged, XLA_WARMUP, XLA_STEPS)
+    counts = ske.launch_counts()
+    if counts["fused_lookup"] != XLA_K2_PER_STEP * XLA_STEPS or counts["fused_dedup_apply"] or \
+            counts["fused_lookup_fm"]:
+        fail(f"{XLA_STEPS} whole-mesh xla steps launched {counts} (want K2 "
+             f"{XLA_K2_PER_STEP} a step, no K1 or K3)")
+    first, last = loss_falls("whole-mesh xla DeepFM", losses)
+    result = {
+        "mesh": list(XLA_MESH), "placement": record["placement"],
+        "samples_per_s": XLA_STEPS * TRAIN_BATCH / wall,
+        "step_ms_median": step_ms[len(step_ms) // 2], "loss_first2": first, "loss_last2": last,
+        "launches": counts, "k2_per_step": counts["fused_lookup"] / XLA_STEPS,
+        "peak_memory_gb": peak / 1e9, "lookup": lookup,
+        "breakdown_ms": time_parts(trainer, staged[0], ("fused_lookup",)),
+    }
+    log(f"whole-mesh xla DeepFM over {XLA_MESH} (26M rows split, batch {TRAIN_BATCH}, adam, "
+        f"placement {record['placement']}): {XLA_STEPS} steps, {result['samples_per_s']!r} "
+        f"samples/s, step median {result['step_ms_median']!r} ms (device, CUDA events); loss "
+        f"{first!r} -> {last!r}; launches {counts}; peak {peak / 1e9!r} GB; one step's parts "
+        f"{result['breakdown_ms']} [{card}]")
+
+    start = clone_state(trainer.state)
+
+    def three_steps(trainer):
+        losses = [float(trainer.train_step_staged(staged[i])) for i in range(3)]
+        state = trainer.state
+        torch.cuda.synchronize()
+        return losses, {k: t.clone() for k, t in state.tables.items()}, \
+            {k: {n: v.clone() for n, v in g.items()} for k, g in state.slots.items()}
+
+    mesh_run = three_steps(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    one_card = trainer_for(None)
+    one_card.ensure_initialized()
+    one_card.state = start
+    del start
+    one_run = three_steps(one_card)
+    del one_card
+    np.testing.assert_allclose(mesh_run[0], one_run[0], rtol=PATH_LOSS_RTOL)
+    worst = 0.0
+    for key in one_run[1]:
+        worst = max(worst, close_state(f"whole-mesh xla vs one-card xla ({key})",
+                                       mesh_run[1][key], mesh_run[2][key], one_run[1][key],
+                                       one_run[2][key], ENGINE_TOL))
+    result["vs_one_card"] = {"losses_mesh": mesh_run[0], "losses_one_card": one_run[0],
+                             "max_abs": worst}
+    log(f"whole-mesh xla vs one-card xla (phase 37's engine), 3 steps from one state: losses "
+        f"{mesh_run[0]} vs {one_run[0]}; tables and slots max |diff| {worst!r} (tolerance "
+        f"{ENGINE_TOL}) [{card}]")
+    del mesh_run, one_run
+    torch.cuda.empty_cache()
+    result["card"] = card
+    return result
+
+
+def native_reference(kind: str, state: dict, grad, step) -> None:
+    """numpy float32 twins of ``native/kernel_api.cc``'s dense loops, in
+    place (``step``: adam's count, a scalar or one per row)."""
+    import numpy as np
+
+    f = np.float32
+    lr, mu, b1, b2 = f(0.01), f(0.9), f(0.9), f(0.999)
+    p = state["param"]
+    if kind == "sgd":
+        p -= lr * grad
+    elif kind == "momentum":
+        state["velocity"][:] = mu * state["velocity"] + grad
+        p -= lr * state["velocity"]
+    elif kind == "adagrad":
+        state["accum"] += grad * grad
+        p -= lr * grad / (np.sqrt(state["accum"]) + f(1e-7))
+    else:
+        t = np.asarray(step, np.float32)
+        bc1, bc2 = f(1) - np.power(b1, t), f(1) - np.power(b2, t)
+        state["m"][:] = b1 * state["m"] + (f(1) - b1) * grad
+        state["v"][:] = b2 * state["v"] + (f(1) - b2) * grad * grad
+        p -= lr * (state["m"] / bc1) / (np.sqrt(state["v"] / bc2) + f(1e-8))
+
+
+def native_sparse_reference(kind: str, state: dict, grad, ids) -> None:
+    """The sparse loops' numpy twin: each distinct id's gradients summed
+    in position order, then the dense update of its row (momentum and
+    adam skip a row whose sum is all zero, and adam counts its steps)."""
+    import numpy as np
+
+    uniq, inverse = np.unique(ids, return_inverse=True)
+    sums = np.zeros((len(uniq), grad.shape[1]), np.float32)
+    np.add.at(sums, inverse, grad)
+    if kind in ("momentum", "adam"):
+        live = sums.any(axis=1)
+        uniq, sums = uniq[live], sums[live]
+    rows = {k: v[uniq] for k, v in state.items() if k != "t"}
+    step = None
+    if kind == "adam":
+        state["t"][uniq] += 1
+        step = state["t"][uniq][:, None]
+    native_reference(kind, rows, sums, step)
+    for k, v in rows.items():
+        state[k][uniq] = v
+
+
+def native_kernels_phase(card: str, seed: int):
+    """Phase 48: the host optimizer kernels (``native/kernel_api.cc``)
+    built with ``g++`` on this machine, each dense and sparse kind against
+    its numpy twin over 3 steps at NATIVE_TOL (step counts exact), with
+    each call's host time.  Host code: no main path calls them."""
+    import numpy as np
+
+    from elasticdl_tpu_torch import native
+
+    t0 = time.perf_counter()
+    path = native.build_kernels(force=True)
+    if path is None:
+        fail("the host optimizer kernels did not build")
+    kernels = native.NativeKernels()
+    built_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    slots = {"sgd": (), "momentum": ("velocity",), "adagrad": ("accum",), "adam": ("m", "v")}
+    result = {"library": os.path.relpath(path, os.path.dirname(os.path.abspath(__file__))),
+              "build_s": built_s}
+    for sparse in (False, True):
+        for kind, names in slots.items():
+            if sparse:
+                rows, dim = NATIVE_TABLE
+                start = {"param": rng.standard_normal((rows, dim)).astype(np.float32)}
+                start.update({n: np.zeros((rows, dim), np.float32) for n in names})
+                if kind == "adam":
+                    start["t"] = np.zeros(rows, np.int64)
+            else:
+                start = {"param": rng.standard_normal(NATIVE_DENSE_N).astype(np.float32)}
+                start.update({n: np.zeros(NATIVE_DENSE_N, np.float32) for n in names})
+            got = {k: v.copy() for k, v in start.items()}
+            want = {k: v.copy() for k, v in start.items()}
+            host = []
+            for step in range(1, 4):
+                if sparse:
+                    ids = rng.integers(0, NATIVE_TABLE[0] // 8, NATIVE_IDS).astype(np.int64)
+                    grad = rng.standard_normal((NATIVE_IDS, NATIVE_TABLE[1])).astype(np.float32)
+                    grad[::97] = 0.0  # padding rows: zero grads
+                else:
+                    ids = None
+                    grad = rng.standard_normal(NATIVE_DENSE_N).astype(np.float32)
+                t0 = time.perf_counter()
+                call_native(kernels, kind, got, grad, ids, step)
+                host.append((time.perf_counter() - t0) * 1e3)
+                if sparse:
+                    native_sparse_reference(kind, want, grad, ids)
+                else:
+                    native_reference(kind, want, grad, step)
+            worst = 0.0
+            for key, value in want.items():
+                if key == "t":
+                    if not np.array_equal(got[key], value):
+                        fail(f"host {kind} sparse: the step counts differ")
+                    continue
+                np.testing.assert_allclose(got[key], value, **NATIVE_TOL,
+                                           err_msg=f"host {kind} {key}")
+                worst = max(worst, float(np.abs(got[key] - value).max()))
+            label = f"{kind}_{'sparse' if sparse else 'dense'}"
+            result[label] = {"max_abs": worst, "host_ms": host}
+            log(f"host kernel {label}: 3 steps against numpy, max |diff| {worst!r}; host ms "
+                f"{[round(x, 3) for x in host]}")
+    log(f"host optimizer kernels built with g++ in {built_s:.1f} s ({result['library']}) "
+        f"[{card}]")
+    result["card"] = card
+    return result
+
+
+def call_native(kernels, kind: str, state: dict, grad, ids, step: int) -> None:
+    p = state["param"]
+    if ids is None:
+        if kind == "sgd":
+            kernels.sgd(p, grad, 0.01)
+        elif kind == "momentum":
+            kernels.momentum(p, state["velocity"], grad, 0.01, 0.9)
+        elif kind == "adagrad":
+            kernels.adagrad(p, state["accum"], grad, 0.01, 1e-7)
+        else:
+            kernels.adam(p, state["m"], state["v"], grad, 0.01, 0.9, 0.999, 1e-8, step)
+    elif kind == "sgd":
+        kernels.sgd_sparse(p, ids, grad, 0.01)
+    elif kind == "momentum":
+        kernels.momentum_sparse(p, state["velocity"], ids, grad, 0.01, 0.9)
+    elif kind == "adagrad":
+        kernels.adagrad_sparse(p, state["accum"], ids, grad, 0.01, 1e-7)
+    else:
+        kernels.adam_sparse(p, state["m"], state["v"], state["t"], ids, grad, 0.01)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--phases", default="",
                         help="comma-separated phase numbers to run (default: all)")
+    parser.add_argument("--fsdp_world_child", action="store_true",
+                        help="phase 46's world-of-one NCCL process (started by phase 46)")
     args = parser.parse_args()
     wanted = {int(x) for x in args.phases.split(",") if x.strip()}
 
@@ -8850,6 +9546,9 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 GEMMs in full f32
     torch.backends.cudnn.allow_tf32 = False
+    if args.fsdp_world_child:
+        fsdp_world_child(args.seed)
+        return
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -8972,6 +9671,10 @@ def main() -> None:
     ring_kernels = ring_kernel_phase(card, args.seed) if run(13) else None
     ring_whole = ring_whole_phase(card, args.seed) if run(14) else None
     cp = cp_lm_phases(card, args.seed) if run(15, 16) else None
+    tp = tp_lm_phase(card, args.seed) if run(45) else None
+    fsdp = fsdp_lm_phase(card, args.seed) if run(46) else None
+    whole_mesh = whole_mesh_xla_phase(card, args.seed) if run(47) else None
+    host_kernels = native_kernels_phase(card, args.seed) if run(48) else None
     analyzer = analyzer_census_phase(card, args.seed) if run(42) else None
     user_zoo = None
     if run(44):
@@ -8996,7 +9699,9 @@ def main() -> None:
                         "observed_job": observed, "traced_replica": traced,
                         "quality_gate": quality_gate, "quality_replica": quality_process,
                         "analyzer_census": analyzer, "fleet_policy": fleet_policy,
-                        "user_zoo": user_zoo, "card": card}))
+                        "user_zoo": user_zoo, "tensor_parallel": tp, "fsdp": fsdp,
+                        "whole_mesh_xla": whole_mesh, "host_kernels": host_kernels,
+                        "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -9014,7 +9719,8 @@ def main() -> None:
                     "observed_job": observed, "traced_replica": traced,
                     "quality_gate": quality_gate, "quality_replica": quality_process,
                     "analyzer_census": analyzer, "fleet_policy": fleet_policy,
-                    "user_zoo": user_zoo, "card": card}))
+                    "user_zoo": user_zoo, "tensor_parallel": tp, "fsdp": fsdp,
+                    "whole_mesh_xla": whole_mesh, "host_kernels": host_kernels, "card": card}))
 
     quality_steps = sum(n for n, _ in quality_gate["train_launches"])
     quality_trained = {name: sum(c[name] for _, c in quality_gate["train_launches"])
@@ -9074,7 +9780,9 @@ def main() -> None:
                              c["fused_lookup"] for c in quality_gate["held_poll_launches"]],
                          f"quality_replica_process ({quality_process['dispatches']} dispatches, "
                          f"{quality_process['shadow_batches']} replay batches of shadow "
-                         "evaluations)": quality_process["launches"]["fused_lookup"]},
+                         "evaluations)": quality_process["launches"]["fused_lookup"],
+                         f"train_whole_mesh_xla ({XLA_STEPS} steps over {XLA_MESH}, "
+                         f"{XLA_K2_PER_STEP} a step)": whole_mesh["launches"]["fused_lookup"]},
         "fused_dedup_apply": {"train_strict": train["launches_strict"]["fused_dedup_apply"],
                               "train_window": train["launches_window"]["fused_dedup_apply"],
                               "train_mesh": mesh_train["launches"]["fused_dedup_apply"],
@@ -9136,6 +9844,11 @@ def main() -> None:
             entry["train_split_step_ms"] = split_train["breakdown_ms"]["kernel_ms"][name]
             entry["ctr_zoo_shapes"] = {m: z["kernels"][name] for m, z in zoo.items()}
             entry["job_profiler_window"] = observed["profile"][name]
+            entry["whole_mesh"] = {**whole_mesh["lookup"],
+                                   "launches_per_step": whole_mesh["k2_per_step"],
+                                   "placement": whole_mesh["placement"],
+                                   "train_step_kernel_ms":
+                                       whole_mesh["breakdown_ms"]["kernel_ms"][name]}
         builds = [(resources or {}).get(build) for build in SPARSE_BUILDS[name]]
         entry["resources"] = (builds[0] if len(builds) == 1
                               else dict(zip(SPARSE_BUILDS[name], builds)))
@@ -9160,7 +9873,7 @@ def main() -> None:
         "job_profiler_window": observed["profile"]["fused_dedup_apply"],
         "card": card,
     })
-    line += flash_entries(attention, edges, lm, card, resources, lm_ckpt, lm_heads)
+    line += flash_entries(attention, edges, lm, card, resources, lm_ckpt, lm_heads, tp, fsdp)
     line += ring_entries(ring_kernels, ring_whole, cp, card, resources)
     line.append({
         "name": "block_gather", "ok": True, "route": "cuda", "source": K10_SOURCE,

@@ -339,6 +339,8 @@ PORT_OPTIONAL_EXTRAS = {
     "master_start": ("pid",),
     "serving_replica_start": ("device", "forbidden_modules", "startup_s"),
     "checkpoint_saved": ("rank", "seconds", "state_crc32", "model_state_crc32"),
+    # The tables' placement: an axis, "data,model" (the whole mesh) or None.
+    "sparse_kernel_selected": ("placement",),
 }
 for _event, _extras in PORT_OPTIONAL_EXTRAS.items():
     EVENT_OPTIONAL_FIELDS[_event] = EVENT_OPTIONAL_FIELDS[_event] + _extras

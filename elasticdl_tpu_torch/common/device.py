@@ -15,17 +15,12 @@ import torch
 
 DeviceLike = Union[str, torch.device, None]
 
-#: Where what needs more than one card is queued: item 5 of ROADMAP.md's
-#: Queue 1, one constant for each part of it that is still to port.  A
-#: ``parallel.mesh.Mesh`` (in-process, or one rank per card) is ported:
-#: the context-parallel path and the sharded K1-K3 dispatch raise none of
-#: them.  ``MULTI_CARD_ITEM`` itself is what a list of several real
-#: devices driven from one process raises.
+#: What a list of several real devices driven from one process raises:
+#: the one part of ROADMAP.md Queue 1 item 5 still to port.  A
+#: ``parallel.mesh.Mesh`` (in-process, or one rank per card) is ported,
+#: and every mode runs over it: context and tensor parallelism, FSDP,
+#: and the sharded sparse dispatch.
 MULTI_CARD_ITEM = "ROADMAP.md Queue 1 item 5, multi-card routing"
-#: The transformer's model_axis_mode="tp".
-TENSOR_PARALLEL_ITEM = f"{MULTI_CARD_ITEM}: tensor parallelism (model_axis_mode='tp')"
-#: DataParallelTrainer's dense_sharding="fsdp".
-FSDP_ITEM = f"{MULTI_CARD_ITEM}: FSDP (dense_sharding='fsdp')"
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

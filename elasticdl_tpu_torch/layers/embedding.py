@@ -14,7 +14,9 @@ CUDA tensor the lookup IS the kernel, on a CPU tensor its plain version.
 process default ``ske.dispatch_mesh()`` at each call, as the JAX layer
 does at trace time.  On a process mesh a trainer or loader places the
 buffer first (``parallel/sharding.place_rows``): a table split over the
-``model`` axis then holds this rank's rows only.
+``model`` axis then holds this rank's rows only.  ``whole_mesh`` (set by
+the PS trainer of the xla engine) places the table by that engine's
+rule instead, over the whole ``(data, model)`` mesh.
 
 Training (the PS trainer's sparse-gradient capture): while a ``capture()``
 context is open, each call makes a zeros tensor ``bet`` that requires
@@ -136,6 +138,8 @@ class Embedding(nn.Module):
         self.combiner = combiner
         self.fm_interaction = fm_interaction
         self.mesh = mesh
+        #: the table is placed over the whole mesh (the xla engine's rule)
+        self.whole_mesh = False
         # Uninitialised: a loader fills it (serving/convert.load_state) or
         # init_parameters draws it; at full width it is gigabytes, so it
         # is never zero-filled first.
@@ -183,8 +187,10 @@ class Embedding(nn.Module):
         if self.fm_interaction:
             if ids.dim() != 2:
                 raise ValueError("fm_interaction requires ids of shape [batch, fields]")
-            return ske.fused_lookup_fm(spec, self.embedding, bet, safe_ids, valid, mesh=mesh)
-        acts = ske.fused_lookup(spec, self.embedding, safe_ids.reshape(-1), mesh=mesh)
+            return ske.fused_lookup_fm(spec, self.embedding, bet, safe_ids, valid, mesh=mesh,
+                                       whole_mesh=self.whole_mesh)
+        acts = ske.fused_lookup(spec, self.embedding, safe_ids.reshape(-1), mesh=mesh,
+                                whole_mesh=self.whole_mesh)
         acts = acts.reshape(safe_ids.shape + (spec.dim,))
         if bet is not None:
             acts = acts + bet

@@ -1,19 +1,22 @@
-"""The native host codec of ETRF record files: the port's copy of the
-record-file half of ``elasticdl_tpu/native/__init__.py`` (build, ABI
-gate, ctypes bindings, ``NativeRecordFile``, ``record_file``).
+"""The native host libraries: the port's copy of
+``elasticdl_tpu/native/__init__.py`` (build, ABI gate, ctypes bindings,
+``NativeKernels``, ``NativeRecordFile``, ``record_file``).
 
-``recordfile.cc`` is compiled at first use with the host C++ compiler,
-``g++ -O3 -shared -fPIC`` (then ``c++``, ``clang++``), first with zlib's
-CRC-32 (``-DEDL_USE_ZLIB -lz``), then self-contained, into
-``_build/libedl_recordfile.so`` beside this file; a build that is newer
-than the source is reused.  The library is written under a temporary
-name and renamed into place, so processes that build at once never load
-a half-written file.  ``record_file()`` returns the bound codec, or None
-when no compiler or no usable library is there, and then
-``data/recordfile.py`` reads with its Python codec.
+Two C++ sources, each compiled at first use with the host C++ compiler,
+``g++ -O3 -shared -fPIC -std=c++17`` (then ``c++``, ``clang++``), into
+``_build/`` beside this file; a build that is newer than its source is
+reused.  A library is written under a temporary name and renamed into
+place, so processes that build at once never load a half-written file.
 
-The host optimizer kernels of the JAX package's library
-(``kernel_api.cc``) are not part of the port.
+- ``recordfile.cc``, the ETRF codec, first with zlib's CRC-32
+  (``-DEDL_USE_ZLIB -lz``), then self-contained, into
+  ``libedl_recordfile.so``.  ``record_file()`` returns the bound codec,
+  or None when no compiler or no usable library is there, and then
+  ``data/recordfile.py`` reads with its Python codec.
+- ``kernel_api.cc``, the host optimizer kernels (JAX ``:197-260``):
+  dense and sparse sgd, momentum, adagrad and adam on numpy arrays, in
+  place, into ``libedl_kernels.so`` (``NativeKernels``).  They are host
+  code, and no main path calls them, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _SOURCE = os.path.join(_DIR, "recordfile.cc")
 BUILD_DIR = os.path.join(_DIR, "_build")
 SO_PATH = os.path.join(BUILD_DIR, "libedl_recordfile.so")
+_KERNELS_SOURCE = os.path.join(_DIR, "kernel_api.cc")
+KERNELS_SO_PATH = os.path.join(BUILD_DIR, "libedl_kernels.so")
 
 #: Must match ``edl_abi_version()`` in recordfile.cc; bump both on any
 #: C-ABI change, so a stale library is rebuilt instead of called with
@@ -45,48 +50,60 @@ _lib = None
 _load_failed = False
 
 
-def build_native(force: bool = False) -> Optional[str]:
-    """Compile ``recordfile.cc`` -> ``SO_PATH``; the path, or None when
-    there is no compiler or the source does not compile."""
-    if (not force and os.path.exists(SO_PATH)
-            and os.path.getmtime(SO_PATH) >= os.path.getmtime(_SOURCE)):
-        return SO_PATH
+def _compile(source: str, so_path: str, variants, what: str, force: bool) -> Optional[str]:
+    """Compile ``source`` -> ``so_path`` with the first compiler that
+    exists, trying each of ``variants`` (``(flags, libs)``) in turn; the
+    path, or None when there is no compiler or the source does not
+    compile."""
+    if (not force and os.path.exists(so_path)
+            and os.path.getmtime(so_path) >= os.path.getmtime(source)):
+        return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(prefix=".libedl_recordfile.", suffix=".so", dir=BUILD_DIR)
+    name = os.path.basename(so_path)
+    fd, tmp = tempfile.mkstemp(prefix=f".{name[:-3]}.", suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
         for compiler in ("g++", "c++", "clang++"):
-            zlib_failed = False
-            for extra in (["-DEDL_USE_ZLIB"], []):
+            for i, (flags, libs) in enumerate(variants):
                 try:
                     subprocess.run(
-                        [compiler, "-O3", "-shared", "-fPIC", "-std=c++17", *extra, _SOURCE,
-                         "-o", tmp, *(["-lz"] if extra else [])],
+                        [compiler, "-O3", "-shared", "-fPIC", "-std=c++17", *flags, source,
+                         "-o", tmp, *libs],
                         check=True, capture_output=True, timeout=120,
                     )
                 except FileNotFoundError:
                     break  # no such compiler: the next one
                 except subprocess.CalledProcessError as exc:
-                    if extra:
-                        zlib_failed = True
-                        continue  # no zlib headers: the self-contained build
-                    logger.error("Native codec build failed (%s): %s", compiler,
+                    if i + 1 < len(variants):
+                        continue  # e.g. no zlib headers: the next variant
+                    logger.error("Native %s build failed (%s): %s", what, compiler,
                                  exc.stderr.decode()[:2000])
                     return None
-                if zlib_failed:
-                    logger.warning("zlib-CRC native build failed (no zlib dev headers?); "
-                                   "built the self-contained CRC variant")
+                if i:
+                    logger.warning("The first native %s build failed (no zlib dev headers?); "
+                                   "built variant %s", what, flags or "self-contained")
                 # A fresh inode: a process that has the old library
                 # mapped keeps it, a new CDLL sees this one.
-                os.replace(tmp, SO_PATH)
-                logger.info("Built the native record codec with %s%s -> %s", compiler,
-                            " (+zlib crc)" if extra else "", SO_PATH)
-                return SO_PATH
-        logger.warning("No C++ compiler found; the native record codec is unavailable")
+                os.replace(tmp, so_path)
+                logger.info("Built the native %s with %s %s -> %s", what, compiler,
+                            " ".join(flags), so_path)
+                return so_path
+        logger.warning("No C++ compiler found; the native %s is unavailable", what)
         return None
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+def build_native(force: bool = False) -> Optional[str]:
+    """Compile ``recordfile.cc`` -> ``SO_PATH`` (zlib's CRC-32 first)."""
+    return _compile(_SOURCE, SO_PATH, ((["-DEDL_USE_ZLIB"], ["-lz"]), ([], [])),
+                    "record codec", force)
+
+
+def build_kernels(force: bool = False) -> Optional[str]:
+    """Compile ``kernel_api.cc`` -> ``KERNELS_SO_PATH``."""
+    return _compile(_KERNELS_SOURCE, KERNELS_SO_PATH, (([], []),), "optimizer kernels", force)
 
 
 def _bind(lib):
@@ -153,6 +170,108 @@ def load():
 
 def _u8(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+_kernels = None
+_kernels_failed = False
+
+
+def _bind_kernels(lib):
+    f32p = ctypes.POINTER(ctypes.c_float)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i64, f32, i32 = ctypes.c_int64, ctypes.c_float, ctypes.c_int
+    signatures = {
+        "edl_sgd_dense": [f32p, f32p, f32, i64],
+        "edl_momentum_dense": [f32p, f32p, f32p, f32, f32, i32, i64],
+        "edl_adagrad_dense": [f32p, f32p, f32p, f32, f32, i64],
+        "edl_adam_dense": [f32p, f32p, f32p, f32p, f32, f32, f32, f32, i64, i64],
+        "edl_sgd_sparse": [f32p, i64, i64p, f32p, i64, f32],
+        "edl_momentum_sparse": [f32p, f32p, i64, i64p, f32p, i64, f32, f32, i32],
+        "edl_adagrad_sparse": [f32p, f32p, i64, i64p, f32p, i64, f32, f32],
+        "edl_adam_sparse": [f32p, f32p, f32p, i64p, i64, i64p, f32p, i64, f32, f32, f32, f32],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)  # a library without the symbol: AttributeError
+        fn.argtypes = argtypes
+        fn.restype = None
+    return lib
+
+
+def load_kernels():
+    """The bound optimizer-kernel library (built if needed), or None."""
+    global _kernels, _kernels_failed
+    if _kernels is not None or _kernels_failed:
+        return _kernels
+    for force in (False, True):  # a stale or foreign library: rebuild once
+        path = build_kernels(force=force)
+        if path is None:
+            break
+        try:
+            _kernels = _bind_kernels(ctypes.CDLL(path))
+            return _kernels
+        except (OSError, AttributeError):
+            logger.warning("Native kernel library at %s unusable%s", path,
+                           "" if force else "; rebuilding")
+    _kernels_failed = True
+    return None
+
+
+def _fp(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _ip(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+class NativeKernels:
+    """Numpy-facing host optimizer kernels (JAX's ``NativeKernels``):
+    each call updates its float32 C-contiguous arrays in place.  Sparse
+    semantics are the sparse optimizers': duplicate ids sum first, each
+    distinct row updates once, zero-gradient rows are skipped."""
+
+    def __init__(self):
+        self._lib = load_kernels()
+        if self._lib is None:
+            raise RuntimeError("native kernels unavailable (no C++ toolchain)")
+
+    # Dense -------------------------------------------------------------
+
+    def sgd(self, param, grad, lr):
+        self._lib.edl_sgd_dense(_fp(param), _fp(grad), lr, param.size)
+
+    def momentum(self, param, velocity, grad, lr, mu, nesterov=False):
+        self._lib.edl_momentum_dense(_fp(param), _fp(velocity), _fp(grad), lr, mu,
+                                     int(nesterov), param.size)
+
+    def adagrad(self, param, accum, grad, lr, eps=1e-7):
+        self._lib.edl_adagrad_dense(_fp(param), _fp(accum), _fp(grad), lr, eps, param.size)
+
+    def adam(self, param, m, v, grad, lr, beta1, beta2, eps, step):
+        self._lib.edl_adam_dense(_fp(param), _fp(m), _fp(v), _fp(grad), lr, beta1, beta2,
+                                 eps, step, param.size)
+
+    # Sparse ------------------------------------------------------------
+
+    def sgd_sparse(self, table, ids, grads, lr):
+        ids = np.ascontiguousarray(ids, np.int64)
+        self._lib.edl_sgd_sparse(_fp(table), table.shape[1], _ip(ids), _fp(grads), len(ids), lr)
+
+    def momentum_sparse(self, table, velocity, ids, grads, lr, mu, nesterov=False):
+        ids = np.ascontiguousarray(ids, np.int64)
+        self._lib.edl_momentum_sparse(_fp(table), _fp(velocity), table.shape[1], _ip(ids),
+                                      _fp(grads), len(ids), lr, mu, int(nesterov))
+
+    def adagrad_sparse(self, table, accum, ids, grads, lr, eps=1e-7):
+        ids = np.ascontiguousarray(ids, np.int64)
+        self._lib.edl_adagrad_sparse(_fp(table), _fp(accum), table.shape[1], _ip(ids),
+                                     _fp(grads), len(ids), lr, eps)
+
+    def adam_sparse(self, table, m, v, t_rows, ids, grads, lr, beta1=0.9, beta2=0.999,
+                    eps=1e-8):
+        ids = np.ascontiguousarray(ids, np.int64)
+        self._lib.edl_adam_sparse(_fp(table), _fp(m), _fp(v), _ip(t_rows), table.shape[1],
+                                  _ip(ids), _fp(grads), len(ids), lr, beta1, beta2, eps)
 
 
 class NativeRecordFile:

@@ -44,6 +44,19 @@ Ids no shard owns read zeros on that route, where the one-card clamp
 rule reads a real row (JAX ``_sharded_lookup_impl``).  The backward of
 the two lookups stays the segment sum over the table as given.
 
+``whole_mesh=True`` places the table by the JAX xla engine's rule
+instead (``ps-xla``, JAX ``ps_trainer.py:289-293``): its storage blocks
+split over the whole ``(data, model)`` mesh when they divide
+``data * model``, one interval per slot in rank order, else it
+replicates.  The same bodies run on the intervals (K2's in-kernel
+routing takes any interval's first row).  On a process mesh the ranks
+of different data indices hold different ids, so a lookup gathers the
+ids (and ``valid``/``bet``) over ``data`` (ranks of one data index hold
+the same ones: that is the world's ids), each rank looks them up in its
+interval, the partial rows are summed over the world and each rank
+keeps its own; the apply gathers over ``data`` as above and each rank
+applies the rows of its interval.
+
 Tables are ``[vocab_padded, dim_padded]`` f32 logical rows
 (``parallel/packed.py``).  Contracts (those of ``docs/design.md`` for the
 TPU kernels): the lookup and ``acts`` are exact copies, bit for bit;
@@ -62,8 +75,10 @@ import torch
 
 from elasticdl_tpu_torch.parallel import packed as pk
 from elasticdl_tpu_torch.parallel.mesh import (
+    AXES,
     DATA_AXIS,
     MODEL_AXIS,
+    Axis,
     axis_all_gather,
     axis_all_reduce,
     axis_index,
@@ -155,40 +170,66 @@ def dispatch_route(mesh=None) -> str:
     return "single_device"
 
 
-def table_partition_axis(num_blocks: int, mesh) -> Optional[str]:
-    """The mesh axis a table's storage blocks are split over: ``model``
-    when it divides ``num_blocks`` (STORAGE blocks, ``spec.num_blocks``,
-    not rows), else None (the table is replicated)."""
+def table_partition_axis(num_blocks: int, mesh, whole_mesh: bool = False) -> Optional[Axis]:
+    """The mesh axis a table's storage blocks are split over (STORAGE
+    blocks, ``spec.num_blocks``, not rows), or None (the table is
+    replicated): ``model`` when it divides ``num_blocks``, or with
+    ``whole_mesh`` (the xla engine's rule) the whole mesh ``(data,
+    model)`` when ``data * model`` does."""
     if mesh is None:
         return None
+    if whole_mesh:
+        return AXES if mesh.size > 1 and num_blocks % mesh.size == 0 else None
     msize = mesh.shape.get(MODEL_AXIS, 1)
     if msize > 1 and num_blocks % msize == 0:
         return MODEL_AXIS
     return None
 
 
-def _shard_local_spec(spec: PackedSpec, mesh) -> PackedSpec:
-    """One model shard's spec: the same dim, 1/model of the rows (exact:
-    ``table_partition_axis`` demanded divisibility)."""
-    return PackedSpec(spec.vocab_padded // mesh.shape[MODEL_AXIS], spec.dim)
+def _shard_local_spec(spec: PackedSpec, mesh, axis: Axis = MODEL_AXIS) -> PackedSpec:
+    """One shard's spec: the same dim, 1/size of ``axis`` of the rows
+    (exact: ``table_partition_axis`` demanded divisibility)."""
+    return PackedSpec(spec.vocab_padded // mesh.axis_size(axis), spec.dim)
 
 
-def _shards(spec: PackedSpec, table: torch.Tensor, mesh, what: str = "table"):
-    """-> ``(local_spec, [(first row, rows)])``: the model shards of
-    ``table`` this process holds, or ``(None, [(0, table)])`` for a
-    replicated table.  In process the shards are row views of the whole
-    table; on a process mesh ``table`` must be this rank's rows."""
-    if table_partition_axis(spec.num_blocks, mesh) is None:
+def _shards(spec: PackedSpec, table: torch.Tensor, mesh, axis: Optional[Axis],
+            what: str = "table"):
+    """-> ``(local_spec, [(first row, rows)])``: the shards of ``table``
+    over ``axis`` this process holds, or ``(None, [(0, table)])`` for a
+    replicated table (``axis`` None).  In process the shards are row
+    views of the whole table; on a process mesh ``table`` must be this
+    rank's rows."""
+    if axis is None:
         _check_table(spec, table, what)
         return None, [(0, table)]
-    local = _shard_local_spec(spec, mesh)
-    slots = axis_index(mesh, MODEL_AXIS)
+    local = _shard_local_spec(spec, mesh, axis)
+    slots = axis_index(mesh, axis)
     if mesh.in_process:
         _check_table(spec, table, what)
-        views = table.chunk(mesh.shape[MODEL_AXIS])
+        views = table.chunk(mesh.axis_size(axis))
         return local, [(s * local.vocab_padded, views[s]) for s in slots]
-    _check_table(local, table, f"{what} (this rank's model shard)")
+    _check_table(local, table, f"{what} (this rank's shard)")
     return local, [(slots[0] * local.vocab_padded, table)]
+
+
+def _gathers_ids(mesh, axis: Optional[Axis]) -> bool:
+    """The whole-mesh route on a process mesh: the lookups gather the ids
+    over ``data`` and sum over the world."""
+    return axis == AXES and not mesh.in_process
+
+
+def _gather_rows(mesh, tensor):
+    """``tensor`` of every data index, in data order (bool as bytes)."""
+    if tensor is None:
+        return None
+    if tensor.dtype == torch.bool:
+        return axis_all_gather(mesh, DATA_AXIS, tensor.to(torch.uint8)).to(torch.bool)
+    return axis_all_gather(mesh, DATA_AXIS, tensor)
+
+
+def _own_rows(mesh, full: torch.Tensor, n: int) -> torch.Tensor:
+    """This rank's ``n`` rows of a result over every data index's ids."""
+    return full[mesh.data_index * n:(mesh.data_index + 1) * n]
 
 
 def _route_ids(local: PackedSpec, ids: torch.Tensor, start: int, fill: int):
@@ -199,13 +240,13 @@ def _route_ids(local: PackedSpec, ids: torch.Tensor, start: int, fill: int):
     return torch.where(owned, rel, fill).to(torch.int32), owned
 
 
-def _table_cotangent(spec, shape, ids, g, mesh):
+def _table_cotangent(spec, shape, ids, g, mesh, axis):
     """The segment sum of ``g`` by row over the table as it was given
-    (``shape``: the whole table, or this rank's shard on a process
-    mesh): duplicates sum, ids outside it drop."""
+    (``shape``: the whole table, or this rank's shard over ``axis`` on a
+    process mesh): duplicates sum, ids outside it drop."""
     if shape != spec.rows_shape:  # this rank's rows of a split table
-        spec = _shard_local_spec(spec, mesh)
-        ids = _route_ids(spec, ids, mesh.model_index * spec.vocab_padded, -1)[0]
+        spec = _shard_local_spec(spec, mesh, axis)
+        ids = _route_ids(spec, ids, mesh.index(axis) * spec.vocab_padded, -1)[0]
     zeros = torch.zeros(shape, dtype=g.dtype, device=g.device)
     return pk.scatter_add(spec, zeros, ids, g)
 
@@ -258,16 +299,21 @@ def _lookup_forward(spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
-def _sharded_lookup(body, spec, table, ids, mesh):
-    """The shard_map route of the lookup: ``body`` on each model shard
-    with its first row (the body routes the ids and masks what another
-    shard owns), then the sum over ``model``.  Each id has one owner, so
-    the sum adds exact zeros to the owner's row."""
-    local, shards = _shards(spec, table, mesh)
+def _sharded_lookup(body, spec, table, ids, mesh, axis):
+    """The shard_map route of the lookup: ``body`` on each shard with its
+    first row (the body routes the ids and masks what another shard
+    owns), then the sum over ``axis``.  Each id has one owner, so the sum
+    adds exact zeros to the owner's row.  The whole-mesh route of a
+    process mesh looks up every data index's ids and keeps its own."""
+    local, shards = _shards(spec, table, mesh, axis)
     if local is None:
         return body(spec, table, ids)
+    if _gathers_ids(mesh, axis):
+        ((start, rows),) = shards
+        part = body(local, rows, _gather_rows(mesh, ids), start)
+        return _own_rows(mesh, axis_all_reduce(mesh, axis, [part]), ids.shape[0])
     parts = [body(local, rows, ids, start) for start, rows in shards]
-    return axis_all_reduce(mesh, MODEL_AXIS, parts)
+    return axis_all_reduce(mesh, axis, parts)
 
 
 class _FusedLookup(torch.autograd.Function):
@@ -276,11 +322,12 @@ class _FusedLookup(torch.autograd.Function):
     (duplicates sum, ids outside the table drop), on either route."""
 
     @staticmethod
-    def forward(ctx, spec, table, ids, mesh, body):
-        ctx.spec, ctx.mesh, ctx.shape = spec, mesh, tuple(table.shape)
+    def forward(ctx, spec, table, ids, mesh, body, whole_mesh):
+        axis = table_partition_axis(spec.num_blocks, mesh, whole_mesh)
+        ctx.spec, ctx.mesh, ctx.axis, ctx.shape = spec, mesh, axis, tuple(table.shape)
         ctx.save_for_backward(ids)
         if dispatch_route(mesh) == "shard_map":
-            return _sharded_lookup(body, spec, table, ids, mesh)
+            return _sharded_lookup(body, spec, table, ids, mesh, axis)
         return body(spec, table, ids)
 
     @staticmethod
@@ -288,24 +335,26 @@ class _FusedLookup(torch.autograd.Function):
         (ids,) = ctx.saved_tensors
         d_table = None
         if ctx.needs_input_grad[1]:
-            d_table = _table_cotangent(ctx.spec, ctx.shape, ids, g, ctx.mesh)
-        return None, d_table, None, None, None
+            d_table = _table_cotangent(ctx.spec, ctx.shape, ids, g, ctx.mesh, ctx.axis)
+        return None, d_table, None, None, None, None
 
 
 def fused_lookup_plain(
-    spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor, *, mesh=None
+    spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor, *, mesh=None,
+    whole_mesh: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of the lookup: clamp-rule rows, first
     ``dim`` lanes.  ids [n] -> [n, dim].  With a ``mesh`` it takes the
     sharded route with plain bodies (and the lookups' backward)."""
     if dispatch_route(mesh) == "shard_map":
         _check_ids(ids, table, 1)
-        return _FusedLookup.apply(spec, table, ids, mesh, _lookup_plain_body)
+        return _FusedLookup.apply(spec, table, ids, mesh, _lookup_plain_body, whole_mesh)
     return _lookup_plain_body(spec, table, ids)
 
 
 def fused_lookup(
-    spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor, *, mesh=None
+    spec: PackedSpec, table: torch.Tensor, ids: torch.Tensor, *, mesh=None,
+    whole_mesh: bool = False,
 ) -> torch.Tensor:
     """ids int32 [n] -> rows [n, dim] (the JAX ``fused_lookup``).
 
@@ -313,12 +362,12 @@ def fused_lookup(
     the clamp rule (``packed.row_index``); bit-exact with the JAX kernel
     for every id and with ``pk.lookup`` for ids in ``[0, vocab_padded)``.
     A mesh of more: the sharded route (module docstring), on which ids
-    outside ``[0, vocab_padded)`` read zeros.  Differentiable in the
-    table."""
+    outside ``[0, vocab_padded)`` read zeros; ``whole_mesh``: the table
+    placed by the xla engine's rule.  Differentiable in the table."""
     _check_ids(ids, table, 1)
     if dispatch_route(mesh) == "single_device":
         _check_table(spec, table)
-    return _FusedLookup.apply(spec, table, ids, mesh, _lookup_forward)
+    return _FusedLookup.apply(spec, table, ids, mesh, _lookup_forward, whole_mesh)
 
 
 # ----------------------------------------------------------------------
@@ -386,20 +435,29 @@ def _lookup_fm_forward(spec, table, bet, ids, valid) -> FmOut:
     return outs
 
 
-def _sharded_lookup_fm(body, spec, table, bet, ids, valid, mesh) -> FmOut:
-    """The shard_map route of the FM pass: on each model shard, ``body``
-    with ``valid AND owned here`` and local id 0 where that is false,
-    then each output summed over ``model`` (``acts`` gains exact zeros;
-    the sums are summed per shard, then across shards)."""
-    local, shards = _shards(spec, table, mesh)
+def _sharded_lookup_fm(body, spec, table, bet, ids, valid, mesh, axis) -> FmOut:
+    """The shard_map route of the FM pass: on each shard, ``body`` with
+    ``valid AND owned here`` and local id 0 where that is false, then
+    each output summed over ``axis`` (``acts`` gains exact zeros; the
+    sums are summed per shard, then across shards).  The whole-mesh
+    route of a process mesh runs every data index's rows and keeps its
+    own."""
+    local, shards = _shards(spec, table, mesh, axis)
     if local is None:
         return body(spec, table, bet, ids, valid)
+    gathered = _gathers_ids(mesh, axis)
+    if gathered:
+        bet, ids, valid = (_gather_rows(mesh, t) for t in (bet, ids, valid))
     parts = []
     for start, rows in shards:
         routed, owned = _route_ids(local, ids, start, 0)
         mine = valid & owned
         parts.append(body(local, rows, bet, torch.where(mine, routed, 0), mine))
-    return tuple(axis_all_reduce(mesh, MODEL_AXIS, [p[i] for p in parts]) for i in range(4))
+    out = tuple(axis_all_reduce(mesh, axis, [p[i] for p in parts]) for i in range(4))
+    if gathered:
+        n = ids.shape[0] // mesh.shape[DATA_AXIS]
+        out = tuple(_own_rows(mesh, o, n) for o in out)
+    return out
 
 
 def fm_backward(acts, valid, d_acts, d_first, d_sumv, d_sumsq) -> torch.Tensor:
@@ -423,12 +481,13 @@ class _FusedLookupFm(torch.autograd.Function):
     sum."""
 
     @staticmethod
-    def forward(ctx, spec, table, bet, ids, valid, mesh, body):
+    def forward(ctx, spec, table, bet, ids, valid, mesh, body, whole_mesh):
+        axis = table_partition_axis(spec.num_blocks, mesh, whole_mesh)
         if dispatch_route(mesh) == "shard_map":
-            out = _sharded_lookup_fm(body, spec, table, bet, ids, valid, mesh)
+            out = _sharded_lookup_fm(body, spec, table, bet, ids, valid, mesh, axis)
         else:
             out = body(spec, table, bet, ids, valid)
-        ctx.spec, ctx.mesh, ctx.shape = spec, mesh, tuple(table.shape)
+        ctx.spec, ctx.mesh, ctx.axis, ctx.shape = spec, mesh, axis, tuple(table.shape)
         ctx.save_for_backward(out[0], ids, valid)
         return out
 
@@ -439,9 +498,9 @@ class _FusedLookupFm(torch.autograd.Function):
         d_table = None
         if ctx.needs_input_grad[1]:
             d_table = _table_cotangent(ctx.spec, ctx.shape, ids.reshape(-1),
-                                       d_field.reshape(-1, ctx.spec.dim), ctx.mesh)
+                                       d_field.reshape(-1, ctx.spec.dim), ctx.mesh, ctx.axis)
         d_bet = d_field if ctx.needs_input_grad[2] else None
-        return None, d_table, d_bet, None, None, None, None
+        return None, d_table, d_bet, None, None, None, None, None
 
 
 def _check_lookup_fm(spec, table, bet, ids, valid, mesh) -> None:
@@ -477,13 +536,15 @@ def fused_lookup_fm_plain(
     valid: torch.Tensor,
     *,
     mesh=None,
+    whole_mesh: bool = False,
 ) -> FmOut:
     """Plain PyTorch version of the merged lookup + FM partial sums
     (differentiable through plain autograd).  With a ``mesh`` it takes the
     sharded route with plain bodies (and the FM backward)."""
     if dispatch_route(mesh) == "shard_map":
         _check_lookup_fm(spec, table, bet, ids, valid, mesh)
-        return _FusedLookupFm.apply(spec, table, bet, ids, valid, mesh, _lookup_fm_plain_body)
+        return _FusedLookupFm.apply(spec, table, bet, ids, valid, mesh, _lookup_fm_plain_body,
+                                    whole_mesh)
     return _lookup_fm_plain_body(spec, table, bet, ids, valid)
 
 
@@ -495,6 +556,7 @@ def fused_lookup_fm(
     valid: torch.Tensor,
     *,
     mesh=None,
+    whole_mesh: bool = False,
 ) -> FmOut:
     """Combined ``1+dim`` lookup + FM partial sums in one pass (the JAX
     ``fused_lookup_fm``).
@@ -511,10 +573,11 @@ def fused_lookup_fm(
 
     ``mesh``: a mesh of more than one slot takes the sharded route
     (module docstring); ``acts`` is then the same values, the sums agree
-    to reduction order.
+    to reduction order.  ``whole_mesh``: the xla engine's placement.
     """
     _check_lookup_fm(spec, table, bet, ids, valid, mesh)
-    return _FusedLookupFm.apply(spec, table, bet, ids, valid, mesh, _lookup_fm_forward)
+    return _FusedLookupFm.apply(spec, table, bet, ids, valid, mesh, _lookup_fm_forward,
+                                whole_mesh)
 
 
 # ----------------------------------------------------------------------
@@ -669,21 +732,28 @@ def _apply_body(spec, kind, c, operands, t_global, ids, grads):
     _count_launch("fused_dedup_apply")
 
 
-def _dedup_apply(body, spec, kind, hyper, table, slots, ids, grads, mesh):
-    """Both routes of the apply around ``body``.  The sharded route
+def _dedup_apply(body, spec, kind, hyper, table, slots, ids, grads, mesh=None,
+                  whole_mesh: bool = False):
+    """Both routes of an apply around ``body(spec, kind, constants,
+    operands, t_global, ids, grads)`` (K3, its plain version, or a plain
+    engine of ``parallel/sparse_optim.py``).  The sharded route
     all-gathers ``(ids, grads)`` over ``data`` (in data-index order), then
-    runs ``body`` on each model shard of the table and its slots with the
-    ids owned elsewhere routed to ``-1`` (which the dedup drops); each id
-    keeps its occurrence order, so its summed gradient has the one-card
-    bits.  adam_global's scalar count advances once per apply."""
+    runs ``body`` on each shard of the table and its slots (over
+    ``model``, or the whole mesh with ``whole_mesh``) with the ids owned
+    elsewhere routed to ``-1`` (which every engine drops); each id keeps
+    its occurrence order, so its summed gradient has the one-card bits.
+    adam_global's scalar count advances once per apply, before
+    ``body``."""
     kind = _resolve_kind(kind, slots)
     names = KIND_SLOTS[kind]
     local, shards = None, [(0, [table] + [slots[name] for name in names])]
     if dispatch_route(mesh) == "shard_map":
+        axis = table_partition_axis(spec.num_blocks, mesh, whole_mesh)
         ids = axis_all_gather(mesh, DATA_AXIS, ids)
         grads = axis_all_gather(mesh, DATA_AXIS, grads)
-        local, table_shards = _shards(spec, table, mesh)
-        slot_shards = [_shards(spec, slots[name], mesh, f"slot {name!r}")[1] for name in names]
+        local, table_shards = _shards(spec, table, mesh, axis)
+        slot_shards = [_shards(spec, slots[name], mesh, axis, f"slot {name!r}")[1]
+                       for name in names]
         shards = [(start, [rows] + [ss[i][1] for ss in slot_shards])
                   for i, (start, rows) in enumerate(table_shards)]
     checked = dict(slots, **dict(zip(names, shards[0][1][1:])))
@@ -702,20 +772,22 @@ def _dedup_apply(body, spec, kind, hyper, table, slots, ids, grads, mesh):
 def fused_dedup_apply_plain(
     spec: PackedSpec, kind: str, hyper: Mapping, table: torch.Tensor,
     slots: Dict[str, torch.Tensor], ids: torch.Tensor, grads: torch.Tensor,
-    *, mesh=None,
+    *, mesh=None, whole_mesh: bool = False,
 ):
     """Plain PyTorch version: the JAX scatter path, step for step —
     ``dedup_representatives``, row gathers, the slot math, then the
     delta-form ``scatter_add`` of each operand (``parallel/
     sparse_optim.py`` ``scatter_apply``).  Updates in place and returns
-    ``(table, slots)``; ``mesh`` as ``fused_dedup_apply``."""
-    return _dedup_apply(_apply_plain_body, spec, kind, hyper, table, slots, ids, grads, mesh)
+    ``(table, slots)``; ``mesh`` and ``whole_mesh`` as
+    ``fused_dedup_apply``."""
+    return _dedup_apply(_apply_plain_body, spec, kind, hyper, table, slots, ids, grads, mesh,
+                         whole_mesh)
 
 
 def fused_dedup_apply(
     spec: PackedSpec, kind: str, hyper: Mapping, table: torch.Tensor,
     slots: Dict[str, torch.Tensor], ids: torch.Tensor, grads: torch.Tensor,
-    *, mesh=None,
+    *, mesh=None, whole_mesh: bool = False,
 ):
     """One-pass sparse optimizer step, IN PLACE: ``(ids [n] int32, grads
     [n, dim] f32)`` in; ``table`` and the slots of ``kind``
@@ -737,6 +809,8 @@ def fused_dedup_apply(
     segment, so the in-place update needs no atomics.
 
     ``mesh``: a mesh of more than one slot takes the sharded route
-    (``_dedup_apply``); every table-shaped slot is split as the table
-    is, the scalar ``t_global`` is replicated."""
-    return _dedup_apply(_apply_body, spec, kind, hyper, table, slots, ids, grads, mesh)
+    (``_dedup_apply``; ``whole_mesh``: the xla engine's placement);
+    every table-shaped slot is split as the table is, the scalar
+    ``t_global`` is replicated."""
+    return _dedup_apply(_apply_body, spec, kind, hyper, table, slots, ids, grads, mesh,
+                         whole_mesh)

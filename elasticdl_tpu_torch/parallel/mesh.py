@@ -22,18 +22,31 @@ devices.
 Anything else raises.
 
 The axis helpers (``axis_index``, ``axis_all_reduce``,
-``axis_all_gather``) are what the sharded sparse dispatch and the PS
-trainer share: on a process mesh they run the collective in the axis's
-subgroup; on an in-process mesh they are the loop over the slots or the
-identity that its layout implies.
+``axis_all_gather``, ``axis_reduce_scatter``) are what the sharded sparse
+dispatch, FSDP and the PS trainer share: on a process mesh they run the
+collective in the axis's subgroup; on an in-process mesh they are the
+loop over the slots or the identity that its layout implies.  An axis is
+a name, or the tuple ``(data, model)``: the whole mesh, its slots in
+rank order (the xla engine's table placement).
+
+Tensor parallelism uses Megatron's two operators over the ``model``
+axis, through which autograd goes: ``tp_copy`` (identity forward, the
+model-axis all-reduce of the cotangent backward: a column-parallel
+layer's input) and ``tp_reduce`` (the all-reduce forward, identity
+backward: a row-parallel layer's output).  On an in-process mesh the
+slots are a loop in one process: ``tp_copy`` is the identity (autograd
+sums the cotangents of the slots' uses of one input) and ``tp_reduce``
+the sum of the slots' parts in slot order.  ``tp_reduce_counts`` counts
+the model-axis all-reduces a process mesh ran.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import threading
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,6 +64,9 @@ logger = logging.getLogger("elasticdl_tpu_torch.parallel.mesh")
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 AXES = (DATA_AXIS, MODEL_AXIS)
+
+#: A mesh axis (``data`` or ``model``), or ``AXES``: the whole mesh.
+Axis = Union[str, Tuple[str, str]]
 
 
 @dataclass(frozen=True)
@@ -122,14 +138,26 @@ class Mesh:
             raise ValueError("an in-process mesh holds every slot: it has no index of its own")
         return divmod(self.rank, self.shape[MODEL_AXIS])
 
+    def axis_size(self, axis: Axis) -> int:
+        """The slots along ``axis`` (``AXES``: every slot)."""
+        return self.size if axis == AXES else self.shape[axis]
+
+    def index(self, axis: Axis) -> int:
+        """This rank's index along ``axis``: its data or model index, or
+        for ``AXES`` its rank (row-major, ``data * model + model``)."""
+        if axis == AXES:
+            self._index()
+            return self.rank
+        return self.data_index if axis == DATA_AXIS else self.model_index
+
     def axis_ranks(self, axis: str) -> List[int]:
         data_index, model_index = self._index()
         line = self.devices[data_index] if axis == MODEL_AXIS else self.devices[:, model_index]
         return [int(r) for r in line]
 
-    def group(self, axis: str):
+    def group(self, axis: Axis):
         self._index()
-        return self._groups[axis]
+        return dist.group.WORLD if axis == AXES else self._groups[axis]
 
     def gather_sequence(self, part: torch.Tensor, seq_len: int,
                         positions: Callable[[int], Optional[np.ndarray]]) -> torch.Tensor:
@@ -156,16 +184,16 @@ class Mesh:
                 f"({DATA_AXIS} x {MODEL_AXIS}), {kind}, on {self.device})")
 
 
-def axis_index(mesh: Mesh, axis: str) -> Tuple[int, ...]:
+def axis_index(mesh: Mesh, axis: Axis) -> Tuple[int, ...]:
     """The indices along ``axis`` of the slots this process computes:
     its own on a process mesh, every one on an in-process mesh (whose
     callers loop over them)."""
     if mesh.in_process:
-        return tuple(range(mesh.shape[axis]))
-    return (mesh.data_index if axis == DATA_AXIS else mesh.model_index,)
+        return tuple(range(mesh.axis_size(axis)))
+    return (mesh.index(axis),)
 
 
-def axis_all_reduce(mesh: Mesh, axis: str, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+def axis_all_reduce(mesh: Mesh, axis: Axis, parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """The sum over ``axis`` of the parts this process holds along it: on
     a process mesh its one part, all-reduced (SUM) in the axis's
     subgroup; on an in-process mesh the parts, added in slot order."""
@@ -180,16 +208,108 @@ def axis_all_reduce(mesh: Mesh, axis: str, parts: Sequence[torch.Tensor]) -> tor
     return out
 
 
-def axis_all_gather(mesh: Mesh, axis: str, tensor: torch.Tensor) -> torch.Tensor:
+def axis_all_gather(mesh: Mesh, axis: Axis, tensor: torch.Tensor) -> torch.Tensor:
     """Every slot's ``tensor`` along ``axis`` concatenated on dim 0 in
     axis order (``all_gather(tiled=True)``): a collective in the axis's
     subgroup on a process mesh; on an in-process mesh, which holds the
     whole axis, the tensor as it is."""
-    if mesh.in_process or mesh.shape[axis] == 1:
+    if mesh.in_process or mesh.axis_size(axis) == 1:
         return tensor
-    parts = [torch.empty_like(tensor) for _ in range(mesh.shape[axis])]
+    parts = [torch.empty_like(tensor) for _ in range(mesh.axis_size(axis))]
     dist.all_gather(parts, tensor.contiguous(), group=mesh.group(axis))
     return torch.cat(parts)
+
+
+def axis_reduce_scatter(mesh: Mesh, axis: Axis, tensor: torch.Tensor) -> torch.Tensor:
+    """This process's dim-0 block of the sum over ``axis`` of every
+    slot's ``tensor`` (a process mesh; dim 0 divides the axis): the
+    list form of ``reduce_scatter``, which gloo and NCCL both take on
+    the PyTorch versions the port runs on (``reduce_scatter_tensor`` is
+    deprecated on newer ones)."""
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return tensor
+    blocks = list(tensor.contiguous().chunk(n))
+    out = torch.empty_like(blocks[0])
+    dist.reduce_scatter(out, blocks, group=mesh.group(axis))
+    return out
+
+
+# -- tensor parallelism: Megatron's f and g over the model axis ------------
+
+_tp_lock = threading.Lock()
+_tp_reduces: Dict[str, int] = {"forward": 0, "backward": 0}  # guarded-by: _tp_lock
+
+
+def tp_reduce_counts() -> Dict[str, int]:
+    """Model-axis all-reduces of tensor parallelism since the last reset,
+    by direction (``forward``: ``tp_reduce``; ``backward``: ``tp_copy``'s
+    cotangent); a process mesh's collectives only."""
+    with _tp_lock:
+        return dict(_tp_reduces)
+
+
+def reset_tp_reduce_counts() -> None:
+    with _tp_lock:
+        for key in _tp_reduces:
+            _tp_reduces[key] = 0
+
+
+def _model_all_reduce(group, x: torch.Tensor, direction: str) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    with _tp_lock:  # noqa-invariant: trace-purity (the all-reduce counter the tests read: an uncontended lock around one integer add, after the collective is queued)
+        _tp_reduces[direction] += 1
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: identity forward, the model-axis all-reduce of the
+    cotangent backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_all_reduce(ctx.group, g, "backward"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: the model-axis all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _model_all_reduce(group, x, "forward")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_copy(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """A column-parallel layer's input: ``x`` as it is forward; backward,
+    its cotangent summed over the model axis (a process mesh; an
+    in-process mesh's slots all use ``x``, so autograd sums there)."""
+    if mesh.in_process or mesh.shape[MODEL_AXIS] == 1:
+        return x
+    return _CopyToModel.apply(x, mesh.group(MODEL_AXIS))
+
+
+def tp_reduce(mesh: Mesh, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """A row-parallel layer's output: the sum over the model axis of the
+    parts this process holds (its one part, all-reduced, on a process
+    mesh; the slots' parts in slot order in process); the cotangent goes
+    back to every part as it is."""
+    if mesh.in_process or mesh.shape[MODEL_AXIS] == 1:
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total
+    (part,) = parts
+    return _ReduceFromModel.apply(part, mesh.group(MODEL_AXIS))
 
 
 def _process_mesh(config: MeshConfig) -> Mesh:

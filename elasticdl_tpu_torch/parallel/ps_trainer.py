@@ -19,9 +19,13 @@
 Over a mesh of more than one slot every sparse op takes the sharded
 dispatch (``ops/sparse_embedding.py``; the route is logged at init), and
 the tables and their slots are placed by the PS rule table
-(``_partition_rules``, the JAX fused engine's branch): split over the
-``model`` axis when their storage blocks divide it, else replicated.
-The model must be built over the same mesh (``custom_model(...,
+(``_partition_rules``, JAX ``ps_trainer.py:258-301``): for the fused
+engine (``ps-fused``) split over the ``model`` axis when their storage
+blocks divide it, for the xla engine (``ps-xla``) split over the whole
+``(data, model)`` mesh when their storage blocks divide ``data *
+model``, else replicated.  ``table_placement`` reports the axis (the
+tuple for the whole mesh), and so does the journal's
+``sparse_kernel_selected``.  The model must be built over the same mesh (``custom_model(...,
 mesh=mesh)``), or its Embedding layers must resolve to it through
 ``ske.set_dispatch_mesh``.  The batch is padded to the ``data`` axis and
 masked (``local_block``).
@@ -34,8 +38,9 @@ masked (``local_block``).
   its data index; its loss is its share of the global mask-weighted
   mean, so the sparse gradients it captures are those of the global
   mean; the dense gradients are all-reduced over ``data``; each rank
-  holds only its rows of a split table and slot, and the apply gathers
-  ``(ids, grads)`` over ``data`` first.  ``export_model``,
+  holds only its rows of a split table and slot (one interval of the
+  whole mesh under the xla engine), and the apply gathers ``(ids,
+  grads)`` over ``data`` first.  ``export_model``,
   ``get_variables_numpy`` and ``state_to_host`` gather the tables to
   full rows (collectives).
 
@@ -55,13 +60,12 @@ is the same bytes), and ``dense.pkl`` with ``step``, the flax-layout
 ``t_global``).  Each process writes and reads only its own block
 interval; a restore copies into the trainer's own tensors in chunks.
 
-Not ported: the JAX xla engine's whole-mesh table placement (over a
-mesh of several slots the port's stream engine raises; K3 and the
-scatter engine take the sharded route); several real cards driven from one
-process (``resolve_mesh`` raises); ``model_state`` collections (DeepFM
-has none).  ``sparse_kernel`` picks the embedding optimizer's engine
+Not ported: several real cards driven from one process
+(``resolve_mesh`` raises); ``model_state`` collections (DeepFM has
+none).  ``sparse_kernel`` picks the embedding optimizer's engine
 (``resolve_sparse_kernel``): ``xla`` keeps the optimizer's own mode (the
-stream/scatter engines, ``parallel/sparse_optim.py``), ``fused`` runs K3,
+stream/scatter engines, ``parallel/sparse_optim.py``, per shard of the
+whole-mesh placement over a mesh), ``fused`` runs K3,
 and ``auto`` and None run K3 too, where JAX's ``auto`` resolves to
 ``xla`` (ROADMAP.md Queue 3 records the difference).  Lookups run K2 on
 every setting.
@@ -89,6 +93,7 @@ from elasticdl_tpu_torch.parallel.dp_trainer import (
     to_device,
 )
 from elasticdl_tpu_torch.parallel.mesh import (
+    AXES,
     DATA_AXIS,
     axis_all_gather,
     axis_all_reduce,
@@ -168,6 +173,7 @@ class ShardedEmbeddingTrainer:
             if device is not None and torch.device(device) != self._mesh.device:
                 raise ValueError(f"device {device} is not the mesh's {self._mesh.device}")
             self.device = self._mesh.device
+        self._sparse_kernel_requested = sparse_kernel or "auto"
         self._sparse_kernel = resolve_sparse_kernel(sparse_kernel)
         self._model = model.to(self.device)
         self._loss_fn = loss_fn
@@ -181,7 +187,7 @@ class ShardedEmbeddingTrainer:
             embedding_optimizer = sparse_optim.sgd(0.01)
         mode = "fused" if self._sparse_kernel == "fused" else embedding_optimizer.mode
         self._emb_tx: sparse_optim.SparseOptimizer = embedding_optimizer.remake(
-            mode, mesh=self._mesh)
+            mode, mesh=self._mesh, whole_mesh=self._sparse_kernel == "xla")
         self._sparse_apply_every = (
             None if sparse_apply_every == "auto" else max(1, int(sparse_apply_every))
         )
@@ -202,7 +208,10 @@ class ShardedEmbeddingTrainer:
                     f"over {self._mesh!r}: build the model over the trainer's mesh "
                     "(custom_model(..., mesh=mesh)) or register it with ske.set_dispatch_mesh"
                 )
-        #: table key -> the mesh axis its rows are split over (None: replicated)
+        for layer in self._layers.values():
+            layer.whole_mesh = self._sparse_kernel == "xla"
+        #: table key -> the mesh axis its rows are split over (None:
+        #: replicated; the tuple (data, model): the whole mesh)
         self._placement = self._partition_rules().match(
             {"tables": {key: layer.embedding for key, layer in self._layers.items()}}
         )[0]["tables"]
@@ -239,8 +248,9 @@ class ShardedEmbeddingTrainer:
         return {key: layer.spec for key, layer in self._layers.items()}
 
     @property
-    def table_placement(self) -> Dict[str, Optional[str]]:
-        """Table key -> the mesh axis its rows are split over, or None."""
+    def table_placement(self) -> Dict[str, Any]:
+        """Table key -> the mesh axis its rows are split over (``"model"``,
+        or ``("data", "model")``, the whole mesh), or None."""
         return dict(self._placement)
 
     @property
@@ -270,16 +280,19 @@ class ShardedEmbeddingTrainer:
 
     def _partition_rules(self) -> RuleTable:
         """Dense state replicates; each table and its table-shaped slots
-        split their rows over the ``model`` axis when their storage
-        blocks divide it (``ske.table_partition_axis``), else replicate;
-        scalar slots (adam's ``t_global``) replicate."""
+        split their storage blocks (``ske.table_partition_axis``; JAX tests
+        the packed shape's dim 0, ``num_blocks``) over the ``model`` axis
+        (the fused engine) or over the whole mesh (the xla engine) when
+        the axis divides them, else replicate; scalar slots (adam's
+        ``t_global``) replicate."""
+        whole = self._sparse_kernel == "xla"
 
         def table_blocks(path, shape):
-            return ske.table_partition_axis(self._spec_of(path).num_blocks, self._mesh)
+            return ske.table_partition_axis(self._spec_of(path).num_blocks, self._mesh, whole)
 
         return RuleTable(
             [Rule(r"^(tables|slots)(/|$)", table_blocks), Rule(".*", None)],
-            name="ps-fused",
+            name="ps-xla" if whole else "ps-fused",
         )
 
     def _local_rows(self, key: str, value):
@@ -396,6 +409,18 @@ class ShardedEmbeddingTrainer:
             "%d rows [%s, sparse_apply_every=%d, route %s]", self.device,
             sum(p.numel() for p in self._params.values()), len(self._layers),
             total_rows, self._emb_tx.name, self._sparse_apply_every, self._route,
+        )
+        # The engine and the placement a run's numbers were measured on
+        # (JAX ps_trainer.py:465-481; the port adds the placement).
+        from elasticdl_tpu_torch import obs
+
+        obs.journal().record(
+            "sparse_kernel_selected", kernel=self._sparse_kernel,
+            requested=self._sparse_kernel_requested, route=self._route,
+            optimizer=self._emb_tx.name, tables=len(self._layers), table_rows=total_rows,
+            placement={key: None if axis is None else ",".join(
+                (axis,) if isinstance(axis, str) else axis)
+                for key, axis in self._placement.items()},
         )
         return self.state
 
@@ -622,8 +647,9 @@ class ShardedEmbeddingTrainer:
         """COLLECTIVE sharded checkpoint (``checkpoint.sharded.
         ShardedCheckpointSaver``): every process calls it and writes only
         its own block interval of each table and slot (on a process mesh
-        the ranks of data index 0, a replicated table rank 0 alone); rank
-        0 writes the dense state in the JAX layout."""
+        every rank of a whole-mesh table, the ranks of data index 0 of one
+        split over ``model``, rank 0 alone of a replicated one); rank 0
+        writes the dense state in the JAX layout."""
         from elasticdl_tpu_torch.checkpoint.sharded import ShardedArray
         from elasticdl_tpu_torch.serving import convert
 
@@ -640,11 +666,14 @@ class ShardedEmbeddingTrainer:
             dense = {"step": jax_state.step, "params": jax_state.params,
                      "opt_state": jax_state.opt_state, "model_state": {},
                      "scalar_slots": jax_state.slots}
-        writes = not self._world or self._mesh.data_index == 0
         sharded = {}
         for name, (key, value) in self._checkpoint_arrays().items():
             spec = self._layers[key].spec
             lo, hi = self._local_blocks(key)
+            # Every rank holds its own interval of a whole-mesh table; of
+            # a table split over model the ranks of data index 0 write.
+            writes = (not self._world or self._placement[key] == AXES
+                      or self._mesh.data_index == 0)
             parts = [(lo, hi, value.view(hi - lo, spec.block_width))] if writes else []
             sharded[name] = ShardedArray(spec.packed_shape, "float32", parts)
         saver.save(step, dense, sharded)

@@ -7,7 +7,9 @@ dropped).  On a process mesh each rank takes the rows of its data index
 (``shard_batch``) and holds only its own rows of a table split over an
 axis (``place_rows``); ``gather_to_host`` assembles the full rows again
 (export, state snapshots, the tests).  An in-process mesh holds every
-slot, so there each of them is the identity.
+slot, so there each of them is the identity.  An axis is ``data``,
+``model`` or the whole mesh ``(data, model)``, whose slots are the ranks
+in order (``parallel.mesh.AXES``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from elasticdl_tpu_torch.parallel.mesh import DATA_AXIS, axis_all_gather
+from elasticdl_tpu_torch.parallel.mesh import DATA_AXIS, Axis, axis_all_gather
 
 
 def data_axis_size(mesh) -> int:
@@ -43,20 +45,20 @@ def pad_batch(tree, multiple: int) -> Tuple[Any, np.ndarray]:
     return np.concatenate([x, np.repeat(x[:1], rows - batch, axis=0)]), mask
 
 
-def _on_process_axis(mesh, axis: Optional[str]) -> bool:
+def _on_process_axis(mesh, axis: Optional[Axis]) -> bool:
     return axis is not None and mesh is not None and not mesh.in_process \
-        and mesh.shape[axis] > 1
+        and mesh.axis_size(axis) > 1
 
 
-def axis_rows(n: int, mesh, axis: Optional[str]) -> slice:
+def axis_rows(n: int, mesh, axis: Optional[Axis]) -> slice:
     """The rows of an ``n``-row leaf split over ``axis`` that this
     process holds: its block on a process mesh, all of them otherwise."""
     if not _on_process_axis(mesh, axis):
         return slice(0, n)
-    size = mesh.shape[axis]
+    size = mesh.axis_size(axis)
     if n % size:
         raise ValueError(f"{n} rows do not split over the {size} slots of {axis!r}")
-    index = mesh.data_index if axis == DATA_AXIS else mesh.model_index
+    index = mesh.index(axis)
     rows = n // size
     return slice(index * rows, (index + 1) * rows)
 
@@ -72,7 +74,7 @@ def shard_batch(tree, mesh):
     return tree[axis_rows(len(tree), mesh, DATA_AXIS)]
 
 
-def place_rows(tensor: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:
+def place_rows(tensor: torch.Tensor, mesh, axis: Optional[Axis]) -> torch.Tensor:
     """A whole table (or table-shaped slot) placed on ``mesh``: a copy of
     this rank's rows when it is split over ``axis`` on a process mesh,
     else the tensor itself (an in-process mesh splits it into row views
@@ -82,7 +84,7 @@ def place_rows(tensor: torch.Tensor, mesh, axis: Optional[str]) -> torch.Tensor:
     return tensor[axis_rows(tensor.shape[0], mesh, axis)].clone()
 
 
-def gather_to_host(tensor: torch.Tensor, mesh, axis: Optional[str]) -> np.ndarray:
+def gather_to_host(tensor: torch.Tensor, mesh, axis: Optional[Axis]) -> np.ndarray:
     """The full rows of a placed table as a host array: on a process mesh
     with ``axis`` split, gathered over that axis (a collective: every
     rank of the axis calls it).  Always a copy, never a view of the live

@@ -33,11 +33,17 @@ outside Pallas).  The trainer maps ``--sparse_kernel`` onto ``mode``
 ``fused`` and ``auto`` select K3 (in JAX ``auto`` resolves to ``xla``).
 
 ``mesh`` selects the dispatch route of the apply: a mesh of more than
-one slot takes the sharded route of ``fused_dedup_apply`` (and of its
-plain version for ``scatter``); the ``stream`` engine and ``apply_acc``
-run on one table only.  ``remake(mode, mesh)`` rebuilds an optimizer
-with another mode and mesh and the same hyperparameters, as the JAX
-trainer does to thread its mesh.
+one slot takes the sharded route (``ske._dedup_apply``), on which every
+engine runs per shard on the shard's rows, the ids of every data shard
+gathered first and the ids another shard owns dropped: K3, the scatter
+engine, sgd's scatter-add and the stream engine (its accumulated
+gradient and its elementwise pass are a shard's).  ``whole_mesh``
+places the tables by the JAX xla engine's rule, over the whole ``(data,
+model)`` mesh (the PS trainer sets it for ``--sparse_kernel=xla``),
+else they split over ``model``.  ``apply_acc`` takes one table's
+accumulated gradient.  ``remake(mode, mesh, whole_mesh)`` rebuilds an
+optimizer with another mode and placement and the same
+hyperparameters, as the JAX trainer does to thread its mesh.
 """
 
 from __future__ import annotations
@@ -48,7 +54,6 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from elasticdl_tpu_torch.common.device import MULTI_CARD_ITEM
 from elasticdl_tpu_torch.ops import sparse_embedding as ske
 from elasticdl_tpu_torch.parallel import packed as pk
 from elasticdl_tpu_torch.parallel.packed import PackedSpec
@@ -95,58 +100,69 @@ class SparseOptimizer:
     hyperparams: dict = field(default_factory=dict)
     mode: str = "auto"
     mesh: Any = None
+    whole_mesh: bool = False
 
     def apply(self, spec: PackedSpec, table, slots, ids, grads) -> Tuple:
         engine = select_mode(spec, ids.shape[0], self.mode)
         # Looked up at call time, so a caller can patch the module's
         # function (chip_smoke.py runs the plain version that way); a
         # one-card optimizer calls it with the one-card signature.
-        mesh = {} if self.mesh is None else {"mesh": self.mesh}
+        mesh = {} if self.mesh is None else {"mesh": self.mesh, "whole_mesh": self.whole_mesh}
         if engine == "fused":
             return ske.fused_dedup_apply(
                 spec, self.kind, self.hyperparams, table, slots, ids, grads, **mesh
             )
-        if self.kind == "sgd":
-            # Linear in the gradient: one scatter-add is both engines.
-            if ske.dispatch_route(self.mesh) == "shard_map":
-                _single_table(f"sgd's {engine} engine")
-            lr_neg = ske.apply_constants("sgd", self.hyperparams)["lr_neg"]
-            pk.scatter_add(spec, table, ids, lr_neg * grads)
-            return table, slots
-        if engine == "scatter":
+        if engine == "scatter" and self.kind != "sgd":
             return ske.fused_dedup_apply_plain(
                 spec, self.kind, self.hyperparams, table, slots, ids, grads, **mesh
             )
-        return self.apply_acc(spec, table, slots, pk.grad_accumulate(spec, table, ids, grads))
+        # sgd is linear in the gradient: one scatter-add is both engines.
+        body = _sgd_body if self.kind == "sgd" else _stream_body
+        return ske._dedup_apply(body, spec, self.kind, self.hyperparams, table, slots, ids,
+                                 grads, **mesh)
 
     def apply_acc(self, spec: PackedSpec, table, slots, acc) -> Tuple:
         """One step from an ALREADY ACCUMULATED gradient table ``acc``
         (``grad_accumulate``'s ``[vocab_padded, dim_padded]``), in place:
         the stream engine.  The same contract as ``apply`` on the batch
         that produced ``acc``."""
-        if ske.dispatch_route(self.mesh) == "shard_map":
-            _single_table("the stream engine (apply_acc)")
         if tuple(acc.shape) != tuple(table.shape):
             raise ValueError(f"acc shape {tuple(acc.shape)} != table {tuple(table.shape)}")
         kind = ske._resolve_kind(self.kind, slots)
-        c = ske.apply_constants(kind, self.hyperparams)
-        new_table, new_slots = _STREAM[kind](spec, c, table, slots, acc)
-        table.copy_(new_table)
-        for name, value in new_slots.items():
-            slots[name].copy_(value)
+        if kind == "adam_global":
+            slots["t_global"].add_(1.0)
+        _stream_step(spec, kind, ske.apply_constants(kind, self.hyperparams), table, slots, acc)
         return table, slots
 
-    def remake(self, mode: str, mesh=None) -> "SparseOptimizer":
-        """This optimizer with another ``mode`` and dispatch ``mesh``."""
+    def remake(self, mode: str, mesh=None, whole_mesh: bool = False) -> "SparseOptimizer":
+        """This optimizer with another ``mode``, dispatch ``mesh`` and
+        table placement (``whole_mesh``: the xla engine's)."""
         _check_mode(mode)
-        return dataclasses.replace(self, mode=mode, mesh=mesh)
+        return dataclasses.replace(self, mode=mode, mesh=mesh, whole_mesh=whole_mesh)
 
 
-def _single_table(what: str):
-    raise NotImplementedError(
-        f"{what} runs on one table; over a mesh of several slots the JAX package "
-        f"places whole tables with XLA: {MULTI_CARD_ITEM}"
-    )
+def _sgd_body(spec, kind, c, operands, t_global, ids, grads) -> None:
+    """sgd on one table or shard: ``table[ids] += -lr * g`` per occurrence."""
+    pk.scatter_add(spec, operands[0], ids, c["lr_neg"] * grads)
+
+
+def _stream_body(spec, kind, c, operands, t_global, ids, grads) -> None:
+    """The stream engine on one table or shard (``operands``: its rows,
+    then the slots' in ``ske.KIND_SLOTS`` order; adam_global's count
+    already advanced)."""
+    slots = dict(zip(ske.KIND_SLOTS[kind], operands[1:]))
+    if t_global is not None:
+        slots["t_global"] = t_global
+    _stream_step(spec, kind, c, operands[0], slots, pk.grad_accumulate(spec, operands[0],
+                                                                       ids, grads))
+
+
+def _stream_step(spec, kind, c, table, slots, acc) -> None:
+    """The elementwise pass over ``table`` and its slots, in place."""
+    new_table, new_slots = _STREAM[kind](spec, c, table, slots, acc)
+    table.copy_(new_table)
+    for name, value in new_slots.items():
+        slots[name].copy_(value)
 
 
 def _touched(spec: PackedSpec, acc):
@@ -186,8 +202,7 @@ def _stream_adam(spec, c, table, slots, acc):
         t_rows = torch.clamp(t_new, min=1.0)
         new_slots["t"] = t_new
     else:
-        t_rows = slots["t_global"] + 1.0
-        new_slots["t_global"] = t_rows
+        t_rows = slots["t_global"]  # the apply's count, advanced by the caller
     m, v = slots["m"], slots["v"]
     m_new = touched * (c["b1"] * m + c["omb1"] * acc) + (1 - touched) * m
     v_new = touched * (c["b2"] * v + c["omb2"] * acc * acc) + (1 - touched) * v

@@ -238,8 +238,10 @@ def _build_collective_worker(args, model_spec, data_reader, client, validation_r
         )
     saver = None
     if args.checkpoint_dir:
-        if args.distribution_strategy == "ParameterServerStrategy":
-            # Each process writes and reads its own rows of the tables.
+        if args.distribution_strategy == "ParameterServerStrategy" \
+                or args.dense_sharding == "fsdp":
+            # Mesh-sharded state (the PS tables, FSDP's dense leaves): each
+            # process writes and reads its own rows (JAX worker/main.py:239-246).
             saver = ShardedCheckpointSaver(args.checkpoint_dir, keep_max=args.keep_checkpoint_max)
         else:
             saver = CheckpointSaver(args.checkpoint_dir, keep_max=args.keep_checkpoint_max)

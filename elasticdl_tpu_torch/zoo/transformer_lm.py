@@ -36,12 +36,32 @@ Context parallelism (JAX ``:107-168``): built with a
   them; ``Embed_1`` reads them), so the layouts differ only in which
   positions a rank holds and nothing is permuted.
 
+Tensor parallelism (JAX ``:43-56``, ``:131-137``, ``:150-156``,
+``:165-167``, ``:192-198``): with ``model_axis_mode="tp"`` the model axis
+carries Megatron's split of the heads and of the MLP's hidden units.
+The parameters stay whole and replicated, as under JAX's GSPMD (which
+shards activations, not parameters), so checkpoints, exports and
+``serving/convert.py`` are those of one card.  Each model slot computes
+its slice: its heads' columns of the ``[e, 3, H, D]`` qkv kernel, their
+attention through the same K4-K6 kernels on ``[B, T, H_slot, D]``, its
+rows of ``proj``'s input (a partial product), its columns of
+``Dense_0`` and rows of ``Dense_1``; the two partial products are summed
+over the axis (``parallel.mesh.tp_reduce``, the biases added once after
+the sum), and the inputs of the column-parallel layers go through
+``tp_copy``, whose backward sums the cotangents over the axis.  So a
+process mesh runs 2 model-axis all-reduces per block forward and 2
+backward.  Every rank takes the whole sequence (``sequence_positions``
+is None).  The heads and the hidden units must divide the model axis,
+else it raises ``ValueError``, as JAX's sharding constraint does; JAX's
+TP path runs XLA's blockwise attention and rejects
+``attn_impl="pallas"``, and the port keeps that ``ValueError`` while it
+runs the kernels (ROADMAP.md Queue 3 records the difference).
+
 The model-zoo contract of the JAX module: ``custom_model``, ``loss``
 (mean next-token cross entropy), ``optimizer`` (AdamW 3e-3, weight decay
 0.01), ``eval_metrics_fn``, ``dataset_fn`` and ``custom_data_reader``
-(``synthetic://lm?...``, a reader).  What is not ported yet raises
-``NotImplementedError``: ``model_axis_mode="tp"`` over a mesh, and a mesh
-that is not a ``Mesh`` and holds more than one device.
+(``synthetic://lm?...``, a reader).  A mesh that is not a ``Mesh`` and
+holds more than one device raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,12 +75,19 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from elasticdl_tpu_torch.common.device import TENSOR_PARALLEL_ITEM, resolve_device
+from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.data.reader import NumpyDataReader
 from elasticdl_tpu_torch.data.synthetic import parse_synthetic_path, synthetic_lm_arrays
 from elasticdl_tpu_torch.ops.flash_attention import flash_attention
 from elasticdl_tpu_torch.parallel import optim
-from elasticdl_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, resolve_mesh
+from elasticdl_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
+    Mesh,
+    axis_index,
+    resolve_mesh,
+    tp_copy,
+    tp_reduce,
+)
 from elasticdl_tpu_torch.parallel.ring_attention import (
     make_ring_attention,
     shard_positions,
@@ -102,6 +129,24 @@ class Dense(nn.Linear):
             # One f32 product, the bias added once: the same roundings.
             return F.linear(x.to(dt), self.weight, self.bias)
         return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+    def column(self, x: torch.Tensor, cols: slice) -> torch.Tensor:
+        """A column-parallel slot: its ``cols`` of the output (rows of
+        ``weight``), with their bias, in ``forward``'s roundings."""
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return F.linear(x.to(dt), self.weight[cols], self.bias[cols])
+        return F.linear(x.to(dt), self.weight[cols].to(dt)) + self.bias[cols].to(dt)
+
+    def row_partial(self, x: torch.Tensor, rows: slice) -> torch.Tensor:
+        """A row-parallel slot: the product of its ``rows`` of the input
+        (columns of ``weight``) without the bias, which ``add_bias``
+        adds once after the sum over the slots."""
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight[:, rows].to(dt))
+
+    def add_bias(self, y: torch.Tensor) -> torch.Tensor:
+        return y + self.bias.to(self.compute_dtype)
 
     def init_parameters(self, generator: torch.Generator) -> None:
         lecun_normal_(self.weight, self.in_features, generator)
@@ -165,11 +210,17 @@ class QKVDense(DenseGeneral):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.heads(x, slice(None))
+
+    def heads(self, x: torch.Tensor, heads: slice) -> torch.Tensor:
+        """``[B, T, 3, H_slot, D]``: q, k and v of the ``heads`` only (a
+        tensor-parallel slot's columns of the kernel)."""
         dt = self.compute_dtype
         e = self.kernel.shape[0]
-        y = torch.matmul(x.to(dt), self.kernel.to(dt).reshape(e, -1))
-        y = y + self.bias.to(dt).reshape(-1)
-        return y.reshape(*x.shape[:-1], *self.kernel.shape[1:])
+        kernel = self.kernel[:, :, heads]
+        y = torch.matmul(x.to(dt), kernel.to(dt).reshape(e, -1))
+        y = y + self.bias[:, heads].to(dt).reshape(-1)
+        return y.reshape(*x.shape[:-1], *kernel.shape[1:])
 
 
 class LayerNorm(nn.LayerNorm):
@@ -192,13 +243,28 @@ class LayerNorm(nn.LayerNorm):
 
 
 def cp_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
-    """``mesh`` when its ``model`` axis carries the sequence, else None."""
+    """``mesh`` when its ``model`` axis carries something (the sequence,
+    or the heads under ``"tp"``), else None."""
     return mesh if mesh is not None and mesh.shape[MODEL_AXIS] > 1 else None
+
+
+def tp_slices(n: int, mesh: Mesh, what: str):
+    """The ``[slot, slice of n]`` pairs of the model slots this process
+    computes: ``n`` split evenly over the axis (JAX's constraint demands
+    that it divides, and so does the port)."""
+    size = mesh.shape[MODEL_AXIS]
+    if n % size:
+        raise ValueError(f"{what} {n} does not divide over a model axis of {size}: tensor "
+                         "parallelism shards them evenly (JAX's sharding constraint implies "
+                         f"that the global size should be divisible by {size})")
+    per = n // size
+    return [slice(slot * per, (slot + 1) * per) for slot in axis_index(mesh, MODEL_AXIS)]
 
 
 class CausalSelfAttention(nn.Module):
     def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype, device=None,
-                 mesh: Optional[Mesh] = None, cp_layout: str = "contiguous"):
+                 mesh: Optional[Mesh] = None, cp_layout: str = "contiguous",
+                 model_axis_mode: str = "cp"):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} is not a multiple of num_heads {num_heads}")
@@ -206,12 +272,18 @@ class CausalSelfAttention(nn.Module):
         self.proj = Dense(d_model, d_model, dtype, device)
         self.mesh = cp_mesh(mesh)
         self.cp_layout = cp_layout
-        # The ring's attention over the mesh's model axis, or None (one card).
-        self._ring = None if self.mesh is None else make_ring_attention(
+        self.tp = self.mesh is not None and model_axis_mode == "tp"
+        # Tensor parallelism: each model slot's heads.
+        self._heads = tp_slices(num_heads, self.mesh, "num_heads") if self.tp else None
+        # The ring's attention over the mesh's model axis, or None (one
+        # card, or tensor parallelism).
+        self._ring = None if self.mesh is None or self.tp else make_ring_attention(
             self.mesh, causal=True, layout=cp_layout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, e = x.shape
+        if self.tp:
+            return self._tp_forward(x)
         if self._ring is None:
             q, k, v = self.qkv(x).unbind(2)  # [B, T, H, D] each, views
             return self.proj(flash_attention(q, k, v, causal=True).reshape(b, t, e))
@@ -229,6 +301,21 @@ class CausalSelfAttention(nn.Module):
             out = out[:, inv]
         return self.proj(out.reshape(b, t, e))
 
+    def _tp_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Column-parallel qkv (each slot its heads), head-local attention
+        through the kernels, row-parallel ``proj``: the slots' partial
+        products summed over the model axis, then the bias."""
+        b, t, _ = x.shape
+        head_dim = self.qkv.kernel.shape[-1]
+        x = tp_copy(self.mesh, x)
+        parts = []
+        for heads in self._heads:
+            q, k, v = self.qkv.heads(x, heads).unbind(2)  # [B, T, H_slot, D]
+            out = flash_attention(q, k, v, causal=True).reshape(b, t, -1)
+            parts.append(self.proj.row_partial(
+                out, slice(heads.start * head_dim, heads.stop * head_dim)))
+        return self.proj.add_bias(tp_reduce(self.mesh, parts))
+
     def init_parameters(self, generator: torch.Generator) -> None:
         # DenseGeneral initialises its kernel as [e, 3*H*D]: fan_in e.
         self.qkv.init_parameters(generator)
@@ -244,11 +331,20 @@ class Block(nn.Module):
         self.LayerNorm_1 = LayerNorm(d_model, dtype, device)
         self.Dense_0 = Dense(d_model, d_model * mlp_ratio, dtype, device)
         self.Dense_1 = Dense(d_model * mlp_ratio, d_model, dtype, device)
+        # Tensor parallelism: each model slot's hidden units (the Megatron MLP).
+        self._hidden = (tp_slices(d_model * mlp_ratio, self.attn.mesh, "the MLP's hidden units")
+                        if self.attn.tp else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.LayerNorm_0(x))
-        h = F.gelu(self.Dense_0(self.LayerNorm_1(x)), approximate="tanh")
-        return x + self.Dense_1(h)
+        if self._hidden is None:
+            h = F.gelu(self.Dense_0(self.LayerNorm_1(x)), approximate="tanh")
+            return x + self.Dense_1(h)
+        h = tp_copy(self.attn.mesh, self.LayerNorm_1(x))
+        parts = [self.Dense_1.row_partial(
+            F.gelu(self.Dense_0.column(h, hidden), approximate="tanh"), hidden)
+            for hidden in self._hidden]
+        return x + self.Dense_1.add_bias(tp_reduce(self.attn.mesh, parts))
 
     def init_parameters(self, generator: torch.Generator) -> None:
         self.attn.init_parameters(generator)
@@ -271,17 +367,21 @@ class TransformerLM(nn.Module):
         mesh: Optional[Mesh] = None,
         cp_layout: str = "contiguous",
         logits_compute: str = "f32",
+        model_axis_mode: str = "cp",
     ):
         super().__init__()
         self.num_layers = num_layers
         self.remat = remat
         self.mesh = cp_mesh(mesh)
         self.cp_layout = cp_layout
+        #: What the mesh's model axis carries: "cp" or "tp" (None: no mesh).
+        self.model_axis_mode = None if self.mesh is None else model_axis_mode
         self.Embed_0 = Embed(vocab, d_model, dtype, device)
         self.Embed_1 = Embed(max_len, d_model, dtype, device)
         for i in range(num_layers):
             setattr(self, f"block_{i}", Block(d_model, num_heads, mlp_ratio, dtype, device,
-                                              mesh=mesh, cp_layout=cp_layout))
+                                              mesh=mesh, cp_layout=cp_layout,
+                                              model_axis_mode=model_axis_mode))
         self.LayerNorm_0 = LayerNorm(d_model, dtype, device)
         # Logits in f32 either way: the loss softmax wants full precision.
         self.lm_head = (Bf16AccF32Head(d_model, vocab, device) if logits_compute == "bf16"
@@ -300,12 +400,26 @@ class TransformerLM(nn.Module):
         self.LayerNorm_0.init_parameters(generator)
         self.lm_head.init_parameters(generator)
 
+    def model_axis_partial(self):
+        """The names of the parameters whose gradient on a rank of a
+        process mesh is a part of a sum over the model axis: all of them
+        when the axis carries the sequence, the tensor-parallel slices
+        (qkv, ``proj``'s and ``Dense_1``'s kernels, ``Dense_0``) under
+        "tp", where every other gradient is whole on each rank."""
+        if self.model_axis_mode == "tp":
+            sliced = ("attn.qkv.kernel", "attn.qkv.bias", "attn.proj.weight",
+                      "Dense_0.weight", "Dense_0.bias", "Dense_1.weight")
+            return {f"block_{i}.{name}" for i in range(self.num_layers) for name in sliced}
+        if self.mesh is None:
+            return set()
+        return {name for name, _ in self.named_parameters()}
+
     def sequence_positions(self, seq_len: int, index: Optional[int] = None):
         """The global positions a rank of a process mesh holds of a
         ``seq_len`` sequence (int64 numpy; ``index``: its model index,
         default this rank's), or None when the model takes the whole
-        sequence (one card, an in-process mesh)."""
-        if self.mesh is None or self.mesh.in_process:
+        sequence (one card, an in-process mesh, tensor parallelism)."""
+        if self.mesh is None or self.mesh.in_process or self.model_axis_mode == "tp":
             return None
         n = self.mesh.shape[MODEL_AXIS]
         if seq_len % n or (self.cp_layout == "zigzag" and seq_len % (2 * n)):
@@ -320,7 +434,8 @@ class TransformerLM(nn.Module):
         ``positions`` ``[T]``: the tokens' global positions (default 0..T-1);
         a rank of a process mesh passes its own."""
         if positions is None:
-            if self.mesh is not None and not self.mesh.in_process:
+            if self.mesh is not None and not self.mesh.in_process \
+                    and self.model_axis_mode == "cp":
                 raise ValueError("a rank of a process mesh passes its tokens' positions "
                                  "(sequence_positions)")
             positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -354,9 +469,10 @@ def custom_model(
     CUDA card, or the mesh's device; weights uninitialised).
     ``attn_impl``, ``cp_layout`` and ``model_axis_mode`` are validated as
     in JAX, ``attn_impl`` only here: it selects nothing (every value runs
-    the kernels), so the model never sees it.  The other two act over a
-    ``Mesh`` whose model axis is larger than 1: ``"cp"`` runs ring
-    attention, ``"tp"`` raises."""
+    the kernels), so the model never sees it, except that ``"pallas"``
+    under tensor parallelism raises, as in JAX.  The other two act over
+    a ``Mesh`` whose model axis is larger than 1: ``"cp"`` runs ring
+    attention, ``"tp"`` tensor parallelism."""
     if attn_impl not in ("auto", "pallas", "xla"):
         raise ValueError(f"attn_impl must be 'auto', 'pallas' or 'xla', got {attn_impl!r}")
     if model_axis_mode not in ("cp", "tp"):
@@ -366,10 +482,11 @@ def custom_model(
     if logits_compute not in ("f32", "bf16"):
         raise ValueError(f"logits_compute must be 'f32' or 'bf16', got {logits_compute!r}")
     mesh = resolve_mesh(mesh, "the port's transformer")
-    if cp_mesh(mesh) is not None and model_axis_mode == "tp":
-        raise NotImplementedError(
-            f"model_axis_mode='tp' shards heads and the MLP over the model axis: "
-            f"{TENSOR_PARALLEL_ITEM}"
+    if cp_mesh(mesh) is not None and model_axis_mode == "tp" and attn_impl == "pallas":
+        raise ValueError(
+            "attn_impl='pallas' cannot partition over the model axis (the JAX package's "
+            "custom calls are opaque to GSPMD); tensor-parallel attention takes "
+            "attn_impl='auto' or 'xla'"
         )
     if mesh is not None:
         if device is not None and resolve_device(device) != mesh.device:
@@ -387,6 +504,7 @@ def custom_model(
         mesh=mesh,
         cp_layout=cp_layout,
         logits_compute=logits_compute,
+        model_axis_mode=model_axis_mode,
     )
 
 

@@ -152,26 +152,30 @@ def test_in_process_cp_equals_one_card_forward_and_counts_positions():
 
 def test_unported_modes_and_meshes_raise():
     mesh = _port_mesh()
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        _port_model(mesh, "contiguous", model_axis_mode="tp")
+    # Tensor parallelism is ported: the mesh's model axis carries the heads.
+    tp = _port_model(_port_mesh(4, 2), "contiguous", model_axis_mode="tp")
+    assert tp.model_axis_mode == "tp" and tp.sequence_positions(SEQ) is None
     # A model axis of 1 carries nothing: "tp" is accepted there.
     _port_model(_port_mesh(8, 1), "contiguous", model_axis_mode="tp")
     with pytest.raises(NotImplementedError, match="multi-card"):
         build_model(MODEL_DEF, dict(PARAMS, mesh=["cuda:0", "cuda:1"]), device="cpu")
     with pytest.raises(ValueError, match="not the mesh's"):
         port_zoo.custom_model(**PARAMS, mesh=mesh, device="meta")
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        DataParallelTrainer(_port_model(mesh, "contiguous"), port_zoo.loss,
-                            port_zoo.optimizer(), mesh=mesh, dense_sharding="fsdp")
+    # FSDP is ported: over this mesh's data axis of 2 it shards the
+    # leaves JAX's rule picks.
+    fsdp = DataParallelTrainer(_port_model(mesh, "contiguous"), port_zoo.loss,
+                               port_zoo.optimizer(), mesh=mesh, dense_sharding="fsdp")
+    assert fsdp.dense_sharding == "fsdp" and fsdp.fsdp_leaves
     with pytest.raises(NotImplementedError, match="in-process mesh"):
         build_mesh(MeshConfig(2, 1), devices=["cpu", "cpu"])
     with pytest.raises(ValueError, match="init_process_group"):
         build_mesh(MeshConfig(2, 2))
     with pytest.raises(ValueError, match="device count"):
         build_mesh(MeshConfig(3, 2), devices=virtual_devices(4, "cpu"))
-    # The sharded K1-K3 dispatch is ported: what still raises is several
-    # real devices driven from one process (besides tp and fsdp above).
-    assert not hasattr(port_device, "SPARSE_DISPATCH_ITEM")
+    # The sharded K1-K3 dispatch, tensor parallelism and FSDP are ported:
+    # what still raises is several real devices driven from one process.
+    for item in ("SPARSE_DISPATCH_ITEM", "TENSOR_PARALLEL_ITEM", "FSDP_ITEM"):
+        assert not hasattr(port_device, item)
     from elasticdl_tpu_torch.parallel.ps_trainer import ShardedEmbeddingTrainer
     from elasticdl_tpu_torch.zoo import deepfm
 

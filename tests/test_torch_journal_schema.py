@@ -67,7 +67,7 @@ def test_port_events_are_the_ones_only_the_port_writes():
     assert journal_schema.KNOWN_EVENTS == JAX.KNOWN_EVENTS | PORT_ONLY
     assert set(journal_schema.EVENT_OPTIONAL_FIELDS) == set(journal_schema.KNOWN_EVENTS)
     assert set(journal_schema.PORT_OPTIONAL_EXTRAS) == {
-        "master_start", "serving_replica_start", "checkpoint_saved"}
+        "master_start", "serving_replica_start", "checkpoint_saved", "sparse_kernel_selected"}
     assert {"pid"} <= set(journal_schema.PORT_OPTIONAL_EXTRAS["master_start"])
     assert {"device", "forbidden_modules", "startup_s"} <= set(
         journal_schema.PORT_OPTIONAL_EXTRAS["serving_replica_start"])

@@ -188,7 +188,7 @@ def _apply_batch(spec, seed):
 
 
 @pytest.mark.parametrize("vocab,name", [(320, k) for k in KINDS] + [(300, "adam")])
-def test_sharded_apply_matches_jax(vocab, name):
+def test__dedup_apply_matches_jax(vocab, name):
     kind, hyper = KINDS[name]
     spec, jspec = pk.PackedSpec(vocab, 8), jpk.PackedSpec(vocab, 8)
     packed, rows = _table(spec)
@@ -210,7 +210,7 @@ def test_sharded_apply_matches_jax(vocab, name):
 
 
 @pytest.mark.parametrize("name", list(KINDS))
-def test_sharded_apply_equals_one_card_apply(name):
+def test__dedup_apply_equals_one_card_apply(name):
     """Two applies (the second reads non-zero slots) on both routes, the
     split (vocab 320) and the replicated (300) table."""
     kind, hyper = KINDS[name]

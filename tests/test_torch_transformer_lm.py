@@ -299,9 +299,10 @@ def test_unsupported_choices_raise():
     with pytest.raises(NotImplementedError, match="multi-card"):
         DataParallelTrainer(model, port_zoo.loss, port_zoo.optimizer(), device="cpu",
                             mesh=["cuda:0", "cuda:1"])
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        DataParallelTrainer(model, port_zoo.loss, port_zoo.optimizer(), device="cpu",
-                            dense_sharding="fsdp")
+    # FSDP without a mesh is the replicated layout, as in JAX.
+    fsdp = DataParallelTrainer(model, port_zoo.loss, port_zoo.optimizer(), device="cpu",
+                               dense_sharding="fsdp")
+    assert fsdp.dense_sharding == "fsdp" and fsdp.fsdp_leaves == {}
     with pytest.raises(ValueError, match="dense_sharding"):
         DataParallelTrainer(model, port_zoo.loss, port_zoo.optimizer(), device="cpu",
                             dense_sharding="zero3")
