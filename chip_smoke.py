@@ -584,6 +584,17 @@ host optimizer kernels:
     ``g++`` on this machine: dense and sparse sgd, momentum, adagrad and
     adam, 3 steps each against their numpy twins at NATIVE_TOL (adam's
     step counts exact), each call's host time.
+49. K4-K6 at head_dim 256, their DP=256 builds: each against its plain
+    version at [8, 2048, 8, 256] bf16 causal (timed: 30 launches with L2
+    flushed, TFLOP/s, the plain version, the bound and SDPA's forward and
+    backward as the yardstick), [2, 2048, 4, 136] bf16 and [2, 512, 4,
+    256] f32 at phase 10's tolerances, and head_dim 100 through the
+    wrappers' pad to 104.  Then the transformer LM at Gemma 2B's attention
+    geometry (d_model 2048, 8 heads of 256) on TRANSFORMER_BENCH's depth,
+    vocab and T, batch 8, trained by ``DataParallelTrainer``: 2 warm-up
+    and 5 timed steps at AdamW 7.5e-4 (phase 11's 3e-3 scaled by the
+    width ratio; step ms, tokens/s, peak memory, a falling loss, K4-K6's
+    in-step ms), and phase 12's gate at batch 2.
 
 Before each of phases 21-23 the free space of its directory is checked
 (a failure names the bytes needed); each deletes its directories.
@@ -614,7 +625,8 @@ twice per replay batch and generation of each shadow evaluation in
 phase 41's replica; K2 twice per dispatch of each replica of phase 43;
 K4-K6 once per layer per model slot per step of phase 45 and once per
 layer per step of phase 46, in process and in its world of one; K2
-five times per step of phase 47 and never K1 or K3 there)
+five times per step of phase 47 and never K1 or K3 there; K4-K6 once
+per layer per step of phase 49's LM and once per checked shape)
 fails the run.
 The line before the last holds the card's name and power limit, the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, with no
@@ -965,13 +977,16 @@ def import_port():
 # ----------------------------------------------------------------------
 
 #: The bf16 builds of K4-K9 run on the tensor cores (mma.sync): their
-#: SASS must hold HMMA (or wgmma's HGMMA).  K8 and K9 are built for each
+#: SASS must hold HMMA (or wgmma's HGMMA).  K4-K6 also have a DP=256
+#: build (K6's with a pair of warps for each 16 key rows).  K8 and K9 are built for each
 #: count of dO parts: 1 (a bf16 dO, the CP path's) and 3 (an f32 dO split
 #: three ways, kF32DoParts).
 TENSOR_CORE_BUILDS = tuple(
     [f"{name}<bf16, {dp}>" for name in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
                                          "flash_dkv_mma_kernel", "ring_fwd_mma_kernel")
      for dp in (64, 128)]
+    + [f"{name}<bf16, 256>" for name in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
+                                         "flash_dkv_mma_pair_kernel")]
     + [f"{name}<bf16, {dp}, {parts}>" for name in ("ring_dq_mma_kernel", "ring_dkv_mma_kernel")
        for dp in (64, 128) for parts in (1, 3)])
 _KERNEL_LABEL = re.compile(
@@ -2214,6 +2229,48 @@ def attention_edges(fa, gen, dev, card):
     return worst
 
 
+def attention_times(fa, q, k, v, do, causal, lse_p, delta, shape, errs, card, flush):
+    """K4-K6 and their plain versions timed at one shape (median of 30
+    launches, L2 flushed), beside the bound and SDPA's forward and
+    backward; the backward on the plain forward's lse and delta.  ->
+    ``{"shape", "kernels": {name: figures}, "sdpa_forward_ms",
+    "sdpa_backward_ms"}``."""
+    b, t, h, d = q.shape
+    scale = fa.default_scale(d)
+    bwd = (q, k, v, do, lse_p, delta, scale, causal)
+    calls = {
+        "flash_attention_fwd": (lambda: fa.flash_attention_fwd(q, k, v, scale, causal),
+                                lambda: fa.flash_attention_fwd_plain(q, k, v, scale, causal)),
+        "flash_attention_dq": (lambda: fa.flash_attention_dq(*bwd),
+                               lambda: fa.flash_attention_dq_plain(*bwd)),
+        "flash_attention_dkv": (lambda: fa.flash_attention_dkv(*bwd),
+                                lambda: fa.flash_attention_dkv_plain(*bwd)),
+    }
+    lib_fwd, lib_bwd = sdpa_ms(q, k, v, do, causal, flush)
+    bounds = attention_bound_ms(b, t, h, d, causal)
+    ops = attention_ops(b, t, h, d, causal)
+    entry = {"shape": shape, "kernels": {}, "sdpa_forward_ms": lib_fwd,
+             "sdpa_backward_ms": lib_bwd}
+    for name, (kernel, plain) in calls.items():
+        fa.reset_launch_counts()
+        ms = median_ms(kernel, flush)
+        launches = fa.launch_counts()[name]
+        plain_ms = median_ms(plain, flush)
+        tflops = ops[name] / ms * 1e-9
+        entry["kernels"][name] = {
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "tflop_per_s": tflops,
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": lib_fwd if name == "flash_attention_fwd" else lib_bwd,
+            "timed_launches": launches,
+        }
+        log(f"kernel {name}: {shape}: max_abs_err {errs[name]!r}, {ms!r} ms, {tflops!r} TFLOP/s "
+            f"(plain {plain_ms!r} ms, bound {bounds[name][0]!r} ms by {bounds[name][1]}; "
+            f"{launches} launches timed) [{card}]")
+    log(f"  sdpa yardstick {shape}: forward {lib_fwd!r} ms, backward (dq, dk, dv) {lib_bwd!r} "
+        f"ms [{card}]")
+    return entry
+
+
 def attention_phase(card: str, seed: int):
     import torch
 
@@ -2229,42 +2286,9 @@ def attention_phase(card: str, seed: int):
         shape = f"B={b} T={t} H={h} D={d} bf16 {'causal' if causal else 'full'}"
         q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.bfloat16)
                        for _ in range(4))
-        scale = fa.default_scale(d)
         errs, (out_p, lse_p), delta = check_attention(fa, q, k, v, do, causal, shape)
-        times = {
-            "flash_attention_fwd": (
-                median_ms(lambda: fa.flash_attention_fwd(q, k, v, scale, causal), flush),
-                median_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, scale, causal), flush)),
-            "flash_attention_dq": (
-                median_ms(lambda: fa.flash_attention_dq(
-                    q, k, v, do, lse_p, delta, scale, causal), flush),
-                median_ms(lambda: fa.flash_attention_dq_plain(
-                    q, k, v, do, lse_p, delta, scale, causal), flush)),
-            "flash_attention_dkv": (
-                median_ms(lambda: fa.flash_attention_dkv(
-                    q, k, v, do, lse_p, delta, scale, causal), flush),
-                median_ms(lambda: fa.flash_attention_dkv_plain(
-                    q, k, v, do, lse_p, delta, scale, causal), flush)),
-        }
-        lib_fwd, lib_bwd = sdpa_ms(q, k, v, do, causal, flush)
-        bounds = attention_bound_ms(b, t, h, d, causal)
-        ops = attention_ops(b, t, h, d, causal)
-        entry = {"shape": shape, "kernels": {}}
-        for name in fa.KERNELS:
-            ms, plain = times[name]
-            tflops = ops[name] / ms * 1e-9
-            entry["kernels"][name] = {
-                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
-                "tflop_per_s": tflops,
-                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                "library_ms": lib_fwd if name == "flash_attention_fwd" else lib_bwd,
-            }
-            log(f"kernel {name}: {shape}: max_abs_err {errs[name]!r}, {ms!r} ms, {tflops!r} "
-                f"TFLOP/s (plain {plain!r} ms, bound {bounds[name][0]!r} ms by "
-                f"{bounds[name][1]}) [{card}]")
-        log(f"  sdpa yardstick {shape}: forward {lib_fwd!r} ms, backward (dq, dk, dv) "
-            f"{lib_bwd!r} ms [{card}]")
-        results.append(entry)
+        results.append(attention_times(fa, q, k, v, do, causal, lse_p, delta, shape, errs,
+                                       card, flush))
         del q, k, v, do, out_p, lse_p, delta
         torch.cuda.empty_cache()
     del flush
@@ -8130,15 +8154,18 @@ FLASH_LM_BUILDS = {
 
 
 def flash_entries(attention, edges, train, card, resources=None, resumed=None, heads=None,
-                  tp=None, fsdp=None):
+                  tp=None, fsdp=None, wide=None):
     """The K4-K6 entries of the kernels line: numbers at the LM's shape
-    (the first of ATTN_SHAPES), the other shapes beside them, and the
-    launches and in-step times of the TP and FSDP paths."""
+    (the first of ATTN_SHAPES), the other shapes beside them, the
+    launches and in-step times of the TP and FSDP paths, and the DP=256
+    build's numbers at the head_dim-256 LM's shape (phase 49)."""
     line = []
     for name in FLASH_REPLACES:
         main_shape = attention[0]["kernels"][name]
         by_path = {f"lm_train_{LM_STEPS}_steps": train["launches_step"][name],
                    "lm_train_window_4_steps": train["launches_window"][name]}
+        if wide is not None:
+            by_path[f"lm_head_dim_256_{WIDE_STEPS}_steps"] = wide["lm"]["launches_steps"][name]
         if resumed is not None:
             by_path["lm_resumed_2_steps"] = resumed["launches_resumed_2_steps"][name]
         if heads is not None:
@@ -8157,7 +8184,9 @@ def flash_entries(attention, edges, train, card, resources=None, resumed=None, h
             "replaces": FLASH_REPLACES[name],
             "launches": train["launches_step"][name],
             "launches_by_path": by_path,
-            "max_abs_err": max(e["kernels"][name]["max_abs_err"] for e in attention),
+            "max_abs_err": max([e["kernels"][name]["max_abs_err"] for e in attention]
+                               + ([] if wide is None else
+                                  [errs[name] for errs in wide["shapes"].values()])),
             "edge_shapes_max_abs_err": edges[name],
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "tflop_per_s": main_shape["tflop_per_s"],
@@ -8174,6 +8203,16 @@ def flash_entries(attention, edges, train, card, resources=None, resumed=None, h
             "tp_launches_per_step": None if tp is None else tp["launches_per_step"],
             "tp_slot_shape": None if tp is None else tp["slot_shape"],
             "tp_step_kernel_ms": None if tp is None else tp["breakdown_ms"]["kernel_ms"][name],
+            "head_dim_256": None if wide is None else {
+                **wide["timed"]["kernels"][name], "shape": wide["timed"]["shape"],
+                "build": FLASH_WIDE_BUILDS[name],
+                "resources": (resources or {}).get(FLASH_WIDE_BUILDS[name]),
+                "launches": wide["lm"]["launches_steps"][name],
+                "launches_per_step": wide["lm"]["launches_per_step"][name],
+                "train_step_kernel_ms": wide["lm"]["breakdown_ms"]["kernel_ms"][name],
+                "shapes_max_abs_err": {shape: errs[name]
+                                       for shape, errs in wide["shapes"].items()},
+            },
             "card": card,
         })
     return line
@@ -9526,6 +9565,172 @@ def call_native(kernels, kind: str, state: dict, grad, ids, step: int) -> None:
         kernels.adam_sparse(p, state["m"], state["v"], state["t"], ids, grad, 0.01)
 
 
+# ----------------------------------------------------------------------
+# phase 49: K4-K6 at head_dim 256 (their DP=256 builds) and the pad of an
+# odd head_dim, driven by the transformer LM at head_dim 256
+# ----------------------------------------------------------------------
+
+#: Shapes of the DP=256 builds, (B, T, H, D, dtype, causal): the LM's
+#: below (timed), a head_dim of the build that is not 256, and a small f32
+#: shape (the f32 builds, whose K5 and K6 share a tile buffer there).
+WIDE_SHAPES = ((8, 2048, 8, 256, "bfloat16", True), (2, 2048, 4, 136, "bfloat16", True),
+               (2, 512, 4, 256, "float32", True))
+#: A head_dim that is no multiple of 8: the wrappers pad it to 104 (the
+#: DP=128 build) and slice the outputs back.
+WIDE_PAD_SHAPE = (2, 512, 4, 100, "bfloat16", True)
+#: The LM at Gemma 2B's attention geometry (hidden 2048, 8 heads of 256)
+#: on TRANSFORMER_BENCH's depth, vocab and T; everything else the repo's
+#: LM (learned positions, the GELU MLP at ratio 4, the f32 head).
+WIDE_LM = dict(LM_BENCH, d_model=2048, num_heads=8)
+WIDE_BATCH = 8
+#: AdamW at phase 11's 3e-3 scaled by the width ratio 512 / 2048: Adam
+#: moves every element by about lr a step, so a layer's output moves in
+#: proportion to its fan-in, and at 3e-3 this width's loss rose from
+#: 10.90 to 12.48 over its first 7 steps on an H100 (and diverged at 2
+#: layers on the CPU, where 7.5e-4 fell).
+WIDE_LR = LM_LR * LM_BENCH["d_model"] / 2048
+WIDE_WARMUP, WIDE_STEPS, WIDE_BATCHES = 2, 5, 4
+#: Batch of phase 12's gate here (kernel path against plain path).
+WIDE_PATH_BATCH = 2
+#: The build of each of K4-K6 on this LM's path (bf16, head_dim 256).
+FLASH_WIDE_BUILDS = {
+    "flash_attention_fwd": "flash_fwd_mma_kernel<bf16, 256>",
+    "flash_attention_dq": "flash_dq_mma_kernel<bf16, 256>",
+    "flash_attention_dkv": "flash_dkv_mma_pair_kernel<bf16, 256>",
+}
+
+
+def wide_attention_checks(fa, gen, dev, card):
+    """K4-K6 against their plain versions at WIDE_SHAPES and, through the
+    pad, at WIDE_PAD_SHAPE (phase 10's tolerances); the first shape
+    timed: kernel, plain version, bound and SDPA."""
+    import torch
+
+    results = {"shapes": {}}
+    for b, t, h, d, dtype, causal in WIDE_SHAPES + (WIDE_PAD_SHAPE,):
+        shape = f"B={b} T={t} H={h} D={d} {dtype} {'causal' if causal else 'full'}"
+        q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=dev)
+                       .to(getattr(torch, dtype)) for _ in range(4))
+        fa.reset_launch_counts()
+        errs, (out_p, lse_p), delta = check_attention(fa, q, k, v, do, causal, shape)
+        if any(fa.launch_counts()[name] != 1 for name in fa.KERNELS):
+            fail(f"{shape}: one check launched {fa.launch_counts()}")
+        results["shapes"][shape] = errs
+        log(f"kernels K4-K6 at {shape}: within tolerance, max abs errors {errs} [{card}]")
+        if (b, t, h, d, dtype, causal) == WIDE_SHAPES[0]:
+            flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32, device=dev)
+            results["timed"] = attention_times(fa, q, k, v, do, causal, lse_p, delta, shape,
+                                               errs, card, flush)
+            del flush
+        del q, k, v, do, out_p, lse_p, delta
+    torch.cuda.empty_cache()
+    return results
+
+
+def wide_lm_phase(card: str, seed: int):
+    """Phase 49: K4-K6's DP=256 builds held to their plain versions
+    (WIDE_SHAPES, the pad at WIDE_PAD_SHAPE), then the LM at WIDE_LM
+    trained by DataParallelTrainer: WIDE_WARMUP + WIDE_STEPS steps of
+    WIDE_BATCH (step ms, tokens/s, peak memory, a falling loss, K4-K6 4
+    times a step and their in-step ms), and phase 12's gate at
+    WIDE_PATH_BATCH."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.data.synthetic import synthetic_lm_arrays
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    t_phase = time.perf_counter()
+    dev = card_device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 49)
+    result = wide_attention_checks(fa, gen, dev, card)
+
+    cfg, batch = WIDE_LM, WIDE_BATCH
+    zoo = resolve(LM_DEF)
+    tokens, nxt = synthetic_lm_arrays(batch * WIDE_BATCHES, cfg["seq_len"], cfg["vocab"], seed)
+    ones = np.ones((batch,), np.float32)
+    batches = [(tokens[i * batch:(i + 1) * batch], nxt[i * batch:(i + 1) * batch], ones)
+               for i in range(WIDE_BATCHES)]
+    params = dict(vocab=cfg["vocab"], d_model=cfg["d_model"], num_heads=cfg["num_heads"],
+                  num_layers=cfg["num_layers"], max_len=cfg["seq_len"])
+    model = build_model(LM_DEF, params)  # the default device: the card
+    trainer = DataParallelTrainer(model, zoo.loss, zoo.optimizer(WIDE_LR), seed=seed)
+    if trainer.device != dev:
+        fail(f"DataParallelTrainer's default device is {trainer.device}, not {dev}")
+    trainer.ensure_initialized()
+    head_dim = model.block_0.attn.qkv.kernel.shape[-1]
+    if head_dim != 256:
+        fail(f"the phase 49 LM has head_dim {head_dim}, not 256")
+    staged = [trainer.stage_batch(*b) for b in batches]
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in trainer.state.params.values())
+    losses = [trainer.train_step_staged(staged[i % WIDE_BATCHES]) for i in range(WIDE_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    events = []
+    t0 = time.perf_counter()
+    for i in range(WIDE_WARMUP, WIDE_WARMUP + WIDE_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(trainer.train_step_staged(staged[i % WIDE_BATCHES]))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fa.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg["num_layers"] * WIDE_STEPS
+    for name in fa.KERNELS:
+        if counts[name] != want:
+            fail(f"{name} launched {counts[name]} times in {WIDE_STEPS} steps of the head_dim-256 "
+                 f"LM (want {want})")
+    step_ms = sorted(s.elapsed_time(e) for s, e in events)
+    losses = torch.stack(losses).float().cpu().numpy()
+    if not np.all(np.isfinite(losses)):
+        fail(f"non-finite loss in the head_dim-256 LM: {losses}")
+    first, last = float(losses[:2].mean()), float(losses[-2:].mean())
+    parts = lm_time_parts(trainer, staged[0])
+    train = {
+        "params": n_params, "head_dim": head_dim, "batch": batch, "seq_len": cfg["seq_len"],
+        "tokens_per_s": WIDE_STEPS * batch * cfg["seq_len"] / wall,
+        "step_ms_median": step_ms[len(step_ms) // 2], "step_ms": step_ms,
+        "losses": [float(x) for x in losses], "peak_memory_gb": peak / 1e9,
+        "launches_steps": counts,
+        "launches_per_step": {name: counts[name] / WIDE_STEPS for name in fa.KERNELS},
+        "breakdown_ms": parts,
+    }
+    log(f"head_dim-256 LM ({n_params} parameters, d_model {cfg['d_model']}, {cfg['num_heads']} "
+        f"heads of {head_dim}): {WIDE_STEPS} steps of {batch}x{cfg['seq_len']}: "
+        f"{train['tokens_per_s']!r} tokens/s, step median {train['step_ms_median']!r} ms "
+        f"(device, CUDA events); losses {train['losses']}; launches {counts}; peak "
+        f"{peak / 1e9!r} GB [{card}]")
+    if not last < first:
+        fail(f"the head_dim-256 LM's loss did not fall: first 2 steps {first!r}, last 2 {last!r}")
+    log("head_dim-256 LM step's attention kernels (device ms in one step, CUDA events): "
+        + ", ".join(f"{name} {ms!r}" for name, ms in parts["kernel_ms"].items())
+        + f"; {parts['attention_kernels']!r} of {parts['step']!r} [{card}]")
+    del staged
+    torch.cuda.empty_cache()
+
+    cut = WIDE_PATH_BATCH
+    small = [trainer.stage_batch(t[:cut], n[:cut], m[:cut]) for t, n, m in batches[:3]]
+    tol = (LM_PATH_LOSS_RTOL, LM_PATH_GRAD_RTOL, 2 * WIDE_LR * 3 * 1.5, LM_PATH_UPDATE_RTOL)
+    train["path"] = lm_compare((trainer, contextlib.nullcontext), (trainer, plain_attention),
+                               small, card,
+                               f"head_dim-256 LM kernel path vs plain path (batch {cut})", tol)
+    del trainer, small, model
+    torch.cuda.empty_cache()
+    result["lm"] = train
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 49 in {result['seconds']:.1f} s [{card}]")
+    result["card"] = card
+    return result
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -9675,6 +9880,7 @@ def main() -> None:
     fsdp = fsdp_lm_phase(card, args.seed) if run(46) else None
     whole_mesh = whole_mesh_xla_phase(card, args.seed) if run(47) else None
     host_kernels = native_kernels_phase(card, args.seed) if run(48) else None
+    wide = wide_lm_phase(card, args.seed) if run(49) else None
     analyzer = analyzer_census_phase(card, args.seed) if run(42) else None
     user_zoo = None
     if run(44):
@@ -9701,7 +9907,7 @@ def main() -> None:
                         "analyzer_census": analyzer, "fleet_policy": fleet_policy,
                         "user_zoo": user_zoo, "tensor_parallel": tp, "fsdp": fsdp,
                         "whole_mesh_xla": whole_mesh, "host_kernels": host_kernels,
-                        "card": card}))
+                        "head_dim_256": wide, "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -9720,7 +9926,8 @@ def main() -> None:
                     "quality_gate": quality_gate, "quality_replica": quality_process,
                     "analyzer_census": analyzer, "fleet_policy": fleet_policy,
                     "user_zoo": user_zoo, "tensor_parallel": tp, "fsdp": fsdp,
-                    "whole_mesh_xla": whole_mesh, "host_kernels": host_kernels, "card": card}))
+                    "whole_mesh_xla": whole_mesh, "host_kernels": host_kernels,
+                    "head_dim_256": wide, "card": card}))
 
     quality_steps = sum(n for n, _ in quality_gate["train_launches"])
     quality_trained = {name: sum(c[name] for _, c in quality_gate["train_launches"])
@@ -9873,7 +10080,8 @@ def main() -> None:
         "job_profiler_window": observed["profile"]["fused_dedup_apply"],
         "card": card,
     })
-    line += flash_entries(attention, edges, lm, card, resources, lm_ckpt, lm_heads, tp, fsdp)
+    line += flash_entries(attention, edges, lm, card, resources, lm_ckpt, lm_heads, tp, fsdp,
+                          wide)
     line += ring_entries(ring_kernels, ring_whole, cp, card, resources)
     line.append({
         "name": "block_gather", "ok": True, "route": "cuda", "source": K10_SOURCE,

@@ -64,7 +64,8 @@
 // Two designs, chosen by the input dtype (EDL_FLASH_DISPATCH):
 //
 // - bf16 K4-K9 (flash_fwd_mma_kernel, flash_dq_mma_kernel,
-//   flash_dkv_mma_kernel, ring_fwd_mma_kernel, ring_dq_mma_kernel,
+//   flash_dkv_mma_kernel and at DP = 256 flash_dkv_mma_pair_kernel,
+//   ring_fwd_mma_kernel, ring_dq_mma_kernel,
 //   ring_dkv_mma_kernel; the LM's and the CP LM's path) run their
 //   products on the tensor cores: mma.sync m16n8k16, bf16 operands, f32
 //   sums, fed by ldmatrix from bf16 tiles that cp.async stages two deep.
@@ -89,6 +90,27 @@
 //   bf16 or TF32 products can meet.  (K8 and K9 meet it in bf16 only
 //   because their bf16 inputs are exact in the tensor cores and every f32
 //   operand is split.)
+//
+// Builds by head_dim d: each kernel is built for a padded width DP of
+// 64, 128 or (K4-K6 only) 256 and takes every d up to it, the columns
+// past d staged as zeros (the wrapper pads a d that is not a multiple of
+// 8 with zero columns first).  K7-K9 stop at DP = 128 (EDL_RING_DISPATCH).
+// At DP = 256 (128 < d <= 256, the head_dim of Gemma 2B's attention):
+//
+// - What bounds them: at [B=8, T=2048, H=8, D=256] bf16 causal, 0.139 ms
+//   for K4 (137 GFLOP) and 0.278 ms for K6 (275 GFLOP) by operations at
+//   the bf16 peak; K5 (69 GFLOP, 0.069 ms) moves 337 MB, 0.100 ms at the
+//   memory rate, so bytes bound it.
+// - Registers bound the tensor-core builds: a warp's 16 rows of O or dQ
+//   in f32 take 128 registers a thread.  K4 and K5 read their Q (and dO)
+//   A fragments by ldmatrix at each 16-column step instead of holding
+//   them.  K6 would need 256 for dK and dV: flash_dkv_mma_pair_kernel
+//   gives each 16 key rows a pair of warps, each owning half of the D
+//   columns, and splits S^T and dP^T between the pair (below).
+// - Shared memory bounds the f32 builds: four f32 tiles of 64 x 260 do
+//   not fit in a block, so K5 and K6 share one tile buffer between two
+//   operands and reload one of them (share_tiles).  The bf16 builds fit
+//   (K4 168,960 B, K5 202,752 B, K6 220,160 B), one block to an SM.
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() so the Python wrapper can raise on a
@@ -282,13 +304,23 @@ template <int DP>
 constexpr int fwd_smem_bytes() {
   return (3 * kTile * (DP + 4) + kTile * kLdp) * 4;
 }
+// At DP = 256 four f32 tiles do not fit in a block's 232,448 bytes of
+// shared memory (K5 would take 286,720, K6 307,712), so the backward
+// kernels keep three: K5 stages V and then K in one buffer beside Q and
+// dO, K6 stages Q, dO and Q again in one buffer beside K and V, and
+// keeps one P / dS tile for both (share_tiles).
+template <int DP>
+__host__ __device__ constexpr bool share_tiles() {
+  return DP > 128;
+}
 template <int DP>
 constexpr int dq_smem_bytes() {
-  return (4 * kTile * (DP + 4) + kTile * kLdp) * 4;
+  return ((share_tiles<DP>() ? 3 : 4) * kTile * (DP + 4) + kTile * kLdp) * 4;
 }
 template <int DP>
 constexpr int dkv_smem_bytes() {
-  return (4 * kTile * (DP + 4) + 2 * kTile * kLdp + 2 * kTile) * 4;
+  return share_tiles<DP>() ? (3 * kTile * (DP + 4) + kTile * kLdp + 2 * kTile) * 4
+                           : (4 * kTile * (DP + 4) + 2 * kTile * kLdp + 2 * kTile) * 4;
 }
 
 struct Shape {
@@ -415,8 +447,8 @@ __global__ void __launch_bounds__(kThreads)
   float* q_s = reinterpret_cast<float*>(smem4);
   float* do_s = q_s + kTile * kLd;
   float* k_s = do_s + kTile * kLd;
-  float* v_s = k_s + kTile * kLd;
-  float* ds_s = v_s + kTile * kLd;
+  float* v_s = k_s + kTile * kLd;  // share_tiles: unused, V goes through k_s
+  float* ds_s = share_tiles<DP>() ? v_s : v_s + kTile * kLd;
   const int ty = threadIdx.x >> 4;
   const int tx = threadIdx.x & 15;
   const int n_q = n_tiles(s.t_len);
@@ -454,12 +486,22 @@ __global__ void __launch_bounds__(kThreads)
   for (int kb = 0; kb < n_k; ++kb) {
     const int k0 = kb * kTile;
     __syncthreads();
-    load_tile<T, DP>(k_s, k + in_off, s.in_st, k0, s.t_len, s.d, 1.0f);
-    load_tile<T, DP>(v_s, v + in_off, s.in_st, k0, s.t_len, s.d, 1.0f);
-    __syncthreads();
     float sc[4][4], dp[4][4];
-    dot_rows<DP, false>(q_s, k_s, sc, 1.0f);
-    dot_rows<DP, false>(do_s, v_s, dp, 1.0f);
+    if constexpr (share_tiles<DP>()) {  // V, then K, in the one buffer k_s
+      load_tile<T, DP>(k_s, v + in_off, s.in_st, k0, s.t_len, s.d, 1.0f);
+      __syncthreads();
+      dot_rows<DP, false>(do_s, k_s, dp, 1.0f);
+      __syncthreads();
+      load_tile<T, DP>(k_s, k + in_off, s.in_st, k0, s.t_len, s.d, 1.0f);
+      __syncthreads();
+      dot_rows<DP, false>(q_s, k_s, sc, 1.0f);
+    } else {
+      load_tile<T, DP>(k_s, k + in_off, s.in_st, k0, s.t_len, s.d, 1.0f);
+      load_tile<T, DP>(v_s, v + in_off, s.in_st, k0, s.t_len, s.d, 1.0f);
+      __syncthreads();
+      dot_rows<DP, false>(q_s, k_s, sc, 1.0f);
+      dot_rows<DP, false>(do_s, v_s, dp, 1.0f);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int q_pos = q0 + ty + 16 * i;
@@ -491,13 +533,14 @@ __global__ void __launch_bounds__(kThreads)
                      T* __restrict__ dv, Shape s) {
   constexpr int kLd = DP + 4;
   constexpr int kNc = DP / 64;
+  constexpr bool kShare = share_tiles<DP>();
   extern __shared__ float4 smem4[];
   float* k_s = reinterpret_cast<float*>(smem4);
   float* v_s = k_s + kTile * kLd;
   float* q_s = v_s + kTile * kLd;
-  float* do_s = q_s + kTile * kLd;
+  float* do_s = kShare ? q_s : q_s + kTile * kLd;  // kShare: dO goes through q_s
   float* pt_s = do_s + kTile * kLd;
-  float* dst_s = pt_s + kTile * kLdp;
+  float* dst_s = kShare ? pt_s : pt_s + kTile * kLdp;  // kShare: dS goes through pt_s
   float* lse_s = dst_s + kTile * kLdp;
   float* delta_s = lse_s + kTile;
   const int ty = threadIdx.x >> 4;
@@ -534,7 +577,7 @@ __global__ void __launch_bounds__(kThreads)
     const int q0 = qb * kTile;
     __syncthreads();
     load_tile<T, DP>(q_s, q + in_off, s.in_st, q0, s.t_len, s.d, 1.0f);
-    load_tile<T, DP>(do_s, dout + o_off, o_st, q0, s.t_len, s.d, 1.0f);
+    if constexpr (!kShare) load_tile<T, DP>(do_s, dout + o_off, o_st, q0, s.t_len, s.d, 1.0f);
     if (threadIdx.x < kTile) {
       const int t = q0 + threadIdx.x;
       lse_s[threadIdx.x] = t < s.t_len ? lse[row_off + t] : 0.0f;
@@ -543,6 +586,11 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     float st[4][4], dpt[4][4];
     dot_rows<DP, true>(k_s, q_s, st, s.scale);  // k . (q * scale)
+    if constexpr (kShare) {  // dO in Q's place
+      __syncthreads();
+      load_tile<T, DP>(do_s, dout + o_off, o_st, q0, s.t_len, s.d, 1.0f);
+      __syncthreads();
+    }
     dot_rows<DP, false>(v_s, do_s, dpt, 1.0f);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -555,11 +603,22 @@ __global__ void __launch_bounds__(kThreads)
             (q_pos >= s.t_len || (s.causal && k_pos > q_pos)) ? kNegInf : st[i][j];
         const float p = expf(sv - lse_s[col]);
         pt_s[(ty + 16 * i) * kLdp + col] = p;
-        dst_s[(ty + 16 * i) * kLdp + col] = p * (dpt[i][j] - delta_s[col]);
+        dpt[i][j] = p * (dpt[i][j] - delta_s[col]);
+        if constexpr (!kShare) dst_s[(ty + 16 * i) * kLdp + col] = dpt[i][j];
       }
     }
     __syncthreads();
     acc_pv<DP>(pt_s, do_s, dv_acc);
+    if constexpr (kShare) {  // dS in P's place, Q again in dO's
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dst_s[(ty + 16 * i) * kLdp + tx + 16 * j] = dpt[i][j];
+      }
+      load_tile<T, DP>(q_s, q + in_off, s.in_st, q0, s.t_len, s.d, 1.0f);
+      __syncthreads();
+    }
     acc_pv<DP>(dst_s, q_s, dk_acc);
   }
   store_rows<T, DP>(dk + o_off, o_st, k0, s.t_len, s.d, dk_acc, s.scale);
@@ -725,15 +784,16 @@ __device__ __forceinline__ float quad_sum(float x) {
 // Rows [t0, t0 + 64) of one (batch, head) of a bf16 [B, T, H, D] tensor
 // into a [64][DP + 8] bf16 tile by cp.async; rows past T and columns
 // past d are zero.  d is a multiple of 8: a 16-byte copy is all in or
-// all out.  The caller commits.
-template <int DP>
+// all out.  kThr threads of the block share the copies.  The caller
+// commits.
+template <int DP, int kThr = kMmaThreads>
 __device__ __forceinline__ void mma_load_tile(__nv_bfloat16* dst,
                                               const __nv_bfloat16* __restrict__ src,
                                               long long s_t, int t0, int t_len, int d) {
   constexpr int kChunks = DP / 8;
   constexpr int kLd = mma_pitch<DP>();
 #pragma unroll
-  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kMmaThreads) {
+  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kThr) {
     const int r = idx / kChunks;
     const int c = (idx - r * kChunks) * 8;
     const int t = t0 + r;
@@ -754,26 +814,36 @@ __device__ __forceinline__ void mma_load_rows(T* dst, const T* __restrict__ src,
   }
 }
 
-// A warp's 16-row slab of an f32 accumulator tile (this lane: rows r
-// and r + 8, columns 8 n + 2 (lane % 4) + {0, 1}) into a contiguous [B,
-// T, H, D] bf16 tensor, times `mul`, in bf16 pairs.
-template <int DP>
-__device__ __forceinline__ void mma_store_rows(__nv_bfloat16* __restrict__ dst, long long o_st,
-                                               int r, int t_len, int d,
-                                               const float acc[DP / 8][4], float mul) {
-  const int c0 = 2 * (threadIdx.x & 3);
+// The NF 8-column fragments of a warp's 16-row slab of an f32
+// accumulator tile that start at column c_base (this lane: rows r and r
+// + 8, columns c_base + 8 n + 2 (lane % 4) + {0, 1}) into a contiguous
+// [B, T, H, D] bf16 tensor, times `mul`, in bf16 pairs.
+template <int NF>
+__device__ __forceinline__ void mma_store_cols(__nv_bfloat16* __restrict__ dst, long long o_st,
+                                               int r, int t_len, int d, int c_base,
+                                               const float acc[NF][4], float mul) {
+  const int c0 = c_base + 2 * (threadIdx.x & 3);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int t = r + 8 * half;
     if (t >= t_len) continue;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
+    for (int n = 0; n < NF; ++n) {
       const int c = 8 * n + c0;
       if (c >= d) continue;
       *reinterpret_cast<__nv_bfloat162*>(dst + (long long)t * o_st + c) =
           __floats2bfloat162_rn(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
     }
   }
+}
+
+// The whole slab, all DP columns (K6's DP = 256 build stores half a slab
+// per warp).
+template <int DP>
+__device__ __forceinline__ void mma_store_rows(__nv_bfloat16* __restrict__ dst, long long o_st,
+                                               int r, int t_len, int d,
+                                               const float acc[DP / 8][4], float mul) {
+  mma_store_cols<DP / 8>(dst, o_st, r, t_len, d, 0, acc, mul);
 }
 
 // The same slab into contiguous f32 rows of width d (row r of dst at r *
@@ -845,7 +915,10 @@ __device__ __forceinline__ void mma_load_tile_split(__nv_bfloat16* dst,
 // the unscaled bf16 q (the product of two bf16 is exact in f32), times
 // `scale` in f32; the online softmax of flash_fwd_kernel per 64 keys (l
 // sums the unrounded p); P rounded to bf16 straight from S's
-// accumulators into the A fragments of P V.
+// accumulators into the A fragments of P V.  Registers: at DP = 256 a
+// warp's 16 rows of O take 128 f32 a thread, so the warp reads its Q
+// fragments from shared memory by ldmatrix at each 16-column step
+// instead of holding them (64 more registers), as K5 does above D = 64.
 // ---------------------------------------------------------------------
 template <int DP>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -856,6 +929,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   constexpr int kLd = mma_pitch<DP>();
   constexpr int kElems = kTile * kLd;
   constexpr int kN = DP / 8;  // 8-column fragments of a row of out
+  constexpr bool kHoldQ = DP <= 128;  // Q's A fragments in registers
   extern __shared__ float4 smem4[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem4);
   __nv_bfloat16* k_s = q_s + kElems;      // two stages
@@ -878,7 +952,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 
   // This lane's rows of the tile: r_lo and r_lo + 8.
   const int r_lo = q0 + 16 * warp + (lane >> 2);
-  uint32_t qf[DP / 16][4];
+  const int a_row = (16 * warp + (lane & 15)) * kLd + 8 * (lane >> 4);
+  uint32_t qf[kHoldQ ? DP / 16 : 1][4];
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, o[kN][4];
 #pragma unroll
   for (int n = 0; n < kN; ++n) {
@@ -891,10 +966,10 @@ __global__ void __launch_bounds__(kMmaThreads)
     // stage the next copy overwrites.
     cp_async_wait_all();
     __syncthreads();
-    if (kb == 0) {
+    if constexpr (kHoldQ) {
+      if (kb == 0) {
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        ldsm_x4(qf[kk], q_s + (16 * warp + (lane & 15)) * kLd + 16 * kk + 8 * (lane >> 4));
+        for (int kk = 0; kk < DP / 16; ++kk) ldsm_x4(qf[kk], q_s + a_row + 16 * kk);
       }
     }
     if (kb + 1 < n_k) {
@@ -916,13 +991,20 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kHoldQ) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = qf[kk][i];
+      } else {
+        ldsm_x4(qa, q_s + a_row + 16 * kk);
+      }
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bk[4];
         ldsm_x4(bk, ks + (16 * np + (lane & 7) + 8 * (lane >> 4)) * kLd + 16 * kk +
                         8 * ((lane >> 3) & 1));
-        mma_bf16(sc[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(sc[2 * np + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(sc[2 * np], qa, bk[0], bk[1]);
+        mma_bf16(sc[2 * np + 1], qa, bk[2], bk[3]);
       }
     }
 
@@ -1152,6 +1234,196 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 // ---------------------------------------------------------------------
+// K6 on the tensor cores at DP = 256 (128 < d <= 256).  One warp cannot
+// hold its 16 key rows of both dK and dV there: 2 x 16 x 256 / 32 = 256
+// f32 a thread, past the 255-register limit.  So eight warps, a pair for
+// each 16 key rows, and each warp of a pair owns half of the D columns
+// of those rows of dK and dV (128 accumulators).  Per 16 queries of the
+// q tile the pair splits the two products over D between them, and not
+// D itself: warp 0 of the pair computes S^T = K Q^T, scaled in f32 and
+// masked, and P = exp(S^T - lse); warp 1 computes dP^T = V dO^T.  Each
+// writes its 16 x 16 f32 fragment to the pair's exchange buffer (lane
+// order, so neither side conflicts on a bank), a barrier of the pair's
+// 64 threads follows, and both warps read both fragments back and form
+// dS = P (dP^T - delta) in the same f32 operations as
+// flash_dkv_mma_kernel.  Then each adds P^T dO into its columns of dV and
+// dS^T Q into its columns of dK, P and dS split hi/lo as there.  Every
+// accumulator element gets the same products in the same order as in
+// the four-warp build: the split moves work between warps and changes
+// no rounding.  The exchange buffers alternate between consecutive
+// exchanges, so one barrier per exchange suffices: a warp overwrites a
+// buffer only after the barrier that its partner reaches once done
+// reading it.
+// ---------------------------------------------------------------------
+constexpr int kPairThreads = 2 * kMmaThreads;
+constexpr int kXchFloats = 2 * 2 * 256;  // a pair's 2 buffers of P and dP^T, 16 x 16 each
+
+template <int DP>
+__host__ __device__ constexpr int dkv_pair_smem_bytes() {
+  // K, V, two stages of (Q, dO, lse, delta), the pairs' exchange buffers.
+  return 6 * mma_tile_bytes<DP>() + 2 * 2 * kTile * 4 + kMmaWarps * kXchFloats * 4;
+}
+
+__device__ __forceinline__ void pair_barrier(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kPairThreads)
+    flash_dkv_mma_pair_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                              Shape s) {
+  constexpr int kLd = mma_pitch<DP>();
+  constexpr int kElems = kTile * kLd;
+  constexpr int kNh = DP / 16;  // 8-column fragments in a warp's half of D
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* v_s = k_s + kElems;
+  __nv_bfloat16* q_s = v_s + kElems;       // two stages
+  __nv_bfloat16* do_s = q_s + 2 * kElems;  // two stages
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kElems);  // two stages
+  float* delta_s = lse_s + 2 * kTile;                          // two stages
+  float* xch = delta_s + 2 * kTile;                            // kMmaWarps pairs
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int pair = warp >> 1;  // key rows 16 pair .. 16 pair + 15
+  const int part = warp & 1;   // 0: S^T and P, 1: dP^T; its half of the D columns
+  const int kj = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long in_off = b * s.in_sb + h * s.in_sh;
+  const long long o_st = (long long)s.heads * s.d;
+  const long long o_off = (long long)b * s.t_len * o_st + (long long)h * s.d;
+  const long long row_off = ((long long)b * s.heads + h) * s.t_len;
+  const int k0 = kj * kTile;
+  const int n_q = n_tiles(s.t_len);
+  const int q_first = s.causal ? kj : 0;
+
+  mma_load_tile<DP, kPairThreads>(k_s, k + in_off, s.in_st, k0, s.t_len, s.d);
+  mma_load_tile<DP, kPairThreads>(v_s, v + in_off, s.in_st, k0, s.t_len, s.d);
+  mma_load_tile<DP, kPairThreads>(q_s, q + in_off, s.in_st, q_first * kTile, s.t_len, s.d);
+  mma_load_tile<DP, kPairThreads>(do_s, dout + o_off, o_st, q_first * kTile, s.t_len, s.d);
+  mma_load_rows(lse_s, lse + row_off, q_first * kTile, s.t_len);
+  mma_load_rows(delta_s, delta + row_off, q_first * kTile, s.t_len);
+  cp_async_commit();
+
+  const int k_lo = 16 * pair;
+  const int r_lo = k0 + k_lo + (lane >> 2);
+  const int c_half = part * (DP / 2);
+  // This warp's product: K and Q for S^T, V and dO for dP^T.
+  const __nv_bfloat16* a_s = part == 0 ? k_s : v_s;
+  float* xch_pair = xch + pair * kXchFloats;
+  int n_xch = 0;  // exchanges so far: they alternate between the two buffers
+  float dk_acc[kNh][4], dv_acc[kNh][4];
+#pragma unroll
+  for (int n = 0; n < kNh; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk_acc[n][e] = 0.0f;
+      dv_acc[n][e] = 0.0f;
+    }
+  }
+
+  for (int qb = q_first; qb < n_q; ++qb) {
+    const int it = qb - q_first;
+    cp_async_wait_all();
+    __syncthreads();
+    if (qb + 1 < n_q) {
+      const int stage = (it + 1) & 1;
+      const int t0 = (qb + 1) * kTile;
+      mma_load_tile<DP, kPairThreads>(q_s + stage * kElems, q + in_off, s.in_st, t0, s.t_len,
+                                      s.d);
+      mma_load_tile<DP, kPairThreads>(do_s + stage * kElems, dout + o_off, o_st, t0, s.t_len,
+                                      s.d);
+      mma_load_rows(lse_s + stage * kTile, lse + row_off, t0, s.t_len);
+      mma_load_rows(delta_s + stage * kTile, delta + row_off, t0, s.t_len);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* qs = q_s + (it & 1) * kElems;
+    const __nv_bfloat16* dos = do_s + (it & 1) * kElems;
+    const __nv_bfloat16* b_s = part == 0 ? qs : dos;
+    const float* lses = lse_s + (it & 1) * kTile;
+    const float* deltas = delta_s + (it & 1) * kTile;
+    const int q0 = qb * kTile;
+
+#pragma unroll 1
+    for (int sub = 0; sub < kTile; sub += 16) {
+      if (s.causal && k0 + k_lo > q0 + sub + 15) continue;  // all masked: adds 0
+      float* xb = xch_pair + (n_xch & 1) * 512;
+      ++n_xch;
+      float x[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[j][e] = 0.0f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        uint32_t a[4], bb[4];
+        ldsm_x4(a, a_s + (k_lo + (lane & 15)) * kLd + 16 * kk + 8 * (lane >> 4));
+        ldsm_x4(bb, b_s + (sub + (lane & 7) + 8 * (lane >> 4)) * kLd + 16 * kk +
+                        8 * ((lane >> 3) & 1));
+        mma_bf16(x[0], a, bb[0], bb[1]);
+        mma_bf16(x[1], a, bb[2], bb[3]);
+      }
+      if (part == 0) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = sub + 8 * j + 2 * (lane & 3) + (e & 1);
+            const int q_pos = q0 + col;
+            const int k_pos = r_lo + 8 * (e >> 1);
+            const float sv = (q_pos >= s.t_len || (s.causal && k_pos > q_pos))
+                                 ? kNegInf
+                                 : x[j][e] * s.scale;
+            x[j][e] = expf(sv - lses[col]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) xb[part * 256 + i * 32 + lane] = x[i >> 2][i & 3];
+      pair_barrier(pair);
+      float p[2][4], ds[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = sub + 8 * j + 2 * (lane & 3) + (e & 1);
+          p[j][e] = xb[(4 * j + e) * 32 + lane];
+          ds[j][e] = p[j][e] * (xb[256 + (4 * j + e) * 32 + lane] - deltas[col]);
+        }
+      }
+      uint32_t p_hi[4], p_lo[4], ds_hi[4], ds_lo[4];
+      acc_to_a_split(p[0], p[1], p_hi, p_lo);
+      acc_to_a_split(ds[0], ds[1], ds_hi, ds_lo);
+#pragma unroll
+      for (int np = 0; np < DP / 32; ++np) {
+        uint32_t bo[4], bq[4];
+        const int b_off = (sub + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + c_half + 16 * np +
+                          8 * (lane >> 4);
+        ldsm_x4_t(bo, dos + b_off);
+        ldsm_x4_t(bq, qs + b_off);
+        mma_bf16(dv_acc[2 * np], p_hi, bo[0], bo[1]);
+        mma_bf16(dv_acc[2 * np], p_lo, bo[0], bo[1]);
+        mma_bf16(dv_acc[2 * np + 1], p_hi, bo[2], bo[3]);
+        mma_bf16(dv_acc[2 * np + 1], p_lo, bo[2], bo[3]);
+        mma_bf16(dk_acc[2 * np], ds_hi, bq[0], bq[1]);
+        mma_bf16(dk_acc[2 * np], ds_lo, bq[0], bq[1]);
+        mma_bf16(dk_acc[2 * np + 1], ds_hi, bq[2], bq[3]);
+        mma_bf16(dk_acc[2 * np + 1], ds_lo, bq[2], bq[3]);
+      }
+    }
+  }
+  mma_store_cols<kNh>(dk + o_off, o_st, r_lo, s.t_len, s.d, c_half, dk_acc, s.scale);
+  mma_store_cols<kNh>(dv + o_off, o_st, r_lo, s.t_len, s.d, c_half, dv_acc, 1.0f);
+}
+
+// ---------------------------------------------------------------------
 // K5 on the tensor cores.  Block (q tile, head, batch), as
 // flash_dq_kernel, looping over the K/V tiles up to the causal diagonal;
 // the next tile's K and V are in flight while this one computes (two
@@ -1369,13 +1641,22 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const vo
                            const float* lse, const float* delta, void* dk, void* dv,
                            int batch, const Shape& s, cudaStream_t st) {
   if (!mma_inputs_ok(q, k, v, s) || !aligned16(dout)) return cudaErrorMisalignedAddress;
-  constexpr int bytes = dkv_mma_smem_bytes<DP>();
-  cudaError_t err = allow_smem(flash_dkv_mma_kernel<DP>, bytes);
-  if (err != cudaSuccess) return err;
   const dim3 grid((s.t_len + kTile - 1) / kTile, s.heads, batch);
-  flash_dkv_mma_kernel<DP><<<grid, kMmaThreads, bytes, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const __nv_bfloat16*)dout, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, s);
+  if constexpr (DP > 128) {  // two warps for each 16 key rows
+    constexpr int bytes = dkv_pair_smem_bytes<DP>();
+    cudaError_t err = allow_smem(flash_dkv_mma_pair_kernel<DP>, bytes);
+    if (err != cudaSuccess) return err;
+    flash_dkv_mma_pair_kernel<DP><<<grid, kPairThreads, bytes, st>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+        (const __nv_bfloat16*)dout, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, s);
+  } else {
+    constexpr int bytes = dkv_mma_smem_bytes<DP>();
+    cudaError_t err = allow_smem(flash_dkv_mma_kernel<DP>, bytes);
+    if (err != cudaSuccess) return err;
+    flash_dkv_mma_kernel<DP><<<grid, kMmaThreads, bytes, st>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+        (const __nv_bfloat16*)dout, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, s);
+  }
   return cudaGetLastError();
 }
 
@@ -2653,9 +2934,30 @@ cudaError_t launch_ring_dkv(const void* q, const void* k, const void* v, const v
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim d <= 64 runs the DP=64
-// build, 64 < d <= 128 the DP=128 one (the wrapper checks d % 8 == 0).
+// dtype: 0 = float32, 1 = bfloat16.  K4-K6: head_dim d <= 64 runs the
+// DP=64 build, 64 < d <= 128 the DP=128 one, 128 < d <= 256 the DP=256
+// one (the wrapper pads d to a multiple of 8).
 #define EDL_FLASH_DISPATCH(CALL)                                     \
+  do {                                                               \
+    if (d < 1 || d > 256 || t_len < 1 || heads < 1 || batch < 1)     \
+      return (int)cudaErrorInvalidValue;                             \
+    if (dtype == 1) {                                                \
+      if (d <= 64) return (int)CALL(__nv_bfloat16, 64);              \
+      if (d <= 128) return (int)CALL(__nv_bfloat16, 128);            \
+      return (int)CALL(__nv_bfloat16, 256);                          \
+    }                                                                \
+    if (dtype == 0) {                                                \
+      if (d <= 64) return (int)CALL(float, 64);                      \
+      if (d <= 128) return (int)CALL(float, 128);                    \
+      return (int)CALL(float, 256);                                  \
+    }                                                                \
+    return (int)cudaErrorInvalidValue;                               \
+  } while (0)
+
+// K7-K9: the DP=64 and DP=128 builds only, d <= 128 (the ring's
+// kernels are not built at DP=256: K9 already takes 254 registers at
+// DP=128).
+#define EDL_RING_DISPATCH(CALL)                                      \
   do {                                                               \
     if (d < 1 || d > 128 || t_len < 1 || heads < 1 || batch < 1)     \
       return (int)cudaErrorInvalidValue;                             \
@@ -2723,7 +3025,7 @@ int edl_ring_fwd(const void* q, const void* k, const void* v, float* acc, float*
   const int t_len = tq < tk ? tq : tk;
 #define EDL_CALL(T, DP) \
   launch_ring_fwd<T, DP>(q, k, v, acc, lse, q_pos, k_pos, batch, s, st)
-  EDL_FLASH_DISPATCH(EDL_CALL);
+  EDL_RING_DISPATCH(EDL_CALL);
 #undef EDL_CALL
 }
 
@@ -2740,7 +3042,7 @@ int edl_ring_dq(const void* q, const void* k, const void* v, const void* dout, i
   const int t_len = tq < tk ? tq : tk;
 #define EDL_CALL(T, DP) \
   launch_ring_dq<T, DP>(q, k, v, dout, dout_dtype, lse, delta, dq, q_pos, k_pos, batch, s, st)
-  EDL_FLASH_DISPATCH(EDL_CALL);
+  EDL_RING_DISPATCH(EDL_CALL);
 #undef EDL_CALL
 }
 
@@ -2756,7 +3058,7 @@ int edl_ring_dkv(const void* q, const void* k, const void* v, const void* dout, 
 #define EDL_CALL(T, DP)                                                                       \
   launch_ring_dkv<T, DP>(q, k, v, dout, dout_dtype, lse, delta, dk, dv, q_pos, k_pos, batch, s, \
                          st)
-  EDL_FLASH_DISPATCH(EDL_CALL);
+  EDL_RING_DISPATCH(EDL_CALL);
 #undef EDL_CALL
 }
 

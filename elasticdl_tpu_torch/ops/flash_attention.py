@@ -53,9 +53,26 @@ Layouts: q, k, v, out and the gradients are ``[B, T, H, D]`` as in the
 JAX function; the kernels read q, k, v through their strides, so the
 query/key/value slices of a fused projection go in without a copy.
 ``lse`` and ``delta`` are ``[B, H, T]`` f32.  The kernels take bf16 or
-f32 inputs, any T >= 1 (a ragged last tile is masked) and head_dim up to
-``MAX_HEAD_DIM``, a multiple of 8; their tile is ``BLOCK`` queries by
-``BLOCK`` keys.
+f32 inputs and any T >= 1 (a ragged last tile is masked); their tile is
+``BLOCK`` queries by ``BLOCK`` keys.
+
+Head dims: K4-K6 take any head_dim up to ``MAX_HEAD_DIM`` (256), in
+builds for 64, 128 and 256 columns, each staging the columns past
+head_dim as zeros.  The JAX kernels take any multiple of 8 (and JAX's LM
+computes other head dims blockwise), so a head_dim that is not a
+multiple of 8 is padded here with zero columns up to the next one: zero
+columns of q and k change no score, zero columns of v give zero output
+columns, and the wrappers slice out, dq, dk and dv back (``scale`` is
+the caller's, from the true head_dim).  At 256 a warp's 16 rows of an
+f32 accumulator take 128 registers a thread, so K4 and K5 read their Q
+(and dO) fragments from shared memory at each step and K6 gives each 16
+key rows two warps, each owning half of the columns of dK and dV; the
+f32 builds of K5 and K6 share one shared-memory tile between two
+operands (``csrc/flash_attention.cu`` sets out what bounds each build).
+Above 256 they raise: that is ``wgmma``'s widest N and the widest build.
+The ring kernels K7-K9 take a multiple of 8 up to
+``RING_MAX_HEAD_DIM`` (128) and raise beyond it (``ROADMAP.md`` Queue 2
+F).
 """
 
 from __future__ import annotations
@@ -73,7 +90,9 @@ RING_KERNELS = ("flash_ring_step_carry", "flash_ring_step_dq", "flash_ring_step_
 NEG_INF = -1e30
 #: The CUDA kernels' tile: BLOCK queries by BLOCK keys.
 BLOCK = 64
-MAX_HEAD_DIM = 128
+#: The widest head_dim of K4-K6 (their widest build) and of K7-K9.
+MAX_HEAD_DIM = 256
+RING_MAX_HEAD_DIM = 128
 #: Query rows per step of the plain backward (bounds its [B, H, rows, T]
 #: score slab).
 PLAIN_BWD_ROWS = 256
@@ -133,16 +152,27 @@ def _check_dtypes_devices(q, k, v) -> None:
 
 
 def _check_kernel_dtype(q) -> None:
-    """The kernels take bf16 or f32 and head_dim a multiple of 8 up to
-    MAX_HEAD_DIM."""
-    d = q.shape[-1]
+    """The kernels take bf16 or f32."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"the flash-attention kernels take bfloat16 or float32, got {q.dtype}")
-    if d % 8 or not 0 < d <= MAX_HEAD_DIM:
+
+
+def _check_head_dim(q) -> None:
+    """K4-K6 take head_dim up to MAX_HEAD_DIM (the wrappers pad one that
+    is not a multiple of 8)."""
+    d = q.shape[-1]
+    if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(
-            f"the flash-attention kernels take head_dim a multiple of 8 up to "
-            f"{MAX_HEAD_DIM}, got {d}"
+            f"the flash-attention kernels take head_dim up to {MAX_HEAD_DIM} (one that is "
+            f"not a multiple of 8 padded with zero columns), got {d}"
         )
+
+
+def _pad8(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with zero columns appended up to a head_dim that is a
+    multiple of 8 (``x`` itself when it already is one)."""
+    pad = -x.shape[-1] % 8
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x
 
 
 def _aligned16(x: torch.Tensor) -> bool:
@@ -155,9 +185,11 @@ def _aligned16(x: torch.Tensor) -> bool:
 
 def _kernel_inputs(q, k, v):
     """Check what the CUDA kernels take; q, k, v with one set of strides,
-    a contiguous last dimension and, in bf16, 16-byte alignment (copied
-    only when they lack it)."""
+    a contiguous last dimension, a head_dim padded to a multiple of 8
+    and, in bf16, 16-byte alignment (copied only when they lack it)."""
     _check_kernel_dtype(q)
+    _check_head_dim(q)
+    q, k, v = _pad8(q), _pad8(k), _pad8(v)
     if (not (q.stride() == k.stride() == v.stride()) or q.stride(-1) != 1
             or not all(_aligned16(x) for x in (q, k, v))):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -167,9 +199,15 @@ def _kernel_inputs(q, k, v):
 
 
 def _kernel_dout(do, q):
-    """dO in q's dtype, contiguous and, in bf16, 16-byte aligned."""
-    do = do.to(q.dtype).contiguous()
+    """dO in (padded) q's dtype and head_dim, contiguous and, in bf16,
+    16-byte aligned."""
+    do = _pad8(do.to(q.dtype)).contiguous()
     return do if _aligned16(do) else do.clone()
+
+
+def _unpad(x: torch.Tensor, d: int) -> torch.Tensor:
+    """A kernel's output back to head_dim ``d`` (contiguous)."""
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
 
 
 def _stream() -> int:
@@ -244,15 +282,16 @@ def flash_attention_fwd(
     if block_k != BLOCK:
         raise ValueError(f"the flash-attention kernels are built for {BLOCK}-wide tiles, "
                          f"got block_k={block_k}")
+    d = q.shape[-1]
     q, k, v = _kernel_inputs(q, k, v)
-    b, t, h, d = q.shape
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    b, t, h, _ = q.shape
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if out.numel():
         with torch.cuda.device(q.device):
             _launch("flash_attention_fwd", "edl_flash_fwd", q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), out.data_ptr(), lse.data_ptr(), *_shape_args(q, scale, causal))
-    return out, lse
+    return _unpad(out, d), lse
 
 
 # ----------------------------------------------------------------------
@@ -336,6 +375,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, scale, causal) -> torch.Tensor:
     _check_bwd(q, do, lse, delta)
     if _route(q) == "plain":
         return flash_attention_dq_plain(q, k, v, do, lse, delta, scale, causal)
+    d = q.shape[-1]
     q, k, v = _kernel_inputs(q, k, v)
     do = _kernel_dout(do, q)
     lse, delta = lse.contiguous(), delta.contiguous()
@@ -345,7 +385,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, scale, causal) -> torch.Tensor:
             _launch("flash_attention_dq", "edl_flash_dq", q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                     dq.data_ptr(), *_shape_args(q, scale, causal))
-    return dq
+    return _unpad(dq, d)
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, scale, causal):
@@ -356,6 +396,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, scale, causal):
     _check_bwd(q, do, lse, delta)
     if _route(q) == "plain":
         return flash_attention_dkv_plain(q, k, v, do, lse, delta, scale, causal)
+    d = q.shape[-1]
     q, k, v = _kernel_inputs(q, k, v)
     do = _kernel_dout(do, q)
     lse, delta = lse.contiguous(), delta.contiguous()
@@ -366,7 +407,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, scale, causal):
             _launch("flash_attention_dkv", "edl_flash_dkv", q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                     dk.data_ptr(), dv.data_ptr(), *_shape_args(q, scale, causal))
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, scale, causal):
@@ -491,10 +532,16 @@ def _rows(x: torch.Tensor, q: torch.Tensor, name: str) -> torch.Tensor:
 
 def _ring_kernel_inputs(q, k, v):
     """What the ring kernels take: bf16 or f32, head_dim a multiple of 8
-    up to MAX_HEAD_DIM, a contiguous last dimension, one set of K/V
+    up to RING_MAX_HEAD_DIM, a contiguous last dimension, one set of K/V
     strides and, in bf16, 16-byte alignment of q and of the K/V block,
     each with its own strides (copied only when missing)."""
     _check_kernel_dtype(q)
+    d = q.shape[-1]
+    if d % 8 or not 0 < d <= RING_MAX_HEAD_DIM:
+        raise ValueError(
+            f"the ring-step kernels take head_dim a multiple of 8 up to {RING_MAX_HEAD_DIM}, "
+            f"got {d} (their DP=256 build and the pad are still to come: ROADMAP.md Queue 2 F)"
+        )
     if q.stride(-1) != 1 or not _aligned16(q):
         q = q.contiguous()
         if not _aligned16(q):

@@ -5,10 +5,16 @@ On CPU tensors the kernel functions run their plain versions, which
 follow the CUDA kernels' formulas and roundings; the JAX side runs its
 Pallas kernels in interpret mode with 16-wide blocks (as
 ``tests/test_flash_attention.py`` does).  Inputs are numpy draws from a
-seed, B=2, H=2, D=16.  Tolerances:
+seed, B=2, H=2, D=16; the wide head dims of the DP=256 build (136, 256)
+at B=1, H=2, and a head_dim that is no multiple of 8 through the pad.
+Tolerances:
 
 - f32: rtol 1e-5 / atol 1e-6 (out, lse, and the gradients of a random
   cotangent).  The frameworks sum the products in other orders.
+- f32 at the wide head dims: the same rtol, and the atol times
+  sqrt(D / 16): a score sums D products, so its f32 rounding noise grows
+  with sqrt(D) against the file's D=16 (measured at D=256: dk 1.56e-6 on
+  an element of 2.8e-4).
 - bf16: out and gradients within 2 bf16 ulps (rtol 2**-7) plus 2**-10 of
   the tensor's largest magnitude.  Both round the same f32 values to
   bf16 (P before P V, the outputs), and a value a summation order away
@@ -180,10 +186,15 @@ def test_kernel_input_checks():
     fused = torch.zeros((1, 8, 3, 2, 16), dtype=torch.bfloat16)
     q, k, v = fused.unbind(2)
     assert fa._kernel_inputs(q, k, v)[0] is q  # slices of one projection go in as views
-    for d in (12, 136):
+    for d in (12, 136, 256):  # 12 is padded with zero columns to 16
         y = torch.zeros((1, 8, 2, d))
-        with pytest.raises(ValueError, match="multiple of 8 up to 128"):
-            fa._kernel_inputs(y, y, y)
+        assert all(x.shape[-1] == d + -d % 8 for x in fa._kernel_inputs(y, y, y))
+    y = torch.zeros((1, 8, 2, 264))
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        fa._kernel_inputs(y, y, y)
+    r = torch.zeros((1, 2, 8, 136))
+    with pytest.raises(ValueError, match="multiple of 8 up to 128.*ROADMAP.md Queue 2 F"):
+        fa._ring_kernel_inputs(r, r, r)
     h = torch.zeros((1, 8, 2, 16), dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         fa._kernel_inputs(h, h, h)
@@ -192,3 +203,85 @@ def test_kernel_input_checks():
     with pytest.raises(ValueError, match="no kernel for device"):
         m = torch.zeros((1, 8, 2, 16), device="meta")
         fa.flash_attention_fwd(m, m, m, 0.25, True)
+
+
+WIDE = [(d, t, dtype) for d in (136, 256) for t in (32, 40) for dtype in ("float32", "bfloat16")]
+
+
+def _wide_blocks(t):
+    """JAX's kernels need whole blocks: 16 at T=32, 8 at T=40."""
+    return 16 if t % 16 == 0 else 8
+
+
+@pytest.mark.parametrize("d,t,dtype", WIDE)
+def test_wide_head_dim_forward_matches_jax_kernel(d, t, dtype):
+    """K4's plain version at the head dims of its DP=256 build against
+    the Pallas forward (interpret mode), causal, on the same blocks."""
+    q, k, v, _ = _draw(t, seed=60 + d + t, b=1, d=d)
+    block = _wide_blocks(t)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    j_out, j_lse = jfa._fwd(*(_jax(x, jd).transpose(0, 2, 1, 3) for x in (q, k, v)),
+                            1.0 / np.sqrt(d), True, block, block, True)
+    out, lse = fa.flash_attention_fwd(*(_torch(x, td) for x in (q, k, v)),
+                                      fa.default_scale(d), True, block)
+    want = np.asarray(j_out.astype(jnp.float32)).transpose(0, 2, 1, 3)
+    if dtype == "float32":
+        np.testing.assert_allclose(out.numpy(), want, **F32_TOL)
+    else:
+        _assert_bf16_close(out.float().numpy(), want, "out")
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse)[..., 0], **F32_TOL)
+
+
+@pytest.mark.parametrize("d,t,dtype", WIDE)
+def test_wide_head_dim_autograd_matches_jax_custom_vjp(d, t, dtype):
+    """K4-K6's plain versions through the public function at the wide
+    head dims against JAX's custom_vjp (its Pallas kernels in interpret
+    mode), causal."""
+    q, k, v, g = _draw(t, seed=70 + d + t, b=1, d=d)
+    block = dict(block_q=_wide_blocks(t), block_k=_wide_blocks(t))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    j_out, j_vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, causal=True, **block),
+                           *(_jax(x, jd) for x in (q, k, v)))
+    j_grads = j_vjp(_jax(g, jd))
+    leaves = [_torch(x, td).requires_grad_(True) for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=True, **block)
+    out.backward(_torch(g, td))
+    for name, got, want in zip(("out", "dq", "dk", "dv"), [out.detach()] + [x.grad for x in leaves],
+                               [j_out, *j_grads]):
+        assert got.dtype == td
+        want = np.asarray(want.astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(got.numpy(), want, err_msg=name, rtol=F32_TOL["rtol"],
+                                       atol=F32_TOL["atol"] * np.sqrt(d / 16))
+        else:
+            _assert_bf16_close(got.float().numpy(), want, name)
+
+
+@pytest.mark.parametrize("d", [12, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_pad_changes_nothing(dtype, d):
+    """What the K4-K6 wrappers do on the card for a head_dim that is not a
+    multiple of 8, run through the plain versions: q, k, v and dO padded
+    with zero columns (``_kernel_inputs``, ``_kernel_dout``), ``scale``
+    from the true head_dim, the outputs sliced back (``_unpad``), equal
+    the unpadded computation bit for bit (zero columns add exact zeros to
+    every score and give zero output columns)."""
+    td = getattr(torch, dtype)
+    q, k, v, g = (_torch(x, td) for x in _draw(40, seed=80 + d, d=d))
+    scale = fa.default_scale(d)
+    qp, kp, vp = fa._kernel_inputs(q, k, v)
+    gp = fa._kernel_dout(g, qp)
+    assert qp.shape[-1] == gp.shape[-1] == d + -d % 8
+    assert not bool(qp[..., d:].any()) and not bool(gp[..., d:].any())
+    out, lse = fa.flash_attention_fwd_plain(q, k, v, scale, True)
+    out_p, lse_p = fa.flash_attention_fwd_plain(qp, kp, vp, scale, True)
+    assert not bool(out_p[..., d:].any())
+    assert torch.equal(fa._unpad(out_p, d), out) and torch.equal(lse_p, lse)
+    delta = fa.attention_delta(out, g)
+    want = (fa.flash_attention_dq_plain(q, k, v, g, lse, delta, scale, True),
+            *fa.flash_attention_dkv_plain(q, k, v, g, lse, delta, scale, True))
+    got = (fa.flash_attention_dq_plain(qp, kp, vp, gp, lse, delta, scale, True),
+           *fa.flash_attention_dkv_plain(qp, kp, vp, gp, lse, delta, scale, True))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert not bool(a[..., d:].any()), name
+        assert torch.equal(fa._unpad(a, d), b), name

@@ -31,8 +31,15 @@ upcast operands does up to summation order):
   before dQ = dS K, dK = dS^T Q and dV = P^T dO, every cross product
   kept.
 
+The DP=256 builds of K4-K6 keep these rules and this split of every
+sum: K4 and K5 only read their Q and dO fragments from shared memory
+instead of registers, and K6's pair of warps per 16 key rows computes
+S^T and dP^T once each and gives each warp half of the columns of dK and
+dV, so every accumulator element gets the same products in the same
+order.
+
 Inputs are seeded numpy draws at D=64 and D=128 (the kernels' two
-builds), causal and full; T is ragged (not a multiple of the 64-row
+builds; K4-K6 also at D=256, their third), causal and full; T is ragged (not a multiple of the 64-row
 tile) against the plain versions and a multiple of 64 against JAX, whose
 kernels need whole blocks.
 """
@@ -191,10 +198,12 @@ def _assert_close(got, want, what):
 
 
 CASES = [(d, causal) for d in (64, 128) for causal in (True, False)]
+#: K4-K6 have a DP=256 build; K7-K9 stop at 128.
+K456_CASES = CASES + [(256, causal) for causal in (True, False)]
 
 
 @pytest.mark.parametrize("t", [100, 200])
-@pytest.mark.parametrize("d,causal", CASES)
+@pytest.mark.parametrize("d,causal", K456_CASES)
 def test_k4_rounding_matches_plain_version(d, causal, t):
     q, k, v = (_bf16(x) for x in _draw(2, t, 2, d, seed=d + t + causal, n=3))
     scale = fa.default_scale(d)
@@ -205,7 +214,7 @@ def test_k4_rounding_matches_plain_version(d, causal, t):
 
 
 @pytest.mark.parametrize("t", [100, 200])
-@pytest.mark.parametrize("d,causal", CASES)
+@pytest.mark.parametrize("d,causal", K456_CASES)
 def test_k6_rounding_matches_plain_version(d, causal, t):
     q, k, v, do = (_bf16(x) for x in _draw(2, t, 2, d, seed=7 * d + t + causal))
     scale = fa.default_scale(d)
@@ -225,7 +234,7 @@ def _from_jax_bhtd(x):
     return np.asarray(x, np.float32).transpose(0, 2, 1, 3)
 
 
-@pytest.mark.parametrize("d,causal", CASES)
+@pytest.mark.parametrize("d,causal", K456_CASES)
 def test_k4_rounding_matches_jax_kernel(d, causal):
     q, k, v = (_bf16(x) for x in _draw(1, 2 * TILE, 2, d, seed=31 + d + causal, n=3))
     scale = fa.default_scale(d)
@@ -236,7 +245,7 @@ def test_k4_rounding_matches_jax_kernel(d, causal):
     _assert_close(out.float().numpy(), _from_jax_bhtd(j_out), "out")
 
 
-@pytest.mark.parametrize("d,causal", CASES)
+@pytest.mark.parametrize("d,causal", K456_CASES)
 def test_k6_rounding_matches_jax_kernel(d, causal):
     q, k, v, do = (_bf16(x) for x in _draw(1, 2 * TILE, 2, d, seed=53 + d + causal))
     scale = fa.default_scale(d)
@@ -250,7 +259,7 @@ def test_k6_rounding_matches_jax_kernel(d, causal):
     _assert_close(dv.float().numpy(), _from_jax_bhtd(j_dv), "dv")
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_k6_split_is_closer_than_one_rounding(d):
     """The hi/lo split of P and dS lands nearer the f32 plain version
     than one bf16 rounding of them, the design it replaces."""
@@ -315,7 +324,7 @@ def _bhtd(x):
 
 
 @pytest.mark.parametrize("t", [100, 200])
-@pytest.mark.parametrize("d,causal", CASES)
+@pytest.mark.parametrize("d,causal", K456_CASES)
 def test_k5_rounding_matches_plain_version(d, causal, t):
     q, k, v, do = (_bf16(x) for x in _draw(2, t, 2, d, seed=11 * d + t + causal))
     scale = fa.default_scale(d)
@@ -344,7 +353,7 @@ def test_k7_rounding_matches_plain_version(d, causal, tq, tk):
     _assert_carry_close(got, want, (d, causal, tq, tk))
 
 
-@pytest.mark.parametrize("d,causal", CASES)
+@pytest.mark.parametrize("d,causal", K456_CASES)
 def test_k5_rounding_matches_jax_kernel(d, causal):
     q, k, v, do = (_bf16(x) for x in _draw(1, 2 * TILE, 2, d, seed=61 + d + causal))
     scale = fa.default_scale(d)

@@ -23,6 +23,14 @@ T=32, batch 4.  Tolerances:
   bf16, and the two frameworks sum in other orders, so a sum near a
   rounding boundary may round to the neighbouring bf16 value; the whole
   f32-bodied model with that head within the bf16 logit shares above;
+- the loss and every gradient of one batch at the wide and odd head
+  dims (head_dim 256, as Gemma 2B's attention, on one card and under
+  tensor parallelism over an in-process model axis of 2; head_dim 100,
+  which the kernels' wrappers pad to 104 on the card): the loss at rtol
+  1e-5, each gradient at rtol 1e-5 plus ``GRAD_ATOL_SHARE`` of its
+  leaf's largest element (the frameworks sum the products of both signs
+  in other orders, and that noise scales with the summed terms, not
+  with the gradient);
 - trainer (f32): per-step losses rtol 1e-5; final params after 3 AdamW
   steps atol 1e-6 / rtol 1e-5 for all but 0.5% of the elements, every
   element within ``2·lr·steps·1.5``: Adam's first steps are sign-like,
@@ -43,6 +51,9 @@ from elasticdl_tpu_torch.data.synthetic import synthetic_lm_arrays
 from elasticdl_tpu_torch.ops import flash_attention as fa
 from elasticdl_tpu_torch.parallel import optim
 from elasticdl_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+from elasticdl_tpu_torch.parallel.mesh import MeshConfig as PortMeshConfig
+from elasticdl_tpu_torch.parallel.mesh import build_mesh as port_build_mesh
+from elasticdl_tpu_torch.parallel.mesh import virtual_devices
 from elasticdl_tpu_torch.serving import convert
 from elasticdl_tpu_torch.zoo import build_model
 from elasticdl_tpu_torch.zoo import transformer_lm as port_zoo
@@ -56,6 +67,14 @@ F32_LOGIT_ATOL = 1e-5
 BF16_LOGIT_MAX_SHARE, BF16_LOGIT_MEAN_SHARE = 2e-2, 1e-2
 STEP_RTOL = 1e-5
 FINAL_TOL = dict(rtol=1e-5, atol=1e-6)
+GRAD_ATOL_SHARE = 1e-5
+#: (case, widths, model axis or None): head_dim 256 on one card and under
+#: tensor parallelism over 2 model slots, head_dim 100 (no multiple of 8).
+WIDE_HEADS = [
+    ("head_dim_256", dict(d_model=256, num_heads=1), None),
+    ("head_dim_256_tp2", dict(d_model=512, num_heads=2), 2),
+    ("head_dim_100", dict(d_model=200, num_heads=2), None),
+]
 
 
 def _data(n, seed=1):
@@ -360,3 +379,39 @@ def test_bf16_logits_head_parity_and_checkpoint_names():
                                    np.asarray(dparams["params"]["kernel"]), rtol=2 ** -7, atol=0)
         np.testing.assert_allclose(port.bias.grad.numpy(),
                                    np.asarray(dparams["params"]["bias"]), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case,widths,model_axis", WIDE_HEADS, ids=[c[0] for c in WIDE_HEADS])
+def test_wide_head_dims_loss_and_gradients_match_jax(case, widths, model_axis):
+    """The LM at head dims the JAX kernels take and the port's DP=64/128
+    builds did not (256) or that no build takes as it is (100): 2 layers,
+    vocab 64, T=32, f32, from the JAX model's weights through
+    ``serving/convert.py``; JAX computes blockwise on the CPU (its
+    ``auto``), the port its kernels' plain versions."""
+    params = dict(PARAMS, vocab=64, num_layers=2, **widths)
+    tokens, labels = synthetic_lm_arrays(BATCH, SEQ, params["vocab"], 13)
+    jax_model = zoo.custom_model(**params, use_bf16=False)
+    variables = _jax_variables(jax_model, tokens)
+
+    def jax_loss(p):
+        return zoo.loss(jnp.asarray(labels), jax_model.apply({"params": p}, jnp.asarray(tokens)))
+
+    j_loss, j_grads = jax.jit(jax.value_and_grad(jax_loss))(variables["params"])
+    mesh = None if model_axis is None else port_build_mesh(
+        PortMeshConfig(1, model_axis), devices=virtual_devices(model_axis, "cpu"))
+    extra = {} if mesh is None else dict(mesh=mesh, model_axis_mode="tp")
+    model = build_model(MODEL_DEF, dict(params, use_bf16=False, **extra), device="cpu")
+    convert.load_state(model, convert.state_dict_from_jax(variables, model))
+    head_dim = widths["d_model"] // widths["num_heads"]
+    assert tuple(model.block_0.attn.qkv.kernel.shape[-1:]) == (head_dim,)
+    fa.reset_launch_counts()
+    loss = port_zoo.loss(torch.from_numpy(labels), model(torch.from_numpy(tokens)))
+    names = [name for name, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+    assert not any(fa.launch_counts().values())  # CPU tensors: the plain versions
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=STEP_RTOL)
+    want = convert.state_dict_from_jax({"params": jax.device_get(j_grads)}, model)
+    for name, got in zip(names, grads):
+        w = np.asarray(want[name])
+        np.testing.assert_allclose(got.numpy(), w, rtol=FINAL_TOL["rtol"],
+                                   atol=GRAD_ATOL_SHARE * np.abs(w).max(), err_msg=name)
