@@ -92,8 +92,10 @@ The context-parallel slice (the ring-step kernels K7-K9, the LM with its
 sequence sharded over a mesh's ``model`` axis):
 
 13. K7 (the ring step's forward with the carry combine), K8 (dQ) and K9
-    (dK/dV) against their plain versions: four edge shapes with random
-    positions and one whose first 40 queries see no key (K8 must give
+    (dK/dV) against their plain versions: nine edge shapes with random
+    positions (head_dim 8-256: 136 and 256 on the DP=256 builds in bf16
+    and f32, 100 through the wrappers' pad to 104) and one whose first
+    40 queries see no key (K8 must give
     them dq = 0); every step of a ring of 4, contiguous and zigzag causal
     positions, at the CP LM's slot shape (B=4, T_local=2048, H=8, D=64)
     in bf16 and f32, and at ``bench.py``'s RING_BENCH (B=4, T_local=2048,
@@ -114,7 +116,8 @@ sequence sharded over a mesh's ``model`` axis):
     (tokens/s, median step, the CUDA-event breakdown with K7-K9's time in
     the step, peak memory); the loss must fall.
 16. From one state, 3 steps of the CP path against the one-card trainer
-    (K4-K6 on T=8192): with f32 blocks at phase 12's tolerances; with
+    (K4-K6 on T=8192) on 2 rows of each batch (CP_GATE_BATCH): with f32
+    blocks at phase 12's tolerances; with
     bf16 blocks at CP_BF16_TOL, kernels on both sides and then, as the
     witness, the plain versions on both sides.
 
@@ -248,15 +251,15 @@ The elastic job (``master/``, ``worker/``, ``parallel/elastic.py``):
     checkpoint save, the rescale (kill -> detection, relaunch, restore,
     first step after), the wall.
 27. The same job reads files and evaluates: before the master starts,
-    the port's writer (``zoo.deepfm.write_criteo_etrf``) writes 786,432
+    the port's writer (``zoo.deepfm.write_criteo_etrf``) writes 262,144
     records drawn from ``--seed`` as ``bench.py:514-532`` draws them in
-    6 ETRF shards of 131,072 (165 bytes a record and 8 of index), and
+    2 ETRF shards of 131,072 (165 bytes a record and 8 of index), and
     65,536 from ``seed + 27`` in one validation shard; the job trains on the
-    shard directory through the columnar route (96 steps in 24 tasks of
-    32,768) with ``--validation_data`` and ``--evaluation_steps=48``,
+    shard directory through the columnar route (32 steps in 8 tasks of
+    32,768) with ``--validation_data`` and ``--evaluation_steps=32``,
     one checkpoint at the end, no kill.  Gates: exit 0; every training
-    range done and every evaluation range done in every round (rounds
-    journaled at versions 48 and 96, each over 65,536 rows); "Columnar
+    range done and every evaluation range done in every round (a round
+    journaled at version 32, over 65,536 rows); "Columnar
     task path engaged" logged for training and for evaluation, and no
     task read record by record through the ETRF reader; the native
     codec served the worker; 2 K2 and 2 K3 a training step and 2 K2 an
@@ -423,7 +426,7 @@ The observability planes (``obs/{tracing,trace,history,slo,report,top}.py``,
 ``master/tensorboard_service.py``, ``common/profiler.py``):
 
 38. Phase 27's job (ETRF, vocab 1M per field split, batch 8192,
-    evaluation every 48 versions) with ``--tensorboard_log_dir``,
+    evaluation every 32 versions) with ``--tensorboard_log_dir``,
     ``--profile_steps=9,17`` (tasks 3 and 4: two whole train windows),
     ``--slo_goodput_target=0.5`` and ``--metrics_port=0``, a checkpoint
     every 24 steps, and worker 0 SIGKILLed after the first as in phase 26.
@@ -595,6 +598,22 @@ host optimizer kernels:
     and 5 timed steps at AdamW 7.5e-4 (phase 11's 3e-3 scaled by the
     width ratio; step ms, tokens/s, peak memory, a falling loss, K4-K6's
     in-step ms), and phase 12's gate at batch 2.
+50. K7-K9 at head_dim 256, their DP=256 builds: against their plain
+    versions at the CP LM's slot shape [2, 2048, 8, 256] bf16, every step
+    of a ring of 4 in both layouts (K8 and K9 on an f32 and the path's
+    bf16 dO), at RING_CARRY_TOL and ATTN_F32_*, and timed at the
+    unmasked step beside their plain versions, bounds and the
+    memory-efficient attention call (null, with the reason, where no
+    backend takes the shape).  Then phase 49's LM at T=8192, batch 2,
+    trained context-parallel over the in-process (1, 4) mesh in both
+    layouts (2 warm-up and 5 timed steps at AdamW 7.5e-4: K7-K9 each 64
+    times a step, no whole-sequence kernel, a falling loss), and from one
+    state 3 CP steps against the one-card LM (K4-K6's DP=256 builds on
+    the whole sequence) at batch 1, with the plain versions on both
+    sides as the witness, at phase 16's bf16 tolerances.
+
+A line before and after each group of phases (``[phase clock]``) gives
+the group's seconds and the run's total so far.
 
 Before each of phases 21-23 the free space of its directory is checked
 (a failure names the bytes needed); each deletes its directories.
@@ -626,7 +645,8 @@ phase 41's replica; K2 twice per dispatch of each replica of phase 43;
 K4-K6 once per layer per model slot per step of phase 45 and once per
 layer per step of phase 46, in process and in its world of one; K2
 five times per step of phase 47 and never K1 or K3 there; K4-K6 once
-per layer per step of phase 49's LM and once per checked shape)
+per layer per step of phase 49's LM and once per checked shape; K7-K9
+once per layer per ring step of phase 50's CP LM and K4-K6 never there)
 fails the run.
 The line before the last holds the card's name and power limit, the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, with no
@@ -645,6 +665,8 @@ beside its own when both run).
 from __future__ import annotations
 
 import argparse
+import atexit
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -682,13 +704,14 @@ LOGIT_RTOL, LOGIT_ATOL = 1e-5, 1e-6
 ELASTIC_RECORDS = 196_608
 ELASTIC_PER_TASK = 32_768
 ELASTIC_CKPT_STEPS = 12
-#: Phase 27: the job on ETRF files, 6 training shards of 131,072 records
-#: (96 steps of TRAIN_BATCH in tasks of ELASTIC_PER_TASK), one validation
-#: shard, an evaluation round every 48 model versions.
-ETRF_SHARDS = 6
+#: Phase 27: the job on ETRF files, 2 training shards of 131,072 records
+#: (32 steps of TRAIN_BATCH in tasks of ELASTIC_PER_TASK), one validation
+#: shard, an evaluation round every 32 model versions.  Phase 38 runs the
+#: same job and kills its worker after step 24: 8 steps stay after it.
+ETRF_SHARDS = 2
 ETRF_PER_SHARD = 131_072
 ETRF_VALIDATION = 65_536
-ETRF_EVAL_STEPS = 48
+ETRF_EVAL_STEPS = 32
 #: The final AUC against an in-process evaluation of the same model:
 #: near-tied logits may order differently.
 AUC_TOL = 1e-4
@@ -872,6 +895,7 @@ LM_PATH_LOSS_RTOL = 1e-4
 LM_PATH_GRAD_RTOL = 1e-2
 LM_PATH_PARAM_MAX = 2 * LM_LR * 3 * 1.5
 LM_PATH_UPDATE_RTOL = 2e-2
+RING_SOURCE = "elasticdl_tpu_torch/ops/csrc/ring_attention.cu"
 RING_REPLACES = {
     "flash_ring_step_carry": "elasticdl_tpu/ops/flash_attention.py:344",
     "flash_ring_step_dq": "elasticdl_tpu/ops/flash_attention.py:482",
@@ -889,10 +913,15 @@ RING_BENCH = dict(batch=4, t_local=2048, heads=8, head_dim=128, steps=4)
 #: within ATTN_F32_*.
 RING_CARRY_TOL = (ATTN_RTOL, ATTN_ATOL_SHARE)
 #: Checked for correctness only: (B, Tq, Tk, H, D, dtype, causal) with
-#: random positions: Tq != Tk, ragged tiles, f32, head_dim 8-128.
+#: random positions: Tq != Tk, ragged tiles, f32, head_dim 8-256 (136 and
+#: 256 the DP=256 builds, bf16 with an f32 and a bf16 dO and f32; 100
+#: padded to 104 by the wrappers).
 RING_EDGE_SHAPES = (
     (2, 200, 333, 2, 32, "float32", True), (1, 130, 64, 3, 8, "bfloat16", True),
     (2, 96, 160, 2, 128, "float32", False), (1, 64, 64, 1, 64, "bfloat16", True),
+    (1, 130, 200, 2, 136, "bfloat16", True), (1, 200, 130, 2, 256, "bfloat16", True),
+    (1, 96, 160, 2, 136, "float32", True), (1, 130, 96, 2, 256, "float32", False),
+    (1, 130, 200, 2, 100, "bfloat16", True),
 )
 #: A final lse at or below half of NEG_INF: a row that saw no key.
 UNSEEN_LSE = -0.5e30
@@ -926,6 +955,10 @@ CP_SLOT_SHAPE = (CP_BATCH, CP_LM["seq_len"] // CP_MESH[1], CP_LM["num_heads"],
 #: parameter, updates): phase 12's loss and parameter limits, and twice
 #: the largest reading, rounded up, for gradients and updates.
 CP_BF16_TOL = (LM_PATH_LOSS_RTOL, 2e-2, LM_PATH_PARAM_MAX, 1.1e-1)
+#: Phase 16 compares the two paths on the first CP_GATE_BATCH rows of the
+#: training batches (the readings above were taken at all 4; the plain
+#: witness at T=8192 costs ~13 s a layout at 4).
+CP_GATE_BATCH = 2
 K3_HYPER = {
     "sgd": ("sgd", {"learning_rate": 0.01}),
     "momentum": ("momentum", {"learning_rate": 0.01, "momentum": 0.9, "nesterov": False}),
@@ -939,6 +972,32 @@ K3_HYPER = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: When the script started: the run's total in the phase clock's lines.
+RUN_START = time.perf_counter()
+
+
+@contextlib.contextmanager
+def phase_clock(*numbers):
+    """A line before a group of phases and one after it (also when it
+    fails): the phase numbers, the seconds the group took and the run's
+    total so far.  A run that hits its time limit shows where it
+    stopped."""
+    label = ",".join(str(n) for n in numbers)
+    log(f"[phase clock] phases {label}: start at {time.perf_counter() - RUN_START:.1f} s")
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        log(f"[phase clock] phases {label}: {time.perf_counter() - t0:.1f} s, run total "
+            f"{time.perf_counter() - RUN_START:.1f} s")
+
+
+def timed_phase(numbers, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` inside ``phase_clock(*numbers)``."""
+    with phase_clock(*numbers):
+        return fn(*args, **kwargs)
 
 
 def fail(msg: str) -> None:
@@ -977,18 +1036,21 @@ def import_port():
 # ----------------------------------------------------------------------
 
 #: The bf16 builds of K4-K9 run on the tensor cores (mma.sync): their
-#: SASS must hold HMMA (or wgmma's HGMMA).  K4-K6 also have a DP=256
-#: build (K6's with a pair of warps for each 16 key rows).  K8 and K9 are built for each
-#: count of dO parts: 1 (a bf16 dO, the CP path's) and 3 (an f32 dO split
-#: three ways, kF32DoParts).
+#: SASS must hold HMMA (or wgmma's HGMMA).  Each has a DP=256 build, K6's
+#: and K9's with a pair of warps for each 16 key rows.  K8 and K9 are
+#: built for each count of dO parts: 1 (a bf16 dO, the CP path's) and 3
+#: (an f32 dO split three ways, kF32DoParts).
 TENSOR_CORE_BUILDS = tuple(
     [f"{name}<bf16, {dp}>" for name in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
                                          "flash_dkv_mma_kernel", "ring_fwd_mma_kernel")
      for dp in (64, 128)]
     + [f"{name}<bf16, 256>" for name in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
-                                         "flash_dkv_mma_pair_kernel")]
+                                         "flash_dkv_mma_pair_kernel", "ring_fwd_mma_kernel")]
     + [f"{name}<bf16, {dp}, {parts}>" for name in ("ring_dq_mma_kernel", "ring_dkv_mma_kernel")
-       for dp in (64, 128) for parts in (1, 3)])
+       for dp in (64, 128) for parts in (1, 3)]
+    + [f"{name}<bf16, 256, {parts}>" for name in ("ring_dq_mma_kernel",
+                                                  "ring_dkv_mma_pair_kernel")
+       for parts in (1, 3)])
 _KERNEL_LABEL = re.compile(
     r"((?:flash|ring)_[a-z_]*kernel)I(13__nv_bfloat16|f)?Li(\d+)E(?:Li(\d+)E)?")
 
@@ -1058,22 +1120,33 @@ def parse_sass_mma(text: str):
     return {name: tuple(c) for name, c in counts.items()}
 
 
-def attention_resources(lib_path: str, build_log: str):
-    """Registers, shared memory, spills and tensor-core instructions of
-    every attention kernel in the built library, by label; None, with a
-    line that says so, where cuobjdump is missing.  Fails if a bf16
-    K4-K9 build holds no HMMA/HGMMA."""
+def start_resource_dumps(lib_path: str):
+    """cuobjdump's resource usage and SASS of the built library, both
+    started now on threads (they take seconds of host time, which the
+    phases after the build overlap); None where cuobjdump is missing."""
     tool = cuobjdump_path()
     if tool is None:
+        return None
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
+    dumps = [pool.submit(subprocess.run, [tool, flag, lib_path], check=True,
+                         capture_output=True, text=True, timeout=300)
+             for flag in ("--dump-resource-usage", "-sass")]
+    pool.shutdown(wait=False)
+    return dumps
+
+
+def attention_resources(dumps, build_log: str):
+    """Registers, shared memory, spills and tensor-core instructions of
+    every attention kernel in the built library, by label, from
+    ``start_resource_dumps``; None, with a line that says so, where
+    cuobjdump is missing.  Fails if a bf16 K4-K9 build holds no
+    HMMA/HGMMA."""
+    if dumps is None:
         log("  attention kernels' resources: cuobjdump not found (neither beside nvcc "
             "nor on PATH): registers and SASS not read")
         return None
-    usage = parse_resource_usage(subprocess.run(
-        [tool, "--dump-resource-usage", lib_path], check=True, capture_output=True,
-        text=True, timeout=300).stdout)
-    sass = parse_sass_mma(subprocess.run(
-        [tool, "-sass", lib_path], check=True, capture_output=True, text=True,
-        timeout=300).stdout)
+    usage = parse_resource_usage(dumps[0].result().stdout)
+    sass = parse_sass_mma(dumps[1].result().stdout)
     spills = parse_ptxas_spills(build_log)
     found = {}
     for mangled, use in sorted(usage.items()):
@@ -1124,6 +1197,13 @@ def sparse_resources(usage, spills):
 # ----------------------------------------------------------------------
 # timing
 # ----------------------------------------------------------------------
+
+
+#: Launches a plain version's median is taken over (and its warm-up):
+#: the plain versions repeat the kernels' arithmetic in PyTorch and are
+#: no yardstick of speed, and at 15-65 ms a call 30 of them cost phase 10
+#: alone ~9 s of the run.
+PLAIN_REPS, PLAIN_WARMUP = 5, 1
 
 
 def median_ms(fn, flush, reps: int = 30, warmup: int = 3) -> float:
@@ -2255,7 +2335,7 @@ def attention_times(fa, q, k, v, do, causal, lse_p, delta, shape, errs, card, fl
         fa.reset_launch_counts()
         ms = median_ms(kernel, flush)
         launches = fa.launch_counts()[name]
-        plain_ms = median_ms(plain, flush)
+        plain_ms = median_ms(plain, flush, PLAIN_REPS, PLAIN_WARMUP)
         tflops = ops[name] / ms * 1e-9
         entry["kernels"][name] = {
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "tflop_per_s": tflops,
@@ -2869,7 +2949,8 @@ def ring_step_times(fa, q, k, v, do, q_pos, k_pos, scale, flush, names=None):
             lambda: fa.flash_ring_step_dkv(q, k, v, do, lse, delta, q_pos, k_pos, **kw),
             lambda: fa.flash_ring_step_dkv_plain(q, k, v, do, *rows, q_pos, k_pos, **kw)),
     }
-    return {name: (median_ms(calls[name][0], flush), median_ms(calls[name][1], flush))
+    return {name: (median_ms(calls[name][0], flush),
+                   median_ms(calls[name][1], flush, PLAIN_REPS, PLAIN_WARMUP))
             for name in names or fa.RING_KERNELS}
 
 
@@ -3151,7 +3232,9 @@ def cp_lm_phases(card: str, seed: int):
                                            device=card_device())
             cp_trainer.ensure_initialized()
             one_card.ensure_initialized()
-            staged = [cp_trainer.stage_batch(*b) for b in batches[:3]]
+            cut = CP_GATE_BATCH
+            staged = [cp_trainer.stage_batch(t[:cut], n[:cut], m[:cut])
+                      for t, n, m in batches[:3]]
             start = DPTrainState(0, clone_tree(cp_trainer.state.params),
                                  clone_tree(cp_trainer.state.opt_state), {})
             what = (f"CP LM ({layout}, {kind}, ring K7-K9) vs one-card LM ({kind}, K4-K6 on "
@@ -8096,9 +8179,10 @@ def quality_replica_phase(card: str, seed: int, workdir: str, chain: dict, trace
     shutil.rmtree(serve, ignore_errors=True)
     return result
 
-def ring_entries(ring_kernels, ring_whole, cp, card, resources=None):
+def ring_entries(ring_kernels, ring_whole, cp, card, resources=None, cp_wide=None):
     """The K7-K9 entries of the kernels line: timed at RING_BENCH (phase
-    13), launched on the CP LM path (phase 15, both layouts)."""
+    13), launched on the CP LM path (phase 15, both layouts) and, with
+    their DP=256 builds' numbers, on the head_dim-256 CP LM's (phase 50)."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
 
     line = []
@@ -8107,8 +8191,20 @@ def ring_entries(ring_kernels, ring_whole, cp, card, resources=None):
         bench_build, path_build = RING_BUILDS[name]
         by_path = {f"cp_lm_train_{layout}_{CP_STEPS}_steps": cp[layout]["launches"][name]
                    for layout in cp}
+        wide = None
+        if cp_wide is not None:
+            for layout in cp:
+                by_path[f"cp_lm_head_dim_256_{layout}_{WIDE_STEPS}_steps"] = \
+                    cp_wide[layout]["launches"][name]
+            wide = {**cp_wide["kernels"][name], "build": RING_WIDE_BUILDS[name],
+                    "resources": (resources or {}).get(RING_WIDE_BUILDS[name]),
+                    "launches": sum(cp_wide[layout]["launches"][name] for layout in cp),
+                    "launches_per_step": cp_wide["contiguous"]["launches_per_step"],
+                    "train_step_kernel_ms": {
+                        layout: cp_wide[layout]["breakdown_ms"]["kernel_ms"][name]
+                        for layout in cp}}
         line.append({
-            "name": name, "ok": True, "route": "cuda", "source": FLASH_SOURCE,
+            "name": name, "ok": True, "route": "cuda", "source": RING_SOURCE,
             "replaces": RING_REPLACES[name], "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"],
@@ -8133,6 +8229,7 @@ def ring_entries(ring_kernels, ring_whole, cp, card, resources=None):
                                            for layout in cp},
             "train_step_kernel_ms": {layout: cp[layout]["breakdown_ms"]["kernel_ms"][name]
                                      for layout in cp},
+            "head_dim_256": wide,
             "card": card,
         })
     return line
@@ -8247,16 +8344,37 @@ def port_py_files(pkg: str) -> int:
     return count
 
 
-def analyzer_scan(card: str) -> dict:
+def start_analyzer_scan():
     """``python -m elasticdl_tpu_torch.analysis elasticdl_tpu_torch
-    --format json`` as on the CPU: exit 0, every .py file of the port,
-    all 15 rules, zero findings."""
+    --format json``, started now as a background process (host work only:
+    the phases before 42 overlap its seconds); ``analyzer_scan`` reads
+    it."""
     here = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
         [sys.executable, "-m", "elasticdl_tpu_torch.analysis", "elasticdl_tpu_torch",
-         "--format", "json"], cwd=here, capture_output=True, text=True, timeout=600)
+         "--format", "json"], cwd=here, stdout=out, stderr=err, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())  # a phase failed first
+    return proc, out, err, time.perf_counter()
+
+
+def analyzer_scan(card: str, started=None) -> dict:
+    """The scan of ``start_analyzer_scan`` (started now if it was not) as
+    on the CPU: exit 0, every .py file of the port, all 15 rules, zero
+    findings."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc, out_file, err_file, t0 = started or start_analyzer_scan()
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
     seconds = time.perf_counter() - t0
+    with out_file, err_file:
+        out_file.seek(0)
+        err_file.seek(0)
+        proc = subprocess.CompletedProcess(proc.args, proc.returncode, out_file.read(),
+                                           err_file.read())
     if proc.returncode != 0:
         fail(f"the port's analyzer exited {proc.returncode} over its own tree:\n"
              f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
@@ -8366,8 +8484,9 @@ def census_sites(records, sources, covered, steps: int) -> dict:
             "outside_syncs_per_step": (len(records) - hot) / steps, "sites": out}
 
 
-def analyzer_census_phase(card: str, seed: int) -> dict:
-    """Phase 42: the analyzer's gate on the card, then the census of
+def analyzer_census_phase(card: str, seed: int, scan=None) -> dict:
+    """Phase 42: the analyzer's gate on the card (``scan``: its process,
+    when ``start_analyzer_scan`` started it earlier), then the census of
     host syncs on three main paths (a positive control first); every sync
     in a function the analyzer marks hot must be a jit-host-sync finding
     or carry its noqa-invariant."""
@@ -8386,7 +8505,7 @@ def analyzer_census_phase(card: str, seed: int) -> dict:
     from elasticdl_tpu_torch.zoo import build_model, resolve
 
     start = time.perf_counter()
-    out = {"scan": analyzer_scan(card)}
+    out = {"scan": analyzer_scan(card, scan)}
     census = SyncCensus()
     here = census.here
     t0 = time.perf_counter()
@@ -9731,6 +9850,217 @@ def wide_lm_phase(card: str, seed: int):
     return result
 
 
+# ----------------------------------------------------------------------
+# phase 50: K7-K9's DP=256 builds, driven by the context-parallel LM at
+# head_dim 256
+# ----------------------------------------------------------------------
+
+#: The CP LM at WIDE_LM's widths (hidden 2048, 8 heads of 256) and T=8192
+#: over the in-process (1, 4) mesh: T_local 2048, batch 2, 16,384 tokens a
+#: step (phase 49's).
+CP_WIDE_LM = dict(WIDE_LM, seq_len=8192)
+CP_WIDE_BATCH = 2
+#: One slot's ring step on that path (B, T_local, H, D), bf16.
+CP_WIDE_SLOT_SHAPE = (CP_WIDE_BATCH, CP_WIDE_LM["seq_len"] // CP_MESH[1],
+                      CP_WIDE_LM["num_heads"], CP_WIDE_LM["d_model"] // CP_WIDE_LM["num_heads"])
+#: Phase 16's gate at batch 1 (the one-card side: K4-K6's DP=256 builds
+#: on the whole sequence): CP_BF16_TOL's losses, gradients and updates,
+#: and every parameter within phase 16's 2·lr·3·1.5 at WIDE_LR.
+CP_WIDE_TOL = (CP_BF16_TOL[0], CP_BF16_TOL[1], 2 * WIDE_LR * 3 * 1.5, CP_BF16_TOL[3])
+#: The build of each of K7-K9 on this path (bf16, head_dim 256; K8 and K9
+#: with the path's bf16 dO).
+RING_WIDE_BUILDS = {
+    "flash_ring_step_carry": "ring_fwd_mma_kernel<bf16, 256>",
+    "flash_ring_step_dq": "ring_dq_mma_kernel<bf16, 256, 1>",
+    "flash_ring_step_dkv": "ring_dkv_mma_pair_kernel<bf16, 256, 1>",
+}
+
+
+def library_or_reason(fn):
+    """``(ms, None)`` from ``fn``, or ``(None, reason)`` where no PyTorch
+    backend takes the shape."""
+    try:
+        return fn(), None
+    except RuntimeError as exc:
+        return None, f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+
+
+def cp_wide_kernel_checks(fa, ring, gen, dev, card):
+    """K7-K9 at CP_WIDE_SLOT_SHAPE, bf16: every step of every slot of a
+    ring of CP_MESH[1], both layouts, K8 and K9 on an f32 and the path's
+    bf16 dO, against the plain versions (RING_CARRY_TOL, ATTN_F32_*);
+    then timed at the unmasked step beside their bounds and the
+    memory-efficient attention call."""
+    import torch
+
+    b, t, h, d = CP_WIDE_SLOT_SHAPE
+    scale = fa.default_scale(d)
+    shape = f"B={b} Tq=Tk={t} H={h} D={d} bf16"
+    q, k, v, do = ring_step_inputs(gen, dev, b, t, t, h, d, torch.bfloat16)
+    errs = check_ring_layouts(fa, ring, q, k, v, do, CP_MESH[1], scale, shape)
+    log(f"kernels K7-K9 (DP=256 builds) at {shape}, every step of a ring of {CP_MESH[1]}, "
+        f"contiguous and zigzag (causal), dO f32 and bf16: within tolerance, max abs errors "
+        f"{errs} [{card}]")
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32, device=dev)
+    q_pos, k_pos = unmasked_step_positions(ring, dev, t, CP_MESH[1])
+    do_bf16 = do.to(torch.bfloat16)
+    times = ring_step_times(fa, q, k, v, do_bf16, q_pos, k_pos, scale, flush)
+    f32_dout = ring_step_times(fa, q, k, v, do, q_pos, k_pos, scale, flush, fa.RING_KERNELS[1:])
+    lib, reason = library_or_reason(
+        lambda: efficient_attention_ms(q, k, v, do_bf16, q_pos, k_pos, flush))
+    pairs = unmasked_pairs(q_pos, k_pos, True)
+    bounds = ring_bound_ms(b, h, t, t, d, pairs, 2, 2)
+    f32_bounds = ring_bound_ms(b, h, t, t, d, pairs, 2, 4)
+    ops = ring_step_ops(b, h, d, pairs)
+    timed = f"{shape}, unmasked step (contiguous, shard 1 vs shard 0's block)"
+    out = {}
+    for name in fa.RING_KERNELS:
+        ms, plain = times[name]
+        out[name] = {
+            "max_abs_err": errs[name], "shape": timed + (
+                ", dO bf16 (the path's)" if name != "flash_ring_step_carry" else ""),
+            "ms": ms, "plain_ms": plain, "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1], "tflop_per_s": ops[name] / ms * 1e-9,
+            "library_ms": None if lib is None else lib[name != "flash_ring_step_carry"],
+            "library_reason": reason}
+        log(f"kernel {name} (DP=256): {out[name]['shape']}: {ms!r} ms, "
+            f"{out[name]['tflop_per_s']!r} TFLOP/s (plain {plain!r} ms, bound "
+            f"{bounds[name][0]!r} ms by {bounds[name][1]}) [{card}]")
+        if name != "flash_ring_step_carry":
+            ms32, plain32 = f32_dout[name]
+            out[name]["f32_dout"] = {
+                "ms": ms32, "plain_ms": plain32, "bound_ms": f32_bounds[name][0],
+                "bound_by": f32_bounds[name][1], "tflop_per_s": ops[name] / ms32 * 1e-9}
+            log(f"kernel {name} (DP=256): {timed}, dO f32: {ms32!r} ms (plain {plain32!r} ms, "
+                f"bound {f32_bounds[name][0]!r} ms by {f32_bounds[name][1]}) [{card}]")
+    log(f"  efficient-attention yardstick at the head_dim-256 CP slot: "
+        + (f"forward {lib[0]!r} ms, backward (dq, dk, dv) {lib[1]!r} ms" if lib is not None
+           else f"no backend takes the shape ({reason})") + f" [{card}]")
+    del q, k, v, do, do_bf16, flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def cp_wide_lm_phase(card: str, seed: int):
+    """Phase 50: K7-K9's DP=256 builds held to their plain versions and
+    timed at the CP LM's slot shape (cp_wide_kernel_checks); then the LM
+    at CP_WIDE_LM trained context-parallel over an in-process (1, 4) mesh
+    in both layouts (WIDE_WARMUP + WIDE_STEPS steps of CP_WIDE_BATCH: each
+    ring kernel num_layers x 4 x 4 times a step, no whole-sequence kernel,
+    a falling loss); and, from one state, 3 CP steps (contiguous) against
+    the one-card LM (K4-K6's DP=256 builds on T=8192) at batch 1, with the
+    plain versions on both sides as the witness (CP_WIDE_TOL)."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.data.synthetic import synthetic_lm_arrays
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel import ring_attention as ring
+    from elasticdl_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+    from elasticdl_tpu_torch.zoo import build_model, resolve
+
+    t_phase = time.perf_counter()
+    dev = card_device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 50)
+    result = {"kernels": cp_wide_kernel_checks(fa, ring, gen, dev, card)}
+
+    cfg, batch, (data, slots) = CP_WIDE_LM, CP_WIDE_BATCH, CP_MESH
+    zoo = resolve(LM_DEF)
+    tokens, nxt = synthetic_lm_arrays(batch * WIDE_BATCHES, cfg["seq_len"], cfg["vocab"], seed)
+    ones = np.ones((batch,), np.float32)
+    batches = [(tokens[i * batch:(i + 1) * batch], nxt[i * batch:(i + 1) * batch], ones)
+               for i in range(WIDE_BATCHES)]
+    params = dict(vocab=cfg["vocab"], d_model=cfg["d_model"], num_heads=cfg["num_heads"],
+                  num_layers=cfg["num_layers"], max_len=cfg["seq_len"])
+    mesh = in_process_mesh(data, slots)
+    per_step = cfg["num_layers"] * slots * slots
+    for layout in ring.LAYOUTS:
+        model = build_model(LM_DEF, dict(params, mesh=mesh, cp_layout=layout))
+        trainer = DataParallelTrainer(model, zoo.loss, zoo.optimizer(WIDE_LR), mesh=mesh,
+                                      seed=seed)
+        if trainer.device != dev:
+            fail(f"the head_dim-256 CP trainer runs on {trainer.device}, not on the card")
+        trainer.ensure_initialized()
+        head_dim = model.block_0.attn.qkv.kernel.shape[-1]
+        if head_dim != 256:
+            fail(f"the phase 50 LM has head_dim {head_dim}, not 256")
+        staged = [trainer.stage_batch(*b) for b in batches]
+        losses = [trainer.train_step_staged(staged[i % WIDE_BATCHES]) for i in range(WIDE_WARMUP)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        events = []
+        t0 = time.perf_counter()
+        for i in range(WIDE_WARMUP, WIDE_WARMUP + WIDE_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(trainer.train_step_staged(staged[i % WIDE_BATCHES]))
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = fa.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for name in fa.RING_KERNELS:
+            if counts[name] != per_step * WIDE_STEPS:
+                fail(f"{name} launched {counts[name]} times in {WIDE_STEPS} steps of the "
+                     f"head_dim-256 CP LM ({layout}; want {per_step * WIDE_STEPS})")
+        if any(counts[name] for name in fa.KERNELS):
+            fail(f"the head_dim-256 CP path ({layout}) launched a whole-sequence kernel: "
+                 f"{counts}")
+        losses = torch.stack(losses).float().cpu().numpy()
+        if not np.all(np.isfinite(losses)):
+            fail(f"non-finite head_dim-256 CP LM loss ({layout}): {losses}")
+        first, last = float(losses[:2].mean()), float(losses[-2:].mean())
+        if not last < first:
+            fail(f"the head_dim-256 CP LM loss did not fall ({layout}): first 2 steps {first!r}, "
+                 f"last 2 {last!r}")
+        step_ms = sorted(s.elapsed_time(e) for s, e in events)
+        parts = lm_time_parts(trainer, staged[0], fa.RING_KERNELS)
+        result[layout] = {
+            "tokens_per_s": WIDE_STEPS * batch * cfg["seq_len"] / wall,
+            "step_ms_median": step_ms[len(step_ms) // 2], "step_ms": step_ms,
+            "losses": [float(x) for x in losses], "peak_memory_gb": peak / 1e9,
+            "launches": counts, "launches_per_step": per_step, "breakdown_ms": parts,
+        }
+        log(f"head_dim-256 CP LM train ({layout}, mesh {data}x{slots} in-process): {WIDE_STEPS} "
+            f"steps of {batch}x{cfg['seq_len']}: {result[layout]['tokens_per_s']!r} tokens/s, "
+            f"step median {result[layout]['step_ms_median']!r} ms (device, CUDA events); losses "
+            f"{result[layout]['losses']}; launches {counts}; peak {peak / 1e9!r} GB [{card}]")
+        log(f"head_dim-256 CP LM step's ring kernels ({layout}; device ms in one step, CUDA "
+            f"events): " + ", ".join(f"{name} {ms!r}" for name, ms in parts["kernel_ms"].items())
+            + f"; {parts['attention_kernels']!r} of {parts['step']!r} [{card}]")
+        if layout != "contiguous":
+            del trainer, model, staged
+            torch.cuda.empty_cache()
+            continue
+
+        # From the trained state: 3 CP steps against the one-card LM at
+        # batch 1, kernels on both sides, then the plain versions.
+        one = [trainer.stage_batch(t[:1], n[:1], m[:1]) for t, n, m in batches[:3]]
+        del staged
+        torch.cuda.empty_cache()
+        one_card = DataParallelTrainer(build_model(LM_DEF, params, device=dev), zoo.loss,
+                                       zoo.optimizer(WIDE_LR), seed=seed, device=dev)
+        one_card.ensure_initialized()
+        what = (f"head_dim-256 CP LM ({layout}, bf16, ring K7-K9) vs one-card LM (bf16, K4-K6 "
+                f"on T={cfg['seq_len']}), batch 1")
+        result["vs_one_card"] = lm_compare(
+            (trainer, contextlib.nullcontext), (one_card, contextlib.nullcontext), one, card,
+            what, CP_WIDE_TOL)
+        result["vs_one_card_plain"] = lm_compare(
+            (trainer, plain_ring), (one_card, plain_attention), one, card,
+            f"the witness: plain head_dim-256 CP LM ({layout}, the plain versions of K7-K9) vs "
+            f"plain one-card LM (the plain versions of K4-K6), batch 1", CP_WIDE_TOL)
+        del trainer, model, one_card, one
+        torch.cuda.empty_cache()
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 50 in {result['seconds']:.1f} s [{card}]")
+    result["card"] = card
+    return result
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -9761,57 +10091,64 @@ def main() -> None:
 
     from elasticdl_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.library()
-    log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    build_log = lib_path.with_suffix(".log").read_text()
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "entry function" in line:
-            log(f"  ptxas: {line.strip()}")
-    resources = attention_resources(str(lib_path), build_log)
+    with phase_clock(1):
+        t0 = time.perf_counter()
+        lib_path = _build.build()
+        _build.library()
+        log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+        build_log = lib_path.with_suffix(".log").read_text()
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line or "entry function" in line:
+                log(f"  ptxas: {line.strip()}")
+        dumps = start_resource_dumps(str(lib_path))
+    scan = start_analyzer_scan() if run(42) else None
 
-    kernels = kernel_phase(card, args.seed) if run(2) else None
-    k3 = dedup_apply_phase(card, args.seed) if run(5) else None
-    gather = block_gather_phase(card, args.seed) if run(17) else None
-    sharded = sharded_kernel_phase(card, args.seed) if run(18) else None
+    kernels = timed_phase((2,), kernel_phase, card, args.seed) if run(2) else None
+    # Phase 1's reading of the dumps, which ran beside phase 2.
+    resources = timed_phase((1,), attention_resources, dumps, build_log)
+    k3 = timed_phase((5,), dedup_apply_phase, card, args.seed) if run(5) else None
+    gather = timed_phase((17,), block_gather_phase, card, args.seed) if run(17) else None
+    sharded = timed_phase((18,), sharded_kernel_phase, card, args.seed) if run(18) else None
     launches = train = mesh_train = split_train = ckpt = continuous = process = elastic = None
     stream_loop = traced = quality_gate = quality_process = None
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         if run(3, 4):
-            launches = serving_phases(card, args.seed, workdir)
+            launches = timed_phase((3, 4), serving_phases, card, args.seed, workdir)
         if run(6, 7, 8, 9):
-            train = training_phases(card, args.seed, workdir)
+            train = timed_phase((6, 7, 8, 9), training_phases, card, args.seed, workdir)
         if run(19):
-            mesh_train = mesh_training_phases(card, args.seed, workdir)
+            mesh_train = timed_phase((19,), mesh_training_phases, card, args.seed, workdir)
         if run(20):
-            split_train = split_training_phase(card, args.seed, workdir)
+            split_train = timed_phase((20,), split_training_phase, card, args.seed, workdir)
         loop = None
         if run(21, 22):
-            ckpt = checkpoint_phases(card, args.seed, workdir, split_train, keep=run(24, 25))
+            ckpt = timed_phase((21, 22), checkpoint_phases, card, args.seed, workdir,
+                               split_train, keep=run(24, 25))
             if run(24, 25):
                 ckpt, loop = ckpt
         if run(24, 25):
-            loop = loop or loop_trainer(args.seed)
-            continuous, exporter, full, pub = continuous_loop_phase(card, loop, workdir)
-            process = replica_process_phase(card, loop, exporter, full, pub, workdir)
+            with phase_clock(24, 25):
+                loop = loop or loop_trainer(args.seed)
+                continuous, exporter, full, pub = continuous_loop_phase(card, loop, workdir)
+                process = replica_process_phase(card, loop, exporter, full, pub, workdir)
             if run(39):  # phase 25's artifact, under traced traffic
-                traced = traced_replica_phase(card, args.seed, workdir, full=full,
-                                              held_out=loop.held_out, replica25=process)
+                traced = timed_phase((39,), traced_replica_phase, card, args.seed, workdir,
+                                     full=full, held_out=loop.held_out, replica25=process)
             del exporter
             shutil.rmtree(pub, ignore_errors=True)
             torch.cuda.empty_cache()
         if run(36):  # phase 22/24's trainer where it is still here
-            stream_loop = stream_loop_phase(card, args.seed, workdir,
-                                            trainer=loop.trainer if loop else None)
+            stream_loop = timed_phase((36,), stream_loop_phase, card, args.seed, workdir,
+                                      trainer=loop.trainer if loop else None)
             shutil.rmtree(os.path.join(workdir, "pub_stream"), ignore_errors=True)
             torch.cuda.empty_cache()
         if run(40, 41):  # after phase 36, which must not see phase 40's flipped labels
-            quality_gate, chain = quality_gate_phase(card, args.seed, workdir,
-                                                     trainer=loop.trainer if loop else None)
+            quality_gate, chain = timed_phase((40,), quality_gate_phase, card, args.seed,
+                                              workdir, trainer=loop.trainer if loop else None)
             if run(41):
-                quality_process = quality_replica_phase(card, args.seed, workdir, chain, traced)
+                quality_process = timed_phase((41,), quality_replica_phase, card, args.seed,
+                                              workdir, chain, traced)
             shutil.rmtree(chain["pub"], ignore_errors=True)
             del chain
             torch.cuda.empty_cache()
@@ -9823,9 +10160,10 @@ def main() -> None:
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             if run(26):
-                elastic = elastic_job_phase(card, args.seed, workdir, split_train)
+                elastic = timed_phase((26,), elastic_job_phase, card, args.seed, workdir,
+                                      split_train)
             if run(27):
-                etrf = etrf_job_phase(card, args.seed, workdir, elastic)
+                etrf = timed_phase((27,), etrf_job_phase, card, args.seed, workdir, elastic)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     observed = None
@@ -9833,30 +10171,31 @@ def main() -> None:
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             if run(38):
-                observed = observed_job_phase(card, args.seed, workdir, etrf)
+                observed = timed_phase((38,), observed_job_phase, card, args.seed, workdir, etrf)
             if run(39) and traced is None:
-                traced = traced_replica_phase(card, args.seed, workdir)
+                traced = timed_phase((39,), traced_replica_phase, card, args.seed, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
-    vision = vision_training_phase(card, args.seed) if run(28) else None
+    vision = timed_phase((28,), vision_training_phase, card, args.seed) if run(28) else None
     local = None
     if run(29):
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
-            local = local_job_phase(card, args.seed, workdir)
+            local = timed_phase((29,), local_job_phase, card, args.seed, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
-    engines = engines_phase(card, args.seed) if run(37) else None
-    zoo = ctr_zoo_phase(card, args.seed) if run(30) else None
+    engines = timed_phase((37,), engines_phase, card, args.seed) if run(37) else None
+    zoo = timed_phase((30,), ctr_zoo_phase, card, args.seed) if run(30) else None
     census = fleet = fleet_policy = None
     if run(31, 32, 43):  # phases 32 and 43 serve phase 31's export
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
-            census = census_job_phase(card, args.seed, workdir)
+            census = timed_phase((31,), census_job_phase, card, args.seed, workdir)
             if run(32):
-                fleet = census_fleet_phase(card, args.seed, workdir, census)
+                fleet = timed_phase((32,), census_fleet_phase, card, args.seed, workdir, census)
             if run(43):
-                fleet_policy = fleet_policy_phase(card, args.seed, workdir, census)
+                fleet_policy = timed_phase((43,), fleet_policy_phase, card, args.seed, workdir,
+                                           census)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     allreduce = {}
@@ -9865,28 +10204,31 @@ def main() -> None:
         try:
             for number in (33, 34):
                 if run(number):
-                    allreduce[number] = allreduce_job_phase(card, args.seed, workdir, number,
-                                                            vision)
+                    allreduce[number] = timed_phase((number,), allreduce_job_phase, card,
+                                                    args.seed, workdir, number, vision)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
-    attention, edges = attention_phase(card, args.seed) if run(10) else (None, None)
-    lm = lm_training_phases(card, args.seed) if run(11, 12) else None
-    lm_heads = lm_bf16_head_phase(card, args.seed) if run(35) else None
-    lm_ckpt = lm_checkpoint_phase(card, args.seed) if run(23) else None
-    ring_kernels = ring_kernel_phase(card, args.seed) if run(13) else None
-    ring_whole = ring_whole_phase(card, args.seed) if run(14) else None
-    cp = cp_lm_phases(card, args.seed) if run(15, 16) else None
-    tp = tp_lm_phase(card, args.seed) if run(45) else None
-    fsdp = fsdp_lm_phase(card, args.seed) if run(46) else None
-    whole_mesh = whole_mesh_xla_phase(card, args.seed) if run(47) else None
-    host_kernels = native_kernels_phase(card, args.seed) if run(48) else None
-    wide = wide_lm_phase(card, args.seed) if run(49) else None
-    analyzer = analyzer_census_phase(card, args.seed) if run(42) else None
+    attention, edges = (timed_phase((10,), attention_phase, card, args.seed) if run(10)
+                        else (None, None))
+    lm = timed_phase((11, 12), lm_training_phases, card, args.seed) if run(11, 12) else None
+    lm_heads = timed_phase((35,), lm_bf16_head_phase, card, args.seed) if run(35) else None
+    lm_ckpt = timed_phase((23,), lm_checkpoint_phase, card, args.seed) if run(23) else None
+    ring_kernels = timed_phase((13,), ring_kernel_phase, card, args.seed) if run(13) else None
+    ring_whole = timed_phase((14,), ring_whole_phase, card, args.seed) if run(14) else None
+    cp = timed_phase((15, 16), cp_lm_phases, card, args.seed) if run(15, 16) else None
+    tp = timed_phase((45,), tp_lm_phase, card, args.seed) if run(45) else None
+    fsdp = timed_phase((46,), fsdp_lm_phase, card, args.seed) if run(46) else None
+    whole_mesh = timed_phase((47,), whole_mesh_xla_phase, card, args.seed) if run(47) else None
+    host_kernels = timed_phase((48,), native_kernels_phase, card, args.seed) if run(48) else None
+    wide = timed_phase((49,), wide_lm_phase, card, args.seed) if run(49) else None
+    cp_wide = timed_phase((50,), cp_wide_lm_phase, card, args.seed) if run(50) else None
+    analyzer = (timed_phase((42,), analyzer_census_phase, card, args.seed, scan) if run(42)
+                else None)
     user_zoo = None
     if run(44):
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
-            user_zoo = user_zoo_phase(card, args.seed, workdir)
+            user_zoo = timed_phase((44,), user_zoo_phase, card, args.seed, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     if wanted:
@@ -9907,7 +10249,7 @@ def main() -> None:
                         "analyzer_census": analyzer, "fleet_policy": fleet_policy,
                         "user_zoo": user_zoo, "tensor_parallel": tp, "fsdp": fsdp,
                         "whole_mesh_xla": whole_mesh, "host_kernels": host_kernels,
-                        "head_dim_256": wide, "card": card}))
+                        "head_dim_256": wide, "cp_head_dim_256": cp_wide, "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -9927,7 +10269,7 @@ def main() -> None:
                     "analyzer_census": analyzer, "fleet_policy": fleet_policy,
                     "user_zoo": user_zoo, "tensor_parallel": tp, "fsdp": fsdp,
                     "whole_mesh_xla": whole_mesh, "host_kernels": host_kernels,
-                    "head_dim_256": wide, "card": card}))
+                    "head_dim_256": wide, "cp_head_dim_256": cp_wide, "card": card}))
 
     quality_steps = sum(n for n, _ in quality_gate["train_launches"])
     quality_trained = {name: sum(c[name] for _, c in quality_gate["train_launches"])
@@ -10082,7 +10424,7 @@ def main() -> None:
     })
     line += flash_entries(attention, edges, lm, card, resources, lm_ckpt, lm_heads, tp, fsdp,
                           wide)
-    line += ring_entries(ring_kernels, ring_whole, cp, card, resources)
+    line += ring_entries(ring_kernels, ring_whole, cp, card, resources, cp_wide)
     line.append({
         "name": "block_gather", "ok": True, "route": "cuda", "source": K10_SOURCE,
         "replaces": K10_REPLACES, "launches": gather["launches"],

@@ -12,23 +12,9 @@
 //   edl_flash_dkv  <- _dkv_kernel (K6): dV = sum_q P^T dO and
 //                     dK = scale * sum_q dS^T Q of one K block.
 //
-// and three more for one step of the context-parallel ring (the local q
-// shard against one rotating K/V block, causal masking from explicit
-// position arrays), each replacing a Pallas kernel of the same file:
-//
-//   edl_ring_fwd   <- _fwd_ring_carry_kernel (K7): the step's flash
-//                     forward, combined in lse space with the running
-//                     (acc, lse) carry, which it updates in place.
-//   edl_ring_dq    <- _dq_ring_kernel (K8): the step's dQ contribution
-//                     from the final lse and delta, f32.
-//   edl_ring_dkv   <- _dkv_ring_kernel (K9): dK and dV of the rotating
-//                     block against the local q shard, f32.
-//
-// K8 and K9 read dO as bf16 (beside bf16 q, k, v: the CP path's
-// gradient) or as f32.
-//
-// They reuse K4-K6's tiles and loops; what differs is set out above the
-// ring kernels below.
+// The three kernels of one step of the context-parallel ring (K7-K9) are
+// in ring_attention.cu; both files take their tiles, products and
+// softmax helpers from flash_common.cuh, and compile in parallel.
 //
 // Layout.  q, k, v are read in the public [B, T, H, D] layout through
 // their strides (batch, time, head; the last dimension contiguous), so
@@ -63,10 +49,9 @@
 //
 // Two designs, chosen by the input dtype (EDL_FLASH_DISPATCH):
 //
-// - bf16 K4-K9 (flash_fwd_mma_kernel, flash_dq_mma_kernel,
-//   flash_dkv_mma_kernel and at DP = 256 flash_dkv_mma_pair_kernel,
-//   ring_fwd_mma_kernel, ring_dq_mma_kernel,
-//   ring_dkv_mma_kernel; the LM's and the CP LM's path) run their
+// - bf16 K4-K6 (flash_fwd_mma_kernel, flash_dq_mma_kernel,
+//   flash_dkv_mma_kernel and at DP = 256 flash_dkv_mma_pair_kernel; the
+//   LM's path), and K7-K9 after them (ring_attention.cu), run their
 //   products on the tensor cores: mma.sync m16n8k16, bf16 operands, f32
 //   sums, fed by ldmatrix from bf16 tiles that cp.async stages two deep.
 //   Their ceiling is the 989 TFLOP/s bf16 peak; mma.sync, not wgmma, and
@@ -92,10 +77,9 @@
 //   operand is split.)
 //
 // Builds by head_dim d: each kernel is built for a padded width DP of
-// 64, 128 or (K4-K6 only) 256 and takes every d up to it, the columns
-// past d staged as zeros (the wrapper pads a d that is not a multiple of
-// 8 with zero columns first).  K7-K9 stop at DP = 128 (EDL_RING_DISPATCH).
-// At DP = 256 (128 < d <= 256, the head_dim of Gemma 2B's attention):
+// 64, 128 or 256 and takes every d up to it, the columns past d staged
+// as zeros (the wrapper pads a d that is not a multiple of 8 with zero
+// columns first).  At DP = 256 (128 < d <= 256, the head_dim of Gemma 2B's attention):
 //
 // - What bounds them: at [B=8, T=2048, H=8, D=256] bf16 causal, 0.139 ms
 //   for K4 (137 GFLOP) and 0.278 ms for K6 (275 GFLOP) by operations at
@@ -116,212 +100,9 @@
 // and returns cudaGetLastError() so the Python wrapper can raise on a
 // refused launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "flash_common.cuh"
 
 namespace {
-
-constexpr int kTile = 64;       // rows of a q tile and of a k tile
-constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 elements each
-constexpr int kLdp = 80;        // row pitch of the [64][64] P / dS tiles
-constexpr float kNegInf = -1e30f;
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// p.astype(v.dtype) before P V: round to the input type and back.
-template <typename T>
-__device__ __forceinline__ float p_round(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
-
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
-}
-
-// Max / sum over the 16 threads (tx) that share a row of a tile: they
-// are the two half-warps of one warp.
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  }
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  }
-  return x;
-}
-
-// Rows [t0, t0 + 64) of one (batch, head) of a [B, T, H, D] tensor
-// (`src` already offset to the batch and head) into a [64][DP + 4] f32
-// tile, times `mul`; rows past T and columns past d are zero.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const T* __restrict__ src,
-                                          long long s_t, int t0, int t_len,
-                                          int d, float mul) {
-  constexpr int kLd = DP + 4;
-  for (int idx = threadIdx.x; idx < kTile * DP; idx += kThreads) {
-    const int r = idx / DP;
-    const int c = idx - r * DP;
-    const int t = t0 + r;
-    float x = 0.0f;
-    if (t < t_len && c < d) x = to_f32<T>(src[(long long)t * s_t + c]) * mul;
-    dst[r * kLd + c] = x;
-  }
-}
-
-// acc[i][j] = sum_c A[ty + 16 i][c] * (B[tx + 16 j][c] * b_mul) over the
-// DP columns of two [64][DP + 4] tiles (S = Q K^T and its kin).
-template <int DP, bool kScaleB>
-__device__ __forceinline__ void dot_rows(const float* __restrict__ a_tile,
-                                         const float* __restrict__ b_tile,
-                                         float acc[4][4], float b_mul) {
-  constexpr int kLd = DP + 4;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  }
-#pragma unroll 4
-  for (int c = 0; c < DP; c += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = *reinterpret_cast<const float4*>(a_tile + (ty + 16 * i) * kLd + c);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      b[j] = *reinterpret_cast<const float4*>(b_tile + (tx + 16 * j) * kLd + c);
-      if (kScaleB) {
-        b[j].x *= b_mul;
-        b[j].y *= b_mul;
-        b[j].z *= b_mul;
-        b[j].w *= b_mul;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
-      }
-    }
-  }
-}
-
-// acc[i][n][e] += sum_j P[ty + 16 i][j] * V[j][64 n + 4 tx + e]: a
-// [64][64] tile (pitch kLdp) times a [64][DP + 4] tile (P V and its kin).
-template <int DP>
-__device__ __forceinline__ void acc_pv(const float* __restrict__ p_tile,
-                                       const float* __restrict__ v_tile,
-                                       float acc[4][DP / 64][4]) {
-  constexpr int kLd = DP + 4;
-  constexpr int kNc = DP / 64;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-#pragma unroll 2
-  for (int j = 0; j < kTile; j += 4) {
-    float4 p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      p[i] = *reinterpret_cast<const float4*>(p_tile + (ty + 16 * i) * kLdp + j);
-    }
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-      for (int n = 0; n < kNc; ++n) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            v_tile + (j + jj) * kLd + 64 * n + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float pj = comp(p[i], jj);
-          acc[i][n][0] = fmaf(pj, v.x, acc[i][n][0]);
-          acc[i][n][1] = fmaf(pj, v.y, acc[i][n][1]);
-          acc[i][n][2] = fmaf(pj, v.z, acc[i][n][2]);
-          acc[i][n][3] = fmaf(pj, v.w, acc[i][n][3]);
-        }
-      }
-    }
-  }
-}
-
-// Rows of a [64][DP] register tile (rows ty + 16 i, columns 64 n + 4 tx +
-// e) into a contiguous [B, T, H, D] tensor, times `mul`.
-template <typename T, int DP>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, long long o_st,
-                                           int t0, int t_len, int d,
-                                           const float acc[4][DP / 64][4],
-                                           float mul) {
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty + 16 * i;
-    if (t >= t_len) continue;
-#pragma unroll
-    for (int n = 0; n < DP / 64; ++n) {
-      const int c = 64 * n + 4 * tx;
-      if (c >= d) continue;  // d is a multiple of 8: 4 columns in or out
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        dst[(long long)t * o_st + c + e] = from_f32<T>(acc[i][n][e] * mul);
-      }
-    }
-  }
-}
-
-template <int DP>
-constexpr int fwd_smem_bytes() {
-  return (3 * kTile * (DP + 4) + kTile * kLdp) * 4;
-}
-// At DP = 256 four f32 tiles do not fit in a block's 232,448 bytes of
-// shared memory (K5 would take 286,720, K6 307,712), so the backward
-// kernels keep three: K5 stages V and then K in one buffer beside Q and
-// dO, K6 stages Q, dO and Q again in one buffer beside K and V, and
-// keeps one P / dS tile for both (share_tiles).
-template <int DP>
-__host__ __device__ constexpr bool share_tiles() {
-  return DP > 128;
-}
-template <int DP>
-constexpr int dq_smem_bytes() {
-  return ((share_tiles<DP>() ? 3 : 4) * kTile * (DP + 4) + kTile * kLdp) * 4;
-}
-template <int DP>
-constexpr int dkv_smem_bytes() {
-  return share_tiles<DP>() ? (3 * kTile * (DP + 4) + kTile * kLdp + 2 * kTile) * 4
-                           : (4 * kTile * (DP + 4) + 2 * kTile * kLdp + 2 * kTile) * 4;
-}
 
 struct Shape {
   int heads, t_len, d;
@@ -329,10 +110,6 @@ struct Shape {
   float scale;
   int causal;
 };
-
-__device__ __forceinline__ int n_tiles(int t_len) {
-  return (t_len + kTile - 1) / kTile;
-}
 
 // ---------------------------------------------------------------------
 // K4: forward.  Block (q tile, head, batch); loops over the K/V tiles.
@@ -623,289 +400,6 @@ __global__ void __launch_bounds__(kThreads)
   }
   store_rows<T, DP>(dk + o_off, o_st, k0, s.t_len, s.d, dk_acc, s.scale);
   store_rows<T, DP>(dv + o_off, o_st, k0, s.t_len, s.d, dv_acc, 1.0f);
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
-// ---------------------------------------------------------------------
-// K4-K6 for bf16 inputs (and K7, below the ring kernels): the products
-// on the tensor cores.
-//
-// mma.sync.m16n8k16 (bf16 operands, f32 accumulators) with ldmatrix from
-// shared memory.  Four warps; each owns 16 rows of the block's 64-row
-// tile (q rows in K4, K5 and K7, key rows in K6), so a row's max and
-// sums stay in the four lanes that hold it.  Tiles are staged as bf16 by cp.async
-// (16 bytes a copy; a copy past T or past d has source size 0, which
-// fills zeros) at a row pitch of DP + 8 elements, so the 8 rows an
-// ldmatrix reads fall on distinct banks.  The loop's next tile is in
-// flight while this one computes: one barrier per tile, two stages.
-// Only these helpers and kernels differ from the FMA ones above.
-// ---------------------------------------------------------------------
-
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-
-template <int DP>
-__host__ __device__ constexpr int mma_pitch() {
-  return DP + 8;  // bf16 elements per staged row: 16 bytes past DP
-}
-template <int DP>
-__host__ __device__ constexpr int mma_tile_bytes() {
-  return kTile * mma_pitch<DP>() * 2;
-}
-template <int DP>
-__host__ __device__ constexpr int fwd_mma_smem_bytes() {
-  return 5 * mma_tile_bytes<DP>();  // Q, two stages of K and V
-}
-template <int DP>
-__host__ __device__ constexpr int dq_mma_smem_bytes() {
-  return 6 * mma_tile_bytes<DP>();  // Q, dO, two stages of K and V
-}
-template <int DP>
-__host__ __device__ constexpr int dkv_mma_smem_bytes() {
-  return 6 * mma_tile_bytes<DP>() + 2 * 2 * kTile * 4;  // K, V, 2 x (Q, dO, lse, delta)
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zeros when !full (nothing is read then).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(full ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8 x 8 bf16 matrices; lane i gives the address of a row of matrix
-// i / 8.  _t transposes each matrix on the way.
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// Two 8 x 8 bf16 matrices, transposed; lanes 0-15 give the row
-// addresses (matrix i / 8): the B fragment of one 8-column block.
-__device__ __forceinline__ void ldsm_x2_t(uint32_t r[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-// c += a b: a 16 x 16 (row), b 16 x 8 (col), bf16; c 16 x 8 f32.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc += step, elementwise in f32 (round to nearest).  K8 and K9 sum
-// each step's products in a fresh fragment and add it so: the tensor
-// cores' own f32 sums are not rounded to nearest, and a running sum
-// carried through every mma of a 2048-row loop drifts past their f32
-// outputs' tolerance.
-__device__ __forceinline__ void add_frag(float acc[4], const float step[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += step[e];
-}
-
-// Two f32 as a bf16 pair (x in the low half), rounded to nearest.
-__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// x = hi + lo to about 16 significant bits: hi = bf16(x), lo = bf16(x -
-// hi) (x - hi is exact in f32), each a bf16 pair as pack_bf16.
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x - hf.x, y - hf.y);
-}
-
-// The A fragment of a 16 x 16 tile from two 16 x 8 accumulator
-// fragments side by side (FA2's register reuse: S's columns are the
-// next product's k).
-__device__ __forceinline__ void acc_to_a(const float c0[4], const float c1[4], uint32_t a[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-__device__ __forceinline__ void acc_to_a_split(const float c0[4], const float c1[4],
-                                               uint32_t hi[4], uint32_t lo[4]) {
-  split_bf16(c0[0], c0[1], hi[0], lo[0]);
-  split_bf16(c0[2], c0[3], hi[1], lo[1]);
-  split_bf16(c1[0], c1[1], hi[2], lo[2]);
-  split_bf16(c1[2], c1[3], hi[3], lo[3]);
-}
-
-// Max / sum over the four lanes that hold one row of an accumulator.
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Rows [t0, t0 + 64) of one (batch, head) of a bf16 [B, T, H, D] tensor
-// into a [64][DP + 8] bf16 tile by cp.async; rows past T and columns
-// past d are zero.  d is a multiple of 8: a 16-byte copy is all in or
-// all out.  kThr threads of the block share the copies.  The caller
-// commits.
-template <int DP, int kThr = kMmaThreads>
-__device__ __forceinline__ void mma_load_tile(__nv_bfloat16* dst,
-                                              const __nv_bfloat16* __restrict__ src,
-                                              long long s_t, int t0, int t_len, int d) {
-  constexpr int kChunks = DP / 8;
-  constexpr int kLd = mma_pitch<DP>();
-#pragma unroll
-  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kThr) {
-    const int r = idx / kChunks;
-    const int c = (idx - r * kChunks) * 8;
-    const int t = t0 + r;
-    const bool in = t < t_len && c < d;
-    cp_async16(dst + r * kLd + c, in ? src + (long long)t * s_t + c : src, in);
-  }
-}
-
-// 64 4-byte values of a row (lse, delta: [B, H, T] f32; positions: [T]
-// int32) from t0; zeros past T.
-template <typename T>
-__device__ __forceinline__ void mma_load_rows(T* dst, const T* __restrict__ src, int t0,
-                                              int t_len) {
-  static_assert(sizeof(T) == 4, "4-byte rows");
-  if (threadIdx.x < kTile) {
-    const int t = t0 + threadIdx.x;
-    cp_async4(dst + threadIdx.x, t < t_len ? src + t : src, t < t_len);
-  }
-}
-
-// The NF 8-column fragments of a warp's 16-row slab of an f32
-// accumulator tile that start at column c_base (this lane: rows r and r
-// + 8, columns c_base + 8 n + 2 (lane % 4) + {0, 1}) into a contiguous
-// [B, T, H, D] bf16 tensor, times `mul`, in bf16 pairs.
-template <int NF>
-__device__ __forceinline__ void mma_store_cols(__nv_bfloat16* __restrict__ dst, long long o_st,
-                                               int r, int t_len, int d, int c_base,
-                                               const float acc[NF][4], float mul) {
-  const int c0 = c_base + 2 * (threadIdx.x & 3);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = r + 8 * half;
-    if (t >= t_len) continue;
-#pragma unroll
-    for (int n = 0; n < NF; ++n) {
-      const int c = 8 * n + c0;
-      if (c >= d) continue;
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)t * o_st + c) =
-          __floats2bfloat162_rn(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
-    }
-  }
-}
-
-// The whole slab, all DP columns (K6's DP = 256 build stores half a slab
-// per warp).
-template <int DP>
-__device__ __forceinline__ void mma_store_rows(__nv_bfloat16* __restrict__ dst, long long o_st,
-                                               int r, int t_len, int d,
-                                               const float acc[DP / 8][4], float mul) {
-  mma_store_cols<DP / 8>(dst, o_st, r, t_len, d, 0, acc, mul);
-}
-
-// The same slab into contiguous f32 rows of width d (row r of dst at r *
-// d), times `mul`, in float2 pairs: the ring's f32 dq, dk and dv.
-template <int DP>
-__device__ __forceinline__ void mma_store_rows_f32(float* __restrict__ dst, int r, int t_len,
-                                                   int d, const float acc[DP / 8][4], float mul) {
-  const int c0 = 2 * (threadIdx.x & 3);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = r + 8 * half;
-    if (t >= t_len) continue;
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int c = 8 * n + c0;
-      if (c >= d) continue;
-      *reinterpret_cast<float2*>(dst + (long long)t * d + c) =
-          make_float2(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
-    }
-  }
-}
-
-// Rows [t0, t0 + 64) of contiguous f32 rows of width d into kParts bf16
-// tiles as mma_load_tile stages them (tile p at dst + p * 64 * (DP + 8)),
-// x = sum of the parts: each part is bf16 of what the parts before it
-// left (each remainder exact in f32); zeros past T and past d.  Plain
-// loads and stores: the caller's next barrier publishes them.  One chunk
-// in flight a thread: more spills K9's D=64 build, whose 64 accumulators
-// are live across the call.
-template <int DP, int kParts>
-__device__ __forceinline__ void mma_load_tile_split(__nv_bfloat16* dst,
-                                                    const float* __restrict__ src, int t0,
-                                                    int t_len, int d) {
-  constexpr int kChunks = DP / 8;
-  constexpr int kLd = mma_pitch<DP>();
-#pragma unroll 1
-  for (int idx = threadIdx.x; idx < kTile * kChunks; idx += kMmaThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx - r * kChunks) * 8;
-    const int t = t0 + r;
-    float4 x[2] = {make_float4(0.0f, 0.0f, 0.0f, 0.0f), make_float4(0.0f, 0.0f, 0.0f, 0.0f)};
-    if (t < t_len && c < d) {
-      const float4* p = reinterpret_cast<const float4*>(src + (long long)t * d + c);
-      x[0] = __ldg(p);
-      x[1] = __ldg(p + 1);
-    }
-#pragma unroll
-    for (int part = 0; part < kParts; ++part) {
-      uint32_t packed[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const __nv_bfloat162 h0 = __floats2bfloat162_rn(x[i].x, x[i].y);
-        const __nv_bfloat162 h1 = __floats2bfloat162_rn(x[i].z, x[i].w);
-        packed[2 * i] = *reinterpret_cast<const uint32_t*>(&h0);
-        packed[2 * i + 1] = *reinterpret_cast<const uint32_t*>(&h1);
-        const float2 f0 = __bfloat1622float2(h0), f1 = __bfloat1622float2(h1);
-        x[i] = make_float4(x[i].x - f0.x, x[i].y - f0.y, x[i].z - f1.x, x[i].w - f1.y);
-      }
-      *reinterpret_cast<uint4*>(dst + part * kTile * kLd + r * kLd + c) =
-          make_uint4(packed[0], packed[1], packed[2], packed[3]);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------
@@ -1255,17 +749,10 @@ __global__ void __launch_bounds__(kMmaThreads)
 // buffer only after the barrier that its partner reaches once done
 // reading it.
 // ---------------------------------------------------------------------
-constexpr int kPairThreads = 2 * kMmaThreads;
-constexpr int kXchFloats = 2 * 2 * 256;  // a pair's 2 buffers of P and dP^T, 16 x 16 each
-
 template <int DP>
 __host__ __device__ constexpr int dkv_pair_smem_bytes() {
   // K, V, two stages of (Q, dO, lse, delta), the pairs' exchange buffers.
   return 6 * mma_tile_bytes<DP>() + 2 * 2 * kTile * 4 + kMmaWarps * kXchFloats * 4;
-}
-
-__device__ __forceinline__ void pair_barrier(int pair) {
-  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
 }
 
 template <int DP>
@@ -1598,10 +1085,6 @@ __global__ void __launch_bounds__(kMmaThreads)
 // The bf16 builds of K4-K6 take 16-byte-aligned q, k, v, dO and strides
 // (the wrapper copies a tensor that lacks them); dO, out, dq, dk and dv
 // are contiguous.
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 inline bool mma_inputs_ok(const void* q, const void* k, const void* v, const Shape& s) {
   return aligned16(q) && aligned16(k) && aligned16(v) && s.in_sb % 8 == 0 &&
          s.in_st % 8 == 0 && s.in_sh % 8 == 0 && s.d % 8 == 0;
@@ -1714,1226 +1197,6 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   }
 }
 
-// ---------------------------------------------------------------------
-// K7-K9: one step of the context-parallel ring.
-//
-// Layout: the JAX functions' kernel layout [B, H, T, D].  q, k and v are
-// read through their strides (q's apart from the K/V block's, since Tq
-// and Tk may differ), so a transposed view of [B, T, H, D] activations
-// goes in without a copy.  acc, dO, dq, dk and dv are contiguous [B, H,
-// T, D] f32, lse and delta contiguous [B, H, Tq] f32 ([B, H, Tq, 1] in
-// JAX), q_pos [Tq] and k_pos [Tk] int32.
-//
-// The causal mask is k_pos > q_pos, read from the position arrays, not
-// derived from tile indices: a rotating block's positions depend on its
-// source shard, and the zigzag layout's are not even affine.  A key tile
-// whose smallest k_pos exceeds the q tile's largest q_pos is wholly
-// masked and skipped (in K9: a q tile whose largest q_pos is below the k
-// tile's smallest k_pos).  The Pallas kernels compute such tiles and
-// mask every score; a masked score adds exactly 0, so the numbers agree.
-// In K8 and K9 P is 0 where the key is masked, as exp(NEG_INF - lse) is
-// for any finite lse, and in a row whose final lse is NEG_INF (a row that
-// saw no key in the whole ring, which a causal ring never makes, since
-// every query sees its own position): there the Pallas formula gives
-// exp(0) = 1 to the masked keys of the tiles it computes, and these
-// kernels and their plain versions give the row no gradient at all.
-//
-// K7's online softmax is the ring kernel's, which differs from K4's
-// where a row has seen only masked keys: the max is clamped to 0
-// (safe_m), the masked p and the correction are 0, so an all-masked row
-// ends with l = 0 and lse_i = NEG_INF.  The combine with the carry
-// follows the JAX order: lse_new = logaddexp(lse_c, lse_i), alpha =
-// exp(lse_c - lse_new), beta = exp(lse_i - lse_new), acc = acc_c * alpha
-// + (acc_i / l) * beta.  A row with l = 0 is not written: the Pallas
-// formulas give the carry back there (alpha = 1, beta = 0), so a fully
-// masked step leaves the carry bit-identical.  P is rounded to v's dtype
-// before P V relative to the running max after each 64-key tile, as in
-// K4.  K8 and K9 are K5 and K6 with the position mask and f32 outputs;
-// the FMA builds multiply q by scale before Q K^T, the bf16 builds S
-// after it, and both dq and dk at the end.
-//
-// What bounds them: at the ring bench's unmasked step (B=4, H=8, Tq=Tk=
-// 2048, D=128) K7 needs 4*B*H*Tq*Tk*D = 68.7 GFLOP, 0.069 ms at the bf16
-// tensor-core peak, and moves 118 MB, 0.035 ms at the memory rate:
-// operations bound K7 and K9 as they bound K4 and K6; K8, left with dQ's
-// share, is bound about as much by its bytes, as K5 is.  The designs are theirs: the
-// bf16 builds run on the tensor cores (ring_fwd_mma_kernel, K4's loop;
-// ring_dq_mma_kernel, K5's; ring_dkv_mma_kernel, K6's), the f32 builds
-// are f32 FMA on the CUDA cores, whose 67 TFLOP/s is their ceiling.
-// ---------------------------------------------------------------------
-
-struct RingShape {
-  int heads, tq, tk, d;
-  long long q_sb, q_st, q_sh;     // strides of q (elements)
-  long long kv_sb, kv_st, kv_sh;  // strides of k and v
-  float scale;
-  int causal;
-};
-
-// Extra shared memory of a ring kernel: one tile's positions and four
-// reduction slots.
-constexpr int kRingSmemInts = kTile + 4;
-
-// The smallest (kMin) or largest position of rows [t0, t0 + 64) of `pos`
-// (rows past t_len left out), reduced by threads 0-63 (warps 0 and 1)
-// into red[0] and red[1]; the tile's positions go to pos_s when it is
-// given.  The caller synchronises before reading either.
-template <bool kMin>
-__device__ __forceinline__ void tile_pos_extreme(const int* __restrict__ pos, int t0,
-                                                 int t_len, int* red, int* pos_s) {
-  if (threadIdx.x >= kTile) return;
-  const int t = t0 + threadIdx.x;
-  const bool in = t < t_len;
-  const int p = in ? pos[t] : 0;
-  if (pos_s != nullptr) pos_s[threadIdx.x] = p;
-  int x = in ? p : (kMin ? INT_MAX : INT_MIN);
-  x = kMin ? __reduce_min_sync(0xffffffffu, x) : __reduce_max_sync(0xffffffffu, x);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
-}
-
-__device__ __forceinline__ bool below_half_neg_inf(float x) { return x <= kNegInf * 0.5f; }
-
-// ---------------------------------------------------------------------
-// K7: ring-step forward with the carry combine.  Block (q tile, head,
-// batch); loops over the K/V block's tiles.
-// ---------------------------------------------------------------------
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-    ring_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, float* __restrict__ acc_c,
-                    float* __restrict__ lse_c, const int* __restrict__ q_pos,
-                    const int* __restrict__ k_pos, RingShape s) {
-  constexpr int kLd = DP + 4;
-  constexpr int kNc = DP / 64;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* k_s = q_s + kTile * kLd;
-  float* v_s = k_s + kTile * kLd;
-  float* p_s = v_s + kTile * kLd;
-  int* kpos_s = reinterpret_cast<int*>(p_s + kTile * kLdp);
-  int* red_s = kpos_s + kTile;  // [0, 1]: a key tile's min; [2, 3]: the q tile's max
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * kTile;
-  const long long row0 = ((long long)b * s.heads + h) * s.tq;
-  const T* k_bh = k + b * s.kv_sb + h * s.kv_sh;
-  const T* v_bh = v + b * s.kv_sb + h * s.kv_sh;
-
-  load_tile<T, DP>(q_s, q + b * s.q_sb + h * s.q_sh, s.q_st, q0, s.tq, s.d, s.scale);
-  int qp[4];
-  float lse_in[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    qp[i] = t < s.tq ? q_pos[t] : 0;
-    lse_in[i] = t < s.tq ? lse_c[row0 + t] : 0.0f;
-  }
-  tile_pos_extreme<false>(q_pos, q0, s.tq, red_s + 2, nullptr);
-  __syncthreads();
-  const int q_max = max(red_s[2], red_s[3]);
-
-  float m[4], l[4], acc[4][kNc][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int n = 0; n < kNc; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
-    }
-  }
-
-  const int n_k = n_tiles(s.tk);
-  for (int kb = 0; kb < n_k; ++kb) {
-    const int k0 = kb * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    if (s.causal) {
-      tile_pos_extreme<true>(k_pos, k0, s.tk, red_s, kpos_s);
-      __syncthreads();
-      if (min(red_s[0], red_s[1]) > q_max) continue;  // every key masked
-    }
-    load_tile<T, DP>(k_s, k_bh, s.kv_st, k0, s.tk, s.d, 1.0f);
-    load_tile<T, DP>(v_s, v_bh, s.kv_st, k0, s.tk, s.d, 1.0f);
-    __syncthreads();
-    float sc[4][4];
-    dot_rows<DP, false>(q_s, k_s, sc, 1.0f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        if (k0 + col >= s.tk || (s.causal && kpos_s[col] > qp[i])) sc[i][j] = kNegInf;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float safe_m = below_half_neg_inf(m_new) ? 0.0f : m_new;
-      const float corr = below_half_neg_inf(m[i]) ? 0.0f : expf(m[i] - safe_m);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = below_half_neg_inf(sc[i][j]) ? 0.0f : expf(sc[i][j] - safe_m);
-        rs += p;
-        p_s[(ty + 16 * i) * kLdp + tx + 16 * j] = p_round<T>(p);
-      }
-      l[i] = l[i] * corr + row_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int n = 0; n < kNc; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][n][e] *= corr;
-      }
-    }
-    __syncthreads();
-    acc_pv<DP>(p_s, v_s, acc);
-  }
-
-  // The combine with the carry; a row that saw no key (l = 0) keeps it.
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= s.tq || l[i] == 0.0f) continue;
-    const float lse_i = (below_half_neg_inf(m[i]) ? 0.0f : m[i]) + logf(l[i]);
-    const float lc = lse_in[i];
-    const float lse_new = fmaxf(lc, lse_i) + log1pf(expf(-fabsf(lc - lse_i)));
-    const float safe = below_half_neg_inf(lse_new) ? 0.0f : lse_new;
-    const float alpha = expf((below_half_neg_inf(lc) ? kNegInf : lc) - safe);
-    const float beta = expf(lse_i - safe);
-    float* row = acc_c + (row0 + t) * s.d;
-#pragma unroll
-    for (int n = 0; n < kNc; ++n) {
-      const int c = 64 * n + 4 * tx;
-      if (c >= s.d) continue;  // d is a multiple of 8: 4 columns in or out
-#pragma unroll
-      for (int e = 0; e < 4; ++e) row[c + e] = row[c + e] * alpha + (acc[i][n][e] / l[i]) * beta;
-    }
-    if (tx == 0) lse_c[row0 + t] = lse_new;
-  }
-}
-
-// ---------------------------------------------------------------------
-// K8: ring-step dQ.  Block (q tile, head, batch); loops over the K/V
-// block's tiles.
-// ---------------------------------------------------------------------
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-    ring_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   float* __restrict__ dq, const int* __restrict__ q_pos,
-                   const int* __restrict__ k_pos, RingShape s) {
-  constexpr int kLd = DP + 4;
-  constexpr int kNc = DP / 64;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* do_s = q_s + kTile * kLd;
-  float* k_s = do_s + kTile * kLd;
-  float* v_s = k_s + kTile * kLd;
-  float* ds_s = v_s + kTile * kLd;
-  int* kpos_s = reinterpret_cast<int*>(ds_s + kTile * kLdp);
-  int* red_s = kpos_s + kTile;
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * kTile;
-  const long long row0 = ((long long)b * s.heads + h) * s.tq;
-  const T* k_bh = k + b * s.kv_sb + h * s.kv_sh;
-  const T* v_bh = v + b * s.kv_sb + h * s.kv_sh;
-
-  load_tile<T, DP>(q_s, q + b * s.q_sb + h * s.q_sh, s.q_st, q0, s.tq, s.d, s.scale);
-  load_tile<float, DP>(do_s, dout + row0 * s.d, s.d, q0, s.tq, s.d, 1.0f);
-  int qp[4];
-  float lse_r[4], delta_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    qp[i] = t < s.tq ? q_pos[t] : 0;
-    lse_r[i] = t < s.tq ? lse[row0 + t] : 0.0f;
-    delta_r[i] = t < s.tq ? delta[row0 + t] : 0.0f;
-  }
-  tile_pos_extreme<false>(q_pos, q0, s.tq, red_s + 2, nullptr);
-  __syncthreads();
-  const int q_max = max(red_s[2], red_s[3]);
-
-  float acc[4][kNc][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int n = 0; n < kNc; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.0f;
-    }
-  }
-
-  const int n_k = n_tiles(s.tk);
-  for (int kb = 0; kb < n_k; ++kb) {
-    const int k0 = kb * kTile;
-    __syncthreads();
-    if (s.causal) {
-      tile_pos_extreme<true>(k_pos, k0, s.tk, red_s, kpos_s);
-      __syncthreads();
-      if (min(red_s[0], red_s[1]) > q_max) continue;
-    }
-    load_tile<T, DP>(k_s, k_bh, s.kv_st, k0, s.tk, s.d, 1.0f);
-    load_tile<T, DP>(v_s, v_bh, s.kv_st, k0, s.tk, s.d, 1.0f);
-    __syncthreads();
-    float sc[4][4], dp[4][4];
-    dot_rows<DP, false>(q_s, k_s, sc, 1.0f);
-    dot_rows<DP, false>(do_s, v_s, dp, 1.0f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const bool masked = k0 + col >= s.tk || (s.causal && kpos_s[col] > qp[i]) ||
-                            below_half_neg_inf(lse_r[i]);
-        const float p = masked ? 0.0f : expf(sc[i][j] - lse_r[i]);
-        ds_s[(ty + 16 * i) * kLdp + col] = p * (dp[i][j] - delta_r[i]);
-      }
-    }
-    __syncthreads();
-    acc_pv<DP>(ds_s, k_s, acc);
-  }
-  store_rows<float, DP>(dq + row0 * s.d, s.d, q0, s.tq, s.d, acc, s.scale);
-}
-
-// ---------------------------------------------------------------------
-// K9: ring-step dK, dV of the rotating block.  Block (k tile, head,
-// batch); loops over the local q shard's tiles.  Scores are held
-// transposed: rows are keys (ty), columns queries (tx).
-// ---------------------------------------------------------------------
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-    ring_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dk, float* __restrict__ dv,
-                    const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-                    RingShape s) {
-  constexpr int kLd = DP + 4;
-  constexpr int kNc = DP / 64;
-  extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);
-  float* v_s = k_s + kTile * kLd;
-  float* q_s = v_s + kTile * kLd;
-  float* do_s = q_s + kTile * kLd;
-  float* pt_s = do_s + kTile * kLd;
-  float* dst_s = pt_s + kTile * kLdp;
-  float* lse_s = dst_s + kTile * kLdp;
-  float* delta_s = lse_s + kTile;
-  int* qpos_s = reinterpret_cast<int*>(delta_s + kTile);
-  int* red_s = qpos_s + kTile;  // [0, 1]: a q tile's max; [2, 3]: the k tile's min
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int k0 = blockIdx.x * kTile;
-  const long long q_row0 = ((long long)b * s.heads + h) * s.tq;
-  const long long k_row0 = ((long long)b * s.heads + h) * s.tk;
-  const T* q_bh = q + b * s.q_sb + h * s.q_sh;
-
-  load_tile<T, DP>(k_s, k + b * s.kv_sb + h * s.kv_sh, s.kv_st, k0, s.tk, s.d, 1.0f);
-  load_tile<T, DP>(v_s, v + b * s.kv_sb + h * s.kv_sh, s.kv_st, k0, s.tk, s.d, 1.0f);
-  int kp[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = k0 + ty + 16 * i;
-    kp[i] = t < s.tk ? k_pos[t] : 0;
-  }
-  tile_pos_extreme<true>(k_pos, k0, s.tk, red_s + 2, nullptr);
-  __syncthreads();
-  const int k_min = min(red_s[2], red_s[3]);
-
-  float dk_acc[4][kNc][4], dv_acc[4][kNc][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int n = 0; n < kNc; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        dk_acc[i][n][e] = 0.0f;
-        dv_acc[i][n][e] = 0.0f;
-      }
-    }
-  }
-
-  const int n_q = n_tiles(s.tq);
-  for (int qb = 0; qb < n_q; ++qb) {
-    const int q0 = qb * kTile;
-    __syncthreads();
-    if (s.causal) {
-      tile_pos_extreme<false>(q_pos, q0, s.tq, red_s, qpos_s);
-      __syncthreads();
-      if (k_min > max(red_s[0], red_s[1])) continue;  // every query before every key
-    }
-    load_tile<T, DP>(q_s, q_bh, s.q_st, q0, s.tq, s.d, 1.0f);
-    load_tile<float, DP>(do_s, dout + q_row0 * s.d, s.d, q0, s.tq, s.d, 1.0f);
-    if (threadIdx.x < kTile) {
-      const int t = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = t < s.tq ? lse[q_row0 + t] : 0.0f;
-      delta_s[threadIdx.x] = t < s.tq ? delta[q_row0 + t] : 0.0f;
-    }
-    __syncthreads();
-    float st[4][4], dpt[4][4];
-    dot_rows<DP, true>(k_s, q_s, st, s.scale);  // k . (q * scale)
-    dot_rows<DP, false>(v_s, do_s, dpt, 1.0f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const bool masked = q0 + col >= s.tq || (s.causal && kp[i] > qpos_s[col]) ||
-                            below_half_neg_inf(lse_s[col]);
-        const float p = masked ? 0.0f : expf(st[i][j] - lse_s[col]);
-        pt_s[(ty + 16 * i) * kLdp + col] = p;
-        dst_s[(ty + 16 * i) * kLdp + col] = p * (dpt[i][j] - delta_s[col]);
-      }
-    }
-    __syncthreads();
-    acc_pv<DP>(pt_s, do_s, dv_acc);
-    acc_pv<DP>(dst_s, q_s, dk_acc);
-  }
-  store_rows<float, DP>(dk + k_row0 * s.d, s.d, k0, s.tk, s.d, dk_acc, s.scale);
-  store_rows<float, DP>(dv + k_row0 * s.d, s.d, k0, s.tk, s.d, dv_acc, 1.0f);
-}
-
-// ---------------------------------------------------------------------
-// K7 on the tensor cores (bf16 inputs).  Block (q tile, head, batch),
-// causal blocks heaviest first; warp w owns q rows 16 w .. 16 w + 15 and
-// holds them as A fragments, as in flash_fwd_mma_kernel, whose loop this
-// is: S = Q K^T by mma from the unscaled bf16 q, times `scale` in f32; P
-// rounded to bf16 per 64-key tile against the running max, l summing the
-// unrounded p.  What the ring changes:
-// - The mask is k_pos > q_pos: each lane reads q_pos of its rows r_lo
-//   and r_lo + 8 once, and each K tile's 64 positions are staged in
-//   shared memory beside it; columns past Tk are masked on their own
-//   (Tq != Tk is allowed).
-// - The online softmax is ring_fwd_kernel's (safe_m; p = 0 where s <=
-//   NEG_INF / 2; the correction 0 while m <= NEG_INF / 2), so a row that
-//   sees no key ends with l = 0 and leaves the carry bit for bit.
-// - Wholly masked K tiles are skipped with the two-stage pipeline kept
-//   full: a first pass writes each K tile's smallest position to shared
-//   memory (the zigzag layout's positions are not affine, so the live
-//   tiles are no prefix), and the loop walks and prefetches the live
-//   tiles only.  A q tile with no live K tile returns at once.
-// - The combine with the carry runs in the accumulators' layout, in
-//   JAX's order: lse_i, lse_new = logaddexp, alpha, beta; acc_c is read
-//   and written in place by the lane that holds each element, lse_c (read
-//   at the start, before any lane of the quad writes it) by lane % 4 = 0.
-// ---------------------------------------------------------------------
-template <int DP>
-__host__ __device__ constexpr int ring_fwd_mma_smem_bytes(int n_k) {
-  // Q, two stages of K, V and their positions, the q tile's max (2), each
-  // K tile's smallest position.
-  return fwd_mma_smem_bytes<DP>() + (2 * kTile + 2 + n_k) * 4;
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kMmaThreads)
-    ring_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, float* __restrict__ acc_c,
-                        float* __restrict__ lse_c, const int* __restrict__ q_pos,
-                        const int* __restrict__ k_pos, RingShape s) {
-  constexpr int kLd = mma_pitch<DP>();
-  constexpr int kElems = kTile * kLd;
-  constexpr int kN = DP / 8;
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* k_s = q_s + kElems;      // two stages
-  __nv_bfloat16* v_s = k_s + 2 * kElems;  // two stages
-  int* kpos_s = reinterpret_cast<int*>(v_s + 2 * kElems);  // two stages
-  int* red_s = kpos_s + 2 * kTile;
-  int* kmin_s = red_s + 2;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n_q = n_tiles(s.tq);
-  const int qi = s.causal ? n_q - 1 - (int)blockIdx.x : (int)blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = qi * kTile;
-  const long long row0 = ((long long)b * s.heads + h) * s.tq;
-  const __nv_bfloat16* k_bh = k + b * s.kv_sb + h * s.kv_sh;
-  const __nv_bfloat16* v_bh = v + b * s.kv_sb + h * s.kv_sh;
-  const int n_k = n_tiles(s.tk);
-
-  int q_max = INT_MAX;
-  if (s.causal) {
-    tile_pos_extreme<false>(q_pos, q0, s.tq, red_s, nullptr);
-    for (int i = warp; i < n_k; i += kMmaWarps) {
-      int x = INT_MAX;
-#pragma unroll
-      for (int c = lane; c < kTile; c += 32) {
-        const int t = i * kTile + c;
-        if (t < s.tk) x = min(x, k_pos[t]);
-      }
-      x = __reduce_min_sync(0xffffffffu, x);
-      if (lane == 0) kmin_s[i] = x;
-    }
-    __syncthreads();
-    q_max = max(red_s[0], red_s[1]);
-  }
-  // The first live K tile at or after i (every tile is live without the
-  // causal mask); the same in every thread.
-  auto next_live = [&](int i) {
-    if (s.causal) {
-      while (i < n_k && kmin_s[i] > q_max) ++i;
-    }
-    return i;
-  };
-  int kb = next_live(0);
-  if (kb >= n_k) return;  // every key masked: the carry stays as it is
-
-  mma_load_tile<DP>(q_s, q + b * s.q_sb + h * s.q_sh, s.q_st, q0, s.tq, s.d);
-  mma_load_tile<DP>(k_s, k_bh, s.kv_st, kb * kTile, s.tk, s.d);
-  mma_load_tile<DP>(v_s, v_bh, s.kv_st, kb * kTile, s.tk, s.d);
-  mma_load_rows(kpos_s, k_pos, kb * kTile, s.tk);
-  cp_async_commit();
-
-  // This lane's rows of the tile: r_lo and r_lo + 8.
-  const int r_lo = q0 + 16 * warp + (lane >> 2);
-  int qp[2];
-  float lse_in[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = r_lo + 8 * half;
-    qp[half] = t < s.tq ? q_pos[t] : 0;
-    lse_in[half] = t < s.tq ? lse_c[row0 + t] : 0.0f;
-  }
-  uint32_t qf[DP / 16][4];
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, o[kN][4];
-#pragma unroll
-  for (int n = 0; n < kN; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
-  }
-
-  for (int it = 0; kb < n_k; ++it) {
-    // Tile kb has landed, and every warp is done with the previous live
-    // tile, whose stage the next copy overwrites.
-    cp_async_wait_all();
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        ldsm_x4(qf[kk], q_s + (16 * warp + (lane & 15)) * kLd + 16 * kk + 8 * (lane >> 4));
-      }
-    }
-    const int next = next_live(kb + 1);
-    if (next < n_k) {
-      const int stage = (it + 1) & 1;
-      mma_load_tile<DP>(k_s + stage * kElems, k_bh, s.kv_st, next * kTile, s.tk, s.d);
-      mma_load_tile<DP>(v_s + stage * kElems, v_bh, s.kv_st, next * kTile, s.tk, s.d);
-      mma_load_rows(kpos_s + stage * kTile, k_pos, next * kTile, s.tk);
-      cp_async_commit();
-    }
-    const __nv_bfloat16* ks = k_s + (it & 1) * kElems;
-    const __nv_bfloat16* vs = v_s + (it & 1) * kElems;
-    const int* kp = kpos_s + (it & 1) * kTile;
-
-    float sc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4];
-        ldsm_x4(bk, ks + (16 * np + (lane & 7) + 8 * (lane >> 4)) * kLd + 16 * kk +
-                        8 * ((lane >> 3) & 1));
-        mma_bf16(sc[2 * np], qf[kk], bk[0], bk[1]);
-        mma_bf16(sc[2 * np + 1], qf[kk], bk[2], bk[3]);
-      }
-    }
-
-    const int k0 = kb * kTile;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * j + 2 * (lane & 3) + e;
-          float x = sc[j][2 * half + e] * s.scale;
-          if (k0 + col >= s.tk || (s.causal && kp[col] > qp[half])) x = kNegInf;
-          sc[j][2 * half + e] = x;
-          mx = fmaxf(mx, x);
-        }
-      }
-      const float m_new = fmaxf(m[half], quad_max(mx));
-      const float safe_m = below_half_neg_inf(m_new) ? 0.0f : m_new;
-      const float corr = below_half_neg_inf(m[half]) ? 0.0f : expf(m[half] - safe_m);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float x = sc[j][2 * half + e];
-          const float p = below_half_neg_inf(x) ? 0.0f : expf(x - safe_m);
-          sc[j][2 * half + e] = p;
-          rs += p;
-        }
-      }
-      l[half] = l[half] * corr + quad_sum(rs);
-      m[half] = m_new;
-#pragma unroll
-      for (int n = 0; n < kN; ++n) {
-        o[n][2 * half] *= corr;
-        o[n][2 * half + 1] *= corr;
-      }
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {  // 16 keys a step
-      uint32_t pa[4];
-      acc_to_a(sc[2 * kk], sc[2 * kk + 1], pa);
-#pragma unroll
-      for (int np = 0; np < DP / 16; ++np) {
-        uint32_t bv[4];
-        ldsm_x4_t(bv, vs + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + 16 * np +
-                          8 * (lane >> 4));
-        mma_bf16(o[2 * np], pa, bv[0], bv[1]);
-        mma_bf16(o[2 * np + 1], pa, bv[2], bv[3]);
-      }
-    }
-    kb = next;
-  }
-
-  // The combine with the carry; a row that saw no key (l = 0) keeps it.
-  const int c0 = 2 * (lane & 3);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = r_lo + 8 * half;
-    if (t >= s.tq || l[half] == 0.0f) continue;
-    const float lse_i = (below_half_neg_inf(m[half]) ? 0.0f : m[half]) + logf(l[half]);
-    const float lc = lse_in[half];
-    const float lse_new = fmaxf(lc, lse_i) + log1pf(expf(-fabsf(lc - lse_i)));
-    const float safe = below_half_neg_inf(lse_new) ? 0.0f : lse_new;
-    const float alpha = expf((below_half_neg_inf(lc) ? kNegInf : lc) - safe);
-    const float beta = expf(lse_i - safe);
-    float* row = acc_c + (row0 + t) * s.d;
-#pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      const int c = 8 * n + c0;
-      if (c >= s.d) continue;  // d is a multiple of 8: a fragment's columns in or out
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        row[c + e] = row[c + e] * alpha + (o[n][2 * half + e] / l[half]) * beta;
-      }
-    }
-    if ((lane & 3) == 0) lse_c[row0 + t] = lse_new;
-  }
-}
-
-// The bf16 build of K7 takes 16-byte-aligned q, k, v and strides, q's
-// and the K/V block's each (the wrapper copies a tensor that lacks them).
-inline bool ring_mma_inputs_ok(const void* q, const void* k, const void* v,
-                               const RingShape& s) {
-  return aligned16(q) && aligned16(k) && aligned16(v) && s.q_sb % 8 == 0 &&
-         s.q_st % 8 == 0 && s.q_sh % 8 == 0 && s.kv_sb % 8 == 0 && s.kv_st % 8 == 0 &&
-         s.kv_sh % 8 == 0 && s.d % 8 == 0;
-}
-
-template <int DP>
-cudaError_t launch_ring_fwd_mma(const void* q, const void* k, const void* v, float* acc,
-                                float* lse, const int* q_pos, const int* k_pos, int batch,
-                                const RingShape& s, cudaStream_t st) {
-  if (!ring_mma_inputs_ok(q, k, v, s)) return cudaErrorMisalignedAddress;
-  const int bytes = ring_fwd_mma_smem_bytes<DP>((s.tk + kTile - 1) / kTile);
-  cudaError_t err = allow_smem(ring_fwd_mma_kernel<DP>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((s.tq + kTile - 1) / kTile, s.heads, batch);
-  ring_fwd_mma_kernel<DP><<<grid, kMmaThreads, bytes, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, acc, lse,
-      q_pos, k_pos, s);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------
-// K8 and K9 on the tensor cores (bf16 q, k, v): K5's and K6's loops with
-// the ring's rules, from the final lse and delta, f32 outputs.
-//
-// - S (K8) or S^T (K9) by mma from the unscaled bf16 q, times `scale` in
-//   f32 (the reference computes q * scale first: a few f32 ulps of s).
-//   P = exp(S - lse), 0 where k_pos > q_pos, past Tq or Tk, or where the
-//   row's final lse is <= NEG_INF / 2 (a row that saw no key: P = 0, as
-//   in the FMA builds and the plain versions).  dS = P (dP - delta) in
-//   f32 registers.
-// - The outputs are f32 and held to rtol 1e-5 plus 1e-5 of the largest
-//   magnitude, where K5/K6's bf16 outputs are held to 2 bf16 ulps.  So
-//   every operand the reference keeps in f32 enters the tensor cores as
-//   a sum of bf16 parts, each part the bf16 of what the parts before it
-//   left, with every cross product summed into one f32 accumulator: P
-//   and dS in two parts (hi = bf16(x), lo = bf16(x - hi)), and dO, when
-//   it comes as f32, in kF32DoParts = 3.  One bf16 rounding of any of
-//   them misses the gate; with dO in two
-//   parts the worst element reaches 0.56-0.88 of the gate at phase 13's
-//   shapes, in three 0.36-0.44 (tests/torch_k89_split_margin.py;
-//   tests/test_torch_flash_mma_rounding.py emulates these rules).
-// - dQ, dK and dV sum each step's products (32 keys in K8, 16 queries in
-//   K9) in a fresh fragment, added to the running sum in f32 (add_frag):
-//   the tensor cores do not round their f32 sums to nearest, and a sum
-//   carried through the 768 mma of one dV element over a 2048-row shard
-//   (f32 dO) put dv past the gate on the card.
-// - dO comes as bf16 (kDoParts = 1), the CP path's gradient, staged by
-//   cp.async like Q; or as f32, split into kF32DoParts tiles as it is
-//   staged, by plain loads that the loop's barrier publishes.  dP then
-//   takes one product per part and K9's dV += P^T dO two per part.
-// - Wholly masked tiles are skipped with the two-stage pipeline kept
-//   full, as in ring_fwd_mma_kernel: a first pass writes each K tile's
-//   smallest position (K8) or each q tile's largest (K9) to shared
-//   memory, and the loop walks and prefetches the live tiles only.  A
-//   warp skips a step whose positions are all masked (its rows' largest
-//   q_pos below the step's smallest k_pos), read from the positions, not
-//   from a diagonal.  A block with no live tile stores zeros.
-// ---------------------------------------------------------------------
-// bf16 parts of an f32 dO in the bf16 K8 and K9.
-constexpr int kF32DoParts = 3;
-
-template <int DP, int kDoParts>
-__host__ __device__ constexpr int ring_dq_mma_smem_bytes(int n_k) {
-  // Q, dO (kDoParts tiles), two stages of K, V and their
-  // positions, the q tile's max (2), each K tile's smallest position.
-  return (5 + kDoParts) * mma_tile_bytes<DP>() + (2 * kTile + 2 + n_k) * 4;
-}
-
-template <int DP, int kDoParts>
-__host__ __device__ constexpr int ring_dkv_mma_smem_bytes(int n_q) {
-  // K, V, two stages of Q, dO (kDoParts tiles), lse, delta and q
-  // positions, the k tile's min (2), each q tile's largest position.
-  return (4 + 2 * kDoParts) * mma_tile_bytes<DP>() + (6 * kTile + 2 + n_q) * 4;
-}
-
-// K8: block (q tile, head, batch); warp w owns q rows 16 w .. 16 w + 15
-// and their rows of dQ, and takes each live K tile 32 keys at a time.
-// Registers as in K5: at D = 64 the bf16-dO build holds its Q and dO rows
-// as A fragments; at D = 128 (64 dQ accumulators), and with an f32 dO,
-// it reads them by ldmatrix at each 16-column step instead.
-template <int DP, int kDoParts>
-__global__ void __launch_bounds__(kMmaThreads)
-    ring_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, const void* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       float* __restrict__ dq, const int* __restrict__ q_pos,
-                       const int* __restrict__ k_pos, RingShape s) {
-  constexpr int kLd = mma_pitch<DP>();
-  constexpr int kElems = kTile * kLd;
-  constexpr int kN = DP / 8;
-  constexpr int kSteps = DP / 16;                    // 16-column steps of a q row
-  constexpr bool kHold = DP <= 64 && kDoParts == 1;  // Q and dO fragments in registers
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* do_s = q_s + kElems;                      // kDoParts tiles
-  __nv_bfloat16* k_s = do_s + kDoParts * kElems;           // two stages
-  __nv_bfloat16* v_s = k_s + 2 * kElems;                   // two stages
-  int* kpos_s = reinterpret_cast<int*>(v_s + 2 * kElems);  // two stages
-  int* red_s = kpos_s + 2 * kTile;
-  int* kmin_s = red_s + 2;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = blockIdx.x * kTile;
-  const long long row0 = ((long long)b * s.heads + h) * s.tq;
-  const __nv_bfloat16* k_bh = k + b * s.kv_sb + h * s.kv_sh;
-  const __nv_bfloat16* v_bh = v + b * s.kv_sb + h * s.kv_sh;
-  const int n_k = n_tiles(s.tk);
-
-  int q_max = INT_MAX;
-  if (s.causal) {
-    tile_pos_extreme<false>(q_pos, q0, s.tq, red_s, nullptr);
-    for (int i = warp; i < n_k; i += kMmaWarps) {
-      int x = INT_MAX;
-#pragma unroll
-      for (int c = lane; c < kTile; c += 32) {
-        const int t = i * kTile + c;
-        if (t < s.tk) x = min(x, k_pos[t]);
-      }
-      x = __reduce_min_sync(0xffffffffu, x);
-      if (lane == 0) kmin_s[i] = x;
-    }
-    __syncthreads();
-    q_max = max(red_s[0], red_s[1]);
-  }
-  // The first live K tile at or after i; the same in every thread.
-  auto next_live = [&](int i) {
-    if (s.causal) {
-      while (i < n_k && kmin_s[i] > q_max) ++i;
-    }
-    return i;
-  };
-  int kb = next_live(0);
-  if (kb < n_k) {
-    mma_load_tile<DP>(q_s, q + b * s.q_sb + h * s.q_sh, s.q_st, q0, s.tq, s.d);
-    if constexpr (kDoParts > 1) {
-      mma_load_tile_split<DP, kDoParts>(do_s, static_cast<const float*>(dout) + row0 * s.d, q0,
-                                        s.tq, s.d);
-    } else {
-      mma_load_tile<DP>(do_s, static_cast<const __nv_bfloat16*>(dout) + row0 * s.d, s.d, q0,
-                        s.tq, s.d);
-    }
-    mma_load_tile<DP>(k_s, k_bh, s.kv_st, kb * kTile, s.tk, s.d);
-    mma_load_tile<DP>(v_s, v_bh, s.kv_st, kb * kTile, s.tk, s.d);
-    mma_load_rows(kpos_s, k_pos, kb * kTile, s.tk);
-    cp_async_commit();
-  }
-
-  // This lane's rows of the tile: r_lo and r_lo + 8 (a row past Tq has no
-  // position and is not stored).
-  const int r_lo = q0 + 16 * warp + (lane >> 2);
-  int qp[2];
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = r_lo + 8 * half;
-    const bool in = t < s.tq;
-    qp[half] = in ? q_pos[t] : INT_MIN;
-    lse_r[half] = in ? lse[row0 + t] : 0.0f;
-    delta_r[half] = in ? delta[row0 + t] : 0.0f;
-  }
-  const int warp_q_max = __reduce_max_sync(0xffffffffu, max(qp[0], qp[1]));
-  const int a_row = (16 * warp + (lane & 15)) * kLd + 8 * (lane >> 4);
-  uint32_t qf[kHold ? kSteps : 1][4], dof[kHold ? kSteps : 1][4];
-  float acc[kN][4];
-#pragma unroll
-  for (int n = 0; n < kN; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  }
-
-  for (int it = 0; kb < n_k; ++it) {
-    // Tile kb has landed, and every warp is done with the previous live
-    // tile, whose stage the next copy overwrites.
-    cp_async_wait_all();
-    __syncthreads();
-    if constexpr (kHold) {
-      if (it == 0) {
-#pragma unroll
-        for (int kk = 0; kk < kSteps; ++kk) {
-          ldsm_x4(qf[kk], q_s + a_row + 16 * kk);
-          ldsm_x4(dof[kk], do_s + a_row + 16 * kk);
-        }
-      }
-    }
-    const int next = next_live(kb + 1);
-    if (next < n_k) {
-      const int stage = (it + 1) & 1;
-      mma_load_tile<DP>(k_s + stage * kElems, k_bh, s.kv_st, next * kTile, s.tk, s.d);
-      mma_load_tile<DP>(v_s + stage * kElems, v_bh, s.kv_st, next * kTile, s.tk, s.d);
-      mma_load_rows(kpos_s + stage * kTile, k_pos, next * kTile, s.tk);
-      cp_async_commit();
-    }
-    const __nv_bfloat16* ks = k_s + (it & 1) * kElems;
-    const __nv_bfloat16* vs = v_s + (it & 1) * kElems;
-    const int* kp = kpos_s + (it & 1) * kTile;
-    const int k0 = kb * kTile;
-
-#pragma unroll 1
-    for (int sub = 0; sub < kTile; sub += 32) {
-      // All 32 keys after every row of this warp: adds 0.
-      if (s.causal && __reduce_min_sync(0xffffffffu, kp[sub + lane]) > warp_q_max) continue;
-      float sc[4][4], dp[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sc[j][e] = 0.0f;
-          dp[j][e] = 0.0f;
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk) {
-        uint32_t qa[4], da[4];
-        if constexpr (kHold) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            qa[i] = qf[kk][i];
-            da[i] = dof[kk][i];
-          }
-        } else {
-          ldsm_x4(qa, q_s + a_row + 16 * kk);
-          ldsm_x4(da, do_s + a_row + 16 * kk);
-        }
-        uint32_t dl[kDoParts > 1 ? kDoParts - 1 : 1][4];  // an f32 dO's other parts
-#pragma unroll
-        for (int part = 1; part < kDoParts; ++part) {
-          ldsm_x4(dl[part - 1], do_s + part * kElems + a_row + 16 * kk);
-        }
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t bk[4], bv[4];
-          const int b_off = (sub + 16 * np + (lane & 7) + 8 * (lane >> 4)) * kLd + 16 * kk +
-                            8 * ((lane >> 3) & 1);
-          ldsm_x4(bk, ks + b_off);
-          ldsm_x4(bv, vs + b_off);
-          mma_bf16(sc[2 * np], qa, bk[0], bk[1]);
-          mma_bf16(sc[2 * np + 1], qa, bk[2], bk[3]);
-          mma_bf16(dp[2 * np], da, bv[0], bv[1]);
-          mma_bf16(dp[2 * np + 1], da, bv[2], bv[3]);
-#pragma unroll
-          for (int part = 1; part < kDoParts; ++part) {
-            mma_bf16(dp[2 * np], dl[part - 1], bv[0], bv[1]);
-            mma_bf16(dp[2 * np + 1], dl[part - 1], bv[2], bv[3]);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = sub + 8 * j + 2 * (lane & 3) + (e & 1);
-          const int half = e >> 1;
-          const bool dead = k0 + col >= s.tk || (s.causal && kp[col] > qp[half]) ||
-                            below_half_neg_inf(lse_r[half]);
-          const float p = dead ? 0.0f : expf(sc[j][e] * s.scale - lse_r[half]);
-          dp[j][e] = p * (dp[j][e] - delta_r[half]);
-        }
-      }
-      uint32_t ds_hi[2][4], ds_lo[2][4];  // 16 keys each
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        acc_to_a_split(dp[2 * kk], dp[2 * kk + 1], ds_hi[kk], ds_lo[kk]);
-      }
-#pragma unroll
-      for (int np = 0; np < kSteps; ++np) {
-        float dq_step[2][4] = {};
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          uint32_t bk[4];
-          ldsm_x4_t(bk, ks + (sub + 16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd +
-                            16 * np + 8 * (lane >> 4));
-          mma_bf16(dq_step[0], ds_hi[kk], bk[0], bk[1]);
-          mma_bf16(dq_step[0], ds_lo[kk], bk[0], bk[1]);
-          mma_bf16(dq_step[1], ds_hi[kk], bk[2], bk[3]);
-          mma_bf16(dq_step[1], ds_lo[kk], bk[2], bk[3]);
-        }
-        add_frag(acc[2 * np], dq_step[0]);
-        add_frag(acc[2 * np + 1], dq_step[1]);
-      }
-    }
-    kb = next;
-  }
-  mma_store_rows_f32<DP>(dq + row0 * s.d, r_lo, s.tq, s.d, acc, s.scale);
-}
-
-// K9: block (k tile, head, batch); warp w owns keys 16 w .. 16 w + 15 and
-// their rows of dK and dV (2 DP / 8 x 4 f32 accumulators a lane: 64 at
-// D = 64, 128 at D = 128), and takes each live q tile 16 queries at a
-// time, which bounds S^T and dP^T to 8 registers each.  The next live q
-// tile's Q, dO, lse, delta and positions are in flight while this one
-// computes.
-template <int DP, int kDoParts>
-__global__ void __launch_bounds__(kMmaThreads)
-    ring_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v, const void* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dk, float* __restrict__ dv,
-                        const int* __restrict__ q_pos, const int* __restrict__ k_pos,
-                        RingShape s) {
-  constexpr int kLd = mma_pitch<DP>();
-  constexpr int kElems = kTile * kLd;
-  constexpr int kN = DP / 8;
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* v_s = k_s + kElems;
-  __nv_bfloat16* q_s = v_s + kElems;       // two stages
-  __nv_bfloat16* do_s = q_s + 2 * kElems;  // two stages of kDoParts tiles
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kDoParts * kElems);  // two stages
-  float* delta_s = lse_s + 2 * kTile;                                  // two stages
-  int* qpos_s = reinterpret_cast<int*>(delta_s + 2 * kTile);           // two stages
-  int* red_s = qpos_s + 2 * kTile;
-  int* qmax_s = red_s + 2;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int k0 = blockIdx.x * kTile;
-  const long long q_row0 = ((long long)b * s.heads + h) * s.tq;
-  const long long k_row0 = ((long long)b * s.heads + h) * s.tk;
-  const __nv_bfloat16* q_bh = q + b * s.q_sb + h * s.q_sh;
-  const int n_q = n_tiles(s.tq);
-
-  int k_min = INT_MIN;
-  if (s.causal) {
-    tile_pos_extreme<true>(k_pos, k0, s.tk, red_s, nullptr);
-    for (int i = warp; i < n_q; i += kMmaWarps) {
-      int x = INT_MIN;
-#pragma unroll
-      for (int c = lane; c < kTile; c += 32) {
-        const int t = i * kTile + c;
-        if (t < s.tq) x = max(x, q_pos[t]);
-      }
-      x = __reduce_max_sync(0xffffffffu, x);
-      if (lane == 0) qmax_s[i] = x;
-    }
-    __syncthreads();
-    k_min = min(red_s[0], red_s[1]);
-  }
-  // The first live q tile at or after i (one whose largest position
-  // reaches this k tile's smallest); the same in every thread.
-  auto next_live = [&](int i) {
-    if (s.causal) {
-      while (i < n_q && qmax_s[i] < k_min) ++i;
-    }
-    return i;
-  };
-  auto load_q_tile = [&](int stage, int qb) {
-    const int t0 = qb * kTile;
-    __nv_bfloat16* dos = do_s + stage * kDoParts * kElems;
-    mma_load_tile<DP>(q_s + stage * kElems, q_bh, s.q_st, t0, s.tq, s.d);
-    if constexpr (kDoParts > 1) {
-      mma_load_tile_split<DP, kDoParts>(dos, static_cast<const float*>(dout) + q_row0 * s.d, t0,
-                                        s.tq, s.d);
-    } else {
-      mma_load_tile<DP>(dos, static_cast<const __nv_bfloat16*>(dout) + q_row0 * s.d, s.d, t0,
-                        s.tq, s.d);
-    }
-    mma_load_rows(lse_s + stage * kTile, lse + q_row0, t0, s.tq);
-    mma_load_rows(delta_s + stage * kTile, delta + q_row0, t0, s.tq);
-    mma_load_rows(qpos_s + stage * kTile, q_pos, t0, s.tq);
-  };
-  int qb = next_live(0);
-  mma_load_tile<DP>(k_s, k + b * s.kv_sb + h * s.kv_sh, s.kv_st, k0, s.tk, s.d);
-  mma_load_tile<DP>(v_s, v + b * s.kv_sb + h * s.kv_sh, s.kv_st, k0, s.tk, s.d);
-  if (qb < n_q) load_q_tile(0, qb);
-  cp_async_commit();
-
-  // This lane's key rows: r_lo and r_lo + 8 (a key past Tk has no
-  // position, masks every query and is not stored).
-  const int k_lo = 16 * warp;
-  const int r_lo = k0 + k_lo + (lane >> 2);
-  int kp[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = r_lo + 8 * half;
-    kp[half] = t < s.tk ? k_pos[t] : INT_MAX;
-  }
-  const int warp_k_min = __reduce_min_sync(0xffffffffu, min(kp[0], kp[1]));
-  float dk_acc[kN][4], dv_acc[kN][4];
-#pragma unroll
-  for (int n = 0; n < kN; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dk_acc[n][e] = 0.0f;
-      dv_acc[n][e] = 0.0f;
-    }
-  }
-
-  for (int it = 0; qb < n_q; ++it) {
-    cp_async_wait_all();
-    __syncthreads();
-    const int next = next_live(qb + 1);
-    if (next < n_q) {
-      load_q_tile((it + 1) & 1, next);
-      cp_async_commit();
-    }
-    const int stage = it & 1;
-    const __nv_bfloat16* qs = q_s + stage * kElems;
-    const __nv_bfloat16* dos = do_s + stage * kDoParts * kElems;
-    const float* lses = lse_s + stage * kTile;
-    const float* deltas = delta_s + stage * kTile;
-    const int* qps = qpos_s + stage * kTile;
-    const int q0 = qb * kTile;
-
-#pragma unroll 1
-    for (int sub = 0; sub < kTile; sub += 16) {
-      // All 16 queries before every key of this warp: adds 0.
-      if (s.causal && warp_k_min > __reduce_max_sync(0xffffffffu, qps[sub + (lane & 15)])) {
-        continue;
-      }
-      float st[2][4], dpt[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          st[j][e] = 0.0f;
-          dpt[j][e] = 0.0f;
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        uint32_t ka[4], va[4], bq[4], bo[4];
-        const int a_off = (k_lo + (lane & 15)) * kLd + 16 * kk + 8 * (lane >> 4);
-        const int b_off =
-            (sub + (lane & 7) + 8 * (lane >> 4)) * kLd + 16 * kk + 8 * ((lane >> 3) & 1);
-        ldsm_x4(ka, k_s + a_off);
-        ldsm_x4(va, v_s + a_off);
-        ldsm_x4(bq, qs + b_off);
-        ldsm_x4(bo, dos + b_off);
-        mma_bf16(st[0], ka, bq[0], bq[1]);
-        mma_bf16(st[1], ka, bq[2], bq[3]);
-        mma_bf16(dpt[0], va, bo[0], bo[1]);
-        mma_bf16(dpt[1], va, bo[2], bo[3]);
-#pragma unroll
-        for (int part = 1; part < kDoParts; ++part) {  // an f32 dO's other parts
-          ldsm_x4(bo, dos + part * kElems + b_off);
-          mma_bf16(dpt[0], va, bo[0], bo[1]);
-          mma_bf16(dpt[1], va, bo[2], bo[3]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = sub + 8 * j + 2 * (lane & 3) + (e & 1);
-          const bool dead = q0 + col >= s.tq || (s.causal && kp[e >> 1] > qps[col]) ||
-                            below_half_neg_inf(lses[col]);
-          const float p = dead ? 0.0f : expf(st[j][e] * s.scale - lses[col]);
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - deltas[col]);
-        }
-      }
-      uint32_t p_hi[4], p_lo[4], ds_hi[4], ds_lo[4];
-      acc_to_a_split(st[0], st[1], p_hi, p_lo);
-      acc_to_a_split(dpt[0], dpt[1], ds_hi, ds_lo);
-      // 8 columns a step (ldmatrix.x2): with 16, as in K6, the D = 64
-      // build spills at the 128 registers ptxas gives it.
-#pragma unroll
-      for (int nb = 0; nb < DP / 8; ++nb) {
-        uint32_t bo[2], bq[2];
-        const int b_off = (sub + (lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + 8 * nb;
-        float dv_step[4] = {};
-#pragma unroll
-        for (int part = 0; part < kDoParts; ++part) {  // each part of P times each of dO
-          ldsm_x2_t(bo, dos + part * kElems + b_off);
-          mma_bf16(dv_step, p_hi, bo[0], bo[1]);
-          mma_bf16(dv_step, p_lo, bo[0], bo[1]);
-        }
-        add_frag(dv_acc[nb], dv_step);
-        ldsm_x2_t(bq, qs + b_off);
-        float dk_step[4] = {};
-        mma_bf16(dk_step, ds_hi, bq[0], bq[1]);
-        mma_bf16(dk_step, ds_lo, bq[0], bq[1]);
-        add_frag(dk_acc[nb], dk_step);
-      }
-    }
-    qb = next;
-  }
-  mma_store_rows_f32<DP>(dk + k_row0 * s.d, r_lo, s.tk, s.d, dk_acc, s.scale);
-  mma_store_rows_f32<DP>(dv + k_row0 * s.d, r_lo, s.tk, s.d, dv_acc, 1.0f);
-}
-
-// The bf16 builds of K8 and K9 take what K7's takes and a 16-byte-aligned
-// dO, bf16 or f32 (the wrapper copies one that lacks it).
-template <int DP, int kDoParts>
-cudaError_t launch_ring_dq_mma(const void* q, const void* k, const void* v, const void* dout,
-                               const float* lse, const float* delta, float* dq,
-                               const int* q_pos, const int* k_pos, int batch,
-                               const RingShape& s, cudaStream_t st) {
-  if (!ring_mma_inputs_ok(q, k, v, s) || !aligned16(dout)) return cudaErrorMisalignedAddress;
-  const int bytes = ring_dq_mma_smem_bytes<DP, kDoParts>((s.tk + kTile - 1) / kTile);
-  cudaError_t err = allow_smem(ring_dq_mma_kernel<DP, kDoParts>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((s.tq + kTile - 1) / kTile, s.heads, batch);
-  ring_dq_mma_kernel<DP, kDoParts><<<grid, kMmaThreads, bytes, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, dout, lse,
-      delta, dq, q_pos, k_pos, s);
-  return cudaGetLastError();
-}
-
-template <int DP, int kDoParts>
-cudaError_t launch_ring_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
-                                const float* lse, const float* delta, float* dk, float* dv,
-                                const int* q_pos, const int* k_pos, int batch,
-                                const RingShape& s, cudaStream_t st) {
-  if (!ring_mma_inputs_ok(q, k, v, s) || !aligned16(dout)) return cudaErrorMisalignedAddress;
-  const int bytes = ring_dkv_mma_smem_bytes<DP, kDoParts>((s.tq + kTile - 1) / kTile);
-  cudaError_t err = allow_smem(ring_dkv_mma_kernel<DP, kDoParts>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((s.tk + kTile - 1) / kTile, s.heads, batch);
-  ring_dkv_mma_kernel<DP, kDoParts><<<grid, kMmaThreads, bytes, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, dout, lse,
-      delta, dk, dv, q_pos, k_pos, s);
-  return cudaGetLastError();
-}
-
-template <typename T, int DP>
-cudaError_t launch_ring_fwd(const void* q, const void* k, const void* v, float* acc,
-                            float* lse, const int* q_pos, const int* k_pos, int batch,
-                            const RingShape& s, cudaStream_t st) {
-  // bf16 runs on the tensor cores; f32 keeps the FMA kernel.
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return launch_ring_fwd_mma<DP>(q, k, v, acc, lse, q_pos, k_pos, batch, s, st);
-  } else {
-    constexpr int bytes = fwd_smem_bytes<DP>() + kRingSmemInts * 4;
-    cudaError_t err = allow_smem(ring_fwd_kernel<T, DP>, bytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((s.tq + kTile - 1) / kTile, s.heads, batch);
-    ring_fwd_kernel<T, DP><<<grid, kThreads, bytes, st>>>(
-        (const T*)q, (const T*)k, (const T*)v, acc, lse, q_pos, k_pos, s);
-    return cudaGetLastError();
-  }
-}
-
-// dout_dtype as dtype: bf16 q, k, v run on the tensor cores with dO as it
-// comes (bf16, or f32 split hi/lo); f32 keeps the FMA kernel, whose dO
-// is f32.
-template <typename T, int DP>
-cudaError_t launch_ring_dq(const void* q, const void* k, const void* v, const void* dout,
-                           int dout_dtype, const float* lse, const float* delta, float* dq,
-                           const int* q_pos, const int* k_pos, int batch, const RingShape& s,
-                           cudaStream_t st) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (dout_dtype == 1) {
-      return launch_ring_dq_mma<DP, 1>(q, k, v, dout, lse, delta, dq, q_pos, k_pos, batch,
-                                           s, st);
-    }
-    if (dout_dtype == 0) {
-      return launch_ring_dq_mma<DP, kF32DoParts>(q, k, v, dout, lse, delta, dq, q_pos, k_pos, batch, s,
-                                          st);
-    }
-    return cudaErrorInvalidValue;
-  } else {
-    if (dout_dtype != 0) return cudaErrorInvalidValue;
-    constexpr int bytes = dq_smem_bytes<DP>() + kRingSmemInts * 4;
-    cudaError_t err = allow_smem(ring_dq_kernel<T, DP>, bytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((s.tq + kTile - 1) / kTile, s.heads, batch);
-    ring_dq_kernel<T, DP><<<grid, kThreads, bytes, st>>>((const T*)q, (const T*)k, (const T*)v,
-                                                         (const float*)dout, lse, delta, dq,
-                                                         q_pos, k_pos, s);
-    return cudaGetLastError();
-  }
-}
-
-template <typename T, int DP>
-cudaError_t launch_ring_dkv(const void* q, const void* k, const void* v, const void* dout,
-                            int dout_dtype, const float* lse, const float* delta, float* dk,
-                            float* dv, const int* q_pos, const int* k_pos, int batch,
-                            const RingShape& s, cudaStream_t st) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (dout_dtype == 1) {
-      return launch_ring_dkv_mma<DP, 1>(q, k, v, dout, lse, delta, dk, dv, q_pos, k_pos,
-                                            batch, s, st);
-    }
-    if (dout_dtype == 0) {
-      return launch_ring_dkv_mma<DP, kF32DoParts>(q, k, v, dout, lse, delta, dk, dv, q_pos, k_pos,
-                                           batch, s, st);
-    }
-    return cudaErrorInvalidValue;
-  } else {
-    if (dout_dtype != 0) return cudaErrorInvalidValue;
-    constexpr int bytes = dkv_smem_bytes<DP>() + kRingSmemInts * 4;
-    cudaError_t err = allow_smem(ring_dkv_kernel<T, DP>, bytes);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((s.tk + kTile - 1) / kTile, s.heads, batch);
-    ring_dkv_kernel<T, DP><<<grid, kThreads, bytes, st>>>((const T*)q, (const T*)k, (const T*)v,
-                                                          (const float*)dout, lse, delta, dk, dv,
-                                                          q_pos, k_pos, s);
-    return cudaGetLastError();
-  }
-}
-
 // dtype: 0 = float32, 1 = bfloat16.  K4-K6: head_dim d <= 64 runs the
 // DP=64 build, 64 < d <= 128 the DP=128 one, 128 < d <= 256 the DP=256
 // one (the wrapper pads d to a multiple of 8).
@@ -2950,24 +1213,6 @@ cudaError_t launch_ring_dkv(const void* q, const void* k, const void* v, const v
       if (d <= 64) return (int)CALL(float, 64);                      \
       if (d <= 128) return (int)CALL(float, 128);                    \
       return (int)CALL(float, 256);                                  \
-    }                                                                \
-    return (int)cudaErrorInvalidValue;                               \
-  } while (0)
-
-// K7-K9: the DP=64 and DP=128 builds only, d <= 128 (the ring's
-// kernels are not built at DP=256: K9 already takes 254 registers at
-// DP=128).
-#define EDL_RING_DISPATCH(CALL)                                      \
-  do {                                                               \
-    if (d < 1 || d > 128 || t_len < 1 || heads < 1 || batch < 1)     \
-      return (int)cudaErrorInvalidValue;                             \
-    if (dtype == 1) {                                                \
-      if (d <= 64) return (int)CALL(__nv_bfloat16, 64);              \
-      return (int)CALL(__nv_bfloat16, 128);                          \
-    }                                                                \
-    if (dtype == 0) {                                                \
-      if (d <= 64) return (int)CALL(float, 64);                      \
-      return (int)CALL(float, 128);                                  \
     }                                                                \
     return (int)cudaErrorInvalidValue;                               \
   } while (0)
@@ -3010,55 +1255,6 @@ int edl_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
 #define EDL_CALL(T, DP) \
   launch_dkv<T, DP>(q, k, v, dout, lse, delta, dk, dv, batch, s, st)
   EDL_FLASH_DISPATCH(EDL_CALL);
-#undef EDL_CALL
-}
-
-// The ring steps: q strides, then the K/V block's; t_len, which the
-// dispatch checks, is the shorter of Tq and Tk.
-int edl_ring_fwd(const void* q, const void* k, const void* v, float* acc, float* lse,
-                 const int* q_pos, const int* k_pos, int batch, int heads, int tq,
-                 int tk, int d, long long q_sb, long long q_st, long long q_sh,
-                 long long kv_sb, long long kv_st, long long kv_sh, float scale,
-                 int causal, int dtype, void* stream) {
-  const RingShape s{heads, tq, tk, d, q_sb, q_st, q_sh, kv_sb, kv_st, kv_sh, scale, causal};
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int t_len = tq < tk ? tq : tk;
-#define EDL_CALL(T, DP) \
-  launch_ring_fwd<T, DP>(q, k, v, acc, lse, q_pos, k_pos, batch, s, st)
-  EDL_RING_DISPATCH(EDL_CALL);
-#undef EDL_CALL
-}
-
-// The ring's backward steps take dO's dtype code after dO (0 = float32,
-// 1 = bfloat16; a bf16 dO only beside bf16 q, k, v).
-int edl_ring_dq(const void* q, const void* k, const void* v, const void* dout, int dout_dtype,
-                const float* lse, const float* delta, float* dq, const int* q_pos,
-                const int* k_pos, int batch, int heads, int tq, int tk, int d,
-                long long q_sb, long long q_st, long long q_sh, long long kv_sb,
-                long long kv_st, long long kv_sh, float scale, int causal, int dtype,
-                void* stream) {
-  const RingShape s{heads, tq, tk, d, q_sb, q_st, q_sh, kv_sb, kv_st, kv_sh, scale, causal};
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int t_len = tq < tk ? tq : tk;
-#define EDL_CALL(T, DP) \
-  launch_ring_dq<T, DP>(q, k, v, dout, dout_dtype, lse, delta, dq, q_pos, k_pos, batch, s, st)
-  EDL_RING_DISPATCH(EDL_CALL);
-#undef EDL_CALL
-}
-
-int edl_ring_dkv(const void* q, const void* k, const void* v, const void* dout, int dout_dtype,
-                 const float* lse, const float* delta, float* dk, float* dv,
-                 const int* q_pos, const int* k_pos, int batch, int heads, int tq,
-                 int tk, int d, long long q_sb, long long q_st, long long q_sh,
-                 long long kv_sb, long long kv_st, long long kv_sh, float scale,
-                 int causal, int dtype, void* stream) {
-  const RingShape s{heads, tq, tk, d, q_sb, q_st, q_sh, kv_sb, kv_st, kv_sh, scale, causal};
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int t_len = tq < tk ? tq : tk;
-#define EDL_CALL(T, DP)                                                                       \
-  launch_ring_dkv<T, DP>(q, k, v, dout, dout_dtype, lse, delta, dk, dv, q_pos, k_pos, batch, s, \
-                         st)
-  EDL_RING_DISPATCH(EDL_CALL);
 #undef EDL_CALL
 }
 

@@ -1,7 +1,7 @@
 """Flash attention: the port of the Pallas kernels of
 ``elasticdl_tpu/ops/flash_attention.py``.  Six kernels, each a
-hand-written CUDA kernel in ``csrc/flash_attention.cu``; three for one
-device:
+hand-written CUDA kernel; three for one device, in
+``csrc/flash_attention.cu``:
 
 ``flash_attention_fwd``  K4, replaces ``_fwd_kernel``: online-softmax
                          attention; ``(out, lse)``.
@@ -10,8 +10,10 @@ device:
 ``flash_attention_dkv``  K6, replaces ``_dkv_kernel``: dK and dV.
 
 and three for one step of the context-parallel ring
-(``parallel/ring_attention.py``), with the JAX functions' signatures and
-their ``[B, H, T, D]`` layout, the causal mask read from position arrays:
+(``parallel/ring_attention.py``), in ``csrc/ring_attention.cu`` (both
+files take their helpers from ``csrc/flash_common.cuh``), with the JAX
+functions' signatures and their ``[B, H, T, D]`` layout, the causal mask
+read from position arrays:
 
 ``flash_ring_step_carry``  K7, replaces ``_fwd_ring_carry_kernel``: the
                            step's forward, combined in lse space with the
@@ -70,9 +72,15 @@ key rows two warps, each owning half of the columns of dK and dV; the
 f32 builds of K5 and K6 share one shared-memory tile between two
 operands (``csrc/flash_attention.cu`` sets out what bounds each build).
 Above 256 they raise: that is ``wgmma``'s widest N and the widest build.
-The ring kernels K7-K9 take a multiple of 8 up to
-``RING_MAX_HEAD_DIM`` (128) and raise beyond it (``ROADMAP.md`` Queue 2
-F).
+The ring kernels K7-K9 (``csrc/ring_attention.cu``) take the same head
+dims, up to ``MAX_HEAD_DIM``, in the same three builds and
+through the same pad: the step wrappers pad q, the K/V block, dO and the
+``acc`` carry, and slice ``acc``, dq, dk and dv back; the CP path pads
+once, before the ring (``parallel/ring_attention.py``).  At 256 K7 and
+K8 read their Q (and dO) fragments at each step and K9 gives each 16 key
+rows a pair of warps, as K4-K6 do; the bf16 K8 and K9 stage one tile set
+instead of two beside an f32 dO, whose three bf16 parts fill the rest of
+a block's shared memory.  Above 256 they raise.
 """
 
 from __future__ import annotations
@@ -90,9 +98,8 @@ RING_KERNELS = ("flash_ring_step_carry", "flash_ring_step_dq", "flash_ring_step_
 NEG_INF = -1e30
 #: The CUDA kernels' tile: BLOCK queries by BLOCK keys.
 BLOCK = 64
-#: The widest head_dim of K4-K6 (their widest build) and of K7-K9.
+#: The widest head_dim of K4-K9 (their widest build).
 MAX_HEAD_DIM = 256
-RING_MAX_HEAD_DIM = 128
 #: Query rows per step of the plain backward (bounds its [B, H, rows, T]
 #: score slab).
 PLAIN_BWD_ROWS = 256
@@ -158,7 +165,7 @@ def _check_kernel_dtype(q) -> None:
 
 
 def _check_head_dim(q) -> None:
-    """K4-K6 take head_dim up to MAX_HEAD_DIM (the wrappers pad one that
+    """K4-K9 take head_dim up to MAX_HEAD_DIM (the wrappers pad one that
     is not a multiple of 8)."""
     d = q.shape[-1]
     if not 0 < d <= MAX_HEAD_DIM:
@@ -531,17 +538,13 @@ def _rows(x: torch.Tensor, q: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def _ring_kernel_inputs(q, k, v):
-    """What the ring kernels take: bf16 or f32, head_dim a multiple of 8
-    up to RING_MAX_HEAD_DIM, a contiguous last dimension, one set of K/V
-    strides and, in bf16, 16-byte alignment of q and of the K/V block,
-    each with its own strides (copied only when missing)."""
+    """What the ring kernels take: bf16 or f32, head_dim up to
+    MAX_HEAD_DIM padded to a multiple of 8, a contiguous last dimension,
+    one set of K/V strides and, in bf16, 16-byte alignment of q and of the
+    K/V block, each with its own strides (copied only when missing)."""
     _check_kernel_dtype(q)
-    d = q.shape[-1]
-    if d % 8 or not 0 < d <= RING_MAX_HEAD_DIM:
-        raise ValueError(
-            f"the ring-step kernels take head_dim a multiple of 8 up to {RING_MAX_HEAD_DIM}, "
-            f"got {d} (their DP=256 build and the pad are still to come: ROADMAP.md Queue 2 F)"
-        )
+    _check_head_dim(q)
+    q, k, v = _pad8(q), _pad8(k), _pad8(v)
     if q.stride(-1) != 1 or not _aligned16(q):
         q = q.contiguous()
         if not _aligned16(q):
@@ -555,10 +558,12 @@ def _ring_kernel_inputs(q, k, v):
 
 
 def _ring_kernel_dout(do, q):
-    """dO as K8 and K9 read it: a bf16 dO beside bf16 q as it is (the CP
-    path's gradient; contiguous and 16-byte aligned, copied only when it
-    is not), any other as f32 (beside bf16 q the kernels split it hi/lo;
-    the f32 builds read it as it is)."""
+    """dO as K8 and K9 read it, at (padded) q's head_dim: a bf16 dO
+    beside bf16 q as it is (the CP path's gradient; contiguous and
+    16-byte aligned, copied only when it is not), any other as f32
+    (beside bf16 q the kernels split it in three bf16 parts; the f32
+    builds read it as it is)."""
+    do = _pad8(do)
     if not (q.dtype == do.dtype == torch.bfloat16):
         return do.to(torch.float32).contiguous()
     do = do.contiguous()
@@ -631,7 +636,8 @@ def flash_ring_step_carry(q, k_blk, v_blk, acc, lse, q_pos, k_pos, *, causal, sc
     (K4's rules: S from the unscaled q, scaled in f32; P rounded to bf16
     per ``BLOCK`` keys; wholly masked key tiles skipped), with q and the
     K/V block copied first where they lack 16-byte alignment; f32 on the
-    CUDA cores."""
+    CUDA cores.  A head_dim that is no multiple of 8 runs on a padded
+    copy of the carry, copied back."""
     _check_ring(q, k_blk, v_blk)
     b, h, tq, d = q.shape
     if acc.dtype != torch.float32 or tuple(acc.shape) != (b, h, tq, d):
@@ -648,11 +654,14 @@ def flash_ring_step_carry(q, k_blk, v_blk, acc, lse, q_pos, k_pos, *, causal, sc
         raise ValueError("the ring-step forward updates acc and lse in place: they must be "
                          "contiguous and on q's device")
     q, k_blk, v_blk = _ring_kernel_inputs(q, k_blk, v_blk)
+    carry = _pad8(acc).contiguous()  # acc itself at a multiple of 8
     if acc.numel() and k_blk.shape[2]:
         with torch.cuda.device(q.device):
             _launch("flash_ring_step_carry", "edl_ring_fwd", q.data_ptr(), k_blk.data_ptr(),
-                    v_blk.data_ptr(), acc.data_ptr(), lse.data_ptr(), q_pos.data_ptr(),
+                    v_blk.data_ptr(), carry.data_ptr(), lse.data_ptr(), q_pos.data_ptr(),
                     k_pos.data_ptr(), *_ring_shape_args(q, k_blk, scale, causal))
+    if carry is not acc:
+        acc.copy_(carry[..., :d])
     return acc, lse
 
 
@@ -723,6 +732,7 @@ def flash_ring_step_dq(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal,
     (K5's rules; dO read as given, bf16 or f32, an f32 dO split hi/lo),
     f32 on the CUDA cores."""
     lse, delta, q_pos, k_pos = _ring_bwd_inputs(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos)
+    d = q.shape[-1]
     if _route(q) == "plain":
         return flash_ring_step_dq_plain(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos,
                                         causal=causal, scale=scale)
@@ -737,7 +747,7 @@ def flash_ring_step_dq(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal,
                     v_blk.data_ptr(), do.data_ptr(), _DTYPE_CODE[do.dtype], lse.data_ptr(),
                     delta.data_ptr(), dq.data_ptr(), q_pos.data_ptr(), k_pos.data_ptr(),
                     *_ring_shape_args(q, k_blk, scale, causal))
-    return dq
+    return _unpad(dq, d)
 
 
 def flash_ring_step_dkv(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal, scale,
@@ -746,6 +756,7 @@ def flash_ring_step_dkv(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal
     bf16 runs on the tensor cores (K6's rules; dO as in K8), f32 on the
     CUDA cores."""
     lse, delta, q_pos, k_pos = _ring_bwd_inputs(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos)
+    d = q.shape[-1]
     if _route(q) == "plain":
         return flash_ring_step_dkv_plain(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos,
                                          causal=causal, scale=scale)
@@ -761,7 +772,7 @@ def flash_ring_step_dkv(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal
                     v_blk.data_ptr(), do.data_ptr(), _DTYPE_CODE[do.dtype], lse.data_ptr(),
                     delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), q_pos.data_ptr(),
                     k_pos.data_ptr(), *_ring_shape_args(q, k_blk, scale, causal))
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 def flash_ring_step_bwd(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal, scale,

@@ -361,10 +361,17 @@ class _RingFlash(torch.autograd.Function):
 def ring_attention_pallas(q, k, v, *, ring: Ring, causal: bool = False,  # hot-path
                           scale: Optional[float] = None, layout: str = "contiguous"):
     """Ring attention with the flash step kernels, K7-K9 (the JAX name):
-    the contract of ``ring_attention``, differentiable in q, k, v."""
+    the contract of ``ring_attention``, differentiable in q, k, v.  A
+    head_dim that is not a multiple of 8 is padded with zero columns once,
+    before the ring, and the output sliced back after it (the pad's
+    backward slices the gradients; ``scale`` comes from the true
+    head_dim), so no step copies for it."""
     _check_layout(layout)
-    scale = fa.default_scale(q.shape[-1]) if scale is None else float(np.float32(scale))
-    return _RingFlash.apply(q, k, v, ring, bool(causal), scale, layout)
+    d = q.shape[-1]
+    scale = fa.default_scale(d) if scale is None else float(np.float32(scale))
+    q, k, v = fa._pad8(q), fa._pad8(k), fa._pad8(v)
+    out = _RingFlash.apply(q, k, v, ring, bool(causal), scale, layout)
+    return out if out.shape[-1] == d else out[..., :d]
 
 
 def make_ring_attention(mesh: Mesh, *, axis: str = MODEL_AXIS, causal: bool = False,

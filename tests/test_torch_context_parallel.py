@@ -17,6 +17,12 @@ Tolerances:
   of the elements, every element within ``2·lr·steps·1.5`` (Adam's first
   steps are sign-like: an element whose gradient is within reduction
   noise of zero moves by up to ~2·lr per step in one framework only).
+- the CP LM at head_dim 256 (the ring kernels' DP=256 build, JAX's
+  Pallas ring) and 100 (the port's pad; JAX's blockwise ring, which
+  takes a head_dim that is no multiple of 8): 2 heads, 1 layer, T=32 on
+  a (2, 4) mesh; the loss rtol 1e-5 and each gradient within rtol 1e-5
+  plus GRAD_ATOL_SHARE of its largest magnitude (a sum of terms of both
+  signs, whose f32 rounding is relative to the terms).
 - gloo process mesh (data=2, model=2, 4 processes) against the in-process
   mesh: ring output and gradients rtol 1e-5 / atol 1e-6 (the same
   kernels' plain versions on the same rows; the process ring sums the
@@ -61,6 +67,7 @@ STEP_RTOL = 1e-5
 FINAL_TOL = dict(rtol=1e-5, atol=1e-6)
 LOOSE_SHARE = 0.005
 RING_TOL = dict(rtol=1e-5, atol=1e-6)
+GRAD_ATOL_SHARE = 1e-5
 
 
 def _data(n, seed):
@@ -133,6 +140,35 @@ def test_cp_trainer_matches_jax_trainer():
                          2 * LR * STEPS * 1.5)
     np.testing.assert_allclose(pt.eval_step(tokens[:BATCH]),
                                np.asarray(jt.eval_step(tokens[:BATCH])), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("head_dim,layout", [(256, "contiguous"), (100, "zigzag")])
+def test_wide_head_dim_cp_loss_and_gradients_match_jax(head_dim, layout):
+    """The CP LM at the ring kernels' widest build (256) and at a head_dim
+    the port pads (100): loss and gradients against JAX's CP LM, from
+    the JAX model's variables."""
+    params = dict(PARAMS, d_model=2 * head_dim, num_heads=2, num_layers=1, vocab=64)
+    tokens, labels = synthetic_lm_arrays(BATCH, SEQ, params["vocab"], 9)
+    jax_model = zoo.custom_model(**params, mesh=_jax_mesh(), cp_layout=layout)
+    variables = jax.device_get(jax.jit(jax_model.init)(jax.random.PRNGKey(2),
+                                                       jnp.asarray(tokens)))
+    j_loss, j_grads = jax.jit(jax.value_and_grad(
+        lambda v: zoo.loss(jnp.asarray(labels), jax_model.apply(v, jnp.asarray(tokens)))))(
+        variables)
+    model = build_model(MODEL_DEF, dict(params, mesh=_port_mesh(), cp_layout=layout),
+                        device="cpu")
+    assert model.block_0.attn.qkv.kernel.shape[-1] == head_dim
+    convert.load_state(model, convert.state_dict_from_jax(variables, model))
+    loss = port_zoo.loss(torch.from_numpy(labels), model(torch.from_numpy(tokens)))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=STEP_RTOL)
+    want = convert.state_dict_from_jax(jax.device_get(j_grads), model)
+    got = dict(model.named_parameters())
+    assert set(got) <= set(want)
+    for name, p in got.items():
+        w = np.asarray(want[name], np.float32)
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=1e-5,
+                                   atol=GRAD_ATOL_SHARE * np.abs(w).max(), err_msg=name)
 
 
 def test_in_process_cp_equals_one_card_forward_and_counts_positions():

@@ -192,8 +192,11 @@ def test_kernel_input_checks():
     y = torch.zeros((1, 8, 2, 264))
     with pytest.raises(ValueError, match="head_dim up to 256"):
         fa._kernel_inputs(y, y, y)
-    r = torch.zeros((1, 2, 8, 136))
-    with pytest.raises(ValueError, match="multiple of 8 up to 128.*ROADMAP.md Queue 2 F"):
+    for d in (100, 136, 256):  # the ring kernels' DP=256 build; 100 is padded to 104
+        r = torch.zeros((1, 2, 8, d))
+        assert all(x.shape[-1] == d + -d % 8 for x in fa._ring_kernel_inputs(r, r, r))
+    r = torch.zeros((1, 2, 8, 264))
+    with pytest.raises(ValueError, match="head_dim up to 256"):
         fa._ring_kernel_inputs(r, r, r)
     h = torch.zeros((1, 8, 2, 16), dtype=torch.float16)
     with pytest.raises(TypeError, match="bfloat16 or float32"):

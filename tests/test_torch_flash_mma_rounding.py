@@ -1,8 +1,8 @@
 """The rounding design of the bf16 tensor-core builds of K4-K9
 (``flash_fwd_mma_kernel``, ``flash_dq_mma_kernel``,
-``flash_dkv_mma_kernel``, ``ring_fwd_mma_kernel``, ``ring_dq_mma_kernel``
-and ``ring_dkv_mma_kernel`` in
-``elasticdl_tpu_torch/ops/csrc/flash_attention.cu``), emulated in
+``flash_dkv_mma_kernel`` in ``elasticdl_tpu_torch/ops/csrc/flash_attention.cu``;
+``ring_fwd_mma_kernel``, ``ring_dq_mma_kernel`` and ``ring_dkv_mma_kernel``
+in ``ring_attention.cu``), emulated in
 PyTorch on the CPU and held to the port's plain versions and to the JAX
 kernels in interpret mode, at the tolerances ``chip_smoke.py`` holds the
 kernels to on the card.
@@ -31,17 +31,17 @@ upcast operands does up to summation order):
   before dQ = dS K, dK = dS^T Q and dV = P^T dO, every cross product
   kept.
 
-The DP=256 builds of K4-K6 keep these rules and this split of every
-sum: K4 and K5 only read their Q and dO fragments from shared memory
-instead of registers, and K6's pair of warps per 16 key rows computes
-S^T and dP^T once each and gives each warp half of the columns of dK and
-dV, so every accumulator element gets the same products in the same
-order.
+The DP=256 builds keep these rules and this split of every sum: K4, K5,
+K7 and K8 only read their Q and dO fragments from shared memory instead
+of registers (K8 with an f32 dO also stages one K/V tile set, not two),
+and the pairs of warps of K6 and K9 per 16 key rows compute S^T and dP^T
+once each and give each warp half of the columns of dK and dV, so every
+accumulator element gets the same products in the same order.
 
 Inputs are seeded numpy draws at D=64 and D=128 (the kernels' two
-builds; K4-K6 also at D=256, their third), causal and full; T is ragged (not a multiple of the 64-row
-tile) against the plain versions and a multiple of 64 against JAX, whose
-kernels need whole blocks.
+narrower builds) and D=256 (the third), causal and full; T is ragged
+(not a multiple of the 64-row tile) against the plain versions and a
+multiple of 64 against JAX, whose kernels need whole blocks.
 """
 
 import importlib
@@ -198,7 +198,7 @@ def _assert_close(got, want, what):
 
 
 CASES = [(d, causal) for d in (64, 128) for causal in (True, False)]
-#: K4-K6 have a DP=256 build; K7-K9 stop at 128.
+#: With the DP=256 build.
 K456_CASES = CASES + [(256, causal) for causal in (True, False)]
 
 
@@ -336,7 +336,7 @@ def test_k5_rounding_matches_plain_version(d, causal, t):
 
 
 @pytest.mark.parametrize("tq,tk", [(100, 200), (200, 130)])
-@pytest.mark.parametrize("d,causal", CASES)
+@pytest.mark.parametrize("d,causal", K456_CASES)
 def test_k7_rounding_matches_plain_version(d, causal, tq, tk):
     """Tq != Tk, ragged tiles, random positions (any order), a carry
     with rows that have seen nothing."""
@@ -453,7 +453,7 @@ def test_ring_kernel_inputs_copy_only_what_lacks_alignment():
 # K8 and K9: the ring step's backward, f32 outputs
 # ----------------------------------------------------------------------
 
-#: kF32DoParts of flash_attention.cu: the bf16 parts of an f32 dO.
+#: kF32DoParts of ring_attention.cu: the bf16 parts of an f32 dO.
 F32_DO_PARTS = 3
 
 
@@ -553,7 +553,7 @@ K89_CASES = [("contiguous 1", 96, 96, True), ("contiguous 2", 96, 96, True),
 
 @pytest.mark.parametrize("dout", ["bf16", "f32"])
 @pytest.mark.parametrize("case", K89_CASES, ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}-{c[3]}")
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_k8_k9_rounding_matches_plain_version(d, case, dout):
     q, k, v, do, lse, delta, q_pos, k_pos, causal = _ring_case(case, d, dout, seed=d + case[1])
     scale = fa.default_scale(d)

@@ -39,6 +39,7 @@ import os
 import shutil
 import sys
 
+import jax
 import numpy as np
 import pytest
 
@@ -319,10 +320,20 @@ class Scenario:
         self.synced = names
 
     def train_steps(self, count, start):
+        """``count`` JAX train steps, each finished before the next is
+        dispatched.  The trainer's step is one program over 8 virtual CPU
+        devices with all-reduces, and XLA aborts the process when an
+        all-reduce's participants do not all arrive within 40 s: with a
+        long run of steps dispatched ahead on a loaded host, the devices'
+        tasks of different steps starved each other on XLA's thread pool
+        ("Termination timeout for `all reduce` ... Expected 8 threads to
+        join the rendezvous, but only 6 of them arrived", SIGABRT, in 2 of
+        19 runs of this file beside other CPU work)."""
         for k in range(count):
             feats, _ = self.batches[(start + k) % len(self.batches)]
             labels = jax_stream.feedback_labels(feats)
-            self.trainer.train_step(feats, labels.astype(self.ref.dtype).reshape(self.ref.shape))
+            jax.block_until_ready(self.trainer.train_step(
+                feats, labels.astype(self.ref.dtype).reshape(self.ref.shape)))
             for fleet in self.fleets.values():
                 fleet.drift.observe_train(feats)
 

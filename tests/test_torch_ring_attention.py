@@ -21,6 +21,22 @@ block is one block on both sides (the port blocks its online softmax by
   ring's bf16 output and gradients within 2 bf16 ulps (rtol 2**-7) plus
   2**-10 of the largest magnitude.
 - A fully masked step leaves the carry bit for bit.
+- The wide head dims of the DP=256 builds (136, 256) at B=1, T=32 on
+  16-row blocks and T=40 on 8-row blocks (the JAX kernels need whole
+  blocks, and the port's plain forward blocks its online softmax as
+  they do): the gradients as above; the f32 carry with the atol times
+  sqrt(D / 16), as ``test_torch_flash_attention.py`` scales it (a score
+  sums D products); the carry of bf16 inputs within ``chip_smoke.py``'s
+  RING_CARRY_TOL, 2 bf16 ulps (rtol 2**-7) plus 2**-10 of the largest
+  magnitude: scores summed over 136-256 products in two orders differ
+  by enough f32 ulps that some p round to the other bf16 neighbour
+  before P V (at D=136, 1.3% of the elements past the f32 tolerance,
+  the worst by 7.2e-5).
+- A head_dim that is no multiple of 8 (100) through the pad: each step
+  bit-equal to the unpadded computation; the ring, which pads once
+  before it, bit-equal in its output and within the gradient tolerance
+  above in its gradients (its delta = sum(dO * out) then sums 104
+  columns, four of them zero, in another order than 100).
 """
 
 import importlib
@@ -162,6 +178,111 @@ def test_step_bwd_gives_no_gradient_to_a_row_that_saw_no_key():
         jnp.asarray(k_pos), causal=True, scale=SCALE, interpret=True)
     for name, g, w in zip(("dk", "dv"), got[1:], want_kv[1:]):
         _assert_grad_close(g, w, name)
+
+
+WIDE = [(d, t, layout, dtype) for d in (136, 256)
+        for t, layout in ((32, "contiguous"), (40, "zigzag"))
+        for dtype in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("d,t,layout,dtype", WIDE)
+def test_wide_head_dim_step_matches_jax_kernels(d, t, layout, dtype):
+    """K7-K9's plain versions at the head dims of their DP=256 build
+    against the Pallas ring kernels (interpret mode) on one step of
+    shard 2 against shard 1's block (the carry from a non-trivial
+    state), on the same blocks."""
+    block = 16 if t % 16 == 0 else 8
+    q, k, v, do = _draw((1, H, t, d), seed=d + t, n=4)
+    acc = _draw((1, H, t, d), seed=d + t + 1, n=1)[0]
+    lse = _draw((1, H, t, 1), seed=d + t + 2, n=1)[0]
+    lse[:, 0, : t // 4], acc[:, 0, : t // 4] = fa.NEG_INF, 0.0
+    q_pos, k_pos = _positions(2, 1, layout, t)
+    scale = fa.default_scale(d)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    blocks = dict(block_q=block, block_k=block)
+    j_acc, j_lse = jfa.flash_ring_step_carry(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), jnp.asarray(acc), jnp.asarray(lse),
+        jnp.asarray(q_pos), jnp.asarray(k_pos), causal=True, scale=scale, interpret=True,
+        **blocks)
+    p_acc, p_lse = torch.from_numpy(acc.copy()), torch.from_numpy(lse.copy())
+    fa.flash_ring_step_carry(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)), p_acc, p_lse,
+                             q_pos, k_pos, causal=True, scale=scale, **blocks)
+    if dtype == "float32":
+        np.testing.assert_allclose(p_acc.numpy(), np.asarray(j_acc), rtol=F32_TOL["rtol"],
+                                   atol=F32_TOL["atol"] * np.sqrt(d / 16))
+    else:
+        _assert_bf16_close(p_acc.numpy(), np.asarray(j_acc), "acc")
+    np.testing.assert_allclose(p_lse.numpy(), np.asarray(j_lse), rtol=0, atol=LSE_ATOL)
+    f_lse = np.log(2.0 + np.abs(lse)) + 1.0  # a whole ring's final stats
+    delta = 0.3 * _draw((1, H, t, 1), seed=d + t + 3, n=1)[0]
+    want = jfa.flash_ring_step_bwd(
+        *(jnp.asarray(x, jdt) for x in (q, k, v)), jnp.asarray(do), jnp.asarray(f_lse),
+        jnp.asarray(delta), jnp.asarray(q_pos), jnp.asarray(k_pos), causal=True, scale=scale,
+        interpret=True, **blocks)
+    got = fa.flash_ring_step_bwd(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)),
+                                 torch.from_numpy(do), torch.from_numpy(f_lse),
+                                 torch.from_numpy(delta), q_pos, k_pos, causal=True,
+                                 scale=scale, **blocks)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and g.shape[-1] == d, name
+        _assert_grad_close(g, w, name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_pad_changes_nothing_on_the_ring(dtype):
+    """What the step wrappers do on the card for a head_dim that is no
+    multiple of 8 (100), run through the plain versions: q, the K/V
+    block, dO and the carry padded with zero columns
+    (``_ring_kernel_inputs``, ``_ring_kernel_dout``, ``_pad8``), ``scale``
+    from the true head_dim, the outputs sliced back, equal the unpadded
+    step bit for bit; and the ring itself, which pads once before it
+    (``ring_attention_pallas``), equals the unpadded ring bit for bit in
+    its output, and within the gradient tolerance in its gradients (its
+    delta sums 104 columns)."""
+    d, t = 100, 32
+    td = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(td) for x in _draw((B, H, t, d), seed=71, n=3))
+    do = torch.from_numpy(_draw((B, H, t, d), seed=72, n=1)[0])
+    acc, lse = (torch.from_numpy(x) for x in _carry_d(t, d, seed=73))
+    q_pos, k_pos = (torch.from_numpy(x) for x in _positions(2, 1, "zigzag", t))
+    scale = fa.default_scale(d)
+    qp, kp, vp = fa._ring_kernel_inputs(q, k, v)
+    dop = fa._ring_kernel_dout(do, qp)
+    assert qp.shape[-1] == dop.shape[-1] == 104 and not bool(dop[..., d:].any())
+    kw = dict(causal=True, scale=scale)
+    want = fa.flash_ring_step_carry_plain(q, k, v, acc.clone(), lse.clone(), q_pos, k_pos, **kw)
+    got = fa.flash_ring_step_carry_plain(qp, kp, vp, fa._pad8(acc), lse.clone(), q_pos, k_pos,
+                                         **kw)
+    assert not bool(got[0][..., d:].any())
+    assert torch.equal(got[0][..., :d], want[0]) and torch.equal(got[1], want[1])
+    f_lse, delta = want[1], torch.sum(do * want[0], dim=-1, keepdim=True)
+    want = fa.flash_ring_step_bwd_plain(q, k, v, do, f_lse, delta, q_pos, k_pos, **kw)
+    got = fa.flash_ring_step_bwd_plain(qp, kp, vp, dop, f_lse, delta, q_pos, k_pos, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert not bool(a[..., d:].any()), name
+        assert torch.equal(fa._unpad(a, d), b), name
+
+    x, y, g = (torch.from_numpy(a).to(td) for a in _draw((B, 2 * t, H, d), seed=74, n=3))
+    r = ring.Ring(N, range(N))
+    leaves = [a.clone().requires_grad_(True) for a in (x, y, y)]
+    out = ring.ring_attention_pallas(*leaves, ring=r, causal=True, layout="zigzag")
+    grads = torch.autograd.grad(out, leaves, g)
+    bare = [a.clone().requires_grad_(True) for a in (x, y, y)]
+    want = ring._RingFlash.apply(*bare, r, True, scale, "zigzag")
+    want_grads = torch.autograd.grad(want, bare, g)
+    assert out.shape[-1] == d and torch.equal(out, want)
+    for name, a, b in zip("qkv", grads, want_grads):
+        assert a.shape[-1] == d, name
+        if dtype == "float32":
+            _assert_grad_close(a.float(), b.float().numpy(), f"d{name}")
+        else:
+            _assert_bf16_close(a.float(), b.float().numpy(), f"d{name}")
+
+
+def _carry_d(t, d, seed):
+    acc, lse = _draw((B, H, t, d), seed, 1)[0], _draw((B, H, t, 1), seed + 1, 1)[0]
+    lse[:, 0, : t // 4], acc[:, 0, : t // 4] = fa.NEG_INF, 0.0
+    return acc, lse
 
 
 def test_uneven_shards_and_the_plain_blocking():

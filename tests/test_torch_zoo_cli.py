@@ -120,7 +120,8 @@ def test_build_renders_self_contained_context(tmp_path):
     assert "FROM my-torch-base:latest" in dockerfile
     assert "COPY elasticdl_tpu_torch/" in dockerfile and "COPY myzoo/" in dockerfile
     assert "python -m elasticdl_tpu_torch.master.main" in dockerfile
-    for rel in ("ops/csrc/flash_attention.cu", "ops/csrc/sparse_embedding.cu",
+    for rel in ("ops/csrc/flash_attention.cu", "ops/csrc/ring_attention.cu",
+                "ops/csrc/flash_common.cuh", "ops/csrc/sparse_embedding.cu",
                 "native/recordfile.cc", "master/pod_manager.py", "ops/_build.py"):
         assert (context / "elasticdl_tpu_torch" / rel).exists(), rel
     assert (context / "myzoo" / "my_model.py").exists()
