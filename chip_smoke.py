@@ -11,9 +11,10 @@ training phases 5-9 follow the serving phases 3-4):
    and the build of the hand-written kernels from ``ops/csrc``; each
    attention kernel's registers, shared memory, stack and spill bytes,
    and its count of tensor-core instructions (HMMA, HGMMA) in its SASS,
-   read with ``cuobjdump`` from the built library (a line says so where
-   cuobjdump is missing); the bf16 K4-K9 builds (K8 and K9 each for a
-   bf16 and an f32 dO) must hold HMMA or HGMMA; the registers, spills and
+   read with ``cuobjdump`` from the library's cubins, each dumped by
+   processes of its own (a line says so where cuobjdump is missing); the
+   bf16 K4-K9 builds (K8 and K9 each for a bf16 and an f32 dO) and the
+   f16 K4-K6 builds must hold HMMA or HGMMA; the registers, spills and
    local memory of the sparse kernels (K1-K3, K10; K2 per unit width)
    beside them.
 2. Each kernel against its plain PyTorch version on the card, on a
@@ -116,7 +117,7 @@ sequence sharded over a mesh's ``model`` axis):
     (tokens/s, median step, the CUDA-event breakdown with K7-K9's time in
     the step, peak memory); the loss must fall.
 16. From one state, 3 steps of the CP path against the one-card trainer
-    (K4-K6 on T=8192) on 2 rows of each batch (CP_GATE_BATCH): with f32
+    (K4-K6 on T=8192) on 1 row of each batch (CP_GATE_BATCH): with f32
     blocks at phase 12's tolerances; with
     bf16 blocks at CP_BF16_TOL, kernels on both sides and then, as the
     witness, the plain versions on both sides.
@@ -201,7 +202,7 @@ The continuous train -> serve loop (``serving/continuous.py``,
 24. In process: a ``DeltaExporter`` publishes a full, then deltas of 2
     steps each (event time = the step); a ``ServingReplica`` on the card
     is moved only by ``DeltaWatcher.poll_once()``: the first poll reloads
-    the full, then one applied link per poll for 3 links, the held-out
+    the full, then one applied link per poll for 2 links, the held-out
     logits within LOGIT_RTOL/LOGIT_ATOL of ``eval_step`` after each, 2 K2
     a dispatch; the fault run (``serving.delta_apply:error=injected@2``):
     link 2 rolls back, the same generation serves the same bits, the next
@@ -216,9 +217,9 @@ The continuous train -> serve loop (``serving/continuous.py``,
     from the compacted full, ``--pub_dir`` polled every 0.5 s,
     ``ELASTICDL_FAULTS=serving.delta_apply:error=injected@2``: once it is
     in ``live_replicas``, 8 closed-loop ``PredictClient``s send 8-row
-    requests while 3 deltas are published; after each, ``/stats`` reaches
-    its step and the held-out logits from ``/predict`` agree with
-    ``eval_step``; SIGTERM, exit 0 within 30 s.  Every request answered,
+    requests while 2 deltas are published (PHASE25_LINKS); after each,
+    ``/stats`` reaches its step and the held-out logits from ``/predict``
+    agree with ``eval_step``; SIGTERM, exit 0 within 30 s.  Every request answered,
     the last ``serving_telemetry`` with 0 errors, 0 shed and 0 dropped,
     ``model_swap`` applied per link with one rolled_back, no JAX or gRPC
     module loaded, 2 K2 launches per dispatch (the process's counts on
@@ -392,7 +393,7 @@ The bf16 LM head, the continuous job from a stream and the sparse
 optimizer's xla engines:
 
 35. The LM at phase 11's width with ``logits_compute="bf16"`` beside the
-    f32 head, each 20 timed steps from one seed: K4-K6 once per layer per
+    f32 head, each 10 timed steps (HEAD_STEPS) from one seed: K4-K6 once per layer per
     step; the bf16 head's logits (f32) within the bf16 operand-rounding
     bound of the f32 head on the same parameters and input (``head_bound``:
     ``(2**-7 + 2**-16 + 2 d 2**-24) * |x| @ |w|.T``); the cuBLAS bf16
@@ -611,6 +612,21 @@ host optimizer kernels:
     state 3 CP steps against the one-card LM (K4-K6's DP=256 builds on
     the whole sequence) at batch 1, with the plain versions on both
     sides as the witness, at phase 16's bf16 tolerances.
+51. K4-K6's float16 builds: each against its plain version at [2, 512,
+    4, D] for D 64, 128, 256 and 100 (through the pad), causal and full,
+    with dO at unit scale and at 2**-20 (the LM's gradient scale at batch
+    16 x 2048), within 2 f16 ulps plus 2**-12 of the largest magnitude
+    and no gradient entry zero where the plain version's is at least two
+    subnormal steps and 2**-12 of the largest magnitude from zero; K7-K9's
+    wrappers raise a TypeError naming them on float16 tensors; timed
+    at [16, 2048, 8, 64] and [8, 2048, 8, 256] causal beside the plain
+    version, the bound and SDPA at float16.  Then the LM at TRANSFORMER_BENCH's widths computing in
+    float16, built from a user's model module loaded by ``load_module``,
+    trained by ``DataParallelTrainer`` at batch 16 (2 warm-up and 5
+    timed steps: step ms, tokens/s, peak memory, a falling loss, K4-K6's
+    launches and in-step ms), and phase 12's gate at batch 2 at
+    F16_PATH_TOL, beside its witness: the two paths' gradients of the
+    loss times 2**12 within phase 12's 1e-2.
 
 A line before and after each group of phases (``[phase clock]``) gives
 the group's seconds and the run's total so far.
@@ -646,7 +662,8 @@ K4-K6 once per layer per model slot per step of phase 45 and once per
 layer per step of phase 46, in process and in its world of one; K2
 five times per step of phase 47 and never K1 or K3 there; K4-K6 once
 per layer per step of phase 49's LM and once per checked shape; K7-K9
-once per layer per ring step of phase 50's CP LM and K4-K6 never there)
+once per layer per ring step of phase 50's CP LM and K4-K6 never there; K4-K6 once
+per layer per step of phase 51's float16 LM and once per checked shape)
 fails the run.
 The line before the last holds the card's name and power limit, the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero, with no
@@ -668,6 +685,7 @@ import argparse
 import atexit
 import concurrent.futures
 import contextlib
+import glob
 import json
 import os
 import re
@@ -848,7 +866,11 @@ LM_BATCH = 16
 LM_LR = 3e-3
 #: Phase 11's timed steps.
 LM_STEPS = 10
+#: Phase 35's timed steps with each head.
+HEAD_STEPS = 10
 FLASH_SOURCE = "elasticdl_tpu_torch/ops/csrc/flash_attention.cu"
+#: The f16 builds of K4-K6: flash_mma.cuh's templates, instantiated here.
+FLASH_F16_SOURCE = "elasticdl_tpu_torch/ops/csrc/flash_attention_f16.cu"
 FLASH_REPLACES = {
     "flash_attention_fwd": "elasticdl_tpu/ops/flash_attention.py:54",
     "flash_attention_dq": "elasticdl_tpu/ops/flash_attention.py:129",
@@ -957,8 +979,9 @@ CP_SLOT_SHAPE = (CP_BATCH, CP_LM["seq_len"] // CP_MESH[1], CP_LM["num_heads"],
 CP_BF16_TOL = (LM_PATH_LOSS_RTOL, 2e-2, LM_PATH_PARAM_MAX, 1.1e-1)
 #: Phase 16 compares the two paths on the first CP_GATE_BATCH rows of the
 #: training batches (the readings above were taken at all 4; the plain
-#: witness at T=8192 costs ~13 s a layout at 4).
-CP_GATE_BATCH = 2
+#: witness at T=8192 costs ~13 s a layout at 4), as phase 50 does at
+#: head_dim 256.
+CP_GATE_BATCH = 1
 K3_HYPER = {
     "sgd": ("sgd", {"learning_rate": 0.01}),
     "momentum": ("momentum", {"learning_rate": 0.01, "momentum": 0.9, "nesterov": False}),
@@ -1035,11 +1058,11 @@ def import_port():
 # phase 1: what the attention kernels were compiled to
 # ----------------------------------------------------------------------
 
-#: The bf16 builds of K4-K9 run on the tensor cores (mma.sync): their
-#: SASS must hold HMMA (or wgmma's HGMMA).  Each has a DP=256 build, K6's
-#: and K9's with a pair of warps for each 16 key rows.  K8 and K9 are
-#: built for each count of dO parts: 1 (a bf16 dO, the CP path's) and 3
-#: (an f32 dO split three ways, kF32DoParts).
+#: The bf16 builds of K4-K9 and the f16 builds of K4-K6 run on the tensor
+#: cores (mma.sync): their SASS must hold HMMA (or wgmma's HGMMA).  Each
+#: has a DP=256 build, K6's and K9's with a pair of warps for each 16 key
+#: rows.  K8 and K9 are built for each count of dO parts: 1 (a bf16 dO,
+#: the CP path's) and 3 (an f32 dO split three ways, kF32DoParts).
 TENSOR_CORE_BUILDS = tuple(
     [f"{name}<bf16, {dp}>" for name in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
                                          "flash_dkv_mma_kernel", "ring_fwd_mma_kernel")
@@ -1050,9 +1073,14 @@ TENSOR_CORE_BUILDS = tuple(
        for dp in (64, 128) for parts in (1, 3)]
     + [f"{name}<bf16, 256, {parts}>" for name in ("ring_dq_mma_kernel",
                                                   "ring_dkv_mma_pair_kernel")
-       for parts in (1, 3)])
+       for parts in (1, 3)]
+    + [f"{name}<f16, {dp}>" for name in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
+                                        "flash_dkv_mma_kernel") for dp in (64, 128)]
+    + [f"{name}<f16, 256>" for name in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
+                                       "flash_dkv_mma_pair_kernel")])
 _KERNEL_LABEL = re.compile(
-    r"((?:flash|ring)_[a-z_]*kernel)I(13__nv_bfloat16|f)?Li(\d+)E(?:Li(\d+)E)?")
+    r"((?:flash|ring)_[a-z_]*kernel)I(13__nv_bfloat16|6__half|f)?Li(\d+)E(?:Li(\d+)E)?")
+_LABEL_DTYPE = {"f": "f32", "6__half": "f16"}
 
 
 def kernel_label(mangled: str):
@@ -1061,7 +1089,7 @@ def kernel_label(mangled: str):
     m = _KERNEL_LABEL.search(mangled)
     if m is None:
         return None
-    dtype = "f32" if m.group(2) == "f" else "bf16"
+    dtype = _LABEL_DTYPE.get(m.group(2), "bf16")
     parts = f", {m.group(4)}" if m.group(4) else ""
     return f"{m.group(1)}<{dtype}, {m.group(3)}{parts}>"
 
@@ -1121,16 +1149,27 @@ def parse_sass_mma(text: str):
 
 
 def start_resource_dumps(lib_path: str):
-    """cuobjdump's resource usage and SASS of the built library, both
-    started now on threads (they take seconds of host time, which the
-    phases after the build overlap); None where cuobjdump is missing."""
+    """cuobjdump's resource usage and SASS of the built library, started
+    now on threads (they take seconds of host time, which the phases
+    after the build overlap): the library's cubins (one a source) are
+    extracted first and each is dumped by processes of its own, so the
+    sources' dumps run side by side.  -> (resource-usage futures, SASS
+    futures); None where cuobjdump is missing."""
     tool = cuobjdump_path()
     if tool is None:
         return None
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=2)
-    dumps = [pool.submit(subprocess.run, [tool, flag, lib_path], check=True,
-                         capture_output=True, text=True, timeout=300)
-             for flag in ("--dump-resource-usage", "-sass")]
+    cubins = tempfile.mkdtemp(prefix="chip_smoke_cubins_")
+    atexit.register(shutil.rmtree, cubins, True)
+    subprocess.run([tool, "-xelf", "all", lib_path], cwd=cubins, check=True,
+                   capture_output=True, timeout=300)
+    paths = sorted(glob.glob(os.path.join(cubins, "*.cubin")))
+    if not paths:
+        fail(f"cuobjdump extracted no cubin from {lib_path}")
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=2 * len(paths))
+    dumps = tuple([pool.submit(subprocess.run, [tool, flag, path], check=True,
+                               capture_output=True, text=True, timeout=300)
+                   for path in paths]
+                  for flag in ("--dump-resource-usage", "-sass"))
     pool.shutdown(wait=False)
     return dumps
 
@@ -1139,14 +1178,14 @@ def attention_resources(dumps, build_log: str):
     """Registers, shared memory, spills and tensor-core instructions of
     every attention kernel in the built library, by label, from
     ``start_resource_dumps``; None, with a line that says so, where
-    cuobjdump is missing.  Fails if a bf16 K4-K9 build holds no
-    HMMA/HGMMA."""
+    cuobjdump is missing.  Fails if a bf16 K4-K9 build or an f16 K4-K6
+    build holds no HMMA/HGMMA."""
     if dumps is None:
         log("  attention kernels' resources: cuobjdump not found (neither beside nvcc "
             "nor on PATH): registers and SASS not read")
         return None
-    usage = parse_resource_usage(dumps[0].result().stdout)
-    sass = parse_sass_mma(dumps[1].result().stdout)
+    usage, sass = ({k: v for dump in futures for k, v in parse(dump.result().stdout).items()}
+                   for futures, parse in zip(dumps, (parse_resource_usage, parse_sass_mma)))
     spills = parse_ptxas_spills(build_log)
     found = {}
     for mangled, use in sorted(usage.items()):
@@ -2225,16 +2264,24 @@ def attention_ops(b, t, h, d, causal):
 
 
 def attention_close(name, got, want, tol=None):
-    """Fail unless |got - want| <= rtol |want| + atol_share max|want|
-    elementwise, ``tol = (rtol, atol_share)`` (default: ATTN_* for bf16,
-    ATTN_F32_* for f32); returns the max abs difference."""
+    """Fail unless |got - want| <= max(rtol |want|, floor) + atol_share
+    max|want| elementwise, ``tol = (rtol, atol_share)`` with floor 0
+    (default: ATTN_* for bf16, ATTN_F32_* for f32, ATTN_F16_* with
+    F16_ULP_FLOOR for f16); returns the max abs difference."""
     import torch
 
-    rtol, share = tol or ((ATTN_F32_RTOL, ATTN_F32_ATOL_SHARE) if want.dtype == torch.float32
-                          else (ATTN_RTOL, ATTN_ATOL_SHARE))
+    floor = 0.0
+    if tol is not None:
+        rtol, share = tol
+    elif want.dtype == torch.float32:
+        rtol, share = ATTN_F32_RTOL, ATTN_F32_ATOL_SHARE
+    elif want.dtype == torch.float16:
+        rtol, share, floor = ATTN_F16_RTOL, ATTN_F16_ATOL_SHARE, F16_ULP_FLOOR
+    else:
+        rtol, share = ATTN_RTOL, ATTN_ATOL_SHARE
     got, want = got.float(), want.float()
     diff = (got - want).abs()
-    limit = rtol * want.abs() + share * float(want.abs().max())
+    limit = (rtol * want.abs()).clamp_min(floor) + share * float(want.abs().max())
     excess = float((diff - limit).max())
     if not excess <= 0.0:
         fail(f"{name}: kernel differs from its plain version past the tolerance "
@@ -2262,8 +2309,10 @@ def sdpa_ms(q, k, v, do, causal, flush):
 
 def check_attention(fa, q, k, v, do, causal, shape):
     """K4, then K5 and K6 on the plain forward's out/lse, against the
-    plain versions; fails past the tolerances.  Returns (max abs error
-    per kernel, the plain forward's (out, lse), delta)."""
+    plain versions; fails past the tolerances and, in f16, where a
+    gradient is flushed to zero that the plain version's is not
+    (f16_zero_flushes).  Returns (max abs error per kernel, the plain
+    forward's (out, lse), delta)."""
     import torch
 
     scale = fa.default_scale(q.shape[-1])
@@ -2281,6 +2330,12 @@ def check_attention(fa, q, k, v, do, causal, shape):
     if not lse_err <= LSE_ATOL:
         fail(f"flash_attention_fwd lse differs from its plain version by {lse_err!r} "
              f"at {shape}")
+    if q.dtype == torch.float16:
+        flushed = {name: f16_zero_flushes(got, want)
+                   for name, got, want in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p))}
+        if any(flushed.values()):
+            fail(f"{shape}: f16 gradients flushed to zero where the plain version's are not: "
+                 f"{flushed}")
     errs = {
         "flash_attention_fwd": max(attention_close(f"out {shape}", out, out_p), lse_err),
         "flash_attention_dq": attention_close(f"dq {shape}", dq, dq_p),
@@ -4171,8 +4226,8 @@ def check_served(replica, loop: LoopTrainer, what: str, card: str) -> dict:
 def continuous_loop_phase(card: str, loop: LoopTrainer, workdir: str):
     """Phase 24: a DeltaExporter publishes a full and deltas of 2 steps
     (event time = the step) while a ServingReplica on the card is moved
-    only by DeltaWatcher.poll_once(): the clean run (the full, then 3
-    links, each within LOGIT_RTOL of eval_step, 2 K2 a dispatch), the
+    only by DeltaWatcher.poll_once(): the clean run (the full, then
+    PHASE24_CLEAN_LINKS links, each within LOGIT_RTOL of eval_step, 2 K2 a dispatch), the
     fault run (``serving.delta_apply:error=injected@2``: link 2 rolls
     back, the same generation serves the same bits, the next poll applies
     it) and the canary gate (256 labeled held-out rows: the delta of the
@@ -4230,7 +4285,7 @@ def continuous_loop_phase(card: str, loop: LoopTrainer, workdir: str):
             Timed(ServingReplica, "commit_generation") as commit, \
             Timed(ServingReplica, "shadow_execute") as shadow, \
             Timed(ServingReplica, "reload") as reload:
-        # The clean run: the full, then three links.
+        # The clean run: the full, then PHASE24_CLEAN_LINKS links.
         loop.train(2)
         t0 = time.perf_counter()
         full = exporter.publish_full(trainer, event_time=float(trainer.step))
@@ -4238,7 +4293,7 @@ def continuous_loop_phase(card: str, loop: LoopTrainer, workdir: str):
         if not poll()["reloaded_full"]:
             fail(f"the first poll did not reload the full: {summaries[-1]}")
         clean_counts = [check_served(replica, loop, "after the full", card)]
-        for _ in range(3):
+        for _ in range(PHASE24_CLEAN_LINKS):
             publish()
             if poll()["applied_deltas"] != 1:
                 fail(f"a poll applied {summaries[-1]['applied_deltas']} links, not 1")
@@ -4298,7 +4353,7 @@ def continuous_loop_phase(card: str, loop: LoopTrainer, workdir: str):
     swaps = journal_events(journal, "model_swap")
     gates = journal_events(journal, "quality_gate")
     outcomes = [(e["kind"], e["outcome"]) for e in swaps]
-    want = ([("full", "applied")] + [("delta", "applied")] * 4
+    want = ([("full", "applied")] + [("delta", "applied")] * (PHASE24_CLEAN_LINKS + 1)
             + [("delta", "rolled_back"), ("delta", "applied"), ("delta", "applied")])
     if outcomes != want:
         fail(f"model_swap events {outcomes}, want {want}")
@@ -4348,8 +4403,9 @@ def replica_process_phase(card: str, loop: LoopTrainer, exporter, full: str, pub
     """Phase 25: ``python -m elasticdl_tpu_torch.serving.replica_main`` on
     the card from the compacted full, tracking ``pub`` every 0.5 s with
     ``serving.delta_apply:error=injected@2`` in its environment; 8
-    closed-loop PredictClients send 8-row requests throughout while 3
-    deltas are published; after each, /stats reaches the step and the
+    closed-loop PredictClients send 8-row requests throughout while
+    PHASE25_LINKS deltas are published (the second apply fails once and
+    is retried); after each, /stats reaches the step and the
     held-out logits from /predict agree with eval_step; SIGTERM ends it
     with exit 0 within 30 s."""
     import numpy as np
@@ -4428,7 +4484,7 @@ def replica_process_phase(card: str, loop: LoopTrainer, exporter, full: str, pub
         for t in threads:
             t.start()
         links = []
-        for _ in range(3):
+        for _ in range(PHASE25_LINKS):
             loop.train(2)
             link = exporter.publish_delta(trainer, event_time=float(trainer.step))
             t_pub = time.time()
@@ -6333,7 +6389,7 @@ def head_times(head, x, grad, flush):
     return median_ms(forward, flush), median_ms(backward, flush)
 
 
-def lm_bf16_head_phase(card: str, seed: int, warmup: int = 2, steps: int = 20,
+def lm_bf16_head_phase(card: str, seed: int, warmup: int = 2, steps: int = HEAD_STEPS,
                        n_batches: int = 4):
     """Phase 35: the LM at phase 11's width with ``logits_compute="bf16"``
     against the f32 head, each trained ``steps`` steps from one seed."""
@@ -6977,11 +7033,18 @@ OBS_GOODPUT_TARGET = 0.5
 #: the demangled symbol, e.g. ``void lookup_kernel<4>(...)``): K2 and K3,
 #: twice each a step (PERF.md §6).
 PROFILED_KERNELS = {"fused_lookup": "lookup_kernel", "fused_dedup_apply": "dedup_apply_kernel"}
+#: Phase 24's clean links (each published, polled and checked), before
+#: its fault run and its canary gate.
+PHASE24_CLEAN_LINKS = 2
+#: Phase 25's deltas published under traffic: the fault of its
+#: environment fails the second apply once.
+PHASE25_LINKS = 2
 #: Phase 39's p99 SLO is 4x phase 25's p99; without phase 25 in the run,
 #: the highest p99 phase 25 has shown (74 ms on an NVIDIA H100 80GB HBM3,
 #: 700.00 W: PERF.md §5).
 PHASE25_P99_MS = 74.0
-TRACED_SECONDS = 8.0
+#: Phase 39's seconds of traced traffic (~2,900 requests, ~360 sampled).
+TRACED_SECONDS = 4.0
 TRACE_HEAD_EVERY = 8
 
 
@@ -8251,11 +8314,12 @@ FLASH_LM_BUILDS = {
 
 
 def flash_entries(attention, edges, train, card, resources=None, resumed=None, heads=None,
-                  tp=None, fsdp=None, wide=None):
+                  tp=None, fsdp=None, wide=None, f16=None):
     """The K4-K6 entries of the kernels line: numbers at the LM's shape
     (the first of ATTN_SHAPES), the other shapes beside them, the
     launches and in-step times of the TP and FSDP paths, and the DP=256
-    build's numbers at the head_dim-256 LM's shape (phase 49)."""
+    build's numbers at the head_dim-256 LM's shape (phase 49); then, with
+    phase 51's ``f16``, an entry for each f16 build (flash_f16_entries)."""
     line = []
     for name in FLASH_REPLACES:
         main_shape = attention[0]["kernels"][name]
@@ -8267,7 +8331,7 @@ def flash_entries(attention, edges, train, card, resources=None, resumed=None, h
             by_path["lm_resumed_2_steps"] = resumed["launches_resumed_2_steps"][name]
         if heads is not None:
             for head in ("f32", "bf16"):
-                by_path[f"lm_{head}_head_20_steps"] = heads[head]["launches"][name]
+                by_path[f"lm_{head}_head_{HEAD_STEPS}_steps"] = heads[head]["launches"][name]
         if tp is not None:
             by_path[f"lm_tensor_parallel_{TP_STEPS}_steps (mesh {TP_MESH}, "
                     f"{tp['launches_per_step']} a step)"] = tp["launches"][name]
@@ -8310,6 +8374,37 @@ def flash_entries(attention, edges, train, card, resources=None, resumed=None, h
                 "shapes_max_abs_err": {shape: errs[name]
                                        for shape, errs in wide["shapes"].items()},
             },
+            "card": card,
+        })
+    return line + ([] if f16 is None else flash_f16_entries(f16, card, resources))
+
+
+def flash_f16_entries(f16, card, resources=None):
+    """K4-K6's f16 builds as entries of their own (phase 51): timed at
+    phase 10's main shape (the other timed shape beside it), launched on
+    the float16 LM's path, SDPA at float16 as the library call."""
+    line = []
+    for name in FLASH_REPLACES:
+        main_shape, *others = f16["timed"]
+        r = main_shape["kernels"][name]
+        line.append({
+            "name": f"{name} (float16)", "ok": True, "route": "cuda", "source": FLASH_F16_SOURCE,
+            "replaces": FLASH_REPLACES[name],
+            "launches": f16["lm"]["launches_steps"][name],
+            "launches_by_path": {
+                f"lm_float16_{F16_STEPS}_steps": f16["lm"]["launches_steps"][name]},
+            "max_abs_err": max(errs[name] for errs in f16["shapes"].values()),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "tflop_per_s": r["tflop_per_s"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library": ("F.scaled_dot_product_attention forward, float16"
+                        if name == "flash_attention_fwd" else
+                        "F.scaled_dot_product_attention backward (dq, dk, dv together), float16"),
+            "shape": main_shape["shape"],
+            "other_shapes": {e["shape"]: e["kernels"][name] for e in others},
+            "builds": FLASH_F16_BUILDS[name],
+            "resources": {build: (resources or {}).get(build) for build in FLASH_F16_BUILDS[name]},
+            "train_step_kernel_ms": f16["lm"]["breakdown_ms"]["kernel_ms"][name],
+            "shapes_max_abs_err": {shape: errs[name] for shape, errs in f16["shapes"].items()},
             "card": card,
         })
     return line
@@ -10061,6 +10156,288 @@ def cp_wide_lm_phase(card: str, seed: int):
     return result
 
 
+# ----------------------------------------------------------------------
+# phase 51: K4-K6's float16 builds, driven by the LM built at float16
+# ----------------------------------------------------------------------
+
+#: Kernel against plain version, float16 outputs: phase 10's rule in f16
+#: ulps.  Both compute the same f32 values in another summation order, so
+#: a value near a rounding boundary lands on either f16 neighbour: within
+#: 2 f16 ulps (rtol 2**-10; below f16's normal range, whose ulp is the
+#: subnormal step 2**-24, 2 steps: F16_ULP_FLOOR) plus ATTN_F16_ATOL_SHARE
+#: of the tensor's largest magnitude (terms of both signs, rounded in f32
+#: relative to the terms; P rounded to f16 an f32 ulp apart, as bf16's
+#: 2**-10 share covers for bf16 P, at 8 times f16's finer step).
+ATTN_F16_RTOL, ATTN_F16_ATOL_SHARE, F16_ULP_FLOOR = 2.0 ** -10, 2.0 ** -12, 2.0 ** -23
+#: dO's scales in phase 51's checks: unit, and 2**-20 (~9.5e-7), the
+#: LM's attention gradients at batch 16 x 2048 (the loss is a mean over
+#: 32,768 tokens: a median |dO| near 1e-6, mostly subnormal in f16).
+F16_DO_SCALES = (1.0, 2.0 ** -20)
+#: Checked (B, T, H, D, causal): the three builds (DP 64, 128, 256) and
+#: head_dim 100 through the pad to 104, causal and full, at each scale.
+F16_CHECK_SHAPES = tuple((2, 512, 4, d, causal) for d in (64, 128, 256, 100)
+                         for causal in (True, False))
+#: Timed (B, T, H, D, causal): phase 10's main shape and phase 49's.
+F16_TIMED_SHAPES = ((16, 2048, 8, 64, True), (8, 2048, 8, 256, True))
+#: The float16 LM: TRANSFORMER_BENCH's widths at phase 11's batch and
+#: AdamW, reached as a user reaches JAX's TransformerLM(dtype=float16):
+#: from their own model module (F16_ZOO_SOURCE), loaded by
+#: ``common/model_utils.load_module``.
+F16_WARMUP, F16_STEPS, F16_BATCHES = 2, 5, 4
+#: Phase 12's gate (kernel path against plain path) at this batch.
+F16_PATH_BATCH = 2
+#: The f16 network carries its activation gradients in f16, whose
+#: subnormal step (6e-8) is a large part of a gradient at this LM's scale
+#: (~1e-5 at the gate's 4,096 tokens): where the two paths' K4-K6 outputs
+#: round to neighbouring f16 values (phase 51's kernel rule), every later
+#: f16 rounding of a gradient a few steps wide can land one step apart,
+#: a relative change of a third to a half of that element.  On an H100
+#: (700 W) the paths' gradients read 4.1e-2 (relative L2, Embed_0) and
+#: the updates 2.2e-2 after 3 steps, past phase 12's bf16 limits (1e-2,
+#: 2e-2); losses 3.1e-6, parameters within 7.2e-3.  Held to (losses,
+#: gradients, every parameter, updates): phase 12's loss and parameter
+#: limits, and twice the readings, rounded up, for gradients and updates.
+#: The witness of the cause (F16_WITNESS_SCALE): the same two paths'
+#: gradients from one state with the loss scaled by 2**12, which lifts
+#: the gradients into f16's normal range, held to phase 12's 1e-2 (read
+#: 4.7e-4 on that H100).
+F16_PATH_TOL = (LM_PATH_LOSS_RTOL, 1e-1, LM_PATH_PARAM_MAX, 5e-2)
+F16_WITNESS_SCALE = 2.0 ** 12
+F16_ZOO, F16_MODEL_DEF = "f16_lm_zoo", "transformer_lm_f16"
+F16_ZOO_SOURCE = '''"""The repo's transformer LM computing in float16, its parameters f32
+(as flax keeps them): what JAX's ``TransformerLM(dtype=jnp.float16)`` is
+in a user's own module, since the zoo's ``custom_model`` offers bf16 or
+f32 only."""
+
+import torch
+
+from elasticdl_tpu_torch.common.device import resolve_device
+from elasticdl_tpu_torch.zoo.transformer_lm import TransformerLM, loss, optimizer  # noqa: F401
+
+
+def custom_model(vocab=256, d_model=128, num_heads=4, num_layers=2, max_len=4096,
+                 device=None):
+    return TransformerLM(vocab=vocab, d_model=d_model, num_heads=num_heads,
+                         num_layers=num_layers, max_len=max_len, dtype=torch.float16,
+                         device=resolve_device(device))
+'''
+#: The build of each of K4-K6 on the float16 LM's path (head_dim 64), and
+#: at phase 49's head_dim 256.
+FLASH_F16_BUILDS = {
+    "flash_attention_fwd": ("flash_fwd_mma_kernel<f16, 64>", "flash_fwd_mma_kernel<f16, 256>"),
+    "flash_attention_dq": ("flash_dq_mma_kernel<f16, 64>", "flash_dq_mma_kernel<f16, 256>"),
+    "flash_attention_dkv": ("flash_dkv_mma_kernel<f16, 64>",
+                            "flash_dkv_mma_pair_kernel<f16, 256>"),
+}
+
+
+def write_f16_zoo(directory: str) -> str:
+    """A user's model zoo holding F16_ZOO_SOURCE as F16_MODEL_DEF, under
+    ``directory``; returns the zoo's path (``--model_zoo``)."""
+    zoo_dir = os.path.join(directory, F16_ZOO)
+    os.makedirs(zoo_dir, exist_ok=True)
+    with open(os.path.join(zoo_dir, "__init__.py"), "w"):
+        pass
+    with open(os.path.join(zoo_dir, F16_MODEL_DEF + ".py"), "w") as f:
+        f.write(F16_ZOO_SOURCE)
+    return zoo_dir
+
+
+def f16_zero_flushes(got, want) -> int:
+    """Entries where the kernel's value is zero and the plain version's
+    is not, counted where the plain value is at least F16_ULP_FLOOR (two
+    subnormal steps: one step may round to zero from the other side of
+    half a step) and ATTN_F16_ATOL_SHARE of the tensor's largest (below
+    that an entry is the f32 rounding noise of a sum whose exact value is
+    0, such as dS of a causal row that sees one key): an f16 path that
+    flushes small gradients fails here."""
+    want = want.float().abs()
+    floor = max(F16_ULP_FLOOR, ATTN_F16_ATOL_SHARE * float(want.max()))
+    return int(((want >= floor) & (got == 0)).sum())
+
+
+def f16_attention_checks(fa, gen, dev, card):
+    """K4-K6's f16 builds against their plain versions at
+    F16_CHECK_SHAPES, with dO at each of F16_DO_SCALES: the f16 rule
+    (ATTN_F16_*, LSE_ATOL) and no gradient flushed to zero where the
+    plain version's is not (f16_zero_flushes); each check launches each
+    kernel once.  -> {shape: max abs errors}."""
+    import torch
+
+    results = {}
+    for b, t, h, d, causal in F16_CHECK_SHAPES:
+        q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=dev) for _ in range(4))
+        q, k, v = (x.to(torch.float16) for x in (q, k, v))
+        for do_scale in F16_DO_SCALES:
+            shape = (f"B={b} T={t} H={h} D={d} float16 {'causal' if causal else 'full'}, dO x "
+                     f"{do_scale!r}")
+            fa.reset_launch_counts()
+            errs, _, _ = check_attention(fa, q, k, v, (do * do_scale).to(torch.float16),
+                                         causal, shape)
+            if any(fa.launch_counts()[name] != 1 for name in fa.KERNELS):
+                fail(f"{shape}: one check launched {fa.launch_counts()}")
+            results[shape] = errs
+        del q, k, v, do
+    worst = {name: max(e[name] for e in results.values()) for name in fa.KERNELS}
+    log(f"kernels K4-K6 (f16 builds) at {len(F16_CHECK_SHAPES)} shapes x dO scales "
+        f"{F16_DO_SCALES}: within tolerance, no gradient flushed to zero; max abs errors "
+        f"{worst} [{card}]")
+    return results
+
+
+def f16_ring_refusal(fa, dev, card):
+    """K7-K9's wrappers on float16 tensors on the card: each raises a
+    TypeError naming K7-K9 (they have no f16 build, and nothing falls
+    back to the plain versions) and launches nothing."""
+    import torch
+
+    q = torch.zeros((1, 1, 64, 64), dtype=torch.float16, device=dev)
+    acc = torch.zeros((1, 1, 64, 64), dtype=torch.float32, device=dev)
+    rows = torch.zeros((1, 1, 64), dtype=torch.float32, device=dev)
+    pos = torch.arange(64, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, scale=fa.default_scale(64))
+    calls = {
+        "flash_ring_step_carry": lambda: fa.flash_ring_step_carry(
+            q, q, q, acc, rows[..., None].clone(), pos, pos, **kw),
+        "flash_ring_step_dq": lambda: fa.flash_ring_step_dq(q, q, q, q, rows, rows, pos, pos,
+                                                            **kw),
+        "flash_ring_step_dkv": lambda: fa.flash_ring_step_dkv(q, q, q, q, rows, rows, pos, pos,
+                                                              **kw),
+    }
+    fa.reset_launch_counts()
+    for name, call in calls.items():
+        try:
+            call()
+        except TypeError as exc:
+            if "K7-K9" not in str(exc):
+                fail(f"{name} on float16 raised {exc!r}, which does not name K7-K9")
+            continue
+        fail(f"{name} took float16 tensors on the card")
+    if any(fa.launch_counts().values()):
+        fail(f"the refused float16 ring calls launched {fa.launch_counts()}")
+    log(f"K7-K9's wrappers refuse float16 on the card with a TypeError naming them [{card}]")
+
+
+def f16_scaled_witness(trainer, staged, card):
+    """The kernel path's and the plain path's gradients from the
+    trainer's state with the loss times F16_WITNESS_SCALE (the gradients
+    in f16's normal range), held to phase 12's LM_PATH_GRAD_RTOL: what
+    phase 51's gate allows beyond that is f16's subnormal rounding.  The
+    port has no loss scaling; this multiplies the loss here only.  ->
+    {parameter: relative L2}."""
+    grads = []
+    for context in (contextlib.nullcontext, plain_attention):
+        with context():
+            grads.append(trainer.backward(trainer.forward(*staged) * F16_WITNESS_SCALE))
+    rel = {name: rel_l2(grads[0][name], g) for name, g in grads[1].items()}
+    worst = max(rel, key=rel.get)
+    what = (f"float16 LM kernel path vs plain path, gradients of the loss x "
+            f"{F16_WITNESS_SCALE!r} (the witness): max rel L2 {rel[worst]!r} ({worst})")
+    if not rel[worst] <= LM_PATH_GRAD_RTOL:
+        fail(what)
+    log(f"{what} [{card}]")
+    return rel
+
+
+def f16_lm_phase(card: str, seed: int, workdir: str):
+    """Phase 51: K4-K6's float16 builds held to their plain versions
+    (f16_attention_checks), K7-K9's refusal of float16 (f16_ring_refusal),
+    K4-K6 timed at F16_TIMED_SHAPES beside their bounds and SDPA at
+    float16; then the float16 LM at TRANSFORMER_BENCH's widths, built from a user's module (F16_ZOO_SOURCE, loaded by
+    ``load_module``) and trained by DataParallelTrainer: F16_WARMUP +
+    F16_STEPS steps of LM_BATCH (step ms, tokens/s, peak memory, K4-K6 4
+    times a step and their in-step ms, a falling loss), and phase 12's
+    gate at F16_PATH_BATCH and F16_PATH_TOL with its witness
+    (f16_scaled_witness)."""
+    import torch
+
+    from elasticdl_tpu_torch.common.model_utils import load_module
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+    from elasticdl_tpu_torch.zoo import build_model
+
+    t_phase = time.perf_counter()
+    dev = card_device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 51)
+    result = {"shapes": f16_attention_checks(fa, gen, dev, card), "timed": []}
+    f16_ring_refusal(fa, dev, card)
+    seconds = {"checks": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32, device=dev)
+    for b, t, h, d, causal in F16_TIMED_SHAPES:
+        shape = f"B={b} T={t} H={h} D={d} float16 {'causal' if causal else 'full'}"
+        q, k, v, do = (torch.randn((b, t, h, d), generator=gen, device=dev).to(torch.float16)
+                       for _ in range(4))
+        errs, (_, lse_p), delta = check_attention(fa, q, k, v, do, causal, shape)
+        result["timed"].append(attention_times(fa, q, k, v, do, causal, lse_p, delta, shape,
+                                               errs, card, flush))
+        del q, k, v, do, lse_p, delta
+    del flush
+    torch.cuda.empty_cache()
+    seconds["timing"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    cfg, batch = LM_BENCH, LM_BATCH
+    zoo_dir = write_f16_zoo(workdir)
+    module = load_module(zoo_dir, F16_MODEL_DEF)
+    model = build_model(F16_MODEL_DEF, lm_params(cfg), model_zoo=zoo_dir)  # on the card
+    dtypes = {p.dtype for p in model.parameters()}
+    if model.Embed_0.compute_dtype != torch.float16 or dtypes != {torch.float32}:
+        fail(f"the user module's LM computes in {model.Embed_0.compute_dtype} with parameters "
+             f"{dtypes}, not float16 with float32")
+    trainer = DataParallelTrainer(model, module.loss, module.optimizer(LM_LR), seed=seed)
+    if trainer.device != dev:
+        fail(f"DataParallelTrainer's default device is {trainer.device}, not {dev}")
+    trainer.ensure_initialized()
+    batches = lm_batches(seed, F16_BATCHES, batch, cfg)
+    staged = [trainer.stage_batch(*x) for x in batches]
+    losses, step_ms, wall, peak = timed_steps(trainer, staged, F16_WARMUP, F16_STEPS)
+    counts = fa.launch_counts()
+    want = cfg["num_layers"] * F16_STEPS
+    for name in fa.KERNELS:
+        if counts[name] != want:
+            fail(f"{name} launched {counts[name]} times in {F16_STEPS} steps of the float16 LM "
+                 f"(want {want})")
+    first, last = loss_falls("the float16 LM", losses)
+    parts = lm_time_parts(trainer, staged[0])
+    train = {
+        "model_def": f"{F16_ZOO}.{F16_MODEL_DEF}", "batch": batch, "seq_len": cfg["seq_len"],
+        "tokens_per_s": F16_STEPS * batch * cfg["seq_len"] / wall,
+        "step_ms_median": step_ms[len(step_ms) // 2], "step_ms": step_ms,
+        "losses": losses, "peak_memory_gb": peak / 1e9, "launches_steps": counts,
+        "launches_per_step": {name: counts[name] / F16_STEPS for name in fa.KERNELS},
+        "breakdown_ms": parts,
+    }
+    log(f"float16 LM ({F16_ZOO}.{F16_MODEL_DEF} by load_module): {F16_STEPS} steps of "
+        f"{batch}x{cfg['seq_len']}: {train['tokens_per_s']!r} tokens/s, step median "
+        f"{train['step_ms_median']!r} ms (device, CUDA events); loss {first!r} -> {last!r} "
+        f"({losses}); launches {counts}; peak {peak / 1e9!r} GB [{card}]")
+    log("float16 LM step's attention kernels (device ms in one step, CUDA events): "
+        + ", ".join(f"{name} {ms!r}" for name, ms in parts["kernel_ms"].items())
+        + f"; {parts['attention_kernels']!r} of {parts['step']!r} [{card}]")
+    del staged
+    torch.cuda.empty_cache()
+    seconds["lm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    cut = F16_PATH_BATCH
+    small = [trainer.stage_batch(t[:cut], n[:cut], m[:cut]) for t, n, m in batches[:3]]
+    train["scaled_witness"] = f16_scaled_witness(trainer, small[0], card)
+    train["path"] = lm_compare((trainer, contextlib.nullcontext), (trainer, plain_attention),
+                               small, card, f"float16 LM kernel path vs plain path (batch {cut})",
+                               F16_PATH_TOL)
+    del trainer, small, model
+    torch.cuda.empty_cache()
+    result["lm"] = train
+    seconds["gate"] = time.perf_counter() - t0
+    result["seconds"] = time.perf_counter() - t_phase
+    result["seconds_by_part"] = seconds
+    log(f"phase 51 in {result['seconds']:.1f} s ({seconds}) [{card}]")
+    result["card"] = card
+    return result
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -10222,6 +10599,13 @@ def main() -> None:
     host_kernels = timed_phase((48,), native_kernels_phase, card, args.seed) if run(48) else None
     wide = timed_phase((49,), wide_lm_phase, card, args.seed) if run(49) else None
     cp_wide = timed_phase((50,), cp_wide_lm_phase, card, args.seed) if run(50) else None
+    f16 = None
+    if run(51):
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            f16 = timed_phase((51,), f16_lm_phase, card, args.seed, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
     analyzer = (timed_phase((42,), analyzer_census_phase, card, args.seed, scan) if run(42)
                 else None)
     user_zoo = None
@@ -10249,7 +10633,8 @@ def main() -> None:
                         "analyzer_census": analyzer, "fleet_policy": fleet_policy,
                         "user_zoo": user_zoo, "tensor_parallel": tp, "fsdp": fsdp,
                         "whole_mesh_xla": whole_mesh, "host_kernels": host_kernels,
-                        "head_dim_256": wide, "cp_head_dim_256": cp_wide, "card": card}))
+                        "head_dim_256": wide, "cp_head_dim_256": cp_wide, "float16": f16,
+                        "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -10269,7 +10654,8 @@ def main() -> None:
                     "analyzer_census": analyzer, "fleet_policy": fleet_policy,
                     "user_zoo": user_zoo, "tensor_parallel": tp, "fsdp": fsdp,
                     "whole_mesh_xla": whole_mesh, "host_kernels": host_kernels,
-                    "head_dim_256": wide, "cp_head_dim_256": cp_wide, "card": card}))
+                    "head_dim_256": wide, "cp_head_dim_256": cp_wide, "float16": f16,
+                    "card": card}))
 
     quality_steps = sum(n for n, _ in quality_gate["train_launches"])
     quality_trained = {name: sum(c[name] for _, c in quality_gate["train_launches"])
@@ -10423,7 +10809,7 @@ def main() -> None:
         "card": card,
     })
     line += flash_entries(attention, edges, lm, card, resources, lm_ckpt, lm_heads, tp, fsdp,
-                          wide)
+                          wide, f16)
     line += ring_entries(ring_kernels, ring_whole, cp, card, resources, cp_wide)
     line.append({
         "name": "block_gather", "ok": True, "route": "cuda", "source": K10_SOURCE,

@@ -35,7 +35,10 @@ BUILD_DIR = _HERE / "_build"
 #: threads.  The attention sources compile side by side and hold ~20
 #: kernels each, so one thread a source left them the build's critical
 #: path (ring_attention.cu 28.9 s alone, 16.0 s split, with the same
-#: registers and spills on an H100 machine's nvcc 12.9).
+#: registers and spills on an H100 machine's nvcc 12.9).  K4-K6's f16
+#: builds are a unit of their own (``flash_attention_f16.cu``, the
+#: templates of ``flash_mma.cuh``) for the same reason: they compile
+#: beside the bf16 and f32 builds instead of after them.
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -1,13 +1,15 @@
-// Helpers that the flash-attention kernels (flash_attention.cu, K4-K6)
-// and the ring-step kernels (ring_attention.cu, K7-K9) share: the f32
-// tiles and products of the FMA builds, and the cp.async, ldmatrix,
-// mma.sync and softmax helpers of the tensor-core builds.  Each
-// translation unit includes its own copy (an anonymous namespace); the
-// two compile in parallel (ops/_build.py).
+// Helpers that the flash-attention kernels (flash_attention.cu and
+// flash_attention_f16.cu, K4-K6, through flash_mma.cuh) and the ring-step
+// kernels (ring_attention.cu, K7-K9) share: the f32 tiles and products of
+// the FMA builds, and the cp.async, ldmatrix, mma.sync and softmax
+// helpers of the tensor-core builds, generic in the 2-byte element type
+// (bf16, and f16 for K4-K6).  Each translation unit includes its own copy
+// (an anonymous namespace); the units compile in parallel (ops/_build.py).
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -29,6 +31,10 @@ template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <>
+__device__ __forceinline__ float to_f32<__half>(__half x) {
+  return __half2float(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -37,6 +43,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // p.astype(v.dtype) before P V: round to the input type and back.
@@ -225,12 +235,14 @@ cudaError_t allow_smem(K kernel, int bytes) {
 }
 
 // ---------------------------------------------------------------------
-// The bf16 builds of K4-K9: the products on the tensor cores.
+// The bf16 builds of K4-K9 and the f16 builds of K4-K6: the products on
+// the tensor cores.
 //
-// mma.sync.m16n8k16 (bf16 operands, f32 accumulators) with ldmatrix from
-// shared memory.  Four warps; each owns 16 rows of the block's 64-row
-// tile (q rows in K4, K5, K7 and K8, key rows in K6 and K9), so a row's max and
-// sums stay in the four lanes that hold it.  Tiles are staged as bf16 by cp.async
+// mma.sync.m16n8k16 (bf16 or f16 operands, f32 accumulators) with
+// ldmatrix from shared memory.  Four warps; each owns 16 rows of the
+// block's 64-row tile (q rows in K4, K5, K7 and K8, key rows in K6 and
+// K9), so a row's max and sums stay in the four lanes that hold it.
+// Tiles are staged in the input's 2-byte type by cp.async
 // (16 bytes a copy; a copy past T or past d has source size 0, which
 // fills zeros) at a row pitch of DP + 8 elements, so the 8 rows an
 // ldmatrix reads fall on distinct banks.  The loop's next tile is in
@@ -243,7 +255,7 @@ constexpr int kMmaThreads = 32 * kMmaWarps;
 
 template <int DP>
 __host__ __device__ constexpr int mma_pitch() {
-  return DP + 8;  // bf16 elements per staged row: 16 bytes past DP
+  return DP + 8;  // 2-byte elements per staged row: 16 bytes past DP
 }
 template <int DP>
 __host__ __device__ constexpr int mma_tile_bytes() {
@@ -287,7 +299,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Four 8 x 8 bf16 matrices; lane i gives the address of a row of matrix
+// Four 8 x 8 matrices of 2-byte elements; lane i gives the address of a row of matrix
 // i / 8.  _t transposes each matrix on the way.
 __device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -301,7 +313,7 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
                : "r"(smem_addr(p)));
 }
 
-// Two 8 x 8 bf16 matrices, transposed; lanes 0-15 give the row
+// Two 8 x 8 matrices of 2-byte elements, transposed; lanes 0-15 give the row
 // addresses (matrix i / 8): the B fragment of one 8-column block.
 __device__ __forceinline__ void ldsm_x2_t(uint32_t r[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
@@ -319,10 +331,41 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The same product on f16 operands, f32 accumulators (never f16 ones).
+__device__ __forceinline__ void mma_f16(float c[4], const uint32_t a[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// mma_bf16 or mma_f16 by the element type T of the operands.
+template <typename T>
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value) {
+    mma_f16(c, a, b0, b1);
+  } else {
+    mma_bf16(c, a, b0, b1);
+  }
+}
+
 // Two f32 as a bf16 pair (x in the low half), rounded to nearest.
 __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Two f32 as a pair of T (x in the low half), rounded to nearest.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float x, float y) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 h = __floats2half2_rn(x, y);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    return pack_bf16(x, y);
+  }
 }
 
 // x = hi + lo to about 16 significant bits: hi = bf16(x), lo = bf16(x -
@@ -334,14 +377,23 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint3
   lo = pack_bf16(x - hf.x, y - hf.y);
 }
 
+// An f16 pair as two bf16 pairs, exactly: f16's 11 significant bits are
+// bf16(x)'s 8 and a remainder of at most 3, and bf16 has f32's exponent
+// range, so subnormal f16 values split exactly too.
+__device__ __forceinline__ void split_f16(uint32_t x, uint32_t& hi, uint32_t& lo) {
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&x));
+  split_bf16(f.x, f.y, hi, lo);
+}
+
 // The A fragment of a 16 x 16 tile from two 16 x 8 accumulator
 // fragments side by side (FA2's register reuse: S's columns are the
-// next product's k).
+// next product's k), rounded to T.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void acc_to_a(const float c0[4], const float c1[4], uint32_t a[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
+  a[0] = pack2<T>(c0[0], c0[1]);
+  a[1] = pack2<T>(c0[2], c0[3]);
+  a[2] = pack2<T>(c1[0], c1[1]);
+  a[3] = pack2<T>(c1[2], c1[3]);
 }
 
 __device__ __forceinline__ void acc_to_a_split(const float c0[4], const float c1[4],
@@ -350,6 +402,28 @@ __device__ __forceinline__ void acc_to_a_split(const float c0[4], const float c1
   split_bf16(c0[2], c0[3], hi[1], lo[1]);
   split_bf16(c1[0], c1[1], hi[2], lo[2]);
   split_bf16(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// c += (hi + lo) b: an f32 A operand split by acc_to_a_split, times a B
+// fragment of T.  A bf16 b: two bf16 products.  An f16 b is split
+// exactly into two bf16 parts (split_f16) and takes three: hi b_hi, lo
+// b_hi, hi b_lo (lo b_lo, under 2^-16 of the product, is dropped).  No
+// operand is rounded to f16, whose range ends far above the gradients of
+// a long batch (a hi/lo split in f16 would flush them to zero).
+template <typename T>
+__device__ __forceinline__ void mma_split(float c[4], const uint32_t hi[4], const uint32_t lo[4],
+                                          uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value) {
+    uint32_t b0_hi, b0_lo, b1_hi, b1_lo;
+    split_f16(b0, b0_hi, b0_lo);
+    split_f16(b1, b1_hi, b1_lo);
+    mma_bf16(c, hi, b0_hi, b1_hi);
+    mma_bf16(c, lo, b0_hi, b1_hi);
+    mma_bf16(c, hi, b0_lo, b1_lo);
+  } else {
+    mma_bf16(c, hi, b0, b1);
+    mma_bf16(c, lo, b0, b1);
+  }
 }
 
 // Max / sum over the four lanes that hold one row of an accumulator.
@@ -363,15 +437,15 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Rows [t0, t0 + 64) of one (batch, head) of a bf16 [B, T, H, D] tensor
-// into a [64][DP + 8] bf16 tile by cp.async; rows past T and columns
-// past d are zero.  d is a multiple of 8: a 16-byte copy is all in or
-// all out.  kThr threads of the block share the copies.  The caller
-// commits.
-template <int DP, int kThr = kMmaThreads>
-__device__ __forceinline__ void mma_load_tile(__nv_bfloat16* dst,
-                                              const __nv_bfloat16* __restrict__ src,
-                                              long long s_t, int t0, int t_len, int d) {
+// Rows [t0, t0 + 64) of one (batch, head) of a [B, T, H, D] tensor of a
+// 2-byte T (bf16, f16) into a [64][DP + 8] tile of T by cp.async; rows
+// past T and columns past d are zero.  d is a multiple of 8: a 16-byte
+// copy is all in or all out.  kThr threads of the block share the
+// copies.  The caller commits.
+template <int DP, int kThr = kMmaThreads, typename T>
+__device__ __forceinline__ void mma_load_tile(T* dst, const T* __restrict__ src, long long s_t,
+                                              int t0, int t_len, int d) {
+  static_assert(sizeof(T) == 2, "2-byte elements");
   constexpr int kChunks = DP / 8;
   constexpr int kLd = mma_pitch<DP>();
 #pragma unroll
@@ -399,10 +473,10 @@ __device__ __forceinline__ void mma_load_rows(T* dst, const T* __restrict__ src,
 // The NF 8-column fragments of a warp's 16-row slab of an f32
 // accumulator tile that start at column c_base (this lane: rows r and r
 // + 8, columns c_base + 8 n + 2 (lane % 4) + {0, 1}) into a contiguous
-// [B, T, H, D] bf16 tensor, times `mul`, in bf16 pairs.
-template <int NF>
-__device__ __forceinline__ void mma_store_cols(__nv_bfloat16* __restrict__ dst, long long o_st,
-                                               int r, int t_len, int d, int c_base,
+// [B, T, H, D] tensor of T (bf16, f16), times `mul`, in pairs of T.
+template <int NF, typename T>
+__device__ __forceinline__ void mma_store_cols(T* __restrict__ dst, long long o_st, int r,
+                                               int t_len, int d, int c_base,
                                                const float acc[NF][4], float mul) {
   const int c0 = c_base + 2 * (threadIdx.x & 3);
 #pragma unroll
@@ -413,18 +487,18 @@ __device__ __forceinline__ void mma_store_cols(__nv_bfloat16* __restrict__ dst, 
     for (int n = 0; n < NF; ++n) {
       const int c = 8 * n + c0;
       if (c >= d) continue;
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)t * o_st + c) =
-          __floats2bfloat162_rn(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
+      *reinterpret_cast<uint32_t*>(dst + (long long)t * o_st + c) =
+          pack2<T>(acc[n][2 * half] * mul, acc[n][2 * half + 1] * mul);
     }
   }
 }
 
 // The whole slab, all DP columns (K6's DP = 256 build stores half a slab
 // per warp).
-template <int DP>
-__device__ __forceinline__ void mma_store_rows(__nv_bfloat16* __restrict__ dst, long long o_st,
-                                               int r, int t_len, int d,
-                                               const float acc[DP / 8][4], float mul) {
+template <int DP, typename T>
+__device__ __forceinline__ void mma_store_rows(T* __restrict__ dst, long long o_st, int r,
+                                               int t_len, int d, const float acc[DP / 8][4],
+                                               float mul) {
   mma_store_cols<DP / 8>(dst, o_st, r, t_len, d, 0, acc, mul);
 }
 
@@ -438,7 +512,7 @@ __device__ __forceinline__ void pair_barrier(int pair) {
   asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
 }
 
-// 16-byte alignment, as the bf16 kernels' 16-byte copies need.
+// 16-byte alignment, as the tensor-core kernels' 16-byte copies need.
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }

@@ -49,13 +49,19 @@ products split as ``hi = bf16(x)``, ``lo = bf16(x - hi)``, since the
 reference keeps them f32 and one bf16 rounding of them would put dq and
 dk past the kernels' tolerance; K8 and K9 split an f32 dO so too
 (``tests/test_torch_flash_mma_rounding.py`` emulates these rules).  f32
-inputs run f32 FMA kernels on the CUDA cores.
+inputs run f32 FMA kernels on the CUDA cores.  float16 inputs take K4-K6
+on the tensor cores with the bf16 builds' rules in f16 (S, dP and P V
+native f16 products, P rounded to f16), except that beside the split P
+or dS the f16 operand is itself split exactly into two bf16 parts: bf16
+keeps f32's exponent range, which the gradients of a long batch need
+(f16's normal range ends at 6.1e-5).  The ring kernels K7-K9 are not
+built for float16: their wrappers raise ``TypeError`` on it.
 
 Layouts: q, k, v, out and the gradients are ``[B, T, H, D]`` as in the
 JAX function; the kernels read q, k, v through their strides, so the
 query/key/value slices of a fused projection go in without a copy.
-``lse`` and ``delta`` are ``[B, H, T]`` f32.  The kernels take bf16 or
-f32 inputs and any T >= 1 (a ragged last tile is masked); their tile is
+``lse`` and ``delta`` are ``[B, H, T]`` f32.  K4-K6 take f32, bf16 or
+f16 inputs, K7-K9 f32 or bf16, and any T >= 1 (a ragged last tile is masked); their tile is
 ``BLOCK`` queries by ``BLOCK`` keys.
 
 Head dims: K4-K6 take any head_dim up to ``MAX_HEAD_DIM`` (256), in
@@ -104,7 +110,9 @@ MAX_HEAD_DIM = 256
 #: score slab).
 PLAIN_BWD_ROWS = 256
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: What the ring kernels K7-K9 are built for.
+_RING_DTYPES = (torch.float32, torch.bfloat16)
 
 _launch_lock = threading.Lock()
 _launches: Dict[str, int] = {name: 0 for name in KERNELS + RING_KERNELS}
@@ -159,9 +167,18 @@ def _check_dtypes_devices(q, k, v) -> None:
 
 
 def _check_kernel_dtype(q) -> None:
-    """The kernels take bf16 or f32."""
+    """K4-K6 take f32, bf16 or f16."""
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the flash-attention kernels take bfloat16 or float32, got {q.dtype}")
+        raise TypeError(f"the flash-attention kernels take float32, bfloat16 or float16, got "
+                        f"{q.dtype}")
+
+
+def _check_ring_kernel_dtype(q) -> None:
+    """K7-K9 take f32 or bf16: float16 raises (no build of them takes it
+    yet, and nothing falls back to the plain versions)."""
+    if q.dtype not in _RING_DTYPES:
+        raise TypeError(f"the ring-step kernels K7-K9 are not built for {q.dtype} (they take "
+                        f"bfloat16 or float32; K4-K6 also take float16)")
 
 
 def _check_head_dim(q) -> None:
@@ -183,9 +200,10 @@ def _pad8(x: torch.Tensor) -> torch.Tensor:
 
 
 def _aligned16(x: torch.Tensor) -> bool:
-    """16-byte aligned data and row strides, as the bf16 kernels' 16-byte
-    copies need (f32 inputs take any alignment)."""
-    if x.dtype != torch.bfloat16:
+    """16-byte aligned data and row strides, as the tensor-core kernels'
+    16-byte copies of 2-byte elements (bf16, f16) need (f32 inputs take
+    any alignment)."""
+    if x.element_size() != 2:
         return True
     return x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:-1])
 
@@ -193,7 +211,8 @@ def _aligned16(x: torch.Tensor) -> bool:
 def _kernel_inputs(q, k, v):
     """Check what the CUDA kernels take; q, k, v with one set of strides,
     a contiguous last dimension, a head_dim padded to a multiple of 8
-    and, in bf16, 16-byte alignment (copied only when they lack it)."""
+    and, in bf16 and f16, 16-byte alignment (copied only when they lack
+    it)."""
     _check_kernel_dtype(q)
     _check_head_dim(q)
     q, k, v = _pad8(q), _pad8(k), _pad8(v)
@@ -206,8 +225,8 @@ def _kernel_inputs(q, k, v):
 
 
 def _kernel_dout(do, q):
-    """dO in (padded) q's dtype and head_dim, contiguous and, in bf16,
-    16-byte aligned."""
+    """dO in (padded) q's dtype and head_dim, contiguous and, in bf16 and
+    f16, 16-byte aligned."""
     do = _pad8(do.to(q.dtype)).contiguous()
     return do if _aligned16(do) else do.clone()
 
@@ -281,8 +300,9 @@ def flash_attention_fwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: ``(out [B, T, H, D], lse [B, H, T] f32)``.  On the card the
     kernel's tile is ``BLOCK``; ``block_k`` must be ``BLOCK`` there.  bf16
-    runs on the tensor cores (S = Q K^T from the unscaled q, scaled in
-    f32; P rounded to bf16 per ``BLOCK`` keys), f32 on the CUDA cores."""
+    and f16 run on the tensor cores (S = Q K^T from the unscaled q,
+    scaled in f32; P rounded to the input type per ``BLOCK`` keys), f32
+    on the CUDA cores."""
     _check_qkv(q, k, v)
     if _route(q) == "plain":
         return flash_attention_fwd_plain(q, k, v, scale, causal, block_k)
@@ -374,10 +394,10 @@ def _check_bwd(q, do, lse, delta) -> None:
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, scale, causal) -> torch.Tensor:
-    """K5: dq ``[B, T, H, D]`` in q's dtype.  bf16 runs on the tensor
-    cores (S and dP by mma from the unscaled q and the bf16 dO, S scaled
-    in f32; dS split into two bf16 terms before dQ += dS K); f32 on the
-    CUDA cores."""
+    """K5: dq ``[B, T, H, D]`` in q's dtype.  bf16 and f16 run on the
+    tensor cores (S and dP by mma from the unscaled q and dO, S scaled in
+    f32; dS split into two bf16 terms before dQ += dS K, an f16 K into two
+    bf16 parts beside it); f32 on the CUDA cores."""
     _check_qkv(q, k, v)
     _check_bwd(q, do, lse, delta)
     if _route(q) == "plain":
@@ -397,8 +417,9 @@ def flash_attention_dq(q, k, v, do, lse, delta, scale, causal) -> torch.Tensor:
 
 def flash_attention_dkv(q, k, v, do, lse, delta, scale, causal):
     """K6: ``(dk, dv)``, each ``[B, T, H, D]`` in the input dtype.  bf16
-    runs on the tensor cores, P and dS split into two bf16 terms each
-    before dV += P^T dO and dK += dS^T Q; f32 on the CUDA cores."""
+    and f16 run on the tensor cores, P and dS split into two bf16 terms
+    each before dV += P^T dO and dK += dS^T Q (an f16 dO and Q into two
+    bf16 parts beside them); f32 on the CUDA cores."""
     _check_qkv(q, k, v)
     _check_bwd(q, do, lse, delta)
     if _route(q) == "plain":
@@ -538,11 +559,12 @@ def _rows(x: torch.Tensor, q: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def _ring_kernel_inputs(q, k, v):
-    """What the ring kernels take: bf16 or f32, head_dim up to
-    MAX_HEAD_DIM padded to a multiple of 8, a contiguous last dimension,
-    one set of K/V strides and, in bf16, 16-byte alignment of q and of the
-    K/V block, each with its own strides (copied only when missing)."""
-    _check_kernel_dtype(q)
+    """What the ring kernels take: bf16 or f32 (float16 raises), head_dim
+    up to MAX_HEAD_DIM padded to a multiple of 8, a contiguous last
+    dimension, one set of K/V strides and, in bf16, 16-byte alignment of q
+    and of the K/V block, each with its own strides (copied only when
+    missing)."""
+    _check_ring_kernel_dtype(q)
     _check_head_dim(q)
     q, k, v = _pad8(q), _pad8(k), _pad8(v)
     if q.stride(-1) != 1 or not _aligned16(q):

@@ -13,7 +13,8 @@ upcast operands does up to summation order):
 
 - K4: S = Q K^T from the unscaled bf16 q, multiplied by ``scale`` in f32
   after the product; the online softmax per 64-key tile, l summing the
-  unrounded p, P rounded to bf16 before P V.
+  unrounded p, P rounded to bf16 before P V.  Its f16 build the same in
+  f16 (f16 products are exact in f32 too).
 - K5: S = Q K^T scaled in f32 after the product, P = exp(S - lse) and dS
   = P (dO V^T - delta) in f32, then dQ = dS K with dS split into hi =
   bf16(x) and lo = bf16(x - hi), two products summed in f32.
@@ -30,6 +31,13 @@ upcast operands does up to summation order):
   left); dS = P (dP - delta) in f32; P and dS each split in two (hi, lo)
   before dQ = dS K, dK = dS^T Q and dV = P^T dO, every cross product
   kept.
+
+The f16 builds of K5 and K6 keep K5's and K6's rules in f16, and take
+each product with a split P or dS against a bf16 split of the f16 tile:
+f16's 11 significant bits are bf16(x) and a bf16 remainder, exactly, in
+bf16's f32 range; three products (hi hi, lo hi, hi lo).  They are held at
+dO scaled by 2**-20, the LM's gradient scale, where an f16 hi/lo split of
+dS (no scaling) flushes it and fails.
 
 The DP=256 builds keep these rules and this split of every sum: K4, K5,
 K7 and K8 only read their Q and dO fragments from shared memory instead
@@ -53,11 +61,16 @@ import torch
 
 from chip_smoke import (
     ATTN_ATOL_SHARE,
+    ATTN_F16_ATOL_SHARE,
+    ATTN_F16_RTOL,
     ATTN_F32_ATOL_SHARE,
     ATTN_F32_RTOL,
     ATTN_RTOL,
+    F16_DO_SCALES,
+    F16_ULP_FLOOR,
     LSE_ATOL,
     RING_CARRY_TOL,
+    f16_zero_flushes,
 )
 from elasticdl_tpu_torch.ops import flash_attention as fa
 from elasticdl_tpu_torch.parallel import ring_attention as ring
@@ -83,7 +96,8 @@ def _split(x):
 
 
 def emulate_k4(q, k, v, scale, causal):
-    """K4's arithmetic: ``(out [B, T, H, D] bf16, lse [B, H, T] f32)``."""
+    """K4's arithmetic: ``(out [B, T, H, D] in q's dtype, lse [B, H, T]
+    f32)``; P rounded to v's dtype (bf16, or f16 in the f16 build)."""
     b, t, h, d = q.shape
     qf = q.transpose(1, 2).float()
     kf = k.transpose(1, 2).float()
@@ -101,10 +115,10 @@ def emulate_k4(q, k, v, scale, causal):
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.matmul(p.to(torch.bfloat16).float(), vf[:, :, k0:k1])
+        acc = acc * corr[..., None] + torch.matmul(p.to(v.dtype).float(), vf[:, :, k0:k1])
         m = m_new
     l_safe = torch.where(l == 0.0, 1.0, l)
-    out = (acc / l_safe[..., None]).to(torch.bfloat16).transpose(1, 2).contiguous()
+    out = (acc / l_safe[..., None]).to(q.dtype).transpose(1, 2).contiguous()
     return out, m + torch.log(l_safe)
 
 
@@ -686,3 +700,137 @@ def test_k9_sums_each_step_in_a_fresh_fragment():
         fresh_sum += fresh
     assert _f32_share(carried, want[0, 0]) > 1.0
     assert _f32_share(fresh_sum, want[0, 0]) < 0.5
+
+
+# ----------------------------------------------------------------------
+# The f16 builds of K4-K6 (flash_mma.cuh's templates on __half)
+# ----------------------------------------------------------------------
+
+
+def _f16(x):
+    return torch.from_numpy(x).to(torch.float16)
+
+
+def _split_exact(x):
+    """An f16 tensor as two bf16 parts (f32 values), hi + lo == x exactly."""
+    xf = x.float()
+    hi = xf.to(torch.bfloat16).float()
+    lo = (xf - hi).to(torch.bfloat16).float()
+    assert torch.equal(hi + lo, xf)
+    return hi, lo
+
+
+def _split_f16(x):
+    """x = hi + lo in f16 without scaling (hi = f16(x), lo = f16(x - hi)):
+    the split the f16 builds avoid."""
+    hi = x.to(torch.float16).float()
+    return hi, (x - hi).to(torch.float16).float()
+
+
+def _split_product(a, b, f16_parts):
+    """a (f32) times b (f16 tile) as the f16 builds take it: a split in
+    bf16 hi/lo, b exactly in two bf16 parts, three products; with
+    ``f16_parts``, a split in f16 hi/lo instead, times b itself."""
+    if f16_parts:
+        a_hi, a_lo = _split_f16(a)
+        return torch.matmul(a_hi, b.float()) + torch.matmul(a_lo, b.float())
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split_exact(b)
+    return (torch.matmul(a_hi, b_hi) + torch.matmul(a_lo, b_hi)) + torch.matmul(a_hi, b_lo)
+
+
+def emulate_k5_k6_f16(q, k, v, do, lse, delta, scale, causal, f16_parts=False):
+    """K5's and K6's f16 arithmetic: ``(dq, dk, dv)`` f16 ``[B, T, H, D]``.
+    S and dP are products of f16 inputs (exact, f32 sums), S scaled after
+    the product; P and dS in f32; dQ = dS K, dV = P^T dO and dK = dS^T Q
+    by ``_split_product``."""
+    t = q.shape[1]
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    s = torch.matmul(qt.float(), kt.float().transpose(-1, -2)) * scale
+    if causal:
+        pos = torch.arange(t)
+        s = torch.where(pos[None, :] > pos[:, None], fa.NEG_INF, s)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (torch.matmul(dot.float(), vt.float().transpose(-1, -2)) - delta[..., None])
+    dq = _split_product(ds, kt, f16_parts) * scale
+    dk = _split_product(ds.transpose(-1, -2), qt, f16_parts) * scale
+    dv = _split_product(p.transpose(-1, -2), dot, f16_parts)
+    return tuple(x.to(torch.float16).transpose(1, 2).contiguous() for x in (dq, dk, dv))
+
+
+def _f16_excess(got, want):
+    """Largest amount by which |got - want| passes phase 51's f16 rule (<=
+    0 passes)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    limit = np.maximum(ATTN_F16_RTOL * np.abs(want), F16_ULP_FLOOR)
+    limit = limit + ATTN_F16_ATOL_SHARE * np.abs(want).max()
+    return float((np.abs(got - want) - limit).max())
+
+
+def _f16_inputs(b, t, h, d, seed, do_scale):
+    q, k, v, do = (_f16(x) for x in _draw(b, t, h, d, seed))
+    return q, k, v, (do.float() * do_scale).to(torch.float16)
+
+
+@pytest.mark.parametrize("d,causal", K456_CASES)
+def test_k4_f16_rounding_matches_plain_version(d, causal):
+    q, k, v, _ = _f16_inputs(2, 100, 2, d, seed=17 * d + causal, do_scale=1.0)
+    scale = fa.default_scale(d)
+    out, lse = emulate_k4(q, k, v, scale, causal)
+    out_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, scale, causal)
+    assert out.dtype == out_p.dtype == torch.float16
+    assert float((lse - lse_p).abs().max()) <= LSE_ATOL
+    assert _f16_excess(out.float(), out_p.float()) <= 0.0
+
+
+def _f16_backward_case(d, causal, do_scale, seed, t=200):
+    q, k, v, do = _f16_inputs(2, t, 2, d, seed, do_scale)
+    scale = fa.default_scale(d)
+    out_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, scale, causal)
+    delta = fa.attention_delta(out_p, do)
+    want = (fa.flash_attention_dq_plain(q, k, v, do, lse_p, delta, scale, causal),
+            *fa.flash_attention_dkv_plain(q, k, v, do, lse_p, delta, scale, causal))
+    return (q, k, v, do, lse_p, delta, scale), want
+
+
+@pytest.mark.parametrize("do_scale", F16_DO_SCALES)
+@pytest.mark.parametrize("d,causal", [(64, True), (64, False), (256, True)])
+def test_k5_k6_f16_split_matches_plain_version(d, causal, do_scale):
+    """The f16 builds' backward against the plain versions at phase 51's
+    rule, dO at unit scale and at the LM's 2**-20, and no gradient
+    flushed to zero where the plain version's is not."""
+    args, want = _f16_backward_case(d, causal, do_scale, seed=19 * d + causal)
+    got = emulate_k5_k6_f16(*args, causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _f16_excess(a.float(), b.float()) <= 0.0, name
+        assert f16_zero_flushes(a, b) == 0, name
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_k5_k6_f16_split_matches_jax_kernel(d):
+    """The same at dO x 2**-20, causal, against JAX's f16 kernels
+    (interpret mode): dq, dk, dv of ``_bwd`` on its own forward."""
+    q, k, v, do = _f16_inputs(1, 2 * TILE, 2, d, seed=23 + d, do_scale=F16_DO_SCALES[-1])
+    scale = fa.default_scale(d)
+    jq, jk, jv, jdo = (jnp.asarray(x.float().numpy(), jnp.float16).transpose(0, 2, 1, 3)
+                       for x in (q, k, v, do))
+    j_out, j_lse = jfa._fwd(jq, jk, jv, scale, True, TILE, TILE, True)
+    want = jfa._bwd(scale, True, TILE, TILE, True, (jq, jk, jv, j_out, j_lse), jdo)
+    out = torch.from_numpy(_from_jax_bhtd(j_out)).to(torch.float16)
+    lse = torch.from_numpy(np.array(j_lse, np.float32)[..., 0])
+    got = emulate_k5_k6_f16(q, k, v, do, lse, fa.attention_delta(out, do), scale, True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        b = torch.from_numpy(_from_jax_bhtd(b))
+        assert _f16_excess(a.float(), b) <= 0.0, name
+        assert f16_zero_flushes(a, b) == 0, name
+
+
+def test_k5_k6_unscaled_f16_split_fails_at_the_path_scale():
+    """Why the f16 builds split in bf16: P and dS split into f16 hi and lo
+    without scaling meet the rule at unit scale, but at dO x 2**-20 dS
+    lies below f16's range, and dq and dk flush to zero."""
+    for do_scale, fails in zip(F16_DO_SCALES, (False, True)):
+        args, want = _f16_backward_case(64, True, do_scale, seed=29)
+        got = emulate_k5_k6_f16(*args, True, f16_parts=True)
+        failed = [name for name, a, b in zip(("dq", "dk", "dv"), got, want)
+                  if _f16_excess(a.float(), b.float()) > 0.0 or f16_zero_flushes(a, b)]
+        assert bool(failed) == fails, (do_scale, failed)
