@@ -13,8 +13,8 @@ training phases 5-9 follow the serving phases 3-4):
    and its count of tensor-core instructions (HMMA, HGMMA) in its SASS,
    read with ``cuobjdump`` from the library's cubins, each dumped by
    processes of its own (a line says so where cuobjdump is missing); the
-   bf16 K4-K9 builds (K8 and K9 each for a bf16 and an f32 dO) and the
-   f16 K4-K6 builds must hold HMMA or HGMMA; the registers, spills and
+   bf16 and f16 K4-K9 builds (K8 and K9 each for a dO of q's type and an
+   f32 dO) must hold HMMA or HGMMA; the registers, spills and
    local memory of the sparse kernels (K1-K3, K10; K2 per unit width)
    beside them.
 2. Each kernel against its plain PyTorch version on the card, on a
@@ -117,8 +117,9 @@ sequence sharded over a mesh's ``model`` axis):
     (tokens/s, median step, the CUDA-event breakdown with K7-K9's time in
     the step, peak memory); the loss must fall.
 16. From one state, 3 steps of the CP path against the one-card trainer
-    (K4-K6 on T=8192) on 1 row of each batch (CP_GATE_BATCH): with f32
-    blocks at phase 12's tolerances; with
+    (K4-K6 on T=8192) on 1 row of each batch (CP_GATE_BATCH), the LM at 1
+    of its 4 layers (CP_GATE_LAYERS): with f32 blocks at phase 12's
+    tolerances; with
     bf16 blocks at CP_BF16_TOL, kernels on both sides and then, as the
     witness, the plain versions on both sides.
 
@@ -610,23 +611,40 @@ host optimizer kernels:
     layouts (2 warm-up and 5 timed steps at AdamW 7.5e-4: K7-K9 each 64
     times a step, no whole-sequence kernel, a falling loss), and from one
     state 3 CP steps against the one-card LM (K4-K6's DP=256 builds on
-    the whole sequence) at batch 1, with the plain versions on both
-    sides as the witness, at phase 16's bf16 tolerances.
+    the whole sequence) at batch 1 and 1 layer (CP_GATE_LAYERS), with the
+    plain versions on both sides as the witness, at phase 16's bf16
+    tolerances.
 51. K4-K6's float16 builds: each against its plain version at [2, 512,
     4, D] for D 64, 128, 256 and 100 (through the pad), causal and full,
     with dO at unit scale and at 2**-20 (the LM's gradient scale at batch
     16 x 2048), within 2 f16 ulps plus 2**-12 of the largest magnitude
     and no gradient entry zero where the plain version's is at least two
-    subnormal steps and 2**-12 of the largest magnitude from zero; K7-K9's
-    wrappers raise a TypeError naming them on float16 tensors; timed
+    subnormal steps and 2**-12 of the largest magnitude from zero; timed
     at [16, 2048, 8, 64] and [8, 2048, 8, 256] causal beside the plain
-    version, the bound and SDPA at float16.  Then the LM at TRANSFORMER_BENCH's widths computing in
-    float16, built from a user's model module loaded by ``load_module``,
+    version, the bound and SDPA at float16.  Then the LM at
+    TRANSFORMER_BENCH's widths computing in float16, built from a user's
+    model module loaded by ``load_module``,
     trained by ``DataParallelTrainer`` at batch 16 (2 warm-up and 5
     timed steps: step ms, tokens/s, peak memory, a falling loss, K4-K6's
     launches and in-step ms), and phase 12's gate at batch 2 at
     F16_PATH_TOL, beside its witness: the two paths' gradients of the
     loss times 2**12 within phase 12's 1e-2.
+52. K7-K9's float16 builds: one slot's whole ring of 4 at [2, 128, 4, D]
+    for D 64, 128, 256 and 100 (through the pad), contiguous and zigzag,
+    with a fully masked step and rows that see no key, K8 and K9 on an
+    f16 and an f32 dO at unit scale and at 2**-20, against the plain
+    versions at phase 51's f16 rule (without its subnormal floor: the
+    outputs are f32) with no gradient flushed to zero and a fully masked
+    step's carry kept bit for bit; then one unmasked step
+    at the CP slot shapes [4, 2048, 8, 64] and [2, 2048, 8, 256] checked
+    the same way and timed beside the plain versions, the bounds and the
+    memory-efficient attention call at float16.  Then phase 15's CP LM
+    computing in float16 (the user's module of phase 51, over the
+    in-process (1, 4) mesh), trained in both layouts (2 warm-up and 5
+    timed steps: K7-K9 each 64 times a step, no whole-sequence kernel, a
+    falling loss), and from the trained state its kernel path against
+    its plain path (the plain versions of K7-K9) at batch 1, at
+    F16_PATH_TOL beside the loss-times-2**12 witness.
 
 A line before and after each group of phases (``[phase clock]``) gives
 the group's seconds and the run's total so far.
@@ -982,6 +1000,12 @@ CP_BF16_TOL = (LM_PATH_LOSS_RTOL, 2e-2, LM_PATH_PARAM_MAX, 1.1e-1)
 #: witness at T=8192 costs ~13 s a layout at 4), as phase 50 does at
 #: head_dim 256.
 CP_GATE_BATCH = 1
+#: The CP gates of phases 16 and 50 run their LM at this depth (the
+#: trained LM has 4 layers): every ring step, one-card kernel and plain
+#: version still runs on the layer's every slot and shows in a compared
+#: gradient, and the plain witnesses, most of those phases' seconds,
+#: take a quarter as long.
+CP_GATE_LAYERS = 1
 K3_HYPER = {
     "sgd": ("sgd", {"learning_rate": 0.01}),
     "momentum": ("momentum", {"learning_rate": 0.01, "momentum": 0.9, "nesterov": False}),
@@ -1058,11 +1082,11 @@ def import_port():
 # phase 1: what the attention kernels were compiled to
 # ----------------------------------------------------------------------
 
-#: The bf16 builds of K4-K9 and the f16 builds of K4-K6 run on the tensor
-#: cores (mma.sync): their SASS must hold HMMA (or wgmma's HGMMA).  Each
-#: has a DP=256 build, K6's and K9's with a pair of warps for each 16 key
-#: rows.  K8 and K9 are built for each count of dO parts: 1 (a bf16 dO,
-#: the CP path's) and 3 (an f32 dO split three ways, kF32DoParts).
+#: The bf16 and f16 builds of K4-K9 run on the tensor cores (mma.sync):
+#: their SASS must hold HMMA (or wgmma's HGMMA).  Each has a DP=256
+#: build, K6's and K9's with a pair of warps for each 16 key rows.  K8
+#: and K9 are built for each count of dO parts: 1 (a dO of q's type, the
+#: CP path's) and 3 (an f32 dO split three ways, kF32DoParts).
 TENSOR_CORE_BUILDS = tuple(
     [f"{name}<bf16, {dp}>" for name in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
                                          "flash_dkv_mma_kernel", "ring_fwd_mma_kernel")
@@ -1077,15 +1101,22 @@ TENSOR_CORE_BUILDS = tuple(
     + [f"{name}<f16, {dp}>" for name in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
                                         "flash_dkv_mma_kernel") for dp in (64, 128)]
     + [f"{name}<f16, 256>" for name in ("flash_fwd_mma_kernel", "flash_dq_mma_kernel",
-                                       "flash_dkv_mma_pair_kernel")])
+                                       "flash_dkv_mma_pair_kernel")]
+    + [f"ring_fwd_mma_kernel<f16, {dp}>" for dp in (64, 128, 256)]
+    + [f"{name}<f16, {dp}, {parts}>" for name in ("ring_dq_mma_kernel", "ring_dkv_mma_kernel")
+       for dp in (64, 128) for parts in (1, 3)]
+    + [f"{name}<f16, 256, {parts}>" for name in ("ring_dq_mma_kernel",
+                                                 "ring_dkv_mma_pair_kernel")
+       for parts in (1, 3)])
 _KERNEL_LABEL = re.compile(
     r"((?:flash|ring)_[a-z_]*kernel)I(13__nv_bfloat16|6__half|f)?Li(\d+)E(?:Li(\d+)E)?")
 _LABEL_DTYPE = {"f": "f32", "6__half": "f16"}
 
 
 def kernel_label(mangled: str):
-    """``name<dtype, DP>`` (``name<bf16, DP, dO parts>`` for the bf16 K8
-    and K9) of an attention kernel's mangled name, or None."""
+    """``name<dtype, DP>`` (``name<dtype, DP, dO parts>`` for the
+    tensor-core K8 and K9) of an attention kernel's mangled name, or
+    None."""
     m = _KERNEL_LABEL.search(mangled)
     if m is None:
         return None
@@ -1178,8 +1209,8 @@ def attention_resources(dumps, build_log: str):
     """Registers, shared memory, spills and tensor-core instructions of
     every attention kernel in the built library, by label, from
     ``start_resource_dumps``; None, with a line that says so, where
-    cuobjdump is missing.  Fails if a bf16 K4-K9 build or an f16 K4-K6
-    build holds no HMMA/HGMMA."""
+    cuobjdump is missing.  Fails if a bf16 or f16 K4-K9 build holds no
+    HMMA/HGMMA."""
     if dumps is None:
         log("  attention kernels' resources: cuobjdump not found (neither beside nvcc "
             "nor on PATH): registers and SASS not read")
@@ -2750,22 +2781,32 @@ def ring_step_inputs(gen, dev, b, tq, tk, h, d, dtype):
     return q, k, v, do
 
 
-def ring_close(name, got, want, f32_inputs):
-    """K7's f32 carry from bf16 inputs to RING_CARRY_TOL; every other
-    f32 output to ATTN_F32_*."""
-    carry = name.startswith("acc") and not f32_inputs
+def ring_close(name, got, want, dtype):
+    """The f32 outputs of K7-K9 on inputs of ``dtype``: from f16 inputs
+    each (the carry, dq, dk, dv) to phase 51's f16 rule without its
+    subnormal floor (ATTN_F16_*: f32 outputs have no f16 subnormals, and
+    at dO x 2**-20 the floor would pass any dq); K7's carry from bf16
+    inputs to RING_CARRY_TOL; every other to ATTN_F32_*."""
+    import torch
+
+    if dtype == torch.float16:
+        return attention_close(name, got, want, (ATTN_F16_RTOL, ATTN_F16_ATOL_SHARE))
+    carry = name.startswith("acc") and dtype == torch.bfloat16
     return attention_close(name, got, want, RING_CARRY_TOL if carry else None)
 
 
 def check_ring_ring(fa, q, k, v, do, positions, causal, scale, what, path_do=None):
     """One slot's whole ring: K7 step by step from the plain version's
     carry (each step from the same carry), then K8 and K9 at every step
-    from the final lse and delta, on ``do`` (f32) and, with bf16 inputs,
-    again on the path's dO, bf16 (``path_do``, default ``do`` rounded to
-    bf16), with delta from each.  A fully masked step must leave the
-    carry bit for bit, and a row that saw no key in the ring (final lse
-    NEG_INF) must get dq = 0 from K8.  Returns the max abs errors over
-    both dOs and ``unseen_rows``, the count of such rows."""
+    from the final lse and delta, on ``do`` (f32) and, with bf16 or f16
+    inputs, again on the path's dO in q's dtype (``path_do``, default
+    ``do`` rounded to it), with delta from each (ring_close's
+    tolerances; with f16 inputs no gradient entry flushed to zero where
+    the plain version's is not, f16_zero_flushes).  A fully masked step
+    must leave the carry bit for bit, and a row that saw no key in the
+    ring (final lse NEG_INF) must get dq = 0 from K8.  Returns the max
+    abs errors over both dOs and ``unseen_rows``, the count of such
+    rows."""
     import torch
 
     f32 = q.dtype == torch.float32
@@ -2789,10 +2830,10 @@ def check_ring_ring(fa, q, k, v, do, positions, causal, scale, what, path_do=Non
                  f"({what}, step {step})")
         errs["flash_ring_step_carry"] = max(
             errs["flash_ring_step_carry"], lse_err,
-            ring_close(f"acc {what} step {step}", a_k, acc, f32))
+            ring_close(f"acc {what} step {step}", a_k, acc, q.dtype))
     unseen = lse[..., 0] <= UNSEEN_LSE
     errs["unseen_rows"] = int(unseen.sum())
-    dos = [do] if f32 else [do, do.to(torch.bfloat16) if path_do is None else path_do]
+    dos = [do] if f32 else [do, do.to(q.dtype) if path_do is None else path_do]
     for g in dos:
         delta = torch.sum(g.float() * acc.to(q.dtype).to(torch.float32), dim=-1, keepdim=True)
         g_what = f"{what}, dO {str(g.dtype)[6:]}"
@@ -2805,12 +2846,18 @@ def check_ring_ring(fa, q, k, v, do, positions, causal, scale, what, path_do=Non
             if bool((got[0][unseen] != 0.0).any()):
                 fail(f"flash_ring_step_dq gave a row that saw no key a gradient ({g_what}, "
                      f"step {step})")
+            if q.dtype == torch.float16:
+                flushed = {name: f16_zero_flushes(a, b)
+                           for name, a, b in zip(("dq", "dk", "dv"), got, want)}
+                if any(flushed.values()):
+                    fail(f"{g_what} step {step}: f16 ring gradients flushed to zero where the "
+                         f"plain version's are not: {flushed}")
             errs["flash_ring_step_dq"] = max(errs["flash_ring_step_dq"], ring_close(
-                f"dq {g_what} step {step}", got[0], want[0], f32))
+                f"dq {g_what} step {step}", got[0], want[0], q.dtype))
             errs["flash_ring_step_dkv"] = max(
                 errs["flash_ring_step_dkv"],
-                ring_close(f"dk {g_what} step {step}", got[1], want[1], f32),
-                ring_close(f"dv {g_what} step {step}", got[2], want[2], f32))
+                ring_close(f"dk {g_what} step {step}", got[1], want[1], q.dtype),
+                ring_close(f"dv {g_what} step {step}", got[2], want[2], q.dtype))
     return errs
 
 
@@ -3186,7 +3233,8 @@ def cp_lm_phases(card: str, seed: int):
     """Phase 15: the CP LM trained in both layouts (timed, launches
     counted, the loss must fall); phase 16: from one state, 3 steps of CP
     against the one-card trainer (K4-K6 on the whole sequence), f32 and
-    bf16, and the bf16 pair again with the plain versions."""
+    bf16, and the bf16 pair again with the plain versions, at
+    CP_GATE_BATCH rows and CP_GATE_LAYERS layers."""
     import numpy as np
     import torch
 
@@ -3277,7 +3325,7 @@ def cp_lm_phases(card: str, seed: int):
         # that the gap is the two paths' arithmetic, not a kernel's fault.
         for use_bf16 in (False, True):
             kind = "bf16" if use_bf16 else "f32"
-            model_params = dict(params, use_bf16=use_bf16)
+            model_params = dict(params, num_layers=CP_GATE_LAYERS, use_bf16=use_bf16)
             cp_trainer = DataParallelTrainer(
                 build_model(LM_DEF, dict(model_params, mesh=mesh, cp_layout=layout)), zoo.loss,
                 zoo.optimizer(LM_LR), mesh=mesh, seed=seed)
@@ -3293,7 +3341,7 @@ def cp_lm_phases(card: str, seed: int):
             start = DPTrainState(0, clone_tree(cp_trainer.state.params),
                                  clone_tree(cp_trainer.state.opt_state), {})
             what = (f"CP LM ({layout}, {kind}, ring K7-K9) vs one-card LM ({kind}, K4-K6 on "
-                    f"T={cfg['seq_len']})")
+                    f"T={cfg['seq_len']}), {CP_GATE_LAYERS} of {cfg['num_layers']} layers")
             results[layout][f"vs_one_card_{kind}"] = lm_compare(
                 (cp_trainer, contextlib.nullcontext), (one_card, contextlib.nullcontext), staged,
                 card, what, CP_BF16_TOL if use_bf16 else LM_PATH_TOL)
@@ -8410,6 +8458,46 @@ def flash_f16_entries(f16, card, resources=None):
     return line
 
 
+def ring_f16_entries(cp_f16, card, resources=None):
+    """K7-K9's f16 builds as entries of their own (phase 52): timed at
+    the CP LM's slot shape (phase 50's beside it), launched on the
+    float16 CP LM's path in both layouts, the memory-efficient attention
+    call at float16 as the library call."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+
+    line = []
+    layouts = [key for key in ("contiguous", "zigzag") if key in cp_f16]
+    for name in fa.RING_KERNELS:
+        main_shape, *others = cp_f16["timed"]
+        r = main_shape["kernels"][name]
+        by_path = {f"cp_lm_float16_{layout}_{CP_STEPS}_steps": cp_f16[layout]["launches"][name]
+                   for layout in layouts}
+        line.append({
+            "name": f"{name} (float16)", "ok": True, "route": "cuda", "source": RING_F16_SOURCE,
+            "replaces": RING_REPLACES[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "launches_per_step": cp_f16["contiguous"]["launches_per_step"],
+            "max_abs_err": max([errs[name] for errs in cp_f16["shapes"].values()]
+                               + [e["kernels"][name]["max_abs_err"] for e in cp_f16["timed"]]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "tflop_per_s": r["tflop_per_s"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library": ("aten._scaled_dot_product_efficient_attention forward at float16, the "
+                        "step's mask as attn_bias, without K7's combine"
+                        if name == "flash_ring_step_carry" else
+                        "aten._scaled_dot_product_efficient_attention backward at float16 (dq, "
+                        "dk, dv together)"),
+            "shape": main_shape["shape"],
+            "other_shapes": {e["shape"]: e["kernels"][name] for e in others},
+            "builds": RING_F16_BUILDS[name],
+            "resources": {build: (resources or {}).get(build) for build in RING_F16_BUILDS[name]},
+            "train_step_kernel_ms": {layout: cp_f16[layout]["breakdown_ms"]["kernel_ms"][name]
+                                     for layout in layouts},
+            "shapes_max_abs_err": {shape: errs[name] for shape, errs in cp_f16["shapes"].items()},
+            "card": card,
+        })
+    return line
+
+
 # ----------------------------------------------------------------------
 # phase 42: the port's static analyzer on the card, and the host-sync
 # census of the main paths held against its jit-host-sync rule
@@ -10043,8 +10131,9 @@ def cp_wide_lm_phase(card: str, seed: int):
     in both layouts (WIDE_WARMUP + WIDE_STEPS steps of CP_WIDE_BATCH: each
     ring kernel num_layers x 4 x 4 times a step, no whole-sequence kernel,
     a falling loss); and, from one state, 3 CP steps (contiguous) against
-    the one-card LM (K4-K6's DP=256 builds on T=8192) at batch 1, with the
-    plain versions on both sides as the witness (CP_WIDE_TOL)."""
+    the one-card LM (K4-K6's DP=256 builds on T=8192) at batch 1 and
+    CP_GATE_LAYERS layers, with the plain versions on both sides as the
+    witness (CP_WIDE_TOL)."""
     import numpy as np
     import torch
 
@@ -10131,24 +10220,31 @@ def cp_wide_lm_phase(card: str, seed: int):
             torch.cuda.empty_cache()
             continue
 
-        # From the trained state: 3 CP steps against the one-card LM at
-        # batch 1, kernels on both sides, then the plain versions.
-        one = [trainer.stage_batch(t[:1], n[:1], m[:1]) for t, n, m in batches[:3]]
-        del staged
+        # From one state: 3 CP steps against the one-card LM at batch 1
+        # and CP_GATE_LAYERS layers, kernels on both sides, then the plain
+        # versions.
+        del trainer, model, staged
         torch.cuda.empty_cache()
-        one_card = DataParallelTrainer(build_model(LM_DEF, params, device=dev), zoo.loss,
+        gate_params = dict(params, num_layers=CP_GATE_LAYERS)
+        trainer = DataParallelTrainer(
+            build_model(LM_DEF, dict(gate_params, mesh=mesh, cp_layout=layout)), zoo.loss,
+            zoo.optimizer(WIDE_LR), mesh=mesh, seed=seed)
+        one_card = DataParallelTrainer(build_model(LM_DEF, gate_params, device=dev), zoo.loss,
                                        zoo.optimizer(WIDE_LR), seed=seed, device=dev)
+        trainer.ensure_initialized()
         one_card.ensure_initialized()
+        one = [trainer.stage_batch(t[:1], n[:1], m[:1]) for t, n, m in batches[:3]]
+        depth = f"{CP_GATE_LAYERS} of {cfg['num_layers']} layers"
         what = (f"head_dim-256 CP LM ({layout}, bf16, ring K7-K9) vs one-card LM (bf16, K4-K6 "
-                f"on T={cfg['seq_len']}), batch 1")
+                f"on T={cfg['seq_len']}), batch 1, {depth}")
         result["vs_one_card"] = lm_compare(
             (trainer, contextlib.nullcontext), (one_card, contextlib.nullcontext), one, card,
             what, CP_WIDE_TOL)
         result["vs_one_card_plain"] = lm_compare(
             (trainer, plain_ring), (one_card, plain_attention), one, card,
             f"the witness: plain head_dim-256 CP LM ({layout}, the plain versions of K7-K9) vs "
-            f"plain one-card LM (the plain versions of K4-K6), batch 1", CP_WIDE_TOL)
-        del trainer, model, one_card, one
+            f"plain one-card LM (the plain versions of K4-K6), batch 1, {depth}", CP_WIDE_TOL)
+        del trainer, one_card, one
         torch.cuda.empty_cache()
     result["seconds"] = time.perf_counter() - t_phase
     log(f"phase 50 in {result['seconds']:.1f} s [{card}]")
@@ -10207,7 +10303,10 @@ F16_ZOO, F16_MODEL_DEF = "f16_lm_zoo", "transformer_lm_f16"
 F16_ZOO_SOURCE = '''"""The repo's transformer LM computing in float16, its parameters f32
 (as flax keeps them): what JAX's ``TransformerLM(dtype=jnp.float16)`` is
 in a user's own module, since the zoo's ``custom_model`` offers bf16 or
-f32 only."""
+f32 only.  Over a mesh (``mesh``, ``cp_layout``) its sequence is sharded
+over the mesh's model axis and attended by the ring, as JAX's
+``TransformerLM(dtype=jnp.float16, mesh=..., cp_layout=...)``; it is
+built on the mesh's device."""
 
 import torch
 
@@ -10216,10 +10315,11 @@ from elasticdl_tpu_torch.zoo.transformer_lm import TransformerLM, loss, optimize
 
 
 def custom_model(vocab=256, d_model=128, num_heads=4, num_layers=2, max_len=4096,
-                 device=None):
+                 mesh=None, cp_layout="contiguous", device=None):
     return TransformerLM(vocab=vocab, d_model=d_model, num_heads=num_heads,
                          num_layers=num_layers, max_len=max_len, dtype=torch.float16,
-                         device=resolve_device(device))
+                         device=mesh.device if mesh is not None else resolve_device(device),
+                         mesh=mesh, cp_layout=cp_layout)
 '''
 #: The build of each of K4-K6 on the float16 LM's path (head_dim 64), and
 #: at phase 49's head_dim 256.
@@ -10285,53 +10385,21 @@ def f16_attention_checks(fa, gen, dev, card):
     return results
 
 
-def f16_ring_refusal(fa, dev, card):
-    """K7-K9's wrappers on float16 tensors on the card: each raises a
-    TypeError naming K7-K9 (they have no f16 build, and nothing falls
-    back to the plain versions) and launches nothing."""
-    import torch
-
-    q = torch.zeros((1, 1, 64, 64), dtype=torch.float16, device=dev)
-    acc = torch.zeros((1, 1, 64, 64), dtype=torch.float32, device=dev)
-    rows = torch.zeros((1, 1, 64), dtype=torch.float32, device=dev)
-    pos = torch.arange(64, dtype=torch.int32, device=dev)
-    kw = dict(causal=True, scale=fa.default_scale(64))
-    calls = {
-        "flash_ring_step_carry": lambda: fa.flash_ring_step_carry(
-            q, q, q, acc, rows[..., None].clone(), pos, pos, **kw),
-        "flash_ring_step_dq": lambda: fa.flash_ring_step_dq(q, q, q, q, rows, rows, pos, pos,
-                                                            **kw),
-        "flash_ring_step_dkv": lambda: fa.flash_ring_step_dkv(q, q, q, q, rows, rows, pos, pos,
-                                                              **kw),
-    }
-    fa.reset_launch_counts()
-    for name, call in calls.items():
-        try:
-            call()
-        except TypeError as exc:
-            if "K7-K9" not in str(exc):
-                fail(f"{name} on float16 raised {exc!r}, which does not name K7-K9")
-            continue
-        fail(f"{name} took float16 tensors on the card")
-    if any(fa.launch_counts().values()):
-        fail(f"the refused float16 ring calls launched {fa.launch_counts()}")
-    log(f"K7-K9's wrappers refuse float16 on the card with a TypeError naming them [{card}]")
-
-
-def f16_scaled_witness(trainer, staged, card):
-    """The kernel path's and the plain path's gradients from the
-    trainer's state with the loss times F16_WITNESS_SCALE (the gradients
-    in f16's normal range), held to phase 12's LM_PATH_GRAD_RTOL: what
-    phase 51's gate allows beyond that is f16's subnormal rounding.  The
-    port has no loss scaling; this multiplies the loss here only.  ->
-    {parameter: relative L2}."""
+def f16_scaled_witness(trainer, staged, card, plain=None, what="float16 LM"):
+    """The kernel path's and the plain path's (``plain``: the context that
+    puts the plain versions in, default plain_attention) gradients from
+    the trainer's state with the loss times F16_WITNESS_SCALE (the
+    gradients in f16's normal range), held to phase 12's
+    LM_PATH_GRAD_RTOL: what phase 51's and 52's gates allow beyond that
+    is f16's subnormal rounding.  The port has no loss scaling; this
+    multiplies the loss here only.  -> {parameter: relative L2}."""
     grads = []
-    for context in (contextlib.nullcontext, plain_attention):
+    for context in (contextlib.nullcontext, plain or plain_attention):
         with context():
             grads.append(trainer.backward(trainer.forward(*staged) * F16_WITNESS_SCALE))
     rel = {name: rel_l2(grads[0][name], g) for name, g in grads[1].items()}
     worst = max(rel, key=rel.get)
-    what = (f"float16 LM kernel path vs plain path, gradients of the loss x "
+    what = (f"{what} kernel path vs plain path, gradients of the loss x "
             f"{F16_WITNESS_SCALE!r} (the witness): max rel L2 {rel[worst]!r} ({worst})")
     if not rel[worst] <= LM_PATH_GRAD_RTOL:
         fail(what)
@@ -10341,9 +10409,10 @@ def f16_scaled_witness(trainer, staged, card):
 
 def f16_lm_phase(card: str, seed: int, workdir: str):
     """Phase 51: K4-K6's float16 builds held to their plain versions
-    (f16_attention_checks), K7-K9's refusal of float16 (f16_ring_refusal),
-    K4-K6 timed at F16_TIMED_SHAPES beside their bounds and SDPA at
-    float16; then the float16 LM at TRANSFORMER_BENCH's widths, built from a user's module (F16_ZOO_SOURCE, loaded by
+    (f16_attention_checks) and timed at F16_TIMED_SHAPES beside their
+    bounds and SDPA at float16; then the float16 LM at
+    TRANSFORMER_BENCH's widths, built from a user's module
+    (F16_ZOO_SOURCE, loaded by
     ``load_module``) and trained by DataParallelTrainer: F16_WARMUP +
     F16_STEPS steps of LM_BATCH (step ms, tokens/s, peak memory, K4-K6 4
     times a step and their in-step ms, a falling loss), and phase 12's
@@ -10361,7 +10430,6 @@ def f16_lm_phase(card: str, seed: int, workdir: str):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 51)
     result = {"shapes": f16_attention_checks(fa, gen, dev, card), "timed": []}
-    f16_ring_refusal(fa, dev, card)
     seconds = {"checks": time.perf_counter() - t_phase}
     t0 = time.perf_counter()
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32, device=dev)
@@ -10434,6 +10502,233 @@ def f16_lm_phase(card: str, seed: int, workdir: str):
     result["seconds"] = time.perf_counter() - t_phase
     result["seconds_by_part"] = seconds
     log(f"phase 51 in {result['seconds']:.1f} s ({seconds}) [{card}]")
+    result["card"] = card
+    return result
+
+
+# ----------------------------------------------------------------------
+# phase 52: K7-K9's float16 builds, driven by the CP LM computing in
+# float16
+# ----------------------------------------------------------------------
+
+#: The f16 builds of K7-K9: ring_mma.cuh's templates, instantiated here.
+RING_F16_SOURCE = "elasticdl_tpu_torch/ops/csrc/ring_attention_f16.cu"
+#: The build of each of K7-K9 on the float16 CP LM's path (head_dim 64;
+#: K8 and K9 on the path's f16 dO, one part), and at head_dim 256.
+RING_F16_BUILDS = {
+    "flash_ring_step_carry": ("ring_fwd_mma_kernel<f16, 64>", "ring_fwd_mma_kernel<f16, 256>"),
+    "flash_ring_step_dq": ("ring_dq_mma_kernel<f16, 64, 1>", "ring_dq_mma_kernel<f16, 256, 1>"),
+    "flash_ring_step_dkv": ("ring_dkv_mma_kernel<f16, 64, 1>",
+                            "ring_dkv_mma_pair_kernel<f16, 256, 1>"),
+}
+#: Checked (B, T_local, H, D): one slot's ring of CP_MESH[1] steps for the
+#: three builds (DP 64, 128, 256) and head_dim 100 through the pad to
+#: 104, at each of F16_DO_SCALES.
+F16_RING_CHECK_SHAPES = tuple((2, 128, 4, d) for d in (64, 128, 256, 100))
+#: Timed: one unmasked step at the CP LM's slot shape and at phase 50's.
+F16_RING_TIMED_SHAPES = (CP_SLOT_SHAPE, CP_WIDE_SLOT_SHAPE)
+
+
+def f16_ring_checks(fa, ring, gen, dev, card):
+    """K7-K9's f16 builds against their plain versions: at each of
+    F16_RING_CHECK_SHAPES and F16_DO_SCALES every step of every slot of a
+    ring of CP_MESH[1], contiguous and zigzag (a fully masked step among
+    them), K8 and K9 on an f32 and on the path's f16 dO
+    (check_ring_layouts: the f16 rule, no gradient flushed to zero, the
+    masked step's carry bit for bit); then the 80 rows that see no key of
+    ring_edges at each scale.  Every call launches its kernel: the counts
+    must show each.  -> {shape: max abs errors}."""
+    import torch
+
+    n = CP_MESH[1]
+    results, launched = {}, dict.fromkeys(fa.RING_KERNELS, 0)
+    fa.reset_launch_counts()
+    for b, t, h, d in F16_RING_CHECK_SHAPES:
+        q, k, v, do = ring_step_inputs(gen, dev, b, t, t, h, d, torch.float16)
+        for do_scale in F16_DO_SCALES:
+            shape = f"B={b} Tq=Tk={t} H={h} D={d} float16, dO x {do_scale!r}"
+            results[shape] = check_ring_layouts(fa, ring, q, k, v, do * do_scale, n,
+                                                fa.default_scale(d), shape)
+            steps = len(ring.LAYOUTS) * n * n
+            launched = {name: launched[name] + steps * (1 if name == "flash_ring_step_carry"
+                                                        else 2)
+                        for name in launched}
+        del q, k, v, do
+    q, k, v, do = ring_step_inputs(gen, dev, 1, 130, 64, 2, 64, torch.float16)
+    q_pos = torch.arange(130, device=dev, dtype=torch.int32)
+    k_steps = [40 + torch.randperm(64, generator=gen, device=dev).to(torch.int32),
+               200 + torch.arange(64, device=dev, dtype=torch.int32)]
+    for do_scale in F16_DO_SCALES:
+        shape = f"rows that see no key, float16, dO x {do_scale!r}"
+        results[shape] = check_ring_ring(fa, q, k, v, do * do_scale, (q_pos, k_steps), True,
+                                         fa.default_scale(64), shape)
+        if results[shape]["unseen_rows"] != 2 * 40:
+            fail(f"{shape}: {results[shape]['unseen_rows']} unseen rows, not 80")
+        launched = {name: launched[name] + (2 if name == "flash_ring_step_carry" else 4)
+                    for name in launched}
+    counts = fa.launch_counts()
+    if any(counts[name] != launched[name] for name in fa.RING_KERNELS):
+        fail(f"the f16 ring checks launched {counts}, want {launched}: a call did not reach "
+             f"its kernel")
+    worst = {name: max(e[name] for e in results.values()) for name in fa.RING_KERNELS}
+    log(f"kernels K7-K9 (f16 builds) at {len(F16_RING_CHECK_SHAPES)} shapes x dO scales "
+        f"{F16_DO_SCALES}, every step of a ring of {n} in both layouts, dO f32 and f16, and "
+        f"80 rows that see no key: within tolerance, no gradient flushed to zero; launches "
+        f"{counts}; max abs errors {worst} [{card}]")
+    return results
+
+
+def f16_ring_timing(fa, ring, gen, dev, card):
+    """K7-K9's f16 builds at F16_RING_TIMED_SHAPES: the unmasked step
+    (shard 1 against shard 0's block, contiguous) checked against the
+    plain versions as in f16_ring_checks, then timed beside the plain
+    versions, the bounds and the memory-efficient attention call at
+    float16 (K8 and K9 on the path's f16 dO).  -> [{"shape", "kernels":
+    {name: numbers}}]."""
+    import torch
+
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.float32, device=dev)
+    out = []
+    for b, t, h, d in F16_RING_TIMED_SHAPES:
+        scale = fa.default_scale(d)
+        q, k, v, do = ring_step_inputs(gen, dev, b, t, t, h, d, torch.float16)
+        q_pos, k_pos = unmasked_step_positions(ring, dev, t, CP_MESH[1])
+        shape = (f"B={b} Tq=Tk={t} H={h} D={d} float16, dO float16, unmasked step "
+                 f"(contiguous, shard 1 vs shard 0)")
+        errs = check_ring_ring(fa, q, k, v, do, (q_pos, [k_pos]), True, scale, shape)
+        do_f16 = do.to(torch.float16)
+        times = ring_step_times(fa, q, k, v, do_f16, q_pos, k_pos, scale, flush)
+        lib, reason = library_or_reason(
+            lambda: efficient_attention_ms(q, k, v, do_f16, q_pos, k_pos, flush))
+        pairs = unmasked_pairs(q_pos, k_pos, True)
+        bounds = ring_bound_ms(b, h, t, t, d, pairs, 2, 2)
+        ops = ring_step_ops(b, h, d, pairs)
+        kernels = {}
+        for name, (ms, plain) in times.items():
+            kernels[name] = {
+                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "tflop_per_s": ops[name] / ms * 1e-9,
+                "library_ms": None if lib is None else lib[name != "flash_ring_step_carry"],
+                "library_reason": reason}
+            log(f"kernel {name} (f16): {shape}: {ms!r} ms, {kernels[name]['tflop_per_s']!r} "
+                f"TFLOP/s (plain {plain!r} ms, bound {bounds[name][0]!r} ms by "
+                f"{bounds[name][1]}) [{card}]")
+        log(f"  efficient-attention yardstick at float16, {shape}: "
+            + (f"forward {lib[0]!r} ms, backward (dq, dk, dv) {lib[1]!r} ms" if lib is not None
+               else f"no backend takes the shape ({reason})") + f" [{card}]")
+        out.append({"shape": shape, "kernels": kernels})
+        del q, k, v, do, do_f16
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def cp_f16_lm_phase(card: str, seed: int, workdir: str):
+    """Phase 52: K7-K9's float16 builds held to their plain versions
+    (f16_ring_checks) and timed at F16_RING_TIMED_SHAPES
+    (f16_ring_timing); then phase 15's CP LM computing in float16, built
+    from the user's module of phase 51 (F16_ZOO_SOURCE, ``load_module``)
+    over the in-process CP_MESH, trained in both layouts (CP_WARMUP +
+    CP_STEPS steps of CP_BATCH: step ms, tokens/s, peak memory, K7-K9
+    each num_layers x 4 x 4 times a step and their in-step ms, no
+    whole-sequence kernel, a falling loss); and, from the contiguous
+    run's state, its kernel path against its plain path (the plain
+    versions of K7-K9) at CP_GATE_BATCH rows and F16_PATH_TOL, beside
+    the loss-scaled witness (f16_scaled_witness)."""
+    import torch
+
+    from elasticdl_tpu_torch.common.model_utils import load_module
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel import ring_attention as ring
+    from elasticdl_tpu_torch.parallel.dp_trainer import DataParallelTrainer
+    from elasticdl_tpu_torch.zoo import build_model
+
+    t_phase = time.perf_counter()
+    dev = card_device()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 52)
+    result = {"shapes": f16_ring_checks(fa, ring, gen, dev, card)}
+    seconds = {"checks": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    result["timed"] = f16_ring_timing(fa, ring, gen, dev, card)
+    seconds["timing"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    cfg, batch, (data, slots) = CP_LM, CP_BATCH, CP_MESH
+    zoo_dir = write_f16_zoo(workdir)
+    module = load_module(zoo_dir, F16_MODEL_DEF)
+    batches = lm_batches(seed, CP_BATCHES, batch, cfg)
+    mesh = in_process_mesh(data, slots)
+    per_step = cfg["num_layers"] * slots * slots
+    for layout in ring.LAYOUTS:
+        model = build_model(F16_MODEL_DEF, dict(lm_params(cfg), mesh=mesh, cp_layout=layout),
+                            model_zoo=zoo_dir)
+        dtypes = {p.dtype for p in model.parameters()}
+        if model.Embed_0.compute_dtype != torch.float16 or dtypes != {torch.float32}:
+            fail(f"the user module's CP LM computes in {model.Embed_0.compute_dtype} with "
+                 f"parameters {dtypes}, not float16 with float32")
+        trainer = DataParallelTrainer(model, module.loss, module.optimizer(LM_LR), mesh=mesh,
+                                      seed=seed)
+        if trainer.device != dev:
+            fail(f"the float16 CP trainer runs on {trainer.device}, not on the card")
+        trainer.ensure_initialized()
+        staged = [trainer.stage_batch(*x) for x in batches]
+        losses, step_ms, wall, peak = timed_steps(trainer, staged, CP_WARMUP, CP_STEPS)
+        counts = fa.launch_counts()
+        for name in fa.RING_KERNELS:
+            if counts[name] != per_step * CP_STEPS:
+                fail(f"{name} launched {counts[name]} times in {CP_STEPS} steps of the float16 "
+                     f"CP LM ({layout}; want {per_step * CP_STEPS})")
+        if any(counts[name] for name in fa.KERNELS):
+            fail(f"the float16 CP path ({layout}) launched a whole-sequence kernel: {counts}")
+        first, last = loss_falls(f"the float16 CP LM ({layout})", losses)
+        parts = lm_time_parts(trainer, staged[0], fa.RING_KERNELS)
+        result[layout] = {
+            "model_def": f"{F16_ZOO}.{F16_MODEL_DEF}", "batch": batch,
+            "seq_len": cfg["seq_len"], "mesh": CP_MESH,
+            "tokens_per_s": CP_STEPS * batch * cfg["seq_len"] / wall,
+            "step_ms_median": step_ms[len(step_ms) // 2], "step_ms": step_ms,
+            "losses": losses, "peak_memory_gb": peak / 1e9, "launches": counts,
+            "launches_per_step": per_step, "breakdown_ms": parts,
+        }
+        log(f"float16 CP LM ({F16_ZOO}.{F16_MODEL_DEF} by load_module, {layout}, mesh "
+            f"{data}x{slots} in-process): {CP_STEPS} steps of {batch}x{cfg['seq_len']}: "
+            f"{result[layout]['tokens_per_s']!r} tokens/s, step median "
+            f"{result[layout]['step_ms_median']!r} ms (device, CUDA events); loss {first!r} -> "
+            f"{last!r} ({losses}); launches {counts}; peak {peak / 1e9!r} GB [{card}]")
+        log(f"float16 CP LM step's ring kernels ({layout}; device ms in one step, CUDA "
+            f"events): " + ", ".join(f"{name} {ms!r}" for name, ms in parts["kernel_ms"].items())
+            + f"; {parts['attention_kernels']!r} of {parts['step']!r} (forward "
+            f"{parts['forward']!r}, backward {parts['backward']!r}, AdamW {parts['adamw']!r}) "
+            f"[{card}]")
+        del staged
+        torch.cuda.empty_cache()
+        if layout == "contiguous":
+            # From the trained state: from the first state Adam's steps
+            # are sign-like, so an f16 gradient entry that rounds to zero
+            # on one path only moves its parameter by the whole learning
+            # rate, and the updates part past F16_PATH_TOL.
+            seconds["lm_contiguous"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cut = CP_GATE_BATCH
+            small = [trainer.stage_batch(t[:cut], n[:cut], m[:cut]) for t, n, m in batches[:3]]
+            what = f"float16 CP LM ({layout})"
+            result["scaled_witness"] = f16_scaled_witness(trainer, small[0], card, plain_ring,
+                                                          what)
+            result["path"] = lm_compare(
+                (trainer, contextlib.nullcontext), (trainer, plain_ring), small, card,
+                f"{what} kernel path vs plain path (the plain versions of K7-K9, batch {cut})",
+                F16_PATH_TOL)
+            del small
+            seconds["gate"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        del trainer, model
+        torch.cuda.empty_cache()
+    seconds["lm_zigzag"] = time.perf_counter() - t0
+    result["seconds"] = time.perf_counter() - t_phase
+    result["seconds_by_part"] = seconds
+    log(f"phase 52 in {result['seconds']:.1f} s ({seconds}) [{card}]")
     result["card"] = card
     return result
 
@@ -10599,11 +10894,17 @@ def main() -> None:
     host_kernels = timed_phase((48,), native_kernels_phase, card, args.seed) if run(48) else None
     wide = timed_phase((49,), wide_lm_phase, card, args.seed) if run(49) else None
     cp_wide = timed_phase((50,), cp_wide_lm_phase, card, args.seed) if run(50) else None
-    f16 = None
-    if run(51):
+    f16 = cp_f16 = None
+    if run(51, 52):
+        # One directory for the user's module of both phases: a process
+        # holds one package of a name, and load_module refuses a second
+        # directory for it.
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
-            f16 = timed_phase((51,), f16_lm_phase, card, args.seed, workdir)
+            if run(51):
+                f16 = timed_phase((51,), f16_lm_phase, card, args.seed, workdir)
+            if run(52):
+                cp_f16 = timed_phase((52,), cp_f16_lm_phase, card, args.seed, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     analyzer = (timed_phase((42,), analyzer_census_phase, card, args.seed, scan) if run(42)
@@ -10634,7 +10935,7 @@ def main() -> None:
                         "user_zoo": user_zoo, "tensor_parallel": tp, "fsdp": fsdp,
                         "whole_mesh_xla": whole_mesh, "host_kernels": host_kernels,
                         "head_dim_256": wide, "cp_head_dim_256": cp_wide, "float16": f16,
-                        "card": card}))
+                        "cp_float16": cp_f16, "card": card}))
         log("partial run: no result line")
         return
     for name, count in launches.items():
@@ -10655,7 +10956,7 @@ def main() -> None:
                     "user_zoo": user_zoo, "tensor_parallel": tp, "fsdp": fsdp,
                     "whole_mesh_xla": whole_mesh, "host_kernels": host_kernels,
                     "head_dim_256": wide, "cp_head_dim_256": cp_wide, "float16": f16,
-                    "card": card}))
+                    "cp_float16": cp_f16, "card": card}))
 
     quality_steps = sum(n for n, _ in quality_gate["train_launches"])
     quality_trained = {name: sum(c[name] for _, c in quality_gate["train_launches"])
@@ -10811,6 +11112,7 @@ def main() -> None:
     line += flash_entries(attention, edges, lm, card, resources, lm_ckpt, lm_heads, tp, fsdp,
                           wide, f16)
     line += ring_entries(ring_kernels, ring_whole, cp, card, resources, cp_wide)
+    line += ring_f16_entries(cp_f16, card, resources)
     line.append({
         "name": "block_gather", "ok": True, "route": "cuda", "source": K10_SOURCE,
         "replaces": K10_REPLACES, "launches": gather["launches"],

@@ -160,7 +160,14 @@ def build() -> Path:
                 return lib
             tmp = lib.with_suffix(f".tmp{os.getpid()}")
             cu_sources = [src for src in _sources() if src.suffix == ".cu"]
-            objects = [lib.with_name(f"{lib.stem}.{src.stem}.o") for src in cu_sources]
+            # Each object under its source's own name, in a directory of
+            # this build: the link names its device image after all the
+            # objects joined, and with the build key in each name that
+            # passed the 255 bytes a file name may take (cuobjdump then
+            # could not extract it).
+            obj_dir = lib.with_suffix(f".obj{os.getpid()}")
+            obj_dir.mkdir(exist_ok=True)
+            objects = [obj_dir / f"{src.stem}.o" for src in cu_sources]
             compiles = [
                 [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
                 for obj, src in zip(objects, cu_sources)
@@ -178,8 +185,7 @@ def build() -> Path:
                 failed = proc.returncode != 0
             log += f"[{time.monotonic() - t0:.1f} s]\n"
             lib.with_suffix(".log").write_text(log)
-            for obj in objects:
-                obj.unlink(missing_ok=True)
+            shutil.rmtree(obj_dir, ignore_errors=True)
             if failed:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(f"nvcc failed to build the kernels:\n{log}")

@@ -49,19 +49,20 @@ products split as ``hi = bf16(x)``, ``lo = bf16(x - hi)``, since the
 reference keeps them f32 and one bf16 rounding of them would put dq and
 dk past the kernels' tolerance; K8 and K9 split an f32 dO so too
 (``tests/test_torch_flash_mma_rounding.py`` emulates these rules).  f32
-inputs run f32 FMA kernels on the CUDA cores.  float16 inputs take K4-K6
+inputs run f32 FMA kernels on the CUDA cores.  float16 inputs take K4-K9
 on the tensor cores with the bf16 builds' rules in f16 (S, dP and P V
 native f16 products, P rounded to f16), except that beside the split P
 or dS the f16 operand is itself split exactly into two bf16 parts: bf16
 keeps f32's exponent range, which the gradients of a long batch need
-(f16's normal range ends at 6.1e-5).  The ring kernels K7-K9 are not
-built for float16: their wrappers raise ``TypeError`` on it.
+(f16's normal range ends at 6.1e-5).  K8 and K9 read an f16 dO beside f16
+q as it is, and an f32 dO in three bf16 parts, each meeting f16 V's two
+(``csrc/ring_mma.cuh``).  Any other dtype raises ``TypeError``.
 
 Layouts: q, k, v, out and the gradients are ``[B, T, H, D]`` as in the
 JAX function; the kernels read q, k, v through their strides, so the
 query/key/value slices of a fused projection go in without a copy.
-``lse`` and ``delta`` are ``[B, H, T]`` f32.  K4-K6 take f32, bf16 or
-f16 inputs, K7-K9 f32 or bf16, and any T >= 1 (a ragged last tile is masked); their tile is
+``lse`` and ``delta`` are ``[B, H, T]`` f32.  K4-K9 take f32, bf16 or
+f16 inputs and any T >= 1 (a ragged last tile is masked); their tile is
 ``BLOCK`` queries by ``BLOCK`` keys.
 
 Head dims: K4-K6 take any head_dim up to ``MAX_HEAD_DIM`` (256), in
@@ -78,13 +79,15 @@ key rows two warps, each owning half of the columns of dK and dV; the
 f32 builds of K5 and K6 share one shared-memory tile between two
 operands (``csrc/flash_attention.cu`` sets out what bounds each build).
 Above 256 they raise: that is ``wgmma``'s widest N and the widest build.
-The ring kernels K7-K9 (``csrc/ring_attention.cu``) take the same head
-dims, up to ``MAX_HEAD_DIM``, in the same three builds and
-through the same pad: the step wrappers pad q, the K/V block, dO and the
-``acc`` carry, and slice ``acc``, dq, dk and dv back; the CP path pads
-once, before the ring (``parallel/ring_attention.py``).  At 256 K7 and
-K8 read their Q (and dO) fragments at each step and K9 gives each 16 key
-rows a pair of warps, as K4-K6 do; the bf16 K8 and K9 stage one tile set
+The ring kernels K7-K9 (``csrc/ring_attention.cu``; their tensor-core
+builds in ``csrc/ring_mma.cuh``, instantiated for f16 in
+``csrc/ring_attention_f16.cu``) take the same head dims, up to
+``MAX_HEAD_DIM``, in the same three builds and through the same pad: the
+step wrappers pad q, the K/V block, dO and the ``acc`` carry, and slice
+``acc``, dq, dk and dv back; the CP path pads once, before the ring
+(``parallel/ring_attention.py``).  At 256 K7 and K8 read their Q (and
+dO) fragments at each step and K9 gives each 16 key rows a pair of
+warps, as K4-K6 do; the bf16 and f16 K8 and K9 stage one tile set
 instead of two beside an f32 dO, whose three bf16 parts fill the rest of
 a block's shared memory.  Above 256 they raise.
 """
@@ -112,7 +115,7 @@ PLAIN_BWD_ROWS = 256
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: What the ring kernels K7-K9 are built for.
-_RING_DTYPES = (torch.float32, torch.bfloat16)
+_RING_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 _launch_lock = threading.Lock()
 _launches: Dict[str, int] = {name: 0 for name in KERNELS + RING_KERNELS}
@@ -174,11 +177,11 @@ def _check_kernel_dtype(q) -> None:
 
 
 def _check_ring_kernel_dtype(q) -> None:
-    """K7-K9 take f32 or bf16: float16 raises (no build of them takes it
-    yet, and nothing falls back to the plain versions)."""
+    """K7-K9 take f32, bf16 or f16: any other dtype raises (no build takes
+    it, and nothing falls back to the plain versions)."""
     if q.dtype not in _RING_DTYPES:
         raise TypeError(f"the ring-step kernels K7-K9 are not built for {q.dtype} (they take "
-                        f"bfloat16 or float32; K4-K6 also take float16)")
+                        f"float32, bfloat16 or float16)")
 
 
 def _check_head_dim(q) -> None:
@@ -559,11 +562,11 @@ def _rows(x: torch.Tensor, q: torch.Tensor, name: str) -> torch.Tensor:
 
 
 def _ring_kernel_inputs(q, k, v):
-    """What the ring kernels take: bf16 or f32 (float16 raises), head_dim
-    up to MAX_HEAD_DIM padded to a multiple of 8, a contiguous last
-    dimension, one set of K/V strides and, in bf16, 16-byte alignment of q
-    and of the K/V block, each with its own strides (copied only when
-    missing)."""
+    """What the ring kernels take: f32, bf16 or f16 (any other dtype
+    raises), head_dim up to MAX_HEAD_DIM padded to a multiple of 8, a
+    contiguous last dimension, one set of K/V strides and, in bf16 and
+    f16, 16-byte alignment of q and of the K/V block, each with its own
+    strides (copied only when missing)."""
     _check_ring_kernel_dtype(q)
     _check_head_dim(q)
     q, k, v = _pad8(q), _pad8(k), _pad8(v)
@@ -580,13 +583,13 @@ def _ring_kernel_inputs(q, k, v):
 
 
 def _ring_kernel_dout(do, q):
-    """dO as K8 and K9 read it, at (padded) q's head_dim: a bf16 dO
-    beside bf16 q as it is (the CP path's gradient; contiguous and
+    """dO as K8 and K9 read it, at (padded) q's head_dim: a bf16 or f16 dO
+    beside q of its dtype as it is (the CP path's gradient; contiguous and
     16-byte aligned, copied only when it is not), any other as f32
-    (beside bf16 q the kernels split it in three bf16 parts; the f32
-    builds read it as it is)."""
+    (beside bf16 or f16 q the kernels split it in three bf16 parts; the
+    f32 builds read it as it is)."""
     do = _pad8(do)
-    if not (q.dtype == do.dtype == torch.bfloat16):
+    if not (do.dtype == q.dtype and do.element_size() == 2):
         return do.to(torch.float32).contiguous()
     do = do.contiguous()
     return do if _aligned16(do) else do.clone()
@@ -654,11 +657,11 @@ def flash_ring_step_carry(q, k_blk, v_blk, acc, lse, q_pos, k_pos, *, causal, sc
     """K7: one ring step with the combine fused; the carry ``acc`` [B, H,
     Tq, D] f32 and ``lse`` [B, H, Tq, 1] f32 are updated in place and
     returned (the JAX function aliases them to its outputs).  On the
-    card the kernel's tile is ``BLOCK``.  bf16 runs on the tensor cores
-    (K4's rules: S from the unscaled q, scaled in f32; P rounded to bf16
-    per ``BLOCK`` keys; wholly masked key tiles skipped), with q and the
-    K/V block copied first where they lack 16-byte alignment; f32 on the
-    CUDA cores.  A head_dim that is no multiple of 8 runs on a padded
+    card the kernel's tile is ``BLOCK``.  bf16 and f16 run on the tensor
+    cores (K4's rules: S from the unscaled q, scaled in f32; P rounded to
+    q's dtype per ``BLOCK`` keys; wholly masked key tiles skipped), with q
+    and the K/V block copied first where they lack 16-byte alignment; f32
+    on the CUDA cores.  A head_dim that is no multiple of 8 runs on a padded
     copy of the carry, copied back."""
     _check_ring(q, k_blk, v_blk)
     b, h, tq, d = q.shape
@@ -750,9 +753,10 @@ def _ring_bwd_inputs(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos):
 def flash_ring_step_dq(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal, scale,
                        block_q: int = BLOCK, block_k: int = BLOCK) -> torch.Tensor:
     """K8: the step's dq contribution, f32 [B, H, Tq, D], from the FINAL
-    ring-combined ``lse`` and ``delta``.  bf16 runs on the tensor cores
-    (K5's rules; dO read as given, bf16 or f32, an f32 dO split hi/lo),
-    f32 on the CUDA cores."""
+    ring-combined ``lse`` and ``delta``.  bf16 and f16 run on the tensor
+    cores (K5's rules; dO read in q's dtype as given, or as f32 split in
+    three bf16 parts; in f16, dS's hi/lo parts meet K split exactly into
+    two bf16 parts), f32 on the CUDA cores."""
     lse, delta, q_pos, k_pos = _ring_bwd_inputs(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos)
     d = q.shape[-1]
     if _route(q) == "plain":
@@ -775,8 +779,9 @@ def flash_ring_step_dq(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal,
 def flash_ring_step_dkv(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos, *, causal, scale,
                         block_q: int = BLOCK, block_k: int = BLOCK):
     """K9: ``(dk, dv)`` of the rotating block, each f32 [B, H, Tk, D].
-    bf16 runs on the tensor cores (K6's rules; dO as in K8), f32 on the
-    CUDA cores."""
+    bf16 and f16 run on the tensor cores (K6's rules; dO as in K8; in
+    f16, P's and dS's hi/lo parts meet dO and Q split exactly into two
+    bf16 parts), f32 on the CUDA cores."""
     lse, delta, q_pos, k_pos = _ring_bwd_inputs(q, k_blk, v_blk, do, lse, delta, q_pos, k_pos)
     d = q.shape[-1]
     if _route(q) == "plain":

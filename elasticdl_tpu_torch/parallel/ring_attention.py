@@ -303,8 +303,9 @@ def _ring_flash_backward(ring: Ring, causal: bool, scale: float, layout: str, q,
     """Every step reuses P = exp(S - lse_final) through K8 and K9; the
     dk/dv accumulators rotate with their K/V block, so after the n-th
     rotation each block's gradient is home.  The kernels read the
-    gradient ``g`` in its own dtype (q's: bf16 on a bf16 model, whose
-    values an f32 copy would only widen); delta takes it upcast."""
+    gradient ``g`` in its own dtype (q's: bf16 or f16 on a model that
+    computes in it, whose values an f32 copy would only widen); delta
+    takes it upcast, in f32."""
     n, slots = ring.size, ring.slots
     tq, tk, positions, k_positions = _shards(ring, layout, q, k)
     qs = [_to_kernel(x) for x in q.split(tq, dim=1)]

@@ -198,16 +198,22 @@ def test_kernel_input_checks():
     r = torch.zeros((1, 2, 8, 264))
     with pytest.raises(ValueError, match="head_dim up to 256"):
         fa._ring_kernel_inputs(r, r, r)
-    # float16: K4-K6 take it (aligned as bf16 is: a misaligned tensor is
-    # copied), the ring kernels K7-K9 refuse it by name.
+    # float16: K4-K9 take it, aligned as bf16 is: an aligned tensor goes
+    # in as it is, a misaligned one is copied to 16-byte alignment; K8 and
+    # K9 read an f16 dO beside f16 q as it is; a dtype no build takes
+    # (float64) raises, naming K7-K9.
     h = torch.zeros((1, 8, 2, 16), dtype=torch.float16)
     assert fa._kernel_inputs(h, h, h)[0] is h
+    assert all(y is h for y in fa._ring_kernel_inputs(h, h, h))
+    assert fa._ring_kernel_dout(h, h) is h
     off = torch.zeros(1 * 8 * 2 * 16 + 1, dtype=torch.float16)[1:].view(1, 8, 2, 16)
     assert off.data_ptr() % 16
-    for y in fa._kernel_inputs(off, off, off) + (fa._kernel_dout(off, h),):
+    for y in (fa._kernel_inputs(off, off, off) + (fa._kernel_dout(off, h),)
+              + fa._ring_kernel_inputs(off, off, off) + (fa._ring_kernel_dout(off, h),)):
         assert y.dtype == torch.float16 and y.data_ptr() % 16 == 0 and torch.equal(y, off)
-    with pytest.raises(TypeError, match="K7-K9 are not built for torch.float16"):
-        fa._ring_kernel_inputs(h, h, h)
+    with pytest.raises(TypeError, match="K7-K9 are not built for torch.float64"):
+        f64 = torch.zeros((1, 2, 8, 16), dtype=torch.float64)
+        fa._ring_kernel_inputs(f64, f64, f64)
     with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         i = torch.zeros((1, 8, 2, 16), dtype=torch.float64)
         fa._kernel_inputs(i, i, i)

@@ -84,11 +84,19 @@ def _assert_f16_close(got, want, what):
     assert excess.max() <= 0.0, (what, float(np.abs(got - want).max()))
 
 
+def f16_user_zoo(tmp_path_factory):
+    """The float16 LM's user module, loaded from a model zoo on disk: one
+    directory for the whole test process, since a process holds one
+    package of a name (``load_module`` refuses a second path for it) and
+    ``tests/test_torch_cp_f16.py`` loads the same module."""
+    zoo_dir = write_f16_zoo(str(tmp_path_factory.getbasetemp() / "f16_user"))
+    return zoo_dir, load_module(zoo_dir, F16_MODEL_DEF)
+
+
 @pytest.fixture(scope="module")
 def f16_zoo(tmp_path_factory):
     """The float16 LM's user module, loaded from a model zoo on disk."""
-    zoo_dir = write_f16_zoo(str(tmp_path_factory.mktemp("user")))
-    return zoo_dir, load_module(zoo_dir, F16_MODEL_DEF)
+    return f16_user_zoo(tmp_path_factory)
 
 
 def _f16_model(zoo_dir):
@@ -167,6 +175,8 @@ def test_user_module_builds_the_f16_lm(f16_zoo):
     assert logits.dtype == torch.float32 and bool(torch.isfinite(logits).all())
     assert "dtype" not in inspect.signature(port_zoo.custom_model).parameters
     assert "dtype" not in inspect.signature(zoo.custom_model).parameters
+    # Over a mesh it shards the sequence (tests/test_torch_cp_f16.py).
+    assert {"mesh", "cp_layout"} <= set(inspect.signature(module.custom_model).parameters)
 
 
 def _jax_logits_loss_grads(model, variables, tokens, labels):

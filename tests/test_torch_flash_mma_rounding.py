@@ -1,4 +1,4 @@
-"""The rounding design of the bf16 tensor-core builds of K4-K9
+"""The rounding design of the bf16 and f16 tensor-core builds of K4-K9
 (``flash_fwd_mma_kernel``, ``flash_dq_mma_kernel``,
 ``flash_dkv_mma_kernel`` in ``elasticdl_tpu_torch/ops/csrc/flash_attention.cu``;
 ``ring_fwd_mma_kernel``, ``ring_dq_mma_kernel`` and ``ring_dkv_mma_kernel``
@@ -38,6 +38,18 @@ f16's 11 significant bits are bf16(x) and a bf16 remainder, exactly, in
 bf16's f32 range; three products (hi hi, lo hi, hi lo).  They are held at
 dO scaled by 2**-20, the LM's gradient scale, where an f16 hi/lo split of
 dS (no scaling) flushes it and fails.
+
+The f16 builds of K7-K9 (ring_mma.cuh's templates on __half) keep K7's,
+K8's and K9's rules in f16 the same way: S and dP (on an f16 dO) are
+exact f16 products with f32 sums, K7 rounds P to f16 per 64 keys, and
+dQ = dS K, dK = dS^T Q and dV = P^T dO take the f16 tile split exactly
+into two bf16 parts against P's and dS's hi/lo (three products); an f32
+dO's three bf16 parts meet f16 V's two exact parts, whose sum is V, so
+dP is the bf16 builds' sum.  Their outputs are f32, held to phase 52's
+rule (``chip_smoke.py``'s phase 51 rule, ``ATTN_F16_*``, without its
+floor of two f16 subnormal steps, which f32 outputs do not have) at dO x
+1 and x 2**-20 with no entry flushed to zero, where an f16 hi/lo split
+of P and dS fails.
 
 The DP=256 builds keep these rules and this split of every sum: K4, K5,
 K7 and K8 only read their Q and dO fragments from shared memory instead
@@ -184,7 +196,7 @@ def emulate_k7(q, k, v, acc, lse, q_pos, k_pos, scale, causal):
         p = torch.where(_half_neg_inf(s), 0.0, torch.exp(s - safe_m))
         corr = torch.where(_half_neg_inf(m), 0.0, torch.exp(m - safe_m))
         l = l * corr + p.sum(-1, keepdim=True)
-        o = o * corr + torch.matmul(p.to(torch.bfloat16).float(), vf[:, :, k0:k1])
+        o = o * corr + torch.matmul(p.to(v.dtype).float(), vf[:, :, k0:k1])
         m = m_new
     seen = l != 0.0
     l_safe = torch.where(seen, l, 1.0)
@@ -520,28 +532,30 @@ def _f32_share(got, want):
 def _ring_stats(q, k, v, do, q_pos, k_steps, scale, causal):
     """The final lse and delta ``[B, H, Tq]`` of a ring over the K/V
     blocks' positions ``k_steps`` (one block, k and v, for every step),
-    from the plain K7 steps: delta = sum(dO * bf16(out))."""
+    from the plain K7 steps: delta = sum(dO * out rounded to q's dtype)."""
     b, h, tq, d = q.shape
     acc = torch.zeros((b, h, tq, d))
     lse = torch.full((b, h, tq, 1), fa.NEG_INF)
     for k_pos in k_steps:
         fa.flash_ring_step_carry_plain(q, k, v, acc, lse, q_pos, k_pos, causal=causal,
                                        scale=scale)
-    delta = torch.sum(do.float() * acc.to(torch.bfloat16).float(), dim=-1)
+    delta = torch.sum(do.float() * acc.to(q.dtype).float(), dim=-1)
     return lse[..., 0], delta
 
 
-def _ring_case(case, d, dout, seed):
+def _ring_case(case, d, dout, seed, dtype=torch.bfloat16, do_scale=1.0):
     """Inputs of a K8/K9 case: ``(q, k, v, do, lse, delta, q_pos, k_pos,
-    causal)``; q is a transposed view, as the ring passes it."""
+    causal)``, q, k, v in ``dtype``, dO times ``do_scale`` in q's dtype
+    (``dout`` "bf16" or "f16") or f32; q is a transposed view, as the ring
+    passes it."""
     kind, tq, tk, causal = case
     rng = np.random.default_rng(seed)
     q = torch.from_numpy(rng.standard_normal((2, tq, 2, d)).astype(np.float32))
-    q = q.to(torch.bfloat16).transpose(1, 2)
+    q = q.to(dtype).transpose(1, 2)
     k, v = (torch.from_numpy(rng.standard_normal((2, 2, tk, d)).astype(np.float32)).to(
-        torch.bfloat16) for _ in range(2))
-    do = torch.from_numpy(rng.standard_normal((2, 2, tq, d)).astype(np.float32))
-    do = do.to(torch.bfloat16) if dout == "bf16" else do
+        dtype) for _ in range(2))
+    do = torch.from_numpy(rng.standard_normal((2, 2, tq, d)).astype(np.float32)) * do_scale
+    do = do.to(dtype) if dout in ("bf16", "f16") else do
     if kind == "random":  # any order; some queries see no key (lse NEG_INF)
         q_pos = torch.from_numpy(rng.integers(0, tq + tk, tq).astype(np.int32))
         k_pos = torch.from_numpy(rng.permutation(tq + tk)[:tk].astype(np.int32))
@@ -833,4 +847,179 @@ def test_k5_k6_unscaled_f16_split_fails_at_the_path_scale():
         got = emulate_k5_k6_f16(*args, True, f16_parts=True)
         failed = [name for name, a, b in zip(("dq", "dk", "dv"), got, want)
                   if _f16_excess(a.float(), b.float()) > 0.0 or f16_zero_flushes(a, b)]
+        assert bool(failed) == fails, (do_scale, failed)
+
+
+# ----------------------------------------------------------------------
+# The f16 builds of K7-K9 (ring_mma.cuh's templates on __half)
+# ----------------------------------------------------------------------
+
+
+def emulate_k8_k9_f16(q, k, v, do, lse, delta, q_pos, k_pos, scale, causal, f16_parts=False):
+    """K8's and K9's f16 arithmetic on ``[B, H, T, D]`` inputs (q, k, v
+    f16; dO f16 or f32; lse, delta f32 ``[B, H, Tq]``): ``(dq, dk, dv)``
+    f32.  S and dP on an f16 dO are exact f16 products (f32 sums); an
+    f32 dO's three bf16 parts meet f16 V's two exact bf16 parts, every
+    cross product kept (their sum is each part times V); P and dS in
+    f32; dQ = dS K, dK = dS^T Q and, on an f16 dO, dV = P^T dO by
+    ``_split_product`` (``f16_parts``: P and dS split in f16 instead, the
+    design the builds avoid); on an f32 dO dV takes P's two parts against
+    each of dO's three."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    row = lse[..., None]
+    dead = _half_neg_inf(row)
+    if causal:
+        dead = dead | (k_pos[None, :] > q_pos[:, None])
+    p = torch.where(dead, 0.0, torch.exp(s - row))
+    if do.dtype == torch.float16:
+        do_parts = [do.float()]
+        dp = torch.matmul(do_parts[0], vf.transpose(-1, -2))
+    else:
+        do_parts = _parts(do.float(), F32_DO_PARTS)
+        v_hi, v_lo = _split_exact(v)
+        dp = sum(torch.matmul(part, vp.transpose(-1, -2)) for part in do_parts
+                 for vp in (v_hi, v_lo))
+    ds = p * (dp - delta[..., None])
+    dq = _split_product(ds, k, f16_parts) * scale
+    dk = _split_product(ds.transpose(-1, -2), q, f16_parts) * scale
+    if do.dtype == torch.float16:
+        dv = _split_product(p.transpose(-1, -2), do, f16_parts)
+    else:
+        dv = sum(torch.matmul(a.transpose(-1, -2), b) for a in _split(p) for b in do_parts)
+    return dq, dk, dv
+
+
+def _f16_ring_excess(got, want):
+    """Largest amount by which |got - want| passes phase 52's rule on the
+    ring's f32 outputs from f16 inputs (<= 0 passes): phase 51's rtol
+    and share, without its floor of two f16 subnormal steps, which f32
+    outputs do not have."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    limit = ATTN_F16_RTOL * np.abs(want) + ATTN_F16_ATOL_SHARE * np.abs(want).max()
+    return float((np.abs(got - want) - limit).max())
+
+
+def _assert_f16_ring_close(got, want, what):
+    """Phase 52's rule, and no entry zero where the plain version's is
+    not (f16_zero_flushes)."""
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        b = torch.from_numpy(np.array(b, np.float32))
+        assert _f16_ring_excess(a, b) <= 0.0, (what, name, _f16_ring_excess(a, b))
+        assert f16_zero_flushes(a, b) == 0, (what, name, f16_zero_flushes(a, b))
+
+
+#: (kind, Tq, Tk, causal) of the f16 K8/K9 cases: K89_CASES' unmasked
+#: step, a zigzag step, and random positions with Tq != Tk.
+F16_K89_CASES = [K89_CASES[0], K89_CASES[3], K89_CASES[4]]
+
+
+@pytest.mark.parametrize("tq,tk", [(100, 200), (200, 130)])
+@pytest.mark.parametrize("d,causal", K456_CASES)
+def test_k7_f16_rounding_matches_plain_version(d, causal, tq, tk):
+    """K7's f16 build: P rounded to f16 per 64 keys; Tq != Tk, random
+    positions, a carry with rows that have seen nothing; the carry at
+    phase 52's rule, lse at LSE_ATOL."""
+    x = _draw(2, max(tq, tk), 2, d, seed=37 * d + tq + causal, n=3)
+    q, k, v = (torch.from_numpy(a).to(torch.float16).transpose(1, 2).contiguous() for a in x)
+    q, k, v = q[:, :, :tq], k[:, :, :tk], v[:, :, :tk]
+    rng = np.random.default_rng(d + tq + 1)
+    q_pos = torch.from_numpy(rng.integers(0, tq + tk, tq).astype(np.int32))
+    k_pos = torch.from_numpy(rng.permutation(tq + tk)[:tk].astype(np.int32))
+    acc, lse = _carry(2, 2, tq, d, seed=d + tk + 1)
+    scale = fa.default_scale(d)
+    got = emulate_k7(q, k, v, acc, lse, q_pos, k_pos, scale, causal)
+    want = fa.flash_ring_step_carry_plain(q, k, v, acc.clone(), lse.clone(), q_pos, k_pos,
+                                          causal=causal, scale=scale)
+    assert float((got[1] - want[1]).abs().max()) <= LSE_ATOL
+    assert _f16_ring_excess(got[0], want[0]) <= 0.0
+
+
+@pytest.mark.parametrize("q_index,src,layout", RING_STEPS)
+def test_k7_f16_rounding_matches_jax_kernel(q_index, src, layout):
+    """Against JAX's f16 ``flash_ring_step_carry`` (interpret mode):
+    both layouts' positions, a fully masked step's carry bit for bit."""
+    t, n, d = 2 * TILE, 4, 64
+    x = _draw(1, t, 2, d, seed=131 + 7 * q_index + src, n=3)
+    q, k, v = (torch.from_numpy(a).to(torch.float16).transpose(1, 2).contiguous() for a in x)
+    q_pos, k_pos = (torch.from_numpy(ring.shard_positions(i, t, n, layout).astype(np.int32))
+                    for i in (q_index, src))
+    acc, lse = _carry(1, 2, t, d, seed=139)
+    scale = fa.default_scale(d)
+    j_acc, j_lse = jfa.flash_ring_step_carry(
+        *(jnp.asarray(a.float().numpy(), jnp.float16) for a in (q, k, v)),
+        jnp.asarray(acc.numpy()), jnp.asarray(lse.numpy()), jnp.asarray(q_pos.numpy()),
+        jnp.asarray(k_pos.numpy()), causal=True, scale=scale, block_q=TILE, block_k=TILE,
+        interpret=True)
+    got = emulate_k7(q, k, v, acc, lse, q_pos, k_pos, scale, True)
+    want = (torch.from_numpy(np.array(j_acc)), torch.from_numpy(np.array(j_lse)))
+    assert float((got[1] - want[1]).abs().max()) <= LSE_ATOL
+    assert _f16_ring_excess(got[0], want[0]) <= 0.0
+    if int(k_pos.min()) > int(q_pos.max()):  # fully masked: the carry kept bit for bit
+        for new, old in zip(got + want, (acc, lse) * 2):
+            assert torch.equal(new, old)
+
+
+@pytest.mark.parametrize("do_scale", F16_DO_SCALES)
+@pytest.mark.parametrize("dout", ["f16", "f32"])
+@pytest.mark.parametrize("case", F16_K89_CASES, ids=lambda c: f"{c[0]}-{c[1]}x{c[2]}-{c[3]}")
+@pytest.mark.parametrize("d", [64, 256])
+def test_k8_k9_f16_split_matches_plain_version(d, case, dout, do_scale):
+    """K8's and K9's f16 builds against the plain versions at phase 52's
+    rule, dO (f16, or f32 in three bf16 parts) at unit scale and at the
+    LM's 2**-20, no entry flushed to zero; a row that saw no key gets no
+    gradient."""
+    q, k, v, do, lse, delta, q_pos, k_pos, causal = _ring_case(
+        case, d, dout, seed=3 * d + case[1], dtype=torch.float16, do_scale=do_scale)
+    scale = fa.default_scale(d)
+    got = emulate_k8_k9_f16(q, k, v, do, lse, delta, q_pos, k_pos, scale, causal)
+    want = fa.flash_ring_step_bwd_plain(q, k, v, do, lse, delta, q_pos, k_pos, causal=causal,
+                                        scale=scale)
+    _assert_f16_ring_close(got, want, (d, case, dout, do_scale))
+    unseen = _half_neg_inf(lse)
+    assert torch.equal(got[0][unseen], torch.zeros_like(got[0][unseen]))
+
+
+@pytest.mark.parametrize("dout", ["f16", "f32"])
+@pytest.mark.parametrize("q_index,src,layout", RING_STEPS)
+def test_k8_k9_f16_split_matches_jax_kernel(q_index, src, layout, dout):
+    """Against JAX's f16 ``flash_ring_step_bwd`` (interpret mode) at dO x
+    2**-20, from a whole ring's final lse and delta; the f16 dO enters
+    JAX as its f32 values, as JAX's ring hands its kernels dO in f32."""
+    t, n, d = 2 * TILE, 4, 64
+    x = _draw(1, t, 2, d, seed=151 + 7 * q_index + src, n=3)
+    q, k, v = (torch.from_numpy(a).to(torch.float16).transpose(1, 2).contiguous() for a in x)
+    do = torch.from_numpy(_draw(1, t, 2, d, seed=157, n=1)[0]).transpose(1, 2).contiguous()
+    do = do * F16_DO_SCALES[-1]
+    do = do.to(torch.float16) if dout == "f16" else do
+    pos = [torch.from_numpy(ring.shard_positions(i, t, n, layout).astype(np.int32))
+           for i in range(n)]
+    scale = fa.default_scale(d)
+    lse, delta = _ring_stats(q, k, v, do, pos[q_index], pos, scale, True)
+    want = jfa.flash_ring_step_bwd(
+        *(jnp.asarray(a.float().numpy(), jnp.float16) for a in (q, k, v)),
+        jnp.asarray(do.float().numpy()), jnp.asarray(lse[..., None].numpy()),
+        jnp.asarray(delta[..., None].numpy()), jnp.asarray(pos[q_index].numpy()),
+        jnp.asarray(pos[src].numpy()), causal=True, scale=scale, block_q=TILE, block_k=TILE,
+        interpret=True)
+    got = emulate_k8_k9_f16(q, k, v, do, lse, delta, pos[q_index], pos[src], scale, True)
+    _assert_f16_ring_close(got, want, (q_index, src, layout, dout))
+
+
+def test_k8_k9_unscaled_f16_split_fails_at_the_path_scale():
+    """Why K8's and K9's f16 builds split in bf16: P and dS split into
+    f16 hi and lo without scaling meet phase 52's rule at unit scale,
+    but at dO x 2**-20 dS lies below f16's normal range, where its
+    subnormal step (6e-8) is a large part of each entry, and dq, dk and
+    dv leave the rule."""
+    for do_scale, fails in zip(F16_DO_SCALES, (False, True)):
+        q, k, v, do, lse, delta, q_pos, k_pos, causal = _ring_case(
+            K89_CASES[0], 64, "f16", seed=163, dtype=torch.float16, do_scale=do_scale)
+        scale = fa.default_scale(64)
+        got = emulate_k8_k9_f16(q, k, v, do, lse, delta, q_pos, k_pos, scale, causal,
+                                f16_parts=True)
+        want = fa.flash_ring_step_bwd_plain(q, k, v, do, lse, delta, q_pos, k_pos,
+                                            causal=causal, scale=scale)
+        failed = [name for name, a, b in zip(("dq", "dk", "dv"), got, want)
+                  if _f16_ring_excess(a, b) > 0.0 or f16_zero_flushes(a, b)]
         assert bool(failed) == fails, (do_scale, failed)

@@ -16,10 +16,16 @@ block is one block on both sides (the port blocks its online softmax by
   (a step's, from stats that do not normalise its P, up to ~5), so their
   rounding is relative to the terms: rtol 1e-5 plus 1e-5 of the largest
   magnitude, the f32 tolerance ``chip_smoke.py`` holds the kernels to.
-- bf16 step inputs: the same, since the carry and the step gradients are
-  f32 and both round P to bf16 relative to the same running max; the
-  ring's bf16 output and gradients within 2 bf16 ulps (rtol 2**-7) plus
-  2**-10 of the largest magnitude.
+- bf16 and f16 step inputs: the same, since the carry and the step
+  gradients are f32 and both round P to q's dtype relative to the same
+  running max; except the carry of f16 inputs, held to the f16 rule
+  below: the two sides' p, an f32 ulp apart, land on different f16
+  neighbours far more often than on bf16's 8 times coarser grid
+  (measured 0.7% of the elements past the f32 tolerance, the worst by
+  4.8e-5).  The ring's bf16 output and gradients within 2 bf16 ulps
+  (rtol 2**-7) plus 2**-10 of the largest magnitude, its f16 ones within
+  ``chip_smoke.py``'s f16 rule (phase 51's): 2 f16 ulps (rtol 2**-10,
+  at least two subnormal steps) plus 2**-12 of the largest magnitude.
 - A fully masked step leaves the carry bit for bit.
 - The wide head dims of the DP=256 builds (136, 256) at B=1, T=32 on
   16-row blocks and T=40 on 8-row blocks (the JAX kernels need whole
@@ -31,12 +37,14 @@ block is one block on both sides (the port blocks its online softmax by
   magnitude: scores summed over 136-256 products in two orders differ
   by enough f32 ulps that some p round to the other bf16 neighbour
   before P V (at D=136, 1.3% of the elements past the f32 tolerance,
-  the worst by 7.2e-5).
+  the worst by 7.2e-5); the carry of f16 inputs within the f16 rule
+  above, for the same reason at f16's finer step.
 - A head_dim that is no multiple of 8 (100) through the pad: each step
   bit-equal to the unpadded computation; the ring, which pads once
   before it, bit-equal in its output and within the gradient tolerance
   above in its gradients (its delta = sum(dO * out) then sums 104
-  columns, four of them zero, in another order than 100).
+  columns, four of them zero, in another order than 100); in f16 the
+  ring's gradients within the f16 rule.
 """
 
 import importlib
@@ -47,6 +55,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import ATTN_F16_ATOL_SHARE, ATTN_F16_RTOL, F16_ULP_FLOOR
 from elasticdl_tpu.parallel import MeshConfig as JaxMeshConfig
 from elasticdl_tpu.parallel import build_mesh as jax_build_mesh
 from elasticdl_tpu.parallel import ring_attention as jring
@@ -101,13 +110,25 @@ def _assert_bf16_close(got, want, what):
     assert (np.abs(got - want) - limit).max() <= 0.0, (what, float(np.abs(got - want).max()))
 
 
+def _assert_f16_close(got, want, what):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    limit = np.maximum(ATTN_F16_RTOL * np.abs(want), F16_ULP_FLOOR)
+    limit = limit + ATTN_F16_ATOL_SHARE * np.abs(want).max()
+    assert (np.abs(got - want) - limit).max() <= 0.0, (what, float(np.abs(got - want).max()))
+
+
+def _assert_low_close(got, want, what, dtype):
+    """The 2-byte dtypes' rule: bf16's or f16's."""
+    (_assert_f16_close if dtype == "float16" else _assert_bf16_close)(got, want, what)
+
+
 def _assert_grad_close(got, want, what):
     want = np.asarray(want)
     np.testing.assert_allclose(got.numpy(), want, err_msg=what, rtol=GRAD_RTOL,
                                atol=GRAD_ATOL_SHARE * np.abs(want).max())
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("q_index,src,layout,causal", STEPS)
 def test_step_carry_plain_matches_jax_kernel(q_index, src, layout, causal, dtype):
     t = 32
@@ -122,13 +143,16 @@ def test_step_carry_plain_matches_jax_kernel(q_index, src, layout, causal, dtype
     got = fa.flash_ring_step_carry(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)), p_acc, p_lse,
                                    q_pos, k_pos, causal=causal, scale=SCALE)
     assert got[0] is p_acc and got[1] is p_lse  # updated in place
-    np.testing.assert_allclose(p_acc.numpy(), np.asarray(j_acc), **F32_TOL)
+    if dtype == "float16":
+        _assert_f16_close(p_acc.numpy(), np.asarray(j_acc), "acc")
+    else:
+        np.testing.assert_allclose(p_acc.numpy(), np.asarray(j_acc), **F32_TOL)
     np.testing.assert_allclose(p_lse.numpy(), np.asarray(j_lse), rtol=0, atol=LSE_ATOL)
     if causal and layout == "contiguous" and src > q_index:  # fully masked: carry kept
         assert np.array_equal(p_acc.numpy(), acc) and np.array_equal(p_lse.numpy(), lse)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("q_index,src,layout,causal", STEPS)
 def test_step_bwd_plain_matches_jax_kernels(q_index, src, layout, causal, dtype):
     t = 32
@@ -182,7 +206,7 @@ def test_step_bwd_gives_no_gradient_to_a_row_that_saw_no_key():
 
 WIDE = [(d, t, layout, dtype) for d in (136, 256)
         for t, layout in ((32, "contiguous"), (40, "zigzag"))
-        for dtype in ("float32", "bfloat16")]
+        for dtype in ("float32", "bfloat16", "float16")]
 
 
 @pytest.mark.parametrize("d,t,layout,dtype", WIDE)
@@ -211,7 +235,7 @@ def test_wide_head_dim_step_matches_jax_kernels(d, t, layout, dtype):
         np.testing.assert_allclose(p_acc.numpy(), np.asarray(j_acc), rtol=F32_TOL["rtol"],
                                    atol=F32_TOL["atol"] * np.sqrt(d / 16))
     else:
-        _assert_bf16_close(p_acc.numpy(), np.asarray(j_acc), "acc")
+        _assert_low_close(p_acc.numpy(), np.asarray(j_acc), "acc", dtype)
     np.testing.assert_allclose(p_lse.numpy(), np.asarray(j_lse), rtol=0, atol=LSE_ATOL)
     f_lse = np.log(2.0 + np.abs(lse)) + 1.0  # a whole ring's final stats
     delta = 0.3 * _draw((1, H, t, 1), seed=d + t + 3, n=1)[0]
@@ -228,7 +252,7 @@ def test_wide_head_dim_step_matches_jax_kernels(d, t, layout, dtype):
         _assert_grad_close(g, w, name)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_head_dim_pad_changes_nothing_on_the_ring(dtype):
     """What the step wrappers do on the card for a head_dim that is no
     multiple of 8 (100), run through the plain versions: q, the K/V
@@ -276,7 +300,7 @@ def test_head_dim_pad_changes_nothing_on_the_ring(dtype):
         if dtype == "float32":
             _assert_grad_close(a.float(), b.float().numpy(), f"d{name}")
         else:
-            _assert_bf16_close(a.float(), b.float().numpy(), f"d{name}")
+            _assert_low_close(a.float(), b.float().numpy(), f"d{name}", dtype)
 
 
 def _carry_d(t, d, seed):
@@ -394,6 +418,30 @@ def test_bf16_ring_matches_jax_ring():
         _assert_bf16_close(got.float(), np.asarray(w, np.float32), f"d{name}")
 
 
+def test_f16_ring_matches_jax_ring():
+    """The float16 ring: JAX's Pallas ring under ``shard_map`` (its
+    kernels cast q, k, v to f32 inside and round P to f16 before P V)
+    against the port's, output and gradients in float16 at the f16
+    rule."""
+    q, k, v, g = _draw((2, 64, H, D), seed=43, n=4)
+    mesh = _jax_mesh()
+
+    def f(q, k, v):
+        return jring.ring_self_attention(mesh, q, k, v, causal=True, layout="zigzag",
+                                         impl="pallas")
+
+    want, vjp = jax.vjp(f, *(jnp.asarray(x, jnp.float16) for x in (q, k, v)))
+    want_grads = vjp(jnp.asarray(g, jnp.float16))
+    leaves = [torch.from_numpy(x).to(torch.float16).requires_grad_(True) for x in (q, k, v)]
+    out = ring.ring_self_attention(_port_mesh(), *leaves, causal=True, layout="zigzag")
+    got_grads = torch.autograd.grad(out, leaves, torch.from_numpy(g).to(torch.float16))
+    assert out.dtype == torch.float16 and want.dtype == jnp.float16
+    _assert_f16_close(out.detach().float(), np.asarray(want, np.float32), "out")
+    for name, got, w in zip("qkv", got_grads, want_grads):
+        assert got.dtype == torch.float16 and w.dtype == jnp.float16
+        _assert_f16_close(got.float(), np.asarray(w, np.float32), f"d{name}")
+
+
 @pytest.mark.parametrize("layout", ["contiguous", "zigzag"])
 def test_block_math_ring_matches_jax_and_the_flash_ring(layout):
     """``ring_attention`` (the XLA engine) against the JAX ring with
@@ -414,11 +462,12 @@ def test_block_math_ring_matches_jax_and_the_flash_ring(layout):
     np.testing.assert_allclose(flash.numpy(), got.numpy(), **F32_TOL)
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
 @pytest.mark.parametrize("layout", ["contiguous", "zigzag"])
 def test_ring_backward_takes_the_gradient_in_its_dtype(layout, dtype):
     """The ring backward hands K8 and K9 the gradient in q's dtype (bf16
-    on a bf16 model) where it used to hand them an f32 copy: the plain
+    or f16 on a model computing in it) where it used to hand them an f32
+    copy: the plain
     route's dq, dk and dv are bit-identical to those from the f32 copy,
     through autograd and called directly."""
     q, k, v, g = (torch.from_numpy(x).to(getattr(torch, dtype))
@@ -466,6 +515,40 @@ def test_bf16_gradient_reaches_the_step_kernels_without_an_upcast(monkeypatch):
     off = torch.zeros(bf16.numel() + 1, dtype=torch.bfloat16)[1:].view(bf16.shape)
     aligned = fa._ring_kernel_dout(off, bf16)
     assert aligned.data_ptr() % 16 == 0 and aligned.dtype == torch.bfloat16
+    assert torch.equal(aligned, off)
+
+
+def test_f16_gradient_reaches_the_step_kernels_as_f16(monkeypatch):
+    """On an f16 ring the step functions receive the f16 gradient, and the
+    kernels' wrapper passes an f16 dO beside f16 q through as it is, with
+    no f32 copy (a copy only where it is not 16-byte aligned); an f32 dO
+    stays f32, and an f16 dO beside q of another dtype is read as f32."""
+    seen = []
+
+    def spy(fn):
+        def wrapped(q, k_blk, v_blk, do, *args, **kwargs):
+            seen.append((fn.__name__, do.dtype, fa._ring_kernel_dout(do, q).dtype))
+            return fn(q, k_blk, v_blk, do, *args, **kwargs)
+        return wrapped
+
+    for name in ("flash_ring_step_dq", "flash_ring_step_dkv"):
+        monkeypatch.setattr(fa, name, spy(getattr(fa, name)))
+    q = torch.from_numpy(_draw((2, 64, H, D), seed=63, n=1)[0]).to(torch.float16)
+    q.requires_grad_(True)
+    ring.ring_attention_pallas(q, q, q, ring=ring.Ring(N, range(N)), causal=True).sum().backward()
+    assert len(seen) == 2 * N * N
+    assert {(given, read) for _, given, read in seen} == {(torch.float16, torch.float16)}
+
+    f16 = torch.zeros((2, 2, 64, 16), dtype=torch.float16)
+    f32 = torch.zeros((2, 2, 64, 16))
+    bf16 = f16.to(torch.bfloat16)
+    assert fa._ring_kernel_dout(f16, f16) is f16
+    assert fa._ring_kernel_dout(f32, f16) is f32
+    assert fa._ring_kernel_dout(f16, bf16).dtype == torch.float32
+    assert fa._ring_kernel_dout(f16, f32).dtype == torch.float32
+    off = torch.zeros(f16.numel() + 1, dtype=torch.float16)[1:].view(f16.shape)
+    aligned = fa._ring_kernel_dout(off, f16)
+    assert aligned.data_ptr() % 16 == 0 and aligned.dtype == torch.float16
     assert torch.equal(aligned, off)
 
 
